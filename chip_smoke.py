@@ -5,38 +5,75 @@
 
 Phases, each fatal on failure:
 
-1. device   -- a CUDA card must be present; prints its name and power limit.
-2. build    -- compiles the CUDA kernels of ``kernels/dif_combine/csrc`` with
-               nvcc for sm_90a and prints the build seconds.
-3. kernels  -- holds ``dif_combine`` and ``fused_combine_update`` against
-               their plain PyTorch versions on the card: at the shapes the
-               training step gives them (the sine MLP's leaves, K=6, padded
-               as the step pads them) and at K=6, M=2^24 in float32 and
-               bfloat16, the fused kernel across optimizer kind x mix mode x
-               gate x schedule length.  Each check prints its largest error
-               against the stated tolerance, the kernel's time, the plain
-               version's, the least time the card could take (bound) and,
-               for the combine, one PyTorch matmul's time as a yardstick.
-4. main path -- runs ``python -m repro_torch.launch.quickstart`` (K=6 agents
-               on the paper's Fig. 2a graph, ATC, exact MAML, Adam) for 300
-               steps with ``--backend dense``, ``pallas`` and ``fused`` from
-               one init and one episode stream, and 5 steps on the CPU as a
-               reference.  Losses must be finite and fall, disagreement stay
-               small, the backends agree step by step, and each kernel's
-               launch counter, zeroed just before its run, show its launches.
-5. profile  -- device time per step of the fused training step
-               (torch.profiler), to show where a step's time goes.
+1. device    -- a CUDA card must be present; prints its name and power limit.
+2. build     -- compiles the CUDA sources of ``kernels/dif_combine/csrc`` and
+                ``kernels/flash_attention/csrc`` with nvcc for sm_90a, both
+                at once, and prints the build seconds.
+3. kernels   -- holds ``dif_combine`` and ``fused_combine_update`` against
+                their plain PyTorch versions on the card: at the shapes the
+                training step gives them (the sine MLP's leaves, K=6, padded
+                as the step pads them) and at K=6, M=2^24 in float32 and
+                bfloat16, the fused kernel across optimizer kind x mix mode
+                x gate x schedule length.  Each check prints its largest
+                error against the stated tolerance, the kernel's time, the
+                plain version's, the least time the card could take (bound)
+                and, for the combine, one PyTorch matmul's time.
+4. training  -- runs ``python -m repro_torch.launch.quickstart`` (K=6 agents
+                on the paper's Fig. 2a graph, ATC, exact MAML, Adam) for 300
+                steps with ``--backend dense``, ``pallas`` and ``fused`` from
+                one init and one episode stream, and 5 steps on the CPU as a
+                reference.  Losses must be finite and fall, disagreement stay
+                small, the backends agree step by step, and each kernel's
+                launch counter, zeroed just before its run, show its launches.
+5. profile   -- device time per step of the fused training step
+                (torch.profiler), to show where a step's time goes.
+6. flash     -- holds the flash-attention forward (out, lse) and backward
+                (dq, dk, dv) kernels against ``attention_ref`` and its autograd
+                gradient: S in {128, 256, 1024} x d in {64, 128} x {causal,
+                bidirectional, causal window 64} x {float32, bfloat16}, and
+                the serving path's shape (B=16: 4 users x 4 sequences, H=12,
+                S=256, d=128, bfloat16, causal).  Each check prints its
+                errors, the kernels' times, the plain versions', SDPA's (the
+                library yardstick, never called by the port) and the bounds.
+                At the serving shape, planted faults in the backward's
+                output (a dropped key tile, zeroed rows) must fail its check.
+7. serve     -- runs ``python -m repro_torch.launch.serve --arch qwen2-1.5b``
+                at full width (28 layers, bfloat16, fresh init from seed 0;
+                4 users x 4 sequences x 256 tokens, 2 adapt steps, 2 rounds,
+                128 prompt + 128 generated tokens).  The flash launch
+                counters, zeroed just before, must show 28 x 2 forward and
+                2 x 28 x 2 backward launches (one adapt dispatch; the
+                backward is a dK/dV and a dQ kernel); round 1 has 4
+                misses and round 2 4 hits; every adapted leaf is finite; each
+                user's support loss falls with adaptation; 256 tokens come
+                out per sequence.  (Users of one domain share a cache entry,
+                as in the reference: a hit returns the state of the
+                domain's last adapted user, and that user's support loss
+                must stay below the launch model's.)  Prints adapt,
+                compress and SVD seconds, tok/s, peak device memory by
+                stage, and where the adapt dispatch's peak goes (one more
+                dispatch with the allocator's history recorded).
+8. agreement -- the same config cut to 2 layers, one set of weights and one
+                episode: the launch and adapted support and query losses on
+                the card (kernels) match a CPU run of the port (plain
+                versions) in the same dtype, within 2e-2 relative in
+                float32 and 1e-3 in bfloat16, and adaptation lowers the
+                support loss in every run.  The
+                CPU's bf16 losses against its f32 ones are reported.
 
 The last two lines of standard output are the kernels' numbers and the
 device, as JSON.  Without a CUDA card the script exits 1 before any result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -47,6 +84,7 @@ import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12          # H100 SXM, fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12         # H100 SXM, bf16 tensor cores, dense
 # float32: the kernels evaluate the plain versions' expressions but sum the
 # K terms of a mix in another order (a few ulps of values of order 1).
 # bfloat16: outputs are rounded to bf16 after that, so one ulp (2^-7
@@ -61,9 +99,42 @@ STEPS = 300
 # summation order (a CPU run of 300 steps differs by 2.4e-7 relative).
 LOSS_RTOL = 1e-4
 SOURCE = "src/repro_torch/kernels/dif_combine/csrc/dif_combine.cu"
+FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+                "flash_attention.cu")
 REPLACES = {"dif_combine": "src/repro/kernels/dif_combine/dif_combine.py:94",
             "fused_combine_update":
-                "src/repro/kernels/dif_combine/dif_combine.py:174"}
+                "src/repro/kernels/dif_combine/dif_combine.py:174",
+            "flash_attention_fwd":
+                "src/repro/kernels/flash_attention/flash_attention.py:84",
+            "flash_attention_bwd":
+                "src/repro/kernels/flash_attention/flash_bwd.py:107"}
+# Flash attention against attention_ref and its autograd gradient, and the
+# backward also against its plain version.  float32: the same products
+# summed in another order (a blocked online softmax).  bfloat16: both round
+# float32 results to bf16, two bf16 ulps apart at most (rtol), plus an atol
+# of FLASH_BF16_ROW_ATOL times the largest |value| of the element's row (one
+# bf16 ulp of it at most) for the float32 sums' order near zero.  A fixed
+# atol would not do: late rows of dq and dk are smaller than any fixed atol
+# that the early rows would need.  Against autograd the backward also
+# carries the rounding of the stored output it reads (stored_output_slack).
+FLASH_TOL = {torch.float32: {"fwd": dict(rtol=1e-5, atol=1e-5),
+                             "bwd": dict(rtol=1e-4, atol=1e-4)},
+             torch.bfloat16: {"fwd": dict(rtol=1.6e-2, atol=0.0),
+                              "bwd": dict(rtol=1.6e-2, atol=0.0)}}
+FLASH_BF16_ROW_ATOL = 2.0 ** -8
+# The serving path's attention shape: 4 users x 4 sequences, 12 heads,
+# 256 tokens, head dim 128, bfloat16, causal.
+FLASH_MAIN = dict(B=16, H=12, S=256, d=128, dtype=torch.bfloat16,
+                  causal=True, window=None)
+SERVE_ARGS = ["--arch", "qwen2-1.5b", "--batch", "4", "--prompt-len", "128",
+              "--gen", "128", "--adapt-steps", "2", "--users", "4",
+              "--rounds", "2", "--seed", "0"]
+# Losses of the 2-layer model on the card (kernels) against a CPU run
+# (plain versions) in the same dtype: float32 at 2e-2; bfloat16
+# at 1e-3, some 35x the largest gap measured on an H100 (2.8e-5: P rounded
+# to bf16 before P.V on the CPU and kept in f32 by the kernel, and the
+# order of the sums).
+AGREE_RTOL = {"card_f32_vs_cpu_f32": 2e-2, "card_bf16_vs_cpu_bf16": 1e-3}
 
 
 def nvidia_smi() -> str:
@@ -101,22 +172,31 @@ def time_ms(fn, n: int, reps: int = 7) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+def bound_ms(nbytes: float, flops: float,
+             flop_per_s: float = FP32_FLOP_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                         else "operations")
 
 
-def compare(got, want, dtype, what: str) -> float:
-    """Largest |got - want|; raises unless within TOL[dtype]."""
-    err = (got.float() - want.float()).abs()
-    limit = TOL[dtype]["atol"] + TOL[dtype]["rtol"] * want.float().abs()
-    bad = int((err > limit).sum())
+def outside(got, want, tol: dict, slack=0.0) -> tuple[int, float]:
+    """(elements of ``got`` outside ``tol`` plus a per-element ``slack``
+    around ``want``, largest |got - want|)."""
+    err = (got.detach().float() - want.detach().float()).abs()
+    limit = tol["atol"] + tol["rtol"] * want.detach().float().abs() + slack
+    return int((err > limit).sum()), float(err.max())
+
+
+def compare(got, want, dtype, what: str, tol: dict | None = None,
+            slack=0.0) -> float:
+    """Largest |got - want|; raises unless within ``tol`` (TOL[dtype]) plus
+    a per-element ``slack``."""
+    tol = TOL[dtype] if tol is None else tol
+    bad, err = outside(got, want, tol, slack)
     if bad or not torch.isfinite(got.float()).all():
         raise AssertionError(f"{what}: {bad} elements outside "
-                             f"{TOL[dtype]} (max abs err "
-                             f"{float(err.max()):.3e})")
-    return float(err.max())
+                             f"{tol} (max abs err {err:.3e})")
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -418,6 +498,477 @@ def profile_phase(backend: str, steps: int = 50):
     return row
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the flash-attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def flash_cost(B, H, S, d, itemsize, pairs_per_head, backward):
+    """(bytes, flops) of one forward or backward: every input read once and
+    every output written once; 4 d flops per allowed (query, key) pair in
+    the forward (q.k and p.v), 10 d in the backward (the recomputed scores,
+    dP, dV, dK and dQ).  ``pairs_per_head`` counts the pairs the mask
+    allows in this run."""
+    tile = B * H * S * d * itemsize
+    rows = B * H * S * 4                                # one float32 a row
+    if backward:   # q, k, v, out, dO and lse in; dq, dk, dv out
+        return 8 * tile + rows, 10.0 * d * pairs_per_head * B * H
+    return 4 * tile + rows, 4.0 * d * pairs_per_head * B * H
+
+
+def library_attention(q, k, v, causal, window, fref):
+    """One PyTorch call of the same forward: SDPA, with the band as a
+    boolean mask where a window is set."""
+    import torch.nn.functional as F
+    if window is None:
+        return lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=causal)
+    mask = fref.band_mask(q.shape[2], k.shape[2], causal, window, q.device)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+def row_atol(want):
+    """The bf16 atol of each element: FLASH_BF16_ROW_ATOL times the largest
+    |value| in its row (float32: none beyond FLASH_TOL's)."""
+    if want.dtype != torch.bfloat16:
+        return 0.0
+    return FLASH_BF16_ROW_ATOL * want.detach().float().abs().amax(
+        -1, keepdim=True)
+
+
+def probs(fref, q, k, lse, causal, window):
+    """P = exp(S - lse) in float32, (B, H, S, S_k)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) * scale
+    mask = fref.band_mask(q.shape[2], k.shape[2], causal, window, q.device)
+    return torch.exp(torch.where(mask, logits, fref.NEG_INF)
+                     - lse[..., None])
+
+
+def stored_output_slack(fref, q, k, out, lse, do, causal, window):
+    """Per-element bound on how far a backward that reads the *stored*
+    output can sit from autograd through ``attention_ref``.  The backward
+    kernel (as the Pallas one, and FlashAttention-2) takes D = rowsum(dO*O)
+    from ``out`` in the working dtype; autograd uses the float32 output
+    before its rounding.  Rounding moves each O by at most u|O| (u = 2^-8
+    in bf16, 2^-24 in float32), so |dD| <= u * sum|dO*O|, which reaches dQ
+    as scale * dD * sum_j P K_j and dK as scale * sum_i P_ij dD_i q_i; dV
+    does not read D.  Returns (dq, dk, dv) slacks."""
+    u = 2.0 ** -8 if out.dtype == torch.bfloat16 else 2.0 ** -24
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf = q.float(), k.float()
+    p = probs(fref, q, k, lse, causal, window)
+    dD = u * (do.float().abs() * out.float().abs()).sum(-1, keepdim=True)
+    slack_dq = scale * dD * (p @ kf.abs())
+    slack_dk = scale * (p.transpose(-1, -2) @ (dD * qf.abs()))
+    return slack_dq, slack_dk, 0.0
+
+
+def check_flash(fops, fref, gen, B, H, S, d, dtype, causal, window,
+                n=10, faults=False):
+    q, k, v, do = (torch.randn(B, H, S, d, generator=gen, device=DEVICE
+                               ).to(dtype) for _ in range(4))
+    kw = dict(causal=causal, window=window)
+    out, lse4 = fops.flash_attention_fwd_lse(q, k, v, **kw)
+    lse = lse4[..., 0]
+    dq, dk, dv = fops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    want = fref.attention_ref(*leaves, **kw)
+    want.backward(do)
+    _, want_lse = fref.flash_fwd_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    what = (f"flash B={B} H={H} S={S} d={d} {str(dtype)[6:]} causal={causal}"
+            f" window={window}")
+    tol = FLASH_TOL[dtype]
+    fwd_err = max(compare(out, want, dtype, what + " out", tol["fwd"],
+                          row_atol(want)),
+                  compare(lse, want_lse, torch.float32, what + " lse",
+                          FLASH_TOL[torch.float32]["fwd"]))
+    # the kernel against its plain version on the same inputs (both read
+    # the stored output), and against autograd through attention_ref
+    plain = fref.flash_bwd_ref(q, k, v, out, lse, do, **kw)
+    slack = stored_output_slack(fref, q, k, out, lse, do, causal, window)
+    bwd_plain_err = max(compare(g, p, dtype, f"{what} d{name} (plain)",
+                                tol["bwd"], row_atol(p))
+                        for g, p, name in zip((dq, dk, dv), plain, "qkv"))
+    bwd_err = max(compare(g, leaf.grad, dtype, f"{what} d{name}",
+                          tol["bwd"], sl + row_atol(leaf.grad))
+                  for g, leaf, sl, name in zip((dq, dk, dv), leaves, slack,
+                                               "qkv"))
+    pairs = int(fref.band_mask(S, S, causal, window, q.device).sum())
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    row = dict(B=B, H=H, S=S, d=d, dtype=str(dtype)[6:], causal=causal,
+               window=window, fwd_max_abs_err=fwd_err,
+               bwd_max_abs_err=bwd_err, bwd_vs_plain_max_abs_err=bwd_plain_err,
+               tol=tol)
+    lib = library_attention(q, k, v, causal, window, fref)
+    row["fwd_ms"] = time_ms(lambda: fops.flash_attention_fwd_lse(q, k, v,
+                                                                 **kw), n)
+    row["fwd_plain_ms"] = time_ms(lambda: fref.flash_fwd_ref(q, k, v, **kw),
+                                  n)
+    row["fwd_library_ms"] = time_ms(lib, n)
+    row["bwd_ms"] = time_ms(lambda: fops.flash_attention_bwd(
+        q, k, v, out, lse, do, **kw), n)
+    row["bwd_plain_ms"] = time_ms(lambda: fref.flash_bwd_ref(
+        q, k, v, out, lse, do, **kw), n)
+    # the library's backward: one torch.autograd.grad through SDPA, timed
+    # with its forward, less the forward alone
+    lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lib_grad = library_attention(lq, lk, lv, causal, window, fref)
+    both = time_ms(lambda: torch.autograd.grad(lib_grad(), (lq, lk, lv),
+                                               do), n)
+    row["bwd_library_ms"] = max(both - row["fwd_library_ms"], 0.0)
+    for phase in ("fwd", "bwd"):
+        row[f"{phase}_bound_ms"], row[f"{phase}_bound_by"] = bound_ms(
+            *flash_cost(B, H, S, d, q.element_size(), pairs,
+                        phase == "bwd"), peak)
+    print("flash check", json.dumps(row), flush=True)
+    if faults:
+        planted_faults(fref, q, k, out, lse, do, (dq, dk, dv), leaves,
+                       slack, causal, window, tol["bwd"])
+    return row
+
+
+def planted_faults(fref, q, k, out, lse, do, grads, leaves, slack, causal,
+                   window, tol, tile=64):
+    """Plant faults in the kernel's (dq, dk, dv) and require the backward's
+    check against autograd to reject each; prints how many elements each
+    rule flags, the check's and a fixed atol of 1e-2's."""
+    dq, dk, dv = grads
+    S = q.shape[2]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = probs(fref, q, k, lse, causal, window)
+    dof = do.float()
+    v = leaves[2].detach().float()
+    ds = p * (dof @ v.transpose(-1, -2)
+              - (dof * out.float()).sum(-1, keepdim=True)) * scale
+    keys = slice(tile, 2 * tile)
+    dropped = dq.float() - ds[..., keys] @ k[:, :, keys].float()
+    faults = {
+        f"dq without key tile {tile}:{2 * tile}": ("q", dropped.to(dq.dtype)),
+        f"dq rows {S - tile}:{S} zero": ("q", zero_rows(dq, S - tile, S)),
+        f"dk rows {2 * tile}:{3 * tile} zero": ("k",
+                                                zero_rows(dk, 2 * tile,
+                                                          3 * tile)),
+        f"dv rows 0:{tile} zero": ("v", zero_rows(dv, 0, tile)),
+    }
+    row = {}
+    for name, (which, bad) in faults.items():
+        i = "qkv".index(which)
+        want = leaves[i].grad
+        flagged, _ = outside(bad, want, tol, slack[i] + row_atol(want))
+        fixed, _ = outside(bad, want, dict(rtol=tol["rtol"], atol=1e-2),
+                           slack[i])
+        if not flagged:
+            raise AssertionError(f"planted fault '{name}' passes the "
+                                 f"backward check")
+        row[name] = dict(flagged=flagged, flagged_fixed_atol_1e2=fixed,
+                         elements=want.numel())
+    print("flash planted faults", json.dumps(row), flush=True)
+
+
+def zero_rows(x, lo, hi):
+    x = x.clone()
+    x[:, :, lo:hi] = 0
+    return x
+
+
+def flash_phase(fops, fref):
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    rows = []
+    for S in (128, 256, 1024):
+        for d in (64, 128):
+            for causal, window in ((True, None), (False, None), (True, 64)):
+                for dtype in (torch.float32, torch.bfloat16):
+                    rows.append(check_flash(fops, fref, gen, 2, 4, S, d,
+                                            dtype, causal, window, n=5))
+    m = FLASH_MAIN
+    main = check_flash(fops, fref, gen, m["B"], m["H"], m["S"], m["d"],
+                       m["dtype"], m["causal"], m["window"], n=20,
+                       faults=True)
+    return main, rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the serving path at full width
+# ---------------------------------------------------------------------------
+
+def serve_phase(fops):
+    from repro_torch.launch import serve
+
+    seen = {"peaks": [], "losses": {}, "check_launches": {}}
+
+    def on_round(eng, rnd, ep, adapted, m):
+        """Read a round's states while they are alive: finite leaves and
+        each user's support loss.  The serving path's peak memory is read
+        on entry and the peak is reset on exit, and the flash launches of
+        these reads are kept apart, so neither counts them."""
+        seen["peaks"].append(torch.cuda.max_memory_allocated())
+        counts = dict(fops.launch_counts)
+        for i, a in enumerate(adapted):
+            bad = [k for k, v in a.items() if not torch.isfinite(v).all()]
+            if bad:
+                raise AssertionError(f"serve: user {i} has non-finite "
+                                     f"adapted leaves {bad[:4]} (round "
+                                     f"{rnd})")
+        supports = [{k: v[i] for k, v in ep.support.items()}
+                    for i in range(len(adapted))]
+        if rnd == 0:
+            with torch.no_grad():
+                before = torch.func.vmap(eng.model.loss_fn,
+                                         in_dims=(None, 0))(
+                    eng.params, eng._stack(supports, len(supports)))
+            seen["before"] = before.float().cpu().numpy()
+            seen["supports"] = supports
+        seen["losses"][rnd] = eng.adapted_loss(adapted, supports)
+        for k, n in fops.launch_counts.items():
+            seen["check_launches"][k] = (seen["check_launches"].get(k, 0)
+                                         + n - counts[k])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.reset_peak_memory_stats()
+    fops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = serve.main(SERVE_ARGS, on_round=on_round)
+    wall = time.perf_counter() - t0
+    launches = {k: n - seen["check_launches"].get(k, 0)
+                for k, n in fops.launch_counts.items()}
+    seen["peaks"].append(torch.cuda.max_memory_allocated())
+    eng, ep = out["engine"], out["episode"]
+    layers, steps = eng.cfg.num_layers, eng.adapt_steps
+    # per layer and step: one forward launch, and the backward's two (dK/dV
+    # and dQ)
+    expect = {"flash_attention_fwd": layers * steps,
+              "flash_attention_bwd": 2 * layers * steps}
+    if launches != expect:
+        raise AssertionError(f"serve: flash launches {launches}, expected "
+                             f"{expect} (one adapt dispatch of {steps} "
+                             f"steps through {layers} layers)")
+    rounds = out["rounds"]
+    users = len(out["adapted"])
+    if [(r["misses"], r["hits"]) for r in rounds] != [(users, 0),
+                                                      (0, users)]:
+        raise AssertionError(f"serve: rounds {rounds}, expected {users} "
+                             f"misses then {users} hits")
+    before, after, after_hit = (seen["before"], seen["losses"][0],
+                                seen["losses"][1])
+    # each user's own adaptation (the miss round) lowers its support loss
+    if not (np.isfinite(after).all() and (after < before).all()):
+        raise AssertionError(f"serve: support loss did not fall with "
+                             f"adaptation: {before} -> {after}")
+    # users of one domain share a cache entry (the reference's semantics):
+    # a hit returns the state of the domain's last adapted user, which must
+    # keep that user's gain
+    owners = {int(dom): i for i, dom in enumerate(ep.domains)}
+    lost = [i for i in owners.values() if not after_hit[i] < before[i]]
+    if lost:
+        raise AssertionError(f"serve: cached states of users {lost} lost "
+                             f"their adaptation: {before} -> {after_hit}")
+    total = eng.prompt_len + eng.gen
+    if out["tokens"].shape != (eng.batch, total):
+        raise AssertionError(f"serve: tokens {out['tokens'].shape}, "
+                             f"expected {(eng.batch, total)}")
+    stats = eng.cache.stats()
+    del out["adapted"]
+    memory = dispatch_memory(eng, seen["supports"])
+    row = dict(
+        arch=eng.cfg.name, layers=layers, dtype=str(eng.dtype)[6:],
+        params=int(sum(v.numel() for v in eng.params.values())),
+        users=users, seqs_per_user=eng.batch, tokens_per_seq=total,
+        adapt_steps=steps, launches=launches,
+        adapt_s_miss_round=rounds[0]["seconds"],
+        adapt_dispatch_s=rounds[0]["adapt_dispatch_s"],
+        compress_s=rounds[0]["compress_s"], svd_s=rounds[0]["svd_s"],
+        adapt_s_hit_round=rounds[1]["seconds"],
+        prompt_tok_s=out["decode"]["prompt_tok_s"],
+        decode_tok_s=out["decode"]["decode_tok_s"],
+        prefill_s=out["decode"]["prefill_s"],
+        decode_s=out["decode"]["decode_s"],
+        domains=[int(x) for x in ep.domains],
+        support_loss_before=before.tolist(),
+        support_loss_after=after.tolist(),
+        support_loss_after_hit=after_hit.tolist(),
+        cache=stats, max_memory_allocated_gb=max(seen["peaks"]) / 1e9,
+        peak_gb_by_stage=dict(zip(("miss round", "hit round", "decode"),
+                                  (x / 1e9 for x in seen["peaks"]))),
+        dispatch_memory=memory, wall_s=wall)
+    print("serve", json.dumps(row), flush=True)
+    del out, eng
+    torch.cuda.empty_cache()
+    return row
+
+
+def dispatch_memory(eng, supports, top=20) -> dict:
+    """Where the adapt dispatch's peak device memory goes: one more dispatch
+    of the same users on the same launch model, with the allocator's
+    history recorded; the blocks live at its peak, summed by the innermost
+    ``repro_torch`` line that allocated them."""
+    stacked = eng._stack(supports, eng._bucket(len(supports)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.memory._record_memory_history(
+        enabled="all", context="alloc", stacks="python", max_entries=1 << 20)
+    try:
+        adapted = eng.harness.adapt_states(eng.params, stacked)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    del adapted, stacked
+    trace = snap["device_traces"][torch.cuda.current_device()]
+    at_peak, peak_at = live_at_peak(trace)
+    sites: dict[str, int] = {}
+    for e in at_peak:
+        # blocks the autograd engine allocates (the backward) carry no
+        # Python frame: those are told apart by their size
+        site = next((f"{f['filename'].split('src/')[-1]}:{f['line']} "
+                     f"{f['name']}" for f in e.get("frames", ())
+                     if "repro_torch" in f["filename"]),
+                    f"(no repro frame) blocks of {e['size'] / 2**20:.2f} "
+                    f"MiB")
+        sites[site] = sites.get(site, 0) + e["size"]
+    ranked = sorted(sites.items(), key=lambda kv: -kv[1])
+    return dict(
+        peak_gb=peak / 1e9, before_gb=base / 1e9,
+        traced_at_peak_gb=sum(e["size"] for e in at_peak) / 1e9,
+        events=len(trace), peak_at_event=peak_at,
+        top_sites_gb={k: v / 1e9 for k, v in ranked[:top]},
+        other_sites_gb=sum(v for _, v in ranked[top:]) / 1e9)
+
+
+def live_at_peak(trace) -> tuple[list, int]:
+    """The ``alloc`` entries of an allocator trace that are live when the
+    sum of live traced blocks is largest (blocks allocated before the
+    trace started are not in it), and the index of that event."""
+    def replay(stop=None):
+        live, total, best = {}, 0, (0, -1)
+        for i, e in enumerate(trace):
+            if e["action"] == "alloc":
+                live[e["addr"]] = e
+                total += e["size"]
+                if total > best[0]:
+                    best = (total, i)
+            elif e["action"] == "free_requested" and e["addr"] in live:
+                total -= live.pop(e["addr"])["size"]
+            if i == stop:
+                break
+        return live, best
+    _, (_, peak_at) = replay()
+    live, _ = replay(peak_at)
+    return list(live.values()), peak_at
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the card against the CPU on a 2-layer cut of the same config
+# ---------------------------------------------------------------------------
+
+def agreement_phase(cfg=None):
+    """The card against the CPU on one set of weights and one episode.
+    ``cfg``: qwen2-1.5b at full width cut to 2 layers unless given.
+
+    Each card run (kernels) is held against the CPU run (plain versions) in
+    its own dtype, on the launch, adapted-support and adapted-query losses.
+    The CPU's bf16 run against its f32 run is reported, not gated: bf16
+    weights cannot hold most of an inner SGD step of lr 1e-2, so the bf16
+    adapted support loss sits above the f32 one on either device."""
+    from repro_torch.configs import get_config
+    from repro_torch.eval.harness import EvalHarness
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import build_model
+
+    if cfg is None:
+        cfg = dataclasses.replace(get_config("qwen2-1.5b"), num_layers=2)
+    model = build_model(cfg)
+    harness = EvalHarness(model.loss_fn, cfg.inner_lr, 2)
+    weights = model.init(torch.Generator().manual_seed(1), torch.float32,
+                         "cpu")
+    ep = serve.make_support_source(cfg, 256, 2, seed=0).eval_sample(1,
+                                                                   seed=0)
+    runs = {"card_f32": (DEVICE, torch.float32),
+            "card_bf16": (DEVICE, torch.bfloat16),
+            "cpu_f32": ("cpu", torch.float32),
+            "cpu_bf16": ("cpu", torch.bfloat16)}
+    losses = {}
+    for run, (device, dtype) in runs.items():
+        t0 = time.perf_counter()
+        params = {k: v.to(device, dtype) for k, v in weights.items()}
+        sup, qry = ({k: torch.from_numpy(v).to(device)
+                     for k, v in part.items()}
+                    for part in (ep.support, ep.query))
+        adapted = harness.adapt_states(params, sup)
+        with torch.no_grad():
+            launch = torch.func.vmap(model.loss_fn, in_dims=(None, 0))(
+                params, sup)
+            losses[run] = dict(
+                support_launch=float(launch[0]),
+                support_adapted=float(harness.task_loss(adapted, sup)[0]),
+                query_adapted=float(harness.task_loss(adapted, qry)[0]),
+                seconds=time.perf_counter() - t0)
+        del params, adapted
+    pairs = {"card_f32": "cpu_f32", "card_bf16": "cpu_bf16",
+             "cpu_bf16": "cpu_f32"}
+    rel = {f"{run}_vs_{ref}": {
+        name: abs(v - losses[ref][name]) / abs(losses[ref][name])
+        for name, v in losses[run].items() if name != "seconds"}
+        for run, ref in pairs.items()}
+    for pair, limit in AGREE_RTOL.items():
+        for name, r in rel[pair].items():
+            run, ref = pair.split("_vs_")
+            if not (math.isfinite(losses[run][name]) and r <= limit):
+                raise AssertionError(
+                    f"agreement: {name} {run} {losses[run][name]} vs {ref} "
+                    f"{losses[ref][name]} (rel {r:.3e} > {limit})")
+    for run in runs:
+        if not losses[run]["support_adapted"] < losses[run][
+                "support_launch"]:
+            raise AssertionError(f"agreement: {run} adaptation did not "
+                                 f"lower the support loss: {losses[run]}")
+    row = dict(layers=cfg.num_layers, losses=losses, rel=rel,
+               rtol=AGREE_RTOL)
+    print("agreement", json.dumps(row), flush=True)
+    torch.cuda.empty_cache()
+    return row
+
+
+def flash_summary(name, main, serve_row, rows) -> dict:
+    """The kernels-line entry of one flash kernel: numbers at the serving
+    path's shape, launches from the serve run."""
+    p = "fwd" if name.endswith("fwd") else "bwd"
+    m = FLASH_MAIN
+    return {"name": name, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": REPLACES[name],
+            "launches": serve_row["launches"][name],
+            "max_abs_err": main[f"{p}_max_abs_err"], "ms": main[f"{p}_ms"],
+            "plain_ms": main[f"{p}_plain_ms"],
+            "bound_ms": main[f"{p}_bound_ms"],
+            "bound_by": main[f"{p}_bound_by"],
+            "library_ms": main[f"{p}_library_ms"],
+            "shape": f"(B={m['B']}, H={m['H']}, S={m['S']}, d={m['d']}) "
+                     f"bfloat16 causal; launches: kernels launched in the "
+                     f"serve run's adapt dispatch"
+                     + ("" if p == "fwd" else
+                        " (two a call: dK/dV, then dQ; ms is both)"),
+            "sweep_checks": len(rows),
+            "sweep_worst_err": max(r[f"{p}_max_abs_err"] for r in rows)}
+
+
+def build_phase(libraries) -> None:
+    """Compile every CUDA source at once (one nvcc each) and load them."""
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        futures = {name: pool.submit(lib.build)
+                   for name, lib in libraries.items()}
+        infos = {name: f.result() for name, f in futures.items()}
+    for name, info in infos.items():
+        print(f"build {name}: {info['seconds']:.2f} s "
+              f"(compiled={info['compiled']}) -> {info['path']}", flush=True)
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print("  ptxas:", line.strip())
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -426,6 +977,8 @@ def main() -> int:
     from repro_torch.configs import SINE_MLP
     from repro_torch.core import diffusion, topology
     from repro_torch.kernels.dif_combine import ops, ref
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.launch import quickstart
     from repro_torch.models import SineMLP
 
@@ -436,12 +989,7 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    info = ops.build()
-    print(f"build: {info['seconds']:.2f} s (compiled={info['compiled']}) "
-          f"-> {info['path']}", flush=True)
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    build_phase({"dif_combine": ops, "flash_attention": fops})
 
     paper_A = topology.build_topology("paper", K, "metropolis").matrix
     main_combine, fused_step, n_leaves, large = kernels_phase(
@@ -449,6 +997,9 @@ def main() -> int:
     launches, ms_per_step = main_path_phase(quickstart, ops,
                                             len(main_combine), n_leaves)
     profile = profile_phase("fused")
+    flash_main, flash_rows = flash_phase(fops, fref)
+    serve_row = serve_phase(fops)
+    agreement = agreement_phase()
 
     mc = main_combine[0]
     summary = {"kernels": [
@@ -472,8 +1023,10 @@ def main() -> int:
          "large": [r for r in large["fused_combine_update"]
                    if r["kind"] == "adam" and r["mode"] == "atc"
                    and r["gate"] == 1.0 and r["S"] == 1]},
-    ], "ms_per_step": ms_per_step, "profile": profile,
-        "seconds": time.perf_counter() - t_start}
+        *(flash_summary(name, flash_main, serve_row, flash_rows)
+          for name in ("flash_attention_fwd", "flash_attention_bwd")),
+    ], "ms_per_step": ms_per_step, "profile": profile, "serve": serve_row,
+        "agreement": agreement, "seconds": time.perf_counter() - t_start}
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

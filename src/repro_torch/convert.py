@@ -1,10 +1,13 @@
 """Weights carried across from the JAX package.
 
-The reference's parameter pytrees (nested dicts, a leading agent axis on
-every leaf) and optimizer states (``AdamState(step, mu, nu)``,
+The reference's parameter pytrees (nested dicts, lists and tuples — the LM
+tree is ``{"segments": [({block},)]}`` with a leading layer axis on every
+block leaf — and, for the trainer, a leading agent axis) and optimizer
+states (``AdamState(step, mu, nu)``,
 ``MomentumState(velocity)``, ``()`` for sgd), handed over as numpy arrays,
 become the port's flat param dicts keyed by the joined key paths
-(``{"l0": {"w": ...}}`` → ``{"l0/w": ...}``) and its optimizer states, so
+(``{"l0": {"w": ...}}`` → ``{"l0/w": ...}``; list and tuple entries by their
+index, ``segments/0/0/attn/wq``) and its optimizer states, so
 both packages start from one init and one optimizer state.  Nothing here
 imports JAX: the caller converts with ``jax.tree.map(np.asarray, tree)``.
 """
@@ -16,18 +19,10 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.init import flatten_tree
 from repro_torch.optim.optimizers import AdamState, MomentumState
 
 __all__ = ["from_jax_params", "from_jax_opt_state"]
-
-
-def _flatten(tree: Any, prefix: str = "") -> dict[str, Any]:
-    if isinstance(tree, dict):
-        out = {}
-        for k in sorted(tree):          # the reference's leaf order
-            out.update(_flatten(tree[k], f"{prefix}{k}/"))
-        return out
-    return {prefix[:-1]: tree}
 
 
 def _tensor(x: Any) -> torch.Tensor:
@@ -38,11 +33,11 @@ def _tensor(x: Any) -> torch.Tensor:
 
 
 def from_jax_params(tree_of_numpy: Any, device=None) -> dict[str, torch.Tensor]:
-    """Nested dict of numpy arrays → flat dict of tensors on ``device``
-    (None: the CUDA card), keys joined with ``/``, dtypes kept."""
+    """Nested dicts/lists/tuples of numpy arrays → flat dict of tensors on
+    ``device`` (None: the CUDA card), keys joined with ``/``, dtypes kept."""
     device = resolve_device(device)
     return {k: _tensor(v).to(device)
-            for k, v in _flatten(tree_of_numpy).items()}
+            for k, v in flatten_tree(tree_of_numpy).items()}
 
 
 def from_jax_opt_state(state: Any, device=None):

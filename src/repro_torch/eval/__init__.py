@@ -1,4 +1,5 @@
-"""Adaptation at evaluation time (this slice: ``EvalHarness.curves``)."""
+"""Adaptation at evaluation time: ``EvalHarness`` (``curves``,
+``adapt_states``, ``task_loss``)."""
 from repro_torch.eval.harness import EvalHarness
 
 __all__ = ["EvalHarness"]

@@ -1,5 +1,5 @@
-"""Adaptation at evaluation time (paper Fig. 2b/2c) — the ``curves``
-primitive of ``repro/eval/harness.py``.
+"""Adaptation at evaluation time (paper Fig. 2b/2c) — the ``curves``,
+``adapt_states`` and ``task_loss`` primitives of ``repro/eval/harness.py``.
 
 Adaptation itself is :func:`repro_torch.core.maml.inner_adapt`, the same
 code path the meta step differentiates through.  The reference's
@@ -45,3 +45,17 @@ class EvalHarness:
             return torch.stack(losses)
 
         return torch.func.vmap(eval_one)(support, query)
+
+    def adapt_states(self, params: dict, support: Any) -> dict:
+        """Adapted parameters, task-stacked: one ``torch.func.vmap`` of
+        ``inner_adapt`` over a batch of support sets (leading axis = tasks)
+        from one launch model — the serving tier's batched adaptation, N
+        concurrent user episodes in one dispatch."""
+        return torch.func.vmap(lambda s: maml.inner_adapt(
+            self.loss_fn, params, s, alpha=self.inner_lr,
+            steps=self.inner_steps, first_order=True))(support)
+
+    def task_loss(self, stacked_params: dict, batch: Any) -> torch.Tensor:
+        """(n_tasks,) losses: each task's own adapted params (leading task
+        axis, e.g. from :meth:`adapt_states`) on its own batch."""
+        return torch.func.vmap(self.loss_fn)(stacked_params, batch)

@@ -4,9 +4,8 @@
 Routing is by the tensors' device, nothing else: CPU tensors go to the plain
 PyTorch versions in :mod:`.ref`; CUDA tensors launch the kernel or raise —
 there is no fallback.  The kernels are compiled with ``nvcc`` for
-``sm_90a`` at first use into ``build/kernels/`` at the repository root
-(named by a hash of the source and flags, so an edited source rebuilds) and
-bound through their plain C interface with ``ctypes``.  A launch runs on
+``sm_90a`` at first use and bound through their plain C interface with
+``ctypes`` (:mod:`repro_torch.kernels.build`).  A launch runs on
 PyTorch's current stream; outputs are allocated here with ``torch.empty``,
 and the kernels allocate nothing and do not synchronise.
 
@@ -16,16 +15,11 @@ counted), so a run can show that it went through the kernels.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels.build import CudaLibrary, raise_on
 from repro_torch.kernels.dif_combine.ref import (dif_combine_ref,
                                                  fused_update_ref)
 
@@ -37,17 +31,10 @@ MODES = ("atc", "consensus", "local")
 MAX_AGENTS = 64          # kMaxK in the CUDA source: A and the tiles in smem
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "dif_combine.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launch_counts = {"dif_combine": 0, "fused_combine_update": 0}
-
-_lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
-_build_info: dict = {}
 
 
 def reset_launch_counts() -> None:
@@ -55,13 +42,22 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError(
-            "nvcc not found on PATH or at /usr/local/cuda/bin/nvcc: the "
-            "dif_combine CUDA kernels cannot be built")
-    return path
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
+    lib.repro_max_agents.argtypes = []
+    lib.repro_max_agents.restype = i
+    lib.repro_dif_combine.argtypes = [p, p, p, i, ll, i, i, p]
+    lib.repro_dif_combine.restype = i
+    lib.repro_fused_update.argtypes = ([p] * 11 + [i, i, ll, i, i, i, i]
+                                       + [f] * 8 + [p])
+    lib.repro_fused_update.restype = i
+    if lib.repro_max_agents() != MAX_AGENTS:
+        raise RuntimeError("kernel library and wrapper disagree on the "
+                           "largest supported agent count")
+
+
+_LIB = CudaLibrary(SOURCE, "dif_combine", _declare)
 
 
 def build() -> dict:
@@ -69,44 +65,7 @@ def build() -> dict:
     Returns ``{"path", "seconds", "compiled", "log"}``, where ``log`` is
     nvcc's output (``-Xptxas -v``: registers and shared memory per kernel).
     Raises if nvcc fails."""
-    global _lib
-    with _lock:
-        if _lib is not None:
-            return _build_info
-        src = SOURCE.read_bytes()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
-                             ).hexdigest()[:16]
-        so = BUILD_DIR / f"libdif_combine_{tag}.so"
-        t0 = time.perf_counter()
-        log, compiled = "", not so.exists()
-        if compiled:
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                capture_output=True, text=True, check=False)
-            log = proc.stdout + proc.stderr
-            if proc.returncode:
-                raise RuntimeError(
-                    f"nvcc failed with exit code {proc.returncode}:\n{log}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_float)
-        lib.repro_max_agents.argtypes = []
-        lib.repro_max_agents.restype = i
-        lib.repro_dif_combine.argtypes = [p, p, p, i, ll, i, i, p]
-        lib.repro_dif_combine.restype = i
-        lib.repro_fused_update.argtypes = ([p] * 11 + [i, i, ll, i, i, i, i]
-                                           + [f] * 8 + [p])
-        lib.repro_fused_update.restype = i
-        if lib.repro_max_agents() != MAX_AGENTS:
-            raise RuntimeError("kernel library and wrapper disagree on the "
-                               "largest supported agent count")
-        _build_info.update(path=str(so), compiled=compiled, log=log,
-                           seconds=time.perf_counter() - t0)
-        _lib = lib
-    return _build_info
+    return _LIB.build()
 
 
 def _check_cuda(name: str, K: int, dtype: torch.dtype,
@@ -126,12 +85,6 @@ def _check_cuda(name: str, K: int, dtype: torch.dtype,
 def _aligned(tensors, elems: int) -> bool:
     return all(t.data_ptr() % (elems * t.element_size()) == 0
                for t in tensors if t is not None)
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err:
-        raise RuntimeError(f"{name} kernel launch failed with CUDA error "
-                           f"{err}")
 
 
 def _check_same_device(name: str, device: torch.device, **tensors) -> None:
@@ -162,8 +115,7 @@ def dif_combine(A: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
     if phi.device.type != "cuda":
         raise ValueError(f"dif_combine: no kernel for device {phi.device}")
     _check_cuda("dif_combine", K, phi.dtype, {"phi": phi})
-    build()
-    lib = _lib
+    lib = _LIB.lib
     A32 = A.to(torch.float32).contiguous()
     out = torch.empty_like(phi)
     per16 = 16 // phi.element_size()       # elements in one 16-byte load
@@ -173,7 +125,7 @@ def dif_combine(A: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
             A32.data_ptr(), phi.data_ptr(), out.data_ptr(), K, M,
             _DTYPES[phi.dtype], int(vec),
             torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "dif_combine")
+    raise_on(err, "dif_combine")
     launch_counts["dif_combine"] += 1
     return out
 
@@ -263,8 +215,7 @@ def fused_combine_update(table, sel, ctl, scale, params, grads, mu=None,
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: {tname} must be {shape}, got "
                              f"{tuple(t.shape)}")
-    build()
-    lib = _lib
+    lib = _LIB.lib
     w_out = torch.empty_like(params)
     outs = [torch.empty_like(m) for m in moments]
     mu_out, nu_out = (outs + [None, None])[:2]
@@ -278,6 +229,6 @@ def fused_combine_update(table, sel, ctl, scale, params, grads, mu=None,
             _DTYPES[params.dtype], KINDS.index(kind), MODES.index(mode),
             int(vec), -lr, b1, 1 - b1, b2, 1 - b2, eps, lr * weight_decay,
             beta, torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, name)
+    raise_on(err, name)
     launch_counts[name] += 1
     return w_out, mu_out, nu_out

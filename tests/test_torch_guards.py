@@ -75,3 +75,28 @@ def test_entry_points_raise_without_a_device():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
             pytest.fail(f"{name} ran without a device")
+
+
+def test_serve_entry_points_raise_without_a_device():
+    """The serving slice's entry points follow the same rule."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: None resolves to it")
+    from repro_torch.checkpoint import restore_centroid
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import build_model
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config("qwen2-1.5b").reduced()
+    calls = {
+        "Model.init": lambda: build_model(cfg).init(torch.Generator()),
+        "init_cache": lambda: build_model(cfg).init_cache(1, 4),
+        "ServeEngine": lambda: ServeEngine(cfg, prompt_len=2, gen=2,
+                                           batch=1),
+        "restore_centroid": lambda: restore_centroid("missing", {}),
+        "serve": lambda: serve.main(["--arch", "qwen2-1.5b", "--reduced"]),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+            pytest.fail(f"{name} ran without a device")
