@@ -6,9 +6,10 @@
 Phases, each fatal on failure:
 
 1. device    -- a CUDA card must be present; prints its name and power limit.
-2. build     -- compiles the CUDA sources of ``kernels/dif_combine/csrc`` and
-                ``kernels/flash_attention/csrc`` with nvcc for sm_90a, both
-                at once, and prints the build seconds.
+2. build     -- compiles the CUDA sources of ``kernels/dif_combine/csrc``,
+                ``kernels/flash_attention/csrc`` and ``kernels/ssd_scan/csrc``
+                with nvcc for sm_90a, all at once, and prints the build
+                seconds.
 3. kernels   -- holds ``dif_combine`` and ``fused_combine_update`` against
                 their plain PyTorch versions on the card: at the shapes the
                 training step gives them (the sine MLP's leaves, K=6, padded
@@ -60,6 +61,35 @@ Phases, each fatal on failure:
                 float32 and 1e-3 in bfloat16, and adaptation lowers the
                 support loss in every run.  The
                 CPU's bf16 losses against its f32 ones are reported.
+9. ssd       -- holds the SSD scan kernel against ``ssd_scan_ref`` (the
+                per-step recurrence): tests/test_kernels.py's grid (L, chunk
+                in {(128, 32), (256, 64), (256, 128)}, B=2, H=2, P=16, N=32),
+                a two-halves state-continuity check, and the serving path's
+                shape (B=16: 4 users x 4 sequences, L=1024, H=24, P=64,
+                N=128, one B/C group, chunk 256), each in float32 and
+                bfloat16.  At the serving shape, planted faults (the state
+                not carried across chunks, one chunk's rows of y zeroed, the
+                final state of the first chunk) must fail the check.  Each
+                row prints its errors, the kernel's time, the plain
+                version's, the port's chunked torch scan's and the bound;
+                at the serving shape also the time of the pairing's
+                backward (the chunked scan's VJP) and what it allocates at
+                its peak, beside one VJP over the whole loop of chunks
+                (every chunk's tiles live at once) on the same inputs.
+10. mamba2 serve -- runs ``python -m repro_torch.launch.serve --arch
+                mamba2-130m --prompt-len 512 --gen 512`` at full width (24
+                layers, bfloat16, fresh init from seed 0; 4 users x 4
+                sequences x 1024 tokens, 2 adapt steps, 2 rounds).  The
+                ssd_scan launch counter, zeroed just before, must show 24 x 2
+                launches (one adapt dispatch); 4 misses then 4 hits; finite
+                adapted leaves; falling support losses; 1024 tokens a
+                sequence.  Prints the serve phase's numbers as phase 7 does,
+                the device time of one more dispatch split between the
+                kernel forward and the chunked-scan backward
+                (torch.profiler), and where its peak memory goes.
+11. mamba2 agreement -- phase 8 for mamba2-130m cut to 2 layers at full
+                width, one episode of 4 x 1024 tokens: float32 within 1e-4
+                relative, bfloat16 within 1e-3.
 
 The last two lines of standard output are the kernels' numbers and the
 device, as JSON.  Without a CUDA card the script exits 1 before any result.
@@ -101,13 +131,15 @@ LOSS_RTOL = 1e-4
 SOURCE = "src/repro_torch/kernels/dif_combine/csrc/dif_combine.cu"
 FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
                 "flash_attention.cu")
+SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
 REPLACES = {"dif_combine": "src/repro/kernels/dif_combine/dif_combine.py:94",
             "fused_combine_update":
                 "src/repro/kernels/dif_combine/dif_combine.py:174",
             "flash_attention_fwd":
                 "src/repro/kernels/flash_attention/flash_attention.py:84",
             "flash_attention_bwd":
-                "src/repro/kernels/flash_attention/flash_bwd.py:107"}
+                "src/repro/kernels/flash_attention/flash_bwd.py:107",
+            "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:73"}
 # Flash attention against attention_ref and its autograd gradient, and the
 # backward also against its plain version.  float32: the same products
 # summed in another order (a blocked online softmax).  bfloat16: both round
@@ -135,6 +167,23 @@ SERVE_ARGS = ["--arch", "qwen2-1.5b", "--batch", "4", "--prompt-len", "128",
 # to bf16 before P.V on the CPU and kept in f32 by the kernel, and the
 # order of the sums).
 AGREE_RTOL = {"card_f32_vs_cpu_f32": 2e-2, "card_bf16_vs_cpu_bf16": 1e-3}
+# The SSD scan against the per-step recurrence: float32 within 1e-4 abs and
+# rel on y and the state (the chunked form sums in another order over up to
+# 1024 steps); bfloat16 y within two bf16 ulps (rtol) plus 2^-8 of the
+# row's largest |value| (FLASH_BF16_ROW_ATOL), its float32 state as in
+# float32.
+SSD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+           torch.bfloat16: dict(rtol=1.6e-2, atol=0.0)}
+# The serving path's scan: 4 users x 4 sequences of 1024 tokens, 24 heads of
+# head dim 64, state 128, one B/C group, chunk 256.
+SSD_MAIN = dict(B=16, L=1024, H=24, P=64, N=128, G=1, chunk=256)
+MAMBA_SERVE_ARGS = ["--arch", "mamba2-130m", "--batch", "4",
+                    "--prompt-len", "512", "--gen", "512", "--adapt-steps",
+                    "2", "--users", "4", "--rounds", "2", "--seed", "0"]
+# mamba2 losses on the card against the CPU in the same dtype: float32 the
+# same math in another order; bfloat16 at 1e-3, as for qwen2.
+MAMBA_AGREE_RTOL = {"card_f32_vs_cpu_f32": 1e-4,
+                    "card_bf16_vs_cpu_bf16": 1e-3}
 
 
 def nvidia_smi() -> str:
@@ -689,21 +738,285 @@ def flash_phase(fops, fref):
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: the SSD scan kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def time_events(fn, n: int) -> float:
+    """Mean ms of ``fn()`` over ``n`` eager calls between CUDA events, host
+    dispatch included (for PyTorch code that launches many kernels)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def ssd_cost(B, L, H, P, N, G, chunk, itemsize) -> tuple[float, float]:
+    """(bytes, flops) of one scan: x, B and C read and y written in the
+    working dtype, dt read and the state written in float32, A read once;
+    per (b, h, chunk) the causal half of the two intra-chunk products
+    (C.B^T and M.x over the c(c+1)/2 pairs k <= q: c(c+1)N + c(c+1)P) and
+    the entering-state and state-update products (4cPN)."""
+    c = chunk
+    nbytes = ((2 * B * L * H * P + 2 * B * L * G * N) * itemsize
+              + 4 * (B * L * H + H + B * H * P * N))
+    flops = ((c * (c + 1) * (N + P) + 4 * c * P * N)
+             * B * H * (L // c))
+    return nbytes, float(flops)
+
+
+def ssd_inputs(gen, B, L, H, P, N, G, dtype):
+    """tests/test_kernels.py's distributions: x (B,L,H,P), dt = softplus
+    (N(0,1)) / 2 rounded to ``dtype`` and read as float32 (as the model
+    hands its dt over), A = -exp(N(0,0.3^2)), B and C (B,L,G,N) N(0,0.3^2)."""
+    dev = torch.device(DEVICE)
+    x = torch.randn(B, L, H, P, generator=gen, device=dev)
+    dt = 0.5 * torch.nn.functional.softplus(
+        torch.randn(B, L, H, generator=gen, device=dev))
+    A = -torch.exp(0.3 * torch.randn(H, generator=gen, device=dev))
+    Bm, Cm = (0.3 * torch.randn(B, L, G, N, generator=gen, device=dev)
+              for _ in "BC")
+    return (x.to(dtype), dt.to(dtype).float(), A, Bm.to(dtype),
+            Cm.to(dtype))
+
+
+def ssd_slack(want, dtype):
+    """bf16 y: FLASH_BF16_ROW_ATOL times the row's largest |value|."""
+    if dtype != torch.bfloat16:
+        return 0.0
+    return FLASH_BF16_ROW_ATOL * want.abs().amax(-1, keepdim=True)
+
+
+def check_ssd(sops, sref, layers, gen, B, L, H, P, N, G, chunk, dtype,
+              timed=False, faults=False):
+    x, dt, A, Bm, Cm = ssd_inputs(gen, B, L, H, P, N, G, dtype)
+    y, s = sops.ssd_scan_kernel(x, dt, A, Bm, Cm, chunk=chunk)
+    rep = H // G
+    Bh, Ch = Bm.repeat_interleave(rep, 2), Cm.repeat_interleave(rep, 2)
+    yr, sr = sref.ssd_scan_ref(x, dt, A, Bh, Ch)
+    torch.cuda.synchronize()
+    what = (f"ssd B={B} L={L} H={H} P={P} N={N} G={G} chunk={chunk} "
+            f"{str(dtype)[6:]}")
+    row = dict(B=B, L=L, H=H, P=P, N=N, G=G, chunk=chunk,
+               dtype=str(dtype)[6:],
+               y_max_abs_err=compare(y, yr, dtype, what + " y",
+                                     SSD_TOL[dtype], ssd_slack(yr, dtype)),
+               state_max_abs_err=compare(s, sr, torch.float32,
+                                         what + " state",
+                                         SSD_TOL[torch.float32]),
+               y_max_abs=float(yr.abs().max()), tol=SSD_TOL[dtype])
+    if timed:
+        peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else \
+            FP32_FLOP_PER_S
+        row["ms"] = time_ms(lambda: sops.ssd_scan_kernel(
+            x, dt, A, Bm, Cm, chunk=chunk), 20)
+        row["plain_ms"] = time_ms(lambda: sref.ssd_scan_ref(
+            x, dt, A, Bh, Ch), 1, reps=3)
+        # the port's chunked torch scan (the CPU path's), host dispatch
+        # included, and the pairing's backward (its VJP in float32); no
+        # single PyTorch call computes the scan (library: none)
+        row["chunked_ms"] = time_events(
+            lambda: layers.ssd_scan(x, dt, A, Bm, Cm, chunk), 5)
+        gy, gs = torch.randn_like(y), torch.randn_like(s)
+        row["bwd_compare"] = ssd_bwd_compare(
+            sops, layers, (x, dt, A, Bm, Cm, gy, gs), chunk)
+        row["library_ms"] = None
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            *ssd_cost(B, L, H, P, N, G, chunk, x.element_size()), peak)
+    print("ssd check", json.dumps(row), flush=True)
+    if faults:
+        planted_ssd_faults(sops, (x, dt, A, Bm, Cm), chunk, y, yr, sr,
+                           dtype)
+    return row
+
+
+def peak_gb(fn) -> float:
+    """What ``fn()`` allocates on the card at its peak on top of what was
+    allocated before, in GB."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak / 1e9
+
+
+def device_ms(fn) -> float | str:
+    """Kernel time of one ``fn()`` on the card, from torch.profiler (the
+    host's dispatch left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and not (
+                getattr(evt, "is_user_annotation", False)
+                or evt.key == "ssd_scan_chunked_bwd"):
+            t = getattr(evt, "self_device_time_total", None)
+            us += getattr(evt, "self_cuda_time_total", 0) if t is None else t
+    return us / 1e3 if us else "not measured"
+
+
+def ssd_bwd_compare(sops, layers, inputs, chunk) -> dict:
+    """The pairing's backward (the chunked scan's VJP chunk by chunk, one
+    chunk's (B, c, c, H) tiles live at a time) against one
+    ``torch.func.vjp`` over the whole loop of chunks (every chunk's tiles
+    live at once), on the same inputs in one process: time with the host's
+    dispatch, kernel time, peak allocation, and the largest gradient
+    difference."""
+    x, dt, A, Bm, Cm, gy, gs = inputs
+
+    def by_chunk():
+        return sops._chunked_vjp(x, dt, A, Bm, Cm, gy, gs, chunk)
+
+    def whole_loop():
+        _, vjp_fn = torch.func.vjp(
+            lambda *a: layers.ssd_scan(*(t.float() for t in a), chunk),
+            x, dt, A, Bm, Cm)
+        return vjp_fn((gy.float(), gs.float()))
+
+    row = {name: dict(ms=time_events(fn, 3), device_ms=device_ms(fn),
+                      peak_gb=peak_gb(fn))
+           for name, fn in (("by_chunk", by_chunk),
+                            ("whole_loop", whole_loop))}
+    row["max_abs_grad_diff"] = max(
+        float((a.float() - b.float()).abs().max())
+        for a, b in zip(by_chunk(), whole_loop()))
+    return row
+
+
+def planted_ssd_faults(sops, inputs, chunk, y, yr, sr, dtype):
+    """Plant faults in the kernel's outputs and require the check against
+    the per-step recurrence to reject each."""
+    x, dt, A, Bm, Cm = inputs
+    L = x.shape[1]
+
+    def part(lo, hi):
+        return sops.ssd_scan_kernel(
+            *(t[:, lo:hi].contiguous() for t in (x, dt)), A,
+            *(t[:, lo:hi].contiguous() for t in (Bm, Cm)), chunk=chunk)
+
+    zeroed = y.clone()
+    zeroed[:, chunk:2 * chunk] = 0
+    faults = {
+        "state not carried across chunks":
+            ("y", torch.cat([part(i, i + chunk)[0]
+                             for i in range(0, L, chunk)], 1)),
+        f"y rows {chunk}:{2 * chunk} zero": ("y", zeroed),
+        "final state of the first chunk": ("state", part(0, chunk)[1]),
+    }
+    row = {}
+    for name, (which, bad) in faults.items():
+        if which == "y":
+            flagged, _ = outside(bad, yr, SSD_TOL[dtype], ssd_slack(yr, dtype))
+        else:
+            flagged, _ = outside(bad, sr, SSD_TOL[torch.float32])
+        if not flagged:
+            raise AssertionError(f"planted fault '{name}' passes the SSD "
+                                 f"check ({str(dtype)[6:]})")
+        row[name] = dict(flagged=flagged, elements=bad.numel())
+    print("ssd planted faults", str(dtype)[6:], json.dumps(row), flush=True)
+
+
+def ssd_continuity(sops, layers, gen):
+    """Two halves: the kernel over the first, the chunked scan (float32)
+    from the kernel's state over the second, equal the kernel over the
+    whole sequence."""
+    B, L, H, P, N, chunk = 2, 512, 4, 64, 128, 128
+    x, dt, A, Bm, Cm = ssd_inputs(gen, B, L, H, P, N, 1, torch.float32)
+    y, s = sops.ssd_scan_kernel(x, dt, A, Bm, Cm, chunk=chunk)
+    h = L // 2
+    first = [t[:, :h].contiguous() for t in (x, dt, Bm, Cm)]
+    second = [t[:, h:].contiguous() for t in (x, dt, Bm, Cm)]
+    y1, s1 = sops.ssd_scan_kernel(*first[:2], A, *first[2:], chunk=chunk)
+    y2, s2 = layers.ssd_scan(*second[:2], A, *second[2:], chunk,
+                             init_state=s1)
+    torch.cuda.synchronize()
+    tol = SSD_TOL[torch.float32]
+    row = dict(B=B, L=L, H=H, P=P, N=N, chunk=chunk,
+               y_max_abs_err=compare(torch.cat([y1, y2], 1), y,
+                                     torch.float32, "ssd two halves y", tol),
+               state_max_abs_err=compare(s2, s, torch.float32,
+                                         "ssd two halves state", tol))
+    print("ssd continuity", json.dumps(row), flush=True)
+    return row
+
+
+def ssd_phase(sops, sref, layers):
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    rows = []
+    for L, chunk in ((128, 32), (256, 64), (256, 128)):
+        for dtype in (torch.float32, torch.bfloat16):
+            rows.append(check_ssd(sops, sref, layers, gen, 2, L, 2, 16, 32,
+                                  2, chunk, dtype))
+    continuity = ssd_continuity(sops, layers, gen)
+    m = SSD_MAIN
+    main = {str(dtype)[6:]: check_ssd(
+        sops, sref, layers, gen, m["B"], m["L"], m["H"], m["P"], m["N"],
+        m["G"], m["chunk"], dtype, timed=True, faults=True)
+        for dtype in (torch.bfloat16, torch.float32)}
+    torch.cuda.empty_cache()
+    return main, rows, continuity
+
+
+def ssd_summary(main, rows, continuity, serve_row) -> dict:
+    """The kernels-line entry of the SSD scan: numbers at the serving
+    path's shape in bfloat16, launches from the mamba2 serve run."""
+    b, m = main["bfloat16"], SSD_MAIN
+    return {"name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
+            "replaces": REPLACES["ssd_scan"],
+            "launches": serve_row["launches"]["ssd_scan"],
+            "max_abs_err": b["y_max_abs_err"], "ms": b["ms"],
+            "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "library_ms": None,
+            "chunked_ms": b["chunked_ms"],
+            "bwd_compare": b["bwd_compare"],
+            "shape": f"(B={m['B']}, L={m['L']}, H={m['H']}, P={m['P']}, "
+                     f"N={m['N']}, G={m['G']}, chunk={m['chunk']}) bfloat16; "
+                     f"launches: kernels launched in the mamba2 serve run's "
+                     f"adapt dispatch; library: none (no single PyTorch "
+                     f"call); chunked_ms: the port's chunked torch scan",
+            "float32": main["float32"], "continuity": continuity,
+            "sweep_checks": len(rows),
+            "sweep_worst_y_err": max(r["y_max_abs_err"] for r in rows)}
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: the serving path at full width
 # ---------------------------------------------------------------------------
 
-def serve_phase(fops):
+def serve_phase(args, counters, expect, replay=("memory",)):
+    """Serve through the CLI entry point with ``args``.  ``counters`` maps
+    each kernel to its ops module (``launch_counts``); ``expect(layers,
+    steps)`` gives every kernel's launches in the one adapt dispatch (0 for
+    kernels the model does not run).  ``replay``: for each entry, one more
+    dispatch, with the allocator's history recorded ("memory") or under
+    torch.profiler ("profile")."""
     from repro_torch.launch import serve
 
     seen = {"peaks": [], "losses": {}, "check_launches": {}}
+    modules = list(dict.fromkeys(counters.values()))
+
+    def counts():
+        return {k: n for m in modules for k, n in m.launch_counts.items()}
 
     def on_round(eng, rnd, ep, adapted, m):
         """Read a round's states while they are alive: finite leaves and
         each user's support loss.  The serving path's peak memory is read
-        on entry and the peak is reset on exit, and the flash launches of
+        on entry and the peak is reset on exit, and the kernel launches of
         these reads are kept apart, so neither counts them."""
         seen["peaks"].append(torch.cuda.max_memory_allocated())
-        counts = dict(fops.launch_counts)
+        before_reads = counts()
         for i, a in enumerate(adapted):
             bad = [k for k, v in a.items() if not torch.isfinite(v).all()]
             if bad:
@@ -720,30 +1033,29 @@ def serve_phase(fops):
             seen["before"] = before.float().cpu().numpy()
             seen["supports"] = supports
         seen["losses"][rnd] = eng.adapted_loss(adapted, supports)
-        for k, n in fops.launch_counts.items():
+        for k, n in counts().items():
             seen["check_launches"][k] = (seen["check_launches"].get(k, 0)
-                                         + n - counts[k])
+                                         + n - before_reads[k])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
 
     torch.cuda.reset_peak_memory_stats()
-    fops.reset_launch_counts()
+    for m in modules:
+        m.reset_launch_counts()
     t0 = time.perf_counter()
-    out = serve.main(SERVE_ARGS, on_round=on_round)
+    out = serve.main(args, on_round=on_round)
     wall = time.perf_counter() - t0
     launches = {k: n - seen["check_launches"].get(k, 0)
-                for k, n in fops.launch_counts.items()}
+                for k, n in counts().items()}
     seen["peaks"].append(torch.cuda.max_memory_allocated())
     eng, ep = out["engine"], out["episode"]
     layers, steps = eng.cfg.num_layers, eng.adapt_steps
-    # per layer and step: one forward launch, and the backward's two (dK/dV
-    # and dQ)
-    expect = {"flash_attention_fwd": layers * steps,
-              "flash_attention_bwd": 2 * layers * steps}
-    if launches != expect:
-        raise AssertionError(f"serve: flash launches {launches}, expected "
-                             f"{expect} (one adapt dispatch of {steps} "
-                             f"steps through {layers} layers)")
+    want = {k: 0 for k in launches}
+    want.update(expect(layers, steps))
+    if launches != want:
+        raise AssertionError(f"serve {eng.cfg.name}: launches {launches}, "
+                             f"expected {want} (one adapt dispatch of "
+                             f"{steps} steps through {layers} layers)")
     rounds = out["rounds"]
     users = len(out["adapted"])
     if [(r["misses"], r["hits"]) for r in rounds] != [(users, 0),
@@ -770,7 +1082,9 @@ def serve_phase(fops):
                              f"expected {(eng.batch, total)}")
     stats = eng.cache.stats()
     del out["adapted"]
-    memory = dispatch_memory(eng, seen["supports"])
+    replays = {"memory": dispatch_memory, "profile": dispatch_profile}
+    extra = {f"dispatch_{kind}": replays[kind](eng, seen["supports"])
+             for kind in replay}
     row = dict(
         arch=eng.cfg.name, layers=layers, dtype=str(eng.dtype)[6:],
         params=int(sum(v.numel() for v in eng.params.values())),
@@ -791,11 +1105,62 @@ def serve_phase(fops):
         cache=stats, max_memory_allocated_gb=max(seen["peaks"]) / 1e9,
         peak_gb_by_stage=dict(zip(("miss round", "hit round", "decode"),
                                   (x / 1e9 for x in seen["peaks"]))),
-        dispatch_memory=memory, wall_s=wall)
+        wall_s=wall, **extra)
     print("serve", json.dumps(row), flush=True)
     del out, eng
     torch.cuda.empty_cache()
     return row
+
+
+def dispatch_profile(eng, supports) -> dict:
+    """Device time of one more adapt dispatch of the same users, from
+    torch.profiler: all kernels, the SSD scan kernel's forward launches, and
+    the chunked-scan backward (its ``record_function`` range, with every
+    kernel launched inside it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    stacked = eng._stack(supports, eng._bucket(len(supports)))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        adapted = eng.harness.adapt_states(eng.params, stacked)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    del adapted, stacked
+    busy = fwd = bwd = 0.0
+    fwd_n = bwd_n = 0
+    kernels = []
+    for evt in prof.key_averages():
+        # the range's span on the device timeline is no kernel time
+        annotation = (getattr(evt, "is_user_annotation", False)
+                      or evt.key == "ssd_scan_chunked_bwd")
+        if evt.device_type == torch.autograd.DeviceType.CUDA and \
+                not annotation:
+            us = getattr(evt, "self_device_time_total", None)
+            if us is None:
+                us = getattr(evt, "self_cuda_time_total", 0)
+            busy += us
+            kernels.append((us, evt.count, evt.key))
+            if "ssd_scan_kernel" in evt.key:
+                fwd, fwd_n = fwd + us, fwd_n + evt.count
+        elif evt.key == "ssd_scan_chunked_bwd" and \
+                evt.device_type == torch.autograd.DeviceType.CPU:
+            us = getattr(evt, "device_time_total", None)
+            if us is None:
+                us = getattr(evt, "cuda_time_total", 0)
+            bwd, bwd_n = bwd + us, bwd_n + evt.count
+    if not busy:
+        return dict(wall_s=wall, device_ms="not measured")
+    return dict(wall_s=wall, device_ms=busy / 1e3,
+                ssd_kernel_fwd_ms=fwd / 1e3, ssd_kernel_launches=fwd_n,
+                chunked_bwd_ms=bwd / 1e3, chunked_bwd_calls=bwd_n,
+                ssd_fwd_share=fwd / busy, chunked_bwd_share=bwd / busy,
+                device_idle_share=max(0.0, 1 - busy / 1e6 / wall),
+                launches=sum(k[1] for k in kernels),
+                top_kernels=[dict(name=k[2][:80], ms=k[0] / 1e3,
+                                  launches=k[1])
+                             for k in sorted(kernels, reverse=True)[:8]])
 
 
 def dispatch_memory(eng, supports, top=20) -> dict:
@@ -864,9 +1229,10 @@ def live_at_peak(trace) -> tuple[list, int]:
 # Phase 8: the card against the CPU on a 2-layer cut of the same config
 # ---------------------------------------------------------------------------
 
-def agreement_phase(cfg=None):
-    """The card against the CPU on one set of weights and one episode.
-    ``cfg``: qwen2-1.5b at full width cut to 2 layers unless given.
+def agreement_phase(cfg=None, rtol=None, seq=256, task_batch=2):
+    """The card against the CPU on one set of weights and one episode of
+    ``task_batch`` sequences of ``seq`` tokens.  ``cfg``: qwen2-1.5b at full
+    width cut to 2 layers unless given; ``rtol``: AGREE_RTOL unless given.
 
     Each card run (kernels) is held against the CPU run (plain versions) in
     its own dtype, on the launch, adapted-support and adapted-query losses.
@@ -880,12 +1246,13 @@ def agreement_phase(cfg=None):
 
     if cfg is None:
         cfg = dataclasses.replace(get_config("qwen2-1.5b"), num_layers=2)
+    rtol = AGREE_RTOL if rtol is None else rtol
     model = build_model(cfg)
     harness = EvalHarness(model.loss_fn, cfg.inner_lr, 2)
     weights = model.init(torch.Generator().manual_seed(1), torch.float32,
                          "cpu")
-    ep = serve.make_support_source(cfg, 256, 2, seed=0).eval_sample(1,
-                                                                   seed=0)
+    ep = serve.make_support_source(cfg, seq, task_batch,
+                                   seed=0).eval_sample(1, seed=0)
     runs = {"card_f32": (DEVICE, torch.float32),
             "card_bf16": (DEVICE, torch.bfloat16),
             "cpu_f32": ("cpu", torch.float32),
@@ -913,7 +1280,7 @@ def agreement_phase(cfg=None):
         name: abs(v - losses[ref][name]) / abs(losses[ref][name])
         for name, v in losses[run].items() if name != "seconds"}
         for run, ref in pairs.items()}
-    for pair, limit in AGREE_RTOL.items():
+    for pair, limit in rtol.items():
         for name, r in rel[pair].items():
             run, ref = pair.split("_vs_")
             if not (math.isfinite(losses[run][name]) and r <= limit):
@@ -925,8 +1292,8 @@ def agreement_phase(cfg=None):
                 "support_launch"]:
             raise AssertionError(f"agreement: {run} adaptation did not "
                                  f"lower the support loss: {losses[run]}")
-    row = dict(layers=cfg.num_layers, losses=losses, rel=rel,
-               rtol=AGREE_RTOL)
+    row = dict(arch=cfg.name, layers=cfg.num_layers, seq=seq,
+               task_batch=task_batch, losses=losses, rel=rel, rtol=rtol)
     print("agreement", json.dumps(row), flush=True)
     torch.cuda.empty_cache()
     return row
@@ -968,19 +1335,21 @@ def build_phase(libraries) -> None:
                 print("  ptxas:", line.strip())
 
 
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "test needs a CUDA card", file=sys.stderr)
         return 1
-    from repro_torch.configs import SINE_MLP
+    from repro_torch.configs import SINE_MLP, get_config
     from repro_torch.core import diffusion, topology
     from repro_torch.kernels.dif_combine import ops, ref
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.kernels.ssd_scan import ref as sref
     from repro_torch.launch import quickstart
     from repro_torch.models import SineMLP
+    from repro_torch.models import layers
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
@@ -989,7 +1358,8 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    build_phase({"dif_combine": ops, "flash_attention": fops})
+    build_phase({"dif_combine": ops, "flash_attention": fops,
+                 "ssd_scan": sops})
 
     paper_A = topology.build_topology("paper", K, "metropolis").matrix
     main_combine, fused_step, n_leaves, large = kernels_phase(
@@ -998,8 +1368,21 @@ def main() -> int:
                                             len(main_combine), n_leaves)
     profile = profile_phase("fused")
     flash_main, flash_rows = flash_phase(fops, fref)
-    serve_row = serve_phase(fops)
+    counters = {"flash_attention_fwd": fops, "flash_attention_bwd": fops,
+                "ssd_scan": sops}
+    # per layer and step: one flash forward launch, and the backward's two
+    # (dK/dV and dQ); one SSD scan launch (its backward is the chunked
+    # scan's VJP, no kernel)
+    serve_row = serve_phase(SERVE_ARGS, counters, lambda n, k: {
+        "flash_attention_fwd": n * k, "flash_attention_bwd": 2 * n * k})
     agreement = agreement_phase()
+    ssd_main, ssd_rows, continuity = ssd_phase(sops, sref, layers)
+    mamba_row = serve_phase(MAMBA_SERVE_ARGS, counters,
+                            lambda n, k: {"ssd_scan": n * k},
+                            replay=("profile", "memory"))
+    mamba_agreement = agreement_phase(
+        dataclasses.replace(get_config("mamba2-130m"), num_layers=2),
+        MAMBA_AGREE_RTOL, seq=1024, task_batch=4)
 
     mc = main_combine[0]
     summary = {"kernels": [
@@ -1025,8 +1408,11 @@ def main() -> int:
                    and r["gate"] == 1.0 and r["S"] == 1]},
         *(flash_summary(name, flash_main, serve_row, flash_rows)
           for name in ("flash_attention_fwd", "flash_attention_bwd")),
+        ssd_summary(ssd_main, ssd_rows, continuity, mamba_row),
     ], "ms_per_step": ms_per_step, "profile": profile, "serve": serve_row,
-        "agreement": agreement, "seconds": time.perf_counter() - t_start}
+        "agreement": agreement, "mamba2_serve": mamba_row,
+        "mamba2_agreement": mamba_agreement,
+        "seconds": time.perf_counter() - t_start}
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

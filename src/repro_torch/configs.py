@@ -1,11 +1,13 @@
 """The port's own copy of the configuration its paths read.
 
 :class:`ArchConfig` carries the fields of the JAX package's
-``configs/base.py::ArchConfig`` that the sine MLP, the meta-trainer and the
-dense decoder family (attention, MLP, norms) use, with the same names and
-defaults.  :data:`SINE_MLP` and :data:`QWEN2_1_5B` are
-``configs/sine_mlp.py`` and ``configs/qwen2_1_5b.py`` copied.  Later slices
-add the fields and configurations their models read.
+``configs/base.py::ArchConfig`` that the sine MLP, the meta-trainer, the
+dense decoder family (attention, MLP, norms) and the Mamba2 family (the
+``ssm_*`` fields) use, with the same names and defaults.
+:data:`SINE_MLP`, :data:`QWEN2_1_5B` and :data:`MAMBA2_130M` are
+``configs/sine_mlp.py``, ``configs/qwen2_1_5b.py`` and
+``configs/mamba2_130m.py`` copied.  Later slices add the fields and
+configurations their models read.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ class InputShape:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    arch_type: str                  # dense | mlp (the port's families)
+    arch_type: str                  # dense | ssm | mlp (the port's families)
     num_layers: int
     d_model: int
     num_heads: int
@@ -50,6 +52,14 @@ class ArchConfig:
     # --- mlp ------------------------------------------------------------------
     mlp_act: str = "swiglu"         # swiglu | gelu
     norm: str = "rmsnorm"           # rmsnorm | layernorm
+
+    # --- ssm ------------------------------------------------------------------
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    ssm_groups: int = 1
+    ssm_chunk: int = 256
 
     # --- meta-learning (Dif-MAML) -------------------------------------------
     meta_mode: str = "maml"         # maml | fomaml | reptile
@@ -72,6 +82,14 @@ class ArchConfig:
     def padded_vocab(self) -> int:
         return _pad(self.vocab_size)
 
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.ssm_d_inner // self.ssm_head_dim
+
     def reduced(self) -> "ArchConfig":
         """Smoke-test variant: same family, tiny dims (the reference's
         ``reduced`` for the fields the port carries)."""
@@ -85,6 +103,8 @@ class ArchConfig:
             vocab_size=min(self.vocab_size, 512),
             remat=False,
         )
+        if self.ssm_state:
+            kw.update(ssm_state=32, ssm_head_dim=16, ssm_chunk=32)
         if self.sliding_window:
             kw.update(sliding_window=64)
         return dataclasses.replace(self, **kw)
@@ -133,12 +153,37 @@ QWEN2_1_5B = ArchConfig(
     source="arXiv:2407.10671",
 )
 
-_CONFIGS = {"sine_mlp": SINE_MLP, "qwen2_1_5b": QWEN2_1_5B}
+# mamba2-130m [arXiv:2405.21060]: attention-free SSD (state-space duality).
+# 24 layers, d_model=768 (d_inner=1536, 24 SSD heads of head_dim 64),
+# ssm_state=128, vocab=50280.  No attention, no FFN: each block is a single
+# Mamba2 mixer.  num_heads/num_kv_heads/head_dim/d_ff are unused
+# placeholders.
+MAMBA2_130M = ArchConfig(
+    name="mamba2-130m",
+    arch_type="ssm",
+    num_layers=24,
+    d_model=768,
+    num_heads=12,      # unused (attention-free)
+    num_kv_heads=12,   # unused
+    head_dim=64,       # unused
+    d_ff=0,            # no FFN
+    vocab_size=50280,
+    ssm_state=128,
+    ssm_head_dim=64,
+    ssm_expand=2,
+    ssm_conv=4,
+    ssm_chunk=256,
+    meta_mode="maml",
+    outer_optimizer="adam",
+    source="arXiv:2405.21060",
+)
+
+_CONFIGS = {"sine_mlp": SINE_MLP, "qwen2_1_5b": QWEN2_1_5B,
+            "mamba2_130m": MAMBA2_130M}
 
 # The JAX package's other configurations and the port slice that brings
 # each family.
 _LATER = {
-    "mamba2_130m": "the SSD-scan slice (mamba2-130m)",
     "jamba_1_5_large_398b": "a hybrid Mamba/MoE slice",
     "mixtral_8x22b": "an MoE slice",
     "deepseek_v2_lite_16b": "an MLA/MoE slice",

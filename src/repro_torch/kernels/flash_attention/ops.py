@@ -29,6 +29,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels.build import CudaLibrary, raise_on
+from repro_torch.kernels.fold import fold, unfold
 from repro_torch.kernels.flash_attention.ref import (flash_bwd_ref,
                                                      flash_fwd_ref)
 
@@ -199,17 +200,6 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,
 # autograd: kernel forward + kernel backward
 # ---------------------------------------------------------------------------
 
-def _fold(x: torch.Tensor, dim: int | None, n: int) -> torch.Tensor:
-    """Move the vmapped dim (or a broadcast of an unmapped input) to the
-    front and merge it into the batch dim: (n, B, ...) → (n·B, ...)."""
-    x = x.expand(n, *x.shape) if dim is None else x.movedim(dim, 0)
-    return x.reshape(n * x.shape[1], *x.shape[2:])
-
-
-def _unfold(x: torch.Tensor, n: int) -> torch.Tensor:
-    return x.reshape(n, x.shape[0] // n, *x.shape[1:])
-
-
 class _FlashAttentionBwd(torch.autograd.Function):
     """The backward kernel as a ``Function`` of its own, so that under
     ``torch.func.vmap`` its launch is folded like the forward's."""
@@ -232,10 +222,10 @@ class _FlashAttentionBwd(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, q, k, v, out, lse, do, causal, window, scale):
         n = info.batch_size
-        args = [_fold(t, dim, n)
+        args = [fold(t, dim, n)
                 for t, dim in zip((q, k, v, out, lse, do), in_dims[:6])]
         grads = _FlashAttentionBwd.apply(*args, causal, window, scale)
-        return tuple(_unfold(g, n) for g in grads), (0, 0, 0)
+        return tuple(unfold(g, n) for g in grads), (0, 0, 0)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -263,9 +253,9 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, q, k, v, causal, window, scale):
         n = info.batch_size
-        args = [_fold(t, dim, n) for t, dim in zip((q, k, v), in_dims[:3])]
+        args = [fold(t, dim, n) for t, dim in zip((q, k, v), in_dims[:3])]
         out, lse = _FlashAttention.apply(*args, causal, window, scale)
-        return (_unfold(out, n), _unfold(lse, n)), (0, 0)
+        return (unfold(out, n), unfold(lse, n)), (0, 0)
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int | None = None,

@@ -1,0 +1,255 @@
+"""Wrapper, autograd pairing, build and launch counter of the CUDA SSD scan
+kernel in ``csrc/ssd_scan.cu`` (port of ``repro/kernels/ssd_scan/ops.py``).
+
+Routing is by the tensors' device, nothing else: CPU tensors go to the plain
+PyTorch version in :mod:`.ref`; CUDA tensors launch the kernel or raise —
+there is no fallback.  The kernel is compiled with ``nvcc`` for ``sm_90a``
+at first use (:mod:`repro_torch.kernels.build`).
+
+The reference expands the B/C groups to heads before its kernel; this
+kernel reads each head's group instead, with the same results.
+
+:func:`ssd_scan` pairs the kernel forward with the VJP of the port's chunked
+scan (:func:`.chunked.ssd_scan_vjp`, chunk by chunk) as its backward, in
+float32 (the kernel's precision).  The JAX package has no backward kernel either: it
+differentiates the jnp chunked scan.  The pairing is a
+``torch.autograd.Function`` in the ``setup_context`` form with a ``vmap``
+rule that folds the mapped dimension into the batch, so ``torch.func.vmap``
+over ``torch.func.grad`` (the serving tier's batched adaptation) reaches the
+kernel: a raw-pointer launch cannot see a batched tensor.  The backward is
+a ``Function`` of its own, folded the same way, and differentiating it
+raises: serving adapts first-order.
+
+``launch_counts["ssd_scan"]`` counts kernel launches; plain-version calls
+are not counted.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.build import CudaLibrary, raise_on
+from repro_torch.kernels.fold import fold, unfold
+from repro_torch.kernels.ssd_scan.chunked import ssd_scan_vjp
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+__all__ = ["MAX_CHUNK", "MAX_HEAD_DIM", "MAX_STATE", "build",
+           "launch_counts", "reset_launch_counts", "ssd_scan",
+           "ssd_scan_kernel"]
+
+MAX_HEAD_DIM = 64         # kMaxP in the CUDA source
+MAX_STATE = 128           # kMaxN
+MAX_CHUNK = 256           # kMaxChunk
+SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+launch_counts = {"ssd_scan": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for fn in ("repro_ssd_max_head_dim", "repro_ssd_max_state",
+               "repro_ssd_max_chunk"):
+        getattr(lib, fn).argtypes = []
+        getattr(lib, fn).restype = i
+    lib.repro_ssd_scan.argtypes = [p] * 7 + [i] * 8 + [p]
+    lib.repro_ssd_scan.restype = i
+    if (lib.repro_ssd_max_head_dim(), lib.repro_ssd_max_state(),
+            lib.repro_ssd_max_chunk()) != (MAX_HEAD_DIM, MAX_STATE,
+                                           MAX_CHUNK):
+        raise RuntimeError("kernel library and wrapper disagree on the "
+                           "largest supported head dim, state or chunk")
+
+
+_LIB = CudaLibrary(SOURCE, "ssd_scan", _declare)
+
+
+def build() -> dict:
+    """Compile (when the source or flags changed) and load the kernel; see
+    :meth:`repro_torch.kernels.build.CudaLibrary.build`."""
+    return _LIB.build()
+
+
+def _check_shapes(x, dt, A, Bg, Cg, chunk: int) -> None:
+    name = "ssd_scan"
+    if x.ndim != 4 or dt.ndim != 3 or Bg.ndim != 4 or Cg.ndim != 4:
+        raise ValueError(f"{name}: x, dt, B and C must be (B,L,H,P), "
+                         f"(B,L,H), (B,L,G,N), (B,L,G,N); got "
+                         f"{tuple(x.shape)}, {tuple(dt.shape)}, "
+                         f"{tuple(Bg.shape)}, {tuple(Cg.shape)}")
+    B, L, H, P = x.shape
+    G, N = Bg.shape[2], Bg.shape[3]
+    if tuple(dt.shape) != (B, L, H) or tuple(Bg.shape[:2]) != (B, L) or \
+            tuple(Cg.shape) != tuple(Bg.shape) or H % G:
+        raise ValueError(
+            f"{name}: dt {tuple(dt.shape)}, B {tuple(Bg.shape)} and C "
+            f"{tuple(Cg.shape)} do not fit x {tuple(x.shape)} (dt must be "
+            f"({B}, {L}, {H}), B and C ({B}, {L}, G, N) with G dividing {H})")
+    if tuple(A.shape) not in ((H,), (B, H)):
+        raise ValueError(f"{name}: A has shape {tuple(A.shape)}, expected "
+                         f"({H},) or ({B}, {H})")
+    if L % chunk:
+        raise ValueError(
+            f"{name} needs the sequence length to be a multiple of the "
+            f"chunk: L={L} % chunk={chunk} = {L % chunk} — pad the sequence "
+            f"or pick a chunk dividing it")
+
+
+def _check_cuda(x, dt, A, Bg, Cg, chunk: int) -> None:
+    """What the kernel takes: x, B and C in one of float32/bfloat16, dt and
+    A float32, all on one card, x, dt, B and C contiguous (A, (B, H) floats,
+    is copied into place); P <= 64, N <= 128, chunk <= 256."""
+    name = "ssd_scan"
+    P, N = x.shape[3], Bg.shape[3]
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"{name}: dtype {x.dtype} is not supported by the "
+                         f"CUDA kernel; use float32 or bfloat16")
+    if P > MAX_HEAD_DIM or N > MAX_STATE or chunk > MAX_CHUNK:
+        raise ValueError(
+            f"{name}: head dim P={P}, state N={N} and chunk={chunk} must be "
+            f"at most {MAX_HEAD_DIM}, {MAX_STATE} and {MAX_CHUNK} for the "
+            f"CUDA kernel")
+    for tname, t in (("x", x), ("dt", dt), ("A", A), ("B", Bg), ("C", Cg)):
+        if t.device != x.device:
+            raise ValueError(f"{name}: {tname} is on {t.device}, expected "
+                             f"{x.device}")
+        want = torch.float32 if tname in ("dt", "A") else x.dtype
+        if t.dtype != want:
+            raise ValueError(f"{name}: {tname} must be {want}, got "
+                             f"{t.dtype}")
+        if tname != "A" and not t.is_contiguous():
+            raise ValueError(f"{name}: {tname} {tuple(t.shape)} is not "
+                             f"contiguous (strides {t.stride()})")
+
+
+def ssd_scan_kernel(x, dt, A, Bg, Cg, *, chunk: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B,L,H,P); dt: (B,L,H); A: (H,) or per sequence (B,H); Bg/Cg:
+    (B,L,G,N) with G dividing H.  Returns (y (B,L,H,P) in x's dtype,
+    final_state (B,H,P,N) float32), as the JAX package's
+    ``ssd_scan_pallas`` of the head-expanded B and C."""
+    _check_shapes(x, dt, A, Bg, Cg, chunk)
+    B, L, H, P = x.shape
+    G, N = Bg.shape[2], Bg.shape[3]
+    if x.device.type == "cpu":
+        rep = H // G
+        y, state = ssd_scan_ref(x, dt, A, Bg.repeat_interleave(rep, dim=2),
+                                Cg.repeat_interleave(rep, dim=2))
+        return y.to(x.dtype), state
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan: no kernel for device {x.device}")
+    _check_cuda(x, dt, A, Bg, Cg, chunk)
+    A = A.expand(B, H).contiguous()
+    y = torch.empty_like(x)
+    state = torch.empty(B, H, P, N, dtype=torch.float32, device=x.device)
+    lib = _LIB.lib
+    with torch.cuda.device(x.device):
+        err = lib.repro_ssd_scan(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bg.data_ptr(),
+            Cg.data_ptr(), y.data_ptr(), state.data_ptr(), B, L, H, P, G, N,
+            chunk, _DTYPES[x.dtype], torch.cuda.current_stream().cuda_stream)
+    raise_on(err, "ssd_scan")
+    launch_counts["ssd_scan"] += 1
+    return y, state
+
+
+# ---------------------------------------------------------------------------
+# autograd: kernel forward + the chunked scan's VJP
+# ---------------------------------------------------------------------------
+
+def _fold_A(A: torch.Tensor, dim: int | None, n: int, B: int
+            ) -> torch.Tensor:
+    """A of each mapped call, (H,) or (B, H), as one A per folded
+    sequence: (n·B, H)."""
+    A = A.expand(n, *A.shape) if dim is None else A.movedim(dim, 0)
+    if A.ndim == 2:                                    # (n, H)
+        A = A[:, None, :].expand(n, B, A.shape[-1])
+    return A.reshape(n * B, A.shape[-1])
+
+
+def _chunked_vjp(x, dt, A, Bg, Cg, gy, gs, chunk):
+    """Gradients of the chunked scan, in float32, at the given inputs."""
+    with torch.profiler.record_function("ssd_scan_chunked_bwd"):
+        return ssd_scan_vjp(x, dt, A, Bg, Cg, gy, gs, chunk)
+
+
+class _SSDScanBwd(torch.autograd.Function):
+    """The backward as a ``Function`` of its own, so that under
+    ``torch.func.vmap`` it sees folded tensors, like the forward."""
+
+    @staticmethod
+    def forward(x, dt, A, Bg, Cg, gy, gs, chunk):
+        return _chunked_vjp(x, dt, A, Bg, Cg, gy, gs, chunk)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError(
+            "the SSD scan's backward is once-differentiable: second-order "
+            "gradients through ssd_scan are not supported")
+
+    @staticmethod
+    def vmap(info, in_dims, x, dt, A, Bg, Cg, gy, gs, chunk):
+        n = info.batch_size
+        fx, fdt, fB, fC, fgy, fgs = (
+            fold(t, dim, n) for t, dim in
+            zip((x, dt, Bg, Cg, gy, gs), (in_dims[0], in_dims[1], in_dims[3],
+                                          in_dims[4], in_dims[5], in_dims[6])))
+        fA = _fold_A(A, in_dims[2], n, fx.shape[0] // n)
+        grads = _SSDScanBwd.apply(fx, fdt, fA, fB, fC, fgy, fgs, chunk)
+        dx, ddt, dA, dB, dC = (unfold(g, n) for g in grads)
+        per_call_A = A.ndim - (in_dims[2] is not None)
+        if per_call_A == 1:                   # each call's A was (H,)
+            dA = dA.sum(1)
+        return (dx, ddt, dA, dB, dC), (0, 0, 0, 0, 0)
+
+
+class _SSDScan(torch.autograd.Function):
+
+    @staticmethod
+    def forward(x, dt, A, Bg, Cg, chunk):
+        return ssd_scan_kernel(x.contiguous(), dt.float().contiguous(),
+                               A.float(), Bg.contiguous(), Cg.contiguous(),
+                               chunk=chunk)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, dt, A, Bg, Cg, chunk = inputs
+        ctx.save_for_backward(x, dt, A, Bg, Cg)
+        ctx.chunk = chunk
+
+    @staticmethod
+    def backward(ctx, gy, gs):
+        x, dt, A, Bg, Cg = ctx.saved_tensors
+        grads = _SSDScanBwd.apply(x, dt, A, Bg, Cg, gy, gs, ctx.chunk)
+        return (*grads, None)
+
+    @staticmethod
+    def vmap(info, in_dims, x, dt, A, Bg, Cg, chunk):
+        n = info.batch_size
+        fx, fdt, fB, fC = (fold(t, dim, n) for t, dim in
+                           zip((x, dt, Bg, Cg), (in_dims[0], in_dims[1],
+                                                 in_dims[3], in_dims[4])))
+        fA = _fold_A(A, in_dims[2], n, fx.shape[0] // n)
+        y, state = _SSDScan.apply(fx, fdt, fA, fB, fC, chunk)
+        return (unfold(y, n), unfold(state, n)), (0, 0)
+
+
+def ssd_scan(x, dt, A, Bg, Cg, *, chunk: int = 128
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Model-facing layout: x (B,L,H,P), dt (B,L,H), A (H,), Bg/Cg
+    (B,L,G,N) group projections.  Returns (y (B,L,H,P) in x's dtype, state
+    (B,H,P,N) float32): the kernel on a CUDA tensor (its plain version on a
+    CPU tensor), differentiable through the chunked scan's VJP."""
+    return _SSDScan.apply(x, dt, A, Bg, Cg, chunk)

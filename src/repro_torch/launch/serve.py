@@ -11,10 +11,13 @@ engine's ``kind=serve`` record to a JSONL run log that
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --batch 4 --prompt-len 128 --gen 128 --adapt-steps 2 --users 4 \\
       --rounds 2 --seed 0 [--reduced] [--device cpu] [--run-log serve.jsonl]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
+      --prompt-len 512 --gen 512
 
+``--arch`` is a config the port has (qwen2-1.5b, mamba2-130m).
 ``--device`` defaults to the CUDA card (and raises without one).  A
-non-reduced config runs in its own dtype (bfloat16 for qwen2-1.5b), a
-reduced one in float32, as the reference picks.
+non-reduced config runs in its own dtype (bfloat16 for both), a reduced
+one in float32, as the reference picks.
 """
 from __future__ import annotations
 

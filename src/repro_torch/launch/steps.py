@@ -21,8 +21,8 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 def modality_extras(cfg: ArchConfig, lead: tuple[int, ...],
                     dtype: torch.dtype, device=None) -> dict:
     """Zero-stub modality inputs the model's loss expects beyond
-    tokens/labels.  The dense decoder family needs none; the audio and
-    vision families (later slices) raise."""
+    tokens/labels.  The dense decoder and Mamba2 families need none; the
+    audio and vision families (later slices) raise."""
     if cfg.arch_type in ("audio", "vlm"):
         raise ValueError(f"{cfg.name}: {cfg.arch_type} inputs are not "
                          f"ported yet")

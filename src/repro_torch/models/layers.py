@@ -1,6 +1,8 @@
-"""Neural layers of the dense decoder family: norms, RoPE, GQA attention
-(full-sequence and single-token decode with the sliding-window ring buffer)
-and the MLP — port of the dense subset of ``repro/models/layers.py``.
+"""Neural layers of the dense decoder and Mamba2 families: norms, RoPE, GQA
+attention (full-sequence and single-token decode with the sliding-window
+ring buffer), the MLP and the Mamba2 mixer (the chunked SSD scan,
+full-sequence and single-token decode) — port of that subset of
+``repro/models/layers.py``.
 
 Everything is functional: ``*_specs(cfg)`` builds a Spec tree,
 ``*_apply(params, ...)`` runs it on a dict of tensors keyed as the specs.
@@ -12,6 +14,15 @@ backward); on a CPU tensor it runs the port's copy of the reference's
 computes.  The numbers differ in one place: the jnp path rounds the
 probabilities to the value dtype before P·V, the kernel keeps them float32
 (as the Pallas kernel does).  In float32 the two agree to rounding.
+
+:func:`mamba2_apply` is where the hand-written SSD scan kernel goes: on a
+CUDA tensor it calls the SSD scan ``Function`` (kernel forward, the chunked
+scan's VJP as backward); on a CPU tensor it runs :func:`ssd_scan`, the
+port of the reference's jnp chunked scan (its ``use_kernel=False``
+branch), which lives in ``kernels/ssd_scan/chunked.py`` beside its VJP and
+is exported here under the reference's name.  The kernel keeps the state and the decay tile in float32, where
+the chunked scan keeps them in the model dtype; in float32 the two agree to
+rounding.
 """
 from __future__ import annotations
 
@@ -23,6 +34,8 @@ import torch.nn.functional as F
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels.flash_attention.ops import gqa_flash_attention
 from repro_torch.kernels.flash_attention.ref import band_mask
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.chunked import ssd_scan
 from repro_torch.models.init import Spec
 
 Params = dict[str, torch.Tensor]
@@ -30,7 +43,8 @@ NEG_INF = -1e30
 
 __all__ = ["norm_specs", "norm_apply", "rope", "sdpa", "causal_mask",
            "attention_specs", "attention_apply", "attention_decode",
-           "mlp_specs", "mlp_apply", "sub"]
+           "mlp_specs", "mlp_apply", "mamba2_specs", "ssd_scan",
+           "mamba2_apply", "mamba2_decode", "sub"]
 
 
 def sub(params: Params, prefix: str) -> Params:
@@ -260,3 +274,114 @@ def mlp_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
         return h @ params["w2"]
     h = F.gelu(x @ params["w1"] + params["b1"], approximate="tanh")
     return h @ params["w2"] + params["b2"]
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 — SSD (state-space duality) chunked scan [arXiv:2405.21060]
+# ---------------------------------------------------------------------------
+
+def mamba2_specs(cfg: ArchConfig) -> dict:
+    d = cfg.d_model
+    H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
+    cw = cfg.ssm_conv
+    return {
+        "w_x": Spec((d, H, P), ("embed", "ssm_head", "ssm_dim"), "fan_in"),
+        "w_z": Spec((d, H, P), ("embed", "ssm_head", "ssm_dim"), "fan_in"),
+        "w_B": Spec((d, G, N), ("embed", None, "ssm_state"), "fan_in"),
+        "w_C": Spec((d, G, N), ("embed", None, "ssm_state"), "fan_in"),
+        "w_dt": Spec((d, H), ("embed", "ssm_head"), "fan_in"),
+        "dt_bias": Spec((H,), ("ssm_head",), "zeros"),
+        "A_log": Spec((H,), ("ssm_head",), "zeros"),
+        "D": Spec((H,), ("ssm_head",), "ones"),
+        "conv_x": Spec((cw, H, P), (None, "ssm_head", "ssm_dim"), "fan_in"),
+        "conv_B": Spec((cw, G, N), (None, None, "ssm_state"), "fan_in"),
+        "conv_C": Spec((cw, G, N), (None, None, "ssm_state"), "fan_in"),
+        "norm": {"scale": Spec((H, P), ("ssm_head", "ssm_dim"), "ones")},
+        "w_out": Spec((H, P, d), ("ssm_head", "ssm_dim", "embed"), "fan_in"),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv along time.  x: (B, L, *ch); w: (cw, *ch)."""
+    cw, L = w.shape[0], x.shape[1]
+    pad = torch.zeros(x.shape[:1] + (cw - 1,) + x.shape[2:], dtype=x.dtype,
+                      device=x.device)
+    xp = torch.cat([pad, x], dim=1)
+    out = sum(xp[:, i:i + L] * w[i] for i in range(cw))
+    return F.silu(out)
+
+
+def _gated_rmsnorm(scale: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    x = x * F.silu(z)
+    xf = x.float()
+    ms = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+def mamba2_apply(params: Params, cfg: ArchConfig, x: torch.Tensor
+                 ) -> torch.Tensor:
+    """Full-sequence Mamba2 mixer.  x: (B, L, d)."""
+    xin = torch.einsum("bld,dhp->blhp", x, params["w_x"])
+    z = torch.einsum("bld,dhp->blhp", x, params["w_z"])
+    Bm = torch.einsum("bld,dgn->blgn", x, params["w_B"])
+    Cm = torch.einsum("bld,dgn->blgn", x, params["w_C"])
+    xin = _causal_conv(xin, params["conv_x"])
+    Bm = _causal_conv(Bm, params["conv_B"])
+    Cm = _causal_conv(Cm, params["conv_C"])
+    dt = F.softplus(torch.einsum("bld,dh->blh", x, params["w_dt"])
+                    + params["dt_bias"])
+    A = -torch.exp(params["A_log"].float())
+    chunk = min(cfg.ssm_chunk, x.shape[1])
+    if x.device.type == "cuda":
+        y, _ = ssd_ops.ssd_scan(xin, dt, A, Bm, Cm, chunk=chunk)
+    else:
+        y, _ = ssd_scan(xin, dt.float(), A, Bm, Cm, chunk)
+    y = y + xin * params["D"][None, None, :, None]
+    y = _gated_rmsnorm(params["norm/scale"], y, z)
+    return torch.einsum("blhp,hpd->bld", y, params["w_out"])
+
+
+def mamba2_decode(params: Params, cfg: ArchConfig, x: torch.Tensor,
+                  conv_state: torch.Tensor, ssm_state: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Single-token recurrent step.  x: (B,1,d);
+    conv_state: (B, cw-1, H*P + 2*G*N) channel history in the order
+    ``[x | B | C]``; ssm_state: (B, H, P, N).  Returns (out (B,1,d),
+    conv_state, ssm_state); both states are updated in place (the
+    reference returns updated copies): the history shifts by one and the
+    state is overwritten."""
+    H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
+    cw = cfg.ssm_conv
+    xin = torch.einsum("bld,dhp->blhp", x, params["w_x"])[:, 0]  # (B,H,P)
+    z = torch.einsum("bld,dhp->blhp", x, params["w_z"])[:, 0]
+    Bm = torch.einsum("bld,dgn->blgn", x, params["w_B"])[:, 0]
+    Cm = torch.einsum("bld,dgn->blgn", x, params["w_C"])[:, 0]
+    Bsz = x.shape[0]
+    ch = torch.cat([xin.reshape(Bsz, -1), Bm.reshape(Bsz, -1),
+                    Cm.reshape(Bsz, -1)], dim=-1)              # (B, ch)
+    hist = torch.cat([conv_state, ch[:, None, :]], dim=1)      # (B,cw,ch)
+    wall = torch.cat([params["conv_x"].reshape(cw, -1),
+                      params["conv_B"].reshape(cw, -1),
+                      params["conv_C"].reshape(cw, -1)], dim=-1)  # (cw, ch)
+    conved = F.silu(torch.einsum("bcw,cw->bw", hist, wall))
+    xin = conved[:, : H * P].reshape(Bsz, H, P)
+    Bm = conved[:, H * P: H * P + G * N].reshape(Bsz, G, N)
+    Cm = conved[:, H * P + G * N:].reshape(Bsz, G, N)
+    dt = F.softplus(torch.einsum("bld,dh->blh", x, params["w_dt"])[:, 0]
+                    + params["dt_bias"])                        # (B,H)
+    A = -torch.exp(params["A_log"].float())
+    rep = H // G
+    Bh = Bm.repeat_interleave(rep, dim=1)                       # (B,H,N)
+    Ch = Cm.repeat_interleave(rep, dim=1)
+    decay = torch.exp(dt * A)[..., None, None]                  # (B,H,1,1)
+    upd = dt[..., None, None] * torch.einsum("bhn,bhp->bhpn", Bh, xin)
+    new = (ssm_state * decay.to(ssm_state.dtype)
+           + upd.to(ssm_state.dtype))
+    conv_state.copy_(hist[:, 1:])
+    ssm_state.copy_(new)
+    y = torch.einsum("bhpn,bhn->bhp", ssm_state.to(x.dtype), Ch)
+    y = y + xin * params["D"][None, :, None]
+    y = _gated_rmsnorm(params["norm/scale"], y, z)
+    out = torch.einsum("bhp,hpd->bd", y, params["w_out"])[:, None, :]
+    return out, conv_state, ssm_state

@@ -1,18 +1,20 @@
-"""Model assembly for the dense decoder family — port of the dense subset of
-``repro/models/transformer.py``.
+"""Model assembly for the dense decoder and Mamba2 families — port of that
+subset of ``repro/models/transformer.py``.
 
 A model is a list of **segments**; each segment repeats a **period** (a
 short list of blocks) ``n`` times, with the period's parameters stacked on
 a leading layer axis.  The reference scans the stack with ``lax.scan``; the
 port loops over it in Python.  For a dense LM the plan is one segment of L
-``attn + mlp`` blocks, and the parameters are the flat dict of the
-reference's tree (``segments/0/0/attn/wq`` has shape (L, d, H, hd)).
+``attn + mlp`` blocks, for Mamba2 one segment of L ``mamba`` blocks, and the
+parameters are the flat dict of the reference's tree
+(``segments/0/0/attn/wq`` has shape (L, d, H, hd),
+``segments/0/0/mamba/w_x`` (L, d, H, P)).
 
 The reference wraps each layer in ``jax.checkpoint`` (``cfg.remat``).
 ``torch.func`` transforms reject ``torch.utils.checkpoint``, so the port
 runs without it: remat changes memory, not numbers.
 
-MoE, MLA, Mamba, cross-attention and the encoder-decoder and vision
+MoE, MLA, hybrid, cross-attention and the encoder-decoder and vision
 families come with later slices; :func:`segment_plan` raises for them.
 """
 from __future__ import annotations
@@ -37,7 +39,7 @@ __all__ = ["BlockDesc", "Segment", "Model", "block_specs", "block_apply",
 
 @dataclasses.dataclass(frozen=True)
 class BlockDesc:
-    mixer: str          # attn | attn_nc (non-causal)
+    mixer: str          # attn | attn_nc (non-causal) | mamba
     ffn: str            # dense | none
 
 
@@ -52,17 +54,20 @@ class Segment:
 # ---------------------------------------------------------------------------
 
 def _check_block(desc: BlockDesc) -> None:
-    if desc.mixer not in ("attn", "attn_nc") or desc.ffn not in ("dense",
-                                                                 "none"):
+    if desc.mixer not in ("attn", "attn_nc", "mamba") or \
+            desc.ffn not in ("dense", "none"):
         raise ValueError(f"block {desc} is not in the port's dense decoder "
-                         f"family (MLA, Mamba, cross-attention and MoE "
+                         f"or Mamba2 families (MLA, cross-attention and MoE "
                          f"blocks come with later slices)")
 
 
 def block_specs(cfg: ArchConfig, desc: BlockDesc) -> dict:
     _check_block(desc)
-    p: dict[str, Any] = {"norm1": L.norm_specs(cfg),
-                         "attn": L.attention_specs(cfg)}
+    p: dict[str, Any] = {"norm1": L.norm_specs(cfg)}
+    if desc.mixer == "mamba":
+        p["mamba"] = L.mamba2_specs(cfg)
+    else:
+        p["attn"] = L.attention_specs(cfg)
     if desc.ffn != "none":
         p["norm2"] = L.norm_specs(cfg)
         p["ffn"] = L.mlp_specs(cfg)
@@ -72,8 +77,11 @@ def block_specs(cfg: ArchConfig, desc: BlockDesc) -> dict:
 def block_apply(cfg: ArchConfig, desc: BlockDesc, p: Params,
                 x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     h = L.norm_apply(L.sub(p, "norm1"), x)
-    x = x + L.attention_apply(L.sub(p, "attn"), cfg, h, positions,
-                              causal=desc.mixer == "attn")
+    if desc.mixer == "mamba":
+        x = x + L.mamba2_apply(L.sub(p, "mamba"), cfg, h)
+    else:
+        x = x + L.attention_apply(L.sub(p, "attn"), cfg, h, positions,
+                                  causal=desc.mixer == "attn")
     if desc.ffn != "none":
         h = L.norm_apply(L.sub(p, "norm2"), x)
         x = x + L.mlp_apply(L.sub(p, "ffn"), h)
@@ -82,8 +90,19 @@ def block_apply(cfg: ArchConfig, desc: BlockDesc, p: Params,
 
 def block_cache_specs(cfg: ArchConfig, desc: BlockDesc, batch: int,
                       cache_len: int) -> dict:
-    """Spec tree of this block's decode state."""
+    """Spec tree of this block's decode state: the KV cache of an
+    attention block, the conv history and the SSM state of a Mamba2 block
+    (O(1) in the sequence)."""
     _check_block(desc)
+    if desc.mixer == "mamba":
+        H, P, N, G = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                      cfg.ssm_groups)
+        ch = H * P + 2 * G * N
+        return {"conv": Spec((batch, cfg.ssm_conv - 1, ch),
+                             ("batch", None, None), "zeros"),
+                "ssm": Spec((batch, H, P, N),
+                            ("batch", "ssm_head", "ssm_dim", "ssm_state"),
+                            "zeros")}
     C = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
         else cache_len
     kv = Spec((batch, C, cfg.num_kv_heads, cfg.head_dim),
@@ -95,9 +114,14 @@ def block_decode(cfg: ArchConfig, desc: BlockDesc, p: Params, cache: Params,
                  x: torch.Tensor, pos: torch.Tensor
                  ) -> tuple[torch.Tensor, Params]:
     h = L.norm_apply(L.sub(p, "norm1"), x)
-    y, ck, cv = L.attention_decode(L.sub(p, "attn"), cfg, h, pos,
-                                   cache["k"], cache["v"])
-    x, cache = x + y, {"k": ck, "v": cv}
+    if desc.mixer == "mamba":
+        y, conv, ssm = L.mamba2_decode(L.sub(p, "mamba"), cfg, h,
+                                       cache["conv"], cache["ssm"])
+        x, cache = x + y, {"conv": conv, "ssm": ssm}
+    else:
+        y, ck, cv = L.attention_decode(L.sub(p, "attn"), cfg, h, pos,
+                                       cache["k"], cache["v"])
+        x, cache = x + y, {"k": ck, "v": cv}
     if desc.ffn != "none":
         h = L.norm_apply(L.sub(p, "norm2"), x)
         x = x + L.mlp_apply(L.sub(p, "ffn"), h)
@@ -109,11 +133,13 @@ def block_decode(cfg: ArchConfig, desc: BlockDesc, p: Params, cache: Params,
 # ---------------------------------------------------------------------------
 
 def segment_plan(cfg: ArchConfig) -> list[Segment]:
+    if cfg.arch_type == "ssm":
+        return [Segment(cfg.num_layers, (BlockDesc("mamba", "none"),))]
     if cfg.arch_type != "dense":
         raise ValueError(
             f"{cfg.name}: arch_type {cfg.arch_type!r} is not ported yet; the "
-            f"port's LM models are the dense decoder family (moe, ssm, "
-            f"hybrid, vlm and audio come with later slices)")
+            f"port's LM models are the dense decoder and Mamba2 families "
+            f"(moe, hybrid, vlm and audio come with later slices)")
     return [Segment(cfg.num_layers, (BlockDesc("attn", "dense"),))]
 
 

@@ -8,7 +8,8 @@ batched adaptation
     N concurrent user episodes adapt in ONE ``torch.func.vmap`` of
     ``inner_adapt`` (``EvalHarness.adapt_states``); on the card every
     attention layer's forward and backward in it are the flash-attention
-    kernels, each launch folding the N users into its batch.  Request
+    kernels, and every Mamba2 layer's forward is the SSD scan kernel, each
+    launch folding the N users into its batch.  Request
     counts are padded up to a small set of *buckets* (the reference's
     compile sizes; here they bound the shapes the dispatch sees).
 
@@ -20,7 +21,8 @@ adapted-state cache
 decode
     A teacher-forced prefill of the prompt (P−1 single-token decode
     steps, as the reference's prefill scan) and a greedy or sampling
-    decode, timed separately.  The reference scans both with ``lax.scan``
+    decode, timed separately, over the model's own decode caches (KV for
+    attention, conv history and SSM state for Mamba2).  The reference scans both with ``lax.scan``
     under ``jit``; the port runs them eagerly, one Python step per token.
     Sampling (``temperature > 0``) draws from an explicit
     ``torch.Generator`` seeded per call; it cannot reproduce

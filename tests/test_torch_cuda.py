@@ -1,6 +1,6 @@
-"""The CUDA kernels of ``repro_torch.kernels.dif_combine`` and
-``repro_torch.kernels.flash_attention`` against their plain PyTorch
-versions, on the card.  Every test here needs a CUDA card and skips
+"""The CUDA kernels of ``repro_torch.kernels.dif_combine``,
+``repro_torch.kernels.flash_attention`` and ``repro_torch.kernels.ssd_scan``
+against their plain PyTorch versions, on the card.  Every test here needs a CUDA card and skips
 without one.  The file imports neither JAX nor the reference package, so it
 also runs where only PyTorch is installed:
 
@@ -13,6 +13,8 @@ import torch
 from repro_torch.kernels.dif_combine import ops, ref
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.flash_attention import ref as fref
+from repro_torch.kernels.ssd_scan import ops as sops
+from repro_torch.kernels.ssd_scan import ref as sref
 
 # float32: the same expressions, the K terms of a mix summed in another
 # order.  bfloat16: outputs rounded to bf16 after that, one ulp apart at most.
@@ -169,3 +171,93 @@ def test_cuda_flash_attention_raises_instead_of_falling_back(cuda):
     h = torch.ones(1, 2, 64, 64, device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError, match="not supported"):
         fops.flash_attention(h, h, h)
+
+
+# The SSD scan against the per-step recurrence.  float32: the chunked form
+# sums in another order (1e-4, as chip_smoke.py holds it at the serving
+# shape); bfloat16: y is rounded to bf16 once (rtol) plus the row atol; the
+# state stays float32.
+SSD_F32_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _ssd_inputs(gen, B, L, H, P, N, G, dtype, device):
+    """tests/test_kernels.py's distributions."""
+    x = torch.randn(B, L, H, P, generator=gen)
+    dt = torch.nn.functional.softplus(torch.randn(B, L, H, generator=gen))
+    A = -torch.exp(torch.randn(H, generator=gen) * 0.3)
+    Bm, Cm = (torch.randn(B, L, G, N, generator=gen) * 0.3 for _ in "BC")
+    return (x.to(device, dtype), (0.5 * dt).to(dtype).float().to(device),
+            A.to(device), Bm.to(device, dtype), Cm.to(device, dtype))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("L,chunk,H,G,P,N", [
+    (128, 32, 2, 2, 16, 32), (256, 64, 2, 2, 16, 32),
+    (256, 128, 2, 2, 16, 32), (96, 48, 4, 2, 8, 16),
+    (512, 256, 4, 1, 64, 128)],
+    ids=["grid128x32", "grid256x64", "grid256x128", "groups-ragged48",
+         "full-width"])
+def test_cuda_ssd_scan_matches_plain_version(cuda, dtype, L, chunk, H, G,
+                                             P, N):
+    gen = torch.Generator().manual_seed(L + chunk)
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, 2, L, H, P, N, G, dtype, cuda)
+    before = sops.launch_counts["ssd_scan"]
+    y, s = sops.ssd_scan_kernel(x, dt, A, Bm, Cm, chunk=chunk)
+    assert sops.launch_counts["ssd_scan"] == before + 1
+    assert y.dtype == dtype and s.dtype == torch.float32
+    rep = H // G
+    yr, sr = sref.ssd_scan_ref(x, dt, A, Bm.repeat_interleave(rep, 2),
+                               Cm.repeat_interleave(rep, 2))
+    torch.testing.assert_close(s, sr, **SSD_F32_TOL)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, yr, **SSD_F32_TOL)
+    else:
+        assert_flash_close(y, yr.to(dtype), dict(rtol=1.6e-2, atol=0.0))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.requires_cuda
+def test_cuda_ssd_scan_vmap_of_grad_matches_the_cpu(cuda):
+    """The pairing (kernel forward, chunked-scan VJP backward) under
+    ``vmap(grad)`` on the card against the same on the CPU (plain forward):
+    one launch for the three users."""
+    gen = torch.Generator().manual_seed(0)
+    n, B, L, H, P, N = 3, 2, 128, 4, 16, 32
+    xs = torch.randn(n, B, L, H, P, generator=gen)
+    dts = torch.nn.functional.softplus(torch.randn(n, B, L, H,
+                                                   generator=gen)) * 0.5
+    a_log = torch.randn(H, generator=gen) * 0.3
+    Bs, Cs = (torch.randn(n, B, L, 1, N, generator=gen) * 0.3 for _ in "BC")
+    w = torch.randn(n, B, L, H, P, generator=gen)
+
+    def loss(x, dt, a_log, Bm, Cm, w):
+        y, s = sops.ssd_scan(x, dt, -torch.exp(a_log), Bm, Cm, chunk=32)
+        return (y * w).sum() + 0.1 * (s ** 2).sum()
+
+    f = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1, 2, 3, 4)),
+                        in_dims=(0, 0, None, 0, 0, 0))
+    args = (xs, dts, a_log, Bs, Cs, w)
+    before = sops.launch_counts["ssd_scan"]
+    got = f(*(t.to(cuda) for t in args))
+    assert sops.launch_counts["ssd_scan"] == before + 1
+    for g, want in zip(got, f(*args)):
+        torch.testing.assert_close(g.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_ssd_scan_raises_instead_of_falling_back(cuda):
+    gen = torch.Generator().manual_seed(1)
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, 1, 64, 2, 16, 32, 1, torch.float32,
+                                   cuda)
+    with pytest.raises(ValueError, match="P=80"):
+        sops.ssd_scan_kernel(torch.ones(1, 64, 2, 80, device=cuda), dt, A,
+                             Bm, Cm, chunk=32)
+    with pytest.raises(ValueError, match="not supported"):
+        sops.ssd_scan_kernel(x.half(), dt, A, Bm.half(), Cm.half(),
+                             chunk=32)
+    with pytest.raises(ValueError, match="contiguous"):
+        sops.ssd_scan_kernel(x.transpose(2, 3).contiguous().transpose(2, 3),
+                             dt, A, Bm, Cm, chunk=32)
+    with pytest.raises(ValueError, match=r"L=64 % chunk=48 = 16"):
+        sops.ssd_scan_kernel(x, dt, A, Bm, Cm, chunk=48)

@@ -95,6 +95,10 @@ def test_serve_entry_points_raise_without_a_device():
                                            batch=1),
         "restore_centroid": lambda: restore_centroid("missing", {}),
         "serve": lambda: serve.main(["--arch", "qwen2-1.5b", "--reduced"]),
+        "serve mamba2": lambda: serve.main(["--arch", "mamba2-130m",
+                                            "--reduced"]),
+        "Model.init mamba2": lambda: build_model(
+            get_config("mamba2-130m").reduced()).init(torch.Generator()),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -213,7 +213,7 @@ def test_incremental_decode_matches_forward(models, batch):
 
 def test_other_families_raise():
     with pytest.raises(ValueError, match="not ported yet"):
-        get_config("mamba2-130m")
+        get_config("mixtral-8x22b")
     cfg = dataclasses.replace(get_config("qwen2-1.5b").reduced(),
                               arch_type="moe")
     with pytest.raises(ValueError, match="not ported yet"):
