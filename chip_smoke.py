@@ -9,7 +9,12 @@ Phases, each fatal on failure:
 2. build     -- compiles the CUDA sources of ``kernels/dif_combine/csrc``,
                 ``kernels/flash_attention/csrc`` and ``kernels/ssd_scan/csrc``
                 with nvcc for sm_90a, all at once, and prints the build
-                seconds.
+                seconds and, from ``cuobjdump -sass``, the HGMMA (wgmma)
+                instructions in each bf16 flash kernel: the forward, dQ and
+                dK/dV kernels must have some.  Then one call of
+                ``gqa_flash_attention`` at the serving shape must run one
+                kernel forward and two backward (torch.profiler, before any
+                other profiling: sessions after phase 5's miss kernels).
 3. kernels   -- holds ``dif_combine`` and ``fused_combine_update`` against
                 their plain PyTorch versions on the card: at the shapes the
                 training step gives them (the sine MLP's leaves, K=6, padded
@@ -30,14 +35,24 @@ Phases, each fatal on failure:
                 (torch.profiler), to show where a step's time goes.
 6. flash     -- holds the flash-attention forward (out, lse) and backward
                 (dq, dk, dv) kernels against ``attention_ref`` and its autograd
-                gradient: S in {128, 256, 1024} x d in {64, 128} x {causal,
-                bidirectional, causal window 64} x {float32, bfloat16}, and
-                the serving path's shape (B=16: 4 users x 4 sequences, H=12,
-                S=256, d=128, bfloat16, causal).  Each check prints its
-                errors, the kernels' times, the plain versions', SDPA's (the
-                library yardstick, never called by the port) and the bounds.
-                At the serving shape, planted faults in the backward's
-                output (a dropped key tile, zeroed rows) must fail its check.
+                gradient, and the backward against its plain version: in
+                (B, H, S, d) with heads expanded, S in {128, 256, 1024} x d
+                in {64, 128} x {causal, bidirectional, causal window 64} x
+                {float32, bfloat16}, and the serving path's shape (B=16: 4
+                users x 4 sequences, H=12, S=256, d=128, bfloat16, causal);
+                in the model's layout with qwen2's 2 KV heads not expanded
+                (``gqa_flash_attention``, what the serving path calls), B=2
+                at S in {128, 1024} and the serving shape.  Each check
+                prints its errors, the kernels' times, the plain versions',
+                SDPA's (the library yardstick, never called by the port;
+                ``enable_gqa`` in the model's layout, its backward timed by
+                torch.profiler's device time, as a CUDA graph cannot
+                capture it) and the bounds (K/V bytes with their own
+                heads).  At both serving rows, planted faults in the
+                backward's output (a dropped key tile, zeroed rows) must
+                fail its check; at the model-layout one the times with a
+                cold L2 (64 MB written between calls) are printed beside
+                the warm ones.  This phase runs before phase 5.
 7. serve     -- runs ``python -m repro_torch.launch.serve --arch qwen2-1.5b``
                 at full width (28 layers, bfloat16, fresh init from seed 0;
                 4 users x 4 sequences x 256 tokens, 2 adapt steps, 2 rounds,
@@ -99,6 +114,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -158,6 +175,11 @@ FLASH_BF16_ROW_ATOL = 2.0 ** -8
 # 256 tokens, head dim 128, bfloat16, causal.
 FLASH_MAIN = dict(B=16, H=12, S=256, d=128, dtype=torch.bfloat16,
                   causal=True, window=None)
+# The same in the model's layout, as the serving path calls it: q (B, S, H,
+# d), k/v (B, S, KV, d) with qwen2-1.5b's 2 KV heads not expanded.
+FLASH_GQA_MAIN = dict(B=16, S=256, H=12, KV=2, d=128, dtype=torch.bfloat16,
+                      causal=True, window=None)
+FLUSH_BYTES = 64 << 20           # written between launches for a cold L2
 SERVE_ARGS = ["--arch", "qwen2-1.5b", "--batch", "4", "--prompt-len", "128",
               "--gen", "128", "--adapt-steps", "2", "--users", "4",
               "--rounds", "2", "--seed", "0"]
@@ -551,28 +573,33 @@ def profile_phase(backend: str, steps: int = 50):
 # Phase 6: the flash-attention kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def flash_cost(B, H, S, d, itemsize, pairs_per_head, backward):
+def flash_cost(B, H, S, d, itemsize, pairs_per_head, backward, KV=None):
     """(bytes, flops) of one forward or backward: every input read once and
-    every output written once; 4 d flops per allowed (query, key) pair in
-    the forward (q.k and p.v), 10 d in the backward (the recomputed scores,
-    dP, dV, dK and dQ).  ``pairs_per_head`` counts the pairs the mask
-    allows in this run."""
+    every output written once, K and V (and dK, dV) with their KV heads
+    (H unless given); 4 d flops per allowed (query, key) pair and query
+    head in the forward (q.k and p.v), 10 d in the backward (the recomputed
+    scores, dP, dV, dK and dQ).  ``pairs_per_head`` counts the pairs the
+    mask allows in this run."""
     tile = B * H * S * d * itemsize
+    kv_tile = B * (H if KV is None else KV) * S * d * itemsize
     rows = B * H * S * 4                                # one float32 a row
     if backward:   # q, k, v, out, dO and lse in; dq, dk, dv out
-        return 8 * tile + rows, 10.0 * d * pairs_per_head * B * H
-    return 4 * tile + rows, 4.0 * d * pairs_per_head * B * H
+        return (4 * tile + 4 * kv_tile + rows,
+                10.0 * d * pairs_per_head * B * H)
+    return 2 * tile + 2 * kv_tile + rows, 4.0 * d * pairs_per_head * B * H
 
 
-def library_attention(q, k, v, causal, window, fref):
-    """One PyTorch call of the same forward: SDPA, with the band as a
-    boolean mask where a window is set."""
+def library_attention(q, k, v, causal, window, fref, gqa=False):
+    """One PyTorch call of the same forward on (B, H, S, d) views: SDPA,
+    with the band as a boolean mask where a window is set, and
+    ``enable_gqa`` where k/v have fewer heads than q."""
     import torch.nn.functional as F
     if window is None:
-        return lambda: F.scaled_dot_product_attention(q, k, v,
-                                                      is_causal=causal)
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=gqa)
     mask = fref.band_mask(q.shape[2], k.shape[2], causal, window, q.device)
-    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=gqa)
 
 
 def row_atol(want):
@@ -672,22 +699,25 @@ def check_flash(fops, fref, gen, B, H, S, d, dtype, causal, window,
                         phase == "bwd"), peak)
     print("flash check", json.dumps(row), flush=True)
     if faults:
-        planted_faults(fref, q, k, out, lse, do, (dq, dk, dv), leaves,
-                       slack, causal, window, tol["bwd"])
+        planted_faults(fref, q, k, v, out, lse, do, (dq, dk, dv),
+                       [leaf.grad for leaf in leaves], slack, causal, window,
+                       tol["bwd"])
     return row
 
 
-def planted_faults(fref, q, k, out, lse, do, grads, leaves, slack, causal,
-                   window, tol, tile=64):
-    """Plant faults in the kernel's (dq, dk, dv) and require the backward's
-    check against autograd to reject each; prints how many elements each
-    rule flags, the check's and a fixed atol of 1e-2's."""
+def planted_faults(fref, q, k, v, out, lse, do, grads, wants, slack, causal,
+                   window, tol, tile=64, what="flash"):
+    """Plant faults in the kernel's (dq, dk, dv) (head-first: q, k, v, out
+    and do (B, H, S, d); dk and dv may have fewer heads) and require the
+    backward's check against autograd (``wants``) to reject each; prints
+    how many elements each rule flags, the check's and a fixed atol of
+    1e-2's."""
     dq, dk, dv = grads
     S = q.shape[2]
     scale = 1.0 / math.sqrt(q.shape[-1])
     p = probs(fref, q, k, lse, causal, window)
     dof = do.float()
-    v = leaves[2].detach().float()
+    v = v.detach().float()
     ds = p * (dof @ v.transpose(-1, -2)
               - (dof * out.float()).sum(-1, keepdim=True)) * scale
     keys = slice(tile, 2 * tile)
@@ -703,22 +733,189 @@ def planted_faults(fref, q, k, out, lse, do, grads, leaves, slack, causal,
     row = {}
     for name, (which, bad) in faults.items():
         i = "qkv".index(which)
-        want = leaves[i].grad
+        want = wants[i]
         flagged, _ = outside(bad, want, tol, slack[i] + row_atol(want))
         fixed, _ = outside(bad, want, dict(rtol=tol["rtol"], atol=1e-2),
                            slack[i])
         if not flagged:
-            raise AssertionError(f"planted fault '{name}' passes the "
+            raise AssertionError(f"{what}: planted fault '{name}' passes the "
                                  f"backward check")
         row[name] = dict(flagged=flagged, flagged_fixed_atol_1e2=fixed,
                          elements=want.numel())
-    print("flash planted faults", json.dumps(row), flush=True)
+    print(f"{what} planted faults", json.dumps(row), flush=True)
 
 
 def zero_rows(x, lo, hi):
     x = x.clone()
     x[:, :, lo:hi] = 0
     return x
+
+
+def device_kernels(fn) -> list[str]:
+    """Names of the kernels (and copies) that one ``fn()`` runs on the
+    card, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            for _ in range(e.count)]
+
+
+def profiled_ms(fn, n: int) -> float:
+    """Device ms of one ``fn()``: the kernels (and copies) of ``n`` eager
+    calls summed by torch.profiler, over ``n``.  For library work that a
+    CUDA graph cannot capture."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None)
+            us += getattr(e, "self_cuda_time_total", 0) if t is None else t
+    return us / 1e3 / n
+
+
+def time_cold_ms(fn, n: int, flush: torch.Tensor) -> float:
+    """ms of one ``fn()`` whose inputs are not in L2: ``flush`` (larger
+    than the 50 MB L2) is written before each call, and the write's own
+    time is taken off."""
+    both = time_ms(lambda: (flush.fill_(1.0), fn()), n)
+    return both - time_ms(lambda: flush.fill_(1.0), n)
+
+
+def flash_calls_phase(fops) -> dict:
+    """The kernels that one call of ``gqa_flash_attention`` runs on the
+    card at the serving shape, forward and backward, from torch.profiler;
+    fails unless the forward runs its one kernel and the backward its two,
+    with no copy, expansion or reduction beside them.  Run before the
+    training step's profile (phase 5): torch.profiler sessions after that
+    one record none of these kernels."""
+    g = FLASH_GQA_MAIN
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    q, do = (torch.randn(g["B"], g["S"], g["H"], g["d"], generator=gen,
+                         device=DEVICE).to(g["dtype"]) for _ in "qo")
+    k, v = (torch.randn(g["B"], g["S"], g["KV"], g["d"], generator=gen,
+                        device=DEVICE).to(g["dtype"]) for _ in "kv")
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    kw = dict(causal=g["causal"], window=g["window"])
+    torch.autograd.grad(fops.gqa_flash_attention(*leaves, **kw), leaves, do)
+    held = {}
+    row = {"fwd": device_kernels(lambda: held.setdefault(
+               "out", fops.gqa_flash_attention(*leaves, **kw))),
+           "bwd": device_kernels(lambda: torch.autograd.grad(
+               held["out"], leaves, do))}
+    print("flash kernels per call", json.dumps(row), flush=True)
+    if len(row["fwd"]) != 1 or len(row["bwd"]) != 2:
+        raise AssertionError(
+            f"a gqa_flash_attention forward call ran {row['fwd']} and its "
+            f"backward {row['bwd']} on the card; expected the forward "
+            f"kernel alone and the two backward kernels")
+    return row
+
+
+def check_gqa_flash(fops, fref, gen, B, S, H, KV, d, dtype, causal, window,
+                    n=10, serving=False):
+    """The model layout, K/V with their KV heads (what the serving path
+    calls): the kernels against ``attention_ref`` on K/V expanded to H
+    heads and its autograd gradient (which sums each KV head's gradient
+    over its query heads), and the backward against its plain version.
+    Bounds count the unexpanded K/V; the yardstick is SDPA with
+    ``enable_gqa`` on the (B, H, S, d) views.  ``serving``: also the
+    planted faults and the times with a cold L2."""
+    dev = torch.device(DEVICE)
+    q, do = (torch.randn(B, S, H, d, generator=gen, device=dev).to(dtype)
+             for _ in "qo")
+    k, v = (torch.randn(B, S, KV, d, generator=gen, device=dev).to(dtype)
+            for _ in "kv")
+    kw = dict(causal=causal, window=window)
+    out, lse = fops.gqa_flash_attention_fwd_lse(q, k, v, **kw)
+    dq, dk, dv = fops.gqa_flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    rep = H // KV
+
+    def heads(t, expand=False):          # (B, S, n, d) -> (B, H, S, d)
+        return (t.repeat_interleave(rep, 2) if expand else t).transpose(1, 2)
+
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    want = fref.attention_ref(heads(leaves[0]), heads(leaves[1], True),
+                              heads(leaves[2], True), **kw).transpose(1, 2)
+    want.backward(do)
+    _, want_lse = fref.gqa_flash_fwd_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    what = (f"gqa flash B={B} S={S} H={H} KV={KV} d={d} {str(dtype)[6:]} "
+            f"causal={causal} window={window}")
+    tol = FLASH_TOL[dtype]
+    fwd_err = max(compare(out, want, dtype, what + " out", tol["fwd"],
+                          row_atol(want)),
+                  compare(lse, want_lse, torch.float32, what + " lse",
+                          FLASH_TOL[torch.float32]["fwd"]))
+    plain = fref.gqa_flash_bwd_ref(q, k, v, out, lse, do, **kw)
+    bwd_plain_err = max(compare(g, p, dtype, f"{what} d{name} (plain)",
+                                tol["bwd"], row_atol(p))
+                        for g, p, name in zip((dq, dk, dv), plain, "qkv"))
+    # the stored output's slack of each expanded head, summed over a KV
+    # head's query heads for dk
+    sq, sk, _ = stored_output_slack(fref, heads(q), heads(k, True),
+                                    heads(out), lse, heads(do), causal,
+                                    window)
+    slack = (sq.transpose(1, 2),
+             sk.reshape(B, KV, rep, S, d).sum(2).transpose(1, 2), 0.0)
+    bwd_err = max(compare(g, leaf.grad, dtype, f"{what} d{name}",
+                          tol["bwd"], sl + row_atol(leaf.grad))
+                  for g, leaf, sl, name in zip((dq, dk, dv), leaves, slack,
+                                               "qkv"))
+    pairs = int(fref.band_mask(S, S, causal, window, dev).sum())
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    row = dict(B=B, S=S, H=H, KV=KV, d=d, dtype=str(dtype)[6:],
+               causal=causal, window=window, fwd_max_abs_err=fwd_err,
+               bwd_max_abs_err=bwd_err, bwd_vs_plain_max_abs_err=bwd_plain_err,
+               tol=tol)
+    lib = library_attention(heads(q), heads(k), heads(v), causal, window,
+                            fref, gqa=True)
+    fwd = lambda: fops.gqa_flash_attention_fwd_lse(q, k, v, **kw)
+    bwd = lambda: fops.gqa_flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    row["fwd_ms"] = time_ms(fwd, n)
+    row["fwd_plain_ms"] = time_ms(lambda: fref.gqa_flash_fwd_ref(q, k, v,
+                                                                **kw), n)
+    row["fwd_library_ms"] = time_ms(lib, n)
+    row["bwd_ms"] = time_ms(bwd, n)
+    row["bwd_plain_ms"] = time_ms(lambda: fref.gqa_flash_bwd_ref(
+        q, k, v, out, lse, do, **kw), n)
+    # the library's backward with enable_gqa syncs with the legacy stream,
+    # which a CUDA graph cannot capture: its kernels' device time instead
+    lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lib_grad = library_attention(heads(lq), heads(lk), heads(lv), causal,
+                                 window, fref, gqa=True)
+    both = profiled_ms(lambda: torch.autograd.grad(
+        lib_grad(), (lq, lk, lv), heads(do)), n)
+    row["bwd_library_ms"] = max(both - profiled_ms(lib, n), 0.0)
+    row["bwd_library_timing"] = "torch.profiler device time"
+    for phase in ("fwd", "bwd"):
+        row[f"{phase}_bound_ms"], row[f"{phase}_bound_by"] = bound_ms(
+            *flash_cost(B, H, S, d, q.element_size(), pairs,
+                        phase == "bwd", KV=KV), peak)
+    if serving:
+        flush = torch.empty(FLUSH_BYTES // 4, device=dev)
+        row["fwd_cold_ms"] = time_cold_ms(fwd, n, flush)
+        row["bwd_cold_ms"] = time_cold_ms(bwd, n, flush)
+        del flush
+    print("gqa flash check", json.dumps(row), flush=True)
+    if serving:
+        head_first = [heads(t) for t in (dq, dk, dv)]
+        planted_faults(fref, heads(q), heads(k, True), heads(v, True),
+                       heads(out), lse, heads(do), head_first,
+                       [heads(leaf.grad) for leaf in leaves],
+                       [heads(x) if torch.is_tensor(x) else x
+                        for x in slack], causal, window, tol["bwd"],
+                       what="gqa flash")
+    return row
 
 
 def flash_phase(fops, fref):
@@ -734,7 +931,16 @@ def flash_phase(fops, fref):
     main = check_flash(fops, fref, gen, m["B"], m["H"], m["S"], m["d"],
                        m["dtype"], m["causal"], m["window"], n=20,
                        faults=True)
-    return main, rows
+    g = FLASH_GQA_MAIN
+    gqa_rows = [check_gqa_flash(fops, fref, gen, 2, S, g["H"], g["KV"],
+                                g["d"], g["dtype"], g["causal"], g["window"],
+                                n=5)
+                for S in (128, 1024)]
+    gqa = check_gqa_flash(fops, fref, gen, g["B"], g["S"], g["H"], g["KV"],
+                          g["d"], g["dtype"], g["causal"], g["window"], n=20,
+                          serving=True)
+    torch.cuda.empty_cache()
+    return main, rows, gqa, gqa_rows
 
 
 # ---------------------------------------------------------------------------
@@ -1299,26 +1505,62 @@ def agreement_phase(cfg=None, rtol=None, seq=256, task_batch=2):
     return row
 
 
-def flash_summary(name, main, serve_row, rows) -> dict:
-    """The kernels-line entry of one flash kernel: numbers at the serving
-    path's shape, launches from the serve run."""
+def flash_summary(name, main, serve_row, rows, gqa, gqa_rows,
+                  calls) -> dict:
+    """The kernels-line entry of one flash kernel: numbers of the call the
+    serving path makes (the model's layout, KV heads not expanded), the
+    expanded (B, H, S, d) call's beside them, launches from the serve
+    run."""
     p = "fwd" if name.endswith("fwd") else "bwd"
-    m = FLASH_MAIN
+    g = FLASH_GQA_MAIN
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     return {"name": name, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": REPLACES[name],
             "launches": serve_row["launches"][name],
-            "max_abs_err": main[f"{p}_max_abs_err"], "ms": main[f"{p}_ms"],
-            "plain_ms": main[f"{p}_plain_ms"],
-            "bound_ms": main[f"{p}_bound_ms"],
-            "bound_by": main[f"{p}_bound_by"],
-            "library_ms": main[f"{p}_library_ms"],
-            "shape": f"(B={m['B']}, H={m['H']}, S={m['S']}, d={m['d']}) "
-                     f"bfloat16 causal; launches: kernels launched in the "
-                     f"serve run's adapt dispatch"
+            **{key: gqa[f"{p}_{key}"] for key in keys},
+            "cold_l2_ms": gqa[f"{p}_cold_ms"],
+            "kernels_per_call": calls[p],
+            "shape": f"(B={g['B']}, S={g['S']}, H={g['H']}, KV={g['KV']}, "
+                     f"d={g['d']}) bfloat16 causal, K/V heads not expanded; "
+                     f"launches: kernels launched in the serve run's adapt "
+                     f"dispatch"
                      + ("" if p == "fwd" else
-                        " (two a call: dK/dV, then dQ; ms is both)"),
-            "sweep_checks": len(rows),
-            "sweep_worst_err": max(r[f"{p}_max_abs_err"] for r in rows)}
+                        " (two a call: dQ, then dK/dV; ms is both)"),
+            "expanded": {"shape": "(B*H=16*12, S=256, d=128) bfloat16 "
+                                  "causal, heads expanded",
+                         **{key: main[f"{p}_{key}"] for key in keys}},
+            "sweep_checks": len(rows) + len(gqa_rows),
+            "sweep_worst_err": max(r[f"{p}_max_abs_err"]
+                                   for r in rows + gqa_rows)}
+
+
+def hgmma_phase(path: str) -> dict:
+    """What the bf16 flash kernels compiled to: HGMMA (wgmma) instructions
+    in each of them, from ``cuobjdump -sass`` of the built library; fails
+    unless the forward, dQ and dK/dV kernels all have some."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            k = re.search(r"hop\d+([a-z_]+)I((?:Li\d+E)+)", m.group(1))
+            fn = None
+            if k:
+                args = re.findall(r"Li(\d+)E", k.group(2))
+                fn = f"{k.group(1)}<{','.join(args)}>"
+            if fn:
+                counts[fn] = 0
+        elif fn and "HGMMA" in line:
+            counts[fn] += 1
+    print("sass HGMMA instructions per bf16 kernel:", json.dumps(counts),
+          flush=True)
+    for kind in ("fwd_kernel", "dq_kernel", "dkv_kernel"):
+        if not any(v for k, v in counts.items() if k.startswith(kind)):
+            raise AssertionError(f"no HGMMA in the bf16 {kind}: {counts}")
+    return counts
 
 
 def build_phase(libraries) -> None:
@@ -1360,14 +1602,19 @@ def main() -> int:
 
     build_phase({"dif_combine": ops, "flash_attention": fops,
                  "ssd_scan": sops})
+    hgmma = hgmma_phase(fops.build()["path"])
+    flash_calls = flash_calls_phase(fops)
 
     paper_A = topology.build_topology("paper", K, "metropolis").matrix
     main_combine, fused_step, n_leaves, large = kernels_phase(
         ops, ref, diffusion, SineMLP, SINE_MLP, paper_A)
     launches, ms_per_step = main_path_phase(quickstart, ops,
                                             len(main_combine), n_leaves)
+    # phase 6 before phase 5: after phase 5's profile of the training step,
+    # torch.profiler sessions miss some kernel launches
+    flash_main, flash_rows, flash_gqa, flash_gqa_rows = flash_phase(fops,
+                                                                    fref)
     profile = profile_phase("fused")
-    flash_main, flash_rows = flash_phase(fops, fref)
     counters = {"flash_attention_fwd": fops, "flash_attention_bwd": fops,
                 "ssd_scan": sops}
     # per layer and step: one flash forward launch, and the backward's two
@@ -1406,12 +1653,14 @@ def main() -> int:
          "large": [r for r in large["fused_combine_update"]
                    if r["kind"] == "adam" and r["mode"] == "atc"
                    and r["gate"] == 1.0 and r["S"] == 1]},
-        *(flash_summary(name, flash_main, serve_row, flash_rows)
+        *(flash_summary(name, flash_main, serve_row, flash_rows, flash_gqa,
+                        flash_gqa_rows, flash_calls)
           for name in ("flash_attention_fwd", "flash_attention_bwd")),
         ssd_summary(ssd_main, ssd_rows, continuity, mamba_row),
     ], "ms_per_step": ms_per_step, "profile": profile, "serve": serve_row,
         "agreement": agreement, "mamba2_serve": mamba_row,
-        "mamba2_agreement": mamba_agreement,
+        "mamba2_agreement": mamba_agreement, "flash_hgmma": hgmma,
+        "flash_kernels_per_call": flash_calls,
         "seconds": time.perf_counter() - t_start}
     print(card)
     print(json.dumps(summary))

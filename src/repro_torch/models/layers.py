@@ -9,7 +9,8 @@ Everything is functional: ``*_specs(cfg)`` builds a Spec tree,
 
 :func:`sdpa` is where the hand-written flash-attention kernel goes: on a
 CUDA tensor it calls the flash-attention ``Function`` (kernel forward and
-backward); on a CPU tensor it runs the port's copy of the reference's
+backward) on the unexpanded K/V heads; on a CPU tensor it expands them and
+runs the port's copy of the reference's
 ``_sdpa``/``_sdpa_chunked``, the same function the JAX package's ``sdpa``
 computes.  The numbers differ in one place: the jnp path rounds the
 probabilities to the value dtype before P·V, the kernel keeps them float32
@@ -135,12 +136,16 @@ def _sdpa_chunked(q, k, v, scale, *, causal: bool, window: int | None,
 
 def sdpa(q, k, v, scale, *, causal: bool, window: int | None = None,
          q_chunk: int | None = 512):
-    """q: (B,S,H,D), k/v: (B,T,H,D) (heads expanded).  On a CUDA tensor,
-    the flash-attention kernels; on a CPU tensor, chunked when the query
-    length divides cleanly, full otherwise (the reference's dispatch)."""
+    """q: (B,S,H,D), k/v: (B,T,KV,D) with H a multiple of KV (GQA heads
+    not expanded).  On a CUDA tensor, the flash-attention kernels, which
+    read each KV head for its query heads in place; on a CPU tensor, K/V
+    expanded to H heads, then chunked when the query length divides
+    cleanly, full otherwise (the reference's dispatch)."""
     if q.device.type == "cuda":
         return gqa_flash_attention(q, k, v, causal=causal, window=window,
                                    scale=scale)
+    H = q.shape[2]
+    k, v = _expand_kv(k, H), _expand_kv(v, H)
     S, T = q.shape[1], k.shape[1]
     if q_chunk and S > q_chunk and S % q_chunk == 0:
         return _sdpa_chunked(q, k, v, scale, causal=causal, window=window,
@@ -201,12 +206,11 @@ def attention_apply(params: Params, cfg: ArchConfig, x: torch.Tensor,
                     positions: torch.Tensor, *, causal: bool = True
                     ) -> torch.Tensor:
     """Full-sequence self-attention.  x: (B,S,d)."""
-    H, hd = cfg.num_heads, cfg.head_dim
+    hd = cfg.head_dim
     q, k, v = _qkv(params, x)
     if cfg.use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    k, v = _expand_kv(k, H), _expand_kv(v, H)
     out = sdpa(q, k, v, 1.0 / math.sqrt(hd), causal=causal,
                window=cfg.sliding_window if causal else None,
                q_chunk=cfg.attn_q_chunk)

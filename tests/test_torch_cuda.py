@@ -141,7 +141,7 @@ def test_cuda_flash_attention_matches_plain_version(cuda, dtype, shape,
     assert fops.launch_counts["flash_attention_fwd"] == \
         before["flash_attention_fwd"] + 1
     assert fops.launch_counts["flash_attention_bwd"] == \
-        before["flash_attention_bwd"] + 2         # dK/dV, then dQ
+        before["flash_attention_bwd"] + 2         # the backward's two
     plain = [t.clone().requires_grad_() for t in (q, k, v)]
     want = fref.attention_ref(*plain, causal=causal, window=window)
     want.backward(do)
@@ -171,6 +171,96 @@ def test_cuda_flash_attention_raises_instead_of_falling_back(cuda):
     h = torch.ones(1, 2, 64, 64, device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError, match="not supported"):
         fops.flash_attention(h, h, h)
+
+
+# The model layout with KV heads not expanded, against the plain versions
+# in that layout: in bfloat16 the Hopper kernels (the last case has d = 36,
+# whose rows are read element by element instead of by TMA), in float32 the
+# CUDA-core kernels after the wrapper's expansion.
+GQA_CASES = [((2, 256, 12, 2, 128), True, None),
+             ((1, 200, 4, 1, 64), False, 48),
+             ((2, 40, 4, 2, 64), True, None),
+             ((1, 130, 4, 2, 36), True, None)]
+GQA_IDS = ["causal-256-12x2-128", "window-ragged200-4x1-64",
+           "causal-short40-4x2-64", "causal-130-4x2-36-elementwise"]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,causal,window", GQA_CASES, ids=GQA_IDS)
+def test_cuda_gqa_flash_attention_matches_plain_version(cuda, dtype, shape,
+                                                        causal, window):
+    """Forward and gradients through ``gqa_flash_attention``: dk and dv come
+    back as (B, S, KV, d), summed over each KV head's query heads."""
+    B, S, H, KV, d = shape
+    gen = torch.Generator().manual_seed(0)
+    q, do = (torch.randn(B, S, H, d, generator=gen).to(cuda, dtype)
+             for _ in "qo")
+    k, v = (torch.randn(B, S, KV, d, generator=gen).to(cuda, dtype)
+            for _ in "kv")
+    fwd_tol, bwd_tol = FLASH_TOL[dtype]
+    before = dict(fops.launch_counts)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fops.gqa_flash_attention(*leaves, causal=causal, window=window)
+    out.backward(do)
+    assert fops.launch_counts["flash_attention_fwd"] == \
+        before["flash_attention_fwd"] + 1
+    assert fops.launch_counts["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 2
+    want, want_lse = fref.gqa_flash_fwd_ref(q, k, v, causal=causal,
+                                            window=window)
+    assert_flash_close(out, want, fwd_tol)
+    want_grads = fref.gqa_flash_bwd_ref(q, k, v, out.detach(), want_lse, do,
+                                        causal=causal, window=window)
+    for got, w in zip(leaves, want_grads):
+        assert_flash_close(got.grad, w, bwd_tol)
+    torch.cuda.synchronize()
+
+
+def _device_kernels(prof) -> list[str]:
+    return [e.key for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            for _ in range(e.count)]
+
+
+@pytest.mark.requires_cuda
+def test_cuda_gqa_flash_attention_launches_only_its_kernels(cuda):
+    """At the serving shape (16, 256, 12 heads, 2 KV heads, 128) in bf16, a
+    forward call runs one kernel on the card and its backward two: no copy,
+    transpose, expansion or reduction kernel besides them."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator().manual_seed(0)
+    q, do = (torch.randn(16, 256, 12, 128, generator=gen).to(
+        cuda, torch.bfloat16) for _ in "qo")
+    k, v = (torch.randn(16, 256, 2, 128, generator=gen).to(
+        cuda, torch.bfloat16) for _ in "kv")
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    torch.autograd.grad(fops.gqa_flash_attention(*leaves), leaves, do)
+    torch.cuda.synchronize()                    # build and first launches
+    with profile(activities=[ProfilerActivity.CUDA]) as fwd:
+        out = fops.gqa_flash_attention(*leaves)
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as bwd:
+        grads = torch.autograd.grad(out, leaves, do)
+        torch.cuda.synchronize()
+    assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+    assert len(_device_kernels(fwd)) == 1, _device_kernels(fwd)
+    assert "fwd_kernel" in _device_kernels(fwd)[0]
+    names = _device_kernels(bwd)
+    assert len(names) == 2, names
+    assert "dq_kernel" in " ".join(names) and "dkv_kernel" in " ".join(names)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_bf16_flash_attention_raises_when_its_kernel_cannot_launch(
+        cuda):
+    """A batch past the grid's 65535 limit: the launch is refused and the
+    call raises; nothing runs in its place."""
+    q = torch.ones(65536, 1, 1, 8, device=cuda, dtype=torch.bfloat16)
+    before = dict(fops.launch_counts)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fops.gqa_flash_attention(q, q, q)
+    assert fops.launch_counts == before
 
 
 # The SSD scan against the per-step recurrence.  float32: the chunked form

@@ -7,6 +7,7 @@ the same ``torch.autograd.Function`` the card runs, so its autograd and
 adaptation) is exercised here.  The CUDA kernels themselves are held
 against these plain versions in test_torch_cuda.py and chip_smoke.py.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,7 +17,10 @@ from repro.kernels.flash_attention.flash_attention import (
     flash_attention_fwd_lse as jax_fwd_lse)
 from repro.kernels.flash_attention.flash_bwd import (
     flash_attention_bwd as jax_bwd)
+from repro.kernels.flash_attention.ops import (
+    gqa_flash_attention as jax_gqa)
 from repro_torch.kernels.flash_attention import ops, ref
+from repro_torch.kernels.fold import fold
 
 # float32 throughout: the same products summed in another order (blocked
 # online softmax against one softmax), a few ulps of values of order 1.
@@ -200,3 +204,91 @@ def test_second_order_and_bad_shapes_raise():
     out, lse = ops.flash_attention_fwd_lse(q, k, v)
     with pytest.raises(ValueError, match=r"lse has shape \(1, 2, 64, 1\)"):
         ops.flash_attention_bwd(q, k, v, out, lse, out)
+
+
+# The model layout with KV heads not expanded: q (B, S, H, d), k/v (B, S,
+# KV, d), against the JAX package's GQA wrapper (Pallas forward in interpret
+# mode, its recompute backward), which expands the heads and so sums each
+# KV head's gradient over its query heads.
+GQA_GROUPS = [(4, 2), (4, 1)]
+
+
+@pytest.fixture(scope="module", params=[(g, m) for g in GQA_GROUPS
+                                        for m in zip(MASKS, IDS)],
+                ids=[f"H{h}KV{kv}-{name}" for h, kv in GQA_GROUPS
+                     for name in IDS])
+def gqa_case(request):
+    (H, KV), ((causal, window), name) = request.param
+    rng = np.random.default_rng(100 + 10 * KV + IDS.index(name))
+    q, do = (rng.standard_normal((B, S, H, D)).astype(np.float32)
+             for _ in "qo")
+    k, v = (rng.standard_normal((B, S, KV, D)).astype(np.float32)
+            for _ in "kv")
+    out, vjp = jax.vjp(
+        lambda q, k, v: jax_gqa(q, k, v, causal=causal, window=window,
+                                block_q=BLOCK, block_k=BLOCK,
+                                interpret=True),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    grads = vjp(jnp.asarray(do))
+    return dict(causal=causal, window=window, q=q, k=k, v=v, do=do,
+                out=np.asarray(out), grads=[np.asarray(g) for g in grads])
+
+
+def test_gqa_forward_matches_pallas_with_unexpanded_kv(gqa_case):
+    """The model-layout Function on (B, S, KV, d) K/V; the plain version
+    it runs on CPU tensors launches nothing."""
+    before = dict(ops.launch_counts)
+    got = ops.gqa_flash_attention(
+        _t(gqa_case["q"]), _t(gqa_case["k"]), _t(gqa_case["v"]),
+        causal=gqa_case["causal"], window=gqa_case["window"])
+    assert got.shape == gqa_case["q"].shape
+    np.testing.assert_allclose(got.numpy(), gqa_case["out"], **FWD_TOL)
+    assert ops.launch_counts == before
+
+
+def test_gqa_gradients_match_pallas_summed_per_kv_head(gqa_case):
+    """dq (B, S, H, d), dk and dv (B, S, KV, d), each KV head's summed
+    over its query heads, as the reference's expansion gives them."""
+    leaves = [_t(gqa_case[n]).requires_grad_() for n in ("q", "k", "v")]
+    out = ops.gqa_flash_attention(*leaves, causal=gqa_case["causal"],
+                                  window=gqa_case["window"])
+    out.backward(_t(gqa_case["do"]))
+    for leaf, want in zip(leaves, gqa_case["grads"]):
+        assert leaf.grad.shape == want.shape
+        np.testing.assert_allclose(leaf.grad.numpy(), want, **BWD_TOL)
+
+
+def test_gqa_kernels_see_folded_unexpanded_tensors_under_vmap_of_grad(
+        monkeypatch):
+    """Under ``vmap(grad(...))`` the model-layout wrappers get plain
+    tensors with the mapped dim folded into the batch, and K/V with their KV
+    heads, not H; the folded batch is a view of the mapped tensor."""
+    from torch._C._functorch import is_batchedtensor, is_gradtrackingtensor
+    seen = []
+
+    def spy(name, fn):
+        def wrapped(q, k, v, *args, **kw):
+            ts = [q, k, v] + [a for a in args if isinstance(a, torch.Tensor)]
+            seen.append((name, tuple(q.shape), tuple(k.shape),
+                         any(is_batchedtensor(t) or is_gradtrackingtensor(t)
+                             for t in ts)))
+            return fn(q, k, v, *args, **kw)
+        return wrapped
+
+    monkeypatch.setattr(ops, "gqa_flash_attention_fwd_lse",
+                        spy("fwd", ops.gqa_flash_attention_fwd_lse))
+    monkeypatch.setattr(ops, "gqa_flash_attention_bwd",
+                        spy("bwd", ops.gqa_flash_attention_bwd))
+    rng = np.random.default_rng(21)
+    N, H, KV = 3, 4, 2
+    q = _t(rng.standard_normal((B, S, H, D)))
+    ks, vs = (_t(rng.standard_normal((N, B, S, KV, D))) for _ in "kv")
+    xs = _t(rng.standard_normal((N, B, S, H, D)))
+    folded = fold(ks, 0, N)
+    assert folded.data_ptr() == ks.data_ptr()
+    torch.func.vmap(torch.func.grad(
+        lambda q, k, v, x: (ops.gqa_flash_attention(q * x, k, v) ** 2
+                            ).sum(), argnums=(0, 1, 2)),
+        in_dims=(None, 0, 0, 0))(q, ks, vs, xs)
+    assert seen == [("fwd", (N * B, S, H, D), (N * B, S, KV, D), False),
+                    ("bwd", (N * B, S, H, D), (N * B, S, KV, D), False)]
