@@ -10,11 +10,14 @@ Phases, each fatal on failure:
                 ``kernels/flash_attention/csrc`` and ``kernels/ssd_scan/csrc``
                 with nvcc for sm_90a, all at once, and prints the build
                 seconds and, from ``cuobjdump -sass``, the HGMMA (wgmma)
-                instructions in each bf16 flash kernel: the forward, dQ and
-                dK/dV kernels must have some.  Then one call of
+                instructions in each bf16 Hopper kernel: the flash forward,
+                dQ and dK/dV kernels and the SSD chunk-state and
+                chunk-output kernels must have some.  Then one call of
                 ``gqa_flash_attention`` at the serving shape must run one
-                kernel forward and two backward (torch.profiler, before any
-                other profiling: sessions after phase 5's miss kernels).
+                kernel forward and two backward, and one bf16 SSD scan
+                call the SSD's three kernels and nothing else
+                (torch.profiler, before any other profiling: sessions after
+                phase 5's miss kernels).
 3. kernels   -- holds ``dif_combine`` and ``fused_combine_update`` against
                 their plain PyTorch versions on the card: at the shapes the
                 training step gives them (the sine MLP's leaves, K=6, padded
@@ -91,17 +94,25 @@ Phases, each fatal on failure:
                 backward (the chunked scan's VJP) and what it allocates at
                 its peak, beside one VJP over the whole loop of chunks
                 (every chunk's tiles live at once) on the same inputs.
+                Each of the bf16 route's three kernels (chunk states, state
+                passing, chunk outputs) is held against its plain version
+                on the grid, a ragged row (chunk 48, P=8, N=16, two groups)
+                and the serving shape, where each is timed beside its bound;
+                the two-halves check runs in both dtypes; the call's time is
+                printed beside its bound, this design's bound and the time
+                of the CUDA-core kernel it replaced.
 10. mamba2 serve -- runs ``python -m repro_torch.launch.serve --arch
                 mamba2-130m --prompt-len 512 --gen 512`` at full width (24
                 layers, bfloat16, fresh init from seed 0; 4 users x 4
                 sequences x 1024 tokens, 2 adapt steps, 2 rounds).  The
-                ssd_scan launch counter, zeroed just before, must show 24 x 2
-                launches (one adapt dispatch); 4 misses then 4 hits; finite
-                adapted leaves; falling support losses; 1024 tokens a
-                sequence.  Prints the serve phase's numbers as phase 7 does,
-                the device time of one more dispatch split between the
-                kernel forward and the chunked-scan backward
-                (torch.profiler), and where its peak memory goes.
+                ssd_scan call counter and each of its three kernels'
+                launch counters, zeroed just before, must show 24 x 2 (one
+                adapt dispatch); 4 misses then 4 hits; finite adapted
+                leaves; falling support losses; 1024 tokens a sequence.
+                Prints the serve phase's numbers as phase 7 does, the device
+                time of one more dispatch split between the forward kernels
+                and the chunked-scan backward (torch.profiler), and where
+                its peak memory goes.
 11. mamba2 agreement -- phase 8 for mamba2-130m cut to 2 layers at full
                 width, one episode of 4 x 1024 tokens: float32 within 1e-4
                 relative, bfloat16 within 1e-3.
@@ -157,6 +168,19 @@ REPLACES = {"dif_combine": "src/repro/kernels/dif_combine/dif_combine.py:94",
             "flash_attention_bwd":
                 "src/repro/kernels/flash_attention/flash_bwd.py:107",
             "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:73"}
+# The bf16 SSD scan's three kernels (launch-count keys, and the names
+# torch.profiler reports them by); each replaces part of the same TPU
+# kernel.
+SSD_PASSES = {"ssd_chunk_state": "chunk_state_kernel",
+              "ssd_state_pass": "state_pass_kernel",
+              "ssd_chunk_scan": "chunk_scan_kernel"}
+# The SSD scan's forward kernels as torch.profiler names them: the bf16
+# passes and the float32 kernel.
+SSD_FORWARD_KERNELS = (*SSD_PASSES.values(), "ssd_scan_kernel")
+# What the CUDA-core kernel that the bf16 route replaced took for one bf16
+# scan at the serving shape on an H100 (PERF.md, row 5 of the kernel
+# table), printed beside this run's time.
+SSD_SIMT_MS = 2.284
 # Flash attention against attention_ref and its autograd gradient, and the
 # backward also against its plain version.  float32: the same products
 # summed in another order (a blocked online softmax).  bfloat16: both round
@@ -252,10 +276,11 @@ def bound_ms(nbytes: float, flops: float,
 
 def outside(got, want, tol: dict, slack=0.0) -> tuple[int, float]:
     """(elements of ``got`` outside ``tol`` plus a per-element ``slack``
-    around ``want``, largest |got - want|)."""
+    around ``want``, largest |got - want|, 0 for no elements: one chunk
+    has no entering states)."""
     err = (got.detach().float() - want.detach().float()).abs()
     limit = tol["atol"] + tol["rtol"] * want.detach().float().abs() + slack
-    return int((err > limit).sum()), float(err.max())
+    return int((err > limit).sum()), float(err.max()) if err.numel() else 0.0
 
 
 def compare(got, want, dtype, what: str, tol: dict | None = None,
@@ -965,15 +990,42 @@ def time_events(fn, n: int) -> float:
 def ssd_cost(B, L, H, P, N, G, chunk, itemsize) -> tuple[float, float]:
     """(bytes, flops) of one scan: x, B and C read and y written in the
     working dtype, dt read and the state written in float32, A read once;
-    per (b, h, chunk) the causal half of the two intra-chunk products
-    (C.B^T and M.x over the c(c+1)/2 pairs k <= q: c(c+1)N + c(c+1)P) and
-    the entering-state and state-update products (4cPN)."""
+    per (b, chunk) the causal half of C.B^T once per B/C group (c(c+1)N
+    over the c(c+1)/2 pairs k <= q: a group's heads share it), and per head
+    the causal half of M.x (c(c+1)P) and the entering-state and
+    state-update products (4cPN): the least work these inputs need."""
     c = chunk
     nbytes = ((2 * B * L * H * P + 2 * B * L * G * N) * itemsize
               + 4 * (B * L * H + H + B * H * P * N))
-    flops = ((c * (c + 1) * (N + P) + 4 * c * P * N)
-             * B * H * (L // c))
+    flops = ((c * (c + 1) * N * G + (c * (c + 1) * P + 4 * c * P * N) * H)
+             * B * (L // c))
     return nbytes, float(flops)
+
+
+def ssd_pass_costs(B, L, H, P, N, G, chunk) -> dict:
+    """(bytes, flops, peak rate) of each bf16 pass: its inputs read once
+    and its outputs written once, the products' flops on these inputs.
+    Chunk states: x, dt, A, B in, S and seg out; 2cPN a (b, h, chunk).
+    State passing: S and each chunk's last seg in, the entering states'
+    hi/lo planes (chunks 1 ..) and the final state out; 2PN a (b, h, chunk)
+    on the CUDA cores.  Chunk outputs: x, dt, seg, B, C and the planes in,
+    y out; C.B^T once per group, M.x, and 2cPN a (b, h, chunk) for the
+    entering state of chunks 1 ..."""
+    c, nc = chunk, L // chunk
+    x, bc = 2 * B * L * H * P, 2 * B * L * G * N
+    dt = seg = 4 * B * L * H
+    S, state = 4 * B * nc * H * P * N, 4 * B * H * P * N
+    planes = 2 * 2 * B * (nc - 1) * H * P * N
+    return {
+        "ssd_chunk_state": (x + dt + 4 * B * H + bc + S + seg,
+                            2.0 * c * P * N * B * H * nc, BF16_FLOP_PER_S),
+        "ssd_state_pass": (S + 4 * B * H * nc + planes + state,
+                           2.0 * P * N * B * H * nc, FP32_FLOP_PER_S),
+        "ssd_chunk_scan": (2 * x + dt + seg + 2 * bc + planes,
+                           float((c * (c + 1) * N * G
+                                  + c * (c + 1) * P * H) * B * nc
+                                 + 2 * c * P * N * H * B * (nc - 1)),
+                           BF16_FLOP_PER_S)}
 
 
 def ssd_inputs(gen, B, L, H, P, N, G, dtype):
@@ -1039,6 +1091,85 @@ def check_ssd(sops, sref, layers, gen, B, L, H, P, N, G, chunk, dtype,
         planted_ssd_faults(sops, (x, dt, A, Bm, Cm), chunk, y, yr, sr,
                            dtype)
     return row
+
+
+def check_ssd_passes(sops, sref, gen, B, L, H, P, N, G, chunk,
+                     timed=False) -> dict:
+    """Each bf16 pass's kernel against its plain version on the same inputs
+    (the kernel's own outputs of the pass before): the chunk states (S,
+    seg) against ``chunk_state_ref``, the state passing (hi + lo, the final
+    state) against ``state_pass_ref``, the chunk outputs against
+    ``chunk_scan_ref`` of hi + lo.  Float32 results within
+    SSD_TOL[float32] (the hi/lo halves keep 16 bits of each float32
+    operand); y within SSD_TOL[bfloat16] and the row slack.  Timed: each
+    kernel's ms, its plain version's and its bound."""
+    x, dt, A, Bm, Cm = ssd_inputs(gen, B, L, H, P, N, G, torch.bfloat16)
+    f32 = SSD_TOL[torch.float32]
+    S, seg = sops.ssd_chunk_state(x, dt, A, Bm, chunk=chunk)
+    hi, lo, state = sops.ssd_state_pass(S, seg, chunk=chunk)
+    y = sops.ssd_chunk_scan(x, dt, seg, Bm, Cm, hi, lo, chunk=chunk)
+    entering = hi.float() + lo.float()
+    plain = {
+        "ssd_chunk_state": lambda: sref.chunk_state_ref(x, dt, A, Bm, chunk),
+        "ssd_state_pass": lambda: sref.state_pass_ref(S, seg, chunk),
+        "ssd_chunk_scan": lambda: sref.chunk_scan_ref(
+            x, dt, seg, Bm, Cm, entering, chunk)}
+    Sr, segr = plain["ssd_chunk_state"]()
+    er, sr = plain["ssd_state_pass"]()
+    yr = plain["ssd_chunk_scan"]()
+    torch.cuda.synchronize()
+    what = f"ssd passes B={B} L={L} H={H} P={P} N={N} G={G} chunk={chunk}"
+    errs = {"ssd_chunk_state": max(
+                compare(S, Sr, torch.float32, what + " S", f32),
+                compare(seg, segr, torch.float32, what + " seg", f32)),
+            "ssd_state_pass": max(
+                compare(entering, er, torch.float32, what + " s_in", f32),
+                compare(state, sr, torch.float32, what + " state", f32)),
+            "ssd_chunk_scan": compare(
+                y, yr, torch.bfloat16, what + " y", SSD_TOL[torch.bfloat16],
+                ssd_slack(yr.float(), torch.bfloat16))}
+    row = {k: {"max_abs_err": v} for k, v in errs.items()}
+    if timed:
+        kernel = {
+            "ssd_chunk_state": lambda: sops.ssd_chunk_state(
+                x, dt, A, Bm, chunk=chunk),
+            "ssd_state_pass": lambda: sops.ssd_state_pass(S, seg,
+                                                          chunk=chunk),
+            "ssd_chunk_scan": lambda: sops.ssd_chunk_scan(
+                x, dt, seg, Bm, Cm, hi, lo, chunk=chunk)}
+        for name, (nbytes, flops, peak) in ssd_pass_costs(
+                B, L, H, P, N, G, chunk).items():
+            row[name].update(
+                ms=time_ms(kernel[name], 20),
+                plain_ms=time_ms(plain[name], 1, reps=3),
+                library_ms=None, bytes=nbytes, flops=flops)
+            row[name]["bound_ms"], row[name]["bound_by"] = bound_ms(
+                nbytes, flops, peak)
+    print(what, json.dumps(row), flush=True)
+    return row
+
+
+def ssd_calls_phase(sops) -> list:
+    """The kernels that one bf16 ``ssd_scan_kernel`` call runs on the card
+    at the serving shape, from torch.profiler; fails unless they are the
+    three passes' kernels, one each, with no copy, expansion or other
+    kernel beside them.  Run before the training step's profile (phase 5),
+    as flash_calls_phase."""
+    m = SSD_MAIN
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    x, dt, A, Bm, Cm = ssd_inputs(gen, m["B"], m["L"], m["H"], m["P"],
+                                  m["N"], m["G"], torch.bfloat16)
+    sops.ssd_scan_kernel(x, dt, A, Bm, Cm, chunk=m["chunk"])
+    names = device_kernels(lambda: sops.ssd_scan_kernel(
+        x, dt, A, Bm, Cm, chunk=m["chunk"]))
+    print("ssd kernels per bf16 call", json.dumps(names), flush=True)
+    if len(names) != len(SSD_PASSES) or sorted(
+            k for k in SSD_PASSES.values()
+            if any(k in n for n in names)) != sorted(SSD_PASSES.values()):
+        raise AssertionError(
+            f"a bf16 ssd_scan_kernel call ran {names} on the card; expected "
+            f"the kernels {list(SSD_PASSES.values())} and nothing else")
+    return names
 
 
 def peak_gb(fn) -> float:
@@ -1134,24 +1265,27 @@ def planted_ssd_faults(sops, inputs, chunk, y, yr, sr, dtype):
     print("ssd planted faults", str(dtype)[6:], json.dumps(row), flush=True)
 
 
-def ssd_continuity(sops, layers, gen):
+def ssd_continuity(sops, layers, gen, dtype=torch.float32):
     """Two halves: the kernel over the first, the chunked scan (float32)
     from the kernel's state over the second, equal the kernel over the
-    whole sequence."""
+    whole sequence (bfloat16: y within SSD_TOL[bfloat16] and the row
+    slack, the float32 state within SSD_TOL[float32])."""
     B, L, H, P, N, chunk = 2, 512, 4, 64, 128, 128
-    x, dt, A, Bm, Cm = ssd_inputs(gen, B, L, H, P, N, 1, torch.float32)
+    x, dt, A, Bm, Cm = ssd_inputs(gen, B, L, H, P, N, 1, dtype)
     y, s = sops.ssd_scan_kernel(x, dt, A, Bm, Cm, chunk=chunk)
     h = L // 2
     first = [t[:, :h].contiguous() for t in (x, dt, Bm, Cm)]
-    second = [t[:, h:].contiguous() for t in (x, dt, Bm, Cm)]
+    second = [t[:, h:].contiguous().float() for t in (x, dt, Bm, Cm)]
     y1, s1 = sops.ssd_scan_kernel(*first[:2], A, *first[2:], chunk=chunk)
     y2, s2 = layers.ssd_scan(*second[:2], A, *second[2:], chunk,
                              init_state=s1)
     torch.cuda.synchronize()
     tol = SSD_TOL[torch.float32]
-    row = dict(B=B, L=L, H=H, P=P, N=N, chunk=chunk,
-               y_max_abs_err=compare(torch.cat([y1, y2], 1), y,
-                                     torch.float32, "ssd two halves y", tol),
+    halves = torch.cat([y1.float(), y2], 1)
+    row = dict(B=B, L=L, H=H, P=P, N=N, chunk=chunk, dtype=str(dtype)[6:],
+               y_max_abs_err=compare(halves, y.float(), torch.float32,
+                                     "ssd two halves y", SSD_TOL[dtype],
+                                     ssd_slack(y.float(), dtype)),
                state_max_abs_err=compare(s2, s, torch.float32,
                                          "ssd two halves state", tol))
     print("ssd continuity", json.dumps(row), flush=True)
@@ -1160,41 +1294,79 @@ def ssd_continuity(sops, layers, gen):
 
 def ssd_phase(sops, sref, layers):
     gen = torch.Generator(device=DEVICE).manual_seed(2)
-    rows = []
+    rows, pass_rows = [], []
     for L, chunk in ((128, 32), (256, 64), (256, 128)):
         for dtype in (torch.float32, torch.bfloat16):
             rows.append(check_ssd(sops, sref, layers, gen, 2, L, 2, 16, 32,
                                   2, chunk, dtype))
-    continuity = ssd_continuity(sops, layers, gen)
+        pass_rows.append(check_ssd_passes(sops, sref, gen, 2, L, 2, 16, 32,
+                                          2, chunk))
+    # ragged chunks, narrow heads and two groups, then one chunk (a prompt
+    # no longer than the model's chunk: empty hi/lo planes; 100 rows, not a
+    # multiple of 16), as tests/test_torch_cuda.py
+    for L, H, P, N, G, chunk in ((96, 4, 8, 16, 2, 48),
+                                 (256, 4, 64, 128, 1, 256),
+                                 (100, 4, 16, 32, 2, 100)):
+        pass_rows.append(check_ssd_passes(sops, sref, gen, 2, L, H, P, N, G,
+                                          chunk))
+    continuity = {str(dtype)[6:]: ssd_continuity(sops, layers, gen, dtype)
+                  for dtype in (torch.float32, torch.bfloat16)}
     m = SSD_MAIN
     main = {str(dtype)[6:]: check_ssd(
         sops, sref, layers, gen, m["B"], m["L"], m["H"], m["P"], m["N"],
         m["G"], m["chunk"], dtype, timed=True, faults=True)
         for dtype in (torch.bfloat16, torch.float32)}
+    passes = check_ssd_passes(sops, sref, gen, m["B"], m["L"], m["H"],
+                              m["P"], m["N"], m["G"], m["chunk"], timed=True)
+    b = main["bfloat16"]
+    b["design_bound_ms"], _ = bound_ms(
+        sum(v["bytes"] for v in passes.values()),
+        sum(v["flops"] for v in passes.values()), BF16_FLOP_PER_S)
+    print(f"ssd serving shape, bf16: {b['ms']:.4f} ms a call; bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}); this design's bound "
+          f"(each pass's bytes) {b['design_bound_ms']:.4f} ms; the "
+          f"CUDA-core kernel it replaced {SSD_SIMT_MS} ms (PERF.md)",
+          flush=True)
     torch.cuda.empty_cache()
-    return main, rows, continuity
+    return main, rows, continuity, passes, pass_rows
 
 
-def ssd_summary(main, rows, continuity, serve_row) -> dict:
-    """The kernels-line entry of the SSD scan: numbers at the serving
-    path's shape in bfloat16, launches from the mamba2 serve run."""
+def ssd_summary(main, rows, continuity, passes, pass_rows, calls,
+                serve_row) -> list:
+    """The kernels-line entries of the SSD scan: the whole bf16 call
+    (``ssd_scan``: its launches count calls) and each of its three
+    kernels, numbers at the serving path's shape in bfloat16, launches from
+    the mamba2 serve run."""
     b, m = main["bfloat16"], SSD_MAIN
-    return {"name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
+    shape = (f"(B={m['B']}, L={m['L']}, H={m['H']}, P={m['P']}, N={m['N']}, "
+             f"G={m['G']}, chunk={m['chunk']}) bfloat16")
+    call = {"name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
             "replaces": REPLACES["ssd_scan"],
             "launches": serve_row["launches"]["ssd_scan"],
             "max_abs_err": b["y_max_abs_err"], "ms": b["ms"],
             "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"], "library_ms": None,
+            "design_bound_ms": b["design_bound_ms"],
+            "kernels_per_call": calls,
             "chunked_ms": b["chunked_ms"],
             "bwd_compare": b["bwd_compare"],
-            "shape": f"(B={m['B']}, L={m['L']}, H={m['H']}, P={m['P']}, "
-                     f"N={m['N']}, G={m['G']}, chunk={m['chunk']}) bfloat16; "
-                     f"launches: kernels launched in the mamba2 serve run's "
-                     f"adapt dispatch; library: none (no single PyTorch "
-                     f"call); chunked_ms: the port's chunked torch scan",
+            "shape": f"{shape}; launches: calls in the mamba2 serve run's "
+                     f"adapt dispatch (three kernels each, the entries "
+                     f"below); library: none (no single PyTorch call); "
+                     f"chunked_ms: the port's chunked torch scan",
             "float32": main["float32"], "continuity": continuity,
-            "sweep_checks": len(rows),
+            "sweep_checks": len(rows) + len(pass_rows),
             "sweep_worst_y_err": max(r["y_max_abs_err"] for r in rows)}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    return [call] + [
+        {"name": name, "route": "cuda", "source": SSD_SOURCE,
+         "replaces": REPLACES["ssd_scan"],
+         "launches": serve_row["launches"][name],
+         **{k: passes[name][k] for k in keys},
+         "shape": f"{shape}; one launch a bf16 call",
+         "sweep_worst_err": max(r[name]["max_abs_err"] for r in pass_rows)}
+        for name in SSD_PASSES]
 
 
 # ---------------------------------------------------------------------------
@@ -1320,9 +1492,9 @@ def serve_phase(args, counters, expect, replay=("memory",)):
 
 def dispatch_profile(eng, supports) -> dict:
     """Device time of one more adapt dispatch of the same users, from
-    torch.profiler: all kernels, the SSD scan kernel's forward launches, and
-    the chunked-scan backward (its ``record_function`` range, with every
-    kernel launched inside it)."""
+    torch.profiler: all kernels, the SSD scan's forward kernels (the three
+    bf16 passes, or the float32 kernel), and the chunked-scan backward (its
+    ``record_function`` range, with every kernel launched inside it)."""
     from torch.profiler import ProfilerActivity, profile
 
     stacked = eng._stack(supports, eng._bucket(len(supports)))
@@ -1348,7 +1520,7 @@ def dispatch_profile(eng, supports) -> dict:
                 us = getattr(evt, "self_cuda_time_total", 0)
             busy += us
             kernels.append((us, evt.count, evt.key))
-            if "ssd_scan_kernel" in evt.key:
+            if any(k in evt.key for k in SSD_FORWARD_KERNELS):
                 fwd, fwd_n = fwd + us, fwd_n + evt.count
         elif evt.key == "ssd_scan_chunked_bwd" and \
                 evt.device_type == torch.autograd.DeviceType.CPU:
@@ -1535,32 +1707,41 @@ def flash_summary(name, main, serve_row, rows, gqa, gqa_rows,
                                    for r in rows + gqa_rows)}
 
 
-def hgmma_phase(path: str) -> dict:
-    """What the bf16 flash kernels compiled to: HGMMA (wgmma) instructions
-    in each of them, from ``cuobjdump -sass`` of the built library; fails
-    unless the forward, dQ and dK/dV kernels all have some."""
+def hgmma_phase(libraries: dict) -> dict:
+    """What the bf16 Hopper kernels compiled to: HGMMA (wgmma) instructions
+    in each of them, from ``cuobjdump -sass`` of each built library
+    (``libraries`` maps a name to (path, the kernels that do a product));
+    fails unless every kernel that does a product has some: the flash
+    forward, dQ and dK/dV kernels, the SSD chunk-state and chunk-output
+    kernels (the SSD state passing is elementwise)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", path], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
-    counts, fn = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            k = re.search(r"hop\d+([a-z_]+)I((?:Li\d+E)+)", m.group(1))
-            fn = None
-            if k:
-                args = re.findall(r"Li(\d+)E", k.group(2))
-                fn = f"{k.group(1)}<{','.join(args)}>"
-            if fn:
-                counts[fn] = 0
-        elif fn and "HGMMA" in line:
-            counts[fn] += 1
-    print("sass HGMMA instructions per bf16 kernel:", json.dumps(counts),
-          flush=True)
-    for kind in ("fwd_kernel", "dq_kernel", "dkv_kernel"):
-        if not any(v for k, v in counts.items() if k.startswith(kind)):
-            raise AssertionError(f"no HGMMA in the bf16 {kind}: {counts}")
-    return counts
+    found = {}
+    for name, (path, kinds) in libraries.items():
+        sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                k = re.search(r"hop\d+([a-z_]+?)(?:I((?:Li\d+E)+)|E)",
+                              m.group(1))
+                fn = None
+                if k:
+                    args = re.findall(r"Li(\d+)E", k.group(2) or "")
+                    fn = f"{k.group(1)}<{','.join(args)}>"
+                if fn:
+                    counts[fn] = 0
+            elif fn and "HGMMA" in line:
+                counts[fn] += 1
+        print(f"sass HGMMA instructions per bf16 kernel ({name}):",
+              json.dumps(counts), flush=True)
+        for kind in kinds:
+            if not any(v for k, v in counts.items()
+                       if k.startswith(kind + "<")):
+                raise AssertionError(f"no HGMMA in the bf16 {kind}: "
+                                     f"{counts}")
+        found[name] = counts
+    return found
 
 
 def build_phase(libraries) -> None:
@@ -1573,7 +1754,9 @@ def build_phase(libraries) -> None:
         print(f"build {name}: {info['seconds']:.2f} s "
               f"(compiled={info['compiled']}) -> {info['path']}", flush=True)
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            # "Performance Loss": ptxas serialized a kernel's wgmma
+            if any(k in line for k in ("registers", "spill",
+                                       "Performance Loss")):
                 print("  ptxas:", line.strip())
 
 
@@ -1602,8 +1785,13 @@ def main() -> int:
 
     build_phase({"dif_combine": ops, "flash_attention": fops,
                  "ssd_scan": sops})
-    hgmma = hgmma_phase(fops.build()["path"])
+    hgmma = hgmma_phase({
+        "flash_attention": (fops.build()["path"],
+                            ("fwd_kernel", "dq_kernel", "dkv_kernel")),
+        "ssd_scan": (sops.build()["path"],
+                     ("chunk_state_kernel", "chunk_scan_kernel"))})
     flash_calls = flash_calls_phase(fops)
+    ssd_calls = ssd_calls_phase(sops)
 
     paper_A = topology.build_topology("paper", K, "metropolis").matrix
     main_combine, fused_step, n_leaves, large = kernels_phase(
@@ -1616,16 +1804,18 @@ def main() -> int:
                                                                     fref)
     profile = profile_phase("fused")
     counters = {"flash_attention_fwd": fops, "flash_attention_bwd": fops,
-                "ssd_scan": sops}
+                "ssd_scan": sops, **{k: sops for k in SSD_PASSES}}
     # per layer and step: one flash forward launch, and the backward's two
-    # (dK/dV and dQ); one SSD scan launch (its backward is the chunked
-    # scan's VJP, no kernel)
+    # (dK/dV and dQ); one bf16 SSD scan call, a launch of each of its three
+    # kernels (its backward is the chunked scan's VJP, no kernel)
     serve_row = serve_phase(SERVE_ARGS, counters, lambda n, k: {
         "flash_attention_fwd": n * k, "flash_attention_bwd": 2 * n * k})
     agreement = agreement_phase()
-    ssd_main, ssd_rows, continuity = ssd_phase(sops, sref, layers)
+    ssd_main, ssd_rows, continuity, ssd_passes, ssd_pass_rows = ssd_phase(
+        sops, sref, layers)
     mamba_row = serve_phase(MAMBA_SERVE_ARGS, counters,
-                            lambda n, k: {"ssd_scan": n * k},
+                            lambda n, k: {"ssd_scan": n * k,
+                                          **{p: n * k for p in SSD_PASSES}},
                             replay=("profile", "memory"))
     mamba_agreement = agreement_phase(
         dataclasses.replace(get_config("mamba2-130m"), num_layers=2),
@@ -1656,10 +1846,11 @@ def main() -> int:
         *(flash_summary(name, flash_main, serve_row, flash_rows, flash_gqa,
                         flash_gqa_rows, flash_calls)
           for name in ("flash_attention_fwd", "flash_attention_bwd")),
-        ssd_summary(ssd_main, ssd_rows, continuity, mamba_row),
+        *ssd_summary(ssd_main, ssd_rows, continuity, ssd_passes,
+                     ssd_pass_rows, ssd_calls, mamba_row),
     ], "ms_per_step": ms_per_step, "profile": profile, "serve": serve_row,
         "agreement": agreement, "mamba2_serve": mamba_row,
-        "mamba2_agreement": mamba_agreement, "flash_hgmma": hgmma,
+        "mamba2_agreement": mamba_agreement, "hgmma": hgmma,
         "flash_kernels_per_call": flash_calls,
         "seconds": time.perf_counter() - t_start}
     print(card)

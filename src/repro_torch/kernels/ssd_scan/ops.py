@@ -1,13 +1,20 @@
-"""Wrapper, autograd pairing, build and launch counter of the CUDA SSD scan
-kernel in ``csrc/ssd_scan.cu`` (port of ``repro/kernels/ssd_scan/ops.py``).
+"""Wrappers, autograd pairing, build and launch counters of the CUDA SSD
+scan kernels in ``csrc/ssd_scan.cu`` (port of
+``repro/kernels/ssd_scan/ops.py``).
 
-Routing is by the tensors' device, nothing else: CPU tensors go to the plain
-PyTorch version in :mod:`.ref`; CUDA tensors launch the kernel or raise —
-there is no fallback.  The kernel is compiled with ``nvcc`` for ``sm_90a``
-at first use (:mod:`repro_torch.kernels.build`).
+Routing is by the tensors' device and dtype, written out here and never
+taken from a failure: CPU tensors go to the plain PyTorch versions in
+:mod:`.ref`; bfloat16 CUDA tensors to the three Hopper kernels, one a pass
+(:func:`ssd_chunk_state`, :func:`ssd_state_pass`, :func:`ssd_chunk_scan`:
+chunk states, states passed across chunks, chunk outputs; the first and
+last on the tensor cores); float32 CUDA tensors to the one CUDA-core
+kernel.  A CUDA call launches its kernels or raises — there is no
+fallback.  The kernels are compiled with ``nvcc`` for ``sm_90a`` at first
+use (:mod:`repro_torch.kernels.build`).
 
-The reference expands the B/C groups to heads before its kernel; this
-kernel reads each head's group instead, with the same results.
+The reference expands the B/C groups to heads before its kernel; these
+kernels read each head's group instead, with the same results, and the
+bfloat16 route forms C·Bᵀ once for all heads of a group.
 
 :func:`ssd_scan` pairs the kernel forward with the VJP of the port's chunked
 scan (:func:`.chunked.ssd_scan_vjp`, chunk by chunk) as its backward, in
@@ -20,8 +27,10 @@ kernel: a raw-pointer launch cannot see a batched tensor.  The backward is
 a ``Function`` of its own, folded the same way, and differentiating it
 raises: serving adapts first-order.
 
-``launch_counts["ssd_scan"]`` counts kernel launches; plain-version calls
-are not counted.
+``launch_counts["ssd_scan"]`` counts the calls of :func:`ssd_scan_kernel`
+that went to a kernel route (one launch in float32, three in bfloat16);
+``ssd_chunk_state``, ``ssd_state_pass`` and ``ssd_chunk_scan`` count each
+pass's launches.  Plain-version calls are not counted.
 """
 from __future__ import annotations
 
@@ -33,11 +42,14 @@ import torch
 from repro_torch.kernels.build import CudaLibrary, raise_on
 from repro_torch.kernels.fold import fold, unfold
 from repro_torch.kernels.ssd_scan.chunked import ssd_scan_vjp
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+from repro_torch.kernels.ssd_scan.ref import (chunk_scan_ref,
+                                              chunk_state_ref, split_hi_lo,
+                                              ssd_scan_ref, state_pass_ref)
 
 __all__ = ["MAX_CHUNK", "MAX_HEAD_DIM", "MAX_STATE", "build",
-           "launch_counts", "reset_launch_counts", "ssd_scan",
-           "ssd_scan_kernel"]
+           "launch_counts", "reset_launch_counts", "ssd_chunk_scan",
+           "ssd_chunk_state", "ssd_scan", "ssd_scan_kernel",
+           "ssd_state_pass"]
 
 MAX_HEAD_DIM = 64         # kMaxP in the CUDA source
 MAX_STATE = 128           # kMaxN
@@ -46,7 +58,8 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launch_counts = {"ssd_scan": 0}
+launch_counts = {"ssd_scan": 0, "ssd_chunk_state": 0, "ssd_state_pass": 0,
+                 "ssd_chunk_scan": 0}
 
 
 def reset_launch_counts() -> None:
@@ -60,8 +73,15 @@ def _declare(lib: ctypes.CDLL) -> None:
                "repro_ssd_max_chunk"):
         getattr(lib, fn).argtypes = []
         getattr(lib, fn).restype = i
+    ll = ctypes.c_longlong
     lib.repro_ssd_scan.argtypes = [p] * 7 + [i] * 8 + [p]
-    lib.repro_ssd_scan.restype = i
+    lib.repro_ssd_chunk_state.argtypes = [p] * 3 + [ll] + [p] * 3 + \
+        [i] * 7 + [p]
+    lib.repro_ssd_state_pass.argtypes = [p] * 5 + [i] * 6 + [p]
+    lib.repro_ssd_chunk_scan.argtypes = [p] * 8 + [i] * 7 + [p]
+    for fn in ("repro_ssd_scan", "repro_ssd_chunk_state",
+               "repro_ssd_state_pass", "repro_ssd_chunk_scan"):
+        getattr(lib, fn).restype = i
     if (lib.repro_ssd_max_head_dim(), lib.repro_ssd_max_state(),
             lib.repro_ssd_max_chunk()) != (MAX_HEAD_DIM, MAX_STATE,
                                            MAX_CHUNK):
@@ -93,7 +113,7 @@ def _check_shapes(x, dt, A, Bg, Cg, chunk: int) -> None:
             f"{name}: dt {tuple(dt.shape)}, B {tuple(Bg.shape)} and C "
             f"{tuple(Cg.shape)} do not fit x {tuple(x.shape)} (dt must be "
             f"({B}, {L}, {H}), B and C ({B}, {L}, G, N) with G dividing {H})")
-    if tuple(A.shape) not in ((H,), (B, H)):
+    if A is not None and tuple(A.shape) not in ((H,), (B, H)):
         raise ValueError(f"{name}: A has shape {tuple(A.shape)}, expected "
                          f"({H},) or ({B}, {H})")
     if L % chunk:
@@ -104,9 +124,10 @@ def _check_shapes(x, dt, A, Bg, Cg, chunk: int) -> None:
 
 
 def _check_cuda(x, dt, A, Bg, Cg, chunk: int) -> None:
-    """What the kernel takes: x, B and C in one of float32/bfloat16, dt and
-    A float32, all on one card, x, dt, B and C contiguous (A, (B, H) floats,
-    is copied into place); P <= 64, N <= 128, chunk <= 256."""
+    """What the kernels take: x, B and C in one of float32/bfloat16, dt and
+    A float32, all on one card, x, dt, B and C contiguous (A, (H,) or (B,
+    H), is read through its strides in bfloat16 and copied into place in
+    float32); P <= 64, N <= 128, chunk <= 256."""
     name = "ssd_scan"
     P, N = x.shape[3], Bg.shape[3]
     if x.dtype not in _DTYPES:
@@ -130,6 +151,113 @@ def _check_cuda(x, dt, A, Bg, Cg, chunk: int) -> None:
                              f"contiguous (strides {t.stride()})")
 
 
+def _check_hopper(name: str, chunk: int, **tensors) -> None:
+    """What the bfloat16 kernels take beyond :func:`_check_cuda`: rows of
+    x, B and C (and of every other bf16 operand) 16-byte multiples, P and N
+    multiples of 8, data 16-byte aligned (TMA reads and writes them)."""
+    for tname, t in tensors.items():
+        want = torch.bfloat16 if tname in ("x", "B", "C", "hi", "lo") \
+            else torch.float32
+        if t.device.type != "cuda" or t.dtype != want:
+            raise ValueError(f"{name}: {tname} must be a {want} CUDA "
+                             f"tensor, got {t.dtype} on {t.device}")
+        if tname != "A" and not t.is_contiguous():
+            raise ValueError(f"{name}: {tname} {tuple(t.shape)} is not "
+                             f"contiguous (strides {t.stride()})")
+        if tname in ("x", "B", "C", "hi", "lo", "S") and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {tname} is not 16-byte aligned")
+    x, Bg = tensors.get("x"), tensors.get("B")
+    P = x.shape[3] if x is not None else tensors["S"].shape[3]
+    N = Bg.shape[3] if Bg is not None else tensors["S"].shape[4]
+    if P % 8 or N % 8 or P > MAX_HEAD_DIM or N > MAX_STATE or \
+            chunk > MAX_CHUNK:
+        raise ValueError(
+            f"{name}: the bfloat16 kernels take a head dim P={P} and state "
+            f"N={N} that are multiples of 8, at most {MAX_HEAD_DIM} and "
+            f"{MAX_STATE}, and chunk={chunk} at most {MAX_CHUNK}")
+
+
+def _launch(name: str, entry, *args) -> None:
+    """One launch of C entry ``entry``: tensors as their data pointers, the
+    current stream last; raises on a refused launch, then counts it."""
+    with torch.cuda.device(args[0].device):
+        err = entry(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                      for a in args),
+                    torch.cuda.current_stream().cuda_stream)
+    raise_on(err, name)
+    launch_counts[name] += 1
+
+
+def ssd_chunk_state(x, dt, A, Bg, *, chunk: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pass 1 of the bfloat16 route: (S (B,nc,H,P,N), seg (B,H,L)), both
+    float32, as :func:`.ref.chunk_state_ref` (its plain version, taken for
+    CPU tensors).  A: (H,) or per sequence (B,H)."""
+    _check_shapes(x, dt, A, Bg, Bg, chunk)
+    if x.device.type == "cpu":
+        return chunk_state_ref(x, dt, A, Bg, chunk)
+    _check_hopper("ssd_chunk_state", chunk, x=x, dt=dt, A=A, B=Bg)
+    B, L, H, P = x.shape
+    G, N = Bg.shape[2], Bg.shape[3]
+    if A.stride(-1) != 1:
+        A = A.contiguous()
+    S = torch.empty(B, L // chunk, H, P, N, dtype=torch.float32,
+                    device=x.device)
+    seg = torch.empty(B, H, L, dtype=torch.float32, device=x.device)
+    _launch("ssd_chunk_state", _LIB.lib.repro_ssd_chunk_state, x, dt, A,
+            A.stride(0) if A.ndim == 2 else 0, Bg, S, seg, B, L, H, P, G, N,
+            chunk)
+    return S, seg
+
+
+def ssd_state_pass(S, seg, *, chunk: int
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pass 2 of the bfloat16 route: the states entering chunks 1 .. nc-1
+    as bf16 planes hi and lo (B,nc-1,H,P,N) whose float32 sum is the state
+    (:func:`.ref.split_hi_lo`), and the final state (B,H,P,N) float32; the
+    plain version is :func:`.ref.state_pass_ref`, split."""
+    B, nc, H, P, N = S.shape
+    if tuple(seg.shape) != (B, H, nc * chunk):
+        raise ValueError(f"ssd_state_pass: seg {tuple(seg.shape)} does not "
+                         f"fit S {tuple(S.shape)} and chunk={chunk}")
+    if S.device.type == "cpu":
+        entering, state = state_pass_ref(S, seg, chunk)
+        return (*split_hi_lo(entering), state)
+    _check_hopper("ssd_state_pass", chunk, S=S, seg=seg)
+    hi, lo = (torch.empty(B, nc - 1, H, P, N, dtype=torch.bfloat16,
+                          device=S.device) for _ in "hl")
+    state = torch.empty(B, H, P, N, dtype=torch.float32, device=S.device)
+    _launch("ssd_state_pass", _LIB.lib.repro_ssd_state_pass, S, seg, hi, lo,
+            state, B, nc * chunk, H, P, N, chunk)
+    return hi, lo, state
+
+
+def ssd_chunk_scan(x, dt, seg, Bg, Cg, hi, lo, *, chunk: int
+                   ) -> torch.Tensor:
+    """Pass 3 of the bfloat16 route: y (B,L,H,P) in x's dtype from seg
+    (pass 1) and the entering states' planes hi and lo (pass 2), as
+    :func:`.ref.chunk_scan_ref` of ``hi + lo`` (its plain version)."""
+    _check_shapes(x, dt, None, Bg, Cg, chunk)
+    B, L, H, P = x.shape
+    G, N = Bg.shape[2], Bg.shape[3]
+    want = (B, L // chunk - 1, H, P, N)
+    if tuple(seg.shape) != (B, H, L) or tuple(hi.shape) != want or \
+            tuple(lo.shape) != want:
+        raise ValueError(f"ssd_chunk_scan: seg {tuple(seg.shape)}, hi "
+                         f"{tuple(hi.shape)} and lo {tuple(lo.shape)} do not "
+                         f"fit x {tuple(x.shape)} (want ({B}, {H}, {L}) and "
+                         f"{want})")
+    if x.device.type == "cpu":
+        return chunk_scan_ref(x, dt, seg, Bg, Cg,
+                              hi.float() + lo.float(), chunk)
+    _check_hopper("ssd_chunk_scan", chunk, x=x, dt=dt, seg=seg, B=Bg, C=Cg,
+                  hi=hi, lo=lo)
+    y = torch.empty_like(x)
+    _launch("ssd_chunk_scan", _LIB.lib.repro_ssd_chunk_scan, x, dt, seg, Bg,
+            Cg, hi, lo, y, B, L, H, P, G, N, chunk)
+    return y
+
+
 def ssd_scan_kernel(x, dt, A, Bg, Cg, *, chunk: int
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B,L,H,P); dt: (B,L,H); A: (H,) or per sequence (B,H); Bg/Cg:
@@ -147,17 +275,17 @@ def ssd_scan_kernel(x, dt, A, Bg, Cg, *, chunk: int
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: no kernel for device {x.device}")
     _check_cuda(x, dt, A, Bg, Cg, chunk)
+    if x.dtype == torch.bfloat16:
+        S, seg = ssd_chunk_state(x, dt, A, Bg, chunk=chunk)
+        hi, lo, state = ssd_state_pass(S, seg, chunk=chunk)
+        y = ssd_chunk_scan(x, dt, seg, Bg, Cg, hi, lo, chunk=chunk)
+        launch_counts["ssd_scan"] += 1
+        return y, state
     A = A.expand(B, H).contiguous()
     y = torch.empty_like(x)
     state = torch.empty(B, H, P, N, dtype=torch.float32, device=x.device)
-    lib = _LIB.lib
-    with torch.cuda.device(x.device):
-        err = lib.repro_ssd_scan(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bg.data_ptr(),
-            Cg.data_ptr(), y.data_ptr(), state.data_ptr(), B, L, H, P, G, N,
-            chunk, _DTYPES[x.dtype], torch.cuda.current_stream().cuda_stream)
-    raise_on(err, "ssd_scan")
-    launch_counts["ssd_scan"] += 1
+    _launch("ssd_scan", _LIB.lib.repro_ssd_scan, x, dt, A, Bg, Cg, y, state,
+            B, L, H, P, G, N, chunk, _DTYPES[x.dtype])
     return y, state
 
 

@@ -285,9 +285,10 @@ def _ssd_inputs(gen, B, L, H, P, N, G, dtype, device):
 @pytest.mark.parametrize("L,chunk,H,G,P,N", [
     (128, 32, 2, 2, 16, 32), (256, 64, 2, 2, 16, 32),
     (256, 128, 2, 2, 16, 32), (96, 48, 4, 2, 8, 16),
-    (512, 256, 4, 1, 64, 128)],
+    (512, 256, 4, 1, 64, 128), (256, 256, 4, 1, 64, 128),
+    (100, 100, 4, 2, 16, 32)],
     ids=["grid128x32", "grid256x64", "grid256x128", "groups-ragged48",
-         "full-width"])
+         "full-width", "one-chunk-full-width", "one-chunk-ragged100"])
 def test_cuda_ssd_scan_matches_plain_version(cuda, dtype, L, chunk, H, G,
                                              P, N):
     gen = torch.Generator().manual_seed(L + chunk)
@@ -351,3 +352,87 @@ def test_cuda_ssd_scan_raises_instead_of_falling_back(cuda):
                              dt, A, Bm, Cm, chunk=32)
     with pytest.raises(ValueError, match=r"L=64 % chunk=48 = 16"):
         sops.ssd_scan_kernel(x, dt, A, Bm, Cm, chunk=48)
+
+
+# The last two are one chunk (a prompt no longer than the model's chunk):
+# empty hi/lo planes, and a chunk of 100 rows, not a multiple of 16.
+SSD_PASS_SHAPES = [(128, 32, 2, 2, 16, 32), (256, 64, 2, 2, 16, 32),
+                   (256, 128, 2, 2, 16, 32), (96, 48, 4, 2, 8, 16),
+                   (512, 256, 4, 1, 64, 128), (256, 256, 4, 1, 64, 128),
+                   (100, 100, 4, 2, 16, 32)]
+SSD_PASS_IDS = ["grid128x32", "grid256x64", "grid256x128", "groups-ragged48",
+                "full-width", "one-chunk-full-width", "one-chunk-ragged100"]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("L,chunk,H,G,P,N", SSD_PASS_SHAPES,
+                         ids=SSD_PASS_IDS)
+def test_cuda_ssd_passes_match_plain_versions(cuda, L, chunk, H, G, P, N):
+    """Each kernel of the bfloat16 route against its plain version on the
+    same inputs (the kernel's own outputs of the pass before), each
+    counting its launch: the chunk states and the state passing in float32
+    within SSD_F32_TOL (the hi/lo halves keep 16 bits of each float32
+    operand), the chunk outputs as the bf16 scan."""
+    gen = torch.Generator().manual_seed(L + chunk + 1)
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, 2, L, H, P, N, G, torch.bfloat16,
+                                   cuda)
+    before = dict(sops.launch_counts)
+    S, seg = sops.ssd_chunk_state(x, dt, A, Bm, chunk=chunk)
+    hi, lo, state = sops.ssd_state_pass(S, seg, chunk=chunk)
+    y = sops.ssd_chunk_scan(x, dt, seg, Bm, Cm, hi, lo, chunk=chunk)
+    assert {k: sops.launch_counts[k] - before[k] for k in before} == {
+        "ssd_scan": 0, "ssd_chunk_state": 1, "ssd_state_pass": 1,
+        "ssd_chunk_scan": 1}
+    Sr, segr = sref.chunk_state_ref(x, dt, A, Bm, chunk)
+    torch.testing.assert_close(S, Sr, **SSD_F32_TOL)
+    torch.testing.assert_close(seg, segr, **SSD_F32_TOL)
+    entering, state_r = sref.state_pass_ref(S, seg, chunk)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    torch.testing.assert_close(hi.float() + lo.float(), entering,
+                               **SSD_F32_TOL)
+    torch.testing.assert_close(state, state_r, **SSD_F32_TOL)
+    yr = sref.chunk_scan_ref(x, dt, seg, Bm, Cm, hi.float() + lo.float(),
+                             chunk)
+    assert y.dtype == torch.bfloat16
+    assert_flash_close(y, yr, dict(rtol=1.6e-2, atol=0.0))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.requires_cuda
+def test_cuda_ssd_scan_counts_calls_and_each_kernel(cuda):
+    """A bf16 call counts one ``ssd_scan`` call and one launch of each of
+    its three kernels, with A per sequence read through its strides; a
+    float32 call counts one ``ssd_scan`` launch and none of theirs."""
+    gen = torch.Generator().manual_seed(5)
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, 2, 256, 4, 16, 32, 2,
+                                   torch.bfloat16, cuda)
+    A2 = torch.stack([A, 0.5 * A])
+    for dtype, want in ((torch.bfloat16, (1, 1, 1, 1)),
+                        (torch.float32, (1, 0, 0, 0))):
+        before = dict(sops.launch_counts)
+        y, s = sops.ssd_scan_kernel(x.to(dtype), dt, A2, Bm.to(dtype),
+                                    Cm.to(dtype), chunk=64)
+        keys = ("ssd_scan", "ssd_chunk_state", "ssd_state_pass",
+                "ssd_chunk_scan")
+        assert tuple(sops.launch_counts[k] - before[k] for k in keys) == want
+        yr, sr = sref.ssd_scan_ref(x.to(dtype), dt, A2,
+                                   Bm.repeat_interleave(2, 2).to(dtype),
+                                   Cm.repeat_interleave(2, 2).to(dtype))
+        torch.testing.assert_close(s, sr, **SSD_F32_TOL)
+        if dtype == torch.float32:
+            torch.testing.assert_close(y, yr, **SSD_F32_TOL)
+        else:
+            assert_flash_close(y, yr.to(dtype), dict(rtol=1.6e-2, atol=0.0))
+
+
+@pytest.mark.requires_cuda
+def test_cuda_ssd_bf16_raises_on_what_its_kernels_do_not_take(cuda):
+    """bf16 rows the kernels' TMA cannot read (P or N not a multiple of 8)
+    raise, with nothing launched: there is no other bf16 route."""
+    gen = torch.Generator().manual_seed(6)
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, 1, 64, 2, 12, 32, 1, torch.bfloat16,
+                                   cuda)
+    before = dict(sops.launch_counts)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        sops.ssd_scan_kernel(x, dt, A, Bm, Cm, chunk=32)
+    assert sops.launch_counts == before

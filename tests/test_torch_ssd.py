@@ -338,3 +338,151 @@ def test_cuda_checks_raise_with_the_numbers():
     with pytest.raises(ValueError, match="x .* is not contiguous"):
         ops._check_cuda(x.transpose(0, 1).contiguous().transpose(0, 1), dt,
                         A2, Bm, Cm, 32)
+
+
+def _compose(x, dt, A, Bm, Cm, chunk, through_wrappers):
+    """The three passes of the bfloat16 route, composed: their plain
+    versions in float32, or the kernel wrappers on CPU tensors (the plain
+    versions, with the entering states handed over as hi/lo bf16 planes, as
+    the kernels hand them over)."""
+    if through_wrappers:
+        S, seg = ops.ssd_chunk_state(x, dt, A, Bm, chunk=chunk)
+        hi, lo, state = ops.ssd_state_pass(S, seg, chunk=chunk)
+        return ops.ssd_chunk_scan(x, dt, seg, Bm, Cm, hi, lo,
+                                  chunk=chunk), state
+    S, seg = ref.chunk_state_ref(x, dt, A, Bm, chunk)
+    entering, state = ref.state_pass_ref(S, seg, chunk)
+    return ref.chunk_scan_ref(x, dt, seg, Bm, Cm, entering, chunk), state
+
+
+def _expand(a, H):
+    """B or C (B, L, G, N) repeated to H heads, as the reference's
+    ops.ssd_scan does before its kernel."""
+    return np.repeat(a, H // a.shape[2], axis=2)
+
+
+def _assert_scan_close(y, s, yw, sw, dtype):
+    np.testing.assert_allclose(s.numpy(), np.asarray(sw), **PALLAS_F32_TOL)
+    if dtype == "float32":
+        np.testing.assert_allclose(y.numpy(), np.asarray(yw),
+                                   **PALLAS_F32_TOL)
+    else:
+        assert_bf16_close(y.float().numpy(), np.asarray(yw, np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("L,chunk", GRID)
+def test_passes_compose_to_the_reference_scan(L, chunk, G, dtype):
+    """Chunk states, state passing and chunk outputs (C·Bᵀ once per group)
+    composed: against ``ssd_scan_pallas`` in interpret mode and against
+    ``ssd_scan_ref``, on tests/test_kernels.py's grid with one or two B/C
+    groups for H = 4.  float32 composes the plain versions; bfloat16 goes
+    through the kernel wrappers, hi/lo planes and all."""
+    H = 4
+    x, dt, A, Bm, Cm = _inputs(L + chunk + G, L=L, H=H, G=G)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    y, s = _compose(_t(x).to(tdt), _t(dt).to(tdt).float(), _t(A),
+                    _t(Bm).to(tdt), _t(Cm).to(tdt), chunk,
+                    through_wrappers=dtype == "bfloat16")
+    assert y.dtype == tdt and s.dtype == torch.float32
+    jx, jdt_, jB, jC = (_j(a).astype(jdt) for a in
+                        (x, dt, _expand(Bm, H), _expand(Cm, H)))
+    yp, sp = ssd_scan_pallas(jx, jdt_, _j(A), jB, jC, chunk=chunk,
+                             interpret=True)
+    _assert_scan_close(y, s, yp.astype(jnp.float32), sp, dtype)
+    yr, sr = jax_ssd_scan_ref(jx, jdt_.astype(jnp.float32), _j(A), jB, jC)
+    _assert_scan_close(y, s, yr, sr, dtype)
+
+
+@pytest.mark.parametrize("through_wrappers", [False, True],
+                         ids=["plain", "wrappers"])
+def test_passes_compose_with_A_per_sequence(through_wrappers):
+    """A per sequence (B, H), as ``vmap`` over users folds it: against the
+    Pallas kernel run sequence by sequence with that sequence's A, and
+    against ``ssd_scan_ref`` (which broadcasts a (B, H) A)."""
+    x, dt, A, Bm, Cm = _inputs(21, B=3, L=128, H=4, G=2)
+    A2 = np.stack([A, 0.5 * A, 2.0 * A])
+    y, s = _compose(*map(_t, (x, dt, A2, Bm, Cm)), 32, through_wrappers)
+    for b in range(3):
+        yp, sp = ssd_scan_pallas(
+            _j(x[b:b + 1]), _j(dt[b:b + 1]), _j(A2[b]),
+            _j(_expand(Bm[b:b + 1], 4)), _j(_expand(Cm[b:b + 1], 4)),
+            chunk=32, interpret=True)
+        _assert_scan_close(y[b:b + 1], s[b:b + 1], yp, sp, "float32")
+    yr, sr = jax_ssd_scan_ref(*map(_j, (x, dt, A2, _expand(Bm, 4),
+                                        _expand(Cm, 4))))
+    _assert_scan_close(y, s, yr, sr, "float32")
+
+
+@pytest.mark.parametrize("through_wrappers", [False, True],
+                         ids=["plain", "wrappers"])
+def test_passes_stay_finite_where_seg_falls_past_88(through_wrappers):
+    """dt near 1 and A = -1 over chunks of 256: seg falls by about 250
+    within a chunk, so exp(seg_q) exp(-seg_k) and exp of the unmasked
+    differences overflow.  The passes take exp of masked differences: y is
+    finite and equals the per-step recurrence."""
+    rng = np.random.default_rng(22)
+    x, _, _, Bm, Cm = _inputs(22, B=1, L=512, H=2, P=8, N=16, G=1)
+    dt = (0.9 + 0.2 * rng.random((1, 512, 2))).astype(np.float32)
+    A = -np.ones(2, np.float32)
+    y, s = _compose(*map(_t, (x, dt, A, Bm, Cm)), 256, through_wrappers)
+    seg = np.cumsum(dt[0, :256, 0] * A[0])
+    assert seg[0] - seg[-1] > 88
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    yr, sr = jax_ssd_scan_ref(*map(_j, (x, dt, A, Bm, Cm)))
+    _assert_scan_close(y, s, yr, sr, "float32")
+
+
+def test_split_hi_lo_keeps_16_bits():
+    """hi + lo of ``split_hi_lo`` is within 2^-16 of the float32 value,
+    relative, over many magnitudes: the precision the entering states keep
+    on their way into the tensor cores."""
+    rng = np.random.default_rng(23)
+    s = torch.from_numpy((rng.standard_normal(1 << 16)
+                          * 10.0 ** rng.uniform(-20, 20, 1 << 16)
+                          ).astype(np.float32))
+    hi, lo = ref.split_hi_lo(s)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    err = (hi.double() + lo.double() - s.double()).abs()
+    assert (err <= 2.0 ** -16 * s.double().abs()).all()
+    assert float((err / s.double().abs()).max()) > 2.0 ** -20  # not exact
+
+
+def test_pass_wrappers_check_their_shapes():
+    x, dt, A, Bm, Cm = (_t(a) for a in _inputs(24, L=64))
+    S, seg = ops.ssd_chunk_state(x, dt, A, Bm, chunk=32)
+    assert S.shape == (2, 2, 2, 16, 32) and seg.shape == (2, 2, 64)
+    hi, lo, state = ops.ssd_state_pass(S, seg, chunk=32)
+    assert hi.shape == lo.shape == (2, 1, 2, 16, 32)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    assert state.shape == (2, 2, 16, 32)
+    with pytest.raises(ValueError, match="does not fit S"):
+        ops.ssd_state_pass(S, seg[:, :, :32], chunk=32)
+    with pytest.raises(ValueError, match=r"do not fit x"):
+        ops.ssd_chunk_scan(x, dt, seg[:, :, :32], Bm, Cm, hi, lo, chunk=32)
+    with pytest.raises(ValueError, match=r"do not fit x"):
+        ops.ssd_chunk_scan(x, dt, seg, Bm, Cm, hi[:, :0], lo, chunk=32)
+    with pytest.raises(ValueError, match=r"L=64 % chunk=48 = 16"):
+        ops.ssd_chunk_state(x, dt, A, Bm, chunk=48)
+
+
+@pytest.mark.parametrize("through_wrappers", [False, True],
+                         ids=["plain", "wrappers"])
+@pytest.mark.parametrize("L,chunk,H,G,P,N", [(256, 256, 4, 1, 64, 128),
+                                             (100, 100, 4, 2, 16, 32)],
+                         ids=["full-width", "ragged100"])
+def test_passes_compose_on_one_chunk(L, chunk, H, G, P, N, through_wrappers):
+    """A prompt no longer than the chunk is one chunk (the model takes
+    chunk = min(ssm_chunk, L)): no state enters it, so the hi/lo planes are
+    empty, and the chunk need not be a multiple of 16.  Against the Pallas
+    kernel in interpret mode and against ``ssd_scan_ref``."""
+    x, dt, A, Bm, Cm = _inputs(25 + L, B=2, L=L, H=H, P=P, N=N, G=G)
+    y, s = _compose(*map(_t, (x, dt, A, Bm, Cm)), chunk, through_wrappers)
+    jx, jdt, jA, jB, jC = map(_j, (x, dt, A, _expand(Bm, H),
+                                   _expand(Cm, H)))
+    yp, sp = ssd_scan_pallas(jx, jdt, jA, jB, jC, chunk=chunk,
+                             interpret=True)
+    _assert_scan_close(y, s, yp, sp, "float32")
+    _assert_scan_close(y, s, *jax_ssd_scan_ref(jx, jdt, jA, jB, jC),
+                       "float32")
