@@ -19,14 +19,25 @@ Phases, each fatal on failure:
                 (torch.profiler, before any other profiling: sessions after
                 phase 5's miss kernels).
 3. kernels   -- holds ``dif_combine`` and ``fused_combine_update`` against
-                their plain PyTorch versions on the card: at the shapes the
-                training step gives them (the sine MLP's leaves, K=6, padded
-                as the step pads them) and at K=6, M=2^24 in float32 and
-                bfloat16, the fused kernel across optimizer kind x mix mode
-                x gate x schedule length.  Each check prints its largest
-                error against the stated tolerance, the kernel's time, the
-                plain version's, the least time the card could take (bound)
-                and, for the combine, one PyTorch matmul's time.
+                their plain PyTorch versions on the card: over the leaves
+                the training step gives them (the sine MLP's 6 leaves, K=6,
+                in one launch; the fused kernel across optimizer kind x mix
+                mode x schedule length x step, its row and gate derived from
+                the step), over the 12 leaves of one qwen2-1.5b decoder layer
+                (46.8M parameters an agent) in float32 and bfloat16, and
+                through the single-buffer interface at K=6, M=2^24 in both
+                dtypes across kind x mode x gate x schedule length.  Each
+                check prints its largest error against the stated
+                tolerance, its launches, the kernel's time, the plain
+                version's, the least time the card could take (bound) and,
+                for the single-buffer combine, one PyTorch matmul's time.
+                Then one fused outer update is captured in a CUDA graph
+                with the step as a device tensor the graph advances and
+                replayed for 12 steps (combine_every=2, a 3-row link-failure
+                schedule) against eager calls, and copies of the source
+                without stores, without the mix and with 1, 3 or 4 ring
+                stages are timed at M=2^24 (``kernels/dif_combine/
+                ablate.py``).
 4. training  -- runs ``python -m repro_torch.launch.quickstart`` (K=6 agents
                 on the paper's Fig. 2a graph, ATC, exact MAML, Adam) for 300
                 steps with ``--backend dense``, ``pallas`` and ``fused`` from
@@ -319,9 +330,8 @@ def fused_cost(kind: str, mode: str, K: int, M: int, itemsize: int
     return nbytes, float(per_elem * K * M)
 
 
-def fused_inputs(gen, kind, S, K, M, dtype, m_real=None):
-    """Random (table, sel, ctl, scale, w, g, *moments) on the card; columns
-    from ``m_real`` on are the zero pad the training step adds."""
+def fused_inputs(gen, kind, S, K, M, dtype):
+    """Random (table, scale, w, g, *moments) on the card."""
     dev = torch.device(DEVICE)
     table = torch.rand(S, K, K, generator=gen, device=dev)
     table = table / table.sum(1, keepdim=True)        # column-stochastic
@@ -335,22 +345,32 @@ def fused_inputs(gen, kind, S, K, M, dtype, m_real=None):
         bufs.append(torch.randn(K, M, generator=gen, device=dev))
     mom_dt = torch.float32 if kind == "adam" else dtype
     bufs = [b.to(dtype if i < 2 else mom_dt) for i, b in enumerate(bufs)]
-    if m_real is not None:
-        for b in bufs:
-            b[:, m_real:] = 0
     return [table, scale] + bufs
 
 
-def check_fused(ops, ref, gen, kind, mode, gate, S, M, dtype, m_real=None,
-                timed=False):
-    table, scale, *bufs = fused_inputs(gen, kind, S, K, M, dtype, m_real)
+def counted(ops, name, fn, what=None):
+    """``fn()`` and the launches of kernel ``name`` it made; with ``what``,
+    raises unless that is one."""
+    before = ops.launch_counts[name]
+    out = fn()
+    launches = ops.launch_counts[name] - before
+    if what is not None and launches != 1:
+        raise AssertionError(f"{what}: {launches} launches, expected 1")
+    return out, launches
+
+
+def check_fused(ops, ref, gen, kind, mode, gate, S, M, dtype, timed=False):
+    """The single-buffer interface (the TPU kernel's) over one (K, M)."""
+    table, scale, *bufs = fused_inputs(gen, kind, S, K, M, dtype)
     sel = torch.tensor([[S - 1]], dtype=torch.int32, device=DEVICE)
     ctl = torch.tensor([[gate, 1 - 0.9 ** 3, 1 - 0.999 ** 3]],
                        device=DEVICE)
     hyper = dict(mode=mode, kind=kind, lr=1e-3,
                  weight_decay=0.01 if kind == "adam" else 0.0)
     args = (table, sel, ctl, scale, *bufs)
-    got = ops.fused_combine_update(*args, **hyper)
+    got, launches = counted(ops, "fused_combine_update",
+                            lambda: ops.fused_combine_update(*args, **hyper),
+                            f"fused {kind}/{mode} {dtype} M={M}")
     want = ref.fused_update_ref(*args, **hyper)
     torch.cuda.synchronize()
     err = 0.0
@@ -359,11 +379,9 @@ def check_fused(ops, ref, gen, kind, mode, gate, S, M, dtype, m_real=None,
             continue
         what = f"fused {kind}/{mode} gate={gate} S={S} {dtype} M={M} {name}"
         err = max(err, compare(a, b, a.dtype, what))
-        if m_real is not None and torch.count_nonzero(a[:, m_real:]):
-            raise AssertionError(f"{what}: padded columns are not zero")
     row = dict(kind=kind, mode=mode, gate=gate, S=S, M=M,
-               dtype=str(dtype).split(".")[-1], max_abs_err=err,
-               tol=TOL[dtype])
+               dtype=str(dtype).split(".")[-1], launches=launches,
+               max_abs_err=err, tol=TOL[dtype])
     if timed:
         n = 3 if M >= LARGE_M else 50
         row["ms"] = time_ms(lambda: ops.fused_combine_update(*args, **hyper),
@@ -376,17 +394,18 @@ def check_fused(ops, ref, gen, kind, mode, gate, S, M, dtype, m_real=None,
     return row
 
 
-def check_combine(ops, ref, A, phi, m_real=None):
-    out = ops.dif_combine(A, phi)
+def check_combine(ops, ref, A, phi):
+    """The single-buffer interface (the TPU kernel's) over one (K, M)."""
+    out, launches = counted(ops, "dif_combine",
+                            lambda: ops.dif_combine(A, phi),
+                            f"dif_combine {phi.dtype} M={phi.shape[1]}")
     want = ref.dif_combine_ref(A, phi)
     torch.cuda.synchronize()
     M = phi.shape[1]
     what = f"dif_combine {phi.dtype} M={M}"
-    row = dict(M=M, dtype=str(phi.dtype).split(".")[-1],
+    row = dict(M=M, dtype=str(phi.dtype).split(".")[-1], launches=launches,
                max_abs_err=compare(out, want, phi.dtype, what),
                tol=TOL[phi.dtype])
-    if m_real is not None and torch.count_nonzero(out[:, m_real:]):
-        raise AssertionError(f"{what}: padded columns are not zero")
     n = 3 if M >= LARGE_M else 50
     row["ms"] = time_ms(lambda: ops.dif_combine(A, phi), n)
     row["plain_ms"] = time_ms(lambda: ref.dif_combine_ref(A, phi), n)
@@ -400,61 +419,211 @@ def check_combine(ops, ref, A, phi, m_real=None):
     return row
 
 
-def kernels_phase(ops, ref, diffusion, SineMLP, SINE_MLP, paper_A):
+def columns(leaves) -> int:
+    """Elements per agent over a leaf dict."""
+    return sum(x.numel() // x.shape[0] for x in leaves.values())
+
+
+def check_combine_leaves(ops, ref, A, leaves, what):
+    """The grouped combine over a leaf dict of one dtype against its plain
+    version: one launch, every leaf within TOL; time, plain time, bound."""
+    got, launches = counted(ops, "dif_combine",
+                            lambda: ops.dif_combine_leaves(A, leaves), what)
+    want = ref.dif_combine_leaves_ref(A, leaves)
+    torch.cuda.synchronize()
+    dtype = next(iter(leaves.values())).dtype
+    err = max(compare(got[k], want[k], dtype, f"{what} {k}") for k in leaves)
+    n = 3 if columns(leaves) * K >= LARGE_M else 50
+    row = dict(what=what, leaves=len(leaves), columns=columns(leaves),
+               dtype=str(dtype).split(".")[-1], launches=launches,
+               max_abs_err=err, tol=TOL[dtype],
+               ms=time_ms(lambda: ops.dif_combine_leaves(A, leaves), n),
+               plain_ms=time_ms(
+                   lambda: ref.dif_combine_leaves_ref(A, leaves), n))
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        *combine_cost(K, columns(leaves), dtype.itemsize))
+    print("check", json.dumps(row), flush=True)
+    return row
+
+
+def leaf_inputs(gen, kind, shapes, dtype):
+    """Random params, grads and moments over leaves of ``shapes`` (each
+    with the agent axis K first) on the card."""
+    dev = torch.device(DEVICE)
+    rand = lambda s, f=torch.randn: f(s, generator=gen, device=dev)
+    params = {k: rand(s).to(dtype) for k, s in shapes.items()}
+    grads = {k: rand(s).to(dtype) for k, s in shapes.items()}
+    mu = nu = None
+    if kind == "adam":
+        mu = {k: 0.1 * rand(s) for k, s in shapes.items()}
+        nu = {k: 0.01 * rand(s, torch.rand) for k, s in shapes.items()}
+    elif kind == "momentum":
+        mu = {k: rand(s).to(dtype) for k, s in shapes.items()}
+    return params, grads, mu, nu
+
+
+def check_fused_leaves(ops, ref, gen, table, shapes, dtype, what, *, kind,
+                       mode, step, every=1, timed=False):
+    """The grouped fused update over leaves of ``shapes`` in one dtype
+    against its plain version: the row, gate and bias corrections derived
+    from ``step`` (a host int, as the trainer passes it), one launch; with
+    ``timed``, its time, the plain version's and the bound."""
+    params, grads, mu, nu = leaf_inputs(gen, kind, shapes, dtype)
+    scale = torch.rand(K, 1, generator=gen, device=DEVICE)
+    count = torch.tensor(2, dtype=torch.int32, device=DEVICE)
+    hyper = dict(mode=mode, kind=kind, lr=1e-3, step=step, every=every,
+                 count=count if kind == "adam" else None,
+                 weight_decay=0.01 if kind == "adam" else 0.0)
+    args = (table, scale, params, grads, mu, nu)
+    got, launches = counted(
+        ops, "fused_combine_update",
+        lambda: ops.fused_combine_update_leaves(*args, **hyper), what)
+    want = ref.fused_update_leaves_ref(*args, **hyper)
+    torch.cuda.synchronize()
+    err = 0.0
+    for tree, g, w in zip(("w", "mu", "nu"), got, want):
+        if w is None:
+            continue
+        for k in w:
+            err = max(err, compare(g[k], w[k], g[k].dtype,
+                                   f"{what} {kind}/{mode} step={step} "
+                                   f"{tree}[{k}]"))
+    row = dict(what=what, kind=kind, mode=mode, step=step, every=every,
+               S=table.shape[0], leaves=len(shapes),
+               columns=columns(params), dtype=str(dtype).split(".")[-1],
+               launches=launches, max_abs_err=err, tol=TOL[dtype])
+    if timed:
+        n = 3 if columns(params) * K >= LARGE_M else 50
+        row["ms"] = time_ms(
+            lambda: ops.fused_combine_update_leaves(*args, **hyper), n)
+        row["plain_ms"] = time_ms(
+            lambda: ref.fused_update_leaves_ref(*args, **hyper), n)
+        row["bound_ms"], row["bound_by"] = bound_ms(*fused_cost(
+            kind, mode, K, columns(params), dtype.itemsize))
+    print("check", json.dumps(row), flush=True)
+    return row
+
+
+def qwen2_layer_shapes() -> dict:
+    """The 12 leaves of one qwen2-1.5b decoder layer with the agent axis."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+
+    specs = transformer.block_specs(get_config("qwen2-1.5b"),
+                                    transformer.BlockDesc("attn", "dense"))
+    out = {}
+    for part, leaves in specs.items():
+        for name, spec in leaves.items():
+            out[f"{part}.{name}"] = (K,) + tuple(spec.shape)
+    return out
+
+
+def capture_row(ops, SineMLP, SINE_MLP, steps=12):
+    """One fused outer update (Adam, ATC, combine_every=2, a 3-row
+    link-failure schedule over the paper graph, clip 1.0) captured in a
+    CUDA graph with the step as a device tensor that the graph advances,
+    replayed ``steps`` times against as many eager calls with the host
+    step: params and moments equal at TOL[float32]."""
+    from repro_torch.core import fused, topology, update
+    from repro_torch.optim import get_optimizer
+
+    gen = torch.Generator().manual_seed(7)
+    schedule = topology.make_schedule(
+        "link_failure", topology.build_topology("paper", K, "metropolis"),
+        p=0.2, period=3, seed=0).stacked()
+    opt = get_optimizer("adam", 1e-3)
+    outer = fused.make_fused_outer(opt, "atc", update.CommSchedule(2),
+                                   schedule, grad_clip=1.0, num_agents=K,
+                                   device=DEVICE)
+    init = SineMLP(SINE_MLP).init(gen, device=DEVICE)
+    params = {k: x.unsqueeze(0).expand((K,) + x.shape).clone()
+              for k, x in init.items()}
+    grads = {k: torch.zeros_like(p) for k, p in params.items()}
+    eager_p, eager_s = dict(params), opt.init(params)
+    graph_p = {k: p.clone() for k, p in params.items()}
+    graph_s = opt.init(graph_p)
+    step = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    replay = fused.capture_outer(outer, graph_p, grads, graph_s, step)
+    before = ops.launch_counts["fused_combine_update"]
+    eager_s_total = replay_total = 0.0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for i in range(steps):
+        for g in grads.values():
+            g.copy_(torch.randn(g.shape, generator=gen).to(DEVICE))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager_p, eager_s = outer(eager_p, grads, eager_s, i)
+        torch.cuda.synchronize()
+        eager_s_total += time.perf_counter() - t0
+        start.record()
+        replay()
+        end.record()
+        end.synchronize()
+        replay_total += start.elapsed_time(end)
+    if int(step) != steps:
+        raise AssertionError(f"capture: the graph's step is {int(step)}, "
+                             f"expected {steps}")
+    err = 0.0
+    for k in params:
+        err = max(err, compare(graph_p[k], eager_p[k], torch.float32,
+                               f"capture params[{k}]"))
+    for a, b in zip(fused._tensors(graph_s), fused._tensors(eager_s)):
+        err = max(err, compare(a, b, torch.float32, "capture moments"))
+    row = dict(steps=steps, every=2, S=schedule.shape[0], max_abs_err=err,
+               tol=TOL[torch.float32],
+               eager_launches=ops.launch_counts["fused_combine_update"]
+               - before,
+               eager_ms_host_clock=1e3 * eager_s_total / steps,
+               replay_ms=replay_total / steps)
+    print("capture", json.dumps(row), flush=True)
+    return row
+
+
+def kernels_phase(ops, ref, SineMLP, SINE_MLP, paper_A):
+    from repro_torch.kernels.dif_combine import ablate
+
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     A = torch.as_tensor(paper_A, dtype=torch.float32, device=DEVICE)
+    table = A[None].contiguous()
     # --- main-path shapes: the sine MLP's leaves with the agent axis -----
-    leaves = {name: (K,) + spec.shape
-              for name, spec in SineMLP(SINE_MLP).specs().items()}
+    sine = {name: (K,) + spec.shape
+            for name, spec in SineMLP(SINE_MLP).specs().items()}
     phi = {n: torch.randn(s, generator=gen, device=DEVICE)
-           for n, s in leaves.items()}
-    bufs, _ = diffusion.pack_pytree(phi)          # the pallas backend's pack
-    m_total = sum(int(np.prod(s[1:])) for s in leaves.values())
-    main_combine = [check_combine(ops, ref, A, b, m_total) for b in bufs]
-    widths = {}
-    for s in leaves.values():                     # the fused path's pad
-        m = int(np.prod(s[1:]))
-        widths.setdefault(diffusion.pad_geometry(m)[0], m)
-    for m_pad, m in sorted(widths.items()):
-        for kind in ops.KINDS:
-            for mode in ops.MODES:
-                for gate in (0.0, 1.0):
-                    for S in (1, 4):
-                        check_fused(ops, ref, gen, kind, mode, gate, S, m_pad,
-                                    torch.float32, m_real=m)
-    # one training step's launches, timed together: Adam, ATC, the static
-    # paper graph (S=1), a communication step (gate 1)
-    step_args = []
-    for s in leaves.values():
-        m = int(np.prod(s[1:]))
-        m_pad = diffusion.pad_geometry(m)[0]
-        table, scale, *b = fused_inputs(gen, "adam", 1, K, m_pad,
-                                        torch.float32, m_real=m)
-        table = A[None].contiguous()
-        step_args.append((table, torch.zeros(1, 1, dtype=torch.int32,
-                                             device=DEVICE),
-                          torch.tensor([[1.0, 0.1, 0.001]], device=DEVICE),
-                          scale, *b))
-    hyper = dict(mode="atc", kind="adam", lr=1e-3)
-    main_err = 0.0
-    for a in step_args:
-        for x, y in zip(ops.fused_combine_update(*a, **hyper),
-                        ref.fused_update_ref(*a, **hyper)):
-            main_err = max(main_err, compare(x, y, torch.float32,
-                                             "fused main-path step"))
-    fused_step = dict(
-        max_abs_err=main_err,
-        ms=time_ms(lambda: [ops.fused_combine_update(*a, **hyper)
-                            for a in step_args], 50),
-        plain_ms=time_ms(lambda: [ref.fused_update_ref(*a, **hyper)
-                                  for a in step_args], 50))
-    costs = [fused_cost("adam", "atc", K, a[4].shape[1], 4)
-             for a in step_args]
-    fused_step["bound_ms"], fused_step["bound_by"] = bound_ms(
-        sum(c[0] for c in costs), sum(c[1] for c in costs))
-    print("fused main-path step", json.dumps(fused_step), flush=True)
+           for n, s in sine.items()}
+    main_combine = check_combine_leaves(ops, ref, A, phi,
+                                        "pallas main-path step")
+    for kind in ops.KINDS:
+        for mode in ops.MODES:
+            for S in (1, 4):
+                tab = fused_inputs(gen, kind, S, K, 1, torch.float32)[0]
+                for step in (0, 1, 4 * S + 1):   # gate 0, 1, 1 (every=2)
+                    check_fused_leaves(ops, ref, gen, tab, sine,
+                                       torch.float32, "sine leaves",
+                                       kind=kind, mode=mode, step=step,
+                                       every=2)
+    # one training step's launch: Adam, ATC, the static paper graph (S=1),
+    # the host step as the trainer passes it
+    fused_step = check_fused_leaves(ops, ref, gen, table, sine,
+                                    torch.float32, "fused main-path step",
+                                    kind="adam", mode="atc", step=7,
+                                    timed=True)
 
-    # --- large: K=6, M=2^24 ----------------------------------------------
+    # --- one qwen2-1.5b decoder layer: 12 ragged leaves, 46.8M a agent ---
+    layer = qwen2_layer_shapes()
+    qwen2 = {"dif_combine": [], "fused_combine_update": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        phi = {n: torch.randn(s, generator=gen, device=DEVICE).to(dtype)
+               for n, s in layer.items()}
+        qwen2["dif_combine"].append(check_combine_leaves(
+            ops, ref, A, phi, "qwen2-1.5b layer"))
+        del phi
+        qwen2["fused_combine_update"].append(check_fused_leaves(
+            ops, ref, gen, table, layer, dtype, "qwen2-1.5b layer",
+            kind="adam", mode="atc", step=7, timed=True))
+        torch.cuda.empty_cache()
+
+    # --- large: K=6, M=2^24, the single-buffer interface -------------------
     large = {"dif_combine": [], "fused_combine_update": []}
     for dtype in (torch.float32, torch.bfloat16):
         phi = torch.randn(K, LARGE_M, generator=gen, device=DEVICE).to(dtype)
@@ -468,7 +637,12 @@ def kernels_phase(ops, ref, diffusion, SineMLP, SINE_MLP, paper_A):
                             ops, ref, gen, kind, mode, gate, S, LARGE_M,
                             dtype, timed=True))
         torch.cuda.empty_cache()
-    return main_combine, fused_step, len(step_args), large
+    capture = capture_row(ops, SineMLP, SINE_MLP)
+    ablation = ablate.run()
+    print("ablation", json.dumps(ablation), flush=True)
+    return dict(main_combine=main_combine, fused_step=fused_step,
+                qwen2=qwen2, large=large, capture=capture,
+                ablation=ablation)
 
 
 # ---------------------------------------------------------------------------
@@ -486,7 +660,10 @@ def run_quickstart(quickstart, ops, backend, steps, device=None):
     return out, counts
 
 
-def main_path_phase(quickstart, ops, n_groups, n_leaves):
+def main_path_phase(quickstart, ops, n_groups):
+    """The quickstart with each backend; ``n_groups`` is the sine MLP's
+    dtype groups, each one launch a step of the combine (``pallas``) or of
+    the fused update (``fused``)."""
     runs = {}
     for backend in ("dense", "pallas", "fused"):
         runs[backend] = run_quickstart(quickstart, ops, backend, STEPS)
@@ -495,7 +672,7 @@ def main_path_phase(quickstart, ops, n_groups, n_leaves):
               "pallas": {"dif_combine": STEPS * n_groups,
                          "fused_combine_update": 0},
               "fused": {"dif_combine": 0,
-                        "fused_combine_update": STEPS * n_leaves}}
+                        "fused_combine_update": STEPS * n_groups}}
     ref_loss = runs["dense"][0]["loss"]
     for backend, (out, counts) in runs.items():
         loss, dis = out["loss"], out["disagreement"]
@@ -1766,7 +1943,7 @@ def main() -> int:
               "test needs a CUDA card", file=sys.stderr)
         return 1
     from repro_torch.configs import SINE_MLP, get_config
-    from repro_torch.core import diffusion, topology
+    from repro_torch.core import topology
     from repro_torch.kernels.dif_combine import ops, ref
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention import ref as fref
@@ -1794,10 +1971,11 @@ def main() -> int:
     ssd_calls = ssd_calls_phase(sops)
 
     paper_A = topology.build_topology("paper", K, "metropolis").matrix
-    main_combine, fused_step, n_leaves, large = kernels_phase(
-        ops, ref, diffusion, SineMLP, SINE_MLP, paper_A)
-    launches, ms_per_step = main_path_phase(quickstart, ops,
-                                            len(main_combine), n_leaves)
+    kern = kernels_phase(ops, ref, SineMLP, SINE_MLP, paper_A)
+    sine = SineMLP(SINE_MLP).init(torch.Generator().manual_seed(0),
+                                  device="cpu")
+    n_groups = len({x.dtype for x in sine.values()})
+    launches, ms_per_step = main_path_phase(quickstart, ops, n_groups)
     # phase 6 before phase 5: after phase 5's profile of the training step,
     # torch.profiler sessions miss some kernel launches
     flash_main, flash_rows, flash_gqa, flash_gqa_rows = flash_phase(fops,
@@ -1821,28 +1999,33 @@ def main() -> int:
         dataclasses.replace(get_config("mamba2-130m"), num_layers=2),
         MAMBA_AGREE_RTOL, seq=1024, task_batch=4)
 
-    mc = main_combine[0]
+    mc, fs, large = kern["main_combine"], kern["fused_step"], kern["large"]
     summary = {"kernels": [
+        # library_ms: no one PyTorch call combines a dict of leaves; the
+        # single-buffer rows in "large" carry cuBLAS's time
         {"name": "dif_combine", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES["dif_combine"],
          "launches": launches["pallas"]["dif_combine"],
          "max_abs_err": mc["max_abs_err"], "ms": mc["ms"],
          "plain_ms": mc["plain_ms"], "bound_ms": mc["bound_ms"],
-         "bound_by": mc["bound_by"], "library_ms": mc["library_ms"],
-         "shape": f"(6, {mc['M']}) float32, one launch per step",
-         "large": large["dif_combine"]},
+         "bound_by": mc["bound_by"], "library_ms": None,
+         "shape": f"the {mc['leaves']} sine leaves (K=6, {mc['columns']} "
+                  f"columns), float32, one launch per step",
+         "large": large["dif_combine"],
+         "qwen2_layer": kern["qwen2"]["dif_combine"]},
         {"name": "fused_combine_update", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES["fused_combine_update"],
          "launches": launches["fused"]["fused_combine_update"],
-         "max_abs_err": fused_step["max_abs_err"], "ms": fused_step["ms"],
-         "plain_ms": fused_step["plain_ms"],
-         "bound_ms": fused_step["bound_ms"],
-         "bound_by": fused_step["bound_by"], "library_ms": None,
-         "shape": f"{n_leaves} launches per step (one per sine leaf, "
-                  f"K=6, adam/atc, float32)",
+         "max_abs_err": fs["max_abs_err"], "ms": fs["ms"],
+         "plain_ms": fs["plain_ms"], "bound_ms": fs["bound_ms"],
+         "bound_by": fs["bound_by"], "library_ms": None,
+         "shape": f"the {fs['leaves']} sine leaves (K=6, {fs['columns']} "
+                  f"columns), adam/atc, float32, one launch per step",
          "large": [r for r in large["fused_combine_update"]
                    if r["kind"] == "adam" and r["mode"] == "atc"
-                   and r["gate"] == 1.0 and r["S"] == 1]},
+                   and r["gate"] == 1.0 and r["S"] == 1],
+         "qwen2_layer": kern["qwen2"]["fused_combine_update"],
+         "capture": kern["capture"]},
         *(flash_summary(name, flash_main, serve_row, flash_rows, flash_gqa,
                         flash_gqa_rows, flash_calls)
           for name in ("flash_attention_fwd", "flash_attention_bwd")),
@@ -1851,6 +2034,7 @@ def main() -> int:
     ], "ms_per_step": ms_per_step, "profile": profile, "serve": serve_row,
         "agreement": agreement, "mamba2_serve": mamba_row,
         "mamba2_agreement": mamba_agreement, "hgmma": hgmma,
+        "outer_update_ablation": kern["ablation"],
         "flash_kernels_per_call": flash_calls,
         "seconds": time.perf_counter() - t_start}
     print(card)

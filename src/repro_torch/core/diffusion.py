@@ -23,14 +23,14 @@ Registered backends
                  the rolls of a stacked schedule's :class:`ScheduleIR`
                  (the period's offset union), weights gathered at
                  ``step % S``.
-``pallas``       the ``dif_combine`` kernel over the packed (K, M) layout
-                 of :func:`pack_pytree`.  The name is the JAX package's, so
+``pallas``       the ``dif_combine`` kernel over the leaves as they are, one
+                 launch per dtype group.  The name is the JAX package's, so
                  a ``MetaConfig`` means the same in both packages; on the
                  port it is the hand-written CUDA kernel of
                  :mod:`repro_torch.kernels.dif_combine` (its plain PyTorch
                  version on CPU tensors).
 ``fused``        combine-only face of the fused outer update: the same
-                 packed ``dif_combine`` path, used by the cta pre-mix.  The
+                 ``dif_combine`` path, used by the cta pre-mix.  The
                  trainer runs the real fused update through
                  :mod:`repro_torch.core.fused` (the ``fused_combine_update``
                  CUDA kernel).
@@ -91,11 +91,11 @@ LANE = 128     # padding granularity, kept from the TPU layout for parity
 
 
 def pad_geometry(m: int, block_m: int = 512) -> tuple[int, int]:
-    """``(padded width, tile)`` for ``m`` packed columns — the one padding
-    rule of both kernel paths (``pallas`` packs, ``fused`` pads per leaf):
+    """``(padded width, tile)`` for ``m`` packed columns — the JAX package's
+    padding rule for its Pallas kernels, kept for :func:`pack_pytree`:
     widths up to ``block_m`` round up to a 128 multiple, larger ones to a
     ``block_m`` multiple.  Padded columns are zero and stay zero through
-    both kernels."""
+    both kernels.  The port's kernels take leaves unpadded."""
     unit = LANE if m <= block_m else block_m
     m_pad = -(-m // unit) * unit
     return m_pad, min(m_pad, block_m)
@@ -170,8 +170,9 @@ def no_combine(phi: Params) -> Params:
 
 
 # ---------------------------------------------------------------------------
-# Kernel backend: flatten-to-(K, M) pack/unpack so the dif_combine kernel
-# serves arbitrary param dicts (ragged leaf sizes, mixed dtypes)
+# Kernel backend.  The kernel takes the leaves as they are (ragged widths,
+# mixed dtypes: one launch per dtype group).  pack_pytree keeps the JAX
+# package's flatten-to-(K, M) layout, which its Pallas kernel needs.
 # ---------------------------------------------------------------------------
 
 def pack_pytree(phi: Params, block_m: int = 512
@@ -219,20 +220,16 @@ def pack_pytree(phi: Params, block_m: int = 512
     return buffers, unpack
 
 
-def _kernel_apply(A: torch.Tensor, phi: Params, block_m: int = 512
-                  ) -> Params:
-    """One dif_combine launch per packed dtype group."""
-    from repro_torch.kernels.dif_combine.ops import dif_combine
+def _kernel_apply(A: torch.Tensor, phi: Params) -> Params:
+    """One dif_combine launch per dtype group, every leaf in its shape."""
+    from repro_torch.kernels.dif_combine.ops import dif_combine_leaves
 
-    buffers, unpack = pack_pytree(phi, block_m=block_m)
-    return unpack([dif_combine(A, buf) for buf in buffers])
+    return dif_combine_leaves(A, phi) if phi else {}
 
 
-def make_pallas_combine(A: torch.Tensor, *, block_m: int = 512) -> CombineFn:
-    """The dif_combine kernel over the packed (K, M) layout."""
-    def combine(phi: Params, step=None) -> Params:
-        return _kernel_apply(A, phi, block_m)
-    return combine
+def make_pallas_combine(A: torch.Tensor) -> CombineFn:
+    """The dif_combine kernel over the leaves of ``phi``."""
+    return _stepless(functools.partial(_kernel_apply, A))
 
 
 # ---------------------------------------------------------------------------
@@ -241,9 +238,9 @@ def make_pallas_combine(A: torch.Tensor, *, block_m: int = 512) -> CombineFn:
 
 @dataclasses.dataclass(frozen=True)
 class CombineBackend:
-    """One registered combine implementation: ``build(A=..., device=...,
-    block_m=...)`` returns a ``CombineFn``; a build function ignores the
-    context keys it does not need."""
+    """One registered combine implementation: ``build(A=..., device=...)``
+    returns a ``CombineFn``; a build function ignores the context keys it
+    does not need."""
     name: str
     build: Callable[..., CombineFn]
     needs_matrix: bool = True
@@ -328,18 +325,18 @@ def _build_sparse_host_dynamic(*, A, device, **_ctx) -> CombineFn:
 
 
 @register_backend("pallas")
-def _build_pallas(*, A, device, block_m=512, **_ctx) -> CombineFn:
+def _build_pallas(*, A, device, **_ctx) -> CombineFn:
     At = _matrix(A, device)
     if At.ndim == 3:
-        return _stacked(At, functools.partial(_kernel_apply, block_m=block_m))
-    return make_pallas_combine(At, block_m=block_m)
+        return _stacked(At, _kernel_apply)
+    return make_pallas_combine(At)
 
 
 @register_backend("fused")
-def _build_fused(*, A, device, block_m=512, **_ctx) -> CombineFn:
+def _build_fused(*, A, device, **_ctx) -> CombineFn:
     """Combine-only face of the fused outer backend (the cta pre-mix and
-    direct ``make_combine('fused')`` callers): the packed kernel combine."""
-    return _build_pallas(A=A, device=device, block_m=block_m)
+    direct ``make_combine('fused')`` callers): the kernel combine."""
+    return _build_pallas(A=A, device=device)
 
 
 @register_backend("centralized", needs_matrix=False)
@@ -400,7 +397,7 @@ def resolve_schedule_backend(backend: str, A) -> str:
 
 
 def make_combine(strategy: str, A: np.ndarray | None = None, *,
-                 device=None, block_m: int = 512) -> CombineFn:
+                 device=None) -> CombineFn:
     """Single entry point: build a combine fn from a backend name or 'auto'.
 
     ``A`` may be one ``(K, K)`` matrix or a stacked ``(S, K, K)`` schedule.
@@ -417,7 +414,7 @@ def make_combine(strategy: str, A: np.ndarray | None = None, *,
             f"registered: {combine_backends()}")
     if backend.needs_matrix and A is None:
         raise ValueError(f"{strategy!r} combine needs a matrix A")
-    return backend.build(A=A, device=device, block_m=block_m)
+    return backend.build(A=A, device=device)
 
 
 # ---------------------------------------------------------------------------

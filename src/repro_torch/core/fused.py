@@ -1,21 +1,19 @@
-"""Fused combine-then-update outer step: one kernel launch per leaf (port of
-``repro/core/fused.py``).
+"""Fused combine-then-update outer step: one kernel launch per dtype group
+of the parameter leaves (port of ``repro/core/fused.py``).
 
-One :func:`repro_torch.kernels.dif_combine.ops.fused_combine_update` launch
-per parameter leaf replaces the trainer's unfused ``clip → opt.update →
-strategy.apply`` chain — params, grads and moments are each read once and
-written at most once per step.  The only pre-kernel work is the global-norm
-reduction (the clip scale must exist before any column is updated) and the
-control scalars, which stay on the device: the schedule row ``sel`` is a
-view into a device table of row indices, the CommSchedule gate a view into
-a device ``[0, 1]`` pair chosen by the host-side step, and the Adam bias
-corrections come from the device step counter.  Nothing is read back to
-the host.
-
-Leaves are flattened to (K, m) and zero-padded by
-:func:`repro_torch.core.diffusion.pad_geometry` — the same rule the packed
-``pallas`` path uses; the kernel keeps padded columns at zero, and the pad
-is sliced off on the way out.
+One :func:`repro_torch.kernels.dif_combine.ops.fused_combine_update_leaves`
+call replaces the trainer's unfused ``clip → opt.update → strategy.apply``
+chain — params, grads and moments are each read once and written once per
+step, every leaf in its own shape (no padding, no packing).  The reference
+launches per leaf because XLA fuses a step into one program; eager PyTorch
+does not, so the port's kernel walks all leaves of a dtype in one launch.
+The only pre-kernel work is the global-norm reduction (the clip scale must
+exist before any column is updated).  The control stays on the device: the
+kernel derives the schedule row ``step % S``, the CommSchedule gate and the
+Adam bias corrections from the step (a host int, passed in the launch's
+parameters, or a 0-d device tensor) and the optimizer's device step count,
+so nothing is read back to the host and a CUDA graph can capture the call
+with the step as a device tensor that the graph advances.
 
 Qualification (:func:`fused_unsupported_reason`): the optimizer must carry
 a :class:`repro_torch.optim.FusedSpec` and the strategy must be one of
@@ -26,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.diffusion import Params, pad_geometry
+from repro_torch.core.diffusion import Params
 from repro_torch.device import resolve_device
 from repro_torch.optim import global_norm_scale
 from repro_torch.optim.optimizers import AdamState, MomentumState, Optimizer
@@ -52,17 +50,18 @@ def fused_unsupported_reason(opt: Optimizer, strategy: str) -> str | None:
 
 def make_fused_outer(opt: Optimizer, strategy: str, comm, A,
                      *, grad_clip: float | None = None,
-                     num_agents: int | None = None, block_m: int = 512,
-                     device=None):
+                     num_agents: int | None = None, device=None):
     """Build ``outer(params, grads, opt_state, step) -> (params, opt_state)``
     — the fused replacement for the trainer's post-gradient block.
 
     ``comm``: a :class:`repro_torch.core.update.CommSchedule`; ``A``: one
     (K, K) matrix or a stacked (S, K, K) schedule (ignored for local-mode
-    strategies); ``step`` is the host-side step counter.  Raises
+    strategies); ``step`` is the schedule step, a host int or a 0-d int
+    tensor on the device.  Raises
     ``ValueError`` when (opt, strategy) do not qualify.
     """
-    from repro_torch.kernels.dif_combine.ops import fused_combine_update
+    from repro_torch.kernels.dif_combine.ops import \
+        fused_combine_update_leaves
 
     reason = fused_unsupported_reason(opt, strategy)
     if reason is not None:
@@ -91,68 +90,78 @@ def make_fused_outer(opt: Optimizer, strategy: str, comm, A,
         raise ValueError(
             f"combination table is over K={K} agents but the trainer runs "
             f"num_agents={num_agents}")
-    S = table.shape[0]
     tab = torch.as_tensor(table, device=device)
-    sel_rows = torch.arange(S, dtype=torch.int32,
-                            device=device).reshape(S, 1, 1)
-    gates = torch.tensor([0.0, 1.0], dtype=torch.float32, device=device)
-    ones = torch.ones((K, 1), dtype=torch.float32, device=device)
     hyper = dict(mode=mode, kind=spec.kind, lr=spec.lr, b1=spec.b1,
                  b2=spec.b2, eps=spec.eps, weight_decay=spec.weight_decay,
                  beta=spec.beta)
 
-    def outer(params: Params, grads: Params, opt_state, step: int):
+    def outer(params: Params, grads: Params, opt_state, step):
+        scale = None
         if grad_clip is not None:      # 0.0 is a valid (total) clip
             scale = torch.func.vmap(
                 lambda g: global_norm_scale(g, grad_clip))(grads)
             scale = scale.reshape(K, 1).float()
-        else:
-            scale = ones
-        sel = sel_rows[step % S]
-        gate = gates[int(mode != "local" and comm.is_comm_step(step))]
         if spec.kind == "adam":
-            t = (opt_state.step + 1).float()
-            bc1, bc2 = 1 - spec.b1 ** t, 1 - spec.b2 ** t
-        else:
-            bc1 = bc2 = gates[1]
-        ctl = torch.stack([gate, bc1, bc2]).reshape(1, 3)
-
-        if spec.kind == "adam":
-            mom_trees = (opt_state.mu, opt_state.nu)
+            moments = dict(mu=opt_state.mu, nu=opt_state.nu,
+                           count=opt_state.step)
         elif spec.kind == "momentum":
-            mom_trees = (opt_state.velocity,)
+            moments = dict(mu=opt_state.velocity)
         else:
-            mom_trees = ()
-
-        def leaf(p, g, *ms):
-            m = int(np.prod(p.shape[1:], dtype=np.int64))
-            m_pad, _ = pad_geometry(m, block_m)
-
-            def prep(x):
-                x = x.reshape(K, m)
-                if m_pad != m:
-                    x = torch.nn.functional.pad(x, (0, m_pad - m))
-                return x.contiguous()
-
-            outs = fused_combine_update(tab, sel, ctl, scale, prep(p),
-                                        prep(g), *(prep(x) for x in ms),
-                                        **hyper)
-            # absent moment outputs (None) fall off the end of the zip
-            return tuple(o[:, :m].reshape(ref.shape)
-                         for o, ref in zip(outs, (p,) + ms))
-
-        results = {k: leaf(p, grads[k], *(t[k] for t in mom_trees))
-                   for k, p in params.items()}
-        new_params = {k: r[0] for k, r in results.items()}
+            moments = {}
+        new_params, mu, nu = fused_combine_update_leaves(
+            tab, scale, params, grads, step=step, every=comm.every,
+            **moments, **hyper)
         if spec.kind == "adam":
-            new_state = AdamState(
-                opt_state.step + 1,
-                {k: r[1] for k, r in results.items()},
-                {k: r[2] for k, r in results.items()})
+            new_state = AdamState(opt_state.step + 1, mu, nu)
         elif spec.kind == "momentum":
-            new_state = MomentumState({k: r[1] for k, r in results.items()})
+            new_state = MomentumState(mu)
         else:
             new_state = opt_state
         return new_params, new_state
 
     return outer
+
+
+def _tensors(tree) -> list[torch.Tensor]:
+    """The tensors of a nest of dicts, tuples and named tuples, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in _tensors(v)]
+    return []
+
+
+def capture_outer(outer, params: Params, grads: Params, opt_state,
+                  step: torch.Tensor):
+    """Capture one ``outer(params, grads, opt_state, step)`` call in a CUDA
+    graph.  Each replay reads ``grads`` from their buffers, writes the new
+    params and optimizer state into the tensors of ``params`` and
+    ``opt_state``, and advances ``step`` (a 0-d int tensor on the card) by
+    one, so the schedule row, the gate and the bias corrections of each
+    replay are the step's.  Returns ``replay()``."""
+    if not (isinstance(step, torch.Tensor) and step.numel() == 1
+            and step.device.type == "cuda"):
+        raise ValueError("capture_outer needs the step as a 0-d tensor on "
+                         "the card")
+    state = _tensors(opt_state)
+
+    def body():
+        new_params, new_state = outer(params, grads, opt_state, step)
+        for k, p in params.items():
+            p.copy_(new_params[k])
+        for old, new in zip(state, _tensors(new_state)):
+            if new is not old:
+                old.copy_(new)
+        step.add_(1)
+
+    side = torch.cuda.Stream(step.device)
+    side.wait_stream(torch.cuda.current_stream(step.device))
+    with torch.cuda.stream(side):       # build, load and warm the kernels
+        outer(params, grads, opt_state, step)
+    torch.cuda.current_stream(step.device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body()
+    return graph.replay

@@ -157,7 +157,7 @@ def make_meta_step(
     fused_outer = None
     if uc.backend == "fused":
         # one-pass combine-then-update: clip scale, moments, launch-model
-        # mix all happen inside one kernel launch per leaf
+        # mix all happen inside one kernel launch per dtype group
         from repro_torch.core.fused import make_fused_outer
         if A is None and strategy.needs_combine_fn:
             A = schedule_for(cfg).stacked()

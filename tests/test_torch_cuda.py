@@ -95,6 +95,222 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda):
                         torch.ones(128, 2, device=cuda).t())
 
 
+
+# Grouped kernels: ragged leaves (rows of m = 1 and 1001 are not 16-byte
+# aligned and are read element by element), a misaligned view, mixed dtypes
+# in one dict.
+# ``big`` adds two wide leaves, so that the launch takes the TMA ring
+# (more tiles than two a block) with the ragged leaves among its tiles.
+def _ragged_leaves(gen, K, cuda, dtypes=DTYPES, big=False):
+    leaves = {}
+    for dt in dtypes:
+        name = str(dt).split(".")[-1]
+        for m in (1, 40, 1001, 1600, 4096) + ((1 << 19, 300001) if big
+                                                 else ()):
+            leaves[f"{name}_{m}"] = torch.randn(K, m, generator=gen).to(
+                cuda, dt)
+        leaves[f"{name}_3d"] = torch.randn(K, 40, 40, generator=gen).to(
+            cuda, dt)
+        # contiguous, but 4 bytes past an aligned start
+        flat = torch.randn(K * 1600 + 2, generator=gen).to(cuda, dt)
+        leaves[f"{name}_misaligned"] = flat[2:].view(K, 1600)
+    return leaves
+
+
+def _assert_leaves_close(got, want):
+    assert list(got) == list(want)
+    for k, w in want.items():
+        assert got[k].shape == w.shape and got[k].dtype == w.dtype, k
+        torch.testing.assert_close(got[k].float(), w.float(),
+                                   **TOL[w.dtype], msg=k)
+
+
+RING = pytest.mark.parametrize("big", [False, True],
+                               ids=["direct", "ring"])
+
+
+@pytest.mark.requires_cuda
+@RING
+@pytest.mark.parametrize("K", [6, ops.MAX_AGENTS], ids=["K6", "K64"])
+def test_cuda_dif_combine_leaves_match_plain_version(cuda, K, big):
+    """One launch per dtype group over ragged, misaligned and 3-d leaves."""
+    gen = torch.Generator().manual_seed(1)
+    A = torch.rand(K, K, generator=gen).to(cuda)
+    leaves = _ragged_leaves(gen, K, cuda, big=big)
+    before = ops.launch_counts["dif_combine"]
+    got = ops.dif_combine_leaves(A, leaves)
+    assert ops.launch_counts["dif_combine"] == before + 2
+    _assert_leaves_close(got, ref.dif_combine_leaves_ref(A, leaves))
+    torch.cuda.synchronize()
+
+
+def _fused_leaf_inputs(gen, kind, K, cuda, dtypes=DTYPES, big=False):
+    params = _ragged_leaves(gen, K, cuda, dtypes, big)
+    grads = {k: torch.randn(p.shape, generator=gen).to(cuda, p.dtype)
+             for k, p in params.items()}
+    mu = nu = None
+    if kind == "adam":
+        mu = {k: 0.1 * torch.randn(p.shape, generator=gen).to(cuda)
+              for k, p in params.items()}
+        nu = {k: 0.01 * torch.rand(p.shape, generator=gen).to(cuda)
+              for k, p in params.items()}
+    elif kind == "momentum":
+        mu = {k: torch.randn(p.shape, generator=gen).to(cuda, p.dtype)
+              for k, p in params.items()}
+    return params, grads, mu, nu
+
+
+@pytest.mark.requires_cuda
+@RING
+@pytest.mark.parametrize("mode", ops.MODES)
+@pytest.mark.parametrize("kind", ops.KINDS)
+def test_cuda_fused_leaves_match_plain_version(cuda, kind, mode, big):
+    """Each step of a 3-row schedule with every=2: the kernel derives the
+    row, the gate and the bias corrections from the step (host int and
+    device tensor) as the plain version does, one launch per dtype."""
+    gen = torch.Generator().manual_seed(2)
+    K, S = 6, 3
+    table = torch.rand(S, K, K, generator=gen).to(cuda)
+    scale = torch.rand(K, 1, generator=gen).to(cuda)
+    params, grads, mu, nu = _fused_leaf_inputs(gen, kind, K, cuda, big=big)
+    count = torch.tensor(4, dtype=torch.int32, device=cuda)
+    hyper = dict(mode=mode, kind=kind, lr=1e-2, every=2,
+                 weight_decay=0.01 * (kind == "adam"),
+                 count=count if kind == "adam" else None)
+    for step in (0, 1, 2, 5):
+        for s in (step, torch.tensor(step, device=cuda),
+                  torch.tensor(step, dtype=torch.int32, device=cuda)):
+            before = ops.launch_counts["fused_combine_update"]
+            got = ops.fused_combine_update_leaves(
+                table, scale, params, grads, mu, nu, step=s, **hyper)
+            assert ops.launch_counts["fused_combine_update"] == before + 2
+            want = ref.fused_update_leaves_ref(table, scale, params, grads,
+                                               mu, nu, step=step, **hyper)
+            for g, w in zip(got, want):
+                assert (g is None) == (w is None)
+                if w is not None:
+                    _assert_leaves_close(g, w)
+    torch.cuda.synchronize()
+
+
+SENTINEL = -65536.0          # exact in bf16; far from any output here
+
+
+def _sentinel_views(tree, cuda):
+    """Same-shaped views into one buffer of SENTINEL, each starting 16 or
+    more elements past the last one's end, on a 16-element boundary (so the
+    aligned leaves keep their bulk path)."""
+    starts, end = [], 0
+    for x in tree.values():
+        starts.append(-(-(end + 16) // 16) * 16)
+        end = starts[-1] + x.numel()
+    buf = torch.full((end + 16,), SENTINEL, device=cuda,
+                     dtype=next(iter(tree.values())).dtype)
+    views = {k: buf[s:s + x.numel()].view(x.shape)
+             for (k, x), s in zip(tree.items(), starts)}
+    return buf, views
+
+
+def _assert_only_views_written(buf, views):
+    inside = torch.zeros(buf.numel(), dtype=torch.bool, device=buf.device)
+    for v in views.values():
+        start = (v.data_ptr() - buf.data_ptr()) // buf.element_size()
+        inside[start:start + v.numel()] = True
+    assert bool((buf[~inside] == SENTINEL).all())
+    for k, v in views.items():
+        assert not bool((v == SENTINEL).any()), k
+
+
+@pytest.mark.requires_cuda
+@RING
+@pytest.mark.parametrize("kind", ops.KINDS)
+def test_cuda_grouped_kernels_write_nothing_past_a_leaf(cuda, kind, big):
+    """Outputs laid out in one buffer with sentinels between the leaves: the
+    kernels write every element of each leaf and none of the sentinels."""
+    gen = torch.Generator().manual_seed(3)
+    K = 6
+    table = torch.rand(1, K, K, generator=gen).to(cuda)
+    for dtype in DTYPES:
+        params, grads, mu, nu = _fused_leaf_inputs(gen, kind, K, cuda,
+                                                   [dtype], big)
+        laid = [None if t is None else _sentinel_views(t, cuda)
+                for t in (params, mu, nu)]
+        outs = tuple(None if x is None else x[1] for x in laid)
+        count = torch.tensor(2, dtype=torch.int32, device=cuda)
+        ops._fused_into(table, None, params, grads, mu, nu, outs,
+                        (None, None, None, 1, 0, count, 1), mode="atc",
+                        kind=kind, lr=1e-2, b1=0.9, b2=0.999, eps=1e-8,
+                        weight_decay=0.0, beta=0.9)
+        combined = _sentinel_views(params, cuda)
+        ops._combine_launch(table[0], params, combined[1])
+        torch.cuda.synchronize()
+        for x in [*laid, combined]:
+            if x is not None:
+                _assert_only_views_written(*x)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_grouped_wrappers_raise_instead_of_falling_back(cuda):
+    K = ops.MAX_AGENTS + 1
+    with pytest.raises(ValueError, match="exceeds"):
+        ops.dif_combine_leaves(torch.eye(K, device=cuda),
+                               {"a": torch.ones(K, 8, device=cuda)})
+    half = {"a": torch.ones(2, 8, device=cuda),
+            "b": torch.ones(2, 8, device=cuda, dtype=torch.float16)}
+    with pytest.raises(ValueError, match="not supported"):
+        ops.dif_combine_leaves(torch.eye(2, device=cuda), half)
+    with pytest.raises(ValueError, match="not supported"):
+        ops.fused_combine_update_leaves(
+            torch.eye(2, device=cuda)[None], None, half, half, step=0,
+            kind="sgd", lr=0.1)
+    big = {"a": torch.ones(K, 8, device=cuda)}
+    with pytest.raises(ValueError, match="exceeds"):
+        ops.fused_combine_update_leaves(
+            torch.eye(K, device=cuda)[None], None, big, big, step=0,
+            kind="sgd", lr=0.1)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind", ["adam", "momentum"])
+def test_cuda_graph_replay_of_the_fused_outer_update_equals_eager(cuda,
+                                                                  kind):
+    """12 replays of one captured outer update (combine_every=2, a 3-row
+    link-failure schedule, clip 1.0) against 12 eager calls with a host
+    step: the graph advances the device step, and the kernel reads the
+    row, the gate and the bias corrections from it."""
+    from repro_torch.core import fused, topology, update
+    from repro_torch.optim import get_optimizer
+
+    gen = torch.Generator().manual_seed(4)
+    K = 6
+    A = topology.make_schedule(
+        "link_failure", topology.build_topology("paper", K, "metropolis"),
+        p=0.2, period=3, seed=0).stacked()
+    opt = get_optimizer(kind, 1e-2)
+    outer = fused.make_fused_outer(opt, "atc", update.CommSchedule(2), A,
+                                   grad_clip=1.0, num_agents=K, device=cuda)
+    params = {"w": torch.randn(K, 40, 40, generator=gen).to(cuda),
+              "b": torch.randn(K, 1, generator=gen).to(cuda)}
+    grads = {k: torch.zeros_like(p) for k, p in params.items()}
+    eager_p, eager_s = ({k: p.clone() for k, p in params.items()},
+                        opt.init(params))
+    graph_p = {k: p.clone() for k, p in params.items()}
+    graph_s = opt.init(graph_p)
+    step = torch.zeros((), dtype=torch.int64, device=cuda)
+    replay = fused.capture_outer(outer, graph_p, grads, graph_s, step)
+    for i in range(12):
+        for g in grads.values():
+            g.copy_(torch.randn(g.shape, generator=gen).to(cuda))
+        eager_p, eager_s = outer(eager_p, grads, eager_s, i)
+        replay()
+    torch.cuda.synchronize()
+    assert int(step) == 12
+    for k in params:
+        torch.testing.assert_close(graph_p[k], eager_p[k],
+                                   **TOL[torch.float32])
+    for a, b in zip(fused._tensors(graph_s), fused._tensors(eager_s)):
+        torch.testing.assert_close(a, b, **TOL[torch.float32])
+
 # flash attention against attention_ref, its autograd gradient and the plain
 # backward.  float32: a blocked online softmax sums in another order;
 # bfloat16: both round float32 results to bf16 (two ulps, rtol), plus an

@@ -42,14 +42,19 @@ def episodes():
     return [src.sample(i) for i in range(STEPS)]
 
 
-def _jax_run(backend, episodes):
+def _jax_run(backend, episodes, strategy="atc", opt="adam", schedule=None,
+             combine_every=1, grad_clip=None):
     model = JaxMLP(jax_config("sine_mlp"))
+    topo = (jcore.TopologyConfig(graph="paper") if schedule is None else
+            jcore.TopologyConfig(graph="paper", schedule=schedule,
+                                 period=3))
     mcfg = jcore.MetaConfig(
         num_agents=6, tasks_per_agent=5, inner_lr=0.01,
-        outer_optimizer="adam", outer_lr=1e-3,
-        update_config=jcore.UpdateConfig(strategy="atc", inner="maml",
-                                         backend=backend),
-        topology_config=jcore.TopologyConfig(graph="paper"))
+        outer_optimizer=opt, outer_lr=1e-3, grad_clip=grad_clip,
+        update_config=jcore.UpdateConfig(strategy=strategy, inner="maml",
+                                         backend=backend,
+                                         combine_every=combine_every),
+        topology_config=topo)
     state = jcore.init_state(jax.random.key(0), model.init, mcfg,
                              identical_init=True)
     init = (_np(state.params), _np(state.opt_state))
@@ -116,6 +121,58 @@ def test_slice_matches_reference(backend, episodes, jax_dense):
         np.testing.assert_allclose(p.numpy(), want[k].numpy(), rtol=0,
                                    atol=PARAMS_ATOL, err_msg=k)
     assert int(state.opt_state.step) == STEPS
+
+
+# Strategy, backend, optimizer and schedule cases the slice test above does
+# not reach, each against repro.core.make_meta_step from one transferred
+# init and one episode stream (4 steps).  The outer step runs through the
+# paths the kernels' plain versions serve on CPU (pallas: the grouped
+# combine; fused: the grouped update with the gate and row from the step;
+# cta: the pre-combine) and the host-side combines.  Observed: loss within
+# 2.2e-7 relative, params within 2.2e-8 absolute.
+REF_CASES = {
+    "cta-dense": dict(strategy="cta"),
+    "consensus-dense": dict(strategy="consensus"),
+    "none-dense": dict(strategy="none"),
+    "centralized-dense": dict(strategy="centralized"),
+    "atc-sparse_host": dict(backend="sparse_host"),
+    "atc-sparse_host_dynamic-link_failure": dict(
+        backend="sparse_host_dynamic", schedule="link_failure"),
+    "atc-sparse_host_dynamic-gossip": dict(backend="sparse_host_dynamic",
+                                           schedule="gossip"),
+    "atc-sparse_host_dynamic-round_robin": dict(
+        backend="sparse_host_dynamic", schedule="round_robin"),
+    "atc-sgd": dict(opt="sgd"),
+    "atc-momentum": dict(opt="momentum"),
+    "atc-adamw": dict(opt="adamw"),
+    "atc-clip-every2": dict(grad_clip=1.0, combine_every=2),
+    "cta-pallas": dict(strategy="cta", backend="pallas"),
+    "cta-fused-every2": dict(strategy="cta", backend="fused",
+                             combine_every=2),
+    "consensus-fused-momentum-link_failure-every2-clip": dict(
+        strategy="consensus", backend="fused", opt="momentum",
+        schedule="link_failure", combine_every=2, grad_clip=1.0),
+    "atc-fused-adamw-gossip-every2": dict(
+        backend="fused", opt="adamw", schedule="gossip", combine_every=2),
+}
+REF_LOSS_RTOL = 1e-6
+REF_PARAMS_ATOL = 1e-7
+
+
+@pytest.mark.parametrize("case", list(REF_CASES))
+def test_meta_step_matches_reference(case, episodes):
+    kw = dict(dict(backend="dense"), **REF_CASES[case])
+    init, jl, jd, jp = _jax_run(episodes=episodes[:4], **kw)
+    schedule = kw.pop("schedule", None)
+    topo = (TopologyConfig() if schedule is None else
+            TopologyConfig(schedule=schedule, period=3))
+    tl, td, state = _port_run(kw.pop("backend"), init, episodes[:4],
+                              topo=topo, **kw)
+    np.testing.assert_allclose(tl, jl, rtol=REF_LOSS_RTOL)
+    want = from_jax_params(jp, "cpu")
+    for k, p in state.params.items():
+        np.testing.assert_allclose(p.numpy(), want[k].numpy(), rtol=0,
+                                   atol=REF_PARAMS_ATOL, err_msg=k)
 
 
 STRATEGIES = ["atc", "consensus", "cta", "none", "centralized"]
