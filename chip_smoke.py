@@ -68,11 +68,12 @@ Phases, each fatal on failure:
                 cold L2 (64 MB written between calls) are printed beside
                 the warm ones.  This phase runs before phase 5.
 7. serve     -- runs ``python -m repro_torch.launch.serve --arch qwen2-1.5b``
-                at full width (28 layers, bfloat16, fresh init from seed 0;
-                4 users x 4 sequences x 256 tokens, 2 adapt steps, 2 rounds,
-                128 prompt + 128 generated tokens).  The flash launch
-                counters, zeroed just before, must show 28 x 2 forward and
-                2 x 28 x 2 backward launches (one adapt dispatch; the
+                at full width cut to 8 of its 28 layers (``--layers 8``;
+                bfloat16, fresh init from seed 0; 4 users x 4 sequences x
+                256 tokens, 2 adapt steps, 2 rounds, 128 prompt + 128
+                generated tokens).  The flash launch counters, zeroed just
+                before, must show 8 x 2 forward and 2 x 8 x 2 backward
+                launches (one adapt dispatch; the
                 backward is a dK/dV and a dQ kernel); round 1 has 4
                 misses and round 2 4 hits; every adapted leaf is finite; each
                 user's support loss falls with adaptation; 256 tokens come
@@ -127,6 +128,46 @@ Phases, each fatal on failure:
 11. mamba2 agreement -- phase 8 for mamba2-130m cut to 2 layers at full
                 width, one episode of 4 x 1024 tokens: float32 within 1e-4
                 relative, bfloat16 within 1e-3.
+12. tangents -- holds the forward-mode tangent kernels against
+                ``torch.func.jvp`` of their plain versions: T1 (flash
+                forward tangent) and T2 (flash backward tangent, two
+                launches) over phase 6's sweep (B=2, H=4, S in {128, 256,
+                1024} x d in {64, 128} x three masks x two dtypes) and the
+                qwen2 model layout at the training shape (B=16, S=256,
+                H=12, KV=2, d=128, causal); T3 (the SSD scan's tangent)
+                over phase 9's grid, a ragged row with two groups and A per
+                sequence, the mamba2 training shape (8 sequences of 512, A
+                per sequence) and the serving shape, with planted faults
+                (the tangent state not carried, a chunk's rows zeroed, C'
+                dropped) that must fail; bf16 and f32.  Prints each timed
+                kernel's ms, the plain version's ms and the bound.  Runs
+                before phase 5, as phase 6.
+13. mamba2 training -- this slice's main path: ``launch.train.main`` in
+                this process on mamba2-130m at full width (24 layers,
+                bf16, fresh init from seed 0), K=4 agents on the ring,
+                exact MAML, ``--fused-outer``, a registered 512-token shape
+                with global batch 16 (2 tasks x 1 sequence an agent), 4
+                steps in dispatches of 2, eval every 2 steps (4 tasks, 1
+                adaptation step), a checkpoint every 2; the launch counters
+                are zeroed just before and read just after, and the SSD
+                kernels, T3 and the fused update must have launched; the
+                losses are finite, the disagreement falls, the run log
+                passes ``scripts/check_run_log.py --expect-fused``.  Then a
+                second run from the step-2 checkpoint alone must reach the
+                uninterrupted step-4 loss within 1e-3, and one meta-step of
+                the final state is profiled (device time split, idle share,
+                peak memory, T3 launched).
+14. qwen2 training -- the same for qwen2-1.5b at full width cut to 2
+                layers, ``--combine pallas``, 256 tokens, 2 steps: the
+                flash kernels, T1, T2 and ``dif_combine`` must launch.
+15. training agreement -- one ``maml`` and one ``fomaml`` meta-gradient of
+                each 2-layer cut (one agent, one task of one sequence) on
+                the card and on the CPU in the same dtype: the loss within
+                phase 8's / 11's limits, the meta-gradient within 1e-3
+                (f32) / 5e-2 (bf16) of the CPU's norm, its curvature part
+                (maml - fomaml) within 1e-2 / 0.3 and at least half the
+                CPU's norm (over all leaves, and per leaf for leaves whose
+                CPU norm is at least 1% of the largest).
 
 The last two lines of standard output are the kernels' numbers and the
 device, as JSON.  Without a CUDA card the script exits 1 before any result.
@@ -215,7 +256,11 @@ FLASH_MAIN = dict(B=16, H=12, S=256, d=128, dtype=torch.bfloat16,
 FLASH_GQA_MAIN = dict(B=16, S=256, H=12, KV=2, d=128, dtype=torch.bfloat16,
                       causal=True, window=None)
 FLUSH_BYTES = 64 << 20           # written between launches for a cold L2
-SERVE_ARGS = ["--arch", "qwen2-1.5b", "--batch", "4", "--prompt-len", "128",
+# qwen2-1.5b serves at full width cut to 8 of its 28 layers, to keep the
+# script well inside its time limit (PERF.md §4: on an H100 the whole
+# script took 886 s with 28 layers, 784 s with 8).
+SERVE_ARGS = ["--arch", "qwen2-1.5b", "--layers", "8", "--batch", "4",
+              "--prompt-len", "128",
               "--gen", "128", "--adapt-steps", "2", "--users", "4",
               "--rounds", "2", "--seed", "0"]
 # Losses of the 2-layer model on the card (kernels) against a CPU run
@@ -1884,6 +1929,607 @@ def flash_summary(name, main, serve_row, rows, gqa, gqa_rows,
                                    for r in rows + gqa_rows)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the forward-mode tangent kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# T1-T3 against torch.func.jvp of their plain versions: float32 within 1e-4
+# of the output's largest |value| (the same products summed in another
+# order; the plain backward sums in float64); bfloat16 within one rounding
+# of it (2^-8) plus the output's own rounding (rtol 1.6e-2): a tangent that
+# is exactly 0 in the plain version (a row that sees one key) is a rounding
+# residue of the kernel's float32 sums.
+TANGENT_TOL = {torch.float32: (0.0, 1e-4),
+               torch.bfloat16: (1.6e-2, 2.0 ** -8)}
+TANGENTS = ("flash_attention_fwd_tangent", "flash_attention_bwd_tangent",
+            "ssd_scan_tangent")
+# The mamba2 training path's scan: 4 agents x 2 tasks x 1 sequence of 512
+# tokens folded into one batch, chunk 256.
+SSD_TRAIN = dict(B=8, L=512, H=24, P=64, N=128, G=1, chunk=256)
+
+
+def tangent_outside(got, want) -> tuple[int, float]:
+    rtol, rel = TANGENT_TOL[want.dtype]
+    g, w = got.detach().float(), want.detach().float()
+    err = (g - w).abs()
+    limit = rtol * w.abs() + rel * w.abs().max()
+    bad = int((err > limit).sum()) + int((~torch.isfinite(g)).sum())
+    return bad, float(err.max()) if err.numel() else 0.0
+
+
+def check_tangent(got, want, what: str) -> float:
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype} vs "
+                             f"{tuple(want.shape)} {want.dtype}")
+    bad, err = tangent_outside(got, want)
+    if bad:
+        raise AssertionError(f"{what}: {bad} elements outside "
+                             f"{TANGENT_TOL[want.dtype]} (max abs err "
+                             f"{err:.3e})")
+    return err
+
+
+def flash_tangent_cost(B, H, KV, S, d, itemsize, pairs, backward
+                       ) -> tuple[float, float]:
+    """(bytes, flops) of T1 or T2, each input read once and each output
+    written once.  T1: q, q', o' (H heads) and k, k', v, v' (KV heads),
+    lse in and lse' out (float32); 6d multiply-adds a pair a head (s, s'
+    twice, P V, P s' V, P V').  T2: q, o, dO, q', o', dO', dq' and k, v,
+    k', v', dk', dv', lse and lse' in; 12d a pair (s, s' twice, dP, dP'
+    twice, dq' twice, dk' twice, dv' twice).  ``pairs``: the allowed
+    (query, key) pairs of one head."""
+    qb, kb, rows = B * S * H * d * itemsize, B * S * KV * d * itemsize, \
+        4 * B * H * S
+    if backward:
+        return 7 * qb + 6 * kb + 2 * rows, 24.0 * d * pairs * B * H
+    return 3 * qb + 4 * kb + 2 * rows, 12.0 * d * pairs * B * H
+
+
+def check_flash_tangents(fops, fref, gen, heads_dim, shape, dtype, causal,
+                         window, timed=False) -> dict:
+    """T1 and T2 at one shape against their plain versions (one and two
+    launches); with ``timed``, the kernels' and plain versions' times and
+    the bounds."""
+    from repro_torch.kernels.flash_attention.ref import band_mask
+    if heads_dim == 1:
+        B, H, S, d = shape
+        KV, qs = H, shape
+        ks = qs
+    else:
+        B, S, H, KV, d = shape
+        qs, ks = (B, S, H, d), (B, S, KV, d)
+    mk = lambda s: torch.randn(s, generator=gen, device=DEVICE).to(dtype)
+    q, tq, do, tdo = (mk(qs) for _ in range(4))
+    k, v, tk, tv = (mk(ks) for _ in range(4))
+    fwd = fref.flash_fwd_ref if heads_dim == 1 else fref.gqa_flash_fwd_ref
+    out, lse = fwd(q, k, v, causal=causal, window=window)
+    kw = dict(causal=causal, window=window, heads_dim=heads_dim)
+    what = (f"tangent {'bhsd' if heads_dim == 1 else 'gqa'} {shape} "
+            f"{str(dtype)[6:]} causal={causal} window={window}")
+    t1 = lambda: fops.flash_attention_fwd_tangent(q, k, v, lse, tq, tk, tv,
+                                                  **kw)
+    (to, tlse), n1 = counted(fops, "flash_attention_fwd_tangent", t1)
+    want_to, want_tlse = fref.flash_fwd_tangent_ref(q, k, v, tq, tk, tv,
+                                                    **kw)
+    e1 = max(check_tangent(to, want_to, what + " o'"),
+             check_tangent(tlse, want_tlse, what + " lse'"))
+    t2 = lambda: fops.flash_attention_bwd_tangent(
+        q, k, v, out, lse, do, tq, tk, tv, want_to, want_tlse, tdo, **kw)
+    grads, n2 = counted(fops, "flash_attention_bwd_tangent", t2)
+    wants = fref.flash_bwd_tangent_ref(q, k, v, out, lse, do, tq, tk, tv,
+                                       want_to, want_tlse, tdo, **kw)
+    e2 = max(check_tangent(g, w, f"{what} {n}'")
+             for g, w, n in zip(grads, wants, ("dq", "dk", "dv")))
+    if (n1, n2) != (1, 2):
+        raise AssertionError(f"{what}: {n1} and {n2} launches, expected 1 "
+                             f"and 2")
+    row = dict(layout="bhsd" if heads_dim == 1 else "gqa", shape=list(shape),
+               dtype=str(dtype)[6:], causal=causal, window=window,
+               fwd_max_abs_err=e1, bwd_max_abs_err=e2)
+    if timed:
+        pairs = int(band_mask(S, S, causal, window).sum())
+        rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else \
+            FP32_FLOP_PER_S
+        for p, fn, plain, n in (
+                ("fwd", t1, lambda: fref.flash_fwd_tangent_ref(
+                    q, k, v, tq, tk, tv, **kw), 20),
+                ("bwd", t2, lambda: fref.flash_bwd_tangent_ref(
+                    q, k, v, out, lse, do, tq, tk, tv, want_to, want_tlse,
+                    tdo, **kw), 10)):
+            nbytes, flops = flash_tangent_cost(B, H, KV, S, d,
+                                               q.element_size(), pairs,
+                                               p == "bwd")
+            row[f"{p}_ms"] = time_ms(fn, n)
+            row[f"{p}_plain_ms"] = time_events(plain, 3)
+            row[f"{p}_bound_ms"], row[f"{p}_bound_by"] = bound_ms(
+                nbytes, flops, rate)
+        print(f"{what}: T1 {row['fwd_ms']:.4f} ms (plain "
+              f"{row['fwd_plain_ms']:.3f}, bound {row['fwd_bound_ms']:.4f} "
+              f"{row['fwd_bound_by']}), T2 {row['bwd_ms']:.4f} ms (plain "
+              f"{row['bwd_plain_ms']:.3f}, bound {row['bwd_bound_ms']:.4f} "
+              f"{row['bwd_bound_by']}); errs {e1:.2e} {e2:.2e}", flush=True)
+    return row
+
+
+def ssd_tangent_cost(B, L, H, P, N, G, chunk, itemsize
+                     ) -> tuple[float, float]:
+    """(bytes, flops) of T3: x, x', B, B', C, C' read and y' written in the
+    working dtype, dt, dt', A, A' read and the state's tangent written in
+    float32; per (b, chunk) the causal halves of C.B^T, C'.B^T and C.B'^T
+    once per group (3c(c+1)N), and per head the causal halves of the two
+    products with x and x' (2c(c+1)P) and the six (P x N) x c products of
+    the entering states and the state update (12cPN)."""
+    c = chunk
+    nbytes = ((3 * B * L * H * P + 4 * B * L * G * N) * itemsize
+              + 4 * (2 * B * L * H + 2 * B * H + B * H * P * N))
+    flops = ((3 * c * (c + 1) * N * G
+              + (2 * c * (c + 1) * P + 12 * c * P * N) * H) * B * (L // c))
+    return nbytes, float(flops)
+
+
+def check_ssd_tangent(sops, sref, gen, B, L, H, P, N, G, chunk, dtype,
+                      per_sequence_A=False, timed=False, faults=False
+                      ) -> dict:
+    """T3 at one shape against its plain version (one launch); with
+    ``faults``, planted faults must fail the check: the tangent state not
+    carried across chunks, one chunk's rows of y' zeroed, C' dropped."""
+    x, dt, A, Bm, Cm = ssd_inputs(gen, B, L, H, P, N, G, dtype)
+    if per_sequence_A:
+        A = A * (0.5 + torch.rand(B, 1, generator=gen, device=DEVICE))
+    tx, tdt, tA, tB, tC = (torch.randn(t.shape, generator=gen,
+                                       device=DEVICE).to(t.dtype)
+                           for t in (x, dt, A, Bm, Cm))
+    args = (x, dt, A, Bm, Cm, tx, tdt, tA, tB, tC)
+    call = lambda *a: sops.ssd_scan_tangent(*a, chunk=chunk)
+    (ty, ts), n = counted(sops, "ssd_scan_tangent", lambda: call(*args),
+                          "ssd_scan_tangent")
+    wy, ws = sref.ssd_scan_tangent_ref(*args)
+    what = (f"ssd tangent (B={B}, L={L}, H={H}, P={P}, N={N}, G={G}, "
+            f"chunk={chunk}) {str(dtype)[6:]}"
+            + (" A per sequence" if per_sequence_A else ""))
+    row = dict(shape=[B, L, H, P, N, G, chunk], dtype=str(dtype)[6:],
+               per_sequence_A=per_sequence_A,
+               y_max_abs_err=check_tangent(ty, wy.to(dtype), what + " y'"),
+               state_max_abs_err=check_tangent(ts, ws, what + " state'"))
+    if faults:
+        nc = L // chunk
+        fresh = [call(*(t[:, i * chunk:(i + 1) * chunk].contiguous()
+                        if t.ndim >= 3 else t for t in args))[0]
+                 for i in range(nc)]
+        zeroed = ty.clone()
+        zeroed[:, chunk:2 * chunk] = 0
+        planted = {"state not carried": torch.cat(fresh, 1),
+                   "a chunk's rows zeroed": zeroed,
+                   "C' dropped": call(*args[:9], torch.zeros_like(tC))[0]}
+        for name, bad in planted.items():
+            if tangent_outside(bad, wy.to(dtype))[0] == 0:
+                raise AssertionError(f"{what}: planted fault '{name}' "
+                                     f"passed the check")
+        row["planted_faults_caught"] = list(planted)
+    if timed:
+        nbytes, flops = ssd_tangent_cost(B, L, H, P, N, G, chunk,
+                                         x.element_size())
+        rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else \
+            FP32_FLOP_PER_S
+        row["ms"] = time_ms(lambda: call(*args), 5)
+        row["plain_ms"] = time_events(
+            lambda: sref.ssd_scan_tangent_ref(*args), 1)
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops, rate)
+        print(f"{what}: T3 {row['ms']:.4f} ms (plain {row['plain_ms']:.1f}, "
+              f"bound {row['bound_ms']:.4f} {row['bound_by']}); errs "
+              f"{row['y_max_abs_err']:.2e} {row['state_max_abs_err']:.2e}",
+              flush=True)
+    return row
+
+
+def tangent_phase(fops, fref, sops, sref) -> dict:
+    """T1 and T2 over the flash sweep's shapes and masks (B=2, H=4) and the
+    qwen2 model layout at the training shape; T3 over the SSD grid, a
+    ragged row with two groups, A per sequence, and the mamba2 training
+    and serving shapes (with planted faults); bfloat16 and float32."""
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    rows = []
+    for S in (128, 256, 1024):
+        for d in (64, 128):
+            for causal, window in ((True, None), (False, None), (True, 64)):
+                for dtype in (torch.float32, torch.bfloat16):
+                    rows.append(check_flash_tangents(
+                        fops, fref, gen, 1, (2, 4, S, d), dtype, causal,
+                        window))
+    g = FLASH_GQA_MAIN
+    gqa = {str(dtype)[6:]: check_flash_tangents(
+        fops, fref, gen, 2, (g["B"], g["S"], g["H"], g["KV"], g["d"]),
+        dtype, True, None, timed=True)
+        for dtype in (torch.bfloat16, torch.float32)}
+    ssd_rows = []
+    for L, chunk in ((128, 32), (256, 64), (256, 128)):
+        for dtype in (torch.float32, torch.bfloat16):
+            ssd_rows.append(check_ssd_tangent(sops, sref, gen, 2, L, 2, 16,
+                                              32, 2, chunk, dtype))
+    for dtype in (torch.float32, torch.bfloat16):
+        ssd_rows.append(check_ssd_tangent(sops, sref, gen, 2, 96, 4, 8, 16,
+                                          2, 48, dtype, per_sequence_A=True))
+    t, m = SSD_TRAIN, SSD_MAIN
+    ssd_train = {str(dtype)[6:]: check_ssd_tangent(
+        sops, sref, gen, t["B"], t["L"], t["H"], t["P"], t["N"], t["G"],
+        t["chunk"], dtype, per_sequence_A=True, timed=True, faults=True)
+        for dtype in (torch.bfloat16, torch.float32)}
+    ssd_serve = check_ssd_tangent(sops, sref, gen, m["B"], m["L"], m["H"],
+                                  m["P"], m["N"], m["G"], m["chunk"],
+                                  torch.bfloat16, timed=True, faults=True)
+    torch.cuda.empty_cache()
+    return dict(flash_rows=rows, flash_gqa=gqa, ssd_rows=ssd_rows,
+                ssd_train=ssd_train, ssd_serve=ssd_serve)
+
+
+def tangent_summary(tan, train_rows) -> list:
+    """The kernels-line entries of T1, T2 and T3: numbers at the training
+    path's shapes in bfloat16, launches from the training runs (qwen2 for
+    T1/T2, mamba2 for T3)."""
+    g, t = tan["flash_gqa"]["bfloat16"], tan["ssd_train"]["bfloat16"]
+    fg = FLASH_GQA_MAIN
+    flash_shape = (f"(B={fg['B']}, S={fg['S']}, H={fg['H']}, KV={fg['KV']}, "
+                   f"d={fg['d']}) bfloat16 causal, model layout")
+    out = []
+    for name, p in (("flash_attention_fwd_tangent", "fwd"),
+                    ("flash_attention_bwd_tangent", "bwd")):
+        out.append({
+            "name": name, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": None, "launches": train_rows["qwen2"]["launches"][
+                name],
+            "max_abs_err": g[f"{p}_max_abs_err"], "ms": g[f"{p}_ms"],
+            "plain_ms": g[f"{p}_plain_ms"], "bound_ms": g[f"{p}_bound_ms"],
+            "bound_by": g[f"{p}_bound_by"], "library_ms": None,
+            "shape": flash_shape + ("; two launches a call (dq', then "
+                                    "dk'/dv'); ms is both" if p == "bwd"
+                                    else "")
+                     + "; no TPU counterpart; launches: the qwen2 "
+                       "training run; library: none (no PyTorch call "
+                       "computes the tangent)",
+            "float32": {k: v for k, v in tan["flash_gqa"]["float32"].items()
+                        if k.startswith(p)},
+            "sweep_checks": len(tan["flash_rows"]),
+            "sweep_worst_err": max(r[f"{p}_max_abs_err"]
+                                   for r in tan["flash_rows"])})
+    s = SSD_TRAIN
+    out.append({
+        "name": "ssd_scan_tangent", "route": "cuda", "source": SSD_SOURCE,
+        "replaces": None,
+        "launches": train_rows["mamba2"]["launches"]["ssd_scan_tangent"],
+        "max_abs_err": t["y_max_abs_err"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None,
+        "shape": f"(B={s['B']}, L={s['L']}, H={s['H']}, P={s['P']}, "
+                 f"N={s['N']}, G={s['G']}, chunk={s['chunk']}) bfloat16, A "
+                 f"per sequence; no TPU counterpart; launches: the mamba2 "
+                 f"training run; library: none",
+        "float32": tan["ssd_train"]["float32"], "serving_shape":
+            tan["ssd_serve"], "sweep_checks": len(tan["ssd_rows"])})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phases 13-14: LM meta-training through launch/train.py
+# ---------------------------------------------------------------------------
+
+# The training shape: 512 tokens (2 chunks of 256 for mamba2), global batch
+# 16 = 4 agents x 2 tasks x (1 support + 1 query) sequence.
+TRAIN_SHAPE = dict(name="chip_train_512", seq=512, batch=16)
+TRAIN_COMMON = ["--agents", "4", "--seed", "0", "--prefetch", "2"]
+MAMBA_TRAIN_ARGS = ["--arch", "mamba2-130m", "--shape", TRAIN_SHAPE["name"],
+                    "--fused-outer",
+                    "--steps-per-dispatch", "2", "--eval-every", "2",
+                    "--eval-tasks", "4", "--eval-inner-steps", "1",
+                    "--ckpt-every", "2", *TRAIN_COMMON]
+QWEN_TRAIN_SHAPE = dict(name="chip_train_256", seq=256, batch=16)
+QWEN_TRAIN_ARGS = ["--arch", "qwen2-1.5b", "--shape", QWEN_TRAIN_SHAPE["name"],
+                   "--layers", "2", "--combine", "pallas",
+                   "--steps-per-dispatch", "1", "--eval-every", "2",
+                   "--eval-tasks", "2", "--eval-inner-steps", "1",
+                   *TRAIN_COMMON]
+# The resumed run's step-4 loss against the uninterrupted run's: the bf16
+# agreement limit (the same steps on the same card; only the kernels'
+# schedules may differ).
+RESUME_RTOL = AGREE_RTOL["card_bf16_vs_cpu_bf16"]
+
+
+def check_run_log(path: str, *flags) -> str:
+    out = subprocess.run([sys.executable, str(ROOT / "scripts" /
+                                              "check_run_log.py"), path,
+                          *flags], capture_output=True, text=True,
+                         timeout=120, check=False)
+    if out.returncode:
+        raise AssertionError(f"check_run_log {path} {flags}: "
+                             f"{out.stdout}{out.stderr}")
+    return out.stdout.strip()
+
+
+def all_counts(modules) -> dict:
+    return {k: n for m in modules for k, n in m.launch_counts.items()}
+
+
+def profile_train_step(bundle, state, batch, modules) -> dict:
+    """One meta-step under torch.profiler: wall time, device time split
+    into the forward kernels, the tangent kernels, the flash backward
+    kernels, the chunked SSD backward and its jvp (their record_function
+    ranges), the outer update and the rest; the card's idle share; each
+    kernel's launches by the wrappers' counters; peak memory."""
+    from torch.profiler import ProfilerActivity, profile
+    state, _ = bundle.step_fn(state, batch)           # warm
+    torch.cuda.synchronize()
+    # the warm step's cached blocks back to the card: the qwen2 cut peaks
+    # within 9 GB of its 80, and a fragmented cache runs it out of memory
+    torch.cuda.empty_cache()
+    for m in modules:
+        m.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = bundle.step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = all_counts(modules)
+    peak = torch.cuda.max_memory_allocated()
+    ranges = ("ssd_scan_chunked_bwd", "ssd_scan_chunked_bwd_jvp")
+    split = dict(forward=0.0, tangent=0.0, flash_backward=0.0, outer=0.0,
+                 other=0.0)
+    in_ranges = {r: 0.0 for r in ranges}
+    busy = 0.0
+    for evt in prof.key_averages():
+        annotation = (getattr(evt, "is_user_annotation", False)
+                      or evt.key in ranges)
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0)
+        if evt.device_type == torch.autograd.DeviceType.CUDA and \
+                not annotation:
+            busy += us
+            key = evt.key
+            if "jvpk" in key or "tangent" in key:
+                split["tangent"] += us
+            elif any(k in key for k in SSD_FORWARD_KERNELS) or \
+                    "fwd_kernel" in key:
+                split["forward"] += us
+            elif "dq_kernel" in key or "dkv_kernel" in key:
+                split["flash_backward"] += us
+            elif "fused" in key or "combine" in key:
+                split["outer"] += us
+            else:
+                split["other"] += us
+        elif evt.key in ranges and \
+                evt.device_type == torch.autograd.DeviceType.CPU:
+            t = getattr(evt, "device_time_total", None)
+            in_ranges[evt.key] += t if t is not None else getattr(
+                evt, "cuda_time_total", 0)
+    row = dict(wall_s=wall, peak_gb=peak / 1e9, state_gb=base / 1e9,
+               loss=float(metrics["loss"]), launches=launches)
+    if busy:
+        row.update(device_ms=busy / 1e3,
+                   device_idle_share=max(0.0, 1 - busy / 1e6 / wall),
+                   split_ms={k: v / 1e3 for k, v in split.items()},
+                   chunked_bwd_ms=in_ranges[ranges[0]] / 1e3,
+                   chunked_bwd_jvp_ms=in_ranges[ranges[1]] / 1e3)
+    else:
+        row.update(device_ms="not measured")
+    return row
+
+
+def train_phase(name, cfg, args, shape, expect, log_flags, resume=False
+                ) -> dict:
+    """Meta-train ``cfg`` (the config ``args`` select) through
+    ``launch.train.main`` in this process: 4 steps
+    (``expect``: the kernels that must launch), with every launch counter
+    zeroed just before and read just after; the run log must pass
+    ``check_run_log.py`` with ``log_flags``; losses finite and the
+    disagreement falling.  With ``resume``, a second run from the step-2
+    checkpoint alone must reach the uninterrupted step-4 loss.  Then one
+    meta-step of the final state is profiled."""
+    from repro_torch.configs import (INPUT_SHAPES, InputShape,
+                                     register_input_shape)
+    from repro_torch.kernels.dif_combine import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd_scan import ops as sops
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train
+    modules = (dops, fops, sops)
+    register_input_shape(InputShape(shape["name"], shape["seq"],
+                                    shape["batch"], "train"),
+                         override=True)
+    work = ROOT / "build" / "chip_train" / name
+    shutil.rmtree(work, ignore_errors=True)
+    log = str(work / "run.jsonl")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for m in modules:
+        m.reset_launch_counts()
+    t0 = time.perf_counter()
+    steps = 4 if resume else 2
+    args = args + ["--device", DEVICE]
+    out = train.main(args + ["--steps", str(steps), "--run-log", log]
+                     + (["--ckpt-dir", str(work / "full")] if resume
+                        else []))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = all_counts(modules)
+    peak_run = torch.cuda.max_memory_allocated() / 1e9
+    missing = [k for k in expect if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"train {name}: kernels {missing} never "
+                             f"launched: {launches}")
+    records = [json.loads(line) for line in open(log)]
+    trains = [r for r in records if r["kind"] == "train"]
+    if not all(math.isfinite(r["loss"]) for r in trains):
+        raise AssertionError(f"train {name}: non-finite loss {trains}")
+    dis = [r["disagreement"] for r in trains]
+    if not dis[-1] < dis[0]:
+        raise AssertionError(f"train {name}: disagreement did not fall: "
+                             f"{dis}")
+    config = next(r for r in records if r["kind"] == "config")
+    if config["mode"] != "maml":
+        raise AssertionError(f"train {name}: mode {config['mode']}")
+    row = dict(seconds=seconds, launches=launches, peak_run_gb=peak_run,
+               losses=[r["loss"] for r in trains], disagreement=dis,
+               step_time_s=[r["step_time_s"] for r in trains],
+               log_check=check_run_log(log, *log_flags),
+               evals=sum(r["kind"] == "eval" for r in records))
+    if resume:
+        resumed_dir = work / "resume" / "seed0"
+        resumed_dir.mkdir(parents=True)
+        shutil.copy(work / "full" / "seed0" / "ckpt_00000002.npz",
+                    resumed_dir)
+        log2 = str(work / "resumed.jsonl")
+        again = train.main(args + ["--steps", "2", "--run-log", log2,
+                                   "--ckpt-dir", str(work / "resume")])
+        a, b = again["losses"][4], out["losses"][4]
+        if not abs(a - b) <= RESUME_RTOL * abs(b):
+            raise AssertionError(f"train {name}: resumed step-4 loss {a} vs "
+                                 f"{b} uninterrupted (rtol {RESUME_RTOL})")
+        row.update(resumed_step4_loss=a, step4_loss=b,
+                   resumed_log_check=check_run_log(log2, *log_flags))
+        del again
+    # one meta-step of the final state under torch.profiler
+    if (config["arch"], config["num_layers"]) != (cfg.name, cfg.num_layers):
+        raise AssertionError(f"train {name}: ran {config['arch']} at "
+                             f"{config['num_layers']} layers, expected "
+                             f"{cfg.name} at {cfg.num_layers}")
+    bundle = S.build_train(cfg, shape["name"], config["K"],
+                           combine_override=config["combine_backend"],
+                           device=DEVICE)
+    src = train.make_train_source(cfg, INPUT_SHAPES[shape["name"]],
+                                  bundle.K, bundle.T, bundle.tb)
+    with bundle.make_pipeline(src, depth=0) as pipe:
+        batch = next(pipe)
+    # the profiled step takes the only reference to the final state, so
+    # the state it replaces is freed as it goes
+    row["profile"] = profile_train_step(bundle, out.pop("state"), batch,
+                                        modules)
+    del out
+    tangents = [k for k in expect if k in TANGENTS]
+    if not all(row["profile"]["launches"].get(k) for k in tangents):
+        raise AssertionError(f"train {name}: tangent kernels {tangents} "
+                             f"not launched in the profiled meta-step: "
+                             f"{row['profile']['launches']}")
+    p = row["profile"]
+    print(f"train {name}: {seconds:.1f} s for {steps} steps; step_time_s "
+          f"{row['step_time_s']}; losses {row['losses']}; disagreement "
+          f"{dis}; peak {peak_run:.2f} GB (run), "
+          f"{p['peak_gb']:.2f} GB (one meta-step, {p['state_gb']:.2f} GB "
+          f"before it); profiled step {p['wall_s']:.3f} s, device "
+          f"{p.get('device_ms')} ms, idle share "
+          f"{p.get('device_idle_share')}, split {p.get('split_ms')}, "
+          f"chunked bwd {p.get('chunked_bwd_ms')} ms, its jvp "
+          f"{p.get('chunked_bwd_jvp_ms')} ms; launches in the run {launches}, "
+          f"in the profiled step {p['launches']}", flush=True)
+    del bundle
+    torch.cuda.empty_cache()
+    return row
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: one meta-step of each 2-layer cut, the card against the CPU
+# ---------------------------------------------------------------------------
+
+# PERF.md states these limits (set before the first chip run): norms over
+# all leaves, and per leaf for leaves whose CPU norm is >= 1% of the
+# largest leaf's.
+GRAD_AGREE = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
+CURV_AGREE = {torch.float32: 1e-2, torch.bfloat16: 0.3}
+CURV_FLOOR = 0.5
+LEAF_FLOOR = 1e-2
+
+
+def _norm(d, keys=None):
+    keys = list(d) if keys is None else keys
+    return float(torch.sqrt(sum((d[k].double() ** 2).sum() for k in keys)))
+
+
+def train_agreement_phase(arch, seq, loss_rtol, cfg=None) -> dict:
+    """The ``maml`` and ``fomaml`` meta-gradients of one agent on one task
+    of one sequence, the 2-layer cut at full width, on the card (kernels,
+    tangent kernels) and on the CPU (plain layers) in the same dtype: the
+    loss within the serving limit, the meta-gradient and its curvature
+    part (maml - fomaml) within GRAD_AGREE / CURV_AGREE, the curvature at
+    least CURV_FLOOR of the CPU's norm."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import maml
+    from repro_torch.data.lm_tasks import LMTaskSource
+    from repro_torch.models.transformer import build_model
+    if cfg is None:
+        cfg = dataclasses.replace(get_config(arch), num_layers=2)
+    model = build_model(cfg)
+    p0 = model.init(torch.Generator().manual_seed(0), torch.float32,
+                    device="cpu")
+    ep = LMTaskSource(vocab_size=cfg.padded_vocab, seq_len=seq, K=1,
+                      tasks_per_agent=1, task_batch=1, n_domains=4,
+                      seed=0).sample(0)
+    sup = {k: torch.from_numpy(v[0]) for k, v in ep.support.items()}
+    qry = {k: torch.from_numpy(v[0]) for k, v in ep.query.items()}
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        got = {}
+        for dev in (DEVICE, "cpu"):
+            p = {k: v.to(dev, dtype) for k, v in p0.items()}
+            s = {k: v.to(dev) for k, v in sup.items()}
+            q = {k: v.to(dev) for k, v in qry.items()}
+            for mode in ("maml", "fomaml"):
+                t0 = time.perf_counter()
+                loss, g = maml.multi_task_meta_grad(
+                    model.loss_fn, p, s, q, alpha=cfg.inner_lr, steps=1,
+                    mode=mode)
+                got[dev, mode] = (float(loss),
+                                  {k: v.float().cpu() for k, v in g.items()},
+                                  time.perf_counter() - t0)
+            del p
+        name = str(dtype)[6:]
+        card, cpu = got[DEVICE, "maml"], got["cpu", "maml"]
+        lk = "card_f32_vs_cpu_f32" if dtype == torch.float32 else \
+            "card_bf16_vs_cpu_bf16"
+        loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+        curv = {d: {k: got[d, "maml"][1][k] - got[d, "fomaml"][1][k]
+                    for k in card[1]} for d in (DEVICE, "cpu")}
+        norms = {k: _norm(cpu[1], [k]) for k in cpu[1]}
+        big = [k for k in norms if norms[k] >= LEAF_FLOOR * max(
+            norms.values())]
+        cnorms = {k: _norm(curv["cpu"], [k]) for k in curv["cpu"]}
+        cbig = [k for k in cnorms if cnorms[k] >= LEAF_FLOOR * max(
+            cnorms.values())]
+        diff = {k: card[1][k] - cpu[1][k] for k in cpu[1]}
+        cdiff = {k: curv[DEVICE][k] - curv["cpu"][k] for k in cpu[1]}
+        grad_rel = _norm(diff) / _norm(cpu[1])
+        grad_leaf = max(_norm(diff, [k]) / norms[k] for k in big)
+        curv_rel = _norm(cdiff) / _norm(curv["cpu"])
+        curv_leaf = max(_norm(cdiff, [k]) / cnorms[k] for k in cbig)
+        curv_ratio = _norm(curv[DEVICE]) / _norm(curv["cpu"])
+        row = dict(loss_card=card[0], loss_cpu=cpu[0], loss_rel=loss_rel,
+                   grad_rel=grad_rel, grad_worst_leaf_rel=grad_leaf,
+                   curvature_rel=curv_rel, curvature_worst_leaf_rel=curv_leaf,
+                   curvature_norm_ratio=curv_ratio,
+                   curvature_share=_norm(curv["cpu"]) / _norm(cpu[1]),
+                   card_s=card[2], cpu_s=cpu[2])
+        print(f"train agreement {arch} {name}: {json.dumps(row)}",
+              flush=True)
+        fails = []
+        if not loss_rel <= loss_rtol[lk]:
+            fails.append(f"loss {loss_rel:.2e} > {loss_rtol[lk]}")
+        if not max(grad_rel, grad_leaf) <= GRAD_AGREE[dtype]:
+            fails.append(f"meta-gradient {grad_rel:.2e}/{grad_leaf:.2e} > "
+                         f"{GRAD_AGREE[dtype]}")
+        if not max(curv_rel, curv_leaf) <= CURV_AGREE[dtype]:
+            fails.append(f"curvature {curv_rel:.2e}/{curv_leaf:.2e} > "
+                         f"{CURV_AGREE[dtype]}")
+        if not curv_ratio >= CURV_FLOOR:
+            fails.append(f"curvature norm ratio {curv_ratio:.3f} < "
+                         f"{CURV_FLOOR}")
+        if fails:
+            raise AssertionError(f"train agreement {arch} {name}: "
+                                 + "; ".join(fails))
+        rows[name] = row
+    torch.cuda.empty_cache()
+    return rows
+
+
 def hgmma_phase(libraries: dict) -> dict:
     """What the bf16 Hopper kernels compiled to: HGMMA (wgmma) instructions
     in each of them, from ``cuobjdump -sass`` of each built library
@@ -1954,6 +2600,13 @@ def main() -> int:
     from repro_torch.models import layers
 
     t_start = time.perf_counter()
+    stamps = {}
+
+    def stamp(name):
+        """Seconds since the start, at the end of phase ``name``."""
+        stamps[name] = time.perf_counter() - t_start
+        print(f"[{stamps[name]:.1f} s] {name} done", flush=True)
+
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
     torch.backends.cudnn.allow_tf32 = False
     card = nvidia_smi()
@@ -1969,18 +2622,49 @@ def main() -> int:
                      ("chunk_state_kernel", "chunk_scan_kernel"))})
     flash_calls = flash_calls_phase(fops)
     ssd_calls = ssd_calls_phase(sops)
+    stamp("build")
 
     paper_A = topology.build_topology("paper", K, "metropolis").matrix
     kern = kernels_phase(ops, ref, SineMLP, SINE_MLP, paper_A)
+    stamp("kernels")
     sine = SineMLP(SINE_MLP).init(torch.Generator().manual_seed(0),
                                   device="cpu")
     n_groups = len({x.dtype for x in sine.values()})
     launches, ms_per_step = main_path_phase(quickstart, ops, n_groups)
+    stamp("training")
     # phase 6 before phase 5: after phase 5's profile of the training step,
     # torch.profiler sessions miss some kernel launches
     flash_main, flash_rows, flash_gqa, flash_gqa_rows = flash_phase(fops,
                                                                     fref)
+    stamp("flash")
+    tangent = tangent_phase(fops, fref, sops, sref)
+    stamp("tangents")
+    # this slice's main path, LM meta-training through launch/train.py;
+    # before phase 5 for the same reason as phase 6
+    train_rows = {
+        "mamba2": train_phase(
+            "mamba2", get_config("mamba2-130m"), MAMBA_TRAIN_ARGS,
+            TRAIN_SHAPE,
+            ("ssd_scan", *SSD_PASSES, "ssd_scan_tangent",
+             "fused_combine_update"),
+            ("--expect-fused", "--expect-outer-dtype", "bfloat16"),
+            resume=True),
+        "qwen2": train_phase(
+            "qwen2", dataclasses.replace(get_config("qwen2-1.5b"),
+                                         num_layers=2),
+            QWEN_TRAIN_ARGS, QWEN_TRAIN_SHAPE,
+            ("flash_attention_fwd", "flash_attention_bwd",
+             "flash_attention_fwd_tangent", "flash_attention_bwd_tangent",
+             "dif_combine"),
+            ("--expect-outer-dtype", "bfloat16"))}
+    stamp("lm training")
+    train_agreement = {
+        "qwen2-1.5b": train_agreement_phase("qwen2-1.5b", 128, AGREE_RTOL),
+        "mamba2-130m": train_agreement_phase("mamba2-130m", 512,
+                                             MAMBA_AGREE_RTOL)}
+    stamp("training agreement")
     profile = profile_phase("fused")
+    stamp("profile")
     counters = {"flash_attention_fwd": fops, "flash_attention_bwd": fops,
                 "ssd_scan": sops, **{k: sops for k in SSD_PASSES}}
     # per layer and step: one flash forward launch, and the backward's two
@@ -1988,13 +2672,17 @@ def main() -> int:
     # kernels (its backward is the chunked scan's VJP, no kernel)
     serve_row = serve_phase(SERVE_ARGS, counters, lambda n, k: {
         "flash_attention_fwd": n * k, "flash_attention_bwd": 2 * n * k})
+    stamp("serve")
     agreement = agreement_phase()
+    stamp("agreement")
     ssd_main, ssd_rows, continuity, ssd_passes, ssd_pass_rows = ssd_phase(
         sops, sref, layers)
+    stamp("ssd")
     mamba_row = serve_phase(MAMBA_SERVE_ARGS, counters,
                             lambda n, k: {"ssd_scan": n * k,
                                           **{p: n * k for p in SSD_PASSES}},
                             replay=("profile", "memory"))
+    stamp("mamba2 serve")
     mamba_agreement = agreement_phase(
         dataclasses.replace(get_config("mamba2-130m"), num_layers=2),
         MAMBA_AGREE_RTOL, seq=1024, task_batch=4)
@@ -2031,11 +2719,14 @@ def main() -> int:
           for name in ("flash_attention_fwd", "flash_attention_bwd")),
         *ssd_summary(ssd_main, ssd_rows, continuity, ssd_passes,
                      ssd_pass_rows, ssd_calls, mamba_row),
-    ], "ms_per_step": ms_per_step, "profile": profile, "serve": serve_row,
+        *tangent_summary(tangent, train_rows),
+    ], "ms_per_step": ms_per_step, "train": train_rows,
+        "train_agreement": train_agreement, "profile": profile, "serve": serve_row,
         "agreement": agreement, "mamba2_serve": mamba_row,
         "mamba2_agreement": mamba_agreement, "hgmma": hgmma,
         "outer_update_ablation": kern["ablation"],
         "flash_kernels_per_call": flash_calls,
+        "phase_end_seconds": stamps,
         "seconds": time.perf_counter() - t_start}
     print(card)
     print(json.dumps(summary))

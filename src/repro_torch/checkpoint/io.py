@@ -23,7 +23,8 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["latest_step", "restore_centroid", "save_checkpoint"]
+__all__ = ["latest_step", "restore_centroid", "restore_checkpoint",
+           "save_checkpoint"]
 
 _SEP = "::"
 # The reference TrainState's params field, as jax spells a named tuple
@@ -155,3 +156,45 @@ def restore_centroid(ckpt_dir: str, like_params: dict[str, torch.Tensor],
             out[name] = torch.from_numpy(np.ascontiguousarray(mean)).to(
                 device=device, dtype=leaf.dtype)
     return out
+
+
+def _restore(tree: Any, prefix: tuple[str, ...], data, path: str) -> Any:
+    """``tree`` rebuilt from the archive, leaf by leaf, in the key paths
+    :func:`_flatten` writes."""
+    if isinstance(tree, dict):
+        return {k: _restore(v, prefix + tuple(
+            _entry(p) for p in str(k).split("/")), data, path)
+            for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_restore(getattr(tree, name),
+                                     prefix + (f"x:.{name}",), data, path)
+                            for name in tree._fields))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_restore(x, prefix + (f"i:{i}",), data, path)
+                          for i, x in enumerate(tree))
+    key = _SEP.join(prefix)
+    arr = _lookup(data, key, path)
+    shape = tuple(tree.shape) if hasattr(tree, "shape") else ()
+    if arr.shape != shape:
+        raise ValueError(f"shape mismatch for {key}: checkpoint {arr.shape} "
+                         f"vs {shape}")
+    if isinstance(tree, torch.Tensor):
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(
+            device=tree.device, dtype=tree.dtype)
+    if isinstance(tree, int):                # the port's host step counter
+        return int(arr)
+    raise TypeError(f"cannot restore {key} into a {type(tree).__name__}")
+
+
+def restore_checkpoint(ckpt_dir: str, like: Any, step: int | None = None
+                       ) -> Any:
+    """Restore into the structure of ``like`` (nested dicts — flat
+    ``/``-keyed dicts count as nested —, lists, tuples and named tuples of
+    tensors or Python ints, e.g. a ``TrainState``): each leaf
+    from the archive key its path names, in the leaf's dtype and on the
+    leaf's device.  ``step`` None: the latest checkpoint.  A checkpoint the
+    JAX trainer wrote restores here, and one written here restores in the
+    JAX package (:func:`save_checkpoint` writes the same keys)."""
+    path = _resolve_ckpt(ckpt_dir, step)
+    with np.load(path) as data:
+        return _restore(like, (), data, path)

@@ -8,6 +8,10 @@ dense decoder family (attention, MLP, norms) and the Mamba2 family (the
 ``configs/sine_mlp.py``, ``configs/qwen2_1_5b.py`` and
 ``configs/mamba2_130m.py`` copied.  Later slices add the fields and
 configurations their models read.
+
+:data:`INPUT_SHAPES`, :func:`register_input_shape` and
+:func:`resolve_input_shape` are the reference's input-shape registry, with
+its override and builtin-protection rules.
 """
 from __future__ import annotations
 
@@ -27,6 +31,52 @@ class InputShape:
     seq_len: int
     global_batch: int
     kind: str                       # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES: dict[str, InputShape] = {
+    "train_4k":    InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k":  InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k":   InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+# The shapes that ship with the package: a run-local registration never
+# displaces these.
+_BUILTIN_SHAPES = frozenset(INPUT_SHAPES)
+
+
+def register_input_shape(shape: InputShape, *,
+                         override: bool = False) -> InputShape:
+    """Register a run-local :class:`InputShape` under ``shape.name``.
+    Re-registering an existing name raises unless ``override=True`` (the
+    same value again is a no-op); a built-in shape is never displaced."""
+    existing = INPUT_SHAPES.get(shape.name)
+    if existing == shape:
+        return shape
+    if existing is not None:
+        if shape.name in _BUILTIN_SHAPES:
+            raise ValueError(
+                f"input shape {shape.name!r} is built in ({existing}) and "
+                f"cannot be overridden; register under a different name")
+        if not override:
+            raise ValueError(
+                f"input shape {shape.name!r} is already registered as "
+                f"{existing}; pass override=True to replace it")
+    INPUT_SHAPES[shape.name] = shape
+    return shape
+
+
+def resolve_input_shape(shape: InputShape | str) -> InputShape:
+    """A registered shape by name, or an :class:`InputShape` unchanged."""
+    if isinstance(shape, InputShape):
+        return shape
+    try:
+        return INPUT_SHAPES[shape]
+    except KeyError:
+        raise KeyError(
+            f"unknown input shape {shape!r}: registered shapes are "
+            f"{sorted(INPUT_SHAPES)} (register_input_shape adds run-local "
+            f"ones)") from None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +126,10 @@ class ArchConfig:
 
     # --- numerics -------------------------------------------------------------
     dtype: str = "bfloat16"
+    outer_dtype: str = ""    # params/grads storage for the outer loop; ""
+                             # inherits dtype (Adam moments stay float32)
+    combine_dtype: str = ""  # combine wire format; "" resolves through
+                             # core.diffusion.resolve_combine_dtype
 
     # -------------------------------------------------------------------------
     @property

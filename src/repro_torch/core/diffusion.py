@@ -80,6 +80,8 @@ __all__ = [
     "combine_backends",
     "select_backend",
     "resolve_schedule_backend",
+    "resolve_combine_dtype",
+    "WIRE_DTYPES",
     "make_combine",
     "atc_step",
     "cta_step",
@@ -415,6 +417,25 @@ def make_combine(strategy: str, A: np.ndarray | None = None, *,
     if backend.needs_matrix and A is None:
         raise ValueError(f"{strategy!r} combine needs a matrix A")
     return backend.build(A=A, device=device)
+
+
+# The reference's combine wire formats: bytes per element of what its
+# permute-based backends put on the wire.  The port's backends run on one
+# card, so the resolved name is provenance (the run log) only.
+WIRE_DTYPES = {"bfloat16": 2, "float32": 4}
+
+
+def resolve_combine_dtype(outer_dtype: str, override: str | None = None
+                          ) -> str:
+    """bf16 exactly when the outer (param/grad) dtype is bf16, f32
+    otherwise; ``override`` (``--combine-dtype``) wins."""
+    chosen = override or ("bfloat16" if outer_dtype == "bfloat16"
+                          else "float32")
+    if chosen not in WIRE_DTYPES:
+        raise ValueError(
+            f"combine_dtype {chosen!r} is not a supported wire format; "
+            f"pick one of {sorted(WIRE_DTYPES)}")
+    return chosen
 
 
 # ---------------------------------------------------------------------------

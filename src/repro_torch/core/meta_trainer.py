@@ -38,7 +38,7 @@ LossFn = Callable[[Params, Any], torch.Tensor]
 
 __all__ = ["TopologyConfig", "UpdateConfig", "MetaConfig", "TrainState",
            "init_state", "make_meta_step", "make_eval_fn", "topology_for",
-           "schedule_for"]
+           "schedule_for", "strategy_for_combine"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +78,13 @@ class MetaConfig:
         default_factory=TopologyConfig)
     update_config: UpdateConfig = dataclasses.field(
         default_factory=UpdateConfig)
+
+
+def strategy_for_combine(combine: str, default: str = "atc") -> str:
+    """The strategy a bare combine name implies: 'none' and 'centralized'
+    name strategies, every real backend plain ATC (``--combine``)."""
+    return {"none": "none", "centralized": "centralized"}.get(combine,
+                                                              default)
 
 
 class TrainState(NamedTuple):

@@ -88,6 +88,15 @@ class Episode:
     domains: np.ndarray | None = None
     step: int | None = None
 
+    def as_flat_batch(self) -> PyTree:
+        """Inverse of ``launch.steps.split_meta_batch``: support and query
+        concatenated along the task-batch axis and ``(K, T, 2·tb)``
+        flattened to the global batch axis ``B = K·T·2·tb``."""
+        def leaf(s, q):
+            both = np.concatenate([np.asarray(s), np.asarray(q)], axis=2)
+            return both.reshape((-1,) + both.shape[3:])
+        return tree_map(leaf, self.support, self.query)
+
     def to_device(self, device: str | torch.device
                   ) -> tuple[PyTree, PyTree]:
         """``(support, query)`` as torch tensors on ``device``."""

@@ -11,11 +11,15 @@ the stream itself, so no second stream can race the step.
 ``depth=0`` is the synchronous fallback (no thread, sample-on-demand); any
 depth produces the identical batch sequence because
 ``TaskSource.sample(step)`` is a pure function of ``step``.
+
+``stack=C`` feeds the superstep driver: each item is C consecutive
+episodes, handed to ``prepare`` as a list (grouped, never reordered).
 """
 from __future__ import annotations
 
 import queue
 import threading
+from typing import Any, Callable
 
 from repro_torch.data.episodes import TaskSource, host_tensors, to_device
 from repro_torch.device import resolve_device
@@ -36,13 +40,29 @@ class MetaBatchPipeline:
                   there is none).
       depth:      prefetch buffer depth; 0 = synchronous (no thread).
       start_step: first step index (e.g. a restored checkpoint's step).
+      prepare:    ``Episode -> numpy pytree`` run on the producer side
+                  (default: ``(support, query)``); with ``stack > 1`` it
+                  receives a list of ``stack`` consecutive Episodes, and
+                  must be given.
+      stack:      meta-batches per item (the superstep's dispatch); the
+                  sample sequence is the same for every ``stack``.
     """
 
     def __init__(self, source: TaskSource, device=None, *, depth: int = 2,
-                 start_step: int = 0):
+                 start_step: int = 0,
+                 prepare: Callable[[Any], Any] | None = None,
+                 stack: int = 1):
+        if stack < 1:
+            raise ValueError(f"stack must be >= 1, got {stack}")
+        if stack > 1 and prepare is None:
+            raise ValueError("stack > 1 needs a prepare that takes a list "
+                             "of episodes")
         self.source = source
         self.device = resolve_device(device)
         self.depth = depth
+        self.stack = stack
+        self._prepare = prepare if prepare is not None else (
+            lambda ep: (ep.support, ep.query))
         self._pin = self.device.type == "cuda"
         self._step = start_step
         self._exc: BaseException | None = None
@@ -57,17 +77,22 @@ class MetaBatchPipeline:
     # --- producer ----------------------------------------------------------
 
     def _sample_item(self, step: int):
-        """One host-side item: the episode's (support, query) as CPU
-        tensors, pinned when the batches go to a card."""
-        ep = self.source.sample(step)
-        return host_tensors((ep.support, ep.query), pin=self._pin)
+        """One host-side item: ``prepare`` of the episode (or of ``stack``
+        consecutive episodes) as CPU tensors, pinned when the batches go to
+        a card."""
+        if self.stack == 1:
+            item = self._prepare(self.source.sample(step))
+        else:
+            item = self._prepare([self.source.sample(step + j)
+                                  for j in range(self.stack)])
+        return host_tensors(item, pin=self._pin)
 
     def _worker(self) -> None:
         step = self._step
         try:
             while not self._stop.is_set():
                 item = self._sample_item(step)
-                step += 1
+                step += self.stack
                 while not self._stop.is_set():
                     try:
                         self._queue.put(item, timeout=_POLL_S)
@@ -98,12 +123,12 @@ class MetaBatchPipeline:
                         ) from self._exc
                     if self._thread is None or not self._thread.is_alive():
                         raise StopIteration   # stop() was called
-        self._step += 1
+        self._step += self.stack
         return to_device(item, self.device)
 
     @property
     def step(self) -> int:
-        """Index of the next batch the consumer will receive."""
+        """Index of the next episode the consumer will receive."""
         return self._step
 
     # --- lifecycle ---------------------------------------------------------
@@ -130,3 +155,4 @@ class MetaBatchPipeline:
 
     def __exit__(self, *exc_info) -> None:
         self.stop()
+

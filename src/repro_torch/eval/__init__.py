@@ -1,5 +1,7 @@
 """Adaptation at evaluation time: ``EvalHarness`` (``curves``,
-``adapt_states``, ``task_loss``)."""
-from repro_torch.eval.harness import EvalHarness
+``agent_curves``, ``adapt_states``, ``task_loss``, and the
+recurring-vs-unseen ``evaluate``) and its reports."""
+from repro_torch.eval.harness import (EvalHarness, EvalReport, SplitReport,
+                                      split_seed)
 
-__all__ = ["EvalHarness"]
+__all__ = ["EvalHarness", "EvalReport", "SplitReport", "split_seed"]

@@ -15,6 +15,11 @@
 //   over key tiles.  Two launches, as in the reference, so nothing is
 //   summed with atomics and every result is the same from run to run.
 //
+// forward and backward tangents (T1, T2; namespace jvpk) — no TPU
+//   counterpart: the forward-mode rules of both autograd Functions, so that
+//   the exact meta-gradient's forward-over-reverse Hessian-vector products
+//   run through the kernels (see the section's own comment).
+//
 // Masks, as the reference: a key the band excludes gets the logit -1e30
 // (so a row that has seen no allowed key yet carries exp(0) terms that the
 // first allowed key's rescale by exp(-1e30 - m) = 0 wipes out, exactly as
@@ -1672,6 +1677,677 @@ Strides strides_at(const long long* st, int i) {
 
 }  // namespace
 
+// ===========================================================================
+// Forward-mode tangents of the forward and the backward (no TPU
+// counterpart: the JAX package has no forward-mode rule for its kernels)
+// ===========================================================================
+//
+// The exact meta-gradient's Hessian-vector products are forward-over-
+// reverse (torch.func.jvp of torch.func.grad), so both flash Functions of
+// ../ops.py need a forward-mode rule, and these two kernels are it.
+//
+// T1, the tangent of the forward: given q, k, v, the forward's lse and the
+// tangents q', k', v', with s'_ij = scale (q'_i . k_j + q_i . k'_j) on the
+// allowed pairs,
+//   lse'_i = sum_j P_ij s'_ij,   o'_i = sum_j P_ij (s'_ij v_j + v'_j) - lse'_i o_i
+// with P = exp(S - lse) recomputed from the saved lse and o = P V
+// accumulated beside o' in float32.  One pass over the key tiles.
+// T2, the tangent of the FlashAttention-2 backward (dQ, dK, dV of q, k, v,
+// o, lse, dO), from the tangents of all six:
+//   P' = P (S' - lse'),  D = rowsum(dO o),  D' = rowsum(dO' o + dO o'),
+//   dP = dO V^T,  dP' = dO' V^T + dO V'^T,
+//   dS = P (dP - D),  dS' = P' (dP - D) + P (dP' - D'),
+//   dQ' = scale (dS' K + dS K'),  dK' = scale (dS'^T Q + dS^T Q'),
+//   dV' = P'^T dO + P^T dO'.
+// Two launches, as the backward: part 0 writes dQ' and D, D' (a (B, H, S)
+// float32 workspace each), part 1 (after it) dK' and dV', summed over each
+// KV head's query heads, so nothing is summed with atomics.
+//
+// Simple CUDA-core kernels that are right first (making them fast with
+// wgmma and TMA is later work): float32 FMA, 256 threads, 32-row tiles
+// on both sides (a warp owns 4 rows of its block's tile, a lane one row of
+// the visited tile), every operand staged as float32 in shared memory and
+// read through its view's (b, s, h) strides, so the model layout (B, S, H,
+// d) with K/V heads unexpanded and the expanded (B, H, S, d) are both read
+// in place; bf16 or float32 in, float32 sums, results in the inputs'
+// dtype.  Masks as the forward: a pair the band excludes gets the logit
+// -1e30 and the tangent logit 0.
+namespace jvpk {
+
+constexpr int kT = 32;                    // rows of a tile, both sides
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = kT / kWarps;        // own rows a warp holds
+constexpr int kMaxViews = 13;
+
+// (b, s, h) element strides of every view a launch reads or writes.
+struct Views {
+  long long s[kMaxViews][3];
+};
+
+__device__ __forceinline__ float f32(float x) { return x; }
+__device__ __forceinline__ float f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T cast(float x);
+template <> __device__ __forceinline__ float cast<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 cast<__nv_bfloat16>(
+    float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// The (rows, d) slice of head h of batch b in view `i`.
+template <typename T>
+__device__ __forceinline__ T* head(T* base, const Views& st, int i, int b,
+                                   int h) {
+  return base + b * st.s[i][0] + h * st.s[i][2];
+}
+
+// Stage rows [row0, row0 + kT) of a head's slice (row stride rs) into a
+// float32 tile with row stride ld and D columns; rows past `rows` and
+// columns past d are zero.
+template <typename T, int D>
+__device__ __forceinline__ void stage(float* dst, int ld,
+                                      const T* __restrict__ src,
+                                      long long rs, int row0, int rows,
+                                      int d) {
+  for (int idx = threadIdx.x; idx < kT * D; idx += kThreads) {
+    const int r = idx / D, c = idx - (idx / D) * D;
+    const int gr = row0 + r;
+    float x = 0.f;
+    if (gr < rows && c < d) x = f32(src[gr * rs + c]);
+    dst[r * ld + c] = x;
+  }
+}
+
+// Tiles of kT rows on the other side that a tile starting at t0 must
+// visit: key tiles of a query tile (keys = 1) or query tiles of a key tile.
+__device__ __forceinline__ void visit(int t0, int S, int Sk, int causal,
+                                      int window, bool keys, int* begin,
+                                      int* end) {
+  if (keys) {
+    const int nk = (Sk + kT - 1) / kT;
+    int b = 0, e = nk;
+    if (causal) e = min(nk, (min(t0 + kT, S) - 1) / kT + 1);
+    if (window > 0) b = max(0, t0 - window + 1) / kT;
+    *begin = b;
+    *end = max(b, e);
+  } else {
+    const int nq = (S + kT - 1) / kT;
+    int b = 0, e = nq;
+    if (causal) b = t0 / kT;
+    if (window > 0) e = min(nq, (min(t0 + kT, Sk) - 1 + window - 1) / kT + 1);
+    *begin = b;
+    *end = max(b, e);
+  }
+}
+
+// logit and tangent logit of an in-range pair, masked as the forward.
+__device__ __forceinline__ void logits(float s, float sd, int qp, int kp,
+                                       int causal, int window, float scale,
+                                       float* x, float* xd) {
+  const bool ok = allowed(qp, kp, causal, window);
+  *x = ok ? s * scale : kMasked;
+  *xd = ok ? sd * scale : 0.f;
+}
+
+enum { Q = 0, K, V, O, DO, TQ, TK, TV, TO, TDO, TDQ, TDK, TDV };
+
+// T1.  Views: Q, K, V, TQ, TK, TV and TO (o' out).  One block per (b, h,
+// 32-row query tile).
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+fwd_tangent_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const float* __restrict__ lse,
+                   const T* __restrict__ tq, const T* __restrict__ tk,
+                   const T* __restrict__ tv, T* __restrict__ to,
+                   float* __restrict__ tlse, Views st, int H, int KV, int S,
+                   int Sk, int d, float scale, int causal, int window) {
+  constexpr int LD = D + 4, NC = D / 32;
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;                        // kT x LD
+  float* sTQ = sQ + kT * LD;
+  float* sK = sTQ + kT * LD;
+  float* sTK = sK + kT * LD;
+  float* sV = sTK + kT * LD;               // kT x D
+  float* sTV = sV + kT * D;
+  float* sP = sTV + kT * D;                // own rows x visited keys
+  float* sPS = sP + kT * kT;               // P * s'
+
+  const int nq = (S + kT - 1) / kT;
+  const int bh = blockIdx.x / nq;
+  const int q0 = (blockIdx.x - bh * nq) * kT;
+  const int b = bh / H, h = bh - (bh / H) * H, hk = h / (H / KV);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * kRows;
+
+  stage<T, D>(sQ, LD, head(q, st, Q, b, h), st.s[Q][1], q0, S, d);
+  stage<T, D>(sTQ, LD, head(tq, st, TQ, b, h), st.s[TQ][1], q0, S, d);
+  const T* kb = head(k, st, K, b, hk);
+  const T* tkb = head(tk, st, TK, b, hk);
+  const T* vb = head(v, st, V, b, hk);
+  const T* tvb = head(tv, st, TV, b, hk);
+
+  float lrow[kRows], dl[kRows], ao[kRows][NC], at[kRows][NC];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int qp = q0 + r0 + r;
+    lrow[r] = qp < S ? lse[(size_t)bh * S + qp] : 0.f;
+    dl[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) ao[r][c] = at[r][c] = 0.f;
+  }
+
+  int kt_begin, kt_end;
+  visit(q0, S, Sk, causal, window, true, &kt_begin, &kt_end);
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * kT;
+    __syncthreads();
+    stage<T, D>(sK, LD, kb, st.s[K][1], k0, Sk, d);
+    stage<T, D>(sTK, LD, tkb, st.s[TK][1], k0, Sk, d);
+    stage<T, D>(sV, D, vb, st.s[V][1], k0, Sk, d);
+    stage<T, D>(sTV, D, tvb, st.s[TV][1], k0, Sk, d);
+    __syncthreads();
+
+    float s[kRows], sd[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) s[r] = sd[r] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < D; c += 4) {
+      const float4 ka = *reinterpret_cast<const float4*>(&sK[lane * LD + c]);
+      const float4 tka =
+          *reinterpret_cast<const float4*>(&sTK[lane * LD + c]);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float4 qv =
+            *reinterpret_cast<const float4*>(&sQ[(r0 + r) * LD + c]);
+        const float4 tqv =
+            *reinterpret_cast<const float4*>(&sTQ[(r0 + r) * LD + c]);
+        s[r] = dot4(qv, ka, s[r]);
+        sd[r] = dot4(tqv, ka, dot4(qv, tka, sd[r]));
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int qp = q0 + r0 + r, kp = k0 + lane;
+      float p = 0.f, ps = 0.f;
+      if (qp < S && kp < Sk) {
+        float x, xd;
+        logits(s[r], sd[r], qp, kp, causal, window, scale, &x, &xd);
+        p = expf(x - lrow[r]);
+        ps = p * xd;
+      }
+      sP[(r0 + r) * kT + lane] = p;
+      sPS[(r0 + r) * kT + lane] = ps;
+      dl[r] += warp_sum(ps);
+    }
+    __syncwarp();
+
+#pragma unroll 4
+    for (int j = 0; j < kT; ++j) {
+      float vv[NC], tvv[NC];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        vv[c] = sV[j * D + lane + 32 * c];
+        tvv[c] = sTV[j * D + lane + 32 * c];
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float p = sP[(r0 + r) * kT + j];
+        const float ps = sPS[(r0 + r) * kT + j];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          ao[r][c] = fmaf(p, vv[c], ao[r][c]);
+          at[r][c] = fmaf(ps, vv[c], fmaf(p, tvv[c], at[r][c]));
+        }
+      }
+    }
+  }
+
+  T* tob = head(to, st, TO, b, h);
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int qp = q0 + r0 + r;
+    if (qp >= S) continue;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = lane + 32 * c;
+      if (col < d)
+        tob[qp * st.s[TO][1] + col] = cast<T>(at[r][c] - dl[r] * ao[r][c]);
+    }
+    if (lane == 0) tlse[(size_t)bh * S + qp] = dl[r];
+  }
+}
+
+// Per (own row, visited row) pair of T2: s, s', dP and dP' from the staged
+// tiles of one side (a: the row a warp owns) and the other (lane's row).
+struct Pair {
+  float s, sd, dp, dpd;
+};
+
+// T2 part 0: dQ', and D, D' into the workspaces.  Views: all but TDK and
+// TDV.  One block per (b, h, 32-row query tile).
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+bwd_tangent_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ o,
+                      const T* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const T* __restrict__ tq, const T* __restrict__ tk,
+                      const T* __restrict__ tv, const T* __restrict__ to,
+                      const T* __restrict__ tdout,
+                      const float* __restrict__ tlse,
+                      float* __restrict__ dsum, float* __restrict__ tdsum,
+                      T* __restrict__ tdq, Views st, int H, int KV, int S,
+                      int Sk, int d, float scale, int causal, int window) {
+  constexpr int LD = D + 4, NC = D / 32;
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;                        // own: q, q', dO, dO'
+  float* sTQ = sQ + kT * LD;
+  float* sO = sTQ + kT * LD;
+  float* sTO = sO + kT * LD;
+  float* sK = sTO + kT * LD;               // visited: k, k', v, v'
+  float* sTK = sK + kT * LD;
+  float* sV = sTK + kT * LD;
+  float* sTV = sV + kT * LD;
+  float* sS = sTV + kT * LD;               // dS, own x visited
+  float* sSD = sS + kT * kT;               // dS'
+
+  const int nq = (S + kT - 1) / kT;
+  const int bh = blockIdx.x / nq;
+  const int q0 = (blockIdx.x - bh * nq) * kT;
+  const int b = bh / H, h = bh - (bh / H) * H, hk = h / (H / KV);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * kRows;
+
+  stage<T, D>(sQ, LD, head(q, st, Q, b, h), st.s[Q][1], q0, S, d);
+  stage<T, D>(sTQ, LD, head(tq, st, TQ, b, h), st.s[TQ][1], q0, S, d);
+  stage<T, D>(sO, LD, head(dout, st, DO, b, h), st.s[DO][1], q0, S, d);
+  stage<T, D>(sTO, LD, head(tdout, st, TDO, b, h), st.s[TDO][1], q0, S, d);
+  const T* ob = head(o, st, O, b, h);
+  const T* tob = head(to, st, TO, b, h);
+  __syncthreads();
+
+  // D = rowsum(dO o), D' = rowsum(dO' o + dO o') of this warp's rows
+  float lrow[kRows], tl[kRows], dr[kRows], tdr[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int qp = q0 + r0 + r;
+    float a = 0.f, ad = 0.f;
+    if (qp < S) {
+      for (int c = lane; c < d; c += 32) {
+        const float ov = f32(ob[qp * st.s[O][1] + c]);
+        const float tov = f32(tob[qp * st.s[TO][1] + c]);
+        const float g = sO[(r0 + r) * LD + c];
+        const float tg = sTO[(r0 + r) * LD + c];
+        a = fmaf(g, ov, a);
+        ad = fmaf(tg, ov, fmaf(g, tov, ad));
+      }
+    }
+    dr[r] = warp_sum(a);
+    tdr[r] = warp_sum(ad);
+    lrow[r] = qp < S ? lse[(size_t)bh * S + qp] : 0.f;
+    tl[r] = qp < S ? tlse[(size_t)bh * S + qp] : 0.f;
+    if (lane == 0 && qp < S) {
+      dsum[(size_t)bh * S + qp] = dr[r];
+      tdsum[(size_t)bh * S + qp] = tdr[r];
+    }
+  }
+
+  float acc[kRows][NC];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
+
+  const T* kb = head(k, st, K, b, hk);
+  const T* tkb = head(tk, st, TK, b, hk);
+  const T* vb = head(v, st, V, b, hk);
+  const T* tvb = head(tv, st, TV, b, hk);
+  int kt_begin, kt_end;
+  visit(q0, S, Sk, causal, window, true, &kt_begin, &kt_end);
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * kT;
+    __syncthreads();
+    stage<T, D>(sK, LD, kb, st.s[K][1], k0, Sk, d);
+    stage<T, D>(sTK, LD, tkb, st.s[TK][1], k0, Sk, d);
+    stage<T, D>(sV, LD, vb, st.s[V][1], k0, Sk, d);
+    stage<T, D>(sTV, LD, tvb, st.s[TV][1], k0, Sk, d);
+    __syncthreads();
+
+    Pair pr[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) pr[r] = Pair{0.f, 0.f, 0.f, 0.f};
+#pragma unroll 2
+    for (int c = 0; c < D; c += 4) {
+      const float4 ka = *reinterpret_cast<const float4*>(&sK[lane * LD + c]);
+      const float4 tka =
+          *reinterpret_cast<const float4*>(&sTK[lane * LD + c]);
+      const float4 va = *reinterpret_cast<const float4*>(&sV[lane * LD + c]);
+      const float4 tva =
+          *reinterpret_cast<const float4*>(&sTV[lane * LD + c]);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int row = (r0 + r) * LD + c;
+        const float4 qv = *reinterpret_cast<const float4*>(&sQ[row]);
+        const float4 tqv = *reinterpret_cast<const float4*>(&sTQ[row]);
+        const float4 gv = *reinterpret_cast<const float4*>(&sO[row]);
+        const float4 tgv = *reinterpret_cast<const float4*>(&sTO[row]);
+        pr[r].s = dot4(qv, ka, pr[r].s);
+        pr[r].sd = dot4(tqv, ka, dot4(qv, tka, pr[r].sd));
+        pr[r].dp = dot4(gv, va, pr[r].dp);
+        pr[r].dpd = dot4(tgv, va, dot4(gv, tva, pr[r].dpd));
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int qp = q0 + r0 + r, kp = k0 + lane;
+      float ds = 0.f, dsd = 0.f;
+      if (qp < S && kp < Sk) {
+        float x, xd;
+        logits(pr[r].s, pr[r].sd, qp, kp, causal, window, scale, &x, &xd);
+        const float p = expf(x - lrow[r]);
+        const float pd = p * (xd - tl[r]);
+        ds = p * (pr[r].dp - dr[r]);
+        dsd = pd * (pr[r].dp - dr[r]) + p * (pr[r].dpd - tdr[r]);
+      }
+      sS[(r0 + r) * kT + lane] = ds;
+      sSD[(r0 + r) * kT + lane] = dsd;
+    }
+    __syncwarp();
+
+#pragma unroll 2
+    for (int j = 0; j < kT; ++j) {
+      float kv[NC], tkv[NC];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        kv[c] = sK[j * LD + lane + 32 * c];
+        tkv[c] = sTK[j * LD + lane + 32 * c];
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float g = sS[(r0 + r) * kT + j];
+        const float gd = sSD[(r0 + r) * kT + j];
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          acc[r][c] = fmaf(gd, kv[c], fmaf(g, tkv[c], acc[r][c]));
+      }
+    }
+  }
+
+  T* out = head(tdq, st, TDQ, b, h);
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int qp = q0 + r0 + r;
+    if (qp >= S) continue;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = lane + 32 * c;
+      if (col < d) out[qp * st.s[TDQ][1] + col] = cast<T>(scale * acc[r][c]);
+    }
+  }
+}
+
+// T2 part 1: dK' and dV' over each KV head's query heads.  Reads D and D'
+// from part 0.  One block per (b, KV head, 32-row key tile).
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+bwd_tangent_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const T* __restrict__ tq, const T* __restrict__ tk,
+                       const T* __restrict__ tv,
+                       const T* __restrict__ tdout,
+                       const float* __restrict__ tlse,
+                       const float* __restrict__ dsum,
+                       const float* __restrict__ tdsum,
+                       T* __restrict__ tdk, T* __restrict__ tdv, Views st,
+                       int H, int KV, int S, int Sk, int d, float scale,
+                       int causal, int window) {
+  constexpr int LD = D + 4, NC = D / 32;
+  extern __shared__ __align__(16) float smem[];
+  float* sK = smem;                        // own: k, k', v, v'
+  float* sTK = sK + kT * LD;
+  float* sV = sTK + kT * LD;
+  float* sTV = sV + kT * LD;
+  float* sQ = sTV + kT * LD;               // visited: q, q', dO, dO'
+  float* sTQ = sQ + kT * LD;
+  float* sO = sTQ + kT * LD;
+  float* sTO = sO + kT * LD;
+  float* sP = sTO + kT * LD;               // own keys x visited queries
+  float* sPD = sP + kT * kT;
+  float* sS = sPD + kT * kT;
+  float* sSD = sS + kT * kT;
+  float* sRow = sSD + kT * kT;             // lse, lse', D, D' of the tile
+
+  const int nk = (Sk + kT - 1) / kT;
+  const int bk = blockIdx.x / nk;
+  const int k0 = (blockIdx.x - bk * nk) * kT;
+  const int b = bk / KV, hk = bk - (bk / KV) * KV, grp = H / KV;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * kRows;
+
+  stage<T, D>(sK, LD, head(k, st, K, b, hk), st.s[K][1], k0, Sk, d);
+  stage<T, D>(sTK, LD, head(tk, st, TK, b, hk), st.s[TK][1], k0, Sk, d);
+  stage<T, D>(sV, LD, head(v, st, V, b, hk), st.s[V][1], k0, Sk, d);
+  stage<T, D>(sTV, LD, head(tv, st, TV, b, hk), st.s[TV][1], k0, Sk, d);
+
+  float gk[kRows][NC], gv[kRows][NC];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) gk[r][c] = gv[r][c] = 0.f;
+
+  int qt_begin, qt_end;
+  visit(k0, S, Sk, causal, window, false, &qt_begin, &qt_end);
+  for (int h = hk * grp; h < (hk + 1) * grp; ++h) {
+    const size_t rows = ((size_t)b * H + h) * S;
+    for (int qt = qt_begin; qt < qt_end; ++qt) {
+      const int q0 = qt * kT;
+      __syncthreads();
+      stage<T, D>(sQ, LD, head(q, st, Q, b, h), st.s[Q][1], q0, S, d);
+      stage<T, D>(sTQ, LD, head(tq, st, TQ, b, h), st.s[TQ][1], q0, S, d);
+      stage<T, D>(sO, LD, head(dout, st, DO, b, h), st.s[DO][1], q0, S, d);
+      stage<T, D>(sTO, LD, head(tdout, st, TDO, b, h), st.s[TDO][1], q0, S,
+                  d);
+      if (threadIdx.x < kT) {
+        const int qp = q0 + threadIdx.x;
+        const bool in = qp < S;
+        sRow[threadIdx.x] = in ? lse[rows + qp] : 0.f;
+        sRow[kT + threadIdx.x] = in ? tlse[rows + qp] : 0.f;
+        sRow[2 * kT + threadIdx.x] = in ? dsum[rows + qp] : 0.f;
+        sRow[3 * kT + threadIdx.x] = in ? tdsum[rows + qp] : 0.f;
+      }
+      __syncthreads();
+
+      Pair pr[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) pr[r] = Pair{0.f, 0.f, 0.f, 0.f};
+#pragma unroll 2
+      for (int c = 0; c < D; c += 4) {
+        const float4 qa = *reinterpret_cast<const float4*>(&sQ[lane * LD + c]);
+        const float4 tqa =
+            *reinterpret_cast<const float4*>(&sTQ[lane * LD + c]);
+        const float4 ga = *reinterpret_cast<const float4*>(&sO[lane * LD + c]);
+        const float4 tga =
+            *reinterpret_cast<const float4*>(&sTO[lane * LD + c]);
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          const int row = (r0 + r) * LD + c;
+          const float4 kv = *reinterpret_cast<const float4*>(&sK[row]);
+          const float4 tkv = *reinterpret_cast<const float4*>(&sTK[row]);
+          const float4 vv = *reinterpret_cast<const float4*>(&sV[row]);
+          const float4 tvv = *reinterpret_cast<const float4*>(&sTV[row]);
+          pr[r].s = dot4(qa, kv, pr[r].s);
+          pr[r].sd = dot4(tqa, kv, dot4(qa, tkv, pr[r].sd));
+          pr[r].dp = dot4(ga, vv, pr[r].dp);
+          pr[r].dpd = dot4(tga, vv, dot4(ga, tvv, pr[r].dpd));
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int kp = k0 + r0 + r, qp = q0 + lane;
+        float p = 0.f, pd = 0.f, ds = 0.f, dsd = 0.f;
+        if (qp < S && kp < Sk) {
+          float x, xd;
+          logits(pr[r].s, pr[r].sd, qp, kp, causal, window, scale, &x, &xd);
+          const float dr = sRow[2 * kT + lane], tdr = sRow[3 * kT + lane];
+          p = expf(x - sRow[lane]);
+          pd = p * (xd - sRow[kT + lane]);
+          ds = p * (pr[r].dp - dr);
+          dsd = pd * (pr[r].dp - dr) + p * (pr[r].dpd - tdr);
+        }
+        const int at = (r0 + r) * kT + lane;
+        sP[at] = p;
+        sPD[at] = pd;
+        sS[at] = ds;
+        sSD[at] = dsd;
+      }
+      __syncwarp();
+
+#pragma unroll 2
+      for (int i = 0; i < kT; ++i) {
+        float qv[NC], tqv[NC], gvv[NC], tgv[NC];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const int at = i * LD + lane + 32 * c;
+          qv[c] = sQ[at];
+          tqv[c] = sTQ[at];
+          gvv[c] = sO[at];
+          tgv[c] = sTO[at];
+        }
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          const int at = (r0 + r) * kT + i;
+          const float p = sP[at], pd = sPD[at], g = sS[at], gd = sSD[at];
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            gk[r][c] = fmaf(gd, qv[c], fmaf(g, tqv[c], gk[r][c]));
+            gv[r][c] = fmaf(pd, gvv[c], fmaf(p, tgv[c], gv[r][c]));
+          }
+        }
+      }
+    }
+  }
+
+  T* okb = head(tdk, st, TDK, b, hk);
+  T* ovb = head(tdv, st, TDV, b, hk);
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int kp = k0 + r0 + r;
+    if (kp >= Sk) continue;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = lane + 32 * c;
+      if (col < d) {
+        okb[kp * st.s[TDK][1] + col] = cast<T>(scale * gk[r][c]);
+        ovb[kp * st.s[TDV][1] + col] = cast<T>(gv[r][c]);
+      }
+    }
+  }
+}
+
+template <int D> constexpr size_t fwd_smem() {
+  return sizeof(float) * (4 * kT * (D + 4) + 2 * kT * D + 2 * kT * kT);
+}
+template <int D> constexpr size_t dq_smem() {
+  return sizeof(float) * (8 * kT * (D + 4) + 2 * kT * kT);
+}
+template <int D> constexpr size_t dkv_smem() {
+  return sizeof(float) * (8 * kT * (D + 4) + 4 * kT * kT + 4 * kT);
+}
+
+struct Ptrs {
+  const void *q, *k, *v, *o, *dout, *lse, *tq, *tk, *tv, *to, *tdout, *tlse;
+  void *out_q, *out_k, *out_v, *out_lse, *dsum, *tdsum;
+};
+
+template <typename T, int D>
+cudaError_t run_fwd(const Ptrs& p, const Views& st, int B, int H, int KV,
+                    int S, int Sk, int d, float scale, int causal,
+                    int window, cudaStream_t s) {
+  auto kernel = fwd_tangent_kernel<T, D>;
+  static bool ready = false;
+  cudaError_t err = allow_smem(kernel, fwd_smem<D>(), &ready);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)B * H * ((S + kT - 1) / kT);
+  kernel<<<(unsigned)blocks, kThreads, fwd_smem<D>(), s>>>(
+      static_cast<const T*>(p.q), static_cast<const T*>(p.k),
+      static_cast<const T*>(p.v), static_cast<const float*>(p.lse),
+      static_cast<const T*>(p.tq), static_cast<const T*>(p.tk),
+      static_cast<const T*>(p.tv), static_cast<T*>(p.out_q),
+      static_cast<float*>(p.out_lse), st, H, KV, S, Sk, d, scale, causal,
+      window);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t run_bwd(const Ptrs& p, const Views& st, int B, int H, int KV,
+                    int S, int Sk, int d, float scale, int causal,
+                    int window, int part, cudaStream_t s) {
+  const T *q = static_cast<const T*>(p.q), *k = static_cast<const T*>(p.k),
+          *v = static_cast<const T*>(p.v), *dout = static_cast<const T*>(p.dout),
+          *tq = static_cast<const T*>(p.tq), *tk = static_cast<const T*>(p.tk),
+          *tv = static_cast<const T*>(p.tv),
+          *tdout = static_cast<const T*>(p.tdout);
+  const float *lse = static_cast<const float*>(p.lse),
+              *tlse = static_cast<const float*>(p.tlse);
+  float *dsum = static_cast<float*>(p.dsum),
+        *tdsum = static_cast<float*>(p.tdsum);
+  if (part == 0) {
+    auto kernel = bwd_tangent_dq_kernel<T, D>;
+    static bool ready = false;
+    cudaError_t err = allow_smem(kernel, dq_smem<D>(), &ready);
+    if (err != cudaSuccess) return err;
+    const long long blocks = (long long)B * H * ((S + kT - 1) / kT);
+    kernel<<<(unsigned)blocks, kThreads, dq_smem<D>(), s>>>(
+        q, k, v, static_cast<const T*>(p.o), dout, lse, tq, tk, tv,
+        static_cast<const T*>(p.to), tdout, tlse, dsum, tdsum,
+        static_cast<T*>(p.out_q), st, H, KV, S, Sk, d, scale, causal,
+        window);
+  } else {
+    auto kernel = bwd_tangent_dkv_kernel<T, D>;
+    static bool ready = false;
+    cudaError_t err = allow_smem(kernel, dkv_smem<D>(), &ready);
+    if (err != cudaSuccess) return err;
+    const long long blocks = (long long)B * KV * ((Sk + kT - 1) / kT);
+    kernel<<<(unsigned)blocks, kThreads, dkv_smem<D>(), s>>>(
+        q, k, v, dout, lse, tq, tk, tv, tdout, tlse, dsum, tdsum,
+        static_cast<T*>(p.out_k), static_cast<T*>(p.out_v), st, H, KV, S,
+        Sk, d, scale, causal, window);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(const Ptrs& p, const Views& st, int B, int H, int KV,
+                     int S, int Sk, int d, float scale, int causal,
+                     int window, int part, cudaStream_t s) {
+  if (part < 0)
+    return d <= 32 ? run_fwd<T, 32>(p, st, B, H, KV, S, Sk, d, scale, causal, window, s)
+         : d <= 64 ? run_fwd<T, 64>(p, st, B, H, KV, S, Sk, d, scale, causal, window, s)
+                   : run_fwd<T, 128>(p, st, B, H, KV, S, Sk, d, scale, causal, window, s);
+  return d <= 32 ? run_bwd<T, 32>(p, st, B, H, KV, S, Sk, d, scale, causal, window, part, s)
+       : d <= 64 ? run_bwd<T, 64>(p, st, B, H, KV, S, Sk, d, scale, causal, window, part, s)
+                 : run_bwd<T, 128>(p, st, B, H, KV, S, Sk, d, scale, causal, window, part, s);
+}
+
+bool valid(int B, int H, int KV, int S, int Sk, int d, int dtype) {
+  const int longest = S > Sk ? S : Sk;
+  return B >= 1 && KV >= 1 && H >= KV && H % KV == 0 && S >= 1 && Sk >= 1 &&
+         d >= 1 && d <= kMaxHeadDim && (dtype == 0 || dtype == 1) &&
+         (long long)B * H * ((longest + kT - 1) / kT) <= 0x7fffffffLL;
+}
+
+Views views(const long long* strides, int n) {
+  Views st{};
+  for (int i = 0; i < n; ++i)
+    for (int j = 0; j < 3; ++j) st.s[i][j] = strides[3 * i + j];
+  return st;
+}
+
+}  // namespace jvpk
+
 extern "C" {
 
 int repro_flash_max_head_dim() { return kMaxHeadDim; }
@@ -1791,6 +2467,53 @@ int repro_flash_bwd_bf16(const void* q, const void* k, const void* v,
     err = d <= 64 ? hop::run_dkv<1, 1>(a, B, s) : hop::run_dkv<2, 1>(a, B, s);
   }
   return (int)err;
+}
+
+// Forward-mode tangents on the CUDA cores (namespace jvpk), dtype 0
+// float32 or 1 bfloat16.  `strides` holds the (b, s, h) element strides of
+// 13 views, in the order q, k, v, o, dout, tq, tk, tv, to, tdout, tdq,
+// tdk, tdv (a view a launch does not touch may be given as 0s); each view's
+// d has stride 1.  q-like views have H heads, k/v-like views KV, H % KV ==
+// 0.  lse, tlse, dsum and tdsum are (B, H, S) float32.
+// T1: o' into `to`, lse' into `tlse`.
+int repro_flash_fwd_tangent(const void* q, const void* k, const void* v,
+                            const void* lse, const void* tq, const void* tk,
+                            const void* tv, void* to, void* tlse,
+                            const long long* strides, int B, int H, int KV,
+                            int S, int Sk, int d, float scale, int causal,
+                            int window, int dtype, void* stream) {
+  if (!jvpk::valid(B, H, KV, S, Sk, d, dtype))
+    return (int)cudaErrorInvalidValue;
+  jvpk::Ptrs p{};
+  p.q = q; p.k = k; p.v = v; p.lse = lse; p.tq = tq; p.tk = tk; p.tv = tv;
+  p.out_q = to; p.out_lse = tlse;
+  const jvpk::Views st = jvpk::views(strides, jvpk::kMaxViews);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(dtype ? jvpk::dispatch<__nv_bfloat16>(p, st, B, H, KV, S, Sk, d, scale, causal, window, -1, s)
+                     : jvpk::dispatch<float>(p, st, B, H, KV, S, Sk, d, scale, causal, window, -1, s));
+}
+
+// T2.  part 0: dq' into `tdq`, and D, D' into `dsum`, `tdsum`; part 1
+// (after part 0): dk' and dv', summed over each KV head's query heads.
+int repro_flash_bwd_tangent(const void* q, const void* k, const void* v,
+                            const void* o, const void* dout, const void* lse,
+                            const void* tq, const void* tk, const void* tv,
+                            const void* to, const void* tdout,
+                            const void* tlse, void* dsum, void* tdsum,
+                            void* tdq, void* tdk, void* tdv,
+                            const long long* strides, int B, int H, int KV,
+                            int S, int Sk, int d, float scale, int causal,
+                            int window, int part, int dtype, void* stream) {
+  if (!jvpk::valid(B, H, KV, S, Sk, d, dtype) || (part != 0 && part != 1))
+    return (int)cudaErrorInvalidValue;
+  jvpk::Ptrs p{};
+  p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout; p.lse = lse;
+  p.tq = tq; p.tk = tk; p.tv = tv; p.to = to; p.tdout = tdout; p.tlse = tlse;
+  p.dsum = dsum; p.tdsum = tdsum; p.out_q = tdq; p.out_k = tdk; p.out_v = tdv;
+  const jvpk::Views st = jvpk::views(strides, jvpk::kMaxViews);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(dtype ? jvpk::dispatch<__nv_bfloat16>(p, st, B, H, KV, S, Sk, d, scale, causal, window, part, s)
+                     : jvpk::dispatch<float>(p, st, B, H, KV, S, Sk, d, scale, causal, window, part, s));
 }
 
 }  // extern "C"

@@ -23,13 +23,25 @@ Each is a ``torch.autograd.Function`` in the ``setup_context`` form with a
 ``torch.func.vmap`` over ``torch.func.grad`` (the serving tier's batched
 adaptation) reaches the kernels: a raw-pointer launch cannot see a batched
 tensor.  The backward is itself such a ``Function``, so the gradient's
-launch is folded the same way.  It is single-use: serving adapts
-first-order, and differentiating the backward raises.
+launch is folded the same way.  Its reverse-mode derivative raises;
+its forward-mode rule is below.
 
 ``launch_counts`` counts kernel launches: one per forward call and two per
 backward call (the backward is two kernels, each counted where it is
 launched: in bfloat16 dQ, which also computes D = rowsum(dO ⊙ O), then
 dK/dV; in float32 dK/dV, then dQ).  Plain-version calls are not counted.
+
+Forward mode.  The exact meta-gradient's Hessian-vector products are
+``torch.func.jvp`` over ``torch.func.grad``, so each forward ``Function``
+and each backward ``Function`` has a ``jvp`` rule.  The rule runs a
+tangent ``Function`` of its own (:class:`_FwdTangent`, :class:`_BwdTangent`)
+whose ``vmap`` rule folds the mapped dimensions like the others, so the
+tangent kernels (T1 :func:`flash_attention_fwd_tangent`, T2
+:func:`flash_attention_bwd_tangent`, in ``csrc/flash_attention.cu``,
+namespace ``jvpk``) see plain tensors under ``vmap(vmap(jvp(grad)))``.
+Both take either layout (``heads_dim``) and float32 or bfloat16, and count
+one launch (T1) and two (T2: dQ', then dK'/dV') in ``launch_counts``.
+Reverse-over-reverse (``grad`` of ``grad``) still raises.
 """
 from __future__ import annotations
 
@@ -40,15 +52,15 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels.build import CudaLibrary, raise_on
-from repro_torch.kernels.fold import fold, unfold
-from repro_torch.kernels.flash_attention.ref import (flash_bwd_ref,
-                                                     flash_fwd_ref,
-                                                     gqa_flash_bwd_ref,
-                                                     gqa_flash_fwd_ref)
+from repro_torch.kernels.fold import fold, unfold, zeros_for_none
+from repro_torch.kernels.flash_attention.ref import (
+    flash_bwd_ref, flash_bwd_tangent_ref, flash_fwd_ref,
+    flash_fwd_tangent_ref, gqa_flash_bwd_ref, gqa_flash_fwd_ref)
 
 __all__ = ["MAX_HEAD_DIM", "build", "flash_attention",
            "flash_attention_bwd", "flash_attention_fwd_lse",
            "gqa_flash_attention", "gqa_flash_attention_bwd",
+           "flash_attention_bwd_tangent", "flash_attention_fwd_tangent",
            "gqa_flash_attention_fwd_lse", "launch_counts",
            "reset_launch_counts"]
 
@@ -57,7 +69,9 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 
 _DTYPES = (torch.float32, torch.bfloat16)   # CUDA-core, Hopper kernels
 
-launch_counts = {"flash_attention_fwd": 0, "flash_attention_bwd": 0}
+launch_counts = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
+                 "flash_attention_fwd_tangent": 0,
+                 "flash_attention_bwd_tangent": 0}
 
 
 def reset_launch_counts() -> None:
@@ -80,6 +94,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_flash_bwd_bf16.argtypes = [p] * 10 + [st] + [i] * 6 + [f] + \
         [i] * 4 + [p]
     lib.repro_flash_bwd_bf16.restype = i
+    lib.repro_flash_fwd_tangent.argtypes = [p] * 9 + [st] + [i] * 6 + [f] + \
+        [i] * 3 + [p]
+    lib.repro_flash_fwd_tangent.restype = i
+    lib.repro_flash_bwd_tangent.argtypes = [p] * 17 + [st] + [i] * 6 + \
+        [f] + [i] * 4 + [p]
+    lib.repro_flash_bwd_tangent.restype = i
     if lib.repro_flash_max_head_dim() != MAX_HEAD_DIM:
         raise RuntimeError("kernel library and wrapper disagree on the "
                            "largest supported head dim")
@@ -129,7 +149,8 @@ def _check_cuda(name: str, window: int | None, **tensors) -> None:
         if t.device != q.device:
             raise ValueError(f"{name}: {tname} is on {t.device}, expected "
                              f"{q.device}")
-        want = torch.float32 if tname in ("lse", "dsum") else q.dtype
+        want = torch.float32 if tname in ("lse", "tlse", "dsum") \
+            else q.dtype
         if t.dtype != want:
             raise ValueError(f"{name}: {tname} must be {want}, got "
                              f"{t.dtype}")
@@ -298,6 +319,213 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,
 
 
 # ---------------------------------------------------------------------------
+# forward-mode tangents: T1 (of the forward) and T2 (of the backward)
+# ---------------------------------------------------------------------------
+
+_TANGENT_VIEWS = ("q", "k", "v", "o", "dout", "tq", "tk", "tv", "to",
+                  "tdout", "tdq", "tdk", "tdv")
+
+
+def _view_strides(heads_dim: int, **views):
+    """The (b, s, h) element strides of the 13 views the tangent kernels
+    name, in their order (0s for a view a launch does not touch)."""
+    out = []
+    for name in _TANGENT_VIEWS:
+        t = views.get(name)
+        if t is None:
+            out += (0, 0, 0)
+            continue
+        sb, s1, s2, _ = t.stride()
+        out += (sb, s2, s1) if heads_dim == 1 else (sb, s1, s2)
+    return (ctypes.c_longlong * len(out))(*out)
+
+
+def _layout(name: str, q, k, v, heads_dim: int) -> tuple[int, int, int, int,
+                                                         int, int]:
+    """(B, H, KV, S, Sk, d) of either layout, checked."""
+    if heads_dim == 1:
+        _check_shapes(name, q, k, v)
+    elif heads_dim == 2:
+        _check_gqa(name, q, k, v)
+    else:
+        raise ValueError(f"{name}: heads_dim must be 1 ((B, H, S, d)) or 2 "
+                         f"((B, S, H, d)), got {heads_dim}")
+    (H, S), (KV, Sk) = _dims(q, heads_dim), _dims(k, heads_dim)
+    return q.shape[0], H, KV, S, Sk, q.shape[3]
+
+
+def flash_attention_fwd_tangent(q, k, v, lse, tq, tk, tv, *,
+                                causal: bool = True,
+                                window: int | None = None,
+                                scale: float | None = None,
+                                heads_dim: int = 1):
+    """T1: the tangent (o', lse') of the forward ``(out, lse)`` at (q, k,
+    v) along (q', k', v'), from the forward's ``lse`` (B, H, S).  Layout
+    (B, H, S, d) with ``heads_dim=1`` (heads expanded), (B, S, H, d) with
+    K/V (B, S_k, KV, d) unexpanded with ``heads_dim=2``.  o' in q's dtype,
+    lse' (B, H, S) float32; the plain version is
+    :func:`.ref.flash_fwd_tangent_ref`."""
+    name = "flash_attention_fwd_tangent"
+    B, H, KV, S, Sk, d = _layout(name, q, k, v, heads_dim)
+    scale = _scale(q, scale)
+    if _route(name, q) == "cpu":
+        return flash_fwd_tangent_ref(q, k, v, tq, tk, tv, causal=causal,
+                                     window=window, scale=scale,
+                                     heads_dim=heads_dim)
+    _check_cuda(name, window, q=q, k=k, v=v, lse=lse, tq=tq, tk=tk, tv=tv)
+    q, k, v, tq, tk, tv = (_strided(t) for t in (q, k, v, tq, tk, tv))
+    lse = lse.contiguous()
+    to = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    tlse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    strides = _view_strides(heads_dim, q=q, k=k, v=v, tq=tq, tk=tk, tv=tv,
+                            to=to)
+    with torch.cuda.device(q.device):
+        err = _LIB.lib.repro_flash_fwd_tangent(
+            *(t.data_ptr() for t in (q, k, v, lse, tq, tk, tv, to, tlse)),
+            strides, B, H, KV, S, Sk, d, scale, int(causal),
+            0 if window is None else int(window),
+            int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    raise_on(err, name)
+    launch_counts[name] += 1
+    return to, tlse
+
+
+def flash_attention_bwd_tangent(q, k, v, out, lse, do, tq, tk, tv, tout,
+                                tlse, tdo, *, causal: bool = True,
+                                window: int | None = None,
+                                scale: float | None = None,
+                                heads_dim: int = 1):
+    """T2: the tangent (dq', dk', dv') of the backward's (dq, dk, dv) at
+    (q, k, v, out, lse, dO) along the tangents of all six, in the layout of
+    ``heads_dim`` (as :func:`flash_attention_fwd_tangent`); dk' and dv'
+    summed over each KV head's query heads.  Two launches: dq' (which also
+    writes D and D' into workspaces), then dk'/dv'.  The plain version is
+    :func:`.ref.flash_bwd_tangent_ref`."""
+    name = "flash_attention_bwd_tangent"
+    B, H, KV, S, Sk, d = _layout(name, q, k, v, heads_dim)
+    scale = _scale(q, scale)
+    if _route(name, q) == "cpu":
+        return flash_bwd_tangent_ref(q, k, v, out, lse, do, tq, tk, tv,
+                                     tout, tlse, tdo, causal=causal,
+                                     window=window, scale=scale,
+                                     heads_dim=heads_dim)
+    _check_cuda(name, window, q=q, k=k, v=v, out=out, do=do, lse=lse, tq=tq,
+                tk=tk, tv=tv, tout=tout, tlse=tlse, tdo=tdo)
+    q, k, v, out, do, tq, tk, tv, tout, tdo = (
+        _strided(t) for t in (q, k, v, out, do, tq, tk, tv, tout, tdo))
+    lse, tlse = lse.contiguous(), tlse.contiguous()
+    tdq, tdk, tdv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                     for t in (q, k, v))
+    dsum, tdsum = (torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+                   for _ in "DD")
+    strides = _view_strides(heads_dim, q=q, k=k, v=v, o=out, dout=do, tq=tq,
+                            tk=tk, tv=tv, to=tout, tdout=tdo, tdq=tdq,
+                            tdk=tdk, tdv=tdv)
+    ptrs = [t.data_ptr() for t in (q, k, v, out, do, lse, tq, tk, tv, tout,
+                                   tdo, tlse, dsum, tdsum, tdq, tdk, tdv)]
+    for part in (0, 1):                     # dq' with D and D', then dk'/dv'
+        with torch.cuda.device(q.device):
+            err = _LIB.lib.repro_flash_bwd_tangent(
+                *ptrs, strides, B, H, KV, S, Sk, d, scale, int(causal),
+                0 if window is None else int(window), part,
+                int(q.dtype == torch.bfloat16),
+                torch.cuda.current_stream().cuda_stream)
+        raise_on(err, name)
+        launch_counts[name] += 1
+    return tdq, tdk, tdv
+
+
+class _FwdTangent(torch.autograd.Function):
+    """T1 as a ``Function``: a forward ``Function``'s ``jvp`` rule runs
+    below the vmap levels, on batched tensors, so the launch goes through
+    this ``vmap`` rule, which folds them."""
+
+    @staticmethod
+    def forward(q, k, v, lse, tq, tk, tv, causal, window, scale, heads_dim):
+        return flash_attention_fwd_tangent(
+            q, k, v, lse, tq, tk, tv, causal=causal, window=window,
+            scale=scale, heads_dim=heads_dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("the flash-attention tangent kernels are not "
+                           "differentiable")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, lse, tq, tk, tv, causal, window, scale,
+             heads_dim):
+        n = info.batch_size
+        args = [fold(t, dim, n) for t, dim in
+                zip((q, k, v, lse, tq, tk, tv), in_dims[:7])]
+        to, tlse = _FwdTangent.apply(*args, causal, window, scale, heads_dim)
+        return (unfold(to, n), unfold(tlse, n)), (0, 0)
+
+
+class _BwdTangent(torch.autograd.Function):
+    """T2 as a ``Function``, folded under ``vmap`` like :class:`_FwdTangent`."""
+
+    @staticmethod
+    def forward(q, k, v, out, lse, do, tq, tk, tv, tout, tlse, tdo, causal,
+                window, scale, heads_dim):
+        return flash_attention_bwd_tangent(
+            q, k, v, out, lse, do, tq, tk, tv, tout, tlse, tdo,
+            causal=causal, window=window, scale=scale, heads_dim=heads_dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("the flash-attention tangent kernels are not "
+                           "differentiable")
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        n = info.batch_size
+        folded = [fold(t, dim, n) for t, dim in zip(args[:12], in_dims[:12])]
+        grads = _BwdTangent.apply(*folded, *args[12:])
+        return tuple(unfold(g, n) for g in grads), (0, 0, 0)
+
+
+def _save(ctx, inputs, output) -> None:
+    """What both forward ``Function``s keep: (q, k, v, out, lse) for the
+    backward, (q, k, v, lse) for the ``jvp`` rule.  lse stays
+    differentiable in forward mode, since the backward's tangent reads
+    lse'; its reverse-mode gradient is never materialized."""
+    q, k, v, causal, window, scale = inputs
+    out, lse = output
+    ctx.set_materialize_grads(False)
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.save_for_forward(q, k, v, lse)
+    ctx.causal, ctx.window, ctx.scale = causal, window, scale
+
+
+def _no_lse_grad(g_lse) -> None:
+    if g_lse is not None:
+        raise RuntimeError("the flash-attention logsumexp output has no "
+                           "reverse-mode gradient: use the attention output")
+
+
+def _fwd_jvp(ctx, tangents, heads_dim: int):
+    q, k, v, lse = ctx.saved_tensors
+    tq, tk, tv = zeros_for_none(tangents, (q, k, v))
+    return _FwdTangent.apply(q, k, v, lse, tq, tk, tv, ctx.causal,
+                             ctx.window, ctx.scale, heads_dim)
+
+
+def _bwd_jvp(ctx, tangents, heads_dim: int):
+    primals = ctx.saved_tensors
+    return _BwdTangent.apply(*primals, *zeros_for_none(tangents, primals),
+                             ctx.causal, ctx.window, ctx.scale, heads_dim)
+
+
+# ---------------------------------------------------------------------------
 # autograd: kernel forward + kernel backward
 # ---------------------------------------------------------------------------
 
@@ -312,13 +540,20 @@ class _FlashAttentionBwd(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        pass
+        ctx.save_for_forward(*inputs[:6])
+        ctx.causal, ctx.window, ctx.scale = inputs[6:]
 
     @staticmethod
     def backward(ctx, *grads):
         raise RuntimeError(
-            "the flash-attention backward is once-differentiable: second-"
-            "order gradients through flash_attention are not supported")
+            "the flash-attention backward is once-differentiable in reverse "
+            "mode: reverse-over-reverse (grad of grad) through "
+            "flash_attention is not supported; forward-over-reverse (jvp of "
+            "grad) runs the tangent kernels")
+
+    @staticmethod
+    def jvp(ctx, tq, tk, tv, tout, tlse, tdo, *_):
+        return _bwd_jvp(ctx, (tq, tk, tv, tout, tlse, tdo), heads_dim=1)
 
     @staticmethod
     def vmap(info, in_dims, q, k, v, out, lse, do, causal, window, scale):
@@ -337,19 +572,22 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, causal, window, scale = inputs
-        out, lse = output
-        ctx.mark_non_differentiable(lse)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window, ctx.scale = causal, window, scale
+        _save(ctx, inputs, output)
 
     @staticmethod
     def backward(ctx, g_out, g_lse):
+        if g_out is None:
+            return None, None, None, None, None, None
+        _no_lse_grad(g_lse)
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _FlashAttentionBwd.apply(q, k, v, out, lse, g_out,
                                               ctx.causal, ctx.window,
                                               ctx.scale)
         return dq, dk, dv, None, None, None
+
+    @staticmethod
+    def jvp(ctx, tq, tk, tv, *_):
+        return _fwd_jvp(ctx, (tq, tk, tv), heads_dim=1)
 
     @staticmethod
     def vmap(info, in_dims, q, k, v, causal, window, scale):
@@ -452,13 +690,20 @@ class _GQAFlashAttentionBwd(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        pass
+        ctx.save_for_forward(*inputs[:6])
+        ctx.causal, ctx.window, ctx.scale = inputs[6:]
 
     @staticmethod
     def backward(ctx, *grads):
         raise RuntimeError(
-            "the flash-attention backward is once-differentiable: second-"
-            "order gradients through gqa_flash_attention are not supported")
+            "the flash-attention backward is once-differentiable in reverse "
+            "mode: reverse-over-reverse (grad of grad) through "
+            "gqa_flash_attention is not supported; forward-over-reverse "
+            "(jvp of grad) runs the tangent kernels")
+
+    @staticmethod
+    def jvp(ctx, tq, tk, tv, tout, tlse, tdo, *_):
+        return _bwd_jvp(ctx, (tq, tk, tv, tout, tlse, tdo), heads_dim=2)
 
     @staticmethod
     def vmap(info, in_dims, q, k, v, out, lse, do, causal, window, scale):
@@ -477,22 +722,22 @@ class _GQAFlashAttention(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, causal, window, scale = inputs
-        out, lse = output
-        ctx.mark_non_differentiable(lse)
-        ctx.set_materialize_grads(False)   # no zeros for lse's gradient
-        ctx.save_for_backward(q, k, v, out, lse)     # K and V unexpanded
-        ctx.causal, ctx.window, ctx.scale = causal, window, scale
+        _save(ctx, inputs, output)                   # K and V unexpanded
 
     @staticmethod
     def backward(ctx, g_out, g_lse):
         if g_out is None:
             return None, None, None, None, None, None
+        _no_lse_grad(g_lse)
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _GQAFlashAttentionBwd.apply(q, k, v, out, lse, g_out,
                                                  ctx.causal, ctx.window,
                                                  ctx.scale)
         return dq, dk, dv, None, None, None
+
+    @staticmethod
+    def jvp(ctx, tq, tk, tv, *_):
+        return _fwd_jvp(ctx, (tq, tk, tv), heads_dim=2)
 
     @staticmethod
     def vmap(info, in_dims, q, k, v, causal, window, scale):

@@ -12,6 +12,11 @@ JAX package's ``flash_bwd.py``.  :func:`gqa_flash_fwd_ref` and
 :func:`gqa_flash_bwd_ref` are the same in the model's layout, with K/V
 heads not expanded.  The kernel wrappers use them for CPU tensors, and
 ``chip_smoke.py`` holds the kernels against them on the card.
+
+:func:`flash_fwd_tangent_ref` and :func:`flash_bwd_tangent_ref` are the
+plain versions of the two tangent kernels: ``torch.func.jvp`` of the
+forward and of the backward above (the backward's sums in float64, so dS
+stays exactly 0 where a row sees one key), in either layout.
 """
 from __future__ import annotations
 
@@ -22,7 +27,8 @@ import torch
 NEG_INF = -1e30
 
 __all__ = ["NEG_INF", "attention_ref", "band_mask", "flash_bwd_ref",
-           "flash_fwd_ref", "gqa_flash_bwd_ref", "gqa_flash_fwd_ref"]
+           "flash_bwd_tangent_ref", "flash_fwd_ref", "flash_fwd_tangent_ref",
+           "gqa_flash_bwd_ref", "gqa_flash_fwd_ref"]
 
 
 def band_mask(S: int, Sk: int, causal: bool, window: int | None,
@@ -137,3 +143,35 @@ def gqa_flash_bwd_ref(q, k, v, out, lse, do, *, causal: bool = True,
 
     return (dq.transpose(1, 2).to(q.dtype), per_kv_head(dk).to(k.dtype),
             per_kv_head(dv).to(v.dtype))
+
+
+def flash_fwd_tangent_ref(q, k, v, tq, tk, tv, *, causal: bool = True,
+                          window: int | None = None,
+                          scale: float | None = None, heads_dim: int = 1
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(o', lse'): ``torch.func.jvp`` of :func:`flash_fwd_ref`
+    (``heads_dim=1``, (B, H, S, d)) or :func:`gqa_flash_fwd_ref`
+    (``heads_dim=2``, (B, S, H, d) with K/V heads unexpanded) at (q, k, v)
+    along (q', k', v')."""
+    fwd = flash_fwd_ref if heads_dim == 1 else gqa_flash_fwd_ref
+    return torch.func.jvp(
+        lambda q, k, v: fwd(q, k, v, causal=causal, window=window,
+                            scale=scale),
+        *(tuple(t.contiguous() for t in ts) for ts in ((q, k, v),
+                                                        (tq, tk, tv))))[1]
+
+
+def flash_bwd_tangent_ref(q, k, v, out, lse, do, tq, tk, tv, tout, tlse,
+                          tdo, *, causal: bool = True,
+                          window: int | None = None,
+                          scale: float | None = None, heads_dim: int = 1
+                          ) -> tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """(dq', dk', dv'): ``torch.func.jvp`` of :func:`flash_bwd_ref` or
+    :func:`gqa_flash_bwd_ref` (by ``heads_dim``) at (q, k, v, out, lse, dO)
+    along the tangents of all six."""
+    bwd = flash_bwd_ref if heads_dim == 1 else gqa_flash_bwd_ref
+    return torch.func.jvp(
+        lambda *a: bwd(*a, causal=causal, window=window, scale=scale),
+        *(tuple(t.contiguous() for t in ts) for ts in (
+            (q, k, v, out, lse, do), (tq, tk, tv, tout, tlse, tdo))))[1]

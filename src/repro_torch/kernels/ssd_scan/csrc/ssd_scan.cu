@@ -12,6 +12,10 @@
 //   with the (P, N) state carried across chunks in float32.  y is written in
 //   x's dtype, the final state in float32.
 //
+// T3 (namespace jvpk, near the end) is the scan's forward-mode tangent, the
+// jvp rule of the autograd Function in ../ops.py; it has no TPU
+// counterpart.
+//
 // Two routes, chosen by dtype in ../ops.py:
 //
 // bfloat16 (namespace hop, below): written for Hopper, three launches on
@@ -1337,6 +1341,392 @@ bool shapes_ok(int Bsz, int L, int H, int P, int G, int N, int chunk) {
 
 }  // namespace hop
 
+// ===========================================================================
+// T3: the forward-mode tangent of the scan (no TPU counterpart)
+// ===========================================================================
+//
+// The exact meta-gradient's Hessian-vector products are forward-over-
+// reverse, so the scan's autograd Function (../ops.py) has a jvp rule, and
+// this kernel is it: the tangent (y', final state') along (x', dt', A', B',
+// C').  With a_t = dt_t A, seg the inclusive cumsum of a over a chunk and
+// seg' that of a'_t = dt'_t A + dt_t A', the carried state's tangent is
+//   S'_t = e^{a_t} (S'_{t-1} + a'_t S_{t-1}) + B'_t (dt_t x_t)
+//          + B_t (dt'_t x_t + dt_t x'_t),      y'_t = C'_t S_t + C_t S'_t,
+// computed by chunks as the forward is, from the state S0 and its tangent
+// S0' entering the chunk:
+//   M_qk  = (C_q . B_k) E_qk,  E_qk = exp(seg_q - seg_k) for k <= q, else 0
+//   M'_qk = (C'_q . B_k + C_q . B'_k) E_qk + M_qk (seg'_q - seg'_k)
+//   y'_q  = sum_k (M'_qk dt_k + M_qk dt'_k) x_k + M_qk dt_k x'_k
+//           + exp(seg_q) (seg'_q C_q . S0 + C'_q . S0 + C_q . S0')
+//   S_end  = exp(seg_end) S0 + sum_k w_k dt_k x_k B_k^T
+//   S'_end = exp(seg_end) (seg'_end S0 + S0')
+//            + sum_k w_k [((seg'_end - seg'_k) dt_k + dt'_k) x_k
+//                          + dt_k x'_k] B_k^T + w_k dt_k x_k B'_k^T
+// with w_k = exp(seg_end - seg_k).  Every exponential is of a difference
+// taken only where it is at most 0 (E is selected to 0 above the
+// diagonal), so the tangent stays finite where seg falls by more than 88
+// within a chunk, as the forward does.
+//
+// A simple CUDA-core kernel that is right first: one block per (b, h)
+// walking its chunks with S and S' in shared memory (float32), like the
+// float32 forward above; query tiles of 32 rows against key tiles of 64,
+// float32 FMA, 256 threads as 16 x 16.  About 219 KB of shared memory,
+// so one block an SM.  x, B, C and their tangents are bf16 or float32, dt,
+// A and theirs float32; y' is written in x's dtype, S' in float32.
+namespace jvpk {
+
+constexpr int kQ = 32;                    // query rows of an output tile
+constexpr int kLdQ = kTile + 4;           // row stride of the M tiles
+
+__device__ __forceinline__ float f32(float x) { return x; }
+__device__ __forceinline__ float f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T cast(float x);
+template <> __device__ __forceinline__ float cast<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 cast<__nv_bfloat16>(
+    float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Stage `rows` (at most `tile`) rows of a (.., width) slice whose row r
+// starts at src + r * stride into a float32 tile (row stride ld, `cols`
+// columns, zero past width and past `rows`).
+template <typename T>
+__device__ __forceinline__ void stage(float* dst, int tile, int ld, int cols,
+                                      const T* __restrict__ src,
+                                      size_t stride, int rows, int width) {
+  for (int idx = threadIdx.x; idx < tile * cols; idx += kThreads) {
+    const int r = idx / cols, c = idx - r * cols;
+    float v = 0.f;
+    if (r < rows && c < width) v = f32(src[(size_t)r * stride + c]);
+    dst[r * ld + c] = v;
+  }
+}
+
+// Inclusive scan of in[i] * a + (in2 ? in2[i] * a2 : 0) over n <= 256
+// entries into out, by warp 0 (a run per lane).
+__device__ __forceinline__ void scan(const float* in, float a,
+                                     const float* in2, float a2, float* out,
+                                     int n) {
+  const int lane = threadIdx.x & 31;
+  const int per = (n + 31) / 32, beg = lane * per;
+  auto term = [&](int i) {
+    const float t = in[i] * a;
+    return in2 ? fmaf(in2[i], a2, t) : t;
+  };
+  float run = 0.f;
+  for (int i = 0; i < per; ++i)
+    if (beg + i < n) run += term(beg + i);
+  float incl = run;
+  for (int o = 1; o < 32; o <<= 1) {
+    const float v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  float pre = incl - run;
+  for (int i = 0; i < per; ++i)
+    if (beg + i < n) {
+      pre += term(beg + i);
+      out[beg + i] = pre;
+    }
+}
+
+constexpr size_t smem_floats() {
+  return 2 * kQ * kLdN            // C, C'
+         + 2 * kTile * kLdN       // B, B'
+         + 2 * kTile * kMaxP      // x, x'
+         + 2 * kQ * kLdQ          // the two M tiles
+         + 2 * kMaxP * kLdN       // S, S'
+         + 5 * kMaxChunk;         // dt, dt', seg, seg', w
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ssd_tangent_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                   const float* __restrict__ A, const T* __restrict__ Bg,
+                   const T* __restrict__ Cg, const T* __restrict__ tx,
+                   const float* __restrict__ tdt,
+                   const float* __restrict__ tA, const T* __restrict__ tB,
+                   const T* __restrict__ tC, T* __restrict__ ty,
+                   float* __restrict__ tstate, int L, int H, int P, int G,
+                   int N, int chunk) {
+  extern __shared__ __align__(16) float smem[];
+  float* sC = smem;
+  float* sTC = sC + kQ * kLdN;
+  float* sB = sTC + kQ * kLdN;
+  float* sTB = sB + kTile * kLdN;
+  float* sX = sTB + kTile * kLdN;
+  float* sTX = sX + kTile * kMaxP;
+  float* sM1 = sTX + kTile * kMaxP;       // M' dt_k + M dt'_k  (times x)
+  float* sM2 = sM1 + kQ * kLdQ;           // M dt_k             (times x')
+  float* sS = sM2 + kQ * kLdQ;
+  float* sTS = sS + kMaxP * kLdN;
+  float* sDt = sTS + kMaxP * kLdN;
+  float* sTDt = sDt + kMaxChunk;
+  float* sSeg = sTDt + kMaxChunk;
+  float* sTSeg = sSeg + kMaxChunk;
+  float* sW = sTSeg + kMaxChunk;
+
+  const int tid = threadIdx.x;
+  const int tx_ = tid & 15, ty_ = tid >> 4;
+  const int warp = tid >> 5;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh - (bh / H) * H;
+  const int g = h / (H / G);
+  const float a = A[bh], ta = tA[bh];
+  const int nc = L / chunk;
+  const size_t xs = (size_t)H * P, bs = (size_t)G * N;
+
+  for (int i = tid; i < kMaxP * kLdN; i += kThreads) sS[i] = sTS[i] = 0.f;
+
+  for (int ci = 0; ci < nc; ++ci) {
+    const size_t t_chunk = (size_t)b * L + (size_t)ci * chunk;
+    for (int i = tid; i < chunk; i += kThreads) {
+      sDt[i] = dt[(t_chunk + i) * H + h];
+      sTDt[i] = tdt[(t_chunk + i) * H + h];
+    }
+    __syncthreads();
+    if (warp == 0) {
+      scan(sDt, a, nullptr, 0.f, sSeg, chunk);
+      scan(sTDt, a, sDt, ta, sTSeg, chunk);
+    }
+    __syncthreads();
+    const float seg_end = sSeg[chunk - 1], tseg_end = sTSeg[chunk - 1];
+    for (int i = tid; i < chunk; i += kThreads)
+      sW[i] = expf(seg_end - sSeg[i]);
+
+    // --- y': one 32-row query tile at a time ----------------------------
+    for (int q0 = 0; q0 < chunk; q0 += kQ) {
+      const int qrows = min(kQ, chunk - q0);
+      stage(sC, kQ, kLdN, kMaxN, Cg + (t_chunk + q0) * bs + (size_t)g * N,
+            bs, qrows, N);
+      stage(sTC, kQ, kLdN, kMaxN, tC + (t_chunk + q0) * bs + (size_t)g * N,
+            bs, qrows, N);
+      __syncthreads();
+      // entering: exp(seg_q) (seg'_q C_q.S0 + C'_q.S0 + C_q.S0')
+      float acc[2][4], cs[2][4], tcs[2][4], cts[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[i][j] = cs[i][j] = tcs[i][j] = cts[i][j] = 0.f;
+      for (int n = 0; n < kMaxN; n += 4) {
+        float4 cv[2], tcv[2], sv[4], tsv[4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          cv[i] = *reinterpret_cast<const float4*>(
+              &sC[(ty_ + 16 * i) * kLdN + n]);
+          tcv[i] = *reinterpret_cast<const float4*>(
+              &sTC[(ty_ + 16 * i) * kLdN + n]);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          sv[j] = *reinterpret_cast<const float4*>(
+              &sS[(tx_ + 16 * j) * kLdN + n]);
+          tsv[j] = *reinterpret_cast<const float4*>(
+              &sTS[(tx_ + 16 * j) * kLdN + n]);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            cs[i][j] = dot4(cv[i], sv[j], cs[i][j]);
+            tcs[i][j] = dot4(tcv[i], sv[j], tcs[i][j]);
+            cts[i][j] = dot4(cv[i], tsv[j], cts[i][j]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int q = ty_ + 16 * i;
+        const bool in = q < qrows;
+        const float e = in ? expf(sSeg[q0 + q]) : 0.f;
+        const float ts = in ? sTSeg[q0 + q] : 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[i][j] = e * fmaf(ts, cs[i][j], tcs[i][j] + cts[i][j]);
+      }
+      // intra-chunk: key tiles that start at or before the tile's last row
+      for (int k0 = 0; k0 < q0 + qrows; k0 += kTile) {
+        const int krows = min(kTile, chunk - k0);
+        stage(sB, kTile, kLdN, kMaxN,
+              Bg + (t_chunk + k0) * bs + (size_t)g * N, bs, krows, N);
+        stage(sTB, kTile, kLdN, kMaxN,
+              tB + (t_chunk + k0) * bs + (size_t)g * N, bs, krows, N);
+        stage(sX, kTile, kMaxP, kMaxP,
+              x + (t_chunk + k0) * xs + (size_t)h * P, xs, krows, P);
+        stage(sTX, kTile, kMaxP, kMaxP,
+              tx + (t_chunk + k0) * xs + (size_t)h * P, xs, krows, P);
+        __syncthreads();
+        float cb[2][4], cbd[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) cb[i][j] = cbd[i][j] = 0.f;
+        for (int n = 0; n < kMaxN; n += 4) {
+          float4 cv[2], tcv[2], bv[4], tbv[4];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            cv[i] = *reinterpret_cast<const float4*>(
+                &sC[(ty_ + 16 * i) * kLdN + n]);
+            tcv[i] = *reinterpret_cast<const float4*>(
+                &sTC[(ty_ + 16 * i) * kLdN + n]);
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            bv[j] = *reinterpret_cast<const float4*>(
+                &sB[(tx_ + 16 * j) * kLdN + n]);
+            tbv[j] = *reinterpret_cast<const float4*>(
+                &sTB[(tx_ + 16 * j) * kLdN + n]);
+          }
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              cb[i][j] = dot4(cv[i], bv[j], cb[i][j]);
+              cbd[i][j] = dot4(tcv[i], bv[j], dot4(cv[i], tbv[j], cbd[i][j]));
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int q = q0 + ty_ + 16 * i;        // position in the chunk
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int k = k0 + tx_ + 16 * j;
+            float m1 = 0.f, m2 = 0.f;
+            if (k <= q && q < chunk) {
+              const float E = expf(sSeg[q] - sSeg[k]);
+              const float M = cb[i][j] * E;
+              const float Md = cbd[i][j] * E + M * (sTSeg[q] - sTSeg[k]);
+              m1 = fmaf(Md, sDt[k], M * sTDt[k]);
+              m2 = M * sDt[k];
+            }
+            sM1[(ty_ + 16 * i) * kLdQ + tx_ + 16 * j] = m1;
+            sM2[(ty_ + 16 * i) * kLdQ + tx_ + 16 * j] = m2;
+          }
+        }
+        __syncthreads();
+        for (int k = 0; k < kTile; ++k) {
+          float xv[4], txv[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            xv[j] = sX[k * kMaxP + tx_ + 16 * j];
+            txv[j] = sTX[k * kMaxP + tx_ + 16 * j];
+          }
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const float m1 = sM1[(ty_ + 16 * i) * kLdQ + k];
+            const float m2 = sM2[(ty_ + 16 * i) * kLdQ + k];
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              acc[i][j] = fmaf(m1, xv[j], fmaf(m2, txv[j], acc[i][j]));
+          }
+        }
+        __syncthreads();   // before the next tiles overwrite B, x and M
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int q = ty_ + 16 * i;
+        if (q >= qrows) continue;
+        T* yrow = ty + (t_chunk + q0 + q) * xs + (size_t)h * P;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int p = tx_ + 16 * j;
+          if (p < P) yrow[p] = cast<T>(acc[i][j]);
+        }
+      }
+    }
+
+    // --- S and S' at the chunk's end: a sweep over the key tiles --------
+    float ds[4][8], dts[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) ds[i][j] = dts[i][j] = 0.f;
+    for (int k0 = 0; k0 < chunk; k0 += kTile) {
+      const int krows = min(kTile, chunk - k0);
+      stage(sB, kTile, kLdN, kMaxN, Bg + (t_chunk + k0) * bs + (size_t)g * N,
+            bs, krows, N);
+      stage(sTB, kTile, kLdN, kMaxN, tB + (t_chunk + k0) * bs + (size_t)g * N,
+            bs, krows, N);
+      stage(sX, kTile, kMaxP, kMaxP, x + (t_chunk + k0) * xs + (size_t)h * P,
+            xs, krows, P);
+      stage(sTX, kTile, kMaxP, kMaxP,
+            tx + (t_chunk + k0) * xs + (size_t)h * P, xs, krows, P);
+      __syncthreads();
+      for (int k = 0; k < krows; ++k) {
+        const int kc = k0 + k;
+        const float w = sW[kc], d = sDt[kc];
+        const float cx = w * fmaf(tseg_end - sTSeg[kc], d, sTDt[kc]);
+        float u[4], tu[4], bv[8], tbv[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float xv = sX[k * kMaxP + ty_ + 16 * i];
+          u[i] = w * d * xv;
+          tu[i] = fmaf(cx, xv, w * d * sTX[k * kMaxP + ty_ + 16 * i]);
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          bv[j] = sB[k * kLdN + tx_ + 16 * j];
+          tbv[j] = sTB[k * kLdN + tx_ + 16 * j];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            ds[i][j] = fmaf(u[i], bv[j], ds[i][j]);
+            dts[i][j] = fmaf(tu[i], bv[j], fmaf(u[i], tbv[j], dts[i][j]));
+          }
+      }
+      __syncthreads();
+    }
+    const float decay = expf(seg_end);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int at = (ty_ + 16 * i) * kLdN + tx_ + 16 * j;
+        const float s0 = sS[at];
+        sTS[at] = fmaf(decay, fmaf(tseg_end, s0, sTS[at]), dts[i][j]);
+        sS[at] = fmaf(decay, s0, ds[i][j]);
+      }
+    __syncthreads();
+  }
+
+  float* out = tstate + (size_t)bh * P * N;
+  for (int idx = tid; idx < P * N; idx += kThreads) {
+    const int p = idx / N, n = idx - (idx / N) * N;
+    out[idx] = sTS[p * kLdN + n];
+  }
+}
+
+template <typename T>
+cudaError_t launch(const void* x, const void* dt, const void* A,
+                   const void* Bg, const void* Cg, const void* tx,
+                   const void* tdt, const void* tA, const void* tB,
+                   const void* tC, void* ty, void* tstate, int Bsz, int L,
+                   int H, int P, int G, int N, int chunk, cudaStream_t s) {
+  auto kernel = ssd_tangent_kernel<T>;
+  const size_t bytes = smem_floats() * sizeof(float);
+  static bool ready = false;
+  if (!ready) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  kernel<<<(unsigned)((long long)Bsz * H), kThreads, bytes, s>>>(
+      static_cast<const T*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(A), static_cast<const T*>(Bg),
+      static_cast<const T*>(Cg), static_cast<const T*>(tx),
+      static_cast<const float*>(tdt), static_cast<const float*>(tA),
+      static_cast<const T*>(tB), static_cast<const T*>(tC),
+      static_cast<T*>(ty), static_cast<float*>(tstate), L, H, P, G, N,
+      chunk);
+  return cudaGetLastError();
+}
+
+}  // namespace jvpk
+
 }  // namespace
 
 extern "C" {
@@ -1443,6 +1833,28 @@ int repro_ssd_chunk_scan(const void* x, const void* dt, const void* seg,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(N <= 64 ? hop::run_scan<1>(a, Bsz, s)
                        : hop::run_scan<2>(a, Bsz, s));
+}
+
+// The forward-mode tangent T3 (namespace jvpk): x, B, C and their tangents
+// x', B', C' contiguous, float32 (dtype DT_F32) or bfloat16 (DT_BF16);
+// dt, dt' (Bsz, L, H) and A, A' (Bsz, H) float32; writes y' (Bsz, L, H, P)
+// in x's dtype and the final state's tangent (Bsz, H, P, N) float32.
+int repro_ssd_scan_tangent(const void* x, const void* dt, const void* A,
+                           const void* Bg, const void* Cg, const void* tx,
+                           const void* tdt, const void* tA, const void* tB,
+                           const void* tC, void* ty, void* tstate, int Bsz,
+                           int L, int H, int P, int G, int N, int chunk,
+                           int dtype, void* stream) {
+  if (!valid(Bsz, L, H, P, G, N, chunk, dtype))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(dtype == DT_BF16
+                   ? jvpk::launch<__nv_bfloat16>(x, dt, A, Bg, Cg, tx, tdt,
+                                                 tA, tB, tC, ty, tstate, Bsz,
+                                                 L, H, P, G, N, chunk, s)
+                   : jvpk::launch<float>(x, dt, A, Bg, Cg, tx, tdt, tA, tB,
+                                         tC, ty, tstate, Bsz, L, H, P, G, N,
+                                         chunk, s));
 }
 
 }  // extern "C"

@@ -24,13 +24,22 @@ differentiates the jnp chunked scan.  The pairing is a
 rule that folds the mapped dimension into the batch, so ``torch.func.vmap``
 over ``torch.func.grad`` (the serving tier's batched adaptation) reaches the
 kernel: a raw-pointer launch cannot see a batched tensor.  The backward is
-a ``Function`` of its own, folded the same way, and differentiating it
-raises: serving adapts first-order.
+a ``Function`` of its own, folded the same way; its reverse-mode
+derivative raises, its forward-mode rule is below.
+
+Forward mode.  The exact meta-gradient's Hessian-vector products are
+``torch.func.jvp`` over ``torch.func.grad``, so both ``Function``s have a
+``jvp`` rule, each running a tangent ``Function`` whose ``vmap`` rule folds
+the mapped dimensions as above.  The forward's tangent is the kernel T3
+(:func:`ssd_scan_tangent`, ``csrc/ssd_scan.cu``, namespace ``jvpk``); the
+backward's is ``torch.func.jvp`` of the chunked VJP (PyTorch ops, as the
+backward is).  Reverse-over-reverse (``grad`` of ``grad``) still raises.
 
 ``launch_counts["ssd_scan"]`` counts the calls of :func:`ssd_scan_kernel`
 that went to a kernel route (one launch in float32, three in bfloat16);
 ``ssd_chunk_state``, ``ssd_state_pass`` and ``ssd_chunk_scan`` count each
-pass's launches.  Plain-version calls are not counted.
+pass's launches, ``ssd_scan_tangent`` the tangent kernel's.  Plain-version
+calls are not counted.
 """
 from __future__ import annotations
 
@@ -40,16 +49,18 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels.build import CudaLibrary, raise_on
-from repro_torch.kernels.fold import fold, unfold
+from repro_torch.kernels.fold import fold, unfold, zeros_for_none
 from repro_torch.kernels.ssd_scan.chunked import ssd_scan_vjp
 from repro_torch.kernels.ssd_scan.ref import (chunk_scan_ref,
                                               chunk_state_ref, split_hi_lo,
-                                              ssd_scan_ref, state_pass_ref)
+                                              ssd_scan_ref,
+                                              ssd_scan_tangent_ref,
+                                              state_pass_ref)
 
 __all__ = ["MAX_CHUNK", "MAX_HEAD_DIM", "MAX_STATE", "build",
            "launch_counts", "reset_launch_counts", "ssd_chunk_scan",
            "ssd_chunk_state", "ssd_scan", "ssd_scan_kernel",
-           "ssd_state_pass"]
+           "ssd_scan_tangent", "ssd_state_pass"]
 
 MAX_HEAD_DIM = 64         # kMaxP in the CUDA source
 MAX_STATE = 128           # kMaxN
@@ -59,7 +70,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launch_counts = {"ssd_scan": 0, "ssd_chunk_state": 0, "ssd_state_pass": 0,
-                 "ssd_chunk_scan": 0}
+                 "ssd_chunk_scan": 0, "ssd_scan_tangent": 0}
 
 
 def reset_launch_counts() -> None:
@@ -79,8 +90,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         [i] * 7 + [p]
     lib.repro_ssd_state_pass.argtypes = [p] * 5 + [i] * 6 + [p]
     lib.repro_ssd_chunk_scan.argtypes = [p] * 8 + [i] * 7 + [p]
+    lib.repro_ssd_scan_tangent.argtypes = [p] * 12 + [i] * 8 + [p]
     for fn in ("repro_ssd_scan", "repro_ssd_chunk_state",
-               "repro_ssd_state_pass", "repro_ssd_chunk_scan"):
+               "repro_ssd_state_pass", "repro_ssd_chunk_scan",
+               "repro_ssd_scan_tangent"):
         getattr(lib, fn).restype = i
     if (lib.repro_ssd_max_head_dim(), lib.repro_ssd_max_state(),
             lib.repro_ssd_max_chunk()) != (MAX_HEAD_DIM, MAX_STATE,
@@ -289,6 +302,38 @@ def ssd_scan_kernel(x, dt, A, Bg, Cg, *, chunk: int
     return y, state
 
 
+def ssd_scan_tangent(x, dt, A, Bg, Cg, tx, tdt, tA, tB, tC, *, chunk: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """T3: the tangent (y', final_state') of :func:`ssd_scan_kernel` at
+    (x, dt, A, Bg, Cg) along (x', dt', A', B', C') — each tangent shaped
+    and typed as its primal (dt, A float32).  y' in x's dtype, the state's
+    tangent (B,H,P,N) float32.  The plain version (taken for CPU tensors)
+    is :func:`.ref.ssd_scan_tangent_ref`.  One launch, float32 or bfloat16
+    inputs, float32 state and tangent state."""
+    _check_shapes(x, dt, A, Bg, Cg, chunk)
+    for tname, t, p in (("x'", tx, x), ("dt'", tdt, dt), ("A'", tA, A),
+                        ("B'", tB, Bg), ("C'", tC, Cg)):
+        if tuple(t.shape) != tuple(p.shape):
+            raise ValueError(f"ssd_scan_tangent: {tname} has shape "
+                             f"{tuple(t.shape)}, expected {tuple(p.shape)}")
+    B, L, H, P = x.shape
+    G, N = Bg.shape[2], Bg.shape[3]
+    if x.device.type == "cpu":
+        y, state = ssd_scan_tangent_ref(x, dt, A, Bg, Cg, tx, tdt, tA, tB, tC)
+        return y.to(x.dtype), state
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan: no kernel for device {x.device}")
+    _check_cuda(x, dt, A, Bg, Cg, chunk)
+    _check_cuda(tx, tdt, tA, tB, tC, chunk)
+    A, tA = (a.expand(B, H).contiguous() for a in (A, tA))
+    ty = torch.empty_like(x)
+    tstate = torch.empty(B, H, P, N, dtype=torch.float32, device=x.device)
+    _launch("ssd_scan_tangent", _LIB.lib.repro_ssd_scan_tangent, x, dt, A,
+            Bg, Cg, tx, tdt, tA, tB, tC, ty, tstate, B, L, H, P, G, N, chunk,
+            _DTYPES[x.dtype])
+    return ty, tstate
+
+
 # ---------------------------------------------------------------------------
 # autograd: kernel forward + the chunked scan's VJP
 # ---------------------------------------------------------------------------
@@ -309,6 +354,92 @@ def _chunked_vjp(x, dt, A, Bg, Cg, gy, gs, chunk):
         return ssd_scan_vjp(x, dt, A, Bg, Cg, gy, gs, chunk)
 
 
+def _fold_bwd_call(fn, info, in_dims, tensors, rest):
+    """The ``vmap`` rule of a ``Function`` whose tensor inputs are the
+    scan's (x, dt, A, B, C, ...) and whose outputs are gradients (or their
+    tangents) shaped as (x, dt, A, B, C): every tensor folded (A and, at
+    index 9, its tangent by :func:`_fold_A`), one call, and A's result
+    summed over each call's sequences where a call's A was (H,)."""
+    n = info.batch_size
+    B = fold(tensors[0], in_dims[0], n).shape[0] // n
+    a_slots = (2, 9)                      # A, and A' when tangents follow
+    folded = [_fold_A(t, d, n, B) if i in a_slots else fold(t, d, n)
+              for i, (t, d) in enumerate(zip(tensors, in_dims))]
+    outs = [unfold(g, n) for g in fn.apply(*folded, *rest)]
+    if tensors[2].ndim - (in_dims[2] is not None) == 1:   # each A was (H,)
+        outs[2] = outs[2].sum(1)
+    return tuple(outs), (0,) * len(outs)
+
+
+class _SSDScanTangent(torch.autograd.Function):
+    """T3 as a ``Function``: the forward's ``jvp`` rule runs below the vmap
+    levels, on batched tensors, so the launch goes through this ``vmap``
+    rule, which folds them (A and A' by :func:`_fold_A`)."""
+
+    @staticmethod
+    def forward(x, dt, A, Bg, Cg, tx, tdt, tA, tB, tC, chunk):
+        return ssd_scan_tangent(
+            x.contiguous(), dt.float().contiguous(), A.float(),
+            Bg.contiguous(), Cg.contiguous(), tx.contiguous(),
+            tdt.float().contiguous(), tA.float(), tB.contiguous(),
+            tC.contiguous(), chunk=chunk)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("the SSD scan's tangent kernel is not "
+                           "differentiable")
+
+    @staticmethod
+    def vmap(info, in_dims, x, dt, A, Bg, Cg, tx, tdt, tA, tB, tC, chunk):
+        n = info.batch_size
+        B = fold(x, in_dims[0], n).shape[0] // n
+        folded = [_fold_A(t, d, n, B) if i in (2, 7) else fold(t, d, n)
+                  for i, (t, d) in enumerate(zip(
+                      (x, dt, A, Bg, Cg, tx, tdt, tA, tB, tC), in_dims))]
+        y, state = _SSDScanTangent.apply(*folded, chunk)
+        return (unfold(y, n), unfold(state, n)), (0, 0)
+
+
+def _chunked_vjp_tangent(x, dt, A, Bg, Cg, gy, gs, tx, tdt, tA, tB, tC,
+                         tgy, tgs, chunk):
+    """The tangent of the chunked VJP's gradients: ``torch.func.jvp`` of
+    :func:`.chunked.ssd_scan_vjp` (PyTorch ops, as the backward is)."""
+    with torch.profiler.record_function("ssd_scan_chunked_bwd_jvp"):
+        return torch.func.jvp(
+            lambda *a: ssd_scan_vjp(*a, chunk),
+            *(tuple(t.contiguous() for t in ts) for ts in (
+                (x, dt, A, Bg, Cg, gy, gs),
+                (tx, tdt, tA, tB, tC, tgy, tgs))))[1]
+
+
+class _SSDScanBwdTangent(torch.autograd.Function):
+    """The backward's tangent as a ``Function``, folded under ``vmap``."""
+
+    @staticmethod
+    def forward(x, dt, A, Bg, Cg, gy, gs, tx, tdt, tA, tB, tC, tgy, tgs,
+                chunk):
+        return _chunked_vjp_tangent(x, dt, A, Bg, Cg, gy, gs, tx, tdt, tA,
+                                    tB, tC, tgy, tgs, chunk)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("the SSD scan backward's tangent is not "
+                           "differentiable")
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _fold_bwd_call(_SSDScanBwdTangent, info, in_dims, args[:14],
+                              args[14:])
+
+
 class _SSDScanBwd(torch.autograd.Function):
     """The backward as a ``Function`` of its own, so that under
     ``torch.func.vmap`` it sees folded tensors, like the forward."""
@@ -319,28 +450,26 @@ class _SSDScanBwd(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        pass
+        ctx.save_for_forward(*inputs[:7])
+        ctx.chunk = inputs[7]
 
     @staticmethod
     def backward(ctx, *grads):
         raise RuntimeError(
-            "the SSD scan's backward is once-differentiable: second-order "
-            "gradients through ssd_scan are not supported")
+            "the SSD scan's backward is once-differentiable in reverse mode: "
+            "reverse-over-reverse (grad of grad) through ssd_scan is not "
+            "supported; forward-over-reverse (jvp of grad) is")
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        primals = ctx.saved_tensors
+        return _SSDScanBwdTangent.apply(
+            *primals, *zeros_for_none(tangents[:7], primals), ctx.chunk)
 
     @staticmethod
     def vmap(info, in_dims, x, dt, A, Bg, Cg, gy, gs, chunk):
-        n = info.batch_size
-        fx, fdt, fB, fC, fgy, fgs = (
-            fold(t, dim, n) for t, dim in
-            zip((x, dt, Bg, Cg, gy, gs), (in_dims[0], in_dims[1], in_dims[3],
-                                          in_dims[4], in_dims[5], in_dims[6])))
-        fA = _fold_A(A, in_dims[2], n, fx.shape[0] // n)
-        grads = _SSDScanBwd.apply(fx, fdt, fA, fB, fC, fgy, fgs, chunk)
-        dx, ddt, dA, dB, dC = (unfold(g, n) for g in grads)
-        per_call_A = A.ndim - (in_dims[2] is not None)
-        if per_call_A == 1:                   # each call's A was (H,)
-            dA = dA.sum(1)
-        return (dx, ddt, dA, dB, dC), (0, 0, 0, 0, 0)
+        return _fold_bwd_call(_SSDScanBwd, info, in_dims, (x, dt, A, Bg, Cg,
+                                                           gy, gs), (chunk,))
 
 
 class _SSDScan(torch.autograd.Function):
@@ -355,7 +484,14 @@ class _SSDScan(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         x, dt, A, Bg, Cg, chunk = inputs
         ctx.save_for_backward(x, dt, A, Bg, Cg)
+        ctx.save_for_forward(x, dt, A, Bg, Cg)
         ctx.chunk = chunk
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        primals = ctx.saved_tensors
+        return _SSDScanTangent.apply(
+            *primals, *zeros_for_none(tangents[:5], primals), ctx.chunk)
 
     @staticmethod
     def backward(ctx, gy, gs):

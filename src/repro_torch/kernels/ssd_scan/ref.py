@@ -12,14 +12,16 @@ kernels against it on the card.  :func:`chunk_state_ref`,
 :func:`state_pass_ref` and :func:`chunk_scan_ref` are the plain versions of
 the three kernels of the bfloat16 route, one a pass, and
 :func:`split_hi_lo` the bf16 pair that carries a float32 state between the
-last two.
+last two.  :func:`ssd_scan_tangent_ref` is the plain version of the
+forward-mode tangent kernel: ``torch.func.jvp`` of :func:`ssd_scan_ref`
+with B and C read by group.
 """
 from __future__ import annotations
 
 import torch
 
 __all__ = ["chunk_scan_ref", "chunk_state_ref", "split_hi_lo",
-           "ssd_scan_ref", "state_pass_ref"]
+           "ssd_scan_ref", "ssd_scan_tangent_ref", "state_pass_ref"]
 
 
 def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -41,6 +43,22 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         h = h * decay + upd
         ys.append(torch.einsum("bhpn,bhn->bhp", h, Cm[:, t]))
     return torch.stack(ys, dim=1), h
+
+
+def ssd_scan_tangent_ref(x, dt, A, Bg, Cg, tx, tdt, tA, tB, tC
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(y', final_state'): ``torch.func.jvp`` of :func:`ssd_scan_ref` at
+    (x, dt, A, Bg, Cg) along their tangents, Bg/Cg (B,L,G,N) read by group
+    (repeated to heads inside the function).  Both float32."""
+    rep = x.shape[2] // Bg.shape[2]
+
+    def scan(x, dt, A, Bg, Cg):
+        return ssd_scan_ref(x, dt, A, Bg.repeat_interleave(rep, dim=2),
+                            Cg.repeat_interleave(rep, dim=2))
+
+    return torch.func.jvp(scan, *(tuple(t.contiguous() for t in ts) for ts
+                                  in ((x, dt, A, Bg, Cg),
+                                      (tx, tdt, tA, tB, tC))))[1]
 
 
 # ---------------------------------------------------------------------------

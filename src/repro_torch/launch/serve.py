@@ -22,6 +22,7 @@ one in float32, as the reference picks.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 
@@ -68,6 +69,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the model to this many layers, widths kept "
+                         "(a depth cut)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--gen", type=int, default=16)
@@ -114,6 +118,8 @@ def main(argv=None, on_round=None) -> dict:
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     if args.reduced:
         cfg = cfg.reduced()
     dt = S.DTYPES[cfg.dtype] if not args.reduced else torch.float32

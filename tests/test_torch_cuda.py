@@ -598,7 +598,7 @@ def test_cuda_ssd_passes_match_plain_versions(cuda, L, chunk, H, G, P, N):
     y = sops.ssd_chunk_scan(x, dt, seg, Bm, Cm, hi, lo, chunk=chunk)
     assert {k: sops.launch_counts[k] - before[k] for k in before} == {
         "ssd_scan": 0, "ssd_chunk_state": 1, "ssd_state_pass": 1,
-        "ssd_chunk_scan": 1}
+        "ssd_chunk_scan": 1, "ssd_scan_tangent": 0}
     Sr, segr = sref.chunk_state_ref(x, dt, A, Bm, chunk)
     torch.testing.assert_close(S, Sr, **SSD_F32_TOL)
     torch.testing.assert_close(seg, segr, **SSD_F32_TOL)
@@ -652,3 +652,173 @@ def test_cuda_ssd_bf16_raises_on_what_its_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="multiples of 8"):
         sops.ssd_scan_kernel(x, dt, A, Bm, Cm, chunk=32)
     assert sops.launch_counts == before
+
+
+# ---------------------------------------------------------------------------
+# Forward-mode tangent kernels (T1, T2 of flash attention; T3 of the SSD
+# scan) against their plain versions, ``torch.func.jvp`` of the plain
+# forward and backward.  Each check bounds the error by the output's
+# largest |value|: float32 1e-4 of it (the same products summed in another
+# order; the plain backward sums in float64), bfloat16 one rounding of it
+# (2^-8) plus the output's own rounding (rtol 1.6e-2) — a tangent that is
+# exactly 0 in the plain version (a row that sees one key) is a rounding
+# residue of the kernel's float32 sums.
+TANGENT_TOL = {torch.float32: (0.0, 1e-4), torch.bfloat16: (1.6e-2, 2.0 ** -8)}
+
+
+def assert_tangent_close(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    rtol, rel = TANGENT_TOL[want.dtype]
+    got, want = got.detach().float(), want.detach().float()
+    limit = rtol * want.abs() + rel * want.abs().max()
+    bad = (got - want).abs() > limit
+    assert not bad.any(), (f"{int(bad.sum())} elements outside; max abs err "
+                           f"{float((got - want).abs().max()):.3e} of "
+                           f"{float(want.abs().max()):.3e}")
+
+
+# (layout, shape, causal, window): heads_dim 1 is (B, H, S, d) expanded,
+# heads_dim 2 the model layout (B, S, H, d) with (B, S, KV, d) K/V; the
+# last is qwen2-1.5b's training shape.
+TANGENT_CASES = [(1, (2, 3, 256, 128), True, None),
+                 (1, (1, 2, 200, 64), False, 48),
+                 (2, (1, 130, 4, 2, 36), True, None),
+                 (2, (1, 200, 4, 1, 64), False, 48),
+                 (2, (16, 256, 12, 2, 128), True, None)]
+TANGENT_IDS = ["bhsd-causal-256x128", "bhsd-window-ragged200x64",
+               "gqa-causal-130-4x2-36", "gqa-window-200-4x1-64",
+               "gqa-qwen2-16x256-12x2-128"]
+
+
+def _flash_tangent_inputs(heads_dim, shape, dtype, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    if heads_dim == 1:
+        qs = ks = shape
+    else:
+        B, S, H, KV, d = shape
+        qs, ks = (B, S, H, d), (B, S, KV, d)
+    q, tq, do, tdo = (torch.randn(qs, generator=gen).to(device, dtype)
+                      for _ in range(4))
+    k, v, tk, tv = (torch.randn(ks, generator=gen).to(device, dtype)
+                    for _ in range(4))
+    return q, k, v, do, tq, tk, tv, tdo
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("heads_dim,shape,causal,window", TANGENT_CASES,
+                         ids=TANGENT_IDS)
+def test_cuda_flash_tangents_match_plain_versions(cuda, dtype, heads_dim,
+                                                  shape, causal, window):
+    """T1 (o', lse') and T2 (dq', dk', dv'), one and two launches."""
+    q, k, v, do, tq, tk, tv, tdo = _flash_tangent_inputs(heads_dim, shape,
+                                                         dtype, cuda)
+    fwd = fref.flash_fwd_ref if heads_dim == 1 else fref.gqa_flash_fwd_ref
+    out, lse = fwd(q, k, v, causal=causal, window=window)
+    kw = dict(causal=causal, window=window, heads_dim=heads_dim)
+    before = dict(fops.launch_counts)
+    to, tlse = fops.flash_attention_fwd_tangent(q, k, v, lse, tq, tk, tv,
+                                                **kw)
+    assert fops.launch_counts["flash_attention_fwd_tangent"] == \
+        before["flash_attention_fwd_tangent"] + 1
+    want_to, want_tlse = fref.flash_fwd_tangent_ref(q, k, v, tq, tk, tv, **kw)
+    assert_tangent_close(to, want_to)
+    assert_tangent_close(tlse, want_tlse)
+    grads = fops.flash_attention_bwd_tangent(q, k, v, out, lse, do, tq, tk,
+                                             tv, want_to, want_tlse, tdo, **kw)
+    assert fops.launch_counts["flash_attention_bwd_tangent"] == \
+        before["flash_attention_bwd_tangent"] + 2
+    want = fref.flash_bwd_tangent_ref(q, k, v, out, lse, do, tq, tk, tv,
+                                      want_to, want_tlse, tdo, **kw)
+    for g, w in zip(grads, want):
+        assert_tangent_close(g, w)
+    torch.cuda.synchronize()
+
+
+SSD_TANGENT_SHAPES = [(128, 32, 2, 2, 16, 32), (96, 48, 4, 2, 8, 16),
+                      (512, 256, 4, 1, 64, 128), (100, 100, 4, 2, 16, 32)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("per_sequence_A", [False, True],
+                         ids=["A-shared", "A-per-sequence"])
+@pytest.mark.parametrize("L,chunk,H,G,P,N", SSD_TANGENT_SHAPES,
+                         ids=["grid128x32", "groups-ragged48", "full-width",
+                              "one-chunk-ragged100"])
+def test_cuda_ssd_tangent_matches_plain_version(cuda, dtype, per_sequence_A,
+                                                L, chunk, H, G, P, N):
+    """T3 (y', state') against ``torch.func.jvp`` of the per-step
+    recurrence, one launch."""
+    gen = torch.Generator().manual_seed(L + chunk)
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, 2, L, H, P, N, G, dtype, cuda)
+    tx, tdt, tA, tB, tC = (torch.randn(t.shape, generator=gen).to(
+        cuda, t.dtype) for t in (x, dt, A, Bm, Cm))
+    if per_sequence_A:
+        A, tA = torch.stack([A, 0.5 * A]), torch.stack([tA, -tA])
+    before = sops.launch_counts["ssd_scan_tangent"]
+    ty, ts = sops.ssd_scan_tangent(x, dt, A, Bm, Cm, tx, tdt, tA, tB, tC,
+                                   chunk=chunk)
+    assert sops.launch_counts["ssd_scan_tangent"] == before + 1
+    wy, ws = sref.ssd_scan_tangent_ref(x, dt, A, Bm, Cm, tx, tdt, tA, tB, tC)
+    assert_tangent_close(ty, wy.to(dtype))
+    assert_tangent_close(ts, ws)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.requires_cuda
+def test_cuda_ssd_tangent_stays_finite_where_seg_falls_past_88(cuda):
+    """dt near 4 over a 256-step chunk: seg falls by hundreds, and every
+    exponential the kernel takes is of a difference that is at most 0."""
+    gen = torch.Generator().manual_seed(3)
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, 1, 256, 2, 16, 32, 1,
+                                   torch.float32, cuda)
+    dt = dt * 0 + 4.0
+    tx, tdt, tA, tB, tC = (torch.randn(t.shape, generator=gen).to(cuda)
+                           for t in (x, dt, A, Bm, Cm))
+    ty, ts = sops.ssd_scan_tangent(x, dt, A, Bm, Cm, tx, tdt, tA, tB, tC,
+                                   chunk=256)
+    assert torch.isfinite(ty).all() and torch.isfinite(ts).all()
+    wy, ws = sref.ssd_scan_tangent_ref(x, dt, A, Bm, Cm, tx, tdt, tA, tB, tC)
+    assert_tangent_close(ty, wy)
+
+
+def _hvp_through(loss, params, batch, v):
+    """vmap over two tasks of jvp(grad): the meta-gradient's nesting."""
+    return torch.func.vmap(lambda b, t: torch.func.jvp(
+        lambda p: torch.func.grad(loss)(p, b), (params,), (t,))[1])(batch, v)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-130m"])
+def test_cuda_forward_over_reverse_through_the_model_matches_the_cpu(cuda,
+                                                                     arch):
+    """A reduced model's Hessian-vector products in float32, on the card
+    through the kernels (and their tangent kernels) against the CPU (plain
+    layers): within 1e-3 of each leaf's largest |value|."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import build_model
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    gen = torch.Generator().manual_seed(0)
+    params = model.init(gen, torch.float32, device="cpu")
+    v = {k: torch.randn((2,) + p.shape, generator=gen) * 0.1
+         for k, p in params.items()}
+    toks = torch.randint(0, cfg.vocab_size, (2, 2, 64), generator=gen)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, -1)}
+    want = _hvp_through(model.loss_fn, params, batch, v)
+    before = (dict(fops.launch_counts), dict(sops.launch_counts))
+    got = _hvp_through(model.loss_fn, {k: p.to(cuda) for k, p in
+                                       params.items()},
+                       {k: t.to(cuda) for k, t in batch.items()},
+                       {k: t.to(cuda) for k, t in v.items()})
+    if cfg.arch_type == "ssm":
+        assert sops.launch_counts["ssd_scan_tangent"] > \
+            before[1]["ssd_scan_tangent"]
+    else:
+        for key in ("flash_attention_fwd_tangent",
+                    "flash_attention_bwd_tangent"):
+            assert fops.launch_counts[key] > before[0][key]
+    for k in want:
+        err = (got[k].cpu() - want[k]).abs().max()
+        assert err <= 1e-3 * want[k].abs().max(), (k, float(err))

@@ -104,3 +104,43 @@ def test_serve_entry_points_raise_without_a_device():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
             pytest.fail(f"{name} ran without a device")
+
+
+def test_training_entry_points_raise_without_a_device():
+    """The LM training slice's entry points follow the same rule: the
+    trainer, the train step's builder and its pipeline."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: None resolves to it")
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import steps, train
+
+    cfg = get_config("mamba2-130m").reduced()
+    shape = InputShape("t", 32, 8, "train")
+    calls = {
+        "train": lambda: train.main(["--arch", "mamba2-130m", "--reduced",
+                                     "--steps", "1"]),
+        "train qwen2": lambda: train.main(["--arch", "qwen2-1.5b",
+                                           "--reduced", "--steps", "1"]),
+        "build_train": lambda: steps.build_train(cfg, shape, 2),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+            pytest.fail(f"{name} ran without a device")
+
+
+def test_tangent_kernels_raise_on_other_devices():
+    """The tangent wrappers route by device: a plain version for a CPU
+    tensor, the kernel for a CUDA tensor, and an error for anything else
+    (never a quiet fallback)."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd_scan import ops as sops
+    q = torch.ones(1, 2, 8, 4, device="meta")
+    lse = torch.ones(1, 2, 8, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        fops.flash_attention_fwd_tangent(q, q, q, lse, q, q, q)
+    x = torch.ones(1, 8, 2, 4, device="meta")
+    dt, A = torch.ones(1, 8, 2, device="meta"), torch.ones(2, device="meta")
+    Bm = torch.ones(1, 8, 1, 4, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        sops.ssd_scan_tangent(x, dt, A, Bm, Bm, x, dt, A, Bm, Bm, chunk=8)
