@@ -114,12 +114,12 @@ Phases, each fatal on failure:
                 printed beside its bound, this design's bound and the time
                 of the CUDA-core kernel it replaced.
 10. mamba2 serve -- runs ``python -m repro_torch.launch.serve --arch
-                mamba2-130m --prompt-len 512 --gen 512`` at full width (24
-                layers, bfloat16, fresh init from seed 0; 4 users x 4
-                sequences x 1024 tokens, 2 adapt steps, 2 rounds).  The
-                ssd_scan call counter and each of its three kernels'
-                launch counters, zeroed just before, must show 24 x 2 (one
-                adapt dispatch); 4 misses then 4 hits; finite adapted
+                mamba2-130m --layers 12 --prompt-len 512 --gen 512`` at
+                full width cut to 12 of its 24 layers (bfloat16, fresh init
+                from seed 0; 4 users x 4 sequences x 1024 tokens, 2 adapt
+                steps, 2 rounds).  The ssd_scan call counter and each of
+                its three kernels' launch counters, zeroed just before,
+                must show 12 x 2 (one adapt dispatch); 4 misses then 4 hits; finite adapted
                 leaves; falling support losses; 1024 tokens a sequence.
                 Prints the serve phase's numbers as phase 7 does, the device
                 time of one more dispatch split between the forward kernels
@@ -143,8 +143,8 @@ Phases, each fatal on failure:
                 kernel's ms, the plain version's ms and the bound.  Runs
                 before phase 5, as phase 6.
 13. mamba2 training -- this slice's main path: ``launch.train.main`` in
-                this process on mamba2-130m at full width (24 layers,
-                bf16, fresh init from seed 0), K=4 agents on the ring,
+                this process on mamba2-130m at full width cut to 8 of its
+                24 layers (``--layers 8``; bf16, fresh init from seed 0), K=4 agents on the ring,
                 exact MAML, ``--fused-outer``, a registered 512-token shape
                 with global batch 16 (2 tasks x 1 sequence an agent), 4
                 steps in dispatches of 2, eval every 2 steps (4 tasks, 1
@@ -168,6 +168,40 @@ Phases, each fatal on failure:
                 (maml - fomaml) within 1e-2 / 0.3 and at least half the
                 CPU's norm (over all leaves, and per leaf for leaves whose
                 CPU norm is at least 1% of the largest).
+16. few-shot -- the paper's classification experiment (Fig. 3) through
+                ``launch.fewshot.main`` at the full omniglot-cnn config (2
+                conv blocks of 32 channels, 11,013 parameters in 6 leaves,
+                K=6 on the Fig. 2a graph, 5-way 1-shot, exact MAML, Adam),
+                after holding ``dif_combine`` and ``fused_combine_update``
+                against their plain versions over the CNN's leaves: 150
+                steps of centralized, dif-maml (ATC) and non-coop on
+                ``dense``, and of dif-maml on ``pallas`` and ``fused``, each
+                run's launch counters zeroed just before and read just
+                after (one launch a step), and 5 steps of each strategy on
+                the CPU.  Losses finite and falling; pallas and fused within
+                1e-4 of dense step by step; each of the card's first 5
+                steps within 1e-4 of the CPU's step from the same state
+                (loss; params within Adam's largest move, 2 lr), the drift
+                of the two devices' own 5-step trajectories printed; each
+                test accuracy above 0.5 (chance 0.2), printed beside the
+                reference's CPU accuracies.
+17. lm-100m -- ``launch.decentralized_lm.main`` at lm-100m's full width
+                (12 layers, d_model 512, 8/4 heads of 64, vocab 32768,
+                float32, exact MAML, K=4 on the ring, seq 256, global batch
+                32, 4 steps), the counters zeroed just before and read just
+                after: finite losses, falling disagreement, the float32
+                flash kernels and T1/T2 launched in the run and in one
+                profiled meta-step (device split, idle share, peak memory);
+                the eval report; the float32 flash kernels and T1/T2 at the
+                path's attention shape (B=16, S=256, H=8, KV=4, d=64)
+                against their plain versions, timed beside their bounds.
+18. adapt-then-serve -- ``launch.serve_adapted.main`` with the reference
+                example's reduced arguments (reduced qwen2-1.5b trained 2
+                steps into a checkpoint under ``build/``, its centroid
+                adapted to unseen domains and decoded): the flash kernels
+                launched, the serve log accepted by
+                ``scripts/check_run_log.py --serve``.
+Phases 16-18 run after phase 14, before phase 15.
 
 The last two lines of standard output are the kernels' numbers and the
 device, as JSON.  Without a CUDA card the script exits 1 before any result.
@@ -279,7 +313,15 @@ SSD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
 # The serving path's scan: 4 users x 4 sequences of 1024 tokens, 24 heads of
 # head dim 64, state 128, one B/C group, chunk 256.
 SSD_MAIN = dict(B=16, L=1024, H=24, P=64, N=128, G=1, chunk=256)
-MAMBA_SERVE_ARGS = ["--arch", "mamba2-130m", "--batch", "4",
+# mamba2-130m trains at full width cut to MAMBA_TRAIN_LAYERS of its 24
+# layers, and serves cut to MAMBA_SERVE_LAYERS, to keep the script inside its
+# time limit with the example twins (phases 16-18) added: on an H100 whose
+# host ran the mamba2 step at 4.5-6.4 s, the whole script took 1030 s with
+# both at 24 layers (PERF.md, section 6).
+MAMBA_TRAIN_LAYERS = 8
+MAMBA_SERVE_LAYERS = 12
+MAMBA_SERVE_ARGS = ["--arch", "mamba2-130m", "--layers",
+                    str(MAMBA_SERVE_LAYERS), "--batch", "4",
                     "--prompt-len", "512", "--gen", "512", "--adapt-steps",
                     "2", "--users", "4", "--rounds", "2", "--seed", "0"]
 # mamba2 losses on the card against the CPU in the same dtype: float32 the
@@ -2217,7 +2259,7 @@ def tangent_summary(tan, train_rows) -> list:
 TRAIN_SHAPE = dict(name="chip_train_512", seq=512, batch=16)
 TRAIN_COMMON = ["--agents", "4", "--seed", "0", "--prefetch", "2"]
 MAMBA_TRAIN_ARGS = ["--arch", "mamba2-130m", "--shape", TRAIN_SHAPE["name"],
-                    "--fused-outer",
+                    "--layers", str(MAMBA_TRAIN_LAYERS), "--fused-outer",
                     "--steps-per-dispatch", "2", "--eval-every", "2",
                     "--eval-tasks", "4", "--eval-inner-steps", "1",
                     "--ckpt-every", "2", *TRAIN_COMMON]
@@ -2530,6 +2572,345 @@ def train_agreement_phase(arch, seq, loss_rtol, cfg=None) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: few-shot classification (omniglot-cnn) through launch/fewshot.py
+# ---------------------------------------------------------------------------
+
+FEWSHOT_STEPS = 150
+FEWSHOT_CPU_STEPS = 5
+# The reference example's 5-way 1-shot test accuracies after 150 steps
+# (examples/fewshot_classification.py --steps 150, JAX on a CPU), printed
+# beside this run's.
+FEWSHOT_REF_ACC = {"centralized": 0.923, "dif-maml": 0.916,
+                   "non-coop": 0.946}
+FEWSHOT_MIN_ACC = 0.5            # chance is 1/5
+# The card's step against the CPU's from the same state: the loss within
+# LOSS_RTOL, and every stepped param within FEWSHOT_PARAM_CAP, Adam's
+# largest move either way (2 lr); the share of params beyond 1e-5 is
+# printed.  Two things put a param beyond 1e-5 without a fault: Adam's step
+# g/(|g| + eps) is steep where |g| is near eps, and a ReLU pre-activation
+# within rounding of 0 (tests/test_torch_fewshot.py, KINK_SHARE) may fall
+# on the other side of the kink on the card.  The same kink makes one
+# device's own 5-step trajectory drift from the other's (1.5e-4 at step 5
+# of centralized on an H100 with cuDNN, 8e-8 with cuDNN off): that drift is
+# printed, and the step-by-step check is the one held.
+FEWSHOT_PARAMS_ATOL = 1e-5
+FEWSHOT_PARAM_CAP = 2e-3
+
+
+def _to_device(tree, device):
+    """A TrainState's tensors (dicts, tuples, named tuples) on ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        items = [_to_device(v, device) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else \
+            tuple(items)
+    return tree
+
+
+def fewshot_cpu_agreement(label) -> dict:
+    """FEWSHOT_CPU_STEPS steps of one strategy on the card, each held
+    against the CPU's step from the same state (the card's, copied); and
+    the drift of the two devices' own trajectories, with the card's
+    convolutions on cuDNN (the path's) and on PyTorch's own CUDA kernels
+    (cuDNN off, for comparison)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import init_state, make_meta_step
+    from repro_torch.data.episodes import host_tensors, to_device
+    from repro_torch.launch import fewshot
+    from repro_torch.models import FewShotCNN
+
+    model = FewShotCNN(get_config("omniglot_cnn"))
+    mcfg = fewshot.meta_config(fewshot.STRATEGIES[label])
+    source = fewshot.make_source()
+    steps = {d: make_meta_step(model.loss_fn, mcfg, device=d)
+             for d in (DEVICE, "cpu")}
+    state = init_state(torch.Generator().manual_seed(0), model.init, mcfg,
+                       identical_init=True, device=DEVICE)
+    alone = _to_device(state, "cpu")
+    no_cudnn = _to_device(alone, DEVICE)
+    loss_rel, param_err, outside_share, drift = [], [], [], []
+    card_losses, drift_no_cudnn = [], []
+    for i in range(FEWSHOT_CPU_STEPS):
+        ep = source.sample(i)
+        batch = host_tensors((ep.support, ep.query))
+        on_card = to_device(batch, torch.device(DEVICE))
+        cpu_state, cpu_m = steps["cpu"](_to_device(state, "cpu"), *batch)
+        state, m = steps[DEVICE](state, *on_card)
+        alone, alone_m = steps["cpu"](alone, *batch)
+        with torch.backends.cudnn.flags(enabled=False):
+            no_cudnn, raw_m = steps[DEVICE](no_cudnn, *on_card)
+        loss, want = float(m["loss"]), float(cpu_m["loss"])
+        card_losses.append(loss)
+        loss_rel.append(abs(loss / want - 1))
+        drift.append(abs(loss / float(alone_m["loss"]) - 1))
+        drift_no_cudnn.append(abs(float(raw_m["loss"])
+                                  / float(alone_m["loss"]) - 1))
+        diffs = [(state.params[k].cpu() - cpu_state.params[k]).abs()
+                 for k in state.params]
+        param_err.append(max(float(d.max()) for d in diffs))
+        outside_share.append(sum(int((d > FEWSHOT_PARAMS_ATOL).sum())
+                                 for d in diffs)
+                             / sum(d.numel() for d in diffs))
+    return dict(loss_rel=loss_rel, param_max_abs_err=param_err,
+                param_share_outside=outside_share,
+                trajectory_drift=drift,
+                trajectory_drift_cudnn_off=drift_no_cudnn,
+                card_losses=card_losses)
+
+
+def fewshot_phase(ops, ref, paper_A) -> dict:
+    """The outer-update kernels over the CNN's 6 leaves against their plain
+    versions; then ``launch.fewshot.main`` at the full omniglot-cnn config
+    for FEWSHOT_STEPS steps: the three strategies on ``dense``, dif-maml
+    (ATC) on ``pallas`` and on ``fused``, each run's launch counters zeroed
+    just before and read just after; then each strategy's first
+    FEWSHOT_CPU_STEPS steps on the card against the CPU's.  Fatal: a
+    kernel's launches other than one a step, a loss that is not finite or
+    does not fall, pallas or fused more than LOSS_RTOL from dense step by
+    step, a card step outside the CPU agreement above (its loss, its
+    params' largest difference), a test accuracy at or below
+    FEWSHOT_MIN_ACC."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import fewshot
+    from repro_torch.models import FewShotCNN
+
+    shapes = {n: (K,) + s.shape
+              for n, s in FewShotCNN(get_config("omniglot_cnn")).specs()
+              .items()}
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    A = torch.as_tensor(paper_A, dtype=torch.float32, device=DEVICE)
+    phi = {n: torch.randn(s, generator=gen, device=DEVICE)
+           for n, s in shapes.items()}
+    checks = {
+        "dif_combine": check_combine_leaves(ops, ref, A, phi,
+                                            "omniglot-cnn leaves"),
+        "fused_combine_update": check_fused_leaves(
+            ops, ref, gen, A[None].contiguous(), shapes, torch.float32,
+            "omniglot-cnn leaves", kind="adam", mode="atc", step=7,
+            timed=True)}
+    labels = list(fewshot.STRATEGIES)
+
+    def run(backend, which):
+        ops.reset_launch_counts()
+        out = fewshot.main(["--steps", str(FEWSHOT_STEPS), "--backend",
+                            backend, "--strategies", *which, "--device",
+                            DEVICE])
+        return out, dict(ops.launch_counts)
+
+    runs = {"dense": run("dense", labels),
+            "pallas": run("pallas", ["dif-maml"]),
+            "fused": run("fused", ["dif-maml"])}
+    expect = {"dense": {"dif_combine": 0, "fused_combine_update": 0},
+              "pallas": {"dif_combine": FEWSHOT_STEPS,
+                         "fused_combine_update": 0},
+              "fused": {"dif_combine": 0,
+                        "fused_combine_update": FEWSHOT_STEPS}}
+    dense_atc = runs["dense"][0]["dif-maml"]["loss"].numpy()
+    rows, fails = {}, []
+    for backend, (out, counts) in runs.items():
+        if counts != expect[backend]:
+            fails.append(f"{backend}: launches {counts}, expected "
+                         f"{expect[backend]}")
+        for label, r in out.items():
+            loss = r["loss"].numpy()
+            dis = r["disagreement"].numpy()
+            what = f"{backend} {label}"
+            first, last = float(loss[:20].mean()), float(loss[-20:].mean())
+            rel_dense = float(np.max(np.abs(loss / dense_atc - 1))) \
+                if label == "dif-maml" else 0.0
+            if not (np.isfinite(loss).all() and np.isfinite(dis).all()):
+                fails.append(f"{what}: non-finite loss or disagreement")
+            if not last < 0.9 * first:
+                fails.append(f"{what}: loss did not fall ({first:.4f} -> "
+                             f"{last:.4f})")
+            if not r["accuracy"] > FEWSHOT_MIN_ACC:
+                fails.append(f"{what}: test accuracy {r['accuracy']:.3f}")
+            if not rel_dense <= LOSS_RTOL:
+                fails.append(f"{what}: per-step loss differs from dense by "
+                             f"{rel_dense:.2e} (limit {LOSS_RTOL})")
+            rows[f"{backend}/{label}"] = row = dict(
+                backend=backend, strategy=label, steps=FEWSHOT_STEPS,
+                ms_per_step=r["ms_per_step"], loss_first20=first,
+                loss_last20=last, disagreement_last=float(dis[-1]),
+                accuracy=r["accuracy"],
+                reference_cpu_accuracy=FEWSHOT_REF_ACC[label],
+                loss_rel_vs_dense=rel_dense, launches=counts)
+            print("fewshot", json.dumps(row), flush=True)
+    del runs, phi
+    for label in labels:
+        agree = fewshot_cpu_agreement(label)
+        rows[f"dense/{label}"]["cpu_agreement"] = agree
+        print(f"fewshot card vs CPU {label}", json.dumps(agree), flush=True)
+        if not max(agree["loss_rel"]) <= LOSS_RTOL:
+            fails.append(f"{label}: a card step's loss differs from the "
+                         f"CPU's by {max(agree['loss_rel']):.2e} (limit "
+                         f"{LOSS_RTOL})")
+        if not max(agree["param_max_abs_err"]) <= FEWSHOT_PARAM_CAP:
+            fails.append(f"{label}: a card step's params differ from the "
+                         f"CPU's by {max(agree['param_max_abs_err']):.2e} "
+                         f"(limit {FEWSHOT_PARAM_CAP})")
+    if fails:
+        raise AssertionError("fewshot: " + "; ".join(fails))
+    torch.cuda.empty_cache()
+    return dict(rows=rows, checks=checks,
+                launches={"dif_combine": FEWSHOT_STEPS,
+                          "fused_combine_update": FEWSHOT_STEPS})
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: lm-100m through launch/decentralized_lm.py
+# ---------------------------------------------------------------------------
+
+# The example's geometry: seq 256, global batch 32 = 4 agents x 2 tasks x
+# (2 support + 2 query) sequences, 4 steps.
+LM100M_SEQ = 256
+LM100M_ARGS = ["--steps", "4", "--agents", "4", "--seq", str(LM100M_SEQ),
+               "--global-batch", "32", "--prefetch", "2"]
+# Its attention calls: 4 agents x 2 tasks x 2 sequences folded into one
+# batch, 8 query and 4 KV heads of 64, float32, causal.
+LM100M_FLASH = dict(B=16, S=256, H=8, KV=4, d=64, dtype=torch.float32)
+LM100M_KERNELS = ("flash_attention_fwd", "flash_attention_bwd",
+                  "flash_attention_fwd_tangent",
+                  "flash_attention_bwd_tangent")
+
+
+def lm100m_phase(fops, fref, modules) -> dict:
+    """``launch.decentralized_lm.main`` at lm-100m's full width (12
+    layers, d_model 512, vocab 32768, float32, exact MAML, K=4 on the
+    ring) for 4 steps, the launch counters zeroed just before and read
+    just after; then one meta-step under torch.profiler, and the float32
+    flash kernels and T1/T2 at the path's attention shape against their
+    plain versions, timed beside their bounds.  Fatal: a loss that is not
+    finite, a disagreement that does not fall, a flash kernel or T1/T2 not
+    launched in the run or in the profiled step."""
+    from repro_torch.launch import decentralized_lm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for m in modules:
+        m.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = decentralized_lm.main([*LM100M_ARGS, "--device", DEVICE])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = all_counts(modules)
+    peak_run = torch.cuda.max_memory_allocated() / 1e9
+    loss, dis = out["loss"].numpy(), out["disagreement"].numpy()
+    if not np.isfinite(loss).all():
+        raise AssertionError(f"lm-100m: non-finite loss {loss}")
+    if not dis[-1] < dis[0]:
+        raise AssertionError(f"lm-100m: disagreement did not fall: {dis}")
+    missing = [k for k in LM100M_KERNELS if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"lm-100m: kernels {missing} never launched: "
+                             f"{launches}")
+    bundle = out["bundle"]
+    source = decentralized_lm.make_source(bundle.cfg, LM100M_SEQ, bundle)
+    with bundle.make_pipeline(source, depth=0) as pipe:
+        batch = next(pipe)
+    report = out["report"].to_record()
+    s_per_step = out["s_per_step"]
+    profile = profile_train_step(bundle, out.pop("state"), batch, modules)
+    del out, bundle, batch
+    missing = [k for k in LM100M_KERNELS if not profile["launches"].get(k)]
+    if missing:
+        raise AssertionError(f"lm-100m: kernels {missing} not launched in "
+                             f"the profiled meta-step: "
+                             f"{profile['launches']}")
+    torch.cuda.empty_cache()
+    g = LM100M_FLASH
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    flash = check_gqa_flash(fops, fref, gen, g["B"], g["S"], g["H"],
+                            g["KV"], g["d"], g["dtype"], True, None, n=10)
+    tangent = check_flash_tangents(fops, fref, gen, 2,
+                                   (g["B"], g["S"], g["H"], g["KV"], g["d"]),
+                                   g["dtype"], True, None, timed=True)
+    torch.cuda.empty_cache()
+    row = dict(seconds=seconds, steps=len(loss), s_per_step=s_per_step,
+               losses=loss.tolist(),
+               disagreement=dis.tolist(), peak_run_gb=peak_run,
+               launches=launches, eval=report, profile=profile)
+    print(f"lm-100m: {seconds:.1f} s for {len(loss)} steps "
+          f"({s_per_step:.3f} s a step after the first); losses "
+          f"{row['losses']}; disagreement {row['disagreement']}; peak "
+          f"{peak_run:.2f} GB (run), {profile['peak_gb']:.2f} GB (one "
+          f"meta-step); profiled step {profile['wall_s']:.3f} s, device "
+          f"{profile.get('device_ms')} ms, idle share "
+          f"{profile.get('device_idle_share')}, split "
+          f"{profile.get('split_ms')}; eval {json.dumps(report)}; launches "
+          f"in the run {launches}", flush=True)
+    return dict(row, flash=flash, tangent=tangent)
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: adapt-then-serve through launch/serve_adapted.py
+# ---------------------------------------------------------------------------
+
+def serve_adapted_phase(modules) -> dict:
+    """``launch.serve_adapted.main`` with the reference example's reduced
+    arguments (qwen2-1.5b reduced: 2 training steps at K=4 into a
+    checkpoint under ``build/``, the centroid restored, adapted to unseen
+    domains, decoded), the launch counters zeroed just before and read just
+    after.  Fatal: any failure of the run, the flash kernels not launched,
+    or a serve log that ``check_run_log.py --serve`` refuses."""
+    from repro_torch.launch import serve_adapted
+    work = ROOT / "build" / "chip_serve_adapted"
+    shutil.rmtree(work, ignore_errors=True)
+    log = work / "serve.jsonl"
+    for m in modules:
+        m.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = serve_adapted.main(["--device", DEVICE, "--ckpt-root", str(work),
+                              "--run-log", str(log)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = all_counts(modules)
+    missing = [k for k in ("flash_attention_fwd", "flash_attention_bwd")
+               if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"serve_adapted: kernels {missing} never "
+                             f"launched: {launches}")
+    rounds = out["serve"]["rounds"]
+    row = dict(seconds=seconds, launches=launches,
+               serve_log_check=check_run_log(str(log), "--serve"),
+               rounds=[{k: r[k] for k in ("n", "hits", "misses", "seconds")}
+                       for r in rounds],
+               decode_tok_s=out["serve"]["decode"]["decode_tok_s"])
+    print("serve_adapted", json.dumps(row), flush=True)
+    del out
+    torch.cuda.empty_cache()
+    return row
+
+
+def paths_summary(kernels: list, fewshot: dict, lm100m: dict) -> None:
+    """Adds each kernel's numbers on the example paths to its kernels-line
+    entry: the outer-update kernels over the few-shot CNN's leaves and
+    their launches in its pallas / fused runs; the float32 flash kernels
+    and T1/T2 at lm-100m's attention shape and their launches in its
+    run."""
+    by_name = {k["name"]: k for k in kernels}
+    for name, check in fewshot["checks"].items():
+        by_name[name]["omniglot_cnn"] = dict(
+            check, launches_in_run=fewshot["launches"][name],
+            run=f"launch.fewshot, {FEWSHOT_STEPS} steps, dif-maml")
+    g = LM100M_FLASH
+    shape = (f"(B={g['B']}, S={g['S']}, H={g['H']}, KV={g['KV']}, "
+             f"d={g['d']}) float32 causal, model layout")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    for name, row, p in (
+            ("flash_attention_fwd", lm100m["flash"], "fwd"),
+            ("flash_attention_bwd", lm100m["flash"], "bwd"),
+            ("flash_attention_fwd_tangent", lm100m["tangent"], "fwd"),
+            ("flash_attention_bwd_tangent", lm100m["tangent"], "bwd")):
+        by_name[name]["lm100m"] = dict(
+            {key: row[f"{p}_{key}"] for key in keys},
+            library_ms=row.get(f"{p}_library_ms"), shape=shape,
+            launches_in_run=lm100m["launches"][name],
+            run="launch.decentralized_lm, 4 steps")
+
 def hgmma_phase(libraries: dict) -> dict:
     """What the bf16 Hopper kernels compiled to: HGMMA (wgmma) instructions
     in each of them, from ``cuobjdump -sass`` of each built library
@@ -2643,7 +3024,9 @@ def main() -> int:
     # before phase 5 for the same reason as phase 6
     train_rows = {
         "mamba2": train_phase(
-            "mamba2", get_config("mamba2-130m"), MAMBA_TRAIN_ARGS,
+            "mamba2", dataclasses.replace(get_config("mamba2-130m"),
+                                          num_layers=MAMBA_TRAIN_LAYERS),
+            MAMBA_TRAIN_ARGS,
             TRAIN_SHAPE,
             ("ssd_scan", *SSD_PASSES, "ssd_scan_tangent",
              "fused_combine_update"),
@@ -2658,6 +3041,13 @@ def main() -> int:
              "dif_combine"),
             ("--expect-outer-dtype", "bfloat16"))}
     stamp("lm training")
+    # the example twins (phases 16-18), before phase 5 for the same reason
+    fewshot = fewshot_phase(ops, ref, paper_A)
+    stamp("fewshot")
+    lm100m = lm100m_phase(fops, fref, (ops, fops, sops))
+    stamp("lm-100m")
+    adapted_serve = serve_adapted_phase((ops, fops, sops))
+    stamp("serve_adapted")
     train_agreement = {
         "qwen2-1.5b": train_agreement_phase("qwen2-1.5b", 128, AGREE_RTOL),
         "mamba2-130m": train_agreement_phase("mamba2-130m", 512,
@@ -2721,6 +3111,8 @@ def main() -> int:
                      ssd_pass_rows, ssd_calls, mamba_row),
         *tangent_summary(tangent, train_rows),
     ], "ms_per_step": ms_per_step, "train": train_rows,
+        "fewshot": fewshot["rows"], "lm100m": lm100m,
+        "serve_adapted": adapted_serve,
         "train_agreement": train_agreement, "profile": profile, "serve": serve_row,
         "agreement": agreement, "mamba2_serve": mamba_row,
         "mamba2_agreement": mamba_agreement, "hgmma": hgmma,
@@ -2728,6 +3120,7 @@ def main() -> int:
         "flash_kernels_per_call": flash_calls,
         "phase_end_seconds": stamps,
         "seconds": time.perf_counter() - t_start}
+    paths_summary(summary["kernels"], fewshot, lm100m)
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

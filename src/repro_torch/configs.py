@@ -4,10 +4,11 @@
 ``configs/base.py::ArchConfig`` that the sine MLP, the meta-trainer, the
 dense decoder family (attention, MLP, norms) and the Mamba2 family (the
 ``ssm_*`` fields) use, with the same names and defaults.
-:data:`SINE_MLP`, :data:`QWEN2_1_5B` and :data:`MAMBA2_130M` are
-``configs/sine_mlp.py``, ``configs/qwen2_1_5b.py`` and
-``configs/mamba2_130m.py`` copied.  Later slices add the fields and
-configurations their models read.
+:data:`SINE_MLP`, :data:`OMNIGLOT_CNN`, :data:`QWEN2_1_5B` and
+:data:`MAMBA2_130M` are ``configs/sine_mlp.py``, ``configs/omniglot_cnn.py``,
+``configs/qwen2_1_5b.py`` and ``configs/mamba2_130m.py`` copied;
+:data:`PAPER_OWN` names the paper's own two.  Later slices add the fields
+and configurations their models read.
 
 :data:`INPUT_SHAPES`, :func:`register_input_shape` and
 :func:`resolve_input_shape` are the reference's input-shape registry, with
@@ -82,7 +83,7 @@ def resolve_input_shape(shape: InputShape | str) -> InputShape:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    arch_type: str                  # dense | ssm | mlp (the port's families)
+    arch_type: str                  # dense | ssm | mlp | cnn
     num_layers: int
     d_model: int
     num_heads: int
@@ -187,6 +188,30 @@ SINE_MLP = ArchConfig(
     source="Dif-MAML §4.1 / Finn et al. 2017",
 )
 
+# The paper's own classification model (§4.2, App. D.3): the Finn et al.
+# 2017 conv net (per Vinyals et al. 2016), max-pooling variant for Omniglot.
+# Offline surrogate: synthetic few-shot episodes (data/fewshot.py) on 14×14
+# images, 2 conv blocks + linear head; 5-way 1-shot, α=0.4, meta-batch 16.
+OMNIGLOT_CNN = ArchConfig(
+    name="omniglot-cnn",
+    arch_type="cnn",
+    num_layers=2,          # conv blocks
+    d_model=32,            # conv channels
+    num_heads=1, num_kv_heads=1, head_dim=1,
+    d_ff=0,
+    vocab_size=5,          # n_way classes
+    inner_lr=0.4,
+    inner_steps=1,
+    meta_tasks=4,
+    topology="paper",
+    outer_optimizer="adam",
+    outer_lr=1e-3,
+    meta_mode="maml",
+    remat=False,
+    dtype="float32",
+    source="Dif-MAML §4.2 / Finn et al. 2017",
+)
+
 # qwen2-1.5b [arXiv:2407.10671]: dense GQA decoder with QKV bias.  28
 # layers, d_model=1536, 12 heads (GQA kv=2, head_dim=128), d_ff=8960,
 # vocab=151936.
@@ -232,8 +257,11 @@ MAMBA2_130M = ArchConfig(
     source="arXiv:2405.21060",
 )
 
-_CONFIGS = {"sine_mlp": SINE_MLP, "qwen2_1_5b": QWEN2_1_5B,
-            "mamba2_130m": MAMBA2_130M}
+_CONFIGS = {"sine_mlp": SINE_MLP, "omniglot_cnn": OMNIGLOT_CNN,
+            "qwen2_1_5b": QWEN2_1_5B, "mamba2_130m": MAMBA2_130M}
+
+# The paper's own models (the reference's ``configs/base.py::PAPER_OWN``).
+PAPER_OWN = ["sine_mlp", "omniglot_cnn"]
 
 # The JAX package's other configurations and the port slice that brings
 # each family.
@@ -243,7 +271,6 @@ _LATER = {
     "deepseek_v2_lite_16b": "an MLA/MoE slice",
     "llama_3_2_vision_90b": "a vision (cross-attention) slice",
     "whisper_large_v3": "an encoder-decoder (audio) slice",
-    "omniglot_cnn": "the few-shot CNN slice",
     "qwen2_7b": "a later dense-decoder configuration",
     "qwen2_7b_swa": "a later dense-decoder configuration",
     "codeqwen1_5_7b": "a later dense-decoder configuration",

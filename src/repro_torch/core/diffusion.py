@@ -163,8 +163,12 @@ def make_sparse_host_dynamic_combine(ir: topology.ScheduleIR,
 
 
 def centralized_combine(phi: Params) -> Params:
-    """All agents receive the network centroid: A = (1/K) 1 1ᵀ."""
-    return {k: x.mean(0, keepdim=True).expand_as(x) for k, x in phi.items()}
+    """All agents receive the network centroid: A = (1/K) 1 1ᵀ.  Each agent
+    gets its own copy: ``torch.func.jvp`` refuses primals whose elements
+    share memory (an expanded view), which the next step's curvature
+    products through a convolution take."""
+    return {k: x.mean(0, keepdim=True).expand_as(x).contiguous()
+            for k, x in phi.items()}
 
 
 def no_combine(phi: Params) -> Params:

@@ -26,7 +26,7 @@ from repro_torch.data.episodes import tree_map
 Params = dict[str, torch.Tensor]
 LossFn = Callable[[Params, Any], torch.Tensor]
 
-__all__ = ["inner_adapt", "meta_grad", "multi_task_meta_grad"]
+__all__ = ["inner_adapt", "meta_loss", "meta_grad", "multi_task_meta_grad"]
 
 
 def _sgd_step(params: Params, grads: Params, alpha: float) -> Params:
@@ -68,6 +68,24 @@ def inner_adapt(
     for _ in range(steps):
         params = step_fn(params)
     return params
+
+
+def meta_loss(
+    loss_fn: LossFn,
+    params: Params,
+    support: Any,
+    query: Any,
+    alpha: float,
+    steps: int = 1,
+    mode: str = "maml",
+) -> torch.Tensor:
+    """Meta objective for a single task: ``Q(w - α∇Q(w; X_in); X_o)``.
+    ``fomaml`` and ``reptile`` adapt with the inner gradient detached
+    (Reptile has no outer loss of its own; its callers use
+    :func:`meta_grad`)."""
+    adapted = inner_adapt(loss_fn, params, support, alpha, steps,
+                          first_order=mode in ("fomaml", "reptile"))
+    return loss_fn(adapted, query)
 
 
 def meta_grad(

@@ -38,7 +38,7 @@ LossFn = Callable[[Params, Any], torch.Tensor]
 
 __all__ = ["TopologyConfig", "UpdateConfig", "MetaConfig", "TrainState",
            "init_state", "make_meta_step", "make_eval_fn", "topology_for",
-           "schedule_for", "strategy_for_combine"]
+           "schedule_for", "combination_matrix_for", "strategy_for_combine"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +108,14 @@ def schedule_for(cfg: MetaConfig) -> topology.TopologySchedule:
     elif tc.schedule == "gossip":
         kw = dict(period=tc.period, seed=tc.seed)
     return topology.make_schedule(tc.schedule, topology_for(cfg), **kw)
+
+
+def combination_matrix_for(cfg: MetaConfig) -> np.ndarray:
+    """The static ``(K, K)`` matrix (the schedule-independent legacy
+    surface)."""
+    if cfg.num_agents == 1:
+        return np.ones((1, 1))
+    return topology_for(cfg).matrix
 
 
 def init_state(

@@ -23,7 +23,8 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["Spec", "flatten_tree", "materialize", "stack_specs"]
+__all__ = ["Spec", "count_params", "flatten_tree", "materialize",
+           "stack_specs"]
 
 _CHUNK = 1 << 24          # elements drawn per generator call
 
@@ -53,6 +54,12 @@ def flatten_tree(tree: Any, prefix: str = "") -> dict[str, Any]:
             out.update(flatten_tree(x, f"{prefix}{i}/"))
         return out
     return {prefix[:-1]: tree}
+
+
+def count_params(tree: Any) -> int:
+    """Elements of every Spec leaf of ``tree`` (a Spec tree or its flat
+    dict)."""
+    return int(sum(np.prod(s.shape) for s in flatten_tree(tree).values()))
 
 
 def _map_specs(fn, tree):

@@ -37,6 +37,18 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+def test_import_check_covers_the_example_modules():
+    """The few-shot data module (whose reference imports jax inside two
+    functions) and the example entry points are among the modules the
+    import test loads."""
+    mods = set(_modules())
+    assert {"repro_torch.data.fewshot", "repro_torch.launch.fewshot",
+            "repro_torch.launch.decentralized_lm",
+            "repro_torch.launch.serve_adapted"} <= mods
+    text = (PORT / "data" / "fewshot.py").read_text()
+    assert "jax" not in text.replace("repro_torch", "")
+
+
 def test_no_source_names_the_reference_package():
     pattern = re.compile(r"^\s*(import repro\b(?!_torch)|from repro\b"
                          r"(?!_torch)|import jax|from jax)", re.M)
@@ -122,6 +134,29 @@ def test_training_entry_points_raise_without_a_device():
         "train qwen2": lambda: train.main(["--arch", "qwen2-1.5b",
                                            "--reduced", "--steps", "1"]),
         "build_train": lambda: steps.build_train(cfg, shape, 2),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+            pytest.fail(f"{name} ran without a device")
+
+
+def test_example_entry_points_raise_without_a_device():
+    """The example twins (few-shot classification, the decentralized LM,
+    adapt-then-serve) and the few-shot CNN's init follow the same rule."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: None resolves to it")
+    from repro_torch.configs import get_config
+    from repro_torch.launch import decentralized_lm, fewshot, serve_adapted
+    from repro_torch.models import FewShotCNN
+
+    calls = {
+        "fewshot": lambda: fewshot.main(["--steps", "1"]),
+        "decentralized_lm": lambda: decentralized_lm.main(["--tiny",
+                                                           "--steps", "1"]),
+        "serve_adapted": lambda: serve_adapted.main([]),
+        "FewShotCNN.init": lambda: FewShotCNN(
+            get_config("omniglot_cnn")).init(torch.Generator()),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="no CUDA device"):
