@@ -9,13 +9,17 @@ Phases, each fatal on failure:
 2. build     -- compiles the CUDA sources of ``kernels/dif_combine/csrc``,
                 ``kernels/flash_attention/csrc`` and ``kernels/ssd_scan/csrc``
                 with nvcc for sm_90a, all at once, and prints the build
-                seconds and, from ``cuobjdump -sass``, the HGMMA (wgmma)
-                instructions in each bf16 Hopper kernel: the flash forward,
-                dQ and dK/dV kernels and the SSD chunk-state and
-                chunk-output kernels must have some.  Then one call of
-                ``gqa_flash_attention`` at the serving shape must run one
-                kernel forward and two backward, and one bf16 SSD scan
-                call the SSD's three kernels and nothing else
+                seconds and, from ``cuobjdump -sass``, the tensor-core
+                instructions in each Hopper kernel: HGMMA (wgmma) in the
+                bf16 flash forward, dQ and dK/dV kernels, the SSD
+                chunk-state and chunk-output kernels and T3's tangent
+                chunk-state and chunk-output kernels, HMMA (mma.sync on
+                TF32) in the float32 flash dQ and dK/dV kernels; each must
+                have some.  Then one call of ``gqa_flash_attention`` at the
+                serving shape must run one kernel forward and two backward,
+                one float32 backward at lm-100m's shape its two kernels, one
+                bf16 SSD scan call the SSD's three kernels and one bf16
+                ``ssd_scan_tangent`` call T3's three, and nothing else
                 (torch.profiler, before any other profiling: sessions after
                 phase 5's miss kernels).
 3. kernels   -- holds ``dif_combine`` and ``fused_combine_update`` against
@@ -56,7 +60,10 @@ Phases, each fatal on failure:
                 users x 4 sequences, H=12, S=256, d=128, bfloat16, causal);
                 in the model's layout with qwen2's 2 KV heads not expanded
                 (``gqa_flash_attention``, what the serving path calls), B=2
-                at S in {128, 1024} and the serving shape.  Each check
+                at S in {128, 1024} in both dtypes, the serving shape, and
+                the serving shape in float32 (the 3xTF32 backward; its
+                second bound, three TF32 products at 495 TFLOP/s, printed
+                beside the float32 rate's).  Each check
                 prints its errors, the kernels' times, the plain versions',
                 SDPA's (the library yardstick, never called by the port;
                 ``enable_gqa`` in the model's layout, its backward timed by
@@ -90,7 +97,10 @@ Phases, each fatal on failure:
                 versions) in the same dtype, within 2e-2 relative in
                 float32 and 1e-3 in bfloat16, and adaptation lowers the
                 support loss in every run.  The
-                CPU's bf16 losses against its f32 ones are reported.
+                CPU's bf16 losses against its f32 ones are reported.  The
+                float32 flash backward is then held at this phase's shape
+                (2 x 256, 12 / 2 heads of 128) against autograd and its
+                plain version, beside SDPA and both its bounds.
 9. ssd       -- holds the SSD scan kernel against ``ssd_scan_ref`` (the
                 per-step recurrence): tests/test_kernels.py's grid (L, chunk
                 in {(128, 32), (256, 64), (256, 128)}, B=2, H=2, P=16, N=32),
@@ -139,9 +149,14 @@ Phases, each fatal on failure:
                 sequence, the mamba2 training shape (8 sequences of 512, A
                 per sequence) and the serving shape, with planted faults
                 (the tangent state not carried, a chunk's rows zeroed, C'
-                dropped) that must fail; bf16 and f32.  Prints each timed
-                kernel's ms, the plain version's ms and the bound.  Runs
-                before phase 5, as phase 6.
+                dropped) that must fail; bf16 and f32.  Then each of T3's
+                three bf16 kernels (tangent chunk states, state passing,
+                chunk outputs) against its plain version on the grid, a
+                ragged row, one chunk and the training and serving shapes,
+                timed at the last two beside its bound and this design's.
+                Prints each timed kernel's ms, the plain version's ms and
+                the bound, and T3's call beside the CUDA-core kernel it
+                replaced.  Runs before phase 5, as phase 6.
 13. mamba2 training -- this slice's main path: ``launch.train.main`` in
                 this process on mamba2-130m at full width cut to 8 of its
                 24 layers (``--layers 8``; bf16, fresh init from seed 0), K=4 agents on the ring,
@@ -194,7 +209,10 @@ Phases, each fatal on failure:
                 profiled meta-step (device split, idle share, peak memory);
                 the eval report; the float32 flash kernels and T1/T2 at the
                 path's attention shape (B=16, S=256, H=8, KV=4, d=64)
-                against their plain versions, timed beside their bounds.
+                against their plain versions, timed beside their bounds
+                (the float32 backward beside SDPA's, both its bounds and
+                the CUDA-core kernels it replaced, with planted faults and
+                cold-L2 times).
 18. adapt-then-serve -- ``launch.serve_adapted.main`` with the reference
                 example's reduced arguments (reduced qwen2-1.5b trained 2
                 steps into a checkpoint under ``build/``, its centroid
@@ -211,6 +229,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -222,6 +241,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# The qwen2-1.5b training cut peaks within 9 GB of the card's 80 GB; with
+# fixed-size segments the cache can fragment past that (13.5 GB reserved
+# and unused when its profiled meta-step ran out of memory), so segments
+# grow in place instead.  Set before torch starts its allocator.
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -229,6 +253,7 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12          # H100 SXM, fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12         # H100 SXM, bf16 tensor cores, dense
+TF32_FLOP_PER_S = 495e12         # H100 SXM, TF32 tensor cores, dense
 # float32: the kernels evaluate the plain versions' expressions but sum the
 # K terms of a mix in another order (a few ulps of values of order 1).
 # bfloat16: outputs are rounded to bf16 after that, so one ulp (2^-7
@@ -263,10 +288,21 @@ SSD_PASSES = {"ssd_chunk_state": "chunk_state_kernel",
 # The SSD scan's forward kernels as torch.profiler names them: the bf16
 # passes and the float32 kernel.
 SSD_FORWARD_KERNELS = (*SSD_PASSES.values(), "ssd_scan_kernel")
+# T3's three bf16 kernels (launch-count keys, and their profiler names): the
+# forward's passes with the tangent plane beside each.
+T3_PASSES = {"ssd_tangent_state": "tangent_state_kernel",
+             "ssd_tangent_pass": "tangent_pass_kernel",
+             "ssd_tangent_scan": "tangent_scan_kernel"}
 # What the CUDA-core kernel that the bf16 route replaced took for one bf16
 # scan at the serving shape on an H100 (PERF.md, row 5 of the kernel
 # table), printed beside this run's time.
 SSD_SIMT_MS = 2.284
+# What the kernels this design replaced took on an H100 (PERF.md, section
+# 6): the float32 flash backward on the CUDA cores at lm-100m's attention
+# shape (16, 256, 8, 4, 64), both launches, and T3 on the CUDA cores at the
+# mamba2 training shape in bf16; printed beside this run's times.
+FLASH_F32_BWD_SIMT_MS = 0.404
+T3_SIMT_MS = 2.252
 # Flash attention against attention_ref and its autograd gradient, and the
 # backward also against its plain version.  float32: the same products
 # summed in another order (a blocked online softmax).  bfloat16: both round
@@ -878,6 +914,16 @@ def flash_cost(B, H, S, d, itemsize, pairs_per_head, backward, KV=None):
     return 2 * tile + 2 * kv_tile + rows, 4.0 * d * pairs_per_head * B * H
 
 
+def tf32_bound(row, cost) -> None:
+    """A float32 row's second backward bound, this design's: its products
+    as three TF32 products at the TF32 tensor rate, or its bytes, whichever
+    is larger (``bwd_bound_ms`` stays the float32 rate's)."""
+    if row["dtype"] == "float32":
+        nbytes, flops = cost
+        row["bwd_tf32_bound_ms"], row["bwd_tf32_bound_by"] = bound_ms(
+            nbytes, 3 * flops, TF32_FLOP_PER_S)
+
+
 def library_attention(q, k, v, causal, window, fref, gqa=False):
     """One PyTorch call of the same forward on (B, H, S, d) views: SDPA,
     with the band as a boolean mask where a window is set, and
@@ -986,6 +1032,7 @@ def check_flash(fops, fref, gen, B, H, S, d, dtype, causal, window,
         row[f"{phase}_bound_ms"], row[f"{phase}_bound_by"] = bound_ms(
             *flash_cost(B, H, S, d, q.element_size(), pairs,
                         phase == "bwd"), peak)
+    tf32_bound(row, flash_cost(B, H, S, d, q.element_size(), pairs, True))
     print("flash check", json.dumps(row), flush=True)
     if faults:
         planted_faults(fref, q, k, v, out, lse, do, (dq, dk, dv),
@@ -1101,12 +1148,29 @@ def flash_calls_phase(fops) -> dict:
                "out", fops.gqa_flash_attention(*leaves, **kw))),
            "bwd": device_kernels(lambda: torch.autograd.grad(
                held["out"], leaves, do))}
+    # the float32 backward at lm-100m's shape: its two kernels and nothing
+    # else (no head expansion, copy, D or per-KV-head sum beside them)
+    f = LM100M_FLASH
+    q32, do32 = (torch.randn(f["B"], f["S"], f["H"], f["d"], generator=gen,
+                             device=DEVICE) for _ in "qo")
+    k32, v32 = (torch.randn(f["B"], f["S"], f["KV"], f["d"], generator=gen,
+                            device=DEVICE) for _ in "kv")
+    out32, lse32 = fops.gqa_flash_attention_fwd_lse(q32, k32, v32)
+    bwd32 = lambda: fops.gqa_flash_attention_bwd(q32, k32, v32, out32,
+                                                 lse32, do32)
+    bwd32()
+    row["bwd_float32"] = device_kernels(bwd32)
     print("flash kernels per call", json.dumps(row), flush=True)
     if len(row["fwd"]) != 1 or len(row["bwd"]) != 2:
         raise AssertionError(
             f"a gqa_flash_attention forward call ran {row['fwd']} and its "
             f"backward {row['bwd']} on the card; expected the forward "
             f"kernel alone and the two backward kernels")
+    names = row["bwd_float32"]
+    if len(names) != 2 or not all("tf32" in n for n in names):
+        raise AssertionError(
+            f"a float32 gqa_flash_attention_bwd call ran {names} on the "
+            f"card; expected the two tf32 kernels and nothing else")
     return row
 
 
@@ -1116,6 +1180,10 @@ def check_gqa_flash(fops, fref, gen, B, S, H, KV, d, dtype, causal, window,
     calls): the kernels against ``attention_ref`` on K/V expanded to H
     heads and its autograd gradient (which sums each KV head's gradient
     over its query heads), and the backward against its plain version.
+    The autograd reference runs on float32 copies of the inputs and rounds
+    its results once to the dtype: on bf16 leaves the backward of the
+    expansion would round each query head's dK/dV to bf16 before their
+    sum, as the kernel (float32 sums, one rounding) does not.
     Bounds count the unexpanded K/V; the yardstick is SDPA with
     ``enable_gqa`` on the (B, H, S, d) views.  ``serving``: also the
     planted faults and the times with a cold L2."""
@@ -1132,10 +1200,12 @@ def check_gqa_flash(fops, fref, gen, B, S, H, KV, d, dtype, causal, window,
     def heads(t, expand=False):          # (B, S, n, d) -> (B, H, S, d)
         return (t.repeat_interleave(rep, 2) if expand else t).transpose(1, 2)
 
-    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
     want = fref.attention_ref(heads(leaves[0]), heads(leaves[1], True),
                               heads(leaves[2], True), **kw).transpose(1, 2)
-    want.backward(do)
+    want.backward(do.float())
+    want = want.detach().to(dtype)
+    grads = [leaf.grad.to(dtype) for leaf in leaves]
     _, want_lse = fref.gqa_flash_fwd_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     what = (f"gqa flash B={B} S={S} H={H} KV={KV} d={d} {str(dtype)[6:]} "
@@ -1156,10 +1226,10 @@ def check_gqa_flash(fops, fref, gen, B, S, H, KV, d, dtype, causal, window,
                                     window)
     slack = (sq.transpose(1, 2),
              sk.reshape(B, KV, rep, S, d).sum(2).transpose(1, 2), 0.0)
-    bwd_err = max(compare(g, leaf.grad, dtype, f"{what} d{name}",
-                          tol["bwd"], sl + row_atol(leaf.grad))
-                  for g, leaf, sl, name in zip((dq, dk, dv), leaves, slack,
-                                               "qkv"))
+    bwd_err = max(compare(g, want_g, dtype, f"{what} d{name}",
+                          tol["bwd"], sl + row_atol(want_g))
+                  for g, want_g, sl, name in zip((dq, dk, dv), grads, slack,
+                                                 "qkv"))
     pairs = int(fref.band_mask(S, S, causal, window, dev).sum())
     peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
     row = dict(B=B, S=S, H=H, KV=KV, d=d, dtype=str(dtype)[6:],
@@ -1190,6 +1260,8 @@ def check_gqa_flash(fops, fref, gen, B, S, H, KV, d, dtype, causal, window,
         row[f"{phase}_bound_ms"], row[f"{phase}_bound_by"] = bound_ms(
             *flash_cost(B, H, S, d, q.element_size(), pairs,
                         phase == "bwd", KV=KV), peak)
+    tf32_bound(row, flash_cost(B, H, S, d, q.element_size(), pairs, True,
+                               KV=KV))
     if serving:
         flush = torch.empty(FLUSH_BYTES // 4, device=dev)
         row["fwd_cold_ms"] = time_cold_ms(fwd, n, flush)
@@ -1200,7 +1272,7 @@ def check_gqa_flash(fops, fref, gen, B, S, H, KV, d, dtype, causal, window,
         head_first = [heads(t) for t in (dq, dk, dv)]
         planted_faults(fref, heads(q), heads(k, True), heads(v, True),
                        heads(out), lse, heads(do), head_first,
-                       [heads(leaf.grad) for leaf in leaves],
+                       [heads(g) for g in grads],
                        [heads(x) if torch.is_tensor(x) else x
                         for x in slack], causal, window, tol["bwd"],
                        what="gqa flash")
@@ -1220,16 +1292,34 @@ def flash_phase(fops, fref):
     main = check_flash(fops, fref, gen, m["B"], m["H"], m["S"], m["d"],
                        m["dtype"], m["causal"], m["window"], n=20,
                        faults=True)
+    # the model's layout in both dtypes (float32: the 3xTF32 backward), then
+    # the serving shape, and qwen2-1.5b's shape in float32 with SDPA beside it
     g = FLASH_GQA_MAIN
     gqa_rows = [check_gqa_flash(fops, fref, gen, 2, S, g["H"], g["KV"],
-                                g["d"], g["dtype"], g["causal"], g["window"],
-                                n=5)
-                for S in (128, 1024)]
+                                g["d"], dtype, g["causal"], g["window"], n=5)
+                for S in (128, 1024)
+                for dtype in (g["dtype"], torch.float32)]
     gqa = check_gqa_flash(fops, fref, gen, g["B"], g["S"], g["H"], g["KV"],
                           g["d"], g["dtype"], g["causal"], g["window"], n=20,
                           serving=True)
+    gqa["float32"] = check_gqa_flash(fops, fref, gen, g["B"], g["S"],
+                                     g["H"], g["KV"], g["d"], torch.float32,
+                                     g["causal"], g["window"], n=10)
+    print_f32_bwd("qwen2-1.5b f32", gqa["float32"])
     torch.cuda.empty_cache()
     return main, rows, gqa, gqa_rows
+
+
+def print_f32_bwd(what, row) -> None:
+    """One line: the float32 backward's time beside SDPA's, both bounds and
+    the CUDA-core kernel it replaced."""
+    print(f"{what} flash backward (3xTF32): {row['bwd_ms']:.4f} ms for both "
+          f"launches; SDPA's backward {row['bwd_library_ms']:.4f} ms; bounds "
+          f"{row['bwd_bound_ms']:.4f} ms (float32 rate, "
+          f"{row['bwd_bound_by']}) and {row['bwd_tf32_bound_ms']:.4f} ms "
+          f"(three TF32 products, {row['bwd_tf32_bound_by']}); the "
+          f"CUDA-core kernels it replaced {FLASH_F32_BWD_SIMT_MS} ms at "
+          f"lm-100m's shape (PERF.md)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1433,6 +1523,32 @@ def ssd_calls_phase(sops) -> list:
         raise AssertionError(
             f"a bf16 ssd_scan_kernel call ran {names} on the card; expected "
             f"the kernels {list(SSD_PASSES.values())} and nothing else")
+    return names
+
+
+def t3_calls_phase(sops) -> list:
+    """The kernels that one bf16 ``ssd_scan_tangent`` call (T3) runs on the
+    card at the mamba2 training shape, from torch.profiler; fails unless
+    they are its three passes' kernels, one each, and nothing else.  Run
+    before the training step's profile (phase 5), as ssd_calls_phase."""
+    t = SSD_TRAIN
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    x, dt, A, Bm, Cm = ssd_inputs(gen, t["B"], t["L"], t["H"], t["P"],
+                                  t["N"], t["G"], torch.bfloat16)
+    tangents = [torch.randn(a.shape, generator=gen, device=DEVICE
+                            ).to(a.dtype) for a in (x, dt, A, Bm, Cm)]
+    call = lambda: sops.ssd_scan_tangent(x, dt, A, Bm, Cm, *tangents,
+                                         chunk=t["chunk"])
+    call()
+    names = device_kernels(call)
+    print("T3 kernels per bf16 call", json.dumps(names), flush=True)
+    if len(names) != len(T3_PASSES) or sorted(
+            k for k in T3_PASSES.values()
+            if any(k in n for n in names)) != sorted(T3_PASSES.values()):
+        raise AssertionError(
+            f"a bf16 ssd_scan_tangent call ran {names} on the card; "
+            f"expected the kernels {list(T3_PASSES.values())} and nothing "
+            f"else")
     return names
 
 
@@ -1968,7 +2084,8 @@ def flash_summary(name, main, serve_row, rows, gqa, gqa_rows,
                          **{key: main[f"{p}_{key}"] for key in keys}},
             "sweep_checks": len(rows) + len(gqa_rows),
             "sweep_worst_err": max(r[f"{p}_max_abs_err"]
-                                   for r in rows + gqa_rows)}
+                                   for r in rows + gqa_rows),
+            **({"qwen2_float32": gqa["float32"]} if p == "bwd" else {})}
 
 
 # ---------------------------------------------------------------------------
@@ -1991,8 +2108,12 @@ SSD_TRAIN = dict(B=8, L=512, H=24, P=64, N=128, G=1, chunk=256)
 
 
 def tangent_outside(got, want) -> tuple[int, float]:
+    """(elements of ``got`` outside TANGENT_TOL of ``want``, largest |got -
+    want|; 0 for no elements: one chunk has no entering states)."""
     rtol, rel = TANGENT_TOL[want.dtype]
     g, w = got.detach().float(), want.detach().float()
+    if not w.numel():
+        return 0, 0.0
     err = (g - w).abs()
     limit = rtol * w.abs() + rel * w.abs().max()
     bad = int((err > limit).sum()) + int((~torch.isfinite(g)).sum())
@@ -2109,6 +2230,118 @@ def ssd_tangent_cost(B, L, H, P, N, G, chunk, itemsize
     return nbytes, float(flops)
 
 
+def t3_pass_costs(B, L, H, P, N, G, chunk) -> dict:
+    """(bytes, flops, design flops, peak rate) of each of T3's bf16 passes:
+    its inputs read once and its outputs written once; flops the least
+    work on these inputs (G = C.B^T and G' = C'.B^T + C.B'^T once per group,
+    products of bf16 inputs only), design flops what this design issues
+    (G and G' once per block of kT3ScanHeads = 2 heads, and every product
+    that takes a float32 operand as a bf16 hi/lo pair twice).
+    Tangent chunk states: x, x', dt, dt', A, A', B, B' in; S, S', seg, seg'
+    out; (u x)^T B, (u' x + u x')^T B and (u x)^T B', 2cPN each a (b, h,
+    chunk), all hi/lo.  Tangent state passing: S, S' and the chunks' last
+    seg, seg' in; four planes and the final S' out; 6PN a (b, h, chunk) on
+    the CUDA cores.  Tangent chunk outputs: x, x', dt, dt', seg, seg', B,
+    B', C, C' and four planes in, y' out; the causal halves of G and G'
+    (3c(c+1)N a group), of M1 x and M2 x' (2c(c+1)P a head, hi/lo), and the
+    entering C s_in^T, C' s_in^T, C s'_in^T (6cPN a head of chunks 1 ..,
+    hi/lo)."""
+    c, nc = chunk, L // chunk
+    x, bc = 2 * B * L * H * P, 2 * B * L * G * N
+    dt = seg = 4 * B * L * H
+    S, state = 4 * B * nc * H * P * N, 4 * B * H * P * N
+    planes = 2 * 2 * B * (nc - 1) * H * P * N
+    heads = B * nc * H
+    gram = 3.0 * c * (c + 1) * N * B * nc
+    blocks = G * -(-(H // G) // 2)               # pass-3 blocks a (b, chunk)
+    mx = 2.0 * c * (c + 1) * P * heads
+    enter = 6.0 * c * P * N * B * (nc - 1) * H
+    return {
+        "ssd_tangent_state": (2 * x + 2 * dt + 8 * B * H + 2 * bc + 2 * S
+                              + 2 * seg, 6.0 * c * P * N * heads,
+                              12.0 * c * P * N * heads, BF16_FLOP_PER_S),
+        "ssd_tangent_pass": (2 * S + 8 * B * H * nc + 2 * planes + state,
+                             6.0 * P * N * heads, 6.0 * P * N * heads,
+                             FP32_FLOP_PER_S),
+        "ssd_tangent_scan": (3 * x + 4 * dt + 4 * bc + 2 * planes,
+                             gram * G + mx + enter,
+                             gram * blocks + 2 * mx + 2 * enter,
+                             BF16_FLOP_PER_S)}
+
+
+def check_t3_passes(sops, sref, gen, B, L, H, P, N, G, chunk, timed=False,
+                    steep_dt=None) -> dict:
+    """Each of T3's bf16 kernels against its plain version on the same
+    inputs (the kernel's own outputs of the pass before), A per sequence:
+    the tangent chunk states (S, S', seg, seg') against
+    ``tangent_state_ref``, the tangent state passing (the planes' hi + lo,
+    the final S') against ``tangent_pass_ref``, the tangent chunk outputs
+    against ``tangent_scan_ref`` of hi + lo; float32 results within
+    TANGENT_TOL[float32], y' within TANGENT_TOL[bfloat16], every result
+    finite.  ``steep_dt``: every dt that value, so that seg falls by
+    hundreds within a chunk (a masked pair's exponent would overflow).
+    Timed: each kernel's ms, its plain version's, its bound and this
+    design's."""
+    x, dt, A, Bm, Cm = ssd_inputs(gen, B, L, H, P, N, G, torch.bfloat16)
+    if steep_dt is not None:
+        dt = torch.full_like(dt, steep_dt)
+    A = A * (0.5 + torch.rand(B, 1, generator=gen, device=DEVICE))
+    tx, tdt, tA, tB, tC = (torch.randn(t.shape, generator=gen,
+                                       device=DEVICE).to(t.dtype)
+                           for t in (x, dt, A, Bm, Cm))
+    S, tS, seg, tseg = sops.ssd_tangent_state(x, dt, A, Bm, tx, tdt, tA, tB,
+                                              chunk=chunk)
+    hi, lo, thi, tlo, tstate = sops.ssd_tangent_pass(S, tS, seg, tseg,
+                                                     chunk=chunk)
+    ty = sops.ssd_tangent_scan(x, dt, seg, Bm, Cm, tx, tdt, tseg, tB, tC, hi,
+                               lo, thi, tlo, chunk=chunk)
+    s_in, ts_in = hi.float() + lo.float(), thi.float() + tlo.float()
+    plain = {
+        "ssd_tangent_state": lambda: sref.tangent_state_ref(
+            x, dt, A, Bm, tx, tdt, tA, tB, chunk),
+        "ssd_tangent_pass": lambda: sref.tangent_pass_ref(S, tS, seg, tseg,
+                                                          chunk),
+        "ssd_tangent_scan": lambda: sref.tangent_scan_ref(
+            x, dt, seg, Bm, Cm, tx, tdt, tseg, tB, tC, s_in, ts_in, chunk)}
+    want_state = plain["ssd_tangent_state"]()
+    er, ter, tsr = plain["ssd_tangent_pass"]()
+    yr = plain["ssd_tangent_scan"]()
+    torch.cuda.synchronize()
+    what = (f"T3 passes B={B} L={L} H={H} P={P} N={N} G={G} chunk={chunk}"
+            + (f" dt={steep_dt}" if steep_dt is not None else ""))
+    errs = {"ssd_tangent_state": max(
+                check_tangent(a, b, f"{what} {n}") for a, b, n in
+                zip((S, tS, seg, tseg), want_state, ("S", "S'", "seg",
+                                                      "seg'"))),
+            "ssd_tangent_pass": max(
+                check_tangent(a, b, f"{what} {n}") for a, b, n in
+                zip((s_in, ts_in, tstate), (er, ter, tsr),
+                    ("s_in", "s'_in", "state'"))),
+            "ssd_tangent_scan": check_tangent(ty, yr, what + " y'")}
+    row = {k: {"max_abs_err": v} for k, v in errs.items()}
+    if timed:
+        kernel = {
+            "ssd_tangent_state": lambda: sops.ssd_tangent_state(
+                x, dt, A, Bm, tx, tdt, tA, tB, chunk=chunk),
+            "ssd_tangent_pass": lambda: sops.ssd_tangent_pass(
+                S, tS, seg, tseg, chunk=chunk),
+            "ssd_tangent_scan": lambda: sops.ssd_tangent_scan(
+                x, dt, seg, Bm, Cm, tx, tdt, tseg, tB, tC, hi, lo, thi, tlo,
+                chunk=chunk)}
+        for name, (nbytes, flops, design, peak) in t3_pass_costs(
+                B, L, H, P, N, G, chunk).items():
+            row[name].update(
+                ms=time_ms(kernel[name], 20),
+                plain_ms=time_ms(plain[name], 1, reps=3),
+                library_ms=None, bytes=nbytes, flops=flops,
+                design_flops=design)
+            row[name]["bound_ms"], row[name]["bound_by"] = bound_ms(
+                nbytes, flops, peak)
+            row[name]["design_bound_ms"], _ = bound_ms(nbytes, design, peak)
+    print(what, json.dumps(row), flush=True)
+    return row
+
+
 def check_ssd_tangent(sops, sref, gen, B, L, H, P, N, G, chunk, dtype,
                       per_sequence_A=False, timed=False, faults=False
                       ) -> dict:
@@ -2199,9 +2432,36 @@ def tangent_phase(fops, fref, sops, sref) -> dict:
     ssd_serve = check_ssd_tangent(sops, sref, gen, m["B"], m["L"], m["H"],
                                   m["P"], m["N"], m["G"], m["chunk"],
                                   torch.bfloat16, timed=True, faults=True)
+    # T3's bf16 kernels one by one: the grid, a ragged row with two
+    # groups, one chunk, seg falling past 88 within each of two chunks, and
+    # the training and serving shapes, timed
+    pass_rows = [check_t3_passes(sops, sref, gen, 2, L, 2, 16, 32, 2, chunk)
+                 for L, chunk in ((128, 32), (256, 64), (256, 128))]
+    pass_rows += [check_t3_passes(sops, sref, gen, 2, L, H, P, N, G, chunk)
+                  for L, H, P, N, G, chunk in ((96, 4, 8, 16, 2, 48),
+                                               (100, 4, 16, 32, 2, 100))]
+    pass_rows.append(check_t3_passes(sops, sref, gen, 2, 512, 4, 16, 32, 2,
+                                     256, steep_dt=4.0))
+    passes = {name: check_t3_passes(sops, sref, gen, s["B"], s["L"], s["H"],
+                                    s["P"], s["N"], s["G"], s["chunk"],
+                                    timed=True)
+              for name, s in (("train", t), ("serve", m))}
+    for name, row in (("train", ssd_train["bfloat16"]), ("serve", ssd_serve)):
+        p = passes[name]
+        row["design_bound_ms"], _ = bound_ms(
+            sum(v["bytes"] for v in p.values()),
+            sum(v["design_flops"] for v in p.values()), BF16_FLOP_PER_S)
+        each = ", ".join(f"{k} {v['ms']:.4f}" for k, v in p.items())
+        print(f"T3 at the {name} shape, bf16: {row['ms']:.4f} ms a call "
+              f"({each}); "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); this "
+              f"design's bound {row['design_bound_ms']:.4f} ms; the "
+              f"CUDA-core kernel it replaced {T3_SIMT_MS} ms at the train "
+              f"shape (PERF.md)", flush=True)
     torch.cuda.empty_cache()
     return dict(flash_rows=rows, flash_gqa=gqa, ssd_rows=ssd_rows,
-                ssd_train=ssd_train, ssd_serve=ssd_serve)
+                ssd_train=ssd_train, ssd_serve=ssd_serve, passes=passes,
+                pass_rows=pass_rows)
 
 
 def tangent_summary(tan, train_rows) -> list:
@@ -2245,8 +2505,26 @@ def tangent_summary(tan, train_rows) -> list:
                  f"N={s['N']}, G={s['G']}, chunk={s['chunk']}) bfloat16, A "
                  f"per sequence; no TPU counterpart; launches: the mamba2 "
                  f"training run; library: none",
+        "design_bound_ms": t["design_bound_ms"],
         "float32": tan["ssd_train"]["float32"], "serving_shape":
             tan["ssd_serve"], "sweep_checks": len(tan["ssd_rows"])})
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "design_bound_ms")
+    train = tan["passes"]["train"]
+    for name in T3_PASSES:
+        out.append({
+            "name": name, "route": "cuda", "source": SSD_SOURCE,
+            "replaces": None,
+            "launches": train_rows["mamba2"]["launches"][name],
+            **{k: train[name][k] for k in keys},
+            "shape": f"(B={s['B']}, L={s['L']}, H={s['H']}, P={s['P']}, "
+                     f"N={s['N']}, G={s['G']}, chunk={s['chunk']}) bfloat16, "
+                     f"A per sequence; one launch a bf16 T3 call; launches: "
+                     f"the mamba2 training run",
+            "serving_shape": {k: tan["passes"]["serve"][name][k]
+                              for k in keys},
+            "sweep_worst_err": max(r[name]["max_abs_err"]
+                                   for r in tan["pass_rows"])})
     return out
 
 
@@ -2824,7 +3102,9 @@ def lm100m_phase(fops, fref, modules) -> dict:
     g = LM100M_FLASH
     gen = torch.Generator(device=DEVICE).manual_seed(11)
     flash = check_gqa_flash(fops, fref, gen, g["B"], g["S"], g["H"],
-                            g["KV"], g["d"], g["dtype"], True, None, n=10)
+                            g["KV"], g["d"], g["dtype"], True, None, n=10,
+                            serving=True)
+    print_f32_bwd("lm-100m f32", flash)
     tangent = check_flash_tangents(fops, fref, gen, 2,
                                    (g["B"], g["S"], g["H"], g["KV"], g["d"]),
                                    g["dtype"], True, None, timed=True)
@@ -2900,6 +3180,11 @@ def paths_summary(kernels: list, fewshot: dict, lm100m: dict) -> None:
     shape = (f"(B={g['B']}, S={g['S']}, H={g['H']}, KV={g['KV']}, "
              f"d={g['d']}) float32 causal, model layout")
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    bwd = by_name["flash_attention_bwd"]
+    q32 = bwd.pop("qwen2_float32")
+    bwd["qwen2_float32"] = {
+        key: q32[f"bwd_{key}"] for key in keys + (
+            "library_ms", "tf32_bound_ms", "tf32_bound_by")}
     for name, row, p in (
             ("flash_attention_fwd", lm100m["flash"], "fwd"),
             ("flash_attention_bwd", lm100m["flash"], "bwd"),
@@ -2908,42 +3193,55 @@ def paths_summary(kernels: list, fewshot: dict, lm100m: dict) -> None:
         by_name[name]["lm100m"] = dict(
             {key: row[f"{p}_{key}"] for key in keys},
             library_ms=row.get(f"{p}_library_ms"), shape=shape,
+            **({"tf32_bound_ms": row["bwd_tf32_bound_ms"],
+                "tf32_bound_by": row["bwd_tf32_bound_by"]}
+               if name == "flash_attention_bwd" else {}),
             launches_in_run=lm100m["launches"][name],
             run="launch.decentralized_lm, 4 steps")
 
+# The tensor-core instruction each Hopper namespace's kernels compile to:
+# wgmma (HGMMA) in the bf16 kernels (hop) and T3's bf16 passes (t3),
+# mma.sync on TF32 (HMMA) in the float32 flash backward (tf32).
+TENSOR_OPS = {"hop": "HGMMA", "t3": "HGMMA", "tf32": "HMMA"}
+
+
 def hgmma_phase(libraries: dict) -> dict:
-    """What the bf16 Hopper kernels compiled to: HGMMA (wgmma) instructions
-    in each of them, from ``cuobjdump -sass`` of each built library
-    (``libraries`` maps a name to (path, the kernels that do a product));
-    fails unless every kernel that does a product has some: the flash
-    forward, dQ and dK/dV kernels, the SSD chunk-state and chunk-output
-    kernels (the SSD state passing is elementwise)."""
+    """What the Hopper kernels compiled to: the tensor-core instructions
+    (TENSOR_OPS) in each of them, from ``cuobjdump -sass`` of each built
+    library (``libraries`` maps a name to (path, the kernels that do a
+    product, as "namespace::kernel")); fails unless every kernel that does
+    a product has some: the bf16 flash forward, dQ and dK/dV kernels and
+    the float32 (3xTF32) dQ and dK/dV kernels, the SSD chunk-state and
+    chunk-output kernels and T3's tangent chunk-state and chunk-output
+    kernels (both state passings are elementwise)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     found = {}
     for name, (path, kinds) in libraries.items():
         sass = subprocess.run([tool, "-sass", path], capture_output=True,
                               text=True, check=True, timeout=300).stdout
-        counts, fn = {}, None
+        counts, fn, op = {}, None, None
         for line in sass.splitlines():
             m = re.search(r"Function : (\S+)", line)
             if m:
-                k = re.search(r"hop\d+([a-z_]+?)(?:I((?:Li\d+E)+)|E)",
-                              m.group(1))
                 fn = None
-                if k:
-                    args = re.findall(r"Li(\d+)E", k.group(2) or "")
-                    fn = f"{k.group(1)}<{','.join(args)}>"
-                if fn:
-                    counts[fn] = 0
-            elif fn and "HGMMA" in line:
+                for k in re.finditer(
+                        r"(\d)(hop|tf32|t3)\d+([a-z_]+?)"
+                        r"(?:I((?:Li\d+E)+)|E)", m.group(1)):
+                    if int(k.group(1)) == len(k.group(2)):
+                        args = re.findall(r"Li(\d+)E", k.group(4) or "")
+                        fn = f"{k.group(2)}::{k.group(3)}<{','.join(args)}>"
+                        op = TENSOR_OPS[k.group(2)]
+                        counts[fn] = 0
+                        break
+            elif fn and re.search(rf"\b{op}\b", line):
                 counts[fn] += 1
-        print(f"sass HGMMA instructions per bf16 kernel ({name}):",
-              json.dumps(counts), flush=True)
+        print(f"sass tensor-core instructions per Hopper kernel ({name}; "
+              f"{TENSOR_OPS}):", json.dumps(counts), flush=True)
         for kind in kinds:
             if not any(v for k, v in counts.items()
                        if k.startswith(kind + "<")):
-                raise AssertionError(f"no HGMMA in the bf16 {kind}: "
-                                     f"{counts}")
+                raise AssertionError(f"no tensor-core instruction in "
+                                     f"{kind}: {counts}")
         found[name] = counts
     return found
 
@@ -2998,11 +3296,16 @@ def main() -> int:
                  "ssd_scan": sops})
     hgmma = hgmma_phase({
         "flash_attention": (fops.build()["path"],
-                            ("fwd_kernel", "dq_kernel", "dkv_kernel")),
+                            ("hop::fwd_kernel", "hop::dq_kernel",
+                             "hop::dkv_kernel", "tf32::dq_kernel",
+                             "tf32::dkv_kernel")),
         "ssd_scan": (sops.build()["path"],
-                     ("chunk_state_kernel", "chunk_scan_kernel"))})
+                     ("hop::chunk_state_kernel", "hop::chunk_scan_kernel",
+                      "t3::tangent_state_kernel",
+                      "t3::tangent_scan_kernel"))})
     flash_calls = flash_calls_phase(fops)
     ssd_calls = ssd_calls_phase(sops)
+    t3_calls = t3_calls_phase(sops)
     stamp("build")
 
     paper_A = topology.build_topology("paper", K, "metropolis").matrix
@@ -3028,7 +3331,7 @@ def main() -> int:
                                           num_layers=MAMBA_TRAIN_LAYERS),
             MAMBA_TRAIN_ARGS,
             TRAIN_SHAPE,
-            ("ssd_scan", *SSD_PASSES, "ssd_scan_tangent",
+            ("ssd_scan", *SSD_PASSES, "ssd_scan_tangent", *T3_PASSES,
              "fused_combine_update"),
             ("--expect-fused", "--expect-outer-dtype", "bfloat16"),
             resume=True),
@@ -3064,6 +3367,11 @@ def main() -> int:
         "flash_attention_fwd": n * k, "flash_attention_bwd": 2 * n * k})
     stamp("serve")
     agreement = agreement_phase()
+    # the float32 backward (3xTF32) at the shape this phase's f32 adaptation
+    # gives it: 2 sequences of 256, qwen2's 12 / 2 heads of 128
+    agreement["flash_f32"] = check_gqa_flash(
+        fops, fref, torch.Generator(device=DEVICE).manual_seed(12), 2, 256,
+        12, 2, 128, torch.float32, True, None, n=5)
     stamp("agreement")
     ssd_main, ssd_rows, continuity, ssd_passes, ssd_pass_rows = ssd_phase(
         sops, sref, layers)

@@ -10,10 +10,10 @@
 //   src/repro/kernels/flash_attention/flash_bwd.py::flash_attention_bwd
 //   (_dkv_kernel, _dq_kernel): the FlashAttention-2 backward.  P = exp(S -
 //   lse) is recomputed from q, k and lse; dS = P * (dP - D) * scale with
-//   dP = dO V^T and D = rowsum(dO * O) (from the wrapper in float32, from
-//   the dQ kernel in bfloat16); dK and dV accumulate over query tiles, dQ
-//   over key tiles.  Two launches, as in the reference, so nothing is
-//   summed with atomics and every result is the same from run to run.
+//   dP = dO V^T and D = rowsum(dO * O), computed by the dQ kernel; dK and dV
+//   accumulate over query tiles, dQ over key tiles.  Two launches, dQ then
+//   dK/dV, as in the reference, so nothing is summed with atomics and every
+//   result is the same from run to run.
 //
 // forward and backward tangents (T1, T2; namespace jvpk) — no TPU
 //   counterpart: the forward-mode rules of both autograd Functions, so that
@@ -39,13 +39,14 @@
 // in and out, the views' own strides (no expansion or copy), and blocks
 // that each own one 64-row tile of one head.
 //
-// float32: plain FMA kernels on the CUDA cores (the flops at 67 TFLOP/s
-// bound them), which take contiguous (B*H, S, d) with heads expanded by
-// the wrapper.  A block owns a 64-row tile and 8 warps of 8
-// rows each; tiles are staged in shared memory (head dims up to 128
-// zero-padded to 32, 64 or 128), padded by 4 words where lanes read them
-// by row, so a lane's 16-byte loads of consecutive rows fall in distinct
-// banks.
+// float32: the backward on the tensor cores as three TF32 products
+// (namespace tf32, after hop), on the same strided views as bf16.  The
+// forward is a plain FMA kernel on the CUDA cores (the flops at 67
+// TFLOP/s bound it), which takes contiguous (B*H, S, d) with heads expanded
+// by the wrapper.  A block owns a 64-row tile and 8 warps of 8 rows each;
+// tiles are staged in shared memory (head dims up to 128 zero-padded to 32,
+// 64 or 128), padded by 4 words where lanes read them by row, so a lane's
+// 16-byte loads of consecutive rows fall in distinct banks.
 //
 // No kernel allocates or synchronises; each launches on the stream it is
 // given, and each C entry returns cudaGetLastError().
@@ -66,7 +67,6 @@ constexpr int kRows = kTile / kWarps;     // rows a warp owns
 constexpr int kMaxHeadDim = 128;
 constexpr float kMasked = -1e30f;         // the reference's NEG_INF
 
-enum { BWD_DKV = 0, BWD_DQ = 1 };   // the backward's two launches
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
@@ -265,276 +265,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// backward, dK and dV: one block per (b*h, key tile)
-// ---------------------------------------------------------------------------
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ dsum, T* __restrict__ dk,
-                     T* __restrict__ dv, int S, int Sk, int d, float scale,
-                     int causal, int window) {
-  constexpr int LD = D + 4;
-  constexpr int NC = D / 32;
-  extern __shared__ __align__(16) float smem[];
-  float* sK = smem;                          // kTile x LD (this block's keys)
-  float* sV = sK + kTile * LD;
-  float* sQ = sV + kTile * LD;               // the visited query tile
-  float* sO = sQ + kTile * LD;               // its dO
-  float* sP = sO + kTile * LD;               // kTile keys x kTile queries
-  float* sS = sP + kTile * kTile;            // dS, same layout
-  float* sL = sS + kTile * kTile;            // lse of the query tile
-  float* sD = sL + kTile;                    // rowsum(dO * O) of the tile
-
-  const int nk = (Sk + kTile - 1) / kTile;
-  const int bh = blockIdx.x / nk;
-  const int k0 = (blockIdx.x - bh * nk) * kTile;
-  const T* qb = q + (size_t)bh * S * d;
-  const T* ob = dout + (size_t)bh * S * d;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = warp * kRows;               // this warp's key rows
-
-  load_tile<T, D>(sK, LD, k + (size_t)bh * Sk * d, k0, Sk, d);
-  load_tile<T, D>(sV, LD, v + (size_t)bh * Sk * d, k0, Sk, d);
-
-  float gk[kRows][NC], gv[kRows][NC];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) gk[r][c] = gv[r][c] = 0.f;
-
-  int qt_begin, qt_end;
-  query_range(k0, S, Sk, causal, window, &qt_begin, &qt_end);
-  for (int qt = qt_begin; qt < qt_end; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();
-    load_tile<T, D>(sQ, LD, qb, q0, S, d);
-    load_tile<T, D>(sO, LD, ob, q0, S, d);
-    if (threadIdx.x < kTile) {
-      const int qp = q0 + threadIdx.x;
-      sL[threadIdx.x] = qp < S ? lse[(size_t)bh * S + qp] : 0.f;
-      sD[threadIdx.x] = qp < S ? dsum[(size_t)bh * S + qp] : 0.f;
-    }
-    __syncthreads();
-
-    // S^T and dP^T: this warp's keys against queries lane and lane + 32
-    float s[kRows][2], dp[kRows][2];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r][0] = s[r][1] = dp[r][0] = dp[r][1] = 0.f;
-#pragma unroll 2
-    for (int c = 0; c < D; c += 4) {
-      const float4 qa = *reinterpret_cast<const float4*>(&sQ[lane * LD + c]);
-      const float4 qc =
-          *reinterpret_cast<const float4*>(&sQ[(lane + 32) * LD + c]);
-      const float4 oa = *reinterpret_cast<const float4*>(&sO[lane * LD + c]);
-      const float4 oc =
-          *reinterpret_cast<const float4*>(&sO[(lane + 32) * LD + c]);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 kv =
-            *reinterpret_cast<const float4*>(&sK[(r0 + r) * LD + c]);
-        const float4 vv =
-            *reinterpret_cast<const float4*>(&sV[(r0 + r) * LD + c]);
-        s[r][0] = dot4(kv, qa, s[r][0]);
-        s[r][1] = dot4(kv, qc, s[r][1]);
-        dp[r][0] = dot4(vv, oa, dp[r][0]);
-        dp[r][1] = dot4(vv, oc, dp[r][1]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int kp = k0 + r0 + r;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int i = lane + 32 * j;
-        const int qp = q0 + i;
-        float p = 0.f;
-        if (qp < S && kp < Sk) {
-          const float x = allowed(qp, kp, causal, window) ? s[r][j] * scale
-                                                          : kMasked;
-          p = expf(x - sL[i]);
-        }
-        sP[(r0 + r) * kTile + i] = p;
-        sS[(r0 + r) * kTile + i] = p * (dp[r][j] - sD[i]) * scale;
-      }
-    }
-    __syncwarp();
-
-    // dV += P^T dO,  dK += dS^T Q  over this query tile
-#pragma unroll 2
-    for (int i = 0; i < kTile; ++i) {
-      float ov[NC], qv[NC];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        ov[c] = sO[i * LD + lane + 32 * c];
-        qv[c] = sQ[i * LD + lane + 32 * c];
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float p = sP[(r0 + r) * kTile + i];
-        const float g = sS[(r0 + r) * kTile + i];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          gv[r][c] = fmaf(p, ov[c], gv[r][c]);
-          gk[r][c] = fmaf(g, qv[c], gk[r][c]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int kp = k0 + r0 + r;
-    if (kp >= Sk) continue;
-    const size_t row = ((size_t)bh * Sk + kp) * d;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = lane + 32 * c;
-      if (col < d) {
-        dk[row + col] = from_f32<T>(gk[r][c]);
-        dv[row + col] = from_f32<T>(gv[r][c]);
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward, dQ: one block per (b*h, query tile)
-// ---------------------------------------------------------------------------
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ dsum, T* __restrict__ dq,
-                    int S, int Sk, int d, float scale, int causal,
-                    int window) {
-  constexpr int LD = D + 4;
-  constexpr int NC = D / 32;
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;                          // this block's queries
-  float* sO = sQ + kTile * LD;               // their dO
-  float* sK = sO + kTile * LD;               // the visited key tile
-  float* sV = sK + kTile * LD;
-  float* sS = sV + kTile * LD;               // dS, kTile x kTile
-  float* sL = sS + kTile * kTile;
-  float* sD = sL + kTile;
-
-  const int nq = (S + kTile - 1) / kTile;
-  const int bh = blockIdx.x / nq;
-  const int q0 = (blockIdx.x - bh * nq) * kTile;
-  const T* kb = k + (size_t)bh * Sk * d;
-  const T* vb = v + (size_t)bh * Sk * d;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = warp * kRows;
-
-  load_tile<T, D>(sQ, LD, q + (size_t)bh * S * d, q0, S, d);
-  load_tile<T, D>(sO, LD, dout + (size_t)bh * S * d, q0, S, d);
-  if (threadIdx.x < kTile) {
-    const int qp = q0 + threadIdx.x;
-    sL[threadIdx.x] = qp < S ? lse[(size_t)bh * S + qp] : 0.f;
-    sD[threadIdx.x] = qp < S ? dsum[(size_t)bh * S + qp] : 0.f;
-  }
-
-  float gq[kRows][NC];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) gq[r][c] = 0.f;
-
-  int kt_begin, kt_end;
-  key_range(q0, S, Sk, causal, window, &kt_begin, &kt_end);
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_tile<T, D>(sK, LD, kb, k0, Sk, d);
-    load_tile<T, D>(sV, LD, vb, k0, Sk, d);
-    __syncthreads();
-
-    float s[kRows][2], dp[kRows][2];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r][0] = s[r][1] = dp[r][0] = dp[r][1] = 0.f;
-#pragma unroll 2
-    for (int c = 0; c < D; c += 4) {
-      const float4 ka = *reinterpret_cast<const float4*>(&sK[lane * LD + c]);
-      const float4 kc =
-          *reinterpret_cast<const float4*>(&sK[(lane + 32) * LD + c]);
-      const float4 va = *reinterpret_cast<const float4*>(&sV[lane * LD + c]);
-      const float4 vc =
-          *reinterpret_cast<const float4*>(&sV[(lane + 32) * LD + c]);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 qv =
-            *reinterpret_cast<const float4*>(&sQ[(r0 + r) * LD + c]);
-        const float4 ov =
-            *reinterpret_cast<const float4*>(&sO[(r0 + r) * LD + c]);
-        s[r][0] = dot4(qv, ka, s[r][0]);
-        s[r][1] = dot4(qv, kc, s[r][1]);
-        dp[r][0] = dot4(ov, va, dp[r][0]);
-        dp[r][1] = dot4(ov, vc, dp[r][1]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qp = q0 + r0 + r;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kp = k0 + lane + 32 * j;
-        float p = 0.f;
-        if (qp < S && kp < Sk) {
-          const float x = allowed(qp, kp, causal, window) ? s[r][j] * scale
-                                                          : kMasked;
-          p = expf(x - sL[r0 + r]);
-        }
-        sS[(r0 + r) * kTile + lane + 32 * j] =
-            p * (dp[r][j] - sD[r0 + r]) * scale;
-      }
-    }
-    __syncwarp();
-
-    // dQ += dS K over this key tile
-#pragma unroll 2
-    for (int j = 0; j < kTile; ++j) {
-      float kv[NC];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) kv[c] = sK[j * LD + lane + 32 * c];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float g = sS[(r0 + r) * kTile + j];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) gq[r][c] = fmaf(g, kv[c], gq[r][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qp = q0 + r0 + r;
-    if (qp >= S) continue;
-    T* row = dq + ((size_t)bh * S + qp) * d;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = lane + 32 * c;
-      if (col < d) row[col] = from_f32<T>(gq[r][c]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
 template <int D> constexpr size_t fwd_smem() {
   return sizeof(float) * (2 * kTile * (D + 4) + kTile * D + kTile * kTile);
-}
-template <int D> constexpr size_t dkv_smem() {
-  return sizeof(float) * (4 * kTile * (D + 4) + 2 * kTile * kTile + 2 * kTile);
-}
-template <int D> constexpr size_t dq_smem() {
-  return sizeof(float) * (4 * kTile * (D + 4) + kTile * kTile + 2 * kTile);
 }
 
 // Lets `kernel` use `bytes` of dynamic shared memory (above the 48 KB
@@ -562,40 +297,6 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
       S, Sk, d, scale, causal, window);
-  return cudaGetLastError();
-}
-
-template <typename T, int D>
-cudaError_t launch_bwd(const void* q, const void* k, const void* v,
-                       const void* dout, const void* lse, const void* dsum,
-                       void* dq, void* dk, void* dv, int BH, int S, int Sk,
-                       int d, float scale, int causal, int window, int part,
-                       cudaStream_t s) {
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  const T* op = static_cast<const T*>(dout);
-  const float* lp = static_cast<const float*>(lse);
-  const float* dp = static_cast<const float*>(dsum);
-  if (part == BWD_DKV) {
-    auto dkv = flash_bwd_dkv_kernel<T, D>;
-    static bool ready = false;
-    cudaError_t err = allow_smem(dkv, dkv_smem<D>(), &ready);
-    if (err != cudaSuccess) return err;
-    const long long kv_blocks = (long long)BH * ((Sk + kTile - 1) / kTile);
-    dkv<<<(unsigned)kv_blocks, kThreads, dkv_smem<D>(), s>>>(
-        qp, kp, vp, op, lp, dp, static_cast<T*>(dk), static_cast<T*>(dv), S,
-        Sk, d, scale, causal, window);
-  } else {
-    auto dqk = flash_bwd_dq_kernel<T, D>;
-    static bool ready = false;
-    cudaError_t err = allow_smem(dqk, dq_smem<D>(), &ready);
-    if (err != cudaSuccess) return err;
-    const long long q_blocks = (long long)BH * ((S + kTile - 1) / kTile);
-    dqk<<<(unsigned)q_blocks, kThreads, dq_smem<D>(), s>>>(
-        qp, kp, vp, op, lp, dp, static_cast<T*>(dq), S, Sk, d, scale, causal,
-        window);
-  }
   return cudaGetLastError();
 }
 
@@ -1591,6 +1292,14 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
 // cuTensorMapEncodeTiled from the driver through the runtime, so the
 // library links nothing beyond cudart.
 EncodeTiled encode_tiled() {
+  // The driver's encode needs a current context.  A thread that has made
+  // no runtime call yet has none (autograd's device thread, a caller's
+  // own thread, where every tensor came from the allocator's cache or
+  // from memory it maps through the driver): cudaSetDevice binds the
+  // device's primary context.
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess)
+    return nullptr;
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
     void* p = nullptr;
@@ -1674,6 +1383,643 @@ Strides strides_at(const long long* st, int i) {
 }
 
 }  // namespace hop
+
+// ===========================================================================
+// float32 backward on Hopper: 3xTF32 products on the tensor cores
+// ===========================================================================
+//
+// The float32 route's backward (the forward stays the CUDA-core kernel
+// above).  The same two launches as the bf16 route, on the same strided
+// views (any (B, S, H, d) or (B, H, S, d) view whose d has stride 1, query
+// head h reading KV head h / (H / KV)): dQ first, which also writes D =
+// rowsum(dO * O) for the second, dK/dV, which sums each KV head's query
+// heads itself (two warpgroups split them where there are two or more and
+// add their sums through shared memory in a fixed order).  No atomics;
+// every result is the same from run to run.
+//
+// Products: every one of S = Q K^T, dP = dO V^T, dQ = dS K, dV = P^T dO and
+// dK = dS^T Q runs on the tensor cores as three TF32 products.  Each float32
+// operand x is split into hi = tf32(x) (rounded to nearest, ties away, as
+// cvt.rna) and lo = x - hi (which the tensor core reads as TF32 rounded
+// toward zero), and a product of x and y sums lo_x hi_y + hi_x lo_y + hi_x
+// hi_y into a float32 accumulator: about 21 significant bits of each
+// operand, where one TF32 product keeps 11 and would miss the float32
+// tolerance (1e-4).  Logits, P, dS, lse and D stay float32.  Each warp
+// splits the fragments it reads, in three instructions an element: on an
+// H100 the split costs more than the extra products, and cvt.rna for hi
+// and lo was slower (PERF.md).
+//
+// Why mma.sync (m16n8k8, a warp a 16-row slice) and not wgmma: wgmma takes
+// TF32 from shared memory only K-major, and dQ = dS K, dK = dS^T Q and dV =
+// P^T dO reduce over the rows of K, Q and dO, which TMA lands d-contiguous;
+// each would need a transposed copy in shared memory.  mma.sync's
+// fragments are loaded by each lane from plain row-major tiles, in either
+// orientation, with no bank conflicts (rows padded by 4 words).  P and dS
+// enter as A from the accumulators' registers: a thread holds columns 2t
+// and 2t + 1 of each 8-column slice where A wants t and t + 4, so the
+// contraction runs over the 8 keys (queries) of a slice in the order 0, 2,
+// 4, 6, 1, 3, 5, 7, and the B fragment reads its rows in the same order.
+//
+// Tiles: a block is 4 warps owning 64 rows (16 a warp); it visits the
+// other side 32 rows at a time.  Shared memory: two own tiles and two
+// visited ones a stage, float32, row stride d + 4.  At d <= 64 two stages,
+// so the next visited tiles land while these are multiplied: (64 + 64 +
+// 2 x (32 + 32)) x 68 x 4 = 69,632 bytes at d = 64 (three blocks an SM;
+// dK/dV with two warpgroups, each its own stages, 104,448: two); at d =
+// 128 one, (64 + 64 + 32 + 32) x 132 x 4 = 101,376 bytes (two; dK/dV with
+// two warpgroups 135,168: one).
+// Tiles land by 16-byte cp.async where every row is 16-byte aligned, else
+// element by element; rows past the sequences and columns past d are 0.
+//
+// Bound at lm-100m's shape (B = 16, S = 256, H = 8, KV = 4, d = 64,
+// causal): 2.7 GFLOP of products, 0.040 ms at the 67 TFLOP/s float32 rate;
+// as three TF32 products 8.1 GFLOP, 0.016 ms at 495 TFLOP/s, just above
+// the 0.015 ms of bytes (50.5 MB at 3.35 TB/s, K/V unexpanded).
+namespace tf32 {
+
+constexpr int kOwn = 64;                  // rows a block owns
+constexpr int kVis = 32;                  // rows of the other side a step visits
+constexpr int kThreadsF = 128;            // 4 warps of 16 own rows
+
+struct Args {
+  const float *q, *k, *v, *o, *dout, *lse;
+  float *dsum, *dq, *dk, *dv;
+  hop::Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
+  int H, KV, S, Sk, d;
+  float scale;
+  int causal, window;
+  int vec;                              // 1: rows 16-byte aligned, d % 4 == 0
+};
+
+struct FragA {                          // a 16 x 8 A operand, hi and lo
+  uint32_t hi[4], lo[4];
+};
+struct FragB {                          // an 8 x 8 B operand, hi and lo
+  uint32_t hi[2], lo[2];
+};
+
+// hi = tf32(x), rounded to nearest with ties away from zero (the rounding
+// of cvt.rna.tf32.f32, in two integer instructions where the conversion
+// issued at a quarter of their rate), and lo = x - hi, exact in float32.
+// lo goes to the tensor core as it is: it reads the top 19 bits of each
+// operand (TF32 rounded toward zero), and the 13 it drops weigh 2^-21 of
+// x at most.
+__device__ __forceinline__ float tf32_hi(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  const float h = tf32_hi(x);
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(x - h);
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// d = A B (no accumulator in).
+__device__ __forceinline__ void mma0(float (&d)[4], const uint32_t (&a)[4],
+                                     const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.f));
+}
+// d += A B in 3xTF32, the small terms first.
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
+                                     const FragB& b) {
+  mma(d, a.lo, b.hi);
+  mma(d, a.hi, b.lo);
+  mma(d, a.hi, b.hi);
+}
+// The same into t, which the first step (first) overwrites.  The long
+// sums (dQ over keys, dK and dV over queries and heads) take a visited
+// tile's 32 rows into such a t and add it to their total with a float32
+// add: the tensor core's accumulation rounds toward zero, and over
+// thousands of steps into one accumulator (768 at 12 heads on 2 KV heads
+// and S = 1024) that bias reached 1e-4 relative in dV, past the float32
+// tolerance, where adds that round to nearest stay unbiased.
+__device__ __forceinline__ void mma3_into(float (&t)[4], const FragA& a,
+                                          const FragB& b, bool first) {
+  if (first)
+    mma0(t, a.lo, b.hi);
+  else
+    mma(t, a.lo, b.hi);
+  mma(t, a.hi, b.lo);
+  mma(t, a.hi, b.hi);
+}
+
+// A = rows [r0, r0 + 16) x columns [c0, c0 + 8) of a tile (row stride LD):
+// lane (g, t) holds (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4).
+template <int LD>
+__device__ __forceinline__ FragA load_a(const float* s, int r0, int c0,
+                                        int g, int t) {
+  const float* p = s + (r0 + g) * LD + c0 + t;
+  FragA f;
+  split(p[0], f.hi[0], f.lo[0]);
+  split(p[8 * LD], f.hi[1], f.lo[1]);
+  split(p[4], f.hi[2], f.lo[2]);
+  split(p[8 * LD + 4], f.hi[3], f.lo[3]);
+  return f;
+}
+// B[k][n] = tile[n0 + n][c0 + k] (the tile's rows are B's columns, as K in
+// Q K^T): lane (g, t) holds (t, g) and (t + 4, g).
+template <int LD>
+__device__ __forceinline__ FragB load_bt(const float* s, int n0, int c0,
+                                         int g, int t) {
+  const float* p = s + (n0 + g) * LD + c0 + t;
+  FragB f;
+  split(p[0], f.hi[0], f.lo[0]);
+  split(p[4], f.hi[1], f.lo[1]);
+  return f;
+}
+// B[k][n] = tile[r0 + k'][c0 + n] with k' the slice order 0, 2, 4, 6, 1, 3,
+// 5, 7 (the tile's rows are the contraction, as K in dS K): lane (g, t)
+// holds rows 2t and 2t + 1 of column g.
+template <int LD>
+__device__ __forceinline__ FragB load_bk(const float* s, int r0, int c0,
+                                         int g, int t) {
+  const float* p = s + (r0 + 2 * t) * LD + c0 + g;
+  FragB f;
+  split(p[0], f.hi[0], f.lo[0]);
+  split(p[LD], f.hi[1], f.lo[1]);
+  return f;
+}
+// An accumulator slice (16 x 8: (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8,
+// 2t + 1)) as the A operand of a product over its 8 columns, in the slice
+// order load_bk reads.
+__device__ __forceinline__ FragA acc_as_a(const float (&c)[4]) {
+  FragA f;
+  split(c[0], f.hi[0], f.lo[0]);
+  split(c[2], f.hi[1], f.lo[1]);
+  split(c[1], f.hi[2], f.lo[2]);
+  split(c[3], f.hi[3], f.lo[3]);
+  return f;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   hop::smem_u32(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+// Rows [row0, row0 + R) of a head's (rows, d) slice (row stride ld) into a
+// float32 tile of row stride D + 4, by NT threads (tid < NT); rows past
+// `rows` and columns past d 0.
+template <int R, int D, int NT = kThreadsF>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          long long ld, int row0, int rows,
+                                          int d, int vec, int tid) {
+  constexpr int LD = D + 4, C4 = D / 4;
+  for (int idx = tid; idx < R * C4; idx += NT) {
+    const int r = idx / C4, c = 4 * (idx - (idx / C4) * C4);
+    const long long gr = row0 + r;
+    float* to = dst + r * LD + c;
+    if (vec) {
+      const bool in = gr < rows && c < d;
+      cp_async16(to, in ? src + gr * ld + c : src, in);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        to[e] = gr < rows && c + e < d ? src[gr * ld + c + e] : 0.f;
+    }
+  }
+}
+
+// Tiles of `vis` rows on the key side that query rows [q0, q0 + own) visit.
+__device__ __forceinline__ void keys_of(int q0, int own, int vis, int S,
+                                        int Sk, int causal, int window,
+                                        int* begin, int* end) {
+  const int nk = (Sk + vis - 1) / vis;
+  int b = 0, e = nk;
+  if (causal) e = min(nk, (min(q0 + own, S) - 1) / vis + 1);
+  if (window > 0) b = max(0, q0 - window + 1) / vis;
+  *begin = b;
+  *end = max(b, e);
+}
+// Tiles of `vis` rows on the query side that key rows [k0, k0 + own) visit.
+__device__ __forceinline__ void queries_of(int k0, int own, int vis, int S,
+                                           int Sk, int causal, int window,
+                                           int* begin, int* end) {
+  const int nq = (S + vis - 1) / vis;
+  int b = 0, e = nq;
+  if (causal) b = k0 / vis;
+  if (window > 0) e = min(nq, (min(k0 + own, Sk) - 1 + window - 1) / vis + 1);
+  *begin = b;
+  *end = max(b, e);
+}
+
+// A pair of tiles (qr query rows at q0, kr key rows at k0) needs the mask
+// only on the band's edge or past a sequence end.
+__device__ __forceinline__ bool edge(int q0, int qr, int k0, int kr,
+                                     const Args& a) {
+  return q0 + qr > a.S || k0 + kr > a.Sk || (a.causal && k0 + kr - 1 > q0) ||
+         (a.window > 0 && k0 <= q0 + qr - 1 - a.window);
+}
+
+// P = 2^(s c - L2) of one logit, L2 = lse log2 e; on an edge tile a pair
+// outside the band gets the logit -1e30 and one past a sequence end 0.
+__device__ __forceinline__ float prob(float s, float c, float L2, bool edge,
+                                      int qp, int kp, const Args& a) {
+  float x = fmaf(s, c, -L2);
+  if (edge) {
+    const int delta = qp - kp;
+    const bool out = (a.causal && delta < 0) ||
+                     (a.window > 0 && delta > a.window - 1);
+    x = out ? kMasked * hop::kLog2e - L2 : x;
+    x = qp < a.S && kp < a.Sk ? x : -INFINITY;
+  }
+  return hop::exp2_approx(x);
+}
+
+// ---------------------------------------------------------------------------
+// dQ (first launch): one block per (64 query rows, head, batch); writes D
+// ---------------------------------------------------------------------------
+
+// Stages of the visited tiles: two at d <= 64, so tile i + 1 lands while
+// tile i is multiplied; one at d = 128, where two would leave one block an
+// SM.
+template <int D> __host__ __device__ constexpr int stages() {
+  return D <= 64 ? 2 : 1;
+}
+
+template <int D> constexpr size_t dq_smem() {
+  return sizeof(float) *
+         ((2 * kOwn + 2 * stages<D>() * kVis) * (D + 4) + kOwn);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsF)
+dq_kernel(const __grid_constant__ Args a) {
+  constexpr int LD = D + 4, KS = D / 8, NS = stages<D>();
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;                       // kOwn x LD
+  float* sO = sQ + kOwn * LD;             // dO
+  float* sKV = sO + kOwn * LD;            // per stage K, V: kVis x LD each
+  float* sD = sKV + 2 * NS * kVis * LD;   // D of the block's rows
+  const int tid = threadIdx.x, w = tid >> 5, g = (tid & 31) >> 2,
+            tg = tid & 3;
+  // the last query tiles (the most key tiles, causal) are launched first
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kOwn, hq = blockIdx.x,
+            b = blockIdx.y;
+  const int hk = hq / (a.H / a.KV);
+  const long long row_vec = ((long long)b * a.H + hq) * a.S;
+  const float* kb = a.k + b * a.sk.b + hk * a.sk.h;
+  const float* vb = a.v + b * a.sv.b + hk * a.sv.h;
+  auto fetch = [&](int kt, int st) {      // key tile kt into stage st
+    float* k = sKV + 2 * st * kVis * LD;
+    load_tile<kVis, D>(k, kb, a.sk.s, kt * kVis, a.Sk, a.d, a.vec, tid);
+    load_tile<kVis, D>(k + kVis * LD, vb, a.sv.s, kt * kVis, a.Sk, a.d,
+                       a.vec, tid);
+    hop::cp_commit();
+  };
+
+  // Q, dO, and O in stage 0's K and V (64 rows), for D
+  load_tile<kOwn, D>(sQ, a.q + b * a.sq.b + hq * a.sq.h, a.sq.s, q0, a.S,
+                     a.d, a.vec, tid);
+  load_tile<kOwn, D>(sO, a.dout + b * a.sdo.b + hq * a.sdo.h, a.sdo.s, q0,
+                     a.S, a.d, a.vec, tid);
+  load_tile<kOwn, D>(sKV, a.o + b * a.so.b + hq * a.so.h, a.so.s, q0, a.S,
+                     a.d, a.vec, tid);
+  hop::cp_commit();
+  hop::cp_wait<0>();
+  __syncthreads();
+  {                                       // D = rowsum(dO * O), a row per
+    const int r = tid >> 1, half = tid & 1;   // two threads
+    const float* x = sO + r * LD + half * (D / 2);
+    const float* y = sKV + r * LD + half * (D / 2);
+    float acc = 0.f;
+#pragma unroll 8
+    for (int c = 0; c < D / 2; ++c) acc = fmaf(x[c], y[c], acc);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (half == 0) {
+      sD[r] = acc;
+      if (q0 + r < a.S) a.dsum[row_vec + q0 + r] = acc;
+    }
+  }
+  __syncthreads();
+
+  const int r0 = 16 * w + g;              // the thread's rows r0, r0 + 8
+  float L2[2], Dr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + 8 * r;
+    L2[r] = row < a.S ? a.lse[row_vec + row] * hop::kLog2e : 0.f;
+    Dr[r] = sD[r0 + 8 * r];
+  }
+  const float c = a.scale * hop::kLog2e;
+
+  float acc[KS][4];
+#pragma unroll
+  for (int n = 0; n < KS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  int kt0, kt1;
+  keys_of(q0, kOwn, kVis, a.S, a.Sk, a.causal, a.window, &kt0, &kt1);
+  if (kt0 < kt1) fetch(kt0, 0);
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int k0 = kt * kVis, st = NS == 2 ? (kt - kt0) & 1 : 0;
+    hop::cp_wait<0>();
+    __syncthreads();                      // tile kt landed; the last one read
+    if (NS == 2 && kt + 1 < kt1) fetch(kt + 1, st ^ 1);
+    const float* sK = sKV + 2 * st * kVis * LD;
+    const float* sV = sK + kVis * LD;
+
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const FragA qa = load_a<LD>(sQ, 16 * w, 8 * kk, g, tg);
+      const FragA oa = load_a<LD>(sO, 16 * w, 8 * kk, g, tg);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        mma3(s[j], qa, load_bt<LD>(sK, 8 * j, 8 * kk, g, tg));
+        mma3(dp[j], oa, load_bt<LD>(sV, 8 * j, 8 * kk, g, tg));
+      }
+    }
+    // dS = P (dP - D) scale, into s
+    const bool e_ = edge(q0, kOwn, k0, kVis, a);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float p = prob(s[j][e], c, L2[r], e_, q0 + r0 + 8 * r,
+                             k0 + 8 * j + 2 * tg + (e & 1), a);
+        s[j][e] = p * (dp[j][e] - Dr[r]) * a.scale;
+      }
+    // dQ += dS K, the tile's sum added to the total
+    FragA da[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) da[j] = acc_as_a(s[j]);
+#pragma unroll
+    for (int n = 0; n < KS; ++n) {
+      float t[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        mma3_into(t, da[j], load_bk<LD>(sK, 8 * j, 8 * n, g, tg), j == 0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += t[e];
+    }
+    if (NS == 1 && kt + 1 < kt1) {
+      __syncthreads();                    // every warp is done with tile kt
+      fetch(kt + 1, 0);
+    }
+  }
+
+  float* dq = a.dq + b * a.sdq.b + hq * a.sdq.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long row = q0 + r0 + 8 * r;
+    if (row >= a.S) continue;
+#pragma unroll
+    for (int n = 0; n < KS; ++n) {
+      const int col = 8 * n + 2 * tg;
+      if (col < a.d) dq[row * a.sdq.s + col] = acc[n][2 * r];
+      if (col + 1 < a.d) dq[row * a.sdq.s + col + 1] = acc[n][2 * r + 1];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dK and dV (second launch): one block per (64 key rows, KV head, batch),
+// visiting 32 query rows at a time of each of the KV head's query heads
+// ---------------------------------------------------------------------------
+
+// WG warpgroups split a KV head's query heads (group w takes heads w, w +
+// WG, ...), each with its own stages of visited tiles: at 2 on 1 KV head
+// the heaviest key tile's visits halve.  Their sums meet at the end
+// through shared memory, in a fixed order.
+template <int D, int WG> constexpr size_t dkv_smem() {
+  return sizeof(float) * ((2 * kOwn + WG * 2 * stages<D>() * kVis) * (D + 4) +
+                          WG * 2 * stages<D>() * kVis);
+}
+
+template <int D, int WG>
+__global__ void __launch_bounds__(kThreadsF * WG)
+dkv_kernel(const __grid_constant__ Args a) {
+  constexpr int LD = D + 4, KS = D / 8, NS = stages<D>();
+  constexpr int kStage = 2 * kVis * LD;   // a stage: Q, dO
+  // the groups' totals at the end, in the visited tiles' place
+  static_assert(2 * KS * 4 * kThreadsF <= WG * NS * kStage || WG == 1,
+                "the visited tiles hold a group's dK and dV");
+  extern __shared__ __align__(16) float smem[];
+  float* sK = smem;                       // kOwn x LD
+  float* sV = sK + kOwn * LD;
+  const int wg = threadIdx.x / kThreadsF, tid = threadIdx.x % kThreadsF;
+  float* sQO = sV + kOwn * LD + wg * NS * kStage;   // this group's stages
+  float* sLD = smem + 2 * kOwn * LD + WG * NS * kStage +
+               wg * NS * 2 * kVis;        // per stage lse, D of the rows
+  const int w = tid >> 5, g = (tid & 31) >> 2, tg = tid & 3;
+  // the first key tiles (the most query tiles, causal) are launched first
+  const int k0 = blockIdx.z * kOwn, hk = blockIdx.x, b = blockIdx.y;
+  const int G = a.H / a.KV;
+
+  int qt0, qt1;
+  queries_of(k0, kOwn, kVis, a.S, a.Sk, a.causal, a.window, &qt0, &qt1);
+  const int nqt = qt1 - qt0;
+  const int heads = wg < G ? (G - wg + WG - 1) / WG : 0;
+  const int iters = heads * nqt;
+  auto fetch = [&](int i, int st) {       // visit i (head, query tile)
+    const int hq = hk * G + wg + WG * (i / nqt), q0 = (qt0 + i % nqt) * kVis;
+    const long long row_vec = ((long long)b * a.H + hq) * a.S;
+    float* q = sQO + st * kStage;
+    load_tile<kVis, D>(q, a.q + b * a.sq.b + hq * a.sq.h, a.sq.s, q0, a.S,
+                       a.d, a.vec, tid);
+    load_tile<kVis, D>(q + kVis * LD, a.dout + b * a.sdo.b + hq * a.sdo.h,
+                       a.sdo.s, q0, a.S, a.d, a.vec, tid);
+    float* v = sLD + 2 * st * kVis;
+    if (tid < kVis)
+      v[tid] = q0 + tid < a.S ? a.lse[row_vec + q0 + tid] * hop::kLog2e
+                              : 0.f;
+    else if (tid < 2 * kVis)
+      v[tid] = q0 + tid - kVis < a.S ? a.dsum[row_vec + q0 + tid - kVis]
+                                     : 0.f;
+    hop::cp_commit();
+  };
+  // the warpgroup's own barrier (all of the block's threads at once: 0)
+  auto sync_group = [&]() {
+    if (WG == 1)
+      __syncthreads();
+    else
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(kThreadsF)
+                   : "memory");
+  };
+
+  load_tile<kOwn, D, kThreadsF * WG>(sK, a.k + b * a.sk.b + hk * a.sk.h,
+                                     a.sk.s, k0, a.Sk, a.d, a.vec,
+                                     threadIdx.x);
+  load_tile<kOwn, D, kThreadsF * WG>(sV, a.v + b * a.sv.b + hk * a.sv.h,
+                                     a.sv.s, k0, a.Sk, a.d, a.vec,
+                                     threadIdx.x);
+  if (iters > 0) fetch(0, 0);
+  else hop::cp_commit();
+
+  float gk[KS][4], gv[KS][4];
+#pragma unroll
+  for (int n = 0; n < KS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gk[n][e] = gv[n][e] = 0.f;
+  const float c = a.scale * hop::kLog2e;
+  const int r0 = 16 * w + g;              // the thread's key rows r0, r0 + 8
+
+  for (int i = 0; i < iters; ++i) {
+    const int q0 = (qt0 + i % nqt) * kVis, st = NS == 2 ? i & 1 : 0;
+    hop::cp_wait<0>();
+    if (i == 0)
+      __syncthreads();                    // K and V came from every group
+    else
+      sync_group();                       // visit i landed; the last one read
+    if (NS == 2 && i + 1 < iters) fetch(i + 1, st ^ 1);
+    const float* sQ = sQO + st * kStage;
+    const float* sO = sQ + kVis * LD;
+    const float* sL = sLD + 2 * st * kVis;
+    const float* sD = sL + kVis;
+
+    // S^T and dP^T: the warp's 16 keys against the 32 queries
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const FragA ka = load_a<LD>(sK, 16 * w, 8 * kk, g, tg);
+      const FragA va = load_a<LD>(sV, 16 * w, 8 * kk, g, tg);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        mma3(s[j], ka, load_bt<LD>(sQ, 8 * j, 8 * kk, g, tg));
+        mma3(dp[j], va, load_bt<LD>(sO, 8 * j, 8 * kk, g, tg));
+      }
+    }
+    // P^T into s, dS^T into dp
+    const bool e_ = edge(q0, kVis, k0, kOwn, a);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * tg + (e & 1);
+        const float p = prob(s[j][e], c, sL[col], e_, q0 + col,
+                             k0 + r0 + 8 * (e >> 1), a);
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - sD[col]) * a.scale;
+      }
+    // dV += P^T dO,  dK += dS^T Q, the tile's sums added to the totals
+    FragA pa[4], da[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      pa[j] = acc_as_a(s[j]);
+      da[j] = acc_as_a(dp[j]);
+    }
+#pragma unroll
+    for (int n = 0; n < KS; ++n) {
+      float tv[4], tk[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        mma3_into(tv, pa[j], load_bk<LD>(sO, 8 * j, 8 * n, g, tg), j == 0);
+        mma3_into(tk, da[j], load_bk<LD>(sQ, 8 * j, 8 * n, g, tg), j == 0);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        gv[n][e] += tv[e];
+        gk[n][e] += tk[e];
+      }
+    }
+    if (NS == 1 && i + 1 < iters) {
+      sync_group();                       // every warp is done with visit i
+      fetch(i + 1, 0);
+    }
+  }
+  hop::cp_wait<0>();
+  if (iters == 0) __syncthreads();        // K and V landed; no query
+
+  if (WG > 1) {
+    // groups 1.. hand their sums to group 0, one after another, through
+    // the visited tiles (free now)
+    float* red = smem + 2 * kOwn * LD;
+    for (int from = 1; from < WG; ++from) {
+      __syncthreads();
+      if (wg == from) {
+#pragma unroll
+        for (int n = 0; n < KS; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            red[((2 * n) * 4 + e) * kThreadsF + tid] = gk[n][e];
+            red[((2 * n + 1) * 4 + e) * kThreadsF + tid] = gv[n][e];
+          }
+      }
+      __syncthreads();
+      if (wg == 0) {
+#pragma unroll
+        for (int n = 0; n < KS; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            gk[n][e] += red[((2 * n) * 4 + e) * kThreadsF + tid];
+            gv[n][e] += red[((2 * n + 1) * 4 + e) * kThreadsF + tid];
+          }
+      }
+    }
+  }
+  if (wg != 0) return;
+
+  float* dk = a.dk + b * a.sdk.b + hk * a.sdk.h;
+  float* dv = a.dv + b * a.sdv.b + hk * a.sdv.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long row = k0 + r0 + 8 * r;
+    if (row >= a.Sk) continue;
+#pragma unroll
+    for (int n = 0; n < KS; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * n + 2 * tg + e;
+        if (col < a.d) {
+          dk[row * a.sdk.s + col] = gk[n][2 * r + e];
+          dv[row * a.sdv.s + col] = gv[n][2 * r + e];
+        }
+      }
+  }
+}
+
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
+                   cudaStream_t s, const Args& a, bool* ready) {
+  cudaError_t err = allow_smem(kernel, smem, ready);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <int D, int WG>
+cudaError_t run_dkv(const Args& a, int B, cudaStream_t s) {
+  static bool ready = false;
+  return launch(dkv_kernel<D, WG>, dim3(a.KV, B, (a.Sk + kOwn - 1) / kOwn),
+                kThreadsF * WG, dkv_smem<D, WG>(), s, a, &ready);
+}
+
+template <int D>
+cudaError_t run(const Args& a, int B, int part, cudaStream_t s) {
+  if (part == 0) {
+    static bool ready = false;
+    return launch(dq_kernel<D>, dim3(a.H, B, (a.S + kOwn - 1) / kOwn),
+                  kThreadsF, dq_smem<D>(), s, a, &ready);
+  }
+  // two warpgroups split a KV head's query heads where it has two or more
+  return a.H / a.KV >= 2 ? run_dkv<D, 2>(a, B, s) : run_dkv<D, 1>(a, B, s);
+}
+
+}  // namespace tf32
 
 }  // namespace
 
@@ -2366,22 +2712,42 @@ int repro_flash_fwd(const void* q, const void* k, const void* v, void* o,
   return (int)err;
 }
 
-// float32: q/dout/dq (BH, S, d), k/v/dk/dv (BH, Sk, d) contiguous; lse and
-// dsum = rowsum(dout * out) (BH, S).  One launch a call: part 0 writes dk
-// and dv, part 1 writes dq.
-int repro_flash_bwd(const void* q, const void* k, const void* v,
-                    const void* dout, const void* lse, const void* dsum,
-                    void* dq, void* dk, void* dv, int BH, int S, int Sk,
-                    int d, float scale, int causal, int window, int part,
-                    void* stream) {
-  if (!valid(BH, S, Sk, d) || (part != BWD_DKV && part != BWD_DQ))
+// float32 on Hopper (namespace tf32): the interface of the bf16 backward
+// below on float32 views; vec = 1: every pointer and stride 16-byte
+// aligned and d % 4 == 0 (tiles by cp.async), 0: element by element.
+int repro_flash_bwd_f32(const void* q, const void* k, const void* v,
+                        const void* o, const void* dout, const void* lse,
+                        void* dsum, void* dq, void* dk, void* dv,
+                        const long long* strides, int B, int H, int KV,
+                        int S, int Sk, int d, float scale, int causal,
+                        int window, int part, int vec, void* stream) {
+  if (!hop::valid(B, H, KV, S, Sk, d) || (part != 0 && part != 1))
     return (int)cudaErrorInvalidValue;
+  tf32::Args a{};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.o = static_cast<const float*>(o);
+  a.dout = static_cast<const float*>(dout);
+  a.lse = static_cast<const float*>(lse);
+  a.dsum = static_cast<float*>(dsum);
+  a.dq = static_cast<float*>(dq);
+  a.dk = static_cast<float*>(dk);
+  a.dv = static_cast<float*>(dv);
+  a.sq = hop::strides_at(strides, 0);
+  a.sk = hop::strides_at(strides, 1);
+  a.sv = hop::strides_at(strides, 2);
+  a.so = hop::strides_at(strides, 3);
+  a.sdo = hop::strides_at(strides, 4);
+  a.sdq = hop::strides_at(strides, 5);
+  a.sdk = hop::strides_at(strides, 6);
+  a.sdv = hop::strides_at(strides, 7);
+  a.H = H; a.KV = KV; a.S = S; a.Sk = Sk; a.d = d; a.scale = scale;
+  a.causal = causal; a.window = window; a.vec = vec;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      d <= 32 ? launch_bwd<float, 32>(q, k, v, dout, lse, dsum, dq, dk, dv, BH, S, Sk, d, scale, causal, window, part, s)
-      : d <= 64 ? launch_bwd<float, 64>(q, k, v, dout, lse, dsum, dq, dk, dv, BH, S, Sk, d, scale, causal, window, part, s)
-                : launch_bwd<float, 128>(q, k, v, dout, lse, dsum, dq, dk, dv, BH, S, Sk, d, scale, causal, window, part, s);
-  return (int)err;
+  return (int)(d <= 32 ? tf32::run<32>(a, B, part, s)
+               : d <= 64 ? tf32::run<64>(a, B, part, s)
+                         : tf32::run<128>(a, B, part, s));
 }
 
 // bfloat16 on Hopper.  q and o (B, S, H, d), k and v (B, Sk, KV, d), any

@@ -4,11 +4,13 @@ flash-attention kernels in ``csrc/flash_attention.cu``.
 Routing is by the tensors' device and dtype, written out here and never
 taken from a failure: CPU tensors go to the plain PyTorch versions in
 :mod:`.ref`; bfloat16 CUDA tensors to the Hopper kernels (``wgmma``,
-``cp.async``), which read any view through its strides, so nothing is
-copied, transposed or expanded first; float32 CUDA tensors to the float32
-kernels on the CUDA cores, which take contiguous (B, H, S, d) with heads
-expanded.  A CUDA call launches its kernel or raises — there is no
-fallback.  The kernels are compiled with ``nvcc`` for ``sm_90a`` at first
+TMA), which read any view through its strides, so nothing is copied,
+transposed or expanded first.  float32 CUDA tensors: the backward goes to
+the Hopper kernels of namespace ``tf32`` (three TF32 products on the tensor
+cores for each float32 product), on the same strided views, K/V unexpanded;
+the forward to the CUDA-core kernel, which takes contiguous (B, H, S, d)
+with heads expanded.  A CUDA call launches its kernel or raises — there is
+no fallback.  The kernels are compiled with ``nvcc`` for ``sm_90a`` at first
 use (:mod:`repro_torch.kernels.build`).
 
 :func:`flash_attention` is the JAX package's ``ops.py::flash_attention_fused``
@@ -28,8 +30,7 @@ its forward-mode rule is below.
 
 ``launch_counts`` counts kernel launches: one per forward call and two per
 backward call (the backward is two kernels, each counted where it is
-launched: in bfloat16 dQ, which also computes D = rowsum(dO ⊙ O), then
-dK/dV; in float32 dK/dV, then dQ).  Plain-version calls are not counted.
+launched: dQ, which also computes D = rowsum(dO ⊙ O), then dK/dV).  Plain-version calls are not counted.
 
 Forward mode.  The exact meta-gradient's Hessian-vector products are
 ``torch.func.jvp`` over ``torch.func.grad``, so each forward ``Function``
@@ -85,15 +86,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_flash_max_head_dim.restype = i
     lib.repro_flash_fwd.argtypes = [p] * 5 + [i] * 4 + [f] + [i] * 2 + [p]
     lib.repro_flash_fwd.restype = i
-    lib.repro_flash_bwd.argtypes = [p] * 9 + [i] * 4 + [f] + [i] * 3 + [p]
-    lib.repro_flash_bwd.restype = i
     st = ctypes.POINTER(ctypes.c_longlong)
     lib.repro_flash_fwd_bf16.argtypes = [p] * 5 + [st] + [i] * 6 + [f] + \
         [i] * 3 + [p]
     lib.repro_flash_fwd_bf16.restype = i
-    lib.repro_flash_bwd_bf16.argtypes = [p] * 10 + [st] + [i] * 6 + [f] + \
-        [i] * 4 + [p]
-    lib.repro_flash_bwd_bf16.restype = i
+    for fn in (lib.repro_flash_bwd_bf16, lib.repro_flash_bwd_f32):
+        fn.argtypes = [p] * 10 + [st] + [i] * 6 + [f] + [i] * 4 + [p]
+        fn.restype = i
     lib.repro_flash_fwd_tangent.argtypes = [p] * 9 + [st] + [i] * 6 + [f] + \
         [i] * 3 + [p]
     lib.repro_flash_fwd_tangent.restype = i
@@ -169,20 +168,23 @@ def _strided(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 or t.shape[-1] == 1 else t.contiguous()
 
 
-def _launch_bf16(name: str, entry, pointers, views, heads_dim: int,
-                 *args) -> None:
-    """One launch of a bf16 Hopper kernel: the data pointers of
-    ``pointers``, then the (b, s, h) element strides of ``views`` (4-d
-    tensors with their heads on axis ``heads_dim``: 1 for (B, H, S, d), 2
-    for (B, S, H, d)), then ``args``, then the ``vec`` flag: TMA when every
-    view's rows are 16-byte aligned (pointers and strides) and d % 8 == 0,
-    element by element otherwise."""
-    strides, vec = [], views[0].shape[-1] % 8 == 0
+def _launch_strided(name: str, entry, pointers, views, heads_dim: int,
+                    *args) -> None:
+    """One launch of a Hopper kernel that reads strided views: the data
+    pointers of ``pointers``, then the (b, s, h) element strides of
+    ``views`` (4-d tensors with their heads on axis ``heads_dim``: 1 for
+    (B, H, S, d), 2 for (B, S, H, d)), then ``args``, then the ``vec`` flag:
+    16-byte tile copies (TMA in bf16, cp.async in float32) when every
+    view's rows are 16-byte aligned (pointers and strides) and d a multiple
+    of 16 bytes, element by element otherwise."""
+    per16 = 16 // views[0].element_size()
+    strides, vec = [], views[0].shape[-1] % per16 == 0
     for t in views:
         sb, s1, s2, _ = t.stride()
         bsh = (sb, s2, s1) if heads_dim == 1 else (sb, s1, s2)
         strides += bsh
-        vec = vec and t.data_ptr() % 16 == 0 and all(x % 8 == 0 for x in bsh)
+        vec = vec and t.data_ptr() % 16 == 0 and all(x % per16 == 0
+                                                     for x in bsh)
     with torch.cuda.device(views[0].device):
         err = entry(*(t.data_ptr() for t in pointers),
                     (ctypes.c_longlong * len(strides))(*strides), *args,
@@ -206,18 +208,21 @@ def _fwd_bf16(q, k, v, causal: bool, window: int | None, scale: float,
     B, d = q.shape[0], q.shape[3]
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
-    _launch_bf16(name, _LIB.lib.repro_flash_fwd_bf16, (q, k, v, out, lse),
-                 (q, k, v, out), heads_dim, B, H, KV, S, Sk, d, scale,
-                 int(causal), 0 if window is None else int(window))
+    _launch_strided(name, _LIB.lib.repro_flash_fwd_bf16,
+                    (q, k, v, out, lse), (q, k, v, out), heads_dim, B, H,
+                    KV, S, Sk, d, scale, int(causal),
+                    0 if window is None else int(window))
     launch_counts[name] += 1
     return out, lse
 
 
-def _bwd_bf16(q, k, v, out, lse, do, causal: bool, window: int | None,
-              scale: float, heads_dim: int):
-    """The Hopper backward, two launches: dQ (which also writes D =
-    rowsum(dO ⊙ O) into a workspace), then dK/dV, summed over each KV
-    head's query heads.  Gradients in their inputs' axis order."""
+def _bwd_strided(q, k, v, out, lse, do, causal: bool, window: int | None,
+                 scale: float, heads_dim: int):
+    """The Hopper backward of either dtype (bf16: ``wgmma``; float32: 3×TF32
+    ``mma.sync``), two launches: dQ (which also writes D = rowsum(dO ⊙ O)
+    into a workspace), then dK/dV, summed over each KV head's query heads.
+    Reads the views as given (K/V with their KV heads); gradients in their
+    inputs' axis order."""
     name = "flash_attention_bwd"
     q, k, v, out, do = (_strided(t) for t in (q, k, v, out, do))
     lse = lse.contiguous()
@@ -227,11 +232,13 @@ def _bwd_bf16(q, k, v, out, lse, do, causal: bool, window: int | None,
                   for t in (q, k, v))
     dsum = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
     views = (q, k, v, out, do, dq, dk, dv)
+    entry = (_LIB.lib.repro_flash_bwd_bf16 if q.dtype == torch.bfloat16
+             else _LIB.lib.repro_flash_bwd_f32)
     for part in (0, 1):                     # dQ and D, then dK and dV
-        _launch_bf16(name, _LIB.lib.repro_flash_bwd_bf16,
-                     (q, k, v, out, do, lse, dsum, dq, dk, dv), views,
-                     heads_dim, B, H, KV, S, Sk, d, scale, int(causal),
-                     0 if window is None else int(window), part)
+        _launch_strided(name, entry,
+                        (q, k, v, out, do, lse, dsum, dq, dk, dv), views,
+                        heads_dim, B, H, KV, S, Sk, d, scale, int(causal),
+                        0 if window is None else int(window), part)
         launch_counts[name] += 1
     return dq, dk, dv
 
@@ -280,9 +287,8 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,
                         window: int | None = None,
                         scale: float | None = None):
     """q/k/v/out/do: (B, H, S, d); lse: (B, H, S).  Returns (dq, dk, dv)
-    in the dtypes of (q, k, v).  ``D = rowsum(dO ⊙ O)``: in bfloat16 the dQ
-    kernel computes it; in float32 it is one PyTorch reduction here, as it
-    is jnp outside the kernels in the reference."""
+    in the dtypes of (q, k, v).  ``D = rowsum(dO ⊙ O)`` is computed by the
+    dQ kernel (jnp outside the kernels in the reference)."""
     name = "flash_attention_bwd"
     _check_shapes(name, q, k, v)
     for tname, t, shape in (("out", out, q.shape), ("do", do, q.shape),
@@ -295,27 +301,8 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,
         return flash_bwd_ref(q, k, v, out, lse, do, causal=causal,
                              window=window, scale=scale)
     _check_cuda(name, window, q=q, k=k, v=v, out=out, do=do, lse=lse)
-    if q.dtype == torch.bfloat16:
-        return _bwd_bf16(q, k, v, out, lse, do, causal, window, scale,
-                         heads_dim=1)
-    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
-    lse = lse.contiguous()
-    dsum = (do.float() * out.float()).sum(-1).contiguous()
-    B, H, S, d = q.shape
-    Sk = k.shape[2]
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    lib = _LIB.lib
-    for part in (0, 1):                     # dK and dV, then dQ
-        with torch.cuda.device(q.device):
-            err = lib.repro_flash_bwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), B * H, S, Sk, d, scale,
-                int(causal), 0 if window is None else int(window), part,
-                torch.cuda.current_stream().cuda_stream)
-        raise_on(err, name)
-        launch_counts[name] += 1
-    return dq, dk, dv
+    return _bwd_strided(q, k, v, out, lse, do, causal, window, scale,
+                        heads_dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -624,7 +611,7 @@ def _check_gqa(name: str, q, k, v) -> None:
 
 def _expand_heads(k: torch.Tensor, H: int) -> torch.Tensor:
     """(B, S, KV, d) → (B, H, S, d) with KV heads repeated: what the
-    float32 kernels take."""
+    float32 forward kernel takes."""
     return k.repeat_interleave(H // k.shape[2], dim=2).transpose(1, 2)
 
 
@@ -663,20 +650,8 @@ def gqa_flash_attention_bwd(q, k, v, out, lse, do, causal: bool = True,
         return gqa_flash_bwd_ref(q, k, v, out, lse, do, causal=causal,
                                  window=window, scale=scale)
     _check_cuda(name, window, q=q, k=k, v=v, out=out, do=do, lse=lse)
-    if q.dtype == torch.bfloat16:
-        return _bwd_bf16(q, k, v, out, lse, do, causal, window, scale,
-                         heads_dim=2)
-    B, _, H, d = q.shape
-    KV, Sk = k.shape[2], k.shape[1]
-    dq, dk, dv = flash_attention_bwd(
-        q.transpose(1, 2), _expand_heads(k, H), _expand_heads(v, H),
-        out.transpose(1, 2), lse, do.transpose(1, 2), causal=causal,
-        window=window, scale=scale)
-
-    def per_kv_head(g):
-        return g.reshape(B, KV, H // KV, Sk, d).sum(2).transpose(1, 2)
-
-    return dq.transpose(1, 2), per_kv_head(dk), per_kv_head(dv)
+    return _bwd_strided(q, k, v, out, lse, do, causal, window, scale,
+                        heads_dim=2)
 
 
 class _GQAFlashAttentionBwd(torch.autograd.Function):

@@ -17,6 +17,10 @@ heads not expanded.  The kernel wrappers use them for CPU tensors, and
 plain versions of the two tangent kernels: ``torch.func.jvp`` of the
 forward and of the backward above (the backward's sums in float64, so dS
 stays exactly 0 where a row sees one key), in either layout.
+
+:func:`split_tf32` and :func:`tf32_matmul` model how the float32 backward
+kernels multiply on the tensor cores: each float32 operand split into two
+TF32 values, hi + lo, and each product taken as three TF32 products.
 """
 from __future__ import annotations
 
@@ -28,7 +32,8 @@ NEG_INF = -1e30
 
 __all__ = ["NEG_INF", "attention_ref", "band_mask", "flash_bwd_ref",
            "flash_bwd_tangent_ref", "flash_fwd_ref", "flash_fwd_tangent_ref",
-           "gqa_flash_bwd_ref", "gqa_flash_fwd_ref"]
+           "gqa_flash_bwd_ref", "gqa_flash_fwd_ref", "split_tf32",
+           "tf32_matmul", "tf32_round"]
 
 
 def band_mask(S: int, Sk: int, causal: bool, window: int | None,
@@ -175,3 +180,34 @@ def flash_bwd_tangent_ref(q, k, v, out, lse, do, tq, tk, tv, tout, tlse,
         lambda *a: bwd(*a, causal=causal, window=window, scale=scale),
         *(tuple(t.contiguous() for t in ts) for ts in (
             (q, k, v, out, lse, do), (tq, tk, tv, tout, tlse, tdo))))[1]
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 explicit mantissa bits), to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32``: add half of the dropped
+    13 bits to the magnitude's bit pattern, then mask them off."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x as hi = tf32(x), rounded to nearest, and lo = x - hi as the tensor
+    core reads it, TF32 rounded toward zero (its low 13 bits masked off):
+    hi + lo keeps about 21 significant bits of x, one TF32 value 11."""
+    hi = tf32_round(x)
+    lo = (x.float() - hi).contiguous().view(torch.int32) & -0x2000
+    return hi, lo.view(torch.float32)
+
+
+def tf32_matmul(a: torch.Tensor, b: torch.Tensor, products: int = 3
+                ) -> torch.Tensor:
+    """a @ b in float32 as the float32 backward kernels take it on the
+    tensor cores: ``products=3`` sums lo_a hi_b + hi_a lo_b + hi_a hi_b
+    (3×TF32); ``products=1`` is one TF32 product, hi_a hi_b.  A product of
+    two TF32 values is exact in float32, so only the split and the float32
+    sums round."""
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    if products == 1:
+        return ah @ bh
+    return al @ bh + ah @ bl + ah @ bh

@@ -12,9 +12,10 @@
 //   with the (P, N) state carried across chunks in float32.  y is written in
 //   x's dtype, the final state in float32.
 //
-// T3 (namespace jvpk, near the end) is the scan's forward-mode tangent, the
-// jvp rule of the autograd Function in ../ops.py; it has no TPU
-// counterpart.
+// T3, the scan's forward-mode tangent (the jvp rule of the autograd
+// Function in ../ops.py; no TPU counterpart), has the same two routes:
+// three Hopper passes in bfloat16 (namespace t3) and a CUDA-core kernel in
+// float32 (namespace jvpk), both near the end.
 //
 // Two routes, chosen by dtype in ../ops.py:
 //
@@ -1249,6 +1250,14 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
 // cuTensorMapEncodeTiled looked up through the runtime's entry-point
 // query, so the library links nothing beyond cudart.
 EncodeTiled encode_tiled() {
+  // The driver's encode needs a current context.  A thread that has made
+  // no runtime call yet has none (autograd's device thread, a caller's
+  // own thread, where every tensor came from the allocator's cache or
+  // from memory it maps through the driver): cudaSetDevice binds the
+  // device's primary context.
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess)
+    return nullptr;
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
     void* p = nullptr;
@@ -1342,6 +1351,648 @@ bool shapes_ok(int Bsz, int L, int H, int P, int G, int N, int chunk) {
 }  // namespace hop
 
 // ===========================================================================
+// T3 in bfloat16 on Hopper: the tangent's three chunk-parallel passes
+// ===========================================================================
+//
+// The forward-mode tangent of the scan (see namespace jvpk below for the
+// formulas), in the forward's three passes (namespace hop), each carrying
+// the tangent plane beside its primal one:
+//
+//   1. tangent_state_kernel, one block per (heads of a group, chunk, b):
+//      per head seg and seg' (written to (B, H, L) float32 workspaces),
+//      u_k = w_k dt_k and u'_k = w_k ((seg'_end - seg'_k) dt_k + dt'_k)
+//      with w_k = exp(seg_end - seg_k), then the chunk's own state and its
+//      tangent,
+//        S_c  = (u x)^T B,
+//        S'_c = (u' x + u x')^T B + (u x)^T B',
+//      (P x c)(c x N) products on wgmma with the float32-scaled operands as
+//      bf16 hi/lo pairs, into (B, nc, H, P, N) float32 workspaces; the B
+//      and B' tiles are loaded once for all the block's heads.
+//   2. tangent_pass_kernel, elementwise over (b, h, P, N), sequential over
+//      the chunks only:
+//        s_in[c + 1]  = e^{seg_end} s_in[c] + S_c,
+//        s'_in[c + 1] = e^{seg_end} (seg'_end s_in[c] + s'_in[c]) + S'_c,
+//      from zero; the entering states of chunks 1 .. nc - 1 as bf16 hi/lo
+//      planes, (B, nc - 1, H, P, N) each, and the final S' in float32.
+//   3. tangent_scan_kernel, one block per (64-row query tile, heads of a
+//      group, b * nc + chunk): for each key tile at or below the diagonal,
+//      G = C B^T and G' = C' B^T + C B'^T once for all the block's heads
+//      (registers), then per head
+//        y' += M1 x + M2 x',
+//        M1 = E [(G' + G (seg'_q - seg'_k)) dt_k + G dt'_k],  M2 = E G dt_k,
+//      with E = exp(seg_q - seg_k) for k <= q (else 0), M1 and M2 staged in
+//      shared memory as hi/lo bf16 tiles (stmatrix); before the key tiles
+//      y' = exp(seg_q) (seg'_q C s_in^T + C' s_in^T + C s'_in^T) from the
+//      entering planes.  The heads' y' stay in registers across the key
+//      tiles, so a block takes kT3ScanHeads heads.
+//
+// Every exponential is of a difference that is at most 0 (E is selected to
+// 0 above the diagonal, never multiplied), so T3 stays finite where seg
+// falls by more than 88 within a chunk.  A is given per sequence, B/C are
+// read through their group, y' is written in bf16 and S' in float32.
+//
+// Bound at the mamba2 training shape (B = 8, L = 512, H = 24, P = 64, N =
+// 128, one group, chunk 256): the inputs and outputs move 48.9 MB (0.0146
+// ms at 3.35 TB/s); the products of this design, the causal half of G and
+// G' once per block's heads and the hi/lo halves counted, are printed by
+// chip_smoke.py beside the time.
+namespace t3 {
+
+using hop::bf16;
+using hop::kM;
+using hop::kRegion;
+using hop::kTiles;
+using hop::kWG;
+
+// Heads of one group a pass-1 block takes: the B and B' tiles of the whole
+// chunk are loaded once for them (128 KB at N = 128, so one block an SM).
+// Three give 128 blocks at the mamba2 training shape, one wave on 132 SMs.
+constexpr int kT3StateHeads = 3;
+// Heads of one group a pass-3 block takes: their y' stay in registers
+// beside G and G'.
+constexpr int kT3ScanHeads = 2;
+
+struct StateArgs {
+  CUtensorMap tx, ttx;      // x, x' (P, H, chunk, B*nc)
+  CUtensorMap tb, ttb;      // B, B' (N, G, chunk, B*nc)
+  const float *dt, *tdt;    // (B, L, H)
+  const float *A, *tA;      // A[b * a_stride + h], A'[b * ta_stride + h]
+  float *S, *tS;            // (B, nc, H, P, N)
+  float *seg, *tseg;        // (B, H, L)
+  long long a_stride, ta_stride;
+  int L, H, P, G, N, chunk, nc;
+  int hpb;                  // heads a block takes (of one group)
+};
+
+template <int NH> constexpr size_t state_smem() {
+  // B and B' tiles of the chunk; x and x' tiles of one head; each head's
+  // u and u' (dt and dt' at first); seg and seg' scratch a warp; barriers
+  return 1024 + 2 * kTiles * (NH + 1) * kRegion +
+         (2 * kT3StateHeads + 8) * kMaxChunk * 4 + 16;
+}
+
+// hi/lo fragments of A[p][k] = ua[k] xa[k][p] (+ ub[k] xb[k][p]) for one key
+// tile (the layout of hop::wx_frags), xa and xb swizzled bf16 tiles.
+template <bool kTwo>
+__device__ __forceinline__ void ux_frags(const unsigned short* xa,
+                                         const float* ua,
+                                         const unsigned short* xb,
+                                         const float* ub, int t,
+                                         uint32_t (&hi)[4][4],
+                                         uint32_t (&lo)[4][4]) {
+  const int r0 = hop::frag_row(0, t);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int p = r0 + 8 * (j & 1);
+      const int k = 16 * kk + 8 * (j >> 1) + 2 * (t & 3);
+      const int at0 = k * 64 + (((p >> 3) ^ (k & 7)) << 3) + (p & 7);
+      const int at1 = (k + 1) * 64 + (((p >> 3) ^ ((k + 1) & 7)) << 3) +
+                      (p & 7);
+      const float2 u = *reinterpret_cast<const float2*>(&ua[k]);
+      float v0 = u.x * __uint_as_float((uint32_t)xa[at0] << 16);
+      float v1 = u.y * __uint_as_float((uint32_t)xa[at1] << 16);
+      if (kTwo) {
+        const float2 w = *reinterpret_cast<const float2*>(&ub[k]);
+        v0 = fmaf(w.x, __uint_as_float((uint32_t)xb[at0] << 16), v0);
+        v1 = fmaf(w.y, __uint_as_float((uint32_t)xb[at1] << 16), v1);
+      }
+      hop::split2(v0, v1, hi[kk][j], lo[kk][j]);
+    }
+}
+
+// Inclusive cumsum of term(i) over i < chunk into out: one warp, a run of
+// consecutive steps a lane, then a shuffle scan of the runs.
+template <typename Term>
+__device__ __forceinline__ void cumsum(Term term, float* out, int chunk,
+                                       int lane) {
+  const int per = (chunk + 31) / 32, beg = lane * per;
+  float run = 0.f;
+  for (int i = 0; i < per; ++i)
+    if (beg + i < chunk) run += term(beg + i);
+  float incl = run;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  float pre = incl - run;
+  for (int i = 0; i < per; ++i)
+    if (beg + i < chunk) {
+      pre += term(beg + i);
+      out[beg + i] = pre;
+    }
+}
+
+// A (P x N) float32 accumulator to rows p < P, columns n < N of out.
+template <int NH>
+__device__ __forceinline__ void store_state(const float (&acc)[NH][32],
+                                            float* out, int P, int N,
+                                            int t) {
+  const int r0 = hop::frag_row(0, t);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int p = r0 + 8 * r;
+    if (p >= P) continue;
+#pragma unroll
+    for (int cc = 0; cc < NH; ++cc)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int n = 64 * cc + 8 * i + 2 * (t & 3);
+        if (n < N)
+          *reinterpret_cast<float2*>(out + p * N + n) = make_float2(
+              acc[cc][4 * i + 2 * r], acc[cc][4 * i + 2 * r + 1]);
+      }
+  }
+}
+
+template <int NH>
+__global__ void __launch_bounds__(kWG, 1)
+tangent_state_kernel(const __grid_constant__ StateArgs a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  constexpr uint32_t BT = NH * kRegion;
+  const uint32_t base = (hop::smem_u32(smem) + 1023u) & ~1023u;
+  uint8_t* gbase = smem + (base - hop::smem_u32(smem));
+  const uint32_t sB = base, sTB = base + kTiles * BT;
+  const uint32_t sX = base + 2 * kTiles * BT, sTX = sX + kTiles * kRegion;
+  float* u = reinterpret_cast<float*>(gbase + 2 * kTiles * (BT + kRegion));
+  float* tu = u + kT3StateHeads * kMaxChunk;
+  float* scratch = tu + kT3StateHeads * kMaxChunk;   // 2 a warp
+  const uint32_t bars = base + 2 * kTiles * (BT + kRegion) +
+                        (2 * kT3StateHeads + 8) * kMaxChunk * 4;
+  const uint32_t bar_b = bars, bar_x = bars + 8;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int sets = gridDim.x / a.G;
+  const int g = blockIdx.x / sets, set = blockIdx.x - g * sets;
+  const int hg = a.H / a.G, h0 = g * hg + set * a.hpb;
+  const int nh = min(a.hpb, hg - set * a.hpb);
+  const int c = blockIdx.y, b = blockIdx.z, bc = b * a.nc + c;
+  const int nt = (a.chunk + kM - 1) / kM;
+  const long long step0 = (long long)b * a.L + (long long)c * a.chunk;
+  auto load_x = [&](int h) {              // x and x' tiles of head h
+    hop::mbar_expect(bar_x, 2 * nt * kRegion);
+    for (int kt = 0; kt < nt; ++kt) {
+      hop::tma_load<1>(sX + kt * kRegion, a.tx, bar_x, h, kt * kM, bc);
+      hop::tma_load<1>(sTX + kt * kRegion, a.ttx, bar_x, h, kt * kM, bc);
+    }
+  };
+
+  if (t == 0) {
+    hop::prefetch_map(a.tx);
+    hop::prefetch_map(a.ttx);
+    hop::prefetch_map(a.tb);
+    hop::prefetch_map(a.ttb);
+    hop::mbar_init(bar_b);
+    hop::mbar_init(bar_x);
+    hop::mbar_init_fence();
+  }
+  __syncthreads();
+  if (t == 0) {                           // B and B' once for every head
+    hop::mbar_expect(bar_b, 2 * nt * BT);
+    for (int kt = 0; kt < nt; ++kt) {
+      hop::tma_load<NH>(sB + kt * BT, a.tb, bar_b, g, kt * kM, bc);
+      hop::tma_load<NH>(sTB + kt * BT, a.ttb, bar_b, g, kt * kM, bc);
+    }
+    load_x(h0);
+  }
+  // dt and dt' of the block's heads (zero past the chunk's end)
+  for (int idx = t; idx < nh * nt * kM; idx += kWG) {
+    const int i = idx / nh, j = idx - (idx / nh) * nh;
+    const bool in = i < a.chunk;
+    const long long at = (step0 + i) * a.H + h0 + j;
+    u[j * kMaxChunk + i] = in ? a.dt[at] : 0.f;
+    tu[j * kMaxChunk + i] = in ? a.tdt[at] : 0.f;
+  }
+  __syncthreads();
+  // seg and seg' of head j (warp j % 4), written out; u and u' in the
+  // places of dt and dt'
+  for (int j = warp; j < nh; j += 4) {
+    float* dtj = u + j * kMaxChunk;
+    float* tdtj = tu + j * kMaxChunk;
+    float* seg = scratch + 2 * warp * kMaxChunk;
+    float* tseg = seg + kMaxChunk;
+    const int h = h0 + j;
+    const float A = a.A[b * a.a_stride + h], tA = a.tA[b * a.ta_stride + h];
+    cumsum([&](int i) { return dtj[i] * A; }, seg, a.chunk, lane);
+    cumsum([&](int i) { return fmaf(dtj[i], tA, tdtj[i] * A); }, tseg,
+           a.chunk, lane);
+    __syncwarp();
+    const float seg_end = seg[a.chunk - 1], tseg_end = tseg[a.chunk - 1];
+    const long long row = ((long long)b * a.H + h) * a.L +
+                          (long long)c * a.chunk;
+    for (int i = lane; i < a.chunk; i += 32) {
+      a.seg[row + i] = seg[i];
+      a.tseg[row + i] = tseg[i];
+      const float w = expf(seg_end - seg[i]), d = dtj[i];
+      tdtj[i] = w * fmaf(tseg_end - tseg[i], d, tdtj[i]);
+      dtj[i] = w * d;
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+
+  const unsigned short* xs =
+      reinterpret_cast<const unsigned short*>(gbase + (sX - base));
+  const unsigned short* txs =
+      reinterpret_cast<const unsigned short*>(gbase + (sTX - base));
+  for (int j = 0; j < nh; ++j) {
+    const int h = h0 + j;
+    const float* uj = u + j * kMaxChunk;
+    const float* tuj = tu + j * kMaxChunk;
+    if (j == 0) hop::mbar_wait(bar_b, 0);
+    hop::mbar_wait(bar_x, j & 1);
+    // S = (u x)^T B and S' = (u' x + u x')^T B + (u x)^T B' in one sweep
+    // over the key tiles; the first products overwrite the accumulators
+    float acc[NH][32], tacc[NH][32];
+    uint32_t hi1[4][4], lo1[4][4], hi2[4][4], lo2[4][4];
+    for (int kt = 0; kt < nt; ++kt) {
+      ux_frags<false>(xs + kt * 4096, uj + kt * kM, nullptr, nullptr, t,
+                      hi1, lo1);
+      ux_frags<true>(xs + kt * 4096, tuj + kt * kM, txs + kt * 4096,
+                     uj + kt * kM, t, hi2, lo2);
+#pragma unroll
+      for (int cc = 0; cc < NH; ++cc) {
+        hop::keep(acc[cc]);
+        hop::keep(tacc[cc]);
+      }
+      hop::wg_fence();
+      hop::mma_rs<NH>(acc, hi1, lo1, sB + kt * BT, kt > 0);
+      hop::mma_rs<NH>(tacc, hi2, lo2, sB + kt * BT, kt > 0);
+      hop::mma_rs<NH>(tacc, hi1, lo1, sTB + kt * BT, true);
+      hop::wg_commit();
+      hop::wg_wait<0>();
+#pragma unroll
+      for (int cc = 0; cc < NH; ++cc) {
+        hop::keep(acc[cc]);
+        hop::keep(tacc[cc]);
+      }
+      hop::keep(hi1);
+      hop::keep(lo1);
+      hop::keep(hi2);
+      hop::keep(lo2);
+    }
+    store_state<NH>(acc, a.S + ((long long)bc * a.H + h) * a.P * a.N, a.P,
+                    a.N, t);
+    store_state<NH>(tacc, a.tS + ((long long)bc * a.H + h) * a.P * a.N,
+                    a.P, a.N, t);
+    if (j + 1 < nh) {
+      hop::bar_wg();                      // every warp is done with x, x'
+      if (t == 0) load_x(h + 1);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// pass 2: the states and their tangents passed across chunks
+// ---------------------------------------------------------------------------
+
+struct PassArgs {
+  const float *S, *tS;      // (B, nc, H, P, N)
+  const float *seg, *tseg;  // (B, H, L)
+  bf16 *hi, *lo, *thi, *tlo;  // (B, nc - 1, H, P, N): s_in, s'_in of 1 ..
+  float* tstate;            // (B, H, P, N)
+  long long quads;          // B * H * P * N / 4
+  int L, H, PN, chunk, nc;
+};
+
+__global__ void __launch_bounds__(256)
+tangent_pass_kernel(const PassArgs a) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.quads) return;
+  const long long e = 4 * i, bh = e / a.PN;
+  const int pn = (int)(e - bh * a.PN);
+  const long long b = bh / a.H;
+  const int h = (int)(bh - b * a.H);
+  const float* seg_end = a.seg + bh * a.L + a.chunk - 1;
+  const float* tseg_end = a.tseg + bh * a.L + a.chunk - 1;
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f), ts = s;
+  for (int c = 0; c < a.nc; ++c) {
+    if (c > 0) {
+      const long long at = ((b * (a.nc - 1) + c - 1) * a.H + h) * a.PN + pn;
+      hop::store_split(a.hi + at, a.lo + at, s);
+      hop::store_split(a.thi + at, a.tlo + at, ts);
+    }
+    const long long at = ((b * a.nc + c) * a.H + h) * a.PN + pn;
+    const float4 sc = *reinterpret_cast<const float4*>(a.S + at);
+    const float4 tsc = *reinterpret_cast<const float4*>(a.tS + at);
+    const float d = expf(seg_end[(long long)c * a.chunk]);
+    const float td = tseg_end[(long long)c * a.chunk];
+    ts = make_float4(fmaf(d, fmaf(td, s.x, ts.x), tsc.x),
+                     fmaf(d, fmaf(td, s.y, ts.y), tsc.y),
+                     fmaf(d, fmaf(td, s.z, ts.z), tsc.z),
+                     fmaf(d, fmaf(td, s.w, ts.w), tsc.w));
+    s = make_float4(fmaf(d, s.x, sc.x), fmaf(d, s.y, sc.y),
+                    fmaf(d, s.z, sc.z), fmaf(d, s.w, sc.w));
+  }
+  *reinterpret_cast<float4*>(a.tstate + e) = ts;
+}
+
+// ---------------------------------------------------------------------------
+// pass 3: y', one block per (query tile, heads of a group, b * nc + chunk)
+// ---------------------------------------------------------------------------
+
+struct ScanArgs {
+  CUtensorMap tx, ttx, ty;      // x, x', y' (P, H, chunk, B*nc)
+  CUtensorMap tb, ttb, tc, ttc; // B, B', C, C' (N, G, chunk, B*nc)
+  CUtensorMap thi, tlo, tthi, ttlo;   // the entering planes (N, P, mats)
+  const float *dt, *tdt;        // (B, L, H)
+  const float *seg, *tseg;      // (B, H, L)
+  int L, H, P, G, N, chunk, nc;
+  int hpb;                      // heads a block takes (of one group)
+};
+
+// Bytes of one key tile's operands (B, B' and the block's x, x' tiles), and
+// of region 0, which holds the four entering planes of one head at first.
+template <int NH> __host__ __device__ constexpr uint32_t tile_bytes() {
+  return 2 * NH * kRegion + 2 * kT3ScanHeads * kRegion;
+}
+template <int NH> __host__ __device__ constexpr uint32_t scan_region() {
+  return 4 * NH * kRegion > tile_bytes<NH>() ? 4 * NH * kRegion
+                                             : tile_bytes<NH>();
+}
+
+template <int NH> constexpr size_t scan_smem() {
+  // C, C'; regions 0 and 1 (key tiles by turns); M1 and M2 as hi/lo tiles
+  // (y' staged there at the end); per head seg (log2 units), seg', dt,
+  // dt'; barriers
+  return 1024 + 2 * NH * kRegion + scan_region<NH>() + tile_bytes<NH>() +
+         4 * kRegion + 4 * kT3ScanHeads * kMaxChunk * 4 + 32;
+}
+
+// M1 (kOne) or M2 of the 64 x 64 tile (queries q0 .., keys k0 ..) as hi/lo
+// A fragments in the accumulator's layout (as hop::decay_tile); on a masked
+// tile 0 where k > q or q >= chunk.  The mask comes before the exponential:
+// a masked pair's difference may be positive (past 88 it overflows), so
+// its exponent is exp2(-inf) = 0 and its difference is never taken.
+template <bool kOne>
+__device__ __forceinline__ void m_frags(const float (&G)[32],
+                                        const float (&Gp)[32],
+                                        const float* sk, const float* sp,
+                                        const float* dt, const float* tdt,
+                                        int q0, int k0, bool masked,
+                                        int chunk, int t,
+                                        uint32_t (&hi)[4][4],
+                                        uint32_t (&lo)[4][4]) {
+  const int r0 = hop::frag_row(0, t), c0 = hop::frag_col(0, t);
+  const float sq[2] = {sk[q0 + r0], sk[q0 + r0 + 8]};
+  const float pq[2] = {sp[q0 + r0], sp[q0 + r0 + 8]};
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int e = 8 * kk + 2 * j, r = j & 1;
+      const int k = k0 + c0 + 16 * kk + 8 * (j >> 1);
+      const int q = q0 + r0 + 8 * r;
+      float m[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const bool keep = !masked || (k + i <= q && q < chunk);
+        const float E =
+            hop::exp2_approx(keep ? sq[r] - sk[k + i] : -INFINITY);
+        const float gv = G[e + i];
+        m[i] = kOne ? E * fmaf(fmaf(gv, pq[r] - sp[k + i], Gp[e + i]),
+                               dt[k + i], gv * tdt[k + i])
+                    : E * gv * dt[k + i];
+      }
+      hop::split2(m[0], m[1], hi[kk][j], lo[kk][j]);
+    }
+}
+
+template <int NH>
+__global__ void __launch_bounds__(kWG, 1)
+tangent_scan_kernel(const __grid_constant__ ScanArgs a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  constexpr uint32_t BT = NH * kRegion;
+  const uint32_t base = (hop::smem_u32(smem) + 1023u) & ~1023u;
+  uint8_t* gbase = smem + (base - hop::smem_u32(smem));
+  const uint32_t sC = base, sTC = base + BT, sR = base + 2 * BT;
+  // key tile kt's operands in region (kt + 1) & 1: B, B', then head i's x
+  // and x' at 2 BT + 2i regions and one region on; region 0 holds the
+  // entering planes first
+  auto region = [&](int kt) {
+    return sR + ((kt + 1) & 1) * scan_region<NH>();
+  };
+  const uint32_t sM = sR + scan_region<NH>() + tile_bytes<NH>();
+  float* vec = reinterpret_cast<float*>(gbase + (sM + 4 * kRegion - base));
+  const uint32_t bars = sM + 4 * kRegion + 4 * kT3ScanHeads * kMaxChunk * 4;
+  const uint32_t bar_c = bars, bar_in = bars + 8;
+  auto bar_r = [&](int kt) { return bars + 16 + 8 * ((kt + 1) & 1); };
+  const int t = threadIdx.x;
+  // neighbouring blocks take the query tiles of one (chunk, heads); the
+  // heaviest first
+  const int qt = gridDim.x - 1 - blockIdx.x, q0 = qt * kM, nk = qt + 1;
+  const int sets = gridDim.y / a.G;
+  const int g = blockIdx.y / sets, set = blockIdx.y - g * sets;
+  const int hg = a.H / a.G, h0 = g * hg + set * a.hpb;
+  const int nh = min(a.hpb, hg - set * a.hpb);
+  const int bc = blockIdx.z, b = bc / a.nc, c = bc - b * a.nc;
+  const bool entering = c > 0;
+  const bool ragged = q0 + kM > a.chunk;   // query rows past the chunk
+  const int rows = min(nk * kM, a.chunk);  // chunk rows the block reads
+  const long long step0 = (long long)b * a.L + (long long)c * a.chunk;
+
+  // key tile kt's B, B', x and x' tiles into region (kt + 1) & 1; one
+  // thread
+  auto load_tile = [&](int kt) {
+    const uint32_t r = region(kt), bar = bar_r(kt);
+    const int k0 = kt * kM;
+    hop::mbar_expect(bar, 2 * BT + 2 * nh * kRegion);
+    hop::tma_load<NH>(r, a.tb, bar, g, k0, bc);
+    hop::tma_load<NH>(r + BT, a.ttb, bar, g, k0, bc);
+    for (int i = 0; i < nh; ++i) {
+      hop::tma_load<1>(r + 2 * BT + 2 * i * kRegion, a.tx, bar, h0 + i, k0,
+                       bc);
+      hop::tma_load<1>(r + 2 * BT + (2 * i + 1) * kRegion, a.ttx, bar,
+                       h0 + i, k0, bc);
+    }
+  };
+
+  if (t == 0) {
+    hop::prefetch_map(a.tc);
+    hop::prefetch_map(a.ttc);
+    hop::prefetch_map(a.tb);
+    hop::prefetch_map(a.ttb);
+    hop::prefetch_map(a.tx);
+    hop::prefetch_map(a.ttx);
+    hop::prefetch_map(a.ty);
+    for (int i = 0; i < 4; ++i) hop::mbar_init(bars + 8 * i);
+    hop::mbar_init_fence();
+  }
+  __syncthreads();
+  if (t == 0) {
+    hop::mbar_expect(bar_c, 2 * BT);
+    hop::tma_load<NH>(sC, a.tc, bar_c, g, q0, bc);
+    hop::tma_load<NH>(sTC, a.ttc, bar_c, g, q0, bc);
+    load_tile(0);                         // region 1, during the entering
+  }
+  // per head: seg in log2 units, seg', dt, dt' of rows [0, rows), 0 past
+  for (int idx = t; idx < kT3ScanHeads * kMaxChunk; idx += kWG) {
+    const int i = idx / kMaxChunk, j = idx - i * kMaxChunk;
+    const bool in = i < nh && j < rows;
+    const int h = h0 + i;
+    float* v = vec + 4 * i * kMaxChunk;
+    const long long sr = ((long long)b * a.H + h) * a.L +
+                         (long long)c * a.chunk + j;
+    const long long dr = (step0 + j) * a.H + h;
+    v[j] = in ? a.seg[sr] * hop::kLog2e : 0.f;
+    v[kMaxChunk + j] = in ? a.tseg[sr] : 0.f;
+    v[2 * kMaxChunk + j] = in ? a.dt[dr] : 0.f;
+    v[3 * kMaxChunk + j] = in ? a.tdt[dr] : 0.f;
+  }
+  __syncthreads();
+  hop::mbar_wait(bar_c, 0);
+
+  const int r0 = hop::frag_row(0, t);
+  float y[kT3ScanHeads][32];
+  // y' = exp(seg_q) (seg'_q C s_in^T + C' s_in^T + C s'_in^T), per head
+  if (entering) {
+#pragma unroll
+    for (int i = 0; i < kT3ScanHeads; ++i) {
+      if (i >= nh) break;
+      const int mat = (b * (a.nc - 1) + c - 1) * a.H + h0 + i;
+      if (i > 0) hop::bar_wg();           // every warp is done with the planes
+      if (t == 0) {
+        hop::mbar_expect(bar_in, 4 * BT);
+        hop::tma_load_plane<NH>(sR, a.thi, bar_in, mat);
+        hop::tma_load_plane<NH>(sR + BT, a.tlo, bar_in, mat);
+        hop::tma_load_plane<NH>(sR + 2 * BT, a.tthi, bar_in, mat);
+        hop::tma_load_plane<NH>(sR + 3 * BT, a.ttlo, bar_in, mat);
+      }
+      hop::mbar_wait(bar_in, i & 1);
+      float y0[32];
+      hop::keep(y0);
+      hop::keep(y[i]);
+      hop::wg_fence();
+      hop::mma_abt<NH>(y0, sC, sR, false);
+      hop::mma_abt<NH>(y0, sC, sR + BT, true);
+      hop::mma_abt<NH>(y[i], sTC, sR, false);
+      hop::mma_abt<NH>(y[i], sTC, sR + BT, true);
+      hop::mma_abt<NH>(y[i], sC, sR + 2 * BT, true);
+      hop::mma_abt<NH>(y[i], sC, sR + 3 * BT, true);
+      hop::wg_commit();
+      hop::wg_wait<0>();
+      hop::keep(y0);
+      hop::keep(y[i]);
+      const float* sk = vec + 4 * i * kMaxChunk;
+      const float* sp = sk + kMaxChunk;
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int q = q0 + r0 + 8 * ((e >> 1) & 1);
+        y[i][e] = hop::exp2_approx(sk[q]) * fmaf(sp[q], y0[e], y[i][e]);
+      }
+    }
+  }
+
+  // y' += M1 x + M2 x' over the key tiles at or below the diagonal, tile
+  // kt + 1 landing in the other region while tile kt is multiplied
+  hop::bar_wg();                          // every warp is done with the planes
+  if (t == 0 && nk > 1) load_tile(1);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kM;
+    const uint32_t sB = region(kt), sTB = sB + BT;
+    const uint32_t sX = sB + 2 * BT;      // head i's x, x': sX + 2i regions
+    hop::mbar_wait(bar_r(kt), (kt >> 1) & 1);
+    float G[32], Gp[32];
+    hop::keep(G);
+    hop::keep(Gp);
+    hop::wg_fence();
+    hop::mma_abt<NH>(G, sC, sB, false);
+    hop::mma_abt<NH>(Gp, sTC, sB, false);
+    hop::mma_abt<NH>(Gp, sC, sTB, true);
+    hop::wg_commit();
+    hop::wg_wait<0>();
+    hop::keep(G);
+    hop::keep(Gp);
+    const bool masked = kt == qt || ragged;
+#pragma unroll
+    for (int i = 0; i < kT3ScanHeads; ++i) {
+      if (i >= nh) break;
+      const float* sk = vec + 4 * i * kMaxChunk;
+      const float* sp = sk + kMaxChunk;
+      const float* dt = sp + kMaxChunk;
+      const float* tdt = dt + kMaxChunk;
+      uint32_t hi[4][4], lo[4][4];
+      hop::bar_wg();                      // the last product is done with M
+      m_frags<true>(G, Gp, sk, sp, dt, tdt, q0, k0, masked, a.chunk, t, hi,
+                    lo);
+      hop::stage_tile(sM, hi, t);
+      hop::stage_tile(sM + kRegion, lo, t);
+      m_frags<false>(G, Gp, sk, sp, dt, tdt, q0, k0, masked, a.chunk, t, hi,
+                     lo);
+      hop::stage_tile(sM + 2 * kRegion, hi, t);
+      hop::stage_tile(sM + 3 * kRegion, lo, t);
+      hop::fence_async_smem();
+      hop::bar_wg();
+      const uint32_t x = sX + 2 * i * kRegion, tx = x + kRegion;
+      hop::keep(y[i]);
+      hop::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t dx = hop::desc(x + kk * 16 * 128);
+        const uint64_t dtx = hop::desc(tx + kk * 16 * 128);
+        hop::wgmma_ss_mn(y[i], hop::desc(sM + kk * 32), dx,
+                         entering || kt > 0 || kk > 0);
+        hop::wgmma_ss_mn(y[i], hop::desc(sM + kRegion + kk * 32), dx, 1);
+        hop::wgmma_ss_mn(y[i], hop::desc(sM + 2 * kRegion + kk * 32), dtx, 1);
+        hop::wgmma_ss_mn(y[i], hop::desc(sM + 3 * kRegion + kk * 32), dtx, 1);
+      }
+      hop::wg_commit();
+      hop::wg_wait<0>();
+      hop::keep(y[i]);
+    }
+    if (kt + 2 < nk) {
+      hop::bar_wg();                      // every warp is done with tile kt
+      if (t == 0) load_tile(kt + 2);
+    }
+  }
+
+  // each head's y' to a region of M, then by TMA to rows q0 .. of its head
+  // (clipped at the chunk's end and at P)
+  hop::bar_wg();                          // every warp is done with M
+#pragma unroll
+  for (int i = 0; i < kT3ScanHeads; ++i) {
+    if (i >= nh) break;
+    const uint32_t st = sM + i * kRegion;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
+                         st + hop::swz(r0 + 8 * r, j) + 4 * (t & 3)),
+                     "r"(hop::pack_bf16(y[i][4 * j + 2 * r],
+                                        y[i][4 * j + 2 * r + 1]))
+                     : "memory");
+  }
+  hop::fence_async_smem();
+  hop::bar_wg();
+  if (t == 0) {
+    for (int i = 0; i < nh; ++i)
+      hop::tma_store(sM + i * kRegion, a.ty, h0 + i, q0, bc);
+    hop::store_wait();
+  }
+}
+
+template <int NH>
+cudaError_t run_state(const StateArgs& a, int Bsz, cudaStream_t s) {
+  static bool ready = false;
+  const int sets = (a.H / a.G + a.hpb - 1) / a.hpb;
+  return hop::launch(tangent_state_kernel<NH>, dim3(a.G * sets, a.nc, Bsz), kWG,
+                     state_smem<NH>(), s, a, &ready);
+}
+
+template <int NH>
+cudaError_t run_scan(const ScanArgs& a, int Bsz, cudaStream_t s) {
+  static bool ready = false;
+  const int nq = (a.chunk + kM - 1) / kM;
+  const int sets = (a.H / a.G + a.hpb - 1) / a.hpb;
+  return hop::launch(tangent_scan_kernel<NH>, dim3(nq, a.G * sets, Bsz * a.nc),
+                     kWG, scan_smem<NH>(), s, a, &ready);
+}
+
+}  // namespace t3
+
+// ===========================================================================
 // T3: the forward-mode tangent of the scan (no TPU counterpart)
 // ===========================================================================
 //
@@ -1367,12 +2018,13 @@ bool shapes_ok(int Bsz, int L, int H, int P, int G, int N, int chunk) {
 // diagonal), so the tangent stays finite where seg falls by more than 88
 // within a chunk, as the forward does.
 //
-// A simple CUDA-core kernel that is right first: one block per (b, h)
-// walking its chunks with S and S' in shared memory (float32), like the
-// float32 forward above; query tiles of 32 rows against key tiles of 64,
-// float32 FMA, 256 threads as 16 x 16.  About 219 KB of shared memory,
-// so one block an SM.  x, B, C and their tangents are bf16 or float32, dt,
-// A and theirs float32; y' is written in x's dtype, S' in float32.
+// bfloat16 runs the three passes of namespace t3 above.  float32 runs this
+// CUDA-core kernel: one block per (b, h) walking its chunks with S and S'
+// in shared memory (float32), like the float32 forward above; query tiles
+// of 32 rows against key tiles of 64, float32 FMA, 256 threads as 16 x 16.
+// About 219 KB of shared memory, so one block an SM.  x, B, C and their
+// tangents are float32 here (the kernel also takes bf16), dt, A and theirs
+// float32; y' is written in x's dtype, S' in float32.
 namespace jvpk {
 
 constexpr int kQ = 32;                    // query rows of an output tile
@@ -1835,8 +2487,120 @@ int repro_ssd_chunk_scan(const void* x, const void* dt, const void* seg,
                        : hop::run_scan<2>(a, Bsz, s));
 }
 
-// The forward-mode tangent T3 (namespace jvpk): x, B, C and their tangents
-// x', B', C' contiguous, float32 (dtype DT_F32) or bfloat16 (DT_BF16);
+// T3 in bfloat16 on Hopper, three launches (see namespace t3).  x, x'
+// (Bsz, L, H, P) and Bg, Cg, B', C' (Bsz, L, G, N) contiguous bf16 with P
+// and N multiples of 8 and 16-byte aligned pointers; dt, dt' (Bsz, L, H)
+// float32; L a multiple of chunk; nc = L / chunk.
+
+// Pass 1.  A[b * a_stride + h] and A'[b * ta_stride + h] float32; writes
+// S, S' (Bsz, nc, H, P, N) and seg, seg' (Bsz, H, L), float32.
+int repro_ssd_tangent_state(const void* x, const void* dt, const void* A,
+                            long long a_stride, const void* Bg,
+                            const void* tx, const void* tdt, const void* tA,
+                            long long ta_stride, const void* tB, void* S,
+                            void* tS, void* seg, void* tseg, int Bsz, int L,
+                            int H, int P, int G, int N, int chunk,
+                            void* stream) {
+  if (!hop::shapes_ok(Bsz, L, H, P, G, N, chunk))
+    return (int)cudaErrorInvalidValue;
+  t3::StateArgs a{};
+  const long long bnc = (long long)Bsz * (L / chunk);
+  if (!hop::map_rows(&a.tx, x, P, H, chunk, bnc) ||
+      !hop::map_rows(&a.ttx, tx, P, H, chunk, bnc) ||
+      !hop::map_rows(&a.tb, Bg, N, G, chunk, bnc) ||
+      !hop::map_rows(&a.ttb, tB, N, G, chunk, bnc))
+    return (int)cudaErrorInvalidValue;
+  a.dt = static_cast<const float*>(dt);
+  a.tdt = static_cast<const float*>(tdt);
+  a.A = static_cast<const float*>(A);
+  a.tA = static_cast<const float*>(tA);
+  a.S = static_cast<float*>(S);
+  a.tS = static_cast<float*>(tS);
+  a.seg = static_cast<float*>(seg);
+  a.tseg = static_cast<float*>(tseg);
+  a.a_stride = a_stride;
+  a.ta_stride = ta_stride;
+  a.L = L; a.H = H; a.P = P; a.G = G; a.N = N; a.chunk = chunk;
+  a.nc = L / chunk;
+  a.hpb = t3::kT3StateHeads < H / G ? t3::kT3StateHeads : H / G;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(N <= 64 ? t3::run_state<1>(a, Bsz, s)
+                       : t3::run_state<2>(a, Bsz, s));
+}
+
+// Pass 2.  S, S', seg and seg' from pass 1; writes the entering states and
+// their tangents of chunks 1 .. nc - 1 as bf16 planes hi, lo, thi, tlo
+// (Bsz, nc - 1, H, P, N) and the final state's tangent (Bsz, H, P, N)
+// float32.
+int repro_ssd_tangent_pass(const void* S, const void* tS, const void* seg,
+                           const void* tseg, void* hi, void* lo, void* thi,
+                           void* tlo, void* tstate, int Bsz, int L, int H,
+                           int P, int N, int chunk, void* stream) {
+  if (!hop::shapes_ok(Bsz, L, H, P, 1, N, chunk))
+    return (int)cudaErrorInvalidValue;
+  t3::PassArgs a{};
+  a.S = static_cast<const float*>(S);
+  a.tS = static_cast<const float*>(tS);
+  a.seg = static_cast<const float*>(seg);
+  a.tseg = static_cast<const float*>(tseg);
+  a.hi = static_cast<__nv_bfloat16*>(hi);
+  a.lo = static_cast<__nv_bfloat16*>(lo);
+  a.thi = static_cast<__nv_bfloat16*>(thi);
+  a.tlo = static_cast<__nv_bfloat16*>(tlo);
+  a.tstate = static_cast<float*>(tstate);
+  a.quads = (long long)Bsz * H * P * N / 4;
+  a.L = L; a.H = H; a.PN = P * N; a.chunk = chunk; a.nc = L / chunk;
+  const long long blocks = (a.quads + 255) / 256;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  t3::tangent_pass_kernel<<<(unsigned)blocks, 256, 0,
+                            static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Pass 3.  seg, seg' from pass 1, the planes from pass 2; writes y' (Bsz,
+// L, H, P) bf16.
+int repro_ssd_tangent_scan(const void* x, const void* dt, const void* seg,
+                           const void* Bg, const void* Cg, const void* tx,
+                           const void* tdt, const void* tseg, const void* tB,
+                           const void* tC, const void* hi, const void* lo,
+                           const void* thi, const void* tlo, void* ty,
+                           int Bsz, int L, int H, int P, int G, int N,
+                           int chunk, void* stream) {
+  if (!hop::shapes_ok(Bsz, L, H, P, G, N, chunk))
+    return (int)cudaErrorInvalidValue;
+  t3::ScanArgs a{};
+  const int nc = L / chunk;
+  const long long bnc = (long long)Bsz * nc;
+  if (!hop::map_rows(&a.tx, x, P, H, chunk, bnc) ||
+      !hop::map_rows(&a.ttx, tx, P, H, chunk, bnc) ||
+      !hop::map_rows(&a.ty, ty, P, H, chunk, bnc) ||
+      !hop::map_rows(&a.tb, Bg, N, G, chunk, bnc) ||
+      !hop::map_rows(&a.ttb, tB, N, G, chunk, bnc) ||
+      !hop::map_rows(&a.tc, Cg, N, G, chunk, bnc) ||
+      !hop::map_rows(&a.ttc, tC, N, G, chunk, bnc))
+    return (int)cudaErrorInvalidValue;
+  if (nc > 1) {                  // chunk 0 enters from the zero state
+    const long long mats = (long long)Bsz * (nc - 1) * H;
+    if (!hop::map_planes(&a.thi, hi, P, N, mats) ||
+        !hop::map_planes(&a.tlo, lo, P, N, mats) ||
+        !hop::map_planes(&a.tthi, thi, P, N, mats) ||
+        !hop::map_planes(&a.ttlo, tlo, P, N, mats))
+      return (int)cudaErrorInvalidValue;
+  }
+  a.dt = static_cast<const float*>(dt);
+  a.tdt = static_cast<const float*>(tdt);
+  a.seg = static_cast<const float*>(seg);
+  a.tseg = static_cast<const float*>(tseg);
+  a.L = L; a.H = H; a.P = P; a.G = G; a.N = N; a.chunk = chunk; a.nc = nc;
+  a.hpb = t3::kT3ScanHeads < H / G ? t3::kT3ScanHeads : H / G;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(N <= 64 ? t3::run_scan<1>(a, Bsz, s)
+                       : t3::run_scan<2>(a, Bsz, s));
+}
+
+// The forward-mode tangent T3 on the CUDA cores (namespace jvpk), the
+// float32 route: x, B, C and their tangents x', B', C' contiguous, float32
+// (dtype DT_F32) or bfloat16 (DT_BF16);
 // dt, dt' (Bsz, L, H) and A, A' (Bsz, H) float32; writes y' (Bsz, L, H, P)
 // in x's dtype and the final state's tangent (Bsz, H, P, N) float32.
 int repro_ssd_scan_tangent(const void* x, const void* dt, const void* A,

@@ -30,16 +30,24 @@ derivative raises, its forward-mode rule is below.
 Forward mode.  The exact meta-gradient's Hessian-vector products are
 ``torch.func.jvp`` over ``torch.func.grad``, so both ``Function``s have a
 ``jvp`` rule, each running a tangent ``Function`` whose ``vmap`` rule folds
-the mapped dimensions as above.  The forward's tangent is the kernel T3
-(:func:`ssd_scan_tangent`, ``csrc/ssd_scan.cu``, namespace ``jvpk``); the
-backward's is ``torch.func.jvp`` of the chunked VJP (PyTorch ops, as the
-backward is).  Reverse-over-reverse (``grad`` of ``grad``) still raises.
+the mapped dimensions as above.  The forward's tangent is T3
+(:func:`ssd_scan_tangent`, ``csrc/ssd_scan.cu``), routed by dtype as the
+forward is: bfloat16 CUDA tensors to three Hopper kernels, one a pass, the
+forward's passes with the tangent plane beside each
+(:func:`ssd_tangent_state`, :func:`ssd_tangent_pass`,
+:func:`ssd_tangent_scan`; namespace ``t3``), float32 CUDA tensors to one
+CUDA-core kernel (namespace ``jvpk``).  The backward's tangent is
+``torch.func.jvp`` of the chunked VJP (PyTorch ops, as the backward is).
+Reverse-over-reverse (``grad`` of ``grad``) still raises.
 
 ``launch_counts["ssd_scan"]`` counts the calls of :func:`ssd_scan_kernel`
 that went to a kernel route (one launch in float32, three in bfloat16);
 ``ssd_chunk_state``, ``ssd_state_pass`` and ``ssd_chunk_scan`` count each
-pass's launches, ``ssd_scan_tangent`` the tangent kernel's.  Plain-version
-calls are not counted.
+pass's launches.  ``ssd_scan_tangent`` counts the calls of
+:func:`ssd_scan_tangent` that went to a kernel route (one launch in float32,
+three in bfloat16), and ``ssd_tangent_state``, ``ssd_tangent_pass`` and
+``ssd_tangent_scan`` each of T3's passes.  Plain-version calls are not
+counted.
 """
 from __future__ import annotations
 
@@ -55,12 +63,16 @@ from repro_torch.kernels.ssd_scan.ref import (chunk_scan_ref,
                                               chunk_state_ref, split_hi_lo,
                                               ssd_scan_ref,
                                               ssd_scan_tangent_ref,
-                                              state_pass_ref)
+                                              state_pass_ref,
+                                              tangent_pass_ref,
+                                              tangent_scan_ref,
+                                              tangent_state_ref)
 
 __all__ = ["MAX_CHUNK", "MAX_HEAD_DIM", "MAX_STATE", "build",
            "launch_counts", "reset_launch_counts", "ssd_chunk_scan",
            "ssd_chunk_state", "ssd_scan", "ssd_scan_kernel",
-           "ssd_scan_tangent", "ssd_state_pass"]
+           "ssd_scan_tangent", "ssd_state_pass", "ssd_tangent_pass",
+           "ssd_tangent_scan", "ssd_tangent_state"]
 
 MAX_HEAD_DIM = 64         # kMaxP in the CUDA source
 MAX_STATE = 128           # kMaxN
@@ -70,7 +82,9 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launch_counts = {"ssd_scan": 0, "ssd_chunk_state": 0, "ssd_state_pass": 0,
-                 "ssd_chunk_scan": 0, "ssd_scan_tangent": 0}
+                 "ssd_chunk_scan": 0, "ssd_scan_tangent": 0,
+                 "ssd_tangent_state": 0, "ssd_tangent_pass": 0,
+                 "ssd_tangent_scan": 0}
 
 
 def reset_launch_counts() -> None:
@@ -91,9 +105,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_ssd_state_pass.argtypes = [p] * 5 + [i] * 6 + [p]
     lib.repro_ssd_chunk_scan.argtypes = [p] * 8 + [i] * 7 + [p]
     lib.repro_ssd_scan_tangent.argtypes = [p] * 12 + [i] * 8 + [p]
+    lib.repro_ssd_tangent_state.argtypes = [p] * 3 + [ll] + [p] * 4 + \
+        [ll] + [p] * 5 + [i] * 7 + [p]
+    lib.repro_ssd_tangent_pass.argtypes = [p] * 9 + [i] * 6 + [p]
+    lib.repro_ssd_tangent_scan.argtypes = [p] * 15 + [i] * 7 + [p]
     for fn in ("repro_ssd_scan", "repro_ssd_chunk_state",
                "repro_ssd_state_pass", "repro_ssd_chunk_scan",
-               "repro_ssd_scan_tangent"):
+               "repro_ssd_scan_tangent", "repro_ssd_tangent_state",
+               "repro_ssd_tangent_pass", "repro_ssd_tangent_scan"):
         getattr(lib, fn).restype = i
     if (lib.repro_ssd_max_head_dim(), lib.repro_ssd_max_state(),
             lib.repro_ssd_max_chunk()) != (MAX_HEAD_DIM, MAX_STATE,
@@ -169,15 +188,17 @@ def _check_hopper(name: str, chunk: int, **tensors) -> None:
     x, B and C (and of every other bf16 operand) 16-byte multiples, P and N
     multiples of 8, data 16-byte aligned (TMA reads and writes them)."""
     for tname, t in tensors.items():
-        want = torch.bfloat16 if tname in ("x", "B", "C", "hi", "lo") \
+        want = torch.bfloat16 if tname.lstrip("t") in ("x", "B", "C", "hi",
+                                                       "lo") \
             else torch.float32
         if t.device.type != "cuda" or t.dtype != want:
             raise ValueError(f"{name}: {tname} must be a {want} CUDA "
                              f"tensor, got {t.dtype} on {t.device}")
-        if tname != "A" and not t.is_contiguous():
+        if tname not in ("A", "tA") and not t.is_contiguous():
             raise ValueError(f"{name}: {tname} {tuple(t.shape)} is not "
                              f"contiguous (strides {t.stride()})")
-        if tname in ("x", "B", "C", "hi", "lo", "S") and t.data_ptr() % 16:
+        if tname.lstrip("t") in ("x", "B", "C", "hi", "lo", "S") and \
+                t.data_ptr() % 16:
             raise ValueError(f"{name}: {tname} is not 16-byte aligned")
     x, Bg = tensors.get("x"), tensors.get("B")
     P = x.shape[3] if x is not None else tensors["S"].shape[3]
@@ -302,14 +323,96 @@ def ssd_scan_kernel(x, dt, A, Bg, Cg, *, chunk: int
     return y, state
 
 
+def ssd_tangent_state(x, dt, A, Bg, tx, tdt, tA, tB, *, chunk: int
+                      ) -> tuple[torch.Tensor, ...]:
+    """Pass 1 of T3's bfloat16 route: (S, S' (B,nc,H,P,N), seg, seg'
+    (B,H,L)), all float32, as :func:`.ref.tangent_state_ref` (its plain
+    version, taken for CPU tensors).  A and A': (H,) or per sequence
+    (B,H)."""
+    _check_shapes(x, dt, A, Bg, Bg, chunk)
+    if x.device.type == "cpu":
+        return tangent_state_ref(x, dt, A, Bg, tx, tdt, tA, tB, chunk)
+    _check_hopper("ssd_tangent_state", chunk, x=x, dt=dt, A=A, B=Bg, tx=tx,
+                  tdt=tdt, tA=tA, tB=tB)
+    B, L, H, P = x.shape
+    G, N = Bg.shape[2], Bg.shape[3]
+    A, tA = (a if a.stride(-1) == 1 else a.contiguous() for a in (A, tA))
+    S, tS = (torch.empty(B, L // chunk, H, P, N, dtype=torch.float32,
+                         device=x.device) for _ in "sS")
+    seg, tseg = (torch.empty(B, H, L, dtype=torch.float32, device=x.device)
+                 for _ in "sS")
+    _launch("ssd_tangent_state", _LIB.lib.repro_ssd_tangent_state, x, dt, A,
+            A.stride(0) if A.ndim == 2 else 0, Bg, tx, tdt, tA,
+            tA.stride(0) if tA.ndim == 2 else 0, tB, S, tS, seg, tseg, B, L,
+            H, P, G, N, chunk)
+    return S, tS, seg, tseg
+
+
+def ssd_tangent_pass(S, tS, seg, tseg, *, chunk: int
+                     ) -> tuple[torch.Tensor, ...]:
+    """Pass 2 of T3's bfloat16 route: the entering states and their
+    tangents of chunks 1 .. nc-1 as bf16 planes (hi, lo, thi, tlo;
+    (B,nc-1,H,P,N) each, :func:`.ref.split_hi_lo`) and the final state's
+    tangent (B,H,P,N) float32; the plain version is
+    :func:`.ref.tangent_pass_ref`, split."""
+    B, nc, H, P, N = S.shape
+    if tuple(tS.shape) != tuple(S.shape) or tuple(seg.shape) != \
+            (B, H, nc * chunk) or tuple(tseg.shape) != tuple(seg.shape):
+        raise ValueError(f"ssd_tangent_pass: S' {tuple(tS.shape)}, seg "
+                         f"{tuple(seg.shape)} and seg' {tuple(tseg.shape)} "
+                         f"do not fit S {tuple(S.shape)} and chunk={chunk}")
+    if S.device.type == "cpu":
+        entering, tentering, tstate = tangent_pass_ref(S, tS, seg, tseg,
+                                                       chunk)
+        return (*split_hi_lo(entering), *split_hi_lo(tentering), tstate)
+    _check_hopper("ssd_tangent_pass", chunk, S=S, tS=tS, seg=seg, tseg=tseg)
+    hi, lo, thi, tlo = (torch.empty(B, nc - 1, H, P, N, dtype=torch.bfloat16,
+                                    device=S.device) for _ in range(4))
+    tstate = torch.empty(B, H, P, N, dtype=torch.float32, device=S.device)
+    _launch("ssd_tangent_pass", _LIB.lib.repro_ssd_tangent_pass, S, tS, seg,
+            tseg, hi, lo, thi, tlo, tstate, B, nc * chunk, H, P, N, chunk)
+    return hi, lo, thi, tlo, tstate
+
+
+def ssd_tangent_scan(x, dt, seg, Bg, Cg, tx, tdt, tseg, tB, tC, hi, lo, thi,
+                     tlo, *, chunk: int) -> torch.Tensor:
+    """Pass 3 of T3's bfloat16 route: y' (B,L,H,P) in x's dtype from seg,
+    seg' (pass 1) and the entering planes (pass 2), as
+    :func:`.ref.tangent_scan_ref` of ``hi + lo`` and ``thi + tlo`` (its
+    plain version)."""
+    _check_shapes(x, dt, None, Bg, Cg, chunk)
+    B, L, H, P = x.shape
+    G, N = Bg.shape[2], Bg.shape[3]
+    want = (B, L // chunk - 1, H, P, N)
+    if tuple(seg.shape) != (B, H, L) or tuple(tseg.shape) != (B, H, L) or \
+            any(tuple(t.shape) != want for t in (hi, lo, thi, tlo)):
+        raise ValueError(f"ssd_tangent_scan: seg {tuple(seg.shape)}, seg' "
+                         f"{tuple(tseg.shape)} and the planes "
+                         f"{tuple(hi.shape)} do not fit x {tuple(x.shape)} "
+                         f"(want ({B}, {H}, {L}) and {want})")
+    if x.device.type == "cpu":
+        return tangent_scan_ref(x, dt, seg, Bg, Cg, tx, tdt, tseg, tB, tC,
+                                hi.float() + lo.float(),
+                                thi.float() + tlo.float(), chunk)
+    _check_hopper("ssd_tangent_scan", chunk, x=x, dt=dt, seg=seg, B=Bg, C=Cg,
+                  tx=tx, tdt=tdt, tseg=tseg, tB=tB, tC=tC, hi=hi, lo=lo,
+                  thi=thi, tlo=tlo)
+    ty = torch.empty_like(x)
+    _launch("ssd_tangent_scan", _LIB.lib.repro_ssd_tangent_scan, x, dt, seg,
+            Bg, Cg, tx, tdt, tseg, tB, tC, hi, lo, thi, tlo, ty, B, L, H, P,
+            G, N, chunk)
+    return ty
+
+
 def ssd_scan_tangent(x, dt, A, Bg, Cg, tx, tdt, tA, tB, tC, *, chunk: int
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """T3: the tangent (y', final_state') of :func:`ssd_scan_kernel` at
     (x, dt, A, Bg, Cg) along (x', dt', A', B', C') — each tangent shaped
     and typed as its primal (dt, A float32).  y' in x's dtype, the state's
     tangent (B,H,P,N) float32.  The plain version (taken for CPU tensors)
-    is :func:`.ref.ssd_scan_tangent_ref`.  One launch, float32 or bfloat16
-    inputs, float32 state and tangent state."""
+    is :func:`.ref.ssd_scan_tangent_ref`.  bfloat16: T3's three passes
+    (:func:`ssd_tangent_state`, :func:`ssd_tangent_pass`,
+    :func:`ssd_tangent_scan`); float32: one CUDA-core launch."""
     _check_shapes(x, dt, A, Bg, Cg, chunk)
     for tname, t, p in (("x'", tx, x), ("dt'", tdt, dt), ("A'", tA, A),
                         ("B'", tB, Bg), ("C'", tC, Cg)):
@@ -325,6 +428,15 @@ def ssd_scan_tangent(x, dt, A, Bg, Cg, tx, tdt, tA, tB, tC, *, chunk: int
         raise ValueError(f"ssd_scan: no kernel for device {x.device}")
     _check_cuda(x, dt, A, Bg, Cg, chunk)
     _check_cuda(tx, tdt, tA, tB, tC, chunk)
+    if x.dtype == torch.bfloat16:
+        S, tS, seg, tseg = ssd_tangent_state(x, dt, A, Bg, tx, tdt, tA, tB,
+                                             chunk=chunk)
+        hi, lo, thi, tlo, tstate = ssd_tangent_pass(S, tS, seg, tseg,
+                                                    chunk=chunk)
+        ty = ssd_tangent_scan(x, dt, seg, Bg, Cg, tx, tdt, tseg, tB, tC, hi,
+                              lo, thi, tlo, chunk=chunk)
+        launch_counts["ssd_scan_tangent"] += 1
+        return ty, tstate
     A, tA = (a.expand(B, H).contiguous() for a in (A, tA))
     ty = torch.empty_like(x)
     tstate = torch.empty(B, H, P, N, dtype=torch.float32, device=x.device)

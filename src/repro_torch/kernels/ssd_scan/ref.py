@@ -13,15 +13,18 @@ kernels against it on the card.  :func:`chunk_state_ref`,
 the three kernels of the bfloat16 route, one a pass, and
 :func:`split_hi_lo` the bf16 pair that carries a float32 state between the
 last two.  :func:`ssd_scan_tangent_ref` is the plain version of the
-forward-mode tangent kernel: ``torch.func.jvp`` of :func:`ssd_scan_ref`
-with B and C read by group.
+forward-mode tangent T3: ``torch.func.jvp`` of :func:`ssd_scan_ref` with B
+and C read by group.  :func:`tangent_state_ref`, :func:`tangent_pass_ref`
+and :func:`tangent_scan_ref` are the plain versions of T3's three bfloat16
+kernels, the passes above with the tangent plane carried beside each.
 """
 from __future__ import annotations
 
 import torch
 
 __all__ = ["chunk_scan_ref", "chunk_state_ref", "split_hi_lo",
-           "ssd_scan_ref", "ssd_scan_tangent_ref", "state_pass_ref"]
+           "ssd_scan_ref", "ssd_scan_tangent_ref", "state_pass_ref",
+           "tangent_pass_ref", "tangent_scan_ref", "tangent_state_ref"]
 
 
 def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -146,3 +149,110 @@ def split_hi_lo(s: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     how pass 2 hands the entering states to the tensor cores of pass 3."""
     hi = s.to(torch.bfloat16)
     return hi, (s - hi.float()).to(torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# T3's three passes (bfloat16 route), one plain version each: the passes
+# above with the tangent of every chunk quantity beside it.  Composed
+# (tangent_state_ref -> tangent_pass_ref -> tangent_scan_ref) they equal
+# ssd_scan_tangent_ref.  With seg' the cumsum of a' = dt' A + dt A' and w_k =
+# exp(seg_end - seg_k), the tangent of w_k is w_k (seg'_end - seg'_k).
+# ---------------------------------------------------------------------------
+
+def tangent_state_ref(x, dt, A, Bg, tx, tdt, tA, tB, chunk: int):
+    """Pass 1.  The primals as :func:`chunk_state_ref`, their tangents
+    shaped alike.  Returns (S, S' (B,nc,H,P,N), seg, seg' (B,H,L)), float32:
+    ``S' = Σ_k [u'_k x_k + u_k x'_k] B_kᵀ + u_k x_k B'_kᵀ`` with ``u_k = w_k
+    dt_k`` and ``u'_k = w_k ((seg'_end - seg'_k) dt_k + dt'_k)``."""
+    B, L, H, P = x.shape
+    G, N = Bg.shape[2], Bg.shape[3]
+    nc, r = L // chunk, H // G
+    dtc, tdtc = (t.float().reshape(B, nc, chunk, H) for t in (dt, tdt))
+    a = _per_sequence(A, B)[:, None, None, :]
+    ta = _per_sequence(tA, B)[:, None, None, :]
+    seg = torch.cumsum(dtc * a, dim=2)
+    tseg = torch.cumsum(tdtc * a + dtc * ta, dim=2)
+    w = torch.exp(seg[:, :, -1:] - seg)
+    u = (w * dtc).reshape(B, nc, chunk, G, r)
+    tu = (w * ((tseg[:, :, -1:] - tseg) * dtc + tdtc)).reshape(
+        B, nc, chunk, G, r)
+    xs, txs = (t.float().reshape(B, nc, chunk, G, r, P) for t in (x, tx))
+    bs, tbs = (t.float().reshape(B, nc, chunk, G, N) for t in (Bg, tB))
+
+    def state(u, x, b):
+        return torch.einsum("bckgr,bckgrp,bckgn->bcgrpn", u, x, b)
+
+    S = state(u, xs, bs)
+    tS = state(tu, xs, bs) + state(u, txs, bs) + state(u, xs, tbs)
+
+    def per_head(s):
+        return s.permute(0, 3, 1, 2).reshape(B, H, L)
+
+    return (S.reshape(B, nc, H, P, N), tS.reshape(B, nc, H, P, N),
+            per_head(seg), per_head(tseg))
+
+
+def tangent_pass_ref(S, tS, seg, tseg, chunk: int):
+    """Pass 2.  From pass 1's outputs: (the states entering chunks 1 ..
+    nc-1 and their tangents (B,nc-1,H,P,N), the final state's tangent
+    (B,H,P,N)), float32: ``s'_in[c+1] = exp(seg_end_c) (seg'_end_c s_in[c]
+    + s'_in[c]) + S'_c`` beside :func:`state_pass_ref`'s recurrence."""
+    B, nc, H, P, N = S.shape
+    ends = seg.reshape(B, H, nc, chunk)[..., -1]
+    decay = torch.exp(ends)[..., None, None]                 # (B,H,nc,1,1)
+    tend = tseg.reshape(B, H, nc, chunk)[..., -1, None, None]
+    s = torch.zeros(B, H, P, N, dtype=torch.float32, device=S.device)
+    ts = torch.zeros_like(s)
+    entering, tentering = [], []
+    for c in range(nc):
+        if c:
+            entering.append(s)
+            tentering.append(ts)
+        ts = decay[:, :, c] * (tend[:, :, c] * s + ts) + tS[:, c]
+        s = decay[:, :, c] * s + S[:, c]
+    empty = S.new_zeros(B, 0, H, P, N)
+    return (torch.stack(entering, 1) if entering else empty,
+            torch.stack(tentering, 1) if tentering else empty, ts)
+
+
+def tangent_scan_ref(x, dt, seg, Bg, Cg, tx, tdt, tseg, tB, tC, s_in,
+                     ts_in, chunk: int) -> torch.Tensor:
+    """Pass 3.  y' (B,L,H,P) in x's dtype from pass 1's seg, seg' and pass
+    2's entering states and their tangents (float32): ``M1 x + M2 x' +
+    exp(seg_q) (seg'_q C s_inᵀ + C' s_inᵀ + C s'_inᵀ)`` with ``M2 = G E dt_k``,
+    ``M1 = E [(G' + G (seg'_q - seg'_k)) dt_k + G dt'_k]``, ``G = C·Bᵀ`` and
+    ``G' = C'·Bᵀ + C·B'ᵀ`` once per group, E the exponential of the masked
+    difference."""
+    B, L, H, P = x.shape
+    G, N = Bg.shape[2], Bg.shape[3]
+    nc, r = L // chunk, H // G
+    xs, txs = (t.float().reshape(B, nc, chunk, G, r, P) for t in (x, tx))
+    dts, tdts = (t.float().reshape(B, nc, chunk, G, r) for t in (dt, tdt))
+    sg, tsg = (t.reshape(B, G, r, nc, chunk).permute(0, 3, 4, 1, 2)
+               for t in (seg, tseg))
+    bs, cs, tbs, tcs = (t.float().reshape(B, nc, chunk, G, N)
+                        for t in (Bg, Cg, tB, tC))
+    gram = torch.einsum("bcqgn,bckgn->bcqkg", cs, bs)[..., None]
+    tgram = (torch.einsum("bcqgn,bckgn->bcqkg", tcs, bs)
+             + torch.einsum("bcqgn,bckgn->bcqkg", cs, tbs))[..., None]
+    causal = torch.ones(chunk, chunk, dtype=torch.bool,
+                        device=x.device).tril()[:, :, None, None]
+    E = torch.exp(torch.where(causal, sg[:, :, :, None] - sg[:, :, None, :],
+                              -torch.inf))                  # (B,nc,q,k,G,r)
+    tdiff = tsg[:, :, :, None] - tsg[:, :, None, :]
+    dk, tdk = dts[:, :, None], tdts[:, :, None]
+    M1 = E * ((tgram + gram * tdiff) * dk + gram * tdk)
+    M2 = E * gram * dk
+    y = (torch.einsum("bcqkgr,bckgrp->bcqgrp", M1, xs)
+         + torch.einsum("bcqkgr,bckgrp->bcqgrp", M2, txs))
+
+    def full(s):                    # the entering states of chunks 0 .. nc-1
+        return torch.cat([s.new_zeros(B, 1, H, P, N), s.float()], 1
+                         ).reshape(B, nc, G, r, P, N)
+
+    s_full, ts_full = full(s_in), full(ts_in)
+    y0 = torch.einsum("bcqgn,bcgrpn->bcqgrp", cs, s_full)
+    y1 = (torch.einsum("bcqgn,bcgrpn->bcqgrp", tcs, s_full)
+          + torch.einsum("bcqgn,bcgrpn->bcqgrp", cs, ts_full))
+    y = y + torch.exp(sg)[..., None] * (tsg[..., None] * y0 + y1)
+    return y.reshape(B, L, H, P).to(x.dtype)

@@ -391,8 +391,9 @@ def test_cuda_flash_attention_raises_instead_of_falling_back(cuda):
 
 # The model layout with KV heads not expanded, against the plain versions
 # in that layout: in bfloat16 the Hopper kernels (the last case has d = 36,
-# whose rows are read element by element instead of by TMA), in float32 the
-# CUDA-core kernels after the wrapper's expansion.
+# whose rows are read element by element instead of by TMA); in float32 the
+# CUDA-core forward after the wrapper's expansion and the 3xTF32 backward
+# on the unexpanded views (d = 36 element by element as well).
 GQA_CASES = [((2, 256, 12, 2, 128), True, None),
              ((1, 200, 4, 1, 64), False, 48),
              ((2, 40, 4, 2, 64), True, None),
@@ -464,6 +465,29 @@ def test_cuda_gqa_flash_attention_launches_only_its_kernels(cuda):
     assert "fwd_kernel" in _device_kernels(fwd)[0]
     names = _device_kernels(bwd)
     assert len(names) == 2, names
+    assert "dq_kernel" in " ".join(names) and "dkv_kernel" in " ".join(names)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_f32_flash_backward_launches_only_its_kernels(cuda):
+    """At lm-100m's attention shape (16, 256, 8 heads, 4 KV heads, 64) in
+    float32, a backward call runs the two 3xTF32 kernels on the card and
+    nothing else: no head expansion, copy, D or per-KV-head sum."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator().manual_seed(0)
+    q, do = (torch.randn(16, 256, 8, 64, generator=gen).to(cuda)
+             for _ in "qo")
+    k, v = (torch.randn(16, 256, 4, 64, generator=gen).to(cuda)
+            for _ in "kv")
+    out, lse = fops.gqa_flash_attention_fwd_lse(q, k, v)
+    fops.gqa_flash_attention_bwd(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as bwd:
+        grads = fops.gqa_flash_attention_bwd(q, k, v, out, lse, do)
+        torch.cuda.synchronize()
+    assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+    names = _device_kernels(bwd)
+    assert len(names) == 2 and all("tf32" in n for n in names), names
     assert "dq_kernel" in " ".join(names) and "dkv_kernel" in " ".join(names)
 
 
@@ -598,7 +622,8 @@ def test_cuda_ssd_passes_match_plain_versions(cuda, L, chunk, H, G, P, N):
     y = sops.ssd_chunk_scan(x, dt, seg, Bm, Cm, hi, lo, chunk=chunk)
     assert {k: sops.launch_counts[k] - before[k] for k in before} == {
         "ssd_scan": 0, "ssd_chunk_state": 1, "ssd_state_pass": 1,
-        "ssd_chunk_scan": 1, "ssd_scan_tangent": 0}
+        "ssd_chunk_scan": 1, "ssd_scan_tangent": 0, "ssd_tangent_state": 0,
+        "ssd_tangent_pass": 0, "ssd_tangent_scan": 0}
     Sr, segr = sref.chunk_state_ref(x, dt, A, Bm, chunk)
     torch.testing.assert_close(S, Sr, **SSD_F32_TOL)
     torch.testing.assert_close(seg, segr, **SSD_F32_TOL)
@@ -612,6 +637,51 @@ def test_cuda_ssd_passes_match_plain_versions(cuda, L, chunk, H, G, P, N):
     assert y.dtype == torch.bfloat16
     assert_flash_close(y, yr, dict(rtol=1.6e-2, atol=0.0))
     torch.cuda.synchronize()
+
+
+@pytest.mark.requires_cuda
+def test_cuda_tensor_map_kernels_launch_from_a_fresh_thread(cuda):
+    """The kernels fed by TMA tensor maps (bf16 flash forward and backward,
+    the bf16 SSD scan and T3) called from a thread that has made no CUDA
+    call, as autograd's device thread may be: the same results as on the
+    main thread (each kernel gives the same bits from run to run)."""
+    import threading
+    gen = torch.Generator().manual_seed(9)
+    q, do = (torch.randn(2, 128, 4, 64, generator=gen).to(
+        cuda, torch.bfloat16) for _ in "qo")
+    k, v = (torch.randn(2, 128, 2, 64, generator=gen).to(
+        cuda, torch.bfloat16) for _ in "kv")
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, 2, 256, 4, 16, 32, 2,
+                                   torch.bfloat16, cuda)
+    tx, tdt, tA, tB, tC = (torch.randn(t.shape, generator=gen).to(
+        cuda, t.dtype) for t in (x, dt, A, Bm, Cm))
+
+    def calls():
+        out, lse = fops.gqa_flash_attention_fwd_lse(q, k, v, causal=True)
+        grads = fops.gqa_flash_attention_bwd(q, k, v, out, lse, do,
+                                             causal=True)
+        scan = sops.ssd_scan_kernel(x, dt, A, Bm, Cm, chunk=64)
+        tangent = sops.ssd_scan_tangent(x, dt, A, Bm, Cm, tx, tdt, tA, tB,
+                                        tC, chunk=64)
+        torch.cuda.synchronize()
+        return (out, lse, *grads, *scan, *tangent)
+
+    want = calls()
+    got = {}
+
+    def run():
+        try:
+            got["results"] = calls()
+        except Exception as err:          # raised again on the main thread
+            got["error"] = err
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    if "error" in got:
+        raise got["error"]
+    for g, w in zip(got["results"], want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.requires_cuda
@@ -668,6 +738,8 @@ TANGENT_TOL = {torch.float32: (0.0, 1e-4), torch.bfloat16: (1.6e-2, 2.0 ** -8)}
 
 def assert_tangent_close(got, want):
     assert got.shape == want.shape and got.dtype == want.dtype
+    if not want.numel():                 # one chunk: no entering states
+        return
     rtol, rel = TANGENT_TOL[want.dtype]
     got, want = got.detach().float(), want.detach().float()
     limit = rtol * want.abs() + rel * want.abs().max()
@@ -756,13 +828,57 @@ def test_cuda_ssd_tangent_matches_plain_version(cuda, dtype, per_sequence_A,
         cuda, t.dtype) for t in (x, dt, A, Bm, Cm))
     if per_sequence_A:
         A, tA = torch.stack([A, 0.5 * A]), torch.stack([tA, -tA])
-    before = sops.launch_counts["ssd_scan_tangent"]
+    before = dict(sops.launch_counts)
     ty, ts = sops.ssd_scan_tangent(x, dt, A, Bm, Cm, tx, tdt, tA, tB, tC,
                                    chunk=chunk)
-    assert sops.launch_counts["ssd_scan_tangent"] == before + 1
+    passes = int(dtype == torch.bfloat16)      # T3's three bf16 kernels
+    assert {k: sops.launch_counts[k] - before[k] for k in (
+        "ssd_scan_tangent", "ssd_tangent_state", "ssd_tangent_pass",
+        "ssd_tangent_scan")} == {"ssd_scan_tangent": 1,
+                                 "ssd_tangent_state": passes,
+                                 "ssd_tangent_pass": passes,
+                                 "ssd_tangent_scan": passes}
     wy, ws = sref.ssd_scan_tangent_ref(x, dt, A, Bm, Cm, tx, tdt, tA, tB, tC)
     assert_tangent_close(ty, wy.to(dtype))
     assert_tangent_close(ts, ws)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("L,chunk,H,G,P,N", SSD_PASS_SHAPES,
+                         ids=SSD_PASS_IDS)
+def test_cuda_t3_passes_match_plain_versions(cuda, L, chunk, H, G, P, N):
+    """Each of T3's bfloat16 kernels against its plain version on the same
+    inputs (the kernel's own outputs of the pass before), A per sequence,
+    each counting its launch: the tangent chunk states and state passing
+    (float32) and the tangent chunk outputs (bf16) within TANGENT_TOL."""
+    gen = torch.Generator().manual_seed(L + chunk + 2)
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, 2, L, H, P, N, G, torch.bfloat16,
+                                   cuda)
+    A = torch.stack([A, 0.5 * A])
+    tx, tdt, tA, tB, tC = (torch.randn(t.shape, generator=gen).to(
+        cuda, t.dtype) for t in (x, dt, A, Bm, Cm))
+    before = dict(sops.launch_counts)
+    S, tS, seg, tseg = sops.ssd_tangent_state(x, dt, A, Bm, tx, tdt, tA, tB,
+                                              chunk=chunk)
+    hi, lo, thi, tlo, tstate = sops.ssd_tangent_pass(S, tS, seg, tseg,
+                                                     chunk=chunk)
+    ty = sops.ssd_tangent_scan(x, dt, seg, Bm, Cm, tx, tdt, tseg, tB, tC, hi,
+                               lo, thi, tlo, chunk=chunk)
+    assert {k: sops.launch_counts[k] - before[k] for k in before} == {
+        "ssd_scan": 0, "ssd_chunk_state": 0, "ssd_state_pass": 0,
+        "ssd_chunk_scan": 0, "ssd_scan_tangent": 0, "ssd_tangent_state": 1,
+        "ssd_tangent_pass": 1, "ssd_tangent_scan": 1}
+    for got, want in zip((S, tS, seg, tseg), sref.tangent_state_ref(
+            x, dt, A, Bm, tx, tdt, tA, tB, chunk)):
+        assert_tangent_close(got, want)
+    s_in, ts_in, ts_want = sref.tangent_pass_ref(S, tS, seg, tseg, chunk)
+    assert_tangent_close(hi.float() + lo.float(), s_in)
+    assert_tangent_close(thi.float() + tlo.float(), ts_in)
+    assert_tangent_close(tstate, ts_want)
+    assert_tangent_close(ty, sref.tangent_scan_ref(
+        x, dt, seg, Bm, Cm, tx, tdt, tseg, tB, tC, hi.float() + lo.float(),
+        thi.float() + tlo.float(), chunk))
     torch.cuda.synchronize()
 
 
@@ -781,6 +897,31 @@ def test_cuda_ssd_tangent_stays_finite_where_seg_falls_past_88(cuda):
     assert torch.isfinite(ty).all() and torch.isfinite(ts).all()
     wy, ws = sref.ssd_scan_tangent_ref(x, dt, A, Bm, Cm, tx, tdt, tA, tB, tC)
     assert_tangent_close(ty, wy)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_t3_passes_stay_finite_where_seg_falls_past_88(cuda):
+    """The bfloat16 route (T3's three passes) with dt at 4 over two chunks
+    of 256 steps and two groups: seg falls by hundreds within each chunk,
+    so a masked pair's difference is far past 88; y' and S' stay finite
+    and within TANGENT_TOL of the plain version."""
+    gen = torch.Generator().manual_seed(3)
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, 1, 512, 4, 16, 32, 2,
+                                   torch.bfloat16, cuda)
+    dt = dt * 0 + 4.0
+    tx, tdt, tA, tB, tC = (torch.randn(t.shape, generator=gen).to(
+        cuda, t.dtype) for t in (x, dt, A, Bm, Cm))
+    before = dict(sops.launch_counts)
+    ty, ts = sops.ssd_scan_tangent(x, dt, A, Bm, Cm, tx, tdt, tA, tB, tC,
+                                   chunk=256)
+    keys = ("ssd_scan_tangent", "ssd_tangent_state", "ssd_tangent_pass",
+            "ssd_tangent_scan")
+    assert {k: sops.launch_counts[k] - before[k] for k in keys} == {
+        k: 1 for k in keys}
+    assert torch.isfinite(ty).all() and torch.isfinite(ts).all()
+    wy, ws = sref.ssd_scan_tangent_ref(x, dt, A, Bm, Cm, tx, tdt, tA, tB, tC)
+    assert_tangent_close(ty, wy.to(torch.bfloat16))
+    assert_tangent_close(ts, ws)
 
 
 def _hvp_through(loss, params, batch, v):
