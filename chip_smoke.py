@@ -14,14 +14,16 @@ Phases, each fatal on failure:
                 bf16 flash forward, dQ and dK/dV kernels, the SSD
                 chunk-state and chunk-output kernels and T3's tangent
                 chunk-state and chunk-output kernels, HMMA (mma.sync on
-                TF32) in the float32 flash dQ and dK/dV kernels; each must
-                have some.  Then one call of ``gqa_flash_attention`` at the
-                serving shape must run one kernel forward and two backward,
-                one float32 backward at lm-100m's shape its two kernels, one
-                bf16 SSD scan call the SSD's three kernels and one bf16
-                ``ssd_scan_tangent`` call T3's three, and nothing else
-                (torch.profiler, before any other profiling: sessions after
-                phase 5's miss kernels).
+                TF32) in the float32 flash forward, dQ and dK/dV kernels and
+                T2's two float32 kernels; each must have some.  Then one
+                call of ``gqa_flash_attention`` at the serving shape must
+                run one kernel forward and two backward, at lm-100m's shape
+                one float32 forward its one kernel, one float32 backward its
+                two and one float32 T2 its two, one bf16 SSD scan call the
+                SSD's three kernels and one bf16 ``ssd_scan_tangent`` call
+                T3's three, and nothing else: no head expansion, copy or
+                elementwise kernel beside them (torch.profiler, before any
+                other profiling: sessions after phase 5's miss kernels).
 3. kernels   -- holds ``dif_combine`` and ``fused_combine_update`` against
                 their plain PyTorch versions on the card: over the leaves
                 the training step gives them (the sine MLP's 6 leaves, K=6,
@@ -61,9 +63,13 @@ Phases, each fatal on failure:
                 in the model's layout with qwen2's 2 KV heads not expanded
                 (``gqa_flash_attention``, what the serving path calls), B=2
                 at S in {128, 1024} in both dtypes, the serving shape, and
-                the serving shape in float32 (the 3xTF32 backward; its
-                second bound, three TF32 products at 495 TFLOP/s, printed
-                beside the float32 rate's).  Each check
+                the serving shape in float32 (the 3xTF32 forward and
+                backward; their second bound, three TF32 products at 495
+                TFLOP/s, printed beside the float32 rate's), and float32
+                rows that reach the kernels' other cases untimed: d = 30
+                and 32 (element by element where d % 4 != 0), ragged S,
+                GQA ratios 1, 2 and 6, and views whose rows are not
+                16-byte aligned.  Each check
                 prints its errors, the kernels' times, the plain versions',
                 SDPA's (the library yardstick, never called by the port;
                 ``enable_gqa`` in the model's layout, its backward timed by
@@ -144,7 +150,9 @@ Phases, each fatal on failure:
                 launches) over phase 6's sweep (B=2, H=4, S in {128, 256,
                 1024} x d in {64, 128} x three masks x two dtypes) and the
                 qwen2 model layout at the training shape (B=16, S=256,
-                H=12, KV=2, d=128, causal); T3 (the SSD scan's tangent)
+                H=12, KV=2, d=128, causal), and float32 rows as phase 6's
+                (d = 30 and 32, ragged S, GQA ratios 1, 2 and 6, unaligned
+                views); T3 (the SSD scan's tangent)
                 over phase 9's grid, a ragged row with two groups and A per
                 sequence, the mamba2 training shape (8 sequences of 512, A
                 per sequence) and the serving shape, with planted faults
@@ -210,9 +218,12 @@ Phases, each fatal on failure:
                 the eval report; the float32 flash kernels and T1/T2 at the
                 path's attention shape (B=16, S=256, H=8, KV=4, d=64)
                 against their plain versions, timed beside their bounds
-                (the float32 backward beside SDPA's, both its bounds and
-                the CUDA-core kernels it replaced, with planted faults and
-                cold-L2 times).
+                (the float32 forward and backward beside SDPA's, their
+                three bounds and the CUDA-core kernels they replaced, with
+                planted faults and cold-L2 times; T2 beside its three
+                bounds and the CUDA-core kernels it replaced, with planted
+                faults); the profiled meta-step's forward, T1+T2 and
+                backward device times.
 18. adapt-then-serve -- ``launch.serve_adapted.main`` with the reference
                 example's reduced arguments (reduced qwen2-1.5b trained 2
                 steps into a checkpoint under ``build/``, its centroid
@@ -303,6 +314,10 @@ SSD_SIMT_MS = 2.284
 # mamba2 training shape in bf16; printed beside this run's times.
 FLASH_F32_BWD_SIMT_MS = 0.404
 T3_SIMT_MS = 2.252
+# The same for the float32 flash forward (heads expanded by the wrapper)
+# and T2 in float32, both at lm-100m's attention shape (PERF.md, section 6).
+FLASH_F32_FWD_SIMT_MS = 0.154
+T2_F32_SIMT_MS = 0.859
 # Flash attention against attention_ref and its autograd gradient, and the
 # backward also against its plain version.  float32: the same products
 # summed in another order (a blocked online softmax).  bfloat16: both round
@@ -326,6 +341,14 @@ FLASH_MAIN = dict(B=16, H=12, S=256, d=128, dtype=torch.bfloat16,
 FLASH_GQA_MAIN = dict(B=16, S=256, H=12, KV=2, d=128, dtype=torch.bfloat16,
                       causal=True, window=None)
 FLUSH_BYTES = 64 << 20           # written between launches for a cold L2
+# float32 rows of phases 6 and 12 beyond their sweeps, in the model's layout
+# (B, S, H, KV, d, causal, window, unaligned): d = 32; ragged S with GQA
+# ratios 1, 2 and 6; d = 30 (element by element); rows not 16-byte aligned.
+F32_EXTRA = [(2, 200, 4, 4, 32, True, None, False),
+             (2, 130, 8, 4, 64, True, 48, False),
+             (1, 300, 12, 2, 128, False, None, False),
+             (2, 100, 6, 1, 30, True, None, False),
+             (1, 160, 4, 2, 64, True, None, True)]
 # qwen2-1.5b serves at full width cut to 8 of its 28 layers, to keep the
 # script well inside its time limit (PERF.md §4: on an H100 the whole
 # script took 886 s with 28 layers, 784 s with 8).
@@ -914,14 +937,16 @@ def flash_cost(B, H, S, d, itemsize, pairs_per_head, backward, KV=None):
     return 2 * tile + 2 * kv_tile + rows, 4.0 * d * pairs_per_head * B * H
 
 
-def tf32_bound(row, cost) -> None:
-    """A float32 row's second backward bound, this design's: its products
-    as three TF32 products at the TF32 tensor rate, or its bytes, whichever
-    is larger (``bwd_bound_ms`` stays the float32 rate's)."""
+def tf32_bound(row, phase, cost) -> None:
+    """A float32 row's second bound of ``phase`` ("fwd" or "bwd"), this
+    design's: its products as three TF32 products at the TF32 tensor rate,
+    or its bytes, whichever is larger (``{phase}_bound_ms`` stays the
+    float32 rate's); and its bytes alone over the memory rate."""
     if row["dtype"] == "float32":
         nbytes, flops = cost
-        row["bwd_tf32_bound_ms"], row["bwd_tf32_bound_by"] = bound_ms(
-            nbytes, 3 * flops, TF32_FLOP_PER_S)
+        row[f"{phase}_tf32_bound_ms"], row[f"{phase}_tf32_bound_by"] = \
+            bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S)
+        row[f"{phase}_bytes_bound_ms"] = 1e3 * nbytes / HBM_BYTES_PER_S
 
 
 def library_attention(q, k, v, causal, window, fref, gqa=False):
@@ -974,10 +999,24 @@ def stored_output_slack(fref, q, k, out, lse, do, causal, window):
     return slack_dq, slack_dk, 0.0
 
 
+def randn_view(gen, shape, dtype, unaligned=False):
+    """A random tensor of ``shape`` on the card; ``unaligned``: a view of
+    the first d columns of one with d + 1, whose rows are not 16-byte
+    aligned (the kernels then read it element by element)."""
+    if not unaligned:
+        return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+    wide = torch.randn(*shape[:-1], shape[-1] + 1, generator=gen,
+                       device=DEVICE).to(dtype)
+    return wide[..., :shape[-1]]
+
+
 def check_flash(fops, fref, gen, B, H, S, d, dtype, causal, window,
-                n=10, faults=False):
-    q, k, v, do = (torch.randn(B, H, S, d, generator=gen, device=DEVICE
-                               ).to(dtype) for _ in range(4))
+                n=10, faults=False, timed=True, unaligned=False):
+    """The heads-first (B, H, S, d) kernels against ``attention_ref``, its
+    autograd gradient and the plain backward; ``timed``: also the kernels',
+    plain versions' and SDPA's times and the bounds."""
+    q, k, v, do = (randn_view(gen, (B, H, S, d), dtype, unaligned)
+                   for _ in range(4))
     kw = dict(causal=causal, window=window)
     out, lse4 = fops.flash_attention_fwd_lse(q, k, v, **kw)
     lse = lse4[..., 0]
@@ -988,7 +1027,7 @@ def check_flash(fops, fref, gen, B, H, S, d, dtype, causal, window,
     _, want_lse = fref.flash_fwd_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     what = (f"flash B={B} H={H} S={S} d={d} {str(dtype)[6:]} causal={causal}"
-            f" window={window}")
+            f" window={window}" + (" unaligned" if unaligned else ""))
     tol = FLASH_TOL[dtype]
     fwd_err = max(compare(out, want, dtype, what + " out", tol["fwd"],
                           row_atol(want)),
@@ -1008,9 +1047,12 @@ def check_flash(fops, fref, gen, B, H, S, d, dtype, causal, window,
     pairs = int(fref.band_mask(S, S, causal, window, q.device).sum())
     peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
     row = dict(B=B, H=H, S=S, d=d, dtype=str(dtype)[6:], causal=causal,
-               window=window, fwd_max_abs_err=fwd_err,
+               window=window, unaligned=unaligned, fwd_max_abs_err=fwd_err,
                bwd_max_abs_err=bwd_err, bwd_vs_plain_max_abs_err=bwd_plain_err,
                tol=tol)
+    if not timed:
+        print("flash check", json.dumps(row), flush=True)
+        return row
     lib = library_attention(q, k, v, causal, window, fref)
     row["fwd_ms"] = time_ms(lambda: fops.flash_attention_fwd_lse(q, k, v,
                                                                  **kw), n)
@@ -1032,7 +1074,9 @@ def check_flash(fops, fref, gen, B, H, S, d, dtype, causal, window,
         row[f"{phase}_bound_ms"], row[f"{phase}_bound_by"] = bound_ms(
             *flash_cost(B, H, S, d, q.element_size(), pairs,
                         phase == "bwd"), peak)
-    tf32_bound(row, flash_cost(B, H, S, d, q.element_size(), pairs, True))
+    for phase in ("fwd", "bwd"):
+        tf32_bound(row, phase, flash_cost(B, H, S, d, q.element_size(), pairs,
+                                          phase == "bwd"))
     print("flash check", json.dumps(row), flush=True)
     if faults:
         planted_faults(fref, q, k, v, out, lse, do, (dq, dk, dv),
@@ -1087,6 +1131,12 @@ def zero_rows(x, lo, hi):
     return x
 
 
+def zero_seq(x, heads_dim, lo, hi):
+    """``x`` with sequence rows [lo, hi) zeroed, in either layout."""
+    return zero_rows(x, lo, hi) if heads_dim == 1 else \
+        zero_rows(x.transpose(1, 2), lo, hi).transpose(1, 2)
+
+
 def device_kernels(fn) -> list[str]:
     """Names of the kernels (and copies) that one ``fn()`` runs on the
     card, from torch.profiler."""
@@ -1129,9 +1179,10 @@ def time_cold_ms(fn, n: int, flush: torch.Tensor) -> float:
 
 def flash_calls_phase(fops) -> dict:
     """The kernels that one call of ``gqa_flash_attention`` runs on the
-    card at the serving shape, forward and backward, from torch.profiler;
-    fails unless the forward runs its one kernel and the backward its two,
-    with no copy, expansion or reduction beside them.  Run before the
+    card at the serving shape, forward and backward, and one float32
+    forward, backward and T2 call at lm-100m's shape, from torch.profiler;
+    fails unless each forward runs its one kernel and each backward and T2
+    its two, with no copy, expansion or reduction beside them.  Run before the
     training step's profile (phase 5): torch.profiler sessions after that
     one record none of these kernels."""
     g = FLASH_GQA_MAIN
@@ -1155,27 +1206,44 @@ def flash_calls_phase(fops) -> dict:
                              device=DEVICE) for _ in "qo")
     k32, v32 = (torch.randn(f["B"], f["S"], f["KV"], f["d"], generator=gen,
                             device=DEVICE) for _ in "kv")
-    out32, lse32 = fops.gqa_flash_attention_fwd_lse(q32, k32, v32)
+    fwd32 = lambda: fops.gqa_flash_attention_fwd_lse(q32, k32, v32)
+    out32, lse32 = fwd32()
     bwd32 = lambda: fops.gqa_flash_attention_bwd(q32, k32, v32, out32,
                                                  lse32, do32)
     bwd32()
+    # T2 in float32: its two kernels (no D, copy or per-KV-head sum beside)
+    tq, tdo = (torch.randn_like(q32) for _ in "qo")
+    tk, tv = (torch.randn_like(k32) for _ in "kv")
+    to, tlse = fops.flash_attention_fwd_tangent(q32, k32, v32, lse32, tq, tk,
+                                                tv, heads_dim=2)
+    t2 = lambda: fops.flash_attention_bwd_tangent(
+        q32, k32, v32, out32, lse32, do32, tq, tk, tv, to, tlse, tdo,
+        heads_dim=2)
+    t2()
+    row["fwd_float32"] = device_kernels(fwd32)
     row["bwd_float32"] = device_kernels(bwd32)
+    row["bwd_tangent_float32"] = device_kernels(t2)
     print("flash kernels per call", json.dumps(row), flush=True)
     if len(row["fwd"]) != 1 or len(row["bwd"]) != 2:
         raise AssertionError(
             f"a gqa_flash_attention forward call ran {row['fwd']} and its "
             f"backward {row['bwd']} on the card; expected the forward "
             f"kernel alone and the two backward kernels")
-    names = row["bwd_float32"]
-    if len(names) != 2 or not all("tf32" in n for n in names):
-        raise AssertionError(
-            f"a float32 gqa_flash_attention_bwd call ran {names} on the "
-            f"card; expected the two tf32 kernels and nothing else")
+    for key, call, n, part in (
+            ("fwd_float32", "gqa_flash_attention_fwd_lse", 1, "fwd_kernel"),
+            ("bwd_float32", "gqa_flash_attention_bwd", 2, "d"),
+            ("bwd_tangent_float32", "flash_attention_bwd_tangent", 2,
+             "tangent_d")):
+        names = row[key]
+        if len(names) != n or not all("tf32::" + part in x for x in names):
+            raise AssertionError(
+                f"a float32 {call} call ran {names} on the card; expected "
+                f"its {n} tf32 kernel(s) and nothing else")
     return row
 
 
 def check_gqa_flash(fops, fref, gen, B, S, H, KV, d, dtype, causal, window,
-                    n=10, serving=False):
+                    n=10, serving=False, timed=True, unaligned=False):
     """The model layout, K/V with their KV heads (what the serving path
     calls): the kernels against ``attention_ref`` on K/V expanded to H
     heads and its autograd gradient (which sums each KV head's gradient
@@ -1186,12 +1254,12 @@ def check_gqa_flash(fops, fref, gen, B, S, H, KV, d, dtype, causal, window,
     sum, as the kernel (float32 sums, one rounding) does not.
     Bounds count the unexpanded K/V; the yardstick is SDPA with
     ``enable_gqa`` on the (B, H, S, d) views.  ``serving``: also the
-    planted faults and the times with a cold L2."""
+    planted faults and the times with a cold L2.  ``timed=False``: the
+    checks alone; ``unaligned``: views whose rows are not 16-byte
+    aligned."""
     dev = torch.device(DEVICE)
-    q, do = (torch.randn(B, S, H, d, generator=gen, device=dev).to(dtype)
-             for _ in "qo")
-    k, v = (torch.randn(B, S, KV, d, generator=gen, device=dev).to(dtype)
-            for _ in "kv")
+    q, do = (randn_view(gen, (B, S, H, d), dtype, unaligned) for _ in "qo")
+    k, v = (randn_view(gen, (B, S, KV, d), dtype, unaligned) for _ in "kv")
     kw = dict(causal=causal, window=window)
     out, lse = fops.gqa_flash_attention_fwd_lse(q, k, v, **kw)
     dq, dk, dv = fops.gqa_flash_attention_bwd(q, k, v, out, lse, do, **kw)
@@ -1209,7 +1277,8 @@ def check_gqa_flash(fops, fref, gen, B, S, H, KV, d, dtype, causal, window,
     _, want_lse = fref.gqa_flash_fwd_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     what = (f"gqa flash B={B} S={S} H={H} KV={KV} d={d} {str(dtype)[6:]} "
-            f"causal={causal} window={window}")
+            f"causal={causal} window={window}"
+            + (" unaligned" if unaligned else ""))
     tol = FLASH_TOL[dtype]
     fwd_err = max(compare(out, want, dtype, what + " out", tol["fwd"],
                           row_atol(want)),
@@ -1233,9 +1302,12 @@ def check_gqa_flash(fops, fref, gen, B, S, H, KV, d, dtype, causal, window,
     pairs = int(fref.band_mask(S, S, causal, window, dev).sum())
     peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
     row = dict(B=B, S=S, H=H, KV=KV, d=d, dtype=str(dtype)[6:],
-               causal=causal, window=window, fwd_max_abs_err=fwd_err,
-               bwd_max_abs_err=bwd_err, bwd_vs_plain_max_abs_err=bwd_plain_err,
-               tol=tol)
+               causal=causal, window=window, unaligned=unaligned,
+               fwd_max_abs_err=fwd_err, bwd_max_abs_err=bwd_err,
+               bwd_vs_plain_max_abs_err=bwd_plain_err, tol=tol)
+    if not timed:
+        print("gqa flash check", json.dumps(row), flush=True)
+        return row
     lib = library_attention(heads(q), heads(k), heads(v), causal, window,
                             fref, gqa=True)
     fwd = lambda: fops.gqa_flash_attention_fwd_lse(q, k, v, **kw)
@@ -1260,8 +1332,9 @@ def check_gqa_flash(fops, fref, gen, B, S, H, KV, d, dtype, causal, window,
         row[f"{phase}_bound_ms"], row[f"{phase}_bound_by"] = bound_ms(
             *flash_cost(B, H, S, d, q.element_size(), pairs,
                         phase == "bwd", KV=KV), peak)
-    tf32_bound(row, flash_cost(B, H, S, d, q.element_size(), pairs, True,
-                               KV=KV))
+    for phase in ("fwd", "bwd"):
+        tf32_bound(row, phase, flash_cost(B, H, S, d, q.element_size(), pairs,
+                                          phase == "bwd", KV=KV))
     if serving:
         flush = torch.empty(FLUSH_BYTES // 4, device=dev)
         row["fwd_cold_ms"] = time_cold_ms(fwd, n, flush)
@@ -1305,21 +1378,36 @@ def flash_phase(fops, fref):
     gqa["float32"] = check_gqa_flash(fops, fref, gen, g["B"], g["S"],
                                      g["H"], g["KV"], g["d"], torch.float32,
                                      g["causal"], g["window"], n=10)
-    print_f32_bwd("qwen2-1.5b f32", gqa["float32"])
+    print_f32("qwen2-1.5b f32", gqa["float32"])
+    # the float32 kernels' other cases, untimed: d = 32 and 30 (d % 4 != 0:
+    # element by element), S not a multiple of 64, GQA ratios 1, 2 and 6,
+    # and views whose rows are not 16-byte aligned
+    rows += [check_flash(fops, fref, gen, 2, 4, 200, 32, torch.float32,
+                         True, None, timed=False),
+             check_flash(fops, fref, gen, 1, 2, 200, 64, torch.float32,
+                         False, 48, timed=False, unaligned=True)]
+    gqa_rows += [check_gqa_flash(fops, fref, gen, B, S, H, KV, d,
+                                 torch.float32, causal, window, timed=False,
+                                 unaligned=un)
+                 for B, S, H, KV, d, causal, window, un in F32_EXTRA]
     torch.cuda.empty_cache()
     return main, rows, gqa, gqa_rows
 
 
-def print_f32_bwd(what, row) -> None:
-    """One line: the float32 backward's time beside SDPA's, both bounds and
-    the CUDA-core kernel it replaced."""
-    print(f"{what} flash backward (3xTF32): {row['bwd_ms']:.4f} ms for both "
-          f"launches; SDPA's backward {row['bwd_library_ms']:.4f} ms; bounds "
-          f"{row['bwd_bound_ms']:.4f} ms (float32 rate, "
-          f"{row['bwd_bound_by']}) and {row['bwd_tf32_bound_ms']:.4f} ms "
-          f"(three TF32 products, {row['bwd_tf32_bound_by']}); the "
-          f"CUDA-core kernels it replaced {FLASH_F32_BWD_SIMT_MS} ms at "
-          f"lm-100m's shape (PERF.md)", flush=True)
+def print_f32(what, row) -> None:
+    """Two lines: the float32 forward's and backward's times beside SDPA's,
+    their three bounds and the CUDA-core kernels they replaced."""
+    for p, name, launches, simt in (
+            ("fwd", "forward", "its one launch", FLASH_F32_FWD_SIMT_MS),
+            ("bwd", "backward", "both launches", FLASH_F32_BWD_SIMT_MS)):
+        print(f"{what} flash {name} (3xTF32): {row[f'{p}_ms']:.4f} ms for "
+              f"{launches}; SDPA's {name} {row[f'{p}_library_ms']:.4f} ms; "
+              f"bounds {row[f'{p}_bound_ms']:.4f} ms (float32 rate, "
+              f"{row[f'{p}_bound_by']}), {row[f'{p}_tf32_bound_ms']:.4f} ms "
+              f"(three TF32 products, {row[f'{p}_tf32_bound_by']}) and "
+              f"{row[f'{p}_bytes_bound_ms']:.4f} ms (bytes); the CUDA-core "
+              f"kernels it replaced {simt} ms at lm-100m's shape (PERF.md)",
+              flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2149,10 +2237,14 @@ def flash_tangent_cost(B, H, KV, S, d, itemsize, pairs, backward
 
 
 def check_flash_tangents(fops, fref, gen, heads_dim, shape, dtype, causal,
-                         window, timed=False) -> dict:
+                         window, timed=False, unaligned=False,
+                         faults=False) -> dict:
     """T1 and T2 at one shape against their plain versions (one and two
     launches); with ``timed``, the kernels' and plain versions' times and
-    the bounds."""
+    the bounds (float32: also T2's products as three TF32 products, and
+    its bytes alone); ``unaligned``: views whose rows are not 16-byte
+    aligned; ``faults``: planted faults in T2's results, and T2 run without
+    lse', must fail the check."""
     from repro_torch.kernels.flash_attention.ref import band_mask
     if heads_dim == 1:
         B, H, S, d = shape
@@ -2161,14 +2253,15 @@ def check_flash_tangents(fops, fref, gen, heads_dim, shape, dtype, causal,
     else:
         B, S, H, KV, d = shape
         qs, ks = (B, S, H, d), (B, S, KV, d)
-    mk = lambda s: torch.randn(s, generator=gen, device=DEVICE).to(dtype)
+    mk = lambda s: randn_view(gen, s, dtype, unaligned)
     q, tq, do, tdo = (mk(qs) for _ in range(4))
     k, v, tk, tv = (mk(ks) for _ in range(4))
     fwd = fref.flash_fwd_ref if heads_dim == 1 else fref.gqa_flash_fwd_ref
     out, lse = fwd(q, k, v, causal=causal, window=window)
     kw = dict(causal=causal, window=window, heads_dim=heads_dim)
     what = (f"tangent {'bhsd' if heads_dim == 1 else 'gqa'} {shape} "
-            f"{str(dtype)[6:]} causal={causal} window={window}")
+            f"{str(dtype)[6:]} causal={causal} window={window}"
+            + (" unaligned" if unaligned else ""))
     t1 = lambda: fops.flash_attention_fwd_tangent(q, k, v, lse, tq, tk, tv,
                                                   **kw)
     (to, tlse), n1 = counted(fops, "flash_attention_fwd_tangent", t1)
@@ -2188,7 +2281,25 @@ def check_flash_tangents(fops, fref, gen, heads_dim, shape, dtype, causal,
                              f"and 2")
     row = dict(layout="bhsd" if heads_dim == 1 else "gqa", shape=list(shape),
                dtype=str(dtype)[6:], causal=causal, window=window,
-               fwd_max_abs_err=e1, bwd_max_abs_err=e2)
+               unaligned=unaligned, fwd_max_abs_err=e1, bwd_max_abs_err=e2)
+    if faults:
+        # rows of each result zeroed, and lse' left out (T2 given zeros)
+        dq, dk, dv = grads
+        planted = {"dq' rows 0:64 zero": (0, zero_seq(dq, heads_dim, 0, 64)),
+                   "dk' rows 64:128 zero": (1, zero_seq(dk, heads_dim, 64,
+                                                        128)),
+                   "dv' rows 128:192 zero": (2, zero_seq(dv, heads_dim, 128,
+                                                         192))}
+        lse_out = fops.flash_attention_bwd_tangent(
+            q, k, v, out, lse, do, tq, tk, tv, want_to,
+            torch.zeros_like(want_tlse), tdo, **kw)
+        planted.update({f"{n}' without lse'": (i, g) for i, (g, n) in
+                        enumerate(zip(lse_out, ("dq", "dk", "dv")))})
+        for name, (i, bad) in planted.items():
+            if tangent_outside(bad, wants[i])[0] == 0:
+                raise AssertionError(f"{what}: planted fault '{name}' passed "
+                                     f"the check")
+        row["planted_faults_caught"] = list(planted)
     if timed:
         pairs = int(band_mask(S, S, causal, window).sum())
         rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else \
@@ -2206,6 +2317,8 @@ def check_flash_tangents(fops, fref, gen, heads_dim, shape, dtype, causal,
             row[f"{p}_plain_ms"] = time_events(plain, 3)
             row[f"{p}_bound_ms"], row[f"{p}_bound_by"] = bound_ms(
                 nbytes, flops, rate)
+            if dtype == torch.float32 and p == "bwd":
+                tf32_bound(row, p, (nbytes, flops))
         print(f"{what}: T1 {row['fwd_ms']:.4f} ms (plain "
               f"{row['fwd_plain_ms']:.3f}, bound {row['fwd_bound_ms']:.4f} "
               f"{row['fwd_bound_by']}), T2 {row['bwd_ms']:.4f} ms (plain "
@@ -2398,8 +2511,9 @@ def check_ssd_tangent(sops, sref, gen, B, L, H, P, N, G, chunk, dtype,
 
 
 def tangent_phase(fops, fref, sops, sref) -> dict:
-    """T1 and T2 over the flash sweep's shapes and masks (B=2, H=4) and the
-    qwen2 model layout at the training shape; T3 over the SSD grid, a
+    """T1 and T2 over the flash sweep's shapes and masks (B=2, H=4), the
+    float32 rows of F32_EXTRA and the qwen2 model layout at the training
+    shape; T3 over the SSD grid, a
     ragged row with two groups, A per sequence, and the mamba2 training
     and serving shapes (with planted faults); bfloat16 and float32."""
     gen = torch.Generator(device=DEVICE).manual_seed(5)
@@ -2411,6 +2525,14 @@ def tangent_phase(fops, fref, sops, sref) -> dict:
                     rows.append(check_flash_tangents(
                         fops, fref, gen, 1, (2, 4, S, d), dtype, causal,
                         window))
+    # T2's float32 kernels' other cases (T1 beside them): d = 32 and 30,
+    # ragged S, GQA ratios 1, 2 and 6, rows not 16-byte aligned
+    rows.append(check_flash_tangents(fops, fref, gen, 1, (2, 4, 200, 32),
+                                     torch.float32, True, None))
+    rows += [check_flash_tangents(fops, fref, gen, 2, (B, S, H, KV, d),
+                                  torch.float32, causal, window,
+                                  unaligned=un)
+             for B, S, H, KV, d, causal, window, un in F32_EXTRA]
     g = FLASH_GQA_MAIN
     gqa = {str(dtype)[6:]: check_flash_tangents(
         fops, fref, gen, 2, (g["B"], g["S"], g["H"], g["KV"], g["d"]),
@@ -3104,10 +3226,25 @@ def lm100m_phase(fops, fref, modules) -> dict:
     flash = check_gqa_flash(fops, fref, gen, g["B"], g["S"], g["H"],
                             g["KV"], g["d"], g["dtype"], True, None, n=10,
                             serving=True)
-    print_f32_bwd("lm-100m f32", flash)
+    print_f32("lm-100m f32", flash)
     tangent = check_flash_tangents(fops, fref, gen, 2,
                                    (g["B"], g["S"], g["H"], g["KV"], g["d"]),
-                                   g["dtype"], True, None, timed=True)
+                                   g["dtype"], True, None, timed=True,
+                                   faults=True)
+    print(f"lm-100m f32 T2 (3xTF32): {tangent['bwd_ms']:.4f} ms for both "
+          f"launches; bounds {tangent['bwd_bound_ms']:.4f} ms (float32 "
+          f"rate, {tangent['bwd_bound_by']}), "
+          f"{tangent['bwd_tf32_bound_ms']:.4f} ms (three TF32 products, "
+          f"{tangent['bwd_tf32_bound_by']}) and "
+          f"{tangent['bwd_bytes_bound_ms']:.4f} ms (bytes); the CUDA-core "
+          f"kernels it replaced {T2_F32_SIMT_MS} ms (PERF.md); T1 "
+          f"{tangent['fwd_ms']:.4f} ms", flush=True)
+    split = profile.get("split_ms", {})
+    print(f"lm-100m profiled meta-step, device ms: forward "
+          f"{split.get('forward')}, T1+T2 {split.get('tangent')}, flash "
+          f"backward {split.get('flash_backward')}, of "
+          f"{profile.get('device_ms')} in {profile['wall_s']:.3f} s",
+          flush=True)
     torch.cuda.empty_cache()
     row = dict(seconds=seconds, steps=len(loss), s_per_step=s_per_step,
                losses=loss.tolist(),
@@ -3184,7 +3321,7 @@ def paths_summary(kernels: list, fewshot: dict, lm100m: dict) -> None:
     q32 = bwd.pop("qwen2_float32")
     bwd["qwen2_float32"] = {
         key: q32[f"bwd_{key}"] for key in keys + (
-            "library_ms", "tf32_bound_ms", "tf32_bound_by")}
+            "library_ms", "tf32_bound_ms", "tf32_bound_by", "bytes_bound_ms")}
     for name, row, p in (
             ("flash_attention_fwd", lm100m["flash"], "fwd"),
             ("flash_attention_bwd", lm100m["flash"], "bwd"),
@@ -3193,16 +3330,30 @@ def paths_summary(kernels: list, fewshot: dict, lm100m: dict) -> None:
         by_name[name]["lm100m"] = dict(
             {key: row[f"{p}_{key}"] for key in keys},
             library_ms=row.get(f"{p}_library_ms"), shape=shape,
-            **({"tf32_bound_ms": row["bwd_tf32_bound_ms"],
-                "tf32_bound_by": row["bwd_tf32_bound_by"]}
-               if name == "flash_attention_bwd" else {}),
+            **{key: row[f"{p}_{key}"] for key in (
+                "tf32_bound_ms", "tf32_bound_by", "bytes_bound_ms")
+               if f"{p}_{key}" in row},
             launches_in_run=lm100m["launches"][name],
             run="launch.decentralized_lm, 4 steps")
 
 # The tensor-core instruction each Hopper namespace's kernels compile to:
 # wgmma (HGMMA) in the bf16 kernels (hop) and T3's bf16 passes (t3),
-# mma.sync on TF32 (HMMA) in the float32 flash backward (tf32).
+# mma.sync on TF32 (HMMA) in the float32 flash forward, backward and T2
+# (tf32).
 TENSOR_OPS = {"hop": "HGMMA", "t3": "HGMMA", "tf32": "HMMA"}
+
+
+def kernel_symbol(text: str) -> str | None:
+    """"namespace::kernel<template args>" of the first mangled kernel symbol
+    of namespace hop, tf32, t3 or jvpk in ``text``; None for none."""
+    for k in re.finditer(r"(\d)(hop|tf32|t3|jvpk)\d+([a-z_]+?)"
+                         r"(?:I((?:Li\d+E|f|13__nv_bfloat16)+)E|E)", text):
+        if int(k.group(1)) == len(k.group(2)):
+            args = [n or ("float" if t == "f" else "__nv_bfloat16")
+                    for n, t in re.findall(r"Li(\d+)E|(f|13__nv_bfloat16)",
+                                           k.group(4) or "")]
+            return f"{k.group(2)}::{k.group(3)}<{','.join(args)}>"
+    return None
 
 
 def hgmma_phase(libraries: dict) -> dict:
@@ -3211,7 +3362,8 @@ def hgmma_phase(libraries: dict) -> dict:
     library (``libraries`` maps a name to (path, the kernels that do a
     product, as "namespace::kernel")); fails unless every kernel that does
     a product has some: the bf16 flash forward, dQ and dK/dV kernels and
-    the float32 (3xTF32) dQ and dK/dV kernels, the SSD chunk-state and
+    the float32 (3xTF32) forward, dQ, dK/dV and T2 kernels, the SSD
+    chunk-state and
     chunk-output kernels and T3's tangent chunk-state and chunk-output
     kernels (both state passings are elementwise)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -3223,16 +3375,12 @@ def hgmma_phase(libraries: dict) -> dict:
         for line in sass.splitlines():
             m = re.search(r"Function : (\S+)", line)
             if m:
-                fn = None
-                for k in re.finditer(
-                        r"(\d)(hop|tf32|t3)\d+([a-z_]+?)"
-                        r"(?:I((?:Li\d+E)+)|E)", m.group(1)):
-                    if int(k.group(1)) == len(k.group(2)):
-                        args = re.findall(r"Li(\d+)E", k.group(4) or "")
-                        fn = f"{k.group(2)}::{k.group(3)}<{','.join(args)}>"
-                        op = TENSOR_OPS[k.group(2)]
-                        counts[fn] = 0
-                        break
+                fn = kernel_symbol(m.group(1))
+                if fn and fn.split("::")[0] in TENSOR_OPS:
+                    op = TENSOR_OPS[fn.split("::")[0]]
+                    counts[fn] = 0
+                else:
+                    fn = None
             elif fn and re.search(rf"\b{op}\b", line):
                 counts[fn] += 1
         print(f"sass tensor-core instructions per Hopper kernel ({name}; "
@@ -3255,11 +3403,14 @@ def build_phase(libraries) -> None:
     for name, info in infos.items():
         print(f"build {name}: {info['seconds']:.2f} s "
               f"(compiled={info['compiled']}) -> {info['path']}", flush=True)
+        fn = None
         for line in info["log"].splitlines():
+            if "Function properties for" in line:
+                fn = kernel_symbol(line) or line.split()[-1]
             # "Performance Loss": ptxas serialized a kernel's wgmma
             if any(k in line for k in ("registers", "spill",
                                        "Performance Loss")):
-                print("  ptxas:", line.strip())
+                print(f"  ptxas {fn}:", line.strip())
 
 
 def main() -> int:
@@ -3297,8 +3448,10 @@ def main() -> int:
     hgmma = hgmma_phase({
         "flash_attention": (fops.build()["path"],
                             ("hop::fwd_kernel", "hop::dq_kernel",
-                             "hop::dkv_kernel", "tf32::dq_kernel",
-                             "tf32::dkv_kernel")),
+                             "hop::dkv_kernel", "tf32::fwd_kernel",
+                             "tf32::dq_kernel", "tf32::dkv_kernel",
+                             "tf32::tangent_dq_kernel",
+                             "tf32::tangent_dkv_kernel")),
         "ssd_scan": (sops.build()["path"],
                      ("hop::chunk_state_kernel", "hop::chunk_scan_kernel",
                       "t3::tangent_state_kernel",

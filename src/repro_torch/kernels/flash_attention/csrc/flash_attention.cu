@@ -15,10 +15,11 @@
 //   dK/dV, as in the reference, so nothing is summed with atomics and every
 //   result is the same from run to run.
 //
-// forward and backward tangents (T1, T2; namespace jvpk) — no TPU
-//   counterpart: the forward-mode rules of both autograd Functions, so that
-//   the exact meta-gradient's forward-over-reverse Hessian-vector products
-//   run through the kernels (see the section's own comment).
+// forward and backward tangents (T1, T2) — no TPU counterpart: the
+//   forward-mode rules of both autograd Functions, so that the exact
+//   meta-gradient's forward-over-reverse Hessian-vector products run
+//   through the kernels (namespace jvpk, and T2's float32 route in
+//   namespace tf32; see their sections' comments).
 //
 // Masks, as the reference: a key the band excludes gets the logit -1e30
 // (so a row that has seen no allowed key yet carries exp(0) terms that the
@@ -39,14 +40,11 @@
 // in and out, the views' own strides (no expansion or copy), and blocks
 // that each own one 64-row tile of one head.
 //
-// float32: the backward on the tensor cores as three TF32 products
-// (namespace tf32, after hop), on the same strided views as bf16.  The
-// forward is a plain FMA kernel on the CUDA cores (the flops at 67
-// TFLOP/s bound it), which takes contiguous (B*H, S, d) with heads expanded
-// by the wrapper.  A block owns a 64-row tile and 8 warps of 8 rows each;
-// tiles are staged in shared memory (head dims up to 128 zero-padded to 32,
-// 64 or 128), padded by 4 words where lanes read them by row, so a lane's
-// 16-byte loads of consecutive rows fall in distinct banks.
+// float32 (namespace tf32, after hop): the forward, the backward and T2's
+// two parts on the tensor cores, every float32 product as three TF32
+// mma.sync products, on the same strided views as bf16 (K/V unexpanded).
+// T1 in both dtypes and T2 in bf16 are the CUDA-core kernels of namespace
+// jvpk.
 //
 // No kernel allocates or synchronises; each launches on the stream it is
 // given, and each C entry returns cudaGetLastError().
@@ -60,31 +58,15 @@
 
 namespace {
 
-constexpr int kTile = 64;                 // query rows and key rows per tile
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = kTile / kWarps;     // rows a warp owns
+constexpr int kTile = 64;                 // query and key rows of a bf16 tile
 constexpr int kMaxHeadDim = 128;
 constexpr float kMasked = -1e30f;         // the reference's NEG_INF
-
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   acc = fmaf(a.x, b.x, acc);
   acc = fmaf(a.y, b.y, acc);
   acc = fmaf(a.z, b.z, acc);
   return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -98,22 +80,6 @@ __device__ __forceinline__ bool allowed(int qp, int kp, int causal,
   if (causal && kp > qp) return false;
   if (window > 0 && kp <= qp - window) return false;
   return true;
-}
-
-// Stage rows [row0, row0 + kTile) of a (rows, d) matrix into a float32
-// tile with row stride ld and D columns; rows past the end and columns
-// past d are zero.  Neighbouring threads read neighbouring elements.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, int ld,
-                                          const T* __restrict__ src,
-                                          int row0, int rows, int d) {
-  for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
-    const int r = idx / D, c = idx - (idx / D) * D;
-    const int gr = row0 + r;
-    float x = 0.f;
-    if (gr < rows && c < d) x = to_f32(src[(size_t)gr * d + c]);
-    dst[r * ld + c] = x;
-  }
 }
 
 // Key tiles [begin, end) a query tile starting at q0 must visit.
@@ -132,8 +98,8 @@ __device__ __forceinline__ void key_range(int q0, int S, int Sk, int causal,
 
 // Query tiles [begin, end) a key tile starting at k0 must visit.
 __device__ __forceinline__ void query_range(int k0, int S, int Sk,
-                                            int causal, int window,
-                                            int* begin, int* end) {
+                                           int causal, int window,
+                                           int* begin, int* end) {
   const int nq = (S + kTile - 1) / kTile;
   int b = 0, e = nq;
   if (causal) b = k0 / kTile;
@@ -143,133 +109,6 @@ __device__ __forceinline__ void query_range(int k0, int S, int Sk,
   }
   *begin = b;
   *end = max(b, e);
-}
-
-// ---------------------------------------------------------------------------
-// forward: one block per (b*h, query tile)
-// ---------------------------------------------------------------------------
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int S, int Sk, int d, float scale,
-                 int causal, int window) {
-  constexpr int LD = D + 4;
-  constexpr int NC = D / 32;                 // output columns per lane
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;                          // kTile x LD
-  float* sK = sQ + kTile * LD;               // kTile x LD
-  float* sV = sK + kTile * LD;               // kTile x D
-  float* sP = sV + kTile * D;                // kTile x kTile
-
-  const int nq = (S + kTile - 1) / kTile;
-  const int bh = blockIdx.x / nq;
-  const int q0 = (blockIdx.x - bh * nq) * kTile;
-  const T* qb = q + (size_t)bh * S * d;
-  const T* kb = k + (size_t)bh * Sk * d;
-  const T* vb = v + (size_t)bh * Sk * d;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = warp * kRows;
-
-  load_tile<T, D>(sQ, LD, qb, q0, S, d);
-
-  float m[kRows], l[kRows], acc[kRows][NC];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = kMasked;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
-  }
-
-  int kt_begin, kt_end;
-  key_range(q0, S, Sk, causal, window, &kt_begin, &kt_end);
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();                         // last tile's readers are done
-    load_tile<T, D>(sK, LD, kb, k0, Sk, d);
-    load_tile<T, D>(sV, D, vb, k0, Sk, d);
-    __syncthreads();
-
-    // scores of this warp's rows against keys lane and lane + 32
-    float s[kRows][2];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r][0] = s[r][1] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; c += 4) {
-      const float4 ka = *reinterpret_cast<const float4*>(&sK[lane * LD + c]);
-      const float4 kc =
-          *reinterpret_cast<const float4*>(&sK[(lane + 32) * LD + c]);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 qv =
-            *reinterpret_cast<const float4*>(&sQ[(r0 + r) * LD + c]);
-        s[r][0] = dot4(qv, ka, s[r][0]);
-        s[r][1] = dot4(qv, kc, s[r][1]);
-      }
-    }
-
-    // online softmax update of m, l and acc
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qp = q0 + r0 + r;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kp = k0 + lane + 32 * j;
-        s[r][j] = kp >= Sk ? -INFINITY
-                : allowed(qp, kp, causal, window) ? s[r][j] * scale
-                : kMasked;
-      }
-      const float m_new = fmaxf(m[r], warp_max(fmaxf(s[r][0], s[r][1])));
-      const float p0 = expf(s[r][0] - m_new);
-      const float p1 = expf(s[r][1] - m_new);
-      const float alpha = expf(m[r] - m_new);
-      l[r] = alpha * l[r] + warp_sum(p0 + p1);
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[r][c] *= alpha;
-      sP[(r0 + r) * kTile + lane] = p0;
-      sP[(r0 + r) * kTile + lane + 32] = p1;
-    }
-    __syncwarp();
-
-    // acc += P V over this tile's keys
-#pragma unroll 4
-    for (int j = 0; j < kTile; ++j) {
-      float vv[NC];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) vv[c] = sV[j * D + lane + 32 * c];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float p = sP[(r0 + r) * kTile + j];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[r][c] = fmaf(p, vv[c], acc[r][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qp = q0 + r0 + r;
-    if (qp >= S) continue;
-    const float lc = fmaxf(l[r], 1e-30f);
-    T* orow = o + ((size_t)bh * S + qp) * d;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = lane + 32 * c;
-      if (col < d) orow[col] = from_f32<T>(acc[r][c] / lc);
-    }
-    if (lane == 0) lse[(size_t)bh * S + qp] = m[r] + logf(lc);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// launchers
-// ---------------------------------------------------------------------------
-
-template <int D> constexpr size_t fwd_smem() {
-  return sizeof(float) * (2 * kTile * (D + 4) + kTile * D + kTile * kTile);
 }
 
 // Lets `kernel` use `bytes` of dynamic shared memory (above the 48 KB
@@ -282,29 +121,6 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, bool* done) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err == cudaSuccess) *done = true;
   return err;
-}
-
-template <typename T, int D>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
-                       void* lse, int BH, int S, int Sk, int d, float scale,
-                       int causal, int window, cudaStream_t s) {
-  auto kernel = flash_fwd_kernel<T, D>;
-  static bool ready = false;
-  cudaError_t err = allow_smem(kernel, fwd_smem<D>(), &ready);
-  if (err != cudaSuccess) return err;
-  const long long blocks = (long long)BH * ((S + kTile - 1) / kTile);
-  kernel<<<(unsigned)blocks, kThreads, fwd_smem<D>(), s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      S, Sk, d, scale, causal, window);
-  return cudaGetLastError();
-}
-
-bool valid(int BH, int S, int Sk, int d) {
-  const int longest = S > Sk ? S : Sk;
-  const long long blocks = (long long)BH * ((longest + kTile - 1) / kTile);
-  return BH >= 1 && S >= 1 && Sk >= 1 && d >= 1 && d <= kMaxHeadDim &&
-         blocks <= 0x7fffffffLL;
 }
 
 
@@ -1385,11 +1201,13 @@ Strides strides_at(const long long* st, int i) {
 }  // namespace hop
 
 // ===========================================================================
-// float32 backward on Hopper: 3xTF32 products on the tensor cores
+// float32 on Hopper: 3xTF32 products on the tensor cores
 // ===========================================================================
 //
-// The float32 route's backward (the forward stays the CUDA-core kernel
-// above).  The same two launches as the bf16 route, on the same strided
+// The float32 route: the backward first, then the forward and T2 (after
+// the backward's launchers), which share its machinery.
+//
+// The backward: the same two launches as the bf16 route, on the same strided
 // views (any (B, S, H, d) or (B, H, S, d) view whose d has stride 1, query
 // head h reading KV head h / (H / KV)): dQ first, which also writes D =
 // rowsum(dO * O) for the second, dK/dV, which sums each KV head's query
@@ -1441,9 +1259,9 @@ constexpr int kOwn = 64;                  // rows a block owns
 constexpr int kVis = 32;                  // rows of the other side a step visits
 constexpr int kThreadsF = 128;            // 4 warps of 16 own rows
 
-struct Args {
-  const float *q, *k, *v, *o, *dout, *lse;
-  float *dsum, *dq, *dk, *dv;
+struct Args {                           // the forward writes o and lse
+  const float *q, *k, *v, *dout;
+  float *o, *lse, *dsum, *dq, *dk, *dv;
   hop::Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
   int H, KV, S, Sk, d;
   float scale;
@@ -1618,16 +1436,18 @@ __device__ __forceinline__ void queries_of(int k0, int own, int vis, int S,
 
 // A pair of tiles (qr query rows at q0, kr key rows at k0) needs the mask
 // only on the band's edge or past a sequence end.
+template <typename A>
 __device__ __forceinline__ bool edge(int q0, int qr, int k0, int kr,
-                                     const Args& a) {
+                                     const A& a) {
   return q0 + qr > a.S || k0 + kr > a.Sk || (a.causal && k0 + kr - 1 > q0) ||
          (a.window > 0 && k0 <= q0 + qr - 1 - a.window);
 }
 
 // P = 2^(s c - L2) of one logit, L2 = lse log2 e; on an edge tile a pair
 // outside the band gets the logit -1e30 and one past a sequence end 0.
+template <typename A>
 __device__ __forceinline__ float prob(float s, float c, float L2, bool edge,
-                                      int qp, int kp, const Args& a) {
+                                      int qp, int kp, const A& a) {
   float x = fmaf(s, c, -L2);
   if (edge) {
     const int delta = qp - kp;
@@ -1992,9 +1812,9 @@ dkv_kernel(const __grid_constant__ Args a) {
   }
 }
 
-template <typename Kernel>
+template <typename Kernel, typename A>
 cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
-                   cudaStream_t s, const Args& a, bool* ready) {
+                   cudaStream_t s, const A& a, bool* ready) {
   cudaError_t err = allow_smem(kernel, smem, ready);
   if (err != cudaSuccess) return err;
   kernel<<<grid, threads, smem, s>>>(a);
@@ -2017,6 +1837,671 @@ cudaError_t run(const Args& a, int B, int part, cudaStream_t s) {
   }
   // two warpgroups split a KV head's query heads where it has two or more
   return a.H / a.KV >= 2 ? run_dkv<D, 2>(a, B, s) : run_dkv<D, 1>(a, B, s);
+}
+
+// A warp's 16 x D accumulator tile (a lane's rows g and g + 8, columns
+// 8n + 2t and 8n + 2t + 1) to rows [row0, row0 + 16) of a head's (rows, d)
+// slice at dst, row stride ld: through `tile`, 16 rows of shared memory
+// (row stride D + 4) that no other thread reads by then, so that each row
+// goes out in 16-byte stores where vec; rows past `rows` and columns past
+// d are not written.
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&x)[D / 8][4],
+                                           float* tile, float* dst,
+                                           long long ld, int row0, int rows,
+                                           int d, int vec, int lane) {
+  constexpr int LD = D + 4, C4 = D / 4;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<float2*>(tile + g * LD + 8 * n + 2 * t) =
+        make_float2(x[n][0], x[n][1]);
+    *reinterpret_cast<float2*>(tile + (g + 8) * LD + 8 * n + 2 * t) =
+        make_float2(x[n][2], x[n][3]);
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * C4; i += 32) {
+    const int r = i / C4, c = 4 * (i - (i / C4) * C4);
+    const long long gr = row0 + r;
+    if (gr >= rows || c >= d) continue;
+    const float* from = tile + r * LD + c;
+    float* to = dst + gr * ld + c;
+    if (vec) {
+      *reinterpret_cast<float4*>(to) = *reinterpret_cast<const float4*>(from);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (c + e < d) to[e] = from[e];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward: one block per (64 query rows, head, batch)
+// ---------------------------------------------------------------------------
+//
+// Replaces the Pallas TPU kernel flash_attention.py::flash_attention_fwd_lse
+// in float32.  Four warps own 16 query rows each and visit the key tiles of
+// their band 32 keys at a time (two cp.async stages at d <= 64, one at
+// d = 128, as the backward).  S = Q K^T is three TF32 products; the online
+// softmax runs in float32 on the accumulator fragments, in log2 units (the
+// scale times log2 e folded into one multiply), row max and sum by quad
+// shuffles; P enters P V as the A operand straight from the accumulators;
+// P V of a tile goes into a fresh accumulator and O = alpha O + t is a
+// float32 update, so the tensor core's round-toward-zero never sums across
+// tiles.  O leaves through the warp's own Q rows in shared memory (16-byte
+// row stores), lse = m + log l as (B, H, S) float32.  q, k, v and o are read
+// and written through their views' strides: (B, S, H, d) with K/V heads
+// unexpanded, or (B, H, S, d); query head h reads KV head h / (H / KV).
+//
+// Bound at lm-100m's shape (B = 16, S = 256, H = 8, KV = 4, d = 64,
+// causal): 1.08 GFLOP, 0.016 ms at the 67 TFLOP/s float32 rate; as three
+// TF32 products 3.2 GFLOP, 0.0065 ms at 495 TFLOP/s; 25.2 MB of bytes,
+// 0.0075 ms at 3.35 TB/s.
+
+template <int D> constexpr size_t fwd_smem() {
+  return sizeof(float) * (kOwn + 2 * stages<D>() * kVis) * (D + 4);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsF)
+fwd_kernel(const __grid_constant__ Args a) {
+  constexpr int LD = D + 4, KS = D / 8, NS = stages<D>();
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;                       // kOwn x LD; then each warp's O
+  float* sKV = sQ + kOwn * LD;            // per stage K, V: kVis x LD each
+  const int tid = threadIdx.x, w = tid >> 5, g = (tid & 31) >> 2,
+            tg = tid & 3;
+  // the last query tiles (the most key tiles, causal) are launched first
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kOwn, hq = blockIdx.x,
+            b = blockIdx.y;
+  const int hk = hq / (a.H / a.KV);
+  const float* kb = a.k + b * a.sk.b + hk * a.sk.h;
+  const float* vb = a.v + b * a.sv.b + hk * a.sv.h;
+  auto fetch = [&](int kt, int st) {      // key tile kt into stage st
+    float* k = sKV + 2 * st * kVis * LD;
+    load_tile<kVis, D>(k, kb, a.sk.s, kt * kVis, a.Sk, a.d, a.vec, tid);
+    load_tile<kVis, D>(k + kVis * LD, vb, a.sv.s, kt * kVis, a.Sk, a.d,
+                       a.vec, tid);
+    hop::cp_commit();
+  };
+
+  load_tile<kOwn, D>(sQ, a.q + b * a.sq.b + hq * a.sq.h, a.sq.s, q0, a.S,
+                     a.d, a.vec, tid);
+  hop::cp_commit();
+  int kt0, kt1;
+  keys_of(q0, kOwn, kVis, a.S, a.Sk, a.causal, a.window, &kt0, &kt1);
+  if (kt0 < kt1) fetch(kt0, 0);
+
+  float acc[KS][4];
+#pragma unroll
+  for (int n = 0; n < KS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const float c = a.scale * hop::kLog2e;
+  float m[2] = {kMasked * hop::kLog2e, kMasked * hop::kLog2e};
+  float l[2] = {0.f, 0.f};
+  const int r0 = 16 * w + g;              // the thread's rows r0, r0 + 8
+
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int k0 = kt * kVis, st = NS == 2 ? (kt - kt0) & 1 : 0;
+    hop::cp_wait<0>();
+    __syncthreads();                      // tile kt landed; the last one read
+    if (NS == 2 && kt + 1 < kt1) fetch(kt + 1, st ^ 1);
+    const float* sK = sKV + 2 * st * kVis * LD;
+    const float* sV = sK + kVis * LD;
+
+    float s[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const FragA qa = load_a<LD>(sQ, 16 * w, 8 * kk, g, tg);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        mma3(s[j], qa, load_bt<LD>(sK, 8 * j, 8 * kk, g, tg));
+    }
+
+    // online softmax in log2 units: row max, rescale, P = 2^(x - m); on an
+    // edge tile a pair outside the band gets the logit -1e30, one past the
+    // keys' end -inf
+    const bool e_ = edge(q0, kOwn, k0, kVis, a);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float x = s[j][e] * c;
+        if (e_) {
+          const int kp = k0 + 8 * j + 2 * tg + (e & 1);
+          const int delta = q0 + r0 + 8 * r - kp;
+          const bool out = (a.causal && delta < 0) ||
+                           (a.window > 0 && delta > a.window - 1);
+          x = out ? kMasked * hop::kLog2e : x;
+          x = kp < a.Sk ? x : -INFINITY;
+        }
+        s[j][e] = x;
+        mx[r] = fmaxf(mx[r], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = hop::quad_max(mx[r]);
+      alpha[r] = hop::exp2_approx(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = hop::exp2_approx(s[j][e] - m[e >> 1]);
+        l[e >> 1] += p;
+        s[j][e] = p;
+      }
+#pragma unroll
+    for (int n = 0; n < KS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+    // O += P V, the tile's sum into a fresh accumulator
+    FragA pa[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) pa[j] = acc_as_a(s[j]);
+#pragma unroll
+    for (int n = 0; n < KS; ++n) {
+      float t[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        mma3_into(t, pa[j], load_bk<LD>(sV, 8 * j, 8 * n, g, tg), j == 0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += t[e];
+    }
+    if (NS == 1 && kt + 1 < kt1) {
+      __syncthreads();                    // every warp is done with tile kt
+      fetch(kt + 1, 0);
+    }
+  }
+  hop::cp_wait<0>();
+  __syncthreads();                        // Q landed, where no key tile was
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float lc = fmaxf(hop::quad_sum(l[r]), 1e-30f), inv = 1.f / lc;
+#pragma unroll
+    for (int n = 0; n < KS; ++n) {
+      acc[n][2 * r] *= inv;
+      acc[n][2 * r + 1] *= inv;
+    }
+    const int row = q0 + r0 + 8 * r;
+    if (tg == 0 && row < a.S)
+      a.lse[((long long)b * a.H + hq) * a.S + row] =
+          (m[r] + log2f(lc)) * hop::kLn2;
+  }
+  store_rows<D>(acc, sQ + 16 * w * LD, a.o + b * a.so.b + hq * a.so.h,
+                a.so.s, q0 + 16 * w, a.S, a.d, a.vec, tid & 31);
+}
+
+template <int D>
+cudaError_t run_fwd(const Args& a, int B, cudaStream_t s) {
+  static bool ready = false;
+  return launch(fwd_kernel<D>, dim3(a.H, B, (a.S + kOwn - 1) / kOwn),
+                kThreadsF, fwd_smem<D>(), s, a, &ready);
+}
+
+// ---------------------------------------------------------------------------
+// T2 in float32: the backward's tangent on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// No TPU counterpart (the forward-mode rule of the backward; see namespace
+// jvpk below for the algebra, which these kernels share with its bfloat16
+// route).  Two launches, as the backward: part 0 (tangent_dq_kernel) writes
+// dQ' and D = rowsum(dO o), D' = rowsum(dO' o + dO o') into (B, H, S)
+// float32 workspaces; part 1 (tangent_dkv_kernel) dK' and dV', summed over
+// each KV head's query heads in a fixed order, without atomics.  Every
+// product is three TF32 products: S = Q K^T, S' = Q' K^T + Q K'^T, dP = dO
+// V^T, dP' = dO' V^T + dO V'^T, then dQ' = scale (dS' K + dS K'), dK' =
+// scale (dS'^T Q + dS^T Q') and dV' = P'^T dO + P^T dO'; P, P', dS and dS'
+// enter as A from the accumulators.  The long sums take each visited tile
+// into a fresh accumulator and add it with a float32 add.
+//
+// Each side stages twice the backward's operands (q, q', dO, dO' against k,
+// k', v, v'), so a block is 8 warps on one set of stages: warp w owns rows
+// 16 (w % 4) .. of the block's 64 and takes visited rows 16 (w / 4) .. of
+// each 32-row visited tile; the two halves add their sums through shared
+// memory at the end, in a fixed order.  (Two warpgroups that split a KV
+// head's query heads, as the backward's dK/dV does, would need two sets of
+// visited stages: 270 KB at d = 128.)  Shared memory, float32 rows of
+// d + 4: 4 x 64 own rows and 4 x 32 visited rows a stage.  dQ': two stages
+// at d <= 32 (73.7 KB, two blocks an SM), one at d = 64 (104.4 KB, two
+// blocks at 128 registers) and d = 128 (202.8 KB, one).  dK'/dV', whose
+// blocks visit every query head of their KV head: two stages at d <= 64
+// (140.3 KB at d = 64, one block an SM at up to 255 registers, no spills)
+// and one at d = 128.  At lm-100m's shape each part ran faster laid out
+// so than laid out as the other.  Both parts read every view through its
+// strides, K/V unexpanded.
+//
+// Bound at lm-100m's shape: 6.5 GFLOP of products, 0.097 ms at the float32
+// rate (12 d multiply-adds a pair, chip_smoke.py::flash_tangent_cost); as
+// three TF32 products 0.039 ms; 84 MB of bytes, 0.025 ms.  The two parts
+// each recompute S, S', dP and dP' (18 d multiply-adds a pair in all).
+
+// The views of a T2 launch, in the entry's order.
+enum { kQ = 0, kK, kV, kO, kDO, kTQ, kTK, kTV, kTO, kTDO, kTDQ, kTDK, kTDV,
+       kViews };
+
+struct TArgs {
+  const float *q, *k, *v, *o, *dout, *lse, *tq, *tk, *tv, *to, *tdout,
+      *tlse;
+  float *dsum, *tdsum, *tdq, *tdk, *tdv;
+  hop::Strides st[kViews];
+  int H, KV, S, Sk, d;
+  float scale;
+  int causal, window;
+  int vec;                              // 1: rows 16-byte aligned, d % 4 == 0
+};
+
+constexpr int kThreadsT = 256;            // 8 warps: 4 row groups x 2 halves
+
+// Stages of the visited tiles in part 0 (dq = true) and part 1.
+template <int D, bool dq> __host__ __device__ constexpr int tangent_stages() {
+  return D <= (dq ? 32 : 64) ? 2 : 1;
+}
+template <int D> constexpr size_t tangent_dq_smem() {
+  return sizeof(float) *
+         ((4 * kOwn + 4 * tangent_stages<D, true>() * kVis) * (D + 4) +
+          2 * kOwn);
+}
+template <int D> constexpr size_t tangent_dkv_smem() {
+  return sizeof(float) * ((4 * kOwn + 4 * tangent_stages<D, false>() * kVis) *
+                              (D + 4) +
+                          4 * tangent_stages<D, false>() * kVis);
+}
+
+// The (rows, d) slice of head h of batch b in view i.
+__device__ __forceinline__ const float* slice(const TArgs& a, const float* p,
+                                              int i, int b, int h) {
+  return p + b * a.st[i].b + h * a.st[i].h;
+}
+
+// The four products of both parts, own rows r0 .. r0 + 15 of the tiles x
+// (row stride LD) against visited rows v0 .. v0 + 15 of the tiles y:
+//   s = x0 y0^T,  sd = x1 y0^T + x0 y1^T,  dp = x2 y2^T,  dpd = x3 y2^T + x2 y3^T
+// (part 0: x = q, q', dO, dO' and y = k, k', v, v': S, S', dP, dP'; part 1
+// the other way round, their transposes).
+template <int LD, int KS>
+__device__ __forceinline__ void tangent_scores(
+    const float* const (&x)[4], const float* const (&y)[4], int r0, int v0,
+    int g, int tg, float (&s)[2][4], float (&sd)[2][4], float (&dp)[2][4],
+    float (&dpd)[2][4]) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = sd[j][e] = dp[j][e] = dpd[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    {
+      const FragA a = load_a<LD>(x[0], r0, 8 * kk, g, tg);
+      const FragA ta = load_a<LD>(x[1], r0, 8 * kk, g, tg);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const FragB b = load_bt<LD>(y[0], v0 + 8 * j, 8 * kk, g, tg);
+        mma3(s[j], a, b);
+        mma3(sd[j], ta, b);
+        mma3(sd[j], a, load_bt<LD>(y[1], v0 + 8 * j, 8 * kk, g, tg));
+      }
+    }
+    const FragA a = load_a<LD>(x[2], r0, 8 * kk, g, tg);
+    const FragA ta = load_a<LD>(x[3], r0, 8 * kk, g, tg);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const FragB b = load_bt<LD>(y[2], v0 + 8 * j, 8 * kk, g, tg);
+      mma3(dp[j], a, b);
+      mma3(dpd[j], ta, b);
+      mma3(dpd[j], a, load_bt<LD>(y[3], v0 + 8 * j, 8 * kk, g, tg));
+    }
+  }
+}
+
+// acc += u y + w z over the warp's 16 visited rows v0 .. (the contraction):
+// u and w accumulator slices (16 x 8 each, two) as A, y and z visited
+// tiles; the tile's sum into a fresh accumulator, added in float32.
+template <int LD, int KS>
+__device__ __forceinline__ void add_products(float (&acc)[KS][4],
+                                             const float (&u)[2][4],
+                                             const float* y,
+                                             const float (&w)[2][4],
+                                             const float* z, int v0, int g,
+                                             int tg) {
+  FragA ua[2], wa[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    ua[j] = acc_as_a(u[j]);
+    wa[j] = acc_as_a(w[j]);
+  }
+#pragma unroll
+  for (int n = 0; n < KS; ++n) {
+    float t[4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      mma3_into(t, ua[j], load_bk<LD>(y, v0 + 8 * j, 8 * n, g, tg), j == 0);
+      mma3_into(t, wa[j], load_bk<LD>(z, v0 + 8 * j, 8 * n, g, tg), false);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += t[e];
+  }
+}
+
+// The second half's sums x to the first, through shared memory at red
+// (free by then; KS x 512 floats): half 1 stores, half 0 adds, in that
+// fixed order.  Every thread of the block calls it.
+template <int KS>
+__device__ __forceinline__ void add_halves(float (&x)[KS][4], float* red,
+                                           bool second, int at) {
+  if (second) {
+#pragma unroll
+    for (int n = 0; n < KS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) red[(n * 4 + e) * 128 + at] = x[n][e];
+  }
+  __syncthreads();
+  if (!second) {
+#pragma unroll
+    for (int n = 0; n < KS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[n][e] += red[(n * 4 + e) * 128 + at];
+  }
+}
+
+// Part 0: dQ', D and D'.  One block per (64 query rows, head, batch),
+// visiting the key tiles of its band 32 rows at a time.
+template <int D>
+__global__ void __launch_bounds__(kThreadsT, D <= 64 ? 2 : 1)
+tangent_dq_kernel(const __grid_constant__ TArgs a) {
+  constexpr int LD = D + 4, KS = D / 8, NS = tangent_stages<D, true>();
+  constexpr int OWN = kOwn * LD, VIS = kVis * LD;
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;                       // own: q, q', dO, dO'
+  float* sTQ = sQ + OWN;
+  float* sO = sTQ + OWN;
+  float* sTO = sO + OWN;
+  float* sVis = sTO + OWN;                // per stage k, k', v, v'
+  float* sD = sVis + 4 * NS * VIS;        // D, D' of the block's rows
+  const float* const own_t[4] = {sQ, sTQ, sO, sTO};
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31,
+            g = lane >> 2, tg = lane & 3;
+  const int rg = w & 3, v0 = 16 * (w >> 2);   // own row group, visited half
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kOwn, hq = blockIdx.x,
+            b = blockIdx.y;
+  const int hk = hq / (a.H / a.KV);
+  const long long row_vec = ((long long)b * a.H + hq) * a.S;
+  const float *kb = slice(a, a.k, kK, b, hk), *tkb = slice(a, a.tk, kTK, b, hk),
+              *vb = slice(a, a.v, kV, b, hk), *tvb = slice(a, a.tv, kTV, b, hk);
+  auto fetch = [&](int kt, int st) {      // key tile kt into stage st
+    float* s = sVis + 4 * st * VIS;
+    const int r = kt * kVis;
+    load_tile<kVis, D, kThreadsT>(s, kb, a.st[kK].s, r, a.Sk, a.d, a.vec,
+                                  tid);
+    load_tile<kVis, D, kThreadsT>(s + VIS, tkb, a.st[kTK].s, r, a.Sk, a.d,
+                                  a.vec, tid);
+    load_tile<kVis, D, kThreadsT>(s + 2 * VIS, vb, a.st[kV].s, r, a.Sk, a.d,
+                                  a.vec, tid);
+    load_tile<kVis, D, kThreadsT>(s + 3 * VIS, tvb, a.st[kTV].s, r, a.Sk,
+                                  a.d, a.vec, tid);
+    hop::cp_commit();
+  };
+  auto own = [&](float* dst, const float* p, int i) {
+    load_tile<kOwn, D, kThreadsT>(dst, slice(a, p, i, b, hq), a.st[i].s, q0,
+                                  a.S, a.d, a.vec, tid);
+  };
+
+  // q, q', dO, dO', and o, o' in stage 0 (64 rows each), for D and D'
+  own(sQ, a.q, kQ);
+  own(sTQ, a.tq, kTQ);
+  own(sO, a.dout, kDO);
+  own(sTO, a.tdout, kTDO);
+  own(sVis, a.o, kO);
+  own(sVis + 2 * VIS, a.to, kTO);
+  hop::cp_commit();
+  hop::cp_wait<0>();
+  __syncthreads();
+  {                                       // four threads a row
+    const int r = tid >> 2, part = (tid & 3) * (D / 4);
+    const float *x = sO + r * LD + part, *tx = sTO + r * LD + part;
+    const float *y = sVis + r * LD + part, *ty = sVis + 2 * VIS + r * LD + part;
+    float dd = 0.f, td = 0.f;
+#pragma unroll 8
+    for (int c = 0; c < D / 4; ++c) {
+      dd = fmaf(x[c], y[c], dd);
+      td = fmaf(tx[c], y[c], fmaf(x[c], ty[c], td));
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      dd += __shfl_xor_sync(0xffffffffu, dd, o);
+      td += __shfl_xor_sync(0xffffffffu, td, o);
+    }
+    if ((tid & 3) == 0) {
+      sD[r] = dd;
+      sD[kOwn + r] = td;
+      if (q0 + r < a.S) {
+        a.dsum[row_vec + q0 + r] = dd;
+        a.tdsum[row_vec + q0 + r] = td;
+      }
+    }
+  }
+  __syncthreads();                        // D, D' kept; stage 0 free
+
+  const int r0 = 16 * rg + g;             // the thread's rows r0, r0 + 8
+  float L2[2], tl[2], Dr[2], tDr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + 8 * r;
+    const bool in = row < a.S;
+    L2[r] = in ? a.lse[row_vec + row] * hop::kLog2e : 0.f;
+    tl[r] = in ? a.tlse[row_vec + row] : 0.f;
+    Dr[r] = sD[r0 + 8 * r];
+    tDr[r] = sD[kOwn + r0 + 8 * r];
+  }
+  const float c = a.scale * hop::kLog2e;
+
+  float acc[KS][4];
+#pragma unroll
+  for (int n = 0; n < KS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  int kt0, kt1;
+  keys_of(q0, kOwn, kVis, a.S, a.Sk, a.causal, a.window, &kt0, &kt1);
+  if (kt0 < kt1) fetch(kt0, 0);
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int k0 = kt * kVis, st = NS == 2 ? (kt - kt0) & 1 : 0;
+    hop::cp_wait<0>();
+    __syncthreads();                      // tile kt landed; the last one read
+    if (NS == 2 && kt + 1 < kt1) fetch(kt + 1, st ^ 1);
+    const float* sK = sVis + 4 * st * VIS;
+    const float* const vis[4] = {sK, sK + VIS, sK + 2 * VIS, sK + 3 * VIS};
+
+    // S, S', dP, dP': the warp's 16 rows against its 16 visited keys
+    float s[2][4], sd[2][4], dp[2][4], dpd[2][4];
+    tangent_scores<LD, KS>(own_t, vis, 16 * rg, v0, g, tg, s, sd, dp, dpd);
+    // P = exp(S - lse), P' = P (S' - lse'); dS into dp, dS' into dpd
+    const bool e_ = edge(q0, kOwn, k0, kVis, a);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float p = prob(s[j][e], c, L2[r], e_, q0 + r0 + 8 * r,
+                             k0 + v0 + 8 * j + 2 * tg + (e & 1), a);
+        const float pd = p * (sd[j][e] * a.scale - tl[r]);
+        const float x = dp[j][e] - Dr[r];
+        dp[j][e] = p * x;
+        dpd[j][e] = pd * x + p * (dpd[j][e] - tDr[r]);
+      }
+    // dQ' += dS' K + dS K' (times scale at the end)
+    add_products<LD, KS>(acc, dpd, vis[0], dp, vis[1], v0, g, tg);
+    if (NS == 1 && kt + 1 < kt1) {
+      __syncthreads();                    // every warp is done with tile kt
+      fetch(kt + 1, 0);
+    }
+  }
+  hop::cp_wait<0>();
+  __syncthreads();                        // the stages are free
+
+  // the second half's sums to the first, which writes dQ'
+  add_halves<KS>(acc, sVis, v0 != 0, rg * 32 + lane);
+  if (v0) return;
+#pragma unroll
+  for (int n = 0; n < KS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] *= a.scale;
+  store_rows<D>(acc, sQ + 16 * rg * LD,
+                a.tdq + b * a.st[kTDQ].b + hq * a.st[kTDQ].h, a.st[kTDQ].s,
+                q0 + 16 * rg, a.S, a.d, a.vec, lane);
+}
+
+// Part 1: dK' and dV'.  One block per (64 key rows, KV head, batch),
+// visiting 32 query rows at a time of each of the KV head's query heads in
+// order; reads D and D' from part 0.
+template <int D>
+__global__ void __launch_bounds__(kThreadsT, D <= 32 ? 2 : 1)
+tangent_dkv_kernel(const __grid_constant__ TArgs a) {
+  constexpr int LD = D + 4, KS = D / 8, NS = tangent_stages<D, false>();
+  constexpr int OWN = kOwn * LD, VIS = kVis * LD;
+  extern __shared__ __align__(16) float smem[];
+  float* sK = smem;                       // own: k, k', v, v'
+  float* sTK = sK + OWN;
+  float* sV = sTK + OWN;
+  float* sTV = sV + OWN;
+  float* sVis = sTV + OWN;                // per stage q, q', dO, dO'
+  float* sRow = sVis + 4 * NS * VIS;      // per stage lse log2 e, lse', D, D'
+  const float* const own_t[4] = {sK, sTK, sV, sTV};
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31,
+            g = lane >> 2, tg = lane & 3;
+  const int rg = w & 3, v0 = 16 * (w >> 2);   // own row group, visited half
+  // the first key tiles (the most query tiles, causal) are launched first
+  const int k0 = blockIdx.z * kOwn, hk = blockIdx.x, b = blockIdx.y;
+  const int G = a.H / a.KV;
+
+  int qt0, qt1;
+  queries_of(k0, kOwn, kVis, a.S, a.Sk, a.causal, a.window, &qt0, &qt1);
+  const int nqt = qt1 - qt0, iters = G * nqt;
+  auto fetch = [&](int i, int st) {       // visit i: (head, query tile)
+    const int hq = hk * G + i / nqt, q0 = (qt0 + i % nqt) * kVis;
+    float* s = sVis + 4 * st * VIS;
+    const float* src[4] = {a.q, a.tq, a.dout, a.tdout};
+    const int view[4] = {kQ, kTQ, kDO, kTDO};
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      load_tile<kVis, D, kThreadsT>(s + x * VIS,
+                                    slice(a, src[x], view[x], b, hq),
+                                    a.st[view[x]].s, q0, a.S, a.d, a.vec,
+                                    tid);
+    if (tid < 4 * kVis) {
+      const int which = tid / kVis, qp = q0 + tid % kVis;
+      const long long at = ((long long)b * a.H + hq) * a.S + qp;
+      float x = 0.f;
+      if (qp < a.S)
+        x = which == 0 ? a.lse[at] * hop::kLog2e
+          : which == 1 ? a.tlse[at]
+          : which == 2 ? a.dsum[at] : a.tdsum[at];
+      sRow[4 * st * kVis + tid] = x;
+    }
+    hop::cp_commit();
+  };
+
+  {
+    float* dst[4] = {sK, sTK, sV, sTV};
+    const float* src[4] = {a.k, a.tk, a.v, a.tv};
+    const int view[4] = {kK, kTK, kV, kTV};
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      load_tile<kOwn, D, kThreadsT>(dst[x], slice(a, src[x], view[x], b, hk),
+                                    a.st[view[x]].s, k0, a.Sk, a.d, a.vec,
+                                    tid);
+  }
+  if (iters > 0) fetch(0, 0);
+  else hop::cp_commit();
+
+  float gk[KS][4], gv[KS][4];
+#pragma unroll
+  for (int n = 0; n < KS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gk[n][e] = gv[n][e] = 0.f;
+  const float c = a.scale * hop::kLog2e;
+  const int r0 = 16 * rg + g;             // the thread's key rows r0, r0 + 8
+
+  for (int i = 0; i < iters; ++i) {
+    const int q0 = (qt0 + i % nqt) * kVis, st = NS == 2 ? i & 1 : 0;
+    hop::cp_wait<0>();
+    __syncthreads();                      // visit i landed; the last one read
+    if (NS == 2 && i + 1 < iters) fetch(i + 1, st ^ 1);
+    const float* sQ = sVis + 4 * st * VIS;
+    const float* const vis[4] = {sQ, sQ + VIS, sQ + 2 * VIS, sQ + 3 * VIS};
+    const float* sL = sRow + 4 * st * kVis;
+    const float *sTL = sL + kVis, *sD = sL + 2 * kVis, *sTD = sL + 3 * kVis;
+
+    // S^T, S'^T, dP^T, dP'^T: the warp's 16 keys against its 16 queries
+    float s[2][4], sd[2][4], dp[2][4], dpd[2][4];
+    tangent_scores<LD, KS>(own_t, vis, 16 * rg, v0, g, tg, s, sd, dp, dpd);
+    // P^T, P'^T into s, sd; dS^T, dS'^T into dp, dpd
+    const bool e_ = edge(q0, kVis, k0, kOwn, a);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = v0 + 8 * j + 2 * tg + (e & 1);
+        const float p = prob(s[j][e], c, sL[col], e_, q0 + col,
+                             k0 + r0 + 8 * (e >> 1), a);
+        const float pd = p * (sd[j][e] * a.scale - sTL[col]);
+        const float x = dp[j][e] - sD[col];
+        s[j][e] = p;
+        sd[j][e] = pd;
+        dp[j][e] = p * x;
+        dpd[j][e] = pd * x + p * (dpd[j][e] - sTD[col]);
+      }
+    // dV' += P'^T dO + P^T dO', dK' += dS'^T Q + dS^T Q' (times scale at
+    // the end)
+    add_products<LD, KS>(gv, sd, vis[2], s, vis[3], v0, g, tg);
+    add_products<LD, KS>(gk, dpd, vis[0], dp, vis[1], v0, g, tg);
+    if (NS == 1 && i + 1 < iters) {
+      __syncthreads();                    // every warp is done with visit i
+      fetch(i + 1, 0);
+    }
+  }
+  hop::cp_wait<0>();
+  __syncthreads();                        // K, V landed; the stages are free
+
+  // the second half's sums to the first, which writes dK' and dV'
+  add_halves<KS>(gk, sVis, v0 != 0, rg * 32 + lane);
+  add_halves<KS>(gv, sVis + KS * 512, v0 != 0, rg * 32 + lane);
+  if (v0) return;
+#pragma unroll
+  for (int n = 0; n < KS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gk[n][e] *= a.scale;
+  store_rows<D>(gk, sK + 16 * rg * LD,
+                a.tdk + b * a.st[kTDK].b + hk * a.st[kTDK].h, a.st[kTDK].s,
+                k0 + 16 * rg, a.Sk, a.d, a.vec, lane);
+  store_rows<D>(gv, sV + 16 * rg * LD,
+                a.tdv + b * a.st[kTDV].b + hk * a.st[kTDV].h, a.st[kTDV].s,
+                k0 + 16 * rg, a.Sk, a.d, a.vec, lane);
+}
+
+template <int D>
+cudaError_t run_tangent(const TArgs& a, int B, int part, cudaStream_t s) {
+  if (part == 0) {
+    static bool ready = false;
+    return launch(tangent_dq_kernel<D>,
+                  dim3(a.H, B, (a.S + kOwn - 1) / kOwn), kThreadsT,
+                  tangent_dq_smem<D>(), s, a, &ready);
+  }
+  static bool ready = false;
+  return launch(tangent_dkv_kernel<D>,
+                dim3(a.KV, B, (a.Sk + kOwn - 1) / kOwn), kThreadsT,
+                tangent_dkv_smem<D>(), s, a, &ready);
 }
 
 }  // namespace tf32
@@ -2049,15 +2534,17 @@ cudaError_t run(const Args& a, int B, int part, cudaStream_t s) {
 // float32 workspace each), part 1 (after it) dK' and dV', summed over each
 // KV head's query heads, so nothing is summed with atomics.
 //
-// Simple CUDA-core kernels that are right first (making them fast with
-// wgmma and TMA is later work): float32 FMA, 256 threads, 32-row tiles
+// T2 in float32 runs on the tensor cores (tf32::tangent_dq_kernel and
+// tangent_dkv_kernel, above).  The kernels here are T1 in both dtypes and
+// T2 in bfloat16: simple CUDA-core kernels that are right first (making
+// them fast is later work): float32 FMA, 256 threads, 32-row tiles
 // on both sides (a warp owns 4 rows of its block's tile, a lane one row of
 // the visited tile), every operand staged as float32 in shared memory and
 // read through its view's (b, s, h) strides, so the model layout (B, S, H,
 // d) with K/V heads unexpanded and the expanded (B, H, S, d) are both read
-// in place; bf16 or float32 in, float32 sums, results in the inputs'
-// dtype.  Masks as the forward: a pair the band excludes gets the logit
-// -1e30 and the tangent logit 0.
+// in place; float32 sums, results in the inputs' dtype.  Masks as the
+// forward: a pair the band excludes gets the logit -1e30 and the tangent
+// logit 0.
 namespace jvpk {
 
 constexpr int kT = 32;                    // rows of a tile, both sides
@@ -2666,13 +3153,19 @@ cudaError_t run_bwd(const Ptrs& p, const Views& st, int B, int H, int KV,
 }
 
 template <typename T>
-cudaError_t dispatch(const Ptrs& p, const Views& st, int B, int H, int KV,
-                     int S, int Sk, int d, float scale, int causal,
-                     int window, int part, cudaStream_t s) {
-  if (part < 0)
-    return d <= 32 ? run_fwd<T, 32>(p, st, B, H, KV, S, Sk, d, scale, causal, window, s)
-         : d <= 64 ? run_fwd<T, 64>(p, st, B, H, KV, S, Sk, d, scale, causal, window, s)
-                   : run_fwd<T, 128>(p, st, B, H, KV, S, Sk, d, scale, causal, window, s);
+cudaError_t fwd_dispatch(const Ptrs& p, const Views& st, int B, int H,
+                         int KV, int S, int Sk, int d, float scale,
+                         int causal, int window, cudaStream_t s) {
+  return d <= 32 ? run_fwd<T, 32>(p, st, B, H, KV, S, Sk, d, scale, causal, window, s)
+       : d <= 64 ? run_fwd<T, 64>(p, st, B, H, KV, S, Sk, d, scale, causal, window, s)
+                 : run_fwd<T, 128>(p, st, B, H, KV, S, Sk, d, scale, causal, window, s);
+}
+
+// T2 in bfloat16 only: float32 runs namespace tf32's tangent kernels.
+cudaError_t bwd_dispatch(const Ptrs& p, const Views& st, int B, int H,
+                         int KV, int S, int Sk, int d, float scale,
+                         int causal, int window, int part, cudaStream_t s) {
+  using T = __nv_bfloat16;
   return d <= 32 ? run_bwd<T, 32>(p, st, B, H, KV, S, Sk, d, scale, causal, window, part, s)
        : d <= 64 ? run_bwd<T, 64>(p, st, B, H, KV, S, Sk, d, scale, causal, window, part, s)
                  : run_bwd<T, 128>(p, st, B, H, KV, S, Sk, d, scale, causal, window, part, s);
@@ -2698,18 +3191,31 @@ extern "C" {
 
 int repro_flash_max_head_dim() { return kMaxHeadDim; }
 
-// float32 on the CUDA cores.  q (BH, S, d), k/v (BH, Sk, d) contiguous;
-// o (BH, S, d), lse (BH, S).  window <= 0: none.
-int repro_flash_fwd(const void* q, const void* k, const void* v, void* o,
-                    void* lse, int BH, int S, int Sk, int d, float scale,
-                    int causal, int window, void* stream) {
-  if (!valid(BH, S, Sk, d)) return (int)cudaErrorInvalidValue;
+// float32 on Hopper (namespace tf32): the interface of the bf16 forward
+// below on float32 views; vec = 1: every pointer and stride 16-byte aligned
+// and d % 4 == 0 (tiles by cp.async, 16-byte row stores), 0: element by
+// element.
+int repro_flash_fwd_f32(const void* q, const void* k, const void* v,
+                        void* o, void* lse, const long long* strides, int B,
+                        int H, int KV, int S, int Sk, int d, float scale,
+                        int causal, int window, int vec, void* stream) {
+  if (!hop::valid(B, H, KV, S, Sk, d)) return (int)cudaErrorInvalidValue;
+  tf32::Args a{};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.o = static_cast<float*>(o);
+  a.lse = static_cast<float*>(lse);
+  a.sq = hop::strides_at(strides, 0);
+  a.sk = hop::strides_at(strides, 1);
+  a.sv = hop::strides_at(strides, 2);
+  a.so = hop::strides_at(strides, 3);
+  a.H = H; a.KV = KV; a.S = S; a.Sk = Sk; a.d = d; a.scale = scale;
+  a.causal = causal; a.window = window; a.vec = vec;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      d <= 32 ? launch_fwd<float, 32>(q, k, v, o, lse, BH, S, Sk, d, scale, causal, window, s)
-      : d <= 64 ? launch_fwd<float, 64>(q, k, v, o, lse, BH, S, Sk, d, scale, causal, window, s)
-                : launch_fwd<float, 128>(q, k, v, o, lse, BH, S, Sk, d, scale, causal, window, s);
-  return (int)err;
+  return (int)(d <= 32 ? tf32::run_fwd<32>(a, B, s)
+               : d <= 64 ? tf32::run_fwd<64>(a, B, s)
+                         : tf32::run_fwd<128>(a, B, s));
 }
 
 // float32 on Hopper (namespace tf32): the interface of the bf16 backward
@@ -2727,9 +3233,9 @@ int repro_flash_bwd_f32(const void* q, const void* k, const void* v,
   a.q = static_cast<const float*>(q);
   a.k = static_cast<const float*>(k);
   a.v = static_cast<const float*>(v);
-  a.o = static_cast<const float*>(o);
+  a.o = static_cast<float*>(const_cast<void*>(o));
   a.dout = static_cast<const float*>(dout);
-  a.lse = static_cast<const float*>(lse);
+  a.lse = static_cast<float*>(const_cast<void*>(lse));
   a.dsum = static_cast<float*>(dsum);
   a.dq = static_cast<float*>(dq);
   a.dk = static_cast<float*>(dk);
@@ -2835,13 +3341,13 @@ int repro_flash_bwd_bf16(const void* q, const void* k, const void* v,
   return (int)err;
 }
 
-// Forward-mode tangents on the CUDA cores (namespace jvpk), dtype 0
-// float32 or 1 bfloat16.  `strides` holds the (b, s, h) element strides of
-// 13 views, in the order q, k, v, o, dout, tq, tk, tv, to, tdout, tdq,
-// tdk, tdv (a view a launch does not touch may be given as 0s); each view's
-// d has stride 1.  q-like views have H heads, k/v-like views KV, H % KV ==
-// 0.  lse, tlse, dsum and tdsum are (B, H, S) float32.
-// T1: o' into `to`, lse' into `tlse`.
+// Forward-mode tangents, dtype 0 float32 or 1 bfloat16.  `strides` holds
+// the (b, s, h) element strides of 13 views, in the order q, k, v, o,
+// dout, tq, tk, tv, to, tdout, tdq, tdk, tdv (a view a launch does not
+// touch may be given as 0s); each view's d has stride 1.  q-like views
+// have H heads, k/v-like views KV, H % KV == 0.  lse, tlse, dsum and tdsum
+// are (B, H, S) float32.
+// T1 (CUDA cores, namespace jvpk): o' into `to`, lse' into `tlse`.
 int repro_flash_fwd_tangent(const void* q, const void* k, const void* v,
                             const void* lse, const void* tq, const void* tk,
                             const void* tv, void* to, void* tlse,
@@ -2855,12 +3361,15 @@ int repro_flash_fwd_tangent(const void* q, const void* k, const void* v,
   p.out_q = to; p.out_lse = tlse;
   const jvpk::Views st = jvpk::views(strides, jvpk::kMaxViews);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(dtype ? jvpk::dispatch<__nv_bfloat16>(p, st, B, H, KV, S, Sk, d, scale, causal, window, -1, s)
-                     : jvpk::dispatch<float>(p, st, B, H, KV, S, Sk, d, scale, causal, window, -1, s));
+  return (int)(dtype ? jvpk::fwd_dispatch<__nv_bfloat16>(p, st, B, H, KV, S, Sk, d, scale, causal, window, s)
+                     : jvpk::fwd_dispatch<float>(p, st, B, H, KV, S, Sk, d, scale, causal, window, s));
 }
 
 // T2.  part 0: dq' into `tdq`, and D, D' into `dsum`, `tdsum`; part 1
 // (after part 0): dk' and dv', summed over each KV head's query heads.
+// float32 on the tensor cores (namespace tf32; tiles by cp.async where
+// every view's pointer and strides are 16-byte aligned and d % 4 == 0,
+// element by element otherwise), bfloat16 on the CUDA cores (jvpk).
 int repro_flash_bwd_tangent(const void* q, const void* k, const void* v,
                             const void* o, const void* dout, const void* lse,
                             const void* tq, const void* tk, const void* tv,
@@ -2872,14 +3381,48 @@ int repro_flash_bwd_tangent(const void* q, const void* k, const void* v,
                             int window, int part, int dtype, void* stream) {
   if (!jvpk::valid(B, H, KV, S, Sk, d, dtype) || (part != 0 && part != 1))
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    if (!hop::valid(B, H, KV, S, Sk, d)) return (int)cudaErrorInvalidValue;
+    tf32::TArgs a{};
+    const void* views[tf32::kViews] = {q, k, v, o, dout, tq, tk, tv, to,
+                                       tdout, tdq, tdk, tdv};
+    int vec = d % 4 == 0;
+    for (int i = 0; i < tf32::kViews; ++i) {
+      a.st[i] = hop::strides_at(strides, i);
+      vec = vec && reinterpret_cast<uintptr_t>(views[i]) % 16 == 0 &&
+            a.st[i].b % 4 == 0 && a.st[i].s % 4 == 0 && a.st[i].h % 4 == 0;
+    }
+    a.q = static_cast<const float*>(q);
+    a.k = static_cast<const float*>(k);
+    a.v = static_cast<const float*>(v);
+    a.o = static_cast<const float*>(o);
+    a.dout = static_cast<const float*>(dout);
+    a.lse = static_cast<const float*>(lse);
+    a.tq = static_cast<const float*>(tq);
+    a.tk = static_cast<const float*>(tk);
+    a.tv = static_cast<const float*>(tv);
+    a.to = static_cast<const float*>(to);
+    a.tdout = static_cast<const float*>(tdout);
+    a.tlse = static_cast<const float*>(tlse);
+    a.dsum = static_cast<float*>(dsum);
+    a.tdsum = static_cast<float*>(tdsum);
+    a.tdq = static_cast<float*>(tdq);
+    a.tdk = static_cast<float*>(tdk);
+    a.tdv = static_cast<float*>(tdv);
+    a.H = H; a.KV = KV; a.S = S; a.Sk = Sk; a.d = d; a.scale = scale;
+    a.causal = causal; a.window = window; a.vec = vec;
+    return (int)(d <= 32 ? tf32::run_tangent<32>(a, B, part, s)
+                 : d <= 64 ? tf32::run_tangent<64>(a, B, part, s)
+                           : tf32::run_tangent<128>(a, B, part, s));
+  }
   jvpk::Ptrs p{};
   p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout; p.lse = lse;
   p.tq = tq; p.tk = tk; p.tv = tv; p.to = to; p.tdout = tdout; p.tlse = tlse;
   p.dsum = dsum; p.tdsum = tdsum; p.out_q = tdq; p.out_k = tdk; p.out_v = tdv;
   const jvpk::Views st = jvpk::views(strides, jvpk::kMaxViews);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(dtype ? jvpk::dispatch<__nv_bfloat16>(p, st, B, H, KV, S, Sk, d, scale, causal, window, part, s)
-                     : jvpk::dispatch<float>(p, st, B, H, KV, S, Sk, d, scale, causal, window, part, s));
+  return (int)jvpk::bwd_dispatch(p, st, B, H, KV, S, Sk, d, scale, causal,
+                                 window, part, s);
 }
 
 }  // extern "C"

@@ -4,12 +4,11 @@ flash-attention kernels in ``csrc/flash_attention.cu``.
 Routing is by the tensors' device and dtype, written out here and never
 taken from a failure: CPU tensors go to the plain PyTorch versions in
 :mod:`.ref`; bfloat16 CUDA tensors to the Hopper kernels (``wgmma``,
-TMA), which read any view through its strides, so nothing is copied,
-transposed or expanded first.  float32 CUDA tensors: the backward goes to
-the Hopper kernels of namespace ``tf32`` (three TF32 products on the tensor
-cores for each float32 product), on the same strided views, K/V unexpanded;
-the forward to the CUDA-core kernel, which takes contiguous (B, H, S, d)
-with heads expanded.  A CUDA call launches its kernel or raises — there is
+TMA), float32 CUDA tensors to the Hopper kernels of namespace ``tf32``
+(three TF32 ``mma.sync`` products on the tensor cores for each float32
+product: the forward, the backward and T2).  Both read any view through
+its strides, so nothing is copied, transposed or expanded first: K/V keep
+their KV heads.  A CUDA call launches its kernel or raises — there is
 no fallback.  The kernels are compiled with ``nvcc`` for ``sm_90a`` at first
 use (:mod:`repro_torch.kernels.build`).
 
@@ -42,6 +41,8 @@ tangent kernels (T1 :func:`flash_attention_fwd_tangent`, T2
 namespace ``jvpk``) see plain tensors under ``vmap(vmap(jvp(grad)))``.
 Both take either layout (``heads_dim``) and float32 or bfloat16, and count
 one launch (T1) and two (T2: dQ', then dK'/dV') in ``launch_counts``.
+T2 in float32 runs on the tensor cores (namespace ``tf32``), T1 and T2 in
+bfloat16 on the CUDA cores.
 Reverse-over-reverse (``grad`` of ``grad``) still raises.
 """
 from __future__ import annotations
@@ -68,7 +69,7 @@ __all__ = ["MAX_HEAD_DIM", "build", "flash_attention",
 MAX_HEAD_DIM = 128        # kMaxHeadDim in the CUDA source
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 
-_DTYPES = (torch.float32, torch.bfloat16)   # CUDA-core, Hopper kernels
+_DTYPES = (torch.float32, torch.bfloat16)   # 3xTF32 mma.sync, wgmma
 
 launch_counts = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
                  "flash_attention_fwd_tangent": 0,
@@ -84,12 +85,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.repro_flash_max_head_dim.argtypes = []
     lib.repro_flash_max_head_dim.restype = i
-    lib.repro_flash_fwd.argtypes = [p] * 5 + [i] * 4 + [f] + [i] * 2 + [p]
-    lib.repro_flash_fwd.restype = i
     st = ctypes.POINTER(ctypes.c_longlong)
-    lib.repro_flash_fwd_bf16.argtypes = [p] * 5 + [st] + [i] * 6 + [f] + \
-        [i] * 3 + [p]
-    lib.repro_flash_fwd_bf16.restype = i
+    for fn in (lib.repro_flash_fwd_bf16, lib.repro_flash_fwd_f32):
+        fn.argtypes = [p] * 5 + [st] + [i] * 6 + [f] + [i] * 3 + [p]
+        fn.restype = i
     for fn in (lib.repro_flash_bwd_bf16, lib.repro_flash_bwd_f32):
         fn.argtypes = [p] * 10 + [st] + [i] * 6 + [f] + [i] * 4 + [p]
         fn.restype = i
@@ -198,19 +197,21 @@ def _dims(t: torch.Tensor, heads_dim: int) -> tuple[int, int]:
                                                             t.shape[1])
 
 
-def _fwd_bf16(q, k, v, causal: bool, window: int | None, scale: float,
-              heads_dim: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The Hopper forward: out in q's axis order and dtype, lse (B, H, S)
-    float32; K/V heads as given (H a multiple of KV)."""
+def _fwd_strided(q, k, v, causal: bool, window: int | None, scale: float,
+                 heads_dim: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Hopper forward of either dtype (bf16: ``wgmma``; float32: 3×TF32
+    ``mma.sync``), one launch: out in q's axis order and dtype, lse (B, H,
+    S) float32; K/V heads as given (H a multiple of KV)."""
     name = "flash_attention_fwd"
     q, k, v = (_strided(t) for t in (q, k, v))
     (H, S), (KV, Sk) = _dims(q, heads_dim), _dims(k, heads_dim)
     B, d = q.shape[0], q.shape[3]
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
-    _launch_strided(name, _LIB.lib.repro_flash_fwd_bf16,
-                    (q, k, v, out, lse), (q, k, v, out), heads_dim, B, H,
-                    KV, S, Sk, d, scale, int(causal),
+    entry = (_LIB.lib.repro_flash_fwd_bf16 if q.dtype == torch.bfloat16
+             else _LIB.lib.repro_flash_fwd_f32)
+    _launch_strided(name, entry, (q, k, v, out, lse), (q, k, v, out),
+                    heads_dim, B, H, KV, S, Sk, d, scale, int(causal),
                     0 if window is None else int(window))
     launch_counts[name] += 1
     return out, lse
@@ -253,23 +254,7 @@ def _fwd(q, k, v, causal: bool, window: int | None, scale: float | None
         return flash_fwd_ref(q, k, v, causal=causal, window=window,
                              scale=scale)
     _check_cuda(name, window, q=q, k=k, v=v)
-    if q.dtype == torch.bfloat16:
-        return _fwd_bf16(q, k, v, causal, window, scale, heads_dim=1)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    B, H, S, d = q.shape
-    Sk = k.shape[2]
-    out = torch.empty_like(q)
-    lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
-    lib = _LIB.lib
-    with torch.cuda.device(q.device):
-        err = lib.repro_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), B * H, S, Sk, d, scale, int(causal),
-            0 if window is None else int(window),
-            torch.cuda.current_stream().cuda_stream)
-    raise_on(err, name)
-    launch_counts[name] += 1
-    return out, lse
+    return _fwd_strided(q, k, v, causal, window, scale, heads_dim=1)
 
 
 def flash_attention_fwd_lse(q, k, v, *, causal: bool = True,
@@ -387,8 +372,9 @@ def flash_attention_bwd_tangent(q, k, v, out, lse, do, tq, tk, tv, tout,
     (q, k, v, out, lse, dO) along the tangents of all six, in the layout of
     ``heads_dim`` (as :func:`flash_attention_fwd_tangent`); dk' and dv'
     summed over each KV head's query heads.  Two launches: dq' (which also
-    writes D and D' into workspaces), then dk'/dv'.  The plain version is
-    :func:`.ref.flash_bwd_tangent_ref`."""
+    writes D and D' into workspaces), then dk'/dv'; float32 on the tensor
+    cores (3×TF32), bfloat16 on the CUDA cores, both on the views as
+    given.  The plain version is :func:`.ref.flash_bwd_tangent_ref`."""
     name = "flash_attention_bwd_tangent"
     B, H, KV, S, Sk, d = _layout(name, q, k, v, heads_dim)
     scale = _scale(q, scale)
@@ -609,12 +595,6 @@ def _check_gqa(name: str, q, k, v) -> None:
             f"q {tuple(q.shape)}")
 
 
-def _expand_heads(k: torch.Tensor, H: int) -> torch.Tensor:
-    """(B, S, KV, d) → (B, H, S, d) with KV heads repeated: what the
-    float32 forward kernel takes."""
-    return k.repeat_interleave(H // k.shape[2], dim=2).transpose(1, 2)
-
-
 def gqa_flash_attention_fwd_lse(q, k, v, causal: bool = True,
                                 window: int | None = None,
                                 scale: float | None = None
@@ -629,12 +609,7 @@ def gqa_flash_attention_fwd_lse(q, k, v, causal: bool = True,
         return gqa_flash_fwd_ref(q, k, v, causal=causal, window=window,
                                  scale=scale)
     _check_cuda(name, window, q=q, k=k, v=v)
-    if q.dtype == torch.bfloat16:
-        return _fwd_bf16(q, k, v, causal, window, scale, heads_dim=2)
-    H = q.shape[2]
-    out, lse = _fwd(q.transpose(1, 2), _expand_heads(k, H),
-                    _expand_heads(v, H), causal, window, scale)
-    return out.transpose(1, 2), lse
+    return _fwd_strided(q, k, v, causal, window, scale, heads_dim=2)
 
 
 def gqa_flash_attention_bwd(q, k, v, out, lse, do, causal: bool = True,

@@ -392,8 +392,8 @@ def test_cuda_flash_attention_raises_instead_of_falling_back(cuda):
 # The model layout with KV heads not expanded, against the plain versions
 # in that layout: in bfloat16 the Hopper kernels (the last case has d = 36,
 # whose rows are read element by element instead of by TMA); in float32 the
-# CUDA-core forward after the wrapper's expansion and the 3xTF32 backward
-# on the unexpanded views (d = 36 element by element as well).
+# 3xTF32 forward and backward on the unexpanded views (d = 36 by 16-byte
+# tiles, its rows being 144 bytes).
 GQA_CASES = [((2, 256, 12, 2, 128), True, None),
              ((1, 200, 4, 1, 64), False, 48),
              ((2, 40, 4, 2, 64), True, None),
@@ -762,17 +762,26 @@ TANGENT_IDS = ["bhsd-causal-256x128", "bhsd-window-ragged200x64",
                "gqa-qwen2-16x256-12x2-128"]
 
 
-def _flash_tangent_inputs(heads_dim, shape, dtype, device, seed=0):
+def _flash_tangent_inputs(heads_dim, shape, dtype, device, seed=0,
+                          unaligned=False):
+    """q, k, v, dO and their tangents in the layout of ``heads_dim``;
+    ``unaligned``: views of the first d columns of tensors with d + 1,
+    whose rows are not 16-byte aligned."""
     gen = torch.Generator().manual_seed(seed)
     if heads_dim == 1:
         qs = ks = shape
     else:
         B, S, H, KV, d = shape
         qs, ks = (B, S, H, d), (B, S, KV, d)
-    q, tq, do, tdo = (torch.randn(qs, generator=gen).to(device, dtype)
-                      for _ in range(4))
-    k, v, tk, tv = (torch.randn(ks, generator=gen).to(device, dtype)
-                    for _ in range(4))
+
+    def draw(s):
+        if not unaligned:
+            return torch.randn(s, generator=gen).to(device, dtype)
+        wide = torch.randn(*s[:-1], s[-1] + 1, generator=gen)
+        return wide.to(device, dtype)[..., :s[-1]]
+
+    q, tq, do, tdo = (draw(qs) for _ in range(4))
+    k, v, tk, tv = (draw(ks) for _ in range(4))
     return q, k, v, do, tq, tk, tv, tdo
 
 
@@ -805,6 +814,109 @@ def test_cuda_flash_tangents_match_plain_versions(cuda, dtype, heads_dim,
     for g, w in zip(grads, want):
         assert_tangent_close(g, w)
     torch.cuda.synchronize()
+
+
+# The float32 forward and T2 on their 3xTF32 kernels, over the cases that
+# reach their code paths (heads_dim, shape, causal, window, unaligned): both
+# layouts, d = 30 (d % 4 != 0) and unaligned views read element by element,
+# d 32, 64 and 128, ragged S, causal, full and window, GQA ratios 1, 2, 6.
+F32_CASES = [(1, (2, 3, 256, 128), True, None, False),
+             (1, (1, 2, 200, 64), False, 48, True),
+             (2, (2, 200, 4, 4, 32), True, None, False),
+             (2, (2, 130, 8, 4, 64), True, 48, False),
+             (2, (1, 300, 12, 2, 128), False, None, False),
+             (2, (2, 100, 6, 1, 30), True, None, False),
+             (2, (1, 160, 4, 2, 64), True, None, True)]
+F32_IDS = ["bhsd-causal-256x128", "bhsd-window-200x64-unaligned",
+           "gqa-causal-200-4x4-32", "gqa-window-130-8x4-64",
+           "gqa-full-300-12x2-128", "gqa-causal-100-6x1-30",
+           "gqa-causal-160-4x2-64-unaligned"]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("heads_dim,shape,causal,window,unaligned",
+                         F32_CASES, ids=F32_IDS)
+def test_cuda_f32_forward_and_t2_match_plain_versions(
+        cuda, heads_dim, shape, causal, window, unaligned):
+    """The 3xTF32 forward (out, lse; one launch) within the float32
+    forward tolerance of its plain version, and T2 (dq', dk', dv'; two
+    launches) within TANGENT_TOL of ``torch.func.jvp`` of the plain
+    backward."""
+    q, k, v, do, tq, tk, tv, tdo = _flash_tangent_inputs(
+        heads_dim, shape, torch.float32, cuda, unaligned=unaligned)
+    kw = dict(causal=causal, window=window)
+    before = dict(fops.launch_counts)
+    if heads_dim == 1:
+        out, lse = fops.flash_attention_fwd_lse(q, k, v, **kw)
+        lse = lse[..., 0]
+        want, want_lse = fref.flash_fwd_ref(q, k, v, **kw)
+    else:
+        out, lse = fops.gqa_flash_attention_fwd_lse(q, k, v, **kw)
+        want, want_lse = fref.gqa_flash_fwd_ref(q, k, v, **kw)
+    assert fops.launch_counts["flash_attention_fwd"] == \
+        before["flash_attention_fwd"] + 1
+    fwd_tol = FLASH_TOL[torch.float32][0]
+    assert_flash_close(out, want, fwd_tol)
+    torch.testing.assert_close(lse, want_lse, **fwd_tol)
+    tkw = dict(kw, heads_dim=heads_dim)
+    want_to, want_tlse = fref.flash_fwd_tangent_ref(q, k, v, tq, tk, tv,
+                                                    **tkw)
+    grads = fops.flash_attention_bwd_tangent(q, k, v, want, want_lse, do, tq,
+                                             tk, tv, want_to, want_tlse, tdo,
+                                             **tkw)
+    assert fops.launch_counts["flash_attention_bwd_tangent"] == \
+        before["flash_attention_bwd_tangent"] + 2
+    wants = fref.flash_bwd_tangent_ref(q, k, v, want, want_lse, do, tq, tk,
+                                       tv, want_to, want_tlse, tdo, **tkw)
+    for g, w in zip(grads, wants):
+        assert_tangent_close(g, w)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.requires_cuda
+def test_cuda_f32_forward_and_t2_launch_only_their_kernels(cuda):
+    """At lm-100m's attention shape (16, 256, 8 heads, 4 KV heads, 64) in
+    float32, a forward call runs the one 3xTF32 forward kernel on the card
+    and a T2 call its two tangent kernels, and nothing else: no head
+    expansion, copy or elementwise kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v, do, tq, tk, tv, tdo = _flash_tangent_inputs(
+        2, (16, 256, 8, 4, 64), torch.float32, cuda)
+    out, lse = fops.gqa_flash_attention_fwd_lse(q, k, v)
+    to, tlse = fops.flash_attention_fwd_tangent(q, k, v, lse, tq, tk, tv,
+                                                heads_dim=2)
+    t2 = lambda: fops.flash_attention_bwd_tangent(
+        q, k, v, out, lse, do, tq, tk, tv, to, tlse, tdo, heads_dim=2)
+    t2()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as fwd:
+        fops.gqa_flash_attention_fwd_lse(q, k, v)
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as bwd:
+        grads = t2()
+        torch.cuda.synchronize()
+    assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+    names = _device_kernels(fwd)
+    assert len(names) == 1 and "tf32::fwd_kernel" in names[0], names
+    names = _device_kernels(bwd)
+    assert len(names) == 2 and all("tf32::tangent_d" in n for n in names), \
+        names
+
+
+@pytest.mark.requires_cuda
+def test_cuda_f32_forward_and_t2_raise_when_their_kernels_cannot_launch(
+        cuda):
+    """A batch past the grid's 65535 limit: each float32 launch is refused
+    and the call raises; nothing runs in its place."""
+    q = torch.ones(65536, 1, 1, 8, device=cuda)
+    lse = torch.zeros(65536, 1, 1, device=cuda)
+    before = dict(fops.launch_counts)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fops.gqa_flash_attention_fwd_lse(q, q, q)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fops.flash_attention_bwd_tangent(q, q, q, q, lse, q, q, q, q, q, lse,
+                                         q, heads_dim=2)
+    assert fops.launch_counts == before
 
 
 SSD_TANGENT_SHAPES = [(128, 32, 2, 2, 16, 32), (96, 48, 4, 2, 8, 16),

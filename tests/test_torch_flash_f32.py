@@ -1,14 +1,17 @@
-"""The float32 flash-attention backward's route to its Hopper kernels
-(namespace ``tf32`` of ``csrc/flash_attention.cu``), on the CPU.
+"""The float32 flash-attention routes to their Hopper kernels (namespace
+``tf32`` of ``csrc/flash_attention.cu``: the forward, the backward and the
+backward's tangent T2), on the CPU.
 
 * The kernels' arithmetic, modelled in PyTorch (``ref.split_tf32``,
   ``ref.tf32_matmul``): every product as three TF32 products.  Through that
   model the attention gradients stay within the float32 backward tolerance
-  of a float64 backward; one TF32 product a product would not.
-* What the wrapper hands the kernel entry: a fake library records the
-  launches, so the model layout's backward is seen to pass the caller's
-  unexpanded K/V (by data pointer and strides), never to expand heads,
-  and to get dK/dV back as (B, S, KV, d).
+  of a float64 backward, and T2's tangents within the float32 tangent
+  tolerance of ``torch.func.jvp`` of a float64 backward; one TF32 product a
+  product would not.  (The forward's model is test_torch_flash_tf32_fwd.py.)
+* What the wrappers hand the kernel entries: a fake library records the
+  launches, so the model layout's forward, backward and T2 are seen to
+  pass the caller's views in place, K/V unexpanded (by data pointer and
+  strides), never to expand heads, and to get dK/dV back as (B, S, KV, d).
 The kernels themselves run in test_torch_cuda.py and chip_smoke.py."""
 import contextlib
 import math
@@ -23,6 +26,9 @@ from repro_torch.kernels.flash_attention import ops, ref
 # chip_smoke.py's FLASH_TOL[float32]["bwd"]: the kernels' gradients against
 # autograd and the plain version.
 BWD_TOL = dict(rtol=1e-4, atol=1e-4)
+# chip_smoke.py's TANGENT_TOL[float32]: within 1e-4 of the output's largest
+# |value|.
+TANGENT_REL = 1e-4
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -118,17 +124,111 @@ def test_split_tf32_rounds_to_nearest_and_keeps_21_bits():
     assert torch.equal(ref.tf32_round(-x), -ref.tf32_round(x))
 
 
+def _bwd64(q, k, v, out, lse, do, causal, window, scale):
+    """The FlashAttention-2 backward in float64 (P from lse, D from the
+    stored output): what T2 is the tangent of."""
+    s = torch.where(_mask(q.shape[2], causal, window),
+                    q @ k.transpose(-1, -2) * scale, ref.NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    ds = p * (do @ v.transpose(-1, -2)
+              - (do * out).sum(-1, keepdim=True)) * scale
+    return ds @ k, ds.transpose(-1, -2) @ q, p.transpose(-1, -2) @ do
+
+
+def _t2_model(q, k, v, out, lse, do, tq, tk, tv, tout, tlse, tdo, causal,
+              window, scale, products):
+    """T2's kernels' arithmetic on float32 inputs: S, S', dP, dP', dQ',
+    dK' and dV' each through ``tf32_matmul``; P = exp(S - lse), P' = P (S'
+    - lse'), D, D', dS and dS' in float32."""
+    mm = lambda a, b: ref.tf32_matmul(a, b, products)
+    t = lambda x: x.transpose(-1, -2)
+    mask = _mask(q.shape[2], causal, window)
+    p = torch.exp(torch.where(mask, mm(q, t(k)) * scale, ref.NEG_INF)
+                  - lse[..., None])
+    pd = p * ((mm(tq, t(k)) + mm(q, t(tk))) * scale - tlse[..., None])
+    dp = mm(do, t(v))
+    dpd = mm(tdo, t(v)) + mm(do, t(tv))
+    dsum = (do * out).sum(-1, keepdim=True)
+    tdsum = (tdo * out + do * tout).sum(-1, keepdim=True)
+    ds = p * (dp - dsum)
+    dsd = pd * (dp - dsum) + p * (dpd - tdsum)
+    return (scale * (mm(dsd, k) + mm(ds, tk)),
+            scale * (mm(t(dsd), q) + mm(t(ds), tq)),
+            mm(t(pd), do) + mm(t(p), tdo))
+
+
+def _tangent_outside(got, want):
+    err = (got.double() - want).abs()
+    return int((err > TANGENT_REL * want.abs().max()).sum())
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 64)],
+                         ids=["causal", "full", "window64"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_3xtf32_backward_tangent_meets_the_float32_tolerance(d, causal,
+                                                             window):
+    """T2's tangents (dq', dk', dv') through the 3×TF32 model within 1e-4
+    of the largest |value| (``TANGENT_TOL[float32]``) of ``torch.func.jvp``
+    of a float64 backward, at the point the float64 forward gives (out,
+    lse and their tangents rounded to float32, as the kernels read them);
+    one TF32 product a product leaves elements outside."""
+    rng = np.random.default_rng(11 * d + (window or 0) + causal)
+    q, k, v, do, tq, tk, tv, tdo = (torch.from_numpy(
+        rng.standard_normal((1, 2, 256, d))) for _ in range(8))
+    scale = 1.0 / math.sqrt(d)
+
+    def f64_forward(q, k, v):
+        s = torch.where(_mask(q.shape[2], causal, window),
+                        q @ k.transpose(-1, -2) * scale, ref.NEG_INF)
+        lse = torch.logsumexp(s, -1)
+        return torch.exp(s - lse[..., None]) @ v, lse
+
+    (out, lse), (tout, tlse) = torch.func.jvp(f64_forward, (q, k, v),
+                                              (tq, tk, tv))
+    point = tuple(t.float().double() for t in (q, k, v, out, lse, do))
+    tangent = tuple(t.float().double() for t in (tq, tk, tv, tout, tlse,
+                                                 tdo))
+    want = torch.func.jvp(
+        lambda *a: _bwd64(*a, causal, window, scale), point, tangent)[1]
+    f32 = [t.float() for t in point + tangent]
+    three = _t2_model(*f32, causal, window, scale, 3)
+    one = _t2_model(*f32, causal, window, scale, 1)
+    err = lambda gs: max(float(((g.double() - w).abs().max())
+                               / w.abs().max()) for g, w in zip(gs, want))
+    bad3 = [_tangent_outside(g, w) for g, w in zip(three, want)]
+    bad1 = [_tangent_outside(g, w) for g, w in zip(one, want)]
+    print(f"d={d} causal={causal} window={window}: 3xTF32 largest err "
+          f"{err(three):.2e} of the largest |value| ({sum(bad3)} outside "
+          f"{TANGENT_REL}); one TF32 product {err(one):.2e} ({sum(bad1)} "
+          f"outside)")
+    assert bad3 == [0, 0, 0]
+    assert sum(bad1) > 0 and err(one) > 10 * err(three)
+
+
 class _FakeLib:
-    """Records each call of the float32 backward's C entry: the pointer
-    arguments, the strides array and the scalars."""
+    """Records each call of the float32 forward's, backward's and T2's C
+    entries: the pointer arguments, the strides array and the scalars."""
 
     def __init__(self):
         self.calls = []
 
     def repro_flash_bwd_f32(self, *args):
         ptrs, strides, rest = args[:10], args[10], args[11:]
-        self.calls.append(dict(ptrs=ptrs, strides=list(strides)[:24],
-                               rest=rest))
+        self.calls.append(dict(entry="bwd", ptrs=ptrs,
+                               strides=list(strides)[:24], rest=rest))
+        return 0
+
+    def repro_flash_fwd_f32(self, *args):
+        ptrs, strides, rest = args[:5], args[5], args[6:]
+        self.calls.append(dict(entry="fwd", ptrs=ptrs,
+                               strides=list(strides)[:12], rest=rest))
+        return 0
+
+    def repro_flash_bwd_tangent(self, *args):
+        ptrs, strides, rest = args[:17], args[17], args[18:]
+        self.calls.append(dict(entry="tangent", ptrs=ptrs,
+                               strides=list(strides)[:39], rest=rest))
         return 0
 
 
@@ -146,7 +246,7 @@ def fake_launch(monkeypatch):
                         lambda: types.SimpleNamespace(cuda_stream=0))
 
     def no_expansion(*args, **kw):
-        raise AssertionError("the float32 backward expanded K/V heads")
+        raise AssertionError("a float32 kernel route expanded K/V heads")
 
     monkeypatch.setattr(torch.Tensor, "repeat_interleave", no_expansion)
     monkeypatch.setattr(torch, "repeat_interleave", no_expansion)
@@ -207,3 +307,77 @@ def test_heads_first_backward_reads_views_in_place(fake_launch):
     odd = torch.randn(B, S, H, d + 1, generator=gen)[..., :d].transpose(1, 2)
     ops.flash_attention_bwd(odd, k, v, out, lse, do)
     assert fake_launch.calls[-1]["rest"][10] == 0       # element by element
+
+
+def test_model_layout_forward_hands_the_kernel_unexpanded_kv(fake_launch):
+    """``gqa_flash_attention_fwd_lse`` in float32: one launch of the 3×TF32
+    forward, given q, k and v by their own data pointers and (b, s, h)
+    strides — K/V with their 2 KV heads, not 4 — and out allocated in q's
+    layout (B, S, H, d), lse as (B, H, S)."""
+    B, S, H, KV, d = 2, 64, 4, 2, 32
+    gen = torch.Generator().manual_seed(2)
+    q = torch.randn(B, S, H, d, generator=gen)
+    k, v = (torch.randn(B, S, KV, d, generator=gen) for _ in "kv")
+    before = ops.launch_counts["flash_attention_fwd"]
+    out, lse = ops.gqa_flash_attention_fwd_lse(q, k, v, window=16)
+    assert ops.launch_counts["flash_attention_fwd"] == before + 1
+    assert out.shape == (B, S, H, d) and lse.shape == (B, H, S)
+    (c,) = fake_launch.calls
+    assert c["entry"] == "fwd"
+    assert c["ptrs"] == tuple(t.data_ptr() for t in (q, k, v, out, lse))
+    assert c["strides"] == sum((_bsh(t, 2) for t in (q, k, v, out)), [])
+    assert c["rest"][:6] == (B, H, KV, S, S, d)
+    assert c["rest"][7:10] == (1, 16, 1)         # causal, window, vec
+
+
+def test_heads_first_forward_reads_views_in_place(fake_launch):
+    """``flash_attention_fwd_lse`` in float32 on (B, H, S, d) views of (B,
+    S, H, d) tensors: the views' own pointers and strides, no contiguous
+    copy, out as (B, H, S, d); rows that are not 16-byte aligned turn the
+    16-byte tiles off."""
+    B, S, H, d = 1, 48, 2, 16
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(B, S, H, d, generator=gen).transpose(1, 2)
+               for _ in range(3))
+    out, lse = ops.flash_attention_fwd_lse(q, k, v, causal=False)
+    assert out.shape == (B, H, S, d) and lse.shape == (B, H, S, 1)
+    c = fake_launch.calls[-1]
+    assert c["ptrs"][:3] == tuple(t.data_ptr() for t in (q, k, v))
+    assert c["strides"][:9] == sum((_bsh(t, 1) for t in (q, k, v)), [])
+    assert c["rest"][7:10] == (0, 0, 1)          # causal, window, vec
+    odd = torch.randn(B, S, H, d + 1, generator=gen)[..., :d].transpose(1, 2)
+    ops.flash_attention_fwd_lse(odd, k, v)
+    assert fake_launch.calls[-1]["rest"][9] == 0        # element by element
+
+
+def test_float32_tangent_hands_the_kernels_views_in_place(fake_launch):
+    """``flash_attention_bwd_tangent`` in float32, the model layout: two
+    launches (dq' with D and D', then dk'/dv'), each given the caller's
+    twelve inputs by their own data pointers and all thirteen views' (b,
+    s, h) strides — K/V and their tangents with their 2 KV heads — dtype
+    flag 0 (the 3×TF32 kernels), and dk'/dv' allocated as (B, S, KV, d)."""
+    B, S, H, KV, d = 2, 64, 4, 2, 32
+    gen = torch.Generator().manual_seed(4)
+    q, out, do, tq, tout, tdo = (torch.randn(B, S, H, d, generator=gen)
+                                 for _ in range(6))
+    k, v, tk, tv = (torch.randn(B, S, KV, d, generator=gen)
+                    for _ in range(4))
+    lse, tlse = (torch.randn(B, H, S, generator=gen) for _ in "lt")
+    before = ops.launch_counts["flash_attention_bwd_tangent"]
+    tdq, tdk, tdv = ops.flash_attention_bwd_tangent(
+        q, k, v, out, lse, do, tq, tk, tv, tout, tlse, tdo, heads_dim=2)
+    assert ops.launch_counts["flash_attention_bwd_tangent"] == before + 2
+    assert tdq.shape == (B, S, H, d)
+    assert tdk.shape == tdv.shape == (B, S, KV, d)
+    calls = fake_launch.calls
+    assert [c["entry"] for c in calls] == ["tangent", "tangent"]
+    assert [c["rest"][-3] for c in calls] == [0, 1]     # dq', then dk'/dv'
+    views = (q, k, v, out, do, tq, tk, tv, tout, tdo, tdq, tdk, tdv)
+    for c in calls:
+        ptrs = c["ptrs"]
+        assert ptrs[:12] == tuple(t.data_ptr() for t in (
+            q, k, v, out, do, lse, tq, tk, tv, tout, tdo, tlse))
+        assert ptrs[14:] == tuple(t.data_ptr() for t in (tdq, tdk, tdv))
+        assert c["strides"] == sum((_bsh(t, 2) for t in views), [])
+        assert c["rest"][:6] == (B, H, KV, S, S, d)
+        assert c["rest"][-2] == 0                        # float32
