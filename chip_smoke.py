@@ -8,20 +8,25 @@ Phases, each fatal on failure:
 1. device    -- a CUDA card must be present; prints its name and power limit.
 2. build     -- compiles the CUDA sources of ``kernels/dif_combine/csrc``,
                 ``kernels/flash_attention/csrc`` and ``kernels/ssd_scan/csrc``
-                with nvcc for sm_90a, all at once, and prints the build
+                (the scan and its backward, two sources) with nvcc for
+                sm_90a, all at once, and prints the build
                 seconds and, from ``cuobjdump -sass``, the tensor-core
                 instructions in each Hopper kernel: HGMMA (wgmma) in the
                 bf16 flash forward, dQ and dK/dV kernels, the SSD
                 chunk-state and chunk-output kernels and T3's tangent
                 chunk-state and chunk-output kernels, HMMA (mma.sync on
                 TF32) in the float32 flash forward, dQ and dK/dV kernels and
-                T2's two float32 kernels; each must have some.  Then one
+                T2's two float32 kernels, HMMA (mma.sync on bf16) in the
+                SSD backward's and its tangent's state and chunk kernels;
+                each must have some.  Then one
                 call of ``gqa_flash_attention`` at the serving shape must
                 run one kernel forward and two backward, at lm-100m's shape
                 one float32 forward its one kernel, one float32 backward its
                 two and one float32 T2 its two, one bf16 SSD scan call the
-                SSD's three kernels and one bf16 ``ssd_scan_tangent`` call
-                T3's three, and nothing else: no head expansion, copy or
+                SSD's three kernels, one bf16 ``ssd_scan_tangent`` call
+                T3's three, and one bf16 ``ssd_scan_bwd`` and one
+                ``ssd_scan_bwd_tangent`` call their five each, and nothing
+                else: no head expansion, copy or
                 elementwise kernel beside them (torch.profiler, before any
                 other profiling: sessions after phase 5's miss kernels).
 3. kernels   -- holds ``dif_combine`` and ``fused_combine_update`` against
@@ -119,28 +124,41 @@ Phases, each fatal on failure:
                 row prints its errors, the kernel's time, the plain
                 version's, the port's chunked torch scan's and the bound;
                 at the serving shape also the time of the pairing's
-                backward (the chunked scan's VJP) and what it allocates at
-                its peak, beside one VJP over the whole loop of chunks
-                (every chunk's tiles live at once) on the same inputs.
+                backward (the backward's kernels) and what it allocates at
+                its peak, beside the chunked scan's VJP they replaced and
+                one VJP over the whole loop of chunks (every chunk's tiles
+                live at once) on the same inputs.
                 Each of the bf16 route's three kernels (chunk states, state
                 passing, chunk outputs) is held against its plain version
                 on the grid, a ragged row (chunk 48, P=8, N=16, two groups)
                 and the serving shape, where each is timed beside its bound;
                 the two-halves check runs in both dtypes; the call's time is
                 printed beside its bound, this design's bound and the time
-                of the CUDA-core kernel it replaced.
+                of the CUDA-core kernel it replaced.  Then the scan's
+                backward (``ssd_scan_bwd``, five launches of
+                ``csrc/ssd_bwd.cu``) against its three plain passes
+                composed, within SSD_BWD_TOL: the grid, a ragged row (chunk
+                48, A per sequence), full-width heads, one chunk of 100
+                rows and seg falling past 88, in both dtypes, and the
+                mamba2 training shape (both dtypes) and serving shape
+                (bf16), timed beside the plain version, the chunked VJP it
+                replaced and the bound (and each wrapper), with planted
+                faults (the state cotangent not carried, dA without a
+                chunk's term, dB not summed over a group's heads) that must
+                fail; every row's second call must give the same bits.
 10. mamba2 serve -- runs ``python -m repro_torch.launch.serve --arch
                 mamba2-130m --layers 12 --prompt-len 512 --gen 512`` at
                 full width cut to 12 of its 24 layers (bfloat16, fresh init
                 from seed 0; 4 users x 4 sequences x 1024 tokens, 2 adapt
-                steps, 2 rounds).  The ssd_scan call counter and each of
-                its three kernels' launch counters, zeroed just before,
-                must show 12 x 2 (one adapt dispatch); 4 misses then 4 hits; finite adapted
-                leaves; falling support losses; 1024 tokens a sequence.
-                Prints the serve phase's numbers as phase 7 does, the device
-                time of one more dispatch split between the forward kernels
-                and the chunked-scan backward (torch.profiler), and where
-                its peak memory goes.
+                steps, 2 rounds).  The ssd_scan and ssd_scan_bwd call
+                counters and each of their kernels' launch counters, zeroed
+                just before, must show 12 x 2 (one adapt dispatch); 4
+                misses then 4 hits; finite adapted leaves; falling support
+                losses; 1024 tokens a sequence.  Prints the serve phase's
+                numbers as phase 7 does, the device time of one more
+                dispatch split between the forward kernels and the
+                backward's kernels by name (torch.profiler), and where its
+                peak memory goes.
 11. mamba2 agreement -- phase 8 for mamba2-130m cut to 2 layers at full
                 width, one episode of 4 x 1024 tokens: float32 within 1e-4
                 relative, bfloat16 within 1e-3.
@@ -164,7 +182,10 @@ Phases, each fatal on failure:
                 timed at the last two beside its bound and this design's.
                 Prints each timed kernel's ms, the plain version's ms and
                 the bound, and T3's call beside the CUDA-core kernel it
-                replaced.  Runs before phase 5, as phase 6.
+                replaced.  Then the backward's tangent
+                (``ssd_scan_bwd_tangent``, the backward's five kernels on
+                dual numbers) over phase 9's backward rows, the same way.
+                Runs before phase 5, as phase 6.
 13. mamba2 training -- this slice's main path: ``launch.train.main`` in
                 this process on mamba2-130m at full width cut to 8 of its
                 24 layers (``--layers 8``; bf16, fresh init from seed 0), K=4 agents on the ring,
@@ -173,13 +194,16 @@ Phases, each fatal on failure:
                 steps in dispatches of 2, eval every 2 steps (4 tasks, 1
                 adaptation step), a checkpoint every 2; the launch counters
                 are zeroed just before and read just after, and the SSD
-                kernels, T3 and the fused update must have launched; the
+                kernels, T3, the scan's backward and its tangent
+                (``ssd_scan_bwd``, ``ssd_scan_bwd_tangent``, each of their
+                five kernels) and the fused update must have launched; the
                 losses are finite, the disagreement falls, the run log
                 passes ``scripts/check_run_log.py --expect-fused``.  Then a
                 second run from the step-2 checkpoint alone must reach the
                 uninterrupted step-4 loss within 1e-3, and one meta-step of
                 the final state is profiled (device time split, idle share,
-                peak memory, T3 launched).
+                peak memory, T3 and the backward's tangent launched; the
+                SSD backward and its tangent reported by kernel name).
 14. qwen2 training -- the same for qwen2-1.5b at full width cut to 2
                 layers, ``--combine pallas``, 256 tokens, 2 steps: the
                 flash kernels, T1, T2 and ``dif_combine`` must launch.
@@ -282,6 +306,7 @@ SOURCE = "src/repro_torch/kernels/dif_combine/csrc/dif_combine.cu"
 FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
                 "flash_attention.cu")
 SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+SSD_BWD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_bwd.cu"
 REPLACES = {"dif_combine": "src/repro/kernels/dif_combine/dif_combine.py:94",
             "fused_combine_update":
                 "src/repro/kernels/dif_combine/dif_combine.py:174",
@@ -304,6 +329,26 @@ SSD_FORWARD_KERNELS = (*SSD_PASSES.values(), "ssd_scan_kernel")
 T3_PASSES = {"ssd_tangent_state": "tangent_state_kernel",
              "ssd_tangent_pass": "tangent_pass_kernel",
              "ssd_tangent_scan": "tangent_scan_kernel"}
+# The scan backward's five kernels (launch-count keys, and the names
+# torch.profiler reports them by), and its tangent's.
+SSD_BWD_KERNELS = {f"ssd_bwd_{k}": f"sbw::{k}_kernel"
+                   for k in ("state", "pass", "chunk", "finish", "reduce")}
+SSD_BWD_TANGENT_KERNELS = {
+    k.replace("ssd_bwd_", "ssd_bwd_tangent_"): v.replace("sbw::",
+                                                         "sbw::tangent_")
+    for k, v in SSD_BWD_KERNELS.items()}
+# The backward and its tangent against their plain versions (the same
+# float32 math), as (rtol, share of the largest |value|): float32 results
+# within 1e-4 of the largest |value| (sums in another order); the bf16
+# route's dx, dB and dC (rounded to bf16) one bf16 rounding plus 2^-8 of
+# the largest |value|, its ddt and dA (float32, hi/lo products keeping 16
+# bits of each float32 operand) as float32.  Where seg falls past 88 within
+# a chunk, dA within STEEP_DA_REL: it sums the chunk's rows of a
+# difference of row and column sums that nearly cancel, and two float32
+# orders of it differed by 1.8e-4 of its largest |value| on an H100.
+SSD_BWD_TOL = {torch.float32: (0.0, 1e-4),
+               torch.bfloat16: (1.6e-2, 2.0 ** -8)}
+STEEP_DA_REL = 1e-3
 # What the CUDA-core kernel that the bf16 route replaced took for one bf16
 # scan at the serving shape on an H100 (PERF.md, row 5 of the kernel
 # table), printed beside this run's time.
@@ -1673,16 +1718,21 @@ def device_ms(fn) -> float | str:
 
 
 def ssd_bwd_compare(sops, layers, inputs, chunk) -> dict:
-    """The pairing's backward (the chunked scan's VJP chunk by chunk, one
-    chunk's (B, c, c, H) tiles live at a time) against one
+    """The pairing's backward on the card (the backward's kernels,
+    ``ssd_scan_bwd``) against the chunked scan's VJP it replaced (chunk by
+    chunk, one chunk's (B, c, c, H) tiles live at a time) and one
     ``torch.func.vjp`` over the whole loop of chunks (every chunk's tiles
     live at once), on the same inputs in one process: time with the host's
-    dispatch, kernel time, peak allocation, and the largest gradient
-    difference."""
+    dispatch, kernel time, peak allocation, and the largest difference of
+    each from the kernels' gradients."""
+    from repro_torch.kernels.ssd_scan import chunked
     x, dt, A, Bm, Cm, gy, gs = inputs
 
-    def by_chunk():
+    def kernels():
         return sops._chunked_vjp(x, dt, A, Bm, Cm, gy, gs, chunk)
+
+    def by_chunk():
+        return chunked.ssd_scan_vjp(x, dt, A, Bm, Cm, gy, gs, chunk)
 
     def whole_loop():
         _, vjp_fn = torch.func.vjp(
@@ -1690,13 +1740,15 @@ def ssd_bwd_compare(sops, layers, inputs, chunk) -> dict:
             x, dt, A, Bm, Cm)
         return vjp_fn((gy.float(), gs.float()))
 
+    fns = (("kernels", kernels), ("by_chunk", by_chunk),
+           ("whole_loop", whole_loop))
     row = {name: dict(ms=time_events(fn, 3), device_ms=device_ms(fn),
-                      peak_gb=peak_gb(fn))
-           for name, fn in (("by_chunk", by_chunk),
-                            ("whole_loop", whole_loop))}
-    row["max_abs_grad_diff"] = max(
-        float((a.float() - b.float()).abs().max())
-        for a, b in zip(by_chunk(), whole_loop()))
+                      peak_gb=peak_gb(fn)) for name, fn in fns}
+    ours = kernels()
+    for name, fn in fns[1:]:
+        row[name]["max_abs_grad_diff"] = max(
+            float((a.float() - b.float()).abs().max())
+            for a, b in zip(ours, fn()))
     return row
 
 
@@ -1796,7 +1848,8 @@ def ssd_phase(sops, sref, layers):
           f"CUDA-core kernel it replaced {SSD_SIMT_MS} ms (PERF.md)",
           flush=True)
     torch.cuda.empty_cache()
-    return main, rows, continuity, passes, pass_rows
+    bwd = ssd_bwd_rows(sops, sref, gen)
+    return main, rows, continuity, passes, pass_rows, bwd
 
 
 def ssd_summary(main, rows, continuity, passes, pass_rows, calls,
@@ -1835,6 +1888,447 @@ def ssd_summary(main, rows, continuity, passes, pass_rows, calls,
          "shape": f"{shape}; one launch a bf16 call",
          "sweep_worst_err": max(r[name]["max_abs_err"] for r in pass_rows)}
         for name in SSD_PASSES]
+
+
+# ---------------------------------------------------------------------------
+# Phases 9 and 12: the scan's backward (ssd_scan_bwd) and its tangent
+# (ssd_scan_bwd_tangent), csrc/ssd_bwd.cu
+# ---------------------------------------------------------------------------
+
+BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC")
+
+
+def bwd_outside(got, want, steep=False) -> tuple[int, float]:
+    """(elements of ``got`` outside SSD_BWD_TOL of ``want``, non-finite
+    ones included; the largest |got - want|), for one gradient: ``want``'s
+    dtype picks the limit; dA where seg falls past 88 STEEP_DA_REL."""
+    rtol, rel = SSD_BWD_TOL[want.dtype]
+    if steep:
+        rel = max(rel, STEEP_DA_REL)
+    g, w = got.detach().float(), want.detach().float()
+    err = (g - w).abs()
+    limit = rtol * w.abs() + rel * w.abs().max()
+    bad = int((err > limit).sum()) + int((~torch.isfinite(g)).sum())
+    return bad, float(err.max()) if err.numel() else 0.0
+
+
+def check_bwd_grads(got, want, what, steep=False) -> dict:
+    """Each of the five gradients (or their tangents) within its limit;
+    raises otherwise.  Returns each one's largest error."""
+    errs = {}
+    for name, g, w in zip(BWD_NAMES, got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{what} {name}: {tuple(g.shape)} {g.dtype} "
+                                 f"vs {tuple(w.shape)} {w.dtype}")
+        bad, errs[name] = bwd_outside(g, w, steep and name == "dA")
+        if bad:
+            raise AssertionError(f"{what} {name}: {bad} elements outside "
+                                 f"{SSD_BWD_TOL[w.dtype]} (max abs err "
+                                 f"{errs[name]:.3e})")
+    return errs
+
+
+def ssd_bwd_inputs(gen, B, L, H, P, N, G, dtype, per_sequence_A=False,
+                   steep_dt=None, tangents=False):
+    """ssd_inputs with the cotangents gy (x's dtype) and gs (float32),
+    A per sequence on request, every dt ``steep_dt`` on request (seg then
+    falls by hundreds within a chunk), and standard normal tangents of all
+    seven with ``tangents``."""
+    x, dt, A, Bm, Cm = ssd_inputs(gen, B, L, H, P, N, G, dtype)
+    if steep_dt is not None:
+        dt = torch.full_like(dt, steep_dt)
+    if per_sequence_A:
+        A = A * (0.5 + torch.rand(B, 1, generator=gen, device=DEVICE))
+    gy = torch.randn(x.shape, generator=gen, device=DEVICE).to(dtype)
+    gs = torch.randn(B, H, P, N, generator=gen, device=DEVICE)
+    args = [x, dt, A, Bm, Cm, gy, gs]
+    if not tangents:
+        return args
+    return args, [torch.randn(a.shape, generator=gen, device=DEVICE
+                              ).to(a.dtype) for a in args]
+
+
+def bwd_plain(sref, args, chunk):
+    """The backward's three plain passes composed."""
+    S, Lc, seg = sref.bwd_state_ref(*args[:6], chunk)
+    s_in, gO, sg = sref.bwd_state_pass_ref(S, Lc, seg, args[6], chunk)
+    return sref.bwd_chunk_ref(*args[:6], seg, s_in, gO, sg, chunk)
+
+
+def bwd_tangent_plain(sref, args, targs, chunk):
+    """The tangent's three plain passes composed."""
+    S, tS, Lc, tLc, seg, tseg = sref.tangent_bwd_state_ref(
+        *args[:6], *targs[:6], chunk)
+    s_in, ts_in, gO, tgO, sg, tsg = sref.tangent_bwd_state_pass_ref(
+        S, tS, Lc, tLc, seg, tseg, args[6], targs[6], chunk)
+    return sref.tangent_bwd_chunk_ref(*args[:6], seg, s_in, gO, sg,
+                                      *targs[:6], tseg, ts_in, tgO, tsg,
+                                      chunk)
+
+
+def ssd_bwd_cost(B, L, H, P, N, G, chunk, itemsize, tangent=False
+                 ) -> dict:
+    """(bytes, flops) of each of the backward's three wrappers and of the
+    whole call: inputs read once, outputs written once; flops the least
+    work on these inputs (2 a multiply-add), per (b, chunk): the causal
+    half of C.B^T once per group (c(c+1)N), and per head the causal halves
+    of D = gy x^T, M^T gy (c(c+1)P each), Z B and Z^T C (c(c+1)N each),
+    and the (P x N) x c products S, Lc, gO B, gO^T x and gy s_in (2cPN
+    each).  The tangent reads every input and its tangent, writes the
+    outputs' tangents, and does each product three times (A B, A' B,
+    A B')."""
+    c, nc = chunk, L // chunk
+    k = 2 if tangent else 1
+    x, bc = itemsize * B * L * H * P, itemsize * B * L * G * N
+    dt = seg = 4 * B * L * H
+    a = 4 * B * H
+    S = 4 * B * nc * H * P * N
+    sg, gs = 4 * B * H * nc, 4 * B * H * P * N
+    heads = B * nc * H
+    gram = c * (c + 1) * N * G * B * nc
+    intra = (2 * c * (c + 1) * P + 2 * c * (c + 1) * N) * heads
+    f = 3 if tangent else 1
+    costs = {
+        "state": (k * (2 * x + 2 * bc + dt + a) + k * (2 * S + seg),
+                  f * 4.0 * c * P * N * heads),
+        "pass": (k * (2 * S + seg // c + gs) + k * (2 * S + sg),
+                 f * 6.0 * P * N * heads),
+        "chunk": (k * (2 * x + 2 * bc + dt + a + seg + 2 * S + sg)
+                  + x + 2 * bc + dt + a,
+                  f * float(gram + intra + 6 * c * P * N * heads))}
+    whole = (k * (2 * x + 2 * bc + dt + a + gs) + x + 2 * bc + dt + a,
+             f * float(gram + intra + 10 * c * P * N * heads))
+    return {"whole": whole, **costs}
+
+
+def bwd_faults(sops, args, chunk, want, what, tangent=False, targs=None):
+    """Plant faults in the kernels' outputs and require the check against
+    the plain version to reject each: the state cotangent not carried
+    across chunks (each chunk's gO but the last zeroed), dA without the
+    first chunk's term (each chunk's dA from a call on its rows alone, the
+    others summed), dB not summed over a group's heads (gy and gs, and
+    their tangents, zeroed but for the first head of each group)."""
+    x, dt, A, Bm, Cm, gy, gs = args
+    B, L, H = x.shape[:3]
+    nc = L // chunk
+    tg = targs if tangent else None
+    if tangent:
+        S, tS, Lc, tLc, seg, tseg = sops.ssd_bwd_tangent_state(
+            *args[:6], *tg[:6], chunk=chunk)
+        s_in, ts_in, gO, tgO, sg, tsg = sops.ssd_bwd_tangent_pass(
+            S, tS, Lc, tLc, seg, tseg, gs, tg[6], chunk=chunk)
+    else:
+        S, Lc, seg = sops.ssd_bwd_state(*args[:6], chunk=chunk)
+        s_in, gO, sg = sops.ssd_bwd_pass(S, Lc, seg, gs, chunk=chunk)
+
+    def chunk_call(sl, cs, a6, g_in, g_out, g_sg, t6=None, tin=None,
+                   tout=None, tsgc=None):
+        rows = [t[:, sl].contiguous() if t.ndim >= 3 else t for t in a6]
+        segc = seg[:, :, sl].contiguous()
+        if not tangent:
+            return sops.ssd_bwd_chunk(*rows, segc, g_in, g_out, g_sg,
+                                      chunk=chunk)
+        trows = [t[:, sl].contiguous() if t.ndim >= 3 else t for t in t6]
+        return sops.ssd_bwd_tangent_chunk(
+            *rows, segc, g_in, g_out, g_sg, *trows,
+            tseg[:, :, sl].contiguous(), tin, tout, tsgc, chunk=chunk)
+
+    def inner(a, b):
+        return (a * b).sum((-2, -1)).transpose(1, 2).contiguous()
+
+    faults = {}
+    # the state cotangent not carried: gO (and gO') of chunks 0 .. nc-2 zero
+    keep_last = torch.zeros(nc, device=DEVICE)
+    keep_last[-1] = 1
+    gOb = (gO * keep_last[None, :, None, None, None]).contiguous()
+    if tangent:
+        tgOb = (tgO * keep_last[None, :, None, None, None]).contiguous()
+        faults["state cotangent not carried"] = (0, chunk_call(
+            slice(0, L), chunk, args[:6], s_in, gOb, inner(s_in, gOb),
+            tg[:6], ts_in, tgOb, inner(ts_in, gOb) + inner(s_in, tgOb)))
+    else:
+        faults["state cotangent not carried"] = (0, chunk_call(
+            slice(0, L), chunk, args[:6], s_in, gOb, inner(s_in, gOb)))
+    # dA without the first chunk's term
+    parts = []
+    for c in range(nc):
+        sl, cc = slice(c * chunk, (c + 1) * chunk), slice(c, c + 1)
+        one = [t[:, cc].contiguous() for t in (s_in, gO)]
+        if tangent:
+            tone = [t[:, cc].contiguous() for t in (ts_in, tgO)]
+            parts.append(chunk_call(sl, chunk, args[:6], *one,
+                                    sg[:, :, cc].contiguous(), tg[:6],
+                                    *tone, tsg[:, :, cc].contiguous())[2])
+        else:
+            parts.append(chunk_call(sl, chunk, args[:6], *one,
+                                    sg[:, :, cc].contiguous())[2])
+    all_parts = sum(parts[1:], parts[0])
+    if bwd_outside(all_parts, want[2])[0]:
+        raise AssertionError(f"{what}: dA summed chunk by chunk falls "
+                             f"outside the check")
+    faults["dA without the first chunk"] = (2, sum(parts[2:], parts[1]))
+    # dB not summed over a group's heads
+    first = torch.zeros(H, device=DEVICE)
+    first[::H // Bm.shape[2]] = 1
+
+    def heads0(t, dim):
+        shape = [1] * t.ndim
+        shape[dim] = H
+        return (t * first.view(shape).to(t.dtype)).contiguous()
+
+    bad_args = [*args[:5], heads0(gy, 2), heads0(gs, 1)]
+    if tangent:
+        bad_t = [*tg[:5], heads0(tg[5], 2), heads0(tg[6], 1)]
+        faults["dB not summed over a group"] = (3, sops.ssd_scan_bwd_tangent(
+            *bad_args, *bad_t, chunk=chunk))
+    else:
+        faults["dB not summed over a group"] = (3, sops.ssd_scan_bwd(
+            *bad_args, chunk=chunk))
+    caught = {}
+    for name, (i, bad) in faults.items():
+        out = bad if name.startswith("dA") else bad[i]
+        flagged, _ = bwd_outside(out, want[i])
+        if not flagged:
+            raise AssertionError(f"{what}: planted fault '{name}' passed "
+                                 f"the check")
+        caught[name] = flagged
+    return caught
+
+
+def check_ssd_bwd(sops, sref, gen, B, L, H, P, N, G, chunk, dtype,
+                  per_sequence_A=False, steep_dt=None, timed=False,
+                  faults=False, tangent=False) -> dict:
+    """One call of ``ssd_scan_bwd`` (``tangent``: ``ssd_scan_bwd_tangent``)
+    at one shape against the plain passes composed (one call, five
+    launches): each gradient within SSD_BWD_TOL, and a second call equal
+    to the bit.  ``faults``: the planted faults of bwd_faults must fail the
+    check.  ``timed``: the call's ms, its plain version's, its bound, each
+    wrapper's ms and bound, and the chunked VJP (or its jvp) it replaced,
+    host included."""
+    args, targs = ssd_bwd_inputs(gen, B, L, H, P, N, G, dtype,
+                                 per_sequence_A, steep_dt, tangents=True)
+    key = "ssd_scan_bwd_tangent" if tangent else "ssd_scan_bwd"
+    if tangent:
+        call = lambda: sops.ssd_scan_bwd_tangent(*args, *targs, chunk=chunk)
+        plain = lambda: bwd_tangent_plain(sref, args, targs, chunk)
+    else:
+        call = lambda: sops.ssd_scan_bwd(*args, chunk=chunk)
+        plain = lambda: bwd_plain(sref, args, chunk)
+    got, n = counted(sops, key, call, key)
+    again = call()
+    want = plain()
+    torch.cuda.synchronize()
+    what = (f"{key} (B={B}, L={L}, H={H}, P={P}, N={N}, G={G}, "
+            f"chunk={chunk}) {str(dtype)[6:]}"
+            + (" A per sequence" if per_sequence_A else "")
+            + (f" dt={steep_dt}" if steep_dt is not None else ""))
+    errs = check_bwd_grads(got, want, what, steep=steep_dt is not None)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{what}: two calls on the same inputs differ")
+    row = dict(shape=[B, L, H, P, N, G, chunk], dtype=str(dtype)[6:],
+               per_sequence_A=per_sequence_A, steep_dt=steep_dt,
+               max_abs_err=max(errs.values()), errs=errs, same_bits=True)
+    if faults:
+        row["planted_faults_caught"] = bwd_faults(sops, args, chunk, want,
+                                                  what, tangent, targs)
+    if timed:
+        from repro_torch.kernels.ssd_scan import chunked
+        rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else \
+            FP32_FLOP_PER_S
+        costs = ssd_bwd_cost(B, L, H, P, N, G, chunk,
+                             args[0].element_size(), tangent)
+        row["ms"] = time_ms(call, 5)
+        row["plain_ms"] = (time_events(plain, 1) if tangent
+                           else time_ms(plain, 1, reps=3))
+        row["bound_ms"], row["bound_by"] = bound_ms(*costs["whole"], rate)
+        row["library_ms"] = None
+        if tangent:
+            chunked_call = lambda: torch.func.jvp(
+                lambda *a: chunked.ssd_scan_vjp(*a, chunk), tuple(args),
+                tuple(targs))
+        else:
+            chunked_call = lambda: chunked.ssd_scan_vjp(*args, chunk)
+        row["chunked_ms"] = time_events(chunked_call, 2)
+        row["passes"] = bwd_pass_times(sops, sref, args, targs, chunk,
+                                       tangent, costs, rate)
+        print(f"{what}: {row['ms']:.4f} ms (plain {row['plain_ms']:.2f}, "
+              f"chunked {row['chunked_ms']:.2f} with the host; bound "
+              f"{row['bound_ms']:.4f} {row['bound_by']}); passes "
+              f"{ {k: round(v['ms'], 4) for k, v in row['passes'].items()} }"
+              f"; errs {errs}", flush=True)
+    return row
+
+
+def bwd_pass_times(sops, sref, args, targs, chunk, tangent, costs, rate
+                   ) -> dict:
+    """Each wrapper of the call (state, pass, chunk: its three kernels)
+    timed on the outputs of the one before, beside its plain version and
+    its bound."""
+    x, dt, A, Bm, Cm, gy, gs = args
+    if tangent:
+        st = sops.ssd_bwd_tangent_state(*args[:6], *targs[:6], chunk=chunk)
+        S, tS, Lc, tLc, seg, tseg = st
+        ps = sops.ssd_bwd_tangent_pass(S, tS, Lc, tLc, seg, tseg, gs,
+                                       targs[6], chunk=chunk)
+        s_in, ts_in, gO, tgO, sg, tsg = ps
+        kernel = {
+            "state": lambda: sops.ssd_bwd_tangent_state(
+                *args[:6], *targs[:6], chunk=chunk),
+            "pass": lambda: sops.ssd_bwd_tangent_pass(
+                S, tS, Lc, tLc, seg, tseg, gs, targs[6], chunk=chunk),
+            "chunk": lambda: sops.ssd_bwd_tangent_chunk(
+                *args[:6], seg, s_in, gO, sg, *targs[:6], tseg, ts_in, tgO,
+                tsg, chunk=chunk)}
+        plain = {
+            "state": lambda: sref.tangent_bwd_state_ref(
+                *args[:6], *targs[:6], chunk),
+            "pass": lambda: sref.tangent_bwd_state_pass_ref(
+                S, tS, Lc, tLc, seg, tseg, gs, targs[6], chunk),
+            "chunk": lambda: sref.tangent_bwd_chunk_ref(
+                *args[:6], seg, s_in, gO, sg, *targs[:6], tseg, ts_in, tgO,
+                tsg, chunk)}
+    else:
+        S, Lc, seg = sops.ssd_bwd_state(*args[:6], chunk=chunk)
+        s_in, gO, sg = sops.ssd_bwd_pass(S, Lc, seg, gs, chunk=chunk)
+        kernel = {
+            "state": lambda: sops.ssd_bwd_state(*args[:6], chunk=chunk),
+            "pass": lambda: sops.ssd_bwd_pass(S, Lc, seg, gs, chunk=chunk),
+            "chunk": lambda: sops.ssd_bwd_chunk(*args[:6], seg, s_in, gO, sg,
+                                                chunk=chunk)}
+        plain = {
+            "state": lambda: sref.bwd_state_ref(*args[:6], chunk),
+            "pass": lambda: sref.bwd_state_pass_ref(S, Lc, seg, gs, chunk),
+            "chunk": lambda: sref.bwd_chunk_ref(*args[:6], seg, s_in, gO,
+                                                sg, chunk)}
+    out = {}
+    for name in ("state", "pass", "chunk"):
+        nbytes, flops = costs[name]
+        r = FP32_FLOP_PER_S if name == "pass" else rate
+        out[name] = dict(ms=time_ms(kernel[name], 5),
+                         plain_ms=(time_events(plain[name], 1) if tangent
+                                   else time_ms(plain[name], 1, reps=3)),
+                         library_ms=None, bytes=nbytes, flops=flops)
+        out[name]["bound_ms"], out[name]["bound_by"] = bound_ms(nbytes,
+                                                                flops, r)
+    return out
+
+
+def bwd_calls_phase(sops) -> dict:
+    """The kernels that one bf16 ``ssd_scan_bwd`` call and one bf16
+    ``ssd_scan_bwd_tangent`` call run on the card at the mamba2 training
+    shape, from torch.profiler; fails unless each is its five kernels, one
+    launch each, and nothing else.  Run before the training step's profile
+    (phase 5), as ssd_calls_phase."""
+    t = SSD_TRAIN
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    args, targs = ssd_bwd_inputs(gen, t["B"], t["L"], t["H"], t["P"],
+                                 t["N"], t["G"], torch.bfloat16, True,
+                                 tangents=True)
+    out = {}
+    for name, call, kernels in (
+            ("ssd_scan_bwd", lambda: sops.ssd_scan_bwd(
+                *args, chunk=t["chunk"]), SSD_BWD_KERNELS),
+            ("ssd_scan_bwd_tangent", lambda: sops.ssd_scan_bwd_tangent(
+                *args, *targs, chunk=t["chunk"]), SSD_BWD_TANGENT_KERNELS)):
+        call()
+        names = device_kernels(call)
+        print(f"{name} kernels per bf16 call", json.dumps(names), flush=True)
+        want = sorted(kernels.values())
+        if len(names) != len(want) or sorted(
+                k for k in want if any(k + "<" in n or k + "(" in n
+                                       for n in names)) != want:
+            raise AssertionError(f"a bf16 {name} call ran {names} on the "
+                                 f"card; expected the kernels {want} and "
+                                 f"nothing else")
+        out[name] = names
+    return out
+
+
+def ssd_bwd_rows(sops, sref, gen, tangent=False) -> tuple[list, dict]:
+    """The backward (``tangent``: its tangent) over tests/test_kernels.py's
+    grid (B=2, H=2, P=16, N=32, two groups), a ragged row (chunks of 48,
+    A per sequence, narrow heads, two groups), full-width heads with one
+    group, one chunk of 100 rows, and seg falling past 88 within each of
+    two chunks, in float32 and bfloat16; then the mamba2 training shape (A
+    per sequence) in both dtypes and the serving shape in bfloat16, timed,
+    with planted faults."""
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for L, chunk in ((128, 32), (256, 64), (256, 128)):
+            rows.append(check_ssd_bwd(sops, sref, gen, 2, L, 2, 16, 32, 2,
+                                      chunk, dtype, tangent=tangent))
+        for L, H, P, N, G, chunk, per_seq in (
+                (96, 4, 8, 16, 2, 48, True), (256, 4, 64, 128, 1, 256, True),
+                (100, 4, 16, 32, 2, 100, False)):
+            rows.append(check_ssd_bwd(sops, sref, gen, 2, L, H, P, N, G,
+                                      chunk, dtype, per_sequence_A=per_seq,
+                                      tangent=tangent))
+        rows.append(check_ssd_bwd(sops, sref, gen, 2, 512, 4, 16, 32, 2,
+                                  256, dtype, steep_dt=4.0, tangent=tangent))
+    t, m = SSD_TRAIN, SSD_MAIN
+    main = {f"train_{str(dtype)[6:]}": check_ssd_bwd(
+        sops, sref, gen, t["B"], t["L"], t["H"], t["P"], t["N"], t["G"],
+        t["chunk"], dtype, per_sequence_A=True, timed=True, faults=True,
+        tangent=tangent) for dtype in (torch.bfloat16, torch.float32)}
+    main["serve_bfloat16"] = check_ssd_bwd(
+        sops, sref, gen, m["B"], m["L"], m["H"], m["P"], m["N"], m["G"],
+        m["chunk"], torch.bfloat16, timed=True, faults=True, tangent=tangent)
+    torch.cuda.empty_cache()
+    return rows, main
+
+
+def ssd_bwd_summary(bwd, tan, train_rows, mamba_row) -> list:
+    """The kernels-line entries of the backward and its tangent: the whole
+    call (five launches; its launches count calls) and each of its three
+    wrappers, numbers at the mamba2 training shape in bfloat16 with A per
+    sequence, launches from the mamba2 training run (the backward's also
+    from the serve run)."""
+    t = SSD_TRAIN
+    shape = (f"(B={t['B']}, L={t['L']}, H={t['H']}, P={t['P']}, N={t['N']}, "
+             f"G={t['G']}, chunk={t['chunk']}) bfloat16, A per sequence")
+    launches = train_rows["mamba2"]["launches"]
+    out = []
+    for name, (rows, main), prefix in (
+            ("ssd_scan_bwd", bwd, "ssd_bwd_"),
+            ("ssd_scan_bwd_tangent", tan, "ssd_bwd_tangent_")):
+        b = main["train_bfloat16"]
+        out.append({
+            "name": name, "route": "cuda", "source": SSD_BWD_SOURCE,
+            "replaces": None, "launches": launches[name],
+            "max_abs_err": b["max_abs_err"], "ms": b["ms"],
+            "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "library_ms": None,
+            "chunked_ms": b["chunked_ms"],
+            "shape": f"{shape}; five launches a call (the entries below); "
+                     f"no TPU counterpart; launches: calls in the mamba2 "
+                     f"training run; library: none; chunked_ms: the "
+                     f"chunked VJP {'(its jvp) ' if 'tangent' in name else ''}"
+                     f"it replaced, host included",
+            "launches_in_serve_run": mamba_row["launches"].get(name),
+            "float32": main["train_float32"],
+            "serving_shape": main["serve_bfloat16"],
+            "sweep_checks": len(rows),
+            "sweep_worst_err": max(r["max_abs_err"] for r in rows)})
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        for wrapper in ("state", "pass", "chunk"):
+            p = b["passes"][wrapper]
+            kernels = (("chunk", "finish", "reduce") if wrapper == "chunk"
+                       else (wrapper,))
+            out.append({
+                "name": prefix + wrapper, "route": "cuda",
+                "source": SSD_BWD_SOURCE, "replaces": None,
+                "launches": launches[prefix + wrapper],
+                "max_abs_err": b["max_abs_err"],
+                **{k: p[k] for k in keys},
+                "shape": f"{shape}; kernels "
+                         f"{[prefix + k for k in kernels]} (launches: the "
+                         f"first's in the mamba2 training run; "
+                         f"{', '.join(prefix + k for k in kernels[1:])} "
+                         f"{'the same' if len(kernels) > 1 else ''}); "
+                         f"max_abs_err: the whole call's",
+                "serving_shape": {k: main["serve_bfloat16"]["passes"][
+                    wrapper][k] for k in keys}})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1961,8 +2455,10 @@ def serve_phase(args, counters, expect, replay=("memory",)):
 def dispatch_profile(eng, supports) -> dict:
     """Device time of one more adapt dispatch of the same users, from
     torch.profiler: all kernels, the SSD scan's forward kernels (the three
-    bf16 passes, or the float32 kernel), and the chunked-scan backward (its
-    ``record_function`` range, with every kernel launched inside it)."""
+    bf16 passes, or the float32 kernel), its backward's five kernels
+    (``sbw::``), and the chunked-scan backward (its ``record_function``
+    range, with every kernel launched inside it: on the card it runs only
+    on CPU tensors, so none is expected)."""
     from torch.profiler import ProfilerActivity, profile
 
     stacked = eng._stack(supports, eng._bucket(len(supports)))
@@ -1974,8 +2470,9 @@ def dispatch_profile(eng, supports) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     del adapted, stacked
-    busy = fwd = bwd = 0.0
-    fwd_n = bwd_n = 0
+    busy = fwd = bwd = sbw = 0.0
+    fwd_n = bwd_n = sbw_n = 0
+    sbw_kernels = {}
     kernels = []
     for evt in prof.key_averages():
         # the range's span on the device timeline is no kernel time
@@ -1990,6 +2487,10 @@ def dispatch_profile(eng, supports) -> dict:
             kernels.append((us, evt.count, evt.key))
             if any(k in evt.key for k in SSD_FORWARD_KERNELS):
                 fwd, fwd_n = fwd + us, fwd_n + evt.count
+            if "sbw::" in evt.key:
+                sbw, sbw_n = sbw + us, sbw_n + evt.count
+                sbw_kernels[evt.key[:60]] = dict(ms=us / 1e3,
+                                                 launches=evt.count)
         elif evt.key == "ssd_scan_chunked_bwd" and \
                 evt.device_type == torch.autograd.DeviceType.CPU:
             us = getattr(evt, "device_time_total", None)
@@ -2000,6 +2501,8 @@ def dispatch_profile(eng, supports) -> dict:
         return dict(wall_s=wall, device_ms="not measured")
     return dict(wall_s=wall, device_ms=busy / 1e3,
                 ssd_kernel_fwd_ms=fwd / 1e3, ssd_kernel_launches=fwd_n,
+                ssd_bwd_ms=sbw / 1e3, ssd_bwd_launches=sbw_n,
+                ssd_bwd_kernels=sbw_kernels, ssd_bwd_share=sbw / busy,
                 chunked_bwd_ms=bwd / 1e3, chunked_bwd_calls=bwd_n,
                 ssd_fwd_share=fwd / busy, chunked_bwd_share=bwd / busy,
                 device_idle_share=max(0.0, 1 - busy / 1e6 / wall),
@@ -2189,7 +2692,7 @@ def flash_summary(name, main, serve_row, rows, gqa, gqa_rows,
 TANGENT_TOL = {torch.float32: (0.0, 1e-4),
                torch.bfloat16: (1.6e-2, 2.0 ** -8)}
 TANGENTS = ("flash_attention_fwd_tangent", "flash_attention_bwd_tangent",
-            "ssd_scan_tangent")
+            "ssd_scan_tangent", "ssd_scan_bwd_tangent")
 # The mamba2 training path's scan: 4 agents x 2 tasks x 1 sequence of 512
 # tokens folded into one batch, chunk 256.
 SSD_TRAIN = dict(B=8, L=512, H=24, P=64, N=128, G=1, chunk=256)
@@ -2581,9 +3084,10 @@ def tangent_phase(fops, fref, sops, sref) -> dict:
               f"CUDA-core kernel it replaced {T3_SIMT_MS} ms at the train "
               f"shape (PERF.md)", flush=True)
     torch.cuda.empty_cache()
+    bwd_tangent = ssd_bwd_rows(sops, sref, gen, tangent=True)
     return dict(flash_rows=rows, flash_gqa=gqa, ssd_rows=ssd_rows,
                 ssd_train=ssd_train, ssd_serve=ssd_serve, passes=passes,
-                pass_rows=pass_rows)
+                pass_rows=pass_rows, bwd_tangent=bwd_tangent)
 
 
 def tangent_summary(tan, train_rows) -> list:
@@ -2693,9 +3197,11 @@ def all_counts(modules) -> dict:
 def profile_train_step(bundle, state, batch, modules) -> dict:
     """One meta-step under torch.profiler: wall time, device time split
     into the forward kernels, the tangent kernels, the flash backward
-    kernels, the chunked SSD backward and its jvp (their record_function
-    ranges), the outer update and the rest; the card's idle share; each
-    kernel's launches by the wrappers' counters; peak memory."""
+    kernels, the SSD backward's kernels and their tangent's (``sbw::``),
+    the outer update and the rest; the chunked SSD backward and its jvp
+    (their record_function ranges: CPU tensors only, so none on the card);
+    the card's idle share; each kernel's launches by the wrappers'
+    counters; peak memory."""
     from torch.profiler import ProfilerActivity, profile
     state, _ = bundle.step_fn(state, batch)           # warm
     torch.cuda.synchronize()
@@ -2715,8 +3221,8 @@ def profile_train_step(bundle, state, batch, modules) -> dict:
     launches = all_counts(modules)
     peak = torch.cuda.max_memory_allocated()
     ranges = ("ssd_scan_chunked_bwd", "ssd_scan_chunked_bwd_jvp")
-    split = dict(forward=0.0, tangent=0.0, flash_backward=0.0, outer=0.0,
-                 other=0.0)
+    split = dict(forward=0.0, tangent=0.0, flash_backward=0.0,
+                 ssd_bwd=0.0, ssd_bwd_tangent=0.0, outer=0.0, other=0.0)
     in_ranges = {r: 0.0 for r in ranges}
     busy = 0.0
     for evt in prof.key_averages():
@@ -2729,7 +3235,10 @@ def profile_train_step(bundle, state, batch, modules) -> dict:
                 not annotation:
             busy += us
             key = evt.key
-            if "jvpk" in key or "tangent" in key:
+            if "sbw::" in key:
+                split["ssd_bwd_tangent" if "sbw::tangent_" in key
+                      else "ssd_bwd"] += us
+            elif "jvpk" in key or "tangent" in key:
                 split["tangent"] += us
             elif any(k in key for k in SSD_FORWARD_KERNELS) or \
                     "fwd_kernel" in key:
@@ -3339,14 +3848,15 @@ def paths_summary(kernels: list, fewshot: dict, lm100m: dict) -> None:
 # The tensor-core instruction each Hopper namespace's kernels compile to:
 # wgmma (HGMMA) in the bf16 kernels (hop) and T3's bf16 passes (t3),
 # mma.sync on TF32 (HMMA) in the float32 flash forward, backward and T2
-# (tf32).
-TENSOR_OPS = {"hop": "HGMMA", "t3": "HGMMA", "tf32": "HMMA"}
+# (tf32), mma.sync on bf16 (HMMA) in the SSD backward's and its tangent's
+# bf16 instantiations (sbw).
+TENSOR_OPS = {"hop": "HGMMA", "t3": "HGMMA", "tf32": "HMMA", "sbw": "HMMA"}
 
 
 def kernel_symbol(text: str) -> str | None:
     """"namespace::kernel<template args>" of the first mangled kernel symbol
-    of namespace hop, tf32, t3 or jvpk in ``text``; None for none."""
-    for k in re.finditer(r"(\d)(hop|tf32|t3|jvpk)\d+([a-z_]+?)"
+    of namespace hop, tf32, t3, jvpk or sbw in ``text``; None for none."""
+    for k in re.finditer(r"(\d)(hop|tf32|t3|jvpk|sbw)\d+([a-z_]+?)"
                          r"(?:I((?:Li\d+E|f|13__nv_bfloat16)+)E|E)", text):
         if int(k.group(1)) == len(k.group(2)):
             args = [n or ("float" if t == "f" else "__nv_bfloat16")
@@ -3364,8 +3874,10 @@ def hgmma_phase(libraries: dict) -> dict:
     a product has some: the bf16 flash forward, dQ and dK/dV kernels and
     the float32 (3xTF32) forward, dQ, dK/dV and T2 kernels, the SSD
     chunk-state and
-    chunk-output kernels and T3's tangent chunk-state and chunk-output
-    kernels (both state passings are elementwise)."""
+    chunk-output kernels, T3's tangent chunk-state and chunk-output
+    kernels, and the SSD backward's and its tangent's state and chunk
+    kernels (in their bf16 instantiations; the state passings, finish and
+    reduce kernels are elementwise)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     found = {}
     for name, (path, kinds) in libraries.items():
@@ -3444,7 +3956,7 @@ def main() -> int:
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     build_phase({"dif_combine": ops, "flash_attention": fops,
-                 "ssd_scan": sops})
+                 "ssd_scan": sops, "ssd_bwd": sops.BWD_LIB})
     hgmma = hgmma_phase({
         "flash_attention": (fops.build()["path"],
                             ("hop::fwd_kernel", "hop::dq_kernel",
@@ -3455,10 +3967,15 @@ def main() -> int:
         "ssd_scan": (sops.build()["path"],
                      ("hop::chunk_state_kernel", "hop::chunk_scan_kernel",
                       "t3::tangent_state_kernel",
-                      "t3::tangent_scan_kernel"))})
+                      "t3::tangent_scan_kernel")),
+        "ssd_bwd": (sops.BWD_LIB.build()["path"],
+                    ("sbw::state_kernel", "sbw::chunk_kernel",
+                     "sbw::tangent_state_kernel",
+                     "sbw::tangent_chunk_kernel"))})
     flash_calls = flash_calls_phase(fops)
     ssd_calls = ssd_calls_phase(sops)
     t3_calls = t3_calls_phase(sops)
+    bwd_calls = bwd_calls_phase(sops)
     stamp("build")
 
     paper_A = topology.build_topology("paper", K, "metropolis").matrix
@@ -3485,7 +4002,8 @@ def main() -> int:
             MAMBA_TRAIN_ARGS,
             TRAIN_SHAPE,
             ("ssd_scan", *SSD_PASSES, "ssd_scan_tangent", *T3_PASSES,
-             "fused_combine_update"),
+             "ssd_scan_bwd", *SSD_BWD_KERNELS, "ssd_scan_bwd_tangent",
+             *SSD_BWD_TANGENT_KERNELS, "fused_combine_update"),
             ("--expect-fused", "--expect-outer-dtype", "bfloat16"),
             resume=True),
         "qwen2": train_phase(
@@ -3515,7 +4033,7 @@ def main() -> int:
                 "ssd_scan": sops, **{k: sops for k in SSD_PASSES}}
     # per layer and step: one flash forward launch, and the backward's two
     # (dK/dV and dQ); one bf16 SSD scan call, a launch of each of its three
-    # kernels (its backward is the chunked scan's VJP, no kernel)
+    # kernels, and one call of its backward, a launch of each of its five
     serve_row = serve_phase(SERVE_ARGS, counters, lambda n, k: {
         "flash_attention_fwd": n * k, "flash_attention_bwd": 2 * n * k})
     stamp("serve")
@@ -3526,12 +4044,15 @@ def main() -> int:
         fops, fref, torch.Generator(device=DEVICE).manual_seed(12), 2, 256,
         12, 2, 128, torch.float32, True, None, n=5)
     stamp("agreement")
-    ssd_main, ssd_rows, continuity, ssd_passes, ssd_pass_rows = ssd_phase(
-        sops, sref, layers)
+    ssd_main, ssd_rows, continuity, ssd_passes, ssd_pass_rows, ssd_bwd = \
+        ssd_phase(sops, sref, layers)
     stamp("ssd")
     mamba_row = serve_phase(MAMBA_SERVE_ARGS, counters,
                             lambda n, k: {"ssd_scan": n * k,
-                                          **{p: n * k for p in SSD_PASSES}},
+                                          **{p: n * k for p in SSD_PASSES},
+                                          "ssd_scan_bwd": n * k,
+                                          **{p: n * k for p in
+                                             SSD_BWD_KERNELS}},
                             replay=("profile", "memory"))
     stamp("mamba2 serve")
     mamba_agreement = agreement_phase(
@@ -3571,6 +4092,8 @@ def main() -> int:
         *ssd_summary(ssd_main, ssd_rows, continuity, ssd_passes,
                      ssd_pass_rows, ssd_calls, mamba_row),
         *tangent_summary(tangent, train_rows),
+        *ssd_bwd_summary(ssd_bwd, tangent["bwd_tangent"], train_rows,
+                         mamba_row),
     ], "ms_per_step": ms_per_step, "train": train_rows,
         "fewshot": fewshot["rows"], "lm100m": lm100m,
         "serve_adapted": adapted_serve,
@@ -3579,6 +4102,7 @@ def main() -> int:
         "mamba2_agreement": mamba_agreement, "hgmma": hgmma,
         "outer_update_ablation": kern["ablation"],
         "flash_kernels_per_call": flash_calls,
+        "ssd_bwd_kernels_per_call": bwd_calls,
         "phase_end_seconds": stamps,
         "seconds": time.perf_counter() - t_start}
     paths_summary(summary["kernels"], fewshot, lm100m)

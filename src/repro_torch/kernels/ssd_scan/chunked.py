@@ -3,7 +3,8 @@
 
 :func:`ssd_scan` is what ``models.layers.mamba2_apply`` runs on a CPU
 tensor.  :func:`ssd_scan_vjp` is the backward the kernel's autograd pairing
-(:mod:`.ops`) takes on the card: the VJP of the same scan in float32.  Both
+(:mod:`.ops`) takes on CPU tensors (on the card the backward's kernels
+run): the VJP of the same scan in float32.  Both
 keep one chunk's (B, c, c, H) decay tile live at a time, as the reference
 does with a ``jax.checkpoint`` per chunk: the forward loops over chunks,
 and the VJP first carries the states forward (no tile needed) and then

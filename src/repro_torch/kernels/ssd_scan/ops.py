@@ -16,9 +16,8 @@ The reference expands the B/C groups to heads before its kernel; these
 kernels read each head's group instead, with the same results, and the
 bfloat16 route forms C·Bᵀ once for all heads of a group.
 
-:func:`ssd_scan` pairs the kernel forward with the VJP of the port's chunked
-scan (:func:`.chunked.ssd_scan_vjp`, chunk by chunk) as its backward, in
-float32 (the kernel's precision).  The JAX package has no backward kernel either: it
+:func:`ssd_scan` pairs the kernel forward with a float32 backward (the
+kernel's precision; below).  The JAX package has no backward kernel: it
 differentiates the jnp chunked scan.  The pairing is a
 ``torch.autograd.Function`` in the ``setup_context`` form with a ``vmap``
 rule that folds the mapped dimension into the batch, so ``torch.func.vmap``
@@ -36,9 +35,22 @@ forward is: bfloat16 CUDA tensors to three Hopper kernels, one a pass, the
 forward's passes with the tangent plane beside each
 (:func:`ssd_tangent_state`, :func:`ssd_tangent_pass`,
 :func:`ssd_tangent_scan`; namespace ``t3``), float32 CUDA tensors to one
-CUDA-core kernel (namespace ``jvpk``).  The backward's tangent is
-``torch.func.jvp`` of the chunked VJP (PyTorch ops, as the backward is).
-Reverse-over-reverse (``grad`` of ``grad``) still raises.
+CUDA-core kernel (namespace ``jvpk``).  Reverse-over-reverse (``grad`` of
+``grad``) still raises.
+
+The backward.  On a CPU tensor it is the chunked scan's VJP
+(:func:`.chunked.ssd_scan_vjp`, chunk by chunk) and its tangent
+``torch.func.jvp`` of that.  On a CUDA tensor (float32 or bfloat16) it is
+:func:`ssd_scan_bwd`, five launches of ``csrc/ssd_bwd.cu`` (namespace
+``sbw``), and its tangent :func:`ssd_scan_bwd_tangent`, the same five
+kernels on dual numbers.  Three wrappers, one a pass, carry the work, each
+with its plain version in :mod:`.ref` (taken for CPU tensors):
+:func:`ssd_bwd_state` (each chunk's own state and state cotangent),
+:func:`ssd_bwd_pass` (the states carried forward, their cotangents back) and
+:func:`ssd_bwd_chunk` (each chunk's gradients: the chunk kernel, then the
+finish and reduce kernels), and their tangent twins.  The bfloat16 route
+forms its products on the tensor cores (``mma.sync``, float32
+intermediates as hi/lo bf16 pairs), the float32 route on the CUDA cores.
 
 ``launch_counts["ssd_scan"]`` counts the calls of :func:`ssd_scan_kernel`
 that went to a kernel route (one launch in float32, three in bfloat16);
@@ -46,8 +58,12 @@ that went to a kernel route (one launch in float32, three in bfloat16);
 pass's launches.  ``ssd_scan_tangent`` counts the calls of
 :func:`ssd_scan_tangent` that went to a kernel route (one launch in float32,
 three in bfloat16), and ``ssd_tangent_state``, ``ssd_tangent_pass`` and
-``ssd_tangent_scan`` each of T3's passes.  Plain-version calls are not
-counted.
+``ssd_tangent_scan`` each of T3's passes.  ``ssd_scan_bwd`` and
+``ssd_scan_bwd_tangent`` count the calls of :func:`ssd_scan_bwd` and
+:func:`ssd_scan_bwd_tangent` (five launches each), and ``ssd_bwd_state``,
+``ssd_bwd_pass``, ``ssd_bwd_chunk``, ``ssd_bwd_finish``, ``ssd_bwd_reduce``
+and their ``ssd_bwd_tangent_*`` twins each of their kernels' launches.
+Plain-version calls are not counted.
 """
 from __future__ import annotations
 
@@ -59,32 +75,39 @@ import torch
 from repro_torch.kernels.build import CudaLibrary, raise_on
 from repro_torch.kernels.fold import fold, unfold, zeros_for_none
 from repro_torch.kernels.ssd_scan.chunked import ssd_scan_vjp
-from repro_torch.kernels.ssd_scan.ref import (chunk_scan_ref,
-                                              chunk_state_ref, split_hi_lo,
-                                              ssd_scan_ref,
-                                              ssd_scan_tangent_ref,
-                                              state_pass_ref,
-                                              tangent_pass_ref,
-                                              tangent_scan_ref,
-                                              tangent_state_ref)
+from repro_torch.kernels.ssd_scan.ref import (
+    bwd_chunk_ref, bwd_state_pass_ref, bwd_state_ref, chunk_scan_ref,
+    chunk_state_ref, split_hi_lo, ssd_scan_ref, ssd_scan_tangent_ref,
+    state_pass_ref, tangent_bwd_chunk_ref, tangent_bwd_state_pass_ref,
+    tangent_bwd_state_ref, tangent_pass_ref, tangent_scan_ref,
+    tangent_state_ref)
 
-__all__ = ["MAX_CHUNK", "MAX_HEAD_DIM", "MAX_STATE", "build",
-           "launch_counts", "reset_launch_counts", "ssd_chunk_scan",
-           "ssd_chunk_state", "ssd_scan", "ssd_scan_kernel",
-           "ssd_scan_tangent", "ssd_state_pass", "ssd_tangent_pass",
-           "ssd_tangent_scan", "ssd_tangent_state"]
+__all__ = ["BWD_LIB", "MAX_CHUNK", "MAX_HEAD_DIM", "MAX_STATE", "build",
+           "launch_counts", "reset_launch_counts", "ssd_bwd_chunk",
+           "ssd_bwd_pass", "ssd_bwd_state", "ssd_bwd_tangent_chunk",
+           "ssd_bwd_tangent_pass", "ssd_bwd_tangent_state",
+           "ssd_chunk_scan", "ssd_chunk_state", "ssd_scan", "ssd_scan_bwd",
+           "ssd_scan_bwd_tangent", "ssd_scan_kernel", "ssd_scan_tangent",
+           "ssd_state_pass", "ssd_tangent_pass", "ssd_tangent_scan",
+           "ssd_tangent_state"]
 
 MAX_HEAD_DIM = 64         # kMaxP in the CUDA source
 MAX_STATE = 128           # kMaxN
 MAX_CHUNK = 256           # kMaxChunk
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
+BWD_SOURCE = SOURCE.with_name("ssd_bwd.cu")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+# the backward's five kernels, in launch order (pass ids of the C entry)
+BWD_PASSES = ("state", "pass", "chunk", "finish", "reduce")
 launch_counts = {"ssd_scan": 0, "ssd_chunk_state": 0, "ssd_state_pass": 0,
                  "ssd_chunk_scan": 0, "ssd_scan_tangent": 0,
                  "ssd_tangent_state": 0, "ssd_tangent_pass": 0,
-                 "ssd_tangent_scan": 0}
+                 "ssd_tangent_scan": 0, "ssd_scan_bwd": 0,
+                 "ssd_scan_bwd_tangent": 0,
+                 **{f"ssd_bwd_{p}": 0 for p in BWD_PASSES},
+                 **{f"ssd_bwd_tangent_{p}": 0 for p in BWD_PASSES}}
 
 
 def reset_launch_counts() -> None:
@@ -122,6 +145,32 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 
 _LIB = CudaLibrary(SOURCE, "ssd_scan", _declare)
+
+# The C entry's pointer slots, in the order of sbw::Slot in ssd_bwd.cu: each
+# tensor's value plane, then its tangent plane.
+_BWD_TENSORS = ("x", "gy", "B", "C", "dt", "A", "gs", "seg", "S", "Lc",
+                "s_in", "gO", "sg", "dBh", "dCh", "ddd", "dsk", "dsq", "tk",
+                "dAp", "dx", "dB", "dC", "ddt", "dA")
+
+
+def _declare_bwd(lib: ctypes.CDLL) -> None:
+    for fn in ("repro_ssd_bwd_slots", "repro_ssd_bwd_max_head_dim",
+               "repro_ssd_bwd_max_state", "repro_ssd_bwd_max_chunk"):
+        getattr(lib, fn).argtypes = []
+        getattr(lib, fn).restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.repro_ssd_bwd_launch.argtypes = [i, i, i, p, p, p]
+    lib.repro_ssd_bwd_launch.restype = i
+    if (lib.repro_ssd_bwd_slots(), lib.repro_ssd_bwd_max_head_dim(),
+            lib.repro_ssd_bwd_max_state(), lib.repro_ssd_bwd_max_chunk()) != (
+            2 * len(_BWD_TENSORS), MAX_HEAD_DIM, MAX_STATE, MAX_CHUNK):
+        raise RuntimeError("backward kernel library and wrapper disagree on "
+                           "the pointer slots or the largest head dim, state "
+                           "or chunk")
+
+
+# the backward's kernels (their own source, built beside the forward's)
+BWD_LIB = CudaLibrary(BWD_SOURCE, "ssd_bwd", _declare_bwd)
 
 
 def build() -> dict:
@@ -447,7 +496,340 @@ def ssd_scan_tangent(x, dt, A, Bg, Cg, tx, tdt, tA, tB, tC, *, chunk: int
 
 
 # ---------------------------------------------------------------------------
-# autograd: kernel forward + the chunked scan's VJP
+# the backward (csrc/ssd_bwd.cu) and its tangent
+# ---------------------------------------------------------------------------
+
+def _check_like(name: str, t: torch.Tensor, shape) -> None:
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+
+
+def _check_bwd(name: str, dtype: torch.dtype, chunk: int, **tensors) -> None:
+    """What the backward's kernels take: x, gy, B, C (and their tangents)
+    in ``dtype``, float32 or bfloat16; every other tensor float32; all on
+    one card and contiguous (A in its last dim); P <= 64, N <= 128, chunk <=
+    256."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"{name}: dtype {dtype} is not supported by the "
+                         f"CUDA kernels; use float32 or bfloat16")
+    device = next(iter(tensors.values())).device
+    for tname, t in tensors.items():
+        want = dtype if tname.lstrip("t") in ("x", "gy", "B", "C") \
+            else torch.float32
+        if t.device.type != "cuda" or t.device != device or t.dtype != want:
+            raise ValueError(f"{name}: {tname} must be a {want} tensor on "
+                             f"{device}, got {t.dtype} on {t.device}")
+        if not (t.is_contiguous() or tname.lstrip("t") == "A"
+                and t.stride(-1) == 1):
+            raise ValueError(f"{name}: {tname} {tuple(t.shape)} is not "
+                             f"contiguous (strides {t.stride()})")
+    x = tensors.get("x")
+    P = x.shape[3] if x is not None else tensors["S"].shape[3]
+    N = tensors["B"].shape[3] if "B" in tensors else tensors["S"].shape[4]
+    if P > MAX_HEAD_DIM or N > MAX_STATE or chunk > MAX_CHUNK:
+        raise ValueError(
+            f"{name}: head dim P={P}, state N={N} and chunk={chunk} must be "
+            f"at most {MAX_HEAD_DIM}, {MAX_STATE} and {MAX_CHUNK} for the "
+            f"CUDA kernels")
+
+
+def _bwd_launch(key: str, tangent: bool, dtype: torch.dtype, dims,
+                **planes) -> None:
+    """One launch of the backward's pass ``key`` (``ssd_bwd_<pass>``):
+    ``planes`` maps a tensor of ``_BWD_TENSORS`` to its (value, tangent)
+    planes (None where unused); raises on a refused launch, then counts
+    it under ``key`` (``ssd_bwd_tangent_<pass>`` in the tangent)."""
+    ptrs = (ctypes.c_void_p * (2 * len(_BWD_TENSORS)))()
+    device = None
+    for name, pair in planes.items():
+        i = _BWD_TENSORS.index(name)
+        for j, t in enumerate(pair):
+            if t is not None:
+                ptrs[2 * i + j] = t.data_ptr()
+                device = t.device
+    name = (key.replace("ssd_bwd_", "ssd_bwd_tangent_") if tangent else key)
+    with torch.cuda.device(device):
+        err = BWD_LIB.lib.repro_ssd_bwd_launch(
+            BWD_PASSES.index(key[len("ssd_bwd_"):]), int(tangent),
+            _DTYPES[dtype], ptrs, (ctypes.c_longlong * 10)(*dims),
+            torch.cuda.current_stream().cuda_stream)
+    raise_on(err, name)
+    launch_counts[name] += 1
+
+
+def _bwd_dims(x, Bg, A, tA, chunk: int) -> list:
+    B, L, H, P = x.shape
+    return [B, L, H, P, Bg.shape[2], Bg.shape[3], chunk,
+            A.stride(0) if A.ndim == 2 else 0,
+            tA.stride(0) if tA is not None and tA.ndim == 2 else 0,
+            int(A.ndim == 2)]
+
+
+def _f32(*shape, like: torch.Tensor) -> torch.Tensor:
+    return torch.empty(*shape, dtype=torch.float32, device=like.device)
+
+
+def ssd_bwd_state(x, dt, A, Bg, Cg, gy, *, chunk: int
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pass 1 of :func:`ssd_scan_bwd`: (S, Lc (B,nc,H,P,N), seg (B,H,L)),
+    float32, as :func:`.ref.bwd_state_ref` (its plain version, taken for
+    CPU tensors): each chunk's own state and state cotangent."""
+    _check_shapes(x, dt, A, Bg, Cg, chunk)
+    _check_like("ssd_bwd_state: gy", gy, x.shape)
+    if x.device.type == "cpu":
+        return bwd_state_ref(x, dt, A, Bg, Cg, gy, chunk)
+    _check_bwd("ssd_bwd_state", x.dtype, chunk, x=x, dt=dt, A=A, B=Bg,
+               C=Cg, gy=gy)
+    B, L, H, P = x.shape
+    N = Bg.shape[3]
+    S, Lc = (_f32(B, L // chunk, H, P, N, like=x) for _ in "SL")
+    seg = _f32(B, H, L, like=x)
+    _bwd_launch("ssd_bwd_state", False, x.dtype,
+                _bwd_dims(x, Bg, A, None, chunk), x=(x,), gy=(gy,), B=(Bg,),
+                C=(Cg,), dt=(dt,), A=(A,), seg=(seg,), S=(S,), Lc=(Lc,))
+    return S, Lc, seg
+
+
+def _check_pass(name, S, Lc, seg, gs, chunk) -> None:
+    B, nc, H, P, N = S.shape
+    if tuple(Lc.shape) != tuple(S.shape) or tuple(seg.shape) != \
+            (B, H, nc * chunk) or tuple(gs.shape) != (B, H, P, N):
+        raise ValueError(f"{name}: Lc {tuple(Lc.shape)}, seg "
+                         f"{tuple(seg.shape)} and gs {tuple(gs.shape)} do "
+                         f"not fit S {tuple(S.shape)} and chunk={chunk}")
+
+
+def ssd_bwd_pass(S, Lc, seg, gs, *, chunk: int
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pass 2 of :func:`ssd_scan_bwd`: (s_in, gO (B,nc,H,P,N), sg
+    (B,H,nc)), float32, as :func:`.ref.bwd_state_pass_ref`: the states
+    entering each chunk, the cotangents of the states leaving it, and their
+    inner products."""
+    _check_pass("ssd_bwd_pass", S, Lc, seg, gs, chunk)
+    if S.device.type == "cpu":
+        return bwd_state_pass_ref(S, Lc, seg, gs, chunk)
+    _check_bwd("ssd_bwd_pass", torch.float32, chunk, S=S, Lc=Lc, seg=seg,
+               gs=gs)
+    B, nc, H, P, N = S.shape
+    s_in, gO = torch.empty_like(S), torch.empty_like(S)
+    sg = _f32(B, H, nc, like=S)
+    _bwd_launch("ssd_bwd_pass", False, torch.float32,
+                [B, nc * chunk, H, P, 1, N, chunk, 0, 0, 0], seg=(seg,),
+                S=(S,), Lc=(Lc,), gs=(gs,), s_in=(s_in,), gO=(gO,),
+                sg=(sg,))
+    return s_in, gO, sg
+
+
+def _check_chunk(name, x, seg, s_in, gO, sg, chunk) -> None:
+    B, L, H, P = x.shape
+    nc = L // chunk
+    if tuple(seg.shape) != (B, H, L) or tuple(sg.shape) != (B, H, nc) or \
+            tuple(s_in.shape) != tuple(gO.shape) or \
+            tuple(s_in.shape[:4]) != (B, nc, H, P):
+        raise ValueError(f"{name}: seg {tuple(seg.shape)}, s_in "
+                         f"{tuple(s_in.shape)}, gO {tuple(gO.shape)} and sg "
+                         f"{tuple(sg.shape)} do not fit x {tuple(x.shape)} "
+                         f"and chunk={chunk}")
+
+
+def _scratch(x, Bg, chunk, heads=True):
+    """The chunk kernel's outputs for the finish and reduce kernels; dB and
+    dC per head (B,L,H,N) only with ``heads``."""
+    B, L, H, P = x.shape
+    N = Bg.shape[3]
+    out = {k: _f32(B, H, L, like=x) for k in ("ddd", "dsk", "dsq", "tk")}
+    out["dAp"] = _f32(B, L // chunk, H, like=x)
+    if heads:
+        out.update(dBh=_f32(B, L, H, N, like=x), dCh=_f32(B, L, H, N, like=x))
+    return out
+
+
+def ssd_bwd_chunk(x, dt, A, Bg, Cg, gy, seg, s_in, gO, sg, *, chunk: int
+                  ) -> tuple[torch.Tensor, ...]:
+    """Pass 3 of :func:`ssd_scan_bwd`: (dx in x's dtype, ddt float32, dA
+    float32 shaped as A, dB, dC in their dtypes), as
+    :func:`.ref.bwd_chunk_ref`.  Three launches: the chunk kernel (each
+    chunk's tiles), the finish kernel (ddt and each chunk's dA) and the
+    reduce kernel (dB and dC over a group's heads, dA over chunks)."""
+    _check_shapes(x, dt, A, Bg, Cg, chunk)
+    _check_like("ssd_bwd_chunk: gy", gy, x.shape)
+    _check_chunk("ssd_bwd_chunk", x, seg, s_in, gO, sg, chunk)
+    if x.device.type == "cpu":
+        return bwd_chunk_ref(x, dt, A, Bg, Cg, gy, seg, s_in, gO, sg, chunk)
+    _check_bwd("ssd_bwd_chunk", x.dtype, chunk, x=x, dt=dt, A=A, B=Bg, C=Cg,
+               gy=gy, seg=seg, s_in=s_in, gO=gO, sg=sg)
+    dx, dB, dC = (torch.empty_like(t) for t in (x, Bg, Cg))
+    ddt, dA = torch.empty_like(dt), _f32(*A.shape, like=x)
+    planes = dict(x=(x,), gy=(gy,), B=(Bg,), C=(Cg,), dt=(dt,), A=(A,),
+                  seg=(seg,), s_in=(s_in,), gO=(gO,), sg=(sg,), dx=(dx,),
+                  dB=(dB,), dC=(dC,), ddt=(ddt,), dA=(dA,),
+                  **{k: (v,) for k, v in _scratch(x, Bg, chunk).items()})
+    dims = _bwd_dims(x, Bg, A, None, chunk)
+    for key in ("ssd_bwd_chunk", "ssd_bwd_finish", "ssd_bwd_reduce"):
+        _bwd_launch(key, False, x.dtype, dims, **planes)
+    return dx, ddt, dA, dB, dC
+
+
+def _check_bwd_inputs(name, x, dt, A, Bg, Cg, gy, gs, chunk) -> None:
+    _check_shapes(x, dt, A, Bg, Cg, chunk)
+    B, L, H, P = x.shape
+    _check_like(f"{name}: gy", gy, x.shape)
+    _check_like(f"{name}: gs", gs, (B, H, P, Bg.shape[3]))
+
+
+def ssd_scan_bwd(x, dt, A, Bg, Cg, gy, gs, *, chunk: int
+                 ) -> tuple[torch.Tensor, ...]:
+    """The scan's backward: the VJP of :func:`ssd_scan_kernel` from a zero
+    state for the cotangents gy (y's, in x's dtype) and gs (the final
+    state's, float32), computed in float32: (dx, ddt, dA, dB, dC), each
+    shaped and typed as its input (dt and A float32).  On CPU tensors the
+    plain versions of the three passes composed; on CUDA tensors
+    :func:`ssd_bwd_state`, :func:`ssd_bwd_pass` and :func:`ssd_bwd_chunk`,
+    five launches."""
+    _check_bwd_inputs("ssd_scan_bwd", x, dt, A, Bg, Cg, gy, gs, chunk)
+    if x.device.type == "cpu":
+        S, Lc, seg = bwd_state_ref(x, dt, A, Bg, Cg, gy, chunk)
+        s_in, gO, sg = bwd_state_pass_ref(S, Lc, seg, gs, chunk)
+        return bwd_chunk_ref(x, dt, A, Bg, Cg, gy, seg, s_in, gO, sg, chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan_bwd: no kernel for device {x.device}")
+    _check_bwd("ssd_scan_bwd", x.dtype, chunk, x=x, dt=dt, A=A, B=Bg, C=Cg,
+               gy=gy, gs=gs)
+    S, Lc, seg = ssd_bwd_state(x, dt, A, Bg, Cg, gy, chunk=chunk)
+    s_in, gO, sg = ssd_bwd_pass(S, Lc, seg, gs, chunk=chunk)
+    grads = ssd_bwd_chunk(x, dt, A, Bg, Cg, gy, seg, s_in, gO, sg,
+                          chunk=chunk)
+    launch_counts["ssd_scan_bwd"] += 1
+    return grads
+
+
+def _check_tangents(name, primals, tangents) -> None:
+    for tname, t, p in zip(("x'", "dt'", "A'", "B'", "C'", "gy'", "gs'"),
+                           tangents, primals):
+        _check_like(f"{name}: {tname}", t, p.shape)
+
+
+def ssd_bwd_tangent_state(x, dt, A, Bg, Cg, gy, tx, tdt, tA, tB, tC, tgy, *,
+                          chunk: int) -> tuple[torch.Tensor, ...]:
+    """Pass 1 of :func:`ssd_scan_bwd_tangent`: (S, S', Lc, Lc', seg,
+    seg'), float32, as :func:`.ref.tangent_bwd_state_ref`."""
+    _check_shapes(x, dt, A, Bg, Cg, chunk)
+    _check_tangents("ssd_bwd_tangent_state", (x, dt, A, Bg, Cg, gy),
+                    (tx, tdt, tA, tB, tC, tgy))
+    if x.device.type == "cpu":
+        return tangent_bwd_state_ref(x, dt, A, Bg, Cg, gy, tx, tdt, tA, tB,
+                                     tC, tgy, chunk)
+    _check_bwd("ssd_bwd_tangent_state", x.dtype, chunk, x=x, dt=dt, A=A,
+               B=Bg, C=Cg, gy=gy, tx=tx, tdt=tdt, tA=tA, tB=tB, tC=tC,
+               tgy=tgy)
+    B, L, H, P = x.shape
+    N = Bg.shape[3]
+    S, tS, Lc, tLc = (_f32(B, L // chunk, H, P, N, like=x) for _ in range(4))
+    seg, tseg = _f32(B, H, L, like=x), _f32(B, H, L, like=x)
+    _bwd_launch("ssd_bwd_state", True, x.dtype, _bwd_dims(x, Bg, A, tA, chunk),
+                x=(x, tx), gy=(gy, tgy), B=(Bg, tB), C=(Cg, tC), dt=(dt, tdt),
+                A=(A, tA), seg=(seg, tseg), S=(S, tS), Lc=(Lc, tLc))
+    return S, tS, Lc, tLc, seg, tseg
+
+
+def ssd_bwd_tangent_pass(S, tS, Lc, tLc, seg, tseg, gs, tgs, *, chunk: int
+                         ) -> tuple[torch.Tensor, ...]:
+    """Pass 2 of :func:`ssd_scan_bwd_tangent`: (s_in, s_in', gO, gO', sg,
+    sg'), float32, as :func:`.ref.tangent_bwd_state_pass_ref`."""
+    _check_pass("ssd_bwd_tangent_pass", S, Lc, seg, gs, chunk)
+    _check_pass("ssd_bwd_tangent_pass", tS, tLc, tseg, tgs, chunk)
+    if S.device.type == "cpu":
+        return tangent_bwd_state_pass_ref(S, tS, Lc, tLc, seg, tseg, gs, tgs,
+                                          chunk)
+    _check_bwd("ssd_bwd_tangent_pass", torch.float32, chunk, S=S, tS=tS,
+               Lc=Lc, tLc=tLc, seg=seg, tseg=tseg, gs=gs, tgs=tgs)
+    B, nc, H, P, N = S.shape
+    s_in, ts_in, gO, tgO = (torch.empty_like(S) for _ in range(4))
+    sg, tsg = _f32(B, H, nc, like=S), _f32(B, H, nc, like=S)
+    _bwd_launch("ssd_bwd_pass", True, torch.float32,
+                [B, nc * chunk, H, P, 1, N, chunk, 0, 0, 0],
+                seg=(seg, tseg), S=(S, tS), Lc=(Lc, tLc), gs=(gs, tgs),
+                s_in=(s_in, ts_in), gO=(gO, tgO), sg=(sg, tsg))
+    return s_in, ts_in, gO, tgO, sg, tsg
+
+
+def ssd_bwd_tangent_chunk(x, dt, A, Bg, Cg, gy, seg, s_in, gO, sg, tx, tdt,
+                          tA, tB, tC, tgy, tseg, ts_in, tgO, tsg, *,
+                          chunk: int) -> tuple[torch.Tensor, ...]:
+    """Pass 3 of :func:`ssd_scan_bwd_tangent`: the tangents (dx', ddt',
+    dA', dB', dC') of :func:`ssd_bwd_chunk`'s outputs, each in its output's
+    dtype, as :func:`.ref.tangent_bwd_chunk_ref`; three launches."""
+    _check_shapes(x, dt, A, Bg, Cg, chunk)
+    _check_tangents("ssd_bwd_tangent_chunk", (x, dt, A, Bg, Cg, gy),
+                    (tx, tdt, tA, tB, tC, tgy))
+    _check_chunk("ssd_bwd_tangent_chunk", x, seg, s_in, gO, sg, chunk)
+    _check_chunk("ssd_bwd_tangent_chunk", x, tseg, ts_in, tgO, tsg, chunk)
+    if x.device.type == "cpu":
+        return tangent_bwd_chunk_ref(x, dt, A, Bg, Cg, gy, seg, s_in, gO, sg,
+                                     tx, tdt, tA, tB, tC, tgy, tseg, ts_in,
+                                     tgO, tsg, chunk)
+    _check_bwd("ssd_bwd_tangent_chunk", x.dtype, chunk, x=x, dt=dt, A=A,
+               B=Bg, C=Cg, gy=gy, seg=seg, s_in=s_in, gO=gO, sg=sg, tx=tx,
+               tdt=tdt, tA=tA, tB=tB, tC=tC, tgy=tgy, tseg=tseg, ts_in=ts_in,
+               tgO=tgO, tsg=tsg)
+    tdx, tdB, tdC = (torch.empty_like(t) for t in (x, Bg, Cg))
+    tddt, tdA = torch.empty_like(dt), _f32(*A.shape, like=x)
+    # the group sums read only the tangent planes of dB and dC per head
+    scratch = _scratch(x, Bg, chunk, heads=False)
+    tscratch = _scratch(x, Bg, chunk)
+    planes = dict(x=(x, tx), gy=(gy, tgy), B=(Bg, tB), C=(Cg, tC),
+                  dt=(dt, tdt), A=(A, tA), seg=(seg, tseg),
+                  s_in=(s_in, ts_in), gO=(gO, tgO), sg=(sg, tsg),
+                  dx=(None, tdx), dB=(None, tdB), dC=(None, tdC),
+                  ddt=(None, tddt), dA=(None, tdA),
+                  **{k: (scratch.get(k), tscratch[k]) for k in tscratch})
+    dims = _bwd_dims(x, Bg, A, tA, chunk)
+    for key in ("ssd_bwd_chunk", "ssd_bwd_finish", "ssd_bwd_reduce"):
+        _bwd_launch(key, True, x.dtype, dims, **planes)
+    return tdx, tddt, tdA, tdB, tdC
+
+
+def ssd_scan_bwd_tangent(x, dt, A, Bg, Cg, gy, gs, tx, tdt, tA, tB, tC, tgy,
+                         tgs, *, chunk: int) -> tuple[torch.Tensor, ...]:
+    """The backward's forward-mode tangent: the tangents of
+    :func:`ssd_scan_bwd`'s five gradients along the tangents of (x, dt, A,
+    B, C, gy, gs), each shaped and typed as its primal.  On CPU tensors the
+    plain versions of the three tangent passes composed; on CUDA tensors
+    :func:`ssd_bwd_tangent_state`, :func:`ssd_bwd_tangent_pass` and
+    :func:`ssd_bwd_tangent_chunk`, the backward's five kernels on dual
+    numbers."""
+    _check_bwd_inputs("ssd_scan_bwd_tangent", x, dt, A, Bg, Cg, gy, gs,
+                      chunk)
+    _check_tangents("ssd_scan_bwd_tangent", (x, dt, A, Bg, Cg, gy, gs),
+                    (tx, tdt, tA, tB, tC, tgy, tgs))
+    if x.device.type == "cpu":
+        S, tS, Lc, tLc, seg, tseg = tangent_bwd_state_ref(
+            x, dt, A, Bg, Cg, gy, tx, tdt, tA, tB, tC, tgy, chunk)
+        s_in, ts_in, gO, tgO, sg, tsg = tangent_bwd_state_pass_ref(
+            S, tS, Lc, tLc, seg, tseg, gs, tgs, chunk)
+        return tangent_bwd_chunk_ref(x, dt, A, Bg, Cg, gy, seg, s_in, gO, sg,
+                                     tx, tdt, tA, tB, tC, tgy, tseg, ts_in,
+                                     tgO, tsg, chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan_bwd_tangent: no kernel for device "
+                         f"{x.device}")
+    _check_bwd("ssd_scan_bwd_tangent", x.dtype, chunk, x=x, dt=dt, A=A,
+               B=Bg, C=Cg, gy=gy, gs=gs, tx=tx, tdt=tdt, tA=tA, tB=tB, tC=tC,
+               tgy=tgy, tgs=tgs)
+    S, tS, Lc, tLc, seg, tseg = ssd_bwd_tangent_state(
+        x, dt, A, Bg, Cg, gy, tx, tdt, tA, tB, tC, tgy, chunk=chunk)
+    s_in, ts_in, gO, tgO, sg, tsg = ssd_bwd_tangent_pass(
+        S, tS, Lc, tLc, seg, tseg, gs, tgs, chunk=chunk)
+    out = ssd_bwd_tangent_chunk(x, dt, A, Bg, Cg, gy, seg, s_in, gO, sg, tx,
+                                tdt, tA, tB, tC, tgy, tseg, ts_in, tgO, tsg,
+                                chunk=chunk)
+    launch_counts["ssd_scan_bwd_tangent"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# autograd: kernel forward + the backward (the chunked scan's VJP on the CPU)
 # ---------------------------------------------------------------------------
 
 def _fold_A(A: torch.Tensor, dim: int | None, n: int, B: int
@@ -460,10 +842,24 @@ def _fold_A(A: torch.Tensor, dim: int | None, n: int, B: int
     return A.reshape(n * B, A.shape[-1])
 
 
+def _kernel_args(x, dt, A, Bg, Cg, gy, gs):
+    """The backward kernels' operands: contiguous, x's dtype for gy, float32
+    for dt, A and gs."""
+    return (x.contiguous(), dt.float().contiguous(), A.float().contiguous(),
+            Bg.contiguous(), Cg.contiguous(), gy.to(x.dtype).contiguous(),
+            gs.float().contiguous())
+
+
 def _chunked_vjp(x, dt, A, Bg, Cg, gy, gs, chunk):
-    """Gradients of the chunked scan, in float32, at the given inputs."""
-    with torch.profiler.record_function("ssd_scan_chunked_bwd"):
-        return ssd_scan_vjp(x, dt, A, Bg, Cg, gy, gs, chunk)
+    """Gradients of the chunked scan, in float32, at the given inputs, each
+    in its input's dtype: the chunked VJP on CPU tensors, the backward's
+    kernels (:func:`ssd_scan_bwd`) on CUDA tensors."""
+    if x.device.type == "cpu":
+        with torch.profiler.record_function("ssd_scan_chunked_bwd"):
+            return ssd_scan_vjp(x, dt, A, Bg, Cg, gy, gs, chunk)
+    grads = ssd_scan_bwd(*_kernel_args(x, dt, A, Bg, Cg, gy, gs),
+                         chunk=chunk)
+    return tuple(g.to(t.dtype) for g, t in zip(grads, (x, dt, A, Bg, Cg)))
 
 
 def _fold_bwd_call(fn, info, in_dims, tensors, rest):
@@ -518,14 +914,21 @@ class _SSDScanTangent(torch.autograd.Function):
 
 def _chunked_vjp_tangent(x, dt, A, Bg, Cg, gy, gs, tx, tdt, tA, tB, tC,
                          tgy, tgs, chunk):
-    """The tangent of the chunked VJP's gradients: ``torch.func.jvp`` of
-    :func:`.chunked.ssd_scan_vjp` (PyTorch ops, as the backward is)."""
-    with torch.profiler.record_function("ssd_scan_chunked_bwd_jvp"):
-        return torch.func.jvp(
-            lambda *a: ssd_scan_vjp(*a, chunk),
-            *(tuple(t.contiguous() for t in ts) for ts in (
-                (x, dt, A, Bg, Cg, gy, gs),
-                (tx, tdt, tA, tB, tC, tgy, tgs))))[1]
+    """The tangent of :func:`_chunked_vjp`'s gradients, each in its
+    gradient's dtype: ``torch.func.jvp`` of :func:`.chunked.ssd_scan_vjp`
+    on CPU tensors, the backward's kernels on dual numbers
+    (:func:`ssd_scan_bwd_tangent`) on CUDA tensors."""
+    if x.device.type == "cpu":
+        with torch.profiler.record_function("ssd_scan_chunked_bwd_jvp"):
+            return torch.func.jvp(
+                lambda *a: ssd_scan_vjp(*a, chunk),
+                *(tuple(t.contiguous() for t in ts) for ts in (
+                    (x, dt, A, Bg, Cg, gy, gs),
+                    (tx, tdt, tA, tB, tC, tgy, tgs))))[1]
+    out = ssd_scan_bwd_tangent(*_kernel_args(x, dt, A, Bg, Cg, gy, gs),
+                               *_kernel_args(tx, tdt, tA, tB, tC, tgy, tgs),
+                               chunk=chunk)
+    return tuple(g.to(t.dtype) for g, t in zip(out, (x, dt, A, Bg, Cg)))
 
 
 class _SSDScanBwdTangent(torch.autograd.Function):
@@ -627,5 +1030,6 @@ def ssd_scan(x, dt, A, Bg, Cg, *, chunk: int = 128
     """Model-facing layout: x (B,L,H,P), dt (B,L,H), A (H,), Bg/Cg
     (B,L,G,N) group projections.  Returns (y (B,L,H,P) in x's dtype, state
     (B,H,P,N) float32): the kernel on a CUDA tensor (its plain version on a
-    CPU tensor), differentiable through the chunked scan's VJP."""
+    CPU tensor), differentiable through the backward's kernels (the chunked
+    scan's VJP on a CPU tensor)."""
     return _SSDScan.apply(x, dt, A, Bg, Cg, chunk)

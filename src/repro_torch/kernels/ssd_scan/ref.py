@@ -256,3 +256,165 @@ def tangent_scan_ref(x, dt, seg, Bg, Cg, tx, tdt, tseg, tB, tC, s_in,
           + torch.einsum("bcqgn,bcgrpn->bcqgrp", cs, ts_full))
     y = y + torch.exp(sg)[..., None] * (tsg[..., None] * y0 + y1)
     return y.reshape(B, L, H, P).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The backward's passes (kernel ssd_scan_bwd), one plain version each.
+# Composed (bwd_state_ref -> bwd_state_pass_ref -> bwd_chunk_ref) they are
+# the VJP of the chunked scan from a zero state, in float32.  Per chunk,
+# with seg the in-chunk cumsum of dt·A, E_qk = exp(seg_q - seg_k) (k <= q),
+# G = C·Bᵀ, M = G E dt_k, w_k = exp(seg_end - seg_k) and u_k = w_k dt_k:
+#
+#   y_q   = Σ_k M_qk x_k + exp(seg_q) s_in C_q
+#   s_out = exp(seg_end) s_in + Σ_k u_k x_k B_kᵀ
+#
+# Pass 1 recomputes each chunk's own state and forms its state cotangent
+# Σ_q exp(seg_q) gy_q C_qᵀ; pass 2 carries the states forward and their
+# cotangents back across chunks; pass 3 forms each chunk's gradients.
+# ---------------------------------------------------------------------------
+
+def _chunked(t: torch.Tensor, B: int, nc: int, chunk: int, G: int
+             ) -> torch.Tensor:
+    """(B, L, H, ...) float32 as (B, nc, c, G, H/G, ...)."""
+    return t.float().reshape(B, nc, chunk, G, t.shape[2] // G,
+                             *t.shape[3:])
+
+
+def bwd_state_ref(x, dt, A, Bg, Cg, gy, chunk: int):
+    """Pass 1.  x, gy (B,L,H,P), dt (B,L,H), A (H,) or (B,H), Bg/Cg
+    (B,L,G,N).  Returns (S, Lc (B,nc,H,P,N), seg (B,H,L)), float32: S and
+    seg as :func:`chunk_state_ref`, Lc each chunk's state cotangent from its
+    own rows, ``Σ_q exp(seg_q) gy_q C_qᵀ``."""
+    S, seg = chunk_state_ref(x, dt, A, Bg, chunk)
+    B, L, H, P = x.shape
+    G, N = Bg.shape[2], Bg.shape[3]
+    nc, r = L // chunk, H // G
+    sg = seg.reshape(B, G, r, nc, chunk).permute(0, 3, 4, 1, 2)
+    v = torch.exp(sg)[..., None] * _chunked(gy, B, nc, chunk, G)
+    Lc = torch.einsum("bcqgrp,bcqgn->bcgrpn", v,
+                      Cg.float().reshape(B, nc, chunk, G, N))
+    return S, Lc.reshape(B, nc, H, P, N), seg
+
+
+def bwd_state_pass_ref(S, Lc, seg, gs, chunk: int):
+    """Pass 2.  S, Lc and seg from pass 1, gs (B,H,P,N) the final state's
+    cotangent.  Returns (s_in, gO (B,nc,H,P,N), sg (B,H,nc)), float32: the
+    state entering each chunk (zero for the first), the cotangent of the
+    state leaving it (``gO[nc-1] = gs``, ``gO[c-1] = exp(seg_end_c) gO[c] +
+    Lc[c]``) and their inner product per chunk."""
+    B, nc, H, P, N = S.shape
+    decay = torch.exp(seg.reshape(B, H, nc, chunk)[..., -1])[..., None, None]
+    s = torch.zeros(B, H, P, N, dtype=torch.float32, device=S.device)
+    s_in = []
+    for c in range(nc):
+        s_in.append(s)
+        s = decay[:, :, c] * s + S[:, c]
+    g, gO = gs.float(), [None] * nc
+    for c in reversed(range(nc)):
+        gO[c] = g
+        g = decay[:, :, c] * g + Lc[:, c]
+    s_in, gO = torch.stack(s_in, 1), torch.stack(gO, 1)
+    return s_in, gO, (s_in * gO).sum((-2, -1)).transpose(1, 2)
+
+
+def bwd_chunk_ref(x, dt, A, Bg, Cg, gy, seg, s_in, gO, sg, chunk: int):
+    """Pass 3.  The inputs as :func:`bwd_state_ref`'s, seg from pass 1 and
+    s_in, gO, sg from pass 2.  Returns (dx (B,L,H,P) in x's dtype, ddt
+    (B,L,H) float32, dA float32 shaped as A, dB, dC (B,L,G,N) in their
+    dtypes): the causal c x c tiles D = gy xᵀ, Z = D E dt_k and R = D ⊙ M
+    give dx = Mᵀ gy + u_k gO B_k, dC = Z B + exp(seg_q) gy s_in, dB = Zᵀ C
+    + u_k gOᵀ x (summed over a group's heads), and dseg (row sums of R less
+    its column sums, plus the state terms), whose reverse cumsum within the
+    chunk gives ddt = (direct terms) + A·rcs and dA = Σ dt·rcs (over L, and
+    over B where A is (H,))."""
+    B, L, H, P = x.shape
+    G, N = Bg.shape[2], Bg.shape[3]
+    nc, r = L // chunk, H // G
+    xs, gys = _chunked(x, B, nc, chunk, G), _chunked(gy, B, nc, chunk, G)
+    dts = dt.float().reshape(B, nc, chunk, G, r)
+    sgm = seg.reshape(B, G, r, nc, chunk).permute(0, 3, 4, 1, 2)
+    bs, cs = (t.float().reshape(B, nc, chunk, G, N) for t in (Bg, Cg))
+    sin, go = (t.reshape(B, nc, G, r, P, N) for t in (s_in, gO))
+    causal = torch.ones(chunk, chunk, dtype=torch.bool,
+                        device=x.device).tril()[:, :, None, None]
+    E = torch.exp(torch.where(causal, sgm[:, :, :, None] - sgm[:, :, None],
+                              -torch.inf))                 # (B,nc,q,k,G,r)
+    gram = torch.einsum("bcqgn,bckgn->bcqkg", cs, bs)[..., None]
+    D = torch.einsum("bcqgrp,bckgrp->bcqkgr", gys, xs)
+    GE = gram * E
+    M = GE * dts[:, :, None]
+    Z = D * E * dts[:, :, None]
+    # R's diagonal enters dseg_q once as a row sum and once, negated, as a
+    # column sum: it is left out of both (in float32 the two would not
+    # cancel where seg falls steeply), as T_k of the last row below
+    R = D * M * ~torch.eye(chunk, dtype=torch.bool, device=x.device
+                           )[:, :, None, None]
+    w = torch.exp(sgm[:, :, -1:] - sgm)                    # (B,nc,c,G,r)
+    u = w * dts
+    v = torch.einsum("bckgn,bcgrpn->bckgrp", bs, go)       # gO B_k
+    xv = (xs * v).sum(-1)
+    dx = torch.einsum("bcqkgr,bcqgrp->bckgrp", M, gys) + u[..., None] * v
+    wq = torch.einsum("bcqgrp,bcgrpn->bcqgrn", gys, sin)   # gy_q s_in
+    es = torch.exp(sgm)
+    dC = (torch.einsum("bcqkgr,bckgn->bcqgrn", Z, bs)
+          + es[..., None] * wq).sum(4)
+    dB = (torch.einsum("bcqkgr,bcqgn->bckgrn", Z, cs)
+          + u[..., None] * torch.einsum("bckgrp,bcgrpn->bckgrn", xs, go)
+          ).sum(4)
+    T = torch.cat([u[:, :, :-1] * xv[:, :, :-1],
+                   torch.zeros_like(u[:, :, -1:])], 2)
+    dseg = (R.sum(3) - R.sum(2)
+            + es * (cs[:, :, :, :, None] * wq).sum(-1) - T)
+    end = T.sum(2) + torch.exp(sgm[:, :, -1]) * sg.reshape(
+        B, G, r, nc).permute(0, 3, 1, 2)
+    dseg = torch.cat([dseg[:, :, :-1], dseg[:, :, -1:] + end[:, :, None]], 2)
+    rcs = dseg.flip(2).cumsum(2).flip(2)
+    a = _per_sequence(A, B).reshape(B, 1, 1, G, r)
+    ddt = (GE * D).sum(2) + w * xv + a * rcs
+    dA = (dts * rcs).sum((1, 2)).reshape(B, H)
+    if A.ndim == 1:
+        dA = dA.sum(0)
+    return (dx.reshape(B, L, H, P).to(x.dtype), ddt.reshape(B, L, H), dA,
+            dB.reshape(B, L, G, N).to(Bg.dtype),
+            dC.reshape(B, L, G, N).to(Cg.dtype))
+
+
+def _jvp(fn, primals, tangents):
+    """``torch.func.jvp`` of ``fn`` in float32 (inputs made contiguous, as
+    ``make_dual`` needs)."""
+    return torch.func.jvp(fn, tuple(p.float().contiguous() for p in primals),
+                          tuple(t.float().contiguous() for t in tangents))
+
+
+def tangent_bwd_state_ref(x, dt, A, Bg, Cg, gy, tx, tdt, tA, tB, tC, tgy,
+                          chunk: int):
+    """Pass 1 of the backward's tangent: (S, S', Lc, Lc', seg, seg'),
+    float32, ``torch.func.jvp`` of :func:`bwd_state_ref`."""
+    (S, Lc, seg), (tS, tLc, tseg) = _jvp(
+        lambda *a: bwd_state_ref(*a, chunk), (x, dt, A, Bg, Cg, gy),
+        (tx, tdt, tA, tB, tC, tgy))
+    return S, tS, Lc, tLc, seg, tseg
+
+
+def tangent_bwd_state_pass_ref(S, tS, Lc, tLc, seg, tseg, gs, tgs,
+                               chunk: int):
+    """Pass 2 of the backward's tangent: (s_in, s_in', gO, gO', sg, sg'),
+    float32, ``torch.func.jvp`` of :func:`bwd_state_pass_ref`."""
+    (s_in, gO, sg), (ts_in, tgO, tsg) = _jvp(
+        lambda *a: bwd_state_pass_ref(*a, chunk), (S, Lc, seg, gs),
+        (tS, tLc, tseg, tgs))
+    return s_in, ts_in, gO, tgO, sg, tsg
+
+
+def tangent_bwd_chunk_ref(x, dt, A, Bg, Cg, gy, seg, s_in, gO, sg, tx, tdt,
+                          tA, tB, tC, tgy, tseg, ts_in, tgO, tsg,
+                          chunk: int):
+    """Pass 3 of the backward's tangent: the tangents (dx', ddt', dA', dB',
+    dC') of :func:`bwd_chunk_ref`'s outputs, each in its output's dtype,
+    from ``torch.func.jvp``."""
+    grads = bwd_chunk_ref(x, dt, A, Bg, Cg, gy, seg, s_in, gO, sg, chunk)
+    _, tangents = _jvp(
+        lambda *a: bwd_chunk_ref(*a, chunk),
+        (x, dt, A, Bg, Cg, gy, seg, s_in, gO, sg),
+        (tx, tdt, tA, tB, tC, tgy, tseg, ts_in, tgO, tsg))
+    return tuple(t.to(g.dtype) for t, g in zip(tangents, grads))

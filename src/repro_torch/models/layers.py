@@ -17,8 +17,8 @@ probabilities to the value dtype before P·V, the kernel keeps them float32
 (as the Pallas kernel does).  In float32 the two agree to rounding.
 
 :func:`mamba2_apply` is where the hand-written SSD scan kernel goes: on a
-CUDA tensor it calls the SSD scan ``Function`` (kernel forward, the chunked
-scan's VJP as backward); on a CPU tensor it runs :func:`ssd_scan`, the
+CUDA tensor it calls the SSD scan ``Function`` (kernel forward, the
+backward's kernels as backward); on a CPU tensor it runs :func:`ssd_scan`, the
 port of the reference's jnp chunked scan (its ``use_kernel=False``
 branch), which lives in ``kernels/ssd_scan/chunked.py`` beside its VJP and
 is exported here under the reference's name.  The kernel keeps the state and the decay tile in float32, where

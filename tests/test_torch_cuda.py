@@ -621,9 +621,8 @@ def test_cuda_ssd_passes_match_plain_versions(cuda, L, chunk, H, G, P, N):
     hi, lo, state = sops.ssd_state_pass(S, seg, chunk=chunk)
     y = sops.ssd_chunk_scan(x, dt, seg, Bm, Cm, hi, lo, chunk=chunk)
     assert {k: sops.launch_counts[k] - before[k] for k in before} == {
-        "ssd_scan": 0, "ssd_chunk_state": 1, "ssd_state_pass": 1,
-        "ssd_chunk_scan": 1, "ssd_scan_tangent": 0, "ssd_tangent_state": 0,
-        "ssd_tangent_pass": 0, "ssd_tangent_scan": 0}
+        **{k: 0 for k in before}, "ssd_chunk_state": 1, "ssd_state_pass": 1,
+        "ssd_chunk_scan": 1}
     Sr, segr = sref.chunk_state_ref(x, dt, A, Bm, chunk)
     torch.testing.assert_close(S, Sr, **SSD_F32_TOL)
     torch.testing.assert_close(seg, segr, **SSD_F32_TOL)
@@ -978,8 +977,7 @@ def test_cuda_t3_passes_match_plain_versions(cuda, L, chunk, H, G, P, N):
     ty = sops.ssd_tangent_scan(x, dt, seg, Bm, Cm, tx, tdt, tseg, tB, tC, hi,
                                lo, thi, tlo, chunk=chunk)
     assert {k: sops.launch_counts[k] - before[k] for k in before} == {
-        "ssd_scan": 0, "ssd_chunk_state": 0, "ssd_state_pass": 0,
-        "ssd_chunk_scan": 0, "ssd_scan_tangent": 0, "ssd_tangent_state": 1,
+        **{k: 0 for k in before}, "ssd_tangent_state": 1,
         "ssd_tangent_pass": 1, "ssd_tangent_scan": 1}
     for got, want in zip((S, tS, seg, tseg), sref.tangent_state_ref(
             x, dt, A, Bm, tx, tdt, tA, tB, chunk)):
@@ -1075,3 +1073,149 @@ def test_cuda_forward_over_reverse_through_the_model_matches_the_cpu(cuda,
     for k in want:
         err = (got[k].cpu() - want[k]).abs().max()
         assert err <= 1e-3 * want[k].abs().max(), (k, float(err))
+
+
+# The SSD scan's backward (ssd_scan_bwd) and its tangent
+# (ssd_scan_bwd_tangent) against their plain passes composed, as
+# (rtol, share of the largest |value|): float32 results within 1e-4 of the
+# largest |value|; the bf16 route's dx, dB and dC (rounded to bf16) one bf16
+# rounding plus 2^-8 of the largest |value| (chip_smoke.py's SSD_BWD_TOL).
+SSD_BWD_TOL = {torch.float32: (0.0, 1e-4), torch.bfloat16: (1.6e-2, 2.0 ** -8)}
+SSD_BWD_SHAPES = [(128, 32, 2, 2, 16, 32, False), (96, 48, 4, 2, 8, 16, True),
+                  (512, 256, 4, 1, 64, 128, True),
+                  (100, 100, 4, 2, 16, 32, False)]
+SSD_BWD_IDS = ["grid128x32", "groups-ragged48-A-per-seq",
+               "full-width-A-per-seq", "one-chunk-ragged100"]
+
+
+def _bwd_inputs(gen, B, L, H, P, N, G, dtype, device, per_seq):
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, B, L, H, P, N, G, dtype, device)
+    if per_seq:
+        A = A * (0.5 + torch.rand(B, 1, generator=gen)).to(device)
+    gy = torch.randn(x.shape, generator=gen).to(device, dtype)
+    gs = torch.randn(B, H, P, N, generator=gen).to(device)
+    args = [x, dt, A, Bm, Cm, gy, gs]
+    return args, [torch.randn(a.shape, generator=gen).to(device, a.dtype)
+                  for a in args]
+
+
+def _bwd_plain(args, chunk):
+    S, Lc, seg = sref.bwd_state_ref(*args[:6], chunk)
+    s_in, gO, sg = sref.bwd_state_pass_ref(S, Lc, seg, args[6], chunk)
+    return sref.bwd_chunk_ref(*args[:6], seg, s_in, gO, sg, chunk)
+
+
+def _bwd_tangent_plain(args, targs, chunk):
+    S, tS, Lc, tLc, seg, tseg = sref.tangent_bwd_state_ref(
+        *args[:6], *targs[:6], chunk)
+    s_in, ts_in, gO, tgO, sg, tsg = sref.tangent_bwd_state_pass_ref(
+        S, tS, Lc, tLc, seg, tseg, args[6], targs[6], chunk)
+    return sref.tangent_bwd_chunk_ref(*args[:6], seg, s_in, gO, sg,
+                                      *targs[:6], tseg, ts_in, tgO, tsg,
+                                      chunk)
+
+
+def _assert_bwd_close(got, want):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        rtol, rel = SSD_BWD_TOL[w.dtype]
+        err = (g.float() - w.float()).abs()
+        assert torch.isfinite(g.float()).all()
+        assert (err <= rtol * w.float().abs()
+                + rel * w.float().abs().max()).all(), float(err.max())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("tangent", [False, True], ids=["bwd", "tangent"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("L,chunk,H,G,P,N,per_seq", SSD_BWD_SHAPES,
+                         ids=SSD_BWD_IDS)
+def test_cuda_ssd_bwd_matches_plain_version(cuda, L, chunk, H, G, P, N,
+                                            per_seq, dtype, tangent):
+    """One call, five launches, within SSD_BWD_TOL of the plain passes
+    composed; a second call gives the same bits."""
+    gen = torch.Generator().manual_seed(L + chunk + tangent)
+    args, targs = _bwd_inputs(gen, 2, L, H, P, N, G, dtype, cuda, per_seq)
+    key = "ssd_scan_bwd_tangent" if tangent else "ssd_scan_bwd"
+    prefix = "ssd_bwd_tangent_" if tangent else "ssd_bwd_"
+    before = dict(sops.launch_counts)
+    if tangent:
+        call = lambda: sops.ssd_scan_bwd_tangent(*args, *targs, chunk=chunk)
+    else:
+        call = lambda: sops.ssd_scan_bwd(*args, chunk=chunk)
+    got = call()
+    after = dict(sops.launch_counts)
+    assert after[key] == before[key] + 1
+    for p in ("state", "pass", "chunk", "finish", "reduce"):
+        assert after[prefix + p] == before[prefix + p] + 1
+    want = (_bwd_tangent_plain(args, targs, chunk) if tangent
+            else _bwd_plain(args, chunk))
+    _assert_bwd_close(got, want)
+    for a, b in zip(got, call()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_ssd_scan_grad_and_its_jvp_run_the_backward_kernels(cuda):
+    """``vmap(jvp(grad))`` through ``ssd_scan`` on the card (the exact
+    meta-gradient's shape of call) launches the backward's kernel and its
+    tangent's, each once for the three users, never the chunked VJP, and
+    matches the CPU (the chunked VJP and its jvp)."""
+    gen = torch.Generator().manual_seed(2)
+    n, B, L, H, P, N = 3, 2, 128, 4, 16, 32
+    xs = torch.randn(n, B, L, H, P, generator=gen)
+    dts = torch.nn.functional.softplus(torch.randn(n, B, L, H,
+                                                   generator=gen)) * 0.5
+    a_log = torch.randn(H, generator=gen) * 0.3
+    Bs, Cs = (torch.randn(n, B, L, 1, N, generator=gen) * 0.3 for _ in "BC")
+    w = torch.randn(n, B, L, H, P, generator=gen)
+    v = torch.randn(n, B, L, H, P, generator=gen)
+
+    def loss(x, dt, a_log, Bm, Cm, w):
+        y, s = sops.ssd_scan(x, dt, -torch.exp(a_log), Bm, Cm, chunk=32)
+        return (y * w).sum() + 0.1 * (s ** 2).sum()
+
+    def hvp(x, dt, a_log, Bm, Cm, w, v):
+        grad = torch.func.grad(loss, argnums=(0, 1, 2, 3, 4))
+        return torch.func.jvp(lambda x: grad(x, dt, a_log, Bm, Cm, w), (x,),
+                              (v,))
+
+    f = torch.func.vmap(hvp, in_dims=(0, 0, None, 0, 0, 0, 0))
+    args = (xs, dts, a_log, Bs, Cs, w, v)
+    before = dict(sops.launch_counts)
+    got = f(*(t.to(cuda) for t in args))
+    for key in ("ssd_scan_bwd", "ssd_scan_bwd_tangent"):
+        assert sops.launch_counts[key] == before[key] + 1, key
+    want = f(*args)
+    for g, w_ in zip(torch.utils._pytree.tree_leaves(got),
+                     torch.utils._pytree.tree_leaves(want)):
+        err = (g.cpu() - w_).abs().max()
+        assert err <= 1e-4 * max(1.0, float(w_.abs().max())), float(err)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_ssd_bwd_raises_instead_of_falling_back(cuda, monkeypatch):
+    """A dtype or size the kernels do not take raises, and so does a
+    refused launch: no wrapper gives way to the chunked VJP."""
+    gen = torch.Generator().manual_seed(3)
+    args, targs = _bwd_inputs(gen, 1, 64, 2, 16, 32, 1, torch.float32, cuda,
+                              False)
+    x, dt, A, Bm, Cm, gy, gs = args
+    with pytest.raises(ValueError, match="not supported"):
+        sops.ssd_scan_bwd(x.half(), dt, A, Bm.half(), Cm.half(), gy.half(),
+                          gs, chunk=32)
+    with pytest.raises(ValueError, match="P=80"):
+        big = torch.ones(1, 64, 2, 80, device=cuda)
+        sops.ssd_scan_bwd(big, dt, A, Bm, Cm, big, torch.ones(
+            1, 2, 80, 32, device=cuda), chunk=32)
+    with pytest.raises(ValueError, match="float32"):
+        sops.ssd_scan_bwd(x, dt.bfloat16(), A, Bm, Cm, gy, gs, chunk=32)
+    with pytest.raises(ValueError, match="on cpu"):
+        sops.ssd_scan_bwd_tangent(*args, *(t.cpu() for t in targs), chunk=32)
+    sops.BWD_LIB.build()
+    monkeypatch.setattr(sops.BWD_LIB.lib, "repro_ssd_bwd_launch",
+                        lambda *a: 1)
+    with pytest.raises(RuntimeError, match="ssd_bwd_state kernel launch"):
+        sops.ssd_scan_bwd(*args, chunk=32)
+    with pytest.raises(RuntimeError, match="ssd_bwd_tangent_state kernel"):
+        sops.ssd_scan_bwd_tangent(*args, *targs, chunk=32)
