@@ -86,11 +86,11 @@ Phases, each fatal on failure:
                 cold L2 (64 MB written between calls) are printed beside
                 the warm ones.  This phase runs before phase 5.
 7. serve     -- runs ``python -m repro_torch.launch.serve --arch qwen2-1.5b``
-                at full width cut to 8 of its 28 layers (``--layers 8``;
+                at full width cut to 2 of its 28 layers (``--layers 2``;
                 bfloat16, fresh init from seed 0; 4 users x 4 sequences x
                 256 tokens, 2 adapt steps, 2 rounds, 128 prompt + 128
                 generated tokens).  The flash launch counters, zeroed just
-                before, must show 8 x 2 forward and 2 x 8 x 2 backward
+                before, must show 2 x 2 forward and 2 x 2 x 2 backward
                 launches (one adapt dispatch; the
                 backward is a dK/dV and a dQ kernel); round 1 has 4
                 misses and round 2 4 hits; every adapted leaf is finite; each
@@ -147,12 +147,12 @@ Phases, each fatal on failure:
                 chunk's term, dB not summed over a group's heads) that must
                 fail; every row's second call must give the same bits.
 10. mamba2 serve -- runs ``python -m repro_torch.launch.serve --arch
-                mamba2-130m --layers 12 --prompt-len 512 --gen 512`` at
-                full width cut to 12 of its 24 layers (bfloat16, fresh init
+                mamba2-130m --layers 6 --prompt-len 512 --gen 512`` at
+                full width cut to 6 of its 24 layers (bfloat16, fresh init
                 from seed 0; 4 users x 4 sequences x 1024 tokens, 2 adapt
                 steps, 2 rounds).  The ssd_scan and ssd_scan_bwd call
                 counters and each of their kernels' launch counters, zeroed
-                just before, must show 12 x 2 (one adapt dispatch); 4
+                just before, must show 6 x 2 (one adapt dispatch); 4
                 misses then 4 hits; finite adapted leaves; falling support
                 losses; 1024 tokens a sequence.  Prints the serve phase's
                 numbers as phase 7 does, the device time of one more
@@ -160,7 +160,7 @@ Phases, each fatal on failure:
                 backward's kernels by name (torch.profiler), and where its
                 peak memory goes.
 11. mamba2 agreement -- phase 8 for mamba2-130m cut to 2 layers at full
-                width, one episode of 4 x 1024 tokens: float32 within 1e-4
+                width, one episode of 2 x 1024 tokens: float32 within 1e-4
                 relative, bfloat16 within 1e-3.
 12. tangents -- holds the forward-mode tangent kernels against
                 ``torch.func.jvp`` of their plain versions: T1 (flash
@@ -187,21 +187,24 @@ Phases, each fatal on failure:
                 dual numbers) over phase 9's backward rows, the same way.
                 Runs before phase 5, as phase 6.
 13. mamba2 training -- this slice's main path: ``launch.train.main`` in
-                this process on mamba2-130m at full width cut to 8 of its
-                24 layers (``--layers 8``; bf16, fresh init from seed 0), K=4 agents on the ring,
+                this process on mamba2-130m at full width cut to 4 of its
+                24 layers (``--layers 4``; bf16, fresh init from seed 0),
+                K=4 agents on the ring,
                 exact MAML, ``--fused-outer``, a registered 512-token shape
                 with global batch 16 (2 tasks x 1 sequence an agent), 4
                 steps in dispatches of 2, eval every 2 steps (4 tasks, 1
-                adaptation step), a checkpoint every 2; the launch counters
+                adaptation step); the launch counters
                 are zeroed just before and read just after, and the SSD
                 kernels, T3, the scan's backward and its tangent
                 (``ssd_scan_bwd``, ``ssd_scan_bwd_tangent``, each of their
                 five kernels) and the fused update must have launched; the
                 losses are finite, the disagreement falls, the run log
-                passes ``scripts/check_run_log.py --expect-fused``.  Then a
-                second run from the step-2 checkpoint alone must reach the
+                passes ``scripts/check_run_log.py --expect-fused``.  Then 2
+                steps that save the step-2 checkpoint and 2 more resumed
+                from it alone (``--ckpt-every 0``: no write; the chip
+                machine bounds what a call writes to 45 GiB) must reach the
                 uninterrupted step-4 loss within 1e-3, and one meta-step of
-                the final state is profiled (device time split, idle share,
+                the resumed state is profiled (device time split, idle share,
                 peak memory, T3 and the backward's tangent launched; the
                 SSD backward and its tangent reported by kernel name).
 14. qwen2 training -- the same for qwen2-1.5b at full width cut to 2
@@ -254,7 +257,38 @@ Phases, each fatal on failure:
                 adapted to unseen domains and decoded): the flash kernels
                 launched, the serve log accepted by
                 ``scripts/check_run_log.py --serve``.
-Phases 16-18 run after phase 14, before phase 15.
+19. deepseek serve -- ``launch/serve.py`` with phase 7's arguments on
+                deepseek-v2-lite-16b at full width (d_model 2048, 16 MLA
+                heads, kv_lora 512, 64 experts top-6 + 2 shared of 1408,
+                vocab 102400) cut to 2 of its 27 layers (the dense layer 0
+                and one MoE layer; bf16, fresh init from seed 0): 4 misses
+                then 4 hits, finite adapted leaves, falling support losses,
+                256 tokens a sequence, and no flash or SSD kernel launched
+                (MLA's attention is the plain one by name: q/k head 192, v
+                head 128; the route is printed).  Prints phase 7's numbers.
+20. deepseek training -- phase 13 for the same cut: ``fomaml``, momentum,
+                ``--fused-outer``, 256 tokens, global batch 16, eval of one
+                task an agent (K x tasks adapted copies of 2.17 GB), one
+                ``fused_combine_update`` launch a step, checkpoint and
+                resume; then 2 steps with ``--combine pallas``, one
+                ``dif_combine`` launch a step; then both outer-update
+                kernels over the cut's 31 leaves at K=4 (1,085 M columns,
+                bf16, momentum/ATC) against their plain versions leaf by
+                leaf, timed beside the plain versions and the bounds.
+21. MoE agreement -- phases 8 and 15 (``fomaml`` only) for deepseek's cut
+                and reduced mixtral-8x22b, one task of one sequence of 128
+                tokens, one set of weights: losses within 1e-4 (f32) / 1e-3
+                (bf16), the meta-gradient within phase 15's limits (in bf16
+                the routed experts' and router's leaves through the norm
+                over all leaves only), and the share of (token, choice)
+                pairs routed to another expert on the card than on the CPU
+                within 1e-3 (f32) / 2e-2 (bf16).
+22. MoE dispatch -- ``moe_apply_einsum`` against ``moe_apply_sorted`` on
+                the card at deepseek's MoE layer width (2 x 128 tokens, f32,
+                capacity ample): within 1e-5 of the largest |value|; each
+                path's time.
+Phases 16-18 run after phase 14, before phase 15; phases 19-22 after phase
+15, before phase 5.
 
 The last two lines of standard output are the kernels' numbers and the
 device, as JSON.  Without a CUDA card the script exits 1 before any result.
@@ -394,10 +428,13 @@ F32_EXTRA = [(2, 200, 4, 4, 32, True, None, False),
              (1, 300, 12, 2, 128, False, None, False),
              (2, 100, 6, 1, 30, True, None, False),
              (1, 160, 4, 2, 64, True, None, True)]
-# qwen2-1.5b serves at full width cut to 8 of its 28 layers, to keep the
-# script well inside its time limit (PERF.md §4: on an H100 the whole
-# script took 886 s with 28 layers, 784 s with 8).
-SERVE_ARGS = ["--arch", "qwen2-1.5b", "--layers", "8", "--batch", "4",
+# qwen2-1.5b serves at full width cut to QWEN_SERVE_LAYERS of its 28 layers,
+# to keep the script inside its time limit (PERF.md §4: on an H100 the
+# whole script took 886 s with 28 layers, 784 s with 8; 2 since the MoE
+# phases came in: at 4 layers it took 977-1136 s).
+QWEN_SERVE_LAYERS = 2
+SERVE_ARGS = ["--arch", "qwen2-1.5b", "--layers", str(QWEN_SERVE_LAYERS),
+              "--batch", "4",
               "--prompt-len", "128",
               "--gen", "128", "--adapt-steps", "2", "--users", "4",
               "--rounds", "2", "--seed", "0"]
@@ -421,9 +458,10 @@ SSD_MAIN = dict(B=16, L=1024, H=24, P=64, N=128, G=1, chunk=256)
 # layers, and serves cut to MAMBA_SERVE_LAYERS, to keep the script inside its
 # time limit with the example twins (phases 16-18) added: on an H100 whose
 # host ran the mamba2 step at 4.5-6.4 s, the whole script took 1030 s with
-# both at 24 layers (PERF.md, section 6).
-MAMBA_TRAIN_LAYERS = 8
-MAMBA_SERVE_LAYERS = 12
+# both at 24 layers (PERF.md, section 6); 8 and 12 layers until the MoE
+# phases came in (PERF.md §4), 4 and 6 since.
+MAMBA_TRAIN_LAYERS = 4
+MAMBA_SERVE_LAYERS = 6
 MAMBA_SERVE_ARGS = ["--arch", "mamba2-130m", "--layers",
                     str(MAMBA_SERVE_LAYERS), "--batch", "4",
                     "--prompt-len", "512", "--gen", "512", "--adapt-steps",
@@ -2578,10 +2616,12 @@ def live_at_peak(trace) -> tuple[list, int]:
 # Phase 8: the card against the CPU on a 2-layer cut of the same config
 # ---------------------------------------------------------------------------
 
-def agreement_phase(cfg=None, rtol=None, seq=256, task_batch=2):
+def agreement_phase(cfg=None, rtol=None, seq=256, task_batch=2,
+                    weights=None):
     """The card against the CPU on one set of weights and one episode of
     ``task_batch`` sequences of ``seq`` tokens.  ``cfg``: qwen2-1.5b at full
-    width cut to 2 layers unless given; ``rtol``: AGREE_RTOL unless given.
+    width cut to 2 layers unless given; ``rtol``: AGREE_RTOL unless given;
+    ``weights``: float32 CPU weights, a seed-1 init unless given.
 
     Each card run (kernels) is held against the CPU run (plain versions) in
     its own dtype, on the launch, adapted-support and adapted-query losses.
@@ -2598,8 +2638,9 @@ def agreement_phase(cfg=None, rtol=None, seq=256, task_batch=2):
     rtol = AGREE_RTOL if rtol is None else rtol
     model = build_model(cfg)
     harness = EvalHarness(model.loss_fn, cfg.inner_lr, 2)
-    weights = model.init(torch.Generator().manual_seed(1), torch.float32,
-                         "cpu")
+    if weights is None:
+        weights = model.init(torch.Generator().manual_seed(1),
+                             torch.float32, "cpu")
     ep = serve.make_support_source(cfg, seq, task_batch,
                                    seed=0).eval_sample(1, seed=0)
     runs = {"card_f32": (DEVICE, torch.float32),
@@ -3267,16 +3308,20 @@ def profile_train_step(bundle, state, batch, modules) -> dict:
     return row
 
 
-def train_phase(name, cfg, args, shape, expect, log_flags, resume=False
+def train_phase(name, cfg, args, shape, expect, log_flags, resume=False,
+                mode="maml", per_step=None, profile=True, keep=True
                 ) -> dict:
     """Meta-train ``cfg`` (the config ``args`` select) through
-    ``launch.train.main`` in this process: 4 steps
-    (``expect``: the kernels that must launch), with every launch counter
-    zeroed just before and read just after; the run log must pass
-    ``check_run_log.py`` with ``log_flags``; losses finite and the
-    disagreement falling.  With ``resume``, a second run from the step-2
-    checkpoint alone must reach the uninterrupted step-4 loss.  Then one
-    meta-step of the final state is profiled."""
+    ``launch.train.main`` in this process: 4 steps with ``resume``, else 2
+    (``expect``: the kernels that must launch; ``per_step``: kernels that
+    must launch exactly that many times a step), with every launch counter
+    zeroed just before and read just after; the run's meta mode must be
+    ``mode``; the run log must pass ``check_run_log.py`` with
+    ``log_flags``; losses finite and the disagreement falling.  With
+    ``resume``, a second run from the step-2 checkpoint alone must reach
+    the uninterrupted step-4 loss.  Then, with ``profile``, one meta-step
+    of the final state is profiled.  ``keep=False`` removes the run's
+    directory (its checkpoints) at the end."""
     from repro_torch.configs import (INPUT_SHAPES, InputShape,
                                      register_input_shape)
     from repro_torch.kernels.dif_combine import ops as dops
@@ -3298,9 +3343,7 @@ def train_phase(name, cfg, args, shape, expect, log_flags, resume=False
     t0 = time.perf_counter()
     steps = 4 if resume else 2
     args = args + ["--device", DEVICE]
-    out = train.main(args + ["--steps", str(steps), "--run-log", log]
-                     + (["--ckpt-dir", str(work / "full")] if resume
-                        else []))
+    out = train.main(args + ["--steps", str(steps), "--run-log", log])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = all_counts(modules)
@@ -3309,6 +3352,11 @@ def train_phase(name, cfg, args, shape, expect, log_flags, resume=False
     if missing:
         raise AssertionError(f"train {name}: kernels {missing} never "
                              f"launched: {launches}")
+    wrong = {k: launches.get(k) for k, n in (per_step or {}).items()
+             if launches.get(k) != n * steps}
+    if wrong:
+        raise AssertionError(f"train {name}: launches {wrong} in {steps} "
+                             f"steps, expected {per_step} a step")
     records = [json.loads(line) for line in open(log)]
     trains = [r for r in records if r["kind"] == "train"]
     if not all(math.isfinite(r["loss"]) for r in trains):
@@ -3318,33 +3366,56 @@ def train_phase(name, cfg, args, shape, expect, log_flags, resume=False
         raise AssertionError(f"train {name}: disagreement did not fall: "
                              f"{dis}")
     config = next(r for r in records if r["kind"] == "config")
-    if config["mode"] != "maml":
-        raise AssertionError(f"train {name}: mode {config['mode']}")
+    if config["mode"] != mode:
+        raise AssertionError(f"train {name}: mode {config['mode']}, "
+                             f"expected {mode}")
     row = dict(seconds=seconds, launches=launches, peak_run_gb=peak_run,
                losses=[r["loss"] for r in trains], disagreement=dis,
                step_time_s=[r["step_time_s"] for r in trains],
                log_check=check_run_log(log, *log_flags),
                evals=sum(r["kind"] == "eval" for r in records))
     if resume:
-        resumed_dir = work / "resume" / "seed0"
-        resumed_dir.mkdir(parents=True)
-        shutil.copy(work / "full" / "seed0" / "ckpt_00000002.npz",
-                    resumed_dir)
+        # 2 steps that checkpoint at step 2 (one write), then 2 more
+        # resumed from that checkpoint alone that write none (the chip
+        # machine bounds what a call writes to disk: 45 GiB, deleted files
+        # included, and deepseek's checkpoint is 17.4 GB)
+        b = out["losses"][4]
+        del out["state"]
+        torch.cuda.empty_cache()
+        ck = str(work / "ckpt")
+        first = train.main(args + ["--steps", "2", "--ckpt-dir", ck,
+                                   "--eval-every", "0",
+                                   "--run-log", str(work / "ckpt.jsonl")])
+        del first
+        torch.cuda.empty_cache()
         log2 = str(work / "resumed.jsonl")
-        again = train.main(args + ["--steps", "2", "--run-log", log2,
-                                   "--ckpt-dir", str(work / "resume")])
-        a, b = again["losses"][4], out["losses"][4]
+        out = train.main(args + ["--steps", "2", "--run-log", log2,
+                                 "--ckpt-dir", ck, "--ckpt-every", "0"])
+        files = sorted(os.listdir(os.path.join(ck, "seed0")))
+        if files != ["ckpt_00000002.npz"]:
+            raise AssertionError(f"train {name}: checkpoints {files}, "
+                                 f"expected the step-2 one alone")
+        a = out["losses"][4]
         if not abs(a - b) <= RESUME_RTOL * abs(b):
             raise AssertionError(f"train {name}: resumed step-4 loss {a} vs "
                                  f"{b} uninterrupted (rtol {RESUME_RTOL})")
         row.update(resumed_step4_loss=a, step4_loss=b,
                    resumed_log_check=check_run_log(log2, *log_flags))
-        del again
-    # one meta-step of the final state under torch.profiler
     if (config["arch"], config["num_layers"]) != (cfg.name, cfg.num_layers):
         raise AssertionError(f"train {name}: ran {config['arch']} at "
                              f"{config['num_layers']} layers, expected "
                              f"{cfg.name} at {cfg.num_layers}")
+    if not keep:
+        shutil.rmtree(work, ignore_errors=True)
+    if not profile:
+        print(f"train {name}: {seconds:.1f} s for {steps} steps; "
+              f"step_time_s {row['step_time_s']}; losses {row['losses']}; "
+              f"disagreement {dis}; peak {peak_run:.2f} GB; launches "
+              f"{launches}", flush=True)
+        del out
+        torch.cuda.empty_cache()
+        return row
+    # one meta-step of the final state under torch.profiler
     bundle = S.build_train(cfg, shape["name"], config["K"],
                            combine_override=config["combine_backend"],
                            device=DEVICE)
@@ -3352,8 +3423,9 @@ def train_phase(name, cfg, args, shape, expect, log_flags, resume=False
                                   bundle.K, bundle.T, bundle.tb)
     with bundle.make_pipeline(src, depth=0) as pipe:
         batch = next(pipe)
-    # the profiled step takes the only reference to the final state, so
-    # the state it replaces is freed as it goes
+    # the profiled step takes the only reference to the final state (the
+    # resumed run's, with ``resume``), so the state it replaces is freed
+    # as it goes
     row["profile"] = profile_train_step(bundle, out.pop("state"), batch,
                                         modules)
     del out
@@ -3386,6 +3458,20 @@ def train_phase(name, cfg, args, shape, expect, log_flags, resume=False
 # all leaves, and per leaf for leaves whose CPU norm is >= 1% of the
 # largest leaf's.
 GRAD_AGREE = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
+
+
+def routed_leaves(model) -> set:
+    """An MoE model's routed leaves: the router and the routed experts of
+    its ``moe`` blocks (not the shared experts, not a dense FFN).  In
+    bfloat16 the card and the CPU route a few tokens to other experts
+    (route_flip_share), and one such token moves an expert's gradient by
+    about 1/sqrt(tokens the expert takes): 9% at reduced mixtral's 128
+    tokens an expert (PERF.md §6).  Those leaves are held leaf by leaf
+    in float32 only."""
+    return {f"segments/{si}/{j}/ffn/{name}"
+            for si, seg in enumerate(model.plan)
+            for j, desc in enumerate(seg.period) if desc.ffn == "moe"
+            for name in ("router", "w1", "w2", "w3")}
 CURV_AGREE = {torch.float32: 1e-2, torch.bfloat16: 0.3}
 CURV_FLOOR = 0.5
 LEAF_FLOOR = 1e-2
@@ -3396,13 +3482,17 @@ def _norm(d, keys=None):
     return float(torch.sqrt(sum((d[k].double() ** 2).sum() for k in keys)))
 
 
-def train_agreement_phase(arch, seq, loss_rtol, cfg=None) -> dict:
+def train_agreement_phase(arch, seq, loss_rtol, cfg=None,
+                          modes=("maml", "fomaml"), weights=None) -> dict:
     """The ``maml`` and ``fomaml`` meta-gradients of one agent on one task
     of one sequence, the 2-layer cut at full width, on the card (kernels,
     tangent kernels) and on the CPU (plain layers) in the same dtype: the
     loss within the serving limit, the meta-gradient and its curvature
     part (maml - fomaml) within GRAD_AGREE / CURV_AGREE, the curvature at
-    least CURV_FLOOR of the CPU's norm."""
+    least CURV_FLOOR of the CPU's norm.  ``modes=("fomaml",)`` (a config
+    that trains first-order) holds the loss and the first mode's
+    meta-gradient only.  ``weights``: float32 CPU weights, a seed-0 init
+    unless given."""
     from repro_torch.configs import get_config
     from repro_torch.core import maml
     from repro_torch.data.lm_tasks import LMTaskSource
@@ -3410,8 +3500,9 @@ def train_agreement_phase(arch, seq, loss_rtol, cfg=None) -> dict:
     if cfg is None:
         cfg = dataclasses.replace(get_config(arch), num_layers=2)
     model = build_model(cfg)
-    p0 = model.init(torch.Generator().manual_seed(0), torch.float32,
-                    device="cpu")
+    routed = routed_leaves(model)
+    p0 = weights if weights is not None else model.init(
+        torch.Generator().manual_seed(0), torch.float32, device="cpu")
     ep = LMTaskSource(vocab_size=cfg.padded_vocab, seq_len=seq, K=1,
                       tasks_per_agent=1, task_batch=1, n_domains=4,
                       seed=0).sample(0)
@@ -3424,7 +3515,7 @@ def train_agreement_phase(arch, seq, loss_rtol, cfg=None) -> dict:
             p = {k: v.to(dev, dtype) for k, v in p0.items()}
             s = {k: v.to(dev) for k, v in sup.items()}
             q = {k: v.to(dev) for k, v in qry.items()}
-            for mode in ("maml", "fomaml"):
+            for mode in modes:
                 t0 = time.perf_counter()
                 loss, g = maml.multi_task_meta_grad(
                     model.loss_fn, p, s, q, alpha=cfg.inner_lr, steps=1,
@@ -3434,22 +3525,46 @@ def train_agreement_phase(arch, seq, loss_rtol, cfg=None) -> dict:
                                   time.perf_counter() - t0)
             del p
         name = str(dtype)[6:]
-        card, cpu = got[DEVICE, "maml"], got["cpu", "maml"]
+        card, cpu = got[DEVICE, modes[0]], got["cpu", modes[0]]
         lk = "card_f32_vs_cpu_f32" if dtype == torch.float32 else \
             "card_bf16_vs_cpu_bf16"
         loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
-        curv = {d: {k: got[d, "maml"][1][k] - got[d, "fomaml"][1][k]
-                    for k in card[1]} for d in (DEVICE, "cpu")}
         norms = {k: _norm(cpu[1], [k]) for k in cpu[1]}
         big = [k for k in norms if norms[k] >= LEAF_FLOOR * max(
             norms.values())]
+        diff = {k: card[1][k] - cpu[1][k] for k in cpu[1]}
+        grad_rel = _norm(diff) / _norm(cpu[1])
+        leaf_rel = {k: _norm(diff, [k]) / norms[k] for k in big}
+        # bfloat16 and an MoE model: the routed experts' and the router's
+        # leaves are held through the norm over all leaves and the
+        # routing-flip share (route_flip_share), not leaf by leaf
+        held = [k for k in big if not (dtype == torch.bfloat16
+                                       and k in routed)]
+        grad_leaf = max(leaf_rel[k] for k in held)
+        worst = sorted(leaf_rel, key=leaf_rel.get, reverse=True)[:3]
+        if "maml" not in modes:
+            row = dict(mode=modes[0], loss_card=card[0], loss_cpu=cpu[0],
+                       loss_rel=loss_rel, grad_rel=grad_rel,
+                       grad_worst_leaf_rel=grad_leaf,
+                       worst_leaves={k: leaf_rel[k] for k in worst},
+                       card_s=card[2], cpu_s=cpu[2])
+            print(f"train agreement {arch} {name}: {json.dumps(row)}",
+                  flush=True)
+            if not (loss_rel <= loss_rtol[lk] and max(grad_rel, grad_leaf)
+                    <= GRAD_AGREE[dtype]):
+                raise AssertionError(
+                    f"train agreement {arch} {name}: loss {loss_rel:.2e} "
+                    f"(limit {loss_rtol[lk]}), {modes[0]} meta-gradient "
+                    f"{grad_rel:.2e}/{grad_leaf:.2e} (limit "
+                    f"{GRAD_AGREE[dtype]})")
+            rows[name] = row
+            continue
+        curv = {d: {k: got[d, "maml"][1][k] - got[d, "fomaml"][1][k]
+                    for k in card[1]} for d in (DEVICE, "cpu")}
         cnorms = {k: _norm(curv["cpu"], [k]) for k in curv["cpu"]}
         cbig = [k for k in cnorms if cnorms[k] >= LEAF_FLOOR * max(
             cnorms.values())]
-        diff = {k: card[1][k] - cpu[1][k] for k in cpu[1]}
         cdiff = {k: curv[DEVICE][k] - curv["cpu"][k] for k in cpu[1]}
-        grad_rel = _norm(diff) / _norm(cpu[1])
-        grad_leaf = max(_norm(diff, [k]) / norms[k] for k in big)
         curv_rel = _norm(cdiff) / _norm(curv["cpu"])
         curv_leaf = max(_norm(cdiff, [k]) / cnorms[k] for k in cbig)
         curv_ratio = _norm(curv[DEVICE]) / _norm(curv["cpu"])
@@ -3479,6 +3594,277 @@ def train_agreement_phase(arch, seq, loss_rtol, cfg=None) -> dict:
         rows[name] = row
     torch.cuda.empty_cache()
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Phases 19-22: the MoE family -- deepseek-v2-lite-16b at full width,
+# mixtral-8x22b at reduced width
+# ---------------------------------------------------------------------------
+
+# deepseek-v2-lite-16b at full width (d_model 2048, 16 MLA heads, kv_lora
+# 512, 64 experts top-6 + 2 shared of 1408, vocab 102400) cut to
+# DEEPSEEK_LAYERS of its 27 layers: the dense layer 0 and one MoE layer.
+# The same cut serves, meta-trains and is held against the CPU.  Its eval
+# adapts one task an agent: the harness vmaps K agents x tasks adapted
+# copies of 2.17 GB, and 4 tasks ran the card out of memory beside the
+# training state.
+DEEPSEEK = "deepseek-v2-lite-16b"
+DEEPSEEK_LAYERS = 2
+DEEPSEEK_SERVE_ARGS = ["--arch", DEEPSEEK, "--layers", str(DEEPSEEK_LAYERS),
+                       *SERVE_ARGS[SERVE_ARGS.index("--batch"):]]
+DEEPSEEK_TRAIN_SHAPE = QWEN_TRAIN_SHAPE
+DEEPSEEK_TRAIN_ARGS = ["--arch", DEEPSEEK, "--shape",
+                       DEEPSEEK_TRAIN_SHAPE["name"], "--layers",
+                       str(DEEPSEEK_LAYERS), "--fused-outer",
+                       "--steps-per-dispatch", "2", "--eval-every", "2",
+                       "--eval-tasks", "1", "--eval-inner-steps", "1",
+                       "--ckpt-every", "2", *TRAIN_COMMON]
+DEEPSEEK_PALLAS_ARGS = ["--arch", DEEPSEEK, "--shape",
+                        DEEPSEEK_TRAIN_SHAPE["name"], "--layers",
+                        str(DEEPSEEK_LAYERS), "--combine", "pallas",
+                        "--steps-per-dispatch", "1", "--eval-every", "2",
+                        "--eval-tasks", "1", "--eval-inner-steps", "1",
+                        *TRAIN_COMMON]
+# MLA's attention route, fixed by the model's shapes (q/k head 192, v head
+# 128): layers.mla_apply calls the plain attention by name.
+MLA_ROUTE = ("plain attention (layers._plain_sdpa, the reference's "
+             "_sdpa/_sdpa_chunked): q/k head qk_nope_dim + qk_rope_dim, v "
+             "head v_head_dim; no TPU kernel takes two head dims")
+# The MoE models' card-against-CPU limits (PERF.md, set before the first
+# chip run): losses as mamba2's (MAMBA_AGREE_RTOL); the share of
+# (token, choice) pairs whose expert differs between the card's and the
+# CPU's routing of the same launch weights, over every MoE layer.  float32
+# routes agree but for ties at the last bit; a bfloat16 activation one ulp
+# apart can flip a near tie, which moves that token's output by O(1).
+MOE_AGREE_RTOL = MAMBA_AGREE_RTOL
+# one sequence of 128 tokens, as qwen2's meta-gradient agreement: the CPU
+# runs of deepseek's full-width cut take most of these phases' time
+MOE_AGREE_SEQ = 128
+MOE_FLIP_LIMIT = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
+# moe_apply_einsum against moe_apply_sorted on the card under ample
+# capacity, float32 with TF32 off: the same products, the k choices summed
+# in another order.
+MOE_DISPATCH_RTOL = 1e-5
+
+
+def route_flip_share(cfg, seq: int, weights) -> dict:
+    """The share of (token, choice) pairs whose expert differs between the
+    card's and the CPU's forward of one sequence on the same launch
+    weights (float32 on the CPU), per dtype, over every MoE layer: a
+    choice counts when its expert is not in the other device's top-k set
+    of the token."""
+    from repro_torch.data.lm_tasks import LMTaskSource
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import build_model
+    model = build_model(cfg)
+    ep = LMTaskSource(vocab_size=cfg.padded_vocab, seq_len=seq, K=1,
+                      tasks_per_agent=1, task_batch=1, n_domains=4,
+                      seed=0).sample(0)
+    batch = {k: torch.from_numpy(v[0, 0]) for k, v in ep.support.items()}
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        routes = {}
+        for dev in (DEVICE, "cpu"):
+            p = {k: v.to(dev, dtype) for k, v in weights.items()}
+            with torch.no_grad(), layers.record_routes() as rec:
+                model.forward(p, {k: v.to(dev) for k, v in batch.items()})
+            routes[dev] = [r.cpu() for r in rec]
+            del p
+        pairs = differ = 0
+        for a, b in zip(routes[DEVICE], routes["cpu"]):
+            hit = (a[..., :, None] == b[..., None, :]).any(-1)
+            pairs += hit.numel()
+            differ += int((~hit).sum())
+        name = str(dtype)[6:]
+        share = differ / max(pairs, 1)
+        out[name] = dict(pairs=pairs, differ=differ, share=share,
+                         limit=MOE_FLIP_LIMIT[dtype],
+                         layers=len(routes[DEVICE]))
+        if not share <= MOE_FLIP_LIMIT[dtype]:
+            raise AssertionError(f"routing {cfg.name} {name}: {differ} of "
+                                 f"{pairs} (token, choice) pairs differ "
+                                 f"(share {share:.3e} > "
+                                 f"{MOE_FLIP_LIMIT[dtype]})")
+    print(f"routing {cfg.name}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def moe_dispatch_check(cfg, B: int = 2, S: int = 128) -> dict:
+    """``moe_apply_einsum`` (one group of S tokens) against
+    ``moe_apply_sorted`` on the card at ``cfg``'s MoE layer width, float32,
+    capacity ample (every pair kept on both paths); each path's time."""
+    from repro_torch.models import layers
+    from repro_torch.models.init import materialize
+    cfg = dataclasses.replace(cfg, moe_capacity_factor=float(
+        cfg.num_experts), num_shared_experts=0)
+    p = materialize(layers.moe_specs(cfg), torch.Generator().manual_seed(2),
+                    torch.float32, DEVICE)
+    x = torch.randn(B, S, cfg.d_model, device=DEVICE,
+                    generator=torch.Generator(device=DEVICE).manual_seed(3))
+    with torch.no_grad():
+        want = layers.moe_apply_sorted(p, cfg, x)
+        got = layers.moe_apply_einsum(p, cfg, x, group_size=S)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        row = dict(arch=cfg.name, B=B, S=S, d=cfg.d_model,
+                   experts=cfg.num_experts, k=cfg.experts_per_token,
+                   hidden=cfg.moe_hidden, max_abs_err=err, scale=scale,
+                   rtol=MOE_DISPATCH_RTOL,
+                   sorted_ms=time_events(
+                       lambda: layers.moe_apply_sorted(p, cfg, x), 5),
+                   einsum_ms=time_events(
+                       lambda: layers.moe_apply_einsum(p, cfg, x,
+                                                       group_size=S), 5))
+    print("moe dispatch", json.dumps(row), flush=True)
+    if not (math.isfinite(err) and err <= MOE_DISPATCH_RTOL * scale):
+        raise AssertionError(f"moe dispatch {cfg.name}: einsum vs sorted "
+                             f"{err:.3e} > {MOE_DISPATCH_RTOL} x {scale:.3e}")
+    del p, x, want, got
+    torch.cuda.empty_cache()
+    return row
+
+
+def outer_kernels_at_leaves(ops, ref, cfg, agents: int) -> dict:
+    """``fused_combine_update`` (momentum, ATC) and ``dif_combine`` over
+    the leaves the meta-step hands them for ``cfg``: every leaf with the
+    agent axis, bf16, the ring's Metropolis matrix.  Each is one launch,
+    within TOL of its plain version leaf by leaf, timed (one call in a
+    CUDA graph) beside the plain version (summed over the leaves: it runs
+    leaf by leaf) and the bound.  Memory-lean: at deepseek's 2-layer cut a
+    leaf set is 8.7 GB."""
+    from repro_torch.core import topology
+    from repro_torch.models.transformer import build_model
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    A = torch.as_tensor(topology.build_topology("ring", agents,
+                                                "metropolis").matrix,
+                        dtype=torch.float32, device=DEVICE)
+    table = A[None].contiguous()
+    shapes = {k: (agents,) + tuple(s.shape)
+              for k, s in build_model(cfg).specs().items()}
+    dtype = torch.bfloat16
+    rand = lambda s: torch.randn(s, generator=gen, device=DEVICE).to(dtype)
+    params = {k: rand(s) for k, s in shapes.items()}
+    grads = {k: rand(s) for k, s in shapes.items()}
+    mu = {k: rand(s) for k, s in shapes.items()}
+    M = sum(x.numel() // agents for x in params.values())
+    scale = torch.rand(agents, 1, generator=gen, device=DEVICE)
+    hyper = dict(mode="atc", kind="momentum", lr=1e-3, step=3, every=1)
+    fused = lambda ps, gs, ms: ops.fused_combine_update_leaves(
+        table, scale, ps, gs, ms, None, **hyper)
+    plain = lambda ps, gs, ms: ref.fused_update_leaves_ref(
+        table, scale, ps, gs, ms, None, **hyper)
+    rows = {}
+    (w, m, _), launches = counted(ops, "fused_combine_update",
+                                  lambda: fused(params, grads, mu),
+                                  f"fused {cfg.name} leaves")
+    err, plain_ms = 0.0, 0.0
+    for k in shapes:
+        one = lambda: plain({k: params[k]}, {k: grads[k]}, {k: mu[k]})
+        ww, wm, _ = one()
+        err = max(err, compare(w[k], ww[k], dtype, f"fused {k} w"),
+                  compare(m[k], wm[k], dtype, f"fused {k} mu"))
+        del ww, wm
+        plain_ms += time_ms(one, 1, reps=3)
+    del w, m
+    torch.cuda.empty_cache()
+    rows["fused_combine_update"] = dict(
+        what=f"{cfg.name} {cfg.num_layers}-layer leaves", kind="momentum",
+        mode="atc", K=agents, leaves=len(shapes), columns=M,
+        dtype="bfloat16", launches=launches, max_abs_err=err,
+        tol=TOL[dtype], ms=time_ms(lambda: fused(params, grads, mu), 1,
+                                   reps=3),
+        plain_ms=plain_ms)
+    rows["fused_combine_update"]["bound_ms"], \
+        rows["fused_combine_update"]["bound_by"] = bound_ms(
+            *fused_cost("momentum", "atc", agents, M, 2))
+    del grads, mu
+    torch.cuda.empty_cache()
+    out, launches = counted(ops, "dif_combine",
+                            lambda: ops.dif_combine_leaves(A, params),
+                            f"dif_combine {cfg.name} leaves")
+    err, plain_ms = 0.0, 0.0
+    for k in shapes:
+        one = lambda: ref.dif_combine_leaves_ref(A, {k: params[k]})
+        err = max(err, compare(out[k], one()[k], dtype, f"dif_combine {k}"))
+        plain_ms += time_ms(one, 1, reps=3)
+    del out
+    torch.cuda.empty_cache()
+    rows["dif_combine"] = dict(
+        what=f"{cfg.name} {cfg.num_layers}-layer leaves", K=agents,
+        leaves=len(shapes), columns=M, dtype="bfloat16", launches=launches,
+        max_abs_err=err, tol=TOL[dtype],
+        ms=time_ms(lambda: ops.dif_combine_leaves(A, params), 1, reps=3),
+        plain_ms=plain_ms)
+    rows["dif_combine"]["bound_ms"], rows["dif_combine"]["bound_by"] = \
+        bound_ms(*combine_cost(agents, M, 2))
+    for name, row in rows.items():
+        print(f"check {name} at {cfg.name} leaves", json.dumps(row),
+              flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return rows
+
+
+def moe_phases(ops, ref, modules) -> dict:
+    """Phases 19-22: deepseek-v2-lite-16b served and meta-trained at full
+    width cut to DEEPSEEK_LAYERS, the outer-update kernels at its leaves,
+    and the MoE agreement checks (deepseek's cut and reduced mixtral)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import build_model
+    deepseek = dataclasses.replace(get_config(DEEPSEEK),
+                                   num_layers=DEEPSEEK_LAYERS)
+    t0, seconds = time.perf_counter(), {}
+
+    def lap(name):
+        seconds[name] = time.perf_counter() - t0 - sum(seconds.values())
+        print(f"moe: {name} took {seconds[name]:.1f} s", flush=True)
+
+    counters = {"flash_attention_fwd": modules[1],
+                "flash_attention_bwd": modules[1], "ssd_scan": modules[2]}
+    # phase 19: serving; MLA runs the plain attention, so no flash or SSD
+    # kernel may launch in the adapt dispatch
+    print(f"deepseek serve: MLA attention route: {MLA_ROUTE}", flush=True)
+    serve = serve_phase(DEEPSEEK_SERVE_ARGS, counters, lambda n, k: {},
+                        replay=())
+    serve["attention_route"] = MLA_ROUTE
+    lap("serve")
+    # phase 20: meta-training, fused outer update one launch a step
+    train = train_phase(
+        "deepseek", deepseek, DEEPSEEK_TRAIN_ARGS, DEEPSEEK_TRAIN_SHAPE,
+        ("fused_combine_update",), ("--expect-fused", "--expect-outer-dtype",
+                                    "bfloat16"),
+        resume=True, mode="fomaml", per_step={"fused_combine_update": 1},
+        keep=False)
+    lap("train")
+    pallas = train_phase(
+        "deepseek_pallas", deepseek, DEEPSEEK_PALLAS_ARGS,
+        DEEPSEEK_TRAIN_SHAPE, ("dif_combine",),
+        ("--expect-outer-dtype", "bfloat16"), mode="fomaml",
+        per_step={"dif_combine": 1}, profile=False, keep=False)
+    lap("train_pallas")
+    outer = outer_kernels_at_leaves(ops, ref, deepseek, agents=4)
+    lap("outer_kernels")
+    # phase 21: the 2-layer cut and reduced mixtral against the CPU, one
+    # set of weights for the three checks
+    mixtral = get_config("mixtral-8x22b").reduced()
+    agree = {}
+    for cfg in (deepseek, mixtral):
+        w = build_model(cfg).init(torch.Generator().manual_seed(1),
+                                  torch.float32, "cpu")
+        agree[cfg.name] = dict(
+            losses=agreement_phase(cfg, MOE_AGREE_RTOL, seq=MOE_AGREE_SEQ,
+                                   task_batch=1, weights=w),
+            meta_gradient=train_agreement_phase(
+                cfg.name, MOE_AGREE_SEQ, MOE_AGREE_RTOL, cfg=cfg,
+                modes=("fomaml",), weights=w),
+            routing=route_flip_share(cfg, MOE_AGREE_SEQ, w))
+        del w
+        lap(f"agreement {cfg.name}")
+    # phase 22: the two dispatch paths on the card
+    dispatch = moe_dispatch_check(deepseek)
+    lap("dispatch")
+    return dict(serve=serve, train=train, train_pallas=pallas, outer=outer,
+                agreement=agree, dispatch=dispatch, seconds=seconds)
 
 
 # ---------------------------------------------------------------------------
@@ -4027,6 +4413,9 @@ def main() -> int:
         "mamba2-130m": train_agreement_phase("mamba2-130m", 512,
                                              MAMBA_AGREE_RTOL)}
     stamp("training agreement")
+    # phases 19-22, before phase 5 for the same reason as phase 6
+    moe = moe_phases(ops, ref, (ops, fops, sops))
+    stamp("moe")
     profile = profile_phase("fused")
     stamp("profile")
     counters = {"flash_attention_fwd": fops, "flash_attention_bwd": fops,
@@ -4057,7 +4446,7 @@ def main() -> int:
     stamp("mamba2 serve")
     mamba_agreement = agreement_phase(
         dataclasses.replace(get_config("mamba2-130m"), num_layers=2),
-        MAMBA_AGREE_RTOL, seq=1024, task_batch=4)
+        MAMBA_AGREE_RTOL, seq=1024, task_batch=2)
 
     mc, fs, large = kern["main_combine"], kern["fused_step"], kern["large"]
     summary = {"kernels": [
@@ -4072,7 +4461,10 @@ def main() -> int:
          "shape": f"the {mc['leaves']} sine leaves (K=6, {mc['columns']} "
                   f"columns), float32, one launch per step",
          "large": large["dif_combine"],
-         "qwen2_layer": kern["qwen2"]["dif_combine"]},
+         "qwen2_layer": kern["qwen2"]["dif_combine"],
+         "deepseek_leaves": moe["outer"]["dif_combine"],
+         "deepseek_pallas_run_launches":
+             moe["train_pallas"]["launches"]["dif_combine"]},
         {"name": "fused_combine_update", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES["fused_combine_update"],
          "launches": launches["fused"]["fused_combine_update"],
@@ -4085,6 +4477,9 @@ def main() -> int:
                    if r["kind"] == "adam" and r["mode"] == "atc"
                    and r["gate"] == 1.0 and r["S"] == 1],
          "qwen2_layer": kern["qwen2"]["fused_combine_update"],
+         "deepseek_leaves": moe["outer"]["fused_combine_update"],
+         "deepseek_run_launches":
+             moe["train"]["launches"]["fused_combine_update"],
          "capture": kern["capture"]},
         *(flash_summary(name, flash_main, serve_row, flash_rows, flash_gqa,
                         flash_gqa_rows, flash_calls)
@@ -4099,7 +4494,7 @@ def main() -> int:
         "serve_adapted": adapted_serve,
         "train_agreement": train_agreement, "profile": profile, "serve": serve_row,
         "agreement": agreement, "mamba2_serve": mamba_row,
-        "mamba2_agreement": mamba_agreement, "hgmma": hgmma,
+        "mamba2_agreement": mamba_agreement, "moe": moe, "hgmma": hgmma,
         "outer_update_ablation": kern["ablation"],
         "flash_kernels_per_call": flash_calls,
         "ssd_bwd_kernels_per_call": bwd_calls,

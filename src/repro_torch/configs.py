@@ -2,11 +2,14 @@
 
 :class:`ArchConfig` carries the fields of the JAX package's
 ``configs/base.py::ArchConfig`` that the sine MLP, the meta-trainer, the
-dense decoder family (attention, MLP, norms) and the Mamba2 family (the
-``ssm_*`` fields) use, with the same names and defaults.
-:data:`SINE_MLP`, :data:`OMNIGLOT_CNN`, :data:`QWEN2_1_5B` and
-:data:`MAMBA2_130M` are ``configs/sine_mlp.py``, ``configs/omniglot_cnn.py``,
-``configs/qwen2_1_5b.py`` and ``configs/mamba2_130m.py`` copied;
+dense decoder family (attention, MLP, norms), the Mamba2 family (the
+``ssm_*`` fields) and the MoE family (the MLA and ``moe_*`` fields) use,
+with the same names and defaults.
+:data:`SINE_MLP`, :data:`OMNIGLOT_CNN`, :data:`QWEN2_1_5B`,
+:data:`MAMBA2_130M`, :data:`DEEPSEEK_V2_LITE_16B` and :data:`MIXTRAL_8X22B`
+are ``configs/sine_mlp.py``, ``configs/omniglot_cnn.py``,
+``configs/qwen2_1_5b.py``, ``configs/mamba2_130m.py``,
+``configs/deepseek_v2_lite_16b.py`` and ``configs/mixtral_8x22b.py`` copied;
 :data:`PAPER_OWN` names the paper's own two.  Later slices add the fields
 and configurations their models read.
 
@@ -83,7 +86,7 @@ def resolve_input_shape(shape: InputShape | str) -> InputShape:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    arch_type: str                  # dense | ssm | mlp | cnn
+    arch_type: str                  # dense | moe | ssm | mlp | cnn
     num_layers: int
     d_model: int
     num_heads: int
@@ -99,10 +102,24 @@ class ArchConfig:
     sliding_window: int | None = None
     use_rope: bool = True
     attn_q_chunk: int | None = 512   # flash-style query chunking (None = full)
+    # MLA (DeepSeek)
+    use_mla: bool = False
+    kv_lora_rank: int = 512
+    qk_rope_dim: int = 64
+    qk_nope_dim: int = 128
+    v_head_dim: int = 128
 
-    # --- mlp ------------------------------------------------------------------
+    # --- mlp / moe ------------------------------------------------------------
     mlp_act: str = "swiglu"         # swiglu | gelu
     norm: str = "rmsnorm"           # rmsnorm | layernorm
+    num_experts: int = 0
+    num_shared_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int | None = None     # per-expert hidden (defaults to d_ff)
+    first_dense_layers: int = 0     # leading dense layers before MoE (deepseek)
+    moe_capacity_factor: float = 1.25
+    moe_router_dtype: str = "float32"
+    moe_dispatch: str = "sorted"    # sorted | einsum | auto (layers.moe_apply)
 
     # --- ssm ------------------------------------------------------------------
     ssm_state: int = 0
@@ -138,6 +155,10 @@ class ArchConfig:
         return _pad(self.vocab_size)
 
     @property
+    def moe_hidden(self) -> int:
+        return self.moe_d_ff or self.d_ff
+
+    @property
     def ssm_d_inner(self) -> int:
         return self.ssm_expand * self.d_model
 
@@ -158,6 +179,15 @@ class ArchConfig:
             vocab_size=min(self.vocab_size, 512),
             remat=False,
         )
+        if self.num_experts:
+            kw.update(num_experts=min(self.num_experts, 4),
+                      num_shared_experts=min(self.num_shared_experts, 1),
+                      experts_per_token=min(self.experts_per_token, 2),
+                      moe_d_ff=min(self.moe_hidden, 128),
+                      first_dense_layers=min(self.first_dense_layers, 1))
+        if self.use_mla:
+            kw.update(kv_lora_rank=64, qk_rope_dim=16, qk_nope_dim=32,
+                      v_head_dim=32)
         if self.ssm_state:
             kw.update(ssm_state=32, ssm_head_dim=16, ssm_chunk=32)
         if self.sliding_window:
@@ -257,8 +287,63 @@ MAMBA2_130M = ArchConfig(
     source="arXiv:2405.21060",
 )
 
+# deepseek-v2-lite-16b [arXiv:2405.04434]: MoE with Multi-head Latent
+# Attention.  27 layers, d_model=2048, 16 heads, MLA kv_lora_rank=512 (+64
+# rope dims), MoE: 64 routed experts top-6 + 2 shared, per-expert hidden
+# 1408, vocab=102400.  The first layer has a dense FFN (hidden 10944).
+# Outer optimizer: momentum (the reference's: fp32 Adam state for 16B does
+# not fit beside the MAML adapted copy).
+DEEPSEEK_V2_LITE_16B = ArchConfig(
+    name="deepseek-v2-lite-16b",
+    arch_type="moe",
+    num_layers=27,
+    d_model=2048,
+    num_heads=16,
+    num_kv_heads=16,
+    head_dim=128,            # q/k nope dim (MLA overrides per-component dims)
+    d_ff=10944,              # dense FFN (layer 0)
+    vocab_size=102400,
+    use_mla=True,
+    kv_lora_rank=512,
+    qk_rope_dim=64,
+    qk_nope_dim=128,
+    v_head_dim=128,
+    num_experts=64,
+    num_shared_experts=2,
+    experts_per_token=6,
+    moe_d_ff=1408,
+    first_dense_layers=1,
+    meta_mode="fomaml",
+    outer_optimizer="momentum",
+    source="arXiv:2405.04434",
+)
+
+# mixtral-8x22b [arXiv:2401.04088]: sparse MoE with sliding-window
+# attention.  56 layers, d_model=6144, 48 heads (GQA kv=8, head_dim=128),
+# 8 experts top-2 with per-expert hidden 16384, vocab=32768, window 4096.
+MIXTRAL_8X22B = ArchConfig(
+    name="mixtral-8x22b",
+    arch_type="moe",
+    num_layers=56,
+    d_model=6144,
+    num_heads=48,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=16384,
+    vocab_size=32768,
+    sliding_window=4096,
+    num_experts=8,
+    experts_per_token=2,
+    rope_theta=1_000_000.0,
+    meta_mode="fomaml",
+    outer_optimizer="sgd",
+    source="arXiv:2401.04088",
+)
+
 _CONFIGS = {"sine_mlp": SINE_MLP, "omniglot_cnn": OMNIGLOT_CNN,
-            "qwen2_1_5b": QWEN2_1_5B, "mamba2_130m": MAMBA2_130M}
+            "qwen2_1_5b": QWEN2_1_5B, "mamba2_130m": MAMBA2_130M,
+            "deepseek_v2_lite_16b": DEEPSEEK_V2_LITE_16B,
+            "mixtral_8x22b": MIXTRAL_8X22B}
 
 # The paper's own models (the reference's ``configs/base.py::PAPER_OWN``).
 PAPER_OWN = ["sine_mlp", "omniglot_cnn"]
@@ -267,8 +352,6 @@ PAPER_OWN = ["sine_mlp", "omniglot_cnn"]
 # each family.
 _LATER = {
     "jamba_1_5_large_398b": "a hybrid Mamba/MoE slice",
-    "mixtral_8x22b": "an MoE slice",
-    "deepseek_v2_lite_16b": "an MLA/MoE slice",
     "llama_3_2_vision_90b": "a vision (cross-attention) slice",
     "whisper_large_v3": "an encoder-decoder (audio) slice",
     "qwen2_7b": "a later dense-decoder configuration",

@@ -14,10 +14,10 @@ engine's ``kind=serve`` record to a JSONL run log that
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
       --prompt-len 512 --gen 512
 
-``--arch`` is a config the port has (qwen2-1.5b, mamba2-130m).
-``--device`` defaults to the CUDA card (and raises without one).  A
-non-reduced config runs in its own dtype (bfloat16 for both), a reduced
-one in float32, as the reference picks.
+``--arch`` is an LM config the port has (qwen2-1.5b, mamba2-130m,
+deepseek-v2-lite-16b, mixtral-8x22b).  ``--device`` defaults to the CUDA
+card (and raises without one).  A non-reduced config runs in its own dtype
+(bfloat16 for all four), a reduced one in float32, as the reference picks.
 """
 from __future__ import annotations
 

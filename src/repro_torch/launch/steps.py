@@ -76,8 +76,8 @@ def batch_geometry(cfg: ArchConfig, shape: InputShape, K: int
 def modality_extras(cfg: ArchConfig, lead: tuple[int, ...],
                     dtype: torch.dtype, device=None) -> dict:
     """Zero-stub modality inputs the model's loss expects beyond
-    tokens/labels.  The dense decoder and Mamba2 families need none; the
-    audio and vision families (later slices) raise."""
+    tokens/labels.  The dense decoder, Mamba2 and MoE families need none;
+    the audio and vision families (later slices) raise."""
     if cfg.arch_type in ("audio", "vlm"):
         raise ValueError(f"{cfg.name}: {cfg.arch_type} inputs are not "
                          f"ported yet")
@@ -281,13 +281,20 @@ def build_train(cfg: ArchConfig, shape_name: str | InputShape = "train_4k",
         support, query = split_meta_batch(cfg, batch, K, T, tb)
         return step(state, support, query)
 
-    def init_state_fn(seed: int = 0) -> TrainState:
+    def init_state_fn(seed: int = 0, draw: bool = True) -> TrainState:
         """K launch models, consecutive draws of one generator seeded with
-        ``seed``, in the outer dtype; float32 moments."""
+        ``seed``, in the outer dtype; float32 moments.  ``draw=False``
+        leaves the params uninitialized: the state of a run that restores
+        a checkpoint into it."""
         gen = torch.Generator().manual_seed(seed)
-        return init_state(
-            gen, lambda g, device: model.init(g, out_dt, device=device),
-            mcfg, optimizer=opt, device=device)
+
+        def init_fn(g, device):
+            if draw:
+                return model.init(g, out_dt, device=device)
+            return {k: torch.empty(s.shape, dtype=out_dt, device=device)
+                    for k, s in model.specs().items()}
+
+        return init_state(gen, init_fn, mcfg, optimizer=opt, device=device)
 
     return TrainBundle(cfg, K, T, tb, train_step, init_state_fn, device,
                        loss_fn=model.loss_fn, mcfg=mcfg, schedule=sched,

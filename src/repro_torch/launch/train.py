@@ -2,9 +2,10 @@
 
 Runs the decentralized meta-training loop for the LM families on one card
 (``--device cpu`` runs it on the CPU): K agents (``--agents``) on the
-arch's topology, exact MAML (the configs' ``meta_mode``) through the
-kernels and their forward-mode tangent kernels, the outer update by the
-chosen combine backend (``--fused-outer``: one kernel launch a step).
+arch's topology, the config's ``meta_mode`` (exact MAML through the
+kernels and their forward-mode tangent kernels for qwen2 and mamba2,
+``fomaml`` for the MoE configs), the outer update by the chosen combine
+backend (``--fused-outer``: one kernel launch a step).
 
 Every run writes a JSONL run log (``--run-log``, default
 ``results/train_<arch>_seed<seed>.jsonl``): a ``{"kind": "config", ...}``
@@ -101,7 +102,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--agents", type=int, default=4,
                     help="K, the number of agents (one card, no mesh)")
     ap.add_argument("--ckpt-dir", default=None)
-    ap.add_argument("--ckpt-every", type=int, default=100)
+    ap.add_argument("--ckpt-every", type=int, default=100,
+                    help="save every n steps and at the end; 0 saves no "
+                         "checkpoint (a run that only resumes from "
+                         "--ckpt-dir)")
     ap.add_argument("--log-every", type=int, default=1)
     ap.add_argument("--eval-every", type=int, default=0,
                     help="run the recurring-vs-unseen EvalHarness every n "
@@ -213,7 +217,8 @@ def main(argv: list[str] | None = None) -> dict:
               f"mean λ₂={sched.mean_mixing_rate:.3f}), "
               f"combine_every={ucfg.combine_every}, "
               f"backend={bundle.combine_backend}")
-    state = bundle.init_state(seed=args.seed)
+    # a resumed run's state is the checkpoint's: nothing to draw
+    state = bundle.init_state(seed=args.seed, draw=not resuming)
     if resuming:
         state = restore_checkpoint(ckpt_dir, state)
         print(f"[train] restored step {int(state.step)}")
@@ -253,6 +258,7 @@ def main(argv: list[str] | None = None) -> dict:
     train_wall = 0.0       # train compute only: excludes eval/ckpt/log
     done = 0
     losses = {}
+    save, saved = bool(ckpt_dir and args.ckpt_every), None
     sync = (torch.cuda.synchronize if device.type == "cuda"
             else (lambda: None))
     with bundle.make_pipeline(source, depth=args.prefetch,
@@ -299,10 +305,12 @@ def main(argv: list[str] | None = None) -> dict:
                       f"recurring {rc[0]:.3f}->{rc[-1]:.3f} "
                       f"unseen {uc[0]:.3f}->{uc[-1]:.3f} "
                       f"gap {rec['generalization_gap']:.4f}")
-            if ckpt_dir and (base // args.ckpt_every
-                             < done // args.ckpt_every):
+            if save and (base // args.ckpt_every
+                         < done // args.ckpt_every):
                 save_checkpoint(ckpt_dir, int(state.step), state)
-    if ckpt_dir:
+                saved = int(state.step)
+    # the end of the run, unless its last dispatch just saved this step
+    if save and saved != int(state.step):
         save_checkpoint(ckpt_dir, int(state.step), state)
     run_log.close()
     print(f"[train] done (run log: {log_path})")

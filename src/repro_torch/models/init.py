@@ -7,15 +7,18 @@ flat dict of that tree, keyed by the key paths joined with ``/`` (``l0/w``,
 ``segments/0/0/attn/wq``): the form ``torch.func`` transforms take.
 ``materialize`` turns a Spec tree into that dict.  Init draws from an
 explicit ``torch.Generator`` on the CPU, in chunks of at most
-``_CHUNK`` elements, and moves each chunk to ``device`` in ``dtype``, so one
-seed gives the same weights on every device and a full-width init holds
-one chunk in float32 on the host, not a float32 copy of the model.  Torch's
+``_CHUNK`` elements, and moves each chunk to ``device`` in ``dtype`` (a
+worker thread scales, casts and copies a chunk while the next is drawn),
+so one seed gives the same weights on every device and a full-width init
+holds a few chunks in float32 on the host, not a float32 copy of the
+model.  Torch's
 generator gives other numbers than ``jax.random`` for the same seed: parity
 tests copy the reference's weights in
 (:func:`repro_torch.convert.from_jax_params`) instead of comparing inits.
 """
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -105,11 +108,23 @@ def _init_leaf(gen: torch.Generator, spec: Spec, dtype: torch.dtype,
         normal = torch.randn(shape, generator=gen, dtype=torch.float32)
         return _scaled(normal, spec).to(dtype=dtype, device=device)
     out = torch.empty(n, dtype=dtype, device=device)
-    for lo in range(0, n, _CHUNK):
-        size = min(_CHUNK, n - lo)
-        chunk = _scaled(torch.randn(size, generator=gen,
-                                    dtype=torch.float32), spec)
-        out[lo:lo + size].copy_(chunk.to(dtype))
+
+    def store(lo: int, normal: torch.Tensor) -> None:
+        out[lo:lo + normal.numel()].copy_(_scaled(normal, spec).to(dtype))
+
+    # the generator draws chunk after chunk on this thread while a worker
+    # scales, casts and copies the one before (the same numbers: the draws
+    # keep their order)
+    with ThreadPoolExecutor(1, thread_name_prefix="init") as pool:
+        pending: list = []
+        for lo in range(0, n, _CHUNK):
+            normal = torch.randn(min(_CHUNK, n - lo), generator=gen,
+                                 dtype=torch.float32)
+            if len(pending) == 2:
+                pending.pop(0).result()
+            pending.append(pool.submit(store, lo, normal))
+        for job in pending:
+            job.result()
     return out.view(shape)
 
 

@@ -1,8 +1,10 @@
-"""Neural layers of the dense decoder and Mamba2 families: norms, RoPE, GQA
-attention (full-sequence and single-token decode with the sliding-window
-ring buffer), the MLP and the Mamba2 mixer (the chunked SSD scan,
-full-sequence and single-token decode) — port of that subset of
-``repro/models/layers.py``.
+"""Neural layers of the dense decoder, Mamba2 and MoE families: norms, RoPE,
+GQA attention (full-sequence and single-token decode with the
+sliding-window ring buffer), MLA (DeepSeek's latent attention, with its
+latent-cache decode), the MLP, the token-choice MoE (sorted and one-hot
+dispatch, shared experts) and the Mamba2 mixer (the chunked SSD scan,
+full-sequence and single-token decode) — port of
+``repro/models/layers.py`` without cross-attention.
 
 Everything is functional: ``*_specs(cfg)`` builds a Spec tree,
 ``*_apply(params, ...)`` runs it on a dict of tensors keyed as the specs.
@@ -16,6 +18,18 @@ computes.  The numbers differ in one place: the jnp path rounds the
 probabilities to the value dtype before P·V, the kernel keeps them float32
 (as the Pallas kernel does).  In float32 the two agree to rounding.
 
+:func:`mla_apply` runs the plain attention (:func:`_plain_sdpa`, the
+reference's ``_sdpa``/``_sdpa_chunked``) on every device: its q/k head is
+``qk_nope_dim + qk_rope_dim`` (192 in deepseek-v2-lite) and its v head
+``v_head_dim`` (128), and no TPU kernel of the reference computes attention
+with two head dims (the reference's MLA runs the jnp ``sdpa`` too).
+
+:func:`moe_apply` routes in float32 (``moe_router_dtype``) with TF32 off
+for the router product, so a card and a CPU pick the same experts for the
+same activations (:func:`record_routes` collects the picks); the expert
+products are plain ``torch.einsum``, as the reference computes them
+outside any Pallas kernel.
+
 :func:`mamba2_apply` is where the hand-written SSD scan kernel goes: on a
 CUDA tensor it calls the SSD scan ``Function`` (kernel forward, the
 backward's kernels as backward); on a CPU tensor it runs :func:`ssd_scan`, the
@@ -27,6 +41,7 @@ rounding.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -44,8 +59,10 @@ NEG_INF = -1e30
 
 __all__ = ["norm_specs", "norm_apply", "rope", "sdpa", "causal_mask",
            "attention_specs", "attention_apply", "attention_decode",
-           "mlp_specs", "mlp_apply", "mamba2_specs", "ssd_scan",
-           "mamba2_apply", "mamba2_decode", "sub"]
+           "mla_specs", "mla_apply", "mla_decode", "mlp_specs", "mlp_apply",
+           "moe_specs", "moe_apply", "moe_apply_sorted", "moe_apply_einsum",
+           "moe_load_balance_loss", "record_routes", "mamba2_specs",
+           "ssd_scan", "mamba2_apply", "mamba2_decode", "sub"]
 
 
 def sub(params: Params, prefix: str) -> Params:
@@ -145,7 +162,15 @@ def sdpa(q, k, v, scale, *, causal: bool, window: int | None = None,
         return gqa_flash_attention(q, k, v, causal=causal, window=window,
                                    scale=scale)
     H = q.shape[2]
-    k, v = _expand_kv(k, H), _expand_kv(v, H)
+    return _plain_sdpa(q, _expand_kv(k, H), _expand_kv(v, H), scale,
+                       causal=causal, window=window, q_chunk=q_chunk)
+
+
+def _plain_sdpa(q, k, v, scale, *, causal: bool, window: int | None = None,
+                q_chunk: int | None = 512):
+    """The reference's ``sdpa`` (K/V with H heads): chunked when the query
+    length divides cleanly, full otherwise.  v's head dim may differ from
+    q's and k's."""
     S, T = q.shape[1], k.shape[1]
     if q_chunk and S > q_chunk and S % q_chunk == 0:
         return _sdpa_chunked(q, k, v, scale, causal=causal, window=window,
@@ -257,6 +282,87 @@ def attention_decode(params: Params, cfg: ArchConfig, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# MLA — Multi-head Latent Attention (DeepSeek-V2) [arXiv:2405.04434]
+# ---------------------------------------------------------------------------
+
+def mla_specs(cfg: ArchConfig) -> dict:
+    d, H = cfg.d_model, cfg.num_heads
+    r, dr, dn, dv = (cfg.kv_lora_rank, cfg.qk_rope_dim, cfg.qk_nope_dim,
+                     cfg.v_head_dim)
+    return {
+        "wq": Spec((d, H, dn + dr), ("embed", "heads", "head_dim"), "fan_in"),
+        "w_dkv": Spec((d, r), ("embed", "kv_lora"), "fan_in"),
+        "w_kr": Spec((d, dr), ("embed", None), "fan_in"),
+        "w_uk": Spec((r, H, dn), ("kv_lora", "heads", "head_dim"), "fan_in"),
+        "w_uv": Spec((r, H, dv), ("kv_lora", "heads", "head_dim"), "fan_in"),
+        "wo": Spec((H, dv, d), ("heads", "head_dim", "embed"), "fan_in"),
+        "kv_norm": {"scale": Spec((r,), ("kv_lora",), "ones")},
+    }
+
+
+def mla_apply(params: Params, cfg: ArchConfig, x: torch.Tensor,
+              positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence MLA: standard causal attention on the concatenated
+    (nope ‖ rope) keys, every head reading the one shared rope key."""
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    c_kv = torch.einsum("bsd,dr->bsr", x, params["w_dkv"])
+    c_kv = norm_apply(sub(params, "kv_norm"), c_kv)
+    k_rope = rope(torch.einsum("bsd,dk->bsk", x, params["w_kr"])[:, :, None],
+                  positions, cfg.rope_theta)                     # (B,S,1,dr)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, params["w_uk"])
+    v = torch.einsum("bsr,rhk->bshk", c_kv, params["w_uv"])
+    H = q.shape[2]
+    k_full = torch.cat([k_nope, k_rope.expand(-1, -1, H, -1)], dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    # The plain attention on every device, by name: no TPU kernel of the
+    # reference computes attention with a q/k head (dn + dr, 192 at full
+    # width) other than its v head (dv, 128), so sdpa's flash route does
+    # not apply; the reference's MLA runs its jnp sdpa as well.
+    out = _plain_sdpa(q_full, k_full, v, 1.0 / math.sqrt(dn + dr),
+                      causal=True, q_chunk=cfg.attn_q_chunk)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+
+
+def mla_decode(params: Params, cfg: ArchConfig, x: torch.Tensor,
+               pos: torch.Tensor, cache_ckv: torch.Tensor,
+               cache_kr: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Latent-cache decode with the absorption trick: the cache holds only
+    c_kv (B, C, r) and the rope key (B, C, dr), and W_uk is folded into the
+    query.  Both caches are updated in place."""
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = rope(q_rope, pos[:, None], cfg.rope_theta)
+    # absorb W_uk into the query: q_lat = q_nope @ W_uk^T, in latent space
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, params["w_uk"])
+    c_kv = norm_apply(sub(params, "kv_norm"),
+                      torch.einsum("bsd,dr->bsr", x, params["w_dkv"]))
+    k_r = rope(torch.einsum("bsd,dk->bsk", x, params["w_kr"])[:, :, None],
+               pos[:, None], cfg.rope_theta)[:, :, 0]
+    bidx = torch.arange(x.shape[0], device=x.device)
+    cache_ckv[bidx, pos] = c_kv[:, 0].to(cache_ckv.dtype)
+    cache_kr[bidx, pos] = k_r[:, 0].to(cache_kr.dtype)
+    C = cache_ckv.shape[1]
+    mask = torch.arange(C, device=x.device)[None, :] <= pos[:, None]  # (B,C)
+    scale = 1.0 / math.sqrt(dn + dr)
+    ckv = cache_ckv.to(x.dtype)
+    logits = (torch.einsum("bshr,btr->bhst", q_lat, ckv)
+              + torch.einsum("bshk,btk->bhst", q_rope,
+                             cache_kr.to(x.dtype)))
+    logits = torch.where(mask[:, None, None, :], logits.float() * scale,
+                         NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    out_lat = torch.einsum("bhst,btr->bshr", probs, ckv)
+    out = torch.einsum("bshr,rhk->bshk", out_lat, params["w_uv"])
+    return (torch.einsum("bshk,hkd->bsd", out, params["wo"]), cache_ckv,
+            cache_kr)
+
+
+# ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
 
@@ -278,6 +384,205 @@ def mlp_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
         return h @ params["w2"]
     h = F.gelu(x @ params["w1"] + params["b1"], approximate="tanh")
     return h @ params["w2"] + params["b2"]
+
+
+# ---------------------------------------------------------------------------
+# MoE — sort-based token-choice top-k with per-group capacity
+# ---------------------------------------------------------------------------
+
+def moe_specs(cfg: ArchConfig) -> dict:
+    d, f, E = cfg.d_model, cfg.moe_hidden, cfg.num_experts
+    p = {
+        "router": Spec((d, E), ("embed", None), "fan_in"),
+        "w1": Spec((E, d, f), ("experts", "embed", "ffn"), "fan_in"),
+        "w3": Spec((E, d, f), ("experts", "embed", "ffn"), "fan_in"),
+        "w2": Spec((E, f, d), ("experts", "ffn", "embed"), "fan_in"),
+    }
+    if cfg.num_shared_experts:
+        p["shared"] = mlp_specs(cfg, cfg.moe_hidden * cfg.num_shared_experts)
+    return p
+
+
+@contextlib.contextmanager
+def _ieee_f32():
+    """float32 products in full precision while routing: a TF32 router
+    product would pick other experts than the CPU for the same tokens."""
+    matmul = torch.backends.cuda.matmul
+    if not matmul.allow_tf32:
+        yield
+        return
+    matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        matmul.allow_tf32 = True
+
+
+# The routes of every MoE call while record_routes() is active: each entry
+# the (..., S, k) expert indices of one call, detached.
+_ROUTES: list | None = None
+
+
+@contextlib.contextmanager
+def record_routes():
+    """Collect the top-k expert indices every MoE layer picks inside the
+    block (a list, in call order), to compare two runs' routing."""
+    global _ROUTES
+    saved, _ROUTES = _ROUTES, []
+    try:
+        yield _ROUTES
+    finally:
+        _ROUTES = saved
+
+
+def _router_logits(params: Params, cfg: ArchConfig, x: torch.Tensor,
+                   eq: str) -> torch.Tensor:
+    """The router product in ``moe_router_dtype``, TF32 off."""
+    rdt = torch.float32 if cfg.moe_router_dtype == "float32" else x.dtype
+    with _ieee_f32():
+        return torch.einsum(eq, x.to(rdt), params["router"].to(rdt))
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """Top-k choices renormalised to sum to 1.  The indices are recorded
+    while :func:`record_routes` is active (outside ``torch.func``
+    transforms)."""
+    top_w, top_e = torch.topk(probs, k, dim=-1)
+    top_w = top_w / top_w.sum(-1, keepdim=True)
+    if _ROUTES is not None:
+        _ROUTES.append(top_e.detach())
+    return top_w, top_e
+
+
+def _route_group(logits: torch.Tensor, k: int, E: int, C: int):
+    """Per-group routing, batched over leading dims.  logits: (..., G, E).
+    Returns (buf_tok (..., E*C) int64 token indices, G for an empty slot;
+    buf_w (..., E*C) float32 combine weights).
+
+    The reference's order: a float32 softmax, top-k renormalised, a stable
+    sort of the (token, choice) pairs by expert, each pair's slot within
+    its expert, and a scatter into E·C + 1 slots whose last slot takes the
+    pairs past capacity."""
+    G = logits.shape[-2]
+    lead = logits.shape[:-2]
+    probs = torch.softmax(logits.float(), dim=-1)
+    top_w, top_e = _top_k(probs, k)                             # (..., G, k)
+    flat_e = top_e.reshape(*lead, G * k)
+    flat_w = top_w.reshape(*lead, G * k)
+    flat_tok = torch.arange(G, device=probs.device).repeat_interleave(k)
+    order = torch.sort(flat_e, dim=-1, stable=True).indices     # by expert
+    se = torch.gather(flat_e, -1, order)
+    st = flat_tok[order]
+    sw = torch.gather(flat_w, -1, order)
+    # position of each routed pair within its expert
+    first = torch.searchsorted(se, se, side="left")
+    pos_in_e = torch.arange(G * k, device=probs.device) - first
+    dest = torch.where(pos_in_e < C, se * C + pos_in_e,
+                       torch.full_like(se, E * C))              # drop slot
+    buf_tok = se.new_full((*lead, E * C + 1), G).scatter(-1, dest,
+                                                         st)[..., :-1]
+    buf_w = sw.new_zeros((*lead, E * C + 1)).scatter(-1, dest, sw)[..., :-1]
+    return buf_tok, buf_w
+
+
+def _experts(params: Params, xe: torch.Tensor, eq_in: str, eq_out: str
+             ) -> torch.Tensor:
+    h = torch.einsum(eq_in, xe, params["w1"])
+    g = torch.einsum(eq_in, xe, params["w3"])
+    return torch.einsum(eq_out, F.silu(h) * g, params["w2"])
+
+
+def moe_apply_sorted(params: Params, cfg: ArchConfig, x: torch.Tensor
+                     ) -> torch.Tensor:
+    """Sort/gather dispatch, each sequence a routing group (the reference
+    vmaps its group function over the batch): gather the routed tokens
+    into (E, C) expert slots, the three expert products, and a scatter-add
+    of the weighted outputs back to their tokens.  x: (B, S, d)."""
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    C = max(1, int(S * k * cfg.moe_capacity_factor / E))
+    logits = _router_logits(params, cfg, x, "bsd,de->bse")
+    buf_tok, buf_w = _route_group(logits, k, E, C)              # (B, E*C)
+    xpad = torch.cat([x, x.new_zeros((B, 1, d))], dim=1)        # (B, S+1, d)
+    idx = buf_tok[..., None].expand(B, E * C, d)
+    xe = torch.gather(xpad, 1, idx).reshape(B, E, C, d)          # gather
+    ye = _experts(params, xe, "becd,edf->becf", "becf,efd->becd")
+    ye = ye.reshape(B, E * C, d) * buf_w[..., None].to(x.dtype)
+    y = x.new_zeros((B, S + 1, d)).scatter_add(1, idx, ye)
+    return y[:, :-1]
+
+
+def moe_apply_einsum(params: Params, cfg: ArchConfig, x: torch.Tensor,
+                     group_size: int = 2048) -> torch.Tensor:
+    """GShard-style one-hot dispatch/combine einsums over token subgroups.
+    The same outputs as the sorted path under ample capacity; over
+    capacity both drop the later pairs of an expert in token order."""
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    gs = min(group_size, S)
+    ng = S // gs
+    C = max(1, int(gs * k * cfg.moe_capacity_factor / E))
+    xg = x.reshape(B, ng, gs, d)
+    probs = torch.softmax(_router_logits(params, cfg, xg, "bnsd,de->bnse"),
+                          dim=-1)
+    top_w, top_e = _top_k(probs, k)                             # (B,ng,gs,k)
+    experts = torch.arange(E, device=x.device)
+    oh = (top_e[..., None] == experts).float()                  # (B,ng,gs,k,E)
+    ohf = oh.reshape(B, ng, gs * k, E)
+    pos = torch.cumsum(ohf, dim=2) - ohf                        # slot in expert
+    pos_sel = (pos * ohf).sum(-1)                               # (B,ng,gs*k)
+    keep = (pos_sel < C).float()
+    slots = torch.arange(C, device=x.device)
+    slot_oh = (pos_sel.long()[..., None] == slots).float()      # (B,ng,gs*k,C)
+    dispatch = torch.einsum("bnse,bnsc->bnsec", ohf * keep[..., None],
+                            slot_oh)
+    wf = top_w.reshape(B, ng, gs * k).float()
+    combine_w = dispatch * wf[..., None, None]                  # (B,ng,gs*k,E,C)
+    xrep = xg.repeat_interleave(k, dim=2)                       # (B,ng,gs*k,d)
+    xe = torch.einsum("bnsec,bnsd->bnecd", dispatch.to(x.dtype), xrep)
+    ye = _experts(params, xe, "bnecd,edf->bnecf", "bnecf,efd->bnecd")
+    y = torch.einsum("bnsec,bnecd->bnsd", combine_w.to(x.dtype), ye)
+    # sum the k duplicated choices back per token
+    y = y.reshape(B, ng, gs, k, d).sum(dim=3)
+    return y.reshape(B, S, d)
+
+
+def moe_load_balance_loss(params: Params, cfg: ArchConfig, x: torch.Tensor
+                          ) -> torch.Tensor:
+    """Switch-style router auxiliary loss: E · Σ_e f_e · p_e, where f_e is
+    the fraction of tokens whose top-1 choice is expert e and p_e the mean
+    router probability; 1 at a uniform distribution.  Opt-in: no loss of
+    the port (or of the reference) adds it."""
+    E = cfg.num_experts
+    probs = torch.softmax(_router_logits(params, cfg, x, "bsd,de->bse"),
+                          dim=-1)                               # (B,S,E)
+    top1 = probs.argmax(-1)
+    f = (top1[..., None] == torch.arange(E, device=x.device)).float()
+    f = f.mean(dim=(0, 1))
+    p = probs.mean(dim=(0, 1))
+    return E * (f * p).sum()
+
+
+def moe_apply(params: Params, cfg: ArchConfig, x: torch.Tensor
+              ) -> torch.Tensor:
+    """x: (B, S, d).  Dispatch per ``cfg.moe_dispatch``: ``sorted``
+    (sort/gather), ``einsum`` (GShard one-hot), or ``auto`` (einsum iff the
+    dispatch/expert flop ratio (2/3)·gs·k/f < 0.5 and the length divides
+    the group size); then the shared experts, if any."""
+    S = x.shape[1]
+    mode = cfg.moe_dispatch
+    gs = 2048 if S % 2048 == 0 else (1024 if S % 1024 == 0 else 0)
+    if mode == "auto":
+        ratio = (2 / 3) * (gs * cfg.experts_per_token) / max(1, cfg.moe_hidden)
+        mode = "einsum" if (gs and ratio < 0.5) else "sorted"
+    if mode == "einsum" and gs:
+        y = moe_apply_einsum(params, cfg, x, group_size=gs)
+    else:
+        y = moe_apply_sorted(params, cfg, x)
+    shared = sub(params, "shared")
+    if shared:
+        y = y + mlp_apply(shared, x)
+    return y
 
 
 # ---------------------------------------------------------------------------

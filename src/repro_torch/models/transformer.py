@@ -1,12 +1,14 @@
-"""Model assembly for the dense decoder and Mamba2 families — port of that
-subset of ``repro/models/transformer.py``.
+"""Model assembly for the dense decoder, Mamba2 and MoE families — port of
+that subset of ``repro/models/transformer.py``.
 
 A model is a list of **segments**; each segment repeats a **period** (a
 short list of blocks) ``n`` times, with the period's parameters stacked on
 a leading layer axis.  The reference scans the stack with ``lax.scan``; the
 port loops over it in Python.  For a dense LM the plan is one segment of L
-``attn + mlp`` blocks, for Mamba2 one segment of L ``mamba`` blocks, and the
-parameters are the flat dict of the reference's tree
+``attn + mlp`` blocks, for Mamba2 one segment of L ``mamba`` blocks, for
+mixtral one of L ``attn + moe`` blocks, for deepseek ``first_dense_layers``
+``mla + mlp`` blocks then the rest ``mla + moe``; the parameters are the
+flat dict of the reference's tree
 (``segments/0/0/attn/wq`` has shape (L, d, H, hd),
 ``segments/0/0/mamba/w_x`` (L, d, H, P)).
 
@@ -14,8 +16,8 @@ The reference wraps each layer in ``jax.checkpoint`` (``cfg.remat``).
 ``torch.func`` transforms reject ``torch.utils.checkpoint``, so the port
 runs without it: remat changes memory, not numbers.
 
-MoE, MLA, hybrid, cross-attention and the encoder-decoder and vision
-families come with later slices; :func:`segment_plan` raises for them.
+Hybrid, cross-attention and the encoder-decoder and vision families come
+with later slices; :func:`segment_plan` raises for them.
 """
 from __future__ import annotations
 
@@ -39,8 +41,8 @@ __all__ = ["BlockDesc", "Segment", "Model", "block_specs", "block_apply",
 
 @dataclasses.dataclass(frozen=True)
 class BlockDesc:
-    mixer: str          # attn | attn_nc (non-causal) | mamba
-    ffn: str            # dense | none
+    mixer: str          # attn | attn_nc (non-causal) | mla | mamba
+    ffn: str            # dense | moe | none
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,11 +56,11 @@ class Segment:
 # ---------------------------------------------------------------------------
 
 def _check_block(desc: BlockDesc) -> None:
-    if desc.mixer not in ("attn", "attn_nc", "mamba") or \
-            desc.ffn not in ("dense", "none"):
-        raise ValueError(f"block {desc} is not in the port's dense decoder "
-                         f"or Mamba2 families (MLA, cross-attention and MoE "
-                         f"blocks come with later slices)")
+    if desc.mixer not in ("attn", "attn_nc", "mla", "mamba") or \
+            desc.ffn not in ("dense", "moe", "none"):
+        raise ValueError(f"block {desc} is not in the port's dense decoder, "
+                         f"Mamba2 or MoE families (cross-attention blocks "
+                         f"come with a later slice)")
 
 
 def block_specs(cfg: ArchConfig, desc: BlockDesc) -> dict:
@@ -66,12 +68,23 @@ def block_specs(cfg: ArchConfig, desc: BlockDesc) -> dict:
     p: dict[str, Any] = {"norm1": L.norm_specs(cfg)}
     if desc.mixer == "mamba":
         p["mamba"] = L.mamba2_specs(cfg)
+    elif desc.mixer == "mla":
+        p["mla"] = L.mla_specs(cfg)
     else:
         p["attn"] = L.attention_specs(cfg)
     if desc.ffn != "none":
         p["norm2"] = L.norm_specs(cfg)
-        p["ffn"] = L.mlp_specs(cfg)
+        p["ffn"] = (L.moe_specs(cfg) if desc.ffn == "moe"
+                    else L.mlp_specs(cfg))
     return p
+
+
+def _ffn(desc: BlockDesc, cfg: ArchConfig, p: Params, x: torch.Tensor
+         ) -> torch.Tensor:
+    h = L.norm_apply(L.sub(p, "norm2"), x)
+    ffn = L.sub(p, "ffn")
+    return x + (L.moe_apply(ffn, cfg, h) if desc.ffn == "moe"
+                else L.mlp_apply(ffn, h))
 
 
 def block_apply(cfg: ArchConfig, desc: BlockDesc, p: Params,
@@ -79,21 +92,28 @@ def block_apply(cfg: ArchConfig, desc: BlockDesc, p: Params,
     h = L.norm_apply(L.sub(p, "norm1"), x)
     if desc.mixer == "mamba":
         x = x + L.mamba2_apply(L.sub(p, "mamba"), cfg, h)
+    elif desc.mixer == "mla":
+        x = x + L.mla_apply(L.sub(p, "mla"), cfg, h, positions)
     else:
         x = x + L.attention_apply(L.sub(p, "attn"), cfg, h, positions,
                                   causal=desc.mixer == "attn")
     if desc.ffn != "none":
-        h = L.norm_apply(L.sub(p, "norm2"), x)
-        x = x + L.mlp_apply(L.sub(p, "ffn"), h)
+        x = _ffn(desc, cfg, p, x)
     return x
 
 
 def block_cache_specs(cfg: ArchConfig, desc: BlockDesc, batch: int,
                       cache_len: int) -> dict:
     """Spec tree of this block's decode state: the KV cache of an
-    attention block, the conv history and the SSM state of a Mamba2 block
-    (O(1) in the sequence)."""
+    attention block, the latent cache of an MLA block (c_kv and the rope
+    key), the conv history and the SSM state of a Mamba2 block (O(1) in the
+    sequence)."""
     _check_block(desc)
+    if desc.mixer == "mla":
+        return {"ckv": Spec((batch, cache_len, cfg.kv_lora_rank),
+                            ("batch", "seq", "kv_lora"), "zeros"),
+                "kr": Spec((batch, cache_len, cfg.qk_rope_dim),
+                           ("batch", "seq", None), "zeros")}
     if desc.mixer == "mamba":
         H, P, N, G = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
                       cfg.ssm_groups)
@@ -118,13 +138,16 @@ def block_decode(cfg: ArchConfig, desc: BlockDesc, p: Params, cache: Params,
         y, conv, ssm = L.mamba2_decode(L.sub(p, "mamba"), cfg, h,
                                        cache["conv"], cache["ssm"])
         x, cache = x + y, {"conv": conv, "ssm": ssm}
+    elif desc.mixer == "mla":
+        y, ckv, kr = L.mla_decode(L.sub(p, "mla"), cfg, h, pos,
+                                  cache["ckv"], cache["kr"])
+        x, cache = x + y, {"ckv": ckv, "kr": kr}
     else:
         y, ck, cv = L.attention_decode(L.sub(p, "attn"), cfg, h, pos,
                                        cache["k"], cache["v"])
         x, cache = x + y, {"k": ck, "v": cv}
     if desc.ffn != "none":
-        h = L.norm_apply(L.sub(p, "norm2"), x)
-        x = x + L.mlp_apply(L.sub(p, "ffn"), h)
+        x = _ffn(desc, cfg, p, x)
     return x, cache
 
 
@@ -133,13 +156,24 @@ def block_decode(cfg: ArchConfig, desc: BlockDesc, p: Params, cache: Params,
 # ---------------------------------------------------------------------------
 
 def segment_plan(cfg: ArchConfig) -> list[Segment]:
-    if cfg.arch_type == "ssm":
+    t = cfg.arch_type
+    if t == "ssm":
         return [Segment(cfg.num_layers, (BlockDesc("mamba", "none"),))]
-    if cfg.arch_type != "dense":
+    if t == "moe" and cfg.use_mla:  # deepseek
+        segs = []
+        if cfg.first_dense_layers:
+            segs.append(Segment(cfg.first_dense_layers,
+                                (BlockDesc("mla", "dense"),)))
+        segs.append(Segment(cfg.num_layers - cfg.first_dense_layers,
+                            (BlockDesc("mla", "moe"),)))
+        return segs
+    if t == "moe":
+        return [Segment(cfg.num_layers, (BlockDesc("attn", "moe"),))]
+    if t != "dense":
         raise ValueError(
-            f"{cfg.name}: arch_type {cfg.arch_type!r} is not ported yet; the "
-            f"port's LM models are the dense decoder and Mamba2 families "
-            f"(moe, hybrid, vlm and audio come with later slices)")
+            f"{cfg.name}: arch_type {t!r} is not ported yet; the port's LM "
+            f"models are the dense decoder, Mamba2 and MoE families "
+            f"(hybrid, vlm and audio come with later slices)")
     return [Segment(cfg.num_layers, (BlockDesc("attn", "dense"),))]
 
 

@@ -9,9 +9,12 @@ batched adaptation
     ``inner_adapt`` (``EvalHarness.adapt_states``); on the card every
     attention layer's forward and backward in it are the flash-attention
     kernels, and every Mamba2 layer's forward is the SSD scan kernel, each
-    launch folding the N users into its batch.  Request
-    counts are padded up to a small set of *buckets* (the reference's
-    compile sizes; here they bound the shapes the dispatch sees).
+    launch folding the N users into its batch (MLA runs the plain
+    attention, MoE layers plain PyTorch).  Request counts are padded up to
+    a small set of *buckets* (the reference's compile sizes; here they
+    bound the shapes the dispatch sees): a padded user repeats the first
+    one, and its tokens are routed and take expert capacity in its own
+    sequences, as in the reference.
 
 adapted-state cache
     Recurring tasks (same ``TaskKey``: source fingerprint × domain ×
@@ -22,7 +25,8 @@ decode
     A teacher-forced prefill of the prompt (P−1 single-token decode
     steps, as the reference's prefill scan) and a greedy or sampling
     decode, timed separately, over the model's own decode caches (KV for
-    attention, conv history and SSM state for Mamba2).  The reference scans both with ``lax.scan``
+    attention, the latent c_kv and rope key for MLA, conv history and SSM
+    state for Mamba2).  The reference scans both with ``lax.scan``
     under ``jit``; the port runs them eagerly, one Python step per token.
     Sampling (``temperature > 0``) draws from an explicit
     ``torch.Generator`` seeded per call; it cannot reproduce

@@ -1219,3 +1219,44 @@ def test_cuda_ssd_bwd_raises_instead_of_falling_back(cuda, monkeypatch):
         sops.ssd_scan_bwd(*args, chunk=32)
     with pytest.raises(RuntimeError, match="ssd_bwd_tangent_state kernel"):
         sops.ssd_scan_bwd_tangent(*args, *targs, chunk=32)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "mixtral-8x22b"])
+def test_cuda_moe_models_route_and_adapt_as_the_cpu(cuda, arch):
+    """The reduced MoE models in float32 (TF32 off in the router): the card
+    routes every (token, choice) pair to the CPU's expert, and the vmapped
+    two-step adaptation of two users (serving's transform) matches the
+    CPU's.  MLA launches no flash kernel; mixtral's windowed attention
+    does."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.eval.harness import EvalHarness
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import build_model
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    model = build_model(cfg)
+    w = model.init(torch.Generator().manual_seed(0), torch.float32, "cpu")
+    toks = torch.randint(0, 512, (2, 2, 65),
+                         generator=torch.Generator().manual_seed(1))
+    sup = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    harness = EvalHarness(model.loss_fn, 1e-2, 2)
+    got = {}
+    for dev in ("cpu", cuda):
+        p = {k: v.to(dev) for k, v in w.items()}
+        with torch.no_grad(), layers.record_routes() as routes:
+            model.forward(p, {k: v[0].to(dev) for k, v in sup.items()})
+        before = fops.launch_counts["flash_attention_fwd"]
+        adapted = harness.adapt_states(p, {k: v.to(dev)
+                                           for k, v in sup.items()})
+        launched = fops.launch_counts["flash_attention_fwd"] - before
+        got[str(dev)] = ([r.cpu() for r in routes],
+                         {k: v.cpu() for k, v in adapted.items()}, launched)
+    (r_cpu, a_cpu, _), (r_card, a_card, launched) = got["cpu"], got["cuda"]
+    assert len(r_cpu) == len(r_card) >= 1
+    for a, b in zip(r_card, r_cpu):
+        assert torch.equal(a.sort(-1).values, b.sort(-1).values)
+    for k in a_cpu:
+        torch.testing.assert_close(a_card[k], a_cpu[k], rtol=1e-4,
+                                   atol=1e-5)
+    assert (launched == 0) == (arch == "deepseek-v2-lite-16b")

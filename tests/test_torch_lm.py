@@ -213,8 +213,8 @@ def test_incremental_decode_matches_forward(models, batch):
 
 def test_other_families_raise():
     with pytest.raises(ValueError, match="not ported yet"):
-        get_config("mixtral-8x22b")
+        get_config("jamba-1.5-large-398b")
     cfg = dataclasses.replace(get_config("qwen2-1.5b").reduced(),
-                              arch_type="moe")
+                              arch_type="hybrid")
     with pytest.raises(ValueError, match="not ported yet"):
         build_model(cfg)
