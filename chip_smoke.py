@@ -45,10 +45,13 @@ Phases, each fatal on failure:
                 Then one fused outer update is captured in a CUDA graph
                 with the step as a device tensor the graph advances and
                 replayed for 12 steps (combine_every=2, a 3-row link-failure
-                schedule) against eager calls, and copies of the source
-                without stores, without the mix and with 1, 3 or 4 ring
-                stages are timed at M=2^24 (``kernels/dif_combine/
-                ablate.py``).
+                schedule) against eager calls.  (The study of copies of the
+                source without stores, without the mix and with 1, 3 or 4
+                ring stages, ``python -m
+                repro_torch.kernels.dif_combine.ablate``, ran here until
+                the encoder-decoder phases came in.)  The single-buffer
+                fused rows are timed at Adam/ATC, gate 1, one schedule row
+                only; the others are checked.
 4. training  -- runs ``python -m repro_torch.launch.quickstart`` (K=6 agents
                 on the paper's Fig. 2a graph, ATC, exact MAML, Adam) for 300
                 steps with ``--backend dense``, ``pallas`` and ``fused`` from
@@ -57,7 +60,8 @@ Phases, each fatal on failure:
                 small, the backends agree step by step, and each kernel's
                 launch counter, zeroed just before its run, show its launches.
 5. profile   -- device time per step of the fused training step
-                (torch.profiler), to show where a step's time goes.
+                (torch.profiler, 20 steps), to show where a step's time
+                goes.
 6. flash     -- holds the flash-attention forward (out, lse) and backward
                 (dq, dk, dv) kernels against ``attention_ref`` and its autograd
                 gradient, and the backward against its plain version: in
@@ -191,22 +195,21 @@ Phases, each fatal on failure:
                 24 layers (``--layers 4``; bf16, fresh init from seed 0),
                 K=4 agents on the ring,
                 exact MAML, ``--fused-outer``, a registered 512-token shape
-                with global batch 16 (2 tasks x 1 sequence an agent), 4
-                steps in dispatches of 2, eval every 2 steps (4 tasks, 1
-                adaptation step); the launch counters
+                with global batch 16 (2 tasks x 1 sequence an agent), 2
+                steps in a dispatch of 2, eval (4 tasks, 1 adaptation
+                step); the launch counters
                 are zeroed just before and read just after, and the SSD
                 kernels, T3, the scan's backward and its tangent
                 (``ssd_scan_bwd``, ``ssd_scan_bwd_tangent``, each of their
                 five kernels) and the fused update must have launched; the
                 losses are finite, the disagreement falls, the run log
-                passes ``scripts/check_run_log.py --expect-fused``.  Then 2
-                steps that save the step-2 checkpoint and 2 more resumed
-                from it alone (``--ckpt-every 0``: no write; the chip
-                machine bounds what a call writes to 45 GiB) must reach the
-                uninterrupted step-4 loss within 1e-3, and one meta-step of
-                the resumed state is profiled (device time split, idle share,
-                peak memory, T3 and the backward's tangent launched; the
-                SSD backward and its tangent reported by kernel name).
+                passes ``scripts/check_run_log.py --expect-fused``.  Then
+                one meta-step of the final state is profiled (device time
+                split, idle share, peak memory, T3 and the backward's
+                tangent launched; the SSD backward and its tangent reported
+                by kernel name).  (Until the encoder-decoder phases came in
+                this run also checked the checkpoint and the resume; phase
+                25 does that now.)
 14. qwen2 training -- the same for qwen2-1.5b at full width cut to 2
                 layers, ``--combine pallas``, 256 tokens, 2 steps: the
                 flash kernels, T1, T2 and ``dif_combine`` must launch.
@@ -269,14 +272,14 @@ Phases, each fatal on failure:
 20. deepseek training -- phase 13 for the same cut: ``fomaml``, momentum,
                 ``--fused-outer``, 256 tokens, global batch 16, eval of one
                 task an agent (K x tasks adapted copies of 2.17 GB), one
-                ``fused_combine_update`` launch a step, checkpoint and
-                resume; then 2 steps with ``--combine pallas``, one
-                ``dif_combine`` launch a step; then both outer-update
+                ``fused_combine_update`` launch a step (2 steps; phase 25
+                checks checkpoint, resume and ``--combine pallas``); then
+                both outer-update
                 kernels over the cut's 31 leaves at K=4 (1,085 M columns,
                 bf16, momentum/ATC) against their plain versions leaf by
                 leaf, timed beside the plain versions and the bounds.
-21. MoE agreement -- phases 8 and 15 (``fomaml`` only) for deepseek's cut
-                and reduced mixtral-8x22b, one task of one sequence of 128
+21. MoE agreement -- phase 15 (``fomaml`` only) for deepseek's cut and
+                phases 8 and 15 for reduced mixtral-8x22b, one task of one sequence of 128
                 tokens, one set of weights: losses within 1e-4 (f32) / 1e-3
                 (bf16), the meta-gradient within phase 15's limits (in bf16
                 the routed experts' and router's leaves through the norm
@@ -287,8 +290,40 @@ Phases, each fatal on failure:
                 the card at deepseek's MoE layer width (2 x 128 tokens, f32,
                 capacity ample): within 1e-5 of the largest |value|; each
                 path's time.
-Phases 16-18 run after phase 14, before phase 15; phases 19-22 after phase
-15, before phase 5.
+23. encoder-decoder flash -- the flash forward and backward (against
+                ``attention_ref``'s autograd and the plain backward) and T1
+                and T2 (against their plain versions), bf16 and float32, in
+                the model's layout at the shapes whisper-large-v3 and
+                llama-3.2-vision give them, non-causal: the encoder (4 x
+                1500 frames, 20 heads of 64: a last key tile of 28), the
+                cross-attention (256 queries against 1500 keys), reduced
+                llama-vision's cross-attention (64 queries, 4 heads, against
+                16 keys with 2 KV heads); and causal rows with S < S_k and
+                S > S_k.  The encoder and cross rows timed at the serving
+                batch (16 sequences) in bf16 beside their bounds and SDPA's
+                times.  Keys 1472-1499 zeroed in the kernels' input only
+                must fail the check (the last, partial key tile is read).
+24. whisper serve -- phase 7 for whisper-large-v3 at full width (d_model
+                1280, 20 heads of 64, d_ff 5120, vocab 51866, 1500 zero
+                frames) cut to 4 encoder + 4 decoder layers: 3 flash
+                forward and 6 backward launches a layer and adapt step
+                (encoder, decoder, cross), and the encoder's forward once
+                more for the decode's cross K/V; one more adapt dispatch
+                under torch.profiler.
+25. whisper training -- phase 13 for whisper cut to 2 + 2 layers: exact
+                MAML (the flash kernels, T1 and T2), Adam, bf16, K=4 on the
+                ring, T=2, 256 tokens, ``--fused-outer``, eval, checkpoint
+                and resume, one profiled meta-step; then 2 steps with
+                ``--combine pallas``.
+26. encoder-decoder agreement -- phase 15 for the 2 + 2 cut (``maml``, one
+                sequence of 128 tokens and 1500 random frames) and for
+                reduced llama-vision (``fomaml``, 16 random patches; and
+                phase 8's losses), every cross gate set to 0.5 first (at its
+                zero init the cross path carries nothing): losses within
+                1e-4 (f32) / 1e-3 (bf16), the meta-gradient within phase
+                15's limits, the cross leaves' largest error printed apart.
+Phases 16-18 run after phase 14, before phase 15; phase 23 right after
+phase 6; phases 19-22 and 24-26 after phase 15, before phase 5.
 
 The last two lines of standard output are the kernels' numbers and the
 device, as JSON.  Without a CUDA card the script exits 1 before any result.
@@ -810,8 +845,6 @@ def capture_row(ops, SineMLP, SINE_MLP, steps=12):
 
 
 def kernels_phase(ops, ref, SineMLP, SINE_MLP, paper_A):
-    from repro_torch.kernels.dif_combine import ablate
-
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     A = torch.as_tensor(paper_A, dtype=torch.float32, device=DEVICE)
     table = A[None].contiguous()
@@ -862,16 +895,15 @@ def kernels_phase(ops, ref, SineMLP, SINE_MLP, paper_A):
             for mode in ops.MODES:
                 for gate in (0.0, 1.0):
                     for S in (1, 4):
+                        # timed: the row the kernels line reports
                         large["fused_combine_update"].append(check_fused(
                             ops, ref, gen, kind, mode, gate, S, LARGE_M,
-                            dtype, timed=True))
+                            dtype, timed=(kind, mode, gate, S) == (
+                                "adam", "atc", 1.0, 1)))
         torch.cuda.empty_cache()
     capture = capture_row(ops, SineMLP, SINE_MLP)
-    ablation = ablate.run()
-    print("ablation", json.dumps(ablation), flush=True)
     return dict(main_combine=main_combine, fused_step=fused_step,
-                qwen2=qwen2, large=large, capture=capture,
-                ablation=ablation)
+                qwen2=qwen2, large=large, capture=capture)
 
 
 # ---------------------------------------------------------------------------
@@ -1004,15 +1036,17 @@ def profile_phase(backend: str, steps: int = 50):
 # Phase 6: the flash-attention kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def flash_cost(B, H, S, d, itemsize, pairs_per_head, backward, KV=None):
+def flash_cost(B, H, S, d, itemsize, pairs_per_head, backward, KV=None,
+               Sk=None):
     """(bytes, flops) of one forward or backward: every input read once and
     every output written once, K and V (and dK, dV) with their KV heads
-    (H unless given); 4 d flops per allowed (query, key) pair and query
-    head in the forward (q.k and p.v), 10 d in the backward (the recomputed
-    scores, dP, dV, dK and dQ).  ``pairs_per_head`` counts the pairs the
-    mask allows in this run."""
+    (H unless given) and their S_k rows (S unless given); 4 d flops per
+    allowed (query, key) pair and query head in the forward (q.k and p.v),
+    10 d in the backward (the recomputed scores, dP, dV, dK and dQ).
+    ``pairs_per_head`` counts the pairs the mask allows in this run."""
     tile = B * H * S * d * itemsize
-    kv_tile = B * (H if KV is None else KV) * S * d * itemsize
+    kv_tile = B * (H if KV is None else KV) * (S if Sk is None else Sk) \
+        * d * itemsize
     rows = B * H * S * 4                                # one float32 a row
     if backward:   # q, k, v, out, dO and lse in; dq, dk, dv out
         return (4 * tile + 4 * kv_tile + rows,
@@ -1326,7 +1360,8 @@ def flash_calls_phase(fops) -> dict:
 
 
 def check_gqa_flash(fops, fref, gen, B, S, H, KV, d, dtype, causal, window,
-                    n=10, serving=False, timed=True, unaligned=False):
+                    n=10, serving=False, timed=True, unaligned=False,
+                    Sk=None):
     """The model layout, K/V with their KV heads (what the serving path
     calls): the kernels against ``attention_ref`` on K/V expanded to H
     heads and its autograd gradient (which sums each KV head's gradient
@@ -1339,10 +1374,12 @@ def check_gqa_flash(fops, fref, gen, B, S, H, KV, d, dtype, causal, window,
     ``enable_gqa`` on the (B, H, S, d) views.  ``serving``: also the
     planted faults and the times with a cold L2.  ``timed=False``: the
     checks alone; ``unaligned``: views whose rows are not 16-byte
-    aligned."""
+    aligned; ``Sk``: keys and values of another length than the queries
+    (cross-attention)."""
     dev = torch.device(DEVICE)
+    Sk = S if Sk is None else Sk
     q, do = (randn_view(gen, (B, S, H, d), dtype, unaligned) for _ in "qo")
-    k, v = (randn_view(gen, (B, S, KV, d), dtype, unaligned) for _ in "kv")
+    k, v = (randn_view(gen, (B, Sk, KV, d), dtype, unaligned) for _ in "kv")
     kw = dict(causal=causal, window=window)
     out, lse = fops.gqa_flash_attention_fwd_lse(q, k, v, **kw)
     dq, dk, dv = fops.gqa_flash_attention_bwd(q, k, v, out, lse, do, **kw)
@@ -1359,8 +1396,8 @@ def check_gqa_flash(fops, fref, gen, B, S, H, KV, d, dtype, causal, window,
     grads = [leaf.grad.to(dtype) for leaf in leaves]
     _, want_lse = fref.gqa_flash_fwd_ref(q, k, v, **kw)
     torch.cuda.synchronize()
-    what = (f"gqa flash B={B} S={S} H={H} KV={KV} d={d} {str(dtype)[6:]} "
-            f"causal={causal} window={window}"
+    what = (f"gqa flash B={B} S={S} Sk={Sk} H={H} KV={KV} d={d} "
+            f"{str(dtype)[6:]} causal={causal} window={window}"
             + (" unaligned" if unaligned else ""))
     tol = FLASH_TOL[dtype]
     fwd_err = max(compare(out, want, dtype, what + " out", tol["fwd"],
@@ -1377,14 +1414,14 @@ def check_gqa_flash(fops, fref, gen, B, S, H, KV, d, dtype, causal, window,
                                     heads(out), lse, heads(do), causal,
                                     window)
     slack = (sq.transpose(1, 2),
-             sk.reshape(B, KV, rep, S, d).sum(2).transpose(1, 2), 0.0)
+             sk.reshape(B, KV, rep, Sk, d).sum(2).transpose(1, 2), 0.0)
     bwd_err = max(compare(g, want_g, dtype, f"{what} d{name}",
                           tol["bwd"], sl + row_atol(want_g))
                   for g, want_g, sl, name in zip((dq, dk, dv), grads, slack,
                                                  "qkv"))
-    pairs = int(fref.band_mask(S, S, causal, window, dev).sum())
+    pairs = int(fref.band_mask(S, Sk, causal, window, dev).sum())
     peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
-    row = dict(B=B, S=S, H=H, KV=KV, d=d, dtype=str(dtype)[6:],
+    row = dict(B=B, S=S, Sk=Sk, H=H, KV=KV, d=d, dtype=str(dtype)[6:],
                causal=causal, window=window, unaligned=unaligned,
                fwd_max_abs_err=fwd_err, bwd_max_abs_err=bwd_err,
                bwd_vs_plain_max_abs_err=bwd_plain_err, tol=tol)
@@ -1414,10 +1451,10 @@ def check_gqa_flash(fops, fref, gen, B, S, H, KV, d, dtype, causal, window,
     for phase in ("fwd", "bwd"):
         row[f"{phase}_bound_ms"], row[f"{phase}_bound_by"] = bound_ms(
             *flash_cost(B, H, S, d, q.element_size(), pairs,
-                        phase == "bwd", KV=KV), peak)
+                        phase == "bwd", KV=KV, Sk=Sk), peak)
     for phase in ("fwd", "bwd"):
         tf32_bound(row, phase, flash_cost(B, H, S, d, q.element_size(), pairs,
-                                          phase == "bwd", KV=KV))
+                                          phase == "bwd", KV=KV, Sk=Sk))
     if serving:
         flush = torch.empty(FLUSH_BYTES // 4, device=dev)
         row["fwd_cold_ms"] = time_cold_ms(fwd, n, flush)
@@ -1443,7 +1480,7 @@ def flash_phase(fops, fref):
             for causal, window in ((True, None), (False, None), (True, 64)):
                 for dtype in (torch.float32, torch.bfloat16):
                     rows.append(check_flash(fops, fref, gen, 2, 4, S, d,
-                                            dtype, causal, window, n=5))
+                                            dtype, causal, window, n=3))
     m = FLASH_MAIN
     main = check_flash(fops, fref, gen, m["B"], m["H"], m["S"], m["d"],
                        m["dtype"], m["causal"], m["window"], n=20,
@@ -2616,6 +2653,18 @@ def live_at_peak(trace) -> tuple[list, int]:
 # Phase 8: the card against the CPU on a 2-layer cut of the same config
 # ---------------------------------------------------------------------------
 
+def modality_inputs(cfg, lead, seed) -> dict:
+    """Random float32 CPU frames (audio) or patches (vision) with leading
+    axes ``lead``, the shapes ``steps.modality_extras`` stubs with zeros:
+    zero inputs would give the cross blocks zero K/V, so the agreement
+    checks draw them at random; {} for the other families."""
+    from repro_torch.launch import steps as S
+    gen = torch.Generator().manual_seed(seed)
+    return {k: torch.randn(v.shape, generator=gen)
+            for k, v in S.modality_extras(cfg, lead, torch.float32,
+                                          "meta").items()}
+
+
 def agreement_phase(cfg=None, rtol=None, seq=256, task_batch=2,
                     weights=None):
     """The card against the CPU on one set of weights and one episode of
@@ -2627,7 +2676,9 @@ def agreement_phase(cfg=None, rtol=None, seq=256, task_batch=2,
     its own dtype, on the launch, adapted-support and adapted-query losses.
     The CPU's bf16 run against its f32 run is reported, not gated: bf16
     weights cannot hold most of an inner SGD step of lr 1e-2, so the bf16
-    adapted support loss sits above the f32 one on either device."""
+    adapted support loss sits above the f32 one on either device.  The
+    encoder-decoder and vision families get random frames or patches
+    (``modality_inputs``), the same on both devices."""
     from repro_torch.configs import get_config
     from repro_torch.eval.harness import EvalHarness
     from repro_torch.launch import serve
@@ -2643,6 +2694,8 @@ def agreement_phase(cfg=None, rtol=None, seq=256, task_batch=2,
                              torch.float32, "cpu")
     ep = serve.make_support_source(cfg, seq, task_batch,
                                    seed=0).eval_sample(1, seed=0)
+    extras = [modality_inputs(cfg, (1, task_batch), seed)
+              for seed in (5, 6)]
     runs = {"card_f32": (DEVICE, torch.float32),
             "card_bf16": (DEVICE, torch.bfloat16),
             "cpu_f32": ("cpu", torch.float32),
@@ -2651,9 +2704,10 @@ def agreement_phase(cfg=None, rtol=None, seq=256, task_batch=2,
     for run, (device, dtype) in runs.items():
         t0 = time.perf_counter()
         params = {k: v.to(device, dtype) for k, v in weights.items()}
-        sup, qry = ({k: torch.from_numpy(v).to(device)
-                     for k, v in part.items()}
-                    for part in (ep.support, ep.query))
+        sup, qry = ({**{k: torch.from_numpy(v).to(device)
+                        for k, v in part.items()},
+                     **{k: v.to(device, dtype) for k, v in extra.items()}}
+                    for part, extra in zip((ep.support, ep.query), extras))
         adapted = harness.adapt_states(params, sup)
         with torch.no_grad():
             launch = torch.func.vmap(model.loss_fn, in_dims=(None, 0))(
@@ -2764,7 +2818,7 @@ def check_tangent(got, want, what: str) -> float:
     return err
 
 
-def flash_tangent_cost(B, H, KV, S, d, itemsize, pairs, backward
+def flash_tangent_cost(B, H, KV, S, d, itemsize, pairs, backward, Sk=None
                        ) -> tuple[float, float]:
     """(bytes, flops) of T1 or T2, each input read once and each output
     written once.  T1: q, q', o' (H heads) and k, k', v, v' (KV heads),
@@ -2772,8 +2826,10 @@ def flash_tangent_cost(B, H, KV, S, d, itemsize, pairs, backward
     twice, P V, P s' V, P V').  T2: q, o, dO, q', o', dO', dq' and k, v,
     k', v', dk', dv', lse and lse' in; 12d a pair (s, s' twice, dP, dP'
     twice, dq' twice, dk' twice, dv' twice).  ``pairs``: the allowed
-    (query, key) pairs of one head."""
-    qb, kb, rows = B * S * H * d * itemsize, B * S * KV * d * itemsize, \
+    (query, key) pairs of one head; ``Sk``: the key rows (S unless
+    given)."""
+    Sk = S if Sk is None else Sk
+    qb, kb, rows = B * S * H * d * itemsize, B * Sk * KV * d * itemsize, \
         4 * B * H * S
     if backward:
         return 7 * qb + 6 * kb + 2 * rows, 24.0 * d * pairs * B * H
@@ -2782,21 +2838,24 @@ def flash_tangent_cost(B, H, KV, S, d, itemsize, pairs, backward
 
 def check_flash_tangents(fops, fref, gen, heads_dim, shape, dtype, causal,
                          window, timed=False, unaligned=False,
-                         faults=False) -> dict:
+                         faults=False, Sk=None) -> dict:
     """T1 and T2 at one shape against their plain versions (one and two
     launches); with ``timed``, the kernels' and plain versions' times and
     the bounds (float32: also T2's products as three TF32 products, and
     its bytes alone); ``unaligned``: views whose rows are not 16-byte
     aligned; ``faults``: planted faults in T2's results, and T2 run without
-    lse', must fail the check."""
+    lse', must fail the check; ``Sk`` (the model layout): keys of another
+    length than the queries."""
     from repro_torch.kernels.flash_attention.ref import band_mask
     if heads_dim == 1:
         B, H, S, d = shape
         KV, qs = H, shape
         ks = qs
+        Sk = S
     else:
         B, S, H, KV, d = shape
-        qs, ks = (B, S, H, d), (B, S, KV, d)
+        Sk = S if Sk is None else Sk
+        qs, ks = (B, S, H, d), (B, Sk, KV, d)
     mk = lambda s: randn_view(gen, s, dtype, unaligned)
     q, tq, do, tdo = (mk(qs) for _ in range(4))
     k, v, tk, tv = (mk(ks) for _ in range(4))
@@ -2804,7 +2863,7 @@ def check_flash_tangents(fops, fref, gen, heads_dim, shape, dtype, causal,
     out, lse = fwd(q, k, v, causal=causal, window=window)
     kw = dict(causal=causal, window=window, heads_dim=heads_dim)
     what = (f"tangent {'bhsd' if heads_dim == 1 else 'gqa'} {shape} "
-            f"{str(dtype)[6:]} causal={causal} window={window}"
+            f"Sk={Sk} {str(dtype)[6:]} causal={causal} window={window}"
             + (" unaligned" if unaligned else ""))
     t1 = lambda: fops.flash_attention_fwd_tangent(q, k, v, lse, tq, tk, tv,
                                                   **kw)
@@ -2824,7 +2883,7 @@ def check_flash_tangents(fops, fref, gen, heads_dim, shape, dtype, causal,
         raise AssertionError(f"{what}: {n1} and {n2} launches, expected 1 "
                              f"and 2")
     row = dict(layout="bhsd" if heads_dim == 1 else "gqa", shape=list(shape),
-               dtype=str(dtype)[6:], causal=causal, window=window,
+               Sk=Sk, dtype=str(dtype)[6:], causal=causal, window=window,
                unaligned=unaligned, fwd_max_abs_err=e1, bwd_max_abs_err=e2)
     if faults:
         # rows of each result zeroed, and lse' left out (T2 given zeros)
@@ -2845,7 +2904,7 @@ def check_flash_tangents(fops, fref, gen, heads_dim, shape, dtype, causal,
                                      f"the check")
         row["planted_faults_caught"] = list(planted)
     if timed:
-        pairs = int(band_mask(S, S, causal, window).sum())
+        pairs = int(band_mask(S, Sk, causal, window).sum())
         rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else \
             FP32_FLOP_PER_S
         for p, fn, plain, n in (
@@ -2856,7 +2915,7 @@ def check_flash_tangents(fops, fref, gen, heads_dim, shape, dtype, causal,
                     tdo, **kw), 10)):
             nbytes, flops = flash_tangent_cost(B, H, KV, S, d,
                                                q.element_size(), pairs,
-                                               p == "bwd")
+                                               p == "bwd", Sk=Sk)
             row[f"{p}_ms"] = time_ms(fn, n)
             row[f"{p}_plain_ms"] = time_events(plain, 3)
             row[f"{p}_bound_ms"], row[f"{p}_bound_by"] = bound_ms(
@@ -3477,6 +3536,29 @@ CURV_FLOOR = 0.5
 LEAF_FLOOR = 1e-2
 
 
+def is_cross_leaf(key: str) -> bool:
+    """A leaf of the cross path: a cross block's projections or gate, or
+    the vision projector."""
+    return "/cross/" in key or key.endswith("/gate") or key == "vision_proj"
+
+
+def cross_split(leaf_rel: dict, diff: dict, ref: dict) -> dict:
+    """The largest relative error of the held leaves (``leaf_rel``) of the
+    cross path and of the rest, with the cross leaf's name, and of the
+    gates together (norm of the card's minus the CPU's gradient ``diff``
+    over the CPU's ``ref``; a gate's gradient is a few numbers, often under
+    the per-leaf floor); {} for a model without a cross path."""
+    cross = {k: v for k, v in leaf_rel.items() if is_cross_leaf(k)}
+    gates = [k for k in ref if k.endswith("/gate")]
+    if not gates:
+        return {}
+    worst = max(cross, key=cross.get) if cross else None
+    return dict(cross_leaf_rel=cross.get(worst), cross_worst_leaf=worst,
+                rest_leaf_rel=max(v for k, v in leaf_rel.items()
+                                  if not is_cross_leaf(k)),
+                gates_rel=_norm(diff, gates) / _norm(ref, gates))
+
+
 def _norm(d, keys=None):
     keys = list(d) if keys is None else keys
     return float(torch.sqrt(sum((d[k].double() ** 2).sum() for k in keys)))
@@ -3489,10 +3571,14 @@ def train_agreement_phase(arch, seq, loss_rtol, cfg=None,
     tangent kernels) and on the CPU (plain layers) in the same dtype: the
     loss within the serving limit, the meta-gradient and its curvature
     part (maml - fomaml) within GRAD_AGREE / CURV_AGREE, the curvature at
-    least CURV_FLOOR of the CPU's norm.  ``modes=("fomaml",)`` (a config
-    that trains first-order) holds the loss and the first mode's
+    least CURV_FLOOR of the CPU's norm.  One mode (``("fomaml",)`` for a
+    config that trains first-order, ``("maml",)`` where the CPU's second
+    run would not fit the time limit) holds the loss and that mode's
     meta-gradient only.  ``weights``: float32 CPU weights, a seed-0 init
-    unless given."""
+    unless given.  The encoder-decoder and vision families get random
+    frames or patches (``modality_inputs``), and the largest leaf error of
+    their cross path (``cross/*``, ``gate``, ``vision_proj``) is reported
+    apart from the rest's (``cross_split``)."""
     from repro_torch.configs import get_config
     from repro_torch.core import maml
     from repro_torch.data.lm_tasks import LMTaskSource
@@ -3508,20 +3594,26 @@ def train_agreement_phase(arch, seq, loss_rtol, cfg=None,
                       seed=0).sample(0)
     sup = {k: torch.from_numpy(v[0]) for k, v in ep.support.items()}
     qry = {k: torch.from_numpy(v[0]) for k, v in ep.query.items()}
+    extras = [modality_inputs(cfg, (1, 1), seed) for seed in (5, 6)]
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         got = {}
         for dev in (DEVICE, "cpu"):
             p = {k: v.to(dev, dtype) for k, v in p0.items()}
-            s = {k: v.to(dev) for k, v in sup.items()}
-            q = {k: v.to(dev) for k, v in qry.items()}
+            s, q = ({**{k: v.to(dev) for k, v in part.items()},
+                     **{k: v.to(dev, dtype) for k, v in extra.items()}}
+                    for part, extra in zip((sup, qry), extras))
             for mode in modes:
                 t0 = time.perf_counter()
                 loss, g = maml.multi_task_meta_grad(
                     model.loss_fn, p, s, q, alpha=cfg.inner_lr, steps=1,
                     mode=mode)
+                # both devices' gradients are compared on the card: the
+                # float64 norms over a full-width cut's leaves took tens
+                # of seconds on the host
                 got[dev, mode] = (float(loss),
-                                  {k: v.float().cpu() for k, v in g.items()},
+                                  {k: v.float().to(DEVICE)
+                                   for k, v in g.items()},
                                   time.perf_counter() - t0)
             del p
         name = str(dtype)[6:]
@@ -3542,12 +3634,13 @@ def train_agreement_phase(arch, seq, loss_rtol, cfg=None,
                                        and k in routed)]
         grad_leaf = max(leaf_rel[k] for k in held)
         worst = sorted(leaf_rel, key=leaf_rel.get, reverse=True)[:3]
-        if "maml" not in modes:
+        split = cross_split(leaf_rel, diff, cpu[1])
+        if len(modes) == 1:
             row = dict(mode=modes[0], loss_card=card[0], loss_cpu=cpu[0],
                        loss_rel=loss_rel, grad_rel=grad_rel,
                        grad_worst_leaf_rel=grad_leaf,
                        worst_leaves={k: leaf_rel[k] for k in worst},
-                       card_s=card[2], cpu_s=cpu[2])
+                       card_s=card[2], cpu_s=cpu[2], **split)
             print(f"train agreement {arch} {name}: {json.dumps(row)}",
                   flush=True)
             if not (loss_rel <= loss_rtol[lk] and max(grad_rel, grad_leaf)
@@ -3558,6 +3651,8 @@ def train_agreement_phase(arch, seq, loss_rtol, cfg=None,
                     f"{grad_rel:.2e}/{grad_leaf:.2e} (limit "
                     f"{GRAD_AGREE[dtype]})")
             rows[name] = row
+            del got, card, cpu, diff
+            torch.cuda.empty_cache()
             continue
         curv = {d: {k: got[d, "maml"][1][k] - got[d, "fomaml"][1][k]
                     for k in card[1]} for d in (DEVICE, "cpu")}
@@ -3573,7 +3668,7 @@ def train_agreement_phase(arch, seq, loss_rtol, cfg=None,
                    curvature_rel=curv_rel, curvature_worst_leaf_rel=curv_leaf,
                    curvature_norm_ratio=curv_ratio,
                    curvature_share=_norm(curv["cpu"]) / _norm(cpu[1]),
-                   card_s=card[2], cpu_s=cpu[2])
+                   card_s=card[2], cpu_s=cpu[2], **split)
         print(f"train agreement {arch} {name}: {json.dumps(row)}",
               flush=True)
         fails = []
@@ -3592,7 +3687,8 @@ def train_agreement_phase(arch, seq, loss_rtol, cfg=None,
             raise AssertionError(f"train agreement {arch} {name}: "
                                  + "; ".join(fails))
         rows[name] = row
-    torch.cuda.empty_cache()
+        del got, card, cpu, diff, curv, cdiff
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -3619,12 +3715,6 @@ DEEPSEEK_TRAIN_ARGS = ["--arch", DEEPSEEK, "--shape",
                        "--steps-per-dispatch", "2", "--eval-every", "2",
                        "--eval-tasks", "1", "--eval-inner-steps", "1",
                        "--ckpt-every", "2", *TRAIN_COMMON]
-DEEPSEEK_PALLAS_ARGS = ["--arch", DEEPSEEK, "--shape",
-                        DEEPSEEK_TRAIN_SHAPE["name"], "--layers",
-                        str(DEEPSEEK_LAYERS), "--combine", "pallas",
-                        "--steps-per-dispatch", "1", "--eval-every", "2",
-                        "--eval-tasks", "1", "--eval-inner-steps", "1",
-                        *TRAIN_COMMON]
 # MLA's attention route, fixed by the model's shapes (q/k head 192, v head
 # 128): layers.mla_apply calls the plain attention by name.
 MLA_ROUTE = ("plain attention (layers._plain_sdpa, the reference's "
@@ -3724,13 +3814,25 @@ def moe_dispatch_check(cfg, B: int = 2, S: int = 128) -> dict:
     return row
 
 
+def events_ms(fn):
+    """(``fn()``, ms of that one eager call between CUDA events, host
+    dispatch included)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def outer_kernels_at_leaves(ops, ref, cfg, agents: int) -> dict:
     """``fused_combine_update`` (momentum, ATC) and ``dif_combine`` over
     the leaves the meta-step hands them for ``cfg``: every leaf with the
     agent axis, bf16, the ring's Metropolis matrix.  Each is one launch,
     within TOL of its plain version leaf by leaf, timed (one call in a
-    CUDA graph) beside the plain version (summed over the leaves: it runs
-    leaf by leaf) and the bound.  Memory-lean: at deepseek's 2-layer cut a
+    CUDA graph) beside the plain version (its one checking pass, leaf by
+    leaf, between CUDA events) and the bound.  Memory-lean: at deepseek's 2-layer cut a
     leaf set is 8.7 GB."""
     from repro_torch.core import topology
     from repro_torch.models.transformer import build_model
@@ -3759,12 +3861,12 @@ def outer_kernels_at_leaves(ops, ref, cfg, agents: int) -> dict:
                                   f"fused {cfg.name} leaves")
     err, plain_ms = 0.0, 0.0
     for k in shapes:
-        one = lambda: plain({k: params[k]}, {k: grads[k]}, {k: mu[k]})
-        ww, wm, _ = one()
+        (ww, wm, _), ms = events_ms(lambda: plain(
+            {k: params[k]}, {k: grads[k]}, {k: mu[k]}))
+        plain_ms += ms
         err = max(err, compare(w[k], ww[k], dtype, f"fused {k} w"),
                   compare(m[k], wm[k], dtype, f"fused {k} mu"))
         del ww, wm
-        plain_ms += time_ms(one, 1, reps=3)
     del w, m
     torch.cuda.empty_cache()
     rows["fused_combine_update"] = dict(
@@ -3784,9 +3886,11 @@ def outer_kernels_at_leaves(ops, ref, cfg, agents: int) -> dict:
                             f"dif_combine {cfg.name} leaves")
     err, plain_ms = 0.0, 0.0
     for k in shapes:
-        one = lambda: ref.dif_combine_leaves_ref(A, {k: params[k]})
-        err = max(err, compare(out[k], one()[k], dtype, f"dif_combine {k}"))
-        plain_ms += time_ms(one, 1, reps=3)
+        want, ms = events_ms(lambda: ref.dif_combine_leaves_ref(
+            A, {k: params[k]}))
+        plain_ms += ms
+        err = max(err, compare(out[k], want[k], dtype, f"dif_combine {k}"))
+        del want
     del out
     torch.cuda.empty_cache()
     rows["dif_combine"] = dict(
@@ -3828,20 +3932,19 @@ def moe_phases(ops, ref, modules) -> dict:
                         replay=())
     serve["attention_route"] = MLA_ROUTE
     lap("serve")
-    # phase 20: meta-training, fused outer update one launch a step
+    # phase 20: meta-training, fused outer update one launch a step.  Since
+    # the encoder-decoder phases came in, no resume check (its three K=4
+    # inits and 17.4 GB checkpoint took 167 s) and no ``--combine pallas``
+    # run (30 s): whisper's training run checks both, and dif_combine is
+    # held at the cut's leaves below
+    # (outer_kernels_at_leaves)
     train = train_phase(
         "deepseek", deepseek, DEEPSEEK_TRAIN_ARGS, DEEPSEEK_TRAIN_SHAPE,
         ("fused_combine_update",), ("--expect-fused", "--expect-outer-dtype",
                                     "bfloat16"),
-        resume=True, mode="fomaml", per_step={"fused_combine_update": 1},
+        mode="fomaml", per_step={"fused_combine_update": 1},
         keep=False)
     lap("train")
-    pallas = train_phase(
-        "deepseek_pallas", deepseek, DEEPSEEK_PALLAS_ARGS,
-        DEEPSEEK_TRAIN_SHAPE, ("dif_combine",),
-        ("--expect-outer-dtype", "bfloat16"), mode="fomaml",
-        per_step={"dif_combine": 1}, profile=False, keep=False)
-    lap("train_pallas")
     outer = outer_kernels_at_leaves(ops, ref, deepseek, agents=4)
     lap("outer_kernels")
     # phase 21: the 2-layer cut and reduced mixtral against the CPU, one
@@ -3852,19 +3955,255 @@ def moe_phases(ops, ref, modules) -> dict:
         w = build_model(cfg).init(torch.Generator().manual_seed(1),
                                   torch.float32, "cpu")
         agree[cfg.name] = dict(
-            losses=agreement_phase(cfg, MOE_AGREE_RTOL, seq=MOE_AGREE_SEQ,
-                                   task_batch=1, weights=w),
             meta_gradient=train_agreement_phase(
                 cfg.name, MOE_AGREE_SEQ, MOE_AGREE_RTOL, cfg=cfg,
                 modes=("fomaml",), weights=w),
             routing=route_flip_share(cfg, MOE_AGREE_SEQ, w))
+        # phase 8's adapted losses: mixtral's; deepseek's CPU runs of the
+        # full-width cut (14 and 28 s) left with the encoder-decoder
+        # phases' cuts (the meta-gradient check holds its loss)
+        if cfg is mixtral:
+            agree[cfg.name]["losses"] = agreement_phase(
+                cfg, MOE_AGREE_RTOL, seq=MOE_AGREE_SEQ, task_batch=1,
+                weights=w)
         del w
         lap(f"agreement {cfg.name}")
     # phase 22: the two dispatch paths on the card
     dispatch = moe_dispatch_check(deepseek)
     lap("dispatch")
-    return dict(serve=serve, train=train, train_pallas=pallas, outer=outer,
+    return dict(serve=serve, train=train, outer=outer,
                 agreement=agree, dispatch=dispatch, seconds=seconds)
+
+
+# ---------------------------------------------------------------------------
+# Phases 23-26: the encoder-decoder and vision families -- whisper-large-v3
+# at full width, llama-3.2-vision-90b at reduced width
+# ---------------------------------------------------------------------------
+
+WHISPER = "whisper-large-v3"
+VISION = "llama-3.2-vision-90b"
+# The flash kernels at the shapes these families give them, (B, S, S_k, H,
+# KV, d), non-causal: whisper's encoder (1500 frames: 23 full key tiles of
+# 64 and one of 28; 20 heads of 64), its decoder's cross-attention (256
+# queries against the 1500 frames) and reduced llama-vision's
+# cross-attention (64 queries, 4 heads, against 16 patches with 2 KV heads:
+# fewer keys than one tile); and causal rows with S != S_k, which the
+# models never make (query i sees keys 0..i).
+ENCDEC_FLASH = {"whisper encoder": (4, 1500, 1500, 20, 20, 64, False),
+                "whisper cross": (4, 256, 1500, 20, 20, 64, False),
+                "vision cross": (2, 64, 16, 4, 2, 32, False),
+                "causal S < S_k": (2, 192, 320, 4, 2, 64, True),
+                "causal S > S_k": (2, 320, 192, 4, 2, 64, True)}
+# the timed rows, at the serving batch (4 users x 4 sequences), bf16
+ENCDEC_TIMED = ("whisper encoder", "whisper cross")
+ENCDEC_SERVE_B = 16
+# keys of whisper's last, partial key tile: zeroed in the kernel's input
+# only, the check against the plain version must fail
+RAGGED_KEYS = (1472, 1500)
+# whisper serves at full width cut to WHISPER_SERVE_LAYERS encoder and as
+# many decoder layers of its 32 + 32 (time limit), 128 + 128 tokens (under
+# its 448 positions), and trains cut to WHISPER_TRAIN_LAYERS + as many
+WHISPER_SERVE_LAYERS = 4
+WHISPER_SERVE_ARGS = ["--arch", WHISPER, "--layers",
+                      str(WHISPER_SERVE_LAYERS),
+                      *SERVE_ARGS[SERVE_ARGS.index("--batch"):]]
+WHISPER_TRAIN_LAYERS = 2
+WHISPER_TRAIN_SHAPE = QWEN_TRAIN_SHAPE
+WHISPER_TRAIN_ARGS = ["--arch", WHISPER, "--shape",
+                      WHISPER_TRAIN_SHAPE["name"], "--layers",
+                      str(WHISPER_TRAIN_LAYERS), "--fused-outer",
+                      "--steps-per-dispatch", "2", "--eval-every", "2",
+                      "--eval-tasks", "1", "--eval-inner-steps", "1",
+                      "--ckpt-every", "2", *TRAIN_COMMON]
+WHISPER_PALLAS_ARGS = ["--arch", WHISPER, "--shape",
+                       WHISPER_TRAIN_SHAPE["name"], "--layers",
+                       str(WHISPER_TRAIN_LAYERS), "--combine", "pallas",
+                       "--steps-per-dispatch", "1", *TRAIN_COMMON]
+# The card against the CPU (PERF.md, set before the first chip run):
+# losses as mamba2's, meta-gradients GRAD_AGREE / CURV_AGREE; one sequence
+# of 128 tokens (whisper: and its 1500 random frames), every gate 0.5.
+ENCDEC_AGREE_RTOL = MAMBA_AGREE_RTOL
+ENCDEC_AGREE_SEQ = 128
+GATE = 0.5
+
+
+def ragged_tile_fault(fops, fref, gen, dtype) -> dict:
+    """whisper's encoder shape with keys and values RAGGED_KEYS zeroed in the
+    kernels' input only: the forward's output and the backward's gradients
+    must fail the check against the plain version on the true inputs, which
+    shows that the last, partial key tile is read; the true inputs pass."""
+    B, S, Sk, H, KV, d, causal = ENCDEC_FLASH["whisper encoder"]
+    q, do = (randn_view(gen, (B, S, H, d), dtype) for _ in "qo")
+    k, v = (randn_view(gen, (B, Sk, KV, d), dtype) for _ in "kv")
+    lo, hi = RAGGED_KEYS
+    cut = [t.clone() for t in (k, v)]
+    for t in cut:
+        t[:, lo:hi] = 0
+    kw = dict(causal=causal, window=None)
+    tol = FLASH_TOL[dtype]
+    want, want_lse = fref.gqa_flash_fwd_ref(q, k, v, **kw)
+    wants = fref.gqa_flash_bwd_ref(q, k, v, want, want_lse, do, **kw)
+    row = {}
+    for name, (kk, vv) in (("true", (k, v)), ("zeroed", cut)):
+        out, lse = fops.gqa_flash_attention_fwd_lse(q, kk, vv, **kw)
+        grads = fops.gqa_flash_attention_bwd(q, kk, vv, want, want_lse, do,
+                                             **kw)
+        torch.cuda.synchronize()
+        flagged = {"out": outside(out, want, tol["fwd"], row_atol(want))[0]}
+        flagged.update({f"d{n}": outside(g, w, tol["bwd"], row_atol(w))[0]
+                        for g, w, n in zip(grads, wants, "qkv")})
+        row[name] = flagged
+    if any(row["true"].values()):
+        raise AssertionError(f"ragged tile {dtype}: the true inputs fail "
+                             f"the check: {row['true']}")
+    if not (row["zeroed"]["out"] and row["zeroed"]["dq"]):
+        raise AssertionError(f"ragged tile {dtype}: keys {lo}:{hi} zeroed "
+                             f"in the kernels' input pass the check: "
+                             f"{row['zeroed']}")
+    row.update(dtype=str(dtype)[6:], keys=list(RAGGED_KEYS))
+    print("ragged tile planted fault", json.dumps(row), flush=True)
+    return row
+
+
+def encdec_flash_phase(fops, fref) -> dict:
+    """Phase 23: the flash forward, backward, T1 and T2 at the shapes of
+    ENCDEC_FLASH in both dtypes against their plain versions; the encoder
+    and cross rows timed at the serving batch in bf16 (bounds, SDPA); the
+    ragged key tile's planted fault."""
+    gen = torch.Generator(device=DEVICE).manual_seed(23)
+    rows, tangents = {}, {}
+    for name, (B, S, Sk, H, KV, d, causal) in ENCDEC_FLASH.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            key = f"{name} {str(dtype)[6:]}"
+            rows[key] = check_gqa_flash(fops, fref, gen, B, S, H, KV, d,
+                                        dtype, causal, None, timed=False,
+                                        Sk=Sk)
+            tangents[key] = check_flash_tangents(
+                fops, fref, gen, 2, (B, S, H, KV, d), dtype, causal, None,
+                Sk=Sk)
+        torch.cuda.empty_cache()
+    timed = {}
+    for name in ENCDEC_TIMED:
+        _, S, Sk, H, KV, d, causal = ENCDEC_FLASH[name]
+        timed[name] = check_gqa_flash(fops, fref, gen, ENCDEC_SERVE_B, S, H,
+                                      KV, d, torch.bfloat16, causal, None,
+                                      n=10, Sk=Sk)
+        t = timed[name]
+        print(f"{name} flash bf16 at B={ENCDEC_SERVE_B}: forward "
+              f"{t['fwd_ms']:.4f} ms (bound {t['fwd_bound_ms']:.4f} "
+              f"{t['fwd_bound_by']}, SDPA {t['fwd_library_ms']:.4f}, plain "
+              f"{t['fwd_plain_ms']:.3f}); backward {t['bwd_ms']:.4f} ms "
+              f"(bound {t['bwd_bound_ms']:.4f} {t['bwd_bound_by']}, SDPA "
+              f"{t['bwd_library_ms']:.4f}, plain {t['bwd_plain_ms']:.3f})",
+              flush=True)
+        torch.cuda.empty_cache()
+    faults = {str(dt)[6:]: ragged_tile_fault(fops, fref, gen, dt)
+              for dt in (torch.bfloat16, torch.float32)}
+    torch.cuda.empty_cache()
+    return dict(rows=rows, tangents=tangents, timed=timed,
+                ragged_tile_faults=faults)
+
+
+def encdec_summary(name, flash, encdec) -> dict:
+    """The kernels-line keys of one flash kernel at whisper's shapes: the
+    timed encoder and cross rows (bf16, serving batch) and the launches of
+    whisper's serve and training runs."""
+    p = "fwd" if name.endswith("fwd") else "bwd"
+    out = {}
+    for row_name, row in flash["timed"].items():
+        out[row_name.replace(" ", "_")] = dict(
+            shape=dict(B=row["B"], S=row["S"], Sk=row["Sk"], H=row["H"],
+                       KV=row["KV"], d=row["d"], dtype=row["dtype"],
+                       causal=row["causal"]),
+            max_abs_err=row[f"{p}_max_abs_err"], ms=row[f"{p}_ms"],
+            plain_ms=row[f"{p}_plain_ms"], bound_ms=row[f"{p}_bound_ms"],
+            bound_by=row[f"{p}_bound_by"],
+            library_ms=row[f"{p}_library_ms"])
+    out["whisper_serve_launches"] = encdec["serve"]["launches"][name]
+    out["whisper_train_launches"] = encdec["train"]["launches"][name]
+    return out
+
+
+def with_gates(cfg, seed: int) -> dict:
+    """float32 CPU weights of ``cfg`` from ``seed`` with every cross gate set
+    to GATE: at its zero init tanh(gate) = 0 and the cross path carries
+    nothing."""
+    from repro_torch.models.transformer import build_model
+    w = build_model(cfg).init(torch.Generator().manual_seed(seed),
+                              torch.float32, "cpu")
+    for k in w:
+        if k.endswith("/gate"):
+            w[k].fill_(GATE)
+    return w
+
+
+def encdec_phases(ops, ref, modules) -> dict:
+    """Phases 24-26: whisper-large-v3 served at full width cut to
+    WHISPER_SERVE_LAYERS + as many, meta-trained cut to
+    WHISPER_TRAIN_LAYERS + as many (``maml``, Adam, ``--fused-outer`` with
+    eval, checkpoint and resume, then ``--combine pallas``), and that cut
+    and reduced llama-3.2-vision held against the CPU with random frames
+    and patches and every gate at GATE."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as S
+    t0, seconds = time.perf_counter(), {}
+
+    def lap(name):
+        seconds[name] = time.perf_counter() - t0 - sum(seconds.values())
+        print(f"encdec: {name} took {seconds[name]:.1f} s", flush=True)
+
+    counters = {"flash_attention_fwd": modules[1],
+                "flash_attention_bwd": modules[1], "ssd_scan": modules[2]}
+    # phase 24: serving.  Each adapt step runs, a layer, the encoder's
+    # self-attention, the decoder's and its cross-attention forward and
+    # backward; decoding runs the encoder once more (the cross K/V)
+    serve = serve_phase(
+        WHISPER_SERVE_ARGS, counters,
+        lambda n, k: {"flash_attention_fwd": 3 * n * k + n,
+                      "flash_attention_bwd": 6 * n * k},
+        replay=("profile",))
+    n, k = serve["layers"], serve["adapt_steps"]
+    serve["flash_launches_by_role"] = {
+        "adapt dispatch": {r: dict(forward=n * k, backward=2 * n * k)
+                           for r in ("encoder", "decoder", "cross")},
+        "decode (encoder once)": dict(forward=n)}
+    print(f"whisper serve: flash launches by role "
+          f"{json.dumps(serve['flash_launches_by_role'])}", flush=True)
+    lap("serve")
+    # phase 25: meta-training, exact MAML through T1/T2
+    whisper = S.cut_depth(get_config(WHISPER), WHISPER_TRAIN_LAYERS)
+    train = train_phase(
+        "whisper", whisper, WHISPER_TRAIN_ARGS, WHISPER_TRAIN_SHAPE,
+        ("flash_attention_fwd", "flash_attention_bwd",
+         "flash_attention_fwd_tangent", "flash_attention_bwd_tangent",
+         "fused_combine_update"),
+        ("--expect-fused", "--expect-outer-dtype", "bfloat16"),
+        resume=True, per_step={"fused_combine_update": 1}, keep=False)
+    lap("train")
+    pallas = train_phase(
+        "whisper_pallas", whisper, WHISPER_PALLAS_ARGS, WHISPER_TRAIN_SHAPE,
+        ("dif_combine", "flash_attention_fwd", "flash_attention_bwd"),
+        ("--expect-outer-dtype", "bfloat16", "--no-eval"),
+        per_step={"dif_combine": 1}, profile=False, keep=False)
+    lap("train_pallas")
+    # phase 26: the card against the CPU, random frames and patches, gates
+    # at GATE; whisper in its mode (maml), the vision model in its
+    # (fomaml)
+    agree = {}
+    vision = get_config(VISION).reduced()
+    for cfg, modes in ((whisper, ("maml",)), (vision, ("fomaml",))):
+        w = with_gates(cfg, 1)
+        agree[cfg.name] = dict(meta_gradient=train_agreement_phase(
+            cfg.name, ENCDEC_AGREE_SEQ, ENCDEC_AGREE_RTOL, cfg=cfg,
+            modes=modes, weights=w))
+        if cfg is vision:
+            agree[cfg.name]["losses"] = agreement_phase(
+                cfg, ENCDEC_AGREE_RTOL, seq=ENCDEC_AGREE_SEQ, task_batch=1,
+                weights=w)
+        del w
+        lap(f"agreement {cfg.name}")
+    return dict(serve=serve, train=train, train_pallas=pallas,
+                agreement=agree, seconds=seconds)
 
 
 # ---------------------------------------------------------------------------
@@ -4377,6 +4716,10 @@ def main() -> int:
     flash_main, flash_rows, flash_gqa, flash_gqa_rows = flash_phase(fops,
                                                                     fref)
     stamp("flash")
+    # phase 23 beside phase 6: SDPA's backward is timed by torch.profiler,
+    # whose sessions miss kernels once the training phases have profiled
+    encdec_flash = encdec_flash_phase(fops, fref)
+    stamp("encdec flash")
     tangent = tangent_phase(fops, fref, sops, sref)
     stamp("tangents")
     # this slice's main path, LM meta-training through launch/train.py;
@@ -4390,8 +4733,7 @@ def main() -> int:
             ("ssd_scan", *SSD_PASSES, "ssd_scan_tangent", *T3_PASSES,
              "ssd_scan_bwd", *SSD_BWD_KERNELS, "ssd_scan_bwd_tangent",
              *SSD_BWD_TANGENT_KERNELS, "fused_combine_update"),
-            ("--expect-fused", "--expect-outer-dtype", "bfloat16"),
-            resume=True),
+            ("--expect-fused", "--expect-outer-dtype", "bfloat16")),
         "qwen2": train_phase(
             "qwen2", dataclasses.replace(get_config("qwen2-1.5b"),
                                          num_layers=2),
@@ -4416,7 +4758,10 @@ def main() -> int:
     # phases 19-22, before phase 5 for the same reason as phase 6
     moe = moe_phases(ops, ref, (ops, fops, sops))
     stamp("moe")
-    profile = profile_phase("fused")
+    # phases 24-26, before phase 5 for the same reason as phase 6
+    encdec = encdec_phases(ops, ref, (ops, fops, sops))
+    stamp("encdec")
+    profile = profile_phase("fused", steps=20)
     stamp("profile")
     counters = {"flash_attention_fwd": fops, "flash_attention_bwd": fops,
                 "ssd_scan": sops, **{k: sops for k in SSD_PASSES}}
@@ -4463,8 +4808,8 @@ def main() -> int:
          "large": large["dif_combine"],
          "qwen2_layer": kern["qwen2"]["dif_combine"],
          "deepseek_leaves": moe["outer"]["dif_combine"],
-         "deepseek_pallas_run_launches":
-             moe["train_pallas"]["launches"]["dif_combine"]},
+         "whisper_pallas_run_launches":
+             encdec["train_pallas"]["launches"]["dif_combine"]},
         {"name": "fused_combine_update", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES["fused_combine_update"],
          "launches": launches["fused"]["fused_combine_update"],
@@ -4495,11 +4840,14 @@ def main() -> int:
         "train_agreement": train_agreement, "profile": profile, "serve": serve_row,
         "agreement": agreement, "mamba2_serve": mamba_row,
         "mamba2_agreement": mamba_agreement, "moe": moe, "hgmma": hgmma,
-        "outer_update_ablation": kern["ablation"],
         "flash_kernels_per_call": flash_calls,
         "ssd_bwd_kernels_per_call": bwd_calls,
         "phase_end_seconds": stamps,
         "seconds": time.perf_counter() - t_start}
+    for entry in summary["kernels"]:
+        if entry["name"] in ("flash_attention_fwd", "flash_attention_bwd"):
+            entry.update(encdec_summary(entry["name"], encdec_flash, encdec))
+    summary.update(encdec_flash=encdec_flash, encdec=encdec)
     paths_summary(summary["kernels"], fewshot, lm100m)
     print(card)
     print(json.dumps(summary))

@@ -3,13 +3,17 @@
 :class:`ArchConfig` carries the fields of the JAX package's
 ``configs/base.py::ArchConfig`` that the sine MLP, the meta-trainer, the
 dense decoder family (attention, MLP, norms), the Mamba2 family (the
-``ssm_*`` fields) and the MoE family (the MLA and ``moe_*`` fields) use,
-with the same names and defaults.
+``ssm_*`` fields), the MoE family (the MLA and ``moe_*`` fields) and the
+encoder-decoder and vision families (``encoder_*``, ``cross_attn_every``,
+``num_patches``, ``inner_freeze``) use, with the same names and defaults.
 :data:`SINE_MLP`, :data:`OMNIGLOT_CNN`, :data:`QWEN2_1_5B`,
-:data:`MAMBA2_130M`, :data:`DEEPSEEK_V2_LITE_16B` and :data:`MIXTRAL_8X22B`
-are ``configs/sine_mlp.py``, ``configs/omniglot_cnn.py``,
+:data:`MAMBA2_130M`, :data:`DEEPSEEK_V2_LITE_16B`, :data:`MIXTRAL_8X22B`,
+:data:`WHISPER_LARGE_V3` and :data:`LLAMA_3_2_VISION_90B` are
+``configs/sine_mlp.py``, ``configs/omniglot_cnn.py``,
 ``configs/qwen2_1_5b.py``, ``configs/mamba2_130m.py``,
-``configs/deepseek_v2_lite_16b.py`` and ``configs/mixtral_8x22b.py`` copied;
+``configs/deepseek_v2_lite_16b.py``, ``configs/mixtral_8x22b.py``,
+``configs/whisper_large_v3.py`` and ``configs/llama_3_2_vision_90b.py``
+copied (without the mesh fields ``attn_shard`` and ``placement``);
 :data:`PAPER_OWN` names the paper's own two.  Later slices add the fields
 and configurations their models read.
 
@@ -86,7 +90,7 @@ def resolve_input_shape(shape: InputShape | str) -> InputShape:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    arch_type: str                  # dense | moe | ssm | mlp | cnn
+    arch_type: str                  # dense | moe | ssm | vlm | audio | mlp | cnn
     num_layers: int
     d_model: int
     num_heads: int
@@ -129,6 +133,12 @@ class ArchConfig:
     ssm_groups: int = 1
     ssm_chunk: int = 256
 
+    # --- multimodal / enc-dec -------------------------------------------------
+    encoder_layers: int = 0
+    encoder_frames: int = 0         # audio stub frontend sequence length
+    cross_attn_every: int = 0       # vlm: every n-th layer is cross-attention
+    num_patches: int = 0            # vlm stub frontend patches
+
     # --- meta-learning (Dif-MAML) -------------------------------------------
     meta_mode: str = "maml"         # maml | fomaml | reptile
     meta_tasks: int = 2             # tasks per agent per step
@@ -139,6 +149,8 @@ class ArchConfig:
     outer_optimizer: str = "adam"
     outer_lr: float = 1e-3
     hvp_subsample: float = 1.0
+    inner_freeze: str = ""          # param subtree frozen in the inner loop
+                                    # (ANIL-style, e.g. "encoder")
     remat: bool = True
     remat_span: int = 1     # layers per checkpoint region (memory knob)
 
@@ -190,6 +202,11 @@ class ArchConfig:
                       v_head_dim=32)
         if self.ssm_state:
             kw.update(ssm_state=32, ssm_head_dim=16, ssm_chunk=32)
+        if self.encoder_layers:
+            kw.update(encoder_layers=2, encoder_frames=16)
+        if self.cross_attn_every:
+            kw.update(num_layers=2 * self.cross_attn_every,
+                      num_patches=min(self.num_patches or 16, 16))
         if self.sliding_window:
             kw.update(sliding_window=64)
         return dataclasses.replace(self, **kw)
@@ -340,10 +357,63 @@ MIXTRAL_8X22B = ArchConfig(
     source="arXiv:2401.04088",
 )
 
+# whisper-large-v3 [arXiv:2212.04356]: encoder-decoder audio transformer.
+# 32 encoder + 32 decoder layers, d_model=1280, 20 heads (MHA, head_dim 64),
+# d_ff=5120, vocab=51866.  The mel-spectrogram and conv frontend are
+# stubbed: the encoder reads (B, 1500, 1280) precomputed frame embeddings
+# (30 s at 50 Hz).  LayerNorm, GELU and absolute sinusoidal positions (no
+# RoPE).
+WHISPER_LARGE_V3 = ArchConfig(
+    name="whisper-large-v3",
+    arch_type="audio",
+    num_layers=32,
+    encoder_layers=32,
+    encoder_frames=1500,
+    d_model=1280,
+    num_heads=20,
+    num_kv_heads=20,
+    head_dim=64,
+    d_ff=5120,
+    vocab_size=51866,
+    norm="layernorm",
+    mlp_act="gelu",
+    use_rope=False,
+    qkv_bias=True,
+    meta_mode="maml",
+    outer_optimizer="adam",
+    source="arXiv:2212.04356",
+)
+
+# llama-3.2-vision-90b [hf:meta-llama/Llama-3.2-11B-Vision, scaled per the
+# 90B card]: a decoder with interleaved tanh-gated cross-attention image
+# layers.  100 layers = 20 periods of (4 self-attention + 1 gated
+# cross-attention), d_model=8192, 64 heads (GQA kv=8), d_ff=28672,
+# vocab=128256.  The ViT encoder and projector are stubbed: the decoder
+# reads (B, 576, 8192) patch embeddings through ``vision_proj``.
+LLAMA_3_2_VISION_90B = ArchConfig(
+    name="llama-3.2-vision-90b",
+    arch_type="vlm",
+    num_layers=100,
+    d_model=8192,
+    num_heads=64,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=28672,
+    vocab_size=128256,
+    cross_attn_every=5,
+    num_patches=576,
+    rope_theta=500_000.0,
+    meta_mode="fomaml",
+    outer_optimizer="sgd",
+    source="hf:meta-llama/Llama-3.2-11B-Vision",
+)
+
 _CONFIGS = {"sine_mlp": SINE_MLP, "omniglot_cnn": OMNIGLOT_CNN,
             "qwen2_1_5b": QWEN2_1_5B, "mamba2_130m": MAMBA2_130M,
             "deepseek_v2_lite_16b": DEEPSEEK_V2_LITE_16B,
-            "mixtral_8x22b": MIXTRAL_8X22B}
+            "mixtral_8x22b": MIXTRAL_8X22B,
+            "whisper_large_v3": WHISPER_LARGE_V3,
+            "llama_3_2_vision_90b": LLAMA_3_2_VISION_90B}
 
 # The paper's own models (the reference's ``configs/base.py::PAPER_OWN``).
 PAPER_OWN = ["sine_mlp", "omniglot_cnn"]
@@ -352,8 +422,6 @@ PAPER_OWN = ["sine_mlp", "omniglot_cnn"]
 # each family.
 _LATER = {
     "jamba_1_5_large_398b": "a hybrid Mamba/MoE slice",
-    "llama_3_2_vision_90b": "a vision (cross-attention) slice",
-    "whisper_large_v3": "an encoder-decoder (audio) slice",
     "qwen2_7b": "a later dense-decoder configuration",
     "qwen2_7b_swa": "a later dense-decoder configuration",
     "codeqwen1_5_7b": "a later dense-decoder configuration",

@@ -46,12 +46,15 @@ class MetaBatchPipeline:
                   must be given.
       stack:      meta-batches per item (the superstep's dispatch); the
                   sample sequence is the same for every ``stack``.
+      extras:     tensors already on ``device`` added to every (dict) item
+                  as it is handed out: the modality stubs, the same for
+                  every batch, made once.
     """
 
     def __init__(self, source: TaskSource, device=None, *, depth: int = 2,
                  start_step: int = 0,
                  prepare: Callable[[Any], Any] | None = None,
-                 stack: int = 1):
+                 stack: int = 1, extras: dict | None = None):
         if stack < 1:
             raise ValueError(f"stack must be >= 1, got {stack}")
         if stack > 1 and prepare is None:
@@ -61,6 +64,7 @@ class MetaBatchPipeline:
         self.device = resolve_device(device)
         self.depth = depth
         self.stack = stack
+        self.extras = extras or {}
         self._prepare = prepare if prepare is not None else (
             lambda ep: (ep.support, ep.query))
         self._pin = self.device.type == "cuda"
@@ -124,7 +128,8 @@ class MetaBatchPipeline:
                     if self._thread is None or not self._thread.is_alive():
                         raise StopIteration   # stop() was called
         self._step += self.stack
-        return to_device(item, self.device)
+        item = to_device(item, self.device)
+        return {**item, **self.extras} if self.extras else item
 
     @property
     def step(self) -> int:

@@ -15,14 +15,16 @@ engine's ``kind=serve`` record to a JSONL run log that
       --prompt-len 512 --gen 512
 
 ``--arch`` is an LM config the port has (qwen2-1.5b, mamba2-130m,
-deepseek-v2-lite-16b, mixtral-8x22b).  ``--device`` defaults to the CUDA
-card (and raises without one).  A non-reduced config runs in its own dtype
-(bfloat16 for all four), a reduced one in float32, as the reference picks.
+deepseek-v2-lite-16b, mixtral-8x22b, whisper-large-v3,
+llama-3.2-vision-90b).  ``--device`` defaults to the CUDA card (and raises
+without one).  A non-reduced config runs in its own dtype (bfloat16 for
+all six), a reduced one in float32, as the reference picks.  whisper's
+requests carry zero frames and the vision model's zero patches (the
+reference's stubs, ``steps.modality_extras``).
 """
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import os
 
@@ -71,7 +73,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the model to this many layers, widths kept "
-                         "(a depth cut)")
+                         "(a depth cut; an encoder-decoder cuts encoder "
+                         "and decoder each to N, a vision model takes a "
+                         "multiple of its cross_attn_every)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--gen", type=int, default=16)
@@ -119,7 +123,7 @@ def main(argv=None, on_round=None) -> dict:
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.layers:
-        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+        cfg = S.cut_depth(cfg, args.layers)
     if args.reduced:
         cfg = cfg.reduced()
     dt = S.DTYPES[cfg.dtype] if not args.reduced else torch.float32

@@ -31,7 +31,8 @@ from repro_torch.models.transformer import build_model
 from repro_torch.optim import get_optimizer
 
 __all__ = ["DTYPES", "SUPERSTEP_METRICS", "ServeBundle", "TrainBundle",
-           "batch_geometry", "build_serve", "build_train", "input_specs",
+           "batch_geometry", "build_serve", "build_train", "cut_depth",
+           "input_specs",
            "make_superstep", "meta_config_for", "modality_extras",
            "split_meta_batch"]
 
@@ -73,15 +74,41 @@ def batch_geometry(cfg: ArchConfig, shape: InputShape, K: int
     return T, half // T
 
 
+def cut_depth(cfg: ArchConfig, layers: int) -> ArchConfig:
+    """``cfg`` cut to ``layers`` layers at full width (the entry points'
+    ``--layers``): the encoder-decoder family cuts its encoder and its
+    decoder each to ``layers``; the vision family takes a multiple of
+    ``cross_attn_every`` (whole periods) and raises otherwise."""
+    if cfg.arch_type == "vlm" and layers % cfg.cross_attn_every:
+        raise ValueError(
+            f"{cfg.name}: --layers {layers} is not a multiple of "
+            f"cross_attn_every={cfg.cross_attn_every} (a period of "
+            f"{cfg.cross_attn_every - 1} self-attention blocks and one "
+            f"cross-attention block)")
+    kw = dict(num_layers=layers)
+    if cfg.arch_type == "audio":
+        kw["encoder_layers"] = layers
+    return dataclasses.replace(cfg, **kw)
+
+
 def modality_extras(cfg: ArchConfig, lead: tuple[int, ...],
                     dtype: torch.dtype, device=None) -> dict:
-    """Zero-stub modality inputs the model's loss expects beyond
-    tokens/labels.  The dense decoder, Mamba2 and MoE families need none;
-    the audio and vision families (later slices) raise."""
-    if cfg.arch_type in ("audio", "vlm"):
-        raise ValueError(f"{cfg.name}: {cfg.arch_type} inputs are not "
-                         f"ported yet")
-    return {}
+    """Zero-stub modality inputs (audio frames / vision patches) the
+    model's loss expects beyond tokens/labels, with the given leading axes,
+    in ``dtype`` on ``device`` (None: the CUDA card) — the one place the
+    modality-input contract is spelled; the train pipeline (``lead=(B,)``
+    or ``(C, B)``), the eval harness (``lead=(n_tasks, tb)``) and serving
+    build their stubs here."""
+    shapes = {}
+    if cfg.arch_type == "audio":
+        shapes["encoder_frames"] = (cfg.encoder_frames, cfg.d_model)
+    if cfg.arch_type == "vlm":
+        shapes["image_patches"] = (cfg.num_patches, cfg.d_model)
+    if not shapes:
+        return {}
+    device = resolve_device(device)
+    return {k: torch.zeros(tuple(lead) + s, dtype=dtype, device=device)
+            for k, s in shapes.items()}
 
 
 def split_meta_batch(cfg: ArchConfig, batch: dict, K: int, T: int, tb: int
@@ -100,15 +127,15 @@ def split_meta_batch(cfg: ArchConfig, batch: dict, K: int, T: int, tb: int
 def input_specs(cfg: ArchConfig, shape_name: str | InputShape
                 ) -> dict[str, Any]:
     """Meta tensors (shape and dtype, no memory) for every model input of
-    one (arch × input shape): train/prefill {tokens, labels}; decode
-    {token, pos, cache}."""
+    one (arch × input shape): train/prefill {tokens, labels [,
+    encoder_frames | image_patches]}; decode {token, pos, cache}."""
     shape = resolve_input_shape(shape_name)
     B, S = shape.global_batch, shape.seq_len
     meta = lambda shp, dt: torch.empty(shp, dtype=dt, device="meta")
-    modality_extras(cfg, (B,), DTYPES[cfg.dtype])
     if shape.kind in ("train", "prefill"):
         return {"tokens": meta((B, S), torch.int32),
-                "labels": meta((B, S), torch.int32)}
+                "labels": meta((B, S), torch.int32),
+                **modality_extras(cfg, (B,), DTYPES[cfg.dtype], "meta")}
     model = build_model(cfg)
     return {"token": meta((B, 1), torch.int32),
             "pos": meta((B,), torch.int32),
@@ -176,11 +203,12 @@ class TrainBundle:
     def eval_prepare(self):
         """``prepare`` hook for :meth:`EvalHarness.evaluate`: appends the
         per-task modality stubs (``modality_extras``) on the task-leading
-        eval layout — none for the port's families."""
+        eval layout."""
         cfg, dt = self.cfg, DTYPES[self.cfg.dtype]
 
         def add(d):
-            extras = modality_extras(cfg, tuple(d["tokens"].shape[:2]), dt)
+            extras = modality_extras(cfg, tuple(d["tokens"].shape[:2]), dt,
+                                     d["tokens"].device)
             return {**d, **extras} if extras else d
 
         return lambda sq: (add(sq[0]), add(sq[1]))
@@ -189,8 +217,9 @@ class TrainBundle:
                       stack: int | None = None):
         """A :class:`~repro_torch.data.pipeline.MetaBatchPipeline` over a
         task source bound to this bundle's (K, T, tb), yielding global
-        batches ``{tokens, labels}`` (B, S) on the bundle's device, the
-        layout ``step_fn`` folds back with :func:`split_meta_batch`.
+        batches ``{tokens, labels}`` (B, S) on the bundle's device, with
+        the modality stubs (``modality_extras``) the model's loss expects,
+        the layout ``step_fn`` folds back with :func:`split_meta_batch`.
         ``stack=C`` yields C consecutive meta-batches stacked on a leading
         dispatch axis (C, B, S) for :func:`make_superstep` (grouped, never
         reordered; C=1 keeps the (1, B, S) axis); ``stack=None`` the
@@ -204,7 +233,9 @@ class TrainBundle:
                 f"tb={src_tb}) does not match the bundle's (K={self.K}, "
                 f"T={self.T}, tb={self.tb})")
         B = self.K * self.T * self.tb * 2
-        modality_extras(self.cfg, (B,), DTYPES[self.cfg.dtype])
+        lead = (B,) if stack is None else (stack, B)
+        extras = modality_extras(self.cfg, lead, DTYPES[self.cfg.dtype],
+                                 self.device)
         if stack is None:
             prepare = lambda ep: ep.as_flat_batch()
         else:
@@ -218,7 +249,8 @@ class TrainBundle:
 
         return MetaBatchPipeline(source, self.device, depth=depth,
                                  start_step=start_step, prepare=prepare,
-                                 stack=1 if stack is None else stack)
+                                 stack=1 if stack is None else stack,
+                                 extras=extras)
 
 
 def build_train(cfg: ArchConfig, shape_name: str | InputShape = "train_4k",
@@ -274,8 +306,16 @@ def build_train(cfg: ArchConfig, shape_name: str | InputShape = "train_4k",
         combine_fn = diffusion.make_combine(backend, A=A, device=device)
     else:
         resolved = "none"
+    freeze_mask = None
+    if cfg.inner_freeze:
+        # ANIL-style: every leaf under a key path with the named component
+        # (e.g. 'encoder') is frozen in the inner loop; the outer step
+        # still trains it
+        freeze_mask = {k: cfg.inner_freeze in k.split("/")
+                       for k in model.specs()}
     step = make_meta_step(model.loss_fn, mcfg, optimizer=opt, A=A,
-                          combine_fn=combine_fn, device=device)
+                          combine_fn=combine_fn, device=device,
+                          freeze_mask=freeze_mask)
 
     def train_step(state: TrainState, batch: dict):
         support, query = split_meta_batch(cfg, batch, K, T, tb)

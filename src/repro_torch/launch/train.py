@@ -3,9 +3,12 @@
 Runs the decentralized meta-training loop for the LM families on one card
 (``--device cpu`` runs it on the CPU): K agents (``--agents``) on the
 arch's topology, the config's ``meta_mode`` (exact MAML through the
-kernels and their forward-mode tangent kernels for qwen2 and mamba2,
-``fomaml`` for the MoE configs), the outer update by the chosen combine
-backend (``--fused-outer``: one kernel launch a step).
+kernels and their forward-mode tangent kernels for qwen2, mamba2 and
+whisper, ``fomaml`` for the MoE configs and the vision model), the outer
+update by the chosen combine backend (``--fused-outer``: one kernel launch
+a step).  whisper's batches carry zero frames and the vision model's zero
+patches (the reference's stubs); a config's ``inner_freeze`` freezes that
+subtree in the inner loop.
 
 Every run writes a JSONL run log (``--run-log``, default
 ``results/train_<arch>_seed<seed>.jsonl``): a ``{"kind": "config", ...}``
@@ -96,7 +99,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the model to this many layers, widths kept "
                          "(a depth cut, for a model whose full depth does "
-                         "not fit one card)")
+                         "not fit one card; an encoder-decoder cuts "
+                         "encoder and decoder each to N, a vision model "
+                         "takes a multiple of its cross_attn_every)")
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--global-batch", type=int, default=16)
     ap.add_argument("--agents", type=int, default=4,
@@ -180,7 +185,7 @@ def main(argv: list[str] | None = None) -> dict:
             cfg, outer_dtype=args.outer_dtype or cfg.outer_dtype,
             combine_dtype=args.combine_dtype or cfg.combine_dtype)
     if args.layers:
-        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+        cfg = S.cut_depth(cfg, args.layers)
     if args.reduced:
         cfg = cfg.reduced()
         shape = InputShape("custom", args.seq, args.global_batch, "train")
@@ -241,6 +246,7 @@ def main(argv: list[str] | None = None) -> dict:
     run_log.write(kind="config", arch=cfg.name, seed=args.seed,
                   mesh_axes={}, device=str(device),
                   num_layers=cfg.num_layers,
+                  encoder_layers=cfg.encoder_layers,
                   K=bundle.K, T=bundle.T, tb=bundle.tb,
                   mode=ucfg.inner, strategy=ucfg.strategy,
                   combine_backend=ucfg.backend,

@@ -1,10 +1,12 @@
-"""Neural layers of the dense decoder, Mamba2 and MoE families: norms, RoPE,
-GQA attention (full-sequence and single-token decode with the
-sliding-window ring buffer), MLA (DeepSeek's latent attention, with its
+"""Neural layers of the dense decoder, Mamba2, MoE, encoder-decoder and
+vision families: norms, RoPE, sinusoidal positions, GQA attention
+(full-sequence self- and cross-attention, single-token decode with the
+sliding-window ring buffer, and decode-time cross-attention against the
+encoder's fixed K/V), MLA (DeepSeek's latent attention, with its
 latent-cache decode), the MLP, the token-choice MoE (sorted and one-hot
 dispatch, shared experts) and the Mamba2 mixer (the chunked SSD scan,
 full-sequence and single-token decode) — port of
-``repro/models/layers.py`` without cross-attention.
+``repro/models/layers.py``.
 
 Everything is functional: ``*_specs(cfg)`` builds a Spec tree,
 ``*_apply(params, ...)`` runs it on a dict of tensors keyed as the specs.
@@ -44,6 +46,7 @@ from __future__ import annotations
 import contextlib
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -57,8 +60,9 @@ from repro_torch.models.init import Spec
 Params = dict[str, torch.Tensor]
 NEG_INF = -1e30
 
-__all__ = ["norm_specs", "norm_apply", "rope", "sdpa", "causal_mask",
-           "attention_specs", "attention_apply", "attention_decode",
+__all__ = ["norm_specs", "norm_apply", "rope", "sinusoidal_positions",
+           "sdpa", "causal_mask", "attention_specs", "attention_apply",
+           "attention_decode", "cross_attention_decode", "cross_kv",
            "mla_specs", "mla_apply", "mla_decode", "mlp_specs", "mlp_apply",
            "moe_specs", "moe_apply", "moe_apply_sorted", "moe_apply_einsum",
            "moe_load_balance_loss", "record_routes", "mamba2_specs",
@@ -114,6 +118,17 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(S: int, d: int) -> np.ndarray:
+    """(S, d) float32 absolute positions (sin on even, cos on odd
+    columns), computed in float64 by numpy as the reference does."""
+    pos = np.arange(S)[:, None]
+    div = np.exp(np.arange(0, d, 2) * (-np.log(10000.0) / d))
+    out = np.zeros((S, d), np.float32)
+    out[:, 0::2] = np.sin(pos * div)
+    out[:, 1::2] = np.cos(pos * div)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -194,7 +209,9 @@ def causal_mask(S: int, T: int, offset: int = 0,
 # GQA attention
 # ---------------------------------------------------------------------------
 
-def attention_specs(cfg: ArchConfig) -> dict:
+def attention_specs(cfg: ArchConfig, cross: bool = False) -> dict:
+    """The projections of a self-attention block, or (``cross``) of a
+    cross-attention block, which has no biases."""
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     p = {
         "wq": Spec((d, H, hd), ("embed", "heads", "head_dim"), "fan_in"),
@@ -202,17 +219,18 @@ def attention_specs(cfg: ArchConfig) -> dict:
         "wv": Spec((d, KV, hd), ("embed", "kv_heads", "head_dim"), "fan_in"),
         "wo": Spec((H, hd, d), ("heads", "head_dim", "embed"), "fan_in"),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = Spec((H, hd), ("heads", "head_dim"), "zeros")
         p["bk"] = Spec((KV, hd), ("kv_heads", "head_dim"), "zeros")
         p["bv"] = Spec((KV, hd), ("kv_heads", "head_dim"), "zeros")
     return p
 
 
-def _qkv(params: Params, x: torch.Tensor):
+def _qkv(params: Params, x: torch.Tensor, kv_x: torch.Tensor | None = None):
+    kv_x = x if kv_x is None else kv_x
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("btd,dhk->bthk", x, params["wk"])
-    v = torch.einsum("btd,dhk->bthk", x, params["wv"])
+    k = torch.einsum("btd,dhk->bthk", kv_x, params["wk"])
+    v = torch.einsum("btd,dhk->bthk", kv_x, params["wv"])
     if "bq" in params:
         q = q + params["bq"]
         k = k + params["bk"]
@@ -228,16 +246,18 @@ def _expand_kv(k: torch.Tensor, H: int) -> torch.Tensor:
 
 
 def attention_apply(params: Params, cfg: ArchConfig, x: torch.Tensor,
-                    positions: torch.Tensor, *, causal: bool = True
-                    ) -> torch.Tensor:
-    """Full-sequence self-attention.  x: (B,S,d)."""
+                    positions: torch.Tensor, *, causal: bool = True,
+                    kv_x: torch.Tensor | None = None) -> torch.Tensor:
+    """Full-sequence attention.  x: (B,S,d); kv_x (B,T,d) for
+    cross-attention, which takes no rope, no causal mask and no window."""
     hd = cfg.head_dim
-    q, k, v = _qkv(params, x)
-    if cfg.use_rope:
+    q, k, v = _qkv(params, x, kv_x)
+    if cfg.use_rope and kv_x is None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    out = sdpa(q, k, v, 1.0 / math.sqrt(hd), causal=causal,
-               window=cfg.sliding_window if causal else None,
+    is_causal = causal and kv_x is None
+    out = sdpa(q, k, v, 1.0 / math.sqrt(hd), causal=is_causal,
+               window=cfg.sliding_window if is_causal else None,
                q_chunk=cfg.attn_q_chunk)
     return torch.einsum("bshd,hdo->bso", out, params["wo"])
 
@@ -279,6 +299,38 @@ def attention_decode(params: Params, cfg: ArchConfig, x: torch.Tensor,
     out = torch.einsum("bkgt,btkd->bkgd", probs, cache_v.to(x.dtype))
     out = out.reshape(x.shape[0], 1, H, hd)
     return torch.einsum("bshd,hdo->bso", out, params["wo"]), cache_k, cache_v
+
+
+def cross_attention_decode(params: Params, cfg: ArchConfig, x: torch.Tensor,
+                           cross_k: torch.Tensor, cross_v: torch.Tensor
+                           ) -> torch.Tensor:
+    """Decode-time cross-attention against the encoder's fixed K/V (B, T,
+    KV, hd), read unexpanded; no cache update.  Plain PyTorch on every
+    device, as the reference computes it outside any kernel."""
+    H, hd = cfg.num_heads, cfg.head_dim
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    if "bq" in params:
+        q = q + params["bq"]
+    B, S = q.shape[:2]
+    KV = cross_k.shape[2]
+    qg = q.reshape(B, S, KV, H // KV, hd)                      # (B,S,KV,G,hd)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, cross_k.to(x.dtype))
+    logits = logits.float() * (1.0 / math.sqrt(hd))
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, cross_v.to(x.dtype))
+    out = out.reshape(B, S, H, hd)
+    return torch.einsum("bshd,hdo->bso", out, params["wo"])
+
+
+def cross_kv(params: Params, enc: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V (B,T,KV,hd) from encoder states (B,T,d)."""
+    k = torch.einsum("btd,dhk->bthk", enc, params["wk"])
+    v = torch.einsum("btd,dhk->bthk", enc, params["wv"])
+    if "bk" in params:
+        k = k + params["bk"]
+        v = v + params["bv"]
+    return k, v
 
 
 # ---------------------------------------------------------------------------

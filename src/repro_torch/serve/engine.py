@@ -26,7 +26,8 @@ decode
     steps, as the reference's prefill scan) and a greedy or sampling
     decode, timed separately, over the model's own decode caches (KV for
     attention, the latent c_kv and rope key for MLA, conv history and SSM
-    state for Mamba2).  The reference scans both with ``lax.scan``
+    state for Mamba2, the encoder's fixed K/V for cross-attention, filled
+    once a request before the prompt).  The reference scans both with ``lax.scan``
     under ``jit``; the port runs them eagerly, one Python step per token.
     Sampling (``temperature > 0``) draws from an explicit
     ``torch.Generator`` seeded per call; it cannot reproduce
@@ -239,6 +240,21 @@ class ServeEngine:
 
     # -- decode ---------------------------------------------------------------
 
+    def _encoder_state(self, params: Params) -> torch.Tensor | None:
+        """What the cross blocks attend to while decoding: the encoder over
+        zero frames (audio), zero patches through ``vision_proj`` (vision);
+        None for the other families."""
+        cfg, B = self.cfg, self.batch
+        if cfg.arch_type == "audio":
+            frames = torch.zeros(B, cfg.encoder_frames, cfg.d_model,
+                                 dtype=self.dtype, device=self.device)
+            return self.model.encode(params, frames)
+        if cfg.arch_type == "vlm":
+            patches = torch.zeros(B, cfg.num_patches, cfg.d_model,
+                                  dtype=self.dtype, device=self.device)
+            return patches @ params["vision_proj"]
+        return None
+
     @torch.no_grad()
     def decode(self, params: Params, prompt: Any, seed: int = 0
                ) -> tuple[np.ndarray, dict]:
@@ -256,7 +272,10 @@ class ServeEngine:
                 f"{(self.batch, self.prompt_len)}")
         B, P, G = self.batch, self.prompt_len, self.gen
         step = self.bundle.step_fn
-        cache = self.model.init_cache(B, self.total, self.dtype, self.device)
+        # the cross blocks' K/V are filled once a request, before the prompt
+        cache = self.model.init_cache(B, self.total, self.dtype, self.device,
+                                      params=params,
+                                      enc=self._encoder_state(params))
         pos = lambda t: torch.full((B,), t, dtype=torch.int64,
                                    device=self.device)
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -305,6 +324,8 @@ class ServeEngine:
         return {
             "kind": "serve",
             "arch": self.cfg.name,
+            "num_layers": self.cfg.num_layers,
+            "encoder_layers": self.cfg.encoder_layers,
             "batch": self.batch,
             "prompt_len": self.prompt_len,
             "gen": self.gen,

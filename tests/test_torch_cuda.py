@@ -1260,3 +1260,67 @@ def test_cuda_moe_models_route_and_adapt_as_the_cpu(cuda, arch):
         torch.testing.assert_close(a_card[k], a_cpu[k], rtol=1e-4,
                                    atol=1e-5)
     assert (launched == 0) == (arch == "deepseek-v2-lite-16b")
+
+
+# Queries and keys of two lengths (B, S, S_k, H, KV, d, causal), the model
+# layout: whisper's encoder at a ragged 1500 (23 full key tiles of 64 and
+# one of 28), its cross-attention (256 queries against 1500 keys), reduced
+# llama-vision's (64 queries against 16 keys, fewer than one tile, GQA
+# 4 / 2), and causal rows with S < S_k and S > S_k (query i sees keys
+# 0..i).
+CROSS_CASES = [(1, 1500, 1500, 4, 4, 64, False),
+               (2, 256, 1500, 4, 4, 64, False),
+               (2, 64, 16, 4, 2, 32, False),
+               (2, 192, 320, 4, 2, 64, True),
+               (2, 320, 192, 4, 2, 64, True)]
+CROSS_IDS = ["encoder-1500", "cross-256x1500", "vision-64x16-gqa",
+             "causal-192x320", "causal-320x192"]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,Sk,H,KV,d,causal", CROSS_CASES, ids=CROSS_IDS)
+def test_cuda_flash_with_two_lengths_matches_plain_versions(
+        cuda, dtype, B, S, Sk, H, KV, d, causal):
+    """The forward (out, lse (B, H, S)), the backward (dk/dv (B, S_k, KV,
+    d)), T1 and T2 through ``gqa_flash_attention`` and the tangent
+    wrappers, against their plain versions, with their launches."""
+    gen = torch.Generator().manual_seed(1)
+    draw = lambda *s: torch.randn(*s, generator=gen).to(cuda, dtype)
+    q, do, tq, tdo = (draw(B, S, H, d) for _ in range(4))
+    k, v, tk, tv = (draw(B, Sk, KV, d) for _ in range(4))
+    kw = dict(causal=causal, window=None)
+    fwd_tol, bwd_tol = FLASH_TOL[dtype]
+    before = dict(fops.launch_counts)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fops.gqa_flash_attention(*leaves, **kw)
+    out.backward(do)
+    want, want_lse = fref.gqa_flash_fwd_ref(q, k, v, **kw)
+    _, lse = fops.gqa_flash_attention_fwd_lse(q, k, v, **kw)
+    assert tuple(lse.shape) == (B, H, S)
+    assert_flash_close(out, want, fwd_tol)
+    want_grads = fref.gqa_flash_bwd_ref(q, k, v, out.detach(), want_lse, do,
+                                        **kw)
+    for got, w in zip(leaves, want_grads):
+        assert_flash_close(got.grad, w, bwd_tol)
+    tkw = dict(kw, heads_dim=2)
+    to, tlse = fops.flash_attention_fwd_tangent(q, k, v, want_lse, tq, tk,
+                                                tv, **tkw)
+    want_to, want_tlse = fref.flash_fwd_tangent_ref(q, k, v, tq, tk, tv,
+                                                    **tkw)
+    assert_tangent_close(to, want_to)
+    assert_tangent_close(tlse, want_tlse)
+    grads = fops.flash_attention_bwd_tangent(
+        q, k, v, want, want_lse, do, tq, tk, tv, want_to, want_tlse, tdo,
+        **tkw)
+    wants = fref.flash_bwd_tangent_ref(q, k, v, want, want_lse, do, tq, tk,
+                                       tv, want_to, want_tlse, tdo, **tkw)
+    assert [tuple(g.shape) for g in grads] == [(B, S, H, d), (B, Sk, KV, d),
+                                               (B, Sk, KV, d)]
+    for g, w in zip(grads, wants):
+        assert_tangent_close(g, w)
+    spent = {n: fops.launch_counts[n] - before[n] for n in before}
+    assert spent == {"flash_attention_fwd": 2, "flash_attention_bwd": 2,
+                     "flash_attention_fwd_tangent": 1,
+                     "flash_attention_bwd_tangent": 2}
+    torch.cuda.synchronize()
