@@ -107,14 +107,14 @@ Phases, each fatal on failure:
                 stage, and where the adapt dispatch's peak goes (one more
                 dispatch with the allocator's history recorded).
 8. agreement -- the same config cut to 2 layers, one set of weights and one
-                episode: the launch and adapted support and query losses on
+                episode (one sequence of 256 tokens): the launch and adapted support and query losses on
                 the card (kernels) match a CPU run of the port (plain
                 versions) in the same dtype, within 2e-2 relative in
                 float32 and 1e-3 in bfloat16, and adaptation lowers the
                 support loss in every run.  The
                 CPU's bf16 losses against its f32 ones are reported.  The
-                float32 flash backward is then held at this phase's shape
-                (2 x 256, 12 / 2 heads of 128) against autograd and its
+                float32 flash backward is then held at 2 x 256 (12 / 2
+                heads of 128) against autograd and its
                 plain version, beside SDPA and both its bounds.
 9. ssd       -- holds the SSD scan kernel against ``ssd_scan_ref`` (the
                 per-step recurrence): tests/test_kernels.py's grid (L, chunk
@@ -164,7 +164,7 @@ Phases, each fatal on failure:
                 backward's kernels by name (torch.profiler), and where its
                 peak memory goes.
 11. mamba2 agreement -- phase 8 for mamba2-130m cut to 2 layers at full
-                width, one episode of 2 x 1024 tokens: float32 within 1e-4
+                width, one episode of 1 x 1024 tokens: float32 within 1e-4
                 relative, bfloat16 within 1e-3.
 12. tangents -- holds the forward-mode tangent kernels against
                 ``torch.func.jvp`` of their plain versions: T1 (flash
@@ -195,32 +195,35 @@ Phases, each fatal on failure:
                 24 layers (``--layers 4``; bf16, fresh init from seed 0),
                 K=4 agents on the ring,
                 exact MAML, ``--fused-outer``, a registered 512-token shape
-                with global batch 16 (2 tasks x 1 sequence an agent), 2
-                steps in a dispatch of 2, eval (4 tasks, 1 adaptation
-                step); the launch counters
+                with global batch 16 (2 tasks x 1 sequence an agent), 4
+                steps in dispatches of 2, eval every 2 steps (4 tasks, 1
+                adaptation step); the launch counters
                 are zeroed just before and read just after, and the SSD
                 kernels, T3, the scan's backward and its tangent
                 (``ssd_scan_bwd``, ``ssd_scan_bwd_tangent``, each of their
                 five kernels) and the fused update must have launched; the
                 losses are finite, the disagreement falls, the run log
-                passes ``scripts/check_run_log.py --expect-fused``.  Then
-                one meta-step of the final state is profiled (device time
-                split, idle share, peak memory, T3 and the backward's
-                tangent launched; the SSD backward and its tangent reported
-                by kernel name).  (Until the encoder-decoder phases came in
-                this run also checked the checkpoint and the resume; phase
-                25 does that now.)
+                passes ``scripts/check_run_log.py --expect-fused``.  Then 2
+                steps that save the step-2 checkpoint and 2 more resumed
+                from it alone (``--ckpt-every 0``: no write; the chip
+                machine bounds what a call writes to 45 GiB) must reach the
+                uninterrupted step-4 loss within 1e-3, and one meta-step of
+                the resumed state is profiled (device time split, idle share,
+                peak memory, T3 and the backward's tangent launched; the
+                SSD backward and its tangent reported by kernel name).
 14. qwen2 training -- the same for qwen2-1.5b at full width cut to 2
                 layers, ``--combine pallas``, 256 tokens, 2 steps: the
                 flash kernels, T1, T2 and ``dif_combine`` must launch.
 15. training agreement -- one ``maml`` and one ``fomaml`` meta-gradient of
-                each 2-layer cut (one agent, one task of one sequence) on
+                each 2-layer cut (one agent, one task of one sequence:
+                64 tokens for qwen2, 512 for mamba2) on
                 the card and on the CPU in the same dtype: the loss within
                 phase 8's / 11's limits, the meta-gradient within 1e-3
                 (f32) / 5e-2 (bf16) of the CPU's norm, its curvature part
                 (maml - fomaml) within 1e-2 / 0.3 and at least half the
                 CPU's norm (over all leaves, and per leaf for leaves whose
-                CPU norm is at least 1% of the largest).
+                CPU norm is at least 1% of the largest).  Its CPU half
+                runs first, while nvcc builds the kernels.
 16. few-shot -- the paper's classification experiment (Fig. 3) through
                 ``launch.fewshot.main`` at the full omniglot-cnn config (2
                 conv blocks of 32 channels, 11,013 parameters in 6 leaves,
@@ -272,15 +275,18 @@ Phases, each fatal on failure:
 20. deepseek training -- phase 13 for the same cut: ``fomaml``, momentum,
                 ``--fused-outer``, 256 tokens, global batch 16, eval of one
                 task an agent (K x tasks adapted copies of 2.17 GB), one
-                ``fused_combine_update`` launch a step (2 steps; phase 25
-                checks checkpoint, resume and ``--combine pallas``); then
-                both outer-update
+                ``fused_combine_update`` launch a step (2 steps); then 2
+                steps with ``--combine pallas`` (no eval), one
+                ``dif_combine`` launch a step; then phase 13's checkpoint
+                and resume on deepseek at reduced width (the same blocks
+                and leaf names; at the cut's full width a 17.4 GB
+                checkpoint is written and read); then both outer-update
                 kernels over the cut's 31 leaves at K=4 (1,085 M columns,
                 bf16, momentum/ATC) against their plain versions leaf by
                 leaf, timed beside the plain versions and the bounds.
-21. MoE agreement -- phase 15 (``fomaml`` only) for deepseek's cut and
-                phases 8 and 15 for reduced mixtral-8x22b, one task of one sequence of 128
-                tokens, one set of weights: losses within 1e-4 (f32) / 1e-3
+21. MoE agreement -- phases 8 and 15 (``fomaml`` only) for deepseek's
+                cut and reduced mixtral-8x22b, one task of one sequence of
+                128 tokens, one set of weights a model: losses within 1e-4 (f32) / 1e-3
                 (bf16), the meta-gradient within phase 15's limits (in bf16
                 the routed experts' and router's leaves through the norm
                 over all leaves only), and the share of (token, choice)
@@ -309,14 +315,20 @@ Phases, each fatal on failure:
                 forward and 6 backward launches a layer and adapt step
                 (encoder, decoder, cross), and the encoder's forward once
                 more for the decode's cross K/V; one more adapt dispatch
-                under torch.profiler.
+                under torch.profiler, and one more with the flash launches
+                told apart by their query and key lengths and mask (the
+                encoder's 1500 x 1500, the decoder's causal 256 x 256, the
+                cross-attention's 256 x 1500): each role n x k forward and
+                2 n x k backward launches.
 25. whisper training -- phase 13 for whisper cut to 2 + 2 layers: exact
                 MAML (the flash kernels, T1 and T2), Adam, bf16, K=4 on the
                 ring, T=2, 256 tokens, ``--fused-outer``, eval, checkpoint
                 and resume, one profiled meta-step; then 2 steps with
                 ``--combine pallas``.
-26. encoder-decoder agreement -- phase 15 for the 2 + 2 cut (``maml``, one
-                sequence of 128 tokens and 1500 random frames) and for
+26. encoder-decoder agreement -- phase 15 for whisper cut to 1 + 1 layers
+                (``maml`` and ``fomaml``, so the curvature part is held as
+                in phase 15; one sequence of 128 tokens and 1500 random
+                frames) and for
                 reduced llama-vision (``fomaml``, 16 random patches; and
                 phase 8's losses), every cross gate set to 0.5 first (at its
                 zero init the cross path carries nothing): losses within
@@ -2497,7 +2509,8 @@ def serve_phase(args, counters, expect, replay=("memory",)):
                              f"expected {(eng.batch, total)}")
     stats = eng.cache.stats()
     del out["adapted"]
-    replays = {"memory": dispatch_memory, "profile": dispatch_profile}
+    replays = {"memory": dispatch_memory, "profile": dispatch_profile,
+               "roles": dispatch_flash_roles}
     extra = {f"dispatch_{kind}": replays[kind](eng, seen["supports"])
              for kind in replay}
     row = dict(
@@ -2585,6 +2598,47 @@ def dispatch_profile(eng, supports) -> dict:
                 top_kernels=[dict(name=k[2][:80], ms=k[0] / 1e3,
                                   launches=k[1])
                              for k in sorted(kernels, reverse=True)[:8]])
+
+
+def dispatch_flash_roles(eng, supports) -> dict:
+    """One more adapt dispatch of the same users with each flash forward
+    and backward launch tallied by the query length, key length and mask
+    its kernel entry is handed (``ops._launch_strided``'s arguments), and
+    by role for an encoder-decoder model: the encoder (non-causal, S =
+    S_k), the decoder (causal) and the cross-attention (non-causal, S !=
+    S_k).  Counts launches in this dispatch only; the ops' own
+    ``launch_counts`` still move."""
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    tally: dict = {}
+    launch = fops._launch_strided
+
+    def tallied(name, entry, pointers, views, heads_dim, *args):
+        S, Sk, causal = args[3], args[4], bool(args[7])
+        role = ("decoder" if causal else "encoder" if S == Sk
+                else "cross")
+        key = (role, "forward" if name == "flash_attention_fwd"
+               else "backward", f"{S}x{Sk}")
+        tally[key] = tally.get(key, 0) + 1
+        return launch(name, entry, pointers, views, heads_dim, *args)
+
+    stacked = eng._stack(supports, eng._bucket(len(supports)))
+    torch.cuda.synchronize()
+    fops._launch_strided = tallied
+    try:
+        adapted = eng.harness.adapt_states(eng.params, stacked)
+        torch.cuda.synchronize()
+    finally:
+        fops._launch_strided = launch
+    del adapted, stacked
+    roles: dict = {}
+    for (role, kind, shape), n in sorted(tally.items()):
+        r = roles.setdefault(role, {"forward": 0, "backward": 0,
+                                    "shapes": []})
+        r[kind] += n
+        if shape not in r["shapes"]:
+            r["shapes"].append(shape)
+    return roles
 
 
 def dispatch_memory(eng, supports, top=20) -> dict:
@@ -3268,6 +3322,11 @@ MAMBA_TRAIN_ARGS = ["--arch", "mamba2-130m", "--shape", TRAIN_SHAPE["name"],
                     "--eval-tasks", "4", "--eval-inner-steps", "1",
                     "--ckpt-every", "2", *TRAIN_COMMON]
 QWEN_TRAIN_SHAPE = dict(name="chip_train_256", seq=256, batch=16)
+# phase 15's sequence for qwen2 (128 until the encoder-decoder phases came
+# in): its CPU runs, the 152064-wide vocab head through second order, are
+# most of that phase's host time
+QWEN_AGREE_SEQ = 64
+MAMBA_AGREE_SEQ = 512
 QWEN_TRAIN_ARGS = ["--arch", "qwen2-1.5b", "--shape", QWEN_TRAIN_SHAPE["name"],
                    "--layers", "2", "--combine", "pallas",
                    "--steps-per-dispatch", "1", "--eval-every", "2",
@@ -3564,29 +3623,17 @@ def _norm(d, keys=None):
     return float(torch.sqrt(sum((d[k].double() ** 2).sum() for k in keys)))
 
 
-def train_agreement_phase(arch, seq, loss_rtol, cfg=None,
-                          modes=("maml", "fomaml"), weights=None) -> dict:
-    """The ``maml`` and ``fomaml`` meta-gradients of one agent on one task
-    of one sequence, the 2-layer cut at full width, on the card (kernels,
-    tangent kernels) and on the CPU (plain layers) in the same dtype: the
-    loss within the serving limit, the meta-gradient and its curvature
-    part (maml - fomaml) within GRAD_AGREE / CURV_AGREE, the curvature at
-    least CURV_FLOOR of the CPU's norm.  One mode (``("fomaml",)`` for a
-    config that trains first-order, ``("maml",)`` where the CPU's second
-    run would not fit the time limit) holds the loss and that mode's
-    meta-gradient only.  ``weights``: float32 CPU weights, a seed-0 init
-    unless given.  The encoder-decoder and vision families get random
-    frames or patches (``modality_inputs``), and the largest leaf error of
-    their cross path (``cross/*``, ``gate``, ``vision_proj``) is reported
-    apart from the rest's (``cross_split``)."""
+def meta_grad_inputs(arch, seq, cfg=None, weights=None) -> tuple:
+    """What both halves of train_agreement_phase differentiate: (cfg, its
+    model, float32 CPU weights, support, query, the modality extras of
+    support and query).  ``cfg``: ``arch`` cut to 2 layers unless given;
+    ``weights``: a seed-0 init unless given."""
     from repro_torch.configs import get_config
-    from repro_torch.core import maml
     from repro_torch.data.lm_tasks import LMTaskSource
     from repro_torch.models.transformer import build_model
     if cfg is None:
         cfg = dataclasses.replace(get_config(arch), num_layers=2)
     model = build_model(cfg)
-    routed = routed_leaves(model)
     p0 = weights if weights is not None else model.init(
         torch.Generator().manual_seed(0), torch.float32, device="cpu")
     ep = LMTaskSource(vocab_size=cfg.padded_vocab, seq_len=seq, K=1,
@@ -3595,27 +3642,81 @@ def train_agreement_phase(arch, seq, loss_rtol, cfg=None,
     sup = {k: torch.from_numpy(v[0]) for k, v in ep.support.items()}
     qry = {k: torch.from_numpy(v[0]) for k, v in ep.query.items()}
     extras = [modality_inputs(cfg, (1, 1), seed) for seed in (5, 6)]
+    return cfg, model, p0, sup, qry, extras
+
+
+def meta_grads(inputs, dev, dtype, modes) -> dict:
+    """{mode: (loss, float32 gradient leaves on ``dev``, seconds)} of one
+    agent on ``inputs`` (``meta_grad_inputs``) on ``dev`` in ``dtype``."""
+    from repro_torch.core import maml
+    cfg, model, p0, sup, qry, extras = inputs
+    p = {k: v.to(dev, dtype) for k, v in p0.items()}
+    s, q = ({**{k: v.to(dev) for k, v in part.items()},
+             **{k: v.to(dev, dtype) for k, v in extra.items()}}
+            for part, extra in zip((sup, qry), extras))
+    out = {}
+    for mode in modes:
+        t0 = time.perf_counter()
+        loss, g = maml.multi_task_meta_grad(
+            model.loss_fn, p, s, q, alpha=cfg.inner_lr, steps=1, mode=mode)
+        out[mode] = (float(loss), {k: v.float() for k, v in g.items()},
+                     time.perf_counter() - t0)
+    return out
+
+
+AGREE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def cpu_meta_grads(arch, seq, cfg=None, modes=("maml", "fomaml"),
+                   weights=None) -> dict:
+    """The CPU half of train_agreement_phase in both dtypes, with its
+    inputs: plain layers on the host, no CUDA call, so it can run while
+    the kernels build (``build_phase``'s ``while_building``)."""
+    t0 = time.perf_counter()
+    inputs = meta_grad_inputs(arch, seq, cfg, weights)
+    got = {dtype: meta_grads(inputs, "cpu", dtype, modes)
+           for dtype in AGREE_DTYPES}
+    print(f"train agreement {arch}: the CPU half took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(inputs=inputs, modes=modes, got=got)
+
+
+def train_agreement_phase(arch, seq, loss_rtol, cfg=None,
+                          modes=("maml", "fomaml"), weights=None,
+                          cpu=None) -> dict:
+    """The ``maml`` and ``fomaml`` meta-gradients of one agent on one task
+    of one sequence, the 2-layer cut at full width, on the card (kernels,
+    tangent kernels) and on the CPU (plain layers) in the same dtype: the
+    loss within the serving limit, the meta-gradient and its curvature
+    part (maml - fomaml) within GRAD_AGREE / CURV_AGREE, the curvature at
+    least CURV_FLOOR of the CPU's norm.  One mode (``("fomaml",)`` for a
+    config that trains first-order) holds the loss and that mode's
+    meta-gradient only.  ``weights``: float32 CPU weights, a seed-0 init
+    unless given.  ``cpu``: the CPU half, computed before
+    (``cpu_meta_grads`` with the same arguments); computed here unless
+    given.  The encoder-decoder and vision families get random frames or
+    patches (``modality_inputs``), and the largest leaf error of their
+    cross path (``cross/*``, ``gate``, ``vision_proj``) is reported apart
+    from the rest's (``cross_split``)."""
+    half = cpu if cpu is not None else cpu_meta_grads(arch, seq, cfg, modes,
+                                                      weights)
+    if half["modes"] != modes:
+        raise ValueError(f"train agreement {arch}: the CPU half ran "
+                         f"{half['modes']}, not {modes}")
+    inputs = half["inputs"]
+    model = inputs[1]
+    routed = routed_leaves(model)
     rows = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in AGREE_DTYPES:
         got = {}
-        for dev in (DEVICE, "cpu"):
-            p = {k: v.to(dev, dtype) for k, v in p0.items()}
-            s, q = ({**{k: v.to(dev) for k, v in part.items()},
-                     **{k: v.to(dev, dtype) for k, v in extra.items()}}
-                    for part, extra in zip((sup, qry), extras))
-            for mode in modes:
-                t0 = time.perf_counter()
-                loss, g = maml.multi_task_meta_grad(
-                    model.loss_fn, p, s, q, alpha=cfg.inner_lr, steps=1,
-                    mode=mode)
-                # both devices' gradients are compared on the card: the
-                # float64 norms over a full-width cut's leaves took tens
-                # of seconds on the host
-                got[dev, mode] = (float(loss),
-                                  {k: v.float().to(DEVICE)
-                                   for k, v in g.items()},
-                                  time.perf_counter() - t0)
-            del p
+        # both devices' gradients are compared on the card: the float64
+        # norms over a full-width cut's leaves took tens of seconds on the
+        # host
+        for mode, (loss, g, sec) in half["got"].pop(dtype).items():
+            got["cpu", mode] = (loss, {k: v.to(DEVICE) for k, v in g.items()},
+                                sec)
+        for mode, r in meta_grads(inputs, DEVICE, dtype, modes).items():
+            got[DEVICE, mode] = r
         name = str(dtype)[6:]
         card, cpu = got[DEVICE, modes[0]], got["cpu", modes[0]]
         lk = "card_f32_vs_cpu_f32" if dtype == torch.float32 else \
@@ -3715,6 +3816,22 @@ DEEPSEEK_TRAIN_ARGS = ["--arch", DEEPSEEK, "--shape",
                        "--steps-per-dispatch", "2", "--eval-every", "2",
                        "--eval-tasks", "1", "--eval-inner-steps", "1",
                        "--ckpt-every", "2", *TRAIN_COMMON]
+# 2 steps of the grouped combine (``dif_combine``, one launch a step), no
+# eval: the same cut, so its K=4 init is most of the run
+DEEPSEEK_PALLAS_ARGS = ["--arch", DEEPSEEK, "--shape",
+                        DEEPSEEK_TRAIN_SHAPE["name"], "--layers",
+                        str(DEEPSEEK_LAYERS), "--combine", "pallas",
+                        "--steps-per-dispatch", "1", *TRAIN_COMMON]
+# The checkpoint and resume of deepseek's leaves (MLA, routed and shared
+# experts, the dense first layer) and its momentum state, at reduced width
+# (``--reduced``: the same blocks and leaf names, 128 wide): at the cut's
+# full width each resume check wrote and read a 17.4 GB checkpoint, about
+# 120 s of host time
+DEEPSEEK_RESUME_ARGS = ["--arch", DEEPSEEK, "--reduced", "--shape",
+                        DEEPSEEK_TRAIN_SHAPE["name"], "--fused-outer",
+                        "--steps-per-dispatch", "2", "--eval-every", "2",
+                        "--eval-tasks", "1", "--eval-inner-steps", "1",
+                        "--ckpt-every", "2", *TRAIN_COMMON]
 # MLA's attention route, fixed by the model's shapes (q/k head 192, v head
 # 128): layers.mla_apply calls the plain attention by name.
 MLA_ROUTE = ("plain attention (layers._plain_sdpa, the reference's "
@@ -3727,8 +3844,9 @@ MLA_ROUTE = ("plain attention (layers._plain_sdpa, the reference's "
 # routes agree but for ties at the last bit; a bfloat16 activation one ulp
 # apart can flip a near tie, which moves that token's output by O(1).
 MOE_AGREE_RTOL = MAMBA_AGREE_RTOL
-# one sequence of 128 tokens, as qwen2's meta-gradient agreement: the CPU
-# runs of deepseek's full-width cut take most of these phases' time
+# one sequence of 128 tokens: at 64, deepseek's bf16 adapted support
+# loss sat 1.36e-3 from the CPU's (limit 1e-3), a few tokens routed to
+# other experts (5 of 384 pairs) weighing twice as much in the mean
 MOE_AGREE_SEQ = 128
 MOE_FLIP_LIMIT = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
 # moe_apply_einsum against moe_apply_sorted on the card under ample
@@ -3932,12 +4050,9 @@ def moe_phases(ops, ref, modules) -> dict:
                         replay=())
     serve["attention_route"] = MLA_ROUTE
     lap("serve")
-    # phase 20: meta-training, fused outer update one launch a step.  Since
-    # the encoder-decoder phases came in, no resume check (its three K=4
-    # inits and 17.4 GB checkpoint took 167 s) and no ``--combine pallas``
-    # run (30 s): whisper's training run checks both, and dif_combine is
-    # held at the cut's leaves below
-    # (outer_kernels_at_leaves)
+    # phase 20: meta-training, fused outer update one launch a step; then
+    # 2 steps with ``--combine pallas``, one dif_combine launch a step; then
+    # checkpoint and resume at reduced width (DEEPSEEK_RESUME_ARGS)
     train = train_phase(
         "deepseek", deepseek, DEEPSEEK_TRAIN_ARGS, DEEPSEEK_TRAIN_SHAPE,
         ("fused_combine_update",), ("--expect-fused", "--expect-outer-dtype",
@@ -3945,9 +4060,24 @@ def moe_phases(ops, ref, modules) -> dict:
         mode="fomaml", per_step={"fused_combine_update": 1},
         keep=False)
     lap("train")
+    pallas = train_phase(
+        "deepseek_pallas", deepseek, DEEPSEEK_PALLAS_ARGS,
+        DEEPSEEK_TRAIN_SHAPE, ("dif_combine",),
+        ("--expect-outer-dtype", "bfloat16", "--no-eval"), mode="fomaml",
+        per_step={"dif_combine": 1}, profile=False, keep=False)
+    lap("train_pallas")
+    resume = train_phase(
+        "deepseek_resume", get_config(DEEPSEEK).reduced(),
+        DEEPSEEK_RESUME_ARGS, DEEPSEEK_TRAIN_SHAPE,
+        ("fused_combine_update",), ("--expect-fused", "--expect-outer-dtype",
+                                    "bfloat16"),
+        resume=True, mode="fomaml", per_step={"fused_combine_update": 1},
+        profile=False, keep=False)
+    lap("train_resume")
     outer = outer_kernels_at_leaves(ops, ref, deepseek, agents=4)
     lap("outer_kernels")
-    # phase 21: the 2-layer cut and reduced mixtral against the CPU, one
+    # phase 21: the 2-layer cut and reduced mixtral against the CPU (phase
+    # 15's meta-gradient, the routing flips, phase 8's adapted losses), one
     # set of weights for the three checks
     mixtral = get_config("mixtral-8x22b").reduced()
     agree = {}
@@ -3958,21 +4088,17 @@ def moe_phases(ops, ref, modules) -> dict:
             meta_gradient=train_agreement_phase(
                 cfg.name, MOE_AGREE_SEQ, MOE_AGREE_RTOL, cfg=cfg,
                 modes=("fomaml",), weights=w),
-            routing=route_flip_share(cfg, MOE_AGREE_SEQ, w))
-        # phase 8's adapted losses: mixtral's; deepseek's CPU runs of the
-        # full-width cut (14 and 28 s) left with the encoder-decoder
-        # phases' cuts (the meta-gradient check holds its loss)
-        if cfg is mixtral:
-            agree[cfg.name]["losses"] = agreement_phase(
-                cfg, MOE_AGREE_RTOL, seq=MOE_AGREE_SEQ, task_batch=1,
-                weights=w)
+            routing=route_flip_share(cfg, MOE_AGREE_SEQ, w),
+            losses=agreement_phase(cfg, MOE_AGREE_RTOL, seq=MOE_AGREE_SEQ,
+                                   task_batch=1, weights=w))
         del w
         lap(f"agreement {cfg.name}")
     # phase 22: the two dispatch paths on the card
     dispatch = moe_dispatch_check(deepseek)
     lap("dispatch")
-    return dict(serve=serve, train=train, outer=outer,
-                agreement=agree, dispatch=dispatch, seconds=seconds)
+    return dict(serve=serve, train=train, train_pallas=pallas,
+                train_resume=resume, outer=outer, agreement=agree,
+                dispatch=dispatch, seconds=seconds)
 
 
 # ---------------------------------------------------------------------------
@@ -4022,6 +4148,10 @@ WHISPER_PALLAS_ARGS = ["--arch", WHISPER, "--shape",
 # The card against the CPU (PERF.md, set before the first chip run):
 # losses as mamba2's, meta-gradients GRAD_AGREE / CURV_AGREE; one sequence
 # of 128 tokens (whisper: and its 1500 random frames), every gate 0.5.
+# whisper is held cut to WHISPER_AGREE_LAYERS + as many layers: its CPU
+# runs (the encoder over 1500 frames, through second order) are most of
+# these phases' host time, and a second mode doubles them.
+WHISPER_AGREE_LAYERS = 1
 ENCDEC_AGREE_RTOL = MAMBA_AGREE_RTOL
 ENCDEC_AGREE_SEQ = 128
 GATE = 0.5
@@ -4141,9 +4271,10 @@ def encdec_phases(ops, ref, modules) -> dict:
     """Phases 24-26: whisper-large-v3 served at full width cut to
     WHISPER_SERVE_LAYERS + as many, meta-trained cut to
     WHISPER_TRAIN_LAYERS + as many (``maml``, Adam, ``--fused-outer`` with
-    eval, checkpoint and resume, then ``--combine pallas``), and that cut
-    and reduced llama-3.2-vision held against the CPU with random frames
-    and patches and every gate at GATE."""
+    eval, checkpoint and resume, then ``--combine pallas``), and its
+    WHISPER_AGREE_LAYERS + as many cut and reduced llama-3.2-vision held
+    against the CPU with random frames and patches and every gate at
+    GATE."""
     from repro_torch.configs import get_config
     from repro_torch.launch import steps as S
     t0, seconds = time.perf_counter(), {}
@@ -4161,14 +4292,18 @@ def encdec_phases(ops, ref, modules) -> dict:
         WHISPER_SERVE_ARGS, counters,
         lambda n, k: {"flash_attention_fwd": 3 * n * k + n,
                       "flash_attention_bwd": 6 * n * k},
-        replay=("profile",))
+        replay=("profile", "roles"))
+    # the adapt dispatch's launches by role, measured in a replay: each
+    # role's forward once and its backward's two launches a layer and step
     n, k = serve["layers"], serve["adapt_steps"]
-    serve["flash_launches_by_role"] = {
-        "adapt dispatch": {r: dict(forward=n * k, backward=2 * n * k)
-                           for r in ("encoder", "decoder", "cross")},
-        "decode (encoder once)": dict(forward=n)}
-    print(f"whisper serve: flash launches by role "
-          f"{json.dumps(serve['flash_launches_by_role'])}", flush=True)
+    roles = serve["dispatch_roles"]
+    got = {r: (v["forward"], v["backward"]) for r, v in roles.items()}
+    want = {r: (n * k, 2 * n * k) for r in ("encoder", "decoder", "cross")}
+    if got != want:
+        raise AssertionError(f"whisper serve: flash launches by role {roles}"
+                             f", expected {want} (forward, backward)")
+    print(f"whisper serve: the adapt dispatch's flash launches by role "
+          f"(measured) {json.dumps(roles)}", flush=True)
     lap("serve")
     # phase 25: meta-training, exact MAML through T1/T2
     whisper = S.cut_depth(get_config(WHISPER), WHISPER_TRAIN_LAYERS)
@@ -4187,11 +4322,14 @@ def encdec_phases(ops, ref, modules) -> dict:
         per_step={"dif_combine": 1}, profile=False, keep=False)
     lap("train_pallas")
     # phase 26: the card against the CPU, random frames and patches, gates
-    # at GATE; whisper in its mode (maml), the vision model in its
-    # (fomaml)
+    # at GATE; whisper in its mode (maml) and fomaml, so that the curvature
+    # part (maml - fomaml) is held, at WHISPER_AGREE_LAYERS + as many; the
+    # vision model in its mode (fomaml)
     agree = {}
     vision = get_config(VISION).reduced()
-    for cfg, modes in ((whisper, ("maml",)), (vision, ("fomaml",))):
+    for cfg, modes in ((S.cut_depth(get_config(WHISPER),
+                                    WHISPER_AGREE_LAYERS),
+                        ("maml", "fomaml")), (vision, ("fomaml",))):
         w = with_gates(cfg, 1)
         agree[cfg.name] = dict(meta_gradient=train_agreement_phase(
             cfg.name, ENCDEC_AGREE_SEQ, ENCDEC_AGREE_RTOL, cfg=cfg,
@@ -4631,11 +4769,14 @@ def hgmma_phase(libraries: dict) -> dict:
     return found
 
 
-def build_phase(libraries) -> None:
-    """Compile every CUDA source at once (one nvcc each) and load them."""
+def build_phase(libraries, while_building=None):
+    """Compile every CUDA source at once (one nvcc each) and load them.
+    ``while_building()`` runs in this thread meanwhile (nvcc runs in
+    processes of its own), and its result is returned."""
     with ThreadPoolExecutor(len(libraries)) as pool:
         futures = {name: pool.submit(lib.build)
                    for name, lib in libraries.items()}
+        extra = while_building() if while_building is not None else None
         infos = {name: f.result() for name, f in futures.items()}
     for name, info in infos.items():
         print(f"build {name}: {info['seconds']:.2f} s "
@@ -4648,6 +4789,7 @@ def build_phase(libraries) -> None:
             if any(k in line for k in ("registers", "spill",
                                        "Performance Loss")):
                 print(f"  ptxas {fn}:", line.strip())
+    return extra
 
 
 def main() -> int:
@@ -4680,8 +4822,16 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    build_phase({"dif_combine": ops, "flash_attention": fops,
-                 "ssd_scan": sops, "ssd_bwd": sops.BWD_LIB})
+    # phase 15's CPU halves (plain layers, no kernel) while nvcc runs: they
+    # are most of that phase's time, and the host is idle but for one nvcc
+    # after the first 30 s of the build
+    cpu_halves = build_phase(
+        {"dif_combine": ops, "flash_attention": fops, "ssd_scan": sops,
+         "ssd_bwd": sops.BWD_LIB},
+        while_building=lambda: {
+            "qwen2-1.5b": cpu_meta_grads("qwen2-1.5b", QWEN_AGREE_SEQ),
+            "mamba2-130m": cpu_meta_grads("mamba2-130m",
+                                          MAMBA_AGREE_SEQ)})
     hgmma = hgmma_phase({
         "flash_attention": (fops.build()["path"],
                             ("hop::fwd_kernel", "hop::dq_kernel",
@@ -4733,7 +4883,8 @@ def main() -> int:
             ("ssd_scan", *SSD_PASSES, "ssd_scan_tangent", *T3_PASSES,
              "ssd_scan_bwd", *SSD_BWD_KERNELS, "ssd_scan_bwd_tangent",
              *SSD_BWD_TANGENT_KERNELS, "fused_combine_update"),
-            ("--expect-fused", "--expect-outer-dtype", "bfloat16")),
+            ("--expect-fused", "--expect-outer-dtype", "bfloat16"),
+            resume=True),
         "qwen2": train_phase(
             "qwen2", dataclasses.replace(get_config("qwen2-1.5b"),
                                          num_layers=2),
@@ -4751,9 +4902,12 @@ def main() -> int:
     adapted_serve = serve_adapted_phase((ops, fops, sops))
     stamp("serve_adapted")
     train_agreement = {
-        "qwen2-1.5b": train_agreement_phase("qwen2-1.5b", 128, AGREE_RTOL),
-        "mamba2-130m": train_agreement_phase("mamba2-130m", 512,
-                                             MAMBA_AGREE_RTOL)}
+        "qwen2-1.5b": train_agreement_phase(
+            "qwen2-1.5b", QWEN_AGREE_SEQ, AGREE_RTOL,
+            cpu=cpu_halves.pop("qwen2-1.5b")),
+        "mamba2-130m": train_agreement_phase(
+            "mamba2-130m", MAMBA_AGREE_SEQ, MAMBA_AGREE_RTOL,
+            cpu=cpu_halves.pop("mamba2-130m"))}
     stamp("training agreement")
     # phases 19-22, before phase 5 for the same reason as phase 6
     moe = moe_phases(ops, ref, (ops, fops, sops))
@@ -4771,9 +4925,10 @@ def main() -> int:
     serve_row = serve_phase(SERVE_ARGS, counters, lambda n, k: {
         "flash_attention_fwd": n * k, "flash_attention_bwd": 2 * n * k})
     stamp("serve")
-    agreement = agreement_phase()
+    agreement = agreement_phase(task_batch=1)
     # the float32 backward (3xTF32) at the shape this phase's f32 adaptation
-    # gives it: 2 sequences of 256, qwen2's 12 / 2 heads of 128
+    # gave it until the encoder-decoder phases came in (2 sequences of 256;
+    # one since): qwen2's 12 / 2 heads of 128
     agreement["flash_f32"] = check_gqa_flash(
         fops, fref, torch.Generator(device=DEVICE).manual_seed(12), 2, 256,
         12, 2, 128, torch.float32, True, None, n=5)
@@ -4791,7 +4946,7 @@ def main() -> int:
     stamp("mamba2 serve")
     mamba_agreement = agreement_phase(
         dataclasses.replace(get_config("mamba2-130m"), num_layers=2),
-        MAMBA_AGREE_RTOL, seq=1024, task_batch=2)
+        MAMBA_AGREE_RTOL, seq=1024, task_batch=1)
 
     mc, fs, large = kern["main_combine"], kern["fused_step"], kern["large"]
     summary = {"kernels": [
@@ -4808,6 +4963,8 @@ def main() -> int:
          "large": large["dif_combine"],
          "qwen2_layer": kern["qwen2"]["dif_combine"],
          "deepseek_leaves": moe["outer"]["dif_combine"],
+         "deepseek_pallas_run_launches":
+             moe["train_pallas"]["launches"]["dif_combine"],
          "whisper_pallas_run_launches":
              encdec["train_pallas"]["launches"]["dif_combine"]},
         {"name": "fused_combine_update", "route": "cuda", "source": SOURCE,

@@ -244,16 +244,9 @@ class ServeEngine:
         """What the cross blocks attend to while decoding: the encoder over
         zero frames (audio), zero patches through ``vision_proj`` (vision);
         None for the other families."""
-        cfg, B = self.cfg, self.batch
-        if cfg.arch_type == "audio":
-            frames = torch.zeros(B, cfg.encoder_frames, cfg.d_model,
-                                 dtype=self.dtype, device=self.device)
-            return self.model.encode(params, frames)
-        if cfg.arch_type == "vlm":
-            patches = torch.zeros(B, cfg.num_patches, cfg.d_model,
-                                  dtype=self.dtype, device=self.device)
-            return patches @ params["vision_proj"]
-        return None
+        stubs = S.modality_extras(self.cfg, (self.batch,), self.dtype,
+                                  self.device)
+        return self.model._aux(params, stubs).get("enc")
 
     @torch.no_grad()
     def decode(self, params: Params, prompt: Any, seed: int = 0
