@@ -12,7 +12,8 @@ Phases, each fatal on failure:
                 sm_90a, all at once, and prints the build
                 seconds and, from ``cuobjdump -sass``, the tensor-core
                 instructions in each Hopper kernel: HGMMA (wgmma) in the
-                bf16 flash forward, dQ and dK/dV kernels, the SSD
+                bf16 flash forward, dQ and dK/dV kernels and T1's and T2's
+                three bf16 tangent kernels, the SSD
                 chunk-state and chunk-output kernels and T3's tangent
                 chunk-state and chunk-output kernels, HMMA (mma.sync on
                 TF32) in the float32 flash forward, dQ and dK/dV kernels and
@@ -20,7 +21,10 @@ Phases, each fatal on failure:
                 SSD backward's and its tangent's state and chunk kernels;
                 each must have some.  Then one
                 call of ``gqa_flash_attention`` at the serving shape must
-                run one kernel forward and two backward, at lm-100m's shape
+                run one kernel forward and two backward, one bf16 T1 call
+                ``hop::tangent_fwd_kernel`` alone and one bf16 T2 call
+                ``hop::tangent_dq_kernel`` and ``tangent_dkv_kernel``,
+                at lm-100m's shape
                 one float32 forward its one kernel, one float32 backward its
                 two and one float32 T2 its two, one bf16 SSD scan call the
                 SSD's three kernels, one bf16 ``ssd_scan_tangent`` call
@@ -172,9 +176,14 @@ Phases, each fatal on failure:
                 launches) over phase 6's sweep (B=2, H=4, S in {128, 256,
                 1024} x d in {64, 128} x three masks x two dtypes) and the
                 qwen2 model layout at the training shape (B=16, S=256,
-                H=12, KV=2, d=128, causal), and float32 rows as phase 6's
-                (d = 30 and 32, ragged S, GQA ratios 1, 2 and 6, unaligned
-                views); T3 (the SSD scan's tangent)
+                H=12, KV=2, d=128, causal; timed; planted faults: o' rows
+                zeroed, T2's results' rows zeroed, T2 without lse'), and
+                rows as phase 6's float32 ones in both dtypes (d = 30 and
+                32, ragged S, GQA ratios 1, 2 and 6, unaligned views);
+                bf16 T1 and T2 on values sharing a mean (SHARED_MEAN: the
+                shapes where a P rounded once to bf16, without its lo
+                half, falls outside the tolerance); T3
+                (the SSD scan's tangent)
                 over phase 9's grid, a ragged row with two groups and A per
                 sequence, the mamba2 training shape (8 sequences of 512, A
                 per sequence) and the serving shape, with planted faults
@@ -308,7 +317,8 @@ Phases, each fatal on failure:
                 S > S_k.  The encoder and cross rows timed at the serving
                 batch (16 sequences) in bf16 beside their bounds and SDPA's
                 times.  Keys 1472-1499 zeroed in the kernels' input only
-                must fail the check (the last, partial key tile is read).
+                must fail the check (the last, partial key tile is read),
+                for the forward and backward and for bf16 T1 and T2.
 24. whisper serve -- phase 7 for whisper-large-v3 at full width (d_model
                 1280, 20 heads of 64, d_ff 5120, vocab 51866, 1500 zero
                 frames) cut to 4 encoder + 4 decoder layers: 3 flash
@@ -323,7 +333,13 @@ Phases, each fatal on failure:
 25. whisper training -- phase 13 for whisper cut to 2 + 2 layers: exact
                 MAML (the flash kernels, T1 and T2), Adam, bf16, K=4 on the
                 ring, T=2, 256 tokens, ``--fused-outer``, eval, checkpoint
-                and resume, one profiled meta-step; then 2 steps with
+                and resume, one profiled meta-step (T1 and T2 apart, and
+                their calls tallied by shape); then bf16 T1 and T2 timed
+                apart at the encoder's 1500 x 1500, the cross-attention's
+                256 x 1500 and the decoder's causal 256 x 256, at the batch
+                of the profiled step's calls, beside their bounds, the
+                plain versions' times at 2 sequences (the first sequences
+                held against the plain versions); then 2 steps with
                 ``--combine pallas``.
 26. encoder-decoder agreement -- phase 15 for whisper cut to 1 + 1 layers
                 (``maml`` and ``fomaml``, so the curvature part is held as
@@ -1308,10 +1324,12 @@ def time_cold_ms(fn, n: int, flush: torch.Tensor) -> float:
 
 def flash_calls_phase(fops) -> dict:
     """The kernels that one call of ``gqa_flash_attention`` runs on the
-    card at the serving shape, forward and backward, and one float32
-    forward, backward and T2 call at lm-100m's shape, from torch.profiler;
-    fails unless each forward runs its one kernel and each backward and T2
-    its two, with no copy, expansion or reduction beside them.  Run before the
+    card at the serving shape, forward and backward, one bf16 T1 and T2
+    call at the same shape, and one float32 forward, backward and T2 call
+    at lm-100m's shape, from torch.profiler; fails unless each forward and
+    T1 runs its one kernel and each backward and T2 its two (bf16 T1 and
+    T2: hop's tangent kernels), with no copy, expansion or reduction beside
+    them.  Run before the
     training step's profile (phase 5): torch.profiler sessions after that
     one record none of these kernels."""
     g = FLASH_GQA_MAIN
@@ -1328,6 +1346,20 @@ def flash_calls_phase(fops) -> dict:
                "out", fops.gqa_flash_attention(*leaves, **kw))),
            "bwd": device_kernels(lambda: torch.autograd.grad(
                held["out"], leaves, do))}
+    # T1 and T2 in bf16 at the same shape (qwen2's training shape): hop's
+    # tangent kernels and nothing else
+    q, k, v = (t.detach() for t in leaves)
+    out, lse = fops.gqa_flash_attention_fwd_lse(q, k, v, **kw)
+    tq, tdo = (torch.randn_like(q) for _ in "qo")
+    tk, tv = (torch.randn_like(k) for _ in "kv")
+    t1 = lambda: fops.flash_attention_fwd_tangent(q, k, v, lse, tq, tk, tv,
+                                                  heads_dim=2, **kw)
+    to, tlse = t1()
+    t2 = lambda: fops.flash_attention_bwd_tangent(
+        q, k, v, out, lse, do, tq, tk, tv, to, tlse, tdo, heads_dim=2, **kw)
+    t2()
+    row["fwd_tangent"] = device_kernels(t1)
+    row["bwd_tangent"] = device_kernels(t2)
     # the float32 backward at lm-100m's shape: its two kernels and nothing
     # else (no head expansion, copy, D or per-KV-head sum beside them)
     f = LM100M_FLASH
@@ -1358,6 +1390,15 @@ def flash_calls_phase(fops) -> dict:
             f"a gqa_flash_attention forward call ran {row['fwd']} and its "
             f"backward {row['bwd']} on the card; expected the forward "
             f"kernel alone and the two backward kernels")
+    for key, parts in (("fwd_tangent", ("hop::tangent_fwd_kernel",)),
+                       ("bwd_tangent", ("hop::tangent_dq_kernel",
+                                        "hop::tangent_dkv_kernel"))):
+        names = row[key]
+        if len(names) != len(parts) or not all(
+                sum(part in x for x in names) == 1 for part in parts):
+            raise AssertionError(
+                f"a bf16 flash_attention_{key} call ran {names} on the "
+                f"card; expected {parts} and nothing else")
     for key, call, n, part in (
             ("fwd_float32", "gqa_flash_attention_fwd_lse", 1, "fwd_kernel"),
             ("bwd_float32", "gqa_flash_attention_bwd", 2, "d"),
@@ -2842,6 +2883,16 @@ TANGENT_TOL = {torch.float32: (0.0, 1e-4),
                torch.bfloat16: (1.6e-2, 2.0 ** -8)}
 TANGENTS = ("flash_attention_fwd_tangent", "flash_attention_bwd_tangent",
             "ssd_scan_tangent", "ssd_scan_bwd_tangent")
+# bf16 T1 and T2 where the lo halves matter: values sharing a mean of 4 and
+# keys a direction, so that o' = O' - lse' O is a difference of two large
+# sums and dq' one whose rows of dS sum to 0.  A P (or dS) rounded once to
+# bf16 puts them outside TANGENT_TOL (tests/test_torch_flash_tangent_hilo.py
+# models it on the CPU); N(0, 1) inputs do not show it.  (B, S, S_k, H, KV,
+# d, causal): whisper's encoder cut to one sequence and 2 heads, and a
+# causal GQA 6:1 shape at d = 128.
+SHARED_MEAN = {"whisper-like 1500x1500": (1, 1500, 1500, 2, 2, 64, False),
+               "causal GQA 6:1 d=128": (1, 256, 256, 6, 1, 128, True)}
+V_MEAN, K_DIRECTION = 4.0, 1.0
 # The mamba2 training path's scan: 4 agents x 2 tasks x 1 sequence of 512
 # tokens folded into one batch, chunk 256.
 SSD_TRAIN = dict(B=8, L=512, H=24, P=64, N=128, G=1, chunk=256)
@@ -2888,6 +2939,16 @@ def flash_tangent_cost(B, H, KV, S, d, itemsize, pairs, backward, Sk=None
     if backward:
         return 7 * qb + 6 * kb + 2 * rows, 24.0 * d * pairs * B * H
     return 3 * qb + 4 * kb + 2 * rows, 12.0 * d * pairs * B * H
+
+
+def flash_tangent_design_flops(B, H, d, pairs, backward) -> float:
+    """The operations the bf16 tangent kernels (namespace hop) do: every
+    product that takes a float32 operand (P, P ⊙ S', P', dS, dS') as A
+    runs twice, hi and lo, and T2's dK'/dV' launch forms S, S', dP and dP'
+    again.  T1 9d multiply-adds a pair a head (S, S' twice, P V and P V'
+    twice each, (P ⊙ S') V twice); T2 24d (part 0: S, S' twice, dP, dP'
+    twice, dq' four; part 1: the same six and dk', dv' four each)."""
+    return (48.0 if backward else 18.0) * d * pairs * B * H
 
 
 def check_flash_tangents(fops, fref, gen, heads_dim, shape, dtype, causal,
@@ -2940,7 +3001,11 @@ def check_flash_tangents(fops, fref, gen, heads_dim, shape, dtype, causal,
                Sk=Sk, dtype=str(dtype)[6:], causal=causal, window=window,
                unaligned=unaligned, fwd_max_abs_err=e1, bwd_max_abs_err=e2)
     if faults:
-        # rows of each result zeroed, and lse' left out (T2 given zeros)
+        # o' rows zeroed (T1); rows of each of T2's results zeroed, and lse'
+        # left out (T2 given zeros)
+        if tangent_outside(zero_seq(to, heads_dim, 0, 64), want_to)[0] == 0:
+            raise AssertionError(f"{what}: planted fault 'o' rows 0:64 zero' "
+                                 f"passed the check")
         dq, dk, dv = grads
         planted = {"dq' rows 0:64 zero": (0, zero_seq(dq, heads_dim, 0, 64)),
                    "dk' rows 64:128 zero": (1, zero_seq(dk, heads_dim, 64,
@@ -2956,7 +3021,7 @@ def check_flash_tangents(fops, fref, gen, heads_dim, shape, dtype, causal,
             if tangent_outside(bad, wants[i])[0] == 0:
                 raise AssertionError(f"{what}: planted fault '{name}' passed "
                                      f"the check")
-        row["planted_faults_caught"] = list(planted)
+        row["planted_faults_caught"] = ["o' rows 0:64 zero", *planted]
     if timed:
         pairs = int(band_mask(S, Sk, causal, window).sum())
         rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else \
@@ -2976,12 +3041,61 @@ def check_flash_tangents(fops, fref, gen, heads_dim, shape, dtype, causal,
                 nbytes, flops, rate)
             if dtype == torch.float32 and p == "bwd":
                 tf32_bound(row, p, (nbytes, flops))
+            if dtype == torch.bfloat16:
+                row[f"{p}_design_bound_ms"] = bound_ms(
+                    nbytes, flash_tangent_design_flops(
+                        B, H, d, pairs, p == "bwd"), rate)[0]
         print(f"{what}: T1 {row['fwd_ms']:.4f} ms (plain "
               f"{row['fwd_plain_ms']:.3f}, bound {row['fwd_bound_ms']:.4f} "
               f"{row['fwd_bound_by']}), T2 {row['bwd_ms']:.4f} ms (plain "
               f"{row['bwd_plain_ms']:.3f}, bound {row['bwd_bound_ms']:.4f} "
               f"{row['bwd_bound_by']}); errs {e1:.2e} {e2:.2e}", flush=True)
     return row
+
+
+def shared_mean_tangents(fops, fref) -> dict:
+    """bf16 T1 and T2 at SHARED_MEAN's shapes against their plain versions:
+    for each shape and output, [elements outside TANGENT_TOL, largest
+    |error|].  Raises nothing: scripts/ablate_flash_tangents.py reads it on
+    copies of the source without the lo halves."""
+    rows = {}
+    for name, (B, S, Sk, H, KV, d, causal) in SHARED_MEAN.items():
+        gen = torch.Generator().manual_seed(0)
+        draw = lambda *s: torch.randn(*s, generator=gen)
+        q, tq, do, tdo = (draw(B, S, H, d) for _ in range(4))
+        k, v, tk, tv = (draw(B, Sk, KV, d) for _ in range(4))
+        k, v = k + K_DIRECTION * draw(d), v + V_MEAN
+        q, k, v, do, tq, tk, tv, tdo = (
+            t.to(DEVICE, torch.bfloat16)
+            for t in (q, k, v, do, tq, tk, tv, tdo))
+        kw = dict(causal=causal, window=None, heads_dim=2)
+        out, lse = fref.gqa_flash_fwd_ref(q, k, v, causal=causal, window=None)
+        to, tlse = fops.flash_attention_fwd_tangent(q, k, v, lse, tq, tk, tv,
+                                                    **kw)
+        want_to, want_tlse = fref.flash_fwd_tangent_ref(q, k, v, tq, tk, tv,
+                                                        **kw)
+        grads = fops.flash_attention_bwd_tangent(
+            q, k, v, out, lse, do, tq, tk, tv, want_to, want_tlse, tdo, **kw)
+        wants = fref.flash_bwd_tangent_ref(q, k, v, out, lse, do, tq, tk, tv,
+                                           want_to, want_tlse, tdo, **kw)
+        pairs = {"o'": (to, want_to), "lse'": (tlse, want_tlse),
+                 **{f"d{n}'": gw for n, gw in zip("qkv", zip(grads, wants))}}
+        rows[name] = {n: list(tangent_outside(g, w))
+                      for n, (g, w) in pairs.items()}
+    return rows
+
+
+def check_shared_mean_tangents(fops, fref) -> dict:
+    """shared_mean_tangents, each output within TANGENT_TOL."""
+    rows = shared_mean_tangents(fops, fref)
+    bad = {name: {n: v for n, v in row.items() if v[0]}
+           for name, row in rows.items()}
+    if any(bad.values()):
+        raise AssertionError(f"bf16 tangents, values sharing a mean: outside "
+                             f"TANGENT_TOL: {bad}")
+    print("bf16 tangents, values sharing a mean (outside, max abs err)",
+          json.dumps(rows), flush=True)
+    return rows
 
 
 def ssd_tangent_cost(B, L, H, P, N, G, chunk, itemsize
@@ -3182,19 +3296,26 @@ def tangent_phase(fops, fref, sops, sref) -> dict:
                     rows.append(check_flash_tangents(
                         fops, fref, gen, 1, (2, 4, S, d), dtype, causal,
                         window))
-    # T2's float32 kernels' other cases (T1 beside them): d = 32 and 30,
-    # ragged S, GQA ratios 1, 2 and 6, rows not 16-byte aligned
-    rows.append(check_flash_tangents(fops, fref, gen, 1, (2, 4, 200, 32),
-                                     torch.float32, True, None))
-    rows += [check_flash_tangents(fops, fref, gen, 2, (B, S, H, KV, d),
-                                  torch.float32, causal, window,
-                                  unaligned=un)
-             for B, S, H, KV, d, causal, window, un in F32_EXTRA]
+    # T2's float32 kernels' other cases and the bf16 kernels' (T1 beside
+    # them): d = 32 and 30, ragged S, GQA ratios 1, 2 and 6, rows not
+    # 16-byte aligned
+    for dtype in (torch.float32, torch.bfloat16):
+        rows.append(check_flash_tangents(fops, fref, gen, 1, (2, 4, 200, 32),
+                                         dtype, True, None))
+        rows += [check_flash_tangents(fops, fref, gen, 2, (B, S, H, KV, d),
+                                      dtype, causal, window, unaligned=un)
+                 for B, S, H, KV, d, causal, window, un in F32_EXTRA]
     g = FLASH_GQA_MAIN
     gqa = {str(dtype)[6:]: check_flash_tangents(
         fops, fref, gen, 2, (g["B"], g["S"], g["H"], g["KV"], g["d"]),
-        dtype, True, None, timed=True)
+        dtype, True, None, timed=True, faults=dtype == torch.bfloat16)
         for dtype in (torch.bfloat16, torch.float32)}
+    b = gqa["bfloat16"]
+    print(f"qwen2 training shape, bf16: T1 {b['fwd_ms']:.4f} ms (this "
+          f"design's bound {b['fwd_design_bound_ms']:.4f}), T2 "
+          f"{b['bwd_ms']:.4f} ms ({b['bwd_design_bound_ms']:.4f})",
+          flush=True)
+    shared_mean = check_shared_mean_tangents(fops, fref)
     ssd_rows = []
     for L, chunk in ((128, 32), (256, 64), (256, 128)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -3239,7 +3360,8 @@ def tangent_phase(fops, fref, sops, sref) -> dict:
               f"shape (PERF.md)", flush=True)
     torch.cuda.empty_cache()
     bwd_tangent = ssd_bwd_rows(sops, sref, gen, tangent=True)
-    return dict(flash_rows=rows, flash_gqa=gqa, ssd_rows=ssd_rows,
+    return dict(flash_rows=rows, flash_gqa=gqa, shared_mean=shared_mean,
+                ssd_rows=ssd_rows,
                 ssd_train=ssd_train, ssd_serve=ssd_serve, passes=passes,
                 pass_rows=pass_rows, bwd_tangent=bwd_tangent)
 
@@ -3262,6 +3384,7 @@ def tangent_summary(tan, train_rows) -> list:
             "max_abs_err": g[f"{p}_max_abs_err"], "ms": g[f"{p}_ms"],
             "plain_ms": g[f"{p}_plain_ms"], "bound_ms": g[f"{p}_bound_ms"],
             "bound_by": g[f"{p}_bound_by"], "library_ms": None,
+            "design_bound_ms": g[f"{p}_design_bound_ms"],
             "shape": flash_shape + ("; two launches a call (dq', then "
                                     "dk'/dv'); ms is both" if p == "bwd"
                                     else "")
@@ -3272,7 +3395,11 @@ def tangent_summary(tan, train_rows) -> list:
                         if k.startswith(p)},
             "sweep_checks": len(tan["flash_rows"]),
             "sweep_worst_err": max(r[f"{p}_max_abs_err"]
-                                   for r in tan["flash_rows"])})
+                                   for r in tan["flash_rows"]),
+            "shared_mean_worst_err": max(
+                row[n][1] for row in tan["shared_mean"].values()
+                for n in (("o'", "lse'") if p == "fwd"
+                          else ("dq'", "dk'", "dv'")))})
     s = SSD_TRAIN
     out.append({
         "name": "ssd_scan_tangent", "route": "cuda", "source": SSD_SOURCE,
@@ -3353,15 +3480,52 @@ def all_counts(modules) -> dict:
     return {k: n for m in modules for k, n in m.launch_counts.items()}
 
 
+def tangent_calls(fops):
+    """A context in which each flash tangent call (T1, T2) is tallied by
+    its shape as the kernel entry is handed it, "BxSxS_k" and the mask,
+    into the dict it yields; the calls themselves run unchanged."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def tally():
+        calls: dict = {}
+        wrapped = {}
+        for name, kind in (("flash_attention_fwd_tangent", "T1"),
+                           ("flash_attention_bwd_tangent", "T2")):
+            fn = getattr(fops, name)
+
+            def counted(q, k, *args, _fn=fn, _kind=kind, **kw):
+                hd = kw.get("heads_dim", 1)
+                S, Sk = (q.shape[2], k.shape[2]) if hd == 1 else \
+                    (q.shape[1], k.shape[1])
+                key = (f"{_kind} {q.shape[0]}x{S}x{Sk} "
+                       f"{'causal' if kw.get('causal', True) else 'full'}")
+                calls[key] = calls.get(key, 0) + 1
+                return _fn(q, k, *args, **kw)
+
+            wrapped[name] = fn
+            setattr(fops, name, counted)
+        try:
+            yield calls
+        finally:
+            for name, fn in wrapped.items():
+                setattr(fops, name, fn)
+
+    return tally()
+
+
 def profile_train_step(bundle, state, batch, modules) -> dict:
     """One meta-step under torch.profiler: wall time, device time split
-    into the forward kernels, the tangent kernels, the flash backward
-    kernels, the SSD backward's kernels and their tangent's (``sbw::``),
-    the outer update and the rest; the chunked SSD backward and its jvp
-    (their record_function ranges: CPU tensors only, so none on the card);
-    the card's idle share; each kernel's launches by the wrappers'
-    counters; peak memory."""
+    into the forward kernels, T1 and T2 (the flash tangents, apart), the
+    other tangent kernels (T3), the flash backward kernels, the SSD
+    backward's kernels and their tangent's (``sbw::``), the outer update
+    and the rest; the chunked SSD backward and its jvp (their
+    record_function ranges: CPU tensors only, so none on the card); the
+    card's idle share; each kernel's launches by the wrappers' counters,
+    and the flash tangent calls by shape (``tangent_calls``); peak
+    memory."""
     from torch.profiler import ProfilerActivity, profile
+    fops = next(m for m in modules if hasattr(m, "flash_attention_fwd_tangent"))
     state, _ = bundle.step_fn(state, batch)           # warm
     torch.cuda.synchronize()
     # the warm step's cached blocks back to the card: the qwen2 cut peaks
@@ -3371,8 +3535,9 @@ def profile_train_step(bundle, state, batch, modules) -> dict:
         m.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with tangent_calls(fops) as calls, \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         state, metrics = bundle.step_fn(state, batch)
         torch.cuda.synchronize()
@@ -3380,8 +3545,9 @@ def profile_train_step(bundle, state, batch, modules) -> dict:
     launches = all_counts(modules)
     peak = torch.cuda.max_memory_allocated()
     ranges = ("ssd_scan_chunked_bwd", "ssd_scan_chunked_bwd_jvp")
-    split = dict(forward=0.0, tangent=0.0, flash_backward=0.0,
-                 ssd_bwd=0.0, ssd_bwd_tangent=0.0, outer=0.0, other=0.0)
+    split = dict(forward=0.0, flash_t1=0.0, flash_t2=0.0, tangent=0.0,
+                 flash_backward=0.0, ssd_bwd=0.0, ssd_bwd_tangent=0.0,
+                 outer=0.0, other=0.0)
     in_ranges = {r: 0.0 for r in ranges}
     busy = 0.0
     for evt in prof.key_averages():
@@ -3397,8 +3563,13 @@ def profile_train_step(bundle, state, batch, modules) -> dict:
             if "sbw::" in key:
                 split["ssd_bwd_tangent" if "sbw::tangent_" in key
                       else "ssd_bwd"] += us
+            elif "fwd_tangent_kernel" in key or \
+                    "tangent_fwd_kernel" in key:
+                split["flash_t1"] += us            # jvpk (f32), hop (bf16)
+            elif "tangent_dq_kernel" in key or "tangent_dkv_kernel" in key:
+                split["flash_t2"] += us            # tf32 (f32), hop (bf16)
             elif "jvpk" in key or "tangent" in key:
-                split["tangent"] += us
+                split["tangent"] += us             # T3
             elif any(k in key for k in SSD_FORWARD_KERNELS) or \
                     "fwd_kernel" in key:
                 split["forward"] += us
@@ -3414,7 +3585,8 @@ def profile_train_step(bundle, state, batch, modules) -> dict:
             in_ranges[evt.key] += t if t is not None else getattr(
                 evt, "cuda_time_total", 0)
     row = dict(wall_s=wall, peak_gb=peak / 1e9, state_gb=base / 1e9,
-               loss=float(metrics["loss"]), launches=launches)
+               loss=float(metrics["loss"]), launches=launches,
+               tangent_calls=calls)
     if busy:
         row.update(device_ms=busy / 1e3,
                    device_idle_share=max(0.0, 1 - busy / 1e6 / wall),
@@ -4195,11 +4367,143 @@ def ragged_tile_fault(fops, fref, gen, dtype) -> dict:
     return row
 
 
+def ragged_tangent_fault(fops, fref, gen) -> dict:
+    """ragged_tile_fault for the bf16 tangent kernels: whisper's encoder
+    shape with K, V, K' and V' zeroed at RAGGED_KEYS in T1's and T2's input
+    only; o' and dq' must fail the check against the plain versions on the
+    true inputs, which pass."""
+    B, S, Sk, H, KV, d, causal = ENCDEC_FLASH["whisper encoder"]
+    bf = torch.bfloat16
+    q, tq, do, tdo = (randn_view(gen, (B, S, H, d), bf) for _ in range(4))
+    k, v, tk, tv = (randn_view(gen, (B, Sk, KV, d), bf) for _ in range(4))
+    kw = dict(causal=causal, window=None, heads_dim=2)
+    out, lse = fref.gqa_flash_fwd_ref(q, k, v, causal=causal, window=None)
+    want_to, want_tlse = fref.flash_fwd_tangent_ref(q, k, v, tq, tk, tv, **kw)
+    wants = fref.flash_bwd_tangent_ref(q, k, v, out, lse, do, tq, tk, tv,
+                                       want_to, want_tlse, tdo, **kw)
+    lo, hi = RAGGED_KEYS
+    cut = [t.clone() for t in (k, v, tk, tv)]
+    for t in cut:
+        t[:, lo:hi] = 0
+    row = {}
+    for name, (kk, vv, tkk, tvv) in (("true", (k, v, tk, tv)),
+                                     ("zeroed", cut)):
+        to, tlse = fops.flash_attention_fwd_tangent(q, kk, vv, lse, tq, tkk,
+                                                    tvv, **kw)
+        grads = fops.flash_attention_bwd_tangent(q, kk, vv, out, lse, do, tq,
+                                                 tkk, tvv, want_to,
+                                                 want_tlse, tdo, **kw)
+        torch.cuda.synchronize()
+        flagged = {"o'": tangent_outside(to, want_to)[0],
+                   "lse'": tangent_outside(tlse, want_tlse)[0]}
+        flagged.update({f"d{n}'": tangent_outside(g, w)[0]
+                        for g, w, n in zip(grads, wants, "qkv")})
+        row[name] = flagged
+    if any(row["true"].values()):
+        raise AssertionError(f"ragged tile, tangents: the true inputs fail "
+                             f"the check: {row['true']}")
+    if not (row["zeroed"]["o'"] and row["zeroed"]["dq'"]):
+        raise AssertionError(f"ragged tile, tangents: keys {lo}:{hi} zeroed "
+                             f"in the kernels' input pass the check: "
+                             f"{row['zeroed']}")
+    row.update(dtype="bfloat16", keys=list(RAGGED_KEYS))
+    print("ragged tile planted fault, T1 and T2", json.dumps(row), flush=True)
+    return row
+
+
+# T1 and T2 in bf16 at whisper's training shapes, (S, S_k, causal): the
+# encoder's 1500 frames, the cross-attention's 256 queries against them and
+# the decoder's causal 256; 20 heads of 64.  Timed at the batch the
+# training run's tangent calls have; the plain versions (float64 sums,
+# seconds and tens of GB at 1500 frames) at TANGENT_PLAIN_B sequences, the
+# kernels' first sequences held against them.
+WHISPER_TANGENT = {"whisper encoder": (1500, 1500, False),
+                   "whisper cross": (256, 1500, False),
+                   "whisper decoder": (256, 256, True)}
+TANGENT_PLAIN_B = 2
+
+
+def tangent_batch(calls: dict, S, Sk, causal) -> int:
+    """The batch of the T1 calls of one shape in ``tangent_calls``' tally;
+    raises if the run made none."""
+    mask = "causal" if causal else "full"
+    batches = {int(key.split()[1].split("x")[0]) for key in calls
+               if key.startswith("T1 ") and key.endswith(f"x{S}x{Sk} {mask}")}
+    if len(batches) != 1:
+        raise AssertionError(f"T1 calls of {S}x{Sk} {mask}: batches "
+                             f"{batches} in {calls}")
+    return batches.pop()
+
+
+def whisper_tangent_rows(fops, fref, calls: dict) -> dict:
+    """T1 and T2 (bf16) timed apart at WHISPER_TANGENT's shapes, at the
+    training run's batch (``calls``: its profiled meta-step's tally), each
+    beside its bounds (operations, and this design's hi/lo products) and
+    the plain version's time at TANGENT_PLAIN_B sequences; the first
+    sequences within TANGENT_TOL of the plain versions."""
+    from repro_torch.kernels.flash_attention.ref import band_mask
+    gen = torch.Generator(device=DEVICE).manual_seed(24)
+    bf, H, d = torch.bfloat16, 20, 64
+    rows = {}
+    for name, (S, Sk, causal) in WHISPER_TANGENT.items():
+        B = tangent_batch(calls, S, Sk, causal)
+        q, tq, do, tdo = (randn_view(gen, (B, S, H, d), bf) for _ in range(4))
+        k, v, tk, tv = (randn_view(gen, (B, Sk, H, d), bf) for _ in range(4))
+        kw = dict(causal=causal, window=None, heads_dim=2)
+        out, lse = fops.gqa_flash_attention_fwd_lse(q, k, v, causal=causal)
+        t1 = lambda: fops.flash_attention_fwd_tangent(q, k, v, lse, tq, tk,
+                                                      tv, **kw)
+        to, tlse = t1()
+        t2 = lambda: fops.flash_attention_bwd_tangent(
+            q, k, v, out, lse, do, tq, tk, tv, to, tlse, tdo, **kw)
+        grads = t2()
+        b = min(B, TANGENT_PLAIN_B)
+        first = lambda *ts: [t[:b] for t in ts]
+        plain1 = lambda: fref.flash_fwd_tangent_ref(
+            *first(q, k, v, tq, tk, tv), **kw)
+        plain2 = lambda: fref.flash_bwd_tangent_ref(
+            *first(q, k, v, out, lse, do, tq, tk, tv, to, tlse, tdo), **kw)
+        what = f"{name} T1/T2 bf16 (first {b} of {B} sequences)"
+        e1 = max(check_tangent(g, w, f"{what} {n}'") for g, w, n in
+                 zip(first(to, tlse), plain1(), ("o", "lse")))
+        e2 = max(check_tangent(g, w, f"{what} {n}'") for g, w, n in
+                 zip(first(*grads), plain2(), ("dq", "dk", "dv")))
+        pairs = int(band_mask(S, Sk, causal, None).sum())
+        row = dict(B=B, S=S, Sk=Sk, H=H, KV=H, d=d, causal=causal,
+                   dtype="bfloat16", plain_B=b, fwd_max_abs_err=e1,
+                   bwd_max_abs_err=e2)
+        for p, fn, plain in (("fwd", t1, plain1), ("bwd", t2, plain2)):
+            nbytes, flops = flash_tangent_cost(B, H, H, S, d, 2, pairs,
+                                               p == "bwd", Sk=Sk)
+            row[f"{p}_ms"] = time_ms(fn, 5)
+            row[f"{p}_plain_ms"] = time_events(plain, 2)
+            row[f"{p}_bound_ms"], row[f"{p}_bound_by"] = bound_ms(
+                nbytes, flops, BF16_FLOP_PER_S)
+            row[f"{p}_design_bound_ms"] = bound_ms(
+                nbytes, flash_tangent_design_flops(B, H, d, pairs,
+                                                   p == "bwd"),
+                BF16_FLOP_PER_S)[0]
+        print(f"{name} tangents bf16 at B={B}: T1 {row['fwd_ms']:.4f} ms "
+              f"(bound {row['fwd_bound_ms']:.4f} {row['fwd_bound_by']}, this "
+              f"design {row['fwd_design_bound_ms']:.4f}, plain at B={b} "
+              f"{row['fwd_plain_ms']:.3f}); T2 {row['bwd_ms']:.4f} ms (bound "
+              f"{row['bwd_bound_ms']:.4f} {row['bwd_bound_by']}, this design "
+              f"{row['bwd_design_bound_ms']:.4f}, plain "
+              f"{row['bwd_plain_ms']:.3f}); errs {e1:.2e} {e2:.2e}",
+              flush=True)
+        rows[name] = row
+        del q, k, v, tq, tk, tv, do, tdo, out, lse, to, tlse, grads
+        torch.cuda.empty_cache()
+    return rows
+
+
 def encdec_flash_phase(fops, fref) -> dict:
     """Phase 23: the flash forward, backward, T1 and T2 at the shapes of
     ENCDEC_FLASH in both dtypes against their plain versions; the encoder
     and cross rows timed at the serving batch in bf16 (bounds, SDPA); the
-    ragged key tile's planted fault."""
+    ragged key tile's planted fault for the forward and backward and for
+    the bf16 tangents.  (T1 and T2 are timed at whisper's training shapes
+    after its training run, ``whisper_tangent_rows``.)"""
     gen = torch.Generator(device=DEVICE).manual_seed(23)
     rows, tangents = {}, {}
     for name, (B, S, Sk, H, KV, d, causal) in ENCDEC_FLASH.items():
@@ -4229,9 +4533,27 @@ def encdec_flash_phase(fops, fref) -> dict:
         torch.cuda.empty_cache()
     faults = {str(dt)[6:]: ragged_tile_fault(fops, fref, gen, dt)
               for dt in (torch.bfloat16, torch.float32)}
+    faults["tangents bfloat16"] = ragged_tangent_fault(fops, fref, gen)
     torch.cuda.empty_cache()
     return dict(rows=rows, tangents=tangents, timed=timed,
                 ragged_tile_faults=faults)
+
+
+def tangent_encdec_summary(name, encdec) -> dict:
+    """The kernels-line keys of T1 or T2 at whisper's training shapes (bf16,
+    the training run's batch) and their launches in its training run."""
+    p = "fwd" if name.endswith("fwd_tangent") else "bwd"
+    out = {}
+    for row_name, row in encdec["tangents"].items():
+        out[row_name.replace(" ", "_")] = dict(
+            shape={k: row[k] for k in ("B", "S", "Sk", "H", "KV", "d",
+                                       "dtype", "causal")},
+            **{k: row[f"{p}_{k}"] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "design_bound_ms")},
+            plain_B=row["plain_B"], library_ms=None)
+    out["whisper_train_launches"] = encdec["train"]["launches"][name]
+    return out
 
 
 def encdec_summary(name, flash, encdec) -> dict:
@@ -4315,6 +4637,12 @@ def encdec_phases(ops, ref, modules) -> dict:
         ("--expect-fused", "--expect-outer-dtype", "bfloat16"),
         resume=True, per_step={"fused_combine_update": 1}, keep=False)
     lap("train")
+    # T1 and T2 apart at whisper's training shapes, at the batch of the
+    # profiled meta-step's tangent calls
+    from repro_torch.kernels.flash_attention import ref as fref
+    tangents = whisper_tangent_rows(modules[1], fref,
+                                    train["profile"]["tangent_calls"])
+    lap("tangents")
     pallas = train_phase(
         "whisper_pallas", whisper, WHISPER_PALLAS_ARGS, WHISPER_TRAIN_SHAPE,
         ("dif_combine", "flash_attention_fwd", "flash_attention_bwd"),
@@ -4341,7 +4669,7 @@ def encdec_phases(ops, ref, modules) -> dict:
         del w
         lap(f"agreement {cfg.name}")
     return dict(serve=serve, train=train, train_pallas=pallas,
-                agreement=agree, seconds=seconds)
+                agreement=agree, tangents=tangents, seconds=seconds)
 
 
 # ---------------------------------------------------------------------------
@@ -4613,7 +4941,8 @@ def lm100m_phase(fops, fref, modules) -> dict:
           f"{tangent['fwd_ms']:.4f} ms", flush=True)
     split = profile.get("split_ms", {})
     print(f"lm-100m profiled meta-step, device ms: forward "
-          f"{split.get('forward')}, T1+T2 {split.get('tangent')}, flash "
+          f"{split.get('forward')}, T1 {split.get('flash_t1')}, T2 "
+          f"{split.get('flash_t2')}, flash "
           f"backward {split.get('flash_backward')}, of "
           f"{profile.get('device_ms')} in {profile['wall_s']:.3f} s",
           flush=True)
@@ -4835,7 +5164,9 @@ def main() -> int:
     hgmma = hgmma_phase({
         "flash_attention": (fops.build()["path"],
                             ("hop::fwd_kernel", "hop::dq_kernel",
-                             "hop::dkv_kernel", "tf32::fwd_kernel",
+                             "hop::dkv_kernel", "hop::tangent_fwd_kernel",
+                             "hop::tangent_dq_kernel",
+                             "hop::tangent_dkv_kernel", "tf32::fwd_kernel",
                              "tf32::dq_kernel", "tf32::dkv_kernel",
                              "tf32::tangent_dq_kernel",
                              "tf32::tangent_dkv_kernel")),
@@ -5004,6 +5335,9 @@ def main() -> int:
     for entry in summary["kernels"]:
         if entry["name"] in ("flash_attention_fwd", "flash_attention_bwd"):
             entry.update(encdec_summary(entry["name"], encdec_flash, encdec))
+        if entry["name"] in ("flash_attention_fwd_tangent",
+                             "flash_attention_bwd_tangent"):
+            entry.update(tangent_encdec_summary(entry["name"], encdec))
     summary.update(encdec_flash=encdec_flash, encdec=encdec)
     paths_summary(summary["kernels"], fewshot, lm100m)
     print(card)

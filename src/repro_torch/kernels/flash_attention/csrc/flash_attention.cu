@@ -18,8 +18,9 @@
 // forward and backward tangents (T1, T2) — no TPU counterpart: the
 //   forward-mode rules of both autograd Functions, so that the exact
 //   meta-gradient's forward-over-reverse Hessian-vector products run
-//   through the kernels (namespace jvpk, and T2's float32 route in
-//   namespace tf32; see their sections' comments).
+//   through the kernels (bfloat16: namespace hop; float32: T2 in namespace
+//   tf32, T1 in namespace jvpk; the algebra is in the jvpk section's
+//   comment).
 //
 // Masks, as the reference: a key the band excludes gets the logit -1e30
 // (so a row that has seen no allowed key yet carries exp(0) terms that the
@@ -43,8 +44,9 @@
 // float32 (namespace tf32, after hop): the forward, the backward and T2's
 // two parts on the tensor cores, every float32 product as three TF32
 // mma.sync products, on the same strided views as bf16 (K/V unexpanded).
-// T1 in both dtypes and T2 in bf16 are the CUDA-core kernels of namespace
-// jvpk.
+// T1 in float32 is the CUDA-core kernel of namespace jvpk.  In bf16, T1
+// and T2 are hop's forward and backward blocks on dual numbers (three
+// kernels after the backward's).
 //
 // No kernel allocates or synchronises; each launches on the stream it is
 // given, and each C entry returns cudaGetLastError().
@@ -149,6 +151,23 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, bool* done) {
 // significant bits; Q, K, V and dO are bf16 and exact).  D = rowsum(dO * O)
 // is the diagonal of dO O^T on the tensor cores, as dP is, so dP - D is
 // exactly 0 where a row sees a single key.
+//
+// The tangents T1 and T2 (tangent_fwd_kernel, tangent_dq_kernel,
+// tangent_dkv_kernel, after the backward) keep these numerics on dual
+// numbers: S' and dP' are products of bf16 tiles like S and dP; P ⊙ S',
+// P' = P (S' scale - lse'), dS and dS' stay float32 in registers and enter
+// the products that take them as A as hi/lo pairs, as P and dS do; lse' =
+// rowsum(P ⊙ S') is a float32 sum of those registers; D' = rowsum(dO' * O
+// + dO * O') is the diagonal of dO' O^T + dO O'^T, as D.  They are bound by
+// operations (at whisper's encoder shape, B = 16, 1500 x 1500, 20 heads of
+// 64: T1 5.5e11 of them, 0.56 ms at 989 TFLOP/s; T2 1.1e12, 1.12 ms); the
+// hi/lo pairs, and the dK'/dV' launch forming S, S', dP and dP' again, make
+// the design's own floor 1.5x (T1) and 2x (T2) that.  T1 and T2's dQ' part
+// keep the forward's and dQ's loop with a second accumulator; the dK'/dV'
+// part holds two accumulators of 64 (d = 128) registers a thread, so each
+// visited tile's work runs in sequence (S and S', then dV', dP, dK' from
+// dS, dP', dK' from dS') to keep at most three 32-register tiles beside
+// them.
 
 namespace hop {
 
@@ -381,14 +400,15 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// acc = A B^T over the head dim: A and B 64-row tiles at shared a and b.
+// acc = A B^T over the head dim (add: acc += A B^T): A and B 64-row tiles
+// at shared a and b.
 template <int NH>
 __device__ __forceinline__ void mma_abt(float (&acc)[32], uint32_t a,
-                                        uint32_t b) {
+                                        uint32_t b, bool add = false) {
 #pragma unroll
   for (int kk = 0; kk < 4 * NH; ++kk) {
     const uint32_t off = (kk >> 2) * kRegion + (kk & 3) * 32;
-    wgmma_ss(acc, desc(a + off), desc(b + off), kk > 0);
+    wgmma_ss(acc, desc(a + off), desc(b + off), add || kk > 0);
   }
 }
 
@@ -503,13 +523,14 @@ __device__ __forceinline__ void store_acc(const float (&acc)[NH][32],
 // A warpgroup's 64-row accumulator as bf16 into rows [row0, row0 + 64) of
 // head h of batch b of a view: through the free tile at shared `stage` and
 // one TMA store, or, without a tensor map, straight from the registers.
-// Every thread of the warpgroup (named barrier `group`) calls it.
-template <int NH>
+// Every thread of the warpgroup (named barrier `group`) calls it.  A: Args
+// or TArgs.
+template <int NH, typename A>
 __device__ __forceinline__ void write_tile(const float (&acc)[NH][32],
                                            uint32_t stage, const TileMap& m,
                                            bf16* dst, long long ld, int b,
                                            int h, int row0, int rows,
-                                           const Args& a, int t, int group) {
+                                           const A& a, int t, int group) {
   if (!a.tma) {
     store_acc<NH>(acc, dst, ld, row0, rows, a.d, t);
     return;
@@ -555,7 +576,8 @@ __device__ __forceinline__ float quad_sum(float x) {
 struct Band {
   int lo, hi;
 };
-__device__ __forceinline__ Band band(const Args& a) {
+template <typename A>
+__device__ __forceinline__ Band band(const A& a) {
   return Band{a.causal ? 0 : INT_MIN, a.window > 0 ? a.window - 1 : INT_MAX};
 }
 __device__ __forceinline__ int rofs(int e) { return 8 * ((e >> 1) & 1); }
@@ -567,10 +589,10 @@ __device__ __forceinline__ int cofs(int e) { return 8 * (e >> 2) + (e & 1); }
 // keys (L the tile's 64 query values in shared memory, natural units).  On
 // an edge tile, pairs outside the sequences give 0 and pairs outside the
 // band the logit -1e30.
-template <bool kQueryRows>
+template <bool kQueryRows, typename A>
 __device__ __forceinline__ void probs(float (&s)[32], const float* L,
                                       float c, bool edge, int q0, int k0,
-                                      const Args& a, int t) {
+                                      const A& a, int t) {
   const int r0 = frag_row(0, t), c0 = frag_col(0, t);
   // positions of element 0's query and key
   const int qp0 = q0 + (kQueryRows ? r0 : c0);
@@ -1095,6 +1117,556 @@ dkv_kernel(const __grid_constant__ Args a) {
 }
 
 // ---------------------------------------------------------------------------
+// forward-mode tangents T1 and T2 (the algebra is the jvpk section's, near
+// the end of this file): the forward's and the backward's blocks with dual
+// accumulators.  Every product runs on wgmma; P, P ⊙ S', P', dS and dS'
+// are float32 in registers and enter the products that take them as A as
+// bf16 hi/lo pairs, as P and dS do above; lse' = rowsum(P ⊙ S') is a
+// float32 sum of those registers, and D' = rowsum(dO' ⊙ O + dO ⊙ O') the
+// diagonal of dO' O^T + dO O'^T on the tensor cores, as D.
+// ---------------------------------------------------------------------------
+
+// The 13 views of the tangent entries, in the entries' order.
+enum TView { tQ = 0, tK, tV, tO, tDO, tTQ, tTK, tTV, tTO, tTDO, tTDQ, tTDK,
+             tTDV, kTViews };
+
+struct TArgs {
+  TileMap m[kTViews];                   // the views a launch uses, tma = 1
+  const bf16* p[kTViews];               // outputs written through const_cast
+  Strides st[kTViews];
+  const float* lse;                     // (B, H, S) float32, as the rest:
+  float *tlse, *dsum, *tdsum;           // lse' (T1 writes it, T2 reads it),
+  int H, KV, S, Sk, d;                  // D and D' (T2 part 0 writes them,
+  float scale;                          // part 1 reads them)
+  int causal, window;
+  int tma;                              // 1: 16-byte aligned rows, d % 8 == 0
+};
+
+// Row 0 of head h of batch b of view v.
+__device__ __forceinline__ const bf16* view(const TArgs& a, int v, int b,
+                                            int h) {
+  return a.p[v] + b * a.st[v].b + h * a.st[v].h;
+}
+
+// Rows [row0, row0 + 64) of head h of batch b of view v into the tile at
+// dst: by TMA (thread 0; bar must expect the bytes) or element by element
+// (all NT threads; rows past `rows` zero).
+template <int NH, int NT>
+__device__ __forceinline__ void load_view(uint32_t dst, const TArgs& a, int v,
+                                          uint32_t bar, int b, int h,
+                                          int row0, int rows, int tid) {
+  if (a.tma) {
+    if (tid == 0) tma_tile<NH>(dst, a.m[v], bar, b, h, row0);
+  } else {
+    copy_tile<NH, NT>(dst, view(a, v, b, h), a.st[v].s, row0, rows, a.d,
+                      tid);
+  }
+}
+
+// The tangent logits of the pairs outside the band to 0 on an edge tile:
+// the reference masks the logit, whose tangent is then 0 (pairs past the
+// sequence ends have P = 0 and need nothing).
+template <bool kQueryRows>
+__device__ __forceinline__ void band_zero(float (&sd)[32], bool edge, int q0,
+                                          int k0, const TArgs& a, int t) {
+  if (!edge) return;
+  const int r0 = frag_row(0, t), c0 = frag_col(0, t);
+  const int delta0 = (q0 + (kQueryRows ? r0 : c0)) -
+                     (k0 + (kQueryRows ? c0 : r0));
+  const Band bd = band(a);
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int delta = delta0 + (kQueryRows ? rofs(e) - cofs(e)
+                                           : cofs(e) - rofs(e));
+    if (delta < bd.lo || delta > bd.hi) sd[e] = 0.f;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// T1: one block per (query tile, head, batch), the forward kernel's loop
+// with lse read rather than built (no online rescale): per key tile S =
+// Q K^T and S' = Q' K^T + Q K'^T, P = 2^(S c - lse log2 e) and P ⊙ S' in
+// registers, lse' += rowsum(P ⊙ S'), O += P V and O' += P V' + (P ⊙ S') V;
+// then o' = O' - lse' O.
+// ---------------------------------------------------------------------------
+
+template <int NH> constexpr size_t tangent_fwd_smem() {
+  // Q, Q'; two stages of K, K', V, V'; barriers
+  return 1024 + 10 * NH * kRegion + 64;
+}
+
+template <int NH>
+__global__ void __launch_bounds__(kWG, NH == 1 ? 2 : 1)
+tangent_fwd_kernel(const __grid_constant__ TArgs a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  constexpr uint32_t T = NH * kRegion;
+  const uint32_t base = (smem_u32(smem) + 1023u) & ~1023u;
+  const uint32_t sQ = base, sTQ = base + T, bars = base + 10 * T;
+  const int t = threadIdx.x;
+  // the last query tiles (the most key tiles, causal) are launched first
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kM, hq = blockIdx.x,
+            b = blockIdx.y;
+  const int hk = hq / (a.H / a.KV);
+  auto stage = [&](int i) { return base + 2 * T + 4 * T * (i & 1); };
+  auto fetch = [&](int i, int kt) {     // K, K', V, V' of tile kt
+    const uint32_t dst = stage(i), bar = bars + 8 * (1 + (i & 1));
+    if (a.tma && t == 0) mbar_expect(bar, 4 * T);
+    load_view<NH, kWG>(dst, a, tK, bar, b, hk, kt * kN, a.Sk, t);
+    load_view<NH, kWG>(dst + T, a, tTK, bar, b, hk, kt * kN, a.Sk, t);
+    load_view<NH, kWG>(dst + 2 * T, a, tV, bar, b, hk, kt * kN, a.Sk, t);
+    load_view<NH, kWG>(dst + 3 * T, a, tTV, bar, b, hk, kt * kN, a.Sk, t);
+  };
+
+  int kt0, kt1;
+  key_range(q0, a.S, a.Sk, a.causal, a.window, &kt0, &kt1);
+  if (t == 0) {
+    const int used[] = {tQ, tTQ, tK, tTK, tV, tTV, tTO};
+    if (a.tma)
+      for (int v : used) prefetch_map(a.m[v]);
+    for (int i = 0; i < 3; ++i) mbar_init(bars + 8 * i);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (a.tma && t == 0) mbar_expect(bars, 2 * T);
+  load_view<NH, kWG>(sQ, a, tQ, bars, b, hq, q0, a.S, t);
+  load_view<NH, kWG>(sTQ, a, tTQ, bars, b, hq, q0, a.S, t);
+  if (kt0 < kt1) fetch(0, kt0);
+
+  const long long row_vec = ((long long)b * a.H + hq) * a.S;
+  float L2[2], dl[2] = {0.f, 0.f};      // lse (log2 units) and lse' of rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + frag_row(2 * r, t);
+    L2[r] = row < a.S ? a.lse[row_vec + row] * kLog2e : 0.f;
+  }
+  float o[NH][32], ot[NH][32], s[32], sd[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    s[e] = sd[e] = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < NH; ++cc) o[cc][e] = ot[cc][e] = 0.f;
+  }
+  const float c = a.scale * kLog2e;
+
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int i = kt - kt0;
+    const uint32_t sK = stage(i), sTK = sK + T, sV = sK + 2 * T,
+                   sTV = sK + 3 * T;
+    if (a.tma) {
+      if (i == 0) mbar_wait(bars, 0);
+      mbar_wait(bars + 8 * (1 + (i & 1)), (i >> 1) & 1);
+    } else {
+      fence_async_smem();
+      __syncthreads();
+    }
+
+    wg_fence();
+    mma_abt<NH>(s, sQ, sK);            // S
+    mma_abt<NH>(sd, sTQ, sK);          // S' = Q' K^T + Q K'^T
+    mma_abt<NH>(sd, sQ, sTK, true);
+    wg_commit();
+    if (kt + 1 < kt1) fetch(i + 1, kt + 1);   // while the tensor cores work
+    wg_wait();
+    keep(s);
+    keep(sd);
+
+    const int k0 = kt * kN;
+    const bool edge = edge_tile(q0, k0, a.S, a.Sk, a.causal, a.window);
+    probs<true>(s, L2, c, edge, q0, k0, a, t);
+    band_zero<true>(sd, edge, q0, k0, a, t);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      sd[e] = s[e] * sd[e] * a.scale;  // P ⊙ S'
+      dl[(e >> 1) & 1] += sd[e];
+    }
+    uint32_t hi[4][4], lo[4][4], shi[4][4], slo[4][4];
+    split(s, hi, lo);
+    split(sd, shi, slo);
+    wg_fence();
+    mma_pb<NH>(o, hi, lo, sV);         // O += P V
+    mma_pb<NH>(ot, hi, lo, sTV);       // O' += P V'
+    mma_pb<NH>(ot, shi, slo, sV);      //     + (P ⊙ S') V
+    wg_commit();
+    wg_wait();
+    keep(hi);
+    keep(lo);
+    keep(shi);
+    keep(slo);
+#pragma unroll
+    for (int cc = 0; cc < NH; ++cc) {
+      keep(o[cc]);
+      keep(ot[cc]);
+    }
+    __syncthreads();                   // stage read by all before refilled
+  }
+
+  if (a.tma && kt0 == kt1) mbar_wait(bars, 0);   // Q landed; no key tile
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    dl[r] = quad_sum(dl[r]);
+    const int row = q0 + frag_row(2 * r, t);
+    if ((t & 3) == 0 && row < a.S) a.tlse[row_vec + row] = dl[r];
+  }
+#pragma unroll
+  for (int e = 0; e < 32; ++e)
+#pragma unroll
+    for (int cc = 0; cc < NH; ++cc)   // o' = O' - lse' O
+      ot[cc][e] = fmaf(-dl[(e >> 1) & 1], o[cc][e], ot[cc][e]);
+  write_tile<NH>(ot, sQ, a.m[tTO], const_cast<bf16*>(view(a, tTO, b, hq)),
+                 a.st[tTO].s, b, hq, q0, a.S, a, t, 1);  // Q is free now
+}
+
+// ---------------------------------------------------------------------------
+// T2 part 0: dq', and D, D' into a.dsum, a.tdsum; one block per (query
+// tile, head, batch), the dQ kernel's loop on dual numbers.  Per key tile S,
+// S', dP = dO V^T and dP' = dO' V^T + dO V'^T on the tensor cores, then in
+// registers P, P' = P (S' - lse'), dS = P (dP - D) and dS' = P' (dP - D) +
+// P (dP' - D') (both times scale), and dq' += dS' K + dS K'.
+// ---------------------------------------------------------------------------
+
+template <int NH> constexpr size_t tangent_dq_smem() {
+  // Q, Q', dO, dO'; two stages of K, K', V, V' (O and O' in the second's
+  // first two slots at first); D, D'; barriers
+  return 1024 + 12 * NH * kRegion + 2 * 64 * 4 + 64;
+}
+
+template <int NH>
+__global__ void __launch_bounds__(kWG, NH == 1 ? 2 : 1)
+tangent_dq_kernel(const __grid_constant__ TArgs a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  constexpr uint32_t T = NH * kRegion;
+  const uint32_t base = (smem_u32(smem) + 1023u) & ~1023u;
+  float* sD = reinterpret_cast<float*>(smem + (base - smem_u32(smem)) +
+                                       12 * T);    // D, then D'
+  const uint32_t sQ = base, sTQ = base + T, sDO = base + 2 * T,
+                 sTDO = base + 3 * T, bars = base + 12 * T + 512;
+  const int t = threadIdx.x;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kM, hq = blockIdx.x,
+            b = blockIdx.y;
+  const int hk = hq / (a.H / a.KV);
+  const long long row_vec = ((long long)b * a.H + hq) * a.S;
+  auto stage = [&](int i) { return base + 4 * T + 4 * T * (i & 1); };
+  auto fetch = [&](int i, int kt) {     // K, K', V, V' of tile kt
+    const uint32_t dst = stage(i), bar = bars + 8 * (1 + (i & 1));
+    if (a.tma && t == 0) mbar_expect(bar, 4 * T);
+    load_view<NH, kWG>(dst, a, tK, bar, b, hk, kt * kN, a.Sk, t);
+    load_view<NH, kWG>(dst + T, a, tTK, bar, b, hk, kt * kN, a.Sk, t);
+    load_view<NH, kWG>(dst + 2 * T, a, tV, bar, b, hk, kt * kN, a.Sk, t);
+    load_view<NH, kWG>(dst + 3 * T, a, tTV, bar, b, hk, kt * kN, a.Sk, t);
+  };
+
+  int kt0, kt1;
+  key_range(q0, a.S, a.Sk, a.causal, a.window, &kt0, &kt1);
+  if (t == 0) {
+    const int used[] = {tQ, tTQ, tDO, tTDO, tO, tTO, tK, tTK, tV, tTV, tTDQ};
+    if (a.tma)
+      for (int v : used) prefetch_map(a.m[v]);
+    for (int i = 0; i < 3; ++i) mbar_init(bars + 8 * i);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  // Q, Q', dO, dO', and O, O' (into the second stage, free until the
+  // loop's first prefetch), then the first key tile
+  const uint32_t sO = stage(1), sTO = stage(1) + T;
+  if (a.tma && t == 0) mbar_expect(bars, 6 * T);
+  load_view<NH, kWG>(sQ, a, tQ, bars, b, hq, q0, a.S, t);
+  load_view<NH, kWG>(sTQ, a, tTQ, bars, b, hq, q0, a.S, t);
+  load_view<NH, kWG>(sDO, a, tDO, bars, b, hq, q0, a.S, t);
+  load_view<NH, kWG>(sTDO, a, tTDO, bars, b, hq, q0, a.S, t);
+  load_view<NH, kWG>(sO, a, tO, bars, b, hq, q0, a.S, t);
+  load_view<NH, kWG>(sTO, a, tTO, bars, b, hq, q0, a.S, t);
+  if (kt0 < kt1) fetch(0, kt0);
+  float L2[2], tl[2];                   // lse (log2 units) and lse' of rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + frag_row(2 * r, t);
+    L2[r] = row < a.S ? a.lse[row_vec + row] * kLog2e : 0.f;
+    tl[r] = row < a.S ? a.tlse[row_vec + row] : 0.f;
+  }
+  if (a.tma) {
+    mbar_wait(bars, 0);
+  } else {
+    fence_async_smem();
+    __syncthreads();
+  }
+  // D = diag(dO O^T) and D' = diag(dO' O^T + dO O'^T), on the tensor cores
+  // as dP and dP' are: where a row sees one key, dP - D and dP' - D' are
+  // exactly 0
+  {
+    float dd[32], dt[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dd[e] = dt[e] = 0.f;
+    wg_fence();
+    mma_abt<NH>(dd, sDO, sO);
+    mma_abt<NH>(dt, sTDO, sO);
+    mma_abt<NH>(dt, sDO, sTO, true);
+    wg_commit();
+    wg_wait();
+    keep(dd);
+    keep(dt);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int r = frag_row(e, t);
+      if (r == frag_col(e, t)) {
+        sD[r] = dd[e];
+        sD[64 + r] = dt[e];
+        if (q0 + r < a.S) {
+          a.dsum[row_vec + q0 + r] = dd[e];
+          a.tdsum[row_vec + q0 + r] = dt[e];
+        }
+      }
+    }
+  }
+  __syncthreads();
+  const float c = a.scale * kLog2e;
+  float D[2], Dt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    D[r] = sD[frag_row(2 * r, t)];
+    Dt[r] = sD[64 + frag_row(2 * r, t)];
+  }
+
+  float acc[NH][32], s[32], sd[32], dp[32], dpt[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    s[e] = sd[e] = dp[e] = dpt[e] = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < NH; ++cc) acc[cc][e] = 0.f;
+  }
+
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int i = kt - kt0;
+    const uint32_t sK = stage(i), sTK = sK + T, sV = sK + 2 * T,
+                   sTV = sK + 3 * T;
+    if (a.tma) {
+      mbar_wait(bars + 8 * (1 + (i & 1)), (i >> 1) & 1);
+    } else {
+      fence_async_smem();
+      __syncthreads();
+    }
+
+    wg_fence();
+    mma_abt<NH>(s, sQ, sK);            // S
+    mma_abt<NH>(sd, sTQ, sK);          // S'
+    mma_abt<NH>(sd, sQ, sTK, true);
+    mma_abt<NH>(dp, sDO, sV);          // dP
+    mma_abt<NH>(dpt, sTDO, sV);        // dP'
+    mma_abt<NH>(dpt, sDO, sTV, true);
+    wg_commit();
+    if (kt + 1 < kt1) fetch(i + 1, kt + 1);   // while the tensor cores work
+    wg_wait();
+    keep(s);
+    keep(sd);
+    keep(dp);
+    keep(dpt);
+
+    const int k0 = kt * kN;
+    const bool edge = edge_tile(q0, k0, a.S, a.Sk, a.causal, a.window);
+    probs<true>(s, L2, c, edge, q0, k0, a, t);
+    band_zero<true>(sd, edge, q0, k0, a, t);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int r = (e >> 1) & 1;
+      const float p = s[e], pt = p * fmaf(sd[e], a.scale, -tl[r]);
+      const float u = dp[e] - D[r];
+      s[e] = p * u * a.scale;                                // dS
+      sd[e] = fmaf(pt, u, p * (dpt[e] - Dt[r])) * a.scale;   // dS'
+    }
+    uint32_t hi[4][4], lo[4][4], dhi[4][4], dlo[4][4];
+    split(sd, hi, lo);
+    split(s, dhi, dlo);
+    wg_fence();
+    mma_pb<NH>(acc, hi, lo, sK);       // dq' += dS' K
+    mma_pb<NH>(acc, dhi, dlo, sTK);    //      + dS K'
+    wg_commit();
+    wg_wait();
+    keep(hi);
+    keep(lo);
+    keep(dhi);
+    keep(dlo);
+#pragma unroll
+    for (int cc = 0; cc < NH; ++cc) keep(acc[cc]);
+    __syncthreads();
+  }
+  write_tile<NH>(acc, sQ, a.m[tTDQ], const_cast<bf16*>(view(a, tTDQ, b, hq)),
+                 a.st[tTDQ].s, b, hq, q0, a.S, a, t, 1);  // Q is free now
+}
+
+// ---------------------------------------------------------------------------
+// T2 part 1: dk' and dv'; one block per (key tile, KV head, batch), which
+// visits the query tiles of each of the KV head's query heads in order and
+// sums in registers.  The transposed tiles (keys x queries) S^T, S'^T, P^T,
+// P'^T, then dv' += P'^T dO + P^T dO', then dP^T and dS^T = P^T (dP^T - D),
+// dk' += dS^T Q', then dP'^T and dS'^T, dk' += dS'^T Q: at d = 128 the two
+// accumulators are 128 registers a thread, so the tile's work is sequenced
+// to keep at most three 32-register tiles beside them.
+// ---------------------------------------------------------------------------
+
+template <int NH> constexpr size_t tangent_dkv_smem() {
+  // K, K', V, V'; two stages of Q, Q', dO, dO', then of lse, lse', D, D';
+  // barriers
+  return 1024 + 12 * NH * kRegion + 2 * 1024 + 64;
+}
+
+template <int NH>
+__global__ void __launch_bounds__(kWG, NH == 1 ? 2 : 1)
+tangent_dkv_kernel(const __grid_constant__ TArgs a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  constexpr uint32_t T = NH * kRegion;
+  const uint32_t base = (smem_u32(smem) + 1023u) & ~1023u;
+  const uint8_t* gbase = smem + (base - smem_u32(smem));
+  const uint32_t sK = base, sTK = base + T, sV = base + 2 * T,
+                 sTV = base + 3 * T, bars = base + 12 * T + 2048;
+  const int t = threadIdx.x;
+  // the first key tiles (the most query tiles, causal) are launched first
+  const int k0 = blockIdx.z * kN, hk = blockIdx.x, b = blockIdx.y;
+  const int G = a.H / a.KV;
+  auto stage = [&](int i) { return base + 4 * T + 4 * T * (i & 1); };
+  auto vecs = [&](int i) { return 12 * T + 1024 * (i & 1); };  // from base
+
+  int qt0, qt1;
+  query_range(k0, a.S, a.Sk, a.causal, a.window, &qt0, &qt1);
+  const int nqt = qt1 - qt0, iters = G * nqt;
+  auto fetch = [&](int i) {   // Q, Q', dO, dO' and lse, lse', D, D' of step i
+    const int hq = hk * G + i / nqt, q0 = (qt0 + i % nqt) * kM;
+    const uint32_t dst = stage(i), bar = bars + 8 * (1 + (i & 1));
+    if (a.tma && t == 0) mbar_expect(bar, 4 * T);
+    load_view<NH, kWG>(dst, a, tQ, bar, b, hq, q0, a.S, t);
+    load_view<NH, kWG>(dst + T, a, tTQ, bar, b, hq, q0, a.S, t);
+    load_view<NH, kWG>(dst + 2 * T, a, tDO, bar, b, hq, q0, a.S, t);
+    load_view<NH, kWG>(dst + 3 * T, a, tTDO, bar, b, hq, q0, a.S, t);
+    const long long row_vec = ((long long)b * a.H + hq) * a.S;
+    const uint32_t v = base + vecs(i);
+    if (t < 64) {
+      load_row_vec(v, a.lse + row_vec, q0, a.S, t);
+      load_row_vec(v + 512, a.dsum + row_vec, q0, a.S, t);
+    } else {
+      load_row_vec(v + 256, a.tlse + row_vec, q0, a.S, t - 64);
+      load_row_vec(v + 768, a.tdsum + row_vec, q0, a.S, t - 64);
+    }
+    cp_commit();
+  };
+
+  if (t == 0) {
+    const int used[] = {tK, tTK, tV, tTV, tQ, tTQ, tDO, tTDO, tTDK, tTDV};
+    if (a.tma)
+      for (int v : used) prefetch_map(a.m[v]);
+    for (int i = 0; i < 3; ++i) mbar_init(bars + 8 * i);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (a.tma && t == 0) mbar_expect(bars, 4 * T);
+  load_view<NH, kWG>(sK, a, tK, bars, b, hk, k0, a.Sk, t);
+  load_view<NH, kWG>(sTK, a, tTK, bars, b, hk, k0, a.Sk, t);
+  load_view<NH, kWG>(sV, a, tV, bars, b, hk, k0, a.Sk, t);
+  load_view<NH, kWG>(sTV, a, tTV, bars, b, hk, k0, a.Sk, t);
+  if (iters > 0) fetch(0);
+
+  float dk[NH][32], dv[NH][32], s[32], sd[32], dp[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    s[e] = sd[e] = dp[e] = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < NH; ++cc) dk[cc][e] = dv[cc][e] = 0.f;
+  }
+  const float c = a.scale * kLog2e;
+  const int c0 = frag_col(0, t);
+
+  for (int i = 0; i < iters; ++i) {
+    cp_wait<0>();                      // this thread's row vectors of step i
+    if (!a.tma) fence_async_smem();
+    __syncthreads();
+    if (a.tma) {
+      if (i == 0) mbar_wait(bars, 0);
+      mbar_wait(bars + 8 * (1 + (i & 1)), (i >> 1) & 1);
+    }
+    const uint32_t sQ = stage(i), sTQ = sQ + T, sDO = sQ + 2 * T,
+                   sTDO = sQ + 3 * T;
+    const float* Lv = reinterpret_cast<const float*>(gbase + vecs(i));
+    const float *Ltv = Lv + 64, *Dv = Lv + 128, *Dtv = Lv + 192;
+    const int q0 = (qt0 + i % nqt) * kM;
+
+    wg_fence();
+    mma_abt<NH>(s, sK, sQ);            // S^T: keys x queries
+    mma_abt<NH>(sd, sK, sTQ);          // S'^T = K Q'^T + K' Q^T
+    mma_abt<NH>(sd, sTK, sQ, true);
+    wg_commit();
+    if (i + 1 < iters) fetch(i + 1);   // while the tensor cores work
+    wg_wait();
+    keep(s);
+    keep(sd);
+
+    const bool edge = edge_tile(q0, k0, a.S, a.Sk, a.causal, a.window);
+    probs<false>(s, Lv, c, edge, q0, k0, a, t);       // P^T
+    band_zero<false>(sd, edge, q0, k0, a, t);
+#pragma unroll
+    for (int e = 0; e < 32; ++e)                      // P'^T
+      sd[e] = s[e] * fmaf(sd[e], a.scale, -Ltv[c0 + cofs(e)]);
+    uint32_t hi[4][4], lo[4][4];
+    split(sd, hi, lo);
+    wg_fence();
+    mma_pb<NH>(dv, hi, lo, sDO);       // dv' += P'^T dO
+    wg_commit();
+    wg_wait();
+    keep(hi);
+    keep(lo);
+    split(s, hi, lo);
+    wg_fence();
+    mma_pb<NH>(dv, hi, lo, sTDO);      //       + P^T dO'
+    wg_commit();
+    wg_wait();
+    keep(hi);
+    keep(lo);
+    wg_fence();
+    mma_abt<NH>(dp, sV, sDO);          // dP^T
+    wg_commit();
+    wg_wait();
+    keep(dp);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const float u = dp[e] - Dv[c0 + cofs(e)];
+      sd[e] *= u;                      // P'^T (dP^T - D), dS'^T's first part
+      dp[e] = s[e] * u * a.scale;      // dS^T
+    }
+    split(dp, hi, lo);
+    wg_fence();
+    mma_pb<NH>(dk, hi, lo, sTQ);       // dk' += dS^T Q'
+    wg_commit();
+    wg_wait();
+    keep(hi);
+    keep(lo);
+    wg_fence();
+    mma_abt<NH>(dp, sV, sTDO);         // dP'^T = V dO'^T + V' dO^T
+    mma_abt<NH>(dp, sTV, sDO, true);
+    wg_commit();
+    wg_wait();
+    keep(dp);
+#pragma unroll
+    for (int e = 0; e < 32; ++e)       // dS'^T
+      sd[e] = fmaf(s[e], dp[e] - Dtv[c0 + cofs(e)], sd[e]) * a.scale;
+    split(sd, hi, lo);
+    wg_fence();
+    mma_pb<NH>(dk, hi, lo, sQ);        //       + dS'^T Q
+    wg_commit();
+    wg_wait();
+    keep(hi);
+    keep(lo);
+#pragma unroll
+    for (int cc = 0; cc < NH; ++cc) {
+      keep(dk[cc]);
+      keep(dv[cc]);
+    }
+  }
+
+  if (a.tma && iters == 0) mbar_wait(bars, 0);  // K, V landed; no query
+  __syncthreads();                     // every product has read K, K', V, V'
+  write_tile<NH>(dk, sK, a.m[tTDK], const_cast<bf16*>(view(a, tTDK, b, hk)),
+                 a.st[tTDK].s, b, hk, k0, a.Sk, a, t, 1);
+  write_tile<NH>(dv, sV, a.m[tTDV], const_cast<bf16*>(view(a, tTDV, b, hk)),
+                 a.st[tTDV].s, b, hk, k0, a.Sk, a, t, 1);
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -1157,9 +1729,9 @@ bool make_map(TileMap* m, const void* ptr, int B, int S, int heads, int d,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename Kernel>
+template <typename Kernel, typename A>
 cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
-                   cudaStream_t s, const Args& a, bool* ready) {
+                   cudaStream_t s, const A& a, bool* ready) {
   cudaError_t err = allow_smem(kernel, smem, ready);
   if (err != cudaSuccess) return err;
   kernel<<<grid, threads, smem, s>>>(a);
@@ -1188,6 +1760,25 @@ cudaError_t run_dkv(const Args& a, int B, cudaStream_t s) {
                 &ready);
 }
 
+// The tangent launches: kind 0 T1, 1 T2's dq' (part 0), 2 T2's dk'/dv'
+// (part 1).
+template <int NH>
+cudaError_t run_tangent(const TArgs& a, int B, int kind, cudaStream_t s) {
+  if (kind == 0) {
+    static bool ready = false;
+    return launch(tangent_fwd_kernel<NH>, dim3(a.H, B, (a.S + kM - 1) / kM),
+                  kWG, tangent_fwd_smem<NH>(), s, a, &ready);
+  }
+  if (kind == 1) {
+    static bool ready = false;
+    return launch(tangent_dq_kernel<NH>, dim3(a.H, B, (a.S + kM - 1) / kM),
+                  kWG, tangent_dq_smem<NH>(), s, a, &ready);
+  }
+  static bool ready = false;
+  return launch(tangent_dkv_kernel<NH>, dim3(a.KV, B, (a.Sk + kN - 1) / kN),
+                kWG, tangent_dkv_smem<NH>(), s, a, &ready);
+}
+
 bool valid(int B, int H, int KV, int S, int Sk, int d) {
   return B >= 1 && B <= 65535 && H >= 1 && KV >= 1 && H % KV == 0 &&
          S >= 1 && Sk >= 1 && (S + kM - 1) / kM <= 65535 &&
@@ -1196,6 +1787,65 @@ bool valid(int B, int H, int KV, int S, int Sk, int d) {
 
 Strides strides_at(const long long* st, int i) {
   return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
+}
+
+// The views each tangent launch (run_tangent's kind) reads or writes, as
+// bits of TView, and those with KV heads and S_k rows.
+constexpr unsigned kTangentViews[3] = {
+    1u << tQ | 1u << tK | 1u << tV | 1u << tTQ | 1u << tTK | 1u << tTV |
+        1u << tTO,
+    (1u << kTViews) - 1 - (1u << tTDK) - (1u << tTDV),
+    (1u << kTViews) - 1 - (1u << tO) - (1u << tTO) - (1u << tTDQ)};
+constexpr unsigned kKeyViews = 1u << tK | 1u << tV | 1u << tTK | 1u << tTV |
+                               1u << tTDK | 1u << tTDV;
+
+// a's pointers and strides of the 13 views and, where every view the
+// launch uses has 16-byte aligned rows and d % 8 == 0, their tensor maps
+// (tma = 1; else 0: element by element).  a's dims must be set.  False if
+// such a view's map cannot be made.
+bool tangent_views(TArgs* a, const void* const* ptrs, const long long* strides,
+                   int kind, int B) {
+  const unsigned used = kTangentViews[kind];
+  bool vec = a->d % 8 == 0;
+  for (int v = 0; v < kTViews; ++v) {
+    a->p[v] = static_cast<const bf16*>(ptrs[v]);
+    a->st[v] = strides_at(strides, v);
+    if (used >> v & 1)
+      vec = vec && reinterpret_cast<uintptr_t>(ptrs[v]) % 16 == 0 &&
+            a->st[v].b % 8 == 0 && a->st[v].s % 8 == 0 &&
+            a->st[v].h % 8 == 0;
+  }
+  a->tma = 0;
+  if (!vec) return true;
+  for (int v = 0; v < kTViews; ++v) {
+    if (!(used >> v & 1)) continue;
+    const bool keys = kKeyViews >> v & 1;
+    if (!make_map(&a->m[v], ptrs[v], B, keys ? a->Sk : a->S,
+                  keys ? a->KV : a->H, a->d, a->st[v]))
+      return false;
+  }
+  a->tma = 1;
+  return true;
+}
+
+// The tangent launch of run_tangent's `kind` on the 13 views (the C
+// entries' arguments); a cudaError_t.
+int tangent(const void* const* views, const long long* strides,
+            const void* lse, const void* tlse, void* dsum, void* tdsum, int B,
+            int H, int KV, int S, int Sk, int d, float scale, int causal,
+            int window, int kind, cudaStream_t s) {
+  if (!valid(B, H, KV, S, Sk, d)) return (int)cudaErrorInvalidValue;
+  TArgs a{};
+  a.H = H; a.KV = KV; a.S = S; a.Sk = Sk; a.d = d; a.scale = scale;
+  a.causal = causal; a.window = window;
+  if (!tangent_views(&a, views, strides, kind, B))
+    return (int)cudaErrorInvalidValue;
+  a.lse = static_cast<const float*>(lse);
+  a.tlse = static_cast<float*>(const_cast<void*>(tlse));
+  a.dsum = static_cast<float*>(dsum);
+  a.tdsum = static_cast<float*>(tdsum);
+  return (int)(d <= 64 ? run_tangent<1>(a, B, kind, s)
+                       : run_tangent<2>(a, B, kind, s));
 }
 
 }  // namespace hop
@@ -2534,17 +3184,16 @@ cudaError_t run_tangent(const TArgs& a, int B, int part, cudaStream_t s) {
 // float32 workspace each), part 1 (after it) dK' and dV', summed over each
 // KV head's query heads, so nothing is summed with atomics.
 //
-// T2 in float32 runs on the tensor cores (tf32::tangent_dq_kernel and
-// tangent_dkv_kernel, above).  The kernels here are T1 in both dtypes and
-// T2 in bfloat16: simple CUDA-core kernels that are right first (making
-// them fast is later work): float32 FMA, 256 threads, 32-row tiles
-// on both sides (a warp owns 4 rows of its block's tile, a lane one row of
-// the visited tile), every operand staged as float32 in shared memory and
-// read through its view's (b, s, h) strides, so the model layout (B, S, H,
-// d) with K/V heads unexpanded and the expanded (B, H, S, d) are both read
-// in place; float32 sums, results in the inputs' dtype.  Masks as the
-// forward: a pair the band excludes gets the logit -1e30 and the tangent
-// logit 0.
+// T1 in bfloat16 and T2 in both dtypes run on the tensor cores (namespace
+// hop's tangent kernels; tf32::tangent_dq_kernel and tangent_dkv_kernel,
+// above).  The kernel here is T1 in float32: a simple CUDA-core kernel that
+// is right first (making it fast is later work): float32 FMA, 256
+// threads, 32-row tiles on both sides (a warp owns 4 rows of its block's
+// tile, a lane one row of the visited tile), every operand staged in shared
+// memory and read through its view's (b, s, h) strides, so the model
+// layout (B, S, H, d) with K/V heads unexpanded and the expanded (B, H, S,
+// d) are both read in place.  Masks as the forward: a pair the band
+// excludes gets the logit -1e30 and the tangent logit 0.
 namespace jvpk {
 
 constexpr int kT = 32;                    // rows of a tile, both sides
@@ -2558,17 +3207,6 @@ struct Views {
   long long s[kMaxViews][3];
 };
 
-__device__ __forceinline__ float f32(float x) { return x; }
-__device__ __forceinline__ float f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T cast(float x);
-template <> __device__ __forceinline__ float cast<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 cast<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16_rn(x);
-}
-
 // The (rows, d) slice of head h of batch b in view `i`.
 template <typename T>
 __device__ __forceinline__ T* head(T* base, const Views& st, int i, int b,
@@ -2577,63 +3215,44 @@ __device__ __forceinline__ T* head(T* base, const Views& st, int i, int b,
 }
 
 // Stage rows [row0, row0 + kT) of a head's slice (row stride rs) into a
-// float32 tile with row stride ld and D columns; rows past `rows` and
-// columns past d are zero.
-template <typename T, int D>
+// tile with row stride ld and D columns; rows past `rows` and columns past
+// d are zero.
+template <int D>
 __device__ __forceinline__ void stage(float* dst, int ld,
-                                      const T* __restrict__ src,
+                                      const float* __restrict__ src,
                                       long long rs, int row0, int rows,
                                       int d) {
   for (int idx = threadIdx.x; idx < kT * D; idx += kThreads) {
     const int r = idx / D, c = idx - (idx / D) * D;
     const int gr = row0 + r;
     float x = 0.f;
-    if (gr < rows && c < d) x = f32(src[gr * rs + c]);
+    if (gr < rows && c < d) x = src[gr * rs + c];
     dst[r * ld + c] = x;
   }
 }
 
-// Tiles of kT rows on the other side that a tile starting at t0 must
-// visit: key tiles of a query tile (keys = 1) or query tiles of a key tile.
-__device__ __forceinline__ void visit(int t0, int S, int Sk, int causal,
-                                      int window, bool keys, int* begin,
-                                      int* end) {
-  if (keys) {
-    const int nk = (Sk + kT - 1) / kT;
-    int b = 0, e = nk;
-    if (causal) e = min(nk, (min(t0 + kT, S) - 1) / kT + 1);
-    if (window > 0) b = max(0, t0 - window + 1) / kT;
-    *begin = b;
-    *end = max(b, e);
-  } else {
-    const int nq = (S + kT - 1) / kT;
-    int b = 0, e = nq;
-    if (causal) b = t0 / kT;
-    if (window > 0) e = min(nq, (min(t0 + kT, Sk) - 1 + window - 1) / kT + 1);
-    *begin = b;
-    *end = max(b, e);
-  }
+// Key tiles of kT rows that a query tile starting at q0 must visit.
+__device__ __forceinline__ void visit(int q0, int S, int Sk, int causal,
+                                      int window, int* begin, int* end) {
+  const int nk = (Sk + kT - 1) / kT;
+  int b = 0, e = nk;
+  if (causal) e = min(nk, (min(q0 + kT, S) - 1) / kT + 1);
+  if (window > 0) b = max(0, q0 - window + 1) / kT;
+  *begin = b;
+  *end = max(b, e);
 }
 
-// logit and tangent logit of an in-range pair, masked as the forward.
-__device__ __forceinline__ void logits(float s, float sd, int qp, int kp,
-                                       int causal, int window, float scale,
-                                       float* x, float* xd) {
-  const bool ok = allowed(qp, kp, causal, window);
-  *x = ok ? s * scale : kMasked;
-  *xd = ok ? sd * scale : 0.f;
-}
-
-enum { Q = 0, K, V, O, DO, TQ, TK, TV, TO, TDO, TDQ, TDK, TDV };
+enum { Q = 0, K, V, O, DO, TQ, TK, TV, TO };
 
 // T1.  Views: Q, K, V, TQ, TK, TV and TO (o' out).  One block per (b, h,
 // 32-row query tile).
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-fwd_tangent_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const float* __restrict__ lse,
-                   const T* __restrict__ tq, const T* __restrict__ tk,
-                   const T* __restrict__ tv, T* __restrict__ to,
+fwd_tangent_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ lse,
+                   const float* __restrict__ tq,
+                   const float* __restrict__ tk,
+                   const float* __restrict__ tv, float* __restrict__ to,
                    float* __restrict__ tlse, Views st, int H, int KV, int S,
                    int Sk, int d, float scale, int causal, int window) {
   constexpr int LD = D + 4, NC = D / 32;
@@ -2654,12 +3273,12 @@ fwd_tangent_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = warp * kRows;
 
-  stage<T, D>(sQ, LD, head(q, st, Q, b, h), st.s[Q][1], q0, S, d);
-  stage<T, D>(sTQ, LD, head(tq, st, TQ, b, h), st.s[TQ][1], q0, S, d);
-  const T* kb = head(k, st, K, b, hk);
-  const T* tkb = head(tk, st, TK, b, hk);
-  const T* vb = head(v, st, V, b, hk);
-  const T* tvb = head(tv, st, TV, b, hk);
+  stage<D>(sQ, LD, head(q, st, Q, b, h), st.s[Q][1], q0, S, d);
+  stage<D>(sTQ, LD, head(tq, st, TQ, b, h), st.s[TQ][1], q0, S, d);
+  const float* kb = head(k, st, K, b, hk);
+  const float* tkb = head(tk, st, TK, b, hk);
+  const float* vb = head(v, st, V, b, hk);
+  const float* tvb = head(tv, st, TV, b, hk);
 
   float lrow[kRows], dl[kRows], ao[kRows][NC], at[kRows][NC];
 #pragma unroll
@@ -2672,14 +3291,14 @@ fwd_tangent_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   int kt_begin, kt_end;
-  visit(q0, S, Sk, causal, window, true, &kt_begin, &kt_end);
+  visit(q0, S, Sk, causal, window, &kt_begin, &kt_end);
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kT;
     __syncthreads();
-    stage<T, D>(sK, LD, kb, st.s[K][1], k0, Sk, d);
-    stage<T, D>(sTK, LD, tkb, st.s[TK][1], k0, Sk, d);
-    stage<T, D>(sV, D, vb, st.s[V][1], k0, Sk, d);
-    stage<T, D>(sTV, D, tvb, st.s[TV][1], k0, Sk, d);
+    stage<D>(sK, LD, kb, st.s[K][1], k0, Sk, d);
+    stage<D>(sTK, LD, tkb, st.s[TK][1], k0, Sk, d);
+    stage<D>(sV, D, vb, st.s[V][1], k0, Sk, d);
+    stage<D>(sTV, D, tvb, st.s[TV][1], k0, Sk, d);
     __syncthreads();
 
     float s[kRows], sd[kRows];
@@ -2705,10 +3324,9 @@ fwd_tangent_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int qp = q0 + r0 + r, kp = k0 + lane;
       float p = 0.f, ps = 0.f;
       if (qp < S && kp < Sk) {
-        float x, xd;
-        logits(s[r], sd[r], qp, kp, causal, window, scale, &x, &xd);
-        p = expf(x - lrow[r]);
-        ps = p * xd;
+        const bool ok = allowed(qp, kp, causal, window);
+        p = expf((ok ? s[r] * scale : kMasked) - lrow[r]);
+        ps = ok ? p * sd[r] * scale : 0.f;
       }
       sP[(r0 + r) * kT + lane] = p;
       sPS[(r0 + r) * kT + lane] = ps;
@@ -2737,7 +3355,7 @@ fwd_tangent_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* tob = head(to, st, TO, b, h);
+  float* tob = head(to, st, TO, b, h);
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int qp = q0 + r0 + r;
@@ -2745,442 +3363,41 @@ fwd_tangent_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int col = lane + 32 * c;
-      if (col < d)
-        tob[qp * st.s[TO][1] + col] = cast<T>(at[r][c] - dl[r] * ao[r][c]);
+      if (col < d) tob[qp * st.s[TO][1] + col] = at[r][c] - dl[r] * ao[r][c];
     }
     if (lane == 0) tlse[(size_t)bh * S + qp] = dl[r];
-  }
-}
-
-// Per (own row, visited row) pair of T2: s, s', dP and dP' from the staged
-// tiles of one side (a: the row a warp owns) and the other (lane's row).
-struct Pair {
-  float s, sd, dp, dpd;
-};
-
-// T2 part 0: dQ', and D, D' into the workspaces.  Views: all but TDK and
-// TDV.  One block per (b, h, 32-row query tile).
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-bwd_tangent_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ o,
-                      const T* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const T* __restrict__ tq, const T* __restrict__ tk,
-                      const T* __restrict__ tv, const T* __restrict__ to,
-                      const T* __restrict__ tdout,
-                      const float* __restrict__ tlse,
-                      float* __restrict__ dsum, float* __restrict__ tdsum,
-                      T* __restrict__ tdq, Views st, int H, int KV, int S,
-                      int Sk, int d, float scale, int causal, int window) {
-  constexpr int LD = D + 4, NC = D / 32;
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;                        // own: q, q', dO, dO'
-  float* sTQ = sQ + kT * LD;
-  float* sO = sTQ + kT * LD;
-  float* sTO = sO + kT * LD;
-  float* sK = sTO + kT * LD;               // visited: k, k', v, v'
-  float* sTK = sK + kT * LD;
-  float* sV = sTK + kT * LD;
-  float* sTV = sV + kT * LD;
-  float* sS = sTV + kT * LD;               // dS, own x visited
-  float* sSD = sS + kT * kT;               // dS'
-
-  const int nq = (S + kT - 1) / kT;
-  const int bh = blockIdx.x / nq;
-  const int q0 = (blockIdx.x - bh * nq) * kT;
-  const int b = bh / H, h = bh - (bh / H) * H, hk = h / (H / KV);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = warp * kRows;
-
-  stage<T, D>(sQ, LD, head(q, st, Q, b, h), st.s[Q][1], q0, S, d);
-  stage<T, D>(sTQ, LD, head(tq, st, TQ, b, h), st.s[TQ][1], q0, S, d);
-  stage<T, D>(sO, LD, head(dout, st, DO, b, h), st.s[DO][1], q0, S, d);
-  stage<T, D>(sTO, LD, head(tdout, st, TDO, b, h), st.s[TDO][1], q0, S, d);
-  const T* ob = head(o, st, O, b, h);
-  const T* tob = head(to, st, TO, b, h);
-  __syncthreads();
-
-  // D = rowsum(dO o), D' = rowsum(dO' o + dO o') of this warp's rows
-  float lrow[kRows], tl[kRows], dr[kRows], tdr[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qp = q0 + r0 + r;
-    float a = 0.f, ad = 0.f;
-    if (qp < S) {
-      for (int c = lane; c < d; c += 32) {
-        const float ov = f32(ob[qp * st.s[O][1] + c]);
-        const float tov = f32(tob[qp * st.s[TO][1] + c]);
-        const float g = sO[(r0 + r) * LD + c];
-        const float tg = sTO[(r0 + r) * LD + c];
-        a = fmaf(g, ov, a);
-        ad = fmaf(tg, ov, fmaf(g, tov, ad));
-      }
-    }
-    dr[r] = warp_sum(a);
-    tdr[r] = warp_sum(ad);
-    lrow[r] = qp < S ? lse[(size_t)bh * S + qp] : 0.f;
-    tl[r] = qp < S ? tlse[(size_t)bh * S + qp] : 0.f;
-    if (lane == 0 && qp < S) {
-      dsum[(size_t)bh * S + qp] = dr[r];
-      tdsum[(size_t)bh * S + qp] = tdr[r];
-    }
-  }
-
-  float acc[kRows][NC];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
-
-  const T* kb = head(k, st, K, b, hk);
-  const T* tkb = head(tk, st, TK, b, hk);
-  const T* vb = head(v, st, V, b, hk);
-  const T* tvb = head(tv, st, TV, b, hk);
-  int kt_begin, kt_end;
-  visit(q0, S, Sk, causal, window, true, &kt_begin, &kt_end);
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * kT;
-    __syncthreads();
-    stage<T, D>(sK, LD, kb, st.s[K][1], k0, Sk, d);
-    stage<T, D>(sTK, LD, tkb, st.s[TK][1], k0, Sk, d);
-    stage<T, D>(sV, LD, vb, st.s[V][1], k0, Sk, d);
-    stage<T, D>(sTV, LD, tvb, st.s[TV][1], k0, Sk, d);
-    __syncthreads();
-
-    Pair pr[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) pr[r] = Pair{0.f, 0.f, 0.f, 0.f};
-#pragma unroll 2
-    for (int c = 0; c < D; c += 4) {
-      const float4 ka = *reinterpret_cast<const float4*>(&sK[lane * LD + c]);
-      const float4 tka =
-          *reinterpret_cast<const float4*>(&sTK[lane * LD + c]);
-      const float4 va = *reinterpret_cast<const float4*>(&sV[lane * LD + c]);
-      const float4 tva =
-          *reinterpret_cast<const float4*>(&sTV[lane * LD + c]);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int row = (r0 + r) * LD + c;
-        const float4 qv = *reinterpret_cast<const float4*>(&sQ[row]);
-        const float4 tqv = *reinterpret_cast<const float4*>(&sTQ[row]);
-        const float4 gv = *reinterpret_cast<const float4*>(&sO[row]);
-        const float4 tgv = *reinterpret_cast<const float4*>(&sTO[row]);
-        pr[r].s = dot4(qv, ka, pr[r].s);
-        pr[r].sd = dot4(tqv, ka, dot4(qv, tka, pr[r].sd));
-        pr[r].dp = dot4(gv, va, pr[r].dp);
-        pr[r].dpd = dot4(tgv, va, dot4(gv, tva, pr[r].dpd));
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qp = q0 + r0 + r, kp = k0 + lane;
-      float ds = 0.f, dsd = 0.f;
-      if (qp < S && kp < Sk) {
-        float x, xd;
-        logits(pr[r].s, pr[r].sd, qp, kp, causal, window, scale, &x, &xd);
-        const float p = expf(x - lrow[r]);
-        const float pd = p * (xd - tl[r]);
-        ds = p * (pr[r].dp - dr[r]);
-        dsd = pd * (pr[r].dp - dr[r]) + p * (pr[r].dpd - tdr[r]);
-      }
-      sS[(r0 + r) * kT + lane] = ds;
-      sSD[(r0 + r) * kT + lane] = dsd;
-    }
-    __syncwarp();
-
-#pragma unroll 2
-    for (int j = 0; j < kT; ++j) {
-      float kv[NC], tkv[NC];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        kv[c] = sK[j * LD + lane + 32 * c];
-        tkv[c] = sTK[j * LD + lane + 32 * c];
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float g = sS[(r0 + r) * kT + j];
-        const float gd = sSD[(r0 + r) * kT + j];
-#pragma unroll
-        for (int c = 0; c < NC; ++c)
-          acc[r][c] = fmaf(gd, kv[c], fmaf(g, tkv[c], acc[r][c]));
-      }
-    }
-  }
-
-  T* out = head(tdq, st, TDQ, b, h);
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qp = q0 + r0 + r;
-    if (qp >= S) continue;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = lane + 32 * c;
-      if (col < d) out[qp * st.s[TDQ][1] + col] = cast<T>(scale * acc[r][c]);
-    }
-  }
-}
-
-// T2 part 1: dK' and dV' over each KV head's query heads.  Reads D and D'
-// from part 0.  One block per (b, KV head, 32-row key tile).
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-bwd_tangent_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const T* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const T* __restrict__ tq, const T* __restrict__ tk,
-                       const T* __restrict__ tv,
-                       const T* __restrict__ tdout,
-                       const float* __restrict__ tlse,
-                       const float* __restrict__ dsum,
-                       const float* __restrict__ tdsum,
-                       T* __restrict__ tdk, T* __restrict__ tdv, Views st,
-                       int H, int KV, int S, int Sk, int d, float scale,
-                       int causal, int window) {
-  constexpr int LD = D + 4, NC = D / 32;
-  extern __shared__ __align__(16) float smem[];
-  float* sK = smem;                        // own: k, k', v, v'
-  float* sTK = sK + kT * LD;
-  float* sV = sTK + kT * LD;
-  float* sTV = sV + kT * LD;
-  float* sQ = sTV + kT * LD;               // visited: q, q', dO, dO'
-  float* sTQ = sQ + kT * LD;
-  float* sO = sTQ + kT * LD;
-  float* sTO = sO + kT * LD;
-  float* sP = sTO + kT * LD;               // own keys x visited queries
-  float* sPD = sP + kT * kT;
-  float* sS = sPD + kT * kT;
-  float* sSD = sS + kT * kT;
-  float* sRow = sSD + kT * kT;             // lse, lse', D, D' of the tile
-
-  const int nk = (Sk + kT - 1) / kT;
-  const int bk = blockIdx.x / nk;
-  const int k0 = (blockIdx.x - bk * nk) * kT;
-  const int b = bk / KV, hk = bk - (bk / KV) * KV, grp = H / KV;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = warp * kRows;
-
-  stage<T, D>(sK, LD, head(k, st, K, b, hk), st.s[K][1], k0, Sk, d);
-  stage<T, D>(sTK, LD, head(tk, st, TK, b, hk), st.s[TK][1], k0, Sk, d);
-  stage<T, D>(sV, LD, head(v, st, V, b, hk), st.s[V][1], k0, Sk, d);
-  stage<T, D>(sTV, LD, head(tv, st, TV, b, hk), st.s[TV][1], k0, Sk, d);
-
-  float gk[kRows][NC], gv[kRows][NC];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) gk[r][c] = gv[r][c] = 0.f;
-
-  int qt_begin, qt_end;
-  visit(k0, S, Sk, causal, window, false, &qt_begin, &qt_end);
-  for (int h = hk * grp; h < (hk + 1) * grp; ++h) {
-    const size_t rows = ((size_t)b * H + h) * S;
-    for (int qt = qt_begin; qt < qt_end; ++qt) {
-      const int q0 = qt * kT;
-      __syncthreads();
-      stage<T, D>(sQ, LD, head(q, st, Q, b, h), st.s[Q][1], q0, S, d);
-      stage<T, D>(sTQ, LD, head(tq, st, TQ, b, h), st.s[TQ][1], q0, S, d);
-      stage<T, D>(sO, LD, head(dout, st, DO, b, h), st.s[DO][1], q0, S, d);
-      stage<T, D>(sTO, LD, head(tdout, st, TDO, b, h), st.s[TDO][1], q0, S,
-                  d);
-      if (threadIdx.x < kT) {
-        const int qp = q0 + threadIdx.x;
-        const bool in = qp < S;
-        sRow[threadIdx.x] = in ? lse[rows + qp] : 0.f;
-        sRow[kT + threadIdx.x] = in ? tlse[rows + qp] : 0.f;
-        sRow[2 * kT + threadIdx.x] = in ? dsum[rows + qp] : 0.f;
-        sRow[3 * kT + threadIdx.x] = in ? tdsum[rows + qp] : 0.f;
-      }
-      __syncthreads();
-
-      Pair pr[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) pr[r] = Pair{0.f, 0.f, 0.f, 0.f};
-#pragma unroll 2
-      for (int c = 0; c < D; c += 4) {
-        const float4 qa = *reinterpret_cast<const float4*>(&sQ[lane * LD + c]);
-        const float4 tqa =
-            *reinterpret_cast<const float4*>(&sTQ[lane * LD + c]);
-        const float4 ga = *reinterpret_cast<const float4*>(&sO[lane * LD + c]);
-        const float4 tga =
-            *reinterpret_cast<const float4*>(&sTO[lane * LD + c]);
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const int row = (r0 + r) * LD + c;
-          const float4 kv = *reinterpret_cast<const float4*>(&sK[row]);
-          const float4 tkv = *reinterpret_cast<const float4*>(&sTK[row]);
-          const float4 vv = *reinterpret_cast<const float4*>(&sV[row]);
-          const float4 tvv = *reinterpret_cast<const float4*>(&sTV[row]);
-          pr[r].s = dot4(qa, kv, pr[r].s);
-          pr[r].sd = dot4(tqa, kv, dot4(qa, tkv, pr[r].sd));
-          pr[r].dp = dot4(ga, vv, pr[r].dp);
-          pr[r].dpd = dot4(tga, vv, dot4(ga, tvv, pr[r].dpd));
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int kp = k0 + r0 + r, qp = q0 + lane;
-        float p = 0.f, pd = 0.f, ds = 0.f, dsd = 0.f;
-        if (qp < S && kp < Sk) {
-          float x, xd;
-          logits(pr[r].s, pr[r].sd, qp, kp, causal, window, scale, &x, &xd);
-          const float dr = sRow[2 * kT + lane], tdr = sRow[3 * kT + lane];
-          p = expf(x - sRow[lane]);
-          pd = p * (xd - sRow[kT + lane]);
-          ds = p * (pr[r].dp - dr);
-          dsd = pd * (pr[r].dp - dr) + p * (pr[r].dpd - tdr);
-        }
-        const int at = (r0 + r) * kT + lane;
-        sP[at] = p;
-        sPD[at] = pd;
-        sS[at] = ds;
-        sSD[at] = dsd;
-      }
-      __syncwarp();
-
-#pragma unroll 2
-      for (int i = 0; i < kT; ++i) {
-        float qv[NC], tqv[NC], gvv[NC], tgv[NC];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const int at = i * LD + lane + 32 * c;
-          qv[c] = sQ[at];
-          tqv[c] = sTQ[at];
-          gvv[c] = sO[at];
-          tgv[c] = sTO[at];
-        }
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const int at = (r0 + r) * kT + i;
-          const float p = sP[at], pd = sPD[at], g = sS[at], gd = sSD[at];
-#pragma unroll
-          for (int c = 0; c < NC; ++c) {
-            gk[r][c] = fmaf(gd, qv[c], fmaf(g, tqv[c], gk[r][c]));
-            gv[r][c] = fmaf(pd, gvv[c], fmaf(p, tgv[c], gv[r][c]));
-          }
-        }
-      }
-    }
-  }
-
-  T* okb = head(tdk, st, TDK, b, hk);
-  T* ovb = head(tdv, st, TDV, b, hk);
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int kp = k0 + r0 + r;
-    if (kp >= Sk) continue;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = lane + 32 * c;
-      if (col < d) {
-        okb[kp * st.s[TDK][1] + col] = cast<T>(scale * gk[r][c]);
-        ovb[kp * st.s[TDV][1] + col] = cast<T>(gv[r][c]);
-      }
-    }
   }
 }
 
 template <int D> constexpr size_t fwd_smem() {
   return sizeof(float) * (4 * kT * (D + 4) + 2 * kT * D + 2 * kT * kT);
 }
-template <int D> constexpr size_t dq_smem() {
-  return sizeof(float) * (8 * kT * (D + 4) + 2 * kT * kT);
-}
-template <int D> constexpr size_t dkv_smem() {
-  return sizeof(float) * (8 * kT * (D + 4) + 4 * kT * kT + 4 * kT);
-}
 
-struct Ptrs {
-  const void *q, *k, *v, *o, *dout, *lse, *tq, *tk, *tv, *to, *tdout, *tlse;
-  void *out_q, *out_k, *out_v, *out_lse, *dsum, *tdsum;
-};
-
-template <typename T, int D>
-cudaError_t run_fwd(const Ptrs& p, const Views& st, int B, int H, int KV,
-                    int S, int Sk, int d, float scale, int causal,
+template <int D>
+cudaError_t run_fwd(const void* const* p, const Views& st, int B, int H,
+                    int KV, int S, int Sk, int d, float scale, int causal,
                     int window, cudaStream_t s) {
-  auto kernel = fwd_tangent_kernel<T, D>;
+  auto kernel = fwd_tangent_kernel<D>;
   static bool ready = false;
   cudaError_t err = allow_smem(kernel, fwd_smem<D>(), &ready);
   if (err != cudaSuccess) return err;
   const long long blocks = (long long)B * H * ((S + kT - 1) / kT);
+  const float* const* f = reinterpret_cast<const float* const*>(p);
   kernel<<<(unsigned)blocks, kThreads, fwd_smem<D>(), s>>>(
-      static_cast<const T*>(p.q), static_cast<const T*>(p.k),
-      static_cast<const T*>(p.v), static_cast<const float*>(p.lse),
-      static_cast<const T*>(p.tq), static_cast<const T*>(p.tk),
-      static_cast<const T*>(p.tv), static_cast<T*>(p.out_q),
-      static_cast<float*>(p.out_lse), st, H, KV, S, Sk, d, scale, causal,
-      window);
+      f[0], f[1], f[2], f[3], f[4], f[5], f[6], const_cast<float*>(f[7]),
+      const_cast<float*>(f[8]), st, H, KV, S, Sk, d, scale, causal, window);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t run_bwd(const Ptrs& p, const Views& st, int B, int H, int KV,
-                    int S, int Sk, int d, float scale, int causal,
-                    int window, int part, cudaStream_t s) {
-  const T *q = static_cast<const T*>(p.q), *k = static_cast<const T*>(p.k),
-          *v = static_cast<const T*>(p.v), *dout = static_cast<const T*>(p.dout),
-          *tq = static_cast<const T*>(p.tq), *tk = static_cast<const T*>(p.tk),
-          *tv = static_cast<const T*>(p.tv),
-          *tdout = static_cast<const T*>(p.tdout);
-  const float *lse = static_cast<const float*>(p.lse),
-              *tlse = static_cast<const float*>(p.tlse);
-  float *dsum = static_cast<float*>(p.dsum),
-        *tdsum = static_cast<float*>(p.tdsum);
-  if (part == 0) {
-    auto kernel = bwd_tangent_dq_kernel<T, D>;
-    static bool ready = false;
-    cudaError_t err = allow_smem(kernel, dq_smem<D>(), &ready);
-    if (err != cudaSuccess) return err;
-    const long long blocks = (long long)B * H * ((S + kT - 1) / kT);
-    kernel<<<(unsigned)blocks, kThreads, dq_smem<D>(), s>>>(
-        q, k, v, static_cast<const T*>(p.o), dout, lse, tq, tk, tv,
-        static_cast<const T*>(p.to), tdout, tlse, dsum, tdsum,
-        static_cast<T*>(p.out_q), st, H, KV, S, Sk, d, scale, causal,
-        window);
-  } else {
-    auto kernel = bwd_tangent_dkv_kernel<T, D>;
-    static bool ready = false;
-    cudaError_t err = allow_smem(kernel, dkv_smem<D>(), &ready);
-    if (err != cudaSuccess) return err;
-    const long long blocks = (long long)B * KV * ((Sk + kT - 1) / kT);
-    kernel<<<(unsigned)blocks, kThreads, dkv_smem<D>(), s>>>(
-        q, k, v, dout, lse, tq, tk, tv, tdout, tlse, dsum, tdsum,
-        static_cast<T*>(p.out_k), static_cast<T*>(p.out_v), st, H, KV, S,
-        Sk, d, scale, causal, window);
-  }
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t fwd_dispatch(const Ptrs& p, const Views& st, int B, int H,
-                         int KV, int S, int Sk, int d, float scale,
-                         int causal, int window, cudaStream_t s) {
-  return d <= 32 ? run_fwd<T, 32>(p, st, B, H, KV, S, Sk, d, scale, causal, window, s)
-       : d <= 64 ? run_fwd<T, 64>(p, st, B, H, KV, S, Sk, d, scale, causal, window, s)
-                 : run_fwd<T, 128>(p, st, B, H, KV, S, Sk, d, scale, causal, window, s);
-}
-
-// T2 in bfloat16 only: float32 runs namespace tf32's tangent kernels.
-cudaError_t bwd_dispatch(const Ptrs& p, const Views& st, int B, int H,
-                         int KV, int S, int Sk, int d, float scale,
-                         int causal, int window, int part, cudaStream_t s) {
-  using T = __nv_bfloat16;
-  return d <= 32 ? run_bwd<T, 32>(p, st, B, H, KV, S, Sk, d, scale, causal, window, part, s)
-       : d <= 64 ? run_bwd<T, 64>(p, st, B, H, KV, S, Sk, d, scale, causal, window, part, s)
-                 : run_bwd<T, 128>(p, st, B, H, KV, S, Sk, d, scale, causal, window, part, s);
-}
-
-bool valid(int B, int H, int KV, int S, int Sk, int d, int dtype) {
-  const int longest = S > Sk ? S : Sk;
+bool valid(int B, int H, int KV, int S, int Sk, int d) {
   return B >= 1 && KV >= 1 && H >= KV && H % KV == 0 && S >= 1 && Sk >= 1 &&
-         d >= 1 && d <= kMaxHeadDim && (dtype == 0 || dtype == 1) &&
-         (long long)B * H * ((longest + kT - 1) / kT) <= 0x7fffffffLL;
+         d >= 1 && d <= kMaxHeadDim &&
+         (long long)B * H * ((S + kT - 1) / kT) <= 0x7fffffffLL;
 }
 
-Views views(const long long* strides, int n) {
+Views views(const long long* strides) {
   Views st{};
-  for (int i = 0; i < n; ++i)
+  for (int i = 0; i < kMaxViews; ++i)
     for (int j = 0; j < 3; ++j) st.s[i][j] = strides[3 * i + j];
   return st;
 }
@@ -3346,30 +3563,40 @@ int repro_flash_bwd_bf16(const void* q, const void* k, const void* v,
 // dout, tq, tk, tv, to, tdout, tdq, tdk, tdv (a view a launch does not
 // touch may be given as 0s); each view's d has stride 1.  q-like views
 // have H heads, k/v-like views KV, H % KV == 0.  lse, tlse, dsum and tdsum
-// are (B, H, S) float32.
-// T1 (CUDA cores, namespace jvpk): o' into `to`, lse' into `tlse`.
+// are (B, H, S) float32.  bfloat16 runs namespace hop's tangent kernels:
+// tiles by TMA where every view the launch uses has 16-byte aligned rows
+// (pointer and strides) and d % 8 == 0 (an error if a tensor map cannot be
+// made), element by element otherwise.
+
+// T1: o' into `to`, lse' into `tlse`; float32 on the CUDA cores (namespace
+// jvpk).
 int repro_flash_fwd_tangent(const void* q, const void* k, const void* v,
                             const void* lse, const void* tq, const void* tk,
                             const void* tv, void* to, void* tlse,
                             const long long* strides, int B, int H, int KV,
                             int S, int Sk, int d, float scale, int causal,
                             int window, int dtype, void* stream) {
-  if (!jvpk::valid(B, H, KV, S, Sk, d, dtype))
-    return (int)cudaErrorInvalidValue;
-  jvpk::Ptrs p{};
-  p.q = q; p.k = k; p.v = v; p.lse = lse; p.tq = tq; p.tk = tk; p.tv = tv;
-  p.out_q = to; p.out_lse = tlse;
-  const jvpk::Views st = jvpk::views(strides, jvpk::kMaxViews);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(dtype ? jvpk::fwd_dispatch<__nv_bfloat16>(p, st, B, H, KV, S, Sk, d, scale, causal, window, s)
-                     : jvpk::fwd_dispatch<float>(p, st, B, H, KV, S, Sk, d, scale, causal, window, s));
+  const void* views[hop::kTViews] = {q,  k,  v,  nullptr, nullptr,
+                                     tq, tk, tv, to,      nullptr,
+                                     nullptr, nullptr, nullptr};
+  if (dtype == 1)
+    return hop::tangent(views, strides, lse, tlse, nullptr, nullptr, B, H,
+                        KV, S, Sk, d, scale, causal, window, 0, s);
+  if (dtype != 0 || !jvpk::valid(B, H, KV, S, Sk, d))
+    return (int)cudaErrorInvalidValue;
+  const void* p[9] = {q, k, v, lse, tq, tk, tv, to, tlse};
+  const jvpk::Views st = jvpk::views(strides);
+  return (int)(d <= 32 ? jvpk::run_fwd<32>(p, st, B, H, KV, S, Sk, d, scale, causal, window, s)
+               : d <= 64 ? jvpk::run_fwd<64>(p, st, B, H, KV, S, Sk, d, scale, causal, window, s)
+                         : jvpk::run_fwd<128>(p, st, B, H, KV, S, Sk, d, scale, causal, window, s));
 }
 
 // T2.  part 0: dq' into `tdq`, and D, D' into `dsum`, `tdsum`; part 1
 // (after part 0): dk' and dv', summed over each KV head's query heads.
 // float32 on the tensor cores (namespace tf32; tiles by cp.async where
 // every view's pointer and strides are 16-byte aligned and d % 4 == 0,
-// element by element otherwise), bfloat16 on the CUDA cores (jvpk).
+// element by element otherwise).
 int repro_flash_bwd_tangent(const void* q, const void* k, const void* v,
                             const void* o, const void* dout, const void* lse,
                             const void* tq, const void* tk, const void* tv,
@@ -3379,50 +3606,44 @@ int repro_flash_bwd_tangent(const void* q, const void* k, const void* v,
                             const long long* strides, int B, int H, int KV,
                             int S, int Sk, int d, float scale, int causal,
                             int window, int part, int dtype, void* stream) {
-  if (!jvpk::valid(B, H, KV, S, Sk, d, dtype) || (part != 0 && part != 1))
+  if ((dtype != 0 && dtype != 1) || (part != 0 && part != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (!hop::valid(B, H, KV, S, Sk, d)) return (int)cudaErrorInvalidValue;
-    tf32::TArgs a{};
-    const void* views[tf32::kViews] = {q, k, v, o, dout, tq, tk, tv, to,
-                                       tdout, tdq, tdk, tdv};
-    int vec = d % 4 == 0;
-    for (int i = 0; i < tf32::kViews; ++i) {
-      a.st[i] = hop::strides_at(strides, i);
-      vec = vec && reinterpret_cast<uintptr_t>(views[i]) % 16 == 0 &&
-            a.st[i].b % 4 == 0 && a.st[i].s % 4 == 0 && a.st[i].h % 4 == 0;
-    }
-    a.q = static_cast<const float*>(q);
-    a.k = static_cast<const float*>(k);
-    a.v = static_cast<const float*>(v);
-    a.o = static_cast<const float*>(o);
-    a.dout = static_cast<const float*>(dout);
-    a.lse = static_cast<const float*>(lse);
-    a.tq = static_cast<const float*>(tq);
-    a.tk = static_cast<const float*>(tk);
-    a.tv = static_cast<const float*>(tv);
-    a.to = static_cast<const float*>(to);
-    a.tdout = static_cast<const float*>(tdout);
-    a.tlse = static_cast<const float*>(tlse);
-    a.dsum = static_cast<float*>(dsum);
-    a.tdsum = static_cast<float*>(tdsum);
-    a.tdq = static_cast<float*>(tdq);
-    a.tdk = static_cast<float*>(tdk);
-    a.tdv = static_cast<float*>(tdv);
-    a.H = H; a.KV = KV; a.S = S; a.Sk = Sk; a.d = d; a.scale = scale;
-    a.causal = causal; a.window = window; a.vec = vec;
-    return (int)(d <= 32 ? tf32::run_tangent<32>(a, B, part, s)
-                 : d <= 64 ? tf32::run_tangent<64>(a, B, part, s)
-                           : tf32::run_tangent<128>(a, B, part, s));
+  const void* views[hop::kTViews] = {q, k, v, o, dout, tq, tk, tv, to,
+                                     tdout, tdq, tdk, tdv};
+  if (dtype == 1)
+    return hop::tangent(views, strides, lse, tlse, dsum, tdsum, B, H, KV, S,
+                        Sk, d, scale, causal, window, 1 + part, s);
+  if (!hop::valid(B, H, KV, S, Sk, d)) return (int)cudaErrorInvalidValue;
+  tf32::TArgs a{};
+  int vec = d % 4 == 0;
+  for (int i = 0; i < tf32::kViews; ++i) {
+    a.st[i] = hop::strides_at(strides, i);
+    vec = vec && reinterpret_cast<uintptr_t>(views[i]) % 16 == 0 &&
+          a.st[i].b % 4 == 0 && a.st[i].s % 4 == 0 && a.st[i].h % 4 == 0;
   }
-  jvpk::Ptrs p{};
-  p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout; p.lse = lse;
-  p.tq = tq; p.tk = tk; p.tv = tv; p.to = to; p.tdout = tdout; p.tlse = tlse;
-  p.dsum = dsum; p.tdsum = tdsum; p.out_q = tdq; p.out_k = tdk; p.out_v = tdv;
-  const jvpk::Views st = jvpk::views(strides, jvpk::kMaxViews);
-  return (int)jvpk::bwd_dispatch(p, st, B, H, KV, S, Sk, d, scale, causal,
-                                 window, part, s);
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.o = static_cast<const float*>(o);
+  a.dout = static_cast<const float*>(dout);
+  a.lse = static_cast<const float*>(lse);
+  a.tq = static_cast<const float*>(tq);
+  a.tk = static_cast<const float*>(tk);
+  a.tv = static_cast<const float*>(tv);
+  a.to = static_cast<const float*>(to);
+  a.tdout = static_cast<const float*>(tdout);
+  a.tlse = static_cast<const float*>(tlse);
+  a.dsum = static_cast<float*>(dsum);
+  a.tdsum = static_cast<float*>(tdsum);
+  a.tdq = static_cast<float*>(tdq);
+  a.tdk = static_cast<float*>(tdk);
+  a.tdv = static_cast<float*>(tdv);
+  a.H = H; a.KV = KV; a.S = S; a.Sk = Sk; a.d = d; a.scale = scale;
+  a.causal = causal; a.window = window; a.vec = vec;
+  return (int)(d <= 32 ? tf32::run_tangent<32>(a, B, part, s)
+               : d <= 64 ? tf32::run_tangent<64>(a, B, part, s)
+                         : tf32::run_tangent<128>(a, B, part, s));
 }
 
 }  // extern "C"

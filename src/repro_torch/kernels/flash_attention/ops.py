@@ -37,12 +37,14 @@ and each backward ``Function`` has a ``jvp`` rule.  The rule runs a
 tangent ``Function`` of its own (:class:`_FwdTangent`, :class:`_BwdTangent`)
 whose ``vmap`` rule folds the mapped dimensions like the others, so the
 tangent kernels (T1 :func:`flash_attention_fwd_tangent`, T2
-:func:`flash_attention_bwd_tangent`, in ``csrc/flash_attention.cu``,
-namespace ``jvpk``) see plain tensors under ``vmap(vmap(jvp(grad)))``.
-Both take either layout (``heads_dim``) and float32 or bfloat16, and count
-one launch (T1) and two (T2: dQ', then dK'/dV') in ``launch_counts``.
-T2 in float32 runs on the tensor cores (namespace ``tf32``), T1 and T2 in
-bfloat16 on the CUDA cores.
+:func:`flash_attention_bwd_tangent`, in ``csrc/flash_attention.cu``) see
+plain tensors under ``vmap(vmap(jvp(grad)))``.  Both take either layout
+(``heads_dim``) and float32 or bfloat16, and count one launch (T1) and two
+(T2: dQ', then dK'/dV') in ``launch_counts``.  bfloat16 runs the Hopper
+kernels of namespace ``hop`` (``wgmma``, TMA, K/V read unexpanded, the
+float32 P, P ⊙ S', P', dS and dS' taken as bf16 hi/lo pairs); T2 in
+float32 runs on the tensor cores (namespace ``tf32``, 3×TF32), T1 in
+float32 on the CUDA cores (namespace ``jvpk``).
 Reverse-over-reverse (``grad`` of ``grad``) still raises.
 """
 from __future__ import annotations
@@ -335,7 +337,8 @@ def flash_attention_fwd_tangent(q, k, v, lse, tq, tk, tv, *,
     v) along (q', k', v'), from the forward's ``lse`` (B, H, S).  Layout
     (B, H, S, d) with ``heads_dim=1`` (heads expanded), (B, S, H, d) with
     K/V (B, S_k, KV, d) unexpanded with ``heads_dim=2``.  o' in q's dtype,
-    lse' (B, H, S) float32; the plain version is
+    lse' (B, H, S) float32; one launch (bfloat16 on ``wgmma``, namespace
+    ``hop``; float32 on the CUDA cores).  The plain version is
     :func:`.ref.flash_fwd_tangent_ref`."""
     name = "flash_attention_fwd_tangent"
     B, H, KV, S, Sk, d = _layout(name, q, k, v, heads_dim)
@@ -372,9 +375,9 @@ def flash_attention_bwd_tangent(q, k, v, out, lse, do, tq, tk, tv, tout,
     (q, k, v, out, lse, dO) along the tangents of all six, in the layout of
     ``heads_dim`` (as :func:`flash_attention_fwd_tangent`); dk' and dv'
     summed over each KV head's query heads.  Two launches: dq' (which also
-    writes D and D' into workspaces), then dk'/dv'; float32 on the tensor
-    cores (3×TF32), bfloat16 on the CUDA cores, both on the views as
-    given.  The plain version is :func:`.ref.flash_bwd_tangent_ref`."""
+    writes D and D' into workspaces), then dk'/dv'; bfloat16 on ``wgmma``
+    (namespace ``hop``), float32 on 3×TF32 ``mma.sync``, both on the views
+    as given.  The plain version is :func:`.ref.flash_bwd_tangent_ref`."""
     name = "flash_attention_bwd_tangent"
     B, H, KV, S, Sk, d = _layout(name, q, k, v, heads_dim)
     scale = _scale(q, scale)

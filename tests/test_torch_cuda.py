@@ -440,6 +440,25 @@ def _device_kernels(prof) -> list[str]:
             for _ in range(e.count)]
 
 
+def _launched(fn, tries=3):
+    """(names of the kernels one ``fn()`` runs on the card, in launch order,
+    from torch.profiler; ``fn()``'s result).  A session that records no
+    device event at all runs again: in a long test process the profiler at
+    times records none in a session, which says nothing about ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        if events:
+            break
+    return [e.name for e in events], out
+
+
 @pytest.mark.requires_cuda
 def test_cuda_gqa_flash_attention_launches_only_its_kernels(cuda):
     """At the serving shape (16, 256, 12 heads, 2 KV heads, 128) in bf16, a
@@ -762,16 +781,17 @@ TANGENT_IDS = ["bhsd-causal-256x128", "bhsd-window-ragged200x64",
 
 
 def _flash_tangent_inputs(heads_dim, shape, dtype, device, seed=0,
-                          unaligned=False):
+                          unaligned=False, Sk=None):
     """q, k, v, dO and their tangents in the layout of ``heads_dim``;
     ``unaligned``: views of the first d columns of tensors with d + 1,
-    whose rows are not 16-byte aligned."""
+    whose rows are not 16-byte aligned; ``Sk`` (the model layout): keys of
+    another length than the queries."""
     gen = torch.Generator().manual_seed(seed)
     if heads_dim == 1:
         qs = ks = shape
     else:
         B, S, H, KV, d = shape
-        qs, ks = (B, S, H, d), (B, S, KV, d)
+        qs, ks = (B, S, H, d), (B, S if Sk is None else Sk, KV, d)
 
     def draw(s):
         if not unaligned:
@@ -878,7 +898,6 @@ def test_cuda_f32_forward_and_t2_launch_only_their_kernels(cuda):
     float32, a forward call runs the one 3xTF32 forward kernel on the card
     and a T2 call its two tangent kernels, and nothing else: no head
     expansion, copy or elementwise kernel."""
-    from torch.profiler import ProfilerActivity, profile
     q, k, v, do, tq, tk, tv, tdo = _flash_tangent_inputs(
         2, (16, 256, 8, 4, 64), torch.float32, cuda)
     out, lse = fops.gqa_flash_attention_fwd_lse(q, k, v)
@@ -887,17 +906,11 @@ def test_cuda_f32_forward_and_t2_launch_only_their_kernels(cuda):
     t2 = lambda: fops.flash_attention_bwd_tangent(
         q, k, v, out, lse, do, tq, tk, tv, to, tlse, tdo, heads_dim=2)
     t2()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as fwd:
-        fops.gqa_flash_attention_fwd_lse(q, k, v)
-        torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as bwd:
-        grads = t2()
-        torch.cuda.synchronize()
+    fwd_names, _ = _launched(lambda: fops.gqa_flash_attention_fwd_lse(q, k, v))
+    names, grads = _launched(t2)
     assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
-    names = _device_kernels(fwd)
-    assert len(names) == 1 and "tf32::fwd_kernel" in names[0], names
-    names = _device_kernels(bwd)
+    assert len(fwd_names) == 1 and "tf32::fwd_kernel" in fwd_names[0], \
+        fwd_names
     assert len(names) == 2 and all("tf32::tangent_d" in n for n in names), \
         names
 
@@ -912,6 +925,129 @@ def test_cuda_f32_forward_and_t2_raise_when_their_kernels_cannot_launch(
     before = dict(fops.launch_counts)
     with pytest.raises(RuntimeError, match="launch failed"):
         fops.gqa_flash_attention_fwd_lse(q, q, q)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fops.flash_attention_bwd_tangent(q, q, q, q, lse, q, q, q, q, q, lse,
+                                         q, heads_dim=2)
+    assert fops.launch_counts == before
+
+
+# T1 and T2 in bf16 on hop's tangent kernels, in the model layout ((B, S,
+# S_k, H, KV, d), causal, window, unaligned): whisper's encoder reduced to
+# one sequence and 2 heads (1500 frames: a last key tile of 28) and its
+# cross-attention (256 queries against them), d = 30 and 32, GQA 6:1,
+# unaligned views (read element by element), causal with S < S_k and
+# S > S_k, a window.
+BF16_TANGENT_CASES = [((1, 1500, 1500, 2, 2, 64), False, None, False),
+                      ((1, 256, 1500, 2, 2, 64), False, None, False),
+                      ((2, 100, 100, 6, 1, 30), True, None, False),
+                      ((2, 200, 200, 4, 4, 32), True, None, False),
+                      ((1, 160, 160, 4, 2, 64), True, None, True),
+                      ((2, 130, 130, 6, 1, 128), False, 48, True),
+                      ((2, 192, 320, 4, 2, 64), True, None, False),
+                      ((2, 320, 192, 4, 2, 64), True, None, False)]
+BF16_TANGENT_IDS = ["whisper-encoder-1500-2x64", "whisper-cross-256x1500",
+                    "causal-100-6x1-30", "causal-200-4x4-32",
+                    "causal-160-4x2-64-unaligned",
+                    "window-130-6x1-128-unaligned", "causal-192x320",
+                    "causal-320x192"]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape,causal,window,unaligned", BF16_TANGENT_CASES,
+                         ids=BF16_TANGENT_IDS)
+def test_cuda_bf16_tangents_match_plain_versions(cuda, shape, causal,
+                                                 window, unaligned):
+    """T1 (o', lse'; one launch) and T2 (dq', dk', dv'; two launches) in
+    bf16 within TANGENT_TOL of their plain versions."""
+    B, S, Sk, H, KV, d = shape
+    q, k, v, do, tq, tk, tv, tdo = _flash_tangent_inputs(
+        2, (B, S, H, KV, d), torch.bfloat16, cuda, unaligned=unaligned,
+        Sk=Sk)
+    kw = dict(causal=causal, window=window, heads_dim=2)
+    out, lse = fref.gqa_flash_fwd_ref(q, k, v, causal=causal, window=window)
+    before = dict(fops.launch_counts)
+    to, tlse = fops.flash_attention_fwd_tangent(q, k, v, lse, tq, tk, tv,
+                                                **kw)
+    want_to, want_tlse = fref.flash_fwd_tangent_ref(q, k, v, tq, tk, tv, **kw)
+    assert_tangent_close(to, want_to)
+    assert_tangent_close(tlse, want_tlse)
+    grads = fops.flash_attention_bwd_tangent(q, k, v, out, lse, do, tq, tk,
+                                             tv, want_to, want_tlse, tdo,
+                                             **kw)
+    wants = fref.flash_bwd_tangent_ref(q, k, v, out, lse, do, tq, tk, tv,
+                                       want_to, want_tlse, tdo, **kw)
+    for g, w in zip(grads, wants):
+        assert_tangent_close(g, w)
+    assert {n: fops.launch_counts[n] - before[n] for n in (
+        "flash_attention_fwd_tangent", "flash_attention_bwd_tangent")} == {
+        "flash_attention_fwd_tangent": 1, "flash_attention_bwd_tangent": 2}
+    torch.cuda.synchronize()
+
+
+@pytest.mark.requires_cuda
+def test_cuda_bf16_tangents_keep_the_lo_halves(cuda):
+    """Values sharing a mean of 4 and keys a direction, at a causal GQA 6:1
+    shape at d = 128: o' is then a difference of two large sums, which a P
+    rounded once to bf16 puts outside TANGENT_TOL
+    (tests/test_torch_flash_tangent_hilo.py); the kernels' hi/lo halves
+    keep T1 and T2 within it."""
+    gen = torch.Generator().manual_seed(0)
+    B, S, H, KV, d = 1, 256, 6, 1, 128
+    draw = lambda *s: torch.randn(*s, generator=gen)
+    q, tq, do, tdo = (draw(B, S, H, d).to(cuda, torch.bfloat16)
+                      for _ in range(4))
+    k, v, tk, tv = (draw(B, S, KV, d) for _ in range(4))
+    k, v = k + draw(d), v + 4.0
+    k, v, tk, tv = (t.to(cuda, torch.bfloat16) for t in (k, v, tk, tv))
+    kw = dict(causal=True, window=None, heads_dim=2)
+    out, lse = fref.gqa_flash_fwd_ref(q, k, v, causal=True, window=None)
+    to, tlse = fops.flash_attention_fwd_tangent(q, k, v, lse, tq, tk, tv,
+                                                **kw)
+    want_to, want_tlse = fref.flash_fwd_tangent_ref(q, k, v, tq, tk, tv, **kw)
+    assert_tangent_close(to, want_to)
+    assert_tangent_close(tlse, want_tlse)
+    grads = fops.flash_attention_bwd_tangent(q, k, v, out, lse, do, tq, tk,
+                                             tv, want_to, want_tlse, tdo,
+                                             **kw)
+    for g, w in zip(grads, fref.flash_bwd_tangent_ref(
+            q, k, v, out, lse, do, tq, tk, tv, want_to, want_tlse, tdo,
+            **kw)):
+        assert_tangent_close(g, w)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_bf16_tangents_launch_only_their_kernels(cuda):
+    """At qwen2-1.5b's training shape (16, 256, 12 heads on 2, 128) in
+    bf16, a T1 call runs hop::tangent_fwd_kernel alone on the card and a T2
+    call hop::tangent_dq_kernel then hop::tangent_dkv_kernel: no CUDA-core
+    (jvpk) kernel, copy or head expansion."""
+    q, k, v, do, tq, tk, tv, tdo = _flash_tangent_inputs(
+        2, (16, 256, 12, 2, 128), torch.bfloat16, cuda)
+    out, lse = fops.gqa_flash_attention_fwd_lse(q, k, v)
+    t1 = lambda: fops.flash_attention_fwd_tangent(q, k, v, lse, tq, tk, tv,
+                                                  heads_dim=2)
+    to, tlse = t1()
+    t2 = lambda: fops.flash_attention_bwd_tangent(
+        q, k, v, out, lse, do, tq, tk, tv, to, tlse, tdo, heads_dim=2)
+    t2()
+    fwd_names, _ = _launched(t1)
+    names, grads = _launched(t2)
+    assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+    assert len(fwd_names) == 1 and \
+        "hop::tangent_fwd_kernel" in fwd_names[0], fwd_names
+    assert len(names) == 2 and "hop::tangent_dq_kernel" in names[0] and \
+        "hop::tangent_dkv_kernel" in names[1], names
+
+
+@pytest.mark.requires_cuda
+def test_cuda_bf16_tangents_raise_when_their_kernels_cannot_launch(cuda):
+    """A batch past the grid's 65535 limit: each bf16 tangent launch is
+    refused and the call raises; nothing runs in its place."""
+    q = torch.ones(65536, 1, 1, 8, device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros(65536, 1, 1, device=cuda)
+    before = dict(fops.launch_counts)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fops.flash_attention_fwd_tangent(q, q, q, lse, q, q, q, heads_dim=2)
     with pytest.raises(RuntimeError, match="launch failed"):
         fops.flash_attention_bwd_tangent(q, q, q, q, lse, q, q, q, q, q, lse,
                                          q, heads_dim=2)

@@ -19,6 +19,7 @@ from torch._C._functorch import is_batchedtensor, is_gradtrackingtensor
 
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention
 from repro.kernels.ssd_scan.ref import ssd_scan_ref as jax_ssd_scan_ref
+from repro.models import layers as jax_layers
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.ssd_scan import ops as sops
 
@@ -98,17 +99,23 @@ def test_flash_forward_over_reverse_matches_jax(causal, window):
     _assert_hvp_close(*_hvps(loss_t, loss_j, params, batch, tangents))
 
 
-@pytest.mark.parametrize("causal,window", [(True, None), (True, 8)],
-                         ids=["causal", "window8"])
+@pytest.mark.parametrize("causal,window,S,Sk",
+                         [(True, None, 32, 32), (True, 8, 32, 32),
+                          (False, None, 32, 32), (False, None, 16, 40)],
+                         ids=["causal", "window8", "full", "cross-16x40"])
 def test_gqa_forward_over_reverse_matches_jax_in_model_layout(causal,
-                                                              window):
+                                                              window, S,
+                                                              Sk):
     """``gqa_flash_attention`` in the model's layout, q (B, S, H, d) and
-    K/V (B, S, KV, d) unexpanded, against ``attention_ref`` of the heads
-    repeated as the reference's models repeat them."""
+    K/V (B, S_k, KV, d) unexpanded, against ``attention_ref`` of the heads
+    repeated as the reference's models repeat them; the cross case (16
+    queries against 40 keys, non-causal, the shapes whisper's cross block
+    gives T1 and T2) against ``layers.sdpa`` as the reference's
+    ``attention_apply`` calls it with ``kv_x``."""
     rng = np.random.default_rng(1)
-    B, S, H, KV, D = 1, 32, 4, 2, 16
-    params = {"q": _draw(rng, B, S, H, D), "k": _draw(rng, B, S, KV, D),
-              "v": _draw(rng, B, S, KV, D)}
+    B, H, KV, D = 1, 4, 2, 16
+    params = {"q": _draw(rng, B, S, H, D), "k": _draw(rng, B, Sk, KV, D),
+              "v": _draw(rng, B, Sk, KV, D)}
     lead = (N_AGENTS, N_TASKS)
     batch = {"w": _draw(rng, *lead, B, S, H, D)}
     tangents = {n: _draw(rng, *lead, *params[n].shape) for n in params}
@@ -118,6 +125,11 @@ def test_gqa_forward_over_reverse_matches_jax_in_model_layout(causal,
             p["q"], p["k"], p["v"], causal=causal, window=window), b["w"])
 
     def loss_j(p, b):
+        if S != Sk:
+            k, v = (jax_layers._expand_kv(p[n], H) for n in "kv")
+            out = jax_layers.sdpa(p["q"], k, v, 1.0 / np.sqrt(D),
+                                  causal=False, window=None)
+            return _attention_loss(out, b["w"])
         heads = lambda t: jnp.repeat(t, H // KV, axis=2).transpose(0, 2, 1, 3)
         out = jax_attention(p["q"].transpose(0, 2, 1, 3), heads(p["k"]),
                             heads(p["v"]), causal=causal, window=window)
