@@ -29,7 +29,8 @@ Phases, each fatal on failure:
                 two and one float32 T2 its two, one bf16 SSD scan call the
                 SSD's three kernels, one bf16 ``ssd_scan_tangent`` call
                 T3's three, and one bf16 ``ssd_scan_bwd`` and one
-                ``ssd_scan_bwd_tangent`` call their five each, and nothing
+                ``ssd_scan_bwd_tangent`` call their six each (namespace
+                ``hbw`` and the shared state passing), and nothing
                 else: no head expansion, copy or
                 elementwise kernel beside them (torch.profiler, before any
                 other profiling: sessions after phase 5's miss kernels).
@@ -143,14 +144,16 @@ Phases, each fatal on failure:
                 the two-halves check runs in both dtypes; the call's time is
                 printed beside its bound, this design's bound and the time
                 of the CUDA-core kernel it replaced.  Then the scan's
-                backward (``ssd_scan_bwd``, five launches of
-                ``csrc/ssd_bwd.cu``) against its three plain passes
+                backward (``ssd_scan_bwd``, six launches of
+                ``csrc/ssd_bwd.cu`` in bf16, five in float32) against its
+                three plain passes
                 composed, within SSD_BWD_TOL: the grid, a ragged row (chunk
                 48, A per sequence), full-width heads, one chunk of 100
                 rows and seg falling past 88, in both dtypes, and the
                 mamba2 training shape (both dtypes) and serving shape
                 (bf16), timed beside the plain version, the chunked VJP it
-                replaced and the bound (and each wrapper), with planted
+                replaced and the bound (and each wrapper, and in bf16 each
+                of the chunk wrapper's four launches alone), with planted
                 faults (the state cotangent not carried, dA without a
                 chunk's term, dB not summed over a group's heads) that must
                 fail; every row's second call must give the same bits.
@@ -196,8 +199,8 @@ Phases, each fatal on failure:
                 Prints each timed kernel's ms, the plain version's ms and
                 the bound, and T3's call beside the CUDA-core kernel it
                 replaced.  Then the backward's tangent
-                (``ssd_scan_bwd_tangent``, the backward's five kernels on
-                dual numbers) over phase 9's backward rows, the same way.
+                (``ssd_scan_bwd_tangent``, the backward's kernels on dual
+                numbers) over phase 9's backward rows, the same way.
                 Runs before phase 5, as phase 6.
 13. mamba2 training -- this slice's main path: ``launch.train.main`` in
                 this process on mamba2-130m at full width cut to 4 of its
@@ -210,7 +213,8 @@ Phases, each fatal on failure:
                 are zeroed just before and read just after, and the SSD
                 kernels, T3, the scan's backward and its tangent
                 (``ssd_scan_bwd``, ``ssd_scan_bwd_tangent``, each of their
-                five kernels) and the fused update must have launched; the
+                six bf16 kernels) and the fused update must have launched;
+                the
                 losses are finite, the disagreement falls, the run log
                 passes ``scripts/check_run_log.py --expect-fused``.  Then 2
                 steps that save the step-2 checkpoint and 2 more resumed
@@ -426,13 +430,18 @@ SSD_FORWARD_KERNELS = (*SSD_PASSES.values(), "ssd_scan_kernel")
 T3_PASSES = {"ssd_tangent_state": "tangent_state_kernel",
              "ssd_tangent_pass": "tangent_pass_kernel",
              "ssd_tangent_scan": "tangent_scan_kernel"}
-# The scan backward's five kernels (launch-count keys, and the names
-# torch.profiler reports them by), and its tangent's.
-SSD_BWD_KERNELS = {f"ssd_bwd_{k}": f"sbw::{k}_kernel"
-                   for k in ("state", "pass", "chunk", "finish", "reduce")}
+# The scan backward's kernels in bfloat16, as the training and serve runs
+# call it (launch-count keys, and the names torch.profiler reports them
+# by): five of namespace hbw and the state passing that the float32 route
+# shares (sbw::pass_kernel), in launch order; and its tangent's.
+SSD_BWD_KERNELS = {"ssd_bwd_state": "hbw::state_kernel",
+                   "ssd_bwd_pass": "sbw::pass_kernel",
+                   "ssd_bwd_gram": "hbw::gram_kernel",
+                   "ssd_bwd_chunk": "hbw::chunk_kernel",
+                   "ssd_bwd_finish": "hbw::finish_kernel",
+                   "ssd_bwd_reduce": "hbw::reduce_kernel"}
 SSD_BWD_TANGENT_KERNELS = {
-    k.replace("ssd_bwd_", "ssd_bwd_tangent_"): v.replace("sbw::",
-                                                         "sbw::tangent_")
+    k.replace("ssd_bwd_", "ssd_bwd_tangent_"): v.replace("::", "::tangent_")
     for k, v in SSD_BWD_KERNELS.items()}
 # The backward and its tangent against their plain versions (the same
 # float32 math), as (rtol, share of the largest |value|): float32 results
@@ -2096,15 +2105,20 @@ def bwd_tangent_plain(sref, args, targs, chunk):
 
 def ssd_bwd_cost(B, L, H, P, N, G, chunk, itemsize, tangent=False
                  ) -> dict:
-    """(bytes, flops) of each of the backward's three wrappers and of the
-    whole call: inputs read once, outputs written once; flops the least
-    work on these inputs (2 a multiply-add), per (b, chunk): the causal
-    half of C.B^T once per group (c(c+1)N), and per head the causal halves
-    of D = gy x^T, M^T gy (c(c+1)P each), Z B and Z^T C (c(c+1)N each),
-    and the (P x N) x c products S, Lc, gO B, gO^T x and gy s_in (2cPN
-    each).  The tangent reads every input and its tangent, writes the
-    outputs' tangents, and does each product three times (A B, A' B,
-    A B')."""
+    """(bytes, flops) of each of the backward's three wrappers ("state",
+    "pass", "chunk": the chunk wrapper's launches together), of each launch
+    of the chunk wrapper in bfloat16 ("gram", "chunk_kernel", "finish",
+    "reduce") and of the whole call: inputs read once, outputs written
+    once; flops the least work on these inputs (2 a multiply-add), per (b,
+    chunk): the causal half of C.B^T once per group (c(c+1)N), and per head
+    the causal halves of D = gy x^T, M^T gy (c(c+1)P each), Z B and Z^T C
+    (c(c+1)N each), and the (P x N) x c products S, Lc, gO B, gO^T x and
+    gy s_in (2cPN each).  The tangent reads every input and its tangent,
+    writes the outputs' tangents, and does each product three times (A B,
+    A' B, A B').  A launch's bytes are its own inputs and outputs: the
+    gram tiles C.B^T (64 x 64 float32 for each pair of 64-row tiles q >= k,
+    per group), the per-head dB and dC and the float32 row sums that the
+    finish and reduce launches read."""
     c, nc = chunk, L // chunk
     k = 2 if tangent else 1
     x, bc = itemsize * B * L * H * P, itemsize * B * L * G * N
@@ -2116,6 +2130,11 @@ def ssd_bwd_cost(B, L, H, P, N, G, chunk, itemsize, tangent=False
     gram = c * (c + 1) * N * G * B * nc
     intra = (2 * c * (c + 1) * P + 2 * c * (c + 1) * N) * heads
     f = 3 if tangent else 1
+    nt = -(-c // 64)
+    tiles = 4 * 64 * 64 * nt * (nt + 1) // 2 * G * B * nc
+    per_head = 4 * B * L * H * N                 # dB or dC of each head
+    rows = 4 * B * H * L                         # ddd, dsk, dsq or tk
+    dap = 4 * B * nc * H
     costs = {
         "state": (k * (2 * x + 2 * bc + dt + a) + k * (2 * S + seg),
                   f * 4.0 * c * P * N * heads),
@@ -2123,7 +2142,13 @@ def ssd_bwd_cost(B, L, H, P, N, G, chunk, itemsize, tangent=False
                  f * 6.0 * P * N * heads),
         "chunk": (k * (2 * x + 2 * bc + dt + a + seg + 2 * S + sg)
                   + x + 2 * bc + dt + a,
-                  f * float(gram + intra + 6 * c * P * N * heads))}
+                  f * float(gram + intra + 6 * c * P * N * heads)),
+        "gram": (k * (2 * bc + tiles), f * float(gram)),
+        "chunk_kernel": (k * (2 * x + 2 * bc + dt + seg + 2 * S + tiles
+                              + 4 * rows) + x + 2 * per_head,
+                         f * float(intra + 6 * c * P * N * heads)),
+        "finish": (k * (5 * rows + sg + dt + a) + dt + dap, 0.0),
+        "reduce": (2 * per_head + dap + 2 * bc + a, 0.0)}
     whole = (k * (2 * x + 2 * bc + dt + a + gs) + x + 2 * bc + dt + a,
              f * float(gram + intra + 10 * c * P * N * heads))
     return {"whole": whole, **costs}
@@ -2227,12 +2252,12 @@ def check_ssd_bwd(sops, sref, gen, B, L, H, P, N, G, chunk, dtype,
                   per_sequence_A=False, steep_dt=None, timed=False,
                   faults=False, tangent=False) -> dict:
     """One call of ``ssd_scan_bwd`` (``tangent``: ``ssd_scan_bwd_tangent``)
-    at one shape against the plain passes composed (one call, five
-    launches): each gradient within SSD_BWD_TOL, and a second call equal
-    to the bit.  ``faults``: the planted faults of bwd_faults must fail the
-    check.  ``timed``: the call's ms, its plain version's, its bound, each
-    wrapper's ms and bound, and the chunked VJP (or its jvp) it replaced,
-    host included."""
+    at one shape against the plain passes composed (one call: six launches
+    in bf16, five in float32): each gradient within SSD_BWD_TOL, and a
+    second call equal to the bit.  ``faults``: the planted faults of
+    bwd_faults must fail the check.  ``timed``: the call's ms, its plain
+    version's, its bound, each wrapper's ms and bound, and the chunked VJP
+    (or its jvp) it replaced, host included."""
     args, targs = ssd_bwd_inputs(gen, B, L, H, P, N, G, dtype,
                                  per_sequence_A, steep_dt, tangents=True)
     key = "ssd_scan_bwd_tangent" if tangent else "ssd_scan_bwd"
@@ -2282,16 +2307,21 @@ def check_ssd_bwd(sops, sref, gen, B, L, H, P, N, G, chunk, dtype,
         print(f"{what}: {row['ms']:.4f} ms (plain {row['plain_ms']:.2f}, "
               f"chunked {row['chunked_ms']:.2f} with the host; bound "
               f"{row['bound_ms']:.4f} {row['bound_by']}); passes "
-              f"{ {k: round(v['ms'], 4) for k, v in row['passes'].items()} }"
+              f"{ {k: round(v['ms'], 4) for k, v in row['passes'].items()
+                   if k != 'launches'} }; the chunk wrapper's launches "
+              f"{ {k: (round(v['ms'], 4), round(v['bound_ms'], 4))
+                   for k, v in row['passes'].get('launches', {}).items()} }"
               f"; errs {errs}", flush=True)
     return row
 
 
 def bwd_pass_times(sops, sref, args, targs, chunk, tangent, costs, rate
                    ) -> dict:
-    """Each wrapper of the call (state, pass, chunk: its three kernels)
-    timed on the outputs of the one before, beside its plain version and
-    its bound."""
+    """Each wrapper of the call (state, pass, chunk: its launches) timed on
+    the outputs of the one before, beside its plain version and its bound;
+    in bfloat16 also each launch of the chunk wrapper alone ("launches":
+    gram, chunk, finish, reduce, each on the planes the ones before it
+    filled), beside its bound."""
     x, dt, A, Bm, Cm, gy, gs = args
     if tangent:
         st = sops.ssd_bwd_tangent_state(*args[:6], *targs[:6], chunk=chunk)
@@ -2338,14 +2368,30 @@ def bwd_pass_times(sops, sref, args, targs, chunk, tangent, costs, rate
                          library_ms=None, bytes=nbytes, flops=flops)
         out[name]["bound_ms"], out[name]["bound_by"] = bound_ms(nbytes,
                                                                 flops, r)
+    if x.dtype == torch.bfloat16:
+        calls, _ = sops._chunk_launches(
+            *args[:6], seg, s_in, gO, sg, chunk,
+            (*targs[:6], tseg, ts_in, tgO, tsg) if tangent else None)
+        out["launches"] = {}
+        for key, call in calls.items():
+            for earlier in calls.values():     # fill what this one reads
+                if earlier is call:
+                    break
+                earlier()
+            cost = costs["chunk_kernel" if key == "ssd_bwd_chunk"
+                         else key[len("ssd_bwd_"):]]
+            row = dict(ms=time_ms(call, 5))
+            row["bound_ms"], row["bound_by"] = bound_ms(*cost, rate)
+            out["launches"][key] = row
     return out
 
 
 def bwd_calls_phase(sops) -> dict:
     """The kernels that one bf16 ``ssd_scan_bwd`` call and one bf16
     ``ssd_scan_bwd_tangent`` call run on the card at the mamba2 training
-    shape, from torch.profiler; fails unless each is its five kernels, one
-    launch each, and nothing else.  Run before the training step's profile
+    shape, from torch.profiler; fails unless each is its six kernels
+    (SSD_BWD_KERNELS, SSD_BWD_TANGENT_KERNELS), one launch each, and nothing
+    else.  Run before the training step's profile
     (phase 5), as ssd_calls_phase."""
     t = SSD_TRAIN
     gen = torch.Generator(device=DEVICE).manual_seed(6)
@@ -2407,10 +2453,11 @@ def ssd_bwd_rows(sops, sref, gen, tangent=False) -> tuple[list, dict]:
 
 def ssd_bwd_summary(bwd, tan, train_rows, mamba_row) -> list:
     """The kernels-line entries of the backward and its tangent: the whole
-    call (five launches; its launches count calls) and each of its three
-    wrappers, numbers at the mamba2 training shape in bfloat16 with A per
-    sequence, launches from the mamba2 training run (the backward's also
-    from the serve run)."""
+    call (six launches in bfloat16; its launches count calls) and each
+    launch (the state and pass wrappers' one each; the chunk wrapper's
+    gram, chunk, finish and reduce, each timed alone), numbers at the
+    mamba2 training shape in bfloat16 with A per sequence, launches from
+    the mamba2 training run (the backward's also from the serve run)."""
     t = SSD_TRAIN
     shape = (f"(B={t['B']}, L={t['L']}, H={t['H']}, P={t['P']}, N={t['N']}, "
              f"G={t['G']}, chunk={t['chunk']}) bfloat16, A per sequence")
@@ -2427,7 +2474,7 @@ def ssd_bwd_summary(bwd, tan, train_rows, mamba_row) -> list:
             "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"], "library_ms": None,
             "chunked_ms": b["chunked_ms"],
-            "shape": f"{shape}; five launches a call (the entries below); "
+            "shape": f"{shape}; six launches a call (the entries below); "
                      f"no TPU counterpart; launches: calls in the mamba2 "
                      f"training run; library: none; chunked_ms: the "
                      f"chunked VJP {'(its jvp) ' if 'tangent' in name else ''}"
@@ -2438,24 +2485,36 @@ def ssd_bwd_summary(bwd, tan, train_rows, mamba_row) -> list:
             "sweep_checks": len(rows),
             "sweep_worst_err": max(r["max_abs_err"] for r in rows)})
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-        for wrapper in ("state", "pass", "chunk"):
-            p = b["passes"][wrapper]
-            kernels = (("chunk", "finish", "reduce") if wrapper == "chunk"
-                       else (wrapper,))
+        names = SSD_BWD_TANGENT_KERNELS if "tangent" in name else \
+            SSD_BWD_KERNELS
+        chunk = b["passes"]["chunk"]
+        for launch in ("state", "pass", "gram", "chunk", "finish", "reduce"):
+            key = prefix + launch
+            if launch in ("state", "pass"):
+                p, serve = b["passes"][launch], \
+                    main["serve_bfloat16"]["passes"][launch]
+                note = f"the {launch} wrapper, its one launch"
+            else:
+                p = dict(b["passes"]["launches"]["ssd_bwd_" + launch],
+                         plain_ms=chunk["plain_ms"], library_ms=None)
+                serve = main["serve_bfloat16"]["passes"]["launches"][
+                    "ssd_bwd_" + launch]
+                note = (f"one of the chunk wrapper's four launches, timed "
+                        f"alone; plain_ms: the chunk wrapper's plain version "
+                        f"(all four); the wrapper's four launches "
+                        f"{chunk['ms']:.4f} ms (bound {chunk['bound_ms']:.4f}"
+                        f" {chunk['bound_by']})")
             out.append({
-                "name": prefix + wrapper, "route": "cuda",
+                "name": key, "route": "cuda",
                 "source": SSD_BWD_SOURCE, "replaces": None,
-                "launches": launches[prefix + wrapper],
+                "launches": launches[key],
                 "max_abs_err": b["max_abs_err"],
                 **{k: p[k] for k in keys},
-                "shape": f"{shape}; kernels "
-                         f"{[prefix + k for k in kernels]} (launches: the "
-                         f"first's in the mamba2 training run; "
-                         f"{', '.join(prefix + k for k in kernels[1:])} "
-                         f"{'the same' if len(kernels) > 1 else ''}); "
+                "shape": f"{shape}; kernel {names[key]} ({note}); "
+                         f"launches: in the mamba2 training run; "
                          f"max_abs_err: the whole call's",
-                "serving_shape": {k: main["serve_bfloat16"]["passes"][
-                    wrapper][k] for k in keys}})
+                "serving_shape": {k: serve[k] for k in ("ms", "bound_ms",
+                                                        "bound_by")}})
     return out
 
 
@@ -2584,10 +2643,10 @@ def serve_phase(args, counters, expect, replay=("memory",)):
 def dispatch_profile(eng, supports) -> dict:
     """Device time of one more adapt dispatch of the same users, from
     torch.profiler: all kernels, the SSD scan's forward kernels (the three
-    bf16 passes, or the float32 kernel), its backward's five kernels
-    (``sbw::``), and the chunked-scan backward (its ``record_function``
-    range, with every kernel launched inside it: on the card it runs only
-    on CPU tensors, so none is expected)."""
+    bf16 passes, or the float32 kernel), its backward's kernels
+    (``hbw::`` and ``sbw::``), and the chunked-scan backward (its
+    ``record_function`` range, with every kernel launched inside it: on the
+    card it runs only on CPU tensors, so none is expected)."""
     from torch.profiler import ProfilerActivity, profile
 
     stacked = eng._stack(supports, eng._bucket(len(supports)))
@@ -2616,7 +2675,7 @@ def dispatch_profile(eng, supports) -> dict:
             kernels.append((us, evt.count, evt.key))
             if any(k in evt.key for k in SSD_FORWARD_KERNELS):
                 fwd, fwd_n = fwd + us, fwd_n + evt.count
-            if "sbw::" in evt.key:
+            if "sbw::" in evt.key or "hbw::" in evt.key:
                 sbw, sbw_n = sbw + us, sbw_n + evt.count
                 sbw_kernels[evt.key[:60]] = dict(ms=us / 1e3,
                                                  launches=evt.count)
@@ -3560,8 +3619,8 @@ def profile_train_step(bundle, state, batch, modules) -> dict:
                 not annotation:
             busy += us
             key = evt.key
-            if "sbw::" in key:
-                split["ssd_bwd_tangent" if "sbw::tangent_" in key
+            if "sbw::" in key or "hbw::" in key:
+                split["ssd_bwd_tangent" if "::tangent_" in key
                       else "ssd_bwd"] += us
             elif "fwd_tangent_kernel" in key or \
                     "tangent_fwd_kernel" in key:
@@ -5038,17 +5097,17 @@ def paths_summary(kernels: list, fewshot: dict, lm100m: dict) -> None:
             run="launch.decentralized_lm, 4 steps")
 
 # The tensor-core instruction each Hopper namespace's kernels compile to:
-# wgmma (HGMMA) in the bf16 kernels (hop) and T3's bf16 passes (t3),
-# mma.sync on TF32 (HMMA) in the float32 flash forward, backward and T2
-# (tf32), mma.sync on bf16 (HMMA) in the SSD backward's and its tangent's
-# bf16 instantiations (sbw).
-TENSOR_OPS = {"hop": "HGMMA", "t3": "HGMMA", "tf32": "HMMA", "sbw": "HMMA"}
+# wgmma (HGMMA) in the bf16 kernels (hop), T3's bf16 passes (t3) and the
+# SSD backward's and its tangent's bf16 kernels (hbw), mma.sync on TF32
+# (HMMA) in the float32 flash forward, backward and T2 (tf32).
+TENSOR_OPS = {"hop": "HGMMA", "t3": "HGMMA", "tf32": "HMMA", "hbw": "HGMMA"}
 
 
 def kernel_symbol(text: str) -> str | None:
     """"namespace::kernel<template args>" of the first mangled kernel symbol
-    of namespace hop, tf32, t3, jvpk or sbw in ``text``; None for none."""
-    for k in re.finditer(r"(\d)(hop|tf32|t3|jvpk|sbw)\d+([a-z_]+?)"
+    of namespace hop, tf32, t3, jvpk, sbw or hbw in ``text``; None for
+    none."""
+    for k in re.finditer(r"(\d)(hop|tf32|t3|jvpk|sbw|hbw)\d+([a-z_]+?)"
                          r"(?:I((?:Li\d+E|f|13__nv_bfloat16)+)E|E)", text):
         if int(k.group(1)) == len(k.group(2)):
             args = [n or ("float" if t == "f" else "__nv_bfloat16")
@@ -5067,9 +5126,9 @@ def hgmma_phase(libraries: dict) -> dict:
     the float32 (3xTF32) forward, dQ, dK/dV and T2 kernels, the SSD
     chunk-state and
     chunk-output kernels, T3's tangent chunk-state and chunk-output
-    kernels, and the SSD backward's and its tangent's state and chunk
-    kernels (in their bf16 instantiations; the state passings, finish and
-    reduce kernels are elementwise)."""
+    kernels, and the SSD backward's and its tangent's bf16 state, gram and
+    chunk kernels (the state passings, finish and reduce kernels are
+    elementwise)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     found = {}
     for name, (path, kinds) in libraries.items():
@@ -5175,9 +5234,10 @@ def main() -> int:
                       "t3::tangent_state_kernel",
                       "t3::tangent_scan_kernel")),
         "ssd_bwd": (sops.BWD_LIB.build()["path"],
-                    ("sbw::state_kernel", "sbw::chunk_kernel",
-                     "sbw::tangent_state_kernel",
-                     "sbw::tangent_chunk_kernel"))})
+                    ("hbw::state_kernel", "hbw::gram_kernel",
+                     "hbw::chunk_kernel", "hbw::tangent_state_kernel",
+                     "hbw::tangent_gram_kernel",
+                     "hbw::tangent_chunk_kernel"))})
     flash_calls = flash_calls_phase(fops)
     ssd_calls = ssd_calls_phase(sops)
     t3_calls = t3_calls_phase(sops)
@@ -5252,7 +5312,7 @@ def main() -> int:
                 "ssd_scan": sops, **{k: sops for k in SSD_PASSES}}
     # per layer and step: one flash forward launch, and the backward's two
     # (dK/dV and dQ); one bf16 SSD scan call, a launch of each of its three
-    # kernels, and one call of its backward, a launch of each of its five
+    # kernels, and one call of its backward, a launch of each of its six
     serve_row = serve_phase(SERVE_ARGS, counters, lambda n, k: {
         "flash_attention_fwd": n * k, "flash_attention_bwd": 2 * n * k})
     stamp("serve")

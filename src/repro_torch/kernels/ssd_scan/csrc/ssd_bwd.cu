@@ -12,61 +12,82 @@
 //   y_q   = sum_k M_qk x_k + exp(seg_q) s_in C_q
 //   s_out = exp(seg_end) s_in + sum_k u_k x_k B_k^T
 //
-// Five launches (../ref.py has each pass's plain version):
-//   state   one block a (b, chunk, h) and 32 columns of N: seg, the
-//           chunk's own state S = sum_k u_k x_k B_k^T and its state
-//           cotangent Lc = sum_q exp(seg_q) gy_q C_q^T (P x N products
-//           over the rows).
+// Its passes (../ref.py has each pass's plain version):
+//   state   each chunk's own state S = sum_k u_k x_k B_k^T, its state
+//           cotangent Lc = sum_q exp(seg_q) gy_q C_q^T, and seg.
 //   pass    one block a (b, h): the entering states s_in carried forward,
 //           the cotangents gO of the states leaving each chunk carried back
 //           from gs (gO[c-1] = exp(seg_end_c) gO[c] + Lc[c]), and
 //           sg = <s_in, gO> per chunk.
-//   chunk   blocks of 64 rows of a (b, chunk, h), in two roles.  Key rows k
-//           walk the query rows q >= k in tiles of 32: D = gy x^T and G
-//           give dx = M^T gy + u_k gO B_k, dB (per head) = Z^T C +
-//           u_k gO^T x with Z = D E dt_k, the direct part of ddt and the
-//           column sums of R = D M.  Query rows walk the key rows k <= q:
-//           dC (per head) = Z B + exp(seg_q) gy s_in and the row sums of R
-//           with the entering state's term.
+//   chunk   each chunk's gradients: D = gy x^T, Z = D E dt_k, R = D M;
+//           dx = M^T gy + u_k gO B_k, dB (per head) = Z^T C + u_k gO^T x,
+//           dC (per head) = Z B + exp(seg_q) gy s_in, the direct part of
+//           ddt, and R's row and column sums.
 //   finish  one warp a (b, h, chunk): dseg (row sums less column sums,
 //           the state terms at the chunk's end), its reverse cumsum rcs,
 //           ddt = direct + A rcs, and the chunk's part of dA = sum dt rcs.
 //   reduce  dB and dC summed over each group's heads, dA over chunks (and
 //           over sequences where A is one (H,) for all), in fixed order.
+// The tangent runs the same passes on dual numbers (value, tangent) and
+// writes only the tangents of the five gradients.
+//
+// Two routes, chosen by dtype in the C entry:
+//   bfloat16  namespace hbw, on wgmma and TMA (its design below, at the
+//             namespace): state, pass, gram (C B^T once per group), chunk,
+//             finish, reduce; six launches.
+//   float32   namespace sbw, on the CUDA cores: state, pass, chunk, finish,
+//             reduce (the pass kernel serves both routes).
+//
+// The design the bfloat16 route replaced (mma.sync on 16 x 32 warp tiles,
+// 40x and 51x its bounds at the mamba2 training shape) lost its time in
+// five places, and this one answers each:
+//   1. every float32 operand was split into bf16 hi/lo in registers at
+//      each fragment load, again by every warp and 32-column slab: now M,
+//      Z (and M', Z') are split once a pair of tiles and gO, s_in once a
+//      block, into swizzled shared-memory planes that wgmma reads;
+//   2. the chunk kernel formed G and D twice (one block for key rows, one
+//      for query rows) and G once per head: now one block walks all pairs
+//      (q, k) of its (b, chunk, h) once, and G comes from the gram launch,
+//      once per group;
+//   3. the tangent's dual accumulators lived in shared memory (223 KB, one
+//      block an SM) and every product ran three times, its value products
+//      thrown away: now only the tangents dx', dB', dC' accumulate, in wgmma
+//      registers, from the value planes M, Z formed once;
+//   4. the state kernel's cumsum ran on one thread and four blocks repeated
+//      it for 32 columns each: now a warp scan, and one block forms all
+//      P x N of S and Lc on wgmma.m64n128k16;
+//   5. the state passing took one element at a time: now each of its 1024
+//      threads carries eight through the chunks together.
 //
 // Every sum runs in a fixed order: there are no atomics, so two calls on
 // the same inputs give the same bits.  exp is taken of seg_q - seg_k only
 // for k <= q (masked before the exponential), so everything stays finite
-// where seg falls by more than about 88 within a chunk.
-//
-// The tangent runs the same five kernels on dual numbers (value, tangent):
-// each pass carries its tangent plane beside the value, and a product of
-// two dual tiles is three products (A B, A' B, A B').  It writes only the
-// tangents of the five gradients.
-//
-// Products.  Each warp forms 16-row tiles with the m16n8k16 fragment
-// layout.  In bfloat16 (x, gy, B, C and their tangents bf16) a product runs
-// on the tensor cores (mma.sync, bf16 in, float32 accumulate); an operand
-// that is a float32 intermediate (u x, exp(seg) gy, M, Z, gO, s_in) goes in
-// as a bf16 hi/lo pair, hi = bf16(v) and lo = bf16(v - hi), as two products
-// (three where both are), so products keep about 16 bits of each float32
-// operand.  In float32 the same tiles are summed on the CUDA cores, one
-// FMA per term, with the same per-thread layout.  The chunk kernel stages
-// its operands in shared memory by cp.async (all of a tile's copies in
-// flight at once: staged element by element, one dependent load after
-// another, the kernel took four times as long) and, in bfloat16, loads
-// the fragments by ldmatrix; the state kernel stages its operands the
-// same way.
+// where seg falls by more than about 88 within a chunk.  Every float32
+// intermediate enters a bf16 product as a hi/lo pair, hi = bf16(v) and lo
+// = bf16(v - hi), two products a pair, keeping about 16 bits of it; dx, dB
+// and dC are rounded to bf16 at the end.
 //
 // No kernel allocates or synchronises the device; each launches on the
 // stream it is given, and the C entry returns cudaGetLastError().
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 #include <type_traits>
 
+// The float32 route.  Each warp sums 16-row tiles on the CUDA cores, one
+// FMA a term, in the m16n8k16 fragment layout; the chunk and state kernels
+// stage their operands in shared memory by cp.async (all of a tile's
+// copies in flight at once: staged element by element, one dependent load
+// after another, the kernel took four times as long).  The chunk kernel
+// takes blocks of 64 rows of a (b, chunk, h) in two roles: key rows k walk
+// the query rows q >= k in tiles of 32 (dx, dB, the direct part of ddt,
+// R's column sums); query rows walk the key rows k <= q (dC, R's row sums
+// with the entering state's term).  The state kernel takes a (b, chunk, h)
+// and 32 columns of N a block.  The state passing kernel serves the
+// bfloat16 route too, and so do the finish and reduce kernels' bodies.
 namespace sbw {
 
 constexpr int kMaxP = 64;
@@ -79,7 +100,9 @@ constexpr int kSlab = 32;              // columns of one product pass
 constexpr int kLdS = kSlab + 4;        // row strides of the warps' tiles
 constexpr int kLdP = kMaxP + 4;
 constexpr int kLdN = kMaxN + 4;
-constexpr int kPassThreads = 256;
+constexpr int kPassThreads = 1024;
+// elements of a (P, N) state a pass thread carries (kMaxP kMaxN / threads)
+constexpr int kPassPer = kMaxP * kMaxN / kPassThreads;
 
 enum { DT_F32 = 0, DT_BF16 = 1 };
 
@@ -91,6 +114,7 @@ enum Slot {
   SEG, SS, LC, SIN, GO, SG,                        // passes 1-2
   DBH, DCH, DDD, DSK, DSQ, TK, DAP,                // pass 3 scratch
   DX, DB, DC, DDT, DA,                             // outputs
+  GRAM,                                            // C B^T (bfloat16 route)
   kTensors
 };
 constexpr int kSlots = 2 * kTensors;
@@ -190,29 +214,9 @@ __device__ __forceinline__ Num<kDual> load_A(const Args& a, int b, int h) {
 }
 
 // --------------------------------------------------------------------------
-// warp products in the m16n8k16 layout: lane (g, t) = (lane / 4, lane % 4)
-// holds rows g and g + 8, columns 8 nt + 2 t and + 1, of a 16 x 32 tile
+// warp products: lane (g, t) = (lane / 4, lane % 4) holds rows g and
+// g + 8, columns 8 nt + 2 t and + 1, of a 16 x 32 tile
 // --------------------------------------------------------------------------
-
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Two float32 values as bf16 pairs hi = bf16(x) and lo = bf16(x - hi), the
-// first value in the low half (the lower contraction index).
-__device__ __forceinline__ void split(float x0, float x1, uint32_t& hi,
-                                      uint32_t& lo) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 f = __bfloat1622float2(h);
-  __nv_bfloat162 l = __floats2bfloat162_rn(x0 - f.x, x1 - f.y);
-  hi = *reinterpret_cast<uint32_t*>(&h);
-  lo = *reinterpret_cast<uint32_t*>(&l);
-}
 
 // acc (16 x 32) += A (16 x K) B (K x 32) for one warp on the CUDA cores
 // (the float32 route), one FMA a term; fa(i, k) and fb(k, j) give the
@@ -235,181 +239,8 @@ __device__ __forceinline__ void warp_mm(T (&acc)[4][4], int K, const FA& fa,
   }
 }
 
-// The bfloat16 route's products from shared memory, fragment by fragment:
-// bf16 operands by ldmatrix (transposed where the contraction runs down
-// the rows), float32 operands (M, Z, gO, s_in) as pairs split into hi/lo.
-// A loader fills a lane's A fragment (16 rows x 16 of the contraction) or
-// B fragments (16 of the contraction x 32 columns) of one plane (0 the
-// value, 1 the tangent) at contraction offset k0; lo halves only for
-// float32 operands.
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, "
-               "[%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-               "{%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-using bf16 = __nv_bfloat16;
-
-// A: rows r0 .. r0 + 15 of a bf16 operand, the contraction along the row
-struct LdA16 {
-  const bf16* p[2];
-  int ld, r0;
-  __device__ __forceinline__ void operator()(int pl, int k0, uint32_t (&h)[4],
-                                             uint32_t (&)[4]) const {
-    const int l = threadIdx.x & 31;
-    ldsm4(h, p[pl] + (r0 + (l & 7) + 8 * ((l >> 3) & 1)) * ld + k0 +
-                 8 * (l >> 4));
-  }
-};
-// B: the 32 columns n0 .. are rows of a bf16 operand, the contraction along
-// the row
-struct LdBRow16 {
-  const bf16* p[2];
-  int ld, n0;
-  __device__ __forceinline__ void operator()(int pl, int k0,
-                                             uint32_t (&h)[4][2],
-                                             uint32_t (&)[4][2]) const {
-    const int l = threadIdx.x & 31, m = l >> 3;
-#pragma unroll
-    for (int pr = 0; pr < 2; ++pr) {
-      uint32_t r[4];
-      ldsm4(r, p[pl] + (n0 + 16 * pr + 8 * (m >> 1) + (l & 7)) * ld + k0 +
-                   8 * (m & 1));
-      h[2 * pr][0] = r[0];
-      h[2 * pr][1] = r[1];
-      h[2 * pr + 1][0] = r[2];
-      h[2 * pr + 1][1] = r[3];
-    }
-  }
-};
-// B: the contraction runs down the rows k0 .. of a bf16 operand, the 32
-// columns n0 .. along the row
-struct LdBCol16 {
-  const bf16* p[2];
-  int ld, n0;
-  __device__ __forceinline__ void operator()(int pl, int k0,
-                                             uint32_t (&h)[4][2],
-                                             uint32_t (&)[4][2]) const {
-    const int l = threadIdx.x & 31, m = l >> 3;
-#pragma unroll
-    for (int pr = 0; pr < 2; ++pr) {
-      uint32_t r[4];
-      ldsm4t(r, p[pl] + (k0 + 8 * (m & 1) + (l & 7)) * ld + n0 + 16 * pr +
-                    8 * (m >> 1));
-      h[2 * pr][0] = r[0];
-      h[2 * pr][1] = r[1];
-      h[2 * pr + 1][0] = r[2];
-      h[2 * pr + 1][1] = r[3];
-    }
-  }
-};
-// A: rows r0 .. r0 + 15 of a float32 operand, the contraction along the row
-struct LdA32 {
-  const float* p[2];
-  int ld, r0;
-  __device__ __forceinline__ void operator()(int pl, int k0, uint32_t (&h)[4],
-                                             uint32_t (&lo)[4]) const {
-    const int l = threadIdx.x & 31;
-    const float* b = p[pl] + (r0 + (l >> 2)) * ld + k0 + 2 * (l & 3);
-    const float2 x0 = *reinterpret_cast<const float2*>(b);
-    const float2 x1 = *reinterpret_cast<const float2*>(b + 8 * ld);
-    const float2 x2 = *reinterpret_cast<const float2*>(b + 8);
-    const float2 x3 = *reinterpret_cast<const float2*>(b + 8 * ld + 8);
-    split(x0.x, x0.y, h[0], lo[0]);
-    split(x1.x, x1.y, h[1], lo[1]);
-    split(x2.x, x2.y, h[2], lo[2]);
-    split(x3.x, x3.y, h[3], lo[3]);
-  }
-};
-// B: the 32 columns n0 .. are rows of a float32 operand, the contraction
-// along the row
-struct LdBRow32 {
-  const float* p[2];
-  int ld, n0;
-  __device__ __forceinline__ void operator()(int pl, int k0,
-                                             uint32_t (&h)[4][2],
-                                             uint32_t (&lo)[4][2]) const {
-    const int l = threadIdx.x & 31;
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const float* b = p[pl] + (n0 + 8 * nt + (l >> 2)) * ld + k0 +
-                       2 * (l & 3);
-      const float2 x0 = *reinterpret_cast<const float2*>(b);
-      const float2 x1 = *reinterpret_cast<const float2*>(b + 8);
-      split(x0.x, x0.y, h[nt][0], lo[nt][0]);
-      split(x1.x, x1.y, h[nt][1], lo[nt][1]);
-    }
-  }
-};
-// B: the contraction runs down the rows k0 .. of a float32 operand, the 32
-// columns n0 .. along the row
-struct LdBCol32 {
-  const float* p[2];
-  int ld, n0;
-  __device__ __forceinline__ void operator()(int pl, int k0,
-                                             uint32_t (&h)[4][2],
-                                             uint32_t (&lo)[4][2]) const {
-    const int l = threadIdx.x & 31;
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const float* b = p[pl] + (k0 + 2 * (l & 3)) * ld + n0 + 8 * nt +
-                       (l >> 2);
-      split(b[0], b[ld], h[nt][0], lo[nt][0]);
-      split(b[8 * ld], b[9 * ld], h[nt][1], lo[nt][1]);
-    }
-  }
-};
-
-// acc (16 x 32) += A B over K (a multiple of 16 or zero-padded to one),
-// one plane each; an operand that is not exactly bf16 goes in as hi + lo.
-template <bool kEA, bool kEB, typename LA, typename LB>
-__device__ __forceinline__ void tc_mm1(float (&acc)[4][4], int K,
-                                       const LA& la, int pa, const LB& lb,
-                                       int pb) {
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t ah[4], al[4], bh[4][2], bl[4][2];
-    la(pa, k0, ah, al);
-    lb(pb, k0, bh, bl);
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      mma16816(acc[nt], ah, bh[nt]);
-      if constexpr (!kEA) mma16816(acc[nt], al, bh[nt]);
-      if constexpr (!kEB) mma16816(acc[nt], ah, bl[nt]);
-    }
-  }
-}
-// The same on Num: in dual, A B + (A' B + A B') e.
-template <bool kEA, bool kEB, typename T, typename LA, typename LB>
-__device__ __forceinline__ void tc_mm(T (&acc)[4][4], int K, const LA& la,
-                                      const LB& lb) {
-  if constexpr (std::is_same<T, float>::value) {
-    tc_mm1<kEA, kEB>(acc, K, la, 0, lb, 0);
-  } else {
-    float v[4][4], t[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        v[i][e] = acc[i][e].v;
-        t[i][e] = acc[i][e].t;
-      }
-    tc_mm1<kEA, kEB>(v, K, la, 0, lb, 0);
-    tc_mm1<kEA, kEB>(t, K, la, 1, lb, 0);
-    tc_mm1<kEA, kEB>(t, K, la, 0, lb, 1);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][e] = Dual{v[i][e], t[i][e]};
-  }
 }
 
 // f(row, column, element) over a lane's fragment elements.
@@ -511,11 +342,10 @@ template <typename E, bool kDual> struct Gl {
 // in the float32 tangent).  S = (u x)^T B and Lc = (e gy)^T C, the scaled
 // operand formed as it is loaded.
 template <typename In, bool kDual> struct StateLayout {
-  static constexpr bool kTC = std::is_same<In, __nv_bfloat16>::value;
-  static constexpr bool kStage = kTC || !kDual;
+  static constexpr bool kStage = !kDual;
   static constexpr int kPlanes = kDual ? 2 : 1;
-  static constexpr int kLdNi = kMaxN + (kTC ? 8 : 4);
-  static constexpr int kLdPi = kMaxP + (kTC ? 8 : 4);
+  static constexpr int kLdNi = kMaxN + 4;
+  static constexpr int kLdPi = kMaxP + 4;
   static constexpr size_t kSlabN = (size_t)kTileRows * kLdNi * sizeof(In) *
                                    kPlanes;
   static constexpr size_t kSlabP = (size_t)kTileRows * kLdPi * sizeof(In) *
@@ -523,37 +353,11 @@ template <typename In, bool kDual> struct StateLayout {
   static constexpr size_t kBytes = kStage ? 2 * (kSlabN + kSlabP) : 0;
 };
 
-// A fragment of (u x)^T: A(p, k) = u_k x[k][p], x staged as rows k of P;
-// in dual the tangent plane is u'_k x + u_k x'.
-template <bool kDual> struct LdAScaled {
-  const bf16* p[2];
-  int ld, r0;
-  const Num<kDual>* u;
-  __device__ __forceinline__ float at(int pl, int r, int k) const {
-    const int i = k * ld + r0 + r;
-    if constexpr (kDual) {
-      return pl ? u[k].t * f32(p[0][i]) + u[k].v * f32(p[1][i])
-                : u[k].v * f32(p[0][i]);
-    } else {
-      return u[k] * f32(p[0][i]);
-    }
-  }
-  __device__ __forceinline__ void operator()(int pl, int k0, uint32_t (&h)[4],
-                                             uint32_t (&lo)[4]) const {
-    const int l = threadIdx.x & 31, g = l >> 2, k = k0 + 2 * (l & 3);
-    split(at(pl, g, k), at(pl, g, k + 1), h[0], lo[0]);
-    split(at(pl, g + 8, k), at(pl, g + 8, k + 1), h[1], lo[1]);
-    split(at(pl, g, k + 8), at(pl, g, k + 9), h[2], lo[2]);
-    split(at(pl, g + 8, k + 8), at(pl, g + 8, k + 9), h[3], lo[3]);
-  }
-};
-
 template <typename In, bool kDual>
 __device__ __forceinline__ void state_body(const Args& a) {
   using T = Num<kDual>;
   using Lay = StateLayout<In, kDual>;
   using Op = std::conditional_t<Lay::kStage, Sm<In, kDual>, Gl<In, kDual>>;
-  constexpr bool kTC = Lay::kTC;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ T segs[kMaxChunk], u[kMaxChunk], e[kMaxChunk];
   const int cs = a.cs, H = a.H, P = a.P, N = a.N, G = a.G, L = a.L;
@@ -614,23 +418,14 @@ __device__ __forceinline__ void state_body(const Args& a) {
     cp_async_wait();
     __syncthreads();
     if (p0 >= P) continue;
-    if constexpr (kTC) {
-      tc_mm<false, true>(accS, kTileRows,
-                         LdAScaled<kDual>{{xs.v, xs.t}, xs.ld, p0, u + k0},
-                         LdBCol16{{bs.v, bs.t}, bs.ld, n0});
-      tc_mm<false, true>(accL, kTileRows,
-                         LdAScaled<kDual>{{gs.v, gs.t}, gs.ld, p0, e + k0},
-                         LdBCol16{{cs_.v, cs_.t}, cs_.ld, n0});
-    } else {
-      warp_mm(
-          accS, kTileRows,
-          [&](int i, int k) { return u[k0 + k] * xs(k, p0 + i); },
-          [&](int k, int j) { return bs(k, n0 + j); });
-      warp_mm(
-          accL, kTileRows,
-          [&](int i, int k) { return e[k0 + k] * gs(k, p0 + i); },
-          [&](int k, int j) { return cs_(k, n0 + j); });
-    }
+    warp_mm(
+        accS, kTileRows,
+        [&](int i, int k) { return u[k0 + k] * xs(k, p0 + i); },
+        [&](int k, int j) { return bs(k, n0 + j); });
+    warp_mm(
+        accL, kTileRows,
+        [&](int i, int k) { return e[k0 + k] * gs(k, p0 + i); },
+        [&](int k, int j) { return cs_(k, n0 + j); });
   }
   if (p0 >= P) return;
   const long long obase = (((long long)b * a.nc + c) * H + h) * P * N;
@@ -665,42 +460,56 @@ __device__ __forceinline__ T block_sum(T x, T* red) {
   return s;
 }
 
+// A thread carries kPassPer elements e = t + kPassThreads j of the state
+// through the chunks at once, so that the loads of one chunk's elements are
+// in flight together (one element at a time, each chunk's load waited for
+// in turn, the pass took 6x its bytes' time on an H100).
 template <bool kDual>
 __device__ __forceinline__ void pass_body(const Args& a) {
   using T = Num<kDual>;
   __shared__ T red[kPassThreads / 32];
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int h = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
   const int H = a.H, nc = a.nc, cs = a.cs;
-  const long long PN = (long long)a.P * a.N;
+  const int PN = a.P * a.N;
   const auto seg = rd<float, kDual>(a, SEG);
   const auto S = rd<float, kDual>(a, SS), Lc = rd<float, kDual>(a, LC);
   const auto gs = rd<float, kDual>(a, GS);
   const auto s_in = wr<float, kDual>(a, SIN), gO = wr<float, kDual>(a, GO);
-  const long long send = ((long long)b * H + h) * a.L + cs - 1;
-  auto at = [&](int c, long long e) {
-    return (((long long)b * nc + c) * H + h) * PN + e;
-  };
-  for (long long e = threadIdx.x; e < PN; e += blockDim.x) {
-    T s{};
-    for (int c = 0; c < nc; ++c) {
-      s_in.put(at(c, e), s);
-      s = dexp(seg[send + (long long)c * cs]) * s + S[at(c, e)];
-    }
-    T g = gs[((long long)b * H + h) * PN + e];
-    for (int c = nc - 1; c >= 0; --c) {
-      gO.put(at(c, e), g);
-      g = dexp(seg[send + (long long)c * cs]) * g + Lc[at(c, e)];
-    }
-  }
-  // each thread reads back only what it wrote
-  const auto s_r = rd<float, kDual>(a, SIN), g_r = rd<float, kDual>(a, GO);
+  const auto s_r = rd<float, kDual>(a, SIN);
   const auto sg = wr<float, kDual>(a, SG);
+  const long long send = ((long long)b * H + h) * a.L + cs - 1;
+  auto at = [&](int c, int j) {
+    return (((long long)b * nc + c) * H + h) * PN + t + kPassThreads * j;
+  };
+  auto in = [&](int j) { return t + kPassThreads * j < PN; };
+  T s[kPassPer] = {};
   for (int c = 0; c < nc; ++c) {
+    const T d = dexp(seg[send + (long long)c * cs]);
+#pragma unroll
+    for (int j = 0; j < kPassPer; ++j)
+      if (in(j)) {
+        s_in.put(at(c, j), s[j]);
+        s[j] = d * s[j] + S[at(c, j)];
+      }
+  }
+  // the cotangents back, with each chunk's <s_in, gO> (each thread reads
+  // back only the s_in it wrote)
+#pragma unroll
+  for (int j = 0; j < kPassPer; ++j)
+    s[j] = in(j) ? gs[((long long)b * H + h) * PN + t + kPassThreads * j]
+                 : T{};
+  for (int c = nc - 1; c >= 0; --c) {
+    const T d = dexp(seg[send + (long long)c * cs]);
     T part{};
-    for (long long e = threadIdx.x; e < PN; e += blockDim.x)
-      part += s_r[at(c, e)] * g_r[at(c, e)];
+#pragma unroll
+    for (int j = 0; j < kPassPer; ++j)
+      if (in(j)) {
+        gO.put(at(c, j), s[j]);
+        part += s_r[at(c, j)] * s[j];
+        s[j] = d * s[j] + Lc[at(c, j)];
+      }
     const T total = block_sum(part, red);
-    if (threadIdx.x == 0) sg.put(((long long)b * H + h) * nc + c, total);
+    if (t == 0) sg.put(((long long)b * H + h) * nc + c, total);
   }
 }
 
@@ -721,11 +530,10 @@ __device__ __forceinline__ void pass_body(const Args& a) {
 // float32 tangent's operands would not fit in shared memory beside its
 // accumulators: it reads them from global memory through L1.
 template <typename In, bool kDual> struct ChunkLayout {
-  static constexpr bool kTC = std::is_same<In, __nv_bfloat16>::value;
-  static constexpr bool kStage = kTC || !kDual;
+  static constexpr bool kStage = !kDual;
   static constexpr int kPlanes = kDual ? 2 : 1;
-  static constexpr int kLdNi = kMaxN + (kTC ? 8 : 4);   // staged row strides
-  static constexpr int kLdPi = kMaxP + (kTC ? 8 : 4);
+  static constexpr int kLdNi = kMaxN + 4;               // staged row strides
+  static constexpr int kLdPi = kMaxP + 4;
   static constexpr size_t kOwn =
       kStage ? (size_t)kRows * (kLdNi + kLdPi) * sizeof(In) * kPlanes : 0;
   static constexpr size_t kTile =
@@ -744,7 +552,6 @@ template <typename In, bool kDual> struct ChunkLayout {
 template <typename In, bool kDual> struct Chunk {
   using T = Num<kDual>;
   using Lay = ChunkLayout<In, kDual>;
-  static constexpr bool kTC = Lay::kTC;
   static constexpr bool kStage = Lay::kStage;
   static constexpr int kSP = kMaxP / kSlab, kSN = kMaxN / kSlab;
   using Op = std::conditional_t<kStage, Sm<In, kDual>, Gl<In, kDual>>;
@@ -885,11 +692,6 @@ template <typename In, bool kDual> struct Chunk {
                   mz_plane(which, 1)[i * kLdS + j]};
     else return mz_plane(which, 0)[i * kLdS + j];
   }
-  __device__ __forceinline__ LdA32 mz_loader(int which) const {
-    return LdA32{{mz_plane(which, 0), mz_plane(which, kDual ? 1 : 0)}, kLdS,
-                 0};
-  }
-
   __device__ __forceinline__ T seg_at(int k) const {
     return k < cs ? seg[sbase + k] : T{};
   }
@@ -927,19 +729,12 @@ template <typename In, bool kDual> struct Chunk {
       __syncthreads();
       if (k0 >= cs || qs + kTileRows <= k0) continue;
       T Gt[4][4] = {}, Dt[4][4] = {};
-      if constexpr (kTC) {
-        tc_mm<true, true>(Gt, N, LdA16{{Bk.v, Bk.t}, Bk.ld, wr},
-                          LdBRow16{{Cq.v, Cq.t}, Cq.ld, 0});
-        tc_mm<true, true>(Dt, P, LdA16{{xk.v, xk.t}, xk.ld, wr},
-                          LdBRow16{{gq.v, gq.t}, gq.ld, 0});
-      } else {
-        warp_mm(
-            Gt, N, [&](int i, int n) { return Bk(wr + i, n); },
-            [&](int n, int j) { return Cq(j, n); });
-        warp_mm(
-            Dt, P, [&](int i, int p) { return xk(wr + i, p); },
-            [&](int p, int j) { return gq(j, p); });
-      }
+      warp_mm(
+          Gt, N, [&](int i, int n) { return Bk(wr + i, n); },
+          [&](int n, int j) { return Cq(j, n); });
+      warp_mm(
+          Dt, P, [&](int i, int p) { return xk(wr + i, p); },
+          [&](int p, int j) { return gq(j, p); });
       each(Gt, [&](int i, int j, T gq_) {
         const int k = k0 + i, q = qs + j, r = i >> 3;
         const T d = Dt[j >> 3][(j & 1) + 2 * r];
@@ -957,22 +752,14 @@ template <typename In, bool kDual> struct Chunk {
       });
       __syncwarp();
       acc_slabs(dx, P, [&](int s, T (&t)[4][4]) {
-        if constexpr (kTC)
-          tc_mm<false, true>(t, kSlab, mz_loader(0),
-                             LdBCol16{{gq.v, gq.t}, gq.ld, s * kSlab});
-        else
-          warp_mm(
-              t, kSlab, [&](int i, int q) { return get_mz(0, i, q); },
-              [&](int q, int j) { return gq(q, s * kSlab + j); });
+        warp_mm(
+            t, kSlab, [&](int i, int q) { return get_mz(0, i, q); },
+            [&](int q, int j) { return gq(q, s * kSlab + j); });
       });
       acc_slabs(dB, N, [&](int s, T (&t)[4][4]) {
-        if constexpr (kTC)
-          tc_mm<false, true>(t, kSlab, mz_loader(1),
-                             LdBCol16{{Cq.v, Cq.t}, Cq.ld, s * kSlab});
-        else
-          warp_mm(
-              t, kSlab, [&](int i, int q) { return get_mz(1, i, q); },
-              [&](int q, int j) { return Cq(q, s * kSlab + j); });
+        warp_mm(
+            t, kSlab, [&](int i, int q) { return get_mz(1, i, q); },
+            [&](int q, int j) { return Cq(q, s * kSlab + j); });
       });
       __syncwarp();
     }
@@ -991,13 +778,9 @@ template <typename In, bool kDual> struct Chunk {
     }
     for (int p0 = 0; p0 < P; p0 += kSlab) {
       T v[4][4] = {};                             // gO B_k
-      if constexpr (kTC)
-        tc_mm<true, false>(v, N, LdA16{{Bk.v, Bk.t}, Bk.ld, wr},
-                           LdBRow32{{gO.v, gO.t}, gO.ld, p0});
-      else
-        warp_mm(
-            v, N, [&](int i, int n) { return Bk(wr + i, n); },
-            [&](int n, int j) { return gO(p0 + j, n); });
+      warp_mm(
+          v, N, [&](int i, int n) { return Bk(wr + i, n); },
+          [&](int n, int j) { return gO(p0 + j, n); });
       each(v, [&](int i, int j, T vv) {
         if (p0 + j < P) xv[i >> 3] += xk(wr + i, p0 + j) * vv;
       });
@@ -1011,13 +794,9 @@ template <typename In, bool kDual> struct Chunk {
     }
     acc_slabs(dB, N, [&](int s, T (&t)[4][4]) {
       T w[4][4] = {};                             // gO^T x_k
-      if constexpr (kTC)
-        tc_mm<true, false>(w, P, LdA16{{xk.v, xk.t}, xk.ld, wr},
-                           LdBCol32{{gO.v, gO.t}, gO.ld, s * kSlab});
-      else
-        warp_mm(
-            w, P, [&](int i, int p) { return xk(wr + i, p); },
-            [&](int p, int j) { return gO(p, s * kSlab + j); });
+      warp_mm(
+          w, P, [&](int i, int p) { return xk(wr + i, p); },
+          [&](int p, int j) { return gO(p, s * kSlab + j); });
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
@@ -1075,19 +854,12 @@ template <typename In, bool kDual> struct Chunk {
       __syncthreads();
       if (q0 >= cs || ks > q0 + 15) continue;
       T Gq[4][4] = {}, Dq[4][4] = {};
-      if constexpr (kTC) {
-        tc_mm<true, true>(Gq, N, LdA16{{Cq.v, Cq.t}, Cq.ld, wr},
-                          LdBRow16{{Bk.v, Bk.t}, Bk.ld, 0});
-        tc_mm<true, true>(Dq, P, LdA16{{gq.v, gq.t}, gq.ld, wr},
-                          LdBRow16{{xk.v, xk.t}, xk.ld, 0});
-      } else {
-        warp_mm(
-            Gq, N, [&](int i, int n) { return Cq(wr + i, n); },
-            [&](int n, int j) { return Bk(j, n); });
-        warp_mm(
-            Dq, P, [&](int i, int p) { return gq(wr + i, p); },
-            [&](int p, int j) { return xk(j, p); });
-      }
+      warp_mm(
+          Gq, N, [&](int i, int n) { return Cq(wr + i, n); },
+          [&](int n, int j) { return Bk(j, n); });
+      warp_mm(
+          Dq, P, [&](int i, int p) { return gq(wr + i, p); },
+          [&](int p, int j) { return xk(j, p); });
       each(Gq, [&](int i, int j, T gq_) {
         const int q = q0 + i, k = ks + j, r = i >> 3;
         const T d = Dq[j >> 3][(j & 1) + 2 * r];
@@ -1101,13 +873,9 @@ template <typename In, bool kDual> struct Chunk {
       });
       __syncwarp();
       acc_slabs(dC, N, [&](int s, T (&t)[4][4]) {
-        if constexpr (kTC)
-          tc_mm<false, true>(t, kSlab, mz_loader(1),
-                             LdBCol16{{Bk.v, Bk.t}, Bk.ld, s * kSlab});
-        else
-          warp_mm(
-              t, kSlab, [&](int i, int k) { return get_mz(1, i, k); },
-              [&](int k, int j) { return Bk(k, s * kSlab + j); });
+        warp_mm(
+            t, kSlab, [&](int i, int k) { return get_mz(1, i, k); },
+            [&](int k, int j) { return Bk(k, s * kSlab + j); });
       });
       __syncwarp();
     }
@@ -1124,13 +892,9 @@ template <typename In, bool kDual> struct Chunk {
     for (int r = 0; r < 2; ++r) eq[r] = dexp(segq[r]);
     acc_slabs(dC, N, [&](int s, T (&t)[4][4]) {
       T w[4][4] = {};                             // gy_q s_in
-      if constexpr (kTC)
-        tc_mm<true, false>(w, P, LdA16{{gq.v, gq.t}, gq.ld, wr},
-                           LdBCol32{{s_in.v, s_in.t}, s_in.ld, s * kSlab});
-      else
-        warp_mm(
-            w, P, [&](int i, int p) { return gq(wr + i, p); },
-            [&](int p, int j) { return s_in(p, s * kSlab + j); });
+      warp_mm(
+          w, P, [&](int i, int p) { return gq(wr + i, p); },
+          [&](int p, int j) { return s_in(p, s * kSlab + j); });
       each(w, [&](int i, int j, T ww) {
         const int n = s * kSlab + j, r = i >> 3;
         if (n < N) rs[r] += Cq(wr + i, n) * ww;
@@ -1395,6 +1159,1421 @@ cudaError_t launch(int pass, bool tangent, const Args& a, cudaStream_t s) {
 
 }  // namespace sbw
 
+// ==========================================================================
+// bfloat16 on Hopper (namespace hbw)
+// ==========================================================================
+//
+// Six launches, in order (pass ids of the C entry in brackets):
+//   state  [0] one block a (b, chunk, h), two warpgroups: the first forms
+//              S = (u x)^T B, the second Lc = (e gy)^T C, each a 64 x 128
+//              product on wgmma.m64n128k16 with the scaled operand as hi/lo
+//              register fragments, the chunk's key tiles streamed by TMA
+//              through a ring of two stages; seg by a warp scan.
+//   pass   [1] sbw::pass_kernel (float32, shared with the float32 route).
+//   gram   [5] one block a (b, chunk, group, pair of 64-row tiles q >= k):
+//              G^T = B_k C_q^T once for all the group's heads, written in
+//              the accumulator's order so that the chunk kernel copies a
+//              tile into shared memory with one bulk copy.
+//   chunk  [2] one block (one warpgroup) a (b, chunk, h), both roles: the
+//              block walks the key tiles k and, for each, the query tiles
+//              q >= k, so each (q, k) pair's D^T = x_k gy_q^T (and G^T,
+//              read once) are formed once and feed dx, dB and dC alike.
+//   finish [3] and reduce [4]: sbw's bodies (ddt and dA; dB and dC summed
+//              over a group's heads) under this namespace's names.
+//
+// The chunk kernel.  dx and dB of the block's key tile stay in wgmma
+// register accumulators for the whole walk over q; dC of a query tile is
+// touched once a key tile, so its float32 accumulator is read from and
+// written back to the per-head scratch dCh (the block's own rows, L2
+// resident, in the same order every call).  Before the walk the block
+// writes each query tile's entering-state term e_q gy_q s_in to dCh; each
+// key tile starts its accumulators with u_k gO B_k and u_k gO^T x_k.  The
+// float32 intermediates M^T, Z^T (and their tangents) are written to
+// shared memory once a pair as bf16 hi/lo planes (swizzled for wgmma), the
+// states gO and s_in once a key tile: no operand is split twice.  dx +=
+// M^T gy and dB += Z^T C read the planes K-major; dC += Z B reads the same
+// Z^T plane transposed (wgmma's MN-major A).  R's row sums (dseg of the
+// query rows) are column sums here: each warp's are added, in pair order,
+// to its own vector in shared memory, summed over the four at the end.
+// The per-element work is branch-free (the exponent masked to -inf before
+// the exponential), so a thread's elements interleave.  The next pair's G
+// is loaded as soon as this pair's is read, its q tile as soon as dx and
+// dB have read this one's.
+//
+// The backward runs one warpgroup a block, two blocks an SM (105 KB of
+// shared memory, 255 registers).  The tangent forms only the tangents of
+// dx, dB and dC (A' B + A B', the value planes of M and Z formed once and
+// read by both halves); its 209 KB hold one block an SM, so it runs two
+// warpgroups a block: each forms D, D' and the per-element work for half
+// of a pair's columns q; the first then accumulates dx' and dC', the
+// second dB' (and each its half of dC's entering-state term).  On an H100
+// two warpgroups made the tangent's chunk kernel faster; the backward's
+// stays at one (two blocks an SM were faster at the serving shape,
+// PERF.md).  The float32 scratch (seg, the R sums, ddd, tk) carries value
+// and tangent, as the finish kernel needs.
+//
+// What bounds it.  At the mamba2 training shape (B = 8, L = 512, H = 24,
+// P = 64, N = 128, G = 1, chunk 256) the products are ~18 GFLOP (0.018 ms
+// at 989 TFLOP/s) and the bytes ~40 MB.  This design does each hi/lo
+// product twice and the causal pairs by whole 64 x 64 tiles (10 of 16),
+// ~2.5x the least products, and moves dC's partial sums through L2 (~0.2
+// GB at that shape).  The walk is one warpgroup in order: an H100 runs the
+// backward's chunk kernel far from its products' time (removing them
+// changes nothing); dC's read-modify-write and the per-element work are
+// its largest parts (PERF.md).
+
+namespace hbw {
+
+using bf16 = __nv_bfloat16;
+using sbw::Args;
+using sbw::Dual;
+template <bool kDual> using Num = sbw::Num<kDual>;
+
+constexpr int kWG = 128;                           // threads of a warpgroup
+constexpr int kM = 64;                             // rows of a tile
+constexpr uint32_t kRegion = 64 * 128;             // 64 rows x 64 bf16
+constexpr uint32_t kGramBytes = kM * kM * 4;       // one G tile, float32
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// Byte offset of element (r, col) of a 128-byte-swizzled tile whose
+// 64-column regions lie kRegion apart.
+__device__ __forceinline__ uint32_t elem(int r, int col) {
+  return (uint32_t)(col >> 6) * kRegion + (uint32_t)r * 128u +
+         ((uint32_t)(((col >> 3) & 7) ^ (r & 7)) << 4) + (col & 7) * 2;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
+}
+// Waits for the phase of parity `parity` to complete; a barrier that never
+// completes (a load that was never issued) traps after ~2^33 cycles
+// instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1LL << 33)) __trap();
+  }
+}
+// Rows [row0, row0 + 64) of head (or group) `head` of chunk bc through a
+// 4-d map (columns, heads, rows of a chunk, b * nc + c) into the tile at
+// dst, nr column regions; completes on bar.  One thread.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& m,
+                                         uint32_t bar, int nr, int head,
+                                         int row0, int bc) {
+  const uint64_t map = reinterpret_cast<uint64_t>(&m);
+  for (int r = 0; r < nr; ++r)
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_"
+        "tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(
+            dst + r * kRegion),
+        "l"(map), "r"(bar), "r"(64 * r), "r"(head), "r"(row0), "r"(bc)
+        : "memory");
+}
+// bytes (a multiple of 16) from src (16-byte aligned) to dst, on bar.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void prefetch_map(const CUtensorMap& m) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(&m))
+               : "memory");
+}
+// Generic-proxy stores to shared memory made visible to TMA and wgmma.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// The warpgroup's 128 threads (named barrier 1 + its index).
+__device__ __forceinline__ void bar_wg(int wg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(kWG) : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand at addr:
+// 8-row groups 1024 bytes apart (SBO), 64-column regions kRegion apart
+// (LBO, read only MN-major).
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)(kRegion >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N committed groups of products are pending.
+template <int N = 0> __device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+template <int N> __device__ __forceinline__ void keep(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+__device__ __forceinline__ void keep(uint32_t (&x)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    asm volatile("" : "+r"(x[i / 4][i % 4])::"memory");
+}
+
+#define REPRO_ACC32(x)                                                       \
+  "+f"(x[0]), "+f"(x[1]), "+f"(x[2]), "+f"(x[3]), "+f"(x[4]), "+f"(x[5]),   \
+      "+f"(x[6]), "+f"(x[7]), "+f"(x[8]), "+f"(x[9]), "+f"(x[10]),          \
+      "+f"(x[11]), "+f"(x[12]), "+f"(x[13]), "+f"(x[14]), "+f"(x[15]),      \
+      "+f"(x[16]), "+f"(x[17]), "+f"(x[18]), "+f"(x[19]), "+f"(x[20]),      \
+      "+f"(x[21]), "+f"(x[22]), "+f"(x[23]), "+f"(x[24]), "+f"(x[25]),      \
+      "+f"(x[26]), "+f"(x[27]), "+f"(x[28]), "+f"(x[29]), "+f"(x[30]),      \
+      "+f"(x[31])
+#define REPRO_D32                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define REPRO_D64                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
+  "%58, %59, %60, %61, %62, %63}"
+
+// d (64 x 64) (+)= A (64 x 16) B (16 x 64), both in shared memory; kTA /
+// kTB 1 reads A / B MN-major (transposed); acc = 0 overwrites d.
+template <int kTA, int kTB>
+__device__ __forceinline__ void mma64(float (&d)[32], uint64_t a, uint64_t b,
+                                      int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REPRO_D32
+      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : REPRO_ACC32(d)
+      : "l"(a), "l"(b), "r"(acc), "n"(kTA), "n"(kTB));
+}
+// d (64 x 128) (+)= A (64 x 16) B (16 x 128), as mma64.
+template <int kTA, int kTB>
+__device__ __forceinline__ void mma128(float (&d)[64], uint64_t a,
+                                       uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REPRO_D64
+      ", %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : REPRO_ACC32(d), REPRO_ACC32((d + 32))
+      : "l"(a), "l"(b), "r"(acc), "n"(kTA), "n"(kTB));
+}
+// d (64 x 128) (+)= A (64 x 16, registers) B (16 x 128, MN-major).
+__device__ __forceinline__ void mma128_rs(float (&d)[64],
+                                          const uint32_t (&a)[4], uint64_t b,
+                                          int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REPRO_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : REPRO_ACC32(d), REPRO_ACC32((d + 32))
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+// The products over whole tiles (shared-memory byte addresses; `add`
+// false overwrites the accumulator):
+// acc (+)= A B^T over K = 64 nr, A and B 64-row tiles, both K-major
+template <int NR>
+__device__ __forceinline__ void abt(float (&acc)[32], uint32_t a, uint32_t b,
+                                   bool add) {
+#pragma unroll
+  for (int kk = 0; kk < 4 * NR; ++kk) {
+    const uint32_t off = (kk >> 2) * kRegion + (kk & 3) * 32;
+    mma64<0, 0>(acc, desc(a + off), desc(b + off), add || kk > 0);
+  }
+}
+// acc (+)= A B over K = 64: A K-major (64 rows), B MN-major (64 rows of the
+// contraction, N = 64 or 128 columns)
+__device__ __forceinline__ void amn(float (&acc)[32], uint32_t a, uint32_t b,
+                                   bool add) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    mma64<0, 1>(acc, desc(a + kk * 32), desc(b + kk * 2048), add || kk > 0);
+}
+__device__ __forceinline__ void amn(float (&acc)[64], uint32_t a, uint32_t b,
+                                   bool add) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    mma128<0, 1>(acc, desc(a + kk * 32), desc(b + kk * 2048), add || kk > 0);
+}
+// acc (+)= A B over K = 64, A stored transposed (rows the contraction, the
+// 64 output rows along them: MN-major), B MN-major, N = 128
+__device__ __forceinline__ void tmn(float (&acc)[64], uint32_t a, uint32_t b,
+                                   bool add) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    mma128<1, 1>(acc, desc(a + kk * 2048), desc(b + kk * 2048),
+                 add || kk > 0);
+}
+
+// Accumulator element e of thread t (of its warpgroup) sits at row
+// frag_row(e, t) and column frag_col(e, t); register j of k-step kk of an
+// A fragment holds elements 8 kk + 2 j and + 1 of that layout.
+__device__ __forceinline__ int frag_row(int e, int t) {
+  return 16 * (t >> 5) + ((t & 31) >> 2) + 8 * ((e >> 1) & 1);
+}
+__device__ __forceinline__ int frag_col(int e, int t) {
+  return 8 * (e >> 2) + 2 * (t & 3) + (e & 1);
+}
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);   // a in the low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// hi = bf16(a, b) and lo = bf16(a - hi_a, b - hi_b), packed.
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
+                                       uint32_t& lo) {
+  hi = pack_bf16(a, b);
+  lo = pack_bf16(a - __uint_as_float(hi << 16),
+                 b - __uint_as_float(hi & 0xffff0000u));
+}
+__device__ __forceinline__ float bf(const uint8_t* tile, int r, int col) {
+  return __uint_as_float(
+      (uint32_t)*reinterpret_cast<const unsigned short*>(tile + elem(r, col))
+      << 16);
+}
+__device__ __forceinline__ void st32(uint8_t* p, uint32_t v) {
+  *reinterpret_cast<uint32_t*>(p) = v;
+}
+
+__device__ __forceinline__ float vpart(float x) { return x; }
+__device__ __forceinline__ float vpart(Dual x) { return x.v; }
+__device__ __forceinline__ float tpart(float) { return 0.f; }
+__device__ __forceinline__ float tpart(Dual x) { return x.t; }
+template <bool kDual>
+__device__ __forceinline__ Num<kDual> num(float v, float t) {
+  if constexpr (kDual) return Dual{v, t};
+  else return v;
+}
+
+// The (P, N) float32 matrix at src (and its tangent at srct) as bf16 hi/lo
+// planes of a 64 x 128 swizzled tile each, zero past P and N: planes hi, lo
+// (then hi', lo') 2 kRegion apart from dst.  kThreads threads (t the
+// thread's index); each thread's loads of a plane are issued together (one
+// at a time they cost a load latency each).
+template <bool kDual, int kThreads>
+__device__ __forceinline__ void stage_state(uint8_t* dst, const float* src,
+                                            const float* srct, int P, int N,
+                                            int t) {
+  constexpr int kPer = 64 * 64 / kThreads;
+#pragma unroll
+  for (int pl = 0; pl < (kDual ? 2 : 1); ++pl) {
+    const float* m = pl ? srct : src;
+    float2 v[kPer];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int i = t + kThreads * j, p = i >> 6, n = 2 * (i & 63);
+      v[j] = p < P && n < N
+                 ? *reinterpret_cast<const float2*>(m + p * N + n)
+                 : make_float2(0.f, 0.f);
+    }
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int i = t + kThreads * j, p = i >> 6, n = 2 * (i & 63);
+      uint32_t h, l;
+      split2(v[j].x, v[j].y, h, l);
+      st32(dst + (2 * pl) * 2 * kRegion + elem(p, n), h);
+      st32(dst + (2 * pl + 1) * 2 * kRegion + elem(p, n), l);
+    }
+  }
+}
+
+// Region 1 (columns 64 .. 127) of a B/C tile zeroed where N <= 64: TMA
+// loads only region 0 then.
+__device__ __forceinline__ void zero_region(uint8_t* tile, int t,
+                                            int nthreads) {
+  for (int i = t; i < (int)kRegion / 16; i += nthreads)
+    reinterpret_cast<uint4*>(tile + kRegion)[i] = make_uint4(0, 0, 0, 0);
+}
+
+// The pointers of a slot's value (pl = 0) or tangent (1) plane.
+template <typename E>
+__device__ __forceinline__ E* ptr(const Args& a, int slot, int pl) {
+  return static_cast<E*>(a.p[2 * slot + pl]);
+}
+
+struct HArgs {
+  CUtensorMap tx[2], tgy[2], tb[2], tc[2];   // value, tangent
+  Args a;
+};
+
+// --------------------------------------------------------------------------
+// state: S = (u x)^T B and Lc = (e gy)^T C, one block a (b, chunk, h)
+// --------------------------------------------------------------------------
+
+template <bool kDual> struct StateLay {
+  static constexpr int kNP = kDual ? 2 : 1;
+  static constexpr uint32_t kStage = kNP * 3 * kRegion;   // A tile, B tile
+  static constexpr uint32_t kWGBytes = 2 * kStage;
+  static constexpr uint32_t kVecs = kNP * 3 * sbw::kMaxChunk * 4;
+  static constexpr size_t kBytes = 1024 + 2 * kWGBytes + 2 * kVecs + 64;
+};
+
+// Inclusive cumsum of dt a (and its tangent dt' a + dt a') over the chunk:
+// one warp, a run of consecutive steps a lane, then a shuffle scan of the
+// runs, in a fixed order.
+template <bool kDual>
+__device__ __forceinline__ void cumsum(const float* dt, const float* dtt,
+                                       float a, float at, float* seg,
+                                       float* segt, int cs, int lane) {
+  const int per = (cs + 31) / 32, beg = lane * per;
+  float rv = 0.f, rt = 0.f;
+  for (int i = 0; i < per; ++i)
+    if (beg + i < cs) {
+      rv += dt[beg + i] * a;
+      if constexpr (kDual) rt += dtt[beg + i] * a + dt[beg + i] * at;
+    }
+  float iv = rv, it = rt;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float v = __shfl_up_sync(0xffffffffu, iv, o);
+    const float w = __shfl_up_sync(0xffffffffu, it, o);
+    if (lane >= o) {
+      iv += v;
+      it += w;
+    }
+  }
+  float pv = __shfl_up_sync(0xffffffffu, iv, 1);
+  float pt = __shfl_up_sync(0xffffffffu, it, 1);
+  if (lane == 0) pv = pt = 0.f;
+  for (int i = 0; i < per; ++i)
+    if (beg + i < cs) {
+      pv += dt[beg + i] * a;
+      seg[beg + i] = pv;
+      if constexpr (kDual) {
+        pt += dtt[beg + i] * a + dt[beg + i] * at;
+        segt[beg + i] = pt;
+      }
+    }
+}
+
+// hi/lo fragments of A = (w x)^T for one key tile (pl: x's plane):
+// A[p][k] = w[k] x[k][p], x the swizzled tile (rows k, columns p) at xt;
+// with `xt2`, A[p][k] = w[k] x[k][p] + w2[k] x2[k][p].
+__device__ __forceinline__ void scaled_frags(const uint8_t* xt,
+                                             const float* w,
+                                             const uint8_t* xt2,
+                                             const float* w2, int t,
+                                             uint32_t (&hi)[4][4],
+                                             uint32_t (&lo)[4][4]) {
+  const int r0 = frag_row(0, t);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int p = r0 + 8 * (j & 1);
+      const int k = 16 * kk + 8 * (j >> 1) + 2 * (t & 3);
+      float a0 = w[k] * bf(xt, k, p), a1 = w[k + 1] * bf(xt, k + 1, p);
+      if (xt2 != nullptr) {
+        a0 += w2[k] * bf(xt2, k, p);
+        a1 += w2[k + 1] * bf(xt2, k + 1, p);
+      }
+      split2(a0, a1, hi[kk][j], lo[kk][j]);
+    }
+}
+
+template <bool kDual>
+__device__ __forceinline__ void state_body(const HArgs& ha) {
+  using Lay = StateLay<kDual>;
+  constexpr int NP = Lay::kNP;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const Args& a = ha.a;
+  const uint32_t base = (smem_u32(smem) + 1023u) & ~1023u;
+  uint8_t* gbase = smem + (base - smem_u32(smem));
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int warp = t >> 5, lane = t & 31;
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int cs = a.cs, H = a.H, P = a.P, N = a.N, nc = a.nc;
+  const int grp = h / (H / a.G), bc = b * nc + c;
+  const int nt = (cs + kM - 1) / kM, nrn = N > 64 ? 2 : 1;
+  const long long row0 = (long long)b * a.L + (long long)c * cs;
+  // this warpgroup's ring: stage s holds its A tile's planes (x or gy) at
+  // s * kStage, then the B tile's (B or C) at + NP kRegion
+  const uint32_t ring = base + wg * Lay::kWGBytes;
+  uint8_t* gring = gbase + wg * Lay::kWGBytes;
+  float* vec = reinterpret_cast<float*>(gbase + 2 * Lay::kWGBytes +
+                                        wg * Lay::kVecs);
+  float* dtv = vec;                          // [NP][256]: dt, dt'
+  float* segv = vec + NP * sbw::kMaxChunk;   // seg, seg'
+  float* sc = vec + 2 * NP * sbw::kMaxChunk; // u or e, and its tangent
+  const uint32_t bars = base + 2 * Lay::kWGBytes + 2 * Lay::kVecs + 16 * wg;
+  const CUtensorMap* ta = wg ? ha.tgy : ha.tx;
+  const CUtensorMap* tb = wg ? ha.tc : ha.tb;
+  auto load = [&](int kt) {
+    const uint32_t st = ring + (kt & 1) * Lay::kStage, bar = bars + 8 * (kt & 1);
+    mbar_expect(bar, NP * (1 + nrn) * kRegion);
+#pragma unroll
+    for (int pl = 0; pl < NP; ++pl) {
+      tma_load(st + pl * kRegion, ta[pl], bar, 1, h, kt * kM, bc);
+      tma_load(st + NP * kRegion + pl * 2 * kRegion, tb[pl], bar, nrn, grp,
+               kt * kM, bc);
+    }
+  };
+  if (t == 0) {
+    for (int pl = 0; pl < NP; ++pl) {
+      prefetch_map(ta[pl]);
+      prefetch_map(tb[pl]);
+    }
+    mbar_init(bars);
+    mbar_init(bars + 8);
+    mbar_init_fence();
+  }
+  if (nrn == 1)                              // B/C columns 64 .. 127: zero
+    for (int s = 0; s < 2; ++s)
+      for (int pl = 0; pl < NP; ++pl)
+        zero_region(gring + s * Lay::kStage + NP * kRegion + pl * 2 * kRegion,
+                    t, kWG);
+  fence_async_smem();
+  bar_wg(wg);
+  if (t == 0) {
+    load(0);
+    if (nt > 1) load(1);
+  }
+  // dt (and dt') of the chunk, zero past it; seg by warp 0
+  const float* dt = ptr<const float>(a, sbw::DT, 0);
+  const float* dtt = ptr<const float>(a, sbw::DT, 1);
+  for (int i = t; i < sbw::kMaxChunk; i += kWG) {
+    const bool in = i < cs;
+    dtv[i] = in ? dt[(row0 + i) * H + h] : 0.f;
+    if constexpr (kDual)
+      dtv[sbw::kMaxChunk + i] = in ? dtt[(row0 + i) * H + h] : 0.f;
+  }
+  bar_wg(wg);
+  if (warp == 0) {
+    const float av = ptr<const float>(a, sbw::AA, 0)[b * a.a_stride + h];
+    const float at =
+        kDual ? ptr<const float>(a, sbw::AA, 1)[b * a.ta_stride + h] : 0.f;
+    cumsum<kDual>(dtv, dtv + sbw::kMaxChunk, av, at, segv,
+                  segv + sbw::kMaxChunk, cs, lane);
+  }
+  bar_wg(wg);
+  // the scale of the A operand: u_k = exp(seg_end - seg_k) dt_k (S) or
+  // e_k = exp(seg_k) (Lc), zero past the chunk
+  const long long sbase = ((long long)b * H + h) * a.L + (long long)c * cs;
+  const Num<kDual> end = num<kDual>(segv[cs - 1],
+                                    kDual ? segv[sbw::kMaxChunk + cs - 1] : 0.f);
+  for (int i = t; i < sbw::kMaxChunk; i += kWG) {
+    Num<kDual> s{};
+    if (i < cs) {
+      const Num<kDual> sg = num<kDual>(segv[i],
+                                       kDual ? segv[sbw::kMaxChunk + i] : 0.f);
+      if (wg == 0) {
+        s = sbw::dexp(end - sg) *
+            num<kDual>(dtv[i], kDual ? dtv[sbw::kMaxChunk + i] : 0.f);
+        ptr<float>(a, sbw::SEG, 0)[sbase + i] = vpart(sg);
+        if constexpr (kDual) ptr<float>(a, sbw::SEG, 1)[sbase + i] = tpart(sg);
+      } else {
+        s = sbw::dexp(sg);
+      }
+    }
+    sc[i] = vpart(s);
+    if constexpr (kDual) sc[sbw::kMaxChunk + i] = tpart(s);
+  }
+  bar_wg(wg);
+
+  float acc[64];                       // S or Lc (the first product overwrites)
+  float acct[kDual ? 64 : 1];          // their tangents
+  for (int kt = 0; kt < nt; ++kt) {
+    const uint32_t st = ring + (kt & 1) * Lay::kStage;
+    const uint8_t* gst = gring + (kt & 1) * Lay::kStage;
+    mbar_wait(bars + 8 * (kt & 1), (kt >> 1) & 1);
+    const uint32_t bt = st + NP * kRegion;
+    uint32_t hi[4][4], lo[4][4];
+    const float* w = sc + kt * kM;
+    scaled_frags(gst, w, nullptr, nullptr, t, hi, lo);
+    keep(acc);
+    keep(hi);
+    keep(lo);
+    if constexpr (kDual) keep(acct);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t db = desc(bt + kk * 2048);
+      mma128_rs(acc, hi[kk], db, kt > 0 || kk > 0);
+      mma128_rs(acc, lo[kk], db, 1);
+      if constexpr (kDual) {        // A B'
+        const uint64_t db1 = desc(bt + 2 * kRegion + kk * 2048);
+        mma128_rs(acct, hi[kk], db1, kt > 0 || kk > 0);
+        mma128_rs(acct, lo[kk], db1, 1);
+      }
+    }
+    wg_commit();
+    wg_wait();
+    keep(acc);
+    keep(hi);
+    keep(lo);
+    if constexpr (kDual) {             // + A' B, A' = w' x + w x'
+      keep(acct);
+      scaled_frags(gst, w + sbw::kMaxChunk, gst + kRegion, w, t, hi, lo);
+      keep(hi);
+      keep(lo);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db = desc(bt + kk * 2048);
+        mma128_rs(acct, hi[kk], db, 1);
+        mma128_rs(acct, lo[kk], db, 1);
+      }
+      wg_commit();
+      wg_wait();
+      keep(acct);
+      keep(hi);
+      keep(lo);
+    }
+    bar_wg(wg);                        // every warp is done with stage kt
+    if (t == 0 && kt + 2 < nt) load(kt + 2);
+  }
+  const long long obase = ((long long)bc * H + h) * P * N;
+  float* out = ptr<float>(a, wg ? sbw::LC : sbw::SS, 0) + obase;
+  float* outt = ptr<float>(a, wg ? sbw::LC : sbw::SS, 1) + obase;
+#pragma unroll
+  for (int e = 0; e < 64; e += 2) {
+    const int p = frag_row(e, t), n = frag_col(e, t);
+    if (p < P && n < N) {
+      *reinterpret_cast<float2*>(out + p * N + n) =
+          make_float2(acc[e], acc[e + 1]);
+      if constexpr (kDual)
+        *reinterpret_cast<float2*>(outt + p * N + n) =
+            make_float2(acct[e], acct[e + 1]);
+    }
+  }
+}
+
+// --------------------------------------------------------------------------
+// gram: G^T = B_k C_q^T of each pair of tiles q >= k, once per group
+// --------------------------------------------------------------------------
+
+__host__ __device__ constexpr int pairs(int nt) { return nt * (nt + 1) / 2; }
+
+template <bool kDual>
+__device__ __forceinline__ void gram_body(const HArgs& ha) {
+  constexpr int NP = kDual ? 2 : 1;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const Args& a = ha.a;
+  const uint32_t base = (smem_u32(smem) + 1023u) & ~1023u;
+  uint8_t* gbase = smem + (base - smem_u32(smem));
+  const int t = threadIdx.x;
+  const int pidx = blockIdx.x, grp = blockIdx.y, bc = blockIdx.z;
+  int qt = 0;
+  while (pairs(qt + 1) <= pidx) ++qt;
+  const int kt = pidx - pairs(qt);
+  const int nt = (a.cs + kM - 1) / kM, nrn = a.N > 64 ? 2 : 1;
+  // B planes at pl * 2 kRegion, C planes after them; the barrier last
+  const uint32_t sB = base, sC = base + NP * 2 * kRegion;
+  const uint32_t bar = base + 2 * NP * 2 * kRegion;
+  if (t == 0) {
+    mbar_init(bar);
+    mbar_init_fence();
+  }
+  if (nrn == 1)
+    for (int i = 0; i < 2 * NP; ++i)
+      zero_region(gbase + i * 2 * kRegion, t, kWG);
+  fence_async_smem();
+  __syncthreads();
+  if (t == 0) {
+    mbar_expect(bar, 2 * NP * nrn * kRegion);
+    for (int pl = 0; pl < NP; ++pl) {
+      tma_load(sB + pl * 2 * kRegion, ha.tb[pl], bar, nrn, grp, kt * kM, bc);
+      tma_load(sC + pl * 2 * kRegion, ha.tc[pl], bar, nrn, grp, qt * kM, bc);
+    }
+  }
+  mbar_wait(bar, 0);
+  float g[32], gt[kDual ? 32 : 1];
+  keep(g);
+  if constexpr (kDual) keep(gt);
+  wg_fence();
+  abt<2>(g, sB, sC, false);
+  if constexpr (kDual) {
+    abt<2>(gt, sB + 2 * kRegion, sC, false);
+    abt<2>(gt, sB, sC + 2 * kRegion, true);
+  }
+  wg_commit();
+  wg_wait();
+  keep(g);
+  if constexpr (kDual) keep(gt);
+  const long long at =
+      (((long long)bc * a.G + grp) * pairs(nt) + pidx) * (kM * kM / 4);
+  float4* out = ptr<float4>(a, sbw::GRAM, 0) + at;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    out[j * kWG + t] = make_float4(g[4 * j], g[4 * j + 1], g[4 * j + 2],
+                                   g[4 * j + 3]);
+  if constexpr (kDual) {
+    float4* outt = ptr<float4>(a, sbw::GRAM, 1) + at;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      outt[j * kWG + t] = make_float4(gt[4 * j], gt[4 * j + 1],
+                                      gt[4 * j + 2], gt[4 * j + 3]);
+  }
+}
+
+// --------------------------------------------------------------------------
+// chunk: dx, dB, dC and the R sums of one (b, chunk, h), one warpgroup
+// --------------------------------------------------------------------------
+
+template <bool kDual> struct ChunkLay {
+  static constexpr int NP = kDual ? 2 : 1;
+  // warpgroups: one in the backward (two blocks an SM); two in the tangent
+  // (one block an SM), each forming half of a pair's columns q
+  static constexpr int kWGs = kDual ? 2 : 1;
+  static constexpr uint32_t kK = NP * 3 * kRegion;    // x planes, B planes
+  static constexpr uint32_t oX = 0, oB = NP * kRegion;
+  static constexpr uint32_t oGY = kK, oC = kK + NP * kRegion;
+  static constexpr uint32_t oG = 2 * kK;              // G (G') tiles
+  static constexpr uint32_t oPL = oG + NP * kGramBytes;
+  // planes of the pair: M hi, M lo, Z hi, Z lo (then the tangents')
+  static constexpr uint32_t kTiles_ = oPL + NP * 4 * kRegion;
+  // gO or s_in as hi/lo planes (then the tangent's), over the pair's planes
+  static constexpr uint32_t oST = oPL;
+  static constexpr int kV = sbw::kMaxChunk;
+  // seg, dt, R's per-warp column sums (4), the entering-state terms of
+  // dseg, and the second warpgroup's row sums for the first
+  static constexpr uint32_t kVecs = NP * (2 + 4 + 1 + 1) * kV * 4;
+  static constexpr size_t kBytes = 1024 + kTiles_ + kVecs + 64;
+};
+
+// acc (64 x 32) = A B^T over K = 64: A and B (32 rows) K-major tiles.
+__device__ __forceinline__ void mma32(float (&d)[16], uint64_t a, uint64_t b,
+                                      int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc));
+}
+__device__ __forceinline__ void abt(float (&acc)[16], uint32_t a, uint32_t b,
+                                   bool add) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    mma32(acc, desc(a + kk * 32), desc(b + kk * 32), add || kk > 0);
+}
+__device__ __forceinline__ void abt(float (&acc)[32], uint32_t a, uint32_t b,
+                                   bool add) {
+  abt<1>(acc, a, b, add);
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+template <bool kDual>
+__device__ __forceinline__ void chunk_body(const HArgs& ha) {
+  using T = Num<kDual>;
+  using Lay = ChunkLay<kDual>;
+  constexpr int NP = Lay::NP, kV = Lay::kV, kWGs = Lay::kWGs;
+  constexpr int kThreads = kWGs * kWG;
+  constexpr int kCols = kM / kWGs;         // a warpgroup's columns q of a pair
+  constexpr int kE = kCols / 2;            // its D elements a thread
+  constexpr int kN = 128 / kWGs;           // its columns n of dC's state term
+  extern __shared__ __align__(16) uint8_t smem[];
+  const Args& a = ha.a;
+  const uint32_t base = (smem_u32(smem) + 1023u) & ~1023u;
+  uint8_t* gbase = smem + (base - smem_u32(smem));
+  // (compile-time constants at one warpgroup, so that the backward's code
+  // carries none of the second warpgroup's branches)
+  const int tid = threadIdx.x, wg = kWGs == 1 ? 0 : tid >> 7;
+  const int t = tid & 127, warp = t >> 5, lane = t & 31;
+  // the first warpgroup accumulates dx and dC, the last dB
+  const bool own_x = kWGs == 1 || wg == 0, own_B = kWGs == 1 || wg == 1;
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int cs = a.cs, H = a.H, P = a.P, N = a.N, nc = a.nc;
+  const int grp = h / (H / a.G), bc = b * nc + c;
+  const int nt = (cs + kM - 1) / kM, nrn = N > 64 ? 2 : 1;
+  const long long row0 = (long long)b * a.L + (long long)c * cs;
+  const long long sbase = ((long long)b * H + h) * a.L + (long long)c * cs;
+  const long long obase = ((long long)bc * H + h) * P * N;
+  float* vec = reinterpret_cast<float*>(gbase + Lay::kTiles_);
+  float* segv = vec;                       // [NP][kV]
+  float* dtv = vec + NP * kV;              // [NP][kV]
+  float* rowr = vec + 2 * NP * kV;         // [NP][4][kV]
+  float* dsqs = vec + 6 * NP * kV;         // [NP][kV]
+  float* xbuf = vec + 7 * NP * kV;         // [NP][kV]: row sums of the
+                                           // second warpgroup's columns
+  const uint32_t bar_k = base + Lay::kTiles_ + Lay::kVecs;
+  const uint32_t bar_q = bar_k + 8, bar_g = bar_k + 16;
+  int uk = 0, uq = 0, ug = 0;              // completed waits of each barrier
+  auto seg_at = [&](int i) {
+    return num<kDual>(segv[i], kDual ? segv[kV + i] : 0.f);
+  };
+  auto dt_at = [&](int i) {
+    return num<kDual>(dtv[i], kDual ? dtv[kV + i] : 0.f);
+  };
+  auto load_k = [&](int kt) {
+    mbar_expect(bar_k, NP * (1 + nrn) * kRegion);
+    for (int pl = 0; pl < NP; ++pl) {
+      tma_load(base + Lay::oX + pl * kRegion, ha.tx[pl], bar_k, 1, h,
+               kt * kM, bc);
+      tma_load(base + Lay::oB + pl * 2 * kRegion, ha.tb[pl], bar_k, nrn, grp,
+               kt * kM, bc);
+    }
+  };
+  auto load_q = [&](int qt) {
+    mbar_expect(bar_q, NP * (1 + nrn) * kRegion);
+    for (int pl = 0; pl < NP; ++pl) {
+      tma_load(base + Lay::oGY + pl * kRegion, ha.tgy[pl], bar_q, 1, h,
+               qt * kM, bc);
+      tma_load(base + Lay::oC + pl * 2 * kRegion, ha.tc[pl], bar_q, nrn, grp,
+               qt * kM, bc);
+    }
+  };
+  auto load_g = [&](int qt, int kt) {
+    const long long at = (((long long)bc * a.G + grp) * pairs(nt) +
+                          pairs(qt) + kt) * (kM * kM);
+    mbar_expect(bar_g, NP * kGramBytes);
+    for (int pl = 0; pl < NP; ++pl)
+      bulk_load(base + Lay::oG + pl * kGramBytes,
+                ptr<const float>(a, sbw::GRAM, pl) + at, kGramBytes, bar_g);
+  };
+  // the second warpgroup's row sums (this thread's rows r0, r0 + 8) added
+  // to the first's, in that order; every thread of the block calls it
+  auto row_sums = [&](T (&v)[2], int at) {
+    if constexpr (kWGs == 2) {
+      const int r0_ = frag_row(0, t);
+      if (wg == 1 && (lane & 3) == 0)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          xbuf[at + r0_ + 8 * r] = vpart(v[r]);
+          if constexpr (kDual) xbuf[kV + at + r0_ + 8 * r] = tpart(v[r]);
+        }
+      __syncthreads();
+      if (wg == 0)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          v[r] += num<kDual>(xbuf[at + r0_ + 8 * r],
+                             kDual ? xbuf[kV + at + r0_ + 8 * r] : 0.f);
+    }
+  };
+
+  if (tid == 0) {
+    for (int pl = 0; pl < NP; ++pl) {
+      prefetch_map(ha.tx[pl]);
+      prefetch_map(ha.tgy[pl]);
+      prefetch_map(ha.tb[pl]);
+      prefetch_map(ha.tc[pl]);
+    }
+    mbar_init(bar_k);
+    mbar_init(bar_q);
+    mbar_init(bar_g);
+    mbar_init_fence();
+    load_g(0, 0);                        // the first pair's, ahead of all
+  }
+  if (nrn == 1)
+    for (int pl = 0; pl < NP; ++pl) {
+      zero_region(gbase + Lay::oB + pl * 2 * kRegion, tid, kThreads);
+      zero_region(gbase + Lay::oC + pl * 2 * kRegion, tid, kThreads);
+    }
+  for (int i = tid; i < kV; i += kThreads) {
+    const bool in = i < cs;
+#pragma unroll
+    for (int pl = 0; pl < NP; ++pl) {
+      segv[pl * kV + i] = in ? ptr<const float>(a, sbw::SEG, pl)[sbase + i]
+                             : 0.f;
+      dtv[pl * kV + i] =
+          in ? ptr<const float>(a, sbw::DT, pl)[(row0 + i) * H + h] : 0.f;
+      for (int w = 0; w < 4; ++w) rowr[(pl * 4 + w) * kV + i] = 0.f;
+    }
+  }
+  // the entering state s_in as hi/lo planes
+  stage_state<kDual, kThreads>(gbase + Lay::oST,
+                               ptr<const float>(a, sbw::SIN, 0) + obase,
+                               kDual ? ptr<const float>(a, sbw::SIN, 1) + obase
+                                     : nullptr,
+                               P, N, tid);
+  fence_async_smem();
+  __syncthreads();
+  const int r0 = frag_row(0, t);
+  // this thread's two rows (r = 0, 1) of a tile: r0 and r0 + 8
+  const int dplane = kDual ? 1 : 0;       // the plane dx, dB, dC carry
+  float* dCh = ptr<float>(a, sbw::DCH, dplane);
+  auto dc_at = [&](int q, int n) {
+    return ((row0 + q) * H + h) * (long long)N + n;
+  };
+
+  // the entering state's term of each query tile: dC_q = e_q gy_q s_in
+  // into dCh, e_q C_q . (gy_q s_in) into dsqs; each warpgroup its kN
+  // columns n; the tiles in reverse, so that query tile 0 is in place for
+  // the first pair
+  for (int qt = nt - 1; qt >= 0; --qt) {
+    if (qt != nt - 1) __syncthreads();   // every warp is done with the tile
+    if (tid == 0) load_q(qt);
+    mbar_wait(bar_q, uq++ & 1);
+    float w[kN / 2], wt[kDual ? kN / 2 : 1];
+    const uint32_t sin = base + Lay::oST + wg * kRegion;
+    keep(w);
+    if constexpr (kDual) keep(wt);
+    wg_fence();
+    amn(w, base + Lay::oGY, sin, false);
+    amn(w, base + Lay::oGY, sin + 2 * kRegion, true);
+    if constexpr (kDual) {
+      amn(wt, base + Lay::oGY + kRegion, sin, false);
+      amn(wt, base + Lay::oGY + kRegion, sin + 2 * kRegion, true);
+      amn(wt, base + Lay::oGY, sin + 4 * kRegion, true);
+      amn(wt, base + Lay::oGY, sin + 6 * kRegion, true);
+    }
+    wg_commit();
+    wg_wait();
+    keep(w);
+    if constexpr (kDual) keep(wt);
+    T rs[2] = {}, eq[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int q = qt * kM + r0 + 8 * r;
+      eq[r] = q < cs ? sbw::dexp(seg_at(q)) : T{};
+    }
+    const uint8_t* Ct = gbase + Lay::oC;
+#pragma unroll
+    for (int e = 0; e < kN / 2; e += 2) {
+      const int r = (e >> 1) & 1, row = r0 + 8 * r;
+      const int n = kN * wg + frag_col(e, t), q = qt * kM + row;
+      const T w0 = num<kDual>(w[e], kDual ? wt[e] : 0.f);
+      const T w1 = num<kDual>(w[e + 1], kDual ? wt[e + 1] : 0.f);
+      const T c0 = num<kDual>(bf(Ct, row, n),
+                              kDual ? bf(Ct + 2 * kRegion, row, n) : 0.f);
+      const T c1 = num<kDual>(bf(Ct, row, n + 1),
+                              kDual ? bf(Ct + 2 * kRegion, row, n + 1) : 0.f);
+      rs[r] += c0 * w0 + c1 * w1;
+      if (q < cs && n < N) {
+        const T d0 = eq[r] * w0, d1 = eq[r] * w1;
+        *reinterpret_cast<float2*>(dCh + dc_at(q, n)) =
+            kDual ? make_float2(tpart(d0), tpart(d1))
+                  : make_float2(vpart(d0), vpart(d1));
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) rs[r] = sbw::quad_sum(rs[r]);
+    row_sums(rs, 2 * kM);
+    if (own_x)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int q = qt * kM + r0 + 8 * r;
+        if ((lane & 3) == 0 && q < cs) {
+          const T v = eq[r] * rs[r];
+          dsqs[q] = vpart(v);
+          if constexpr (kDual) dsqs[kV + q] = tpart(v);
+        }
+      }
+  }
+
+  const T seg_end = seg_at(cs - 1);
+  const uint8_t* Xt = gbase + Lay::oX;
+  for (int kt = 0; kt < nt; ++kt) {
+    __syncthreads();                     // every warp is done with ST, K
+    if (tid == 0) load_k(kt);
+    stage_state<kDual, kThreads>(gbase + Lay::oST,
+                                 ptr<const float>(a, sbw::GO, 0) + obase,
+                                 kDual ? ptr<const float>(a, sbw::GO, 1) + obase
+                                       : nullptr,
+                                 P, N, tid);
+    fence_async_smem();
+    __syncthreads();
+    mbar_wait(bar_k, uk++ & 1);
+    // this thread's two key rows: w_k, u_k, dt_k
+    T segk[2], dtk[2], wk[2], ukk[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int k = kt * kM + r0 + 8 * r;
+      const bool in = k < cs;
+      segk[r] = seg_at(in ? k : 0);
+      dtk[r] = in ? dt_at(k) : T{};
+      wk[r] = in ? sbw::dexp(seg_end - segk[r]) : T{};
+      ukk[r] = wk[r] * dtk[r];
+    }
+    // the state leaving the chunk: dx = u_k gO B_k, dB = u_k gO^T x_k
+    float dx[32], dB[64];
+    T xv[2] = {};
+    if (own_x) {
+      float v[kDual ? 32 : 1];           // the value gO B_k in the tangent
+      keep(dx);
+      if constexpr (kDual) keep(v);
+      wg_fence();
+      if constexpr (kDual) {
+        abt<2>(v, base + Lay::oB, base + Lay::oST, false);
+        abt<2>(v, base + Lay::oB, base + Lay::oST + 2 * kRegion, true);
+        abt<2>(dx, base + Lay::oB + 2 * kRegion, base + Lay::oST, false);
+        abt<2>(dx, base + Lay::oB + 2 * kRegion,
+               base + Lay::oST + 2 * kRegion, true);
+        abt<2>(dx, base + Lay::oB, base + Lay::oST + 4 * kRegion, true);
+        abt<2>(dx, base + Lay::oB, base + Lay::oST + 6 * kRegion, true);
+      } else {
+        abt<2>(dx, base + Lay::oB, base + Lay::oST, false);
+        abt<2>(dx, base + Lay::oB, base + Lay::oST + 2 * kRegion, true);
+      }
+      wg_commit();
+      wg_wait();
+      keep(dx);
+      if constexpr (kDual) keep(v);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int r = (e >> 1) & 1, p = frag_col(e, t);
+        const T vv = num<kDual>(kDual ? v[e] : dx[e], kDual ? dx[e] : 0.f);
+        const T xx = num<kDual>(bf(Xt, r0 + 8 * r, p),
+                                kDual ? bf(Xt + kRegion, r0 + 8 * r, p) : 0.f);
+        xv[r] += xx * vv;
+        dx[e] = kDual ? tpart(ukk[r] * vv) : vpart(ukk[r] * vv);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) xv[r] = sbw::quad_sum(xv[r]);
+    }
+    if (own_B) {
+      float w[kDual ? 64 : 1];
+      keep(dB);
+      if constexpr (kDual) keep(w);
+      wg_fence();
+      if constexpr (kDual) {
+        amn(w, base + Lay::oX, base + Lay::oST, false);
+        amn(w, base + Lay::oX, base + Lay::oST + 2 * kRegion, true);
+        amn(dB, base + Lay::oX + kRegion, base + Lay::oST, false);
+        amn(dB, base + Lay::oX + kRegion, base + Lay::oST + 2 * kRegion, true);
+        amn(dB, base + Lay::oX, base + Lay::oST + 4 * kRegion, true);
+        amn(dB, base + Lay::oX, base + Lay::oST + 6 * kRegion, true);
+      } else {
+        amn(dB, base + Lay::oX, base + Lay::oST, false);
+        amn(dB, base + Lay::oX, base + Lay::oST + 2 * kRegion, true);
+      }
+      wg_commit();
+      wg_wait();
+      keep(dB);
+      if constexpr (kDual) keep(w);
+#pragma unroll
+      for (int e = 0; e < 64; ++e) {
+        const int r = (e >> 1) & 1;
+        const T ww = num<kDual>(kDual ? w[e] : dB[e], kDual ? dB[e] : 0.f);
+        dB[e] = kDual ? tpart(ukk[r] * ww) : vpart(ukk[r] * ww);
+      }
+    }
+    T colR[2] = {}, direct[2] = {};
+
+    for (int qt = kt; qt < nt; ++qt) {
+      // the next pair (q, k) of the walk, whose q tile and G are loaded
+      // while this one's products run; none after the last
+      const int nq = qt + 1 < nt ? qt + 1 : kt + 1;
+      const int nk = qt + 1 < nt ? kt : kt + 1;
+      const bool more = nk < nt;
+      __syncthreads();                   // every warp is done with the planes
+      // this pair's q tile: left by the prologue (the first pair) or loaded
+      // during the last pair; its G loaded during the last pair's products
+      if (kt > 0 || qt > 0) mbar_wait(bar_q, uq++ & 1);
+      mbar_wait(bar_g, ug++ & 1);
+      // D^T = x_k gy_q^T (and D'^T = x'_k gy_q^T + x_k gy'_q^T): this
+      // warpgroup's kCols columns q
+      float D[kE], Dt[kDual ? kE : 1];
+      const uint32_t gyc = base + Lay::oGY + wg * kCols * 128;
+      keep(D);
+      if constexpr (kDual) keep(Dt);
+      wg_fence();
+      abt(D, base + Lay::oX, gyc, false);
+      if constexpr (kDual) {
+        abt(Dt, base + Lay::oX + kRegion, gyc, false);
+        abt(Dt, base + Lay::oX, gyc + kRegion, true);
+      }
+      wg_commit();
+      wg_wait();
+      keep(D);
+      if constexpr (kDual) keep(Dt);
+      // M^T, Z^T (rows k, columns q) into the planes, the R sums
+      const float4* g4 = reinterpret_cast<const float4*>(gbase + Lay::oG);
+      const float4* g4t =
+          reinterpret_cast<const float4*>(gbase + Lay::oG + kGramBytes);
+      uint8_t* pl0 = gbase + Lay::oPL;
+#pragma unroll
+      for (int i = 0; i < kE / 4; ++i) { // elements 4 i .. 4 i + 3
+        // G in the 64-column tile's order: this warpgroup's group i
+        const int gi = (i + (kE / 4) * wg) * kWG + t;
+        const float4 gv = g4[gi];
+        const float4 gt = kDual ? g4t[gi] : make_float4(0, 0, 0, 0);
+        const float gvs[4] = {gv.x, gv.y, gv.z, gv.w};
+        const float gts[4] = {gt.x, gt.y, gt.z, gt.w};
+        T cols[2] = {};                  // R summed over the two rows
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) { // row r0 (hh 0) or r0 + 8
+          const int e = 4 * i + 2 * hh;
+          const int row = r0 + 8 * hh, col = kCols * wg + frag_col(e, t);
+          const int k = kt * kM + row;
+          T Mv[2], Zv[2];
+          // branch-free, so that the elements' chains interleave: the
+          // exponent is masked to -inf before the exponential where the
+          // pair is out (k > q, or past the chunk), E = 0 there
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int q = qt * kM + col + u;
+            const bool in = k < cs && q < cs && k <= q;
+            const T E = sbw::dexp(in ? seg_at(q) - segk[hh]
+                                     : num<kDual>(-INFINITY, 0.f));
+            const T G = num<kDual>(gvs[2 * hh + u], gts[2 * hh + u]);
+            const T Dv = num<kDual>(D[e + u], kDual ? Dt[e + u] : 0.f);
+            const T GE = G * E;
+            Mv[u] = GE * dtk[hh];
+            Zv[u] = Dv * E * dtk[hh];
+            direct[hh] += Dv * GE;
+            // the diagonal is left out of R's sums: see finish_body
+            const T R = k < q ? Dv * Mv[u] : T{};
+            colR[hh] += R;
+            cols[u] += R;
+          }
+          uint32_t hi, lo;
+          const uint32_t off = elem(row, col);
+          split2(vpart(Mv[0]), vpart(Mv[1]), hi, lo);
+          st32(pl0 + off, hi);
+          st32(pl0 + kRegion + off, lo);
+          split2(vpart(Zv[0]), vpart(Zv[1]), hi, lo);
+          st32(pl0 + 2 * kRegion + off, hi);
+          st32(pl0 + 3 * kRegion + off, lo);
+          if constexpr (kDual) {
+            split2(tpart(Mv[0]), tpart(Mv[1]), hi, lo);
+            st32(pl0 + 4 * kRegion + off, hi);
+            st32(pl0 + 5 * kRegion + off, lo);
+            split2(tpart(Zv[0]), tpart(Zv[1]), hi, lo);
+            st32(pl0 + 6 * kRegion + off, hi);
+            st32(pl0 + 7 * kRegion + off, lo);
+          }
+        }
+        // the columns' sums over the warp's 16 rows, added to its vector
+        // (each column is one warpgroup's)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          T s = cols[u];
+          s += sbw::shfl_xor(s, 4);
+          s += sbw::shfl_xor(s, 8);
+          s += sbw::shfl_xor(s, 16);
+          const int q = qt * kM + kCols * wg + frag_col(4 * i, t) + u;
+          if (lane < 4 && q < cs) {
+            rowr[warp * kV + q] += vpart(s);
+            if constexpr (kDual) rowr[(4 + warp) * kV + q] += tpart(s);
+          }
+        }
+      }
+      fence_async_smem();
+      __syncthreads();
+      if (tid == 0 && more) load_g(nq, nk);  // G is read: the next pair's
+      // dx += M^T gy, dB += Z^T C (their tangents: M'^T gy + M^T gy', ...)
+      const uint32_t sPL = base + Lay::oPL;
+      if (own_x) keep(dx);
+      if (own_B) keep(dB);
+      wg_fence();
+      if (own_x) {
+        if constexpr (kDual) {
+          amn(dx, sPL + 4 * kRegion, base + Lay::oGY, true);
+          amn(dx, sPL + 5 * kRegion, base + Lay::oGY, true);
+          amn(dx, sPL, base + Lay::oGY + kRegion, true);
+          amn(dx, sPL + kRegion, base + Lay::oGY + kRegion, true);
+        } else {
+          amn(dx, sPL, base + Lay::oGY, true);
+          amn(dx, sPL + kRegion, base + Lay::oGY, true);
+        }
+      }
+      if (own_B) {
+        if constexpr (kDual) {
+          amn(dB, sPL + 6 * kRegion, base + Lay::oC, true);
+          amn(dB, sPL + 7 * kRegion, base + Lay::oC, true);
+          amn(dB, sPL + 2 * kRegion, base + Lay::oC + 2 * kRegion, true);
+          amn(dB, sPL + 3 * kRegion, base + Lay::oC + 2 * kRegion, true);
+        } else {
+          amn(dB, sPL + 2 * kRegion, base + Lay::oC, true);
+          amn(dB, sPL + 3 * kRegion, base + Lay::oC, true);
+        }
+      }
+      wg_commit();
+      if (own_x) {
+        // dC_q += Z B_k (Z' B_k + Z B'_k), its partial sum read from dCh
+        float dC[64];
+#pragma unroll
+        for (int e = 0; e < 64; e += 2) {
+          const int q = qt * kM + frag_row(e, t), n = frag_col(e, t);
+          float2 v = make_float2(0.f, 0.f);
+          if (q < cs && n < N)
+            v = *reinterpret_cast<const float2*>(dCh + dc_at(q, n));
+          dC[e] = v.x;
+          dC[e + 1] = v.y;
+        }
+        keep(dC);
+        wg_fence();
+        if constexpr (kDual) {
+          tmn(dC, sPL + 6 * kRegion, base + Lay::oB, true);
+          tmn(dC, sPL + 7 * kRegion, base + Lay::oB, true);
+          tmn(dC, sPL + 2 * kRegion, base + Lay::oB + 2 * kRegion, true);
+          tmn(dC, sPL + 3 * kRegion, base + Lay::oB + 2 * kRegion, true);
+        } else {
+          tmn(dC, sPL + 2 * kRegion, base + Lay::oB, true);
+          tmn(dC, sPL + 3 * kRegion, base + Lay::oB, true);
+        }
+        wg_commit();
+        wg_wait<1>();                    // dx (and dB) done
+        if constexpr (kWGs == 2) bar_sync(3, kThreads);   // dB done too
+        if (tid == 0 && more) load_q(nq);  // the q tile is read
+        wg_wait();
+        keep(dx);
+        keep(dB);
+        keep(dC);
+#pragma unroll
+        for (int e = 0; e < 64; e += 2) {
+          const int q = qt * kM + frag_row(e, t), n = frag_col(e, t);
+          if (q < cs && n < N)
+            *reinterpret_cast<float2*>(dCh + dc_at(q, n)) =
+                make_float2(dC[e], dC[e + 1]);
+        }
+      } else {
+        wg_wait();
+        keep(dB);
+        bar_arrive(3, kThreads);
+      }
+    }
+
+    // the key tile's outputs: dx, dB per head, ddd, dsk, tk
+    if (own_x) {
+      bf16* dxo = ptr<bf16>(a, sbw::DX, dplane);
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int k = kt * kM + frag_row(e, t), p = frag_col(e, t);
+        if (k < cs && p < P)
+          *reinterpret_cast<uint32_t*>(dxo + ((row0 + k) * H + h) * P + p) =
+              pack_bf16(dx[e], dx[e + 1]);
+      }
+    }
+    if (own_B) {
+      float* dBh = ptr<float>(a, sbw::DBH, dplane);
+#pragma unroll
+      for (int e = 0; e < 64; e += 2) {
+        const int k = kt * kM + frag_row(e, t), n = frag_col(e, t);
+        if (k < cs && n < N)
+          *reinterpret_cast<float2*>(dBh + ((row0 + k) * H + h) * N + n) =
+              make_float2(dB[e], dB[e + 1]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      colR[r] = sbw::quad_sum(colR[r]);
+      direct[r] = sbw::quad_sum(direct[r]);
+    }
+    row_sums(colR, 0);
+    row_sums(direct, kM);
+    if (own_x)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int k = kt * kM + r0 + 8 * r;
+        if ((lane & 3) == 0 && k < cs) {
+          const T Tk = k < cs - 1 ? ukk[r] * xv[r] : T{};
+          const T ddd = direct[r] + wk[r] * xv[r];
+          const T dsk = T{} - colR[r] - Tk;
+#pragma unroll
+          for (int pl = 0; pl < NP; ++pl) {
+            ptr<float>(a, sbw::DDD, pl)[sbase + k] =
+                pl ? tpart(ddd) : vpart(ddd);
+            ptr<float>(a, sbw::DSK, pl)[sbase + k] =
+                pl ? tpart(dsk) : vpart(dsk);
+            ptr<float>(a, sbw::TK, pl)[sbase + k] = pl ? tpart(Tk) : vpart(Tk);
+          }
+        }
+      }
+  }
+  // dseg of the query rows: R's row sums (the four warps' column sums) and
+  // the entering state's term
+  __syncthreads();
+  for (int q = tid; q < cs; q += kThreads)
+#pragma unroll
+    for (int pl = 0; pl < NP; ++pl) {
+      const float* rr = rowr + pl * 4 * kV;
+      ptr<float>(a, sbw::DSQ, pl)[sbase + q] =
+          ((rr[q] + rr[kV + q]) + (rr[2 * kV + q] + rr[3 * kV + q])) +
+          dsqs[pl * kV + q];
+    }
+}
+
+// --------------------------------------------------------------------------
+// kernels: the backward's, and the tangent's under their own names
+// --------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(2 * kWG, 1)
+state_kernel(const __grid_constant__ HArgs ha) {
+  state_body<false>(ha);
+}
+__global__ void __launch_bounds__(2 * kWG, 1)
+tangent_state_kernel(const __grid_constant__ HArgs ha) {
+  state_body<true>(ha);
+}
+__global__ void __launch_bounds__(kWG)
+gram_kernel(const __grid_constant__ HArgs ha) {
+  gram_body<false>(ha);
+}
+__global__ void __launch_bounds__(kWG)
+tangent_gram_kernel(const __grid_constant__ HArgs ha) {
+  gram_body<true>(ha);
+}
+__global__ void __launch_bounds__(kWG, 2)
+chunk_kernel(const __grid_constant__ HArgs ha) {
+  chunk_body<false>(ha);
+}
+__global__ void __launch_bounds__(2 * kWG, 1)
+tangent_chunk_kernel(const __grid_constant__ HArgs ha) {
+  chunk_body<true>(ha);
+}
+__global__ void __launch_bounds__(128) finish_kernel(const Args a) {
+  sbw::finish_body<false>(a);
+}
+__global__ void __launch_bounds__(128) tangent_finish_kernel(const Args a) {
+  sbw::finish_body<true>(a);
+}
+__global__ void __launch_bounds__(256) reduce_kernel(const Args a) {
+  sbw::reduce_body<bf16>(a, 0);
+}
+__global__ void __launch_bounds__(256) tangent_reduce_kernel(const Args a) {
+  sbw::reduce_body<bf16>(a, 1);
+}
+
+// --------------------------------------------------------------------------
+// host side
+// --------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's entry-point query, so the
+// library links nothing beyond cudart.  The driver's encode needs a current
+// context; a thread that has made no runtime call has none (autograd's
+// device thread): cudaSetDevice binds the device's primary context.
+EncodeTiled encode_tiled() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess)
+    return nullptr;
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A contiguous bf16 (B, L, heads, cols) as (cols, heads, rows of a chunk,
+// B * nc): boxes of 64 columns x 1 head x 64 rows of one chunk, rows past
+// the chunk and columns past cols zero-filled.
+bool map_rows(CUtensorMap* m, const void* ptr, int cols, int heads,
+              int chunk, long long bnc) {
+  const EncodeTiled fn = encode_tiled();
+  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)heads,
+                              (cuuint64_t)chunk, (cuuint64_t)bnc};
+  const cuuint64_t strides[3] = {2ull * cols, 2ull * cols * heads,
+                                 2ull * cols * heads * chunk};
+  const cuuint32_t box[4] = {64, 1, 64, 1}, unit[4] = {1, 1, 1, 1};
+  return fn != nullptr &&
+         fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename Kernel, typename A>
+cudaError_t run(Kernel kernel, dim3 grid, int threads, size_t smem,
+                cudaStream_t s, const A& args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, threads, smem, s>>>(args);
+  return cudaGetLastError();
+}
+
+// The shapes the Hopper kernels take: rows of x, gy, B and C 16-byte
+// multiples (P and N multiples of 8).
+bool shapes_ok(const Args& a) { return a.P % 8 == 0 && a.N % 8 == 0; }
+
+template <bool kDual>
+cudaError_t launch(int pass, const Args& a, cudaStream_t s) {
+  if (pass == 1) {
+    const dim3 grid(a.H, a.B);
+    if (kDual) sbw::tangent_pass_kernel<<<grid, sbw::kPassThreads, 0, s>>>(a);
+    else sbw::pass_kernel<<<grid, sbw::kPassThreads, 0, s>>>(a);
+    return cudaGetLastError();
+  }
+  if (pass == 3)
+    return run(kDual ? tangent_finish_kernel : finish_kernel,
+               dim3((unsigned)((32LL * a.B * a.H * a.nc + 127) / 128)), 128,
+               0, s, a);
+  if (pass == 4) {
+    const long long n = 2LL * a.B * a.L * a.G * a.N +
+                        (a.a_per_seq ? (long long)a.B * a.H : a.H);
+    const long long blocks = (n + 255) / 256;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    return run(kDual ? tangent_reduce_kernel : reduce_kernel,
+               dim3((unsigned)blocks), 256, 0, s, a);
+  }
+  if (pass != 0 && pass != 2 && pass != 5) return cudaErrorInvalidValue;
+  if (!shapes_ok(a)) return cudaErrorInvalidValue;
+  HArgs ha;
+  ha.a = a;
+  const long long bnc = (long long)a.B * a.nc;
+  const int pls = kDual ? 2 : 1;
+  for (int pl = 0; pl < pls; ++pl) {
+    if (!map_rows(&ha.tx[pl], a.p[2 * sbw::X + pl], a.P, a.H, a.cs, bnc) ||
+        !map_rows(&ha.tgy[pl], a.p[2 * sbw::GY + pl], a.P, a.H, a.cs, bnc) ||
+        !map_rows(&ha.tb[pl], a.p[2 * sbw::BM + pl], a.N, a.G, a.cs, bnc) ||
+        !map_rows(&ha.tc[pl], a.p[2 * sbw::CM + pl], a.N, a.G, a.cs, bnc))
+      return cudaErrorInvalidValue;
+  }
+  if (!kDual) {                      // unused tangent maps: copies
+    ha.tx[1] = ha.tx[0];
+    ha.tgy[1] = ha.tgy[0];
+    ha.tb[1] = ha.tb[0];
+    ha.tc[1] = ha.tc[0];
+  }
+  const int nt = (a.cs + kM - 1) / kM;
+  if (pass == 0)
+    return run(kDual ? tangent_state_kernel : state_kernel,
+               dim3(a.H, a.nc, a.B), 2 * kWG, StateLay<kDual>::kBytes, s, ha);
+  if (pass == 5)
+    return run(kDual ? tangent_gram_kernel : gram_kernel,
+               dim3(pairs(nt), a.G, (unsigned)bnc), kWG,
+               1024 + (kDual ? 2 : 1) * 4 * kRegion + 64, s, ha);
+  return run(kDual ? tangent_chunk_kernel : chunk_kernel,
+             dim3(a.H, a.nc, a.B), ChunkLay<kDual>::kWGs * kWG,
+             ChunkLay<kDual>::kBytes, s, ha);
+}
+
+}  // namespace hbw
+
+
 extern "C" {
 
 int repro_ssd_bwd_slots() { return sbw::kSlots; }
@@ -1429,7 +2608,8 @@ int repro_ssd_bwd_launch(int pass, int tangent, int dtype,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == sbw::DT_F32) return (int)sbw::launch<float>(pass, tangent, a, s);
   if (dtype == sbw::DT_BF16)
-    return (int)sbw::launch<__nv_bfloat16>(pass, tangent, a, s);
+    return (int)(tangent ? hbw::launch<true>(pass, a, s)
+                         : hbw::launch<false>(pass, a, s));
   return (int)cudaErrorInvalidValue;
 }
 

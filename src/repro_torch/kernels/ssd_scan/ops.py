@@ -40,17 +40,18 @@ CUDA-core kernel (namespace ``jvpk``).  Reverse-over-reverse (``grad`` of
 
 The backward.  On a CPU tensor it is the chunked scan's VJP
 (:func:`.chunked.ssd_scan_vjp`, chunk by chunk) and its tangent
-``torch.func.jvp`` of that.  On a CUDA tensor (float32 or bfloat16) it is
-:func:`ssd_scan_bwd`, five launches of ``csrc/ssd_bwd.cu`` (namespace
-``sbw``), and its tangent :func:`ssd_scan_bwd_tangent`, the same five
-kernels on dual numbers.  Three wrappers, one a pass, carry the work, each
-with its plain version in :mod:`.ref` (taken for CPU tensors):
-:func:`ssd_bwd_state` (each chunk's own state and state cotangent),
-:func:`ssd_bwd_pass` (the states carried forward, their cotangents back) and
-:func:`ssd_bwd_chunk` (each chunk's gradients: the chunk kernel, then the
-finish and reduce kernels), and their tangent twins.  The bfloat16 route
-forms its products on the tensor cores (``mma.sync``, float32
-intermediates as hi/lo bf16 pairs), the float32 route on the CUDA cores.
+``torch.func.jvp`` of that.  On a CUDA tensor it is :func:`ssd_scan_bwd`,
+launches of ``csrc/ssd_bwd.cu``, and its tangent
+:func:`ssd_scan_bwd_tangent`, the same passes on dual numbers.  Three
+wrappers, one a pass, carry the work, each with its plain version in
+:mod:`.ref` (taken for CPU tensors): :func:`ssd_bwd_state` (each chunk's
+own state and state cotangent), :func:`ssd_bwd_pass` (the states carried
+forward, their cotangents back) and :func:`ssd_bwd_chunk` (each chunk's
+gradients: the chunk kernel, then the finish and reduce kernels), and
+their tangent twins.  bfloat16 runs the Hopper kernels (namespace ``hbw``:
+``wgmma`` and TMA, float32 intermediates as hi/lo bf16 pairs, and a gram
+launch before the chunk kernel that forms C·Bᵀ once per group: six
+launches); float32 the CUDA-core kernels (namespace ``sbw``: five).
 
 ``launch_counts["ssd_scan"]`` counts the calls of :func:`ssd_scan_kernel`
 that went to a kernel route (one launch in float32, three in bfloat16);
@@ -60,9 +61,10 @@ pass's launches.  ``ssd_scan_tangent`` counts the calls of
 three in bfloat16), and ``ssd_tangent_state``, ``ssd_tangent_pass`` and
 ``ssd_tangent_scan`` each of T3's passes.  ``ssd_scan_bwd`` and
 ``ssd_scan_bwd_tangent`` count the calls of :func:`ssd_scan_bwd` and
-:func:`ssd_scan_bwd_tangent` (five launches each), and ``ssd_bwd_state``,
-``ssd_bwd_pass``, ``ssd_bwd_chunk``, ``ssd_bwd_finish``, ``ssd_bwd_reduce``
-and their ``ssd_bwd_tangent_*`` twins each of their kernels' launches.
+:func:`ssd_scan_bwd_tangent`, and ``ssd_bwd_state``, ``ssd_bwd_pass``,
+``ssd_bwd_gram`` (bfloat16 only), ``ssd_bwd_chunk``, ``ssd_bwd_finish``,
+``ssd_bwd_reduce`` and their ``ssd_bwd_tangent_*`` twins each of their
+kernels' launches.
 Plain-version calls are not counted.
 """
 from __future__ import annotations
@@ -99,8 +101,9 @@ BWD_SOURCE = SOURCE.with_name("ssd_bwd.cu")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# the backward's five kernels, in launch order (pass ids of the C entry)
-BWD_PASSES = ("state", "pass", "chunk", "finish", "reduce")
+# the backward's kernels by pass id of the C entry: the five of both
+# routes, then the bfloat16 route's gram kernel (launched before chunk)
+BWD_PASSES = ("state", "pass", "chunk", "finish", "reduce", "gram")
 launch_counts = {"ssd_scan": 0, "ssd_chunk_state": 0, "ssd_state_pass": 0,
                  "ssd_chunk_scan": 0, "ssd_scan_tangent": 0,
                  "ssd_tangent_state": 0, "ssd_tangent_pass": 0,
@@ -150,7 +153,7 @@ _LIB = CudaLibrary(SOURCE, "ssd_scan", _declare)
 # tensor's value plane, then its tangent plane.
 _BWD_TENSORS = ("x", "gy", "B", "C", "dt", "A", "gs", "seg", "S", "Lc",
                 "s_in", "gO", "sg", "dBh", "dCh", "ddd", "dsk", "dsq", "tk",
-                "dAp", "dx", "dB", "dC", "ddt", "dA")
+                "dAp", "dx", "dB", "dC", "ddt", "dA", "gram")
 
 
 def _declare_bwd(lib: ctypes.CDLL) -> None:
@@ -532,6 +535,16 @@ def _check_bwd(name: str, dtype: torch.dtype, chunk: int, **tensors) -> None:
             f"{name}: head dim P={P}, state N={N} and chunk={chunk} must be "
             f"at most {MAX_HEAD_DIM}, {MAX_STATE} and {MAX_CHUNK} for the "
             f"CUDA kernels")
+    if dtype == torch.bfloat16 and x is not None:
+        # the Hopper kernels read x, gy, B and C by TMA: rows of 16-byte
+        # multiples from 16-byte aligned data
+        if P % 8 or N % 8:
+            raise ValueError(f"{name}: the bfloat16 kernels take a head dim "
+                             f"P={P} and state N={N} that are multiples of 8")
+        for tname, t in tensors.items():
+            if tname.lstrip("t") in ("x", "gy", "B", "C") and \
+                    t.data_ptr() % 16:
+                raise ValueError(f"{name}: {tname} is not 16-byte aligned")
 
 
 def _bwd_launch(key: str, tangent: bool, dtype: torch.dtype, dims,
@@ -635,23 +648,64 @@ def _check_chunk(name, x, seg, s_in, gO, sg, chunk) -> None:
 
 def _scratch(x, Bg, chunk, heads=True):
     """The chunk kernel's outputs for the finish and reduce kernels; dB and
-    dC per head (B,L,H,N) only with ``heads``."""
+    dC per head (B,L,H,N) only with ``heads``; in bfloat16 the gram
+    kernel's C·Bᵀ tiles for the chunk kernel, (B·nc, G, pairs of 64-row
+    tiles, 64·64)."""
     B, L, H, P = x.shape
-    N = Bg.shape[3]
+    G, N = Bg.shape[2], Bg.shape[3]
     out = {k: _f32(B, H, L, like=x) for k in ("ddd", "dsk", "dsq", "tk")}
     out["dAp"] = _f32(B, L // chunk, H, like=x)
     if heads:
         out.update(dBh=_f32(B, L, H, N, like=x), dCh=_f32(B, L, H, N, like=x))
+    if x.dtype == torch.bfloat16:
+        nt = -(-chunk // 64)
+        out["gram"] = _f32(B * (L // chunk), G, nt * (nt + 1) // 2, 64 * 64,
+                           like=x)
     return out
+
+
+def _chunk_launches(x, dt, A, Bg, Cg, gy, seg, s_in, gO, sg, chunk,
+                    tangents=None):
+    """The chunk wrapper's launches ({key: a call that makes that one
+    launch}, in launch order: in bfloat16 the gram kernel's C·Bᵀ first) and
+    the outputs they fill, (dx, ddt, dA, dB, dC); with ``tangents`` (tx,
+    tdt, tA, tB, tC, tgy, tseg, ts_in, tgO, tsg) the tangent's launches and
+    the outputs' tangents.  Each launch reads only what the ones before it
+    wrote, so each can be run again alone."""
+    t = tangents or (None,) * 10
+    out = [torch.empty_like(v) for v in (x, dt)] + [
+        _f32(*A.shape, like=x)] + [torch.empty_like(v) for v in (Bg, Cg)]
+    planes = {k: (v, tv) for k, v, tv in zip(
+        ("x", "dt", "A", "B", "C", "gy", "seg", "s_in", "gO", "sg"),
+        (x, dt, A, Bg, Cg, gy, seg, s_in, gO, sg), t)}
+    if tangents is None:
+        planes.update({k: (v,) for k, v in zip(
+            ("dx", "ddt", "dA", "dB", "dC"), out)})
+        planes.update({k: (v,) for k, v in _scratch(x, Bg, chunk).items()})
+    else:
+        # the group sums read only the tangent planes of dB and dC per head
+        planes.update({k: (None, v) for k, v in zip(
+            ("dx", "ddt", "dA", "dB", "dC"), out)})
+        scratch = _scratch(x, Bg, chunk, heads=False)
+        planes.update({k: (scratch.get(k), v)
+                       for k, v in _scratch(x, Bg, chunk).items()})
+    dims = _bwd_dims(x, Bg, A, t[2], chunk)
+    keys = ("ssd_bwd_chunk", "ssd_bwd_finish", "ssd_bwd_reduce")
+    if x.dtype == torch.bfloat16:
+        keys = ("ssd_bwd_gram", *keys)
+    calls = {k: (lambda k=k: _bwd_launch(k, tangents is not None, x.dtype,
+                                         dims, **planes)) for k in keys}
+    return calls, tuple(out)
 
 
 def ssd_bwd_chunk(x, dt, A, Bg, Cg, gy, seg, s_in, gO, sg, *, chunk: int
                   ) -> tuple[torch.Tensor, ...]:
     """Pass 3 of :func:`ssd_scan_bwd`: (dx in x's dtype, ddt float32, dA
     float32 shaped as A, dB, dC in their dtypes), as
-    :func:`.ref.bwd_chunk_ref`.  Three launches: the chunk kernel (each
-    chunk's tiles), the finish kernel (ddt and each chunk's dA) and the
-    reduce kernel (dB and dC over a group's heads, dA over chunks)."""
+    :func:`.ref.bwd_chunk_ref`.  In bfloat16 first the gram kernel (C·Bᵀ
+    of each pair of 64-row tiles, once per group); then the chunk kernel
+    (each chunk's tiles), the finish kernel (ddt and each chunk's dA) and
+    the reduce kernel (dB and dC over a group's heads, dA over chunks)."""
     _check_shapes(x, dt, A, Bg, Cg, chunk)
     _check_like("ssd_bwd_chunk: gy", gy, x.shape)
     _check_chunk("ssd_bwd_chunk", x, seg, s_in, gO, sg, chunk)
@@ -659,16 +713,11 @@ def ssd_bwd_chunk(x, dt, A, Bg, Cg, gy, seg, s_in, gO, sg, *, chunk: int
         return bwd_chunk_ref(x, dt, A, Bg, Cg, gy, seg, s_in, gO, sg, chunk)
     _check_bwd("ssd_bwd_chunk", x.dtype, chunk, x=x, dt=dt, A=A, B=Bg, C=Cg,
                gy=gy, seg=seg, s_in=s_in, gO=gO, sg=sg)
-    dx, dB, dC = (torch.empty_like(t) for t in (x, Bg, Cg))
-    ddt, dA = torch.empty_like(dt), _f32(*A.shape, like=x)
-    planes = dict(x=(x,), gy=(gy,), B=(Bg,), C=(Cg,), dt=(dt,), A=(A,),
-                  seg=(seg,), s_in=(s_in,), gO=(gO,), sg=(sg,), dx=(dx,),
-                  dB=(dB,), dC=(dC,), ddt=(ddt,), dA=(dA,),
-                  **{k: (v,) for k, v in _scratch(x, Bg, chunk).items()})
-    dims = _bwd_dims(x, Bg, A, None, chunk)
-    for key in ("ssd_bwd_chunk", "ssd_bwd_finish", "ssd_bwd_reduce"):
-        _bwd_launch(key, False, x.dtype, dims, **planes)
-    return dx, ddt, dA, dB, dC
+    calls, out = _chunk_launches(x, dt, A, Bg, Cg, gy, seg, s_in, gO, sg,
+                                 chunk)
+    for call in calls.values():
+        call()
+    return out
 
 
 def _check_bwd_inputs(name, x, dt, A, Bg, Cg, gy, gs, chunk) -> None:
@@ -686,7 +735,7 @@ def ssd_scan_bwd(x, dt, A, Bg, Cg, gy, gs, *, chunk: int
     shaped and typed as its input (dt and A float32).  On CPU tensors the
     plain versions of the three passes composed; on CUDA tensors
     :func:`ssd_bwd_state`, :func:`ssd_bwd_pass` and :func:`ssd_bwd_chunk`,
-    five launches."""
+    six launches in bfloat16, five in float32."""
     _check_bwd_inputs("ssd_scan_bwd", x, dt, A, Bg, Cg, gy, gs, chunk)
     if x.device.type == "cpu":
         S, Lc, seg = bwd_state_ref(x, dt, A, Bg, Cg, gy, chunk)
@@ -759,7 +808,8 @@ def ssd_bwd_tangent_chunk(x, dt, A, Bg, Cg, gy, seg, s_in, gO, sg, tx, tdt,
                           chunk: int) -> tuple[torch.Tensor, ...]:
     """Pass 3 of :func:`ssd_scan_bwd_tangent`: the tangents (dx', ddt',
     dA', dB', dC') of :func:`ssd_bwd_chunk`'s outputs, each in its output's
-    dtype, as :func:`.ref.tangent_bwd_chunk_ref`; three launches."""
+    dtype, as :func:`.ref.tangent_bwd_chunk_ref`; the launches of
+    :func:`ssd_bwd_chunk`."""
     _check_shapes(x, dt, A, Bg, Cg, chunk)
     _check_tangents("ssd_bwd_tangent_chunk", (x, dt, A, Bg, Cg, gy),
                     (tx, tdt, tA, tB, tC, tgy))
@@ -773,21 +823,12 @@ def ssd_bwd_tangent_chunk(x, dt, A, Bg, Cg, gy, seg, s_in, gO, sg, tx, tdt,
                B=Bg, C=Cg, gy=gy, seg=seg, s_in=s_in, gO=gO, sg=sg, tx=tx,
                tdt=tdt, tA=tA, tB=tB, tC=tC, tgy=tgy, tseg=tseg, ts_in=ts_in,
                tgO=tgO, tsg=tsg)
-    tdx, tdB, tdC = (torch.empty_like(t) for t in (x, Bg, Cg))
-    tddt, tdA = torch.empty_like(dt), _f32(*A.shape, like=x)
-    # the group sums read only the tangent planes of dB and dC per head
-    scratch = _scratch(x, Bg, chunk, heads=False)
-    tscratch = _scratch(x, Bg, chunk)
-    planes = dict(x=(x, tx), gy=(gy, tgy), B=(Bg, tB), C=(Cg, tC),
-                  dt=(dt, tdt), A=(A, tA), seg=(seg, tseg),
-                  s_in=(s_in, ts_in), gO=(gO, tgO), sg=(sg, tsg),
-                  dx=(None, tdx), dB=(None, tdB), dC=(None, tdC),
-                  ddt=(None, tddt), dA=(None, tdA),
-                  **{k: (scratch.get(k), tscratch[k]) for k in tscratch})
-    dims = _bwd_dims(x, Bg, A, tA, chunk)
-    for key in ("ssd_bwd_chunk", "ssd_bwd_finish", "ssd_bwd_reduce"):
-        _bwd_launch(key, True, x.dtype, dims, **planes)
-    return tdx, tddt, tdA, tdB, tdC
+    calls, out = _chunk_launches(x, dt, A, Bg, Cg, gy, seg, s_in, gO, sg,
+                                 chunk, (tx, tdt, tA, tB, tC, tgy, tseg,
+                                         ts_in, tgO, tsg))
+    for call in calls.values():
+        call()
+    return out
 
 
 def ssd_scan_bwd_tangent(x, dt, A, Bg, Cg, gy, gs, tx, tdt, tA, tB, tC, tgy,
@@ -797,7 +838,7 @@ def ssd_scan_bwd_tangent(x, dt, A, Bg, Cg, gy, gs, tx, tdt, tA, tB, tC, tgy,
     B, C, gy, gs), each shaped and typed as its primal.  On CPU tensors the
     plain versions of the three tangent passes composed; on CUDA tensors
     :func:`ssd_bwd_tangent_state`, :func:`ssd_bwd_tangent_pass` and
-    :func:`ssd_bwd_tangent_chunk`, the backward's five kernels on dual
+    :func:`ssd_bwd_tangent_chunk`, the backward's kernels on dual
     numbers."""
     _check_bwd_inputs("ssd_scan_bwd_tangent", x, dt, A, Bg, Cg, gy, gs,
                       chunk)

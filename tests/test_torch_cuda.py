@@ -1268,8 +1268,9 @@ def _assert_bwd_close(got, want):
                          ids=SSD_BWD_IDS)
 def test_cuda_ssd_bwd_matches_plain_version(cuda, L, chunk, H, G, P, N,
                                             per_seq, dtype, tangent):
-    """One call, five launches, within SSD_BWD_TOL of the plain passes
-    composed; a second call gives the same bits."""
+    """One call (five launches in float32; six in bfloat16, the gram
+    kernel's among them) within SSD_BWD_TOL of the plain passes composed;
+    a second call gives the same bits."""
     gen = torch.Generator().manual_seed(L + chunk + tangent)
     args, targs = _bwd_inputs(gen, 2, L, H, P, N, G, dtype, cuda, per_seq)
     key = "ssd_scan_bwd_tangent" if tangent else "ssd_scan_bwd"
@@ -1284,11 +1285,77 @@ def test_cuda_ssd_bwd_matches_plain_version(cuda, L, chunk, H, G, P, N,
     assert after[key] == before[key] + 1
     for p in ("state", "pass", "chunk", "finish", "reduce"):
         assert after[prefix + p] == before[prefix + p] + 1
+    assert after[prefix + "gram"] == before[prefix + "gram"] + (
+        dtype == torch.bfloat16)
     want = (_bwd_tangent_plain(args, targs, chunk) if tangent
             else _bwd_plain(args, chunk))
     _assert_bwd_close(got, want)
     for a, b in zip(got, call()):
         assert torch.equal(a, b)
+
+
+# The bfloat16 route's kernels with a product (namespace hbw of
+# csrc/ssd_bwd.cu), and their tangent twins.
+SSD_BWD_HOPPER_KERNELS = ("state_kernel", "gram_kernel", "chunk_kernel")
+
+
+@pytest.mark.requires_cuda
+def test_cuda_ssd_bwd_bf16_runs_the_hopper_kernels(cuda):
+    """A bf16 call at the mamba2 width (P = 64, N = 128, one group, chunk
+    256) counts the gram launch that only the Hopper route makes (its
+    tangent call the tangent's), a float32 call none; and the built library
+    holds namespace hbw's kernels and no bf16 instantiation of namespace
+    sbw (cuobjdump's symbols): nothing can launch the mma.sync kernels the
+    Hopper route replaced."""
+    import shutil
+    import subprocess
+    gen = torch.Generator().manual_seed(11)
+    for dtype in DTYPES:
+        args, targs = _bwd_inputs(gen, 2, 512, 4, 64, 128, 1, dtype, cuda,
+                                  True)
+        for key, call in (
+                ("ssd_bwd_gram", lambda: sops.ssd_scan_bwd(*args,
+                                                           chunk=256)),
+                ("ssd_bwd_tangent_gram", lambda: sops.ssd_scan_bwd_tangent(
+                    *args, *targs, chunk=256))):
+            before = sops.launch_counts[key]
+            call()
+            assert sops.launch_counts[key] == before + (
+                dtype == torch.bfloat16), (key, dtype)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    symbols = subprocess.run([tool, "-symbols", sops.BWD_LIB.build()["path"]],
+                             capture_output=True, text=True, check=True,
+                             timeout=300).stdout
+    assert "3sbw" in symbols and "3hbw" in symbols
+    for name in SSD_BWD_HOPPER_KERNELS:
+        for twin in (name, "tangent_" + name):
+            assert f"3hbw{len(twin)}{twin}E" in symbols, twin
+    sbw_bf16 = [line for line in symbols.splitlines()
+                if "3sbw" in line and "13__nv_bfloat16" in line]
+    assert not sbw_bf16, sbw_bf16
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("tangent", [False, True], ids=["bwd", "tangent"])
+def test_cuda_ssd_bwd_bf16_stays_finite_where_seg_falls_past_88(cuda,
+                                                                tangent):
+    """dt = 4 makes seg fall by hundreds within each 256-row chunk: every
+    gradient finite and within SSD_BWD_TOL of the plain passes, dA within
+    chip_smoke.py's STEEP_DA_REL (1e-3 of its largest |value|)."""
+    gen = torch.Generator().manual_seed(12)
+    args, targs = _bwd_inputs(gen, 2, 512, 4, 16, 32, 2, torch.bfloat16,
+                              cuda, True)
+    args[1] = torch.full_like(args[1], 4.0)
+    if tangent:
+        got = sops.ssd_scan_bwd_tangent(*args, *targs, chunk=256)
+        want = _bwd_tangent_plain(args, targs, 256)
+    else:
+        got = sops.ssd_scan_bwd(*args, chunk=256)
+        want = _bwd_plain(args, 256)
+    _assert_bwd_close(got[:2] + got[3:], want[:2] + want[3:])
+    dA, wA = got[2].float(), want[2].float()
+    assert torch.isfinite(dA).all()
+    assert ((dA - wA).abs() <= 1e-3 * wA.abs().max()).all()
 
 
 @pytest.mark.requires_cuda
