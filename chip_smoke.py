@@ -15,22 +15,26 @@ Phases, each fatal on failure:
                 bf16 flash forward, dQ and dK/dV kernels and T1's and T2's
                 three bf16 tangent kernels, the SSD
                 chunk-state and chunk-output kernels and T3's tangent
-                chunk-state and chunk-output kernels, HMMA (mma.sync on
-                TF32) in the float32 flash forward, dQ and dK/dV kernels and
-                T2's two float32 kernels, HMMA (mma.sync on bf16) in the
-                SSD backward's and its tangent's state and chunk kernels;
-                each must have some.  Then one
+                chunk-state and chunk-output kernels and the SSD backward's
+                and its tangent's bf16 state, gram and chunk kernels, HMMA
+                (mma.sync on TF32) in the float32 flash forward, dQ and
+                dK/dV kernels, T1's and T2's float32 kernels and the SSD
+                backward tangent's float32 state, gram and chunk kernels
+                (namespace tbw); each must have some.  Then one
                 call of ``gqa_flash_attention`` at the serving shape must
                 run one kernel forward and two backward, one bf16 T1 call
                 ``hop::tangent_fwd_kernel`` alone and one bf16 T2 call
                 ``hop::tangent_dq_kernel`` and ``tangent_dkv_kernel``,
                 at lm-100m's shape
                 one float32 forward its one kernel, one float32 backward its
-                two and one float32 T2 its two, one bf16 SSD scan call the
+                two, one float32 T1 ``tf32::tangent_fwd_kernel`` alone and
+                one float32 T2 its two, one bf16 SSD scan call the
                 SSD's three kernels, one bf16 ``ssd_scan_tangent`` call
-                T3's three, and one bf16 ``ssd_scan_bwd`` and one
+                T3's three, one bf16 ``ssd_scan_bwd`` and one
                 ``ssd_scan_bwd_tangent`` call their six each (namespace
-                ``hbw`` and the shared state passing), and nothing
+                ``hbw`` and the shared state passing) and one float32
+                ``ssd_scan_bwd_tangent`` call its six (namespace ``tbw``
+                and the shared tangent state passing), and nothing
                 else: no head expansion, copy or
                 elementwise kernel beside them (torch.profiler, before any
                 other profiling: sessions after phase 5's miss kernels).
@@ -183,9 +187,9 @@ Phases, each fatal on failure:
                 zeroed, T2's results' rows zeroed, T2 without lse'), and
                 rows as phase 6's float32 ones in both dtypes (d = 30 and
                 32, ragged S, GQA ratios 1, 2 and 6, unaligned views);
-                bf16 T1 and T2 on values sharing a mean (SHARED_MEAN: the
-                shapes where a P rounded once to bf16, without its lo
-                half, falls outside the tolerance); T3
+                T1 and T2 in both dtypes on values sharing a mean
+                (SHARED_MEAN: the shapes where a P rounded once to bf16,
+                without its lo half, falls outside the tolerance); T3
                 (the SSD scan's tangent)
                 over phase 9's grid, a ragged row with two groups and A per
                 sequence, the mamba2 training shape (8 sequences of 512, A
@@ -199,8 +203,11 @@ Phases, each fatal on failure:
                 Prints each timed kernel's ms, the plain version's ms and
                 the bound, and T3's call beside the CUDA-core kernel it
                 replaced.  Then the backward's tangent
-                (``ssd_scan_bwd_tangent``, the backward's kernels on dual
-                numbers) over phase 9's backward rows, the same way.
+                (``ssd_scan_bwd_tangent``, the backward's passes on dual
+                numbers) over phase 9's backward rows, the same way, and at
+                the serving shape in float32 too; each float32 row timed
+                beside its float32-rate and 3xTF32 bounds and the CUDA-core
+                kernels it replaced (SSD_BWD_TANGENT_F32_SIMT_MS).
                 Runs before phase 5, as phase 6.
 13. mamba2 training -- this slice's main path: ``launch.train.main`` in
                 this process on mamba2-130m at full width cut to 4 of its
@@ -236,7 +243,10 @@ Phases, each fatal on failure:
                 (maml - fomaml) within 1e-2 / 0.3 and at least half the
                 CPU's norm (over all leaves, and per leaf for leaves whose
                 CPU norm is at least 1% of the largest).  Its CPU half
-                runs first, while nvcc builds the kernels.
+                runs first, while nvcc builds the kernels.  Then one float32
+                ``maml`` meta-gradient of mamba2's cut is profiled on the
+                card (``meta_grad_split``): the SSD backward's and its
+                tangent's device time and shares.
 16. few-shot -- the paper's classification experiment (Fig. 3) through
                 ``launch.fewshot.main`` at the full omniglot-cnn config (2
                 conv blocks of 32 channels, 11,013 parameters in 6 leaves,
@@ -432,10 +442,10 @@ T3_PASSES = {"ssd_tangent_state": "tangent_state_kernel",
              "ssd_tangent_scan": "tangent_scan_kernel"}
 # The scan backward's kernels in bfloat16, as the training and serve runs
 # call it (launch-count keys, and the names torch.profiler reports them
-# by): five of namespace hbw and the state passing that the float32 route
-# shares (sbw::pass_kernel), in launch order; and its tangent's.
+# by): five of namespace hbw and the state passing that every route shares
+# (ssd::pass_kernel), in launch order; and its tangent's.
 SSD_BWD_KERNELS = {"ssd_bwd_state": "hbw::state_kernel",
-                   "ssd_bwd_pass": "sbw::pass_kernel",
+                   "ssd_bwd_pass": "ssd::pass_kernel",
                    "ssd_bwd_gram": "hbw::gram_kernel",
                    "ssd_bwd_chunk": "hbw::chunk_kernel",
                    "ssd_bwd_finish": "hbw::finish_kernel",
@@ -443,6 +453,20 @@ SSD_BWD_KERNELS = {"ssd_bwd_state": "hbw::state_kernel",
 SSD_BWD_TANGENT_KERNELS = {
     k.replace("ssd_bwd_", "ssd_bwd_tangent_"): v.replace("::", "::tangent_")
     for k, v in SSD_BWD_KERNELS.items()}
+# The float32 tangent's: namespace tbw's (3xTF32 mma.sync) and the shared
+# tangent state passing, under the same launch-count keys.
+SSD_BWD_TANGENT_F32_KERNELS = {
+    k: v.replace("hbw::", "tbw::")
+    for k, v in SSD_BWD_TANGENT_KERNELS.items()}
+# The namespaces of ssd_bwd.cu's kernels (torch.profiler's names): the
+# bf16 route, the float32 tangent, the float32 backward and the state
+# passing they share.
+SSD_BWD_NAMESPACES = ("hbw::", "tbw::", "sbw::", "ssd::")
+
+
+def is_ssd_bwd(key: str) -> bool:
+    return any(n in key for n in SSD_BWD_NAMESPACES)
+
 # The backward and its tangent against their plain versions (the same
 # float32 math), as (rtol, share of the largest |value|): float32 results
 # within 1e-4 of the largest |value| (sums in another order); the bf16
@@ -469,6 +493,12 @@ T3_SIMT_MS = 2.252
 # and T2 in float32, both at lm-100m's attention shape (PERF.md, section 6).
 FLASH_F32_FWD_SIMT_MS = 0.154
 T2_F32_SIMT_MS = 0.859
+# The same for T1 in float32 at lm-100m's attention shape and the SSD
+# backward's tangent in float32 at the mamba2 training shape (A per
+# sequence), both on the CUDA cores before this design (PERF.md, section
+# 6, rows 6 and 10).
+T1_F32_SIMT_MS = 0.2487
+SSD_BWD_TANGENT_F32_SIMT_MS = 17.676
 # Flash attention against attention_ref and its autograd gradient, and the
 # backward also against its plain version.  float32: the same products
 # summed in another order (a blocked online softmax).  bfloat16: both round
@@ -1092,8 +1122,8 @@ def flash_cost(B, H, S, d, itemsize, pairs_per_head, backward, KV=None,
 
 
 def tf32_bound(row, phase, cost) -> None:
-    """A float32 row's second bound of ``phase`` ("fwd" or "bwd"), this
-    design's: its products as three TF32 products at the TF32 tensor rate,
+    """A float32 row's second bound of ``phase`` (the keys' prefix: "fwd",
+    "bwd", "t3" or "call"), this design's: its products as three TF32 products at the TF32 tensor rate,
     or its bytes, whichever is larger (``{phase}_bound_ms`` stays the
     float32 rate's); and its bytes alone over the memory rate."""
     if row["dtype"] == "float32":
@@ -1334,11 +1364,11 @@ def time_cold_ms(fn, n: int, flush: torch.Tensor) -> float:
 def flash_calls_phase(fops) -> dict:
     """The kernels that one call of ``gqa_flash_attention`` runs on the
     card at the serving shape, forward and backward, one bf16 T1 and T2
-    call at the same shape, and one float32 forward, backward and T2 call
-    at lm-100m's shape, from torch.profiler; fails unless each forward and
-    T1 runs its one kernel and each backward and T2 its two (bf16 T1 and
-    T2: hop's tangent kernels), with no copy, expansion or reduction beside
-    them.  Run before the
+    call at the same shape, and one float32 forward, backward, T1 and T2
+    call at lm-100m's shape, from torch.profiler; fails unless each forward
+    and T1 runs its one kernel and each backward and T2 its two (bf16 T1
+    and T2: hop's tangent kernels; float32: tf32's), with no copy,
+    expansion or reduction beside them.  Run before the
     training step's profile (phase 5): torch.profiler sessions after that
     one record none of these kernels."""
     g = FLASH_GQA_MAIN
@@ -1384,14 +1414,16 @@ def flash_calls_phase(fops) -> dict:
     # T2 in float32: its two kernels (no D, copy or per-KV-head sum beside)
     tq, tdo = (torch.randn_like(q32) for _ in "qo")
     tk, tv = (torch.randn_like(k32) for _ in "kv")
-    to, tlse = fops.flash_attention_fwd_tangent(q32, k32, v32, lse32, tq, tk,
-                                                tv, heads_dim=2)
+    t1_32 = lambda: fops.flash_attention_fwd_tangent(
+        q32, k32, v32, lse32, tq, tk, tv, heads_dim=2)
+    to, tlse = t1_32()
     t2 = lambda: fops.flash_attention_bwd_tangent(
         q32, k32, v32, out32, lse32, do32, tq, tk, tv, to, tlse, tdo,
         heads_dim=2)
     t2()
     row["fwd_float32"] = device_kernels(fwd32)
     row["bwd_float32"] = device_kernels(bwd32)
+    row["fwd_tangent_float32"] = device_kernels(t1_32)
     row["bwd_tangent_float32"] = device_kernels(t2)
     print("flash kernels per call", json.dumps(row), flush=True)
     if len(row["fwd"]) != 1 or len(row["bwd"]) != 2:
@@ -1411,6 +1443,8 @@ def flash_calls_phase(fops) -> dict:
     for key, call, n, part in (
             ("fwd_float32", "gqa_flash_attention_fwd_lse", 1, "fwd_kernel"),
             ("bwd_float32", "gqa_flash_attention_bwd", 2, "d"),
+            ("fwd_tangent_float32", "flash_attention_fwd_tangent", 1,
+             "tangent_fwd_kernel"),
             ("bwd_tangent_float32", "flash_attention_bwd_tangent", 2,
              "tangent_d")):
         names = row[key]
@@ -2296,6 +2330,7 @@ def check_ssd_bwd(sops, sref, gen, B, L, H, P, N, G, chunk, dtype,
         row["bound_ms"], row["bound_by"] = bound_ms(*costs["whole"], rate)
         row["library_ms"] = None
         if tangent:
+            tf32_bound(row, "call", costs["whole"])
             chunked_call = lambda: torch.func.jvp(
                 lambda *a: chunked.ssd_scan_vjp(*a, chunk), tuple(args),
                 tuple(targs))
@@ -2319,9 +2354,9 @@ def bwd_pass_times(sops, sref, args, targs, chunk, tangent, costs, rate
                    ) -> dict:
     """Each wrapper of the call (state, pass, chunk: its launches) timed on
     the outputs of the one before, beside its plain version and its bound;
-    in bfloat16 also each launch of the chunk wrapper alone ("launches":
-    gram, chunk, finish, reduce, each on the planes the ones before it
-    filled), beside its bound."""
+    in bfloat16 and in the tangent also each launch of the chunk wrapper
+    alone ("launches": gram, chunk, finish, reduce, each on the planes the
+    ones before it filled), beside its bound."""
     x, dt, A, Bm, Cm, gy, gs = args
     if tangent:
         st = sops.ssd_bwd_tangent_state(*args[:6], *targs[:6], chunk=chunk)
@@ -2368,7 +2403,10 @@ def bwd_pass_times(sops, sref, args, targs, chunk, tangent, costs, rate
                          library_ms=None, bytes=nbytes, flops=flops)
         out[name]["bound_ms"], out[name]["bound_by"] = bound_ms(nbytes,
                                                                 flops, r)
-    if x.dtype == torch.bfloat16:
+        if tangent and x.dtype == torch.float32 and name != "pass":
+            out[name]["tf32_bound_ms"], out[name]["tf32_bound_by"] = \
+                bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S)
+    if x.dtype == torch.bfloat16 or tangent:
         calls, _ = sops._chunk_launches(
             *args[:6], seg, s_in, gO, sg, chunk,
             (*targs[:6], tseg, ts_in, tgO, tsg) if tangent else None)
@@ -2382,39 +2420,52 @@ def bwd_pass_times(sops, sref, args, targs, chunk, tangent, costs, rate
                          else key[len("ssd_bwd_"):]]
             row = dict(ms=time_ms(call, 5))
             row["bound_ms"], row["bound_by"] = bound_ms(*cost, rate)
+            if x.dtype == torch.float32:
+                row["tf32_bound_ms"], row["tf32_bound_by"] = bound_ms(
+                    cost[0], 3 * cost[1], TF32_FLOP_PER_S)
             out["launches"][key] = row
     return out
 
 
 def bwd_calls_phase(sops) -> dict:
-    """The kernels that one bf16 ``ssd_scan_bwd`` call and one bf16
-    ``ssd_scan_bwd_tangent`` call run on the card at the mamba2 training
-    shape, from torch.profiler; fails unless each is its six kernels
-    (SSD_BWD_KERNELS, SSD_BWD_TANGENT_KERNELS), one launch each, and nothing
-    else.  Run before the training step's profile
-    (phase 5), as ssd_calls_phase."""
+    """The kernels that one bf16 ``ssd_scan_bwd`` call, one bf16
+    ``ssd_scan_bwd_tangent`` call and one float32 ``ssd_scan_bwd_tangent``
+    call run on the card at the mamba2 training shape, from torch.profiler;
+    fails unless each is its six kernels (SSD_BWD_KERNELS,
+    SSD_BWD_TANGENT_KERNELS, SSD_BWD_TANGENT_F32_KERNELS), one launch each,
+    and nothing else.  Run before the training step's profile (phase 5), as
+    ssd_calls_phase."""
     t = SSD_TRAIN
     gen = torch.Generator(device=DEVICE).manual_seed(6)
-    args, targs = ssd_bwd_inputs(gen, t["B"], t["L"], t["H"], t["P"],
-                                 t["N"], t["G"], torch.bfloat16, True,
-                                 tangents=True)
+    inputs = {dtype: ssd_bwd_inputs(gen, t["B"], t["L"], t["H"], t["P"],
+                                    t["N"], t["G"], dtype, True,
+                                    tangents=True)
+              for dtype in (torch.bfloat16, torch.float32)}
     out = {}
-    for name, call, kernels in (
-            ("ssd_scan_bwd", lambda: sops.ssd_scan_bwd(
-                *args, chunk=t["chunk"]), SSD_BWD_KERNELS),
-            ("ssd_scan_bwd_tangent", lambda: sops.ssd_scan_bwd_tangent(
-                *args, *targs, chunk=t["chunk"]), SSD_BWD_TANGENT_KERNELS)):
+    for name, dtype, kernels in (
+            ("ssd_scan_bwd", torch.bfloat16, SSD_BWD_KERNELS),
+            ("ssd_scan_bwd_tangent", torch.bfloat16,
+             SSD_BWD_TANGENT_KERNELS),
+            ("ssd_scan_bwd_tangent", torch.float32,
+             SSD_BWD_TANGENT_F32_KERNELS)):
+        args, targs = inputs[dtype]
+        if name == "ssd_scan_bwd":
+            call = lambda: sops.ssd_scan_bwd(*args, chunk=t["chunk"])
+        else:
+            call = lambda: sops.ssd_scan_bwd_tangent(*args, *targs,
+                                                     chunk=t["chunk"])
         call()
         names = device_kernels(call)
-        print(f"{name} kernels per bf16 call", json.dumps(names), flush=True)
+        what = f"{name} {str(dtype)[6:]}"
+        print(f"{what} kernels per call", json.dumps(names), flush=True)
         want = sorted(kernels.values())
         if len(names) != len(want) or sorted(
                 k for k in want if any(k + "<" in n or k + "(" in n
                                        for n in names)) != want:
-            raise AssertionError(f"a bf16 {name} call ran {names} on the "
+            raise AssertionError(f"a {what} call ran {names} on the "
                                  f"card; expected the kernels {want} and "
                                  f"nothing else")
-        out[name] = names
+        out[what] = names
     return out
 
 
@@ -2424,8 +2475,8 @@ def ssd_bwd_rows(sops, sref, gen, tangent=False) -> tuple[list, dict]:
     A per sequence, narrow heads, two groups), full-width heads with one
     group, one chunk of 100 rows, and seg falling past 88 within each of
     two chunks, in float32 and bfloat16; then the mamba2 training shape (A
-    per sequence) in both dtypes and the serving shape in bfloat16, timed,
-    with planted faults."""
+    per sequence) in both dtypes and the serving shape in bfloat16 (and, in
+    the tangent, float32), timed, with planted faults."""
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for L, chunk in ((128, 32), (256, 64), (256, 128)):
@@ -2447,17 +2498,41 @@ def ssd_bwd_rows(sops, sref, gen, tangent=False) -> tuple[list, dict]:
     main["serve_bfloat16"] = check_ssd_bwd(
         sops, sref, gen, m["B"], m["L"], m["H"], m["P"], m["N"], m["G"],
         m["chunk"], torch.bfloat16, timed=True, faults=True, tangent=tangent)
+    if tangent:
+        # the float32 tangent (tbw) at the serving shape too, and both
+        # float32 rows beside the CUDA-core kernels it replaced
+        main["serve_float32"] = check_ssd_bwd(
+            sops, sref, gen, m["B"], m["L"], m["H"], m["P"], m["N"], m["G"],
+            m["chunk"], torch.float32, timed=True, faults=True,
+            tangent=True)
+        for shape in ("train", "serve"):
+            r = main[f"{shape}_float32"]
+            each = {k: round(v["ms"], 4)
+                    for k, v in r["passes"]["launches"].items()}
+            print(f"SSD backward's tangent, float32, at the {shape} shape: "
+                  f"{r['ms']:.4f} ms a call (state "
+                  f"{r['passes']['state']['ms']:.4f}, pass "
+                  f"{r['passes']['pass']['ms']:.4f}, {each}); bounds "
+                  f"{r['bound_ms']:.4f} ms (float32 rate, {r['bound_by']}), "
+                  f"{r['call_tf32_bound_ms']:.4f} ms (three TF32 products, "
+                  f"{r['call_tf32_bound_by']}) and "
+                  f"{r['call_bytes_bound_ms']:.4f} ms (bytes); the CUDA-core "
+                  f"kernels it replaced {SSD_BWD_TANGENT_F32_SIMT_MS} ms at "
+                  f"the train shape (PERF.md)", flush=True)
     torch.cuda.empty_cache()
     return rows, main
 
 
-def ssd_bwd_summary(bwd, tan, train_rows, mamba_row) -> list:
+def ssd_bwd_summary(bwd, tan, train_rows, mamba_row, f32_split) -> list:
     """The kernels-line entries of the backward and its tangent: the whole
     call (six launches in bfloat16; its launches count calls) and each
     launch (the state and pass wrappers' one each; the chunk wrapper's
     gram, chunk, finish and reduce, each timed alone), numbers at the
     mamba2 training shape in bfloat16 with A per sequence, launches from
-    the mamba2 training run (the backward's also from the serve run)."""
+    the mamba2 training run (the backward's also from the serve run); each
+    tangent launch's float32 kernel (namespace tbw) beside, its launches
+    from the profiled float32 meta-gradient (``f32_split``,
+    meta_grad_split)."""
     t = SSD_TRAIN
     shape = (f"(B={t['B']}, L={t['L']}, H={t['H']}, P={t['P']}, N={t['N']}, "
              f"G={t['G']}, chunk={t['chunk']}) bfloat16, A per sequence")
@@ -2504,7 +2579,7 @@ def ssd_bwd_summary(bwd, tan, train_rows, mamba_row) -> list:
                         f"(all four); the wrapper's four launches "
                         f"{chunk['ms']:.4f} ms (bound {chunk['bound_ms']:.4f}"
                         f" {chunk['bound_by']})")
-            out.append({
+            entry = {
                 "name": key, "route": "cuda",
                 "source": SSD_BWD_SOURCE, "replaces": None,
                 "launches": launches[key],
@@ -2514,7 +2589,26 @@ def ssd_bwd_summary(bwd, tan, train_rows, mamba_row) -> list:
                          f"launches: in the mamba2 training run; "
                          f"max_abs_err: the whole call's",
                 "serving_shape": {k: serve[k] for k in ("ms", "bound_ms",
-                                                        "bound_by")}})
+                                                        "bound_by")}}
+            if "tangent" in name:
+                kernel = SSD_BWD_TANGENT_F32_KERNELS[key]
+                f32 = {}
+                for where in ("train", "serve"):
+                    ps = main[f"{where}_float32"]["passes"]
+                    f32[where] = (ps[launch] if launch in ("state", "pass")
+                                  else ps["launches"]["ssd_bwd_" + launch])
+                entry["float32"] = dict(
+                    kernel=kernel,
+                    **{k: f32["train"].get(k) for k in (
+                        "ms", "bound_ms", "bound_by", "tf32_bound_ms",
+                        "tf32_bound_by")},
+                    max_abs_err=main["train_float32"]["max_abs_err"],
+                    serving_shape={k: f32["serve"].get(k) for k in (
+                        "ms", "bound_ms", "bound_by", "tf32_bound_ms")},
+                    launches_in_f32_meta_grad=f32_split.get(
+                        "ssd_bwd_kernels", {}).get(kernel, {}).get(
+                            "launches"))
+            out.append(entry)
     return out
 
 
@@ -2644,7 +2738,7 @@ def dispatch_profile(eng, supports) -> dict:
     """Device time of one more adapt dispatch of the same users, from
     torch.profiler: all kernels, the SSD scan's forward kernels (the three
     bf16 passes, or the float32 kernel), its backward's kernels
-    (``hbw::`` and ``sbw::``), and the chunked-scan backward (its
+    (SSD_BWD_NAMESPACES), and the chunked-scan backward (its
     ``record_function`` range, with every kernel launched inside it: on the
     card it runs only on CPU tensors, so none is expected)."""
     from torch.profiler import ProfilerActivity, profile
@@ -2675,7 +2769,7 @@ def dispatch_profile(eng, supports) -> dict:
             kernels.append((us, evt.count, evt.key))
             if any(k in evt.key for k in SSD_FORWARD_KERNELS):
                 fwd, fwd_n = fwd + us, fwd_n + evt.count
-            if "sbw::" in evt.key or "hbw::" in evt.key:
+            if is_ssd_bwd(evt.key):
                 sbw, sbw_n = sbw + us, sbw_n + evt.count
                 sbw_kernels[evt.key[:60]] = dict(ms=us / 1e3,
                                                  launches=evt.count)
@@ -3098,7 +3192,7 @@ def check_flash_tangents(fops, fref, gen, heads_dim, shape, dtype, causal,
             row[f"{p}_plain_ms"] = time_events(plain, 3)
             row[f"{p}_bound_ms"], row[f"{p}_bound_by"] = bound_ms(
                 nbytes, flops, rate)
-            if dtype == torch.float32 and p == "bwd":
+            if dtype == torch.float32:
                 tf32_bound(row, p, (nbytes, flops))
             if dtype == torch.bfloat16:
                 row[f"{p}_design_bound_ms"] = bound_ms(
@@ -3112,11 +3206,11 @@ def check_flash_tangents(fops, fref, gen, heads_dim, shape, dtype, causal,
     return row
 
 
-def shared_mean_tangents(fops, fref) -> dict:
-    """bf16 T1 and T2 at SHARED_MEAN's shapes against their plain versions:
-    for each shape and output, [elements outside TANGENT_TOL, largest
-    |error|].  Raises nothing: scripts/ablate_flash_tangents.py reads it on
-    copies of the source without the lo halves."""
+def shared_mean_tangents(fops, fref, dtype=torch.bfloat16) -> dict:
+    """T1 and T2 in ``dtype`` at SHARED_MEAN's shapes against their plain
+    versions: for each shape and output, [elements outside TANGENT_TOL,
+    largest |error|].  Raises nothing: scripts/ablate_flash_tangents.py
+    reads it on copies of the source without the lo halves."""
     rows = {}
     for name, (B, S, Sk, H, KV, d, causal) in SHARED_MEAN.items():
         gen = torch.Generator().manual_seed(0)
@@ -3125,8 +3219,7 @@ def shared_mean_tangents(fops, fref) -> dict:
         k, v, tk, tv = (draw(B, Sk, KV, d) for _ in range(4))
         k, v = k + K_DIRECTION * draw(d), v + V_MEAN
         q, k, v, do, tq, tk, tv, tdo = (
-            t.to(DEVICE, torch.bfloat16)
-            for t in (q, k, v, do, tq, tk, tv, tdo))
+            t.to(DEVICE, dtype) for t in (q, k, v, do, tq, tk, tv, tdo))
         kw = dict(causal=causal, window=None, heads_dim=2)
         out, lse = fref.gqa_flash_fwd_ref(q, k, v, causal=causal, window=None)
         to, tlse = fops.flash_attention_fwd_tangent(q, k, v, lse, tq, tk, tv,
@@ -3144,15 +3237,17 @@ def shared_mean_tangents(fops, fref) -> dict:
     return rows
 
 
-def check_shared_mean_tangents(fops, fref) -> dict:
-    """shared_mean_tangents, each output within TANGENT_TOL."""
-    rows = shared_mean_tangents(fops, fref)
+def check_shared_mean_tangents(fops, fref, dtype=torch.bfloat16) -> dict:
+    """shared_mean_tangents in ``dtype``, each output within
+    TANGENT_TOL."""
+    rows = shared_mean_tangents(fops, fref, dtype)
     bad = {name: {n: v for n, v in row.items() if v[0]}
            for name, row in rows.items()}
+    what = str(dtype)[6:]
     if any(bad.values()):
-        raise AssertionError(f"bf16 tangents, values sharing a mean: outside "
-                             f"TANGENT_TOL: {bad}")
-    print("bf16 tangents, values sharing a mean (outside, max abs err)",
+        raise AssertionError(f"{what} tangents, values sharing a mean: "
+                             f"outside TANGENT_TOL: {bad}")
+    print(f"{what} tangents, values sharing a mean (outside, max abs err)",
           json.dumps(rows), flush=True)
     return rows
 
@@ -3333,8 +3428,13 @@ def check_ssd_tangent(sops, sref, gen, B, L, H, P, N, G, chunk, dtype,
         row["plain_ms"] = time_events(
             lambda: sref.ssd_scan_tangent_ref(*args), 1)
         row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops, rate)
+        tf32_bound(row, "t3", (nbytes, flops))
+        extra = (f", as three TF32 products {row['t3_tf32_bound_ms']:.4f} "
+                 f"{row['t3_tf32_bound_by']}, bytes "
+                 f"{row['t3_bytes_bound_ms']:.4f}"
+                 if dtype == torch.float32 else "")
         print(f"{what}: T3 {row['ms']:.4f} ms (plain {row['plain_ms']:.1f}, "
-              f"bound {row['bound_ms']:.4f} {row['bound_by']}); errs "
+              f"bound {row['bound_ms']:.4f} {row['bound_by']}{extra}); errs "
               f"{row['y_max_abs_err']:.2e} {row['state_max_abs_err']:.2e}",
               flush=True)
     return row
@@ -3369,12 +3469,18 @@ def tangent_phase(fops, fref, sops, sref) -> dict:
         fops, fref, gen, 2, (g["B"], g["S"], g["H"], g["KV"], g["d"]),
         dtype, True, None, timed=True, faults=dtype == torch.bfloat16)
         for dtype in (torch.bfloat16, torch.float32)}
-    b = gqa["bfloat16"]
+    b, f = gqa["bfloat16"], gqa["float32"]
     print(f"qwen2 training shape, bf16: T1 {b['fwd_ms']:.4f} ms (this "
           f"design's bound {b['fwd_design_bound_ms']:.4f}), T2 "
           f"{b['bwd_ms']:.4f} ms ({b['bwd_design_bound_ms']:.4f})",
           flush=True)
+    print(f"qwen2 training shape, f32: T1 {f['fwd_ms']:.4f} ms (bounds "
+          f"{f['fwd_bound_ms']:.4f} float32 rate, {f['fwd_tf32_bound_ms']:.4f}"
+          f" three TF32 products), T2 {f['bwd_ms']:.4f} ms (bounds "
+          f"{f['bwd_bound_ms']:.4f}, {f['bwd_tf32_bound_ms']:.4f})",
+          flush=True)
     shared_mean = check_shared_mean_tangents(fops, fref)
+    shared_mean_f32 = check_shared_mean_tangents(fops, fref, torch.float32)
     ssd_rows = []
     for L, chunk in ((128, 32), (256, 64), (256, 128)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -3420,6 +3526,7 @@ def tangent_phase(fops, fref, sops, sref) -> dict:
     torch.cuda.empty_cache()
     bwd_tangent = ssd_bwd_rows(sops, sref, gen, tangent=True)
     return dict(flash_rows=rows, flash_gqa=gqa, shared_mean=shared_mean,
+                shared_mean_float32=shared_mean_f32,
                 ssd_rows=ssd_rows,
                 ssd_train=ssd_train, ssd_serve=ssd_serve, passes=passes,
                 pass_rows=pass_rows, bwd_tangent=bwd_tangent)
@@ -3577,7 +3684,8 @@ def profile_train_step(bundle, state, batch, modules) -> dict:
     """One meta-step under torch.profiler: wall time, device time split
     into the forward kernels, T1 and T2 (the flash tangents, apart), the
     other tangent kernels (T3), the flash backward kernels, the SSD
-    backward's kernels and their tangent's (``sbw::``), the outer update
+    backward's kernels and their tangent's (SSD_BWD_NAMESPACES), the outer
+    update
     and the rest; the chunked SSD backward and its jvp (their
     record_function ranges: CPU tensors only, so none on the card); the
     card's idle share; each kernel's launches by the wrappers' counters,
@@ -3619,12 +3727,11 @@ def profile_train_step(bundle, state, batch, modules) -> dict:
                 not annotation:
             busy += us
             key = evt.key
-            if "sbw::" in key or "hbw::" in key:
+            if is_ssd_bwd(key):
                 split["ssd_bwd_tangent" if "::tangent_" in key
                       else "ssd_bwd"] += us
-            elif "fwd_tangent_kernel" in key or \
-                    "tangent_fwd_kernel" in key:
-                split["flash_t1"] += us            # jvpk (f32), hop (bf16)
+            elif "tangent_fwd_kernel" in key:
+                split["flash_t1"] += us            # tf32 (f32), hop (bf16)
             elif "tangent_dq_kernel" in key or "tangent_dkv_kernel" in key:
                 split["flash_t2"] += us            # tf32 (f32), hop (bf16)
             elif "jvpk" in key or "tangent" in key:
@@ -4022,6 +4129,48 @@ def train_agreement_phase(arch, seq, loss_rtol, cfg=None,
         del got, card, cpu, diff, curv, cdiff
         torch.cuda.empty_cache()
     return rows
+
+
+def meta_grad_split(inputs, dtype=torch.float32, mode="maml") -> dict:
+    """One ``mode`` meta-gradient of ``inputs`` (``meta_grad_inputs``) on
+    the card in ``dtype`` under torch.profiler, after a warm one: its wall
+    and device time, the device time of the SSD backward's kernels and of
+    their tangent's (SSD_BWD_NAMESPACES, apart by "::tangent_"), each
+    share of the device time and each kernel's.  It reads kernel names
+    only, so scripts/profile_f32_meta_grad.py runs it on another commit's
+    kernels too."""
+    from torch.profiler import ProfilerActivity, profile
+    meta_grads(inputs, DEVICE, dtype, (mode,))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        meta_grads(inputs, DEVICE, dtype, (mode,))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, split, kernels = 0.0, dict(ssd_bwd=0.0, ssd_bwd_tangent=0.0), {}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA or \
+                getattr(evt, "is_user_annotation", False):
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0)
+        busy += us
+        if is_ssd_bwd(evt.key):
+            split["ssd_bwd_tangent" if "::tangent_" in evt.key
+                  else "ssd_bwd"] += us
+            kernels[evt.key.split("(")[0][:60]] = dict(ms=us / 1e3,
+                                                       launches=evt.count)
+    row = dict(dtype=str(dtype)[6:], mode=mode, wall_s=wall)
+    if not busy:
+        return dict(row, device_ms="not measured")
+    row.update(device_ms=busy / 1e3,
+               device_idle_share=max(0.0, 1 - busy / 1e6 / wall),
+               **{f"{k}_ms": v / 1e3 for k, v in split.items()},
+               **{f"{k}_share": v / busy for k, v in split.items()},
+               ssd_bwd_kernels=kernels)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -4996,8 +5145,13 @@ def lm100m_phase(fops, fref, modules) -> dict:
           f"{tangent['bwd_tf32_bound_ms']:.4f} ms (three TF32 products, "
           f"{tangent['bwd_tf32_bound_by']}) and "
           f"{tangent['bwd_bytes_bound_ms']:.4f} ms (bytes); the CUDA-core "
-          f"kernels it replaced {T2_F32_SIMT_MS} ms (PERF.md); T1 "
-          f"{tangent['fwd_ms']:.4f} ms", flush=True)
+          f"kernels it replaced {T2_F32_SIMT_MS} ms (PERF.md)", flush=True)
+    print(f"lm-100m f32 T1 (3xTF32): {tangent['fwd_ms']:.4f} ms; bounds "
+          f"{tangent['fwd_bound_ms']:.4f} ms (float32 rate, "
+          f"{tangent['fwd_bound_by']}), {tangent['fwd_tf32_bound_ms']:.4f} "
+          f"ms (three TF32 products, {tangent['fwd_tf32_bound_by']}) and "
+          f"{tangent['fwd_bytes_bound_ms']:.4f} ms (bytes); the CUDA-core "
+          f"kernel it replaced {T1_F32_SIMT_MS} ms (PERF.md)", flush=True)
     split = profile.get("split_ms", {})
     print(f"lm-100m profiled meta-step, device ms: forward "
           f"{split.get('forward')}, T1 {split.get('flash_t1')}, T2 "
@@ -5099,15 +5253,18 @@ def paths_summary(kernels: list, fewshot: dict, lm100m: dict) -> None:
 # The tensor-core instruction each Hopper namespace's kernels compile to:
 # wgmma (HGMMA) in the bf16 kernels (hop), T3's bf16 passes (t3) and the
 # SSD backward's and its tangent's bf16 kernels (hbw), mma.sync on TF32
-# (HMMA) in the float32 flash forward, backward and T2 (tf32).
-TENSOR_OPS = {"hop": "HGMMA", "t3": "HGMMA", "tf32": "HMMA", "hbw": "HGMMA"}
+# (HMMA) in the float32 flash forward, backward, T1 and T2 (tf32) and the
+# SSD backward's float32 tangent (tbw).
+TENSOR_OPS = {"hop": "HGMMA", "t3": "HGMMA", "tf32": "HMMA", "hbw": "HGMMA",
+              "tbw": "HMMA"}
 
 
 def kernel_symbol(text: str) -> str | None:
     """"namespace::kernel<template args>" of the first mangled kernel symbol
-    of namespace hop, tf32, t3, jvpk, sbw or hbw in ``text``; None for
-    none."""
-    for k in re.finditer(r"(\d)(hop|tf32|t3|jvpk|sbw|hbw)\d+([a-z_]+?)"
+    of namespace hop, tf32, t3, jvpk, sbw, hbw, tbw or ssd in ``text``;
+    None for none."""
+    for k in re.finditer(r"(\d)(hop|tf32|t3|jvpk|sbw|hbw|tbw|ssd)\d+"
+                         r"([a-z_]+?)"
                          r"(?:I((?:Li\d+E|f|13__nv_bfloat16)+)E|E)", text):
         if int(k.group(1)) == len(k.group(2)):
             args = [n or ("float" if t == "f" else "__nv_bfloat16")
@@ -5123,12 +5280,12 @@ def hgmma_phase(libraries: dict) -> dict:
     library (``libraries`` maps a name to (path, the kernels that do a
     product, as "namespace::kernel")); fails unless every kernel that does
     a product has some: the bf16 flash forward, dQ and dK/dV kernels and
-    the float32 (3xTF32) forward, dQ, dK/dV and T2 kernels, the SSD
+    the float32 (3xTF32) forward, dQ, dK/dV, T1 and T2 kernels, the SSD
     chunk-state and
     chunk-output kernels, T3's tangent chunk-state and chunk-output
-    kernels, and the SSD backward's and its tangent's bf16 state, gram and
-    chunk kernels (the state passings, finish and reduce kernels are
-    elementwise)."""
+    kernels, the SSD backward's and its tangent's bf16 state, gram and
+    chunk kernels and its float32 tangent's (the state passings, finish
+    and reduce kernels are elementwise)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     found = {}
     for name, (path, kinds) in libraries.items():
@@ -5227,6 +5384,7 @@ def main() -> int:
                              "hop::tangent_dq_kernel",
                              "hop::tangent_dkv_kernel", "tf32::fwd_kernel",
                              "tf32::dq_kernel", "tf32::dkv_kernel",
+                             "tf32::tangent_fwd_kernel",
                              "tf32::tangent_dq_kernel",
                              "tf32::tangent_dkv_kernel")),
         "ssd_scan": (sops.build()["path"],
@@ -5237,7 +5395,10 @@ def main() -> int:
                     ("hbw::state_kernel", "hbw::gram_kernel",
                      "hbw::chunk_kernel", "hbw::tangent_state_kernel",
                      "hbw::tangent_gram_kernel",
-                     "hbw::tangent_chunk_kernel"))})
+                     "hbw::tangent_chunk_kernel",
+                     "tbw::tangent_state_kernel",
+                     "tbw::tangent_gram_kernel",
+                     "tbw::tangent_chunk_kernel"))})
     flash_calls = flash_calls_phase(fops)
     ssd_calls = ssd_calls_phase(sops)
     t3_calls = t3_calls_phase(sops)
@@ -5292,13 +5453,29 @@ def main() -> int:
     stamp("lm-100m")
     adapted_serve = serve_adapted_phase((ops, fops, sops))
     stamp("serve_adapted")
+    mamba_half = cpu_halves.pop("mamba2-130m")
     train_agreement = {
         "qwen2-1.5b": train_agreement_phase(
             "qwen2-1.5b", QWEN_AGREE_SEQ, AGREE_RTOL,
             cpu=cpu_halves.pop("qwen2-1.5b")),
         "mamba2-130m": train_agreement_phase(
             "mamba2-130m", MAMBA_AGREE_SEQ, MAMBA_AGREE_RTOL,
-            cpu=cpu_halves.pop("mamba2-130m"))}
+            cpu=mamba_half)}
+    # where the float32 meta-gradient's device time goes: the SSD
+    # backward's kernels and their tangent's
+    mamba_f32_split = meta_grad_split(mamba_half["inputs"], torch.float32)
+    del mamba_half
+    print("mamba2 2-layer cut, one float32 maml meta-gradient on the card "
+          "(device ms): SSD backward "
+          f"{mamba_f32_split.get('ssd_bwd_ms')}, its tangent "
+          f"{mamba_f32_split.get('ssd_bwd_tangent_ms')}, of "
+          f"{mamba_f32_split.get('device_ms')}; shares "
+          f"{mamba_f32_split.get('ssd_bwd_share')} and "
+          f"{mamba_f32_split.get('ssd_bwd_tangent_share')}; "
+          f"{json.dumps(mamba_f32_split.get('ssd_bwd_kernels'))}",
+          flush=True)
+    train_agreement["mamba2-130m"]["float32_meta_grad_split"] = \
+        mamba_f32_split
     stamp("training agreement")
     # phases 19-22, before phase 5 for the same reason as phase 6
     moe = moe_phases(ops, ref, (ops, fops, sops))
@@ -5381,7 +5558,7 @@ def main() -> int:
                      ssd_pass_rows, ssd_calls, mamba_row),
         *tangent_summary(tangent, train_rows),
         *ssd_bwd_summary(ssd_bwd, tangent["bwd_tangent"], train_rows,
-                         mamba_row),
+                         mamba_row, mamba_f32_split),
     ], "ms_per_step": ms_per_step, "train": train_rows,
         "fewshot": fewshot["rows"], "lm100m": lm100m,
         "serve_adapted": adapted_serve,

@@ -1,5 +1,6 @@
-"""Where the bf16 flash-attention tangents' time goes, and whether their
-lo halves are needed, on one CUDA card.
+"""Where the flash-attention tangents' time goes, whether the bf16 ones'
+lo halves are needed, and what the float32 T1 and T2 take, on one CUDA
+card.
 
   python scripts/ablate_flash_tangents.py [OTHER_SOURCE ...]
 
@@ -17,7 +18,9 @@ once into ``build/kernels/``.  With each copy, in one process:
   (chip_smoke.time_ms) at whisper-large-v3's training shapes, B = 16 and 8
   (encoder 1500 x 1500, cross 256 x 1500, decoder causal 256 x 256, 20
   heads of 64), and qwen2-1.5b's (16, 256, 12 heads on 2 KV heads, 128,
-  causal).
+  causal), in bfloat16; and in float32 at lm-100m's (16, 256, 8 heads on
+  4, 64, causal) and qwen2-1.5b's shapes (with another commit's source
+  given, its float32 T1 beside this one's).
 
 A copy that removes a part gives wrong outputs; only its time is read
 beside its shared-mean counts.  The copies are exact replacements of the
@@ -57,11 +60,21 @@ VARIANTS = {
     # exp2 of the logits
     "no exp2": [("    s[e] = exp2_approx(x);\n  }\n}\n",
                  "    s[e] = x * 1e-3f;\n  }\n}\n")],
+    # the float32 T1 at d <= 64 one block an SM (all 255 registers) rather
+    # than two (128, some spilled)
+    "f32 T1 one block an SM": [(
+        "__global__ void __launch_bounds__(kThreadsT, D <= 64 ? 2 : 1)\n"
+        "tangent_fwd_kernel",
+        "__global__ void __launch_bounds__(kThreadsT, 1)\n"
+        "tangent_fwd_kernel")],
 }
-SHAPES = {**{f"{name} B{B}": (B, S, Sk, 20, 20, 64, causal)
+BF16, F32 = torch.bfloat16, torch.float32
+SHAPES = {**{f"{name} B{B}": (B, S, Sk, 20, 20, 64, causal, BF16)
              for B in (16, 8)
              for name, (S, Sk, causal) in cs.WHISPER_TANGENT.items()},
-          "qwen2": (16, 256, 256, 12, 2, 128, True)}
+          "qwen2": (16, 256, 256, 12, 2, 128, True, BF16),
+          "lm-100m f32": (16, 256, 256, 8, 4, 64, True, F32),
+          "qwen2 f32": (16, 256, 256, 12, 2, 128, True, F32)}
 
 
 def copies(others) -> dict:
@@ -89,11 +102,11 @@ def copies(others) -> dict:
     return libs
 
 
-def time_parts(libs, gen, B, S, Sk, H, KV, d, causal) -> dict:
-    """{copy: {"T1", "dq", "dkv": ms}} at one shape, each the median of two
-    chip_smoke.time_ms readings."""
+def time_parts(libs, gen, B, S, Sk, H, KV, d, causal, dtype) -> dict:
+    """{copy: {"T1", "dq", "dkv": ms}} at one shape and dtype, each the
+    median of two chip_smoke.time_ms readings."""
     def draw(s):
-        return torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+        return torch.randn(s, generator=gen, device="cuda").to(dtype)
     q, tq, do, tdo = (draw((B, S, H, d)) for _ in range(4))
     k, v, tk, tv = (draw((B, Sk, KV, d)) for _ in range(4))
     ops._LIB = libs["as built"]
@@ -111,7 +124,8 @@ def time_parts(libs, gen, B, S, Sk, H, KV, d, causal) -> dict:
     def part(lib, p):
         err = lib.lib.repro_flash_bwd_tangent(
             *ptrs, strides, B, H, KV, S, Sk, d, d ** -0.5, int(causal), 0, p,
-            1, torch.cuda.current_stream().cuda_stream)
+            int(dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"T2 part {p} failed with {err}")
 

@@ -5,15 +5,16 @@ another commit's, on one CUDA card, each launch's device time apart.
 
 Builds this tree's ``src/repro_torch/kernels/ssd_scan/csrc/ssd_bwd.cu``
 (through ``ops.BWD_LIB``) and each ``OTHER_SOURCE`` given: another
-commit's ``ssd_bwd.cu`` whose C entry runs the five passes of the design
-it replaced (state, pass, chunk, finish, reduce; ``git show
+commit's ``ssd_bwd.cu`` whose C entry runs the float32 backward and its
+tangent as five passes (state, pass, chunk, finish, reduce; ``git show
 <commit>:src/repro_torch/kernels/ssd_scan/csrc/ssd_bwd.cu >
 build/parent_ssd_bwd.cu``), all at once into ``build/kernels/``.  Then, on
 the same inputs, for the mamba2 training shape (``chip_smoke.SSD_TRAIN``,
 A per sequence) and the serving shape (``chip_smoke.SSD_MAIN``), in
-bfloat16 (and float32 at the training shape): ``ssd_scan_bwd`` and
-``ssd_scan_bwd_tangent``, each source in turn (this tree, the others, then
-again in the reverse order), each call's time (``chip_smoke.time_ms``),
+bfloat16 and float32: ``ssd_scan_bwd`` and ``ssd_scan_bwd_tangent``, this
+tree's and, in float32, each other source's in turn (this tree, the
+others, then again in the reverse order), each call's time
+(``chip_smoke.time_ms``),
 each launch's device time from torch.profiler (by kernel name, per call),
 and each launch's bound (``chip_smoke.ssd_bwd_cost``).  Every copy's
 results are held against the plain passes composed (SSD_BWD_TOL).  Then
@@ -135,8 +136,9 @@ def part_times(copies, args, targs, chunk) -> dict:
 
 
 def five_passes(lib, args, targs, chunk, tangent):
-    """One call of another commit's backward (``tangent``: its tangent)
-    through its C entry: the five passes in order, each tensor's value and
+    """One call of another commit's float32 backward (``tangent``: its
+    tangent) through its C entry: the five passes in order, each tensor's
+    value and
     tangent planes in the slots of ``ops._BWD_TENSORS`` (the first
     ``repro_ssd_bwd_slots() / 2`` of them), as that commit's wrappers
     allocated them."""
@@ -151,7 +153,7 @@ def five_passes(lib, args, targs, chunk, tangent):
               "sg": (B, H, nc), "dBh": (B, L, H, N), "dCh": (B, L, H, N),
               "ddd": (B, H, L), "dsk": (B, H, L), "dsq": (B, H, L),
               "tk": (B, H, L), "dAp": (B, nc, H), "ddt": (B, L, H),
-              "dA": tuple(A.shape)}
+              "dA": tuple(A.shape), "gram": (1,)}   # gram: not in float32
     given = dict(zip(("x", "dt", "A", "B", "C", "gy", "gs"), args))
     tgiven = dict(zip(("x", "dt", "A", "B", "C", "gy", "gs"),
                       targs if tangent else [None] * 7))
@@ -230,8 +232,7 @@ def main() -> int:
     res = {}
     gen = torch.Generator(device="cuda").manual_seed(5)
     for shape, (s, per_seq) in SHAPES.items():
-        for dtype in ((torch.bfloat16, torch.float32) if shape == "train"
-                      else (torch.bfloat16,)):
+        for dtype in (torch.bfloat16, torch.float32):
             args, targs = cs.ssd_bwd_inputs(
                 gen, s["B"], s["L"], s["H"], s["P"], s["N"], s["G"], dtype,
                 per_seq, tangents=True)
@@ -246,8 +247,11 @@ def main() -> int:
                                         args[0].element_size(), tangent)
                 rate = cs.BF16_FLOP_PER_S if dtype == torch.bfloat16 else \
                     cs.FP32_FLOP_PER_S
-                rows = {n: {"ms": [], "launches": []} for n in libs}
-                for name in order:
+                # another commit's five passes: its float32 route
+                names = [n for n in libs
+                         if n == THIS or dtype == torch.float32]
+                rows = {n: {"ms": [], "launches": []} for n in names}
+                for name in [n for n in order if n in names]:
                     fn = run(name, libs[name], args, targs, chunk, tangent)
                     cs.check_bwd_grads(fn(), want, f"{key} {name}")
                     n = 2 if tangent and dtype == torch.float32 else 5

@@ -18,9 +18,8 @@
 // forward and backward tangents (T1, T2) — no TPU counterpart: the
 //   forward-mode rules of both autograd Functions, so that the exact
 //   meta-gradient's forward-over-reverse Hessian-vector products run
-//   through the kernels (bfloat16: namespace hop; float32: T2 in namespace
-//   tf32, T1 in namespace jvpk; the algebra is in the jvpk section's
-//   comment).
+//   through the kernels (bfloat16: namespace hop; float32: namespace tf32,
+//   whose T1/T2 section's comment holds the algebra).
 //
 // Masks, as the reference: a key the band excludes gets the logit -1e30
 // (so a row that has seen no allowed key yet carries exp(0) terms that the
@@ -41,12 +40,11 @@
 // in and out, the views' own strides (no expansion or copy), and blocks
 // that each own one 64-row tile of one head.
 //
-// float32 (namespace tf32, after hop): the forward, the backward and T2's
-// two parts on the tensor cores, every float32 product as three TF32
+// float32 (namespace tf32, after hop): the forward, the backward, T1 and
+// T2's two parts on the tensor cores, every float32 product as three TF32
 // mma.sync products, on the same strided views as bf16 (K/V unexpanded).
-// T1 in float32 is the CUDA-core kernel of namespace jvpk.  In bf16, T1
-// and T2 are hop's forward and backward blocks on dual numbers (three
-// kernels after the backward's).
+// In bf16, T1 and T2 are hop's forward and backward blocks on dual numbers
+// (three kernels after the backward's).
 //
 // No kernel allocates or synchronises; each launches on the stream it is
 // given, and each C entry returns cudaGetLastError().
@@ -63,26 +61,6 @@ namespace {
 constexpr int kTile = 64;                 // query and key rows of a bf16 tile
 constexpr int kMaxHeadDim = 128;
 constexpr float kMasked = -1e30f;         // the reference's NEG_INF
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Query position qp may see key position kp.  window <= 0: no window.
-__device__ __forceinline__ bool allowed(int qp, int kp, int causal,
-                                        int window) {
-  if (causal && kp > qp) return false;
-  if (window > 0 && kp <= qp - window) return false;
-  return true;
-}
 
 // Key tiles [begin, end) a query tile starting at q0 must visit.
 __device__ __forceinline__ void key_range(int q0, int S, int Sk, int causal,
@@ -1117,13 +1095,14 @@ dkv_kernel(const __grid_constant__ Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// forward-mode tangents T1 and T2 (the algebra is the jvpk section's, near
-// the end of this file): the forward's and the backward's blocks with dual
-// accumulators.  Every product runs on wgmma; P, P ⊙ S', P', dS and dS'
-// are float32 in registers and enter the products that take them as A as
-// bf16 hi/lo pairs, as P and dS do above; lse' = rowsum(P ⊙ S') is a
-// float32 sum of those registers, and D' = rowsum(dO' ⊙ O + dO ⊙ O') the
-// diagonal of dO' O^T + dO O'^T on the tensor cores, as D.
+// forward-mode tangents T1 and T2 (the algebra is in namespace tf32's
+// T1/T2 section, near the end of this file): the forward's and the
+// backward's blocks with dual accumulators.  Every product runs on wgmma;
+// P, P ⊙ S', P', dS and dS' are float32 in registers and enter the
+// products that take them as A as bf16 hi/lo pairs, as P and dS do above;
+// lse' = rowsum(P ⊙ S') is a float32 sum of those registers, and D' =
+// rowsum(dO' ⊙ O + dO ⊙ O') the diagonal of dO' O^T + dO O'^T on the
+// tensor cores, as D.
 // ---------------------------------------------------------------------------
 
 // The 13 views of the tangent entries, in the entries' order.
@@ -2702,12 +2681,31 @@ cudaError_t run_fwd(const Args& a, int B, cudaStream_t s) {
 }
 
 // ---------------------------------------------------------------------------
-// T2 in float32: the backward's tangent on the tensor cores
+// T1 and T2 in float32: the tangents of the forward and the backward on the
+// tensor cores
 // ---------------------------------------------------------------------------
 //
-// No TPU counterpart (the forward-mode rule of the backward; see namespace
-// jvpk below for the algebra, which these kernels share with its bfloat16
-// route).  Two launches, as the backward: part 0 (tangent_dq_kernel) writes
+// No TPU counterpart: the JAX package has no forward-mode rule for its
+// kernels.  The exact meta-gradient's Hessian-vector products are forward-
+// over-reverse (torch.func.jvp of torch.func.grad), so both flash Functions
+// of ../ops.py need a forward-mode rule, and these kernels (and hop's in
+// bfloat16) are it.  The algebra, which both dtypes share:
+//
+// T1, the tangent of the forward: given q, k, v, the forward's lse and the
+// tangents q', k', v', with s'_ij = scale (q'_i . k_j + q_i . k'_j) on the
+// allowed pairs (0 on the pairs the band excludes, whose logit is -1e30),
+//   lse'_i = sum_j P_ij s'_ij,   o'_i = sum_j P_ij (s'_ij v_j + v'_j) - lse'_i o_i
+// with P = exp(S - lse) recomputed from the saved lse.  One pass over the
+// key tiles.
+// T2, the tangent of the FlashAttention-2 backward (dQ, dK, dV of q, k, v,
+// o, lse, dO), from the tangents of all six:
+//   P' = P (S' - lse'),  D = rowsum(dO o),  D' = rowsum(dO' o + dO o'),
+//   dP = dO V^T,  dP' = dO' V^T + dO V'^T,
+//   dS = P (dP - D),  dS' = P' (dP - D) + P (dP' - D'),
+//   dQ' = scale (dS' K + dS K'),  dK' = scale (dS'^T Q + dS^T Q'),
+//   dV' = P'^T dO + P^T dO'.
+//
+// T2: two launches, as the backward: part 0 (tangent_dq_kernel) writes
 // dQ' and D = rowsum(dO o), D' = rowsum(dO' o + dO o') into (B, H, S)
 // float32 workspaces; part 1 (tangent_dkv_kernel) dK' and dV', summed over
 // each KV head's query heads in a fixed order, without atomics.  Every
@@ -3154,255 +3152,234 @@ cudaError_t run_tangent(const TArgs& a, int B, int part, cudaStream_t s) {
                 tangent_dkv_smem<D>(), s, a, &ready);
 }
 
+// T1 (tangent_fwd_kernel): one launch, one block per (64 query rows, head,
+// batch) on T2's layout: 8 warps, warp w owning rows 16 (w % 4) .. of the
+// block's 64 and taking keys 16 (w / 4) .. of each 32-key visited tile.
+// S = Q K^T and S' = Q' K^T + Q K'^T are three TF32 products each; P =
+// exp(S - lse) from the saved lse, P ⊙ S' and lse' = rowsum(P ⊙ S') in
+// float32 on the accumulators; then O = P V and O' = (P ⊙ S') V + P V',
+// each visited tile's sums into fresh accumulators added in float32.  The
+// halves meet at the end in a fixed order: lse' first (through shared
+// memory), then each half's part of o' = O' - lse' O, the second added to
+// the first.  o is recomputed as P V rather than read from the forward:
+// T1's interface (and the Function that saves its inputs) stays q, k, v,
+// lse and the tangents, and at lm-100m's shape the saved sixth of the
+// products (0.003 ms at the TF32 rate) costs about what reading o would
+// (8.4 MB, 0.0025 ms), which would also add a view to every caller.
+// Shared memory: q, q' (64 rows) and k, k', v, v' (32 rows a stage),
+// float32 rows of d + 4; two stages at d <= 64 (104.4 KB at d = 64, two
+// blocks an SM at 128 registers, a few spilled: one block an SM at 255
+// was 11% slower on an H100, PERF.md), one at d = 128 (135.2 KB).  No
+// atomics: two calls give the same bits.
+//
+// Bound at lm-100m's shape (B = 16, S = 256, H = 8, KV = 4, d = 64,
+// causal): 3.23 GFLOP of products (S, S' twice, P V, (P ⊙ S') V and P V':
+// 6d multiply-adds a pair, chip_smoke.py::flash_tangent_cost), 0.0483 ms at
+// the float32 rate; as three TF32 products 9.7 GFLOP, 0.0196 ms at 495
+// TFLOP/s; 42 MB of bytes, 0.0126 ms at 3.35 TB/s.
+
+template <int D> constexpr size_t tangent_fwd_smem() {
+  return sizeof(float) *
+         ((2 * kOwn + 4 * stages<D>() * kVis) * (D + 4) + 2 * kOwn);
+}
+
+// S = x0 y0^T and S' = x1 y0^T + x0 y1^T: own rows r0 .. r0 + 15 of the
+// tiles x (q, q') against visited rows v0 .. v0 + 15 of the tiles y (k, k').
+template <int LD, int KS>
+__device__ __forceinline__ void fwd_scores(const float* const (&x)[2],
+                                           const float* const (&y)[2],
+                                           int r0, int v0, int g, int tg,
+                                           float (&s)[2][4],
+                                           float (&sd)[2][4]) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = sd[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const FragA a = load_a<LD>(x[0], r0, 8 * kk, g, tg);
+    const FragA ta = load_a<LD>(x[1], r0, 8 * kk, g, tg);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const FragB b = load_bt<LD>(y[0], v0 + 8 * j, 8 * kk, g, tg);
+      mma3(s[j], a, b);
+      mma3(sd[j], ta, b);
+      mma3(sd[j], a, load_bt<LD>(y[1], v0 + 8 * j, 8 * kk, g, tg));
+    }
+  }
+}
+
+// O += P V and O' += (P ⊙ S') V + P V' over the warp's 16 visited rows
+// v0 .. (the contraction): P and P ⊙ S' accumulator slices as A, each V
+// and V' fragment loaded once for the products that read it; each tile's
+// sums into fresh accumulators, added in float32.
+template <int LD, int KS>
+__device__ __forceinline__ void add_pv(float (&ao)[KS][4], float (&at)[KS][4],
+                                       const float (&p)[2][4],
+                                       const float (&ps)[2][4],
+                                       const float* v, const float* tv,
+                                       int v0, int g, int tg) {
+  FragA pa[2], psa[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    pa[j] = acc_as_a(p[j]);
+    psa[j] = acc_as_a(ps[j]);
+  }
+#pragma unroll
+  for (int n = 0; n < KS; ++n) {
+    float t[4], td[4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const FragB b = load_bk<LD>(v, v0 + 8 * j, 8 * n, g, tg);
+      mma3_into(t, pa[j], b, j == 0);
+      mma3_into(td, psa[j], b, j == 0);
+      mma3(td, pa[j], load_bk<LD>(tv, v0 + 8 * j, 8 * n, g, tg));
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      ao[n][e] += t[e];
+      at[n][e] += td[e];
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsT, D <= 64 ? 2 : 1)
+tangent_fwd_kernel(const __grid_constant__ TArgs a) {
+  constexpr int LD = D + 4, KS = D / 8, NS = stages<D>();
+  constexpr int OWN = kOwn * LD, VIS = kVis * LD;
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;                       // own: q, q'
+  float* sTQ = sQ + OWN;
+  float* sVis = sTQ + OWN;                // per stage k, k', v, v'
+  float* sDL = sVis + 4 * NS * VIS;       // each half's lse' of the rows
+  const float* const own_t[2] = {sQ, sTQ};
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31,
+            g = lane >> 2, tg = lane & 3;
+  const int rg = w & 3, v0 = 16 * (w >> 2);   // own row group, visited half
+  // the last query tiles (the most key tiles, causal) are launched first
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kOwn, hq = blockIdx.x,
+            b = blockIdx.y;
+  const int hk = hq / (a.H / a.KV);
+  const long long row_vec = ((long long)b * a.H + hq) * a.S;
+  const float *kb = slice(a, a.k, kK, b, hk), *tkb = slice(a, a.tk, kTK, b, hk),
+              *vb = slice(a, a.v, kV, b, hk), *tvb = slice(a, a.tv, kTV, b, hk);
+  auto fetch = [&](int kt, int st) {      // key tile kt into stage st
+    float* s = sVis + 4 * st * VIS;
+    const int r = kt * kVis;
+    load_tile<kVis, D, kThreadsT>(s, kb, a.st[kK].s, r, a.Sk, a.d, a.vec,
+                                  tid);
+    load_tile<kVis, D, kThreadsT>(s + VIS, tkb, a.st[kTK].s, r, a.Sk, a.d,
+                                  a.vec, tid);
+    load_tile<kVis, D, kThreadsT>(s + 2 * VIS, vb, a.st[kV].s, r, a.Sk, a.d,
+                                  a.vec, tid);
+    load_tile<kVis, D, kThreadsT>(s + 3 * VIS, tvb, a.st[kTV].s, r, a.Sk,
+                                  a.d, a.vec, tid);
+    hop::cp_commit();
+  };
+  load_tile<kOwn, D, kThreadsT>(sQ, slice(a, a.q, kQ, b, hq), a.st[kQ].s, q0,
+                                a.S, a.d, a.vec, tid);
+  load_tile<kOwn, D, kThreadsT>(sTQ, slice(a, a.tq, kTQ, b, hq),
+                                a.st[kTQ].s, q0, a.S, a.d, a.vec, tid);
+  hop::cp_commit();
+  int kt0, kt1;
+  keys_of(q0, kOwn, kVis, a.S, a.Sk, a.causal, a.window, &kt0, &kt1);
+  if (kt0 < kt1) fetch(kt0, 0);
+
+  const int r0 = 16 * rg + g;             // the thread's rows r0, r0 + 8
+  float L2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + 8 * r;
+    L2[r] = row < a.S ? a.lse[row_vec + row] * hop::kLog2e : 0.f;
+  }
+  const float c = a.scale * hop::kLog2e;
+  float ao[KS][4], at[KS][4], dl[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < KS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ao[n][e] = at[n][e] = 0.f;
+
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int k0 = kt * kVis, st = NS == 2 ? (kt - kt0) & 1 : 0;
+    hop::cp_wait<0>();
+    __syncthreads();                      // tile kt landed; the last one read
+    if (NS == 2 && kt + 1 < kt1) fetch(kt + 1, st ^ 1);
+    const float* sK = sVis + 4 * st * VIS;
+    const float* const kk_t[2] = {sK, sK + VIS};
+
+    // S, S': the warp's 16 rows against its 16 visited keys
+    float s[2][4], sd[2][4];
+    fwd_scores<LD, KS>(own_t, kk_t, 16 * rg, v0, g, tg, s, sd);
+    // P = exp(S - lse) into s, P ⊙ S' into sd; a pair the band excludes has
+    // the tangent logit 0
+    const bool e_ = edge(q0, kOwn, k0, kVis, a);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, qp = q0 + r0 + 8 * r;
+        const int kp = k0 + v0 + 8 * j + 2 * tg + (e & 1);
+        const float p = prob(s[j][e], c, L2[r], e_, qp, kp, a);
+        float sp = sd[j][e] * a.scale;
+        if (e_) {
+          const int delta = qp - kp;
+          const bool out = (a.causal && delta < 0) ||
+                           (a.window > 0 && delta > a.window - 1);
+          sp = out ? 0.f : sp;
+        }
+        s[j][e] = p;
+        sd[j][e] = p * sp;
+        dl[r] += sd[j][e];
+      }
+    // O += P V, O' += (P ⊙ S') V + P V'
+    add_pv<LD, KS>(ao, at, s, sd, sK + 2 * VIS, sK + 3 * VIS, v0, g, tg);
+    if (NS == 1 && kt + 1 < kt1) {
+      __syncthreads();                    // every warp is done with tile kt
+      fetch(kt + 1, 0);
+    }
+  }
+  hop::cp_wait<0>();
+  __syncthreads();                        // the stages are free
+
+  // lse' of the thread's rows: the quad's sums, then both halves' in order
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    dl[r] = hop::quad_sum(dl[r]);
+    if (tg == 0) sDL[(v0 ? kOwn : 0) + r0 + 8 * r] = dl[r];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) dl[r] = sDL[r0 + 8 * r] + sDL[kOwn + r0 + 8 * r];
+  // each half's part of o' = O' - lse' O; the second half's to the first
+#pragma unroll
+  for (int n = 0; n < KS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) at[n][e] -= dl[e >> 1] * ao[n][e];
+  add_halves<KS>(at, sVis, v0 != 0, rg * 32 + lane);
+  if (v0) return;
+  // T1 writes the views that T2 then reads (const in TArgs)
+  float* tlse = const_cast<float*>(a.tlse);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + r0 + 8 * r;
+    if (tg == 0 && row < a.S) tlse[row_vec + row] = dl[r];
+  }
+  store_rows<D>(at, sQ + 16 * rg * LD,
+                const_cast<float*>(a.to) + b * a.st[kTO].b + hq * a.st[kTO].h,
+                a.st[kTO].s, q0 + 16 * rg, a.S, a.d, a.vec, lane);
+}
+
+template <int D>
+cudaError_t run_tangent_fwd(const TArgs& a, int B, cudaStream_t s) {
+  static bool ready = false;
+  return launch(tangent_fwd_kernel<D>, dim3(a.H, B, (a.S + kOwn - 1) / kOwn),
+                kThreadsT, tangent_fwd_smem<D>(), s, a, &ready);
+}
+
 }  // namespace tf32
 
 }  // namespace
-
-// ===========================================================================
-// Forward-mode tangents of the forward and the backward (no TPU
-// counterpart: the JAX package has no forward-mode rule for its kernels)
-// ===========================================================================
-//
-// The exact meta-gradient's Hessian-vector products are forward-over-
-// reverse (torch.func.jvp of torch.func.grad), so both flash Functions of
-// ../ops.py need a forward-mode rule, and these two kernels are it.
-//
-// T1, the tangent of the forward: given q, k, v, the forward's lse and the
-// tangents q', k', v', with s'_ij = scale (q'_i . k_j + q_i . k'_j) on the
-// allowed pairs,
-//   lse'_i = sum_j P_ij s'_ij,   o'_i = sum_j P_ij (s'_ij v_j + v'_j) - lse'_i o_i
-// with P = exp(S - lse) recomputed from the saved lse and o = P V
-// accumulated beside o' in float32.  One pass over the key tiles.
-// T2, the tangent of the FlashAttention-2 backward (dQ, dK, dV of q, k, v,
-// o, lse, dO), from the tangents of all six:
-//   P' = P (S' - lse'),  D = rowsum(dO o),  D' = rowsum(dO' o + dO o'),
-//   dP = dO V^T,  dP' = dO' V^T + dO V'^T,
-//   dS = P (dP - D),  dS' = P' (dP - D) + P (dP' - D'),
-//   dQ' = scale (dS' K + dS K'),  dK' = scale (dS'^T Q + dS^T Q'),
-//   dV' = P'^T dO + P^T dO'.
-// Two launches, as the backward: part 0 writes dQ' and D, D' (a (B, H, S)
-// float32 workspace each), part 1 (after it) dK' and dV', summed over each
-// KV head's query heads, so nothing is summed with atomics.
-//
-// T1 in bfloat16 and T2 in both dtypes run on the tensor cores (namespace
-// hop's tangent kernels; tf32::tangent_dq_kernel and tangent_dkv_kernel,
-// above).  The kernel here is T1 in float32: a simple CUDA-core kernel that
-// is right first (making it fast is later work): float32 FMA, 256
-// threads, 32-row tiles on both sides (a warp owns 4 rows of its block's
-// tile, a lane one row of the visited tile), every operand staged in shared
-// memory and read through its view's (b, s, h) strides, so the model
-// layout (B, S, H, d) with K/V heads unexpanded and the expanded (B, H, S,
-// d) are both read in place.  Masks as the forward: a pair the band
-// excludes gets the logit -1e30 and the tangent logit 0.
-namespace jvpk {
-
-constexpr int kT = 32;                    // rows of a tile, both sides
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = kT / kWarps;        // own rows a warp holds
-constexpr int kMaxViews = 13;
-
-// (b, s, h) element strides of every view a launch reads or writes.
-struct Views {
-  long long s[kMaxViews][3];
-};
-
-// The (rows, d) slice of head h of batch b in view `i`.
-template <typename T>
-__device__ __forceinline__ T* head(T* base, const Views& st, int i, int b,
-                                   int h) {
-  return base + b * st.s[i][0] + h * st.s[i][2];
-}
-
-// Stage rows [row0, row0 + kT) of a head's slice (row stride rs) into a
-// tile with row stride ld and D columns; rows past `rows` and columns past
-// d are zero.
-template <int D>
-__device__ __forceinline__ void stage(float* dst, int ld,
-                                      const float* __restrict__ src,
-                                      long long rs, int row0, int rows,
-                                      int d) {
-  for (int idx = threadIdx.x; idx < kT * D; idx += kThreads) {
-    const int r = idx / D, c = idx - (idx / D) * D;
-    const int gr = row0 + r;
-    float x = 0.f;
-    if (gr < rows && c < d) x = src[gr * rs + c];
-    dst[r * ld + c] = x;
-  }
-}
-
-// Key tiles of kT rows that a query tile starting at q0 must visit.
-__device__ __forceinline__ void visit(int q0, int S, int Sk, int causal,
-                                      int window, int* begin, int* end) {
-  const int nk = (Sk + kT - 1) / kT;
-  int b = 0, e = nk;
-  if (causal) e = min(nk, (min(q0 + kT, S) - 1) / kT + 1);
-  if (window > 0) b = max(0, q0 - window + 1) / kT;
-  *begin = b;
-  *end = max(b, e);
-}
-
-enum { Q = 0, K, V, O, DO, TQ, TK, TV, TO };
-
-// T1.  Views: Q, K, V, TQ, TK, TV and TO (o' out).  One block per (b, h,
-// 32-row query tile).
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-fwd_tangent_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ lse,
-                   const float* __restrict__ tq,
-                   const float* __restrict__ tk,
-                   const float* __restrict__ tv, float* __restrict__ to,
-                   float* __restrict__ tlse, Views st, int H, int KV, int S,
-                   int Sk, int d, float scale, int causal, int window) {
-  constexpr int LD = D + 4, NC = D / 32;
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;                        // kT x LD
-  float* sTQ = sQ + kT * LD;
-  float* sK = sTQ + kT * LD;
-  float* sTK = sK + kT * LD;
-  float* sV = sTK + kT * LD;               // kT x D
-  float* sTV = sV + kT * D;
-  float* sP = sTV + kT * D;                // own rows x visited keys
-  float* sPS = sP + kT * kT;               // P * s'
-
-  const int nq = (S + kT - 1) / kT;
-  const int bh = blockIdx.x / nq;
-  const int q0 = (blockIdx.x - bh * nq) * kT;
-  const int b = bh / H, h = bh - (bh / H) * H, hk = h / (H / KV);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = warp * kRows;
-
-  stage<D>(sQ, LD, head(q, st, Q, b, h), st.s[Q][1], q0, S, d);
-  stage<D>(sTQ, LD, head(tq, st, TQ, b, h), st.s[TQ][1], q0, S, d);
-  const float* kb = head(k, st, K, b, hk);
-  const float* tkb = head(tk, st, TK, b, hk);
-  const float* vb = head(v, st, V, b, hk);
-  const float* tvb = head(tv, st, TV, b, hk);
-
-  float lrow[kRows], dl[kRows], ao[kRows][NC], at[kRows][NC];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qp = q0 + r0 + r;
-    lrow[r] = qp < S ? lse[(size_t)bh * S + qp] : 0.f;
-    dl[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) ao[r][c] = at[r][c] = 0.f;
-  }
-
-  int kt_begin, kt_end;
-  visit(q0, S, Sk, causal, window, &kt_begin, &kt_end);
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * kT;
-    __syncthreads();
-    stage<D>(sK, LD, kb, st.s[K][1], k0, Sk, d);
-    stage<D>(sTK, LD, tkb, st.s[TK][1], k0, Sk, d);
-    stage<D>(sV, D, vb, st.s[V][1], k0, Sk, d);
-    stage<D>(sTV, D, tvb, st.s[TV][1], k0, Sk, d);
-    __syncthreads();
-
-    float s[kRows], sd[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = sd[r] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; c += 4) {
-      const float4 ka = *reinterpret_cast<const float4*>(&sK[lane * LD + c]);
-      const float4 tka =
-          *reinterpret_cast<const float4*>(&sTK[lane * LD + c]);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 qv =
-            *reinterpret_cast<const float4*>(&sQ[(r0 + r) * LD + c]);
-        const float4 tqv =
-            *reinterpret_cast<const float4*>(&sTQ[(r0 + r) * LD + c]);
-        s[r] = dot4(qv, ka, s[r]);
-        sd[r] = dot4(tqv, ka, dot4(qv, tka, sd[r]));
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qp = q0 + r0 + r, kp = k0 + lane;
-      float p = 0.f, ps = 0.f;
-      if (qp < S && kp < Sk) {
-        const bool ok = allowed(qp, kp, causal, window);
-        p = expf((ok ? s[r] * scale : kMasked) - lrow[r]);
-        ps = ok ? p * sd[r] * scale : 0.f;
-      }
-      sP[(r0 + r) * kT + lane] = p;
-      sPS[(r0 + r) * kT + lane] = ps;
-      dl[r] += warp_sum(ps);
-    }
-    __syncwarp();
-
-#pragma unroll 4
-    for (int j = 0; j < kT; ++j) {
-      float vv[NC], tvv[NC];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        vv[c] = sV[j * D + lane + 32 * c];
-        tvv[c] = sTV[j * D + lane + 32 * c];
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float p = sP[(r0 + r) * kT + j];
-        const float ps = sPS[(r0 + r) * kT + j];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          ao[r][c] = fmaf(p, vv[c], ao[r][c]);
-          at[r][c] = fmaf(ps, vv[c], fmaf(p, tvv[c], at[r][c]));
-        }
-      }
-    }
-  }
-
-  float* tob = head(to, st, TO, b, h);
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qp = q0 + r0 + r;
-    if (qp >= S) continue;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = lane + 32 * c;
-      if (col < d) tob[qp * st.s[TO][1] + col] = at[r][c] - dl[r] * ao[r][c];
-    }
-    if (lane == 0) tlse[(size_t)bh * S + qp] = dl[r];
-  }
-}
-
-template <int D> constexpr size_t fwd_smem() {
-  return sizeof(float) * (4 * kT * (D + 4) + 2 * kT * D + 2 * kT * kT);
-}
-
-template <int D>
-cudaError_t run_fwd(const void* const* p, const Views& st, int B, int H,
-                    int KV, int S, int Sk, int d, float scale, int causal,
-                    int window, cudaStream_t s) {
-  auto kernel = fwd_tangent_kernel<D>;
-  static bool ready = false;
-  cudaError_t err = allow_smem(kernel, fwd_smem<D>(), &ready);
-  if (err != cudaSuccess) return err;
-  const long long blocks = (long long)B * H * ((S + kT - 1) / kT);
-  const float* const* f = reinterpret_cast<const float* const*>(p);
-  kernel<<<(unsigned)blocks, kThreads, fwd_smem<D>(), s>>>(
-      f[0], f[1], f[2], f[3], f[4], f[5], f[6], const_cast<float*>(f[7]),
-      const_cast<float*>(f[8]), st, H, KV, S, Sk, d, scale, causal, window);
-  return cudaGetLastError();
-}
-
-bool valid(int B, int H, int KV, int S, int Sk, int d) {
-  return B >= 1 && KV >= 1 && H >= KV && H % KV == 0 && S >= 1 && Sk >= 1 &&
-         d >= 1 && d <= kMaxHeadDim &&
-         (long long)B * H * ((S + kT - 1) / kT) <= 0x7fffffffLL;
-}
-
-Views views(const long long* strides) {
-  Views st{};
-  for (int i = 0; i < kMaxViews; ++i)
-    for (int j = 0; j < 3; ++j) st.s[i][j] = strides[3 * i + j];
-  return st;
-}
-
-}  // namespace jvpk
 
 extern "C" {
 
@@ -3568,8 +3545,10 @@ int repro_flash_bwd_bf16(const void* q, const void* k, const void* v,
 // (pointer and strides) and d % 8 == 0 (an error if a tensor map cannot be
 // made), element by element otherwise.
 
-// T1: o' into `to`, lse' into `tlse`; float32 on the CUDA cores (namespace
-// jvpk).
+// T1: o' into `to`, lse' into `tlse`.  float32 on the tensor cores
+// (namespace tf32; tiles by cp.async where the views the launch uses have
+// 16-byte aligned pointers and strides and d % 4 == 0, element by element
+// otherwise).
 int repro_flash_fwd_tangent(const void* q, const void* k, const void* v,
                             const void* lse, const void* tq, const void* tk,
                             const void* tv, void* to, void* tlse,
@@ -3583,13 +3562,30 @@ int repro_flash_fwd_tangent(const void* q, const void* k, const void* v,
   if (dtype == 1)
     return hop::tangent(views, strides, lse, tlse, nullptr, nullptr, B, H,
                         KV, S, Sk, d, scale, causal, window, 0, s);
-  if (dtype != 0 || !jvpk::valid(B, H, KV, S, Sk, d))
+  if (dtype != 0 || !hop::valid(B, H, KV, S, Sk, d))
     return (int)cudaErrorInvalidValue;
-  const void* p[9] = {q, k, v, lse, tq, tk, tv, to, tlse};
-  const jvpk::Views st = jvpk::views(strides);
-  return (int)(d <= 32 ? jvpk::run_fwd<32>(p, st, B, H, KV, S, Sk, d, scale, causal, window, s)
-               : d <= 64 ? jvpk::run_fwd<64>(p, st, B, H, KV, S, Sk, d, scale, causal, window, s)
-                         : jvpk::run_fwd<128>(p, st, B, H, KV, S, Sk, d, scale, causal, window, s));
+  tf32::TArgs a{};
+  int vec = d % 4 == 0;
+  for (int i = 0; i < tf32::kViews; ++i) {
+    a.st[i] = hop::strides_at(strides, i);
+    if (views[i] != nullptr)
+      vec = vec && reinterpret_cast<uintptr_t>(views[i]) % 16 == 0 &&
+            a.st[i].b % 4 == 0 && a.st[i].s % 4 == 0 && a.st[i].h % 4 == 0;
+  }
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.lse = static_cast<const float*>(lse);
+  a.tq = static_cast<const float*>(tq);
+  a.tk = static_cast<const float*>(tk);
+  a.tv = static_cast<const float*>(tv);
+  a.to = static_cast<const float*>(to);
+  a.tlse = static_cast<const float*>(tlse);
+  a.H = H; a.KV = KV; a.S = S; a.Sk = Sk; a.d = d; a.scale = scale;
+  a.causal = causal; a.window = window; a.vec = vec;
+  return (int)(d <= 32 ? tf32::run_tangent_fwd<32>(a, B, s)
+               : d <= 64 ? tf32::run_tangent_fwd<64>(a, B, s)
+                         : tf32::run_tangent_fwd<128>(a, B, s));
 }
 
 // T2.  part 0: dq' into `tdq`, and D, D' into `dsum`, `tdsum`; part 1

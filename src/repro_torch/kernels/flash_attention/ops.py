@@ -6,7 +6,7 @@ taken from a failure: CPU tensors go to the plain PyTorch versions in
 :mod:`.ref`; bfloat16 CUDA tensors to the Hopper kernels (``wgmma``,
 TMA), float32 CUDA tensors to the Hopper kernels of namespace ``tf32``
 (three TF32 ``mma.sync`` products on the tensor cores for each float32
-product: the forward, the backward and T2).  Both read any view through
+product: the forward, the backward, T1 and T2).  Both read any view through
 its strides, so nothing is copied, transposed or expanded first: K/V keep
 their KV heads.  A CUDA call launches its kernel or raises — there is
 no fallback.  The kernels are compiled with ``nvcc`` for ``sm_90a`` at first
@@ -42,9 +42,9 @@ plain tensors under ``vmap(vmap(jvp(grad)))``.  Both take either layout
 (``heads_dim``) and float32 or bfloat16, and count one launch (T1) and two
 (T2: dQ', then dK'/dV') in ``launch_counts``.  bfloat16 runs the Hopper
 kernels of namespace ``hop`` (``wgmma``, TMA, K/V read unexpanded, the
-float32 P, P ⊙ S', P', dS and dS' taken as bf16 hi/lo pairs); T2 in
-float32 runs on the tensor cores (namespace ``tf32``, 3×TF32), T1 in
-float32 on the CUDA cores (namespace ``jvpk``).
+float32 P, P ⊙ S', P', dS and dS' taken as bf16 hi/lo pairs); T1 and T2
+in float32 run on the tensor cores (namespace ``tf32``, 3×TF32, K/V read
+unexpanded).
 Reverse-over-reverse (``grad`` of ``grad``) still raises.
 """
 from __future__ import annotations
@@ -338,7 +338,8 @@ def flash_attention_fwd_tangent(q, k, v, lse, tq, tk, tv, *,
     (B, H, S, d) with ``heads_dim=1`` (heads expanded), (B, S, H, d) with
     K/V (B, S_k, KV, d) unexpanded with ``heads_dim=2``.  o' in q's dtype,
     lse' (B, H, S) float32; one launch (bfloat16 on ``wgmma``, namespace
-    ``hop``; float32 on the CUDA cores).  The plain version is
+    ``hop``; float32 as 3×TF32 ``mma.sync``, namespace ``tf32``).  The
+    plain version is
     :func:`.ref.flash_fwd_tangent_ref`."""
     name = "flash_attention_fwd_tangent"
     B, H, KV, S, Sk, d = _layout(name, q, k, v, heads_dim)

@@ -31,16 +31,21 @@
 // The tangent runs the same passes on dual numbers (value, tangent) and
 // writes only the tangents of the five gradients.
 //
-// Two routes, chosen by dtype in the C entry:
-//   bfloat16  namespace hbw, on wgmma and TMA (its design below, at the
-//             namespace): state, pass, gram (C B^T once per group), chunk,
-//             finish, reduce; six launches.
-//   float32   namespace sbw, on the CUDA cores: state, pass, chunk, finish,
-//             reduce (the pass kernel serves both routes).
+// Three routes, chosen by dtype and by backward or tangent in the C entry;
+// the state passing, finish and reduce bodies (namespace ssd) serve all
+// three:
+//   bfloat16  namespace hbw, the backward and its tangent on wgmma and TMA
+//             (its design below, at the namespace): state, pass, gram (C
+//             B^T once per group), chunk, finish, reduce; six launches.
+//   float32 tangent  namespace tbw, on the tensor cores as three TF32
+//             mma.sync products (its design at the namespace): the same six
+//             launches as hbw's tangent.
+//   float32 backward  namespace sbw, on the CUDA cores: state, pass,
+//             chunk, finish, reduce.
 //
 // The design the bfloat16 route replaced (mma.sync on 16 x 32 warp tiles,
 // 40x and 51x its bounds at the mamba2 training shape) lost its time in
-// five places, and this one answers each:
+// five places, and hbw and tbw answer each:
 //   1. every float32 operand was split into bf16 hi/lo in registers at
 //      each fragment load, again by every warp and 32-column slab: now M,
 //      Z (and M', Z') are split once a pair of tiles and gO, s_in once a
@@ -51,21 +56,25 @@
 //      once per group;
 //   3. the tangent's dual accumulators lived in shared memory (223 KB, one
 //      block an SM) and every product ran three times, its value products
-//      thrown away: now only the tangents dx', dB', dC' accumulate, in wgmma
+//      thrown away: now only the tangents dx', dB', dC' accumulate, in
 //      registers, from the value planes M, Z formed once;
 //   4. the state kernel's cumsum ran on one thread and four blocks repeated
 //      it for 32 columns each: now a warp scan, and one block forms all
-//      P x N of S and Lc on wgmma.m64n128k16;
+//      P x N of S and Lc on the tensor cores;
 //   5. the state passing took one element at a time: now each of its 1024
 //      threads carries eight through the chunks together.
+// The float32 tangent's CUDA-core kernels (sbw's passes on dual numbers,
+// 22x their bound at the mamba2 training shape) had the same faults; tbw
+// answers them the same way, on TF32 products.
 //
 // Every sum runs in a fixed order: there are no atomics, so two calls on
 // the same inputs give the same bits.  exp is taken of seg_q - seg_k only
 // for k <= q (masked before the exponential), so everything stays finite
-// where seg falls by more than about 88 within a chunk.  Every float32
-// intermediate enters a bf16 product as a hi/lo pair, hi = bf16(v) and lo
-// = bf16(v - hi), two products a pair, keeping about 16 bits of it; dx, dB
-// and dC are rounded to bf16 at the end.
+// where seg falls by more than about 88 within a chunk.  In hbw every
+// float32 intermediate enters a bf16 product as a hi/lo pair, hi = bf16(v)
+// and lo = bf16(v - hi), two products a pair, keeping about 16 bits of it;
+// dx, dB and dC are rounded to bf16 at the end.  In tbw every product is
+// three TF32 products (about 21 bits of each operand).
 //
 // No kernel allocates or synchronises the device; each launches on the
 // stream it is given, and the C entry returns cudaGetLastError().
@@ -77,29 +86,13 @@
 #include <stdint.h>
 #include <type_traits>
 
-// The float32 route.  Each warp sums 16-row tiles on the CUDA cores, one
-// FMA a term, in the m16n8k16 fragment layout; the chunk and state kernels
-// stage their operands in shared memory by cp.async (all of a tile's
-// copies in flight at once: staged element by element, one dependent load
-// after another, the kernel took four times as long).  The chunk kernel
-// takes blocks of 64 rows of a (b, chunk, h) in two roles: key rows k walk
-// the query rows q >= k in tiles of 32 (dx, dB, the direct part of ddt,
-// R's column sums); query rows walk the key rows k <= q (dC, R's row sums
-// with the entering state's term).  The state kernel takes a (b, chunk, h)
-// and 32 columns of N a block.  The state passing kernel serves the
-// bfloat16 route too, and so do the finish and reduce kernels' bodies.
-namespace sbw {
+// What every route shares: the C entry's slots and arguments, dual numbers,
+// and the bodies of the state passing, finish and reduce passes.
+namespace ssd {
 
 constexpr int kMaxP = 64;
 constexpr int kMaxN = 128;
 constexpr int kMaxChunk = 256;
-constexpr int kWarps = 4;              // a chunk or state block: 4 x 16 rows
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 16 * kWarps;
-constexpr int kSlab = 32;              // columns of one product pass
-constexpr int kLdS = kSlab + 4;        // row strides of the warps' tiles
-constexpr int kLdP = kMaxP + 4;
-constexpr int kLdN = kMaxN + 4;
 constexpr int kPassThreads = 1024;
 // elements of a (P, N) state a pass thread carries (kMaxP kMaxN / threads)
 constexpr int kPassPer = kMaxP * kMaxN / kPassThreads;
@@ -114,7 +107,7 @@ enum Slot {
   SEG, SS, LC, SIN, GO, SG,                        // passes 1-2
   DBH, DCH, DDD, DSK, DSQ, TK, DAP,                // pass 3 scratch
   DX, DB, DC, DDT, DA,                             // outputs
-  GRAM,                                            // C B^T (bfloat16 route)
+  GRAM,                                            // C B^T (hbw, tbw)
   kTensors
 };
 constexpr int kSlots = 2 * kTensors;
@@ -213,231 +206,11 @@ __device__ __forceinline__ Num<kDual> load_A(const Args& a, int b, int h) {
   else return av;
 }
 
-// --------------------------------------------------------------------------
-// warp products: lane (g, t) = (lane / 4, lane % 4) holds rows g and
-// g + 8, columns 8 nt + 2 t and + 1, of a 16 x 32 tile
-// --------------------------------------------------------------------------
-
-// acc (16 x 32) += A (16 x K) B (K x 32) for one warp on the CUDA cores
-// (the float32 route), one FMA a term; fa(i, k) and fb(k, j) give the
-// operands, zero outside the tensors.
-template <typename T, typename FA, typename FB>
-__device__ __forceinline__ void warp_mm(T (&acc)[4][4], int K, const FA& fa,
-                                        const FB& fb) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  for (int k = 0; k < K; ++k) {
-    const T a0 = fa(g, k), a1 = fa(g + 8, k);
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int n = 8 * nt + 2 * t;
-      const T b0 = fb(k, n), b1 = fb(k, n + 1);
-      acc[nt][0] += a0 * b0;
-      acc[nt][1] += a0 * b1;
-      acc[nt][2] += a1 * b0;
-      acc[nt][3] += a1 * b1;
-    }
-  }
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// f(row, column, element) over a lane's fragment elements.
-template <typename T, typename F>
-__device__ __forceinline__ void each(T (&acc)[4][4], const F& f) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      f(g + 8 * (e >> 1), 8 * nt + 2 * t + (e & 1), acc[nt][e]);
-}
-
 // The sum of a row's values over the four lanes that hold it.
 template <typename T> __device__ __forceinline__ T quad_sum(T x) {
   x += shfl_xor(x, 1);
   x += shfl_xor(x, 2);
   return x;
-}
-
-// --------------------------------------------------------------------------
-// operands staged in shared memory
-// --------------------------------------------------------------------------
-
-constexpr int kTileRows = 32;              // rows a staged slab or tile
-
-// Rows [r0, r0 + n) of the chunk of a (B, L, X, W) tensor at index xi
-// (row0: the chunk's first (b, l) row) into dst, row stride ld: zero past
-// the chunk's cs rows and from column W to the next multiple of 32.
-// Rows whose width is a multiple of 16 bytes (from a 16-byte aligned
-// tensor) go by cp.async, 16 bytes a copy, all in flight at once (the
-// caller waits with cp_async_wait before its barrier); others element by
-// element.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-template <typename E>
-__device__ __forceinline__ void stage(E* dst, int ld, const E* src,
-                                      long long row0, int X, int xi, int W,
-                                      int r0, int n, int cs) {
-  const int Wr = (W + 31) & ~31;
-  constexpr int kV = 16 / sizeof(E);
-  if (W % kV == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    const int per_row = Wr / kV;
-    for (int idx = threadIdx.x; idx < n * per_row; idx += blockDim.x) {
-      const int r = idx / per_row, col = (idx - r * per_row) * kV;
-      const int k = r0 + r;
-      const bool in = k < cs && col < W;
-      cp_async16(dst + r * ld + col,
-                 in ? src + ((row0 + k) * X + xi) * W + col : src,
-                 in ? 16 : 0);
-    }
-    return;
-  }
-  for (int idx = threadIdx.x; idx < n * Wr; idx += blockDim.x) {
-    const int r = idx / Wr, col = idx - r * Wr, k = r0 + r;
-    E v = cast<E>(0.f);
-    if (k < cs && col < W) v = src[((row0 + k) * X + xi) * W + col];
-    dst[r * ld + col] = v;
-  }
-}
-
-// A staged operand: element (row, column) as Num.
-template <typename E, bool kDual> struct Sm {
-  const E* v;
-  const E* t;
-  int ld;
-  __device__ __forceinline__ Num<kDual> operator()(int r, int c) const {
-    const int i = r * ld + c;
-    if constexpr (kDual) return Dual{f32(v[i]), f32(t[i])};
-    else return f32(v[i]);
-  }
-};
-// The same read from global memory: rows r0 + r of a (B, L, X, W) tensor,
-// zero outside the chunk and the width (the float32 tangent's operands).
-template <typename E, bool kDual> struct Gl {
-  Rd<E, kDual> m;
-  long long row0;
-  int X, xi, W, r0, cs;
-  __device__ __forceinline__ Num<kDual> operator()(int r, int c) const {
-    const int k = r0 + r;
-    return k < cs && c < W ? m[((row0 + k) * X + xi) * W + c]
-                           : Num<kDual>{};
-  }
-};
-
-// --------------------------------------------------------------------------
-// pass 1: seg, S and Lc of one (b, chunk, h), 32 columns of N a block
-// --------------------------------------------------------------------------
-
-// A block a (b, chunk, h) and 32 columns n0 of N: its four warps take 16
-// rows of P each and walk the chunk's rows in slabs of kTileRows, staging
-// x, B, gy and C rows (as the chunk kernel stages its tiles; read in place
-// in the float32 tangent).  S = (u x)^T B and Lc = (e gy)^T C, the scaled
-// operand formed as it is loaded.
-template <typename In, bool kDual> struct StateLayout {
-  static constexpr bool kStage = !kDual;
-  static constexpr int kPlanes = kDual ? 2 : 1;
-  static constexpr int kLdNi = kMaxN + 4;
-  static constexpr int kLdPi = kMaxP + 4;
-  static constexpr size_t kSlabN = (size_t)kTileRows * kLdNi * sizeof(In) *
-                                   kPlanes;
-  static constexpr size_t kSlabP = (size_t)kTileRows * kLdPi * sizeof(In) *
-                                   kPlanes;
-  static constexpr size_t kBytes = kStage ? 2 * (kSlabN + kSlabP) : 0;
-};
-
-template <typename In, bool kDual>
-__device__ __forceinline__ void state_body(const Args& a) {
-  using T = Num<kDual>;
-  using Lay = StateLayout<In, kDual>;
-  using Op = std::conditional_t<Lay::kStage, Sm<In, kDual>, Gl<In, kDual>>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ T segs[kMaxChunk], u[kMaxChunk], e[kMaxChunk];
-  const int cs = a.cs, H = a.H, P = a.P, N = a.N, G = a.G, L = a.L;
-  const int nS = (N + kSlab - 1) / kSlab;
-  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z / nS;
-  const int n0 = (blockIdx.z % nS) * kSlab;
-  const int grp = h / (H / G);
-  const long long row0 = (long long)b * L + (long long)c * cs;
-  const long long sbase = ((long long)b * H + h) * L + (long long)c * cs;
-  const auto dt = rd<float, kDual>(a, DT);
-  const auto x = rd<In, kDual>(a, X), gy = rd<In, kDual>(a, GY);
-  const auto Bm = rd<In, kDual>(a, BM), Cm = rd<In, kDual>(a, CM);
-  const T A = load_A<kDual>(a, b, h);
-  for (int i = threadIdx.x; i < cs; i += blockDim.x)
-    segs[i] = dt[(row0 + i) * H + h] * A;
-  __syncthreads();
-  if (threadIdx.x == 0) {                  // the cumsum, in row order
-    T s{};
-    for (int i = 0; i < cs; ++i) {
-      s += segs[i];
-      segs[i] = s;
-    }
-  }
-  __syncthreads();
-  const auto seg = wr<float, kDual>(a, SEG);
-  for (int i = threadIdx.x; i < kMaxChunk; i += blockDim.x) {
-    u[i] = e[i] = T{};                     // zero past the chunk
-    if (i >= cs) continue;
-    if (n0 == 0) seg.put(sbase + i, segs[i]);
-    u[i] = dexp(segs[cs - 1] - segs[i]) * dt[(row0 + i) * H + h];
-    e[i] = dexp(segs[i]);
-  }
-  // rows [k0, k0 + kTileRows) of m as an operand, staged at `at`
-  auto rows = [&](const Rd<In, kDual>& m, size_t at, bool group, int k0) {
-    const int W = group ? N : P, X = group ? G : H, xi = group ? grp : h;
-    if constexpr (Lay::kStage) {
-      const int ld = group ? Lay::kLdNi : Lay::kLdPi;
-      In* v = reinterpret_cast<In*>(smem + at);
-      stage(v, ld, m.v, row0, X, xi, W, k0, kTileRows, cs);
-      In* t = v;
-      if constexpr (kDual) {
-        t = v + (size_t)kTileRows * ld;
-        stage(t, ld, m.t, row0, X, xi, W, k0, kTileRows, cs);
-      }
-      return Op{v, t, ld};
-    } else {
-      return Op{m, row0, X, xi, W, k0, cs};
-    }
-  };
-  const int p0 = 16 * (threadIdx.x >> 5);
-  T accS[4][4] = {}, accL[4][4] = {};
-  for (int k0 = 0; k0 < cs; k0 += kTileRows) {
-    __syncthreads();                       // the last slab is read
-    const Op xs = rows(x, 0, false, k0);
-    const Op bs = rows(Bm, Lay::kSlabP, true, k0);
-    const Op gs = rows(gy, Lay::kSlabP + Lay::kSlabN, false, k0);
-    const Op cs_ = rows(Cm, 2 * Lay::kSlabP + Lay::kSlabN, true, k0);
-    cp_async_wait();
-    __syncthreads();
-    if (p0 >= P) continue;
-    warp_mm(
-        accS, kTileRows,
-        [&](int i, int k) { return u[k0 + k] * xs(k, p0 + i); },
-        [&](int k, int j) { return bs(k, n0 + j); });
-    warp_mm(
-        accL, kTileRows,
-        [&](int i, int k) { return e[k0 + k] * gs(k, p0 + i); },
-        [&](int k, int j) { return cs_(k, n0 + j); });
-  }
-  if (p0 >= P) return;
-  const long long obase = (((long long)b * a.nc + c) * H + h) * P * N;
-  const auto S = wr<float, kDual>(a, SS), Lc = wr<float, kDual>(a, LC);
-  each(accS, [&](int i, int j, T v) {
-    const int p = p0 + i, n = n0 + j;
-    if (p < P && n < N) S.put(obase + (long long)p * N + n, v);
-  });
-  each(accL, [&](int i, int j, T v) {
-    const int p = p0 + i, n = n0 + j;
-    if (p < P && n < N) Lc.put(obase + (long long)p * N + n, v);
-  });
 }
 
 // --------------------------------------------------------------------------
@@ -511,430 +284,6 @@ __device__ __forceinline__ void pass_body(const Args& a) {
     const T total = block_sum(part, red);
     if (t == 0) sg.put(((long long)b * H + h) * nc + c, total);
   }
-}
-
-// --------------------------------------------------------------------------
-// pass 3: a block's 64 key rows or 64 query rows of a (b, chunk, h)
-// --------------------------------------------------------------------------
-
-// A block stages its own 64 rows of its two operands (key rows: B and x;
-// query rows: C and gy) once, then walks the other side's rows in tiles of
-// 32 (key rows the query rows q >= k; query rows the key rows k <= q),
-// staging each tile's two operands (C and gy; B and x), and last the
-// chunk's state operand (key rows gO, query rows s_in, P x N float32).
-// Staged rows are zero past the chunk and their columns zero up to the
-// next multiple of 32, so the warps read them without bounds.  Each warp
-// owns 16 of the block's rows: its M and Z slabs are its own, and so are
-// its accumulators (registers in the backward, shared memory in the
-// tangent, whose dual accumulators would not fit in registers).  The
-// float32 tangent's operands would not fit in shared memory beside its
-// accumulators: it reads them from global memory through L1.
-template <typename In, bool kDual> struct ChunkLayout {
-  static constexpr bool kStage = !kDual;
-  static constexpr int kPlanes = kDual ? 2 : 1;
-  static constexpr int kLdNi = kMaxN + 4;               // staged row strides
-  static constexpr int kLdPi = kMaxP + 4;
-  static constexpr size_t kOwn =
-      kStage ? (size_t)kRows * (kLdNi + kLdPi) * sizeof(In) * kPlanes : 0;
-  static constexpr size_t kTile =
-      kStage ? (size_t)kTileRows * (kLdNi + kLdPi) * sizeof(In) * kPlanes
-             : 0;
-  static constexpr size_t kMZ =
-      (size_t)kWarps * 2 * 16 * kLdS * sizeof(Num<kDual>);
-  static constexpr size_t kState =
-      kStage ? (size_t)kMaxP * kLdN * sizeof(float) * kPlanes : 0;
-  static constexpr size_t kLoop = kTile + kMZ > kState ? kTile + kMZ : kState;
-  static constexpr size_t kAcc =
-      kDual ? (size_t)kWarps * 16 * (kLdP + kLdN) * sizeof(Num<kDual>) : 0;
-  static constexpr size_t kBytes = kOwn + kLoop + kAcc;
-};
-
-template <typename In, bool kDual> struct Chunk {
-  using T = Num<kDual>;
-  using Lay = ChunkLayout<In, kDual>;
-  static constexpr bool kStage = Lay::kStage;
-  static constexpr int kSP = kMaxP / kSlab, kSN = kMaxN / kSlab;
-  using Op = std::conditional_t<kStage, Sm<In, kDual>, Gl<In, kDual>>;
-  using StOp = std::conditional_t<kStage, Sm<float, kDual>, Gl<float, kDual>>;
-
-  const Args& a;
-  unsigned char* smem;
-  int b, c, h, grp, cs, H, P, N, G, warp, lane, g;
-  long long row0, sbase, obase;
-  Rd<In, kDual> x, gy, Bm, Cm;
-  Rd<float, kDual> dt, seg;
-
-  __device__ __forceinline__ Chunk(const Args& a_, unsigned char* smem_,
-                                   int b_, int c_, int h_)
-      : a(a_), smem(smem_), b(b_), c(c_), h(h_), cs(a_.cs), H(a_.H),
-        P(a_.P), N(a_.N), G(a_.G) {
-    grp = h / (H / G);
-    warp = threadIdx.x >> 5;
-    lane = threadIdx.x & 31;
-    g = lane >> 2;
-    row0 = (long long)b * a.L + (long long)c * cs;
-    sbase = ((long long)b * H + h) * a.L + (long long)c * cs;
-    obase = (((long long)b * a.nc + c) * H + h) * (long long)P * N;
-    x = rd<In, kDual>(a, X);
-    gy = rd<In, kDual>(a, GY);
-    Bm = rd<In, kDual>(a, BM);
-    Cm = rd<In, kDual>(a, CM);
-    dt = rd<float, kDual>(a, DT);
-    seg = rd<float, kDual>(a, SEG);
-  }
-
-  // Staged region `at` (bytes into shared memory) holding rows of a
-  // width-W (N or P) operand, ld its row stride.
-  __device__ __forceinline__ In* plane(size_t at, int rows, int ld, int p) {
-    return reinterpret_cast<In*>(smem + at) + (size_t)p * rows * ld;
-  }
-  // rows [r0, r0 + n) of m (a B/C tensor with group index, or an x/gy
-  // tensor with head index) as an operand: staged at `at`, or read in place
-  template <bool kGroup>
-  __device__ __forceinline__ Op rows(const Rd<In, kDual>& m, size_t at,
-                                     int r0, int n) {
-    const int W = kGroup ? N : P, X = kGroup ? G : H, xi = kGroup ? grp : h;
-    if constexpr (kStage) {
-      const int ld = kGroup ? Lay::kLdNi : Lay::kLdPi;
-      In* v = plane(at, n, ld, 0);
-      stage(v, ld, m.v, row0, X, xi, W, r0, n, cs);
-      In* t = v;
-      if constexpr (kDual) {
-        t = plane(at, n, ld, 1);
-        stage(t, ld, m.t, row0, X, xi, W, r0, n, cs);
-      }
-      return Op{v, t, ld};
-    } else {
-      return Op{m, row0, X, xi, W, r0, cs};
-    }
-  }
-  // the chunk's P x N state operand (gO or s_in), staged at `at`
-  __device__ __forceinline__ StOp state_op(int slot, size_t at) {
-    const auto m = rd<float, kDual>(a, slot);
-    if constexpr (kStage) {
-      float* v = reinterpret_cast<float*>(smem + at);
-      float* t = v + kMaxP * kLdN;
-      // as a (1, P, 1, N) tensor, zero to kMaxP rows and kLdN columns
-      stage(v, kLdN, m.v + obase, 0, 1, 0, N, 0, kMaxP, P);
-      if constexpr (kDual) stage(t, kLdN, m.t + obase, 0, 1, 0, N, 0, kMaxP, P);
-      return StOp{v, t, kLdN};
-    } else {
-      // one (P, N) plane: rows p of width N, as a (1, P, 1, N) tensor
-      return StOp{m, obase / N, 1, 0, N, 0, P};
-    }
-  }
-
-  // accumulators of a warp's 16 rows x (32 kS) columns: registers in the
-  // backward, shared memory (row stride ld) in the tangent
-  template <int kS> struct Acc {
-    T r[kDual ? 1 : kS][4][4];
-    T* s;
-    int ld;
-  };
-  template <int kS>
-  __device__ __forceinline__ void acc_init(Acc<kS>& acc, T* s, int ld) {
-    acc.s = s;
-    acc.ld = ld;
-    if constexpr (kDual) {
-      for (int i = lane; i < 16 * ld; i += 32) s[i] = T{};
-    } else {
-#pragma unroll
-      for (int q = 0; q < kS; ++q)
-        each(acc.r[q], [](int, int, T& v) { v = T{}; });
-    }
-  }
-  // f(slab, 16 x 32 tile): the tile is the slab's accumulator, updated in
-  // place, for the slabs below width W
-  template <int kS, typename F>
-  __device__ __forceinline__ void acc_slabs(Acc<kS>& acc, int W,
-                                            const F& f) {
-#pragma unroll
-    for (int q = 0; q < kS; ++q) {
-      if (q * kSlab >= W) break;
-      if constexpr (kDual) {
-        T t[4][4];
-        T* row = acc.s + q * kSlab;
-        each(t, [&](int i, int j, T& v) { v = row[i * acc.ld + j]; });
-        f(q, t);
-        each(t, [&](int i, int j, T& v) { row[i * acc.ld + j] = v; });
-      } else {
-        f(q, acc.r[q]);
-      }
-    }
-  }
-  template <int kS, typename F>
-  __device__ __forceinline__ void acc_each(Acc<kS>& acc, int W,
-                                           const F& f) {
-    acc_slabs(acc, W, [&](int q, T (&t)[4][4]) {
-      each(t, [&](int i, int j, T& v) {
-        if (q * kSlab + j < W) f(i, q * kSlab + j, v);
-      });
-    });
-  }
-
-  // the warp's M (0) and Z (1) slabs, 16 x kSlab, as float planes (value,
-  // then the tangent in dual)
-  __device__ __forceinline__ float* mz_plane(int which, int pl) const {
-    return reinterpret_cast<float*>(smem + Lay::kOwn + Lay::kTile) +
-           ((warp * 2 + which) * Lay::kPlanes + pl) * 16 * kLdS;
-  }
-  __device__ __forceinline__ void put_mz(int which, int i, int j, T v) const {
-    if constexpr (kDual) {
-      mz_plane(which, 0)[i * kLdS + j] = v.v;
-      mz_plane(which, 1)[i * kLdS + j] = v.t;
-    } else {
-      mz_plane(which, 0)[i * kLdS + j] = v;
-    }
-  }
-  __device__ __forceinline__ T get_mz(int which, int i, int j) const {
-    if constexpr (kDual)
-      return Dual{mz_plane(which, 0)[i * kLdS + j],
-                  mz_plane(which, 1)[i * kLdS + j]};
-    else return mz_plane(which, 0)[i * kLdS + j];
-  }
-  __device__ __forceinline__ T seg_at(int k) const {
-    return k < cs ? seg[sbase + k] : T{};
-  }
-  __device__ __forceinline__ T dt_at(int k) const {
-    return k < cs ? dt[(row0 + k) * H + h] : T{};
-  }
-
-  __device__ void key_rows(int kb) {
-    const int kc = kb * kRows, k0 = kc + 16 * warp;
-    T* accs = reinterpret_cast<T*>(smem + Lay::kOwn + Lay::kLoop) +
-              warp * 16 * (kLdP + kLdN);
-    const size_t rowsN = (size_t)kRows * Lay::kLdNi * sizeof(In) *
-                         Lay::kPlanes;
-    const size_t tileN = (size_t)kTileRows * Lay::kLdNi * sizeof(In) *
-                         Lay::kPlanes;
-    const Op Bk = rows<true>(Bm, 0, kc, kRows);
-    const Op xk = rows<false>(x, rowsN, kc, kRows);
-    Acc<kSP> dx;
-    Acc<kSN> dB;
-    acc_init(dx, accs, kLdP);
-    acc_init(dB, accs + 16 * kLdP, kLdN);
-    T segk[2], dtk[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      segk[r] = seg_at(k0 + g + 8 * r);
-      dtk[r] = dt_at(k0 + g + 8 * r);
-    }
-    T colR[2] = {}, direct[2] = {};
-    const int wr = 16 * warp;                     // the warp's own rows
-    for (int qs = kc; qs < cs; qs += kTileRows) {
-      __syncthreads();                            // the last tile is read
-      const Op Cq = rows<true>(Cm, Lay::kOwn, qs, kTileRows);
-      const Op gq = rows<false>(gy, Lay::kOwn + tileN, qs, kTileRows);
-      cp_async_wait();
-      __syncthreads();
-      if (k0 >= cs || qs + kTileRows <= k0) continue;
-      T Gt[4][4] = {}, Dt[4][4] = {};
-      warp_mm(
-          Gt, N, [&](int i, int n) { return Bk(wr + i, n); },
-          [&](int n, int j) { return Cq(j, n); });
-      warp_mm(
-          Dt, P, [&](int i, int p) { return xk(wr + i, p); },
-          [&](int p, int j) { return gq(j, p); });
-      each(Gt, [&](int i, int j, T gq_) {
-        const int k = k0 + i, q = qs + j, r = i >> 3;
-        const T d = Dt[j >> 3][(j & 1) + 2 * r];
-        T M{}, Z{};
-        if (k < cs && q < cs && k <= q) {
-          const T E = dexp(seg[sbase + q] - segk[r]);
-          const T GE = gq_ * E;
-          M = GE * dtk[r];
-          Z = d * E * dtk[r];
-          if (k < q) colR[r] += d * M;     // the diagonal: see finish_body
-          direct[r] += d * GE;
-        }
-        put_mz(0, i, j, M);
-        put_mz(1, i, j, Z);
-      });
-      __syncwarp();
-      acc_slabs(dx, P, [&](int s, T (&t)[4][4]) {
-        warp_mm(
-            t, kSlab, [&](int i, int q) { return get_mz(0, i, q); },
-            [&](int q, int j) { return gq(q, s * kSlab + j); });
-      });
-      acc_slabs(dB, N, [&](int s, T (&t)[4][4]) {
-        warp_mm(
-            t, kSlab, [&](int i, int q) { return get_mz(1, i, q); },
-            [&](int q, int j) { return Cq(q, s * kSlab + j); });
-      });
-      __syncwarp();
-    }
-    // the state leaving the chunk: s_out += u_k x_k B_k^T
-    __syncthreads();
-    const StOp gO = state_op(GO, Lay::kOwn);
-    cp_async_wait();
-    __syncthreads();
-    if (k0 >= cs) return;                         // no barrier below
-    const T end = seg[sbase + cs - 1];
-    T wk[2], uk[2], xv[2] = {};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      wk[r] = k0 + g + 8 * r < cs ? dexp(end - segk[r]) : T{};
-      uk[r] = wk[r] * dtk[r];
-    }
-    for (int p0 = 0; p0 < P; p0 += kSlab) {
-      T v[4][4] = {};                             // gO B_k
-      warp_mm(
-          v, N, [&](int i, int n) { return Bk(wr + i, n); },
-          [&](int n, int j) { return gO(p0 + j, n); });
-      each(v, [&](int i, int j, T vv) {
-        if (p0 + j < P) xv[i >> 3] += xk(wr + i, p0 + j) * vv;
-      });
-      acc_slabs(dx, P, [&](int s, T (&t)[4][4]) {
-        if (s * kSlab != p0) return;
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) t[nt][e] += uk[e >> 1] * v[nt][e];
-      });
-    }
-    acc_slabs(dB, N, [&](int s, T (&t)[4][4]) {
-      T w[4][4] = {};                             // gO^T x_k
-      warp_mm(
-          w, P, [&](int i, int p) { return xk(wr + i, p); },
-          [&](int p, int j) { return gO(p, s * kSlab + j); });
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) t[nt][e] += uk[e >> 1] * w[nt][e];
-    });
-    const auto ddd = wr_<float>(DDD), dsk = wr_<float>(DSK);
-    const auto tk = wr_<float>(TK);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      colR[r] = quad_sum(colR[r]);
-      direct[r] = quad_sum(direct[r]);
-      xv[r] = quad_sum(xv[r]);
-      const int k = k0 + g + 8 * r;
-      if ((lane & 3) == 0 && k < cs) {
-        const T Tk = k < cs - 1 ? uk[r] * xv[r] : T{};
-        ddd.put(sbase + k, direct[r] + wk[r] * xv[r]);
-        dsk.put(sbase + k, T{} - colR[r] - Tk);
-        tk.put(sbase + k, Tk);
-      }
-    }
-    const auto dxo = wr_<In>(DX);
-    const auto dBh = wr_<float>(DBH);
-    acc_each(dx, P, [&](int i, int p, T& v) {
-      if (k0 + i < cs) dxo.put(((row0 + k0 + i) * H + h) * P + p, v);
-    });
-    acc_each(dB, N, [&](int i, int n, T& v) {
-      if (k0 + i < cs) dBh.put(((row0 + k0 + i) * H + h) * N + n, v);
-    });
-  }
-
-  __device__ void query_rows(int qb) {
-    const int qc = qb * kRows, q0 = qc + 16 * warp;
-
-    T* accs = reinterpret_cast<T*>(smem + Lay::kOwn + Lay::kLoop) +
-              warp * 16 * (kLdP + kLdN);
-    const size_t rowsN = (size_t)kRows * Lay::kLdNi * sizeof(In) *
-                         Lay::kPlanes;
-    const size_t tileN = (size_t)kTileRows * Lay::kLdNi * sizeof(In) *
-                         Lay::kPlanes;
-    const Op Cq = rows<true>(Cm, 0, qc, kRows);
-    const Op gq = rows<false>(gy, rowsN, qc, kRows);
-    Acc<kSN> dC;
-    acc_init(dC, accs, kLdN);
-    T segq[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) segq[r] = seg_at(q0 + g + 8 * r);
-    T rowR[2] = {};
-    const int wr = 16 * warp;
-    const int kend = min(cs, qc + kRows);
-    for (int ks = 0; ks < kend; ks += kTileRows) {
-      __syncthreads();
-      const Op Bk = rows<true>(Bm, Lay::kOwn, ks, kTileRows);
-      const Op xk = rows<false>(x, Lay::kOwn + tileN, ks, kTileRows);
-      cp_async_wait();
-      __syncthreads();
-      if (q0 >= cs || ks > q0 + 15) continue;
-      T Gq[4][4] = {}, Dq[4][4] = {};
-      warp_mm(
-          Gq, N, [&](int i, int n) { return Cq(wr + i, n); },
-          [&](int n, int j) { return Bk(j, n); });
-      warp_mm(
-          Dq, P, [&](int i, int p) { return gq(wr + i, p); },
-          [&](int p, int j) { return xk(j, p); });
-      each(Gq, [&](int i, int j, T gq_) {
-        const int q = q0 + i, k = ks + j, r = i >> 3;
-        const T d = Dq[j >> 3][(j & 1) + 2 * r];
-        T Z{};
-        if (q < cs && k <= q) {
-          const T E = dexp(segq[r] - seg[sbase + k]);
-          Z = d * E * dt[(row0 + k) * H + h];
-          if (k < q) rowR[r] += Z * gq_;
-        }
-        put_mz(1, i, j, Z);
-      });
-      __syncwarp();
-      acc_slabs(dC, N, [&](int s, T (&t)[4][4]) {
-        warp_mm(
-            t, kSlab, [&](int i, int k) { return get_mz(1, i, k); },
-            [&](int k, int j) { return Bk(k, s * kSlab + j); });
-      });
-      __syncwarp();
-    }
-    // the entering state: y_q += exp(seg_q) s_in C_q (zero for the first
-    // chunk of a sequence, but the wrapper takes any s_in)
-    __syncthreads();
-    const StOp s_in = state_op(SIN, Lay::kOwn);
-    cp_async_wait();
-    __syncthreads();
-    if (q0 >= cs) return;                         // no barrier below
-    T rs[2] = {};
-    T eq[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) eq[r] = dexp(segq[r]);
-    acc_slabs(dC, N, [&](int s, T (&t)[4][4]) {
-      T w[4][4] = {};                             // gy_q s_in
-      warp_mm(
-          w, P, [&](int i, int p) { return gq(wr + i, p); },
-          [&](int p, int j) { return s_in(p, s * kSlab + j); });
-      each(w, [&](int i, int j, T ww) {
-        const int n = s * kSlab + j, r = i >> 3;
-        if (n < N) rs[r] += Cq(wr + i, n) * ww;
-      });
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) t[nt][e] += eq[e >> 1] * w[nt][e];
-    });
-    const auto dsq = wr_<float>(DSQ);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rowR[r] = quad_sum(rowR[r]);
-      rs[r] = quad_sum(rs[r]);
-      const int q = q0 + g + 8 * r;
-      if ((lane & 3) == 0 && q < cs)
-        dsq.put(sbase + q, rowR[r] + eq[r] * rs[r]);
-    }
-    const auto dCh = wr_<float>(DCH);
-    acc_each(dC, N, [&](int i, int n, T& v) {
-      if (q0 + i < cs) dCh.put(((row0 + q0 + i) * H + h) * N + n, v);
-    });
-  }
-
-  template <typename E>
-  __device__ __forceinline__ Wr<E, kDual> wr_(int s) const {
-    return wr<E, kDual>(a, s);
-  }
-};
-
-template <typename In, bool kDual>
-__device__ __forceinline__ void chunk_body(const Args& a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int nblk = (a.cs + kRows - 1) / kRows;
-  const int role = blockIdx.x >= nblk;               // 0 key rows, 1 query
-  const int blk = blockIdx.x - role * nblk;
-  const int bc = blockIdx.z, h = blockIdx.y;
-  Chunk<In, kDual> ch(a, smem, bc / a.nc, bc % a.nc, h);
-  if (role == 0) ch.key_rows(blk);
-  else ch.query_rows(blk);
 }
 
 // --------------------------------------------------------------------------
@@ -1054,19 +403,8 @@ __device__ __forceinline__ void reduce_body(const Args& a, int plane) {
   static_cast<float*>(a.p[2 * DA + plane])[m] = s;
 }
 
-// --------------------------------------------------------------------------
-// kernels: the backward's, and the tangent's under their own names
-// --------------------------------------------------------------------------
-
-template <typename In>
-__global__ void __launch_bounds__(kThreads) state_kernel(const Args a) {
-  state_body<In, false>(a);
-}
-template <typename In>
-__global__ void __launch_bounds__(kThreads) tangent_state_kernel(
-    const Args a) {
-  state_body<In, true>(a);
-}
+// The state passing of every route: the backward's, and the tangent's
+// under its own name.
 __global__ void __launch_bounds__(kPassThreads) pass_kernel(const Args a) {
   pass_body<false>(a);
 }
@@ -1074,70 +412,610 @@ __global__ void __launch_bounds__(kPassThreads) tangent_pass_kernel(
     const Args a) {
   pass_body<true>(a);
 }
+
+__host__ __device__ constexpr int ceil_div(int a, int b) {
+  return (a + b - 1) / b;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+// 16 bytes from src to shared dst, src_bytes of them read (the rest zero);
+// the caller waits with cp_async_wait before its barrier.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Rows [r0, r0 + n) of the chunk of a (B, L, X, W) tensor at index xi
+// (row0: the chunk's first (b, l) row) into dst, row stride ld: zero past
+// the chunk's cs rows and from column W to Wpad (a multiple of 16 bytes'
+// elements).  Rows whose width is a multiple of 16 bytes (from a 16-byte
+// aligned tensor) go by cp.async, 16 bytes a copy, all in flight at once
+// (the caller waits with cp_async_wait before its barrier); others element
+// by element.
+template <typename E>
+__device__ __forceinline__ void stage(E* dst, int ld, const E* src,
+                                      long long row0, int X, int xi, int W,
+                                      int Wpad, int r0, int n, int cs) {
+  constexpr int kV = 16 / sizeof(E);
+  if (W % kV == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int per_row = Wpad / kV;
+    for (int idx = threadIdx.x; idx < n * per_row; idx += blockDim.x) {
+      const int r = idx / per_row, col = (idx - r * per_row) * kV;
+      const int k = r0 + r;
+      const bool in = k < cs && col < W;
+      cp_async16(dst + r * ld + col,
+                 in ? src + ((row0 + k) * X + xi) * W + col : src,
+                 in ? 16 : 0);
+    }
+    return;
+  }
+  for (int idx = threadIdx.x; idx < n * Wpad; idx += blockDim.x) {
+    const int r = idx / Wpad, col = idx - r * Wpad, k = r0 + r;
+    E v = cast<E>(0.f);
+    if (k < cs && col < W) v = src[((row0 + k) * X + xi) * W + col];
+    dst[r * ld + col] = v;
+  }
+}
+
+
+}  // namespace ssd
+
+// The float32 backward.  Each warp sums 16-row tiles on the CUDA cores, one
+// FMA a term, in the m16n8k16 fragment layout; the chunk and state kernels
+// stage their operands in shared memory by cp.async (all of a tile's
+// copies in flight at once: staged element by element, one dependent load
+// after another, the kernel took four times as long).  The chunk kernel
+// takes blocks of 64 rows of a (b, chunk, h) in two roles: key rows k walk
+// the query rows q >= k in tiles of 32 (dx, dB, the direct part of ddt,
+// R's column sums); query rows walk the key rows k <= q (dC, R's row sums
+// with the entering state's term).  The state kernel takes a (b, chunk, h)
+// and 32 columns of N a block.  The state passing, finish and reduce
+// bodies are namespace ssd's.
+namespace sbw {
+
+using namespace ssd;
+
+constexpr int kWarps = 4;              // a chunk or state block: 4 x 16 rows
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;
+constexpr int kSlab = 32;              // columns of one product pass
+constexpr int kLdS = kSlab + 4;        // row strides of the warps' tiles
+constexpr int kLdP = kMaxP + 4;
+constexpr int kLdN = kMaxN + 4;
+
+// --------------------------------------------------------------------------
+// warp products: lane (g, t) = (lane / 4, lane % 4) holds rows g and
+// g + 8, columns 8 nt + 2 t and + 1, of a 16 x 32 tile
+// --------------------------------------------------------------------------
+
+// acc (16 x 32) += A (16 x K) B (K x 32) for one warp on the CUDA cores,
+// one FMA a term; fa(i, k) and fb(k, j) give the operands, zero outside
+// the tensors.
+template <typename FA, typename FB>
+__device__ __forceinline__ void warp_mm(float (&acc)[4][4], int K,
+                                        const FA& fa, const FB& fb) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  for (int k = 0; k < K; ++k) {
+    const float a0 = fa(g, k), a1 = fa(g + 8, k);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int n = 8 * nt + 2 * t;
+      const float b0 = fb(k, n), b1 = fb(k, n + 1);
+      acc[nt][0] += a0 * b0;
+      acc[nt][1] += a0 * b1;
+      acc[nt][2] += a1 * b0;
+      acc[nt][3] += a1 * b1;
+    }
+  }
+}
+
+// f(row, column, element) over a lane's fragment elements.
+template <typename F>
+__device__ __forceinline__ void each(float (&acc)[4][4], const F& f) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      f(g + 8 * (e >> 1), 8 * nt + 2 * t + (e & 1), acc[nt][e]);
+}
+
+// --------------------------------------------------------------------------
+// operands staged in shared memory
+// --------------------------------------------------------------------------
+
+constexpr int kTileRows = 32;              // rows a staged slab or tile
+
+// A staged operand: element (row, column) as float.
+template <typename E> struct Sm {
+  const E* v;
+  int ld;
+  __device__ __forceinline__ float operator()(int r, int c) const {
+    return f32(v[r * ld + c]);
+  }
+};
+
+// --------------------------------------------------------------------------
+// pass 1: seg, S and Lc of one (b, chunk, h), 32 columns of N a block
+// --------------------------------------------------------------------------
+
+// A block a (b, chunk, h) and 32 columns n0 of N: its four warps take 16
+// rows of P each and walk the chunk's rows in slabs of kTileRows, staging
+// x, B, gy and C rows (as the chunk kernel stages its tiles).  S = (u x)^T
+// B and Lc = (e gy)^T C, the scaled operand formed as it is loaded.
+template <typename In> struct StateLayout {
+  static constexpr int kLdNi = kMaxN + 4;
+  static constexpr int kLdPi = kMaxP + 4;
+  static constexpr size_t kSlabN = (size_t)kTileRows * kLdNi * sizeof(In);
+  static constexpr size_t kSlabP = (size_t)kTileRows * kLdPi * sizeof(In);
+  static constexpr size_t kBytes = 2 * (kSlabN + kSlabP);
+};
+
 template <typename In>
-__global__ void __launch_bounds__(kThreads) chunk_kernel(const Args a) {
-  chunk_body<In, false>(a);
+__device__ __forceinline__ void state_body(const Args& a) {
+  using Lay = StateLayout<In>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float segs[kMaxChunk], u[kMaxChunk], e[kMaxChunk];
+  const int cs = a.cs, H = a.H, P = a.P, N = a.N, G = a.G, L = a.L;
+  const int nS = (N + kSlab - 1) / kSlab;
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z / nS;
+  const int n0 = (blockIdx.z % nS) * kSlab;
+  const int grp = h / (H / G);
+  const long long row0 = (long long)b * L + (long long)c * cs;
+  const long long sbase = ((long long)b * H + h) * L + (long long)c * cs;
+  const auto dt = rd<float, false>(a, DT);
+  const auto x = rd<In, false>(a, X), gy = rd<In, false>(a, GY);
+  const auto Bm = rd<In, false>(a, BM), Cm = rd<In, false>(a, CM);
+  const float A = load_A<false>(a, b, h);
+  for (int i = threadIdx.x; i < cs; i += blockDim.x)
+    segs[i] = dt[(row0 + i) * H + h] * A;
+  __syncthreads();
+  if (threadIdx.x == 0) {                  // the cumsum, in row order
+    float s = 0.f;
+    for (int i = 0; i < cs; ++i) {
+      s += segs[i];
+      segs[i] = s;
+    }
+  }
+  __syncthreads();
+  const auto seg = wr<float, false>(a, SEG);
+  for (int i = threadIdx.x; i < kMaxChunk; i += blockDim.x) {
+    u[i] = e[i] = 0.f;                     // zero past the chunk
+    if (i >= cs) continue;
+    if (n0 == 0) seg.put(sbase + i, segs[i]);
+    u[i] = dexp(segs[cs - 1] - segs[i]) * dt[(row0 + i) * H + h];
+    e[i] = dexp(segs[i]);
+  }
+  // rows [k0, k0 + kTileRows) of m as an operand, staged at `at`
+  auto rows = [&](const Rd<In, false>& m, size_t at, bool group, int k0) {
+    const int W = group ? N : P, X = group ? G : H, xi = group ? grp : h;
+    const int ld = group ? Lay::kLdNi : Lay::kLdPi;
+    In* v = reinterpret_cast<In*>(smem + at);
+    stage(v, ld, m.v, row0, X, xi, W, (W + 31) & ~31, k0, kTileRows, cs);
+    return Sm<In>{v, ld};
+  };
+  const int p0 = 16 * (threadIdx.x >> 5);
+  float accS[4][4] = {}, accL[4][4] = {};
+  for (int k0 = 0; k0 < cs; k0 += kTileRows) {
+    __syncthreads();                       // the last slab is read
+    const Sm<In> xs = rows(x, 0, false, k0);
+    const Sm<In> bs = rows(Bm, Lay::kSlabP, true, k0);
+    const Sm<In> gs = rows(gy, Lay::kSlabP + Lay::kSlabN, false, k0);
+    const Sm<In> cs_ = rows(Cm, 2 * Lay::kSlabP + Lay::kSlabN, true, k0);
+    cp_async_wait();
+    __syncthreads();
+    if (p0 >= P) continue;
+    warp_mm(
+        accS, kTileRows,
+        [&](int i, int k) { return u[k0 + k] * xs(k, p0 + i); },
+        [&](int k, int j) { return bs(k, n0 + j); });
+    warp_mm(
+        accL, kTileRows,
+        [&](int i, int k) { return e[k0 + k] * gs(k, p0 + i); },
+        [&](int k, int j) { return cs_(k, n0 + j); });
+  }
+  if (p0 >= P) return;
+  const long long obase = (((long long)b * a.nc + c) * H + h) * P * N;
+  float* S = static_cast<float*>(a.p[2 * SS]);
+  float* Lc = static_cast<float*>(a.p[2 * LC]);
+  each(accS, [&](int i, int j, float v) {
+    const int p = p0 + i, n = n0 + j;
+    if (p < P && n < N) S[obase + (long long)p * N + n] = v;
+  });
+  each(accL, [&](int i, int j, float v) {
+    const int p = p0 + i, n = n0 + j;
+    if (p < P && n < N) Lc[obase + (long long)p * N + n] = v;
+  });
+}
+
+// --------------------------------------------------------------------------
+// pass 3: a block's 64 key rows or 64 query rows of a (b, chunk, h)
+// --------------------------------------------------------------------------
+
+// A block stages its own 64 rows of its two operands (key rows: B and x;
+// query rows: C and gy) once, then walks the other side's rows in tiles of
+// 32 (key rows the query rows q >= k; query rows the key rows k <= q),
+// staging each tile's two operands (C and gy; B and x), and last the
+// chunk's state operand (key rows gO, query rows s_in, P x N float32).
+// Staged rows are zero past the chunk and their columns zero up to the
+// next multiple of 32, so the warps read them without bounds.  Each warp
+// owns 16 of the block's rows: its M and Z slabs are its own, and so are
+// its accumulators, in registers.
+template <typename In> struct ChunkLayout {
+  static constexpr int kLdNi = kMaxN + 4;               // staged row strides
+  static constexpr int kLdPi = kMaxP + 4;
+  static constexpr size_t kOwn = (size_t)kRows * (kLdNi + kLdPi) * sizeof(In);
+  static constexpr size_t kTile =
+      (size_t)kTileRows * (kLdNi + kLdPi) * sizeof(In);
+  static constexpr size_t kMZ = (size_t)kWarps * 2 * 16 * kLdS * sizeof(float);
+  static constexpr size_t kState = (size_t)kMaxP * kLdN * sizeof(float);
+  static constexpr size_t kLoop = kTile + kMZ > kState ? kTile + kMZ : kState;
+  static constexpr size_t kBytes = kOwn + kLoop;
+};
+
+template <typename In> struct Chunk {
+  using Lay = ChunkLayout<In>;
+  static constexpr int kSP = kMaxP / kSlab, kSN = kMaxN / kSlab;
+  using Op = Sm<In>;
+  using StOp = Sm<float>;
+
+  const Args& a;
+  unsigned char* smem;
+  int b, c, h, grp, cs, H, P, N, G, warp, lane, g;
+  long long row0, sbase, obase;
+  Rd<In, false> x, gy, Bm, Cm;
+  Rd<float, false> dt, seg;
+
+  __device__ __forceinline__ Chunk(const Args& a_, unsigned char* smem_,
+                                   int b_, int c_, int h_)
+      : a(a_), smem(smem_), b(b_), c(c_), h(h_), cs(a_.cs), H(a_.H),
+        P(a_.P), N(a_.N), G(a_.G) {
+    grp = h / (H / G);
+    warp = threadIdx.x >> 5;
+    lane = threadIdx.x & 31;
+    g = lane >> 2;
+    row0 = (long long)b * a.L + (long long)c * cs;
+    sbase = ((long long)b * H + h) * a.L + (long long)c * cs;
+    obase = (((long long)b * a.nc + c) * H + h) * (long long)P * N;
+    x = rd<In, false>(a, X);
+    gy = rd<In, false>(a, GY);
+    Bm = rd<In, false>(a, BM);
+    Cm = rd<In, false>(a, CM);
+    dt = rd<float, false>(a, DT);
+    seg = rd<float, false>(a, SEG);
+  }
+
+  // rows [r0, r0 + n) of m (a B/C tensor with group index, or an x/gy
+  // tensor with head index), staged at `at` (bytes into shared memory)
+  template <bool kGroup>
+  __device__ __forceinline__ Op rows(const Rd<In, false>& m, size_t at,
+                                     int r0, int n) {
+    const int W = kGroup ? N : P, X = kGroup ? G : H, xi = kGroup ? grp : h;
+    const int ld = kGroup ? Lay::kLdNi : Lay::kLdPi;
+    In* v = reinterpret_cast<In*>(smem + at);
+    stage(v, ld, m.v, row0, X, xi, W, (W + 31) & ~31, r0, n, cs);
+    return Op{v, ld};
+  }
+  // the chunk's P x N state operand (gO or s_in), staged at `at`
+  __device__ __forceinline__ StOp state_op(int slot, size_t at) {
+    const float* m = static_cast<const float*>(a.p[2 * slot]);
+    float* v = reinterpret_cast<float*>(smem + at);
+    // as a (1, P, 1, N) tensor, zero to kMaxP rows and kLdN columns
+    stage(v, kLdN, m + obase, 0, 1, 0, N, (N + 31) & ~31, 0, kMaxP, P);
+    return StOp{v, kLdN};
+  }
+
+  // f(slab, 16 x 32 tile) for the slabs below width W of a warp's 16 rows
+  // x (32 kS) columns of accumulators
+  template <int kS, typename F>
+  __device__ __forceinline__ void acc_slabs(float (&acc)[kS][4][4], int W,
+                                            const F& f) {
+#pragma unroll
+    for (int q = 0; q < kS; ++q) {
+      if (q * kSlab >= W) break;
+      f(q, acc[q]);
+    }
+  }
+  template <int kS, typename F>
+  __device__ __forceinline__ void acc_each(float (&acc)[kS][4][4], int W,
+                                           const F& f) {
+    acc_slabs(acc, W, [&](int q, float (&t)[4][4]) {
+      each(t, [&](int i, int j, float& v) {
+        if (q * kSlab + j < W) f(i, q * kSlab + j, v);
+      });
+    });
+  }
+
+  // the warp's M (0) and Z (1) slabs, 16 x kSlab
+  __device__ __forceinline__ float* mz(int which) const {
+    return reinterpret_cast<float*>(smem + Lay::kOwn + Lay::kTile) +
+           (warp * 2 + which) * 16 * kLdS;
+  }
+  __device__ __forceinline__ float seg_at(int k) const {
+    return k < cs ? seg[sbase + k] : 0.f;
+  }
+  __device__ __forceinline__ float dt_at(int k) const {
+    return k < cs ? dt[(row0 + k) * H + h] : 0.f;
+  }
+
+  __device__ void key_rows(int kb) {
+    const int kc = kb * kRows, k0 = kc + 16 * warp;
+    const size_t rowsN = (size_t)kRows * Lay::kLdNi * sizeof(In);
+    const size_t tileN = (size_t)kTileRows * Lay::kLdNi * sizeof(In);
+    const Op Bk = rows<true>(Bm, 0, kc, kRows);
+    const Op xk = rows<false>(x, rowsN, kc, kRows);
+    float dx[kSP][4][4] = {}, dB[kSN][4][4] = {};
+    float segk[2], dtk[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      segk[r] = seg_at(k0 + g + 8 * r);
+      dtk[r] = dt_at(k0 + g + 8 * r);
+    }
+    float colR[2] = {}, direct[2] = {};
+    const int wr = 16 * warp;                     // the warp's own rows
+    for (int qs = kc; qs < cs; qs += kTileRows) {
+      __syncthreads();                            // the last tile is read
+      const Op Cq = rows<true>(Cm, Lay::kOwn, qs, kTileRows);
+      const Op gq = rows<false>(gy, Lay::kOwn + tileN, qs, kTileRows);
+      cp_async_wait();
+      __syncthreads();
+      if (k0 >= cs || qs + kTileRows <= k0) continue;
+      float Gt[4][4] = {}, Dt[4][4] = {};
+      warp_mm(
+          Gt, N, [&](int i, int n) { return Bk(wr + i, n); },
+          [&](int n, int j) { return Cq(j, n); });
+      warp_mm(
+          Dt, P, [&](int i, int p) { return xk(wr + i, p); },
+          [&](int p, int j) { return gq(j, p); });
+      float* Ms = mz(0);
+      float* Zs = mz(1);
+      each(Gt, [&](int i, int j, float gq_) {
+        const int k = k0 + i, q = qs + j, r = i >> 3;
+        const float d = Dt[j >> 3][(j & 1) + 2 * r];
+        float M = 0.f, Z = 0.f;
+        if (k < cs && q < cs && k <= q) {
+          const float E = dexp(seg[sbase + q] - segk[r]);
+          const float GE = gq_ * E;
+          M = GE * dtk[r];
+          Z = d * E * dtk[r];
+          if (k < q) colR[r] += d * M;     // the diagonal: see finish_body
+          direct[r] += d * GE;
+        }
+        Ms[i * kLdS + j] = M;
+        Zs[i * kLdS + j] = Z;
+      });
+      __syncwarp();
+      acc_slabs(dx, P, [&](int s, float (&t)[4][4]) {
+        warp_mm(
+            t, kSlab, [&](int i, int q) { return Ms[i * kLdS + q]; },
+            [&](int q, int j) { return gq(q, s * kSlab + j); });
+      });
+      acc_slabs(dB, N, [&](int s, float (&t)[4][4]) {
+        warp_mm(
+            t, kSlab, [&](int i, int q) { return Zs[i * kLdS + q]; },
+            [&](int q, int j) { return Cq(q, s * kSlab + j); });
+      });
+      __syncwarp();
+    }
+    // the state leaving the chunk: s_out += u_k x_k B_k^T
+    __syncthreads();
+    const StOp gO = state_op(GO, Lay::kOwn);
+    cp_async_wait();
+    __syncthreads();
+    if (k0 >= cs) return;                         // no barrier below
+    const float end = seg[sbase + cs - 1];
+    float wk[2], uk[2], xv[2] = {};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      wk[r] = k0 + g + 8 * r < cs ? dexp(end - segk[r]) : 0.f;
+      uk[r] = wk[r] * dtk[r];
+    }
+    for (int p0 = 0; p0 < P; p0 += kSlab) {
+      float v[4][4] = {};                         // gO B_k
+      warp_mm(
+          v, N, [&](int i, int n) { return Bk(wr + i, n); },
+          [&](int n, int j) { return gO(p0 + j, n); });
+      each(v, [&](int i, int j, float vv) {
+        if (p0 + j < P) xv[i >> 3] += xk(wr + i, p0 + j) * vv;
+      });
+      acc_slabs(dx, P, [&](int s, float (&t)[4][4]) {
+        if (s * kSlab != p0) return;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) t[nt][e] += uk[e >> 1] * v[nt][e];
+      });
+    }
+    acc_slabs(dB, N, [&](int s, float (&t)[4][4]) {
+      float w[4][4] = {};                         // gO^T x_k
+      warp_mm(
+          w, P, [&](int i, int p) { return xk(wr + i, p); },
+          [&](int p, int j) { return gO(p, s * kSlab + j); });
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) t[nt][e] += uk[e >> 1] * w[nt][e];
+    });
+    float* ddd = static_cast<float*>(a.p[2 * DDD]);
+    float* dsk = static_cast<float*>(a.p[2 * DSK]);
+    float* tk = static_cast<float*>(a.p[2 * TK]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      colR[r] = quad_sum(colR[r]);
+      direct[r] = quad_sum(direct[r]);
+      xv[r] = quad_sum(xv[r]);
+      const int k = k0 + g + 8 * r;
+      if ((lane & 3) == 0 && k < cs) {
+        const float Tk = k < cs - 1 ? uk[r] * xv[r] : 0.f;
+        ddd[sbase + k] = direct[r] + wk[r] * xv[r];
+        dsk[sbase + k] = -colR[r] - Tk;
+        tk[sbase + k] = Tk;
+      }
+    }
+    In* dxo = static_cast<In*>(a.p[2 * DX]);
+    float* dBh = static_cast<float*>(a.p[2 * DBH]);
+    acc_each(dx, P, [&](int i, int p, float& v) {
+      if (k0 + i < cs) dxo[((row0 + k0 + i) * H + h) * P + p] = cast<In>(v);
+    });
+    acc_each(dB, N, [&](int i, int n, float& v) {
+      if (k0 + i < cs) dBh[((row0 + k0 + i) * H + h) * N + n] = v;
+    });
+  }
+
+  __device__ void query_rows(int qb) {
+    const int qc = qb * kRows, q0 = qc + 16 * warp;
+    const size_t rowsN = (size_t)kRows * Lay::kLdNi * sizeof(In);
+    const size_t tileN = (size_t)kTileRows * Lay::kLdNi * sizeof(In);
+    const Op Cq = rows<true>(Cm, 0, qc, kRows);
+    const Op gq = rows<false>(gy, rowsN, qc, kRows);
+    float dC[kSN][4][4] = {};
+    float segq[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) segq[r] = seg_at(q0 + g + 8 * r);
+    float rowR[2] = {};
+    const int wr = 16 * warp;
+    const int kend = min(cs, qc + kRows);
+    for (int ks = 0; ks < kend; ks += kTileRows) {
+      __syncthreads();
+      const Op Bk = rows<true>(Bm, Lay::kOwn, ks, kTileRows);
+      const Op xk = rows<false>(x, Lay::kOwn + tileN, ks, kTileRows);
+      cp_async_wait();
+      __syncthreads();
+      if (q0 >= cs || ks > q0 + 15) continue;
+      float Gq[4][4] = {}, Dq[4][4] = {};
+      warp_mm(
+          Gq, N, [&](int i, int n) { return Cq(wr + i, n); },
+          [&](int n, int j) { return Bk(j, n); });
+      warp_mm(
+          Dq, P, [&](int i, int p) { return gq(wr + i, p); },
+          [&](int p, int j) { return xk(j, p); });
+      float* Zs = mz(1);
+      each(Gq, [&](int i, int j, float gq_) {
+        const int q = q0 + i, k = ks + j, r = i >> 3;
+        const float d = Dq[j >> 3][(j & 1) + 2 * r];
+        float Z = 0.f;
+        if (q < cs && k <= q) {
+          const float E = dexp(segq[r] - seg[sbase + k]);
+          Z = d * E * dt[(row0 + k) * H + h];
+          if (k < q) rowR[r] += Z * gq_;
+        }
+        Zs[i * kLdS + j] = Z;
+      });
+      __syncwarp();
+      acc_slabs(dC, N, [&](int s, float (&t)[4][4]) {
+        warp_mm(
+            t, kSlab, [&](int i, int k) { return Zs[i * kLdS + k]; },
+            [&](int k, int j) { return Bk(k, s * kSlab + j); });
+      });
+      __syncwarp();
+    }
+    // the entering state: y_q += exp(seg_q) s_in C_q (zero for the first
+    // chunk of a sequence, but the wrapper takes any s_in)
+    __syncthreads();
+    const StOp s_in = state_op(SIN, Lay::kOwn);
+    cp_async_wait();
+    __syncthreads();
+    if (q0 >= cs) return;                         // no barrier below
+    float rs[2] = {};
+    float eq[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) eq[r] = dexp(segq[r]);
+    acc_slabs(dC, N, [&](int s, float (&t)[4][4]) {
+      float w[4][4] = {};                         // gy_q s_in
+      warp_mm(
+          w, P, [&](int i, int p) { return gq(wr + i, p); },
+          [&](int p, int j) { return s_in(p, s * kSlab + j); });
+      each(w, [&](int i, int j, float ww) {
+        const int n = s * kSlab + j, r = i >> 3;
+        if (n < N) rs[r] += Cq(wr + i, n) * ww;
+      });
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) t[nt][e] += eq[e >> 1] * w[nt][e];
+    });
+    float* dsq = static_cast<float*>(a.p[2 * DSQ]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rowR[r] = quad_sum(rowR[r]);
+      rs[r] = quad_sum(rs[r]);
+      const int q = q0 + g + 8 * r;
+      if ((lane & 3) == 0 && q < cs) dsq[sbase + q] = rowR[r] + eq[r] * rs[r];
+    }
+    float* dCh = static_cast<float*>(a.p[2 * DCH]);
+    acc_each(dC, N, [&](int i, int n, float& v) {
+      if (q0 + i < cs) dCh[((row0 + q0 + i) * H + h) * N + n] = v;
+    });
+  }
+};
+
+template <typename In>
+__device__ __forceinline__ void chunk_body(const Args& a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nblk = (a.cs + kRows - 1) / kRows;
+  const int role = blockIdx.x >= nblk;               // 0 key rows, 1 query
+  const int blk = blockIdx.x - role * nblk;
+  const int bc = blockIdx.z, h = blockIdx.y;
+  Chunk<In> ch(a, smem, bc / a.nc, bc % a.nc, h);
+  if (role == 0) ch.key_rows(blk);
+  else ch.query_rows(blk);
+}
+
+// --------------------------------------------------------------------------
+// kernels
+// --------------------------------------------------------------------------
+
+template <typename In>
+__global__ void __launch_bounds__(kThreads) state_kernel(const Args a) {
+  state_body<In>(a);
 }
 template <typename In>
-__global__ void __launch_bounds__(kThreads) tangent_chunk_kernel(
-    const Args a) {
-  chunk_body<In, true>(a);
+__global__ void __launch_bounds__(kThreads) chunk_kernel(const Args a) {
+  chunk_body<In>(a);
 }
 __global__ void __launch_bounds__(128) finish_kernel(const Args a) {
   finish_body<false>(a);
-}
-__global__ void __launch_bounds__(128) tangent_finish_kernel(const Args a) {
-  finish_body<true>(a);
 }
 template <typename In>
 __global__ void __launch_bounds__(256) reduce_kernel(const Args a) {
   reduce_body<In>(a, 0);
 }
-template <typename In>
-__global__ void __launch_bounds__(256) tangent_reduce_kernel(const Args a) {
-  reduce_body<In>(a, 1);
-}
 
 template <typename In>
-cudaError_t launch(int pass, bool tangent, const Args& a, cudaStream_t s) {
+cudaError_t launch(int pass, const Args& a, cudaStream_t s) {
   switch (pass) {
     case 0: {
       const dim3 grid(a.H, a.nc, a.B * ((a.N + kSlab - 1) / kSlab));
-      const size_t smem = tangent ? StateLayout<In, true>::kBytes
-                                  : StateLayout<In, false>::kBytes;
-      const void* fn = tangent ? (const void*)tangent_state_kernel<In>
-                               : (const void*)state_kernel<In>;
+      const size_t smem = StateLayout<In>::kBytes;
       const cudaError_t err = cudaFuncSetAttribute(
-          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+          state_kernel<In>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
       if (err != cudaSuccess) return err;
-      if (tangent) tangent_state_kernel<In><<<grid, kThreads, smem, s>>>(a);
-      else state_kernel<In><<<grid, kThreads, smem, s>>>(a);
+      state_kernel<In><<<grid, kThreads, smem, s>>>(a);
       break;
     }
-    case 1: {
-      const dim3 grid(a.H, a.B);
-      if (tangent) tangent_pass_kernel<<<grid, kPassThreads, 0, s>>>(a);
-      else pass_kernel<<<grid, kPassThreads, 0, s>>>(a);
+    case 1:
+      pass_kernel<<<dim3(a.H, a.B), kPassThreads, 0, s>>>(a);
       break;
-    }
     case 2: {
       const dim3 grid(2 * ((a.cs + kRows - 1) / kRows), a.H, a.B * a.nc);
-      const size_t smem = tangent ? ChunkLayout<In, true>::kBytes
-                                  : ChunkLayout<In, false>::kBytes;
-      const void* fn = tangent ? (const void*)tangent_chunk_kernel<In>
-                               : (const void*)chunk_kernel<In>;
+      const size_t smem = ChunkLayout<In>::kBytes;
       const cudaError_t err = cudaFuncSetAttribute(
-          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+          chunk_kernel<In>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
       if (err != cudaSuccess) return err;
-      if (tangent) tangent_chunk_kernel<In><<<grid, kThreads, smem, s>>>(a);
-      else chunk_kernel<In><<<grid, kThreads, smem, s>>>(a);
+      chunk_kernel<In><<<grid, kThreads, smem, s>>>(a);
       break;
     }
     case 3: {
       const long long n = 32LL * a.B * a.H * a.nc;       // a warp each
-      const unsigned blocks = (unsigned)((n + 127) / 128);
-      if (tangent) tangent_finish_kernel<<<blocks, 128, 0, s>>>(a);
-      else finish_kernel<<<blocks, 128, 0, s>>>(a);
+      finish_kernel<<<(unsigned)((n + 127) / 128), 128, 0, s>>>(a);
       break;
     }
     case 4: {
@@ -1145,10 +1023,7 @@ cudaError_t launch(int pass, bool tangent, const Args& a, cudaStream_t s) {
                           (a.a_per_seq ? (long long)a.B * a.H : a.H);
       const long long blocks = (n + 255) / 256;
       if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-      if (tangent)
-        tangent_reduce_kernel<In><<<(unsigned)blocks, 256, 0, s>>>(a);
-      else
-        reduce_kernel<In><<<(unsigned)blocks, 256, 0, s>>>(a);
+      reduce_kernel<In><<<(unsigned)blocks, 256, 0, s>>>(a);
       break;
     }
     default:
@@ -1169,7 +1044,8 @@ cudaError_t launch(int pass, bool tangent, const Args& a, cudaStream_t s) {
 //              product on wgmma.m64n128k16 with the scaled operand as hi/lo
 //              register fragments, the chunk's key tiles streamed by TMA
 //              through a ring of two stages; seg by a warp scan.
-//   pass   [1] sbw::pass_kernel (float32, shared with the float32 route).
+//   pass   [1] ssd::pass_kernel (the tangent's ssd::tangent_pass_kernel;
+//              float32, shared by every route).
 //   gram   [5] one block a (b, chunk, group, pair of 64-row tiles q >= k):
 //              G^T = B_k C_q^T once for all the group's heads, written in
 //              the accumulator's order so that the chunk kernel copies a
@@ -1178,7 +1054,7 @@ cudaError_t launch(int pass, bool tangent, const Args& a, cudaStream_t s) {
 //              block walks the key tiles k and, for each, the query tiles
 //              q >= k, so each (q, k) pair's D^T = x_k gy_q^T (and G^T,
 //              read once) are formed once and feed dx, dB and dC alike.
-//   finish [3] and reduce [4]: sbw's bodies (ddt and dA; dB and dC summed
+//   finish [3] and reduce [4]: ssd's bodies (ddt and dA; dB and dC summed
 //              over a group's heads) under this namespace's names.
 //
 // The chunk kernel.  dx and dB of the block's key tile stay in wgmma
@@ -1225,9 +1101,9 @@ cudaError_t launch(int pass, bool tangent, const Args& a, cudaStream_t s) {
 namespace hbw {
 
 using bf16 = __nv_bfloat16;
-using sbw::Args;
-using sbw::Dual;
-template <bool kDual> using Num = sbw::Num<kDual>;
+using ssd::Args;
+using ssd::Dual;
+template <bool kDual> using Num = ssd::Num<kDual>;
 
 constexpr int kWG = 128;                           // threads of a warpgroup
 constexpr int kM = 64;                             // rows of a tile
@@ -1528,7 +1404,7 @@ template <bool kDual> struct StateLay {
   static constexpr int kNP = kDual ? 2 : 1;
   static constexpr uint32_t kStage = kNP * 3 * kRegion;   // A tile, B tile
   static constexpr uint32_t kWGBytes = 2 * kStage;
-  static constexpr uint32_t kVecs = kNP * 3 * sbw::kMaxChunk * 4;
+  static constexpr uint32_t kVecs = kNP * 3 * ssd::kMaxChunk * 4;
   static constexpr size_t kBytes = 1024 + 2 * kWGBytes + 2 * kVecs + 64;
 };
 
@@ -1617,8 +1493,8 @@ __device__ __forceinline__ void state_body(const HArgs& ha) {
   float* vec = reinterpret_cast<float*>(gbase + 2 * Lay::kWGBytes +
                                         wg * Lay::kVecs);
   float* dtv = vec;                          // [NP][256]: dt, dt'
-  float* segv = vec + NP * sbw::kMaxChunk;   // seg, seg'
-  float* sc = vec + 2 * NP * sbw::kMaxChunk; // u or e, and its tangent
+  float* segv = vec + NP * ssd::kMaxChunk;   // seg, seg'
+  float* sc = vec + 2 * NP * ssd::kMaxChunk; // u or e, and its tangent
   const uint32_t bars = base + 2 * Lay::kWGBytes + 2 * Lay::kVecs + 16 * wg;
   const CUtensorMap* ta = wg ? ha.tgy : ha.tx;
   const CUtensorMap* tb = wg ? ha.tc : ha.tb;
@@ -1653,44 +1529,44 @@ __device__ __forceinline__ void state_body(const HArgs& ha) {
     if (nt > 1) load(1);
   }
   // dt (and dt') of the chunk, zero past it; seg by warp 0
-  const float* dt = ptr<const float>(a, sbw::DT, 0);
-  const float* dtt = ptr<const float>(a, sbw::DT, 1);
-  for (int i = t; i < sbw::kMaxChunk; i += kWG) {
+  const float* dt = ptr<const float>(a, ssd::DT, 0);
+  const float* dtt = ptr<const float>(a, ssd::DT, 1);
+  for (int i = t; i < ssd::kMaxChunk; i += kWG) {
     const bool in = i < cs;
     dtv[i] = in ? dt[(row0 + i) * H + h] : 0.f;
     if constexpr (kDual)
-      dtv[sbw::kMaxChunk + i] = in ? dtt[(row0 + i) * H + h] : 0.f;
+      dtv[ssd::kMaxChunk + i] = in ? dtt[(row0 + i) * H + h] : 0.f;
   }
   bar_wg(wg);
   if (warp == 0) {
-    const float av = ptr<const float>(a, sbw::AA, 0)[b * a.a_stride + h];
+    const float av = ptr<const float>(a, ssd::AA, 0)[b * a.a_stride + h];
     const float at =
-        kDual ? ptr<const float>(a, sbw::AA, 1)[b * a.ta_stride + h] : 0.f;
-    cumsum<kDual>(dtv, dtv + sbw::kMaxChunk, av, at, segv,
-                  segv + sbw::kMaxChunk, cs, lane);
+        kDual ? ptr<const float>(a, ssd::AA, 1)[b * a.ta_stride + h] : 0.f;
+    cumsum<kDual>(dtv, dtv + ssd::kMaxChunk, av, at, segv,
+                  segv + ssd::kMaxChunk, cs, lane);
   }
   bar_wg(wg);
   // the scale of the A operand: u_k = exp(seg_end - seg_k) dt_k (S) or
   // e_k = exp(seg_k) (Lc), zero past the chunk
   const long long sbase = ((long long)b * H + h) * a.L + (long long)c * cs;
   const Num<kDual> end = num<kDual>(segv[cs - 1],
-                                    kDual ? segv[sbw::kMaxChunk + cs - 1] : 0.f);
-  for (int i = t; i < sbw::kMaxChunk; i += kWG) {
+                                    kDual ? segv[ssd::kMaxChunk + cs - 1] : 0.f);
+  for (int i = t; i < ssd::kMaxChunk; i += kWG) {
     Num<kDual> s{};
     if (i < cs) {
       const Num<kDual> sg = num<kDual>(segv[i],
-                                       kDual ? segv[sbw::kMaxChunk + i] : 0.f);
+                                       kDual ? segv[ssd::kMaxChunk + i] : 0.f);
       if (wg == 0) {
-        s = sbw::dexp(end - sg) *
-            num<kDual>(dtv[i], kDual ? dtv[sbw::kMaxChunk + i] : 0.f);
-        ptr<float>(a, sbw::SEG, 0)[sbase + i] = vpart(sg);
-        if constexpr (kDual) ptr<float>(a, sbw::SEG, 1)[sbase + i] = tpart(sg);
+        s = ssd::dexp(end - sg) *
+            num<kDual>(dtv[i], kDual ? dtv[ssd::kMaxChunk + i] : 0.f);
+        ptr<float>(a, ssd::SEG, 0)[sbase + i] = vpart(sg);
+        if constexpr (kDual) ptr<float>(a, ssd::SEG, 1)[sbase + i] = tpart(sg);
       } else {
-        s = sbw::dexp(sg);
+        s = ssd::dexp(sg);
       }
     }
     sc[i] = vpart(s);
-    if constexpr (kDual) sc[sbw::kMaxChunk + i] = tpart(s);
+    if constexpr (kDual) sc[ssd::kMaxChunk + i] = tpart(s);
   }
   bar_wg(wg);
 
@@ -1727,7 +1603,7 @@ __device__ __forceinline__ void state_body(const HArgs& ha) {
     keep(lo);
     if constexpr (kDual) {             // + A' B, A' = w' x + w x'
       keep(acct);
-      scaled_frags(gst, w + sbw::kMaxChunk, gst + kRegion, w, t, hi, lo);
+      scaled_frags(gst, w + ssd::kMaxChunk, gst + kRegion, w, t, hi, lo);
       keep(hi);
       keep(lo);
       wg_fence();
@@ -1747,8 +1623,8 @@ __device__ __forceinline__ void state_body(const HArgs& ha) {
     if (t == 0 && kt + 2 < nt) load(kt + 2);
   }
   const long long obase = ((long long)bc * H + h) * P * N;
-  float* out = ptr<float>(a, wg ? sbw::LC : sbw::SS, 0) + obase;
-  float* outt = ptr<float>(a, wg ? sbw::LC : sbw::SS, 1) + obase;
+  float* out = ptr<float>(a, wg ? ssd::LC : ssd::SS, 0) + obase;
+  float* outt = ptr<float>(a, wg ? ssd::LC : ssd::SS, 1) + obase;
 #pragma unroll
   for (int e = 0; e < 64; e += 2) {
     const int p = frag_row(e, t), n = frag_col(e, t);
@@ -1816,13 +1692,13 @@ __device__ __forceinline__ void gram_body(const HArgs& ha) {
   if constexpr (kDual) keep(gt);
   const long long at =
       (((long long)bc * a.G + grp) * pairs(nt) + pidx) * (kM * kM / 4);
-  float4* out = ptr<float4>(a, sbw::GRAM, 0) + at;
+  float4* out = ptr<float4>(a, ssd::GRAM, 0) + at;
 #pragma unroll
   for (int j = 0; j < 8; ++j)
     out[j * kWG + t] = make_float4(g[4 * j], g[4 * j + 1], g[4 * j + 2],
                                    g[4 * j + 3]);
   if constexpr (kDual) {
-    float4* outt = ptr<float4>(a, sbw::GRAM, 1) + at;
+    float4* outt = ptr<float4>(a, ssd::GRAM, 1) + at;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       outt[j * kWG + t] = make_float4(gt[4 * j], gt[4 * j + 1],
@@ -1848,7 +1724,7 @@ template <bool kDual> struct ChunkLay {
   static constexpr uint32_t kTiles_ = oPL + NP * 4 * kRegion;
   // gO or s_in as hi/lo planes (then the tangent's), over the pair's planes
   static constexpr uint32_t oST = oPL;
-  static constexpr int kV = sbw::kMaxChunk;
+  static constexpr int kV = ssd::kMaxChunk;
   // seg, dt, R's per-warp column sums (4), the entering-state terms of
   // dseg, and the second warpgroup's row sums for the first
   static constexpr uint32_t kVecs = NP * (2 + 4 + 1 + 1) * kV * 4;
@@ -1952,7 +1828,7 @@ __device__ __forceinline__ void chunk_body(const HArgs& ha) {
     mbar_expect(bar_g, NP * kGramBytes);
     for (int pl = 0; pl < NP; ++pl)
       bulk_load(base + Lay::oG + pl * kGramBytes,
-                ptr<const float>(a, sbw::GRAM, pl) + at, kGramBytes, bar_g);
+                ptr<const float>(a, ssd::GRAM, pl) + at, kGramBytes, bar_g);
   };
   // the second warpgroup's row sums (this thread's rows r0, r0 + 8) added
   // to the first's, in that order; every thread of the block calls it
@@ -1996,17 +1872,17 @@ __device__ __forceinline__ void chunk_body(const HArgs& ha) {
     const bool in = i < cs;
 #pragma unroll
     for (int pl = 0; pl < NP; ++pl) {
-      segv[pl * kV + i] = in ? ptr<const float>(a, sbw::SEG, pl)[sbase + i]
+      segv[pl * kV + i] = in ? ptr<const float>(a, ssd::SEG, pl)[sbase + i]
                              : 0.f;
       dtv[pl * kV + i] =
-          in ? ptr<const float>(a, sbw::DT, pl)[(row0 + i) * H + h] : 0.f;
+          in ? ptr<const float>(a, ssd::DT, pl)[(row0 + i) * H + h] : 0.f;
       for (int w = 0; w < 4; ++w) rowr[(pl * 4 + w) * kV + i] = 0.f;
     }
   }
   // the entering state s_in as hi/lo planes
   stage_state<kDual, kThreads>(gbase + Lay::oST,
-                               ptr<const float>(a, sbw::SIN, 0) + obase,
-                               kDual ? ptr<const float>(a, sbw::SIN, 1) + obase
+                               ptr<const float>(a, ssd::SIN, 0) + obase,
+                               kDual ? ptr<const float>(a, ssd::SIN, 1) + obase
                                      : nullptr,
                                P, N, tid);
   fence_async_smem();
@@ -2014,7 +1890,7 @@ __device__ __forceinline__ void chunk_body(const HArgs& ha) {
   const int r0 = frag_row(0, t);
   // this thread's two rows (r = 0, 1) of a tile: r0 and r0 + 8
   const int dplane = kDual ? 1 : 0;       // the plane dx, dB, dC carry
-  float* dCh = ptr<float>(a, sbw::DCH, dplane);
+  float* dCh = ptr<float>(a, ssd::DCH, dplane);
   auto dc_at = [&](int q, int n) {
     return ((row0 + q) * H + h) * (long long)N + n;
   };
@@ -2048,7 +1924,7 @@ __device__ __forceinline__ void chunk_body(const HArgs& ha) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int q = qt * kM + r0 + 8 * r;
-      eq[r] = q < cs ? sbw::dexp(seg_at(q)) : T{};
+      eq[r] = q < cs ? ssd::dexp(seg_at(q)) : T{};
     }
     const uint8_t* Ct = gbase + Lay::oC;
 #pragma unroll
@@ -2070,7 +1946,7 @@ __device__ __forceinline__ void chunk_body(const HArgs& ha) {
       }
     }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) rs[r] = sbw::quad_sum(rs[r]);
+    for (int r = 0; r < 2; ++r) rs[r] = ssd::quad_sum(rs[r]);
     row_sums(rs, 2 * kM);
     if (own_x)
 #pragma unroll
@@ -2090,8 +1966,8 @@ __device__ __forceinline__ void chunk_body(const HArgs& ha) {
     __syncthreads();                     // every warp is done with ST, K
     if (tid == 0) load_k(kt);
     stage_state<kDual, kThreads>(gbase + Lay::oST,
-                                 ptr<const float>(a, sbw::GO, 0) + obase,
-                                 kDual ? ptr<const float>(a, sbw::GO, 1) + obase
+                                 ptr<const float>(a, ssd::GO, 0) + obase,
+                                 kDual ? ptr<const float>(a, ssd::GO, 1) + obase
                                        : nullptr,
                                  P, N, tid);
     fence_async_smem();
@@ -2105,7 +1981,7 @@ __device__ __forceinline__ void chunk_body(const HArgs& ha) {
       const bool in = k < cs;
       segk[r] = seg_at(in ? k : 0);
       dtk[r] = in ? dt_at(k) : T{};
-      wk[r] = in ? sbw::dexp(seg_end - segk[r]) : T{};
+      wk[r] = in ? ssd::dexp(seg_end - segk[r]) : T{};
       ukk[r] = wk[r] * dtk[r];
     }
     // the state leaving the chunk: dx = u_k gO B_k, dB = u_k gO^T x_k
@@ -2142,7 +2018,7 @@ __device__ __forceinline__ void chunk_body(const HArgs& ha) {
         dx[e] = kDual ? tpart(ukk[r] * vv) : vpart(ukk[r] * vv);
       }
 #pragma unroll
-      for (int r = 0; r < 2; ++r) xv[r] = sbw::quad_sum(xv[r]);
+      for (int r = 0; r < 2; ++r) xv[r] = ssd::quad_sum(xv[r]);
     }
     if (own_B) {
       float w[kDual ? 64 : 1];
@@ -2227,7 +2103,7 @@ __device__ __forceinline__ void chunk_body(const HArgs& ha) {
           for (int u = 0; u < 2; ++u) {
             const int q = qt * kM + col + u;
             const bool in = k < cs && q < cs && k <= q;
-            const T E = sbw::dexp(in ? seg_at(q) - segk[hh]
+            const T E = ssd::dexp(in ? seg_at(q) - segk[hh]
                                      : num<kDual>(-INFINITY, 0.f));
             const T G = num<kDual>(gvs[2 * hh + u], gts[2 * hh + u]);
             const T Dv = num<kDual>(D[e + u], kDual ? Dt[e + u] : 0.f);
@@ -2262,9 +2138,9 @@ __device__ __forceinline__ void chunk_body(const HArgs& ha) {
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           T s = cols[u];
-          s += sbw::shfl_xor(s, 4);
-          s += sbw::shfl_xor(s, 8);
-          s += sbw::shfl_xor(s, 16);
+          s += ssd::shfl_xor(s, 4);
+          s += ssd::shfl_xor(s, 8);
+          s += ssd::shfl_xor(s, 16);
           const int q = qt * kM + kCols * wg + frag_col(4 * i, t) + u;
           if (lane < 4 && q < cs) {
             rowr[warp * kV + q] += vpart(s);
@@ -2350,7 +2226,7 @@ __device__ __forceinline__ void chunk_body(const HArgs& ha) {
 
     // the key tile's outputs: dx, dB per head, ddd, dsk, tk
     if (own_x) {
-      bf16* dxo = ptr<bf16>(a, sbw::DX, dplane);
+      bf16* dxo = ptr<bf16>(a, ssd::DX, dplane);
 #pragma unroll
       for (int e = 0; e < 32; e += 2) {
         const int k = kt * kM + frag_row(e, t), p = frag_col(e, t);
@@ -2360,7 +2236,7 @@ __device__ __forceinline__ void chunk_body(const HArgs& ha) {
       }
     }
     if (own_B) {
-      float* dBh = ptr<float>(a, sbw::DBH, dplane);
+      float* dBh = ptr<float>(a, ssd::DBH, dplane);
 #pragma unroll
       for (int e = 0; e < 64; e += 2) {
         const int k = kt * kM + frag_row(e, t), n = frag_col(e, t);
@@ -2371,8 +2247,8 @@ __device__ __forceinline__ void chunk_body(const HArgs& ha) {
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      colR[r] = sbw::quad_sum(colR[r]);
-      direct[r] = sbw::quad_sum(direct[r]);
+      colR[r] = ssd::quad_sum(colR[r]);
+      direct[r] = ssd::quad_sum(direct[r]);
     }
     row_sums(colR, 0);
     row_sums(direct, kM);
@@ -2386,11 +2262,11 @@ __device__ __forceinline__ void chunk_body(const HArgs& ha) {
           const T dsk = T{} - colR[r] - Tk;
 #pragma unroll
           for (int pl = 0; pl < NP; ++pl) {
-            ptr<float>(a, sbw::DDD, pl)[sbase + k] =
+            ptr<float>(a, ssd::DDD, pl)[sbase + k] =
                 pl ? tpart(ddd) : vpart(ddd);
-            ptr<float>(a, sbw::DSK, pl)[sbase + k] =
+            ptr<float>(a, ssd::DSK, pl)[sbase + k] =
                 pl ? tpart(dsk) : vpart(dsk);
-            ptr<float>(a, sbw::TK, pl)[sbase + k] = pl ? tpart(Tk) : vpart(Tk);
+            ptr<float>(a, ssd::TK, pl)[sbase + k] = pl ? tpart(Tk) : vpart(Tk);
           }
         }
       }
@@ -2402,7 +2278,7 @@ __device__ __forceinline__ void chunk_body(const HArgs& ha) {
 #pragma unroll
     for (int pl = 0; pl < NP; ++pl) {
       const float* rr = rowr + pl * 4 * kV;
-      ptr<float>(a, sbw::DSQ, pl)[sbase + q] =
+      ptr<float>(a, ssd::DSQ, pl)[sbase + q] =
           ((rr[q] + rr[kV + q]) + (rr[2 * kV + q] + rr[3 * kV + q])) +
           dsqs[pl * kV + q];
     }
@@ -2437,16 +2313,16 @@ tangent_chunk_kernel(const __grid_constant__ HArgs ha) {
   chunk_body<true>(ha);
 }
 __global__ void __launch_bounds__(128) finish_kernel(const Args a) {
-  sbw::finish_body<false>(a);
+  ssd::finish_body<false>(a);
 }
 __global__ void __launch_bounds__(128) tangent_finish_kernel(const Args a) {
-  sbw::finish_body<true>(a);
+  ssd::finish_body<true>(a);
 }
 __global__ void __launch_bounds__(256) reduce_kernel(const Args a) {
-  sbw::reduce_body<bf16>(a, 0);
+  ssd::reduce_body<bf16>(a, 0);
 }
 __global__ void __launch_bounds__(256) tangent_reduce_kernel(const Args a) {
-  sbw::reduce_body<bf16>(a, 1);
+  ssd::reduce_body<bf16>(a, 1);
 }
 
 // --------------------------------------------------------------------------
@@ -2523,8 +2399,8 @@ template <bool kDual>
 cudaError_t launch(int pass, const Args& a, cudaStream_t s) {
   if (pass == 1) {
     const dim3 grid(a.H, a.B);
-    if (kDual) sbw::tangent_pass_kernel<<<grid, sbw::kPassThreads, 0, s>>>(a);
-    else sbw::pass_kernel<<<grid, sbw::kPassThreads, 0, s>>>(a);
+    if (kDual) ssd::tangent_pass_kernel<<<grid, ssd::kPassThreads, 0, s>>>(a);
+    else ssd::pass_kernel<<<grid, ssd::kPassThreads, 0, s>>>(a);
     return cudaGetLastError();
   }
   if (pass == 3)
@@ -2546,10 +2422,10 @@ cudaError_t launch(int pass, const Args& a, cudaStream_t s) {
   const long long bnc = (long long)a.B * a.nc;
   const int pls = kDual ? 2 : 1;
   for (int pl = 0; pl < pls; ++pl) {
-    if (!map_rows(&ha.tx[pl], a.p[2 * sbw::X + pl], a.P, a.H, a.cs, bnc) ||
-        !map_rows(&ha.tgy[pl], a.p[2 * sbw::GY + pl], a.P, a.H, a.cs, bnc) ||
-        !map_rows(&ha.tb[pl], a.p[2 * sbw::BM + pl], a.N, a.G, a.cs, bnc) ||
-        !map_rows(&ha.tc[pl], a.p[2 * sbw::CM + pl], a.N, a.G, a.cs, bnc))
+    if (!map_rows(&ha.tx[pl], a.p[2 * ssd::X + pl], a.P, a.H, a.cs, bnc) ||
+        !map_rows(&ha.tgy[pl], a.p[2 * ssd::GY + pl], a.P, a.H, a.cs, bnc) ||
+        !map_rows(&ha.tb[pl], a.p[2 * ssd::BM + pl], a.N, a.G, a.cs, bnc) ||
+        !map_rows(&ha.tc[pl], a.p[2 * ssd::CM + pl], a.N, a.G, a.cs, bnc))
       return cudaErrorInvalidValue;
   }
   if (!kDual) {                      // unused tangent maps: copies
@@ -2573,41 +2449,863 @@ cudaError_t launch(int pass, const Args& a, cudaStream_t s) {
 
 }  // namespace hbw
 
+// ==========================================================================
+// the float32 tangent on Hopper's tensor cores (namespace tbw)
+// ==========================================================================
+//
+// hbw's tangent design with every product as three TF32 mma.sync products
+// (m16n8k8, float32 accumulators): each float32 operand x is split as it is
+// loaded into a fragment into hi = tf32(x) (rounded to nearest, ties away)
+// and lo = x - hi, and a product sums lo hi + hi lo + hi hi (about 21 bits
+// of each operand; one TF32 product keeps 11 and misses the float32
+// tolerance).  Why mma.sync and not wgmma: wgmma reads TF32 from shared
+// memory only K-major, and dx' = M'^T gy, dB' = Z'^T C, dC' = Z' B, the
+// states' S = (u x)^T B and the entering term gy s_in all contract over
+// the rows of a row-major tile; mma.sync's fragments are loaded by each
+// lane in either orientation from plain float32 tiles (rows padded by 4
+// words), so nothing is staged twice.  Six launches, in order (pass ids of
+// the C entry in brackets):
+//   state  [0] one block (8 warps) a (b, chunk, h): warp scan of seg and
+//              seg' (hbw's), then S, S' (warps 0-3) and Lc, Lc' (4-7),
+//              each warp 16 rows of P by all 128 columns of N, the chunk's
+//              rows streamed in 32-row tiles by cp.async.
+//   pass   [1] ssd::tangent_pass_kernel (dual, eight elements a thread).
+//   gram   [5] one block a (b, chunk, group, pair of a 64-row key tile k
+//              and a 32-row query tile q that meets k <= q): G^T = B_k C_q^T
+//              and G'^T, once for all the group's heads, written in the
+//              chunk kernel's fragment order (each thread's 8 values).
+//   chunk  [2] one block (8 warps) a (b, chunk, h): the entering-state term
+//              of each query tile (dC' = (e_q gy_q s_in)' into the per-head
+//              scratch, its row sums), then for each key tile its state
+//              terms (dx' = (u_k gO B_k)', dB' = (u_k gO^T x_k)') and the
+//              walk over the query tiles q >= k: D^T = x_k gy_q^T and D'^T,
+//              the per-element work once (M, Z, M', Z' into shared memory,
+//              the R sums), then dx' += M'^T gy + M^T gy' and dB' += Z'^T C
+//              + Z^T C' (registers, warp (rows, half) owning 16 key rows by
+//              half of the columns) and dC'_q += Z' B_k + Z B'_k (its
+//              partial sum read from and written back to the scratch, the
+//              same thread each pair).  Only tangents accumulate: the value
+//              planes M, Z are formed once and read by both products.
+//   finish [3] and reduce [4]: ssd's bodies under this namespace's names.
+// Every pair's products go into fresh accumulators added to the totals in
+// float32 (the tensor core's accumulation rounds toward zero).  The
+// per-element work is branch-free: the exponent is masked to -inf before
+// the exponential.  Sums run in fixed orders, without atomics.
+//
+// Shared memory of the chunk kernel (206,848 bytes, one block an SM): the
+// key tile's x, x' (64 x 68 floats) and B, B' (64 x 132); the query tile's
+// gy, gy' (32 x 68) and C, C' (32 x 132) and the planes M, Z, M', Z' (64 x
+// 36), where gO, gO' (64 x 132) also land before each key tile's walk (and
+// s_in, s_in' in the key tile's place before the first).
+//
+// What bounds it.  At the mamba2 training shape (B = 8, L = 512, H = 24, P
+// = 64, N = 128, G = 1, chunk 256) the tangent's least work is 53.7 GFLOP
+// at the float32 rate, 0.80 ms at 67 TFLOP/s; as three TF32 products 161
+// GFLOP, 0.33 ms at 495 TFLOP/s; its bytes ~150 MB, 0.045 ms
+// (chip_smoke.py::ssd_bwd_cost).  This design forms the causal pairs by
+// whole 64 x 32 tiles and reads dC's partial sums through L2.
+namespace tbw {
+
+using namespace ssd;
+using hbw::ptr;
+
+constexpr int kThreads = 256;                   // 8 warps
+constexpr int kKT = 64;                         // rows of a key tile
+constexpr int kQT = 32;                         // rows of a query tile
+constexpr int kLdP = kMaxP + 4;                 // row strides of the tiles
+constexpr int kLdN = kMaxN + 4;
+constexpr int kLdQ = kQT + 4;
+constexpr int kGramTile = kKT * kQT;            // floats of a G tile
+
+// The pairs (key tile kt, query tile qt >= 2 kt) in order: the first of key
+// tile kt, and all of a chunk.
+__host__ __device__ constexpr int pair_start(int kt, int nq) {
+  return kt * nq - kt * (kt - 1);
+}
+__host__ __device__ constexpr int npairs(int cs) {
+  return pair_start(ceil_div(cs, kKT), ceil_div(cs, kQT));
+}
+
+struct FragA {                                  // a 16 x 8 A operand
+  uint32_t hi[4], lo[4];
+};
+struct FragB {                                  // an 8 x 8 B operand
+  uint32_t hi[2], lo[2];
+};
+
+// hi = tf32(x), rounded to nearest with ties away from zero, and lo = x -
+// hi, exact in float32 (the tensor core reads its top 19 bits).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  const uint32_t h = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  hi = h;
+  lo = __float_as_uint(x - __uint_as_float(h));
+}
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// d += A B in 3xTF32, the small terms first.
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
+                                     const FragB& b) {
+  mma(d, a.lo, b.hi);
+  mma(d, a.hi, b.lo);
+  mma(d, a.hi, b.hi);
+}
+// A (16 x 8) with A[r][c] = f(r, c): lane (g, t) holds (g, t), (g + 8, t),
+// (g, t + 4), (g + 8, t + 4).
+template <typename F>
+__device__ __forceinline__ FragA frag_a(const F& f, int g, int t) {
+  FragA x;
+  split(f(g, t), x.hi[0], x.lo[0]);
+  split(f(g + 8, t), x.hi[1], x.lo[1]);
+  split(f(g, t + 4), x.hi[2], x.lo[2]);
+  split(f(g + 8, t + 4), x.hi[3], x.lo[3]);
+  return x;
+}
+// B (8 x 8) with B[k][n] = f(k, n): lane (g, t) holds (t, g) and (t + 4, g).
+template <typename F>
+__device__ __forceinline__ FragB frag_b(const F& f, int g, int t) {
+  FragB x;
+  split(f(t, g), x.hi[0], x.lo[0]);
+  split(f(t + 4, g), x.hi[1], x.lo[1]);
+  return x;
+}
+// The fragment operands of row-major float32 tiles (row stride ld):
+// A from rows r0 .. of tile s, columns c0 ..
+__device__ __forceinline__ FragA rows_a(const float* s, int ld, int r0,
+                                        int c0, int g, int t) {
+  return frag_a([&](int r, int c) { return s[(r0 + r) * ld + c0 + c]; }, g,
+                t);
+}
+// A from tile s read transposed: A[r][c] = s[c0 + c][r0 + r]
+__device__ __forceinline__ FragA cols_a(const float* s, int ld, int r0,
+                                        int c0, int g, int t) {
+  return frag_a([&](int r, int c) { return s[(c0 + c) * ld + r0 + r]; }, g,
+                t);
+}
+// B whose contraction runs along the tile's columns (the tile's rows are
+// B's columns, as gy in x gy^T): B[k][n] = s[n0 + n][k0 + k]
+__device__ __forceinline__ FragB cols_b(const float* s, int ld, int k0,
+                                        int n0, int g, int t) {
+  return frag_b([&](int k, int n) { return s[(n0 + n) * ld + k0 + k]; }, g,
+                t);
+}
+// B whose contraction runs along the tile's rows: B[k][n] = s[k0 + k][n0 + n]
+__device__ __forceinline__ FragB rows_b(const float* s, int ld, int k0,
+                                        int n0, int g, int t) {
+  return frag_b([&](int k, int n) { return s[(k0 + k) * ld + n0 + n]; }, g,
+                t);
+}
+
+// --------------------------------------------------------------------------
+// state: S, S' = ((u x)^T B)' and Lc, Lc' = ((e gy)^T C)'
+// --------------------------------------------------------------------------
+
+struct StateLay {                               // floats
+  static constexpr int oA = 0;                  // x, x', gy, gy' (32 x kLdP)
+  static constexpr int oY = 4 * kQT * kLdP;     // B, B', C, C' (32 x kLdN)
+  static constexpr int oDT = oY + 4 * kQT * kLdN;   // dt, dt'
+  static constexpr int oSEG = oDT + 2 * kMaxChunk;  // seg, seg'
+  static constexpr int oSC = oSEG + 2 * kMaxChunk;  // u, u', e, e'
+  static constexpr size_t kBytes = sizeof(float) * (oSC + 4 * kMaxChunk);
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+tangent_state_kernel(const Args a) {
+  using L = StateLay;
+  extern __shared__ __align__(16) float sm[];
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31,
+            g = lane >> 2, t = lane & 3;
+  const int which = w >> 2, rg = w & 3;          // 0: S, 1: Lc; 16 rows of P
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int cs = a.cs, H = a.H, P = a.P, N = a.N;
+  const int grp = h / (H / a.G);
+  const long long row0 = (long long)b * a.L + (long long)c * cs;
+  const long long sbase = ((long long)b * H + h) * a.L + (long long)c * cs;
+  float* dtv = sm + L::oDT;
+  float* segv = sm + L::oSEG;
+  float* sc = sm + L::oSC;
+  for (int i = tid; i < kMaxChunk; i += kThreads) {
+    const bool in = i < cs;
+#pragma unroll
+    for (int pl = 0; pl < 2; ++pl)
+      dtv[pl * kMaxChunk + i] =
+          in ? ptr<const float>(a, DT, pl)[(row0 + i) * H + h] : 0.f;
+  }
+  __syncthreads();
+  if (w == 0)
+    hbw::cumsum<true>(dtv, dtv + kMaxChunk,
+                      ptr<const float>(a, AA, 0)[b * a.a_stride + h],
+                      ptr<const float>(a, AA, 1)[b * a.ta_stride + h], segv,
+                      segv + kMaxChunk, cs, lane);
+  __syncthreads();
+  // u_k = exp(seg_end - seg_k) dt_k and e_k = exp(seg_k), zero past the
+  // chunk; seg and seg' out
+  const Dual end{segv[cs - 1], segv[kMaxChunk + cs - 1]};
+  for (int i = tid; i < kMaxChunk; i += kThreads) {
+    Dual u{0.f, 0.f}, e{0.f, 0.f};
+    if (i < cs) {
+      const Dual sg{segv[i], segv[kMaxChunk + i]};
+      u = dexp(end - sg) * Dual{dtv[i], dtv[kMaxChunk + i]};
+      e = dexp(sg);
+      ptr<float>(a, SEG, 0)[sbase + i] = sg.v;
+      ptr<float>(a, SEG, 1)[sbase + i] = sg.t;
+    }
+    sc[i] = u.v;
+    sc[kMaxChunk + i] = u.t;
+    sc[2 * kMaxChunk + i] = e.v;
+    sc[3 * kMaxChunk + i] = e.t;
+  }
+
+  float acc[kMaxN / 8][4] = {}, tacc[kMaxN / 8][4] = {};
+  const float* sA = sm + L::oA + 2 * which * kQT * kLdP;   // x or gy
+  const float* sTA = sA + kQT * kLdP;
+  const float* sY = sm + L::oY + 2 * which * kQT * kLdN;   // B or C
+  const float* sTY = sY + kQT * kLdN;
+  const int p0 = 16 * rg;
+  for (int k0 = 0; k0 < cs; k0 += kQT) {
+    __syncthreads();                     // the last tile is read
+#pragma unroll
+    for (int pl = 0; pl < 2; ++pl) {
+      stage(sm + L::oA + pl * kQT * kLdP, kLdP, ptr<const float>(a, X, pl),
+            row0, H, h, P, kMaxP, k0, kQT, cs);
+      stage(sm + L::oA + (2 + pl) * kQT * kLdP, kLdP,
+            ptr<const float>(a, GY, pl), row0, H, h, P, kMaxP, k0, kQT, cs);
+      stage(sm + L::oY + pl * kQT * kLdN, kLdN, ptr<const float>(a, BM, pl),
+            row0, a.G, grp, N, kMaxN, k0, kQT, cs);
+      stage(sm + L::oY + (2 + pl) * kQT * kLdN, kLdN,
+            ptr<const float>(a, CM, pl), row0, a.G, grp, N, kMaxN, k0, kQT,
+            cs);
+    }
+    cp_async_wait();
+    __syncthreads();
+    const float* s = sc + 2 * which * kMaxChunk + k0;       // u or e
+    const float* st = s + kMaxChunk;                        // its tangent
+#pragma unroll 1
+    for (int kk = 0; kk < kQT / 8; ++kk) {
+      // A[p][k] = s_k X[k][p] and A' = s'_k X[k][p] + s_k X'[k][p]: the
+      // tile read transposed
+      const FragA A = frag_a(
+          [&](int r, int cc) {
+            const int k = 8 * kk + cc;
+            return s[k] * sA[k * kLdP + p0 + r];
+          },
+          g, t);
+      const FragA TA = frag_a(
+          [&](int r, int cc) {
+            const int k = 8 * kk + cc;
+            return st[k] * sA[k * kLdP + p0 + r] +
+                   s[k] * sTA[k * kLdP + p0 + r];
+          },
+          g, t);
+#pragma unroll
+      for (int j = 0; j < kMaxN / 8; ++j) {
+        const FragB Bv = rows_b(sY, kLdN, 8 * kk, 8 * j, g, t);
+        const FragB TB = rows_b(sTY, kLdN, 8 * kk, 8 * j, g, t);
+        mma3(acc[j], A, Bv);
+        mma3(tacc[j], TA, Bv);
+        mma3(tacc[j], A, TB);
+      }
+    }
+  }
+  const long long obase = (((long long)b * a.nc + c) * H + h) * P * N;
+  float* out = ptr<float>(a, which ? LC : SS, 0) + obase;
+  float* outt = ptr<float>(a, which ? LC : SS, 1) + obase;
+#pragma unroll
+  for (int j = 0; j < kMaxN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int p = p0 + g + 8 * (e >> 1), n = 8 * j + 2 * t + (e & 1);
+      if (p < P && n < N) {
+        out[p * N + n] = acc[j][e];
+        outt[p * N + n] = tacc[j][e];
+      }
+    }
+}
+
+// --------------------------------------------------------------------------
+// gram: G^T = B_k C_q^T and its tangent for each pair, once per group
+// --------------------------------------------------------------------------
+
+constexpr size_t kGramSmem = sizeof(float) * 2 * (kKT + kQT) * kLdN;
+
+__global__ void __launch_bounds__(kThreads)
+tangent_gram_kernel(const Args a) {
+  extern __shared__ __align__(16) float sm[];
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31,
+            g = lane >> 2, t = lane & 3;
+  const int rg = w & 3, hf = w >> 2;
+  const int pi = blockIdx.x, grp = blockIdx.y, bc = blockIdx.z;
+  const int cs = a.cs, nk = ceil_div(cs, kKT), nq = ceil_div(cs, kQT);
+  int kt = 0;
+  while (kt + 1 < nk && pair_start(kt + 1, nq) <= pi) ++kt;
+  const int qt = 2 * kt + pi - pair_start(kt, nq);
+  const long long row0 =
+      (long long)(bc / a.nc) * a.L + (long long)(bc % a.nc) * cs;
+  float* sB = sm;                                // B, B' (64 rows)
+  float* sC = sm + 2 * kKT * kLdN;               // C, C' (32 rows)
+#pragma unroll
+  for (int pl = 0; pl < 2; ++pl) {
+    stage(sB + pl * kKT * kLdN, kLdN, ptr<const float>(a, BM, pl), row0, a.G,
+          grp, a.N, kMaxN, kt * kKT, kKT, cs);
+    stage(sC + pl * kQT * kLdN, kLdN, ptr<const float>(a, CM, pl), row0, a.G,
+          grp, a.N, kMaxN, qt * kQT, kQT, cs);
+  }
+  cp_async_wait();
+  __syncthreads();
+  // warp (rg, hf): key rows 16 rg .., query columns 16 hf ..
+  float d[2][4] = {}, dd[2][4] = {};
+#pragma unroll 2
+  for (int kk = 0; kk < kMaxN / 8; ++kk) {
+    const FragA A = rows_a(sB, kLdN, 16 * rg, 8 * kk, g, t);
+    const FragA TA = rows_a(sB + kKT * kLdN, kLdN, 16 * rg, 8 * kk, g, t);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const FragB Bv = cols_b(sC, kLdN, 8 * kk, 16 * hf + 8 * j, g, t);
+      const FragB TB =
+          cols_b(sC + kQT * kLdN, kLdN, 8 * kk, 16 * hf + 8 * j, g, t);
+      mma3(d[j], A, Bv);
+      mma3(dd[j], TA, Bv);
+      mma3(dd[j], A, TB);
+    }
+  }
+  const long long at =
+      (((long long)bc * a.G + grp) * npairs(cs) + pi) * kGramTile + tid * 8;
+  float4* out = reinterpret_cast<float4*>(ptr<float>(a, GRAM, 0) + at);
+  float4* outt = reinterpret_cast<float4*>(ptr<float>(a, GRAM, 1) + at);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    out[j] = make_float4(d[j][0], d[j][1], d[j][2], d[j][3]);
+    outt[j] = make_float4(dd[j][0], dd[j][1], dd[j][2], dd[j][3]);
+  }
+}
+
+// --------------------------------------------------------------------------
+// chunk: dx', dB', dC' and the R sums (value and tangent) of a (b, chunk, h)
+// --------------------------------------------------------------------------
+
+struct ChunkLay {                               // floats
+  static constexpr int oX = 0;                  // x, x' (kKT x kLdP)
+  static constexpr int oB = 2 * kKT * kLdP;     // B, B' (kKT x kLdN)
+  static constexpr int kKey = oB + 2 * kKT * kLdN;
+  static constexpr int oSIN = 0;                // s_in, s_in' over the key
+  static constexpr int oGY = kKey;              // gy, gy' (kQT x kLdP)
+  static constexpr int oC = oGY + 2 * kQT * kLdP;   // C, C' (kQT x kLdN)
+  static constexpr int oPL = oC + 2 * kQT * kLdN;   // M, Z, M', Z'
+  static constexpr int kLoop = oPL + 4 * kKT * kLdQ - kKey;
+  static constexpr int oST = kKey;              // gO, gO' over the loop
+  static constexpr int oSEG = kKey + kLoop;     // seg, seg'
+  static constexpr int oDT = oSEG + 2 * kMaxChunk;  // dt, dt'
+  static constexpr int oROWR = oDT + 2 * kMaxChunk; // [2][4 warps][chunk]
+  static constexpr int oDSQ = oROWR + 8 * kMaxChunk;  // entering dseg_q
+  static constexpr int oXCH = oDSQ + 2 * kMaxChunk;   // sums between warps
+  static constexpr size_t kBytes = sizeof(float) * (oXCH + 512);
+  static_assert(2 * kMaxP * kLdN <= kKey, "s_in fits the key tile's place");
+  static_assert(2 * kMaxP * kLdN <= kLoop, "gO fits the loop's place");
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+tangent_chunk_kernel(const Args a) {
+  using L = ChunkLay;
+  using T = Dual;
+  extern __shared__ __align__(16) float sm[];
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31,
+            g = lane >> 2, t = lane & 3;
+  // the walk's roles: key rows 16 rg .. of the key tile, half hf of the
+  // columns (query columns of a pair, p of dx', n of dB')
+  const int rg = w & 3, hf = w >> 2;
+  // dC' and the entering term: query rows qr .. of a tile, columns n nn ..
+  const int qr = 16 * (w & 1), nn = 32 * (w >> 1);
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int cs = a.cs, H = a.H, P = a.P, N = a.N, G = a.G;
+  const int grp = h / (H / G), bc = b * a.nc + c;
+  const int nk = ceil_div(cs, kKT), nq = ceil_div(cs, kQT);
+  const long long row0 = (long long)b * a.L + (long long)c * cs;
+  const long long sbase = ((long long)b * H + h) * a.L + (long long)c * cs;
+  const long long obase = ((long long)bc * H + h) * P * N;
+  const long long gbase = ((long long)bc * G + grp) * npairs(cs);
+  float* segv = sm + L::oSEG;
+  float* dtv = sm + L::oDT;
+  float* rowr = sm + L::oROWR;
+  float* dsqs = sm + L::oDSQ;
+  float* xch = sm + L::oXCH;
+  const float *sX = sm + L::oX, *sTX = sX + kKT * kLdP;
+  const float *sB = sm + L::oB, *sTB = sB + kKT * kLdN;
+  const float *sGY = sm + L::oGY, *sTGY = sGY + kQT * kLdP;
+  const float *sC = sm + L::oC, *sTC = sC + kQT * kLdN;
+  float* plM = sm + L::oPL;
+  float* plZ = plM + kKT * kLdQ;
+  float* plTM = plZ + kKT * kLdQ;
+  float* plTZ = plTM + kKT * kLdQ;
+  float* dCh = ptr<float>(a, DCH, 1);
+  auto seg_at = [&](int i) { return T{segv[i], segv[kMaxChunk + i]}; };
+  auto dt_at = [&](int i) { return T{dtv[i], dtv[kMaxChunk + i]}; };
+  auto dc_at = [&](int q, int n) {
+    return ((row0 + q) * H + h) * (long long)N + n;
+  };
+  auto stage_q = [&](int qt) {
+#pragma unroll
+    for (int pl = 0; pl < 2; ++pl) {
+      stage(sm + L::oGY + pl * kQT * kLdP, kLdP, ptr<const float>(a, GY, pl),
+            row0, H, h, P, kMaxP, qt * kQT, kQT, cs);
+      stage(sm + L::oC + pl * kQT * kLdN, kLdN, ptr<const float>(a, CM, pl),
+            row0, G, grp, N, kMaxN, qt * kQT, kQT, cs);
+    }
+  };
+  // the (P, N) state `slot` (and its tangent) at `at`, zero to 64 x 128
+  auto stage_state = [&](int slot, int at) {
+#pragma unroll
+    for (int pl = 0; pl < 2; ++pl)
+      stage(sm + at + pl * kMaxP * kLdN, kLdN,
+            ptr<const float>(a, slot, pl) + obase, 0, 1, 0, N, kMaxN, 0,
+            kMaxP, P);
+  };
+
+  for (int i = tid; i < kMaxChunk; i += kThreads) {
+    const bool in = i < cs;
+#pragma unroll
+    for (int pl = 0; pl < 2; ++pl) {
+      segv[pl * kMaxChunk + i] =
+          in ? ptr<const float>(a, SEG, pl)[sbase + i] : 0.f;
+      dtv[pl * kMaxChunk + i] =
+          in ? ptr<const float>(a, DT, pl)[(row0 + i) * H + h] : 0.f;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) rowr[(4 * pl + r) * kMaxChunk + i] = 0.f;
+    }
+  }
+  stage_state(SIN, L::oSIN);
+
+  // the entering state's term of each query tile: dC'_q = (e_q gy_q s_in)'
+  // into dCh, (e_q C_q . (gy_q s_in))' into dsqs
+  {
+    const float *sIN = sm + L::oSIN, *sTIN = sIN + kMaxP * kLdN;
+    for (int qt = 0; qt < nq; ++qt) {
+      __syncthreads();                   // the last tile and xch are read
+      stage_q(qt);
+      cp_async_wait();
+      __syncthreads();
+      float wv[4][4] = {}, wt[4][4] = {};
+#pragma unroll 2
+      for (int kk = 0; kk < kMaxP / 8; ++kk) {
+        const FragA A = rows_a(sGY, kLdP, qr, 8 * kk, g, t);
+        const FragA TA = rows_a(sTGY, kLdP, qr, 8 * kk, g, t);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const FragB Bv = rows_b(sIN, kLdN, 8 * kk, nn + 8 * j, g, t);
+          const FragB TB = rows_b(sTIN, kLdN, 8 * kk, nn + 8 * j, g, t);
+          mma3(wv[j], A, Bv);
+          mma3(wt[j], TA, Bv);
+          mma3(wt[j], A, TB);
+        }
+      }
+      T rs[2] = {}, eq[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int q = qt * kQT + qr + g + 8 * r;
+        eq[r] = q < cs ? dexp(seg_at(q)) : T{0.f, 0.f};
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, row = qr + g + 8 * r;
+          const int n = nn + 8 * j + 2 * t + (e & 1), q = qt * kQT + row;
+          const T wd{wv[j][e], wt[j][e]};
+          rs[r] += T{sC[row * kLdN + n], sTC[row * kLdN + n]} * wd;
+          if (q < cs && n < N) dCh[dc_at(q, n)] = (eq[r] * wd).t;
+        }
+      // the four column groups' row sums, added in order
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rs[r] = quad_sum(rs[r]);
+        if (t == 0) {
+          xch[(w >> 1) * kQT + qr + g + 8 * r] = rs[r].v;
+          xch[(4 + (w >> 1)) * kQT + qr + g + 8 * r] = rs[r].t;
+        }
+      }
+      __syncthreads();
+      if (tid < kQT) {
+        const int q = qt * kQT + tid;
+        T s{0.f, 0.f};
+#pragma unroll
+        for (int cg = 0; cg < 4; ++cg)
+          s += T{xch[cg * kQT + tid], xch[(4 + cg) * kQT + tid]};
+        if (q < cs) {
+          const T v = dexp(seg_at(q)) * s;
+          dsqs[q] = v.v;
+          dsqs[kMaxChunk + q] = v.t;
+        }
+      }
+    }
+  }
+
+  const T seg_end = seg_at(cs - 1);
+  for (int kt = 0; kt < nk; ++kt) {
+    __syncthreads();                     // the key and loop places are read
+#pragma unroll
+    for (int pl = 0; pl < 2; ++pl) {
+      stage(sm + L::oX + pl * kKT * kLdP, kLdP, ptr<const float>(a, X, pl),
+            row0, H, h, P, kMaxP, kt * kKT, kKT, cs);
+      stage(sm + L::oB + pl * kKT * kLdN, kLdN, ptr<const float>(a, BM, pl),
+            row0, G, grp, N, kMaxN, kt * kKT, kKT, cs);
+    }
+    stage_state(GO, L::oST);
+    cp_async_wait();
+    __syncthreads();
+    // this thread's two key rows (r = 0, 1): 16 rg + g and + 8
+    T segk[2], dtk[2], wk[2], ukk[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int k = kt * kKT + 16 * rg + g + 8 * r;
+      const bool in = k < cs;
+      segk[r] = seg_at(in ? k : 0);
+      dtk[r] = in ? dt_at(k) : T{0.f, 0.f};
+      wk[r] = in ? dexp(seg_end - segk[r]) : T{0.f, 0.f};
+      ukk[r] = wk[r] * dtk[r];
+    }
+    // the state leaving the chunk: dx' = (u_k gO B_k)' (columns p 32 hf ..)
+    // and dB' = (u_k gO^T x_k)' (columns n 64 hf ..)
+    const float *sGO = sm + L::oST, *sTGO = sGO + kMaxP * kLdN;
+    float accX[4][4], accB[8][4];
+    T xv[2] = {};
+    {
+      float v[4][4] = {}, vt[4][4] = {};
+#pragma unroll 2
+      for (int kk = 0; kk < kMaxN / 8; ++kk) {
+        const FragA A = rows_a(sB, kLdN, 16 * rg, 8 * kk, g, t);
+        const FragA TA = rows_a(sTB, kLdN, 16 * rg, 8 * kk, g, t);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const FragB Bv = cols_b(sGO, kLdN, 8 * kk, 32 * hf + 8 * j, g, t);
+          const FragB TB = cols_b(sTGO, kLdN, 8 * kk, 32 * hf + 8 * j, g, t);
+          mma3(v[j], A, Bv);
+          mma3(vt[j], TA, Bv);
+          mma3(vt[j], A, TB);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, row = 16 * rg + g + 8 * r;
+          const int p = 32 * hf + 8 * j + 2 * t + (e & 1);
+          const T vv{v[j][e], vt[j][e]};
+          xv[r] += T{sX[row * kLdP + p], sTX[row * kLdP + p]} * vv;
+          accX[j][e] = (ukk[r] * vv).t;
+        }
+    }
+    {
+      float wv[8][4] = {}, wt[8][4] = {};
+#pragma unroll 2
+      for (int kk = 0; kk < kMaxP / 8; ++kk) {
+        const FragA A = rows_a(sX, kLdP, 16 * rg, 8 * kk, g, t);
+        const FragA TA = rows_a(sTX, kLdP, 16 * rg, 8 * kk, g, t);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const FragB Bv = rows_b(sGO, kLdN, 8 * kk, 64 * hf + 8 * j, g, t);
+          const FragB TB = rows_b(sTGO, kLdN, 8 * kk, 64 * hf + 8 * j, g, t);
+          mma3(wv[j], A, Bv);
+          mma3(wt[j], TA, Bv);
+          mma3(wt[j], A, TB);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          accB[j][e] = (ukk[e >> 1] * T{wv[j][e], wt[j][e]}).t;
+    }
+    T colR[2] = {}, direct[2] = {};
+
+    for (int qt = 2 * kt; qt < nq; ++qt) {
+      __syncthreads();                   // gO, or the last pair, is read
+      stage_q(qt);
+      // G and G' of the pair: this thread's 8 values, in the gram
+      // kernel's order
+      const long long gat =
+          (gbase + pair_start(kt, nq) + qt - 2 * kt) * kGramTile + tid * 8;
+      const float4* g4 = reinterpret_cast<const float4*>(
+          ptr<const float>(a, GRAM, 0) + gat);
+      const float4* gt4 = reinterpret_cast<const float4*>(
+          ptr<const float>(a, GRAM, 1) + gat);
+      const float4 ga = g4[0], gb = g4[1], ta = gt4[0], tb = gt4[1];
+      const float gv[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
+      const float gt[8] = {ta.x, ta.y, ta.z, ta.w, tb.x, tb.y, tb.z, tb.w};
+      cp_async_wait();
+      __syncthreads();
+      // D^T = x_k gy_q^T and D'^T: the warp's 16 key rows by 16 columns q
+      float d[2][4] = {}, dd[2][4] = {};
+#pragma unroll 2
+      for (int kk = 0; kk < kMaxP / 8; ++kk) {
+        const FragA A = rows_a(sX, kLdP, 16 * rg, 8 * kk, g, t);
+        const FragA TA = rows_a(sTX, kLdP, 16 * rg, 8 * kk, g, t);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const FragB Bv = cols_b(sGY, kLdP, 8 * kk, 16 * hf + 8 * j, g, t);
+          const FragB TB = cols_b(sTGY, kLdP, 8 * kk, 16 * hf + 8 * j, g, t);
+          mma3(d[j], A, Bv);
+          mma3(dd[j], TA, Bv);
+          mma3(dd[j], A, TB);
+        }
+      }
+      // M^T, Z^T (rows k, columns q) and their tangents into the planes;
+      // the R sums.  Branch-free: the exponent is masked to -inf where the
+      // pair is out (k > q, or past the chunk), so E = 0 there.
+      T cols[2][2] = {};
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, u = e & 1;
+          const int row = 16 * rg + g + 8 * r;
+          const int col = 16 * hf + 8 * j + 2 * t + u;
+          const int k = kt * kKT + row, q = qt * kQT + col;
+          const bool in = k < cs && q < cs && k <= q;
+          const T E = dexp(in ? seg_at(q) - segk[r] : T{-INFINITY, 0.f});
+          const T GE = T{gv[4 * j + e], gt[4 * j + e]} * E;
+          const T Dv{d[j][e], dd[j][e]};
+          const T M = GE * dtk[r];
+          const T Z = Dv * E * dtk[r];
+          direct[r] += Dv * GE;
+          // the diagonal is left out of R's sums: see finish_body
+          const T R = k < q ? Dv * M : T{0.f, 0.f};
+          colR[r] += R;
+          cols[j][u] += R;
+          plM[row * kLdQ + col] = M.v;
+          plZ[row * kLdQ + col] = Z.v;
+          plTM[row * kLdQ + col] = M.t;
+          plTZ[row * kLdQ + col] = Z.t;
+        }
+      // the columns' sums over the warp's 16 rows, added to its vector
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          T s = cols[j][u];
+          s += shfl_xor(s, 4);
+          s += shfl_xor(s, 8);
+          s += shfl_xor(s, 16);
+          const int q = qt * kQT + 16 * hf + 8 * j + 2 * t + u;
+          if (lane < 4 && q < cs) {
+            rowr[rg * kMaxChunk + q] += s.v;
+            rowr[(4 + rg) * kMaxChunk + q] += s.t;
+          }
+        }
+      __syncthreads();                   // the planes are written
+      {                                  // dx' += M'^T gy + M^T gy'
+        float tx[4][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < kQT / 8; ++kk) {
+          const FragA A1 = rows_a(plTM, kLdQ, 16 * rg, 8 * kk, g, t);
+          const FragA A2 = rows_a(plM, kLdQ, 16 * rg, 8 * kk, g, t);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            mma3(tx[j], A1, rows_b(sGY, kLdP, 8 * kk, 32 * hf + 8 * j, g, t));
+            mma3(tx[j], A2,
+                 rows_b(sTGY, kLdP, 8 * kk, 32 * hf + 8 * j, g, t));
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) accX[j][e] += tx[j][e];
+      }
+      {                                  // dB' += Z'^T C + Z^T C'
+        float tb[8][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < kQT / 8; ++kk) {
+          const FragA A1 = rows_a(plTZ, kLdQ, 16 * rg, 8 * kk, g, t);
+          const FragA A2 = rows_a(plZ, kLdQ, 16 * rg, 8 * kk, g, t);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            mma3(tb[j], A1, rows_b(sC, kLdN, 8 * kk, 64 * hf + 8 * j, g, t));
+            mma3(tb[j], A2,
+                 rows_b(sTC, kLdN, 8 * kk, 64 * hf + 8 * j, g, t));
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) accB[j][e] += tb[j][e];
+      }
+      {                                  // dC'_q += Z' B_k + Z B'_k
+        float tc[4][4] = {};
+#pragma unroll 2
+        for (int kk = 0; kk < kKT / 8; ++kk) {
+          const FragA A1 = cols_a(plTZ, kLdQ, qr, 8 * kk, g, t);
+          const FragA A2 = cols_a(plZ, kLdQ, qr, 8 * kk, g, t);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            mma3(tc[j], A1, rows_b(sB, kLdN, 8 * kk, nn + 8 * j, g, t));
+            mma3(tc[j], A2, rows_b(sTB, kLdN, 8 * kk, nn + 8 * j, g, t));
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int q = qt * kQT + qr + g + 8 * (e >> 1);
+            const int n = nn + 8 * j + 2 * t + (e & 1);
+            if (q < cs && n < N) dCh[dc_at(q, n)] += tc[j][e];
+          }
+      }
+    }
+
+    // the key tile's outputs: dx', dB' per head, and ddd, dsk, tk (value
+    // and tangent) from both halves' sums, the second added to the first
+    __syncthreads();                     // xch is free
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      colR[r] = quad_sum(colR[r]);
+      direct[r] = quad_sum(direct[r]);
+      xv[r] = quad_sum(xv[r]);
+      if (hf == 1 && t == 0) {
+        float* x6 = xch + 6 * (16 * rg + g + 8 * r);
+        x6[0] = colR[r].v;
+        x6[1] = colR[r].t;
+        x6[2] = direct[r].v;
+        x6[3] = direct[r].t;
+        x6[4] = xv[r].v;
+        x6[5] = xv[r].t;
+      }
+    }
+    __syncthreads();
+    if (hf == 0 && t == 0)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int k = kt * kKT + 16 * rg + g + 8 * r;
+        const float* x6 = xch + 6 * (16 * rg + g + 8 * r);
+        colR[r] += T{x6[0], x6[1]};
+        direct[r] += T{x6[2], x6[3]};
+        xv[r] += T{x6[4], x6[5]};
+        if (k < cs) {
+          const T Tk = k < cs - 1 ? ukk[r] * xv[r] : T{0.f, 0.f};
+          const T ddd = direct[r] + wk[r] * xv[r];
+          const T dsk = T{0.f, 0.f} - colR[r] - Tk;
+#pragma unroll
+          for (int pl = 0; pl < 2; ++pl) {
+            ptr<float>(a, DDD, pl)[sbase + k] = pl ? ddd.t : ddd.v;
+            ptr<float>(a, DSK, pl)[sbase + k] = pl ? dsk.t : dsk.v;
+            ptr<float>(a, TK, pl)[sbase + k] = pl ? Tk.t : Tk.v;
+          }
+        }
+      }
+    float* dxo = ptr<float>(a, DX, 1);
+    float* dBh = ptr<float>(a, DBH, 1);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = kt * kKT + 16 * rg + g + 8 * (e >> 1);
+      if (k >= cs) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int p = 32 * hf + 8 * j + 2 * t + (e & 1);
+        if (p < P) dxo[((row0 + k) * H + h) * P + p] = accX[j][e];
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = 64 * hf + 8 * j + 2 * t + (e & 1);
+        if (n < N) dBh[((row0 + k) * H + h) * N + n] = accB[j][e];
+      }
+    }
+  }
+  // dseg of the query rows: R's row sums (the four warps' column sums) and
+  // the entering state's term
+  __syncthreads();
+  for (int q = tid; q < cs; q += kThreads)
+#pragma unroll
+    for (int pl = 0; pl < 2; ++pl) {
+      const float* rr = rowr + pl * 4 * kMaxChunk;
+      ptr<float>(a, DSQ, pl)[sbase + q] =
+          ((rr[q] + rr[kMaxChunk + q]) +
+           (rr[2 * kMaxChunk + q] + rr[3 * kMaxChunk + q])) +
+          dsqs[pl * kMaxChunk + q];
+    }
+}
+
+__global__ void __launch_bounds__(128) tangent_finish_kernel(const Args a) {
+  finish_body<true>(a);
+}
+__global__ void __launch_bounds__(256) tangent_reduce_kernel(const Args a) {
+  reduce_body<float>(a, 1);
+}
+
+using hbw::run;
+
+cudaError_t launch(int pass, const Args& a, cudaStream_t s) {
+  switch (pass) {
+    case 0:
+      return run(tangent_state_kernel, dim3(a.H, a.nc, a.B), kThreads,
+                 StateLay::kBytes, s, a);
+    case 1:
+      return run(tangent_pass_kernel, dim3(a.H, a.B), kPassThreads, 0, s, a);
+    case 2:
+      return run(tangent_chunk_kernel, dim3(a.H, a.nc, a.B), kThreads,
+                 ChunkLay::kBytes, s, a);
+    case 3:
+      return run(tangent_finish_kernel,
+                 dim3((unsigned)((32LL * a.B * a.H * a.nc + 127) / 128)), 128,
+                 0, s, a);
+    case 4: {
+      const long long n = 2LL * a.B * a.L * a.G * a.N +
+                          (a.a_per_seq ? (long long)a.B * a.H : a.H);
+      const long long blocks = (n + 255) / 256;
+      if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+      return run(tangent_reduce_kernel, dim3((unsigned)blocks), 256, 0, s, a);
+    }
+    case 5:
+      return run(tangent_gram_kernel,
+                 dim3(npairs(a.cs), a.G, (unsigned)((long long)a.B * a.nc)),
+                 kThreads, kGramSmem, s, a);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tbw
+
+
 
 extern "C" {
 
-int repro_ssd_bwd_slots() { return sbw::kSlots; }
-int repro_ssd_bwd_max_head_dim() { return sbw::kMaxP; }
-int repro_ssd_bwd_max_state() { return sbw::kMaxN; }
-int repro_ssd_bwd_max_chunk() { return sbw::kMaxChunk; }
+int repro_ssd_bwd_slots() { return ssd::kSlots; }
+int repro_ssd_bwd_max_head_dim() { return ssd::kMaxP; }
+int repro_ssd_bwd_max_state() { return ssd::kMaxN; }
+int repro_ssd_bwd_max_chunk() { return ssd::kMaxChunk; }
 
-// One pass (0 state, 1 pass, 2 chunk, 3 finish, 4 reduce) of the backward
-// (tangent 0) or of its tangent (tangent 1).  ptrs: repro_ssd_bwd_slots()
-// device pointers, each tensor's value plane then its tangent plane, in
-// the order of sbw::Slot; dtype 0 float32 or 1 bfloat16 (x, gy, B, C, dx,
-// dB, dC and their tangents; every other tensor float32).  dims: B, L, H,
+// One pass (0 state, 1 pass, 2 chunk, 3 finish, 4 reduce, 5 gram: not in
+// the float32 backward) of the backward (tangent 0) or of its tangent
+// (tangent 1).  ptrs: repro_ssd_bwd_slots() device pointers, each tensor's
+// value plane then its tangent plane, in the order of ssd::Slot; dtype 0
+// float32 or 1 bfloat16 (x, gy, B, C, dx, dB, dC and their tangents; every
+// other tensor float32).  dims: B, L, H,
 // P, G, N, chunk, A's stride per sequence, A''s, and 1 where dA is (B, H).
 // Tensors are contiguous; x, gy, dx (B, L, H, P), dt, ddt (B, L, H), B, C,
 // dB, dC (B, L, G, N), gs (B, H, P, N); the rest as ../ops.py allocates.
 int repro_ssd_bwd_launch(int pass, int tangent, int dtype,
                          void* const* ptrs, const long long* dims,
                          void* stream) {
-  sbw::Args a{};
-  for (int i = 0; i < sbw::kSlots; ++i) a.p[i] = ptrs[i];
+  ssd::Args a{};
+  for (int i = 0; i < ssd::kSlots; ++i) a.p[i] = ptrs[i];
   a.B = (int)dims[0]; a.L = (int)dims[1]; a.H = (int)dims[2];
   a.P = (int)dims[3]; a.G = (int)dims[4]; a.N = (int)dims[5];
   a.cs = (int)dims[6];
   a.a_stride = dims[7]; a.ta_stride = dims[8]; a.a_per_seq = (int)dims[9];
   if (a.B <= 0 || a.L <= 0 || a.H <= 0 || a.P <= 0 || a.G <= 0 ||
       a.N <= 0 || a.cs <= 0 || a.L % a.cs || a.H % a.G ||
-      a.P > sbw::kMaxP || a.N > sbw::kMaxN || a.cs > sbw::kMaxChunk ||
+      a.P > ssd::kMaxP || a.N > ssd::kMaxN || a.cs > ssd::kMaxChunk ||
       (long long)a.B * (a.L / a.cs) > 65535 || a.H > 65535 ||
       (long long)a.B * ((a.N + sbw::kSlab - 1) / sbw::kSlab) > 65535)
     return (int)cudaErrorInvalidValue;
   a.nc = a.L / a.cs;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == sbw::DT_F32) return (int)sbw::launch<float>(pass, tangent, a, s);
-  if (dtype == sbw::DT_BF16)
+  if (dtype == ssd::DT_F32)
+    return (int)(tangent ? tbw::launch(pass, a, s)
+                         : sbw::launch<float>(pass, a, s));
+  if (dtype == ssd::DT_BF16)
     return (int)(tangent ? hbw::launch<true>(pass, a, s)
                          : hbw::launch<false>(pass, a, s));
   return (int)cudaErrorInvalidValue;

@@ -51,7 +51,11 @@ gradients: the chunk kernel, then the finish and reduce kernels), and
 their tangent twins.  bfloat16 runs the Hopper kernels (namespace ``hbw``:
 ``wgmma`` and TMA, float32 intermediates as hi/lo bf16 pairs, and a gram
 launch before the chunk kernel that forms C·Bᵀ once per group: six
-launches); float32 the CUDA-core kernels (namespace ``sbw``: five).
+launches).  The float32 tangent runs hbw's design on the tensor cores with
+every product as three TF32 ``mma.sync`` products (namespace ``tbw``, the
+same six launches); the float32 backward the CUDA-core kernels (namespace
+``sbw``: five).  The state passing is one kernel of every route
+(``ssd::pass_kernel``, ``ssd::tangent_pass_kernel``).
 
 ``launch_counts["ssd_scan"]`` counts the calls of :func:`ssd_scan_kernel`
 that went to a kernel route (one launch in float32, three in bfloat16);
@@ -62,7 +66,7 @@ three in bfloat16), and ``ssd_tangent_state``, ``ssd_tangent_pass`` and
 ``ssd_tangent_scan`` each of T3's passes.  ``ssd_scan_bwd`` and
 ``ssd_scan_bwd_tangent`` count the calls of :func:`ssd_scan_bwd` and
 :func:`ssd_scan_bwd_tangent`, and ``ssd_bwd_state``, ``ssd_bwd_pass``,
-``ssd_bwd_gram`` (bfloat16 only), ``ssd_bwd_chunk``, ``ssd_bwd_finish``,
+``ssd_bwd_gram`` (bfloat16 and the float32 tangent), ``ssd_bwd_chunk``, ``ssd_bwd_finish``,
 ``ssd_bwd_reduce`` and their ``ssd_bwd_tangent_*`` twins each of their
 kernels' launches.
 Plain-version calls are not counted.
@@ -101,8 +105,9 @@ BWD_SOURCE = SOURCE.with_name("ssd_bwd.cu")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# the backward's kernels by pass id of the C entry: the five of both
-# routes, then the bfloat16 route's gram kernel (launched before chunk)
+# the backward's kernels by pass id of the C entry: the five of every
+# route, then the gram kernel of the bfloat16 route and the float32 tangent
+# (launched before chunk)
 BWD_PASSES = ("state", "pass", "chunk", "finish", "reduce", "gram")
 launch_counts = {"ssd_scan": 0, "ssd_chunk_state": 0, "ssd_state_pass": 0,
                  "ssd_chunk_scan": 0, "ssd_scan_tangent": 0,
@@ -149,7 +154,7 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 _LIB = CudaLibrary(SOURCE, "ssd_scan", _declare)
 
-# The C entry's pointer slots, in the order of sbw::Slot in ssd_bwd.cu: each
+# The C entry's pointer slots, in the order of ssd::Slot in ssd_bwd.cu: each
 # tensor's value plane, then its tangent plane.
 _BWD_TENSORS = ("x", "gy", "B", "C", "dt", "A", "gs", "seg", "S", "Lc",
                 "s_in", "gO", "sg", "dBh", "dCh", "ddd", "dsk", "dsq", "tk",
@@ -646,28 +651,43 @@ def _check_chunk(name, x, seg, s_in, gO, sg, chunk) -> None:
                          f"and chunk={chunk}")
 
 
-def _scratch(x, Bg, chunk, heads=True):
+def _gram_tiles(dtype, chunk: int, tangent: bool) -> tuple[int, int] | None:
+    """(pairs of tiles a chunk, floats a tile) of the gram kernel's C·Bᵀ
+    tiles: in bfloat16 each pair of 64-row tiles q >= k (64·64); in the
+    float32 tangent each 64-row key tile k with each 32-row query tile
+    that meets k <= q (64·32); None in the float32 backward (no gram
+    kernel)."""
+    if dtype == torch.bfloat16:
+        nt = -(-chunk // 64)
+        return nt * (nt + 1) // 2, 64 * 64
+    if tangent:
+        nk, nq = -(-chunk // 64), -(-chunk // 32)
+        return nk * nq - nk * (nk - 1), 64 * 32
+    return None
+
+
+def _scratch(x, Bg, chunk, heads=True, tangent=False):
     """The chunk kernel's outputs for the finish and reduce kernels; dB and
-    dC per head (B,L,H,N) only with ``heads``; in bfloat16 the gram
-    kernel's C·Bᵀ tiles for the chunk kernel, (B·nc, G, pairs of 64-row
-    tiles, 64·64)."""
+    dC per head (B,L,H,N) only with ``heads``; where the route has a gram
+    kernel (bfloat16, the float32 tangent) its C·Bᵀ tiles for the chunk
+    kernel, (B·nc, G, pairs, floats a tile) as :func:`_gram_tiles`."""
     B, L, H, P = x.shape
     G, N = Bg.shape[2], Bg.shape[3]
     out = {k: _f32(B, H, L, like=x) for k in ("ddd", "dsk", "dsq", "tk")}
     out["dAp"] = _f32(B, L // chunk, H, like=x)
     if heads:
         out.update(dBh=_f32(B, L, H, N, like=x), dCh=_f32(B, L, H, N, like=x))
-    if x.dtype == torch.bfloat16:
-        nt = -(-chunk // 64)
-        out["gram"] = _f32(B * (L // chunk), G, nt * (nt + 1) // 2, 64 * 64,
-                           like=x)
+    tiles = _gram_tiles(x.dtype, chunk, tangent)
+    if tiles is not None:
+        out["gram"] = _f32(B * (L // chunk), G, *tiles, like=x)
     return out
 
 
 def _chunk_launches(x, dt, A, Bg, Cg, gy, seg, s_in, gO, sg, chunk,
                     tangents=None):
     """The chunk wrapper's launches ({key: a call that makes that one
-    launch}, in launch order: in bfloat16 the gram kernel's C·Bᵀ first) and
+    launch}, in launch order: in bfloat16 and in the float32 tangent the
+    gram kernel's C·Bᵀ first) and
     the outputs they fill, (dx, ddt, dA, dB, dC); with ``tangents`` (tx,
     tdt, tA, tB, tC, tgy, tseg, ts_in, tgO, tsg) the tangent's launches and
     the outputs' tangents.  Each launch reads only what the ones before it
@@ -686,12 +706,12 @@ def _chunk_launches(x, dt, A, Bg, Cg, gy, seg, s_in, gO, sg, chunk,
         # the group sums read only the tangent planes of dB and dC per head
         planes.update({k: (None, v) for k, v in zip(
             ("dx", "ddt", "dA", "dB", "dC"), out)})
-        scratch = _scratch(x, Bg, chunk, heads=False)
-        planes.update({k: (scratch.get(k), v)
-                       for k, v in _scratch(x, Bg, chunk).items()})
+        scratch = _scratch(x, Bg, chunk, heads=False, tangent=True)
+        planes.update({k: (scratch.get(k), v) for k, v in _scratch(
+            x, Bg, chunk, tangent=True).items()})
     dims = _bwd_dims(x, Bg, A, t[2], chunk)
     keys = ("ssd_bwd_chunk", "ssd_bwd_finish", "ssd_bwd_reduce")
-    if x.dtype == torch.bfloat16:
+    if _gram_tiles(x.dtype, chunk, tangents is not None) is not None:
         keys = ("ssd_bwd_gram", *keys)
     calls = {k: (lambda k=k: _bwd_launch(k, tangents is not None, x.dtype,
                                          dims, **planes)) for k in keys}

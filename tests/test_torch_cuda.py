@@ -1040,6 +1040,34 @@ def test_cuda_bf16_tangents_launch_only_their_kernels(cuda):
 
 
 @pytest.mark.requires_cuda
+def test_cuda_f32_tangents_launch_only_their_kernels(cuda):
+    """At lm-100m's attention shape (16, 256, 8 heads on 4, 64) in
+    float32, a T1 call runs tf32::tangent_fwd_kernel alone on the card and
+    a T2 call tf32::tangent_dq_kernel then tf32::tangent_dkv_kernel: no
+    CUDA-core kernel, copy or head expansion; a second call of each gives
+    the same bits."""
+    q, k, v, do, tq, tk, tv, tdo = _flash_tangent_inputs(
+        2, (16, 256, 8, 4, 64), torch.float32, cuda)
+    out, lse = fops.gqa_flash_attention_fwd_lse(q, k, v)
+    t1 = lambda: fops.flash_attention_fwd_tangent(q, k, v, lse, tq, tk, tv,
+                                                  heads_dim=2)
+    to, tlse = t1()
+    t2 = lambda: fops.flash_attention_bwd_tangent(
+        q, k, v, out, lse, do, tq, tk, tv, to, tlse, tdo, heads_dim=2)
+    first = t2()
+    fwd_names, again = _launched(t1)
+    names, grads = _launched(t2)
+    assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+    assert len(fwd_names) == 1 and \
+        "tf32::tangent_fwd_kernel" in fwd_names[0], fwd_names
+    assert len(names) == 2 and "tf32::tangent_dq_kernel" in names[0] and \
+        "tf32::tangent_dkv_kernel" in names[1], names
+    assert torch.equal(again[0], to) and torch.equal(again[1], tlse)
+    for a, b in zip(first, grads):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.requires_cuda
 def test_cuda_bf16_tangents_raise_when_their_kernels_cannot_launch(cuda):
     """A batch past the grid's 65535 limit: each bf16 tangent launch is
     refused and the call raises; nothing runs in its place."""
@@ -1268,9 +1296,10 @@ def _assert_bwd_close(got, want):
                          ids=SSD_BWD_IDS)
 def test_cuda_ssd_bwd_matches_plain_version(cuda, L, chunk, H, G, P, N,
                                             per_seq, dtype, tangent):
-    """One call (five launches in float32; six in bfloat16, the gram
-    kernel's among them) within SSD_BWD_TOL of the plain passes composed;
-    a second call gives the same bits."""
+    """One call (five launches in the float32 backward; six in bfloat16
+    and in the float32 tangent, the gram kernel's among them) within
+    SSD_BWD_TOL of the plain passes composed; a second call gives the same
+    bits."""
     gen = torch.Generator().manual_seed(L + chunk + tangent)
     args, targs = _bwd_inputs(gen, 2, L, H, P, N, G, dtype, cuda, per_seq)
     key = "ssd_scan_bwd_tangent" if tangent else "ssd_scan_bwd"
@@ -1286,7 +1315,7 @@ def test_cuda_ssd_bwd_matches_plain_version(cuda, L, chunk, H, G, P, N,
     for p in ("state", "pass", "chunk", "finish", "reduce"):
         assert after[prefix + p] == before[prefix + p] + 1
     assert after[prefix + "gram"] == before[prefix + "gram"] + (
-        dtype == torch.bfloat16)
+        dtype == torch.bfloat16 or tangent)
     want = (_bwd_tangent_plain(args, targs, chunk) if tangent
             else _bwd_plain(args, chunk))
     _assert_bwd_close(got, want)
@@ -1302,11 +1331,14 @@ SSD_BWD_HOPPER_KERNELS = ("state_kernel", "gram_kernel", "chunk_kernel")
 @pytest.mark.requires_cuda
 def test_cuda_ssd_bwd_bf16_runs_the_hopper_kernels(cuda):
     """A bf16 call at the mamba2 width (P = 64, N = 128, one group, chunk
-    256) counts the gram launch that only the Hopper route makes (its
-    tangent call the tangent's), a float32 call none; and the built library
-    holds namespace hbw's kernels and no bf16 instantiation of namespace
-    sbw (cuobjdump's symbols): nothing can launch the mma.sync kernels the
-    Hopper route replaced."""
+    256) counts the gram launch that only the Hopper routes make (its
+    tangent call the tangent's), a float32 backward call none and a float32
+    tangent call one (namespace tbw's); and the built library holds
+    namespace hbw's kernels, tbw's float32 tangent kernels, no bf16
+    instantiation of namespace sbw and no sbw tangent kernel (cuobjdump's
+    symbols): nothing can launch the mma.sync kernels the bf16 route
+    replaced or the CUDA-core tangent the float32 one replaced.  The flash
+    library holds no jvpk (CUDA-core T1) kernel either."""
     import shutil
     import subprocess
     gen = torch.Generator().manual_seed(11)
@@ -1321,7 +1353,7 @@ def test_cuda_ssd_bwd_bf16_runs_the_hopper_kernels(cuda):
             before = sops.launch_counts[key]
             call()
             assert sops.launch_counts[key] == before + (
-                dtype == torch.bfloat16), (key, dtype)
+                dtype == torch.bfloat16 or "tangent" in key), (key, dtype)
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     symbols = subprocess.run([tool, "-symbols", sops.BWD_LIB.build()["path"]],
                              capture_output=True, text=True, check=True,
@@ -1333,6 +1365,16 @@ def test_cuda_ssd_bwd_bf16_runs_the_hopper_kernels(cuda):
     sbw_bf16 = [line for line in symbols.splitlines()
                 if "3sbw" in line and "13__nv_bfloat16" in line]
     assert not sbw_bf16, sbw_bf16
+    for name in SSD_BWD_HOPPER_KERNELS:
+        twin = "tangent_" + name
+        assert f"3tbw{len(twin)}{twin}E" in symbols, twin
+    sbw_tangent = [line for line in symbols.splitlines()
+                   if "3sbw" in line and "tangent_" in line]
+    assert not sbw_tangent, sbw_tangent
+    flash = subprocess.run([tool, "-symbols", fops.build()["path"]],
+                           capture_output=True, text=True, check=True,
+                           timeout=300).stdout
+    assert "tf32" in flash and "jvpk" not in flash
 
 
 @pytest.mark.requires_cuda
