@@ -18,9 +18,11 @@ Phases, each fatal on failure:
                 chunk-state and chunk-output kernels and the SSD backward's
                 and its tangent's bf16 state, gram and chunk kernels, HMMA
                 (mma.sync on TF32) in the float32 flash forward, dQ and
-                dK/dV kernels, T1's and T2's float32 kernels and the SSD
-                backward tangent's float32 state, gram and chunk kernels
-                (namespace tbw); each must have some.  Then one
+                dK/dV kernels, T1's and T2's float32 kernels, the SSD
+                scan's float32 chunk-state and chunk-output kernels
+                (namespace tfs) and the SSD backward's and its tangent's
+                float32 state, gram and chunk kernels (namespace tbw);
+                each must have some.  Then one
                 call of ``gqa_flash_attention`` at the serving shape must
                 run one kernel forward and two backward, one bf16 T1 call
                 ``hop::tangent_fwd_kernel`` alone and one bf16 T2 call
@@ -29,12 +31,14 @@ Phases, each fatal on failure:
                 one float32 forward its one kernel, one float32 backward its
                 two, one float32 T1 ``tf32::tangent_fwd_kernel`` alone and
                 one float32 T2 its two, one bf16 SSD scan call the
-                SSD's three kernels, one bf16 ``ssd_scan_tangent`` call
+                SSD's three hop kernels and one float32 call the three
+                tfs kernels, one bf16 ``ssd_scan_tangent`` call
                 T3's three, one bf16 ``ssd_scan_bwd`` and one
                 ``ssd_scan_bwd_tangent`` call their six each (namespace
                 ``hbw`` and the shared state passing) and one float32
-                ``ssd_scan_bwd_tangent`` call its six (namespace ``tbw``
-                and the shared tangent state passing), and nothing
+                ``ssd_scan_bwd`` and one ``ssd_scan_bwd_tangent`` call
+                their six each (namespace ``tbw`` and the shared state
+                passing), and nothing
                 else: no head expansion, copy or
                 elementwise kernel beside them (torch.profiler, before any
                 other profiling: sessions after phase 5's miss kernels).
@@ -147,17 +151,26 @@ Phases, each fatal on failure:
                 and the serving shape, where each is timed beside its bound;
                 the two-halves check runs in both dtypes; the call's time is
                 printed beside its bound, this design's bound and the time
-                of the CUDA-core kernel it replaced.  Then the scan's
+                of the CUDA-core kernel it replaced.  The float32 route's
+                call (three launches, namespace tfs) and each of its
+                kernels against their plain versions on the grid, a
+                ragged row, one chunk of 100 rows, widths no multiple of 4
+                and seg falling past 88, A shared and per sequence, then
+                timed at the serving and training shapes and one 512-token
+                sequence beside the float32-rate, three-TF32-product and
+                bytes bounds (each pass too) and the CUDA-core kernel it
+                replaced.  Then the scan's
                 backward (``ssd_scan_bwd``, six launches of
-                ``csrc/ssd_bwd.cu`` in bf16, five in float32) against its
+                ``csrc/ssd_bwd.cu`` in either dtype) against its
                 three plain passes
                 composed, within SSD_BWD_TOL: the grid, a ragged row (chunk
                 48, A per sequence), full-width heads, one chunk of 100
                 rows and seg falling past 88, in both dtypes, and the
-                mamba2 training shape (both dtypes) and serving shape
-                (bf16), timed beside the plain version, the chunked VJP it
-                replaced and the bound (and each wrapper, and in bf16 each
-                of the chunk wrapper's four launches alone), with planted
+                mamba2 training and serving shapes (both dtypes), timed
+                beside the plain version, the chunked VJP it replaced and
+                the bound (in float32 also the three-TF32-product one; and
+                each wrapper and each of the chunk wrapper's four launches
+                alone), with planted
                 faults (the state cotangent not carried, dA without a
                 chunk's term, dB not summed over a group's heads) that must
                 fail; every row's second call must give the same bits.
@@ -245,8 +258,9 @@ Phases, each fatal on failure:
                 CPU norm is at least 1% of the largest).  Its CPU half
                 runs first, while nvcc builds the kernels.  Then one float32
                 ``maml`` meta-gradient of mamba2's cut is profiled on the
-                card (``meta_grad_split``): the SSD backward's and its
-                tangent's device time and shares.
+                card (``meta_grad_split``): the device time, launches and
+                shares of the SSD scan's forward kernels, T3's, the
+                backward's and its tangent's.
 16. few-shot -- the paper's classification experiment (Fig. 3) through
                 ``launch.fewshot.main`` at the full omniglot-cnn config (2
                 conv blocks of 32 channels, 11,013 parameters in 6 leaves,
@@ -432,8 +446,15 @@ REPLACES = {"dif_combine": "src/repro/kernels/dif_combine/dif_combine.py:94",
 SSD_PASSES = {"ssd_chunk_state": "chunk_state_kernel",
               "ssd_state_pass": "state_pass_kernel",
               "ssd_chunk_scan": "chunk_scan_kernel"}
-# The SSD scan's forward kernels as torch.profiler names them: the bf16
-# passes and the float32 kernel.
+# The float32 route's three kernels (namespace tfs, 3xTF32 mma.sync), by
+# their launch-count keys, and the profiler names a float32 call must run.
+SSD_F32_PASSES = {"ssd_f32_chunk_state": "tfs::chunk_state_kernel",
+                  "ssd_f32_state_pass": "tfs::state_pass_kernel",
+                  "ssd_f32_chunk_scan": "tfs::chunk_scan_kernel"}
+# The SSD scan's forward kernels as torch.profiler names them: the passes
+# of either route (tfs's share hop's names), and the one-launch float32
+# kernel that tfs replaced (an earlier commit's, profiled by
+# scripts/profile_f32_meta_grad.py).
 SSD_FORWARD_KERNELS = (*SSD_PASSES.values(), "ssd_scan_kernel")
 # T3's three bf16 kernels (launch-count keys, and their profiler names): the
 # forward's passes with the tangent plane beside each.
@@ -442,7 +463,7 @@ T3_PASSES = {"ssd_tangent_state": "tangent_state_kernel",
              "ssd_tangent_scan": "tangent_scan_kernel"}
 # The scan backward's kernels in bfloat16, as the training and serve runs
 # call it (launch-count keys, and the names torch.profiler reports them
-# by): five of namespace hbw and the state passing that every route shares
+# by): five of namespace hbw and the state passing the routes share
 # (ssd::pass_kernel), in launch order; and its tangent's.
 SSD_BWD_KERNELS = {"ssd_bwd_state": "hbw::state_kernel",
                    "ssd_bwd_pass": "ssd::pass_kernel",
@@ -453,19 +474,45 @@ SSD_BWD_KERNELS = {"ssd_bwd_state": "hbw::state_kernel",
 SSD_BWD_TANGENT_KERNELS = {
     k.replace("ssd_bwd_", "ssd_bwd_tangent_"): v.replace("::", "::tangent_")
     for k, v in SSD_BWD_KERNELS.items()}
-# The float32 tangent's: namespace tbw's (3xTF32 mma.sync) and the shared
-# tangent state passing, under the same launch-count keys.
+# The float32 backward's and tangent's: namespace tbw's (3xTF32 mma.sync)
+# and the shared state passing, under the same launch-count keys.
+SSD_BWD_F32_KERNELS = {k: v.replace("hbw::", "tbw::")
+                       for k, v in SSD_BWD_KERNELS.items()}
 SSD_BWD_TANGENT_F32_KERNELS = {
     k: v.replace("hbw::", "tbw::")
     for k, v in SSD_BWD_TANGENT_KERNELS.items()}
 # The namespaces of ssd_bwd.cu's kernels (torch.profiler's names): the
-# bf16 route, the float32 tangent, the float32 backward and the state
-# passing they share.
-SSD_BWD_NAMESPACES = ("hbw::", "tbw::", "sbw::", "ssd::")
+# bf16 route, the float32 route (backward and tangent) and the state
+# passing they share.  The forward's kernels (ssd_scan.cu: hop, tfs) are
+# told by SSD_FORWARD_KERNELS, T3's by SSD_T3_NAMESPACES.
+SSD_BWD_NAMESPACES = ("hbw::", "tbw::", "ssd::")
+SSD_T3_NAMESPACES = ("t3::", "jvpk::")
 
 
 def is_ssd_bwd(key: str) -> bool:
     return any(n in key for n in SSD_BWD_NAMESPACES)
+
+
+def ssd_role(key: str) -> str | None:
+    """Which SSD path a profiler key's kernel belongs to: "ssd_fwd" (the
+    scan's passes, or the float32 kernel tfs replaced), "ssd_t3" (the
+    scan's tangent), "ssd_bwd" or "ssd_bwd_tangent" (ssd_bwd.cu's); None
+    for another kernel."""
+    if any(n in key for n in SSD_T3_NAMESPACES):
+        return "ssd_t3"
+    if is_ssd_bwd(key):
+        return "ssd_bwd_tangent" if "::tangent_" in key else "ssd_bwd"
+    if any(k in key for k in SSD_FORWARD_KERNELS):
+        return "ssd_fwd"
+    return None
+
+
+def short_kernel(key: str) -> str:
+    """A profiler key as "namespace::kernel" where it names one of the
+    port's kernel namespaces (the anonymous namespace left out), else its
+    text before the argument list."""
+    m = re.search(r"\b(hop|tfs|t3|jvpk|hbw|tbw|ssd|tf32)::(\w+)", key)
+    return m.group(0) if m else key.split("(")[0].replace("void ", "")[:60]
 
 # The backward and its tangent against their plain versions (the same
 # float32 math), as (rtol, share of the largest |value|): float32 results
@@ -481,8 +528,13 @@ SSD_BWD_TOL = {torch.float32: (0.0, 1e-4),
 STEEP_DA_REL = 1e-3
 # What the CUDA-core kernel that the bf16 route replaced took for one bf16
 # scan at the serving shape on an H100 (PERF.md, row 5 of the kernel
-# table), printed beside this run's time.
+# table), printed beside this run's time; and the one-launch CUDA-core
+# kernel that the float32 route replaced, at the serving shape (PERF.md,
+# row 5) and the float32 backward's CUDA-core kernels at the mamba2
+# training shape (PERF.md, row 9).
 SSD_SIMT_MS = 2.284
+SSD_F32_SIMT_MS = 2.337
+SSD_BWD_F32_SIMT_MS = 1.6364
 # What the kernels this design replaced took on an H100 (PERF.md, section
 # 6): the float32 flash backward on the CUDA cores at lm-100m's attention
 # shape (16, 256, 8, 4, 64), both launches, and T3 on the CUDA cores at the
@@ -1650,13 +1702,16 @@ def ssd_cost(B, L, H, P, N, G, chunk, itemsize) -> tuple[float, float]:
     working dtype, dt read and the state written in float32, A read once;
     per (b, chunk) the causal half of C.B^T once per B/C group (c(c+1)N
     over the c(c+1)/2 pairs k <= q: a group's heads share it), and per head
-    the causal half of M.x (c(c+1)P) and the entering-state and
-    state-update products (4cPN): the least work these inputs need."""
-    c = chunk
+    the causal half of M.x (c(c+1)P) and the state-update product (2cPN);
+    per head the entering-state product (2cPN) of chunks 1 .. only, since
+    chunk 0 enters with a zero state: the least work these inputs need, the
+    products of the passes' costs (ssd_pass_costs, ssd_f32_pass_costs)
+    summed."""
+    c, nc = chunk, L // chunk
     nbytes = ((2 * B * L * H * P + 2 * B * L * G * N) * itemsize
               + 4 * (B * L * H + H + B * H * P * N))
-    flops = ((c * (c + 1) * N * G + (c * (c + 1) * P + 4 * c * P * N) * H)
-             * B * (L // c))
+    flops = ((c * (c + 1) * N * G + c * (c + 1) * P * H) * B * nc
+             + 2 * c * P * N * H * B * (2 * nc - 1))
     return nbytes, float(flops)
 
 
@@ -1742,8 +1797,9 @@ def check_ssd(sops, sref, layers, gen, B, L, H, P, N, G, chunk, dtype,
         row["bwd_compare"] = ssd_bwd_compare(
             sops, layers, (x, dt, A, Bm, Cm, gy, gs), chunk)
         row["library_ms"] = None
-        row["bound_ms"], row["bound_by"] = bound_ms(
-            *ssd_cost(B, L, H, P, N, G, chunk, x.element_size()), peak)
+        cost = ssd_cost(B, L, H, P, N, G, chunk, x.element_size())
+        row["bound_ms"], row["bound_by"] = bound_ms(*cost, peak)
+        tf32_bound(row, "call", cost)
     print("ssd check", json.dumps(row), flush=True)
     if faults:
         planted_ssd_faults(sops, (x, dt, A, Bm, Cm), chunk, y, yr, sr,
@@ -1807,27 +1863,243 @@ def check_ssd_passes(sops, sref, gen, B, L, H, P, N, G, chunk,
     return row
 
 
-def ssd_calls_phase(sops) -> list:
-    """The kernels that one bf16 ``ssd_scan_kernel`` call runs on the card
-    at the serving shape, from torch.profiler; fails unless they are the
-    three passes' kernels, one each, with no copy, expansion or other
-    kernel beside them.  Run before the training step's profile (phase 5),
-    as flash_calls_phase."""
+def ssd_f32_pass_costs(B, L, H, P, N, G, chunk) -> dict:
+    """(bytes, flops, peak rate) of each float32 pass (namespace tfs): its
+    inputs read once and its outputs written once, float32 throughout.
+    Chunk states: x, dt, A, B in, S and seg out; 2cPN a (b, h, chunk).
+    State passing: S and each chunk's last seg in, the entering states of
+    chunks 1 .. and the final state out; 2PN a (b, h, chunk) on the CUDA
+    cores.  Chunk outputs: x, dt, seg, B, C and the entering states in, y
+    out; C.B^T once per group, M.x, and 2cPN a (b, h, chunk) for the
+    entering state of chunks 1 ..  The products' rate is the float32
+    rate's; :func:`f32_bounds` gives the three-TF32-product bound too."""
+    c, nc = chunk, L // chunk
+    x, bc = 4 * B * L * H * P, 4 * B * L * G * N
+    dt = seg = 4 * B * L * H
+    S, state = 4 * B * nc * H * P * N, 4 * B * H * P * N
+    s_in = 4 * B * (nc - 1) * H * P * N
+    return {
+        "ssd_f32_chunk_state": (x + dt + 4 * B * H + bc + S + seg,
+                                2.0 * c * P * N * B * H * nc),
+        "ssd_f32_state_pass": (S + 4 * B * H * nc + s_in + state,
+                               2.0 * P * N * B * H * nc),
+        "ssd_f32_chunk_scan": (2 * x + dt + seg + 2 * bc + s_in,
+                               float((c * (c + 1) * N * G
+                                      + c * (c + 1) * P * H) * B * nc
+                                     + 2 * c * P * N * H * B * (nc - 1)))}
+
+
+def f32_bounds(row, nbytes, flops, tensor=True) -> None:
+    """A float32 row's bounds: ``bound_ms`` at the float32 rate,
+    ``tf32_bound_ms`` as three TF32 products at the TF32 tensor rate (the
+    design's; ``tensor`` False for a pass on the CUDA cores, whose only
+    bound is the float32 rate's) and ``bytes_bound_ms``; each the larger
+    of its products' time and the bytes' time."""
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
+    if tensor:
+        row["tf32_bound_ms"], row["tf32_bound_by"] = bound_ms(
+            nbytes, 3 * flops, TF32_FLOP_PER_S)
+    row["bytes_bound_ms"] = 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def check_ssd_f32(sops, sref, gen, B, L, H, P, N, G, chunk,
+                  per_sequence_A=False, timed=False, steep_dt=None,
+                  head_blocks=False) -> dict:
+    """One float32 ``ssd_scan_kernel`` call (three launches, namespace
+    tfs) against the per-step recurrence (SSD_TOL[float32]), a second call
+    equal to the bit, and each of its passes against its plain version on
+    the same inputs (the kernel's own outputs of the pass before; every dt
+    ``steep_dt`` on request, so that seg falls by hundreds within a
+    chunk): the
+    chunk states against ``chunk_state_ref``, the state passing against
+    ``state_pass_ref``, the chunk outputs against ``chunk_scan_ref``, all
+    within SSD_TOL[float32].  Timed: the call's ms and each pass's beside
+    their bounds (``f32_bounds``) and the plain versions' ms.
+    ``head_blocks``: the call's chunk outputs must run four heads a block
+    (``tfs::chunk_scan_kernel<4>``), and its first and last sequences
+    called alone one head a block (``<1>``, a grid too small for four) must
+    give the same bits as the call's (``f32_head_blocks``)."""
+    f32 = torch.float32
+    tol = SSD_TOL[f32]
+    x, dt, A, Bm, Cm = ssd_inputs(gen, B, L, H, P, N, G, f32)
+    if per_sequence_A:
+        A = A * (0.5 + torch.rand(B, 1, generator=gen, device=DEVICE))
+    if steep_dt is not None:
+        dt = torch.full_like(dt, steep_dt)
+    call = lambda: sops.ssd_scan_kernel(x, dt, A, Bm, Cm, chunk=chunk)
+    before = dict(sops.launch_counts)
+    y, s = call()
+    counts = {k: sops.launch_counts[k] - before[k] for k in SSD_F32_PASSES}
+    y2, s2 = call()
+    rep = H // G
+    plain = lambda: sref.ssd_scan_ref(x, dt, A, Bm.repeat_interleave(rep, 2),
+                                      Cm.repeat_interleave(rep, 2))
+    yr, sr = plain()
+    S, seg = sops.ssd_f32_chunk_state(x, dt, A, Bm, chunk=chunk)
+    s_in, state = sops.ssd_f32_state_pass(S, seg, chunk=chunk)
+    yp = sops.ssd_f32_chunk_scan(x, dt, seg, Bm, Cm, s_in, chunk=chunk)
+    plains = {
+        "ssd_f32_chunk_state": lambda: sref.chunk_state_ref(x, dt, A, Bm,
+                                                            chunk),
+        "ssd_f32_state_pass": lambda: sref.state_pass_ref(S, seg, chunk),
+        "ssd_f32_chunk_scan": lambda: sref.chunk_scan_ref(
+            x, dt, seg, Bm, Cm, s_in, chunk)}
+    Sr, segr = plains["ssd_f32_chunk_state"]()
+    er, str_ = plains["ssd_f32_state_pass"]()
+    ypr = plains["ssd_f32_chunk_scan"]()
+    torch.cuda.synchronize()
+    what = (f"ssd f32 B={B} L={L} H={H} P={P} N={N} G={G} chunk={chunk}"
+            + (" A per sequence" if per_sequence_A else "")
+            + (f" dt={steep_dt}" if steep_dt is not None else ""))
+    if counts != dict.fromkeys(SSD_F32_PASSES, 1):
+        raise AssertionError(f"{what}: launches {counts}, expected one of "
+                             f"each float32 pass")
+    if not (torch.equal(y, y2) and torch.equal(s, s2)):
+        raise AssertionError(f"{what}: two calls on the same inputs differ")
+    if head_blocks:
+        f32_head_blocks(sops, what, (x, dt, A, Bm, Cm), chunk, y, s)
+    row = dict(B=B, L=L, H=H, P=P, N=N, G=G, chunk=chunk, dtype="float32",
+               per_sequence_A=per_sequence_A, steep_dt=steep_dt,
+               same_bits=True, head_blocks=head_blocks,
+               y_max_abs_err=compare(y, yr, f32, what + " y", tol),
+               state_max_abs_err=compare(s, sr, f32, what + " state", tol),
+               passes={
+                   "ssd_f32_chunk_state": {"max_abs_err": max(
+                       compare(S, Sr, f32, what + " S", tol),
+                       compare(seg, segr, f32, what + " seg", tol))},
+                   "ssd_f32_state_pass": {"max_abs_err": max(
+                       compare(s_in, er, f32, what + " s_in", tol),
+                       compare(state, str_, f32, what + " state", tol))},
+                   "ssd_f32_chunk_scan": {"max_abs_err": compare(
+                       yp, ypr, f32, what + " chunk outputs", tol)}})
+    if timed:
+        row["ms"] = time_ms(call, 10)
+        row["plain_ms"] = time_ms(plain, 1, reps=3)
+        row["library_ms"] = None
+        f32_bounds(row, *ssd_cost(B, L, H, P, N, G, chunk, 4))
+        kernel = {
+            "ssd_f32_chunk_state": lambda: sops.ssd_f32_chunk_state(
+                x, dt, A, Bm, chunk=chunk),
+            "ssd_f32_state_pass": lambda: sops.ssd_f32_state_pass(
+                S, seg, chunk=chunk),
+            "ssd_f32_chunk_scan": lambda: sops.ssd_f32_chunk_scan(
+                x, dt, seg, Bm, Cm, s_in, chunk=chunk)}
+        for name, (nbytes, flops) in ssd_f32_pass_costs(
+                B, L, H, P, N, G, chunk).items():
+            r = row["passes"][name]
+            r.update(ms=time_ms(kernel[name], 10),
+                     plain_ms=time_ms(plains[name], 1, reps=3),
+                     library_ms=None, bytes=nbytes, flops=flops)
+            f32_bounds(r, nbytes, flops,
+                       tensor=name != "ssd_f32_state_pass")
+    print("ssd f32 check", json.dumps(row), flush=True)
+    return row
+
+
+def f32_head_blocks(sops, what, args, chunk, y, s) -> None:
+    """Fails unless the float32 chunk outputs of ``args`` run four heads a
+    block (``ssd_f32_scan_heads``) and the first and last sequences,
+    called alone, one head a block (a grid too small for four) and give
+    the bits ``y`` and ``s`` of the whole call."""
+    B, L, H, _ = args[0].shape
+    G = args[3].shape[2]
+    heads = (sops.ssd_f32_scan_heads(B, L, H, G, chunk),
+             sops.ssd_f32_scan_heads(1, L, H, G, chunk))
+    if heads != (4, 1):
+        raise AssertionError(f"{what}: heads a block {heads} for the call "
+                             f"and one sequence, expected (4, 1)")
+    for b in (0, B - 1):
+        one = [t[b:b + 1] for t in args]
+        if args[2].dim() == 1:         # A shared by every sequence
+            one[2] = args[2]
+        yb, sb = sops.ssd_scan_kernel(*one, chunk=chunk)
+        if not (torch.equal(yb[0], y[b]) and torch.equal(sb[0], s[b])):
+            raise AssertionError(
+                f"{what}: sequence {b} one head a block differs from four "
+                f"heads a block by {(yb[0] - y[b]).abs().max().item():.3e}")
+    print(f"{what}: four heads a block and one head a block give the same "
+          f"bits (sequences 0 and {B - 1})", flush=True)
+
+
+def ssd_f32_rows(sops, sref, gen) -> dict:
+    """The float32 route over phase 9's grid, a ragged row (chunk 48, P=8,
+    N=16, two groups), one chunk of 100 rows, widths that are no multiple
+    of 4 (P=30, N=30; P=5, N=7: staged element by element), each with A
+    shared and per sequence, and seg falling past 88 within each of two
+    chunks, and four heads a block in two groups of six heads against one
+    head a block (``f32_head_blocks``); then timed at the serving shape,
+    the mamba2 training shape (A per sequence) and one 512-token sequence
+    of its width (the float32 meta-gradient of the 2-layer cut's), each
+    printed beside its bounds and the time of the CUDA-core kernel the
+    route replaced at the serving shape."""
+    rows = []
+    for L, H, P, N, G, chunk in ((128, 2, 16, 32, 2, 32),
+                                 (256, 2, 16, 32, 2, 128),
+                                 (96, 4, 8, 16, 2, 48),
+                                 (100, 4, 16, 32, 2, 100),
+                                 (120, 3, 30, 30, 1, 40),
+                                 (64, 2, 5, 7, 1, 32)):
+        for per_seq in (False, True):
+            rows.append(check_ssd_f32(sops, sref, gen, 2, L, H, P, N, G,
+                                      chunk, per_seq))
+    rows.append(check_ssd_f32(sops, sref, gen, 2, 512, 4, 16, 32, 2, 256,
+                              steep_dt=4.0))
+    # four heads a block: group 1 and a block of two heads (H / G = 6)
+    rows.append(check_ssd_f32(sops, sref, gen, 16, 1024, 12, 64, 128, 2, 256,
+                              head_blocks=True))
+    t, m = SSD_TRAIN, SSD_MAIN
+    main = {
+        "serve": check_ssd_f32(sops, sref, gen, m["B"], m["L"], m["H"],
+                               m["P"], m["N"], m["G"], m["chunk"],
+                               timed=True),
+        "train": check_ssd_f32(sops, sref, gen, t["B"], t["L"], t["H"],
+                               t["P"], t["N"], t["G"], t["chunk"], True,
+                               timed=True),
+        "one_sequence": check_ssd_f32(sops, sref, gen, 1, t["L"], t["H"],
+                                      t["P"], t["N"], t["G"], t["chunk"],
+                                      timed=True)}
+    for shape, r in main.items():
+        print(f"SSD scan, float32, at the {shape} shape: {r['ms']:.4f} ms a "
+              f"call ("
+              + ", ".join(f"{k[8:]} {v['ms']:.4f}"
+                          for k, v in r["passes"].items())
+              + f"); bounds {r['bound_ms']:.4f} ms (float32 rate, "
+              f"{r['bound_by']}), {r['tf32_bound_ms']:.4f} (three TF32 "
+              f"products, {r['tf32_bound_by']}), {r['bytes_bound_ms']:.4f} "
+              f"(bytes); the CUDA-core kernel it replaced {SSD_F32_SIMT_MS}"
+              f" ms at the serving shape (PERF.md)", flush=True)
+    torch.cuda.empty_cache()
+    return dict(main, sweep_checks=len(rows),
+                sweep_worst_y_err=max(r["y_max_abs_err"] for r in rows))
+
+
+def ssd_calls_phase(sops) -> dict:
+    """The kernels that one bf16 and one float32 ``ssd_scan_kernel`` call
+    run on the card at the serving shape, from torch.profiler; fails unless
+    they are the three passes' kernels of the dtype's route (hop's, tfs's),
+    one each, with no copy, expansion or other kernel beside them (in
+    float32 not the one-launch CUDA-core kernel tfs replaced).  Run before
+    the training step's profile (phase 5), as flash_calls_phase."""
     m = SSD_MAIN
     gen = torch.Generator(device=DEVICE).manual_seed(3)
-    x, dt, A, Bm, Cm = ssd_inputs(gen, m["B"], m["L"], m["H"], m["P"],
-                                  m["N"], m["G"], torch.bfloat16)
-    sops.ssd_scan_kernel(x, dt, A, Bm, Cm, chunk=m["chunk"])
-    names = device_kernels(lambda: sops.ssd_scan_kernel(
-        x, dt, A, Bm, Cm, chunk=m["chunk"]))
-    print("ssd kernels per bf16 call", json.dumps(names), flush=True)
-    if len(names) != len(SSD_PASSES) or sorted(
-            k for k in SSD_PASSES.values()
-            if any(k in n for n in names)) != sorted(SSD_PASSES.values()):
-        raise AssertionError(
-            f"a bf16 ssd_scan_kernel call ran {names} on the card; expected "
-            f"the kernels {list(SSD_PASSES.values())} and nothing else")
-    return names
+    out = {}
+    for dtype, want in ((torch.bfloat16, [f"hop::{k}" for k in
+                                          SSD_PASSES.values()]),
+                        (torch.float32, list(SSD_F32_PASSES.values()))):
+        x, dt, A, Bm, Cm = ssd_inputs(gen, m["B"], m["L"], m["H"], m["P"],
+                                      m["N"], m["G"], dtype)
+        sops.ssd_scan_kernel(x, dt, A, Bm, Cm, chunk=m["chunk"])
+        names = device_kernels(lambda: sops.ssd_scan_kernel(
+            x, dt, A, Bm, Cm, chunk=m["chunk"]))
+        what = str(dtype)[6:]
+        print(f"ssd kernels per {what} call", json.dumps(names), flush=True)
+        if sorted(short_kernel(n) for n in names) != sorted(want):
+            raise AssertionError(
+                f"a {what} ssd_scan_kernel call ran {names} on the card; "
+                f"expected the kernels {want} and nothing else")
+        out[what] = names
+        del x, dt, A, Bm, Cm
+    return out
 
 
 def t3_calls_phase(sops) -> list:
@@ -2018,20 +2290,26 @@ def ssd_phase(sops, sref, layers):
           f"(each pass's bytes) {b['design_bound_ms']:.4f} ms; the "
           f"CUDA-core kernel it replaced {SSD_SIMT_MS} ms (PERF.md)",
           flush=True)
+    f32 = ssd_f32_rows(sops, sref, gen)
     torch.cuda.empty_cache()
     bwd = ssd_bwd_rows(sops, sref, gen)
-    return main, rows, continuity, passes, pass_rows, bwd
+    return main, rows, continuity, passes, pass_rows, f32, bwd
 
 
-def ssd_summary(main, rows, continuity, passes, pass_rows, calls,
-                serve_row) -> list:
+def ssd_summary(main, rows, continuity, passes, pass_rows, f32, calls,
+                serve_row, f32_split) -> list:
     """The kernels-line entries of the SSD scan: the whole bf16 call
     (``ssd_scan``: its launches count calls) and each of its three
     kernels, numbers at the serving path's shape in bfloat16, launches from
-    the mamba2 serve run."""
+    the mamba2 serve run; beside each, the float32 route's (namespace tfs,
+    ``f32``: ssd_f32_rows) at the training and serving shapes and one
+    sequence, with the float32-rate and three-TF32-product bounds, its
+    launches from the profiled float32 meta-gradient (``f32_split``)."""
     b, m = main["bfloat16"], SSD_MAIN
     shape = (f"(B={m['B']}, L={m['L']}, H={m['H']}, P={m['P']}, N={m['N']}, "
              f"G={m['G']}, chunk={m['chunk']}) bfloat16")
+    whole = ("ms", "plain_ms", "bound_ms", "bound_by", "tf32_bound_ms",
+             "tf32_bound_by", "bytes_bound_ms", "y_max_abs_err")
     call = {"name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
             "replaces": REPLACES["ssd_scan"],
             "launches": serve_row["launches"]["ssd_scan"],
@@ -2045,20 +2323,46 @@ def ssd_summary(main, rows, continuity, passes, pass_rows, calls,
             "shape": f"{shape}; launches: calls in the mamba2 serve run's "
                      f"adapt dispatch (three kernels each, the entries "
                      f"below); library: none (no single PyTorch call); "
-                     f"chunked_ms: the port's chunked torch scan",
-            "float32": main["float32"], "continuity": continuity,
+                     f"chunked_ms: the port's chunked torch scan; float32: "
+                     f"the float32 route (three tfs launches a call) at the "
+                     f"serving shape, its other shapes beside",
+            "float32": main["float32"],
+            **{f"float32_{k}": {key: f32[k].get(key) for key in whole}
+               for k in ("serve", "train", "one_sequence")},
+            "float32_launches_in_f32_meta_grad": f32_split.get(
+                "ssd_fwd_launches"),
+            "float32_sweep_checks": f32["sweep_checks"],
+            "continuity": continuity,
             "sweep_checks": len(rows) + len(pass_rows),
             "sweep_worst_y_err": max(r["y_max_abs_err"] for r in rows)}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    return [call] + [
-        {"name": name, "route": "cuda", "source": SSD_SOURCE,
-         "replaces": REPLACES["ssd_scan"],
-         "launches": serve_row["launches"][name],
-         **{k: passes[name][k] for k in keys},
-         "shape": f"{shape}; one launch a bf16 call",
-         "sweep_worst_err": max(r[name]["max_abs_err"] for r in pass_rows)}
-        for name in SSD_PASSES]
+    each = ("ms", "plain_ms", "bound_ms", "bound_by", "tf32_bound_ms",
+            "tf32_bound_by", "bytes_bound_ms", "max_abs_err")
+    out = [call]
+    for name in SSD_PASSES:
+        f32_name = name.replace("ssd_", "ssd_f32_", 1)
+        kernel = SSD_F32_PASSES[f32_name]
+        out.append({
+            "name": name, "route": "cuda", "source": SSD_SOURCE,
+            "replaces": REPLACES["ssd_scan"],
+            "launches": serve_row["launches"][name],
+            **{k: passes[name][k] for k in keys},
+            "shape": f"{shape}; one launch a bf16 call; float32: its float32 "
+                     f"route's kernel {kernel} at the mamba2 training shape "
+                     f"(A per sequence), the serving shape and one sequence",
+            "sweep_worst_err": max(r[name]["max_abs_err"]
+                                   for r in pass_rows),
+            "float32": dict(
+                kernel=kernel,
+                **{k: f32["train"]["passes"][f32_name].get(k) for k in each},
+                serving_shape={k: f32["serve"]["passes"][f32_name].get(k)
+                               for k in each},
+                one_sequence={k: f32["one_sequence"]["passes"][f32_name].get(
+                    k) for k in each},
+                launches_in_f32_meta_grad=f32_split.get(
+                    "ssd_kernels", {}).get(kernel, {}).get("launches"))})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2286,8 +2590,8 @@ def check_ssd_bwd(sops, sref, gen, B, L, H, P, N, G, chunk, dtype,
                   per_sequence_A=False, steep_dt=None, timed=False,
                   faults=False, tangent=False) -> dict:
     """One call of ``ssd_scan_bwd`` (``tangent``: ``ssd_scan_bwd_tangent``)
-    at one shape against the plain passes composed (one call: six launches
-    in bf16, five in float32): each gradient within SSD_BWD_TOL, and a
+    at one shape against the plain passes composed (one call: six
+    launches): each gradient within SSD_BWD_TOL, and a
     second call equal to the bit.  ``faults``: the planted faults of
     bwd_faults must fail the check.  ``timed``: the call's ms, its plain
     version's, its bound, each wrapper's ms and bound, and the chunked VJP
@@ -2329,8 +2633,8 @@ def check_ssd_bwd(sops, sref, gen, B, L, H, P, N, G, chunk, dtype,
                            else time_ms(plain, 1, reps=3))
         row["bound_ms"], row["bound_by"] = bound_ms(*costs["whole"], rate)
         row["library_ms"] = None
+        tf32_bound(row, "call", costs["whole"])
         if tangent:
-            tf32_bound(row, "call", costs["whole"])
             chunked_call = lambda: torch.func.jvp(
                 lambda *a: chunked.ssd_scan_vjp(*a, chunk), tuple(args),
                 tuple(targs))
@@ -2354,9 +2658,9 @@ def bwd_pass_times(sops, sref, args, targs, chunk, tangent, costs, rate
                    ) -> dict:
     """Each wrapper of the call (state, pass, chunk: its launches) timed on
     the outputs of the one before, beside its plain version and its bound;
-    in bfloat16 and in the tangent also each launch of the chunk wrapper
-    alone ("launches": gram, chunk, finish, reduce, each on the planes the
-    ones before it filled), beside its bound."""
+    also each launch of the chunk wrapper alone ("launches": gram, chunk,
+    finish, reduce, each on the planes the ones before it filled), beside
+    its bound (in float32 also its three-TF32-product bound)."""
     x, dt, A, Bm, Cm, gy, gs = args
     if tangent:
         st = sops.ssd_bwd_tangent_state(*args[:6], *targs[:6], chunk=chunk)
@@ -2403,37 +2707,36 @@ def bwd_pass_times(sops, sref, args, targs, chunk, tangent, costs, rate
                          library_ms=None, bytes=nbytes, flops=flops)
         out[name]["bound_ms"], out[name]["bound_by"] = bound_ms(nbytes,
                                                                 flops, r)
-        if tangent and x.dtype == torch.float32 and name != "pass":
+        if x.dtype == torch.float32 and name != "pass":
             out[name]["tf32_bound_ms"], out[name]["tf32_bound_by"] = \
                 bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S)
-    if x.dtype == torch.bfloat16 or tangent:
-        calls, _ = sops._chunk_launches(
-            *args[:6], seg, s_in, gO, sg, chunk,
-            (*targs[:6], tseg, ts_in, tgO, tsg) if tangent else None)
-        out["launches"] = {}
-        for key, call in calls.items():
-            for earlier in calls.values():     # fill what this one reads
-                if earlier is call:
-                    break
-                earlier()
-            cost = costs["chunk_kernel" if key == "ssd_bwd_chunk"
-                         else key[len("ssd_bwd_"):]]
-            row = dict(ms=time_ms(call, 5))
-            row["bound_ms"], row["bound_by"] = bound_ms(*cost, rate)
-            if x.dtype == torch.float32:
-                row["tf32_bound_ms"], row["tf32_bound_by"] = bound_ms(
-                    cost[0], 3 * cost[1], TF32_FLOP_PER_S)
-            out["launches"][key] = row
+    calls, _ = sops._chunk_launches(
+        *args[:6], seg, s_in, gO, sg, chunk,
+        (*targs[:6], tseg, ts_in, tgO, tsg) if tangent else None)
+    out["launches"] = {}
+    for key, call in calls.items():
+        for earlier in calls.values():     # fill what this one reads
+            if earlier is call:
+                break
+            earlier()
+        cost = costs["chunk_kernel" if key == "ssd_bwd_chunk"
+                     else key[len("ssd_bwd_"):]]
+        row = dict(ms=time_ms(call, 5))
+        row["bound_ms"], row["bound_by"] = bound_ms(*cost, rate)
+        if x.dtype == torch.float32:
+            row["tf32_bound_ms"], row["tf32_bound_by"] = bound_ms(
+                cost[0], 3 * cost[1], TF32_FLOP_PER_S)
+        out["launches"][key] = row
     return out
 
 
 def bwd_calls_phase(sops) -> dict:
-    """The kernels that one bf16 ``ssd_scan_bwd`` call, one bf16
-    ``ssd_scan_bwd_tangent`` call and one float32 ``ssd_scan_bwd_tangent``
-    call run on the card at the mamba2 training shape, from torch.profiler;
-    fails unless each is its six kernels (SSD_BWD_KERNELS,
-    SSD_BWD_TANGENT_KERNELS, SSD_BWD_TANGENT_F32_KERNELS), one launch each,
-    and nothing else.  Run before the training step's profile (phase 5), as
+    """The kernels that one ``ssd_scan_bwd`` and one
+    ``ssd_scan_bwd_tangent`` call in each dtype run on the card at the
+    mamba2 training shape, from torch.profiler; fails unless each is its six
+    kernels (SSD_BWD_KERNELS, SSD_BWD_TANGENT_KERNELS, SSD_BWD_F32_KERNELS,
+    SSD_BWD_TANGENT_F32_KERNELS), one launch each, and nothing else.
+    Run before the training step's profile (phase 5), as
     ssd_calls_phase."""
     t = SSD_TRAIN
     gen = torch.Generator(device=DEVICE).manual_seed(6)
@@ -2446,6 +2749,7 @@ def bwd_calls_phase(sops) -> dict:
             ("ssd_scan_bwd", torch.bfloat16, SSD_BWD_KERNELS),
             ("ssd_scan_bwd_tangent", torch.bfloat16,
              SSD_BWD_TANGENT_KERNELS),
+            ("ssd_scan_bwd", torch.float32, SSD_BWD_F32_KERNELS),
             ("ssd_scan_bwd_tangent", torch.float32,
              SSD_BWD_TANGENT_F32_KERNELS)):
         args, targs = inputs[dtype]
@@ -2475,8 +2779,9 @@ def ssd_bwd_rows(sops, sref, gen, tangent=False) -> tuple[list, dict]:
     A per sequence, narrow heads, two groups), full-width heads with one
     group, one chunk of 100 rows, and seg falling past 88 within each of
     two chunks, in float32 and bfloat16; then the mamba2 training shape (A
-    per sequence) in both dtypes and the serving shape in bfloat16 (and, in
-    the tangent, float32), timed, with planted faults."""
+    per sequence) and the serving shape in both dtypes, timed, with planted
+    faults; the float32 rows printed beside their three bounds and the
+    CUDA-core kernels the float32 route replaced."""
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for L, chunk in ((128, 32), (256, 64), (256, 128)):
@@ -2495,30 +2800,26 @@ def ssd_bwd_rows(sops, sref, gen, tangent=False) -> tuple[list, dict]:
         sops, sref, gen, t["B"], t["L"], t["H"], t["P"], t["N"], t["G"],
         t["chunk"], dtype, per_sequence_A=True, timed=True, faults=True,
         tangent=tangent) for dtype in (torch.bfloat16, torch.float32)}
-    main["serve_bfloat16"] = check_ssd_bwd(
-        sops, sref, gen, m["B"], m["L"], m["H"], m["P"], m["N"], m["G"],
-        m["chunk"], torch.bfloat16, timed=True, faults=True, tangent=tangent)
-    if tangent:
-        # the float32 tangent (tbw) at the serving shape too, and both
-        # float32 rows beside the CUDA-core kernels it replaced
-        main["serve_float32"] = check_ssd_bwd(
+    for dtype in (torch.bfloat16, torch.float32):
+        main[f"serve_{str(dtype)[6:]}"] = check_ssd_bwd(
             sops, sref, gen, m["B"], m["L"], m["H"], m["P"], m["N"], m["G"],
-            m["chunk"], torch.float32, timed=True, faults=True,
-            tangent=True)
-        for shape in ("train", "serve"):
-            r = main[f"{shape}_float32"]
-            each = {k: round(v["ms"], 4)
-                    for k, v in r["passes"]["launches"].items()}
-            print(f"SSD backward's tangent, float32, at the {shape} shape: "
-                  f"{r['ms']:.4f} ms a call (state "
-                  f"{r['passes']['state']['ms']:.4f}, pass "
-                  f"{r['passes']['pass']['ms']:.4f}, {each}); bounds "
-                  f"{r['bound_ms']:.4f} ms (float32 rate, {r['bound_by']}), "
-                  f"{r['call_tf32_bound_ms']:.4f} ms (three TF32 products, "
-                  f"{r['call_tf32_bound_by']}) and "
-                  f"{r['call_bytes_bound_ms']:.4f} ms (bytes); the CUDA-core "
-                  f"kernels it replaced {SSD_BWD_TANGENT_F32_SIMT_MS} ms at "
-                  f"the train shape (PERF.md)", flush=True)
+            m["chunk"], dtype, timed=True, faults=True, tangent=tangent)
+    what = "backward's tangent" if tangent else "backward"
+    simt = SSD_BWD_TANGENT_F32_SIMT_MS if tangent else SSD_BWD_F32_SIMT_MS
+    for shape in ("train", "serve"):
+        r = main[f"{shape}_float32"]
+        each = {k: round(v["ms"], 4)
+                for k, v in r["passes"]["launches"].items()}
+        print(f"SSD {what}, float32, at the {shape} shape: "
+              f"{r['ms']:.4f} ms a call (state "
+              f"{r['passes']['state']['ms']:.4f}, pass "
+              f"{r['passes']['pass']['ms']:.4f}, {each}); bounds "
+              f"{r['bound_ms']:.4f} ms (float32 rate, {r['bound_by']}), "
+              f"{r['call_tf32_bound_ms']:.4f} ms (three TF32 products, "
+              f"{r['call_tf32_bound_by']}) and "
+              f"{r['call_bytes_bound_ms']:.4f} ms (bytes); the CUDA-core "
+              f"kernels the float32 route replaced {simt} ms at the train "
+              f"shape (PERF.md)", flush=True)
     torch.cuda.empty_cache()
     return rows, main
 
@@ -2530,9 +2831,9 @@ def ssd_bwd_summary(bwd, tan, train_rows, mamba_row, f32_split) -> list:
     gram, chunk, finish and reduce, each timed alone), numbers at the
     mamba2 training shape in bfloat16 with A per sequence, launches from
     the mamba2 training run (the backward's also from the serve run); each
-    tangent launch's float32 kernel (namespace tbw) beside, its launches
-    from the profiled float32 meta-gradient (``f32_split``,
-    meta_grad_split)."""
+    launch's float32 kernel (namespace tbw) beside, at both shapes with its
+    three bounds, its launches from the profiled float32 meta-gradient
+    (``f32_split``, meta_grad_split)."""
     t = SSD_TRAIN
     shape = (f"(B={t['B']}, L={t['L']}, H={t['H']}, P={t['P']}, N={t['N']}, "
              f"G={t['G']}, chunk={t['chunk']}) bfloat16, A per sequence")
@@ -2556,6 +2857,9 @@ def ssd_bwd_summary(bwd, tan, train_rows, mamba_row, f32_split) -> list:
                      f"it replaced, host included",
             "launches_in_serve_run": mamba_row["launches"].get(name),
             "float32": main["train_float32"],
+            "float32_serving_shape": main["serve_float32"],
+            "float32_launches_in_f32_meta_grad": f32_split.get(
+                name.replace("ssd_scan_", "ssd_") + "_launches"),
             "serving_shape": main["serve_bfloat16"],
             "sweep_checks": len(rows),
             "sweep_worst_err": max(r["max_abs_err"] for r in rows)})
@@ -2590,24 +2894,24 @@ def ssd_bwd_summary(bwd, tan, train_rows, mamba_row, f32_split) -> list:
                          f"max_abs_err: the whole call's",
                 "serving_shape": {k: serve[k] for k in ("ms", "bound_ms",
                                                         "bound_by")}}
-            if "tangent" in name:
-                kernel = SSD_BWD_TANGENT_F32_KERNELS[key]
-                f32 = {}
-                for where in ("train", "serve"):
-                    ps = main[f"{where}_float32"]["passes"]
-                    f32[where] = (ps[launch] if launch in ("state", "pass")
-                                  else ps["launches"]["ssd_bwd_" + launch])
-                entry["float32"] = dict(
-                    kernel=kernel,
-                    **{k: f32["train"].get(k) for k in (
-                        "ms", "bound_ms", "bound_by", "tf32_bound_ms",
-                        "tf32_bound_by")},
-                    max_abs_err=main["train_float32"]["max_abs_err"],
-                    serving_shape={k: f32["serve"].get(k) for k in (
-                        "ms", "bound_ms", "bound_by", "tf32_bound_ms")},
-                    launches_in_f32_meta_grad=f32_split.get(
-                        "ssd_bwd_kernels", {}).get(kernel, {}).get(
-                            "launches"))
+            kernel = (SSD_BWD_TANGENT_F32_KERNELS if "tangent" in name
+                      else SSD_BWD_F32_KERNELS)[key]
+            f32 = {}
+            for where in ("train", "serve"):
+                ps = main[f"{where}_float32"]["passes"]
+                f32[where] = (ps[launch] if launch in ("state", "pass")
+                              else ps["launches"]["ssd_bwd_" + launch])
+            entry["float32"] = dict(
+                kernel=kernel,
+                **{k: f32["train"].get(k) for k in (
+                    "ms", "bound_ms", "bound_by", "tf32_bound_ms",
+                    "tf32_bound_by")},
+                max_abs_err=main["train_float32"]["max_abs_err"],
+                serving_shape={k: f32["serve"].get(k) for k in (
+                    "ms", "bound_ms", "bound_by", "tf32_bound_ms")},
+                launches_in_f32_meta_grad=f32_split.get(
+                    "ssd_kernels", {}).get(kernel, {}).get(
+                        "launches"))
             out.append(entry)
     return out
 
@@ -2737,7 +3041,7 @@ def serve_phase(args, counters, expect, replay=("memory",)):
 def dispatch_profile(eng, supports) -> dict:
     """Device time of one more adapt dispatch of the same users, from
     torch.profiler: all kernels, the SSD scan's forward kernels (the three
-    bf16 passes, or the float32 kernel), its backward's kernels
+    passes of either route: hop's, tfs's), its backward's kernels
     (SSD_BWD_NAMESPACES), and the chunked-scan backward (its
     ``record_function`` range, with every kernel launched inside it: on the
     card it runs only on CPU tensors, so none is expected)."""
@@ -2752,9 +3056,9 @@ def dispatch_profile(eng, supports) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     del adapted, stacked
-    busy = fwd = bwd = sbw = 0.0
-    fwd_n = bwd_n = sbw_n = 0
-    sbw_kernels = {}
+    busy = fwd = bwd = sb = 0.0
+    fwd_n = bwd_n = sb_n = 0
+    sb_kernels = {}
     kernels = []
     for evt in prof.key_averages():
         # the range's span on the device timeline is no kernel time
@@ -2770,9 +3074,9 @@ def dispatch_profile(eng, supports) -> dict:
             if any(k in evt.key for k in SSD_FORWARD_KERNELS):
                 fwd, fwd_n = fwd + us, fwd_n + evt.count
             if is_ssd_bwd(evt.key):
-                sbw, sbw_n = sbw + us, sbw_n + evt.count
-                sbw_kernels[evt.key[:60]] = dict(ms=us / 1e3,
-                                                 launches=evt.count)
+                sb, sb_n = sb + us, sb_n + evt.count
+                sb_kernels[short_kernel(evt.key)] = dict(
+                    ms=us / 1e3, launches=evt.count)
         elif evt.key == "ssd_scan_chunked_bwd" and \
                 evt.device_type == torch.autograd.DeviceType.CPU:
             us = getattr(evt, "device_time_total", None)
@@ -2783,8 +3087,8 @@ def dispatch_profile(eng, supports) -> dict:
         return dict(wall_s=wall, device_ms="not measured")
     return dict(wall_s=wall, device_ms=busy / 1e3,
                 ssd_kernel_fwd_ms=fwd / 1e3, ssd_kernel_launches=fwd_n,
-                ssd_bwd_ms=sbw / 1e3, ssd_bwd_launches=sbw_n,
-                ssd_bwd_kernels=sbw_kernels, ssd_bwd_share=sbw / busy,
+                ssd_bwd_ms=sb / 1e3, ssd_bwd_launches=sb_n,
+                ssd_bwd_kernels=sb_kernels, ssd_bwd_share=sb / busy,
                 chunked_bwd_ms=bwd / 1e3, chunked_bwd_calls=bwd_n,
                 ssd_fwd_share=fwd / busy, chunked_bwd_share=bwd / busy,
                 device_idle_share=max(0.0, 1 - busy / 1e6 / wall),
@@ -4134,11 +4438,12 @@ def train_agreement_phase(arch, seq, loss_rtol, cfg=None,
 def meta_grad_split(inputs, dtype=torch.float32, mode="maml") -> dict:
     """One ``mode`` meta-gradient of ``inputs`` (``meta_grad_inputs``) on
     the card in ``dtype`` under torch.profiler, after a warm one: its wall
-    and device time, the device time of the SSD backward's kernels and of
-    their tangent's (SSD_BWD_NAMESPACES, apart by "::tangent_"), each
-    share of the device time and each kernel's.  It reads kernel names
-    only, so scripts/profile_f32_meta_grad.py runs it on another commit's
-    kernels too."""
+    and device time, and the device time and launches of the SSD scan's
+    forward kernels, of T3's, of the backward's and of its tangent's
+    (``ssd_role``), each share of the device time, and each SSD kernel's
+    ms and launches.  It reads kernel names only, so
+    scripts/profile_f32_meta_grad.py runs it on another commit's kernels
+    too."""
     from torch.profiler import ProfilerActivity, profile
     meta_grads(inputs, DEVICE, dtype, (mode,))
     torch.cuda.synchronize()
@@ -4148,7 +4453,9 @@ def meta_grad_split(inputs, dtype=torch.float32, mode="maml") -> dict:
         meta_grads(inputs, DEVICE, dtype, (mode,))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy, split, kernels = 0.0, dict(ssd_bwd=0.0, ssd_bwd_tangent=0.0), {}
+    roles = ("ssd_fwd", "ssd_t3", "ssd_bwd", "ssd_bwd_tangent")
+    busy, split, counts, kernels = 0.0, dict.fromkeys(roles, 0.0), \
+        dict.fromkeys(roles, 0), {}
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA or \
                 getattr(evt, "is_user_annotation", False):
@@ -4157,19 +4464,23 @@ def meta_grad_split(inputs, dtype=torch.float32, mode="maml") -> dict:
         if us is None:
             us = getattr(evt, "self_cuda_time_total", 0)
         busy += us
-        if is_ssd_bwd(evt.key):
-            split["ssd_bwd_tangent" if "::tangent_" in evt.key
-                  else "ssd_bwd"] += us
-            kernels[evt.key.split("(")[0][:60]] = dict(ms=us / 1e3,
-                                                       launches=evt.count)
+        role = ssd_role(evt.key)
+        if role is not None:
+            split[role] += us
+            counts[role] += evt.count
+            name = short_kernel(evt.key)
+            k = kernels.setdefault(name, dict(ms=0.0, launches=0))
+            k["ms"] += us / 1e3
+            k["launches"] += evt.count
     row = dict(dtype=str(dtype)[6:], mode=mode, wall_s=wall)
     if not busy:
         return dict(row, device_ms="not measured")
     row.update(device_ms=busy / 1e3,
                device_idle_share=max(0.0, 1 - busy / 1e6 / wall),
                **{f"{k}_ms": v / 1e3 for k, v in split.items()},
+               **{f"{k}_launches": v for k, v in counts.items()},
                **{f"{k}_share": v / busy for k, v in split.items()},
-               ssd_bwd_kernels=kernels)
+               ssd_kernels=kernels)
     return row
 
 
@@ -5253,17 +5564,18 @@ def paths_summary(kernels: list, fewshot: dict, lm100m: dict) -> None:
 # The tensor-core instruction each Hopper namespace's kernels compile to:
 # wgmma (HGMMA) in the bf16 kernels (hop), T3's bf16 passes (t3) and the
 # SSD backward's and its tangent's bf16 kernels (hbw), mma.sync on TF32
-# (HMMA) in the float32 flash forward, backward, T1 and T2 (tf32) and the
-# SSD backward's float32 tangent (tbw).
+# (HMMA) in the float32 flash forward, backward, T1 and T2 (tf32), the SSD
+# scan's float32 passes (tfs) and the SSD backward's and its tangent's
+# float32 kernels (tbw).
 TENSOR_OPS = {"hop": "HGMMA", "t3": "HGMMA", "tf32": "HMMA", "hbw": "HGMMA",
-              "tbw": "HMMA"}
+              "tbw": "HMMA", "tfs": "HMMA"}
 
 
 def kernel_symbol(text: str) -> str | None:
     """"namespace::kernel<template args>" of the first mangled kernel symbol
-    of namespace hop, tf32, t3, jvpk, sbw, hbw, tbw or ssd in ``text``;
+    of namespace hop, tf32, tfs, t3, jvpk, hbw, tbw or ssd in ``text``;
     None for none."""
-    for k in re.finditer(r"(\d)(hop|tf32|t3|jvpk|sbw|hbw|tbw|ssd)\d+"
+    for k in re.finditer(r"(\d)(hop|tf32|tfs|t3|jvpk|hbw|tbw|ssd)\d+"
                          r"([a-z_]+?)"
                          r"(?:I((?:Li\d+E|f|13__nv_bfloat16)+)E|E)", text):
         if int(k.group(1)) == len(k.group(2)):
@@ -5389,6 +5701,7 @@ def main() -> int:
                              "tf32::tangent_dkv_kernel")),
         "ssd_scan": (sops.build()["path"],
                      ("hop::chunk_state_kernel", "hop::chunk_scan_kernel",
+                      "tfs::chunk_state_kernel", "tfs::chunk_scan_kernel",
                       "t3::tangent_state_kernel",
                       "t3::tangent_scan_kernel")),
         "ssd_bwd": (sops.BWD_LIB.build()["path"],
@@ -5396,6 +5709,8 @@ def main() -> int:
                      "hbw::chunk_kernel", "hbw::tangent_state_kernel",
                      "hbw::tangent_gram_kernel",
                      "hbw::tangent_chunk_kernel",
+                     "tbw::state_kernel", "tbw::gram_kernel",
+                     "tbw::chunk_kernel",
                      "tbw::tangent_state_kernel",
                      "tbw::tangent_gram_kernel",
                      "tbw::tangent_chunk_kernel"))})
@@ -5466,13 +5781,14 @@ def main() -> int:
     mamba_f32_split = meta_grad_split(mamba_half["inputs"], torch.float32)
     del mamba_half
     print("mamba2 2-layer cut, one float32 maml meta-gradient on the card "
-          "(device ms): SSD backward "
-          f"{mamba_f32_split.get('ssd_bwd_ms')}, its tangent "
-          f"{mamba_f32_split.get('ssd_bwd_tangent_ms')}, of "
-          f"{mamba_f32_split.get('device_ms')}; shares "
-          f"{mamba_f32_split.get('ssd_bwd_share')} and "
-          f"{mamba_f32_split.get('ssd_bwd_tangent_share')}; "
-          f"{json.dumps(mamba_f32_split.get('ssd_bwd_kernels'))}",
+          f"(device ms of {mamba_f32_split.get('device_ms')}, launches, "
+          "share): " + "; ".join(
+              f"{role} {mamba_f32_split.get(role + '_ms')}, "
+              f"{mamba_f32_split.get(role + '_launches')}, "
+              f"{mamba_f32_split.get(role + '_share')}"
+              for role in ("ssd_fwd", "ssd_t3", "ssd_bwd",
+                           "ssd_bwd_tangent"))
+          + f"; {json.dumps(mamba_f32_split.get('ssd_kernels'))}",
           flush=True)
     train_agreement["mamba2-130m"]["float32_meta_grad_split"] = \
         mamba_f32_split
@@ -5501,8 +5817,8 @@ def main() -> int:
         fops, fref, torch.Generator(device=DEVICE).manual_seed(12), 2, 256,
         12, 2, 128, torch.float32, True, None, n=5)
     stamp("agreement")
-    ssd_main, ssd_rows, continuity, ssd_passes, ssd_pass_rows, ssd_bwd = \
-        ssd_phase(sops, sref, layers)
+    ssd_main, ssd_rows, continuity, ssd_passes, ssd_pass_rows, ssd_f32, \
+        ssd_bwd = ssd_phase(sops, sref, layers)
     stamp("ssd")
     mamba_row = serve_phase(MAMBA_SERVE_ARGS, counters,
                             lambda n, k: {"ssd_scan": n * k,
@@ -5555,7 +5871,8 @@ def main() -> int:
                         flash_gqa_rows, flash_calls)
           for name in ("flash_attention_fwd", "flash_attention_bwd")),
         *ssd_summary(ssd_main, ssd_rows, continuity, ssd_passes,
-                     ssd_pass_rows, ssd_calls, mamba_row),
+                     ssd_pass_rows, ssd_f32, ssd_calls, mamba_row,
+                     mamba_f32_split),
         *tangent_summary(tangent, train_rows),
         *ssd_bwd_summary(ssd_bwd, tangent["bwd_tangent"], train_rows,
                          mamba_row, mamba_f32_split),

@@ -6,9 +6,11 @@ another commit's, on one CUDA card, each launch's device time apart.
 Builds this tree's ``src/repro_torch/kernels/ssd_scan/csrc/ssd_bwd.cu``
 (through ``ops.BWD_LIB``) and each ``OTHER_SOURCE`` given: another
 commit's ``ssd_bwd.cu`` whose C entry runs the float32 backward and its
-tangent as five passes (state, pass, chunk, finish, reduce; ``git show
+tangent as its passes (state, pass, then gram where that commit's route
+has one, chunk, finish, reduce; ``git show
 <commit>:src/repro_torch/kernels/ssd_scan/csrc/ssd_bwd.cu >
-build/parent_ssd_bwd.cu``), all at once into ``build/kernels/``.  Then, on
+build/parent_ssd_bwd.cu``, with any header it includes beside it), all at
+once into ``build/kernels/``.  Then, on
 the same inputs, for the mamba2 training shape (``chip_smoke.SSD_TRAIN``,
 A per sequence) and the serving shape (``chip_smoke.SSD_MAIN``), in
 bfloat16 and float32: ``ssd_scan_bwd`` and ``ssd_scan_bwd_tangent``, this
@@ -28,6 +30,7 @@ call, then one JSON line.  Run by hand; ``chip_smoke.py`` does not run it.
 import ctypes
 import json
 import re
+import shutil
 import statistics
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -39,7 +42,8 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 import chip_smoke as cs  # noqa: E402  (sets the allocator before torch)
 import torch  # noqa: E402
 
-from repro_torch.kernels.build import BUILD_DIR, CudaLibrary  # noqa: E402
+from repro_torch.kernels.build import (  # noqa: E402
+    BUILD_DIR, CudaLibrary, local_headers)
 from repro_torch.kernels.ssd_scan import ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ref as sref  # noqa: E402
 
@@ -83,8 +87,12 @@ def build(others) -> tuple[dict, dict]:
     this tree's with one part removed), all built at once."""
     libs = {THIS: ops.BWD_LIB}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # the copies below include this tree's headers (an other source's own
+    # headers are found beside it, in its directory)
+    for header in local_headers(ops.BWD_SOURCE):
+        shutil.copy(header, BUILD_DIR / header.name)
     for i, path in enumerate(others):
-        copy = BUILD_DIR / f"ssd_bwd_other_{i}.cu"
+        copy = Path(path).resolve().parent / f"ssd_bwd_other_{i}.cu"
         copy.write_text(Path(path).read_text())
         libs[str(path)] = CudaLibrary(copy, f"ssd_bwd_other_{i}",
                                       _declare_other)
@@ -135,13 +143,13 @@ def part_times(copies, args, targs, chunk) -> dict:
     return out
 
 
-def five_passes(lib, args, targs, chunk, tangent):
+def other_passes(lib, args, targs, chunk, tangent):
     """One call of another commit's float32 backward (``tangent``: its
-    tangent) through its C entry: the five passes in order, each tensor's
-    value and
-    tangent planes in the slots of ``ops._BWD_TENSORS`` (the first
-    ``repro_ssd_bwd_slots() / 2`` of them), as that commit's wrappers
-    allocated them."""
+    tangent) through its C entry: state, pass, gram (where its entry takes
+    pass 5 for this call: it refuses it before any launch otherwise),
+    chunk, finish, reduce, each tensor's value and tangent planes in the
+    slots of ``ops._BWD_TENSORS`` (the first ``repro_ssd_bwd_slots() / 2``
+    of them), as that commit's wrappers allocated them."""
     x, dt, A, Bg, Cg, gy, gs = args
     B, L, H, P = x.shape
     G, N = Bg.shape[2], Bg.shape[3]
@@ -153,7 +161,8 @@ def five_passes(lib, args, targs, chunk, tangent):
               "sg": (B, H, nc), "dBh": (B, L, H, N), "dCh": (B, L, H, N),
               "ddd": (B, H, L), "dsk": (B, H, L), "dsq": (B, H, L),
               "tk": (B, H, L), "dAp": (B, nc, H), "ddt": (B, L, H),
-              "dA": tuple(A.shape), "gram": (1,)}   # gram: not in float32
+              "dA": tuple(A.shape),
+              "gram": (B * nc, G, *ops._gram_tiles(x.dtype, chunk))}
     given = dict(zip(("x", "dt", "A", "B", "C", "gy", "gs"), args))
     tgiven = dict(zip(("x", "dt", "A", "B", "C", "gy", "gs"),
                       targs if tangent else [None] * 7))
@@ -183,9 +192,11 @@ def five_passes(lib, args, targs, chunk, tangent):
         int(A.ndim == 2))
     dtype = ops._DTYPES[x.dtype]
     stream = torch.cuda.current_stream().cuda_stream
-    for p in range(5):
+    for p in (0, 1, 5, 2, 3, 4):
         err = lib.lib.repro_ssd_bwd_launch(p, int(tangent), dtype, ptrs, dims,
                                            stream)
+        if err and p == 5:
+            continue                     # no gram kernel in that route
         if err:
             raise RuntimeError(f"pass {p} of {lib.source} failed: {err}")
     return tuple(out[k] for k in ("dx", "ddt", "dA", "dB", "dC"))
@@ -219,7 +230,7 @@ def run(name, lib, args, targs, chunk, tangent):
             return lambda: ops.ssd_scan_bwd_tangent(*args, *targs,
                                                     chunk=chunk)
         return lambda: ops.ssd_scan_bwd(*args, chunk=chunk)
-    return lambda: five_passes(lib, args, targs, chunk, tangent)
+    return lambda: other_passes(lib, args, targs, chunk, tangent)
 
 
 def main() -> int:
@@ -247,7 +258,7 @@ def main() -> int:
                                         args[0].element_size(), tangent)
                 rate = cs.BF16_FLOP_PER_S if dtype == torch.bfloat16 else \
                     cs.FP32_FLOP_PER_S
-                # another commit's five passes: its float32 route
+                # another commit's passes: its float32 route
                 names = [n for n in libs
                          if n == THIS or dtype == torch.float32]
                 rows = {n: {"ms": [], "launches": []} for n in names}

@@ -9,9 +9,10 @@ mamba2 training agreement (phase 15: one agent, one task of one
 512-token sequence, full width cut to 2 layers) with that checkout's
 ``chip_smoke.meta_grad_inputs``, and runs this tree's
 ``chip_smoke.meta_grad_split`` on them (it reads kernel names only): one
-line ``CMP {...}`` with the meta-gradient's wall and device time, the
-device time of the SSD backward's kernels and of their tangent's and
-their shares.  To compare two commits on one card, unpack the other with
+line ``CMP {...}`` with the meta-gradient's wall and device time, and the
+device time, launches and share of the SSD scan's forward kernels, of its
+tangent T3's, of the backward's and of the backward's tangent's, each SSD
+kernel's beside.  To compare two commits on one card, unpack the other with
 ``git archive`` into a directory ``.gitignore`` lists and run both in one
 call, alternating (other, this, this, other).
 """

@@ -3,8 +3,9 @@
 ``ctypes``.
 
 A library is compiled at its first use into ``build/kernels/`` at the
-repository root, named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is loaded as it is.  Nothing is built
+repository root, named by a hash of the source, the headers it includes
+from its own directory and the flags, so an edited source or header
+rebuilds and an unchanged one is loaded as it is.  Nothing is built
 when a module is imported: the CPU tests import every module, and the CPU
 has no ``nvcc``.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -20,11 +22,40 @@ import time
 from pathlib import Path
 from typing import Callable
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "CudaLibrary", "raise_on"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "CudaLibrary", "local_headers",
+           "raise_on", "source_tag"]
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def local_headers(source: Path) -> list[Path]:
+    """The headers ``source`` includes by ``#include "name"`` from its own
+    directory, and theirs, each once, in the order first met."""
+    found: list[Path] = []
+    todo = [Path(source)]
+    while todo:
+        path = todo.pop(0)
+        for name in _INCLUDE.findall(path.read_bytes()):
+            header = path.parent / name.decode()
+            if header.is_file() and header not in found:
+                found.append(header)
+                todo.append(header)
+    return found
+
+
+def source_tag(source: Path) -> str:
+    """The library's tag: a hash of the source, of each header it includes
+    from its directory (:func:`local_headers`) and of the flags."""
+    digest = hashlib.sha256(Path(source).read_bytes())
+    for header in local_headers(source):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return digest.hexdigest()[:16]
 
 
 def _nvcc() -> str:
@@ -55,17 +86,15 @@ class CudaLibrary:
         self._info: dict = {}
 
     def build(self) -> dict:
-        """Compile (when the source or flags changed) and load.  Returns
+        """Compile (when the source, a header it includes or the flags
+        changed) and load.  Returns
         ``{"path", "seconds", "compiled", "log"}``, where ``log`` is nvcc's
         output (``-Xptxas -v``: registers and shared memory per kernel).
         Raises if nvcc fails."""
         with self._lock:
             if self._lib is not None:
                 return self._info
-            src = self.source.read_bytes()
-            tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
-                                 ).hexdigest()[:16]
-            so = BUILD_DIR / f"lib{self.stem}_{tag}.so"
+            so = self.path
             t0 = time.perf_counter()
             log, compiled = "", not so.exists()
             if compiled:
@@ -86,6 +115,12 @@ class CudaLibrary:
                               seconds=time.perf_counter() - t0)
             self._lib = lib
         return self._info
+
+    @property
+    def path(self) -> Path:
+        """The shared library's file: ``build/kernels/lib<stem>_<tag>.so``,
+        the tag :func:`source_tag` of the source as it is now."""
+        return BUILD_DIR / f"lib{self.stem}_{source_tag(self.source)}.so"
 
     @property
     def lib(self) -> ctypes.CDLL:

@@ -31,25 +31,28 @@
 // The tangent runs the same passes on dual numbers (value, tangent) and
 // writes only the tangents of the five gradients.
 //
-// Three routes, chosen by dtype and by backward or tangent in the C entry;
-// the state passing, finish and reduce bodies (namespace ssd) serve all
-// three:
-//   bfloat16  namespace hbw, the backward and its tangent on wgmma and TMA
-//             (its design below, at the namespace): state, pass, gram (C
-//             B^T once per group), chunk, finish, reduce; six launches.
-//   float32 tangent  namespace tbw, on the tensor cores as three TF32
-//             mma.sync products (its design at the namespace): the same six
-//             launches as hbw's tangent.
-//   float32 backward  namespace sbw, on the CUDA cores: state, pass,
-//             chunk, finish, reduce.
+// Two routes, chosen by dtype in the C entry, each with the backward and
+// its tangent; the state passing, finish and reduce bodies (namespace ssd)
+// serve both:
+//   bfloat16  namespace hbw, on wgmma and TMA (its design below, at the
+//             namespace): state, pass, gram (C B^T once per group), chunk,
+//             finish, reduce; six launches.
+//   float32   namespace tbw, the same six launches on the tensor cores as
+//             three TF32 mma.sync products (its design at the namespace;
+//             the fragments in tf32x3.cuh, shared with ssd_scan.cu's
+//             float32 forward).
 //
-// The design the bfloat16 route replaced (mma.sync on 16 x 32 warp tiles,
-// 40x and 51x its bounds at the mamba2 training shape) lost its time in
-// five places, and hbw and tbw answer each:
+// The designs these replaced (mma.sync on 16 x 32 warp tiles in bfloat16,
+// 40x and 51x its bounds at the mamba2 training shape; in float32 five
+// CUDA-core kernels, the backward 6.1x its float32-rate bound and the
+// tangent 22x) lost their time in five places, and hbw and tbw answer
+// each:
 //   1. every float32 operand was split into bf16 hi/lo in registers at
 //      each fragment load, again by every warp and 32-column slab: now M,
 //      Z (and M', Z') are split once a pair of tiles and gO, s_in once a
-//      block, into swizzled shared-memory planes that wgmma reads;
+//      block, into swizzled shared-memory planes that wgmma reads (in
+//      tbw, formed once into float32 planes whose fragments split as they
+//      load);
 //   2. the chunk kernel formed G and D twice (one block for key rows, one
 //      for query rows) and G once per head: now one block walks all pairs
 //      (q, k) of its (b, chunk, h) once, and G comes from the gram launch,
@@ -63,10 +66,7 @@
 //      P x N of S and Lc on the tensor cores;
 //   5. the state passing took one element at a time: now each of its 1024
 //      threads carries eight through the chunks together.
-// The float32 tangent's CUDA-core kernels (sbw's passes on dual numbers,
-// 22x their bound at the mamba2 training shape) had the same faults; tbw
-// answers them the same way, on TF32 products.
-//
+
 // Every sum runs in a fixed order: there are no atomics, so two calls on
 // the same inputs give the same bits.  exp is taken of seg_q - seg_k only
 // for k <= q (masked before the exponential), so everything stays finite
@@ -85,6 +85,8 @@
 #include <math.h>
 #include <stdint.h>
 #include <type_traits>
+
+#include "tf32x3.cuh"
 
 // What every route shares: the C entry's slots and arguments, dual numbers,
 // and the bodies of the state passing, finish and reduce passes.
@@ -417,622 +419,7 @@ __host__ __device__ constexpr int ceil_div(int a, int b) {
   return (a + b - 1) / b;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-// 16 bytes from src to shared dst, src_bytes of them read (the rest zero);
-// the caller waits with cp_async_wait before its barrier.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Rows [r0, r0 + n) of the chunk of a (B, L, X, W) tensor at index xi
-// (row0: the chunk's first (b, l) row) into dst, row stride ld: zero past
-// the chunk's cs rows and from column W to Wpad (a multiple of 16 bytes'
-// elements).  Rows whose width is a multiple of 16 bytes (from a 16-byte
-// aligned tensor) go by cp.async, 16 bytes a copy, all in flight at once
-// (the caller waits with cp_async_wait before its barrier); others element
-// by element.
-template <typename E>
-__device__ __forceinline__ void stage(E* dst, int ld, const E* src,
-                                      long long row0, int X, int xi, int W,
-                                      int Wpad, int r0, int n, int cs) {
-  constexpr int kV = 16 / sizeof(E);
-  if (W % kV == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    const int per_row = Wpad / kV;
-    for (int idx = threadIdx.x; idx < n * per_row; idx += blockDim.x) {
-      const int r = idx / per_row, col = (idx - r * per_row) * kV;
-      const int k = r0 + r;
-      const bool in = k < cs && col < W;
-      cp_async16(dst + r * ld + col,
-                 in ? src + ((row0 + k) * X + xi) * W + col : src,
-                 in ? 16 : 0);
-    }
-    return;
-  }
-  for (int idx = threadIdx.x; idx < n * Wpad; idx += blockDim.x) {
-    const int r = idx / Wpad, col = idx - r * Wpad, k = r0 + r;
-    E v = cast<E>(0.f);
-    if (k < cs && col < W) v = src[((row0 + k) * X + xi) * W + col];
-    dst[r * ld + col] = v;
-  }
-}
-
-
 }  // namespace ssd
-
-// The float32 backward.  Each warp sums 16-row tiles on the CUDA cores, one
-// FMA a term, in the m16n8k16 fragment layout; the chunk and state kernels
-// stage their operands in shared memory by cp.async (all of a tile's
-// copies in flight at once: staged element by element, one dependent load
-// after another, the kernel took four times as long).  The chunk kernel
-// takes blocks of 64 rows of a (b, chunk, h) in two roles: key rows k walk
-// the query rows q >= k in tiles of 32 (dx, dB, the direct part of ddt,
-// R's column sums); query rows walk the key rows k <= q (dC, R's row sums
-// with the entering state's term).  The state kernel takes a (b, chunk, h)
-// and 32 columns of N a block.  The state passing, finish and reduce
-// bodies are namespace ssd's.
-namespace sbw {
-
-using namespace ssd;
-
-constexpr int kWarps = 4;              // a chunk or state block: 4 x 16 rows
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 16 * kWarps;
-constexpr int kSlab = 32;              // columns of one product pass
-constexpr int kLdS = kSlab + 4;        // row strides of the warps' tiles
-constexpr int kLdP = kMaxP + 4;
-constexpr int kLdN = kMaxN + 4;
-
-// --------------------------------------------------------------------------
-// warp products: lane (g, t) = (lane / 4, lane % 4) holds rows g and
-// g + 8, columns 8 nt + 2 t and + 1, of a 16 x 32 tile
-// --------------------------------------------------------------------------
-
-// acc (16 x 32) += A (16 x K) B (K x 32) for one warp on the CUDA cores,
-// one FMA a term; fa(i, k) and fb(k, j) give the operands, zero outside
-// the tensors.
-template <typename FA, typename FB>
-__device__ __forceinline__ void warp_mm(float (&acc)[4][4], int K,
-                                        const FA& fa, const FB& fb) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  for (int k = 0; k < K; ++k) {
-    const float a0 = fa(g, k), a1 = fa(g + 8, k);
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int n = 8 * nt + 2 * t;
-      const float b0 = fb(k, n), b1 = fb(k, n + 1);
-      acc[nt][0] += a0 * b0;
-      acc[nt][1] += a0 * b1;
-      acc[nt][2] += a1 * b0;
-      acc[nt][3] += a1 * b1;
-    }
-  }
-}
-
-// f(row, column, element) over a lane's fragment elements.
-template <typename F>
-__device__ __forceinline__ void each(float (&acc)[4][4], const F& f) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      f(g + 8 * (e >> 1), 8 * nt + 2 * t + (e & 1), acc[nt][e]);
-}
-
-// --------------------------------------------------------------------------
-// operands staged in shared memory
-// --------------------------------------------------------------------------
-
-constexpr int kTileRows = 32;              // rows a staged slab or tile
-
-// A staged operand: element (row, column) as float.
-template <typename E> struct Sm {
-  const E* v;
-  int ld;
-  __device__ __forceinline__ float operator()(int r, int c) const {
-    return f32(v[r * ld + c]);
-  }
-};
-
-// --------------------------------------------------------------------------
-// pass 1: seg, S and Lc of one (b, chunk, h), 32 columns of N a block
-// --------------------------------------------------------------------------
-
-// A block a (b, chunk, h) and 32 columns n0 of N: its four warps take 16
-// rows of P each and walk the chunk's rows in slabs of kTileRows, staging
-// x, B, gy and C rows (as the chunk kernel stages its tiles).  S = (u x)^T
-// B and Lc = (e gy)^T C, the scaled operand formed as it is loaded.
-template <typename In> struct StateLayout {
-  static constexpr int kLdNi = kMaxN + 4;
-  static constexpr int kLdPi = kMaxP + 4;
-  static constexpr size_t kSlabN = (size_t)kTileRows * kLdNi * sizeof(In);
-  static constexpr size_t kSlabP = (size_t)kTileRows * kLdPi * sizeof(In);
-  static constexpr size_t kBytes = 2 * (kSlabN + kSlabP);
-};
-
-template <typename In>
-__device__ __forceinline__ void state_body(const Args& a) {
-  using Lay = StateLayout<In>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float segs[kMaxChunk], u[kMaxChunk], e[kMaxChunk];
-  const int cs = a.cs, H = a.H, P = a.P, N = a.N, G = a.G, L = a.L;
-  const int nS = (N + kSlab - 1) / kSlab;
-  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z / nS;
-  const int n0 = (blockIdx.z % nS) * kSlab;
-  const int grp = h / (H / G);
-  const long long row0 = (long long)b * L + (long long)c * cs;
-  const long long sbase = ((long long)b * H + h) * L + (long long)c * cs;
-  const auto dt = rd<float, false>(a, DT);
-  const auto x = rd<In, false>(a, X), gy = rd<In, false>(a, GY);
-  const auto Bm = rd<In, false>(a, BM), Cm = rd<In, false>(a, CM);
-  const float A = load_A<false>(a, b, h);
-  for (int i = threadIdx.x; i < cs; i += blockDim.x)
-    segs[i] = dt[(row0 + i) * H + h] * A;
-  __syncthreads();
-  if (threadIdx.x == 0) {                  // the cumsum, in row order
-    float s = 0.f;
-    for (int i = 0; i < cs; ++i) {
-      s += segs[i];
-      segs[i] = s;
-    }
-  }
-  __syncthreads();
-  const auto seg = wr<float, false>(a, SEG);
-  for (int i = threadIdx.x; i < kMaxChunk; i += blockDim.x) {
-    u[i] = e[i] = 0.f;                     // zero past the chunk
-    if (i >= cs) continue;
-    if (n0 == 0) seg.put(sbase + i, segs[i]);
-    u[i] = dexp(segs[cs - 1] - segs[i]) * dt[(row0 + i) * H + h];
-    e[i] = dexp(segs[i]);
-  }
-  // rows [k0, k0 + kTileRows) of m as an operand, staged at `at`
-  auto rows = [&](const Rd<In, false>& m, size_t at, bool group, int k0) {
-    const int W = group ? N : P, X = group ? G : H, xi = group ? grp : h;
-    const int ld = group ? Lay::kLdNi : Lay::kLdPi;
-    In* v = reinterpret_cast<In*>(smem + at);
-    stage(v, ld, m.v, row0, X, xi, W, (W + 31) & ~31, k0, kTileRows, cs);
-    return Sm<In>{v, ld};
-  };
-  const int p0 = 16 * (threadIdx.x >> 5);
-  float accS[4][4] = {}, accL[4][4] = {};
-  for (int k0 = 0; k0 < cs; k0 += kTileRows) {
-    __syncthreads();                       // the last slab is read
-    const Sm<In> xs = rows(x, 0, false, k0);
-    const Sm<In> bs = rows(Bm, Lay::kSlabP, true, k0);
-    const Sm<In> gs = rows(gy, Lay::kSlabP + Lay::kSlabN, false, k0);
-    const Sm<In> cs_ = rows(Cm, 2 * Lay::kSlabP + Lay::kSlabN, true, k0);
-    cp_async_wait();
-    __syncthreads();
-    if (p0 >= P) continue;
-    warp_mm(
-        accS, kTileRows,
-        [&](int i, int k) { return u[k0 + k] * xs(k, p0 + i); },
-        [&](int k, int j) { return bs(k, n0 + j); });
-    warp_mm(
-        accL, kTileRows,
-        [&](int i, int k) { return e[k0 + k] * gs(k, p0 + i); },
-        [&](int k, int j) { return cs_(k, n0 + j); });
-  }
-  if (p0 >= P) return;
-  const long long obase = (((long long)b * a.nc + c) * H + h) * P * N;
-  float* S = static_cast<float*>(a.p[2 * SS]);
-  float* Lc = static_cast<float*>(a.p[2 * LC]);
-  each(accS, [&](int i, int j, float v) {
-    const int p = p0 + i, n = n0 + j;
-    if (p < P && n < N) S[obase + (long long)p * N + n] = v;
-  });
-  each(accL, [&](int i, int j, float v) {
-    const int p = p0 + i, n = n0 + j;
-    if (p < P && n < N) Lc[obase + (long long)p * N + n] = v;
-  });
-}
-
-// --------------------------------------------------------------------------
-// pass 3: a block's 64 key rows or 64 query rows of a (b, chunk, h)
-// --------------------------------------------------------------------------
-
-// A block stages its own 64 rows of its two operands (key rows: B and x;
-// query rows: C and gy) once, then walks the other side's rows in tiles of
-// 32 (key rows the query rows q >= k; query rows the key rows k <= q),
-// staging each tile's two operands (C and gy; B and x), and last the
-// chunk's state operand (key rows gO, query rows s_in, P x N float32).
-// Staged rows are zero past the chunk and their columns zero up to the
-// next multiple of 32, so the warps read them without bounds.  Each warp
-// owns 16 of the block's rows: its M and Z slabs are its own, and so are
-// its accumulators, in registers.
-template <typename In> struct ChunkLayout {
-  static constexpr int kLdNi = kMaxN + 4;               // staged row strides
-  static constexpr int kLdPi = kMaxP + 4;
-  static constexpr size_t kOwn = (size_t)kRows * (kLdNi + kLdPi) * sizeof(In);
-  static constexpr size_t kTile =
-      (size_t)kTileRows * (kLdNi + kLdPi) * sizeof(In);
-  static constexpr size_t kMZ = (size_t)kWarps * 2 * 16 * kLdS * sizeof(float);
-  static constexpr size_t kState = (size_t)kMaxP * kLdN * sizeof(float);
-  static constexpr size_t kLoop = kTile + kMZ > kState ? kTile + kMZ : kState;
-  static constexpr size_t kBytes = kOwn + kLoop;
-};
-
-template <typename In> struct Chunk {
-  using Lay = ChunkLayout<In>;
-  static constexpr int kSP = kMaxP / kSlab, kSN = kMaxN / kSlab;
-  using Op = Sm<In>;
-  using StOp = Sm<float>;
-
-  const Args& a;
-  unsigned char* smem;
-  int b, c, h, grp, cs, H, P, N, G, warp, lane, g;
-  long long row0, sbase, obase;
-  Rd<In, false> x, gy, Bm, Cm;
-  Rd<float, false> dt, seg;
-
-  __device__ __forceinline__ Chunk(const Args& a_, unsigned char* smem_,
-                                   int b_, int c_, int h_)
-      : a(a_), smem(smem_), b(b_), c(c_), h(h_), cs(a_.cs), H(a_.H),
-        P(a_.P), N(a_.N), G(a_.G) {
-    grp = h / (H / G);
-    warp = threadIdx.x >> 5;
-    lane = threadIdx.x & 31;
-    g = lane >> 2;
-    row0 = (long long)b * a.L + (long long)c * cs;
-    sbase = ((long long)b * H + h) * a.L + (long long)c * cs;
-    obase = (((long long)b * a.nc + c) * H + h) * (long long)P * N;
-    x = rd<In, false>(a, X);
-    gy = rd<In, false>(a, GY);
-    Bm = rd<In, false>(a, BM);
-    Cm = rd<In, false>(a, CM);
-    dt = rd<float, false>(a, DT);
-    seg = rd<float, false>(a, SEG);
-  }
-
-  // rows [r0, r0 + n) of m (a B/C tensor with group index, or an x/gy
-  // tensor with head index), staged at `at` (bytes into shared memory)
-  template <bool kGroup>
-  __device__ __forceinline__ Op rows(const Rd<In, false>& m, size_t at,
-                                     int r0, int n) {
-    const int W = kGroup ? N : P, X = kGroup ? G : H, xi = kGroup ? grp : h;
-    const int ld = kGroup ? Lay::kLdNi : Lay::kLdPi;
-    In* v = reinterpret_cast<In*>(smem + at);
-    stage(v, ld, m.v, row0, X, xi, W, (W + 31) & ~31, r0, n, cs);
-    return Op{v, ld};
-  }
-  // the chunk's P x N state operand (gO or s_in), staged at `at`
-  __device__ __forceinline__ StOp state_op(int slot, size_t at) {
-    const float* m = static_cast<const float*>(a.p[2 * slot]);
-    float* v = reinterpret_cast<float*>(smem + at);
-    // as a (1, P, 1, N) tensor, zero to kMaxP rows and kLdN columns
-    stage(v, kLdN, m + obase, 0, 1, 0, N, (N + 31) & ~31, 0, kMaxP, P);
-    return StOp{v, kLdN};
-  }
-
-  // f(slab, 16 x 32 tile) for the slabs below width W of a warp's 16 rows
-  // x (32 kS) columns of accumulators
-  template <int kS, typename F>
-  __device__ __forceinline__ void acc_slabs(float (&acc)[kS][4][4], int W,
-                                            const F& f) {
-#pragma unroll
-    for (int q = 0; q < kS; ++q) {
-      if (q * kSlab >= W) break;
-      f(q, acc[q]);
-    }
-  }
-  template <int kS, typename F>
-  __device__ __forceinline__ void acc_each(float (&acc)[kS][4][4], int W,
-                                           const F& f) {
-    acc_slabs(acc, W, [&](int q, float (&t)[4][4]) {
-      each(t, [&](int i, int j, float& v) {
-        if (q * kSlab + j < W) f(i, q * kSlab + j, v);
-      });
-    });
-  }
-
-  // the warp's M (0) and Z (1) slabs, 16 x kSlab
-  __device__ __forceinline__ float* mz(int which) const {
-    return reinterpret_cast<float*>(smem + Lay::kOwn + Lay::kTile) +
-           (warp * 2 + which) * 16 * kLdS;
-  }
-  __device__ __forceinline__ float seg_at(int k) const {
-    return k < cs ? seg[sbase + k] : 0.f;
-  }
-  __device__ __forceinline__ float dt_at(int k) const {
-    return k < cs ? dt[(row0 + k) * H + h] : 0.f;
-  }
-
-  __device__ void key_rows(int kb) {
-    const int kc = kb * kRows, k0 = kc + 16 * warp;
-    const size_t rowsN = (size_t)kRows * Lay::kLdNi * sizeof(In);
-    const size_t tileN = (size_t)kTileRows * Lay::kLdNi * sizeof(In);
-    const Op Bk = rows<true>(Bm, 0, kc, kRows);
-    const Op xk = rows<false>(x, rowsN, kc, kRows);
-    float dx[kSP][4][4] = {}, dB[kSN][4][4] = {};
-    float segk[2], dtk[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      segk[r] = seg_at(k0 + g + 8 * r);
-      dtk[r] = dt_at(k0 + g + 8 * r);
-    }
-    float colR[2] = {}, direct[2] = {};
-    const int wr = 16 * warp;                     // the warp's own rows
-    for (int qs = kc; qs < cs; qs += kTileRows) {
-      __syncthreads();                            // the last tile is read
-      const Op Cq = rows<true>(Cm, Lay::kOwn, qs, kTileRows);
-      const Op gq = rows<false>(gy, Lay::kOwn + tileN, qs, kTileRows);
-      cp_async_wait();
-      __syncthreads();
-      if (k0 >= cs || qs + kTileRows <= k0) continue;
-      float Gt[4][4] = {}, Dt[4][4] = {};
-      warp_mm(
-          Gt, N, [&](int i, int n) { return Bk(wr + i, n); },
-          [&](int n, int j) { return Cq(j, n); });
-      warp_mm(
-          Dt, P, [&](int i, int p) { return xk(wr + i, p); },
-          [&](int p, int j) { return gq(j, p); });
-      float* Ms = mz(0);
-      float* Zs = mz(1);
-      each(Gt, [&](int i, int j, float gq_) {
-        const int k = k0 + i, q = qs + j, r = i >> 3;
-        const float d = Dt[j >> 3][(j & 1) + 2 * r];
-        float M = 0.f, Z = 0.f;
-        if (k < cs && q < cs && k <= q) {
-          const float E = dexp(seg[sbase + q] - segk[r]);
-          const float GE = gq_ * E;
-          M = GE * dtk[r];
-          Z = d * E * dtk[r];
-          if (k < q) colR[r] += d * M;     // the diagonal: see finish_body
-          direct[r] += d * GE;
-        }
-        Ms[i * kLdS + j] = M;
-        Zs[i * kLdS + j] = Z;
-      });
-      __syncwarp();
-      acc_slabs(dx, P, [&](int s, float (&t)[4][4]) {
-        warp_mm(
-            t, kSlab, [&](int i, int q) { return Ms[i * kLdS + q]; },
-            [&](int q, int j) { return gq(q, s * kSlab + j); });
-      });
-      acc_slabs(dB, N, [&](int s, float (&t)[4][4]) {
-        warp_mm(
-            t, kSlab, [&](int i, int q) { return Zs[i * kLdS + q]; },
-            [&](int q, int j) { return Cq(q, s * kSlab + j); });
-      });
-      __syncwarp();
-    }
-    // the state leaving the chunk: s_out += u_k x_k B_k^T
-    __syncthreads();
-    const StOp gO = state_op(GO, Lay::kOwn);
-    cp_async_wait();
-    __syncthreads();
-    if (k0 >= cs) return;                         // no barrier below
-    const float end = seg[sbase + cs - 1];
-    float wk[2], uk[2], xv[2] = {};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      wk[r] = k0 + g + 8 * r < cs ? dexp(end - segk[r]) : 0.f;
-      uk[r] = wk[r] * dtk[r];
-    }
-    for (int p0 = 0; p0 < P; p0 += kSlab) {
-      float v[4][4] = {};                         // gO B_k
-      warp_mm(
-          v, N, [&](int i, int n) { return Bk(wr + i, n); },
-          [&](int n, int j) { return gO(p0 + j, n); });
-      each(v, [&](int i, int j, float vv) {
-        if (p0 + j < P) xv[i >> 3] += xk(wr + i, p0 + j) * vv;
-      });
-      acc_slabs(dx, P, [&](int s, float (&t)[4][4]) {
-        if (s * kSlab != p0) return;
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) t[nt][e] += uk[e >> 1] * v[nt][e];
-      });
-    }
-    acc_slabs(dB, N, [&](int s, float (&t)[4][4]) {
-      float w[4][4] = {};                         // gO^T x_k
-      warp_mm(
-          w, P, [&](int i, int p) { return xk(wr + i, p); },
-          [&](int p, int j) { return gO(p, s * kSlab + j); });
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) t[nt][e] += uk[e >> 1] * w[nt][e];
-    });
-    float* ddd = static_cast<float*>(a.p[2 * DDD]);
-    float* dsk = static_cast<float*>(a.p[2 * DSK]);
-    float* tk = static_cast<float*>(a.p[2 * TK]);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      colR[r] = quad_sum(colR[r]);
-      direct[r] = quad_sum(direct[r]);
-      xv[r] = quad_sum(xv[r]);
-      const int k = k0 + g + 8 * r;
-      if ((lane & 3) == 0 && k < cs) {
-        const float Tk = k < cs - 1 ? uk[r] * xv[r] : 0.f;
-        ddd[sbase + k] = direct[r] + wk[r] * xv[r];
-        dsk[sbase + k] = -colR[r] - Tk;
-        tk[sbase + k] = Tk;
-      }
-    }
-    In* dxo = static_cast<In*>(a.p[2 * DX]);
-    float* dBh = static_cast<float*>(a.p[2 * DBH]);
-    acc_each(dx, P, [&](int i, int p, float& v) {
-      if (k0 + i < cs) dxo[((row0 + k0 + i) * H + h) * P + p] = cast<In>(v);
-    });
-    acc_each(dB, N, [&](int i, int n, float& v) {
-      if (k0 + i < cs) dBh[((row0 + k0 + i) * H + h) * N + n] = v;
-    });
-  }
-
-  __device__ void query_rows(int qb) {
-    const int qc = qb * kRows, q0 = qc + 16 * warp;
-    const size_t rowsN = (size_t)kRows * Lay::kLdNi * sizeof(In);
-    const size_t tileN = (size_t)kTileRows * Lay::kLdNi * sizeof(In);
-    const Op Cq = rows<true>(Cm, 0, qc, kRows);
-    const Op gq = rows<false>(gy, rowsN, qc, kRows);
-    float dC[kSN][4][4] = {};
-    float segq[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) segq[r] = seg_at(q0 + g + 8 * r);
-    float rowR[2] = {};
-    const int wr = 16 * warp;
-    const int kend = min(cs, qc + kRows);
-    for (int ks = 0; ks < kend; ks += kTileRows) {
-      __syncthreads();
-      const Op Bk = rows<true>(Bm, Lay::kOwn, ks, kTileRows);
-      const Op xk = rows<false>(x, Lay::kOwn + tileN, ks, kTileRows);
-      cp_async_wait();
-      __syncthreads();
-      if (q0 >= cs || ks > q0 + 15) continue;
-      float Gq[4][4] = {}, Dq[4][4] = {};
-      warp_mm(
-          Gq, N, [&](int i, int n) { return Cq(wr + i, n); },
-          [&](int n, int j) { return Bk(j, n); });
-      warp_mm(
-          Dq, P, [&](int i, int p) { return gq(wr + i, p); },
-          [&](int p, int j) { return xk(j, p); });
-      float* Zs = mz(1);
-      each(Gq, [&](int i, int j, float gq_) {
-        const int q = q0 + i, k = ks + j, r = i >> 3;
-        const float d = Dq[j >> 3][(j & 1) + 2 * r];
-        float Z = 0.f;
-        if (q < cs && k <= q) {
-          const float E = dexp(segq[r] - seg[sbase + k]);
-          Z = d * E * dt[(row0 + k) * H + h];
-          if (k < q) rowR[r] += Z * gq_;
-        }
-        Zs[i * kLdS + j] = Z;
-      });
-      __syncwarp();
-      acc_slabs(dC, N, [&](int s, float (&t)[4][4]) {
-        warp_mm(
-            t, kSlab, [&](int i, int k) { return Zs[i * kLdS + k]; },
-            [&](int k, int j) { return Bk(k, s * kSlab + j); });
-      });
-      __syncwarp();
-    }
-    // the entering state: y_q += exp(seg_q) s_in C_q (zero for the first
-    // chunk of a sequence, but the wrapper takes any s_in)
-    __syncthreads();
-    const StOp s_in = state_op(SIN, Lay::kOwn);
-    cp_async_wait();
-    __syncthreads();
-    if (q0 >= cs) return;                         // no barrier below
-    float rs[2] = {};
-    float eq[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) eq[r] = dexp(segq[r]);
-    acc_slabs(dC, N, [&](int s, float (&t)[4][4]) {
-      float w[4][4] = {};                         // gy_q s_in
-      warp_mm(
-          w, P, [&](int i, int p) { return gq(wr + i, p); },
-          [&](int p, int j) { return s_in(p, s * kSlab + j); });
-      each(w, [&](int i, int j, float ww) {
-        const int n = s * kSlab + j, r = i >> 3;
-        if (n < N) rs[r] += Cq(wr + i, n) * ww;
-      });
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) t[nt][e] += eq[e >> 1] * w[nt][e];
-    });
-    float* dsq = static_cast<float*>(a.p[2 * DSQ]);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rowR[r] = quad_sum(rowR[r]);
-      rs[r] = quad_sum(rs[r]);
-      const int q = q0 + g + 8 * r;
-      if ((lane & 3) == 0 && q < cs) dsq[sbase + q] = rowR[r] + eq[r] * rs[r];
-    }
-    float* dCh = static_cast<float*>(a.p[2 * DCH]);
-    acc_each(dC, N, [&](int i, int n, float& v) {
-      if (q0 + i < cs) dCh[((row0 + q0 + i) * H + h) * N + n] = v;
-    });
-  }
-};
-
-template <typename In>
-__device__ __forceinline__ void chunk_body(const Args& a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int nblk = (a.cs + kRows - 1) / kRows;
-  const int role = blockIdx.x >= nblk;               // 0 key rows, 1 query
-  const int blk = blockIdx.x - role * nblk;
-  const int bc = blockIdx.z, h = blockIdx.y;
-  Chunk<In> ch(a, smem, bc / a.nc, bc % a.nc, h);
-  if (role == 0) ch.key_rows(blk);
-  else ch.query_rows(blk);
-}
-
-// --------------------------------------------------------------------------
-// kernels
-// --------------------------------------------------------------------------
-
-template <typename In>
-__global__ void __launch_bounds__(kThreads) state_kernel(const Args a) {
-  state_body<In>(a);
-}
-template <typename In>
-__global__ void __launch_bounds__(kThreads) chunk_kernel(const Args a) {
-  chunk_body<In>(a);
-}
-__global__ void __launch_bounds__(128) finish_kernel(const Args a) {
-  finish_body<false>(a);
-}
-template <typename In>
-__global__ void __launch_bounds__(256) reduce_kernel(const Args a) {
-  reduce_body<In>(a, 0);
-}
-
-template <typename In>
-cudaError_t launch(int pass, const Args& a, cudaStream_t s) {
-  switch (pass) {
-    case 0: {
-      const dim3 grid(a.H, a.nc, a.B * ((a.N + kSlab - 1) / kSlab));
-      const size_t smem = StateLayout<In>::kBytes;
-      const cudaError_t err = cudaFuncSetAttribute(
-          state_kernel<In>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
-      if (err != cudaSuccess) return err;
-      state_kernel<In><<<grid, kThreads, smem, s>>>(a);
-      break;
-    }
-    case 1:
-      pass_kernel<<<dim3(a.H, a.B), kPassThreads, 0, s>>>(a);
-      break;
-    case 2: {
-      const dim3 grid(2 * ((a.cs + kRows - 1) / kRows), a.H, a.B * a.nc);
-      const size_t smem = ChunkLayout<In>::kBytes;
-      const cudaError_t err = cudaFuncSetAttribute(
-          chunk_kernel<In>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
-      if (err != cudaSuccess) return err;
-      chunk_kernel<In><<<grid, kThreads, smem, s>>>(a);
-      break;
-    }
-    case 3: {
-      const long long n = 32LL * a.B * a.H * a.nc;       // a warp each
-      finish_kernel<<<(unsigned)((n + 127) / 128), 128, 0, s>>>(a);
-      break;
-    }
-    case 4: {
-      const long long n = 2LL * a.B * a.L * a.G * a.N +
-                          (a.a_per_seq ? (long long)a.B * a.H : a.H);
-      const long long blocks = (n + 255) / 256;
-      if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-      reduce_kernel<In><<<(unsigned)blocks, 256, 0, s>>>(a);
-      break;
-    }
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
-}
-
-}  // namespace sbw
 
 // ==========================================================================
 // bfloat16 on Hopper (namespace hbw)
@@ -2450,63 +1837,71 @@ cudaError_t launch(int pass, const Args& a, cudaStream_t s) {
 }  // namespace hbw
 
 // ==========================================================================
-// the float32 tangent on Hopper's tensor cores (namespace tbw)
+// float32 on Hopper's tensor cores (namespace tbw)
 // ==========================================================================
 //
-// hbw's tangent design with every product as three TF32 mma.sync products
-// (m16n8k8, float32 accumulators): each float32 operand x is split as it is
-// loaded into a fragment into hi = tf32(x) (rounded to nearest, ties away)
-// and lo = x - hi, and a product sums lo hi + hi lo + hi hi (about 21 bits
-// of each operand; one TF32 product keeps 11 and misses the float32
-// tolerance).  Why mma.sync and not wgmma: wgmma reads TF32 from shared
-// memory only K-major, and dx' = M'^T gy, dB' = Z'^T C, dC' = Z' B, the
-// states' S = (u x)^T B and the entering term gy s_in all contract over
-// the rows of a row-major tile; mma.sync's fragments are loaded by each
-// lane in either orientation from plain float32 tiles (rows padded by 4
-// words), so nothing is staged twice.  Six launches, in order (pass ids of
-// the C entry in brackets):
-//   state  [0] one block (8 warps) a (b, chunk, h): warp scan of seg and
-//              seg' (hbw's), then S, S' (warps 0-3) and Lc, Lc' (4-7),
-//              each warp 16 rows of P by all 128 columns of N, the chunk's
-//              rows streamed in 32-row tiles by cp.async.
-//   pass   [1] ssd::tangent_pass_kernel (dual, eight elements a thread).
+// hbw's design with every product as three TF32 mma.sync products
+// (tf32x3.cuh: m16n8k8, float32 accumulators, each float32 operand split
+// into hi = tf32(x) and lo = x - hi as it is loaded into a fragment; about
+// 21 bits of each operand, where one TF32 product keeps 11 and misses the
+// float32 tolerance).  Why mma.sync and not wgmma: wgmma reads TF32 from
+// shared memory only K-major, and dx = M^T gy, dB = Z^T C, dC = Z B, the
+// states' S = (u x)^T B and the entering term gy s_in all contract over the
+// rows of a row-major tile; mma.sync's fragments are loaded by each lane in
+// either orientation from plain float32 tiles (rows padded by 4 words), so
+// nothing is staged twice.  The kernels are templates on kDual: the
+// backward (kDual false, the kernels' plain names) carries values, the
+// tangent (kDual true, the tangent_* names) dual numbers, of which it
+// accumulates only the tangents of dx, dB and dC.  Six launches, in order
+// (pass ids of the C entry in brackets):
+//   state  [0] one block (8 warps) a (b, chunk, h): warp scan of seg (and
+//              seg', hbw's), then S (S') with warps 0-3 and Lc (Lc') with
+//              4-7, each warp 16 rows of P by all 128 columns of N, the
+//              chunk's rows streamed in 32-row tiles by cp.async.
+//   pass   [1] ssd::pass_kernel (ssd::tangent_pass_kernel).
 //   gram   [5] one block a (b, chunk, group, pair of a 64-row key tile k
 //              and a 32-row query tile q that meets k <= q): G^T = B_k C_q^T
-//              and G'^T, once for all the group's heads, written in the
+//              (and G'^T), once for all the group's heads, written in the
 //              chunk kernel's fragment order (each thread's 8 values).
 //   chunk  [2] one block (8 warps) a (b, chunk, h): the entering-state term
-//              of each query tile (dC' = (e_q gy_q s_in)' into the per-head
+//              of each query tile (dC = e_q gy_q s_in into the per-head
 //              scratch, its row sums), then for each key tile its state
-//              terms (dx' = (u_k gO B_k)', dB' = (u_k gO^T x_k)') and the
-//              walk over the query tiles q >= k: D^T = x_k gy_q^T and D'^T,
-//              the per-element work once (M, Z, M', Z' into shared memory,
-//              the R sums), then dx' += M'^T gy + M^T gy' and dB' += Z'^T C
-//              + Z^T C' (registers, warp (rows, half) owning 16 key rows by
-//              half of the columns) and dC'_q += Z' B_k + Z B'_k (its
+//              terms (dx = u_k gO B_k, dB = u_k gO^T x_k) and the walk over
+//              the query tiles q >= k: D^T = x_k gy_q^T, the per-element
+//              work once (M, Z into shared memory, the R sums), then dx +=
+//              M^T gy and dB += Z^T C (registers, warp (rows, half) owning
+//              16 key rows by half of the columns) and dC_q += Z B_k (its
 //              partial sum read from and written back to the scratch, the
-//              same thread each pair).  Only tangents accumulate: the value
-//              planes M, Z are formed once and read by both products.
+//              same thread each pair).  The tangent does the same on dual
+//              numbers: D', M', Z' beside, dx' += M'^T gy + M^T gy' and so
+//              on, the value planes M, Z formed once and read by both
+//              products.
 //   finish [3] and reduce [4]: ssd's bodies under this namespace's names.
 // Every pair's products go into fresh accumulators added to the totals in
 // float32 (the tensor core's accumulation rounds toward zero).  The
 // per-element work is branch-free: the exponent is masked to -inf before
 // the exponential.  Sums run in fixed orders, without atomics.
 //
-// Shared memory of the chunk kernel (206,848 bytes, one block an SM): the
-// key tile's x, x' (64 x 68 floats) and B, B' (64 x 132); the query tile's
-// gy, gy' (32 x 68) and C, C' (32 x 132) and the planes M, Z, M', Z' (64 x
-// 36), where gO, gO' (64 x 132) also land before each key tile's walk (and
-// s_in, s_in' in the key tile's place before the first).
+// Shared memory of the chunk kernel: the key tile's x (64 x 68 floats) and
+// B (64 x 132); the query tile's gy (32 x 68) and C (32 x 132) and the
+// planes M, Z (64 x 36), where gO (64 x 132) also lands before each key
+// tile's walk (and s_in in the key tile's place before the first); the
+// tangent holds each twice (x, x', ...; M, Z, M', Z').  The backward's
+// 104,448 bytes leave room for two blocks an SM, the tangent's 206,848 for
+// one.
 //
 // What bounds it.  At the mamba2 training shape (B = 8, L = 512, H = 24, P
-// = 64, N = 128, G = 1, chunk 256) the tangent's least work is 53.7 GFLOP
-// at the float32 rate, 0.80 ms at 67 TFLOP/s; as three TF32 products 161
-// GFLOP, 0.33 ms at 495 TFLOP/s; its bytes ~150 MB, 0.045 ms
-// (chip_smoke.py::ssd_bwd_cost).  This design forms the causal pairs by
-// whole 64 x 32 tiles and reads dC's partial sums through L2.
+// = 64, N = 128, G = 1, chunk 256) the backward's least work is 17.9 GFLOP
+// at the float32 rate, 0.267 ms at 67 TFLOP/s, as three TF32 products
+// 0.108 ms at 495 TFLOP/s, its bytes ~55 MB (0.017 ms); the tangent's
+// 53.7 GFLOP, 0.80 ms, as three TF32 products 0.33 ms, its bytes ~150 MB
+// (chip_smoke.py::ssd_bwd_cost).  Operations bind.  This design forms the
+// causal pairs by whole 64 x 32 tiles and reads dC's partial sums through
+// L2.
 namespace tbw {
 
 using namespace ssd;
+using namespace tf32x3;
 using hbw::ptr;
 
 constexpr int kThreads = 256;                   // 8 warps
@@ -2516,6 +1911,9 @@ constexpr int kLdP = kMaxP + 4;                 // row strides of the tiles
 constexpr int kLdN = kMaxN + 4;
 constexpr int kLdQ = kQT + 4;
 constexpr int kGramTile = kKT * kQT;            // floats of a G tile
+// blocks an SM the backward's state and chunk kernels are compiled for
+// (registers: 128 a thread at two)
+constexpr int kBwdBlocks = 2;
 
 // The pairs (key tile kt, query tile qt >= 2 kt) in order: the first of key
 // tile kt, and all of a chunk.
@@ -2526,97 +1924,45 @@ __host__ __device__ constexpr int npairs(int cs) {
   return pair_start(ceil_div(cs, kKT), ceil_div(cs, kQT));
 }
 
-struct FragA {                                  // a 16 x 8 A operand
-  uint32_t hi[4], lo[4];
-};
-struct FragB {                                  // an 8 x 8 B operand
-  uint32_t hi[2], lo[2];
-};
-
-// hi = tf32(x), rounded to nearest with ties away from zero, and lo = x -
-// hi, exact in float32 (the tensor core reads its top 19 bits).
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  const uint32_t h = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  hi = h;
-  lo = __float_as_uint(x - __uint_as_float(h));
+// A value (kDual false) or a dual number from its two planes: v[i], and
+// t[i] in dual only (t is not read otherwise); what an output keeps of
+// one (the value in the backward, the tangent in the tangent); its value.
+template <bool kDual>
+__device__ __forceinline__ Num<kDual> num(float v, float t) {
+  if constexpr (kDual) return Dual{v, t};
+  else return v;
 }
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+template <bool kDual>
+__device__ __forceinline__ Num<kDual> ld(const float* v, const float* t,
+                                         int i) {
+  if constexpr (kDual) return Dual{v[i], t[i]};
+  else return v[i];
 }
-// d += A B in 3xTF32, the small terms first.
-__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
-                                     const FragB& b) {
-  mma(d, a.lo, b.hi);
-  mma(d, a.hi, b.lo);
-  mma(d, a.hi, b.hi);
-}
-// A (16 x 8) with A[r][c] = f(r, c): lane (g, t) holds (g, t), (g + 8, t),
-// (g, t + 4), (g + 8, t + 4).
-template <typename F>
-__device__ __forceinline__ FragA frag_a(const F& f, int g, int t) {
-  FragA x;
-  split(f(g, t), x.hi[0], x.lo[0]);
-  split(f(g + 8, t), x.hi[1], x.lo[1]);
-  split(f(g, t + 4), x.hi[2], x.lo[2]);
-  split(f(g + 8, t + 4), x.hi[3], x.lo[3]);
-  return x;
-}
-// B (8 x 8) with B[k][n] = f(k, n): lane (g, t) holds (t, g) and (t + 4, g).
-template <typename F>
-__device__ __forceinline__ FragB frag_b(const F& f, int g, int t) {
-  FragB x;
-  split(f(t, g), x.hi[0], x.lo[0]);
-  split(f(t + 4, g), x.hi[1], x.lo[1]);
-  return x;
-}
-// The fragment operands of row-major float32 tiles (row stride ld):
-// A from rows r0 .. of tile s, columns c0 ..
-__device__ __forceinline__ FragA rows_a(const float* s, int ld, int r0,
-                                        int c0, int g, int t) {
-  return frag_a([&](int r, int c) { return s[(r0 + r) * ld + c0 + c]; }, g,
-                t);
-}
-// A from tile s read transposed: A[r][c] = s[c0 + c][r0 + r]
-__device__ __forceinline__ FragA cols_a(const float* s, int ld, int r0,
-                                        int c0, int g, int t) {
-  return frag_a([&](int r, int c) { return s[(c0 + c) * ld + r0 + r]; }, g,
-                t);
-}
-// B whose contraction runs along the tile's columns (the tile's rows are
-// B's columns, as gy in x gy^T): B[k][n] = s[n0 + n][k0 + k]
-__device__ __forceinline__ FragB cols_b(const float* s, int ld, int k0,
-                                        int n0, int g, int t) {
-  return frag_b([&](int k, int n) { return s[(n0 + n) * ld + k0 + k]; }, g,
-                t);
-}
-// B whose contraction runs along the tile's rows: B[k][n] = s[k0 + k][n0 + n]
-__device__ __forceinline__ FragB rows_b(const float* s, int ld, int k0,
-                                        int n0, int g, int t) {
-  return frag_b([&](int k, int n) { return s[(k0 + k) * ld + n0 + n]; }, g,
-                t);
-}
+__device__ __forceinline__ float out_of(float x) { return x; }
+__device__ __forceinline__ float out_of(Dual x) { return x.t; }
+__device__ __forceinline__ float val_of(float x) { return x; }
+__device__ __forceinline__ float val_of(Dual x) { return x.v; }
 
 // --------------------------------------------------------------------------
-// state: S, S' = ((u x)^T B)' and Lc, Lc' = ((e gy)^T C)'
+// state: S = (u x)^T B and Lc = (e gy)^T C (and their tangents)
 // --------------------------------------------------------------------------
 
-struct StateLay {                               // floats
-  static constexpr int oA = 0;                  // x, x', gy, gy' (32 x kLdP)
-  static constexpr int oY = 4 * kQT * kLdP;     // B, B', C, C' (32 x kLdN)
-  static constexpr int oDT = oY + 4 * kQT * kLdN;   // dt, dt'
-  static constexpr int oSEG = oDT + 2 * kMaxChunk;  // seg, seg'
-  static constexpr int oSC = oSEG + 2 * kMaxChunk;  // u, u', e, e'
-  static constexpr size_t kBytes = sizeof(float) * (oSC + 4 * kMaxChunk);
+template <bool kDual> struct StateLay {         // floats
+  static constexpr int kP = kDual ? 2 : 1;      // planes
+  static constexpr int oA = 0;                  // x (x'), gy (gy') (32 x kLdP)
+  static constexpr int oY = 2 * kP * kQT * kLdP;    // B (B'), C (C')
+  static constexpr int oDT = oY + 2 * kP * kQT * kLdN;  // dt (dt')
+  static constexpr int oSEG = oDT + kP * kMaxChunk;     // seg (seg')
+  static constexpr int oSC = oSEG + kP * kMaxChunk;     // u (u'), e (e')
+  static constexpr size_t kBytes =
+      sizeof(float) * (oSC + 2 * kP * kMaxChunk);
 };
 
-__global__ void __launch_bounds__(kThreads, 1)
-tangent_state_kernel(const Args a) {
-  using L = StateLay;
+template <bool kDual>
+__device__ __forceinline__ void state_body(const Args& a) {
+  using L = StateLay<kDual>;
+  using T = Num<kDual>;
+  constexpr int kP = L::kP;
   extern __shared__ __align__(16) float sm[];
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31,
             g = lane >> 2, t = lane & 3;
@@ -2632,62 +1978,64 @@ tangent_state_kernel(const Args a) {
   for (int i = tid; i < kMaxChunk; i += kThreads) {
     const bool in = i < cs;
 #pragma unroll
-    for (int pl = 0; pl < 2; ++pl)
+    for (int pl = 0; pl < kP; ++pl)
       dtv[pl * kMaxChunk + i] =
           in ? ptr<const float>(a, DT, pl)[(row0 + i) * H + h] : 0.f;
   }
   __syncthreads();
   if (w == 0)
-    hbw::cumsum<true>(dtv, dtv + kMaxChunk,
-                      ptr<const float>(a, AA, 0)[b * a.a_stride + h],
-                      ptr<const float>(a, AA, 1)[b * a.ta_stride + h], segv,
-                      segv + kMaxChunk, cs, lane);
+    hbw::cumsum<kDual>(
+        dtv, dtv + kMaxChunk, ptr<const float>(a, AA, 0)[b * a.a_stride + h],
+        kDual ? ptr<const float>(a, AA, 1)[b * a.ta_stride + h] : 0.f, segv,
+        segv + kMaxChunk, cs, lane);
   __syncthreads();
   // u_k = exp(seg_end - seg_k) dt_k and e_k = exp(seg_k), zero past the
-  // chunk; seg and seg' out
-  const Dual end{segv[cs - 1], segv[kMaxChunk + cs - 1]};
+  // chunk; seg (and seg') out
+  const T end = ld<kDual>(segv, segv + kMaxChunk, cs - 1);
   for (int i = tid; i < kMaxChunk; i += kThreads) {
-    Dual u{0.f, 0.f}, e{0.f, 0.f};
+    T u{}, e{};
     if (i < cs) {
-      const Dual sg{segv[i], segv[kMaxChunk + i]};
-      u = dexp(end - sg) * Dual{dtv[i], dtv[kMaxChunk + i]};
+      const T sg = ld<kDual>(segv, segv + kMaxChunk, i);
+      u = dexp(end - sg) * ld<kDual>(dtv, dtv + kMaxChunk, i);
       e = dexp(sg);
-      ptr<float>(a, SEG, 0)[sbase + i] = sg.v;
-      ptr<float>(a, SEG, 1)[sbase + i] = sg.t;
+      ptr<float>(a, SEG, 0)[sbase + i] = val_of(sg);
+      if constexpr (kDual) ptr<float>(a, SEG, 1)[sbase + i] = sg.t;
     }
-    sc[i] = u.v;
-    sc[kMaxChunk + i] = u.t;
-    sc[2 * kMaxChunk + i] = e.v;
-    sc[3 * kMaxChunk + i] = e.t;
+    sc[i] = val_of(u);
+    sc[kP * kMaxChunk + i] = val_of(e);
+    if constexpr (kDual) {
+      sc[kMaxChunk + i] = u.t;
+      sc[3 * kMaxChunk + i] = e.t;
+    }
   }
 
   float acc[kMaxN / 8][4] = {}, tacc[kMaxN / 8][4] = {};
-  const float* sA = sm + L::oA + 2 * which * kQT * kLdP;   // x or gy
-  const float* sTA = sA + kQT * kLdP;
-  const float* sY = sm + L::oY + 2 * which * kQT * kLdN;   // B or C
+  const float* sA = sm + L::oA + which * kP * kQT * kLdP;  // x or gy
+  const float* sTA = sA + kQT * kLdP;                      // its tangent
+  const float* sY = sm + L::oY + which * kP * kQT * kLdN;  // B or C
   const float* sTY = sY + kQT * kLdN;
   const int p0 = 16 * rg;
   for (int k0 = 0; k0 < cs; k0 += kQT) {
     __syncthreads();                     // the last tile is read
 #pragma unroll
-    for (int pl = 0; pl < 2; ++pl) {
+    for (int pl = 0; pl < kP; ++pl) {
       stage(sm + L::oA + pl * kQT * kLdP, kLdP, ptr<const float>(a, X, pl),
             row0, H, h, P, kMaxP, k0, kQT, cs);
-      stage(sm + L::oA + (2 + pl) * kQT * kLdP, kLdP,
+      stage(sm + L::oA + (kP + pl) * kQT * kLdP, kLdP,
             ptr<const float>(a, GY, pl), row0, H, h, P, kMaxP, k0, kQT, cs);
       stage(sm + L::oY + pl * kQT * kLdN, kLdN, ptr<const float>(a, BM, pl),
             row0, a.G, grp, N, kMaxN, k0, kQT, cs);
-      stage(sm + L::oY + (2 + pl) * kQT * kLdN, kLdN,
+      stage(sm + L::oY + (kP + pl) * kQT * kLdN, kLdN,
             ptr<const float>(a, CM, pl), row0, a.G, grp, N, kMaxN, k0, kQT,
             cs);
     }
     cp_async_wait();
     __syncthreads();
-    const float* s = sc + 2 * which * kMaxChunk + k0;       // u or e
+    const float* s = sc + which * kP * kMaxChunk + k0;     // u or e
     const float* st = s + kMaxChunk;                        // its tangent
 #pragma unroll 1
     for (int kk = 0; kk < kQT / 8; ++kk) {
-      // A[p][k] = s_k X[k][p] and A' = s'_k X[k][p] + s_k X'[k][p]: the
+      // A[p][k] = s_k X[k][p] (and A' = s'_k X[k][p] + s_k X'[k][p]): the
       // tile read transposed
       const FragA A = frag_a(
           [&](int r, int cc) {
@@ -2695,26 +2043,30 @@ tangent_state_kernel(const Args a) {
             return s[k] * sA[k * kLdP + p0 + r];
           },
           g, t);
-      const FragA TA = frag_a(
-          [&](int r, int cc) {
-            const int k = 8 * kk + cc;
-            return st[k] * sA[k * kLdP + p0 + r] +
-                   s[k] * sTA[k * kLdP + p0 + r];
-          },
-          g, t);
+      FragA TA;
+      if constexpr (kDual)
+        TA = frag_a(
+            [&](int r, int cc) {
+              const int k = 8 * kk + cc;
+              return st[k] * sA[k * kLdP + p0 + r] +
+                     s[k] * sTA[k * kLdP + p0 + r];
+            },
+            g, t);
 #pragma unroll
       for (int j = 0; j < kMaxN / 8; ++j) {
         const FragB Bv = rows_b(sY, kLdN, 8 * kk, 8 * j, g, t);
-        const FragB TB = rows_b(sTY, kLdN, 8 * kk, 8 * j, g, t);
         mma3(acc[j], A, Bv);
-        mma3(tacc[j], TA, Bv);
-        mma3(tacc[j], A, TB);
+        if constexpr (kDual) {
+          const FragB TB = rows_b(sTY, kLdN, 8 * kk, 8 * j, g, t);
+          mma3(tacc[j], TA, Bv);
+          mma3(tacc[j], A, TB);
+        }
       }
     }
   }
   const long long obase = (((long long)b * a.nc + c) * H + h) * P * N;
   float* out = ptr<float>(a, which ? LC : SS, 0) + obase;
-  float* outt = ptr<float>(a, which ? LC : SS, 1) + obase;
+  float* outt = kDual ? ptr<float>(a, which ? LC : SS, 1) + obase : nullptr;
 #pragma unroll
   for (int j = 0; j < kMaxN / 8; ++j)
 #pragma unroll
@@ -2722,19 +2074,23 @@ tangent_state_kernel(const Args a) {
       const int p = p0 + g + 8 * (e >> 1), n = 8 * j + 2 * t + (e & 1);
       if (p < P && n < N) {
         out[p * N + n] = acc[j][e];
-        outt[p * N + n] = tacc[j][e];
+        if constexpr (kDual) outt[p * N + n] = tacc[j][e];
       }
     }
 }
 
 // --------------------------------------------------------------------------
-// gram: G^T = B_k C_q^T and its tangent for each pair, once per group
+// gram: G^T = B_k C_q^T (and its tangent) for each pair, once per group
 // --------------------------------------------------------------------------
 
-constexpr size_t kGramSmem = sizeof(float) * 2 * (kKT + kQT) * kLdN;
+template <bool kDual>
+constexpr size_t gram_smem() {
+  return sizeof(float) * (kDual ? 2 : 1) * (kKT + kQT) * kLdN;
+}
 
-__global__ void __launch_bounds__(kThreads)
-tangent_gram_kernel(const Args a) {
+template <bool kDual>
+__device__ __forceinline__ void gram_body(const Args& a) {
+  constexpr int kP = kDual ? 2 : 1;
   extern __shared__ __align__(16) float sm[];
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31,
             g = lane >> 2, t = lane & 3;
@@ -2746,10 +2102,10 @@ tangent_gram_kernel(const Args a) {
   const int qt = 2 * kt + pi - pair_start(kt, nq);
   const long long row0 =
       (long long)(bc / a.nc) * a.L + (long long)(bc % a.nc) * cs;
-  float* sB = sm;                                // B, B' (64 rows)
-  float* sC = sm + 2 * kKT * kLdN;               // C, C' (32 rows)
+  float* sB = sm;                                // B (B') (64 rows)
+  float* sC = sm + kP * kKT * kLdN;              // C (C') (32 rows)
 #pragma unroll
-  for (int pl = 0; pl < 2; ++pl) {
+  for (int pl = 0; pl < kP; ++pl) {
     stage(sB + pl * kKT * kLdN, kLdN, ptr<const float>(a, BM, pl), row0, a.G,
           grp, a.N, kMaxN, kt * kKT, kKT, cs);
     stage(sC + pl * kQT * kLdN, kLdN, ptr<const float>(a, CM, pl), row0, a.G,
@@ -2762,63 +2118,73 @@ tangent_gram_kernel(const Args a) {
 #pragma unroll 2
   for (int kk = 0; kk < kMaxN / 8; ++kk) {
     const FragA A = rows_a(sB, kLdN, 16 * rg, 8 * kk, g, t);
-    const FragA TA = rows_a(sB + kKT * kLdN, kLdN, 16 * rg, 8 * kk, g, t);
+    FragA TA;
+    if constexpr (kDual)
+      TA = rows_a(sB + kKT * kLdN, kLdN, 16 * rg, 8 * kk, g, t);
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const FragB Bv = cols_b(sC, kLdN, 8 * kk, 16 * hf + 8 * j, g, t);
-      const FragB TB =
-          cols_b(sC + kQT * kLdN, kLdN, 8 * kk, 16 * hf + 8 * j, g, t);
       mma3(d[j], A, Bv);
-      mma3(dd[j], TA, Bv);
-      mma3(dd[j], A, TB);
+      if constexpr (kDual) {
+        const FragB TB =
+            cols_b(sC + kQT * kLdN, kLdN, 8 * kk, 16 * hf + 8 * j, g, t);
+        mma3(dd[j], TA, Bv);
+        mma3(dd[j], A, TB);
+      }
     }
   }
   const long long at =
       (((long long)bc * a.G + grp) * npairs(cs) + pi) * kGramTile + tid * 8;
   float4* out = reinterpret_cast<float4*>(ptr<float>(a, GRAM, 0) + at);
-  float4* outt = reinterpret_cast<float4*>(ptr<float>(a, GRAM, 1) + at);
+  float4* outt = kDual ? reinterpret_cast<float4*>(ptr<float>(a, GRAM, 1)
+                                                   + at)
+                       : nullptr;
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     out[j] = make_float4(d[j][0], d[j][1], d[j][2], d[j][3]);
-    outt[j] = make_float4(dd[j][0], dd[j][1], dd[j][2], dd[j][3]);
+    if constexpr (kDual)
+      outt[j] = make_float4(dd[j][0], dd[j][1], dd[j][2], dd[j][3]);
   }
 }
 
 // --------------------------------------------------------------------------
-// chunk: dx', dB', dC' and the R sums (value and tangent) of a (b, chunk, h)
+// chunk: dx, dB, dC and the R sums of a (b, chunk, h); in the tangent dx',
+// dB', dC' and the R sums' values and tangents
 // --------------------------------------------------------------------------
 
-struct ChunkLay {                               // floats
-  static constexpr int oX = 0;                  // x, x' (kKT x kLdP)
-  static constexpr int oB = 2 * kKT * kLdP;     // B, B' (kKT x kLdN)
-  static constexpr int kKey = oB + 2 * kKT * kLdN;
-  static constexpr int oSIN = 0;                // s_in, s_in' over the key
-  static constexpr int oGY = kKey;              // gy, gy' (kQT x kLdP)
-  static constexpr int oC = oGY + 2 * kQT * kLdP;   // C, C' (kQT x kLdN)
-  static constexpr int oPL = oC + 2 * kQT * kLdN;   // M, Z, M', Z'
-  static constexpr int kLoop = oPL + 4 * kKT * kLdQ - kKey;
-  static constexpr int oST = kKey;              // gO, gO' over the loop
-  static constexpr int oSEG = kKey + kLoop;     // seg, seg'
-  static constexpr int oDT = oSEG + 2 * kMaxChunk;  // dt, dt'
-  static constexpr int oROWR = oDT + 2 * kMaxChunk; // [2][4 warps][chunk]
-  static constexpr int oDSQ = oROWR + 8 * kMaxChunk;  // entering dseg_q
-  static constexpr int oXCH = oDSQ + 2 * kMaxChunk;   // sums between warps
+template <bool kDual> struct ChunkLay {         // floats
+  static constexpr int kP = kDual ? 2 : 1;      // planes
+  static constexpr int oX = 0;                  // x (x') (kKT x kLdP)
+  static constexpr int oB = kP * kKT * kLdP;    // B (B') (kKT x kLdN)
+  static constexpr int kKey = oB + kP * kKT * kLdN;
+  static constexpr int oSIN = 0;                // s_in (s_in') over the key
+  static constexpr int oGY = kKey;              // gy (gy') (kQT x kLdP)
+  static constexpr int oC = oGY + kP * kQT * kLdP;  // C (C') (kQT x kLdN)
+  static constexpr int oPL = oC + kP * kQT * kLdN;  // M, Z (M', Z')
+  static constexpr int kLoop = oPL + 2 * kP * kKT * kLdQ - kKey;
+  static constexpr int oST = kKey;              // gO (gO') over the loop
+  static constexpr int oSEG = kKey + kLoop;     // seg (seg')
+  static constexpr int oDT = oSEG + kP * kMaxChunk;  // dt (dt')
+  static constexpr int oROWR = oDT + kP * kMaxChunk;  // [planes][4 warps][cs]
+  static constexpr int oDSQ = oROWR + 4 * kP * kMaxChunk;  // entering dseg_q
+  static constexpr int oXCH = oDSQ + kP * kMaxChunk;  // sums between warps
   static constexpr size_t kBytes = sizeof(float) * (oXCH + 512);
-  static_assert(2 * kMaxP * kLdN <= kKey, "s_in fits the key tile's place");
-  static_assert(2 * kMaxP * kLdN <= kLoop, "gO fits the loop's place");
+  static_assert(kP * kMaxP * kLdN <= kKey, "s_in fits the key tile's place");
+  static_assert(kP * kMaxP * kLdN <= kLoop, "gO fits the loop's place");
 };
 
-__global__ void __launch_bounds__(kThreads, 1)
-tangent_chunk_kernel(const Args a) {
-  using L = ChunkLay;
-  using T = Dual;
+template <bool kDual>
+__device__ __forceinline__ void chunk_body(const Args& a) {
+  using L = ChunkLay<kDual>;
+  using T = Num<kDual>;
+  constexpr int kP = L::kP, out = kDual ? 1 : 0;   // the outputs' plane
   extern __shared__ __align__(16) float sm[];
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31,
             g = lane >> 2, t = lane & 3;
   // the walk's roles: key rows 16 rg .. of the key tile, half hf of the
-  // columns (query columns of a pair, p of dx', n of dB')
+  // columns (query columns of a pair, p of dx, n of dB)
   const int rg = w & 3, hf = w >> 2;
-  // dC' and the entering term: query rows qr .. of a tile, columns n nn ..
+  // dC and the entering term: query rows qr .. of a tile, columns n nn ..
   const int qr = 16 * (w & 1), nn = 32 * (w >> 1);
   const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
   const int cs = a.cs, H = a.H, P = a.P, N = a.N, G = a.G;
@@ -2841,15 +2207,15 @@ tangent_chunk_kernel(const Args a) {
   float* plZ = plM + kKT * kLdQ;
   float* plTM = plZ + kKT * kLdQ;
   float* plTZ = plTM + kKT * kLdQ;
-  float* dCh = ptr<float>(a, DCH, 1);
-  auto seg_at = [&](int i) { return T{segv[i], segv[kMaxChunk + i]}; };
-  auto dt_at = [&](int i) { return T{dtv[i], dtv[kMaxChunk + i]}; };
+  float* dCh = ptr<float>(a, DCH, out);
+  auto seg_at = [&](int i) { return ld<kDual>(segv, segv + kMaxChunk, i); };
+  auto dt_at = [&](int i) { return ld<kDual>(dtv, dtv + kMaxChunk, i); };
   auto dc_at = [&](int q, int n) {
     return ((row0 + q) * H + h) * (long long)N + n;
   };
   auto stage_q = [&](int qt) {
 #pragma unroll
-    for (int pl = 0; pl < 2; ++pl) {
+    for (int pl = 0; pl < kP; ++pl) {
       stage(sm + L::oGY + pl * kQT * kLdP, kLdP, ptr<const float>(a, GY, pl),
             row0, H, h, P, kMaxP, qt * kQT, kQT, cs);
       stage(sm + L::oC + pl * kQT * kLdN, kLdN, ptr<const float>(a, CM, pl),
@@ -2859,7 +2225,7 @@ tangent_chunk_kernel(const Args a) {
   // the (P, N) state `slot` (and its tangent) at `at`, zero to 64 x 128
   auto stage_state = [&](int slot, int at) {
 #pragma unroll
-    for (int pl = 0; pl < 2; ++pl)
+    for (int pl = 0; pl < kP; ++pl)
       stage(sm + at + pl * kMaxP * kLdN, kLdN,
             ptr<const float>(a, slot, pl) + obase, 0, 1, 0, N, kMaxN, 0,
             kMaxP, P);
@@ -2868,7 +2234,7 @@ tangent_chunk_kernel(const Args a) {
   for (int i = tid; i < kMaxChunk; i += kThreads) {
     const bool in = i < cs;
 #pragma unroll
-    for (int pl = 0; pl < 2; ++pl) {
+    for (int pl = 0; pl < kP; ++pl) {
       segv[pl * kMaxChunk + i] =
           in ? ptr<const float>(a, SEG, pl)[sbase + i] : 0.f;
       dtv[pl * kMaxChunk + i] =
@@ -2879,8 +2245,9 @@ tangent_chunk_kernel(const Args a) {
   }
   stage_state(SIN, L::oSIN);
 
-  // the entering state's term of each query tile: dC'_q = (e_q gy_q s_in)'
-  // into dCh, (e_q C_q . (gy_q s_in))' into dsqs
+  // the entering state's term of each query tile: dC_q = e_q gy_q s_in (in
+  // the tangent its tangent) into dCh, e_q C_q . (gy_q s_in) (value, and
+  // tangent in the tangent) into dsqs
   {
     const float *sIN = sm + L::oSIN, *sTIN = sIN + kMaxP * kLdN;
     for (int qt = 0; qt < nq; ++qt) {
@@ -2892,21 +2259,24 @@ tangent_chunk_kernel(const Args a) {
 #pragma unroll 2
       for (int kk = 0; kk < kMaxP / 8; ++kk) {
         const FragA A = rows_a(sGY, kLdP, qr, 8 * kk, g, t);
-        const FragA TA = rows_a(sTGY, kLdP, qr, 8 * kk, g, t);
+        FragA TA;
+        if constexpr (kDual) TA = rows_a(sTGY, kLdP, qr, 8 * kk, g, t);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const FragB Bv = rows_b(sIN, kLdN, 8 * kk, nn + 8 * j, g, t);
-          const FragB TB = rows_b(sTIN, kLdN, 8 * kk, nn + 8 * j, g, t);
           mma3(wv[j], A, Bv);
-          mma3(wt[j], TA, Bv);
-          mma3(wt[j], A, TB);
+          if constexpr (kDual) {
+            const FragB TB = rows_b(sTIN, kLdN, 8 * kk, nn + 8 * j, g, t);
+            mma3(wt[j], TA, Bv);
+            mma3(wt[j], A, TB);
+          }
         }
       }
       T rs[2] = {}, eq[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int q = qt * kQT + qr + g + 8 * r;
-        eq[r] = q < cs ? dexp(seg_at(q)) : T{0.f, 0.f};
+        eq[r] = q < cs ? dexp(seg_at(q)) : T{};
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j)
@@ -2914,30 +2284,31 @@ tangent_chunk_kernel(const Args a) {
         for (int e = 0; e < 4; ++e) {
           const int r = e >> 1, row = qr + g + 8 * r;
           const int n = nn + 8 * j + 2 * t + (e & 1), q = qt * kQT + row;
-          const T wd{wv[j][e], wt[j][e]};
-          rs[r] += T{sC[row * kLdN + n], sTC[row * kLdN + n]} * wd;
-          if (q < cs && n < N) dCh[dc_at(q, n)] = (eq[r] * wd).t;
+          const T wd = num<kDual>(wv[j][e], wt[j][e]);
+          rs[r] += ld<kDual>(sC, sTC, row * kLdN + n) * wd;
+          if (q < cs && n < N) dCh[dc_at(q, n)] = out_of(eq[r] * wd);
         }
       // the four column groups' row sums, added in order
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         rs[r] = quad_sum(rs[r]);
         if (t == 0) {
-          xch[(w >> 1) * kQT + qr + g + 8 * r] = rs[r].v;
-          xch[(4 + (w >> 1)) * kQT + qr + g + 8 * r] = rs[r].t;
+          xch[(w >> 1) * kQT + qr + g + 8 * r] = val_of(rs[r]);
+          if constexpr (kDual)
+            xch[(4 + (w >> 1)) * kQT + qr + g + 8 * r] = rs[r].t;
         }
       }
       __syncthreads();
       if (tid < kQT) {
         const int q = qt * kQT + tid;
-        T s{0.f, 0.f};
+        T s{};
 #pragma unroll
         for (int cg = 0; cg < 4; ++cg)
-          s += T{xch[cg * kQT + tid], xch[(4 + cg) * kQT + tid]};
+          s += ld<kDual>(xch + cg * kQT, xch + (4 + cg) * kQT, tid);
         if (q < cs) {
           const T v = dexp(seg_at(q)) * s;
-          dsqs[q] = v.v;
-          dsqs[kMaxChunk + q] = v.t;
+          dsqs[q] = val_of(v);
+          if constexpr (kDual) dsqs[kMaxChunk + q] = v.t;
         }
       }
     }
@@ -2947,7 +2318,7 @@ tangent_chunk_kernel(const Args a) {
   for (int kt = 0; kt < nk; ++kt) {
     __syncthreads();                     // the key and loop places are read
 #pragma unroll
-    for (int pl = 0; pl < 2; ++pl) {
+    for (int pl = 0; pl < kP; ++pl) {
       stage(sm + L::oX + pl * kKT * kLdP, kLdP, ptr<const float>(a, X, pl),
             row0, H, h, P, kMaxP, kt * kKT, kKT, cs);
       stage(sm + L::oB + pl * kKT * kLdN, kLdN, ptr<const float>(a, BM, pl),
@@ -2963,12 +2334,12 @@ tangent_chunk_kernel(const Args a) {
       const int k = kt * kKT + 16 * rg + g + 8 * r;
       const bool in = k < cs;
       segk[r] = seg_at(in ? k : 0);
-      dtk[r] = in ? dt_at(k) : T{0.f, 0.f};
-      wk[r] = in ? dexp(seg_end - segk[r]) : T{0.f, 0.f};
+      dtk[r] = in ? dt_at(k) : T{};
+      wk[r] = in ? dexp(seg_end - segk[r]) : T{};
       ukk[r] = wk[r] * dtk[r];
     }
-    // the state leaving the chunk: dx' = (u_k gO B_k)' (columns p 32 hf ..)
-    // and dB' = (u_k gO^T x_k)' (columns n 64 hf ..)
+    // the state leaving the chunk: dx = u_k gO B_k (columns p 32 hf ..) and
+    // dB = u_k gO^T x_k (columns n 64 hf ..), in the tangent their tangents
     const float *sGO = sm + L::oST, *sTGO = sGO + kMaxP * kLdN;
     float accX[4][4], accB[8][4];
     T xv[2] = {};
@@ -2977,14 +2348,18 @@ tangent_chunk_kernel(const Args a) {
 #pragma unroll 2
       for (int kk = 0; kk < kMaxN / 8; ++kk) {
         const FragA A = rows_a(sB, kLdN, 16 * rg, 8 * kk, g, t);
-        const FragA TA = rows_a(sTB, kLdN, 16 * rg, 8 * kk, g, t);
+        FragA TA;
+        if constexpr (kDual) TA = rows_a(sTB, kLdN, 16 * rg, 8 * kk, g, t);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const FragB Bv = cols_b(sGO, kLdN, 8 * kk, 32 * hf + 8 * j, g, t);
-          const FragB TB = cols_b(sTGO, kLdN, 8 * kk, 32 * hf + 8 * j, g, t);
           mma3(v[j], A, Bv);
-          mma3(vt[j], TA, Bv);
-          mma3(vt[j], A, TB);
+          if constexpr (kDual) {
+            const FragB TB =
+                cols_b(sTGO, kLdN, 8 * kk, 32 * hf + 8 * j, g, t);
+            mma3(vt[j], TA, Bv);
+            mma3(vt[j], A, TB);
+          }
         }
       }
 #pragma unroll
@@ -2993,9 +2368,9 @@ tangent_chunk_kernel(const Args a) {
         for (int e = 0; e < 4; ++e) {
           const int r = e >> 1, row = 16 * rg + g + 8 * r;
           const int p = 32 * hf + 8 * j + 2 * t + (e & 1);
-          const T vv{v[j][e], vt[j][e]};
-          xv[r] += T{sX[row * kLdP + p], sTX[row * kLdP + p]} * vv;
-          accX[j][e] = (ukk[r] * vv).t;
+          const T vv = num<kDual>(v[j][e], vt[j][e]);
+          xv[r] += ld<kDual>(sX, sTX, row * kLdP + p) * vv;
+          accX[j][e] = out_of(ukk[r] * vv);
         }
     }
     {
@@ -3003,56 +2378,71 @@ tangent_chunk_kernel(const Args a) {
 #pragma unroll 2
       for (int kk = 0; kk < kMaxP / 8; ++kk) {
         const FragA A = rows_a(sX, kLdP, 16 * rg, 8 * kk, g, t);
-        const FragA TA = rows_a(sTX, kLdP, 16 * rg, 8 * kk, g, t);
+        FragA TA;
+        if constexpr (kDual) TA = rows_a(sTX, kLdP, 16 * rg, 8 * kk, g, t);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const FragB Bv = rows_b(sGO, kLdN, 8 * kk, 64 * hf + 8 * j, g, t);
-          const FragB TB = rows_b(sTGO, kLdN, 8 * kk, 64 * hf + 8 * j, g, t);
           mma3(wv[j], A, Bv);
-          mma3(wt[j], TA, Bv);
-          mma3(wt[j], A, TB);
+          if constexpr (kDual) {
+            const FragB TB =
+                rows_b(sTGO, kLdN, 8 * kk, 64 * hf + 8 * j, g, t);
+            mma3(wt[j], TA, Bv);
+            mma3(wt[j], A, TB);
+          }
         }
       }
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          accB[j][e] = (ukk[e >> 1] * T{wv[j][e], wt[j][e]}).t;
+          accB[j][e] = out_of(ukk[e >> 1] * num<kDual>(wv[j][e], wt[j][e]));
     }
     T colR[2] = {}, direct[2] = {};
 
     for (int qt = 2 * kt; qt < nq; ++qt) {
       __syncthreads();                   // gO, or the last pair, is read
       stage_q(qt);
-      // G and G' of the pair: this thread's 8 values, in the gram
+      // G (and G') of the pair: this thread's 8 values, in the gram
       // kernel's order
       const long long gat =
           (gbase + pair_start(kt, nq) + qt - 2 * kt) * kGramTile + tid * 8;
       const float4* g4 = reinterpret_cast<const float4*>(
           ptr<const float>(a, GRAM, 0) + gat);
-      const float4* gt4 = reinterpret_cast<const float4*>(
-          ptr<const float>(a, GRAM, 1) + gat);
-      const float4 ga = g4[0], gb = g4[1], ta = gt4[0], tb = gt4[1];
+      const float4 ga = g4[0], gb = g4[1];
       const float gv[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
-      const float gt[8] = {ta.x, ta.y, ta.z, ta.w, tb.x, tb.y, tb.z, tb.w};
+      float gt[8] = {};
+      if constexpr (kDual) {
+        const float4* gt4 = reinterpret_cast<const float4*>(
+            ptr<const float>(a, GRAM, 1) + gat);
+        const float4 ta = gt4[0], tb = gt4[1];
+        const float gtv[8] = {ta.x, ta.y, ta.z, ta.w,
+                              tb.x, tb.y, tb.z, tb.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) gt[i] = gtv[i];
+      }
       cp_async_wait();
       __syncthreads();
-      // D^T = x_k gy_q^T and D'^T: the warp's 16 key rows by 16 columns q
+      // D^T = x_k gy_q^T (and D'^T): the warp's 16 key rows by 16 columns q
       float d[2][4] = {}, dd[2][4] = {};
 #pragma unroll 2
       for (int kk = 0; kk < kMaxP / 8; ++kk) {
         const FragA A = rows_a(sX, kLdP, 16 * rg, 8 * kk, g, t);
-        const FragA TA = rows_a(sTX, kLdP, 16 * rg, 8 * kk, g, t);
+        FragA TA;
+        if constexpr (kDual) TA = rows_a(sTX, kLdP, 16 * rg, 8 * kk, g, t);
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const FragB Bv = cols_b(sGY, kLdP, 8 * kk, 16 * hf + 8 * j, g, t);
-          const FragB TB = cols_b(sTGY, kLdP, 8 * kk, 16 * hf + 8 * j, g, t);
           mma3(d[j], A, Bv);
-          mma3(dd[j], TA, Bv);
-          mma3(dd[j], A, TB);
+          if constexpr (kDual) {
+            const FragB TB =
+                cols_b(sTGY, kLdP, 8 * kk, 16 * hf + 8 * j, g, t);
+            mma3(dd[j], TA, Bv);
+            mma3(dd[j], A, TB);
+          }
         }
       }
-      // M^T, Z^T (rows k, columns q) and their tangents into the planes;
+      // M^T, Z^T (rows k, columns q) (and their tangents) into the planes;
       // the R sums.  Branch-free: the exponent is masked to -inf where the
       // pair is out (k > q, or past the chunk), so E = 0 there.
       T cols[2][2] = {};
@@ -3065,20 +2455,23 @@ tangent_chunk_kernel(const Args a) {
           const int col = 16 * hf + 8 * j + 2 * t + u;
           const int k = kt * kKT + row, q = qt * kQT + col;
           const bool in = k < cs && q < cs && k <= q;
-          const T E = dexp(in ? seg_at(q) - segk[r] : T{-INFINITY, 0.f});
-          const T GE = T{gv[4 * j + e], gt[4 * j + e]} * E;
-          const T Dv{d[j][e], dd[j][e]};
+          const T E = dexp(in ? seg_at(q) - segk[r]
+                              : num<kDual>(-INFINITY, 0.f));
+          const T GE = num<kDual>(gv[4 * j + e], gt[4 * j + e]) * E;
+          const T Dv = num<kDual>(d[j][e], dd[j][e]);
           const T M = GE * dtk[r];
           const T Z = Dv * E * dtk[r];
           direct[r] += Dv * GE;
           // the diagonal is left out of R's sums: see finish_body
-          const T R = k < q ? Dv * M : T{0.f, 0.f};
+          const T R = k < q ? Dv * M : T{};
           colR[r] += R;
           cols[j][u] += R;
-          plM[row * kLdQ + col] = M.v;
-          plZ[row * kLdQ + col] = Z.v;
-          plTM[row * kLdQ + col] = M.t;
-          plTZ[row * kLdQ + col] = Z.t;
+          plM[row * kLdQ + col] = val_of(M);
+          plZ[row * kLdQ + col] = val_of(Z);
+          if constexpr (kDual) {
+            plTM[row * kLdQ + col] = M.t;
+            plTZ[row * kLdQ + col] = Z.t;
+          }
         }
       // the columns' sums over the warp's 16 rows, added to its vector
 #pragma unroll
@@ -3091,22 +2484,25 @@ tangent_chunk_kernel(const Args a) {
           s += shfl_xor(s, 16);
           const int q = qt * kQT + 16 * hf + 8 * j + 2 * t + u;
           if (lane < 4 && q < cs) {
-            rowr[rg * kMaxChunk + q] += s.v;
-            rowr[(4 + rg) * kMaxChunk + q] += s.t;
+            rowr[rg * kMaxChunk + q] += val_of(s);
+            if constexpr (kDual) rowr[(4 + rg) * kMaxChunk + q] += s.t;
           }
         }
       __syncthreads();                   // the planes are written
-      {                                  // dx' += M'^T gy + M^T gy'
+      {                        // dx += M^T gy (dx' += M'^T gy + M^T gy')
         float tx[4][4] = {};
 #pragma unroll
         for (int kk = 0; kk < kQT / 8; ++kk) {
-          const FragA A1 = rows_a(plTM, kLdQ, 16 * rg, 8 * kk, g, t);
-          const FragA A2 = rows_a(plM, kLdQ, 16 * rg, 8 * kk, g, t);
+          const FragA A1 =
+              rows_a(kDual ? plTM : plM, kLdQ, 16 * rg, 8 * kk, g, t);
+          FragA A2;
+          if constexpr (kDual) A2 = rows_a(plM, kLdQ, 16 * rg, 8 * kk, g, t);
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             mma3(tx[j], A1, rows_b(sGY, kLdP, 8 * kk, 32 * hf + 8 * j, g, t));
-            mma3(tx[j], A2,
-                 rows_b(sTGY, kLdP, 8 * kk, 32 * hf + 8 * j, g, t));
+            if constexpr (kDual)
+              mma3(tx[j], A2,
+                   rows_b(sTGY, kLdP, 8 * kk, 32 * hf + 8 * j, g, t));
           }
         }
 #pragma unroll
@@ -3114,17 +2510,20 @@ tangent_chunk_kernel(const Args a) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) accX[j][e] += tx[j][e];
       }
-      {                                  // dB' += Z'^T C + Z^T C'
+      {                        // dB += Z^T C (dB' += Z'^T C + Z^T C')
         float tb[8][4] = {};
 #pragma unroll
         for (int kk = 0; kk < kQT / 8; ++kk) {
-          const FragA A1 = rows_a(plTZ, kLdQ, 16 * rg, 8 * kk, g, t);
-          const FragA A2 = rows_a(plZ, kLdQ, 16 * rg, 8 * kk, g, t);
+          const FragA A1 =
+              rows_a(kDual ? plTZ : plZ, kLdQ, 16 * rg, 8 * kk, g, t);
+          FragA A2;
+          if constexpr (kDual) A2 = rows_a(plZ, kLdQ, 16 * rg, 8 * kk, g, t);
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
             mma3(tb[j], A1, rows_b(sC, kLdN, 8 * kk, 64 * hf + 8 * j, g, t));
-            mma3(tb[j], A2,
-                 rows_b(sTC, kLdN, 8 * kk, 64 * hf + 8 * j, g, t));
+            if constexpr (kDual)
+              mma3(tb[j], A2,
+                   rows_b(sTC, kLdN, 8 * kk, 64 * hf + 8 * j, g, t));
           }
         }
 #pragma unroll
@@ -3132,16 +2531,18 @@ tangent_chunk_kernel(const Args a) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) accB[j][e] += tb[j][e];
       }
-      {                                  // dC'_q += Z' B_k + Z B'_k
+      {                        // dC_q += Z B_k (dC' += Z' B + Z B')
         float tc[4][4] = {};
 #pragma unroll 2
         for (int kk = 0; kk < kKT / 8; ++kk) {
-          const FragA A1 = cols_a(plTZ, kLdQ, qr, 8 * kk, g, t);
-          const FragA A2 = cols_a(plZ, kLdQ, qr, 8 * kk, g, t);
+          const FragA A1 = cols_a(kDual ? plTZ : plZ, kLdQ, qr, 8 * kk, g, t);
+          FragA A2;
+          if constexpr (kDual) A2 = cols_a(plZ, kLdQ, qr, 8 * kk, g, t);
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             mma3(tc[j], A1, rows_b(sB, kLdN, 8 * kk, nn + 8 * j, g, t));
-            mma3(tc[j], A2, rows_b(sTB, kLdN, 8 * kk, nn + 8 * j, g, t));
+            if constexpr (kDual)
+              mma3(tc[j], A2, rows_b(sTB, kLdN, 8 * kk, nn + 8 * j, g, t));
           }
         }
 #pragma unroll
@@ -3155,8 +2556,9 @@ tangent_chunk_kernel(const Args a) {
       }
     }
 
-    // the key tile's outputs: dx', dB' per head, and ddd, dsk, tk (value
-    // and tangent) from both halves' sums, the second added to the first
+    // the key tile's outputs: dx, dB per head, and ddd, dsk, tk (their
+    // values, and tangents in the tangent) from both halves' sums, the
+    // second added to the first
     __syncthreads();                     // xch is free
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -3165,12 +2567,14 @@ tangent_chunk_kernel(const Args a) {
       xv[r] = quad_sum(xv[r]);
       if (hf == 1 && t == 0) {
         float* x6 = xch + 6 * (16 * rg + g + 8 * r);
-        x6[0] = colR[r].v;
-        x6[1] = colR[r].t;
-        x6[2] = direct[r].v;
-        x6[3] = direct[r].t;
-        x6[4] = xv[r].v;
-        x6[5] = xv[r].t;
+        x6[0] = val_of(colR[r]);
+        x6[2] = val_of(direct[r]);
+        x6[4] = val_of(xv[r]);
+        if constexpr (kDual) {
+          x6[1] = colR[r].t;
+          x6[3] = direct[r].t;
+          x6[5] = xv[r].t;
+        }
       }
     }
     __syncthreads();
@@ -3179,23 +2583,25 @@ tangent_chunk_kernel(const Args a) {
       for (int r = 0; r < 2; ++r) {
         const int k = kt * kKT + 16 * rg + g + 8 * r;
         const float* x6 = xch + 6 * (16 * rg + g + 8 * r);
-        colR[r] += T{x6[0], x6[1]};
-        direct[r] += T{x6[2], x6[3]};
-        xv[r] += T{x6[4], x6[5]};
+        colR[r] += ld<kDual>(x6, x6 + 1, 0);
+        direct[r] += ld<kDual>(x6 + 2, x6 + 3, 0);
+        xv[r] += ld<kDual>(x6 + 4, x6 + 5, 0);
         if (k < cs) {
-          const T Tk = k < cs - 1 ? ukk[r] * xv[r] : T{0.f, 0.f};
+          const T Tk = k < cs - 1 ? ukk[r] * xv[r] : T{};
           const T ddd = direct[r] + wk[r] * xv[r];
-          const T dsk = T{0.f, 0.f} - colR[r] - Tk;
-#pragma unroll
-          for (int pl = 0; pl < 2; ++pl) {
-            ptr<float>(a, DDD, pl)[sbase + k] = pl ? ddd.t : ddd.v;
-            ptr<float>(a, DSK, pl)[sbase + k] = pl ? dsk.t : dsk.v;
-            ptr<float>(a, TK, pl)[sbase + k] = pl ? Tk.t : Tk.v;
+          const T dsk = T{} - colR[r] - Tk;
+          ptr<float>(a, DDD, 0)[sbase + k] = val_of(ddd);
+          ptr<float>(a, DSK, 0)[sbase + k] = val_of(dsk);
+          ptr<float>(a, TK, 0)[sbase + k] = val_of(Tk);
+          if constexpr (kDual) {
+            ptr<float>(a, DDD, 1)[sbase + k] = ddd.t;
+            ptr<float>(a, DSK, 1)[sbase + k] = dsk.t;
+            ptr<float>(a, TK, 1)[sbase + k] = Tk.t;
           }
         }
       }
-    float* dxo = ptr<float>(a, DX, 1);
-    float* dBh = ptr<float>(a, DBH, 1);
+    float* dxo = ptr<float>(a, DX, out);
+    float* dBh = ptr<float>(a, DBH, out);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int k = kt * kKT + 16 * rg + g + 8 * (e >> 1);
@@ -3217,7 +2623,7 @@ tangent_chunk_kernel(const Args a) {
   __syncthreads();
   for (int q = tid; q < cs; q += kThreads)
 #pragma unroll
-    for (int pl = 0; pl < 2; ++pl) {
+    for (int pl = 0; pl < kP; ++pl) {
       const float* rr = rowr + pl * 4 * kMaxChunk;
       ptr<float>(a, DSQ, pl)[sbase + q] =
           ((rr[q] + rr[kMaxChunk + q]) +
@@ -3226,8 +2632,42 @@ tangent_chunk_kernel(const Args a) {
     }
 }
 
+// --------------------------------------------------------------------------
+// kernels: the backward's under their plain names, the tangent's as
+// tangent_*
+// --------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads, kBwdBlocks)
+state_kernel(const Args a) {
+  state_body<false>(a);
+}
+__global__ void __launch_bounds__(kThreads, 1)
+tangent_state_kernel(const Args a) {
+  state_body<true>(a);
+}
+__global__ void __launch_bounds__(kThreads) gram_kernel(const Args a) {
+  gram_body<false>(a);
+}
+__global__ void __launch_bounds__(kThreads)
+tangent_gram_kernel(const Args a) {
+  gram_body<true>(a);
+}
+__global__ void __launch_bounds__(kThreads, kBwdBlocks)
+chunk_kernel(const Args a) {
+  chunk_body<false>(a);
+}
+__global__ void __launch_bounds__(kThreads, 1)
+tangent_chunk_kernel(const Args a) {
+  chunk_body<true>(a);
+}
+__global__ void __launch_bounds__(128) finish_kernel(const Args a) {
+  finish_body<false>(a);
+}
 __global__ void __launch_bounds__(128) tangent_finish_kernel(const Args a) {
   finish_body<true>(a);
+}
+__global__ void __launch_bounds__(256) reduce_kernel(const Args a) {
+  reduce_body<float>(a, 0);
 }
 __global__ void __launch_bounds__(256) tangent_reduce_kernel(const Args a) {
   reduce_body<float>(a, 1);
@@ -3235,18 +2675,22 @@ __global__ void __launch_bounds__(256) tangent_reduce_kernel(const Args a) {
 
 using hbw::run;
 
+template <bool kDual>
 cudaError_t launch(int pass, const Args& a, cudaStream_t s) {
   switch (pass) {
     case 0:
-      return run(tangent_state_kernel, dim3(a.H, a.nc, a.B), kThreads,
-                 StateLay::kBytes, s, a);
+      return run(kDual ? tangent_state_kernel : state_kernel,
+                 dim3(a.H, a.nc, a.B), kThreads, StateLay<kDual>::kBytes, s,
+                 a);
     case 1:
-      return run(tangent_pass_kernel, dim3(a.H, a.B), kPassThreads, 0, s, a);
+      return run(kDual ? tangent_pass_kernel : pass_kernel, dim3(a.H, a.B),
+                 kPassThreads, 0, s, a);
     case 2:
-      return run(tangent_chunk_kernel, dim3(a.H, a.nc, a.B), kThreads,
-                 ChunkLay::kBytes, s, a);
+      return run(kDual ? tangent_chunk_kernel : chunk_kernel,
+                 dim3(a.H, a.nc, a.B), kThreads, ChunkLay<kDual>::kBytes, s,
+                 a);
     case 3:
-      return run(tangent_finish_kernel,
+      return run(kDual ? tangent_finish_kernel : finish_kernel,
                  dim3((unsigned)((32LL * a.B * a.H * a.nc + 127) / 128)), 128,
                  0, s, a);
     case 4: {
@@ -3254,12 +2698,13 @@ cudaError_t launch(int pass, const Args& a, cudaStream_t s) {
                           (a.a_per_seq ? (long long)a.B * a.H : a.H);
       const long long blocks = (n + 255) / 256;
       if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-      return run(tangent_reduce_kernel, dim3((unsigned)blocks), 256, 0, s, a);
+      return run(kDual ? tangent_reduce_kernel : reduce_kernel,
+                 dim3((unsigned)blocks), 256, 0, s, a);
     }
     case 5:
-      return run(tangent_gram_kernel,
+      return run(kDual ? tangent_gram_kernel : gram_kernel,
                  dim3(npairs(a.cs), a.G, (unsigned)((long long)a.B * a.nc)),
-                 kThreads, kGramSmem, s, a);
+                 kThreads, gram_smem<kDual>(), s, a);
     default:
       return cudaErrorInvalidValue;
   }
@@ -3276,8 +2721,8 @@ int repro_ssd_bwd_max_head_dim() { return ssd::kMaxP; }
 int repro_ssd_bwd_max_state() { return ssd::kMaxN; }
 int repro_ssd_bwd_max_chunk() { return ssd::kMaxChunk; }
 
-// One pass (0 state, 1 pass, 2 chunk, 3 finish, 4 reduce, 5 gram: not in
-// the float32 backward) of the backward (tangent 0) or of its tangent
+// One pass (0 state, 1 pass, 2 chunk, 3 finish, 4 reduce, 5 gram) of the
+// backward (tangent 0) or of its tangent
 // (tangent 1).  ptrs: repro_ssd_bwd_slots() device pointers, each tensor's
 // value plane then its tangent plane, in the order of ssd::Slot; dtype 0
 // float32 or 1 bfloat16 (x, gy, B, C, dx, dB, dC and their tangents; every
@@ -3297,14 +2742,15 @@ int repro_ssd_bwd_launch(int pass, int tangent, int dtype,
   if (a.B <= 0 || a.L <= 0 || a.H <= 0 || a.P <= 0 || a.G <= 0 ||
       a.N <= 0 || a.cs <= 0 || a.L % a.cs || a.H % a.G ||
       a.P > ssd::kMaxP || a.N > ssd::kMaxN || a.cs > ssd::kMaxChunk ||
-      (long long)a.B * (a.L / a.cs) > 65535 || a.H > 65535 ||
-      (long long)a.B * ((a.N + sbw::kSlab - 1) / sbw::kSlab) > 65535)
+      // the launches' grid limits (65535 in y and z): B * nc and G <= H
+      // of the gram launches, nc and B of the others
+      (long long)a.B * (a.L / a.cs) > 65535 || a.H > 65535)
     return (int)cudaErrorInvalidValue;
   a.nc = a.L / a.cs;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == ssd::DT_F32)
-    return (int)(tangent ? tbw::launch(pass, a, s)
-                         : sbw::launch<float>(pass, a, s));
+    return (int)(tangent ? tbw::launch<true>(pass, a, s)
+                         : tbw::launch<false>(pass, a, s));
   if (dtype == ssd::DT_BF16)
     return (int)(tangent ? hbw::launch<true>(pass, a, s)
                          : hbw::launch<false>(pass, a, s));

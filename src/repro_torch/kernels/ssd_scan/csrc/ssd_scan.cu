@@ -13,28 +13,26 @@
 //   x's dtype, the final state in float32.
 //
 // T3, the scan's forward-mode tangent (the jvp rule of the autograd
-// Function in ../ops.py; no TPU counterpart), has the same two routes:
-// three Hopper passes in bfloat16 (namespace t3) and a CUDA-core kernel in
+// Function in ../ops.py; no TPU counterpart), is in two routes too: three
+// Hopper passes in bfloat16 (namespace t3) and a CUDA-core kernel in
 // float32 (namespace jvpk), both near the end.
 //
-// Two routes, chosen by dtype in ../ops.py:
+// Two routes, chosen by dtype in ../ops.py, each three launches (chunk
+// states, states passed across chunks, chunk outputs):
 //
-// bfloat16 (namespace hop, below): written for Hopper, three launches on
-// the tensor cores (chunk states, states passed across chunks, chunk
-// outputs with C B^T shared by a group's heads).
+// bfloat16 (namespace hop): the products on wgmma, x, B, C and y by TMA,
+// C B^T shared by a group's heads.
 //
-// float32: one block per (b, h), walking its chunks with the state in
-// shared memory, plain FMA on the CUDA cores.  What it does differently
-// from the Pallas kernel:
+// float32 (namespace tfs, first below): the products as three TF32
+// mma.sync products (tf32x3.cuh, shared with ssd_bwd.cu's float32
+// route), tiles staged by cp.async.  It replaced a kernel that ran one
+// block per (b, h) walking its chunks on the CUDA cores.
+//
+// What both do differently from the Pallas kernel:
 //   - The TPU walks the chunks as the minor-most grid axis with the state in
-//     VMEM scratch.  Here one block owns one (b, h) and loops over its
-//     chunks, with the state in shared memory; blocks share nothing.
-//   - One chunk (c up to 256 rows of x, B and C) does not fit in shared
-//     memory as float32.  The chunk is cut into 64-row tiles: a query tile
-//     of C meets the key tiles at or below the diagonal (tiles above it are
-//     skipped, as the causal mask would zero them), and a second sweep over
-//     the key tiles updates the state.  seg, dt and the state-update weights
-//     exp(seg_end - seg_k) dt_k are computed once per chunk.
+//     VMEM scratch.  Here the chunks run in parallel: the chunk states and
+//     outputs are independent across chunks, and only the elementwise state
+//     passing walks them in order.
 //   - exp(seg_q - seg_k) is formed from the difference and only for k <= q:
 //     seg falls by up to hundreds over a chunk, so exp(seg_q) exp(-seg_k)
 //     and exp of the masked differences would overflow.
@@ -44,14 +42,7 @@
 //   - A is given per sequence and head, (B, H), so a caller that folds
 //     several parameter sets into the batch (torch.func.vmap over users) can
 //     give each its own A.
-// At the serving shape in float32 the scan needs about 32.3 GFLOP (the
-// causal half of the c x c products), 0.48 ms at the 67 TFLOP/s float32
-// rate: operations bind.  Thread layout: 256 threads as 16 x 16; a thread
-// owns a 4 x 4 block of each 64 x 64 product (rows ty + 16 i, columns
-// tx + 16 j) and 4 x 8 of the 64 x 128 state.  Rows read by 16 lanes at
-// once are padded by 4 words, so a lane's 16-byte loads of consecutive rows
-// fall in distinct banks.
-//
+
 // No kernel allocates or synchronises; each launches on the stream it is
 // given, and each C entry returns cudaGetLastError().
 
@@ -61,285 +52,26 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int kTile = 64;          // rows of a query or key tile
-constexpr int kThreads = 256;      // 16 x 16
 constexpr int kMaxP = 64;          // head dim (zero-padded to it)
 constexpr int kMaxN = 128;         // state size (zero-padded to it)
 constexpr int kMaxChunk = 256;
-constexpr int kLdN = kMaxN + 4;    // row stride of C, B and state tiles
-constexpr int kLdM = kTile + 4;    // row stride of the M tile
+// jvpk's (T3 in float32, on the CUDA cores): 256 threads as 16 x 16 over
+// 64-row key tiles, row stride of its C, B and state tiles
+constexpr int kTile = 64;
+constexpr int kThreads = 256;
+constexpr int kLdN = kMaxN + 4;
 
 enum { DT_F32 = 0, DT_BF16 = 1 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   acc = fmaf(a.x, b.x, acc);
   acc = fmaf(a.y, b.y, acc);
   acc = fmaf(a.z, b.z, acc);
   return fmaf(a.w, b.w, acc);
-}
-
-// Stage rows [t0, t0 + kTile) of the chunk (rows past `rows` are zero) of a
-// (.., width) slice whose row r starts at src + r * stride, into a float32
-// tile with row stride ld and `cols` columns; columns past width are zero.
-template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, int ld, int cols,
-                                          const T* __restrict__ src,
-                                          size_t stride, int rows,
-                                          int width) {
-  for (int idx = threadIdx.x; idx < kTile * cols; idx += kThreads) {
-    const int r = idx / cols, c = idx - r * cols;
-    float v = 0.f;
-    if (r < rows && c < width) v = to_f32(src[(size_t)r * stride + c]);
-    dst[r * ld + c] = v;
-  }
-}
-
-struct Smem {
-  float* c;      // query tile of C   (kTile, kLdN)
-  float* b;      // key tile of B     (kTile, kLdN)
-  float* x;      // key tile of x     (kTile, kMaxP)
-  float* m;      // masked decay tile (kTile, kLdM)
-  float* s;      // state             (kMaxP, kLdN)
-  float* dt;     // the chunk's dt    (kMaxChunk)
-  float* seg;    // inclusive cumsum of dt * A
-  float* w;      // exp(seg_end - seg_k) * dt_k
-};
-
-constexpr size_t smem_floats() {
-  return 2 * kTile * kLdN + kTile * kMaxP + kTile * kLdM + kMaxP * kLdN +
-         3 * kMaxChunk;
-}
-
-// x (Bsz, L, H, P), dt (Bsz, L, H) f32, A (Bsz, H) f32, Bg/Cg (Bsz, L, G,
-// N); y (Bsz, L, H, P), state (Bsz, H, P, N) f32.  One block per (b, h).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                const float* __restrict__ A, const T* __restrict__ Bg,
-                const T* __restrict__ Cg, T* __restrict__ y,
-                float* __restrict__ state, int L, int H, int P, int G, int N,
-                int chunk) {
-  extern __shared__ __align__(16) float smem[];
-  Smem sm;
-  sm.c = smem;
-  sm.b = sm.c + kTile * kLdN;
-  sm.x = sm.b + kTile * kLdN;
-  sm.m = sm.x + kTile * kMaxP;
-  sm.s = sm.m + kTile * kLdM;
-  sm.dt = sm.s + kMaxP * kLdN;
-  sm.seg = sm.dt + kMaxChunk;
-  sm.w = sm.seg + kMaxChunk;
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh - (bh / H) * H;
-  const int g = h / (H / G);
-  const float a = A[bh];
-  const int nc = L / chunk;
-  const int nt = (chunk + kTile - 1) / kTile;
-  // row strides (elements) of x/y, B/C and dt along the sequence
-  const size_t xs = (size_t)H * P, bs = (size_t)G * N;
-
-  for (int i = tid; i < kMaxP * kLdN; i += kThreads) sm.s[i] = 0.f;
-
-  for (int ci = 0; ci < nc; ++ci) {
-    const size_t t_chunk = (size_t)b * L + (size_t)ci * chunk;
-    for (int i = tid; i < chunk; i += kThreads)
-      sm.dt[i] = dt[(t_chunk + i) * H + h];
-    __syncthreads();
-    // inclusive scan of dt * A over the chunk: warp 0, a run per lane
-    if (warp == 0) {
-      const int per = (chunk + 31) / 32, beg = lane * per;
-      float run = 0.f;
-      for (int i = 0; i < per; ++i)
-        if (beg + i < chunk) run += sm.dt[beg + i] * a;
-      float incl = run;
-      for (int o = 1; o < 32; o <<= 1) {
-        const float v = __shfl_up_sync(0xffffffffu, incl, o);
-        if (lane >= o) incl += v;
-      }
-      float pre = incl - run;
-      for (int i = 0; i < per; ++i)
-        if (beg + i < chunk) {
-          pre += sm.dt[beg + i] * a;
-          sm.seg[beg + i] = pre;
-        }
-    }
-    __syncthreads();
-    const float seg_end = sm.seg[chunk - 1];
-    for (int i = tid; i < chunk; i += kThreads)
-      sm.w[i] = expf(seg_end - sm.seg[i]) * sm.dt[i];
-    // (the first __syncthreads below orders these writes before any read)
-
-    // --- outputs: one query tile at a time ------------------------------
-    for (int qt = 0; qt < nt; ++qt) {
-      const int q0 = qt * kTile;
-      const int qrows = min(kTile, chunk - q0);
-      load_rows(sm.c, kLdN, kMaxN, Cg + (t_chunk + q0) * bs + (size_t)g * N,
-                bs, qrows, N);
-      __syncthreads();
-      float acc[4][4];
-      // the entering state: exp(seg_q) (C_q . state_p)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      for (int n = 0; n < kMaxN; n += 4) {
-        float4 cv[4], sv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          cv[i] = *reinterpret_cast<const float4*>(
-              &sm.c[(ty + 16 * i) * kLdN + n]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          sv[j] = *reinterpret_cast<const float4*>(
-              &sm.s[(tx + 16 * j) * kLdN + n]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = dot4(cv[i], sv[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int q = ty + 16 * i;
-        const float e = q < qrows ? expf(sm.seg[q0 + q]) : 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] *= e;
-      }
-      // intra-chunk: key tiles at or below the diagonal
-      for (int kt = 0; kt <= qt; ++kt) {
-        const int k0 = kt * kTile;
-        const int krows = min(kTile, chunk - k0);
-        load_rows(sm.b, kLdN, kMaxN,
-                  Bg + (t_chunk + k0) * bs + (size_t)g * N, bs, krows, N);
-        load_rows(sm.x, kMaxP, kMaxP, x + (t_chunk + k0) * xs + (size_t)h * P,
-                  xs, krows, P);
-        __syncthreads();
-        float cb[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) cb[i][j] = 0.f;
-        for (int n = 0; n < kMaxN; n += 4) {
-          float4 cv[4], bv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            cv[i] = *reinterpret_cast<const float4*>(
-                &sm.c[(ty + 16 * i) * kLdN + n]);
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            bv[j] = *reinterpret_cast<const float4*>(
-                &sm.b[(tx + 16 * j) * kLdN + n]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) cb[i][j] = dot4(cv[i], bv[j], cb[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int q = q0 + ty + 16 * i;           // position in the chunk
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int k = k0 + tx + 16 * j;
-            float mv = 0.f;
-            if (k <= q && q < chunk)
-              mv = cb[i][j] * expf(sm.seg[q] - sm.seg[k]) * sm.dt[k];
-            sm.m[(ty + 16 * i) * kLdM + tx + 16 * j] = mv;
-          }
-        }
-        __syncthreads();
-        for (int k = 0; k < kTile; k += 4) {
-          float4 mv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            mv[i] = *reinterpret_cast<const float4*>(
-                &sm.m[(ty + 16 * i) * kLdM + k]);
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            float xv[4];
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              xv[j] = sm.x[(k + kk) * kMaxP + tx + 16 * j];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const float mk = kk == 0   ? mv[i].x
-                               : kk == 1 ? mv[i].y
-                               : kk == 2 ? mv[i].z
-                                         : mv[i].w;
-#pragma unroll
-              for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(mk, xv[j], acc[i][j]);
-            }
-          }
-        }
-        __syncthreads();   // before the next tiles overwrite b, x and m
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int q = ty + 16 * i;
-        if (q >= qrows) continue;
-        T* yrow = y + (t_chunk + q0 + q) * xs + (size_t)h * P;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int p = tx + 16 * j;
-          if (p < P) yrow[p] = from_f32<T>(acc[i][j]);
-        }
-      }
-    }
-
-    // --- state update: a second sweep over the key tiles ----------------
-    float ds[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) ds[i][j] = 0.f;
-    for (int kt = 0; kt < nt; ++kt) {
-      const int k0 = kt * kTile;
-      const int krows = min(kTile, chunk - k0);
-      load_rows(sm.b, kLdN, kMaxN, Bg + (t_chunk + k0) * bs + (size_t)g * N,
-                bs, krows, N);
-      load_rows(sm.x, kMaxP, kMaxP, x + (t_chunk + k0) * xs + (size_t)h * P,
-                xs, krows, P);
-      __syncthreads();
-      for (int k = 0; k < krows; ++k) {
-        const float wk = sm.w[k0 + k];
-        float xv[4], bv[8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) xv[i] = wk * sm.x[k * kMaxP + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) bv[j] = sm.b[k * kLdN + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) ds[i][j] = fmaf(xv[i], bv[j], ds[i][j]);
-      }
-      __syncthreads();
-    }
-    const float decay = expf(seg_end);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float* s = &sm.s[(ty + 16 * i) * kLdN + tx + 16 * j];
-        *s = fmaf(decay, *s, ds[i][j]);
-      }
-    __syncthreads();
-  }
-
-  float* out = state + (size_t)bh * P * N;
-  for (int idx = tid; idx < P * N; idx += kThreads) {
-    const int p = idx / N, n = idx - (idx / N) * N;
-    out[idx] = sm.s[p * kLdN + n];
-  }
 }
 
 bool valid(int Bsz, int L, int H, int P, int G, int N, int chunk,
@@ -351,27 +83,490 @@ bool valid(int Bsz, int L, int H, int P, int G, int N, int chunk,
          (dtype == DT_F32 || dtype == DT_BF16);
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* dt, const void* A,
-                   const void* Bg, const void* Cg, void* y, void* state,
-                   int Bsz, int L, int H, int P, int G, int N, int chunk,
-                   cudaStream_t s) {
-  auto kernel = ssd_scan_kernel<T>;
-  const size_t bytes = smem_floats() * sizeof(float);
-  static bool ready = false;
-  if (!ready) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return err;
-    ready = true;
+// ===========================================================================
+// float32 on Hopper's tensor cores: three passes (namespace tfs)
+// ===========================================================================
+//
+// The bfloat16 route's three passes (namespace hop, below) for float32
+// operands, with every product as three TF32 mma.sync products
+// (tf32x3.cuh: m16n8k8, float32 accumulators, each float32 operand split
+// into hi = tf32(x) and lo = x - hi as it is loaded into a fragment, about
+// 21 bits of each operand).  mma.sync and not wgmma: wgmma takes TF32 only
+// K-major from shared memory, and S = (u x)^T B contracts over the rows of
+// the staged tiles; mma.sync's fragments are loaded by each lane in either
+// orientation from plain float32 tiles (rows padded by 4 or 8 words), so no
+// operand is staged twice.  Three launches:
+//
+//   1. chunk_state_kernel, one block (8 warps) a (b, chunk, h): seg (the
+//      inclusive cumsum of dt * A over the chunk, a warp scan) into a (B,
+//      H, L) float32 workspace, u_k = exp(seg_end - seg_k) dt_k, and S = (u
+//      x)^T B, P x N, into a (B, nc, H, P, N) float32 workspace; warp (rg,
+//      hf) owns 16 rows of P by 64 columns of N, the chunk's rows streamed
+//      in 64-row tiles by cp.async through two stages (the next tile in
+//      flight while this one is read), each tile's products summed into fresh
+//      accumulators and added in float32 (the tensor core's own additions
+//      round toward zero).
+//   2. state_pass_kernel, elementwise over (b, h, P, N), four elements a
+//      thread in flight: s_in[c + 1] = exp(seg_end_c) s_in[c] + S_c from
+//      s_in[0] = 0, the entering states of chunks 1 .. nc - 1 written in
+//      float32 (B, nc - 1, H, P, N), and the final state (B, H, P, N).
+//   3. chunk_scan_kernel, one block (8 warps) a (64-row query tile, four
+//      heads of a group, b * nc + chunk), the longest query tiles first:
+//      each head's entering term exp(seg_q) C_q s_in^T, then for each key
+//      tile k <= q, G = C_q B_k^T once for the block's heads and, for each
+//      head, M = G exp(seg_q - seg_k) dt_k (the exponent masked to -inf
+//      for k > q or q past the chunk, before the exponential) into shared
+//      memory and y += M x_k into fresh accumulators added in float32.
+//      Warp (rg, hf) owns 16 query rows by 32 key columns of G and 32
+//      columns of each head's y, in registers.  Where four heads a block
+//      would leave the card with fewer than two blocks an SM (one short
+//      sequence), one head a block (two blocks an SM); a head's results
+//      are the same bits either way.
+//
+// What the float32 kernel they replaced did (one block a (b, h) walking its
+// chunks on the CUDA cores, 7.9x its float32-rate bound at the serving
+// shape) is answered so: the chunks run in parallel (passes 1 and 3 are
+// independent across chunks; only the elementwise pass 2 walks them in
+// order), and the products run on the tensor cores.
+//
+// Kept from it: any P <= 64 and N <= 128 (zero-padded in shared memory), a
+// ragged chunk (rows past it zero), A per sequence (A[b * a_stride + h]),
+// B and C read through their group (head h reads group h / (H / G), never
+// expanded), and a fixed order of every sum (no atomics), so two calls give
+// the same bits.
+//
+// Bound at the serving shape (B = 16, L = 1024, H = 24, P = 64, N = 128,
+// G = 1, chunk 256): the least work is 19.9 GFLOP, 0.297 ms at the 67
+// TFLOP/s float32 rate, 0.121 ms as three TF32 products at 495 TFLOP/s;
+// the bytes (x and y 100.7 MB each, B and C 8.4 MB each) 0.065 ms.  This
+// design forms C B^T once per four heads (not once per group) and by whole
+// 64 x 64 tiles of the causal half (10 of 16 at chunk 256), and stages a
+// group's B and C tiles again for every four heads.
+namespace tfs {
+
+using namespace tf32x3;
+
+constexpr int kThreads = 256;                   // 8 warps
+constexpr int kT = 64;                          // rows of a tile
+// Row strides of the tiles, in floats: a tile whose fragments are read
+// along its rows (rows_a, cols_b: lane (g, t) at row g, column t) has
+// rows 4 banks apart, one read down its columns (rows_b, or A read
+// transposed: row t, column g) 8 apart, so that a warp's 32 reads fall in
+// 32 banks.
+constexpr int kLdAlong = kMaxN + 4;             // C, B in pass 3
+constexpr int kLdDownN = kMaxN + 8;             // B in pass 1
+constexpr int kLdDownP = kMaxP + 8;             // x in passes 1 and 3
+constexpr int kLdT = kT + 4;                    // M in pass 3
+
+__host__ __device__ constexpr int ceil_div(int a, int b) {
+  return (a + b - 1) / b;
+}
+
+// ---------------------------------------------------------------------------
+// pass 1: seg and the chunk's own state S = (u x)^T B
+// ---------------------------------------------------------------------------
+
+struct StateArgs {
+  const float *x, *dt, *A, *Bg;
+  float *S, *seg;
+  long long a_stride;
+  int L, H, P, G, N, chunk, nc;
+};
+
+struct StateLay {                               // floats
+  // two stages of an x tile (kT x kLdDownP) and a B tile (kT x kLdDownN)
+  static constexpr int kStage = kT * kLdDownP + kT * kLdDownN;
+  static constexpr int oX = 0;
+  static constexpr int oB = kT * kLdDownP;
+  static constexpr int oDT = 2 * kStage;        // dt of the chunk
+  static constexpr int oSEG = oDT + kMaxChunk;  // seg
+  static constexpr int oU = oSEG + kMaxChunk;   // u
+  static constexpr size_t kBytes = sizeof(float) * (oU + kMaxChunk);
+};
+
+// Inclusive cumsum of dt a over the chunk's cs rows into seg, by one warp:
+// a run per lane, the runs' sums scanned by shuffles.
+__device__ __forceinline__ void cumsum(const float* dt, float a, float* seg,
+                                       int cs, int lane) {
+  const int per = (cs + 31) / 32, beg = lane * per;
+  float run = 0.f;
+  for (int i = 0; i < per; ++i)
+    if (beg + i < cs) run += dt[beg + i] * a;
+  float incl = run;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
   }
-  kernel<<<(unsigned)((long long)Bsz * H), kThreads, bytes, s>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(A), static_cast<const T*>(Bg),
-      static_cast<const T*>(Cg), static_cast<T*>(y),
-      static_cast<float*>(state), L, H, P, G, N, chunk);
+  float pre = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) pre = 0.f;
+  for (int i = 0; i < per; ++i)
+    if (beg + i < cs) {
+      pre += dt[beg + i] * a;
+      seg[beg + i] = pre;
+    }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+chunk_state_kernel(const StateArgs a) {
+  using Ly = StateLay;
+  extern __shared__ __align__(16) float sm[];
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31,
+            g = lane >> 2, t = lane & 3;
+  const int rg = w & 3, hf = w >> 2;             // 16 rows of P, 64 of N
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int cs = a.chunk, H = a.H, P = a.P, N = a.N;
+  const int grp = h / (H / a.G);
+  const long long row0 = (long long)b * a.L + (long long)c * cs;
+  float* dtv = sm + Ly::oDT;
+  float* segv = sm + Ly::oSEG;
+  float* u = sm + Ly::oU;
+  // rows [k0, k0 + kT) of x and B into stage st (cp.async, not waited for)
+  auto stage_tile = [&](int st, int k0) {
+    stage(sm + st * Ly::kStage + Ly::oX, kLdDownP, a.x, row0, H, h, P,
+          kMaxP, k0, kT, cs);
+    stage(sm + st * Ly::kStage + Ly::oB, kLdDownN, a.Bg, row0, a.G, grp, N,
+          kMaxN, k0, kT, cs);
+  };
+  stage_tile(0, 0);                    // in flight during the cumsum
+  for (int i = tid; i < kMaxChunk; i += kThreads)
+    dtv[i] = i < cs ? a.dt[(row0 + i) * H + h] : 0.f;
+  __syncthreads();
+  if (w == 0) cumsum(dtv, a.A[b * a.a_stride + h], segv, cs, lane);
+  __syncthreads();
+  const float end = segv[cs - 1];
+  const long long sbase = ((long long)b * H + h) * a.L + (long long)c * cs;
+  for (int i = tid; i < kMaxChunk; i += kThreads) {
+    float ui = 0.f;
+    if (i < cs) {
+      ui = expf(end - segv[i]) * dtv[i];
+      a.seg[sbase + i] = segv[i];
+    }
+    u[i] = ui;
+  }
+  const int p0 = 16 * rg, n0 = 64 * hf;
+  float acc[8][4] = {};
+  for (int it = 0, k0 = 0; k0 < cs; ++it, k0 += kT) {
+    // this tile has landed, and every warp is done with the other stage:
+    // the next tile goes there while this one is read
+    cp_async_wait();
+    __syncthreads();
+    if (k0 + kT < cs) stage_tile((it + 1) & 1, k0 + kT);
+    const float* sX = sm + (it & 1) * Ly::kStage + Ly::oX;
+    const float* sB = sm + (it & 1) * Ly::kStage + Ly::oB;
+    float part[8][4] = {};
+    const int kks = ceil_div(min(kT, cs - k0), 8);
+#pragma unroll 1
+    for (int kk = 0; kk < kks; ++kk) {
+      // A[p][k] = u_k x[k][p]: the tile read transposed
+      const FragA A = frag_a(
+          [&](int r, int cc) {
+            const int k = 8 * kk + cc;
+            return u[k0 + k] * sX[k * kLdDownP + p0 + r];
+          },
+          g, t);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mma3(part[j], A, rows_b(sB, kLdDownN, 8 * kk, n0 + 8 * j, g, t));
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
+  }
+  float* out = a.S + (((long long)b * a.nc + c) * H + h) * P * N;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int p = p0 + g + 8 * (e >> 1), n = n0 + 8 * j + 2 * t + (e & 1);
+      if (p < P && n < N) out[p * N + n] = acc[j][e];
+    }
+}
+
+// ---------------------------------------------------------------------------
+// pass 2: the states passed across chunks, four elements a thread
+// ---------------------------------------------------------------------------
+
+struct PassArgs {
+  const float* S;           // (B, nc, H, P, N)
+  const float* seg;         // (B, H, L)
+  float* s_in;              // (B, nc - 1, H, P, N): s_in of chunks 1 ..
+  float* state;             // (B, H, P, N)
+  long long elems;          // B * H * P * N
+  int L, H, PN, chunk, nc;
+};
+
+constexpr int kPassPer = 4;
+
+__global__ void __launch_bounds__(256) state_pass_kernel(const PassArgs a) {
+  const long long e0 =
+      kPassPer * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
+  long long bq[kPassPer];
+  int h[kPassPer], pn[kPassPer];
+  bool in[kPassPer];
+  float s[kPassPer];
+#pragma unroll
+  for (int j = 0; j < kPassPer; ++j) {
+    const long long e = e0 + j;
+    in[j] = e < a.elems;
+    const long long bh = in[j] ? e / a.PN : 0;
+    pn[j] = (int)(e - bh * a.PN);
+    bq[j] = bh / a.H;
+    h[j] = (int)(bh - bq[j] * a.H);
+    s[j] = 0.f;
+  }
+  for (int c = 0; c < a.nc; ++c) {
+    float sc[kPassPer], d[kPassPer];
+#pragma unroll
+    for (int j = 0; j < kPassPer; ++j) {
+      if (!in[j]) continue;
+      if (c > 0)
+        a.s_in[((bq[j] * (a.nc - 1) + c - 1) * a.H + h[j]) * a.PN + pn[j]] =
+            s[j];
+      sc[j] = a.S[((bq[j] * a.nc + c) * a.H + h[j]) * a.PN + pn[j]];
+      d[j] = expf(a.seg[(bq[j] * a.H + h[j]) * a.L +
+                        (long long)c * a.chunk + a.chunk - 1]);
+    }
+#pragma unroll
+    for (int j = 0; j < kPassPer; ++j)
+      if (in[j]) s[j] = fmaf(d[j], s[j], sc[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < kPassPer; ++j)
+    if (in[j]) a.state[e0 + j] = s[j];
+}
+
+// ---------------------------------------------------------------------------
+// pass 3: the chunk outputs, one block a (query tile, kH heads of a group,
+// b * nc + chunk)
+// ---------------------------------------------------------------------------
+
+struct ScanArgs {
+  const float *x, *dt, *seg, *Bg, *Cg, *s_in;
+  float* y;
+  int L, H, P, G, N, chunk, nc;
+};
+
+// Shared memory of a block of kH heads, in floats: the query tile of C and
+// a key tile of B (where each head's s_in lands first), kH key tiles of x,
+// the M planes (two where heads alternate) and each head's seg and dt.
+template <int kH> struct ScanLay {
+  static constexpr int kM = kH > 1 ? 2 : 1;     // M planes
+  static constexpr int oC = 0;
+  static constexpr int oB = kT * kLdAlong;
+  static constexpr int oX = oB + kT * kLdAlong;
+  static constexpr int oM = oX + kH * kT * kLdDownP;
+  static constexpr int oSEG = oM + kM * kT * kLdT;
+  static constexpr int oDT = oSEG + kH * kMaxChunk;
+  static constexpr size_t kBytes = sizeof(float) * (oDT + kH * kMaxChunk);
+  static_assert(kMaxP <= kT, "s_in fits the key tile's place");
+};
+
+// kH heads of one group share the block's C B^T: G of each key tile is
+// formed once, and each head's M, M x and entering term follow from it.
+// One head a block (kH = 1) where the grid of kH = 4 would not fill the
+// card; a head's results do not depend on kH (the same operations in the
+// same order; the entering term's scaling is rounded on its own, never
+// contracted with the adds after it).
+template <int kH>
+__global__ void __launch_bounds__(kThreads, kH > 1 ? 1 : 2)
+chunk_scan_kernel(const ScanArgs a) {
+  using Ly = ScanLay<kH>;
+  extern __shared__ __align__(16) float sm[];
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31,
+            g = lane >> 2, t = lane & 3;
+  const int rg = w & 3, hf = w >> 2;      // 16 query rows; half of the columns
+  const int cs = a.chunk, H = a.H, P = a.P, N = a.N;
+  const int nq = ceil_div(cs, kT), qt = nq - 1 - (int)blockIdx.x;
+  const int r = H / a.G, blocks = ceil_div(r, kH);
+  const int grp = blockIdx.y / blocks;
+  const int h0 = grp * r + (blockIdx.y % blocks) * kH;
+  const int nh = min(kH, grp * r + r - h0);
+  const int bc = blockIdx.z;
+  const int b = bc / a.nc, c = bc - b * a.nc;
+  const long long row0 = (long long)b * a.L + (long long)c * cs;
+  const int q0 = qt * kT, rows = min(cs, q0 + kT);   // rows read: [0, rows)
+  float* segv = sm + Ly::oSEG;
+  float* dtv = sm + Ly::oDT;
+  const float* sC = sm + Ly::oC;
+  const float* sB = sm + Ly::oB;
+  for (int i = 0; i < nh; ++i) {
+    const int h = h0 + i;
+    const long long sbase = ((long long)b * H + h) * a.L + (long long)c * cs;
+    for (int k = tid; k < rows; k += kThreads) {
+      segv[i * kMaxChunk + k] = a.seg[sbase + k];
+      dtv[i * kMaxChunk + k] = a.dt[(row0 + k) * H + h];
+    }
+  }
+  // the key tile kt of B, and of head i's x, into their places
+  // (cp.async, not waited for)
+  auto stage_b = [&](int kt) {
+    stage(sm + Ly::oB, kLdAlong, a.Bg, row0, a.G, grp, N, kMaxN, kt * kT,
+          kT, cs);
+  };
+  auto stage_x = [&](int i, int kt) {
+    stage(sm + Ly::oX + i * kT * kLdDownP, kLdDownP, a.x, row0, H, h0 + i,
+          P, kMaxP, kt * kT, kT, cs);
+  };
+  stage(sm + Ly::oC, kLdAlong, a.Cg, row0, a.G, grp, N, kMaxN, q0, kT, cs);
+  for (int i = 0; i < nh; ++i) stage_x(i, 0);
+  // y of each head, this warp's 16 query rows by columns p 32 hf ..
+  float y[kH][4][4] = {};
+  // the entering term exp(seg_q) C_q s_in^T, one head's s_in at a time in
+  // the key tile's place
+  if (c > 0)
+#pragma unroll
+    for (int i = 0; i < kH; ++i) {
+      if (i >= nh) break;
+      __syncthreads();                   // the last head's s_in is read
+      stage(sm + Ly::oB, kLdAlong,
+            a.s_in + (((long long)b * (a.nc - 1) + c - 1) * H + h0 + i) * P *
+                         N,
+            0, 1, 0, N, kMaxN, 0, kMaxP, P);
+      cp_async_wait();
+      __syncthreads();
+#pragma unroll 2
+      for (int kk = 0; kk < kMaxN / 8; ++kk) {
+        const FragA A = rows_a(sC, kLdAlong, 16 * rg, 8 * kk, g, t);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma3(y[i][j], A, cols_b(sB, kLdAlong, 8 * kk, 32 * hf + 8 * j, g,
+                                  t));
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = q0 + 16 * rg + g + 8 * (e >> 1);
+        const float eq = q < cs ? expf(segv[i * kMaxChunk + q]) : 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) y[i][j][e] = __fmul_rn(y[i][j][e], eq);
+      }
+    }
+  __syncthreads();                     // the last s_in is read
+  stage_b(0);
+  // The key tiles k <= q.  Each tile's loads are in flight while the one
+  // before is read: B's as soon as G is formed, head i's x as soon as every
+  // warp has read head i's (the barrier of head i + 1, or the last one).
+  for (int kt = 0; kt <= qt; ++kt) {
+    const int k0 = kt * kT;
+    const bool next = kt < qt;
+    cp_async_wait();
+    __syncthreads();                   // this key tile has landed
+    // G = C_q B_k^T: the warp's 16 query rows by key columns 32 hf ..,
+    // once for the block's heads
+    float d[4][4] = {};
+#pragma unroll 2
+    for (int kk = 0; kk < kMaxN / 8; ++kk) {
+      const FragA A = rows_a(sC, kLdAlong, 16 * rg, 8 * kk, g, t);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        mma3(d[j], A, cols_b(sB, kLdAlong, 8 * kk, 32 * hf + 8 * j, g, t));
+    }
+    // the key tile's rows up to the last query row (the diagonal tile) or
+    // its end
+    const int kks = ceil_div(min(kT, min(cs, q0 + kT) - k0), 8);
+#pragma unroll
+    for (int i = 0; i < kH; ++i) {
+      if (i >= nh) break;
+      const float* seg = segv + i * kMaxChunk;
+      const float* dt = dtv + i * kMaxChunk;
+      float* sM = sm + Ly::oM + (i % Ly::kM) * kT * kLdT;
+      // M = G exp(seg_q - seg_k) dt_k for k <= q < cs, else 0 (branch-free:
+      // the exponent masked to -inf).  A plane the head before the last
+      // read is written: every warp has passed the barrier since.
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = 16 * rg + g + 8 * r;
+          const int col = 32 * hf + 8 * j + 2 * t;
+          float m[2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int q = q0 + row, k = k0 + col + u;
+            const bool in = k <= q && q < cs;
+            const int kc = in ? k : 0;
+            const float E = expf(in ? seg[q] - seg[kc] : -INFINITY);
+            m[u] = d[j][2 * r + u] * E * dt[kc];
+          }
+          *reinterpret_cast<float2*>(sM + row * kLdT + col) =
+              make_float2(m[0], m[1]);
+        }
+      __syncthreads();                 // M is written; G and x_(i-1) read
+      if (next) {
+        if (i == 0) stage_b(kt + 1);
+        else stage_x(i - 1, kt + 1);
+      }
+      // y += M x_k into fresh accumulators, added in float32
+      const float* sX = sm + Ly::oX + i * kT * kLdDownP;
+      float part[4][4] = {};
+#pragma unroll 1
+      for (int kk = 0; kk < kks; ++kk) {
+        const FragA A = rows_a(sM, kLdT, 16 * rg, 8 * kk, g, t);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma3(part[j], A,
+               rows_b(sX, kLdDownP, 8 * kk, 32 * hf + 8 * j, g, t));
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) y[i][j][e] += part[j][e];
+    }
+    if (next) {
+      __syncthreads();                 // the last head's x is read
+      stage_x(nh - 1, kt + 1);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kH; ++i) {
+    if (i >= nh) break;
+#pragma unroll
+    for (int e2 = 0; e2 < 2; ++e2) {
+      const int q = q0 + 16 * rg + g + 8 * e2;
+      if (q >= cs) continue;
+      float* yrow = a.y + ((row0 + q) * H + h0 + i) * P;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int p = 32 * hf + 8 * j + 2 * t;
+        if (p < P) yrow[p] = y[i][j][2 * e2];
+        if (p + 1 < P) yrow[p + 1] = y[i][j][2 * e2 + 1];
+      }
+    }
+  }
+}
+
+// Heads a block for the chunk outputs: four, unless the grid of four would
+// not give each of the card's SMs two blocks.
+constexpr int kScanHeads = 4;
+int scan_heads(int Bsz, int nc, int H, int G, int chunk) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    sms = 132;
+  const long long blocks = (long long)ceil_div(chunk, kT) * G *
+                           ceil_div(H / G, kScanHeads) * Bsz * nc;
+  return blocks >= 2LL * sms ? kScanHeads : 1;
+}
+
+// Grid limits (65535 in y and z) and what the kernels take.
+bool shapes_ok(int Bsz, int L, int H, int P, int G, int N, int chunk) {
+  return valid(Bsz, L, H, P, G, N, chunk, DT_F32) && H <= 65535 &&
+         (long long)Bsz * (L / chunk) <= 65535;
+}
+
+template <typename Kernel, typename Args>
+cudaError_t run(Kernel kernel, dim3 grid, size_t smem, cudaStream_t s,
+                const Args& args) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, s>>>(args);
   return cudaGetLastError();
 }
+
+}  // namespace tfs
 
 // ===========================================================================
 // bfloat16 on Hopper: three passes, two of them on the tensor cores
@@ -2383,23 +2578,94 @@ cudaError_t launch(const void* x, const void* dt, const void* A,
 
 extern "C" {
 
-// The largest head dim, state size and chunk the kernel takes.
+// The largest head dim, state size and chunk the kernels take.
 int repro_ssd_max_head_dim() { return kMaxP; }
 int repro_ssd_max_state() { return kMaxN; }
 int repro_ssd_max_chunk() { return kMaxChunk; }
 
-// float32 on the CUDA cores: x (Bsz, L, H, P) and Bg/Cg (Bsz, L, G, N)
-// contiguous float32 (dtype DT_F32; bfloat16 goes to the passes below);
-// dt (Bsz, L, H) and A (Bsz, H) float32; y (Bsz, L, H, P) float32; state
-// (Bsz, H, P, N) float32.  L a multiple of chunk.
-int repro_ssd_scan(const void* x, const void* dt, const void* A,
-                   const void* Bg, const void* Cg, void* y, void* state,
-                   int Bsz, int L, int H, int P, int G, int N, int chunk,
-                   int dtype, void* stream) {
-  if (dtype != DT_F32 || !valid(Bsz, L, H, P, G, N, chunk, dtype))
+// float32 on the tensor cores, three launches (see namespace tfs).  x
+// (Bsz, L, H, P) and Bg/Cg (Bsz, L, G, N) contiguous float32, dt (Bsz, L,
+// H) float32; L a multiple of chunk; nc = L / chunk.
+
+// Pass 1.  A[b * a_stride + h] float32 (a_stride 0: one A for every
+// sequence); writes S (Bsz, nc, H, P, N) and seg (Bsz, H, L), float32.
+int repro_ssd_f32_chunk_state(const void* x, const void* dt, const void* A,
+                              long long a_stride, const void* Bg, void* S,
+                              void* seg, int Bsz, int L, int H, int P, int G,
+                              int N, int chunk, void* stream) {
+  if (!tfs::shapes_ok(Bsz, L, H, P, G, N, chunk))
     return (int)cudaErrorInvalidValue;
-  return (int)launch<float>(x, dt, A, Bg, Cg, y, state, Bsz, L, H, P, G, N,
-                            chunk, static_cast<cudaStream_t>(stream));
+  tfs::StateArgs a{};
+  a.x = static_cast<const float*>(x);
+  a.dt = static_cast<const float*>(dt);
+  a.A = static_cast<const float*>(A);
+  a.Bg = static_cast<const float*>(Bg);
+  a.S = static_cast<float*>(S);
+  a.seg = static_cast<float*>(seg);
+  a.a_stride = a_stride;
+  a.L = L; a.H = H; a.P = P; a.G = G; a.N = N; a.chunk = chunk;
+  a.nc = L / chunk;
+  return (int)tfs::run(tfs::chunk_state_kernel, dim3(H, a.nc, Bsz),
+                       tfs::StateLay::kBytes,
+                       static_cast<cudaStream_t>(stream), a);
+}
+
+// Pass 2.  S and seg from pass 1; writes the entering states of chunks
+// 1 .. nc - 1, s_in (Bsz, nc - 1, H, P, N), and the final state (Bsz, H,
+// P, N), float32.
+int repro_ssd_f32_state_pass(const void* S, const void* seg, void* s_in,
+                             void* state, int Bsz, int L, int H, int P,
+                             int N, int chunk, void* stream) {
+  if (!tfs::shapes_ok(Bsz, L, H, P, 1, N, chunk))
+    return (int)cudaErrorInvalidValue;
+  tfs::PassArgs a{};
+  a.S = static_cast<const float*>(S);
+  a.seg = static_cast<const float*>(seg);
+  a.s_in = static_cast<float*>(s_in);
+  a.state = static_cast<float*>(state);
+  a.elems = (long long)Bsz * H * P * N;
+  a.L = L; a.H = H; a.PN = P * N; a.chunk = chunk; a.nc = L / chunk;
+  const long long threads = (a.elems + tfs::kPassPer - 1) / tfs::kPassPer;
+  const long long blocks = (threads + 255) / 256;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  tfs::state_pass_kernel<<<(unsigned)blocks, 256, 0,
+                           static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Pass 3.  seg from pass 1, s_in from pass 2 (unread where nc = 1); writes
+// y (Bsz, L, H, P) float32.
+int repro_ssd_f32_chunk_scan(const void* x, const void* dt, const void* seg,
+                             const void* Bg, const void* Cg,
+                             const void* s_in, void* y, int Bsz, int L,
+                             int H, int P, int G, int N, int chunk,
+                             void* stream) {
+  if (!tfs::shapes_ok(Bsz, L, H, P, G, N, chunk))
+    return (int)cudaErrorInvalidValue;
+  tfs::ScanArgs a{};
+  a.x = static_cast<const float*>(x);
+  a.dt = static_cast<const float*>(dt);
+  a.seg = static_cast<const float*>(seg);
+  a.Bg = static_cast<const float*>(Bg);
+  a.Cg = static_cast<const float*>(Cg);
+  a.s_in = static_cast<const float*>(s_in);
+  a.y = static_cast<float*>(y);
+  a.L = L; a.H = H; a.P = P; a.G = G; a.N = N; a.chunk = chunk;
+  a.nc = L / chunk;
+  const int heads = tfs::scan_heads(Bsz, a.nc, H, G, chunk);
+  const dim3 grid(tfs::ceil_div(chunk, tfs::kT),
+                  G * tfs::ceil_div(H / G, heads), (unsigned)(Bsz * a.nc));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(heads == tfs::kScanHeads
+                   ? tfs::run(tfs::chunk_scan_kernel<tfs::kScanHeads>, grid,
+                              tfs::ScanLay<tfs::kScanHeads>::kBytes, s, a)
+                   : tfs::run(tfs::chunk_scan_kernel<1>, grid,
+                              tfs::ScanLay<1>::kBytes, s, a));
+}
+
+// Heads a block of pass 3 at this shape on the current card: 4 or 1.
+int repro_ssd_f32_scan_heads(int Bsz, int L, int H, int G, int chunk) {
+  return tfs::scan_heads(Bsz, L / chunk, H, G, chunk);
 }
 
 // bfloat16 on Hopper, three launches (see namespace hop).  x (Bsz, L, H, P)

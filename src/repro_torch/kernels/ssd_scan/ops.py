@@ -4,17 +4,20 @@ scan kernels in ``csrc/ssd_scan.cu`` (port of
 
 Routing is by the tensors' device and dtype, written out here and never
 taken from a failure: CPU tensors go to the plain PyTorch versions in
-:mod:`.ref`; bfloat16 CUDA tensors to the three Hopper kernels, one a pass
-(:func:`ssd_chunk_state`, :func:`ssd_state_pass`, :func:`ssd_chunk_scan`:
-chunk states, states passed across chunks, chunk outputs; the first and
-last on the tensor cores); float32 CUDA tensors to the one CUDA-core
-kernel.  A CUDA call launches its kernels or raises — there is no
-fallback.  The kernels are compiled with ``nvcc`` for ``sm_90a`` at first
-use (:mod:`repro_torch.kernels.build`).
+:mod:`.ref`; CUDA tensors to three Hopper kernels, one a pass (chunk
+states, states passed across chunks, chunk outputs; the first and last on
+the tensor cores): bfloat16 to :func:`ssd_chunk_state`,
+:func:`ssd_state_pass`, :func:`ssd_chunk_scan` (``wgmma``, namespace
+``hop``), float32 to :func:`ssd_f32_chunk_state`,
+:func:`ssd_f32_state_pass`, :func:`ssd_f32_chunk_scan` (three TF32
+``mma.sync`` products a product, namespace ``tfs``).  A CUDA call
+launches its kernels or raises — there is no fallback.  The kernels are
+compiled with ``nvcc`` for ``sm_90a`` at first use
+(:mod:`repro_torch.kernels.build`).
 
 The reference expands the B/C groups to heads before its kernel; these
 kernels read each head's group instead, with the same results, and the
-bfloat16 route forms C·Bᵀ once for all heads of a group.
+bfloat16 route forms C·Bᵀ once for all heads of a block's group.
 
 :func:`ssd_scan` pairs the kernel forward with a float32 backward (the
 kernel's precision; below).  The JAX package has no backward kernel: it
@@ -51,24 +54,25 @@ gradients: the chunk kernel, then the finish and reduce kernels), and
 their tangent twins.  bfloat16 runs the Hopper kernels (namespace ``hbw``:
 ``wgmma`` and TMA, float32 intermediates as hi/lo bf16 pairs, and a gram
 launch before the chunk kernel that forms C·Bᵀ once per group: six
-launches).  The float32 tangent runs hbw's design on the tensor cores with
-every product as three TF32 ``mma.sync`` products (namespace ``tbw``, the
-same six launches); the float32 backward the CUDA-core kernels (namespace
-``sbw``: five).  The state passing is one kernel of every route
-(``ssd::pass_kernel``, ``ssd::tangent_pass_kernel``).
+launches).  float32 runs hbw's design on the tensor cores with every
+product as three TF32 ``mma.sync`` products (namespace ``tbw``, the same
+six launches, in the backward and in its tangent).  The state passing is
+one kernel of every route (``ssd::pass_kernel``,
+``ssd::tangent_pass_kernel``).
 
 ``launch_counts["ssd_scan"]`` counts the calls of :func:`ssd_scan_kernel`
-that went to a kernel route (one launch in float32, three in bfloat16);
+that went to a kernel route (three launches each);
 ``ssd_chunk_state``, ``ssd_state_pass`` and ``ssd_chunk_scan`` count each
-pass's launches.  ``ssd_scan_tangent`` counts the calls of
-:func:`ssd_scan_tangent` that went to a kernel route (one launch in float32,
-three in bfloat16), and ``ssd_tangent_state``, ``ssd_tangent_pass`` and
-``ssd_tangent_scan`` each of T3's passes.  ``ssd_scan_bwd`` and
-``ssd_scan_bwd_tangent`` count the calls of :func:`ssd_scan_bwd` and
-:func:`ssd_scan_bwd_tangent`, and ``ssd_bwd_state``, ``ssd_bwd_pass``,
-``ssd_bwd_gram`` (bfloat16 and the float32 tangent), ``ssd_bwd_chunk``, ``ssd_bwd_finish``,
-``ssd_bwd_reduce`` and their ``ssd_bwd_tangent_*`` twins each of their
-kernels' launches.
+bfloat16 pass's launches, ``ssd_f32_chunk_state``, ``ssd_f32_state_pass``
+and ``ssd_f32_chunk_scan`` each float32 pass's.  ``ssd_scan_tangent``
+counts the calls of :func:`ssd_scan_tangent` that went to a kernel route
+(one launch in float32, three in bfloat16), and ``ssd_tangent_state``,
+``ssd_tangent_pass`` and ``ssd_tangent_scan`` each of T3's passes.
+``ssd_scan_bwd`` and ``ssd_scan_bwd_tangent`` count the calls of
+:func:`ssd_scan_bwd` and :func:`ssd_scan_bwd_tangent`, and
+``ssd_bwd_state``, ``ssd_bwd_pass``, ``ssd_bwd_gram``,
+``ssd_bwd_chunk``, ``ssd_bwd_finish``, ``ssd_bwd_reduce`` and their
+``ssd_bwd_tangent_*`` twins each of their kernels' launches.
 Plain-version calls are not counted.
 """
 from __future__ import annotations
@@ -92,7 +96,10 @@ __all__ = ["BWD_LIB", "MAX_CHUNK", "MAX_HEAD_DIM", "MAX_STATE", "build",
            "launch_counts", "reset_launch_counts", "ssd_bwd_chunk",
            "ssd_bwd_pass", "ssd_bwd_state", "ssd_bwd_tangent_chunk",
            "ssd_bwd_tangent_pass", "ssd_bwd_tangent_state",
-           "ssd_chunk_scan", "ssd_chunk_state", "ssd_scan", "ssd_scan_bwd",
+           "ssd_chunk_scan", "ssd_chunk_state", "ssd_f32_chunk_scan",
+           "ssd_f32_chunk_state", "ssd_f32_scan_heads",
+           "ssd_f32_state_pass", "ssd_scan",
+           "ssd_scan_bwd",
            "ssd_scan_bwd_tangent", "ssd_scan_kernel", "ssd_scan_tangent",
            "ssd_state_pass", "ssd_tangent_pass", "ssd_tangent_scan",
            "ssd_tangent_state"]
@@ -105,12 +112,15 @@ BWD_SOURCE = SOURCE.with_name("ssd_bwd.cu")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# the backward's kernels by pass id of the C entry: the five of every
-# route, then the gram kernel of the bfloat16 route and the float32 tangent
-# (launched before chunk)
+# the backward's kernels by pass id of the C entry (the gram kernel is
+# launched before chunk)
 BWD_PASSES = ("state", "pass", "chunk", "finish", "reduce", "gram")
+# the float32 forward's passes (launch-count keys)
+F32_PASSES = ("ssd_f32_chunk_state", "ssd_f32_state_pass",
+              "ssd_f32_chunk_scan")
 launch_counts = {"ssd_scan": 0, "ssd_chunk_state": 0, "ssd_state_pass": 0,
-                 "ssd_chunk_scan": 0, "ssd_scan_tangent": 0,
+                 "ssd_chunk_scan": 0, **{k: 0 for k in F32_PASSES},
+                 "ssd_scan_tangent": 0,
                  "ssd_tangent_state": 0, "ssd_tangent_pass": 0,
                  "ssd_tangent_scan": 0, "ssd_scan_bwd": 0,
                  "ssd_scan_bwd_tangent": 0,
@@ -130,7 +140,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         getattr(lib, fn).argtypes = []
         getattr(lib, fn).restype = i
     ll = ctypes.c_longlong
-    lib.repro_ssd_scan.argtypes = [p] * 7 + [i] * 8 + [p]
+    lib.repro_ssd_f32_chunk_state.argtypes = [p] * 3 + [ll] + [p] * 3 + \
+        [i] * 7 + [p]
+    lib.repro_ssd_f32_state_pass.argtypes = [p] * 4 + [i] * 6 + [p]
+    lib.repro_ssd_f32_chunk_scan.argtypes = [p] * 7 + [i] * 7 + [p]
+    lib.repro_ssd_f32_scan_heads.argtypes = [i] * 5
     lib.repro_ssd_chunk_state.argtypes = [p] * 3 + [ll] + [p] * 3 + \
         [i] * 7 + [p]
     lib.repro_ssd_state_pass.argtypes = [p] * 5 + [i] * 6 + [p]
@@ -140,7 +154,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         [ll] + [p] * 5 + [i] * 7 + [p]
     lib.repro_ssd_tangent_pass.argtypes = [p] * 9 + [i] * 6 + [p]
     lib.repro_ssd_tangent_scan.argtypes = [p] * 15 + [i] * 7 + [p]
-    for fn in ("repro_ssd_scan", "repro_ssd_chunk_state",
+    for fn in ("repro_ssd_f32_chunk_state", "repro_ssd_f32_state_pass",
+               "repro_ssd_f32_chunk_scan", "repro_ssd_f32_scan_heads",
+               "repro_ssd_chunk_state",
                "repro_ssd_state_pass", "repro_ssd_chunk_scan",
                "repro_ssd_scan_tangent", "repro_ssd_tangent_state",
                "repro_ssd_tangent_pass", "repro_ssd_tangent_scan"):
@@ -349,6 +365,81 @@ def ssd_chunk_scan(x, dt, seg, Bg, Cg, hi, lo, *, chunk: int
     return y
 
 
+def _f32(*shape, like: torch.Tensor) -> torch.Tensor:
+    return torch.empty(*shape, dtype=torch.float32, device=like.device)
+
+
+def ssd_f32_chunk_state(x, dt, A, Bg, *, chunk: int
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pass 1 of the float32 route: (S (B,nc,H,P,N), seg (B,H,L)), float32,
+    as :func:`.ref.chunk_state_ref` (its plain version, taken for CPU
+    tensors).  A: (H,) or per sequence (B,H)."""
+    _check_shapes(x, dt, A, Bg, Bg, chunk)
+    if x.device.type == "cpu":
+        return chunk_state_ref(x, dt, A, Bg, chunk)
+    _check_bwd("ssd_f32_chunk_state", torch.float32, chunk, x=x, dt=dt, A=A,
+               B=Bg)
+    B, L, H, P = x.shape
+    G, N = Bg.shape[2], Bg.shape[3]
+    S = _f32(B, L // chunk, H, P, N, like=x)
+    seg = _f32(B, H, L, like=x)
+    _launch("ssd_f32_chunk_state", _LIB.lib.repro_ssd_f32_chunk_state, x, dt,
+            A, A.stride(0) if A.ndim == 2 else 0, Bg, S, seg, B, L, H, P, G,
+            N, chunk)
+    return S, seg
+
+
+def ssd_f32_state_pass(S, seg, *, chunk: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pass 2 of the float32 route: (the states entering chunks 1 .. nc-1
+    (B,nc-1,H,P,N), the final state (B,H,P,N)), float32, as
+    :func:`.ref.state_pass_ref` (its plain version)."""
+    B, nc, H, P, N = S.shape
+    if tuple(seg.shape) != (B, H, nc * chunk):
+        raise ValueError(f"ssd_f32_state_pass: seg {tuple(seg.shape)} does "
+                         f"not fit S {tuple(S.shape)} and chunk={chunk}")
+    if S.device.type == "cpu":
+        return state_pass_ref(S, seg, chunk)
+    _check_bwd("ssd_f32_state_pass", torch.float32, chunk, S=S, seg=seg)
+    s_in = _f32(B, nc - 1, H, P, N, like=S)
+    state = _f32(B, H, P, N, like=S)
+    _launch("ssd_f32_state_pass", _LIB.lib.repro_ssd_f32_state_pass, S, seg,
+            s_in, state, B, nc * chunk, H, P, N, chunk)
+    return s_in, state
+
+
+def ssd_f32_chunk_scan(x, dt, seg, Bg, Cg, s_in, *, chunk: int
+                       ) -> torch.Tensor:
+    """Pass 3 of the float32 route: y (B,L,H,P) float32 from seg (pass 1)
+    and the entering states s_in (B,nc-1,H,P,N) (pass 2), as
+    :func:`.ref.chunk_scan_ref` (its plain version)."""
+    _check_shapes(x, dt, None, Bg, Cg, chunk)
+    B, L, H, P = x.shape
+    G, N = Bg.shape[2], Bg.shape[3]
+    want = (B, L // chunk - 1, H, P, N)
+    if tuple(seg.shape) != (B, H, L) or tuple(s_in.shape) != want:
+        raise ValueError(f"ssd_f32_chunk_scan: seg {tuple(seg.shape)} and "
+                         f"s_in {tuple(s_in.shape)} do not fit x "
+                         f"{tuple(x.shape)} (want ({B}, {H}, {L}) and "
+                         f"{want})")
+    if x.device.type == "cpu":
+        return chunk_scan_ref(x, dt, seg, Bg, Cg, s_in, chunk)
+    _check_bwd("ssd_f32_chunk_scan", torch.float32, chunk, x=x, dt=dt,
+               seg=seg, B=Bg, C=Cg, s_in=s_in)
+    y = torch.empty_like(x)
+    _launch("ssd_f32_chunk_scan", _LIB.lib.repro_ssd_f32_chunk_scan, x, dt,
+            seg, Bg, Cg, s_in, y, B, L, H, P, G, N, chunk)
+    return y
+
+
+def ssd_f32_scan_heads(B: int, L: int, H: int, G: int, chunk: int) -> int:
+    """Heads a block that :func:`ssd_f32_chunk_scan` runs at this shape on
+    the current card: 4 (a group's heads share C.B^T) where that grid gives
+    every SM two blocks, else 1.  A head's results are the same bits
+    either way.  Builds the library: a card is needed."""
+    return _LIB.lib.repro_ssd_f32_scan_heads(B, L, H, G, chunk)
+
+
 def ssd_scan_kernel(x, dt, A, Bg, Cg, *, chunk: int
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B,L,H,P); dt: (B,L,H); A: (H,) or per sequence (B,H); Bg/Cg:
@@ -357,7 +448,7 @@ def ssd_scan_kernel(x, dt, A, Bg, Cg, *, chunk: int
     ``ssd_scan_pallas`` of the head-expanded B and C."""
     _check_shapes(x, dt, A, Bg, Cg, chunk)
     B, L, H, P = x.shape
-    G, N = Bg.shape[2], Bg.shape[3]
+    G = Bg.shape[2]
     if x.device.type == "cpu":
         rep = H // G
         y, state = ssd_scan_ref(x, dt, A, Bg.repeat_interleave(rep, dim=2),
@@ -370,13 +461,13 @@ def ssd_scan_kernel(x, dt, A, Bg, Cg, *, chunk: int
         S, seg = ssd_chunk_state(x, dt, A, Bg, chunk=chunk)
         hi, lo, state = ssd_state_pass(S, seg, chunk=chunk)
         y = ssd_chunk_scan(x, dt, seg, Bg, Cg, hi, lo, chunk=chunk)
-        launch_counts["ssd_scan"] += 1
-        return y, state
-    A = A.expand(B, H).contiguous()
-    y = torch.empty_like(x)
-    state = torch.empty(B, H, P, N, dtype=torch.float32, device=x.device)
-    _launch("ssd_scan", _LIB.lib.repro_ssd_scan, x, dt, A, Bg, Cg, y, state,
-            B, L, H, P, G, N, chunk, _DTYPES[x.dtype])
+    else:
+        if A.stride(-1) != 1:
+            A = A.contiguous()
+        S, seg = ssd_f32_chunk_state(x, dt, A, Bg, chunk=chunk)
+        s_in, state = ssd_f32_state_pass(S, seg, chunk=chunk)
+        y = ssd_f32_chunk_scan(x, dt, seg, Bg, Cg, s_in, chunk=chunk)
+    launch_counts["ssd_scan"] += 1
     return y, state
 
 
@@ -514,10 +605,10 @@ def _check_like(name: str, t: torch.Tensor, shape) -> None:
 
 
 def _check_bwd(name: str, dtype: torch.dtype, chunk: int, **tensors) -> None:
-    """What the backward's kernels take: x, gy, B, C (and their tangents)
-    in ``dtype``, float32 or bfloat16; every other tensor float32; all on
-    one card and contiguous (A in its last dim); P <= 64, N <= 128, chunk <=
-    256."""
+    """What the backward's kernels and the float32 forward's take: x, gy,
+    B, C (and their tangents) in ``dtype``, float32 or bfloat16; every
+    other tensor float32; all on one card and contiguous (A in its last
+    dim); P <= 64, N <= 128, chunk <= 256."""
     if dtype not in _DTYPES:
         raise ValueError(f"{name}: dtype {dtype} is not supported by the "
                          f"CUDA kernels; use float32 or bfloat16")
@@ -584,10 +675,6 @@ def _bwd_dims(x, Bg, A, tA, chunk: int) -> list:
             int(A.ndim == 2)]
 
 
-def _f32(*shape, like: torch.Tensor) -> torch.Tensor:
-    return torch.empty(*shape, dtype=torch.float32, device=like.device)
-
-
 def ssd_bwd_state(x, dt, A, Bg, Cg, gy, *, chunk: int
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Pass 1 of :func:`ssd_scan_bwd`: (S, Lc (B,nc,H,P,N), seg (B,H,L)),
@@ -651,44 +738,39 @@ def _check_chunk(name, x, seg, s_in, gO, sg, chunk) -> None:
                          f"and chunk={chunk}")
 
 
-def _gram_tiles(dtype, chunk: int, tangent: bool) -> tuple[int, int] | None:
+def _gram_tiles(dtype, chunk: int) -> tuple[int, int]:
     """(pairs of tiles a chunk, floats a tile) of the gram kernel's C·Bᵀ
-    tiles: in bfloat16 each pair of 64-row tiles q >= k (64·64); in the
-    float32 tangent each 64-row key tile k with each 32-row query tile
-    that meets k <= q (64·32); None in the float32 backward (no gram
-    kernel)."""
+    tiles: in bfloat16 each pair of 64-row tiles q >= k (64·64); in
+    float32 each 64-row key tile k with each 32-row query tile that meets
+    k <= q (64·32)."""
     if dtype == torch.bfloat16:
         nt = -(-chunk // 64)
         return nt * (nt + 1) // 2, 64 * 64
-    if tangent:
-        nk, nq = -(-chunk // 64), -(-chunk // 32)
-        return nk * nq - nk * (nk - 1), 64 * 32
-    return None
+    nk, nq = -(-chunk // 64), -(-chunk // 32)
+    return nk * nq - nk * (nk - 1), 64 * 32
 
 
-def _scratch(x, Bg, chunk, heads=True, tangent=False):
+def _scratch(x, Bg, chunk, heads=True):
     """The chunk kernel's outputs for the finish and reduce kernels; dB and
-    dC per head (B,L,H,N) only with ``heads``; where the route has a gram
-    kernel (bfloat16, the float32 tangent) its C·Bᵀ tiles for the chunk
-    kernel, (B·nc, G, pairs, floats a tile) as :func:`_gram_tiles`."""
+    dC per head (B,L,H,N) only with ``heads``; the gram kernel's C·Bᵀ
+    tiles for the chunk kernel, (B·nc, G, pairs, floats a tile) as
+    :func:`_gram_tiles`."""
     B, L, H, P = x.shape
     G, N = Bg.shape[2], Bg.shape[3]
     out = {k: _f32(B, H, L, like=x) for k in ("ddd", "dsk", "dsq", "tk")}
     out["dAp"] = _f32(B, L // chunk, H, like=x)
     if heads:
         out.update(dBh=_f32(B, L, H, N, like=x), dCh=_f32(B, L, H, N, like=x))
-    tiles = _gram_tiles(x.dtype, chunk, tangent)
-    if tiles is not None:
-        out["gram"] = _f32(B * (L // chunk), G, *tiles, like=x)
+    out["gram"] = _f32(B * (L // chunk), G, *_gram_tiles(x.dtype, chunk),
+                       like=x)
     return out
 
 
 def _chunk_launches(x, dt, A, Bg, Cg, gy, seg, s_in, gO, sg, chunk,
                     tangents=None):
     """The chunk wrapper's launches ({key: a call that makes that one
-    launch}, in launch order: in bfloat16 and in the float32 tangent the
-    gram kernel's C·Bᵀ first) and
-    the outputs they fill, (dx, ddt, dA, dB, dC); with ``tangents`` (tx,
+    launch}, in launch order: the gram kernel's C·Bᵀ first) and the
+    outputs they fill, (dx, ddt, dA, dB, dC); with ``tangents`` (tx,
     tdt, tA, tB, tC, tgy, tseg, ts_in, tgO, tsg) the tangent's launches and
     the outputs' tangents.  Each launch reads only what the ones before it
     wrote, so each can be run again alone."""
@@ -706,13 +788,12 @@ def _chunk_launches(x, dt, A, Bg, Cg, gy, seg, s_in, gO, sg, chunk,
         # the group sums read only the tangent planes of dB and dC per head
         planes.update({k: (None, v) for k, v in zip(
             ("dx", "ddt", "dA", "dB", "dC"), out)})
-        scratch = _scratch(x, Bg, chunk, heads=False, tangent=True)
+        scratch = _scratch(x, Bg, chunk, heads=False)
         planes.update({k: (scratch.get(k), v) for k, v in _scratch(
-            x, Bg, chunk, tangent=True).items()})
+            x, Bg, chunk).items()})
     dims = _bwd_dims(x, Bg, A, t[2], chunk)
-    keys = ("ssd_bwd_chunk", "ssd_bwd_finish", "ssd_bwd_reduce")
-    if _gram_tiles(x.dtype, chunk, tangents is not None) is not None:
-        keys = ("ssd_bwd_gram", *keys)
+    keys = ("ssd_bwd_gram", "ssd_bwd_chunk", "ssd_bwd_finish",
+            "ssd_bwd_reduce")
     calls = {k: (lambda k=k: _bwd_launch(k, tangents is not None, x.dtype,
                                          dims, **planes)) for k in keys}
     return calls, tuple(out)
@@ -722,8 +803,8 @@ def ssd_bwd_chunk(x, dt, A, Bg, Cg, gy, seg, s_in, gO, sg, *, chunk: int
                   ) -> tuple[torch.Tensor, ...]:
     """Pass 3 of :func:`ssd_scan_bwd`: (dx in x's dtype, ddt float32, dA
     float32 shaped as A, dB, dC in their dtypes), as
-    :func:`.ref.bwd_chunk_ref`.  In bfloat16 first the gram kernel (C·Bᵀ
-    of each pair of 64-row tiles, once per group); then the chunk kernel
+    :func:`.ref.bwd_chunk_ref`.  First the gram kernel (C·Bᵀ of each pair
+    of a key and a query tile, once per group); then the chunk kernel
     (each chunk's tiles), the finish kernel (ddt and each chunk's dA) and
     the reduce kernel (dB and dC over a group's heads, dA over chunks)."""
     _check_shapes(x, dt, A, Bg, Cg, chunk)
@@ -755,7 +836,7 @@ def ssd_scan_bwd(x, dt, A, Bg, Cg, gy, gs, *, chunk: int
     shaped and typed as its input (dt and A float32).  On CPU tensors the
     plain versions of the three passes composed; on CUDA tensors
     :func:`ssd_bwd_state`, :func:`ssd_bwd_pass` and :func:`ssd_bwd_chunk`,
-    six launches in bfloat16, five in float32."""
+    six launches in either dtype."""
     _check_bwd_inputs("ssd_scan_bwd", x, dt, A, Bg, Cg, gy, gs, chunk)
     if x.device.type == "cpu":
         S, Lc, seg = bwd_state_ref(x, dt, A, Bg, Cg, gy, chunk)

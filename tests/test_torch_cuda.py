@@ -550,11 +550,16 @@ def _ssd_inputs(gen, B, L, H, P, N, G, dtype, device):
          "full-width", "one-chunk-full-width", "one-chunk-ragged100"])
 def test_cuda_ssd_scan_matches_plain_version(cuda, dtype, L, chunk, H, G,
                                              P, N):
+    """One call (three launches of its dtype's route: tfs's in float32,
+    hop's in bfloat16) against the per-step recurrence."""
     gen = torch.Generator().manual_seed(L + chunk)
     x, dt, A, Bm, Cm = _ssd_inputs(gen, 2, L, H, P, N, G, dtype, cuda)
-    before = sops.launch_counts["ssd_scan"]
+    before = dict(sops.launch_counts)
     y, s = sops.ssd_scan_kernel(x, dt, A, Bm, Cm, chunk=chunk)
-    assert sops.launch_counts["ssd_scan"] == before + 1
+    passes = (sops.F32_PASSES if dtype == torch.float32 else
+              ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan"))
+    assert {k: sops.launch_counts[k] - before[k] for k in before} == {
+        **{k: 0 for k in before}, "ssd_scan": 1, **{k: 1 for k in passes}}
     assert y.dtype == dtype and s.dtype == torch.float32
     rep = H // G
     yr, sr = sref.ssd_scan_ref(x, dt, A, Bm.repeat_interleave(rep, 2),
@@ -596,7 +601,9 @@ def test_cuda_ssd_scan_vmap_of_grad_matches_the_cpu(cuda):
 
 
 @pytest.mark.requires_cuda
-def test_cuda_ssd_scan_raises_instead_of_falling_back(cuda):
+def test_cuda_ssd_scan_raises_instead_of_falling_back(cuda, monkeypatch):
+    """What the kernels do not take raises, and so does a refused float32
+    launch: there is no other float32 route on the card."""
     gen = torch.Generator().manual_seed(1)
     x, dt, A, Bm, Cm = _ssd_inputs(gen, 1, 64, 2, 16, 32, 1, torch.float32,
                                    cuda)
@@ -611,6 +618,13 @@ def test_cuda_ssd_scan_raises_instead_of_falling_back(cuda):
                              dt, A, Bm, Cm, chunk=32)
     with pytest.raises(ValueError, match=r"L=64 % chunk=48 = 16"):
         sops.ssd_scan_kernel(x, dt, A, Bm, Cm, chunk=48)
+    sops.build()
+    monkeypatch.setattr(sops._LIB.lib, "repro_ssd_f32_chunk_state",
+                        lambda *a: 1)
+    before = dict(sops.launch_counts)
+    with pytest.raises(RuntimeError, match="ssd_f32_chunk_state kernel"):
+        sops.ssd_scan_kernel(x, dt, A, Bm, Cm, chunk=32)
+    assert sops.launch_counts == before
 
 
 # The last two are one chunk (a prompt no longer than the model's chunk):
@@ -704,20 +718,20 @@ def test_cuda_tensor_map_kernels_launch_from_a_fresh_thread(cuda):
 
 @pytest.mark.requires_cuda
 def test_cuda_ssd_scan_counts_calls_and_each_kernel(cuda):
-    """A bf16 call counts one ``ssd_scan`` call and one launch of each of
-    its three kernels, with A per sequence read through its strides; a
-    float32 call counts one ``ssd_scan`` launch and none of theirs."""
+    """A call counts one ``ssd_scan`` call and one launch of each of its
+    route's three kernels (bf16: hop's, float32: tfs's) and none of the
+    other route's, with A per sequence read through its strides."""
     gen = torch.Generator().manual_seed(5)
     x, dt, A, Bm, Cm = _ssd_inputs(gen, 2, 256, 4, 16, 32, 2,
                                    torch.bfloat16, cuda)
     A2 = torch.stack([A, 0.5 * A])
-    for dtype, want in ((torch.bfloat16, (1, 1, 1, 1)),
-                        (torch.float32, (1, 0, 0, 0))):
+    for dtype, want in ((torch.bfloat16, (1, 1, 1, 1, 0, 0, 0)),
+                        (torch.float32, (1, 0, 0, 0, 1, 1, 1))):
         before = dict(sops.launch_counts)
         y, s = sops.ssd_scan_kernel(x.to(dtype), dt, A2, Bm.to(dtype),
                                     Cm.to(dtype), chunk=64)
         keys = ("ssd_scan", "ssd_chunk_state", "ssd_state_pass",
-                "ssd_chunk_scan")
+                "ssd_chunk_scan", *sops.F32_PASSES)
         assert tuple(sops.launch_counts[k] - before[k] for k in keys) == want
         yr, sr = sref.ssd_scan_ref(x.to(dtype), dt, A2,
                                    Bm.repeat_interleave(2, 2).to(dtype),
@@ -727,6 +741,29 @@ def test_cuda_ssd_scan_counts_calls_and_each_kernel(cuda):
             torch.testing.assert_close(y, yr, **SSD_F32_TOL)
         else:
             assert_flash_close(y, yr.to(dtype), dict(rtol=1.6e-2, atol=0.0))
+
+
+@pytest.mark.requires_cuda
+def test_cuda_ssd_f32_four_heads_a_block_match_one_head_a_block(cuda):
+    """At (16, 1024, 12 heads of 64, N = 128, two groups, chunk 256) the
+    float32 chunk outputs run four heads a block (group 1, and a block of
+    two of a group's six heads), within SSD_F32_TOL of the per-step
+    recurrence; the first and last sequences called alone run one head a
+    block (a grid too small for four) and give the same bits."""
+    gen = torch.Generator().manual_seed(14)
+    args = _ssd_inputs(gen, 16, 1024, 12, 64, 128, 2, torch.float32, cuda)
+    y, s = sops.ssd_scan_kernel(*args, chunk=256)
+    assert sops.ssd_f32_scan_heads(16, 1024, 12, 2, 256) == 4
+    assert sops.ssd_f32_scan_heads(1, 1024, 12, 2, 256) == 1
+    x, dt, A, Bm, Cm = args
+    yr, sr = sref.ssd_scan_ref(x, dt, A, Bm.repeat_interleave(6, 2),
+                               Cm.repeat_interleave(6, 2))
+    torch.testing.assert_close(s, sr, **SSD_F32_TOL)
+    torch.testing.assert_close(y, yr, **SSD_F32_TOL)
+    for b in (0, 15):
+        yb, sb = sops.ssd_scan_kernel(x[b:b + 1], dt[b:b + 1], A,
+                                      Bm[b:b + 1], Cm[b:b + 1], chunk=256)
+        assert torch.equal(yb[0], y[b]) and torch.equal(sb[0], s[b])
 
 
 @pytest.mark.requires_cuda
@@ -1296,10 +1333,9 @@ def _assert_bwd_close(got, want):
                          ids=SSD_BWD_IDS)
 def test_cuda_ssd_bwd_matches_plain_version(cuda, L, chunk, H, G, P, N,
                                             per_seq, dtype, tangent):
-    """One call (five launches in the float32 backward; six in bfloat16
-    and in the float32 tangent, the gram kernel's among them) within
-    SSD_BWD_TOL of the plain passes composed; a second call gives the same
-    bits."""
+    """One call (six launches in either dtype, backward or tangent, the
+    gram kernel's among them) within SSD_BWD_TOL of the plain passes
+    composed; a second call gives the same bits."""
     gen = torch.Generator().manual_seed(L + chunk + tangent)
     args, targs = _bwd_inputs(gen, 2, L, H, P, N, G, dtype, cuda, per_seq)
     key = "ssd_scan_bwd_tangent" if tangent else "ssd_scan_bwd"
@@ -1312,10 +1348,10 @@ def test_cuda_ssd_bwd_matches_plain_version(cuda, L, chunk, H, G, P, N,
     got = call()
     after = dict(sops.launch_counts)
     assert after[key] == before[key] + 1
-    for p in ("state", "pass", "chunk", "finish", "reduce"):
+    for p in ("state", "pass", "gram", "chunk", "finish", "reduce"):
         assert after[prefix + p] == before[prefix + p] + 1
-    assert after[prefix + "gram"] == before[prefix + "gram"] + (
-        dtype == torch.bfloat16 or tangent)
+    assert sum(after[k] - before[k] for k in before
+               if k.startswith(prefix)) == 6
     want = (_bwd_tangent_plain(args, targs, chunk) if tangent
             else _bwd_plain(args, chunk))
     _assert_bwd_close(got, want)
@@ -1330,15 +1366,15 @@ SSD_BWD_HOPPER_KERNELS = ("state_kernel", "gram_kernel", "chunk_kernel")
 
 @pytest.mark.requires_cuda
 def test_cuda_ssd_bwd_bf16_runs_the_hopper_kernels(cuda):
-    """A bf16 call at the mamba2 width (P = 64, N = 128, one group, chunk
-    256) counts the gram launch that only the Hopper routes make (its
-    tangent call the tangent's), a float32 backward call none and a float32
-    tangent call one (namespace tbw's); and the built library holds
-    namespace hbw's kernels, tbw's float32 tangent kernels, no bf16
-    instantiation of namespace sbw and no sbw tangent kernel (cuobjdump's
-    symbols): nothing can launch the mma.sync kernels the bf16 route
-    replaced or the CUDA-core tangent the float32 one replaced.  The flash
-    library holds no jvpk (CUDA-core T1) kernel either."""
+    """A call at the mamba2 width (P = 64, N = 128, one group, chunk 256)
+    counts the gram launch of the Hopper routes in either dtype, backward
+    and tangent (hbw's in bf16, tbw's in float32); and the built library
+    holds namespace hbw's kernels and tbw's, the backward's and the
+    tangent's, and no kernel of namespace sbw (cuobjdump's symbols):
+    nothing can launch the mma.sync kernels the bf16 route replaced or the
+    CUDA-core kernels the float32 one replaced.  The flash library holds no
+    jvpk (CUDA-core T1) kernel either, and the scan's library no kernel of
+    the one-launch CUDA-core float32 forward (ssd_scan_kernel)."""
     import shutil
     import subprocess
     gen = torch.Generator().manual_seed(11)
@@ -1352,29 +1388,62 @@ def test_cuda_ssd_bwd_bf16_runs_the_hopper_kernels(cuda):
                     *args, *targs, chunk=256))):
             before = sops.launch_counts[key]
             call()
-            assert sops.launch_counts[key] == before + (
-                dtype == torch.bfloat16 or "tangent" in key), (key, dtype)
+            assert sops.launch_counts[key] == before + 1, (key, dtype)
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     symbols = subprocess.run([tool, "-symbols", sops.BWD_LIB.build()["path"]],
                              capture_output=True, text=True, check=True,
                              timeout=300).stdout
-    assert "3sbw" in symbols and "3hbw" in symbols
-    for name in SSD_BWD_HOPPER_KERNELS:
-        for twin in (name, "tangent_" + name):
-            assert f"3hbw{len(twin)}{twin}E" in symbols, twin
-    sbw_bf16 = [line for line in symbols.splitlines()
-                if "3sbw" in line and "13__nv_bfloat16" in line]
-    assert not sbw_bf16, sbw_bf16
-    for name in SSD_BWD_HOPPER_KERNELS:
-        twin = "tangent_" + name
-        assert f"3tbw{len(twin)}{twin}E" in symbols, twin
-    sbw_tangent = [line for line in symbols.splitlines()
-                   if "3sbw" in line and "tangent_" in line]
-    assert not sbw_tangent, sbw_tangent
+    assert "3hbw" in symbols and "3tbw" in symbols
+    for space in ("hbw", "tbw"):
+        for name in SSD_BWD_HOPPER_KERNELS:
+            for twin in (name, "tangent_" + name):
+                assert f"3{space}{len(twin)}{twin}E" in symbols, (space, twin)
+    assert "3sbw" not in symbols
     flash = subprocess.run([tool, "-symbols", fops.build()["path"]],
                            capture_output=True, text=True, check=True,
                            timeout=300).stdout
     assert "tf32" in flash and "jvpk" not in flash
+    scan = subprocess.run([tool, "-symbols", sops.build()["path"]],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    assert "3tfs18chunk_state_kernel" in scan and \
+        "3tfs17chunk_scan_kernel" in scan
+    assert "15ssd_scan_kernel" not in scan
+
+
+@pytest.mark.requires_cuda
+def test_cuda_f32_ssd_scan_and_bwd_launch_only_their_kernels(cuda):
+    """At the mamba2 training shape (8, 512, 24 heads of 64, N = 128, one
+    group, chunk 256, A per sequence) in float32, a forward call runs
+    tfs::chunk_state_kernel, tfs::state_pass_kernel, tfs::chunk_scan_kernel
+    on the card, in that order, and a backward call tbw::state_kernel,
+    ssd::pass_kernel, tbw::gram_kernel, tbw::chunk_kernel,
+    tbw::finish_kernel, tbw::reduce_kernel: never a kernel of namespace
+    sbw, the one-launch CUDA-core forward they replaced, a copy or an
+    expansion; a second call of each gives the same bits."""
+    gen = torch.Generator().manual_seed(13)
+    args, _ = _bwd_inputs(gen, 8, 512, 24, 64, 128, 1, torch.float32, cuda,
+                          True)
+    fwd = lambda: sops.ssd_scan_kernel(*args[:5], chunk=256)
+    bwd = lambda: sops.ssd_scan_bwd(*args, chunk=256)
+    first, grads = fwd(), bwd()
+    fwd_names, again = _launched(fwd)
+    bwd_names, grads2 = _launched(bwd)
+
+    def short(name):              # "namespace::kernel", template left out
+        name = name.replace("(anonymous namespace)::", "").replace(
+            "void ", "")
+        return name.split("(")[0].split("<")[0]
+
+    assert [short(n) for n in fwd_names] == [
+        "tfs::chunk_state_kernel", "tfs::state_pass_kernel",
+        "tfs::chunk_scan_kernel"], fwd_names
+    assert [short(n) for n in bwd_names] == [
+        "tbw::state_kernel", "ssd::pass_kernel", "tbw::gram_kernel",
+        "tbw::chunk_kernel", "tbw::finish_kernel", "tbw::reduce_kernel"], \
+        bwd_names
+    for a, b in zip((*first, *grads), (*again, *grads2)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.requires_cuda

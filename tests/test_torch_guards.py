@@ -58,6 +58,19 @@ def test_no_source_names_the_reference_package():
     assert not hits, hits
 
 
+def test_no_card_script_names_the_reference_package():
+    """The scripts that measure the port on the card (ablations, profiles)
+    import neither jax nor the reference package, as chip_smoke.py."""
+    pattern = re.compile(r"^\s*(import repro\b(?!_torch)|from repro\b"
+                         r"(?!_torch)|import jax|from jax)", re.M)
+    files = sorted((ROOT / "scripts").glob("ablate_*.py")) + sorted(
+        (ROOT / "scripts").glob("profile_*.py"))
+    assert any(f.name == "ablate_ssd_scan_f32.py" for f in files)
+    hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
+            for f in files for m in pattern.finditer(f.read_text())]
+    assert not hits, hits
+
+
 def test_entry_points_raise_without_a_device():
     """No device given and no CUDA card: every entry point refuses."""
     if torch.cuda.is_available():
