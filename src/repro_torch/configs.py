@@ -5,17 +5,13 @@
 dense decoder family (attention, MLP, norms), the Mamba2 family (the
 ``ssm_*`` fields), the MoE family (the MLA and ``moe_*`` fields) and the
 encoder-decoder and vision families (``encoder_*``, ``cross_attn_every``,
-``num_patches``, ``inner_freeze``) use, with the same names and defaults.
-:data:`SINE_MLP`, :data:`OMNIGLOT_CNN`, :data:`QWEN2_1_5B`,
-:data:`MAMBA2_130M`, :data:`DEEPSEEK_V2_LITE_16B`, :data:`MIXTRAL_8X22B`,
-:data:`WHISPER_LARGE_V3` and :data:`LLAMA_3_2_VISION_90B` are
-``configs/sine_mlp.py``, ``configs/omniglot_cnn.py``,
-``configs/qwen2_1_5b.py``, ``configs/mamba2_130m.py``,
-``configs/deepseek_v2_lite_16b.py``, ``configs/mixtral_8x22b.py``,
-``configs/whisper_large_v3.py`` and ``configs/llama_3_2_vision_90b.py``
-copied (without the mesh fields ``attn_shard`` and ``placement``);
-:data:`PAPER_OWN` names the paper's own two.  Later slices add the fields
-and configurations their models read.
+``num_patches``, ``inner_freeze``) and the hybrid family (``attn_every``,
+``moe_every``, ``moe_offset``) use, with the same names and defaults.
+Each of the JAX package's ``configs/<name>.py`` is copied here as the
+constant of that name in capitals (:data:`SINE_MLP`, :data:`QWEN2_7B`,
+:data:`JAMBA_1_5_LARGE_398B`, ...), without the mesh fields
+``attn_shard`` and ``placement``; :data:`ASSIGNED`, :data:`PAPER_OWN` and
+:func:`list_archs` are the reference's lists of them.
 
 :data:`INPUT_SHAPES`, :func:`register_input_shape` and
 :func:`resolve_input_shape` are the reference's input-shape registry, with
@@ -90,7 +86,7 @@ def resolve_input_shape(shape: InputShape | str) -> InputShape:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    arch_type: str                  # dense | moe | ssm | vlm | audio | mlp | cnn
+    arch_type: str                  # dense | moe | ssm | hybrid | vlm | audio | mlp | cnn
     num_layers: int
     d_model: int
     num_heads: int
@@ -120,18 +116,21 @@ class ArchConfig:
     num_shared_experts: int = 0
     experts_per_token: int = 0
     moe_d_ff: int | None = None     # per-expert hidden (defaults to d_ff)
+    moe_every: int = 1              # MoE FFN on layers where (l % moe_every == moe_offset)
+    moe_offset: int = 0
     first_dense_layers: int = 0     # leading dense layers before MoE (deepseek)
     moe_capacity_factor: float = 1.25
     moe_router_dtype: str = "float32"
     moe_dispatch: str = "sorted"    # sorted | einsum | auto (layers.moe_apply)
 
-    # --- ssm ------------------------------------------------------------------
+    # --- ssm / hybrid --------------------------------------------------------
     ssm_state: int = 0
     ssm_head_dim: int = 64
     ssm_expand: int = 2
     ssm_conv: int = 4
     ssm_groups: int = 1
     ssm_chunk: int = 256
+    attn_every: int = 0             # hybrid: 1 attention layer per `attn_every` layers
 
     # --- multimodal / enc-dec -------------------------------------------------
     encoder_layers: int = 0
@@ -202,6 +201,8 @@ class ArchConfig:
                       v_head_dim=32)
         if self.ssm_state:
             kw.update(ssm_state=32, ssm_head_dim=16, ssm_chunk=32)
+        if self.attn_every:
+            kw.update(num_layers=self.attn_every)  # one full hybrid period
         if self.encoder_layers:
             kw.update(encoder_layers=2, encoder_frames=16)
         if self.cross_attn_every:
@@ -408,33 +409,134 @@ LLAMA_3_2_VISION_90B = ArchConfig(
     source="hf:meta-llama/Llama-3.2-11B-Vision",
 )
 
+# qwen2-7b [arXiv:2407.10671]: dense GQA decoder with QKV bias.  28
+# layers, d_model=3584, 28 heads (GQA kv=4, head_dim=128), d_ff=18944,
+# vocab=152064.
+QWEN2_7B = ArchConfig(
+    name="qwen2-7b",
+    arch_type="dense",
+    num_layers=28,
+    d_model=3584,
+    num_heads=28,
+    num_kv_heads=4,
+    head_dim=128,
+    d_ff=18944,
+    vocab_size=152064,
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+    meta_mode="maml",
+    outer_optimizer="adam",
+    source="arXiv:2407.10671",
+)
+
+# qwen2-7b-swa: qwen2-7b with an 8k sliding window (the reference's
+# beyond-paper variant, which bounds the decode KV cache at the window).
+QWEN2_7B_SWA = dataclasses.replace(
+    QWEN2_7B,
+    name="qwen2-7b-swa",
+    sliding_window=8192,
+    source="arXiv:2407.10671 (+SWA long-context variant)",
+)
+
+# codeqwen1.5-7b [hf:Qwen/CodeQwen1.5-7B]: qwen1.5-architecture dense MHA.
+# 32 layers, d_model=4096, 32 heads (kv=32), d_ff=13440, vocab=92416, QKV
+# bias, RoPE theta 1M.
+CODEQWEN1_5_7B = ArchConfig(
+    name="codeqwen1.5-7b",
+    arch_type="dense",
+    num_layers=32,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=32,
+    head_dim=128,
+    d_ff=13440,
+    vocab_size=92416,
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+    meta_mode="maml",
+    outer_optimizer="adam",
+    source="hf:Qwen/CodeQwen1.5-7B",
+)
+
+# command-r-35b [hf:CohereForAI/c4ai-command-r-v01]: dense GQA, no bias.
+# 40 layers, d_model=8192, 64 heads (GQA kv=8, head_dim=128), d_ff=22528,
+# vocab=256000, LayerNorm, SiLU-gated MLP, the sequential pre-norm block.
+# Outer optimizer: SGD (35B fp32 Adam state would not fit beside the MAML
+# adapted copy).
+COMMAND_R_35B = ArchConfig(
+    name="command-r-35b",
+    arch_type="dense",
+    num_layers=40,
+    d_model=8192,
+    num_heads=64,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=22528,
+    vocab_size=256000,
+    norm="layernorm",
+    rope_theta=8_000_000.0,
+    meta_mode="maml",
+    outer_optimizer="sgd",
+    source="hf:CohereForAI/c4ai-command-r-v01",
+)
+
+# jamba-1.5-large-398b [arXiv:2403.19887]: hybrid Mamba+attention MoE.  72
+# layers in 9 periods of 8 (1 attention : 7 Mamba), MoE (16 experts, top-2)
+# on every other layer, d_model=8192, 64 heads (GQA kv=8), d_ff=24576,
+# vocab=65536.  The Mamba mixers use the Mamba2/SSD formulation (state 128,
+# head_dim 64).
+JAMBA_1_5_LARGE_398B = ArchConfig(
+    name="jamba-1.5-large-398b",
+    arch_type="hybrid",
+    num_layers=72,
+    d_model=8192,
+    num_heads=64,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=24576,
+    vocab_size=65536,
+    num_experts=16,
+    experts_per_token=2,
+    moe_every=2,
+    moe_offset=1,
+    attn_every=8,
+    ssm_state=128,
+    ssm_head_dim=64,
+    ssm_expand=2,
+    use_rope=True,
+    meta_mode="fomaml",
+    outer_optimizer="sgd",
+    source="arXiv:2403.19887",
+)
+
 _CONFIGS = {"sine_mlp": SINE_MLP, "omniglot_cnn": OMNIGLOT_CNN,
             "qwen2_1_5b": QWEN2_1_5B, "mamba2_130m": MAMBA2_130M,
             "deepseek_v2_lite_16b": DEEPSEEK_V2_LITE_16B,
             "mixtral_8x22b": MIXTRAL_8X22B,
             "whisper_large_v3": WHISPER_LARGE_V3,
-            "llama_3_2_vision_90b": LLAMA_3_2_VISION_90B}
+            "llama_3_2_vision_90b": LLAMA_3_2_VISION_90B,
+            "qwen2_7b": QWEN2_7B, "qwen2_7b_swa": QWEN2_7B_SWA,
+            "codeqwen1_5_7b": CODEQWEN1_5_7B,
+            "command_r_35b": COMMAND_R_35B,
+            "jamba_1_5_large_398b": JAMBA_1_5_LARGE_398B}
 
-# The paper's own models (the reference's ``configs/base.py::PAPER_OWN``).
+# The reference's ``configs/base.py`` lists: the assigned LM configurations
+# and the paper's own two models.
+ASSIGNED = [
+    "whisper_large_v3", "deepseek_v2_lite_16b", "qwen2_1_5b", "command_r_35b",
+    "mixtral_8x22b", "jamba_1_5_large_398b", "mamba2_130m",
+    "llama_3_2_vision_90b", "codeqwen1_5_7b", "qwen2_7b",
+]
 PAPER_OWN = ["sine_mlp", "omniglot_cnn"]
-
-# The JAX package's other configurations and the port slice that brings
-# each family.
-_LATER = {
-    "jamba_1_5_large_398b": "a hybrid Mamba/MoE slice",
-    "qwen2_7b": "a later dense-decoder configuration",
-    "qwen2_7b_swa": "a later dense-decoder configuration",
-    "codeqwen1_5_7b": "a later dense-decoder configuration",
-    "command_r_35b": "a later dense-decoder configuration",
-}
 
 
 def get_config(name: str) -> ArchConfig:
     key = name.replace("-", "_").replace(".", "_")
-    if key in _LATER:
-        raise ValueError(f"config {name!r} is not ported yet: it comes with "
-                         f"{_LATER[key]}; the port has {sorted(_CONFIGS)}")
     if key not in _CONFIGS:
         raise ValueError(f"unknown config {name!r}; the port has "
                          f"{sorted(_CONFIGS)}")
     return _CONFIGS[key]
+
+
+def list_archs(include_paper: bool = False) -> list[str]:
+    return ASSIGNED + (PAPER_OWN if include_paper else [])

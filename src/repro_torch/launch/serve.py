@@ -14,11 +14,10 @@ engine's ``kind=serve`` record to a JSONL run log that
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
       --prompt-len 512 --gen 512
 
-``--arch`` is an LM config the port has (qwen2-1.5b, mamba2-130m,
-deepseek-v2-lite-16b, mixtral-8x22b, whisper-large-v3,
-llama-3.2-vision-90b).  ``--device`` defaults to the CUDA card (and raises
+``--arch`` is any LM config of the reference (``configs.list_archs()``)
+or qwen2-7b-swa.  ``--device`` defaults to the CUDA card (and raises
 without one).  A non-reduced config runs in its own dtype (bfloat16 for
-all six), a reduced one in float32, as the reference picks.  whisper's
+every LM config), a reduced one in float32, as the reference picks.  whisper's
 requests carry zero frames and the vision model's zero patches (the
 reference's stubs, ``steps.modality_extras``).
 """
@@ -75,7 +74,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="cut the model to this many layers, widths kept "
                          "(a depth cut; an encoder-decoder cuts encoder "
                          "and decoder each to N, a vision model takes a "
-                         "multiple of its cross_attn_every)")
+                         "multiple of its cross_attn_every, a hybrid one "
+                         "of its attn_every)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--gen", type=int, default=16)

@@ -78,13 +78,20 @@ def cut_depth(cfg: ArchConfig, layers: int) -> ArchConfig:
     """``cfg`` cut to ``layers`` layers at full width (the entry points'
     ``--layers``): the encoder-decoder family cuts its encoder and its
     decoder each to ``layers``; the vision family takes a multiple of
-    ``cross_attn_every`` (whole periods) and raises otherwise."""
+    ``cross_attn_every`` and the hybrid family a multiple of
+    ``attn_every`` (whole periods), and each raises otherwise."""
     if cfg.arch_type == "vlm" and layers % cfg.cross_attn_every:
         raise ValueError(
             f"{cfg.name}: --layers {layers} is not a multiple of "
             f"cross_attn_every={cfg.cross_attn_every} (a period of "
             f"{cfg.cross_attn_every - 1} self-attention blocks and one "
             f"cross-attention block)")
+    if cfg.arch_type == "hybrid" and (layers < cfg.attn_every
+                                      or layers % cfg.attn_every):
+        raise ValueError(
+            f"{cfg.name}: --layers {layers} is not a multiple of "
+            f"attn_every={cfg.attn_every} (a period of one attention block "
+            f"and {cfg.attn_every - 1} Mamba blocks)")
     kw = dict(num_layers=layers)
     if cfg.arch_type == "audio":
         kw["encoder_layers"] = layers

@@ -4,7 +4,8 @@ Runs the decentralized meta-training loop for the LM families on one card
 (``--device cpu`` runs it on the CPU): K agents (``--agents``) on the
 arch's topology, the config's ``meta_mode`` (exact MAML through the
 kernels and their forward-mode tangent kernels for qwen2, mamba2 and
-whisper, ``fomaml`` for the MoE configs and the vision model), the outer
+whisper, ``fomaml`` for the MoE configs, the vision model and jamba's
+hybrid), the outer
 update by the chosen combine backend (``--fused-outer``: one kernel launch
 a step).  whisper's batches carry zero frames and the vision model's zero
 patches (the reference's stubs); a config's ``inner_freeze`` freezes that
@@ -101,7 +102,8 @@ def _parser() -> argparse.ArgumentParser:
                          "(a depth cut, for a model whose full depth does "
                          "not fit one card; an encoder-decoder cuts "
                          "encoder and decoder each to N, a vision model "
-                         "takes a multiple of its cross_attn_every)")
+                         "takes a multiple of its cross_attn_every, a "
+                         "hybrid one of its attn_every)")
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--global-batch", type=int, default=16)
     ap.add_argument("--agents", type=int, default=4,

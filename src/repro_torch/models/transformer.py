@@ -1,6 +1,6 @@
-"""Model assembly for the dense decoder, Mamba2, MoE, encoder-decoder
-(whisper) and vision (llama-3.2-vision) families — port of
-``repro/models/transformer.py`` without the hybrid family.
+"""Model assembly for the dense decoder, Mamba2, MoE, hybrid (jamba),
+encoder-decoder (whisper) and vision (llama-3.2-vision) families — port of
+``repro/models/transformer.py``.
 
 A model is a list of **segments**; each segment repeats a **period** (a
 short list of blocks) ``n`` times, with the period's parameters stacked on
@@ -8,14 +8,19 @@ a leading layer axis.  The reference scans the stack with ``lax.scan``; the
 port loops over it in Python.  For a dense LM the plan is one segment of L
 ``attn + mlp`` blocks, for Mamba2 one segment of L ``mamba`` blocks, for
 mixtral one of L ``attn + moe`` blocks, for deepseek ``first_dense_layers``
-``mla + mlp`` blocks then the rest ``mla + moe``; for llama-vision one
-segment of L / k periods of (k - 1) ``attn + mlp`` blocks and one gated
-``cross + mlp`` block; for whisper an encoder segment of ``attn_nc +
-mlp`` blocks and a decoder segment of (``attn``, ``cross + mlp``) pairs.
-The parameters are the flat dict of the reference's tree
+``mla + mlp`` blocks then the rest ``mla + moe``; for jamba one segment of
+L / ``attn_every`` periods of one ``attn + mlp`` block and ``attn_every -
+1`` ``mamba`` blocks, each with a ``moe`` FFN where ``i % moe_every ==
+moe_offset`` (i its place in the period) and ``mlp`` elsewhere; for
+llama-vision one segment of L / k periods of (k - 1) ``attn + mlp`` blocks
+and one gated ``cross + mlp`` block; for whisper an encoder segment of
+``attn_nc + mlp`` blocks and a decoder segment of (``attn``, ``cross +
+mlp``) pairs.  The parameters are the flat dict of the reference's tree
 (``segments/0/0/attn/wq`` has shape (L, d, H, hd),
 ``segments/0/0/mamba/w_x`` (L, d, H, P),
-``encoder/segments/0/0/attn/wq``, ``segments/0/1/gate`` (L,)).
+``encoder/segments/0/0/attn/wq``, ``segments/0/1/gate`` (L,)), and so is a
+decode cache (``0/0/k`` beside ``0/1/conv`` and ``0/1/ssm`` in a jamba
+period).
 
 Two properties of the reference are kept as they are: the cross block of
 both families carries llama's tanh gate, initialised to zero, so a fresh
@@ -25,9 +30,6 @@ callers stub are zeros (``launch/steps.py::modality_extras``).
 The reference wraps each layer in ``jax.checkpoint`` (``cfg.remat``).
 ``torch.func`` transforms reject ``torch.utils.checkpoint``, so the port
 runs without it: remat changes memory, not numbers.
-
-The hybrid family comes with a later slice; :func:`segment_plan` raises
-for it.
 """
 from __future__ import annotations
 
@@ -190,6 +192,12 @@ def segment_plan(cfg: ArchConfig) -> list[Segment]:
     t = cfg.arch_type
     if t == "ssm":
         return [Segment(cfg.num_layers, (BlockDesc("mamba", "none"),))]
+    if t == "hybrid":
+        per = [BlockDesc("attn", "dense")]
+        for i in range(1, cfg.attn_every):
+            moe = cfg.num_experts and i % cfg.moe_every == cfg.moe_offset
+            per.append(BlockDesc("mamba", "moe" if moe else "dense"))
+        return [Segment(cfg.num_layers // cfg.attn_every, tuple(per))]
     if t == "vlm":
         k = cfg.cross_attn_every
         per = tuple([BlockDesc("attn", "dense")] * (k - 1)
@@ -207,9 +215,8 @@ def segment_plan(cfg: ArchConfig) -> list[Segment]:
         return [Segment(cfg.num_layers, (BlockDesc("attn", "moe"),))]
     if t not in ("dense", "audio"):
         raise ValueError(
-            f"{cfg.name}: arch_type {t!r} is not ported yet; the port's LM "
-            f"models are the dense decoder, Mamba2, MoE, encoder-decoder "
-            f"and vision families (hybrid comes with a later slice)")
+            f"{cfg.name}: arch_type {t!r} is not a family of the port; its "
+            f"LM families are dense, moe, ssm, hybrid, vlm and audio")
     # dense / audio decoder
     return [Segment(cfg.num_layers, (BlockDesc("attn", "dense"),))]
 

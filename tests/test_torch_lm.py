@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as jax_config
+from repro.configs import list_archs as jax_list_archs
 from repro.models import layers as JL
 from repro.models.transformer import build_model as jax_build
 from repro_torch.configs import get_config
@@ -212,13 +213,18 @@ def test_incremental_decode_matches_forward(models, batch):
 
 
 def test_other_families_raise():
-    """The configs still to come (jamba's hybrid family and the four other
-    dense decoders) raise by name, and so does a hybrid model."""
-    for name in ("jamba-1.5-large-398b", "qwen2-7b", "qwen2-7b-swa",
-                 "codeqwen1.5-7b", "command-r-35b"):
-        with pytest.raises(ValueError, match="not ported yet"):
-            get_config(name)
+    """Every config of the reference's list (and qwen2-7b-swa) resolves in
+    the port, under either spelling of its name; an unknown name raises
+    and lists the port's configs, and so does an ``arch_type`` the port
+    has no plan for."""
+    for name in jax_list_archs(include_paper=True) + ["qwen2_7b_swa"]:
+        cfg = get_config(name)
+        assert cfg.name == jax_config(name).name
+        assert get_config(cfg.name) is cfg
+    with pytest.raises(ValueError, match="unknown config 'qwen3-8b'.*"
+                                         "jamba_1_5_large_398b"):
+        get_config("qwen3-8b")
     cfg = dataclasses.replace(get_config("qwen2-1.5b").reduced(),
-                              arch_type="hybrid")
-    with pytest.raises(ValueError, match="not ported yet"):
+                              arch_type="diffusion")
+    with pytest.raises(ValueError, match="arch_type 'diffusion'"):
         build_model(cfg)

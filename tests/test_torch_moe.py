@@ -19,6 +19,7 @@ from repro.configs import get_config as jax_config
 from repro.models import layers as JL
 from repro.models.init import materialize as jax_materialize
 from repro.models.transformer import build_model as jax_build
+from repro.models.transformer import segment_plan as jax_plan
 from repro_torch.configs import (DEEPSEEK_V2_LITE_16B, MIXTRAL_8X22B,
                                  get_config)
 from repro_torch.convert import from_jax_params
@@ -434,10 +435,27 @@ def test_incremental_decode_matches_forward(arch, batch):
 
 
 def test_hybrid_and_other_families_still_raise():
-    for name in ("jamba-1.5-large-398b", "command-r-35b", "qwen2-7b"):
-        with pytest.raises(ValueError, match="not ported yet"):
-            get_config(name)
-    cfg = dataclasses.replace(get_config("mixtral-8x22b").reduced(),
-                              arch_type="hybrid")
-    with pytest.raises(ValueError, match="not ported yet"):
-        build_model(cfg)
+    """The MoE-in-a-period rule of the hybrid plan against the reference's:
+    jamba's MoE FFN on the odd places of its period of 8, and reduced
+    mixtral's blocks laid out as hybrid periods (every third place, from
+    the second; no experts: every FFN dense)."""
+    def plan(p):
+        return [(s.n, tuple((d.mixer, d.ffn) for d in s.period)) for s in p]
+
+    jamba = get_config("jamba-1.5-large-398b")
+    assert [d.ffn for d in segment_plan(jamba)[0].period] == \
+        ["dense", "moe", "dense", "moe", "dense", "moe", "dense", "moe"]
+    assert plan(segment_plan(jamba)) == plan(jax_plan(
+        jax_config("jamba-1.5-large-398b")))
+    mixtral = [dict(), dict(num_experts=0)]
+    wants = [["moe", "dense", "dense", "moe", "dense"], ["dense"] * 5]
+    for kw, want in zip(mixtral, wants):
+        kw.update(arch_type="hybrid", num_layers=12, attn_every=6,
+                  moe_every=3, moe_offset=1)
+        cfg = dataclasses.replace(get_config("mixtral-8x22b").reduced(),
+                                  **kw)
+        jcfg = dataclasses.replace(jax_config("mixtral-8x22b").reduced(),
+                                   **kw)
+        assert plan(segment_plan(cfg)) == plan(jax_plan(jcfg))
+        assert segment_plan(cfg)[0].n == 2
+        assert [d.ffn for d in segment_plan(cfg)[0].period[1:]] == want
